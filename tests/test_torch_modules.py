@@ -1,0 +1,167 @@
+"""The port's layers against the JAX package's, with one set of weights.
+
+Parameters go from the JAX module to the port's through
+``fft_conv_tpu_torch.utils.convert``; inputs are seeded numpy arrays. The
+fused runs compare the port's plain version of the kernel with the JAX
+package's Pallas kernel in interpret mode (``helpers._assert_close_scaled``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fft_conv_tpu as fc
+import fft_conv_tpu_torch as ft
+from fft_conv_tpu_torch.kernels import fused1d
+from fft_conv_tpu_torch.models.init import conv_fan_in
+from fft_conv_tpu_torch.utils.convert import module_from_jax_state, params_from_jax
+
+from helpers import _assert_almost_equal, _assert_close_scaled
+
+
+def _state(jax_module):
+    return {k: np.asarray(v) for k, v in jax_module.state_dict().items()}
+
+
+def _pair(cls_name, *args, impl, **kw):
+    """(JAX layer, port layer on the CPU) with the JAX layer's parameters."""
+    jax_layer = getattr(fc.nn, cls_name)(*args, key=jax.random.key(3), impl=impl, **kw)
+    torch_layer = getattr(ft.nn, cls_name)(*args, impl=impl, device="cpu", **kw)
+    module_from_jax_state(torch_layer, _state(jax_layer))
+    return jax_layer, torch_layer
+
+
+def test_slice_forward_matches_jax():
+    """The whole slice: FFTConv1d forward through the fused route on both
+    sides, L=4096, K=256, C=4."""
+    jax_layer, torch_layer = _pair("FFTConv1d", 4, 4, 256, padding=3, impl="fused")
+    (x,) = [np.random.default_rng(0).standard_normal((2, 4, 4096)).astype(np.float32)]
+    y_jax = jax_layer(jnp.asarray(x))
+    with torch.no_grad():
+        y = torch_layer(torch.from_numpy(x))
+    _assert_close_scaled(y.numpy(), np.asarray(y_jax))
+
+
+def test_gradients_match_jax():
+    jax_layer, torch_layer = _pair("FFTConv1d", 4, 6, 200, padding=4, groups=2, impl="fused")
+    x = np.random.default_rng(1).standard_normal((2, 4, 3000)).astype(np.float32)
+
+    def loss(layer, s):
+        return (layer(s) ** 2).mean()
+
+    g_layer, g_x = jax.grad(loss, argnums=(0, 1))(jax_layer, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    loss(torch_layer, xt).backward()
+    _assert_close_scaled(torch_layer.weight.grad.numpy(), np.asarray(g_layer.weight))
+    _assert_close_scaled(torch_layer.bias.grad.numpy(), np.asarray(g_layer.bias))
+    _assert_close_scaled(xt.grad.numpy(), np.asarray(g_x))
+
+
+@pytest.mark.parametrize("stride,padding,output_padding,dilation,groups",
+                         [(1, 0, 0, 1, 1), (2, 1, 1, 2, 2), (3, 2, 0, 1, 1)])
+def test_transpose_layer_matches_jax(stride, padding, output_padding, dilation, groups):
+    jax_layer, torch_layer = _pair(
+        "FFTConvTranspose1d", 4, 6, 5, stride=stride, padding=padding,
+        output_padding=output_padding, dilation=dilation, groups=groups, impl="xla",
+    )
+    x = np.random.default_rng(2).standard_normal((2, 4, 17)).astype(np.float32)
+    with torch.no_grad():
+        y = torch_layer(torch.from_numpy(x))
+    _assert_almost_equal(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "reflect", "replicate", "circular"])
+def test_conv_layer_padding_modes_match_jax(padding_mode):
+    jax_layer, torch_layer = _pair("FFTConv1d", 3, 2, 4, padding=2, stride=2,
+                                   padding_mode=padding_mode, impl="xla")
+    x = np.random.default_rng(3).standard_normal((2, 3, 21)).astype(np.float32)
+    with torch.no_grad():
+        y = torch_layer(torch.from_numpy(x))
+    _assert_almost_equal(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
+
+
+def test_transpose_layer_runs_the_composed_path_by_default():
+    layer = ft.FFTConvTranspose1d(2, 3, 4, device="cpu")
+    assert layer.impl == "xla"
+    assert ft.FFTConv1d(2, 3, 4, device="cpu").impl == "auto"
+
+
+@pytest.mark.parametrize("cls,shape,fan_in", [
+    ("FFTConv1d", (6, 2, 5), 10),           # (Cout, Cin/g, K), groups=2
+    ("FFTConvTranspose1d", (4, 3, 5), 15),  # (Cin, Cout/g, K), groups=2
+])
+def test_init_follows_torch(cls, shape, fan_in):
+    layer = getattr(ft.nn, cls)(4, 6, 5, groups=2, device="cpu",
+                                generator=torch.Generator().manual_seed(7))
+    assert tuple(layer.weight.shape) == shape
+    assert conv_fan_in(shape) == fan_in
+    bound = 1 / fan_in ** 0.5
+    assert layer.weight.abs().max() <= bound and layer.bias.abs().max() <= bound
+    assert isinstance(layer.weight, torch.nn.Parameter)
+    again = getattr(ft.nn, cls)(4, 6, 5, groups=2, device="cpu",
+                                generator=torch.Generator().manual_seed(7))
+    assert torch.equal(layer.weight, again.weight)
+    other = getattr(ft.nn, cls)(4, 6, 5, groups=2, device="cpu",
+                                generator=torch.Generator().manual_seed(8))
+    assert not torch.equal(layer.weight, other.weight)
+
+
+def test_init_statistics_match_torch_conv():
+    layer = ft.FFTConv1d(16, 32, 9, device="cpu")
+    ref = torch.nn.Conv1d(16, 32, 9)
+    bound = 1 / (16 * 9) ** 0.5
+    assert abs(layer.weight.std().item() - ref.weight.std().item()) < 0.1 * bound
+    assert set(layer.state_dict()) == set(ref.state_dict()) == {"weight", "bias"}
+    layer.load_state_dict(ref.state_dict())  # torch checkpoints load as they are
+
+
+def test_layers_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ft.FFTConv1d(2, 2, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ft.FFTConvTranspose1d(2, 2, 3, device="cuda")
+
+
+@pytest.mark.parametrize("cls,args,kw,match", [
+    ("FFTConv1d", (3, 4, 3), {"groups": 2}, "in_channels"),
+    ("FFTConv1d", (4, 3, 3), {"groups": 2}, "out_channels"),
+    ("FFTConv1d", (2, 2, 3), {"padding_mode": "bogus"}, "padding_mode"),
+    ("FFTConvTranspose1d", (2, 2, 3), {"padding_mode": "reflect"}, "zeros"),
+    ("FFTConv1d", (2, 2, 3), {"impl": "bogus"}, "impl"),
+    ("FFTConv1d", (2, 2, (3, 3)), {}, "Cannot cast"),
+])
+def test_validation_matches_jax(cls, args, kw, match):
+    with pytest.raises(ValueError, match=match):
+        getattr(fc.nn, cls)(*args, **kw)
+    with pytest.raises(ValueError, match=match):
+        getattr(ft.nn, cls)(*args, device="cpu", **kw)
+
+
+def test_input_rank_is_checked():
+    layer = ft.FFTConv1d(2, 2, 3, device="cpu")
+    with pytest.raises(ValueError, match="3-d input"):
+        layer(torch.zeros(2, 10))
+
+
+def test_repr_matches_jax():
+    kw = dict(stride=2, padding=1, dilation=2, groups=2, bias=False, padding_mode="reflect")
+    j = repr(fc.nn.FFTConv1d(4, 6, 3, **kw))
+    t = repr(ft.nn.FFTConv1d(4, 6, 3, device="cpu", **kw))
+    assert t == j
+
+
+def test_convert_checks_names_and_shapes():
+    w, b = params_from_jax(np.ones((2, 3, 4)), np.zeros(2), device="cpu")
+    assert w.dtype == torch.float32 and tuple(w.shape) == (2, 3, 4) and b.shape == (2,)
+    assert params_from_jax(np.ones((2, 3, 4)), None)[1] is None
+    layer = ft.FFTConv1d(3, 2, 4, device="cpu")
+    module_from_jax_state(layer, {"weight": np.ones((2, 3, 4)), "bias": np.zeros(2)})
+    assert torch.equal(layer.weight.detach(), torch.ones(2, 3, 4))
+    with pytest.raises(ValueError, match="names differ"):
+        module_from_jax_state(layer, {"weight": np.ones((2, 3, 4))})
+    with pytest.raises(ValueError, match="shape mismatch"):
+        module_from_jax_state(layer, {"weight": np.ones((2, 3, 5)), "bias": np.zeros(2)})
+
