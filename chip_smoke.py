@@ -5,12 +5,13 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, checks
 each against its plain PyTorch version on the card, drives the main path
-(``fft_conv(..., impl="auto")`` and ``nn.FFTConv1d`` forward and backward)
-at the library's three 1D benchmark shapes (B=2, 8 -> 8 channels,
-L=32768, K in {256, 1024, 3840}, float32, inputs from a torch.Generator
-seeded with 0), shows through the launch counters that the main path ran
-the kernels, and times each kernel beside its plain version, the composed
-path, one library call and the least time the card could take.
+(``fft_conv(..., impl="auto")`` and the ``nn.FFTConv1d``/``nn.FFTConv2d``
+layers forward and backward) at the library's benchmark shapes (B=2,
+8 -> 8 channels, float32, bias, inputs from a torch.Generator seeded with 0:
+1D at L=32768 with K in {256, 1024, 3840}, 2D at 512 x 512 with K in
+{16, 34}), shows through the launch counters that the main path ran the
+kernels, and times each kernel beside its plain version, the composed path,
+one library call and the least time the card could take.
 
 Every phase prints one line; any failed check raises and the script exits
 non-zero without a result. The last line is
@@ -29,6 +30,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # (B, Cin, Cout, L, K): the 1D rows of the repo's benchmark (bench.py)
 BENCH_SHAPES = [(2, 8, 8, 32768, 256), (2, 8, 8, 32768, 1024), (2, 8, 8, 32768, 3840)]
+# (B, Cin, Cout, H, W, K): its 2D rows
+BENCH_SHAPES_2D = [(2, 8, 8, 512, 512, 16), (2, 8, 8, 512, 512, 34)]
 # NVIDIA's data sheet for the H100 SXM: HBM rate and FP32 rate outside the
 # tensor cores (the kernel uses FP32 FMAs only)
 HBM_BYTES_PER_S = 3.35e12
@@ -122,6 +125,229 @@ def fused1d_work(b, cin, cout, l, k, n, groups=1):
     return nbytes, flops
 
 
+def fused2d_work(b, cin, cout, h, w, k, plan, groups=1):
+    """(bytes, flops) the fused 2D function must move and do for one call.
+
+    Bytes: the signal and the spectra (Cout, Cin/g, NB1, T2) read once, the
+    output written once. Flops: the dense DFT products of the tiled
+    algorithm with an FMA as two, restricted to what the call needs: no
+    product over the zeros past the signal's edge and none for outputs that
+    are not stored. Per tile, with rows_in x cols_in samples inside the
+    signal and rows_out x cols_out outputs stored: per input channel, the
+    one-sided H DFT (real x complex, 4 per term, NB1 x rows_in x cols_in)
+    and the W DFT (complex, 8, NB1 x cols_in x T2); per output channel, the
+    MAC over the group's channels (8, Cin/g x NB1 x T2), the inverse W DFT
+    (8, NB1 x T2 x cols_out) and the H irfft (4, rows_out x NB1 x cols_out).
+    csrc/fused2d.cu does more than this: it runs every product over the
+    whole T1 x T2 tile."""
+    t1, v1, nb1, t2, v2 = plan
+    oh, ow = h - k + 1, w - k + 1
+    cpg = cin // groups
+    flops = 0
+    for h0 in range(0, oh, v1):
+        rows_in, rows_out = min(t1, h - h0), min(v1, oh - h0)
+        for w0 in range(0, ow, v2):
+            cols_in, cols_out = min(t2, w - w0), min(v2, ow - w0)
+            flops += cin * (4 * nb1 * rows_in * cols_in + 8 * nb1 * cols_in * t2)
+            flops += cout * (8 * cpg * nb1 * t2 + 8 * nb1 * t2 * cols_out
+                             + 4 * rows_out * nb1 * cols_out)
+    nbytes = 4 * b * cin * h * w + 8 * cout * cpg * nb1 * t2 + 4 * b * cout * oh * ow
+    return nbytes, b * flops
+
+
+def fused2d_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
+    """The flops csrc/fused2d.cu does for one call: every product of
+    fused2d_work over the whole T1 x T2 tile, the H irfft on V1 rows."""
+    t1, v1, nb1, t2, v2 = plan
+    tiles = -(-(h - k + 1) // v1) * -(-(w - k + 1) // v2)
+    fwd = 4 * nb1 * t1 * t2 + 8 * nb1 * t2 * t2
+    inv = 8 * (cin // groups) * nb1 * t2 + 8 * nb1 * t2 * t2 + 4 * v1 * nb1 * t2
+    return b * tiles * (cin * fwd + cout * inv)
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes and the operations
+    bound on the card's data-sheet rates."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+
+
+def check_fused2d(torch, dev, gen):
+    """B2 against its plain version on the card at the 2D benchmark rows,
+    with groups=2, through fft_conv2d_fused's argument surface, and with
+    the tiles split over several launches. Returns the rows' inputs and
+    their max abs errors."""
+    from fft_conv_tpu_torch.kernels import fused2d
+    from fft_conv_tpu_torch.ops import functional as F
+
+    lib = fused2d._library()
+    for t1 in (128, 256, 384):
+        for t2 in (128, 256):
+            smem = lib.fused2d_smem_bytes(t1, t2)
+            check(smem == fused2d._smem_bytes(t1 // 2 + 1, t2),
+                  f"tile plan's shared memory at T1={t1}, T2={t2} differs from the "
+                  f"kernel's {smem}")
+
+    inputs, errs = [], []
+    for b, cin, cout, h, w, k in BENCH_SHAPES_2D:
+        x = torch.randn(b, cin, h, w, generator=gen).to(dev)
+        wt = (torch.randn(cout, cin, k, k, generator=gen) / (cin * k * k) ** 0.5).to(dev)
+        bias = torch.randn(cout, generator=gen).to(dev)
+        plan = fused2d.tile_plan_2d(k, k, cin, cout)
+        check(plan is not None and fused2d.fused2d_fits(k, k, cin, cout, (h, w), batch=b),
+              f"no fused 2D plan at K={k}")
+        inputs.append((x, wt, bias, plan))
+        spectra = fused2d.kernel_spectra_2d(wt, plan[0], plan[2], plan[3])
+        y = fused2d._launch_fused2d(x, spectra, plan, 1, (k, k))
+        torch.cuda.synchronize()
+        mx, mean, sigma = close_scaled(y, fused2d._fused2d_forward_reference(x, wt),
+                                       f"B2 vs plain K={k}")
+        errs.append(mx)
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B2", "K": k,
+                          "plan": dict(zip(("T1", "V1", "NB1", "T2", "V2"), plan)),
+                          "max_abs_err": mx, "mean_abs_err": mean, "sigma": sigma,
+                          "bar_max": 1.2e-4 * sigma, "bar_mean": 2e-5 * sigma}))
+
+    x, wt, bias, plan = inputs[0]
+    k = wt.shape[-1]
+    wg = wt[:, :4].contiguous()  # groups=2: (Cout, Cin/2, K, K)
+    y = fused2d._launch_fused2d(
+        x, fused2d.kernel_spectra_2d(wg, plan[0], plan[2], plan[3]), plan, 2, (k, k))
+    mx, _, _ = close_scaled(y, fused2d._fused2d_forward_reference(x, wg, 2), "B2 groups=2")
+    print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B2", "case": "groups=2",
+                      "max_abs_err": mx}))
+
+    kw = dict(padding=5, padding_mode="reflect", stride=(2, 3), dilation=2)
+    y = fused2d.fft_conv2d_fused(x, wt, bias, **kw)
+    xp = F._pad_signal(x, (5, 5), "reflect")
+    y_ref = fused2d._fused2d_forward_reference(xp, F._dilate_kernel(wt, (2, 2)))
+    y_ref = y_ref[:, :, ::2, ::3] + bias.reshape(1, -1, 1, 1)
+    mx, _, _ = close_scaled(y, y_ref, "B2 stride/dilation/reflect")
+    print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B2",
+                      "case": "stride=(2, 3), dilation=2, reflect padding 5",
+                      "max_abs_err": mx}))
+
+    budget = fused2d._SCRATCH_BUDGET
+    try:
+        fused2d._SCRATCH_BUDGET = 4 * fused2d._scratch_bytes_per_tile(plan[2], plan[3], 2, 8)
+        before = fused2d.launches
+        y = fused2d._launch_fused2d(
+            x, fused2d.kernel_spectra_2d(wt, plan[0], plan[2], plan[3]), plan, 1, (k, k))
+        split = fused2d.launches - before
+    finally:
+        fused2d._SCRATCH_BUDGET = budget
+    check(split > 1, "the tile ranges did not split")
+    mx, _, _ = close_scaled(y, fused2d._fused2d_forward_reference(x, wt), "B2 in tile ranges")
+    print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B2",
+                      "case": f"{split} tile ranges", "max_abs_err": mx}))
+    torch.cuda.synchronize()
+    return inputs, errs
+
+
+def main_path_2d(torch, inputs):
+    """fft_conv(impl="auto") at both 2D rows and FFTConv2d(8, 8, 16) forward
+    and backward, counted from zero. Returns (launches per row, total)."""
+    from fft_conv_tpu_torch import FFTConv2d, fft_conv
+    from fft_conv_tpu_torch.kernels import fused2d
+
+    fused2d.launches = 0
+    per_row = []
+    for (b, cin, cout, h, w, k), (x, wt, bias, _) in zip(BENCH_SHAPES_2D, inputs):
+        before = fused2d.launches
+        y = fft_conv(x, wt, bias, impl="auto")
+        torch.cuda.synchronize()
+        rose = fused2d.launches - before
+        check(rose >= 1, f"fft_conv(impl='auto') at K={k} did not launch B2")
+        per_row.append(rose)
+        mx, mean, _ = close_scaled(y, fft_conv(x, wt, bias, impl="xla"),
+                                   f"2D auto vs xla K={k}")
+        print(json.dumps({"phase": "main_path", "kernel": "B2", "K": k, "launches": rose,
+                          "max_abs_err_vs_composed": mx, "mean_abs_err": mean}))
+
+    layer = FFTConv2d(8, 8, 16, device="cuda", generator=torch.Generator().manual_seed(0))
+    x = inputs[0][0].clone().requires_grad_()
+    before = fused2d.launches
+    y = layer(x)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    layer_launches = fused2d.launches - before
+    check(layer_launches >= 1, "FFTConv2d did not launch B2")
+    w_ref = layer.weight.detach().clone().requires_grad_()
+    x_ref = inputs[0][0].clone().requires_grad_()
+    y_ref = fft_conv(x_ref, w_ref, layer.bias.detach(), impl="xla")
+    y_ref.sum().backward()
+    close_scaled(y, y_ref, "FFTConv2d forward vs xla")
+    gw_err, _, _ = close_scaled(layer.weight.grad, w_ref.grad, "FFTConv2d weight grad vs xla")
+    gx_err, _, _ = close_scaled(x.grad, x_ref.grad, "FFTConv2d input grad vs xla")
+    total = fused2d.launches
+    print(json.dumps({"phase": "module", "kernel": "B2", "launches": layer_launches,
+                      "weight_grad_max_abs_err": gw_err, "input_grad_max_abs_err": gx_err}))
+    torch.cuda.synchronize()
+    return per_row, total
+
+
+def time_2d(torch, inputs, errs, per_row):
+    """The timing rows of the 2D benchmark shapes (see phase 5 of main)."""
+    import torch.nn.functional as TF
+
+    from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.kernels import fused2d
+
+    rows = []
+    for (b, cin, cout, h, w, k), (x, wt, _, plan), err, nl in zip(
+        BENCH_SHAPES_2D, inputs, errs, per_row
+    ):
+        t1, _, nb1, t2, _ = plan
+        spectra = fused2d.kernel_spectra_2d(wt, t1, nb1, t2)
+
+        def kernel():
+            return fused2d._launch_fused2d(x, spectra, plan, 1, (k, k))
+
+        def auto():
+            return fft_conv(x, wt, impl="auto")
+
+        def composed():
+            return fft_conv(x, wt, impl="xla")
+
+        nbytes, flops = fused2d_work(b, cin, cout, h, w, k, plan)
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = {
+            "K": k, "plan": list(plan), "launches": nl, "max_abs_err": err,
+            "ms": device_ms(kernel),
+            "call_ms": call_ms(kernel),
+            "spectra_ms": device_ms(lambda: fused2d.kernel_spectra_2d(wt, t1, nb1, t2)),
+            "auto_ms": device_ms(auto),
+            "auto_call_ms": call_ms(auto),
+            "composed_ms": device_ms(composed),
+            "composed_call_ms": call_ms(composed),
+            "plain_ms": call_ms(lambda: fused2d._fused2d_forward_reference(x, wt)),
+            "library_ms": device_ms(lambda: TF.conv2d(x, wt)),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_flops": fused2d_kernel_flops(b, cin, cout, h, w, k, plan),
+        }
+        row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
+        rows.append(row)
+        print(json.dumps({"phase": "timing", "kernel": "B2", **row}))
+        torch.cuda.synchronize()
+    return rows
+
+
+def kernel_entry(name, source, replaces, launches, errs, rows):
+    """One entry of the ``kernels`` line: the sums over the timed rows."""
+    def total(key):
+        return sum(r[key] for r in rows)
+
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": max(errs),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": bound(total("bytes"), total("flops"))[1],
+        "library_ms": total("library_ms"), "shapes": rows,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -211,6 +437,7 @@ def main() -> int:
     print(json.dumps({"phase": "kernel_vs_plain", "case": f"{split} block ranges",
                       "max_abs_err": mx}))
     torch.cuda.synchronize()
+    inputs2d, errs2d = check_fused2d(torch, dev, gen)
 
     # phases 3b and 4: the main path, counted from zero
     fused1d.launches = 0
@@ -247,6 +474,7 @@ def main() -> int:
     print(json.dumps({"phase": "module", "launches": layer_launches,
                       "weight_grad_max_abs_err": gw_err, "input_grad_max_abs_err": gx_err}))
     torch.cuda.synchronize()
+    per_row2d, main_launches2d = main_path_2d(torch, inputs2d)
 
     # phase 5: timings. "*_ms" is device time (CUDA graph replay), "*_call_ms"
     # the latency a caller sees; inputs stay in L2 between calls, as for a
@@ -268,8 +496,7 @@ def main() -> int:
             return fft_conv(x, w, impl="xla")
 
         nbytes, flops = fused1d_work(b, cin, cout, l, k, n)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, flops)
         row = {
             "K": k, "N": n, "launches": nl, "max_abs_err": err,
             "ms": device_ms(kernel),
@@ -283,33 +510,21 @@ def main() -> int:
             # call, which a CUDA graph cannot capture: call latency only
             "plain_ms": call_ms(lambda: fused1d._fused_forward_reference(x, w, n)),
             "library_ms": device_ms(lambda: TF.conv1d(x, w)),
-            "bytes": nbytes, "flops": flops,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
         }
         row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
         shapes.append(row)
         print(json.dumps({"phase": "timing", **row}))
         torch.cuda.synchronize()
 
-    def total(key):
-        return sum(r[key] for r in shapes)
+    rows2d = time_2d(torch, inputs2d, errs2d, per_row2d)
 
-    print(json.dumps({"kernels": [{
-        "name": "B1_fused1d",
-        "route": "cuda",
-        "source": "fft_conv_tpu_torch/kernels/csrc/fused1d.cu",
-        "replaces": "fft_conv_tpu/kernels/fused1d.py:291",
-        "launches": main_launches,
-        "max_abs_err": max(errs),
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": "bytes" if total("bytes") / HBM_BYTES_PER_S
-        > total("flops") / FP32_FLOPS_PER_S else "operations",
-        "library_ms": total("library_ms"),
-        "shapes": shapes,
-    }]}))
+    print(json.dumps({"kernels": [
+        kernel_entry("B1_fused1d", "fft_conv_tpu_torch/kernels/csrc/fused1d.cu",
+                     "fft_conv_tpu/kernels/fused1d.py:291", main_launches, errs, shapes),
+        kernel_entry("B2_fused2d", "fft_conv_tpu_torch/kernels/csrc/fused2d.cu",
+                     "fft_conv_tpu/kernels/fused2d.py:308", main_launches2d, errs2d, rows2d),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

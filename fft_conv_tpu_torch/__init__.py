@@ -1,18 +1,19 @@
 """fft_conv_tpu_torch — the PyTorch and CUDA port of the JAX package ``fft_conv_tpu``.
 
-FFT convolution with torch ``conv1d``/``conv_transpose1d`` semantics (and
-the composed path in 2D and 3D), with the fused 1D overlap-save FFT
-convolution as a hand-written CUDA kernel for Hopper (``kernels/``). It
-imports torch and numpy, and nothing of JAX or of the JAX package.
+FFT convolution with torch ``conv{1,2}d``/``conv_transpose{1,2}d``
+semantics (and the composed path in 3D), with the fused 1D and 2D
+overlap-save FFT convolutions as hand-written CUDA kernels for Hopper
+(``kernels/``). It imports torch and numpy, and nothing of JAX or of the JAX
+package.
 
 Public API mirrors ``fft_conv_tpu/__init__.py``, limited to what the port
 provides so far: the ``functional`` and ``nn`` submodules, ``fft_conv``,
-``fft_conv_transpose``, ``complex_matmul`` and the 1D layers.
+``fft_conv_transpose``, ``complex_matmul`` and the 1D and 2D layers.
 """
 
 from . import functional, nn
 from .__version__ import __version__
-from .nn import FFTConv1d, FFTConvTranspose1d
+from .nn import FFTConv1d, FFTConv2d, FFTConvTranspose1d, FFTConvTranspose2d
 from .ops.functional import complex_matmul, fft_conv, fft_conv_transpose
 
 __all__ = [
@@ -22,6 +23,8 @@ __all__ = [
     "fft_conv_transpose",
     "complex_matmul",
     "FFTConv1d",
+    "FFTConv2d",
     "FFTConvTranspose1d",
+    "FFTConvTranspose2d",
     "__version__",
 ]

@@ -308,25 +308,26 @@ def _fused_forward(
 
 
 def _fused_bwd(x_padded, kernel, g, groups, need_dx=True, need_dw=True):
-    """(dx, dw) of the valid correlation through the composed path."""
+    """(dx, dw) of the valid correlation through the composed path, for a
+    signal of any spatial rank (the 1D and 2D fused kernels share it)."""
     dx = dw = None
     if need_dx:
         # dx is the full convolution of g with w, i.e. conv_transpose; the
-        # forward layout (Cout, Cin/g, K) is conv_transpose's (in=Cout,
-        # out/g=Cin/g, K) layout, groups included
+        # forward layout (Cout, Cin/g, *K) is conv_transpose's (in=Cout,
+        # out/g=Cin/g, *K) layout, groups included
         dx = F.fft_conv_transpose(g, kernel, groups=groups, impl="xla")
     if need_dw:
         # dw[o, i, t] = sum_{b, s} g[b, o, s] x[b, i, s + t]: a correlation
         # with batch as the contracted channel, one per group
-        b, cin, l_pad = x_padded.shape
+        b, cin = x_padded.shape[:2]
         cout = g.shape[1]
         cpg, opg = cin // groups, cout // groups
-        xg = x_padded.reshape(b, groups, cpg, l_pad).permute(1, 2, 0, 3)
-        gg = g.reshape(b, groups, opg, g.shape[-1]).permute(1, 2, 0, 3)
+        xg = x_padded.reshape(b, groups, cpg, *x_padded.shape[2:]).movedim(0, 2)
+        gg = g.reshape(b, groups, opg, *g.shape[2:]).movedim(0, 2)
         dw = torch.stack(
             [F.fft_conv(xg[i], gg[i], impl="xla") for i in range(groups)]
-        )  # (groups, Cin/g, Cout/g, K)
-        dw = dw.permute(0, 2, 1, 3).reshape(cout, cpg, -1)
+        )  # (groups, Cin/g, Cout/g, *K)
+        dw = dw.transpose(1, 2).reshape(cout, cpg, *dw.shape[3:])
     return dx, dw
 
 

@@ -1,0 +1,395 @@
+"""Fused 2D FFT convolution: host side of the CUDA kernel ``csrc/fused2d.cu``.
+
+The port's counterpart of ``fft_conv_tpu/kernels/fused2d.py``. The padded
+image is cut into overlap-save tiles of T1 x T2 samples that overlap by K1-1
+rows and K2-1 columns; each tile yields V1 x V2 valid outputs of the
+cross-correlation. Per tile the kernel runs the one-sided H DFT (NB1 =
+T1/2+1 rows), the full W DFT, a per-bin grouped complex MAC over the group's
+input channels against the conjugated kernel spectra, the inverse W DFT and
+the H irfft on the V1 valid rows, all as dense DFT matrix products.
+
+On a CUDA tensor ``_fused2d_forward`` launches the kernel; on a CPU tensor
+it runs ``_fused2d_forward_reference``, the same tiled pipeline written with
+torch ops (the counterpart of the JAX package's Pallas interpret mode).
+There is no other route: a CUDA tensor launches the kernel or raises.
+
+Gradients: ``_Fused2dCore`` is a ``torch.autograd.Function`` whose backward
+is the composed path, shared with the 1D kernel (``fused1d._fused_bwd``).
+
+Not ported from the JAX module: ``plan_fft_conv2d``,
+``fft_conv_transpose2d_fused`` (ROADMAP §A) and the TPU's precision,
+kernel-version, MAC-mode and prefetch switches.
+"""
+
+import ctypes
+from functools import lru_cache
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as TF
+
+from ..ops import functional as F
+from ..ops.spectral import _dft_mats, _irfft_mats, _rfft_mats
+from ..utils.shapes import to_ntuple
+from . import _build
+from .fused1d import _fused_bwd
+
+_T2_CANDIDATES = (128, 256)
+
+# The JAX package bounds its TPU cell by two VMEM budgets (resident spectra
+# of 8 MiB, and an x/out cell that grows with image width). This kernel
+# holds neither: a block keeps one NB1 x T2 complex matrix and a staged panel
+# in shared memory, a size fixed by the tile plan alone. Its own limits are:
+#   * the one-sided kernel spectra (Cout, Cin/g, NB1, T2) complex, which
+#     every (tile, batch) block of phase 2 re-reads: kept in a third of the
+#     card's 50 MB L2, as for the 1D kernel;
+_SPECTRA_BUDGET = 16 * 2**20
+#   * the shared memory of one block (csrc/fused2d.cu: Cfg<T2>::smem), at
+#     most what a Hopper block can use. It rules out T2 = 256 with T1 > 128
+#     and T1 > 384;
+_SMEM_LIMIT = 232448
+#   * the scratch D that phase 1 hands to phase 2, (tiles, B, Cin, NB1, T2)
+#     complex. The wrapper runs the tiles in ranges that keep D under this
+#     budget, so one tile of the whole batch must fit.
+_SCRATCH_BUDGET = 256 * 2**20
+# CUDA's limit on gridDim.y, which carries the tiles of one launch.
+_MAX_TILES_PER_LAUNCH = 65535
+
+# Launches of the CUDA kernel pair (phase 1 + phase 2) since import or the
+# last reset; the plain version on CPU tensors does not count.
+launches = 0
+
+
+def _smem_bytes(nb1: int, t2: int) -> int:
+    """Shared memory of one block of either phase, as csrc/fused2d.cu
+    computes it: the NB1 x T2 complex matrix plus the largest staged panel.
+    The library's ``fused2d_smem_bytes`` exports the kernel's own figure; a
+    card test holds the two equal."""
+    kc = 4096 // t2
+    rows_c = 4 * (17 if t2 == 128 else 9)
+    rows_r = 4 * (28 if t2 == 128 else 14)
+    stage = max(rows_c * kc * 8 + kc * t2 * 4, kc * t2 * 8, rows_r * kc * 8)
+    return nb1 * t2 * 8 + stage
+
+
+def tile_plan_2d(k1: int, k2: int, cin_g: int, cout: int):
+    """(T1, V1, NB1, T2, V2) or None when no fused configuration fits.
+
+    The JAX package's choice, kept so that the plain version can be held to
+    its kernel tile for tile: T1 is the smallest multiple of 128 with
+    T1 >= 128 + K1 - 1 (128 for K1 <= 65), V1 = T1-K1+1 rounded down to a
+    multiple of 8, and T2 the first of {128, 256} leaving V2 = T2-K2+1 >= 32.
+    The budgets are this kernel's (see ``_SPECTRA_BUDGET``, ``_SMEM_LIMIT``).
+    """
+    t1 = 128 if k1 <= 65 else -(-(128 + k1 - 1) // 128) * 128
+    if t1 < k1 + 8:
+        return None
+    v1 = (t1 - k1 + 1) // 8 * 8
+    nb1 = t1 // 2 + 1
+    for t2 in _T2_CANDIDATES:
+        v2 = t2 - k2 + 1
+        if v2 < 32:
+            continue
+        if cout * nb1 * cin_g * t2 * 8 > _SPECTRA_BUDGET:
+            return None  # larger T2 only costs more
+        if _smem_bytes(nb1, t2) > _SMEM_LIMIT:
+            return None
+        return t1, v1, nb1, t2, v2
+    return None
+
+
+def _scratch_bytes_per_tile(nb1: int, t2: int, batch: int, cin_total: int) -> int:
+    return batch * cin_total * nb1 * t2 * 8
+
+
+def fused2d_fits(
+    k1: int, k2: int, cin_g: int, cout: int, padded_hw, cin_total=None, batch: int = 1
+) -> bool:
+    """True when the kernel has a tile plan for this shape and one tile of
+    the whole batch fits ``_SCRATCH_BUDGET``. The routing gate for
+    ``impl="auto"``: check it with the PADDED spatial shape and the dilated
+    kernel. ``cin_total`` is the full channel count (defaults to ``cin_g``)."""
+    plan = tile_plan_2d(k1, k2, cin_g, cout)
+    if plan is None:
+        return False
+    _, _, nb1, t2, _ = plan
+    hp, wp = padded_hw
+    if k1 > hp or k2 > wp:
+        return False
+    cin = cin_total if cin_total is not None else cin_g
+    return _scratch_bytes_per_tile(nb1, t2, batch, cin) <= _SCRATCH_BUDGET
+
+
+@lru_cache(maxsize=None)
+def _mats_2d(t1: int, nb1: int, t2: int, v1: int, dtype=np.float32):
+    """Split factor matrices: H one-sided forward (NB1, T1), W full DFT
+    (T2, T2) forward and inverse, H irfft valid rows (V1, NB1), as ``dtype``
+    numpy arrays (float32 for the kernel, float64 for an oracle)."""
+    fr, fi = _rfft_mats(t1, np.float64)            # (T1, NB1)
+    wr, wi = _dft_mats(t2, False, np.float64)
+    ur, ui = _dft_mats(t2, True, np.float64)
+    cr, ci = _irfft_mats(t1, np.float64)           # (NB1, T1)
+    out = (fr.T, fi.T, wr, wi, ur, ui, cr.T[:v1], ci.T[:v1])
+    return tuple(np.ascontiguousarray(m, dtype) for m in out)
+
+
+@lru_cache(maxsize=None)
+def _torch_mats(t1: int, nb1: int, t2: int, v1: int, dtype: torch.dtype,
+                device: torch.device):
+    """``_mats_2d`` as torch tensors of ``dtype`` on ``device``, made once per
+    device so that repeated calls copy nothing from the host."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    return tuple(torch.from_numpy(m).to(device) for m in _mats_2d(t1, nb1, t2, v1, npdt))
+
+
+@lru_cache(maxsize=None)
+def _device_mats(t1: int, nb1: int, t2: int, v1: int, device: torch.device):
+    """The kernel's factor matrices as interleaved complex64 tensors on
+    ``device``: F_H (NB1, T1), W and its inverse (T2, T2), and the irfft
+    rows (V1, NB1) as (cr, ci) pairs."""
+    m = _torch_mats(t1, nb1, t2, v1, torch.float32, device)
+    return tuple(torch.complex(m[i], m[i + 1]) for i in range(0, len(m), 2))
+
+
+def kernel_spectra_2d(kernel: torch.Tensor, t1: int, nb1: int, t2: int) -> torch.Tensor:
+    """Conjugated spectra of the (Cout, Cin/g, K1, K2) kernel on the tile
+    grid, (Cout, Cin/g, NB1, T2) complex on the kernel's device: the kernel's
+    input, and the port of the JAX package's ``_kernel_spectra_2d``.
+
+    The two small transforms run in float64 (over the weights only, and
+    exact to float32 rounding whatever TF32 setting the caller chose); the
+    result is complex128 for a float64 kernel and complex64 otherwise. They
+    are the only torch products on the CUDA route, outside the kernel, as the
+    JAX package computes them in XLA outside Pallas."""
+    _, _, k1, k2 = kernel.shape
+    fr, fi, wr, wi = _torch_mats(t1, nb1, t2, 1, torch.float64, kernel.device)[:4]
+    k = kernel.detach().to(torch.float64)
+    ar = fr[:, :k1] @ k  # (Cout, Cin/g, NB1, K2)
+    ai = fi[:, :k1] @ k
+    br = ar @ wr[:k2] - ai @ wi[:k2]
+    bi = ar @ wi[:k2] + ai @ wr[:k2]
+    out = torch.complex(br, -bi)
+    return out if kernel.dtype == torch.float64 else out.to(torch.complex64)
+
+
+def _tiling(plan, hp: int, wp: int, k1: int, k2: int) -> Tuple[int, int, int, int]:
+    """(OH, OW, nt1, nt2): the valid output size and the tile counts."""
+    _, v1, _, _, v2 = plan
+    oh, ow = hp - k1 + 1, wp - k2 + 1
+    return oh, ow, -(-oh // v1), -(-ow // v2)
+
+
+def _fused2d_forward_reference(
+    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1
+) -> torch.Tensor:
+    """The kernel's plain PyTorch version: the same tiled pipeline in split
+    re/im arithmetic, float64 for a float64 signal and float32 otherwise.
+
+    ``x_padded`` (B, Cin, Hp, Wp) already padded, ``kernel`` (Cout, Cin/g,
+    K1, K2) already dilated; returns the valid correlation (B, Cout, OH, OW).
+    """
+    dt = torch.float64 if x_padded.dtype == torch.float64 else torch.float32
+    b, cin, hp, wp = x_padded.shape
+    cout, cpg, k1, k2 = kernel.shape
+    plan = tile_plan_2d(k1, k2, cpg, cout)
+    if plan is None:
+        raise ValueError("no fused 2D configuration fits this shape")
+    t1, v1, nb1, t2, v2 = plan
+    oh, ow, nt1, nt2 = _tiling(plan, hp, wp, k1, k2)
+    need_h, need_w = (nt1 - 1) * v1 + t1, (nt2 - 1) * v2 + t2
+    x = TF.pad(x_padded.to(dt), (0, need_w - wp, 0, need_h - hp))
+    a = x.unfold(2, t1, v1).unfold(3, t2, v2)  # (B, Cin, nt1, nt2, T1, T2)
+    fr, fi, wr, wi, ur, ui, cr, ci = _torch_mats(t1, nb1, t2, v1, dt, x.device)
+
+    # one-sided H DFT, then the full W DFT
+    hr, hi = fr @ a, fi @ a  # (B, Cin, nt1, nt2, NB1, T2)
+    dr = hr @ wr - hi @ wi
+    di = hr @ wi + hi @ wr
+
+    # per-bin complex MAC over each out-channel's group of in-channels
+    ks = kernel_spectra_2d(kernel.to(dt), t1, nb1, t2)
+    kr = ks.real.reshape(groups, cout // groups, cpg, nb1, t2)
+    ki = ks.imag.reshape(groups, cout // groups, cpg, nb1, t2)
+    dr = dr.reshape(b, groups, cpg, nt1, nt2, nb1, t2)
+    di = di.reshape(b, groups, cpg, nt1, nt2, nb1, t2)
+    mac = "bgcijkz,gockz->bgoijkz"
+    yr = torch.einsum(mac, dr, kr) - torch.einsum(mac, di, ki)
+    yi = torch.einsum(mac, dr, ki) + torch.einsum(mac, di, kr)
+    yr = yr.reshape(b, cout, nt1, nt2, nb1, t2)
+    yi = yi.reshape(b, cout, nt1, nt2, nb1, t2)
+
+    # inverse W DFT, then the H irfft on the V1 valid rows
+    er = yr @ ur - yi @ ui
+    ei = yr @ ui + yi @ ur
+    out = cr @ er + ci @ ei  # (B, Cout, nt1, nt2, V1, T2)
+    out = out[..., :v2].permute(0, 1, 2, 4, 3, 5)
+    return out.reshape(b, cout, nt1 * v1, nt2 * v2)[:, :, :oh, :ow]
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("fused2d")
+    if lib.fused2d_forward.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused2d_forward.argtypes = [p] * 8 + [i] * 15 + [p]
+        lib.fused2d_forward.restype = i
+        lib.fused2d_error_string.argtypes = [i]
+        lib.fused2d_error_string.restype = ctypes.c_char_p
+        lib.fused2d_smem_bytes.argtypes = [i, i]
+        lib.fused2d_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _launch_fused2d(
+    x_padded: torch.Tensor, spectra: torch.Tensor, plan, groups: int, k: Tuple[int, int]
+) -> torch.Tensor:
+    """Runs the CUDA kernel pair on ``x_padded`` (B, Cin, Hp, Wp) float32
+    with the conjugated spectra (Cout, Cin/g, NB1, T2) complex64 of a
+    (K1, K2) kernel, both on one CUDA device, under the tile plan ``plan``.
+    Returns the valid correlation (B, Cout, OH, OW)."""
+    global launches
+    if not (x_padded.is_cuda and spectra.device == x_padded.device):
+        raise ValueError("fused2d kernel: signal and spectra must be on one CUDA device")
+    if x_padded.dtype != torch.float32 or spectra.dtype != torch.complex64:
+        raise ValueError("fused2d kernel takes a float32 signal and complex64 spectra")
+    x_padded = x_padded.contiguous()
+    spectra = spectra.contiguous()
+    b, cin, hp, wp = x_padded.shape
+    cout, cpg, nbk, t2k = spectra.shape
+    t1, v1, nb1, t2, v2 = plan
+    if nbk != nb1 or t2k != t2 or cpg * groups != cin or cout % groups:
+        raise ValueError(f"fused2d kernel: spectra {tuple(spectra.shape)} do not fit "
+                         f"the plan {plan}, Cin={cin}, groups={groups}")
+    oh, ow, nt1, nt2 = _tiling(plan, hp, wp, *k)
+    if oh < 1 or ow < 1:
+        raise ValueError("fused2d kernel: the kernel is larger than the signal")
+    ntiles = nt1 * nt2
+    # tiles per launch: as many as the scratch budget holds (the routing gate,
+    # fused2d_fits, has checked that one tile does)
+    per_tile = _scratch_bytes_per_tile(nb1, t2, b, cin)
+    chunk = max(1, min(ntiles, _SCRATCH_BUDGET // per_tile, _MAX_TILES_PER_LAUNCH))
+
+    lib = _library()
+    fh, wf, wb, ch = _device_mats(t1, nb1, t2, v1, x_padded.device)
+    out = torch.empty((b, cout, oh, ow), device=x_padded.device, dtype=torch.float32)
+    d = torch.empty((chunk, b, cin, nb1, t2), device=x_padded.device, dtype=torch.complex64)
+    stream = torch.cuda.current_stream(x_padded.device).cuda_stream
+    with torch.cuda.device(x_padded.device):
+        for tile0 in range(0, ntiles, chunk):
+            err = lib.fused2d_forward(
+                x_padded.data_ptr(), spectra.data_ptr(), fh.data_ptr(), wf.data_ptr(),
+                wb.data_ptr(), ch.data_ptr(), d.data_ptr(), out.data_ptr(),
+                b, cin, cout, groups, hp, wp, t1, t2, v1, v2, nt2,
+                tile0, min(chunk, ntiles - tile0), oh, ow, stream,
+            )
+            if err != 0:
+                msg = lib.fused2d_error_string(err).decode()
+                raise RuntimeError(f"fused2d kernel launch failed: {msg} (cudaError {err})")
+            launches += 1
+    return out
+
+
+def _fused2d_forward(x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1):
+    """Valid correlation of ``x_padded`` with ``kernel``: the CUDA kernel for
+    a CUDA tensor, the plain version for a CPU one."""
+    if x_padded.is_cuda:
+        cout, cpg, k1, k2 = kernel.shape
+        plan = tile_plan_2d(k1, k2, cpg, cout)
+        if plan is None:
+            raise ValueError("no fused 2D configuration fits this shape")
+        t1, _, nb1, t2, _ = plan
+        spectra = kernel_spectra_2d(kernel, t1, nb1, t2)
+        return _launch_fused2d(x_padded.float(), spectra, plan, groups, (k1, k2))
+    if x_padded.device.type == "cpu":
+        return _fused2d_forward_reference(x_padded.float(), kernel.float(), groups)
+    raise ValueError(f"fused2d runs on CUDA or CPU tensors, got {x_padded.device}")
+
+
+class _Fused2dCore(torch.autograd.Function):
+    """The fused 2D correlation with the composed path as its backward."""
+
+    @staticmethod
+    def forward(ctx, x_padded, kernel, groups):
+        ctx.save_for_backward(x_padded, kernel)
+        ctx.groups = groups
+        return _fused2d_forward(x_padded, kernel, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_padded, kernel = ctx.saved_tensors
+        dx, dw = _fused_bwd(
+            x_padded, kernel, g.contiguous(), ctx.groups,
+            ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+        )
+        return dx, dw, None
+
+
+def fft_conv2d_fused(
+    signal: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding=0,
+    padding_mode: str = "constant",
+    stride=1,
+    dilation=1,
+    groups: int = 1,
+) -> torch.Tensor:
+    """Fused 2D FFT convolution, ``ops.fft_conv`` semantics.
+
+    Padding modes, stride, dilation and groups are wrapper transforms
+    around the unit-stride kernel, as in the 1D function. Raises ValueError
+    when no fused configuration fits; unlike the JAX function it does not
+    fall back (``fft_conv`` with ``impl="auto"`` calls
+    ``fft_conv2d_fused_if_fits`` and takes the composed path instead).
+    """
+    out = fft_conv2d_fused_if_fits(
+        signal, kernel, bias, padding, padding_mode, stride, dilation, groups
+    )
+    if out is None:
+        raise ValueError(
+            "no fused 2D FFT configuration fits this shape (no tile plan, or "
+            "the spectra, the shared memory or the scratch exceed the "
+            "kernel's budgets); use fft_conv(impl='xla')"
+        )
+    return out
+
+
+def fft_conv2d_fused_if_fits(
+    signal: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding=0,
+    padding_mode: str = "constant",
+    stride=1,
+    dilation=1,
+    groups: int = 1,
+) -> Optional[torch.Tensor]:
+    """``fft_conv2d_fused``, or None when ``fused2d_fits`` does not hold for
+    the padded signal and the dilated kernel. The one place where that gate
+    is checked, for both the fused function and ``fft_conv(impl="auto")``."""
+    if signal.ndim != 4 or kernel.ndim != 4:
+        raise ValueError(
+            "fft_conv2d_fused expects (B, Cin, H, W) and (Cout, Cin/g, K1, K2)"
+        )
+    padding_ = to_ntuple(padding, 2)
+    stride_ = to_ntuple(stride, 2)
+    kernel = F._dilate_kernel(kernel, to_ntuple(dilation, 2))
+    x = F._pad_signal(signal, padding_, padding_mode)
+    b, cin, hp, wp = x.shape
+    cout, cpg, k1, k2 = kernel.shape
+    if cpg * groups != cin:
+        raise ValueError(
+            f"kernel Cin/groups {cpg} x groups {groups} != signal Cin {cin}"
+        )
+    if cout % groups:
+        raise ValueError(f"out_channels {cout} not divisible by groups {groups}")
+    if k1 > hp or k2 > wp:
+        raise ValueError("Kernel size can't be greater than actual input size")
+    if not fused2d_fits(k1, k2, cpg, cout, (hp, wp), cin_total=cin, batch=b):
+        return None
+    out = _Fused2dCore.apply(x.float(), kernel.float(), groups)
+    if stride_ != (1, 1):
+        out = out[:, :, ::stride_[0], ::stride_[1]]
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1)
+    return out.to(signal.dtype)

@@ -10,10 +10,10 @@ Layers are built on the card: ``device=None`` means ``"cuda"``, and the
 constructor raises when there is no CUDA device unless ``device="cpu"`` was
 asked for.
 
-This slice provides ``FFTConv1d`` and ``FFTConvTranspose1d``. The transposed
-layer runs the composed path (``impl="xla"``) by default, because its fused
-route is not ported yet (ROADMAP.md §A); ``impl="auto"`` on a CUDA signal
-raises for it rather than quietly running something else.
+The port provides the 1D and 2D layers so far. The transposed layers run
+the composed path (``impl="xla"``) by default, because their fused routes
+are not ported yet (ROADMAP.md §A); ``impl="auto"`` on a CUDA signal raises
+for them rather than quietly running something else.
 """
 
 from typing import Iterable, Optional, Union
@@ -184,3 +184,11 @@ class FFTConv1d(_FFTConvForward):
 
 class FFTConvTranspose1d(_FFTConvTransposeForward):
     ndim = 1
+
+
+class FFTConv2d(_FFTConvForward):
+    ndim = 2
+
+
+class FFTConvTranspose2d(_FFTConvTransposeForward):
+    ndim = 2

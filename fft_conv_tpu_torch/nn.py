@@ -1,14 +1,16 @@
 """nn API alias, mirroring ``fft_conv_tpu/nn.py``.
 
 The module implementations live in ``fft_conv_tpu_torch.models.modules``.
-This slice of the port provides the 1D layers.
+The port provides the 1D and 2D layers so far.
 """
 
 from .models.modules import (
     FFTConv1d,
+    FFTConv2d,
     FFTConvTranspose1d,
+    FFTConvTranspose2d,
     _FFTConvForward,
     _FFTConvTransposeForward,
 )
 
-__all__ = ["FFTConv1d", "FFTConvTranspose1d"]
+__all__ = ["FFTConv1d", "FFTConv2d", "FFTConvTranspose1d", "FFTConvTranspose2d"]

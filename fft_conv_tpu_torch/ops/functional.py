@@ -3,7 +3,8 @@
 The port's counterpart of ``fft_conv_tpu/ops/functional.py``: plain
 ``torch.fft.rfftn``/``irfftn`` plus a grouped per-bin contraction,
 differentiable through autograd. It is the port's correctness oracle and the
-backward of the fused 1D kernel (``kernels/fused1d.py``).
+backward of the fused 1D and 2D kernels (``kernels/fused1d.py``,
+``kernels/fused2d.py``).
 
 Semantics match the reference exactly (cited per step):
   - fft_conv:            fft_conv_pytorch/functional.py:19-89
@@ -11,10 +12,10 @@ Semantics match the reference exactly (cited per step):
   - complex_matmul:      fft_conv_pytorch/functional.py:11-16
 
 Routing (``impl=``) follows the JAX package, with "on a TPU" read as "the
-signal is a CUDA tensor": ``auto`` sends a 1D CUDA signal whose plan fits to
-the fused kernel; the 2D and 3D fused kernels are not ported yet, so a 2D/3D
-CUDA signal under ``auto`` or ``fused`` raises ``NotImplementedError`` rather
-than quietly running the composed path (``impl="xla"`` asks for that path).
+signal is a CUDA tensor": ``auto`` sends a 1D or 2D CUDA signal whose plan
+fits to the fused kernel; the 3D fused kernel is not ported yet, so a 3D CUDA
+signal under ``auto`` or ``fused`` raises ``NotImplementedError`` rather than
+quietly running the composed path (``impl="xla"`` asks for that path).
 bfloat16/float16 inputs are computed in float32 and cast back.
 """
 
@@ -198,13 +199,13 @@ def fft_conv(
       signal: (B, Cin, *spatial); kernel: (Cout, Cin/groups, *k);
       bias: (Cout,) or None.
 
-    ``impl``: "auto" (a 1D CUDA signal with a fitting plan runs the fused
-    kernel; 2D/3D CUDA signals raise NotImplementedError until their kernels
-    are ported; CPU signals take the composed path), "xla" (always the
+    ``impl``: "auto" (a 1D or 2D CUDA signal with a fitting plan runs the
+    fused kernel; a 3D CUDA signal raises NotImplementedError until its
+    kernel is ported; CPU signals take the composed path), "xla" (always the
     composed path; the name is kept from the JAX package), "fused" (require
-    the fused 1D path: the CUDA kernel on a CUDA tensor, its plain PyTorch
-    version on a CPU tensor; ValueError if no plan fits), "tiled" (not
-    ported yet: NotImplementedError).
+    the fused 1D or 2D path: the CUDA kernel on a CUDA tensor, its plain
+    PyTorch version on a CPU tensor; ValueError if no plan fits), "tiled"
+    (not ported yet: NotImplementedError).
     """
     n = _check_rank(signal, kernel, "(out_channels, in_channels/groups, *k)")
     stride_ = to_ntuple(stride, n)
@@ -253,10 +254,19 @@ def fft_conv(
                 "any candidate FFT size, or the spectra or the scratch "
                 "exceed the kernel's budgets)"
             )
-    elif wants_fused and n in (2, 3):
+    elif wants_fused and n == 2:
+        from ..kernels.fused2d import fft_conv2d_fused, fft_conv2d_fused_if_fits
+
+        args = (signal, kernel, bias, padding_, padding_mode, stride_, dilation_, groups)
+        if impl == "fused":
+            return fft_conv2d_fused(*args)  # raises when no plan fits
+        out = fft_conv2d_fused_if_fits(*args)
+        if out is not None:
+            return out
+    elif wants_fused and n == 3:
         raise NotImplementedError(
-            f"the fused {n}D kernel is not ported yet (ROADMAP §B, "
-            f"{'B2' if n == 2 else 'B3'}); pass impl='xla' for the composed path"
+            "the fused 3D kernel is not ported yet (ROADMAP §B, B3); pass "
+            "impl='xla' for the composed path"
         )
 
     return _fft_conv(

@@ -17,7 +17,7 @@ import torch
 
 import fft_conv_tpu as fc
 import fft_conv_tpu_torch as ft
-from fft_conv_tpu_torch.kernels import fused1d
+from fft_conv_tpu_torch.kernels import fused1d, fused2d
 
 from helpers import _assert_almost_equal, _assert_close_scaled
 
@@ -142,6 +142,16 @@ def test_auto_on_cpu_is_the_composed_path():
     assert fused1d.launches == before
 
 
+def test_auto_on_cpu_is_the_composed_path_in_2d():
+    x, w, b = _arrays(12, (2, 4, 60, 50), (3, 4, 5, 7), (3,))
+    xt, wt, bt = map(torch.from_numpy, (x, w, b))
+    before = fused2d.launches
+    y_auto = ft.fft_conv(xt, wt, bt, padding=2, impl="auto")
+    y_xla = ft.fft_conv(xt, wt, bt, padding=2, impl="xla")
+    assert torch.equal(y_auto, y_xla)
+    assert fused2d.launches == before
+
+
 def test_fused_on_cpu_runs_the_plain_version():
     x, w, b = _arrays(8, (2, 4, 3000), (6, 2, 200), (6,))
     xt, wt, bt = map(torch.from_numpy, (x, w, b))
@@ -162,10 +172,18 @@ def test_tiled_is_not_ported(fn):
 
 @pytest.mark.parametrize("ndim", [2, 3])
 def test_fused_2d_3d_raise_not_implemented(ndim):
+    """What is not ported yet raises: the fused 3D route (B3) and the fused
+    2D transposed route. The fused 2D forward route runs (B2's plain
+    version on a CPU tensor)."""
     x = torch.zeros((1, 2) + (8,) * ndim)
     w = torch.zeros((2, 2) + (3,) * ndim)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.fft_conv(x, w, impl="fused")
+        ft.fft_conv_transpose(x, w, impl="fused")
+    if ndim == 3:
+        with pytest.raises(NotImplementedError, match="B3"):
+            ft.fft_conv(x, w, impl="fused")
+    else:
+        assert ft.fft_conv(x, w, impl="fused").shape == (1, 2, 6, 6)
 
 
 def test_fused_transpose_raises_not_implemented():
@@ -222,6 +240,7 @@ def test_fft_conv_transpose_validation_matches_jax(signal, kernel, kw):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, fft_conv_tpu_torch, fft_conv_tpu_torch.kernels.fused1d, "
+        "fft_conv_tpu_torch.kernels.fused2d, fft_conv_tpu_torch.ops.spectral, "
         "fft_conv_tpu_torch.utils.convert; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'fft_conv_tpu' or m.startswith('fft_conv_tpu.')]; "

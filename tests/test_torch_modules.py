@@ -14,7 +14,7 @@ import torch
 
 import fft_conv_tpu as fc
 import fft_conv_tpu_torch as ft
-from fft_conv_tpu_torch.kernels import fused1d
+from fft_conv_tpu_torch.kernels import fused1d, fused2d
 from fft_conv_tpu_torch.models.init import conv_fan_in
 from fft_conv_tpu_torch.utils.convert import module_from_jax_state, params_from_jax
 
@@ -59,6 +59,48 @@ def test_gradients_match_jax():
     _assert_close_scaled(xt.grad.numpy(), np.asarray(g_x))
 
 
+def test_2d_slice_forward_matches_jax():
+    """The 2D slice: FFTConv2d forward through the fused route on both sides
+    (B2's plain version here, the Pallas kernel in interpret mode there)."""
+    jax_layer, torch_layer = _pair("FFTConv2d", 3, 4, (16, 12), padding=(2, 1),
+                                   padding_mode="reflect", impl="fused")
+    x = np.random.default_rng(4).standard_normal((2, 3, 150, 140)).astype(np.float32)
+    before = fused2d.launches
+    with torch.no_grad():
+        y = torch_layer(torch.from_numpy(x))
+    assert fused2d.launches == before
+    _assert_close_scaled(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
+
+
+def test_2d_gradients_match_jax():
+    jax_layer, torch_layer = _pair("FFTConv2d", 4, 6, 9, padding=3, stride=2, groups=2,
+                                   impl="fused")
+    x = np.random.default_rng(5).standard_normal((2, 4, 130, 140)).astype(np.float32)
+
+    def loss(layer, s):
+        return (layer(s) ** 2).mean()
+
+    g_layer, g_x = jax.grad(loss, argnums=(0, 1))(jax_layer, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    loss(torch_layer, xt).backward()
+    _assert_close_scaled(torch_layer.weight.grad.numpy(), np.asarray(g_layer.weight))
+    _assert_close_scaled(torch_layer.bias.grad.numpy(), np.asarray(g_layer.bias))
+    _assert_close_scaled(xt.grad.numpy(), np.asarray(g_x))
+
+
+@pytest.mark.parametrize("stride,padding,output_padding,dilation,groups",
+                         [(1, 0, 0, 1, 1), (2, 1, 1, 2, 2), ((3, 2), (2, 1), (0, 1), 1, 1)])
+def test_2d_transpose_layer_matches_jax(stride, padding, output_padding, dilation, groups):
+    jax_layer, torch_layer = _pair(
+        "FFTConvTranspose2d", 4, 6, (5, 3), stride=stride, padding=padding,
+        output_padding=output_padding, dilation=dilation, groups=groups, impl="xla",
+    )
+    x = np.random.default_rng(6).standard_normal((2, 4, 13, 11)).astype(np.float32)
+    with torch.no_grad():
+        y = torch_layer(torch.from_numpy(x))
+    _assert_almost_equal(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
+
+
 @pytest.mark.parametrize("stride,padding,output_padding,dilation,groups",
                          [(1, 0, 0, 1, 1), (2, 1, 1, 2, 2), (3, 2, 0, 1, 1)])
 def test_transpose_layer_matches_jax(stride, padding, output_padding, dilation, groups):
@@ -86,11 +128,15 @@ def test_transpose_layer_runs_the_composed_path_by_default():
     layer = ft.FFTConvTranspose1d(2, 3, 4, device="cpu")
     assert layer.impl == "xla"
     assert ft.FFTConv1d(2, 3, 4, device="cpu").impl == "auto"
+    assert ft.FFTConvTranspose2d(2, 3, 4, device="cpu").impl == "xla"
+    assert ft.FFTConv2d(2, 3, 4, device="cpu").impl == "auto"
 
 
 @pytest.mark.parametrize("cls,shape,fan_in", [
     ("FFTConv1d", (6, 2, 5), 10),           # (Cout, Cin/g, K), groups=2
     ("FFTConvTranspose1d", (4, 3, 5), 15),  # (Cin, Cout/g, K), groups=2
+    ("FFTConv2d", (6, 2, 5, 5), 50),
+    ("FFTConvTranspose2d", (4, 3, 5, 5), 75),
 ])
 def test_init_follows_torch(cls, shape, fan_in):
     layer = getattr(ft.nn, cls)(4, 6, 5, groups=2, device="cpu",
@@ -117,12 +163,30 @@ def test_init_statistics_match_torch_conv():
     layer.load_state_dict(ref.state_dict())  # torch checkpoints load as they are
 
 
+@pytest.mark.parametrize("cls,torch_cls", [("FFTConv2d", "Conv2d"),
+                                           ("FFTConvTranspose2d", "ConvTranspose2d")])
+def test_2d_init_and_state_dict_match_torch_conv(cls, torch_cls):
+    layer = getattr(ft.nn, cls)(16, 32, (5, 3), device="cpu")
+    ref = getattr(torch.nn, torch_cls)(16, 32, (5, 3))
+    assert layer.weight.shape == ref.weight.shape
+    bound = 1 / (ref.weight[0].numel()) ** 0.5
+    assert layer.weight.abs().max() <= bound
+    assert abs(layer.weight.std().item() - ref.weight.std().item()) < 0.1 * bound
+    assert set(layer.state_dict()) == set(ref.state_dict()) == {"weight", "bias"}
+    layer.load_state_dict(ref.state_dict())  # torch checkpoints load as they are
+    assert torch.equal(layer.weight, ref.weight)
+
+
 def test_layers_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ft.FFTConv1d(2, 2, 3)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ft.FFTConvTranspose1d(2, 2, 3, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ft.FFTConv2d(2, 2, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ft.FFTConvTranspose2d(2, 2, 3)
 
 
 @pytest.mark.parametrize("cls,args,kw,match", [
