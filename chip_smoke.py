@@ -32,6 +32,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_SHAPES = [(2, 8, 8, 32768, 256), (2, 8, 8, 32768, 1024), (2, 8, 8, 32768, 3840)]
 # (B, Cin, Cout, H, W, K): its 2D rows
 BENCH_SHAPES_2D = [(2, 8, 8, 512, 512, 16), (2, 8, 8, 512, 512, 34)]
+# (B, Cin, Cout, D, H, W, K): its 3D row
+BENCH_SHAPES_3D = [(2, 8, 8, 64, 64, 64, 8)]
 # NVIDIA's data sheet for the H100 SXM: HBM rate and FP32 rate outside the
 # tensor cores (the kernel uses FP32 FMAs only)
 HBM_BYTES_PER_S = 3.35e12
@@ -163,6 +165,57 @@ def fused2d_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
     fwd = 4 * nb1 * t1 * t2 + 8 * nb1 * t2 * t2
     inv = 8 * (cin // groups) * nb1 * t2 + 8 * nb1 * t2 * t2 + 4 * v1 * nb1 * t2
     return b * tiles * (cin * fwd + cout * inv)
+
+
+def fused3d_work(b, cin, cout, d, h, w, k, groups=1):
+    """(bytes, flops) the fused 3D function must move and do for one call.
+
+    Bytes: the signal and the spectra (Cout, Cin/g, 16, NBH, 64) read once,
+    the output written once. Flops: the dense DFT products of the
+    overlap-save-D algorithm with an FMA as two, restricted to what the call
+    needs. Per W block, with cols_in of its 64 columns inside the signal and
+    cols_out outputs stored: per input channel and d-slab, the one-sided H
+    DFT (real x complex, 4 per term, NBH x H x cols_in) and the W DFT
+    (complex, 8, NBH x cols_in x 64); per input channel and bin, the DFT-16
+    of each block as two 8-slab partial DFTs (8 per term, over the slabs
+    inside D) and their sum (2 per value); per output channel and bin, the
+    MAC over the group's channels at the 16 D-bins of each block (8) and the
+    inverse DFT-16 onto the OD valid d (8); per output channel and valid d,
+    the inverse W DFT onto the stored columns (8, NBH x 64 x cols_out) and
+    the H irfft on the valid rows (4, OH x NBH x cols_out)."""
+    from fft_conv_tpu_torch.kernels import fused3d
+
+    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k, groups)
+    nbh, nbd = plan[1], plan[4]
+    od, oh, ow = d - k + 1, h - k + 1, w - k + 1
+    cpg, npos = cin // groups, nbh * 64
+    flops = 0
+    for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
+        cols_in, cols_out = min(64, w - start), hi - lo
+        flops += cin * d * (4 * nbh * h * cols_in + 8 * nbh * cols_in * 64)
+        flops += cin * npos * (8 * 16 * d + 2 * 16 * nbd)
+        flops += cout * npos * (8 * cpg * 16 * nbd + 8 * 16 * od)
+        flops += cout * od * (8 * nbh * 64 * cols_out + 4 * oh * nbh * cols_out)
+    nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * 16 * nbh * 64
+              + 4 * b * cout * od * oh * ow)
+    return nbytes, b * flops
+
+
+def fused3d_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
+    """The flops csrc/fused3d.cu does for one call: the H/W phases over all
+    64 columns of a block and over whole groups of SB slabs, the inverse
+    DFT-16 onto all 8 d of a block."""
+    from fft_conv_tpu_torch.kernels import fused3d
+
+    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k, groups)
+    nbh, nbd = plan[1], plan[4]
+    od, oh = d - k + 1, h - k + 1
+    sb, npos = fused3d._slabs_per_block(nbh), nbh * 64
+    item = cin * -(-d // sb) * sb * (4 * nbh * h * 64 + 8 * nbh * 64 * 64)
+    item += cin * npos * (8 * 16 * d + 2 * 16 * nbd)
+    item += cout * npos * nbd * (8 * (cin // groups) * 16 + 8 * 8 * 16)
+    item += cout * -(-od // sb) * sb * (8 * nbh * 64 * 64 + 4 * oh * nbh * 64)
+    return b * nwb * item
 
 
 def bound(nbytes, flops):
@@ -333,6 +386,201 @@ def time_2d(torch, inputs, errs, per_row):
     return rows
 
 
+def check_fused3d(torch, dev, gen):
+    """B3 against its plain version on the card at the 3D benchmark row, with
+    groups=2, at odd sizes with KD=9 (the hop edge), through
+    fft_conv3d_fused's argument surface (stride, dilation, reflect padding),
+    with W cut into 4 overlap-save blocks, and with the items split over
+    several launches. Returns the row's inputs and its max abs errors."""
+    from fft_conv_tpu_torch.kernels import fused3d
+    from fft_conv_tpu_torch.ops import functional as F
+
+    lib = fused3d._library()
+    for nbh in (10, 33, 113, 114, 227, 228, 454, 455):
+        smem = lib.fused3d_smem_bytes(nbh)
+        check(smem == fused3d._smem_bytes(nbh),
+              f"plan's shared memory at NBH={nbh} differs from the kernel's {smem}")
+
+    def vs_plain(x, wt, groups, what, **extra):
+        k = tuple(wt.shape[2:])
+        y = fused3d._launch_fused3d(x, fused3d.kernel_spectra_3d(wt, x.shape[3]), groups, k)
+        torch.cuda.synchronize()
+        mx, mean, sigma = close_scaled(y, fused3d._fused3d_forward_reference(x, wt, groups),
+                                       f"B3 vs plain, {what}")
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B3", "case": what,
+                          "max_abs_err": mx, "mean_abs_err": mean, "sigma": sigma,
+                          "bar_max": 1.2e-4 * sigma, "bar_mean": 2e-5 * sigma, **extra}))
+        return mx
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    inputs, errs = [], []
+    for b, cin, cout, d, h, w, k in BENCH_SHAPES_3D:
+        x = randn(b, cin, d, h, w)
+        wt = randn(cout, cin, k, k, k) / (cin * k ** 3) ** 0.5
+        bias = randn(cout)
+        blocked = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k)
+        check(blocked is not None and blocked[0][0] == "v4" and blocked[1] == 1,
+              f"no single-block v4 plan at 64^3 K={k}: {blocked}")
+        inputs.append((x, wt, bias, blocked[0]))
+        errs.append(vs_plain(x, wt, 1, f"K={k}", plan=list(blocked[0])))
+
+    x, wt, bias, _ = inputs[0]
+    vs_plain(x, wt[:, :4].contiguous(), 2, "groups=2")
+    vs_plain(randn(2, 8, 41, 37, 45), randn(8, 8, 9, 5, 7) / 50.0, 1,
+             "D, H, W = 41, 37, 45, K = (9, 5, 7)")
+    vs_plain(randn(2, 8, 24, 32, 200), randn(8, 8, 3, 5, 7) / 20.0, 1,
+             "W=200 in 4 W blocks")
+
+    xs, ws = randn(2, 8, 40, 36, 44), randn(8, 8, 3, 3, 3) / 15.0
+    kw = dict(padding=3, padding_mode="reflect", stride=(2, 1, 3), dilation=2)
+    y = fused3d.fft_conv3d_fused(xs, ws, bias, **kw)
+    xp = F._pad_signal(xs, (3, 3, 3), "reflect")
+    y_ref = fused3d._fused3d_forward_reference(xp, F._dilate_kernel(ws, (2, 2, 2)))
+    y_ref = y_ref[:, :, ::2, ::1, ::3] + bias.reshape(1, -1, 1, 1, 1)
+    mx, _, _ = close_scaled(y, y_ref, "B3 stride/dilation/reflect")
+    print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B3",
+                      "case": "stride=(2, 1, 3), dilation=2, reflect padding 3",
+                      "max_abs_err": mx}))
+
+    budget = fused3d._SCRATCH_BUDGET
+    plan = inputs[0][3]
+    try:
+        fused3d._SCRATCH_BUDGET = fused3d._scratch_bytes_per_item(8, 8, 64, plan[1], plan[4], 57)
+        before = fused3d.launches
+        y = fused3d._launch_fused3d(x, fused3d.kernel_spectra_3d(wt, 64), 1, (8, 8, 8))
+        split = fused3d.launches - before
+    finally:
+        fused3d._SCRATCH_BUDGET = budget
+    check(split > 1, "the item ranges did not split")
+    mx, _, _ = close_scaled(y, fused3d._fused3d_forward_reference(x, wt), "B3 in item ranges")
+    print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B3",
+                      "case": f"{split} item ranges", "max_abs_err": mx}))
+    torch.cuda.synchronize()
+    return inputs, errs
+
+
+def main_path_3d(torch, inputs):
+    """fft_conv(impl="auto") at the 3D row and FFTConv3d(8, 8, 8) forward and
+    backward, counted from zero; then a KD=11 call must raise naming B4.
+    Returns (launches per row, total)."""
+    from fft_conv_tpu_torch import FFTConv3d, fft_conv
+    from fft_conv_tpu_torch.kernels import fused3d
+
+    fused3d.launches = 0
+    per_row = []
+    for (b, cin, cout, d, h, w, k), (x, wt, bias, _) in zip(BENCH_SHAPES_3D, inputs):
+        before = fused3d.launches
+        y = fft_conv(x, wt, bias, impl="auto")
+        torch.cuda.synchronize()
+        rose = fused3d.launches - before
+        check(rose == 1, f"fft_conv(impl='auto') at 64^3 K={k} launched B3 {rose} times")
+        per_row.append(rose)
+        mx, mean, _ = close_scaled(y, fft_conv(x, wt, bias, impl="xla"), f"3D auto vs xla K={k}")
+        print(json.dumps({"phase": "main_path", "kernel": "B3", "K": k, "launches": rose,
+                          "max_abs_err_vs_composed": mx, "mean_abs_err": mean}))
+
+    layer = FFTConv3d(8, 8, 8, device="cuda", generator=torch.Generator().manual_seed(0))
+    x = inputs[0][0].clone().requires_grad_()
+    before = fused3d.launches
+    y = layer(x)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    layer_launches = fused3d.launches - before
+    check(layer_launches >= 1, "FFTConv3d did not launch B3")
+    w_ref = layer.weight.detach().clone().requires_grad_()
+    x_ref = inputs[0][0].clone().requires_grad_()
+    y_ref = fft_conv(x_ref, w_ref, layer.bias.detach(), impl="xla")
+    y_ref.sum().backward()
+    close_scaled(y, y_ref, "FFTConv3d forward vs xla")
+    gw_err, _, _ = close_scaled(layer.weight.grad, w_ref.grad, "FFTConv3d weight grad vs xla")
+    gx_err, _, _ = close_scaled(x.grad, x_ref.grad, "FFTConv3d input grad vs xla")
+    total = fused3d.launches
+    print(json.dumps({"phase": "module", "kernel": "B3", "launches": layer_launches,
+                      "weight_grad_max_abs_err": gw_err, "input_grad_max_abs_err": gx_err}))
+
+    xt = torch.zeros(1, 2, 30, 16, 12, device="cuda")
+    try:
+        fft_conv(xt, torch.zeros(2, 2, 11, 3, 3, device="cuda"), impl="fused")
+        raised = ""
+    except NotImplementedError as err:
+        raised = str(err)
+    check("B4" in raised, "a KD=11 fused call did not raise naming B4")
+    check(fused3d.launches == total, "the KD=11 call launched B3")
+    print(json.dumps({"phase": "unported", "case": "KD=11 impl='fused'", "raised": raised}))
+    torch.cuda.synchronize()
+    return per_row, total
+
+
+def phase_split_ms(torch, fn, prefix, reps=GRAPH_REPS):
+    """Device time per call of each kernel whose name holds ``prefix``, from
+    torch.profiler's CUDA activity over ``reps`` calls of fn() (after one
+    warm-up call); {} when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", 0) or getattr(evt, "cuda_time_total", 0)
+        if prefix in evt.key and us:
+            name = evt.key.split(prefix, 1)[1].split("<")[0].split("(")[0]
+            split[name] = split.get(name, 0.0) + us / 1e3 / reps
+    return split
+
+
+def time_3d(torch, inputs, errs, per_row):
+    """The timing row of the 3D benchmark shape (see phase 5 of main)."""
+    import torch.nn.functional as TF
+
+    from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.kernels import fused3d
+
+    rows = []
+    for (b, cin, cout, d, h, w, k), (x, wt, _, plan), err, nl in zip(
+        BENCH_SHAPES_3D, inputs, errs, per_row
+    ):
+        spectra = fused3d.kernel_spectra_3d(wt, h)
+
+        def kernel():
+            return fused3d._launch_fused3d(x, spectra, 1, (k, k, k))
+
+        def auto():
+            return fft_conv(x, wt, impl="auto")
+
+        def composed():
+            return fft_conv(x, wt, impl="xla")
+
+        nbytes, flops = fused3d_work(b, cin, cout, d, h, w, k)
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = {
+            "K": k, "plan": list(plan), "launches": nl, "max_abs_err": err,
+            "ms": device_ms(kernel),
+            "call_ms": call_ms(kernel),
+            "spectra_ms": device_ms(lambda: fused3d.kernel_spectra_3d(wt, h)),
+            "auto_ms": device_ms(auto),
+            "auto_call_ms": call_ms(auto),
+            "composed_ms": device_ms(composed),
+            "composed_call_ms": call_ms(composed),
+            "plain_ms": call_ms(lambda: fused3d._fused3d_forward_reference(x, wt)),
+            "library_ms": device_ms(lambda: TF.conv3d(x, wt)),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_flops": fused3d_kernel_flops(b, cin, cout, d, h, w, k),
+            # B3's four kernels, one by one (device time per call)
+            "phase_ms": phase_split_ms(torch, kernel, "fused3d_"),
+        }
+        row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
+        rows.append(row)
+        print(json.dumps({"phase": "timing", "kernel": "B3", **row}))
+        torch.cuda.synchronize()
+    return rows
+
+
 def kernel_entry(name, source, replaces, launches, errs, rows):
     """One entry of the ``kernels`` line: the sums over the timed rows."""
     def total(key):
@@ -387,7 +635,8 @@ def main() -> int:
     paths = _build.build()
     build_s = time.perf_counter() - t0
     ptxas = {
-        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        name: [ln.strip() for ln in log.splitlines()
+               if "entry function" in ln or "registers" in ln or "spill" in ln]
         for name, log in _build.build_logs.items()
     }
     print(json.dumps({"phase": "build", "seconds": round(build_s, 2),
@@ -438,6 +687,7 @@ def main() -> int:
                       "max_abs_err": mx}))
     torch.cuda.synchronize()
     inputs2d, errs2d = check_fused2d(torch, dev, gen)
+    inputs3d, errs3d = check_fused3d(torch, dev, gen)
 
     # phases 3b and 4: the main path, counted from zero
     fused1d.launches = 0
@@ -475,6 +725,7 @@ def main() -> int:
                       "weight_grad_max_abs_err": gw_err, "input_grad_max_abs_err": gx_err}))
     torch.cuda.synchronize()
     per_row2d, main_launches2d = main_path_2d(torch, inputs2d)
+    per_row3d, main_launches3d = main_path_3d(torch, inputs3d)
 
     # phase 5: timings. "*_ms" is device time (CUDA graph replay), "*_call_ms"
     # the latency a caller sees; inputs stay in L2 between calls, as for a
@@ -518,12 +769,15 @@ def main() -> int:
         torch.cuda.synchronize()
 
     rows2d = time_2d(torch, inputs2d, errs2d, per_row2d)
+    rows3d = time_3d(torch, inputs3d, errs3d, per_row3d)
 
     print(json.dumps({"kernels": [
         kernel_entry("B1_fused1d", "fft_conv_tpu_torch/kernels/csrc/fused1d.cu",
                      "fft_conv_tpu/kernels/fused1d.py:291", main_launches, errs, shapes),
         kernel_entry("B2_fused2d", "fft_conv_tpu_torch/kernels/csrc/fused2d.cu",
                      "fft_conv_tpu/kernels/fused2d.py:308", main_launches2d, errs2d, rows2d),
+        kernel_entry("B3_fused3d", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",
+                     "fft_conv_tpu/kernels/fused3d.py:735", main_launches3d, errs3d, rows3d),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,11 @@ Layers are built on the card: ``device=None`` means ``"cuda"``, and the
 constructor raises when there is no CUDA device unless ``device="cpu"`` was
 asked for.
 
-The port provides the 1D and 2D layers so far. The transposed layers run
-the composed path (``impl="xla"``) by default, because their fused routes
-are not ported yet (ROADMAP.md §A); ``impl="auto"`` on a CUDA signal raises
-for them rather than quietly running something else.
+The port provides the 1D, 2D and 3D layers. The transposed layers run the
+composed path (``impl="xla"``) by default, because their fused routes are not
+ported yet (ROADMAP.md §A); ``impl="auto"`` on a 1D or 2D CUDA signal raises
+for them rather than quietly running something else. For the 3D transposed
+layer the JAX package's "auto" is the composed path too.
 """
 
 from typing import Iterable, Optional, Union
@@ -192,3 +193,11 @@ class FFTConv2d(_FFTConvForward):
 
 class FFTConvTranspose2d(_FFTConvTransposeForward):
     ndim = 2
+
+
+class FFTConv3d(_FFTConvForward):
+    ndim = 3
+
+
+class FFTConvTranspose3d(_FFTConvTransposeForward):
+    ndim = 3

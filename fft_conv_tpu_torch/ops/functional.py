@@ -3,8 +3,8 @@
 The port's counterpart of ``fft_conv_tpu/ops/functional.py``: plain
 ``torch.fft.rfftn``/``irfftn`` plus a grouped per-bin contraction,
 differentiable through autograd. It is the port's correctness oracle and the
-backward of the fused 1D and 2D kernels (``kernels/fused1d.py``,
-``kernels/fused2d.py``).
+backward of the fused kernels (``kernels/fused1d.py``, ``kernels/fused2d.py``,
+``kernels/fused3d.py``).
 
 Semantics match the reference exactly (cited per step):
   - fft_conv:            fft_conv_pytorch/functional.py:19-89
@@ -12,9 +12,9 @@ Semantics match the reference exactly (cited per step):
   - complex_matmul:      fft_conv_pytorch/functional.py:11-16
 
 Routing (``impl=``) follows the JAX package, with "on a TPU" read as "the
-signal is a CUDA tensor": ``auto`` sends a 1D or 2D CUDA signal whose plan
-fits to the fused kernel; the 3D fused kernel is not ported yet, so a 3D CUDA
-signal under ``auto`` or ``fused`` raises ``NotImplementedError`` rather than
+signal is a CUDA tensor": ``auto`` sends a 1D, 2D or 3D CUDA signal whose
+plan fits to the fused kernel (in 3D a single-W-block plan only). A 3D plan of
+the unported tap kernel (B4) raises ``NotImplementedError`` rather than
 quietly running the composed path (``impl="xla"`` asks for that path).
 bfloat16/float16 inputs are computed in float32 and cast back.
 """
@@ -199,13 +199,15 @@ def fft_conv(
       signal: (B, Cin, *spatial); kernel: (Cout, Cin/groups, *k);
       bias: (Cout,) or None.
 
-    ``impl``: "auto" (a 1D or 2D CUDA signal with a fitting plan runs the
-    fused kernel; a 3D CUDA signal raises NotImplementedError until its
-    kernel is ported; CPU signals take the composed path), "xla" (always the
-    composed path; the name is kept from the JAX package), "fused" (require
-    the fused 1D or 2D path: the CUDA kernel on a CUDA tensor, its plain
-    PyTorch version on a CPU tensor; ValueError if no plan fits), "tiled"
-    (not ported yet: NotImplementedError).
+    ``impl``: "auto" (a 1D, 2D or 3D CUDA signal with a fitting plan runs
+    the fused kernel, in 3D only when W needs no overlap-save blocks; CPU
+    signals take the composed path), "xla" (always the composed path; the
+    name is kept from the JAX package), "fused" (require the fused path: the
+    CUDA kernel on a CUDA tensor, its plain PyTorch version on a CPU tensor;
+    ValueError if no plan fits), "tiled" (not ported yet:
+    NotImplementedError). A 3D shape whose plan is the tap kernel (KD > 9)
+    raises NotImplementedError under "auto" on a CUDA signal and under
+    "fused": that kernel (B4) is not ported yet.
     """
     n = _check_rank(signal, kernel, "(out_channels, in_channels/groups, *k)")
     stride_ = to_ntuple(stride, n)
@@ -264,10 +266,15 @@ def fft_conv(
         if out is not None:
             return out
     elif wants_fused and n == 3:
-        raise NotImplementedError(
-            "the fused 3D kernel is not ported yet (ROADMAP §B, B3); pass "
-            "impl='xla' for the composed path"
-        )
+        from ..kernels.fused3d import fft_conv3d_fused, fft_conv3d_fused_if_fits
+
+        args = (signal, kernel, bias, padding_, padding_mode, stride_, dilation_, groups)
+        if impl == "fused":
+            return fft_conv3d_fused(*args)  # raises when no plan fits
+        # auto fuses single-block plans only, as the JAX package does
+        out = fft_conv3d_fused_if_fits(*args, w_blocks=False)
+        if out is not None:
+            return out
 
     return _fft_conv(
         signal, kernel, bias, stride_, padding_, dilation_, int(groups),

@@ -14,7 +14,7 @@ import torch
 
 import fft_conv_tpu as fc
 import fft_conv_tpu_torch as ft
-from fft_conv_tpu_torch.kernels import fused1d, fused2d
+from fft_conv_tpu_torch.kernels import fused1d, fused2d, fused3d
 from fft_conv_tpu_torch.models.init import conv_fan_in
 from fft_conv_tpu_torch.utils.convert import module_from_jax_state, params_from_jax
 
@@ -101,6 +101,52 @@ def test_2d_transpose_layer_matches_jax(stride, padding, output_padding, dilatio
     _assert_almost_equal(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
 
 
+def test_3d_slice_forward_matches_jax():
+    """The 3D slice: FFTConv3d forward through the fused route on both sides
+    (B3's plain version here, the Pallas kernel in interpret mode there)."""
+    jax_layer, torch_layer = _pair("FFTConv3d", 3, 4, (5, 3, 4), padding=(2, 1, 0),
+                                   padding_mode="reflect", groups=1, impl="fused")
+    x = np.random.default_rng(7).standard_normal((2, 3, 18, 16, 20)).astype(np.float32)
+    before = fused3d.launches
+    with torch.no_grad():
+        y = torch_layer(torch.from_numpy(x))
+    assert fused3d.launches == before
+    _assert_close_scaled(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
+
+
+def test_3d_default_forward_matches_jax():
+    """impl="auto" on a CPU signal: the composed path on both sides."""
+    jax_layer, torch_layer = _pair("FFTConv3d", 4, 6, 3, stride=2, groups=2, impl="auto")
+    x = np.random.default_rng(8).standard_normal((2, 4, 9, 10, 11)).astype(np.float32)
+    with torch.no_grad():
+        y = torch_layer(torch.from_numpy(x))
+    _assert_almost_equal(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("stride,padding,output_padding,dilation,groups",
+                         [(1, 0, 0, 1, 1), (2, 1, 1, 2, 2), ((3, 1, 2), (2, 0, 1), (0, 0, 1), 1, 1)])
+def test_3d_transpose_layer_matches_jax(stride, padding, output_padding, dilation, groups):
+    jax_layer, torch_layer = _pair(
+        "FFTConvTranspose3d", 4, 6, (3, 2, 3), stride=stride, padding=padding,
+        output_padding=output_padding, dilation=dilation, groups=groups, impl="xla",
+    )
+    x = np.random.default_rng(9).standard_normal((2, 4, 7, 6, 5)).astype(np.float32)
+    with torch.no_grad():
+        y = torch_layer(torch.from_numpy(x))
+    _assert_almost_equal(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("cls", ["FFTConv3d", "FFTConvTranspose3d"])
+def test_3d_state_dict_matches_jax(cls):
+    jax_layer, torch_layer = _pair(cls, 4, 6, (3, 2, 5), groups=2, impl="xla")
+    state = _state(jax_layer)
+    assert set(torch_layer.state_dict()) == set(state) == {"weight", "bias"}
+    for name, value in state.items():
+        assert tuple(torch_layer.state_dict()[name].shape) == value.shape
+        assert np.array_equal(torch_layer.state_dict()[name].numpy(), value)
+    assert repr(torch_layer) == repr(jax_layer)
+
+
 @pytest.mark.parametrize("stride,padding,output_padding,dilation,groups",
                          [(1, 0, 0, 1, 1), (2, 1, 1, 2, 2), (3, 2, 0, 1, 1)])
 def test_transpose_layer_matches_jax(stride, padding, output_padding, dilation, groups):
@@ -130,6 +176,8 @@ def test_transpose_layer_runs_the_composed_path_by_default():
     assert ft.FFTConv1d(2, 3, 4, device="cpu").impl == "auto"
     assert ft.FFTConvTranspose2d(2, 3, 4, device="cpu").impl == "xla"
     assert ft.FFTConv2d(2, 3, 4, device="cpu").impl == "auto"
+    assert ft.FFTConvTranspose3d(2, 3, 4, device="cpu").impl == "xla"
+    assert ft.FFTConv3d(2, 3, 4, device="cpu").impl == "auto"
 
 
 @pytest.mark.parametrize("cls,shape,fan_in", [
@@ -137,6 +185,8 @@ def test_transpose_layer_runs_the_composed_path_by_default():
     ("FFTConvTranspose1d", (4, 3, 5), 15),  # (Cin, Cout/g, K), groups=2
     ("FFTConv2d", (6, 2, 5, 5), 50),
     ("FFTConvTranspose2d", (4, 3, 5, 5), 75),
+    ("FFTConv3d", (6, 2, 5, 5, 5), 250),
+    ("FFTConvTranspose3d", (4, 3, 5, 5, 5), 375),
 ])
 def test_init_follows_torch(cls, shape, fan_in):
     layer = getattr(ft.nn, cls)(4, 6, 5, groups=2, device="cpu",
@@ -177,6 +227,20 @@ def test_2d_init_and_state_dict_match_torch_conv(cls, torch_cls):
     assert torch.equal(layer.weight, ref.weight)
 
 
+@pytest.mark.parametrize("cls,torch_cls", [("FFTConv3d", "Conv3d"),
+                                           ("FFTConvTranspose3d", "ConvTranspose3d")])
+def test_3d_init_and_state_dict_match_torch_conv(cls, torch_cls):
+    layer = getattr(ft.nn, cls)(8, 12, (5, 3, 2), device="cpu")
+    ref = getattr(torch.nn, torch_cls)(8, 12, (5, 3, 2))
+    assert layer.weight.shape == ref.weight.shape
+    bound = 1 / (ref.weight[0].numel()) ** 0.5
+    assert layer.weight.abs().max() <= bound
+    assert abs(layer.weight.std().item() - ref.weight.std().item()) < 0.1 * bound
+    assert set(layer.state_dict()) == set(ref.state_dict()) == {"weight", "bias"}
+    layer.load_state_dict(ref.state_dict())  # torch checkpoints load as they are
+    assert torch.equal(layer.weight, ref.weight)
+
+
 def test_layers_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -187,6 +251,10 @@ def test_layers_default_to_cuda(monkeypatch):
         ft.FFTConv2d(2, 2, 3)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ft.FFTConvTranspose2d(2, 2, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ft.FFTConv3d(2, 2, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ft.FFTConvTranspose3d(2, 2, 3)
 
 
 @pytest.mark.parametrize("cls,args,kw,match", [
