@@ -5,13 +5,15 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, checks
 each against its plain PyTorch version on the card, drives the main path
-(``fft_conv(..., impl="auto")`` and the ``nn.FFTConv1d``/``nn.FFTConv2d``
-layers forward and backward) at the library's benchmark shapes (B=2,
-8 -> 8 channels, float32, bias, inputs from a torch.Generator seeded with 0:
-1D at L=32768 with K in {256, 1024, 3840}, 2D at 512 x 512 with K in
-{16, 34}), shows through the launch counters that the main path ran the
-kernels, and times each kernel beside its plain version, the composed path,
-one library call and the least time the card could take.
+(``fft_conv(..., impl="auto")``, ``fft_conv_transpose(..., impl="fused")``
+and the ``nn.FFTConv1d/2d/3d`` and ``nn.FFTConvTranspose3d`` layers forward
+and backward) at the library's benchmark shapes (B=2, 8 -> 8 channels,
+float32, bias, inputs from a torch.Generator seeded with 0: 1D at L=32768
+with K in {256, 1024, 3840}, 2D at 512 x 512 with K in {16, 34}, 3D at 64^3
+with K=8, forward and transposed) and at 64^3 with K=10 (the 3D tap kernel
+B4, and its transposed call), shows through the launch counters that the
+main path ran the kernels, and times each kernel beside its plain version,
+the composed path, one library call and the least time the card could take.
 
 Every phase prints one line; any failed check raises and the script exits
 non-zero without a result. The last line is
@@ -34,6 +36,11 @@ BENCH_SHAPES = [(2, 8, 8, 32768, 256), (2, 8, 8, 32768, 1024), (2, 8, 8, 32768, 
 BENCH_SHAPES_2D = [(2, 8, 8, 512, 512, 16), (2, 8, 8, 512, 512, 34)]
 # (B, Cin, Cout, D, H, W, K): its 3D row
 BENCH_SHAPES_3D = [(2, 8, 8, 64, 64, 64, 8)]
+# the B4 row: the 3D row's volume, batch and channels with the smallest
+# kernel past the v4 plan's KD <= 9
+BENCH_SHAPES_3D_TAP = [(2, 8, 8, 64, 64, 64, 10)]
+# the transposed 3D calls: the benchmark row (B3, two W blocks) and K=10 (B4)
+TRANSPOSED_3D_K = (8, 10)
 # NVIDIA's data sheet for the H100 SXM: HBM rate and FP32 rate outside the
 # tensor cores (the kernel uses FP32 FMAs only)
 HBM_BYTES_PER_S = 3.35e12
@@ -214,6 +221,47 @@ def fused3d_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
     item = cin * -(-d // sb) * sb * (4 * nbh * h * 64 + 8 * nbh * 64 * 64)
     item += cin * npos * (8 * 16 * d + 2 * 16 * nbd)
     item += cout * npos * nbd * (8 * (cin // groups) * 16 + 8 * 8 * 16)
+    item += cout * -(-od // sb) * sb * (8 * nbh * 64 * 64 + 4 * oh * nbh * 64)
+    return b * nwb * item
+
+
+def fused3d_tap_work(b, cin, cout, d, h, w, k, groups=1):
+    """(bytes, flops) the fused 3D function must move and do for one call of
+    a 'tap' plan (kernel B4), counted as in fused3d_work: the H/W transforms
+    per input channel and d-slab, the tap MAC per output channel, valid d
+    and bin over the group's channels and the KD taps (8 per term), the
+    inverse W DFT onto the stored columns and the H irfft on the valid rows
+    per output channel and valid d. Bytes: the signal and the spectra
+    (Cout, Cin/g, KD, NBH, 64) read once, the output written once."""
+    from fft_conv_tpu_torch.kernels import fused3d
+
+    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k, groups)
+    nbh = plan[1]
+    od, oh, ow = d - k + 1, h - k + 1, w - k + 1
+    cpg, npos = cin // groups, nbh * 64
+    flops = 0
+    for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
+        cols_in, cols_out = min(64, w - start), hi - lo
+        flops += cin * d * (4 * nbh * h * cols_in + 8 * nbh * cols_in * 64)
+        flops += cout * npos * od * 8 * cpg * k
+        flops += cout * od * (8 * nbh * 64 * cols_out + 4 * oh * nbh * cols_out)
+    nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * k * nbh * 64
+              + 4 * b * cout * od * oh * ow)
+    return nbytes, b * flops
+
+
+def fused3d_tap_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
+    """The flops csrc/fused3d.cu's tap chain does for one call: the H/W
+    kernels over all 64 columns of a block and over whole groups of SB
+    slabs, the tap MAC onto all 8 d of each chunk."""
+    from fft_conv_tpu_torch.kernels import fused3d
+
+    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k, groups)
+    nbh = plan[1]
+    od, oh = d - k + 1, h - k + 1
+    sb, npos = fused3d._slabs_per_block(nbh), nbh * 64
+    item = cin * -(-d // sb) * sb * (4 * nbh * h * 64 + 8 * nbh * 64 * 64)
+    item += cout * npos * -(-od // 8) * 8 * 8 * (cin // groups) * k
     item += cout * -(-od // sb) * sb * (8 * nbh * 64 * 64 + 4 * oh * nbh * 64)
     return b * nwb * item
 
@@ -463,7 +511,7 @@ def check_fused3d(torch, dev, gen):
 
 def main_path_3d(torch, inputs):
     """fft_conv(impl="auto") at the 3D row and FFTConv3d(8, 8, 8) forward and
-    backward, counted from zero; then a KD=11 call must raise naming B4.
+    backward, counted from zero; then a KD=11 call must launch B4, not B3.
     Returns (launches per row, total)."""
     from fft_conv_tpu_torch import FFTConv3d, fft_conv
     from fft_conv_tpu_torch.kernels import fused3d
@@ -500,15 +548,16 @@ def main_path_3d(torch, inputs):
     print(json.dumps({"phase": "module", "kernel": "B3", "launches": layer_launches,
                       "weight_grad_max_abs_err": gw_err, "input_grad_max_abs_err": gx_err}))
 
-    xt = torch.zeros(1, 2, 30, 16, 12, device="cuda")
-    try:
-        fft_conv(xt, torch.zeros(2, 2, 11, 3, 3, device="cuda"), impl="fused")
-        raised = ""
-    except NotImplementedError as err:
-        raised = str(err)
-    check("B4" in raised, "a KD=11 fused call did not raise naming B4")
+    xt = torch.ones(1, 2, 30, 16, 12, device="cuda")
+    before = fused3d.launches_tap
+    y = fft_conv(xt, torch.ones(2, 2, 11, 3, 3, device="cuda"), impl="fused")
+    torch.cuda.synchronize()
+    check(fused3d.launches_tap == before + 1, "a KD=11 fused call did not launch B4")
     check(fused3d.launches == total, "the KD=11 call launched B3")
-    print(json.dumps({"phase": "unported", "case": "KD=11 impl='fused'", "raised": raised}))
+    err = float((y - 2 * 11 * 3 * 3).abs().max())
+    check(err < 1e-3, f"the KD=11 call of ones is off by {err}")
+    print(json.dumps({"phase": "tap_route", "case": "KD=11 impl='fused'",
+                      "launches_tap": 1, "max_abs_err": err}))
     torch.cuda.synchronize()
     return per_row, total
 
@@ -579,6 +628,250 @@ def time_3d(torch, inputs, errs, per_row):
         print(json.dumps({"phase": "timing", "kernel": "B3", **row}))
         torch.cuda.synchronize()
     return rows
+
+
+def check_fused3d_tap(torch, dev, gen):
+    """B4 against its plain version on the card at the B4 row, with groups=2,
+    at odd sizes with KD=11 and an odd H, with W cut into 4 overlap-save
+    blocks at KD=12, through fft_conv3d_fused's argument surface (stride,
+    dilation 2 taking K=6 to 11, reflect padding), at 64^3 K=11 (a plan the
+    JAX package refuses), and with the items split over several launches.
+    Returns the row's inputs and its max abs errors."""
+    from fft_conv_tpu_torch.kernels import fused3d
+    from fft_conv_tpu_torch.ops import functional as F
+
+    def vs_plain(x, wt, groups, what, **extra):
+        k = tuple(wt.shape[2:])
+        before = fused3d.launches_tap
+        y = fused3d._launch_fused3d_tap(x, fused3d.kernel_spectra_tap(wt, x.shape[3]), groups, k)
+        torch.cuda.synchronize()
+        check(fused3d.launches_tap == before + 1, f"B4 {what}: not one launch")
+        mx, mean, sigma = close_scaled(y, fused3d._fused3d_tap_reference(x, wt, groups),
+                                       f"B4 vs plain, {what}")
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B4", "case": what,
+                          "max_abs_err": mx, "mean_abs_err": mean, "sigma": sigma,
+                          "bar_max": 1.2e-4 * sigma, "bar_mean": 2e-5 * sigma, **extra}))
+        return mx
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    inputs, errs = [], []
+    for b, cin, cout, d, h, w, k in BENCH_SHAPES_3D_TAP:
+        x = randn(b, cin, d, h, w)
+        wt = randn(cout, cin, k, k, k) / (cin * k ** 3) ** 0.5
+        bias = randn(cout)
+        blocked = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k)
+        check(blocked is not None and blocked[0][0] == "tap" and blocked[1] == 1,
+              f"no single-block tap plan at 64^3 K={k}: {blocked}")
+        inputs.append((x, wt, bias, blocked[0]))
+        errs.append(vs_plain(x, wt, 1, f"K={k}", plan=list(blocked[0])))
+
+    x, wt, bias, _ = inputs[0]
+    vs_plain(x, wt[:, :4].contiguous(), 2, "groups=2")
+    vs_plain(randn(2, 8, 41, 37, 45), randn(8, 8, 11, 5, 7) / 60.0, 1,
+             "D, H, W = 41, 37, 45, K = (11, 5, 7)")
+    vs_plain(randn(2, 8, 24, 32, 200), randn(8, 8, 12, 5, 7) / 60.0, 1,
+             "W=200 in 4 W blocks, KD=12")
+    w11 = randn(8, 8, 11, 11, 11) / (8 * 11 ** 3) ** 0.5
+    vs_plain(x, w11, 1, "64^3 K=11", plan=list(fused3d.plan_3d(8, 8, 64, 64, 64, 11, 11, 11)))
+
+    xs, ws = randn(2, 8, 40, 36, 44), randn(8, 8, 6, 3, 3) / 20.0
+    kw = dict(padding=3, padding_mode="reflect", stride=(2, 1, 3), dilation=2)
+    before = fused3d.launches_tap
+    y = fused3d.fft_conv3d_fused(xs, ws, bias, **kw)
+    check(fused3d.launches_tap == before + 1, "the dilated KD=11 call did not launch B4")
+    xp = F._pad_signal(xs, (3, 3, 3), "reflect")
+    y_ref = fused3d._fused3d_tap_reference(xp, F._dilate_kernel(ws, (2, 2, 2)))
+    y_ref = y_ref[:, :, ::2, ::1, ::3] + bias.reshape(1, -1, 1, 1, 1)
+    mx, _, _ = close_scaled(y, y_ref, "B4 stride/dilation/reflect")
+    print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B4",
+                      "case": "stride=(2, 1, 3), dilation=2 (K=6 -> 11), reflect padding 3",
+                      "max_abs_err": mx}))
+
+    budget = fused3d._SCRATCH_BUDGET
+    try:
+        fused3d._SCRATCH_BUDGET = fused3d._tap_scratch_bytes_per_item(8, 8, 64, 33, 55)
+        before = fused3d.launches_tap
+        y = fused3d._launch_fused3d_tap(x, fused3d.kernel_spectra_tap(wt, 64), 1, (10, 10, 10))
+        split = fused3d.launches_tap - before
+    finally:
+        fused3d._SCRATCH_BUDGET = budget
+    check(split > 1, "the item ranges did not split")
+    mx, _, _ = close_scaled(y, fused3d._fused3d_tap_reference(x, wt), "B4 in item ranges")
+    print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B4",
+                      "case": f"{split} item ranges", "max_abs_err": mx}))
+    torch.cuda.synchronize()
+    return inputs, errs
+
+
+def main_path_3d_tap(torch, inputs):
+    """The paths of B4, counted from zero: fft_conv(impl="auto") at the B4
+    row, FFTConv3d(8, 8, 10) forward and backward, fft_conv_transpose(...,
+    impl="fused") at 64^3 with K=8 (B3, two W blocks) and K=10 (B4, two W
+    blocks), and FFTConvTranspose3d(8, 8, 8, impl="fused") forward and
+    backward. Returns (B4 launches per row, B4 total, the transposed inputs)."""
+    from fft_conv_tpu_torch import FFTConv3d, FFTConvTranspose3d, fft_conv, fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused3d
+
+    def counts():
+        return fused3d.launches, fused3d.launches_tap
+
+    def rose_by(before):
+        torch.cuda.synchronize()
+        return tuple(a - b for a, b in zip(counts(), before))
+
+    fused3d.launches = fused3d.launches_tap = 0
+    per_row = []
+    for (b, cin, cout, d, h, w, k), (x, wt, bias, _) in zip(BENCH_SHAPES_3D_TAP, inputs):
+        before = counts()
+        y = fft_conv(x, wt, bias, impl="auto")
+        rose = rose_by(before)
+        check(rose == (0, 1), f"fft_conv(impl='auto') at 64^3 K={k} launched (B3, B4) {rose}")
+        per_row.append(rose[1])
+        mx, mean, _ = close_scaled(y, fft_conv(x, wt, bias, impl="xla"), f"3D auto vs xla K={k}")
+        print(json.dumps({"phase": "main_path", "kernel": "B4", "K": k, "launches": rose[1],
+                          "max_abs_err_vs_composed": mx, "mean_abs_err": mean}))
+
+    x0 = inputs[0][0]
+    layer = FFTConv3d(8, 8, 10, device="cuda", generator=torch.Generator().manual_seed(0))
+    x = x0.clone().requires_grad_()
+    before = counts()
+    y = layer(x)
+    y.sum().backward()
+    rose = rose_by(before)
+    check(rose == (0, 1), f"FFTConv3d(8, 8, 10) launched (B3, B4) {rose}")
+    w_ref = layer.weight.detach().clone().requires_grad_()
+    x_ref = x0.clone().requires_grad_()
+    y_ref = fft_conv(x_ref, w_ref, layer.bias.detach(), impl="xla")
+    y_ref.sum().backward()
+    close_scaled(y, y_ref, "FFTConv3d(K=10) forward vs xla")
+    gw_err, _, _ = close_scaled(layer.weight.grad, w_ref.grad, "FFTConv3d(K=10) weight grad")
+    gx_err, _, _ = close_scaled(x.grad, x_ref.grad, "FFTConv3d(K=10) input grad")
+    print(json.dumps({"phase": "module", "kernel": "B4", "launches": rose[1],
+                      "weight_grad_max_abs_err": gw_err, "input_grad_max_abs_err": gx_err}))
+
+    gen = torch.Generator().manual_seed(1)
+    t_inputs = []
+    for k in TRANSPOSED_3D_K:
+        wt = (torch.randn(8, 8, k, k, k, generator=gen) / (8 * k ** 3) ** 0.5).to(x0.device)
+        bias = torch.randn(8, generator=gen).to(x0.device)
+        full = 63 + 2 * k - 1  # the stuffed volume
+        plan, nwb, _ = fused3d.plan_3d_blocked(8, 8, full, full, full, k, k, k)
+        want = (1, 0) if plan[0] == "v4" else (0, 1)
+        before = counts()
+        y = fft_conv_transpose(x0, wt, bias, impl="fused")
+        rose = rose_by(before)
+        check(nwb == 2 and rose == want,
+              f"transposed K={k}: plan {plan}, {nwb} W blocks, launched (B3, B4) {rose}")
+        mx, mean, _ = close_scaled(y, fft_conv_transpose(x0, wt, bias, impl="xla"),
+                                   f"3D transposed fused vs xla K={k}")
+        t_inputs.append((k, wt, bias, plan, nwb))
+        print(json.dumps({"phase": "main_path", "kernel": "B3" if want[0] else "B4",
+                          "case": f"fft_conv_transpose(impl='fused') 64^3 K={k}",
+                          "plan": list(plan), "w_blocks": nwb, "launches": max(rose),
+                          "max_abs_err_vs_composed": mx, "mean_abs_err": mean}))
+
+    layer = FFTConvTranspose3d(8, 8, 8, impl="fused", device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    x = x0.clone().requires_grad_()
+    before = counts()
+    y = layer(x)
+    y.sum().backward()
+    rose = rose_by(before)
+    check(rose == (1, 0), f"FFTConvTranspose3d(8, 8, 8) launched (B3, B4) {rose}")
+    w_ref = layer.weight.detach().clone().requires_grad_()
+    x_ref = x0.clone().requires_grad_()
+    y_ref = fft_conv_transpose(x_ref, w_ref, layer.bias.detach(), impl="xla")
+    y_ref.sum().backward()
+    close_scaled(y, y_ref, "FFTConvTranspose3d forward vs xla")
+    gw_err, _, _ = close_scaled(layer.weight.grad, w_ref.grad, "FFTConvTranspose3d weight grad")
+    gx_err, _, _ = close_scaled(x.grad, x_ref.grad, "FFTConvTranspose3d input grad")
+    print(json.dumps({"phase": "module", "kernel": "B3",
+                      "case": "FFTConvTranspose3d(8, 8, 8, impl='fused')", "launches": rose[0],
+                      "weight_grad_max_abs_err": gw_err, "input_grad_max_abs_err": gx_err}))
+    launched = counts()
+    print(json.dumps({"phase": "main_path_counts", "kernels": "B3, B4",
+                      "launches": launched[0], "launches_tap": launched[1]}))
+    torch.cuda.synchronize()
+    return per_row, launched[1], t_inputs
+
+
+def time_3d_tap(torch, inputs, errs, per_row):
+    """The timing row of the B4 shape (see phase 5 of main)."""
+    import torch.nn.functional as TF
+
+    from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.kernels import fused3d
+
+    rows = []
+    for (b, cin, cout, d, h, w, k), (x, wt, _, plan), err, nl in zip(
+        BENCH_SHAPES_3D_TAP, inputs, errs, per_row
+    ):
+        spectra = fused3d.kernel_spectra_tap(wt, h)
+
+        def kernel():
+            return fused3d._launch_fused3d_tap(x, spectra, 1, (k, k, k))
+
+        def auto():
+            return fft_conv(x, wt, impl="auto")
+
+        def composed():
+            return fft_conv(x, wt, impl="xla")
+
+        nbytes, flops = fused3d_tap_work(b, cin, cout, d, h, w, k)
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = {
+            "K": k, "plan": list(plan), "launches": nl, "max_abs_err": err,
+            "ms": device_ms(kernel),
+            "call_ms": call_ms(kernel),
+            "spectra_ms": device_ms(lambda: fused3d.kernel_spectra_tap(wt, h)),
+            "auto_ms": device_ms(auto),
+            "auto_call_ms": call_ms(auto),
+            "composed_ms": device_ms(composed),
+            "composed_call_ms": call_ms(composed),
+            "plain_ms": call_ms(lambda: fused3d._fused3d_tap_reference(x, wt)),
+            "library_ms": device_ms(lambda: TF.conv3d(x, wt)),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_flops": fused3d_tap_kernel_flops(b, cin, cout, d, h, w, k),
+            # B4's three kernels, one by one (device time per call)
+            "phase_ms": phase_split_ms(torch, kernel, "fused3d_"),
+        }
+        row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
+        rows.append(row)
+        print(json.dumps({"phase": "timing", "kernel": "B4", **row}))
+        torch.cuda.synchronize()
+    return rows
+
+
+def time_transposed_3d(torch, x, t_inputs):
+    """The transposed 3D calls at 64^3: the fused route's device time and
+    call latency, the composed path's, and conv_transpose3d (TF32 off)."""
+    import torch.nn.functional as TF
+
+    from fft_conv_tpu_torch import fft_conv_transpose
+
+    for k, wt, bias, plan, nwb in t_inputs:
+        def fused():
+            return fft_conv_transpose(x, wt, bias, impl="fused")
+
+        def composed():
+            return fft_conv_transpose(x, wt, bias, impl="xla")
+
+        row = {
+            "K": k, "plan": list(plan), "w_blocks": nwb,
+            "fused_ms": device_ms(fused),
+            "fused_call_ms": call_ms(fused),
+            "composed_ms": device_ms(composed),
+            "composed_call_ms": call_ms(composed),
+            "library_ms": device_ms(lambda: TF.conv_transpose3d(x, wt, bias)),
+            # the kernel's own share of fused_ms; the rest is the wrapper's
+            # stuffed signal, kernel spectra, crop and bias
+            "phase_ms": phase_split_ms(torch, fused, "fused3d_"),
+        }
+        print(json.dumps({"phase": "timing", "kernel": "B3" if plan[0] == "v4" else "B4",
+                          "case": "fft_conv_transpose 64^3", **row}))
+        torch.cuda.synchronize()
 
 
 def kernel_entry(name, source, replaces, launches, errs, rows):
@@ -688,6 +981,7 @@ def main() -> int:
     torch.cuda.synchronize()
     inputs2d, errs2d = check_fused2d(torch, dev, gen)
     inputs3d, errs3d = check_fused3d(torch, dev, gen)
+    inputs3t, errs3t = check_fused3d_tap(torch, dev, gen)
 
     # phases 3b and 4: the main path, counted from zero
     fused1d.launches = 0
@@ -726,6 +1020,7 @@ def main() -> int:
     torch.cuda.synchronize()
     per_row2d, main_launches2d = main_path_2d(torch, inputs2d)
     per_row3d, main_launches3d = main_path_3d(torch, inputs3d)
+    per_row3t, main_launches3t, t_inputs = main_path_3d_tap(torch, inputs3t)
 
     # phase 5: timings. "*_ms" is device time (CUDA graph replay), "*_call_ms"
     # the latency a caller sees; inputs stay in L2 between calls, as for a
@@ -770,6 +1065,8 @@ def main() -> int:
 
     rows2d = time_2d(torch, inputs2d, errs2d, per_row2d)
     rows3d = time_3d(torch, inputs3d, errs3d, per_row3d)
+    rows3t = time_3d_tap(torch, inputs3t, errs3t, per_row3t)
+    time_transposed_3d(torch, inputs3t[0][0], t_inputs)
 
     print(json.dumps({"kernels": [
         kernel_entry("B1_fused1d", "fft_conv_tpu_torch/kernels/csrc/fused1d.cu",
@@ -778,6 +1075,8 @@ def main() -> int:
                      "fft_conv_tpu/kernels/fused2d.py:308", main_launches2d, errs2d, rows2d),
         kernel_entry("B3_fused3d", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",
                      "fft_conv_tpu/kernels/fused3d.py:735", main_launches3d, errs3d, rows3d),
+        kernel_entry("B4_fused3d_tap", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",
+                     "fft_conv_tpu/kernels/fused3d.py:1233", main_launches3t, errs3t, rows3t),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,61 +1,82 @@
-// Fused 3D overlap-save-D FFT convolution for Hopper (sm_90a), in FP32.
+// Fused 3D FFT convolution for Hopper (sm_90a), in FP32: two chains of
+// kernels that share their H/W stages.
 //
-// Replaces the TPU kernel fft_conv_tpu/kernels/fused3d.py:735 (_make_kernel_v4,
-// built by _fused3d_call_v4): the valid cross-correlation of a padded
-// (B, Cin, D, H, W) signal with a (Cout, Cin/g, KD <= 9, KH, KW) kernel. The
-// whole volume is transformed: a one-sided H DFT at the full H (NBH = H/2+1
-// rows), a 64-point W DFT over a block of 64 columns (zeros past the signal's
-// edge; wider signals run as overlap-save W blocks, the last one clamped to
-// end at the edge), and along D a DFT-16 per block of 16 slabs on a hop of 8
-// (zeros past D). The MAC over each group's input channels against the
-// conjugated kernel spectra is then pointwise; the inverse DFT-16 keeps the 8
-// valid d of each block, the inverse W DFT and the H irfft (DC and Nyquist
-// weighted 1, the rest 2, their imaginary rows zeroed) the valid columns and
-// rows. Every transform is a dense DFT matrix product in FP32 FMAs. The host
-// side (plan, factor matrices, kernel spectra, item ranges) is in
+// B3 replaces the TPU kernel fft_conv_tpu/kernels/fused3d.py:735
+// (_make_kernel_v4, built by _fused3d_call_v4), the overlap-save-D plan for
+// KD <= 9; B4 replaces fft_conv_tpu/kernels/fused3d.py:1233 (_make_kernel_3d,
+// built by _fused3d_call), the "tap" plan for KD > 9 and for shapes where the
+// v4 plan does not fit. Both compute the valid cross-correlation of a padded
+// (B, Cin, D, H, W) signal with a (Cout, Cin/g, KD, KH, KW) kernel. The whole
+// volume is transformed along H and W per d-slab: a one-sided H DFT at the
+// full H (NBH = H/2+1 rows) and a 64-point W DFT over a block of 64 columns
+// (zeros past the signal's edge; wider signals run as overlap-save W blocks,
+// the last one clamped to end at the edge). Along D, B3 takes a DFT-16 per
+// block of 16 slabs on a hop of 8 (zeros past D), so its MAC over each
+// group's input channels against the conjugated kernel spectra is pointwise
+// and the inverse DFT-16 keeps the 8 valid d of each block; B4 keeps D in
+// the tap domain and correlates along it, Y[o, d] = sum_c sum_u T[c, d + u]
+// K[o, c, u], against the conjugated per-tap 2D spectra. Then the inverse W
+// DFT and the H irfft (DC and Nyquist weighted 1, the rest 2, their
+// imaginary rows zeroed) keep the valid columns and rows. Every transform is
+// a dense DFT matrix product in FP32 FMAs. The host side (plans, factor
+// matrices, kernel spectra, item ranges) is in
 // fft_conv_tpu_torch/kernels/fused3d.py.
 //
 // Partition. A TPU cell holds a whole volume of every channel in its vector
 // memory (90.5 MB at the 64^3 benchmark); one D-block's spectrum of one
 // channel is 16 x 33 x 64 complex (270 KB), more than a Hopper block can
-// hold. So the work is cut into four kernels launched back to back on the
+// hold. So the work is cut into kernels launched back to back on the
 // caller's stream, each handing its result to the next through a scratch
 // buffer in device memory (L2 at the benchmark). An "item" is one (batch,
 // W-block) pair:
-//   1 hw_forward, grid (items * Cin, D / SB): SB d-slabs read straight from
-//     the signal, the one-sided H DFT into shared memory, the W DFT into the
-//     scratch T (items, Cin, D, NBH, 64);
-//   2 d_forward, grid (items * Cin, positions / 256): one thread per (n, z)
-//     bin walks D in chunks of 8 slabs; the DFT-16 of block j is the sum of
-//     two 8-slab partial DFTs, A[j] + (-1)^f A[j+1], so each slab enters one
-//     partial DFT only. Writes S (items, Cin, NBD, 16, NBH, 64);
-//   3 mac_d_inverse, grid (items * Cout / OPB, NBD, positions / 256): one
-//     thread per bin and OPB output channels of one group streams the 16
+//   1 hw_forward (B3 and B4), grid (items * Cin, D / SB): SB d-slabs read
+//     straight from the signal, the one-sided H DFT into shared memory, the
+//     W DFT into the scratch T (items, Cin, D, NBH, 64);
+//   2 d_forward (B3), grid (items * Cin, positions / 256): one thread per
+//     (n, z) bin walks D in chunks of 8 slabs; the DFT-16 of block j is the
+//     sum of two 8-slab partial DFTs, A[j] + (-1)^f A[j+1], so each slab
+//     enters one partial DFT only. Writes S (items, Cin, NBD, 16, NBH, 64);
+//   3 mac_d_inverse (B3), grid (items * Cout / OPB, NBD, positions / 256):
+//     one thread per bin and OPB output channels of one group streams the 16
 //     D-bins, MACs over the group's channels (S and the spectra from L2) and
 //     accumulates straight into the 8 valid d of the inverse DFT-16, in
 //     registers. Writes Z (items, Cout, OD, NBH, 64);
-//   4 hw_inverse, grid (items * Cout, OD / SB): SB slabs of Z into shared
-//     memory, the inverse W DFT in place, the H irfft on the valid rows, and
-//     the valid (d, h, w) samples stored straight into (B, Cout, OD, OH, OW).
+//   3' tap_mac (B4, in place of 2 and 3), grid (items * Cout / OPB, OD / 8,
+//     positions / 256): one thread per bin, OPB output channels of one group
+//     and 8 consecutive valid d. For each of the group's channels it walks
+//     the KD taps with a window of 8 T values in registers, shifted by one
+//     slab a tap, and reads its OPB channels' spectra at that tap through
+//     L2; the sums stay in registers (OPB x 8 complex, whatever KD is).
+//     Writes Z (items, Cout, OD, NBH, 64);
+//   4 hw_inverse (B3 and B4), grid (items * Cout, OD / SB): SB slabs of Z
+//     into shared memory, the inverse W DFT in place, the H irfft on the
+//     valid rows, and the valid (d, h, w) samples stored straight into
+//     (B, Cout, OD, OH, OW).
 // SB, the slabs a block of phases 1 and 4 holds, is 4 when 4 * NBH * 64
 // complex values fit a block's shared memory (67.6 KB at H = 64), else 2 or 1.
 //
-// Bound. At the library's 3D benchmark (B=2, 8 -> 8 channels, 64^3, K=8) the
+// Bound. At the library's 3D benchmark (B=2, 8 -> 8 channels, 64^3, K=8) B3's
 // call needs about 3.7 GFLOP of dense products (FMA = 2): H DFT 0.55, W DFT
 // 1.11, DFT-16 0.29, MAC 0.28, inverse D 0.25, inverse W on the 57 stored
 // columns 0.88, H irfft on the 57 valid rows 0.39: 0.056 ms at the FP32
 // CUDA-core rate of 67 TFLOP/s. It must move about 46 MB (signal 16.8, spectra
-// 17.3, output 11.9): 0.014 ms at 3.35 TB/s. So operations bound it. The
-// dense products (phases 1 and 4, 80% of the work) are register-tiled: a
-// thread owns one column of SB slabs and up to 9 (complex) or 15 (real) rows,
-// and per contraction step reads one shared-memory or L1 broadcast per row
-// and one value per slab, about one load per 5 FMAs at SB = 4. Phases 2 and 3
-// are light in flops and read their operands through L2 (about 0.35 GB of L2
-// traffic in phase 3 at the benchmark). Tensor cores (wgmma), TMA staging
-// and fusing the phases are left for later work.
+// 17.3, output 11.9): 0.014 ms at 3.35 TB/s. So operations bound it. B4 at
+// the same volume with K=10 needs about 4.0 GFLOP (H DFT 0.55, W DFT 1.11,
+// tap MAC 1.19, inverse W on the 55 stored columns 0.82, H irfft 0.35):
+// 0.060 ms, against 38.2 MB to move (0.011 ms); operations bound it too. The
+// dense products (phases 1 and 4) are register-tiled: a thread owns one
+// column of SB slabs and up to 9 (complex) or 15 (real) rows, and per
+// contraction step reads one shared-memory or L1 broadcast per row and one
+// value per slab, about one load per 5 FMAs at SB = 4. The MAC phases read
+// their operands through L2: B3's about 0.35 GB at the benchmark; B4's the
+// spectra once per (item, 8-d chunk), about 0.15 GB at 64^3 K=10, and per
+// (tap, channel) one T value and OPB spectra values for 32 complex MACs at
+// OPB = 4. Tensor cores (wgmma), TMA staging, a MAC block that serves several
+// d-chunks and fusing the phases are left for later work.
 //
-// Entry point: fused3d_forward (plain C interface, loaded with ctypes). It
-// returns cudaGetLastError() after the launches; 0 means all were accepted.
+// Entry points: fused3d_forward (B3) and fused3d_tap_forward (B4), plain C
+// interfaces loaded with ctypes. Each returns cudaGetLastError() after its
+// launches; 0 means all were accepted.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -309,6 +330,63 @@ fused3d_mac_d_inverse(const float2* __restrict__ s,   // (items of this launch, 
   }
 }
 
+template <int OPB>
+__global__ void __launch_bounds__(kThreads)
+fused3d_tap_mac(const float2* __restrict__ t,   // (items of this launch, Cin, d, nbh, 64)
+                const float2* __restrict__ ks,  // (Cout, Cin/g, kd, nbh, 64), conjugated
+                float2* __restrict__ z,         // (items of this launch, Cout, od, nbh, 64)
+                int cin, int cout, int groups, int d, int nbh, int kd, int od) {
+  const int64_t npos = (int64_t)nbh * kTW;
+  const int pos = blockIdx.z * kThreads + threadIdx.x;
+  if (pos >= npos) return;
+  const int nchunk = cout / OPB;
+  const int it = blockIdx.x / nchunk, o0 = (blockIdx.x % nchunk) * OPB;
+  const int cpg = cin / groups, g = o0 / (cout / groups);
+  const int d0 = blockIdx.y * kDHop;
+  const float2* tp = t + ((int64_t)it * cin + g * cpg) * d * npos + pos;
+  const float2* kp = ks + (int64_t)o0 * cpg * kd * npos + pos;
+
+  // Y[o, d0 + q] = sum over the group's channels c and the taps u of
+  // T[c, d0 + q + u] * K[o, c, u]; slabs at or past d (only read for q
+  // whose d0 + q >= od, which is not stored) count as zeros
+  float2 acc[OPB][kDHop];
+#pragma unroll
+  for (int o = 0; o < OPB; ++o)
+#pragma unroll
+    for (int q = 0; q < kDHop; ++q) acc[o][q] = make_float2(0.f, 0.f);
+  for (int ci = 0; ci < cpg; ++ci) {
+    const float2* tc = tp + (int64_t)ci * d * npos;
+    // a window of the 8 slabs d0 + u + [0, 8), slid by one slab per tap
+    float2 win[kDHop];
+#pragma unroll
+    for (int q = 0; q < kDHop; ++q)
+      win[q] = d0 + q < d ? __ldg(tc + (int64_t)(d0 + q) * npos) : make_float2(0.f, 0.f);
+    for (int u = 0; u < kd; ++u) {
+#pragma unroll
+      for (int o = 0; o < OPB; ++o) {
+        const float2 k = __ldg(kp + (((int64_t)o * cpg + ci) * kd + u) * npos);
+#pragma unroll
+        for (int q = 0; q < kDHop; ++q) cmac(acc[o][q], win[q], k);
+      }
+      if (u + 1 < kd) {
+#pragma unroll
+        for (int q = 0; q + 1 < kDHop; ++q) win[q] = win[q + 1];
+        const int dn = d0 + kDHop + u;
+        win[kDHop - 1] = dn < d ? __ldg(tc + (int64_t)dn * npos) : make_float2(0.f, 0.f);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kDHop; ++q) {
+    const int dd = d0 + q;
+    if (dd < od) {
+#pragma unroll
+      for (int o = 0; o < OPB; ++o)
+        z[(((int64_t)it * cout + o0 + o) * od + dd) * npos + pos] = acc[o][q];
+    }
+  }
+}
+
 template <int SB>
 __global__ void __launch_bounds__(kThreads, 2)
 fused3d_hw_inverse(const float2* __restrict__ z,   // (items of this launch, Cout, od, nbh, 64)
@@ -419,7 +497,7 @@ struct Args {
   const float2 *ks, *fh, *wf, *wb, *df, *ei, *ch;
   float2 *t, *s, *z;
   float* out;
-  int cin, cout, groups, d, h, w, od, oh, ow, nbd, nwb, hop, item0, nitem;
+  int cin, cout, groups, d, h, w, od, oh, ow, nbd, kd, nwb, hop, item0, nitem;
   cudaStream_t stream;
 };
 
@@ -454,20 +532,46 @@ cudaError_t launch_mac(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int OPB>
+cudaError_t launch_tap_mac(const Args& a) {
+  const int npos = (a.h / 2 + 1) * kTW;
+  fused3d_tap_mac<OPB><<<dim3(a.nitem * a.cout / OPB, (a.od + kDHop - 1) / kDHop,
+                              (npos + kThreads - 1) / kThreads),
+                         kThreads, 0, a.stream>>>(
+      a.t, a.ks, a.z, a.cin, a.cout, a.groups, a.d, a.h / 2 + 1, a.kd, a.od);
+  return cudaGetLastError();
+}
+
+// The checks both chains need: channels and groups, the valid box, the W
+// blocks, the item range, and the grid limits of the H/W kernels.
+bool hw_args_ok(const Args& a, int sb) {
+  const int npos = (a.h / 2 + 1) * kTW;
+  return sb != 0 && a.groups >= 1 && a.cin % a.groups == 0 && a.cout % a.groups == 0 &&
+         a.d >= 1 && a.od >= 1 && a.od <= a.d && a.oh >= 1 && a.oh <= a.h && a.ow >= 1 &&
+         a.ow <= a.w && a.nwb >= 1 && a.hop >= 1 && a.nitem >= 1 && a.item0 >= 0 &&
+         (a.d + sb - 1) / sb <= 65535 && (a.od + sb - 1) / sb <= 65535 &&
+         (npos + kThreads - 1) / kThreads <= 65535;
+}
+
+template <int SB>
+cudaError_t launch_hw(const Args& a, bool forward) {
+  return forward ? launch_hw_forward<SB>(a) : launch_hw_inverse<SB>(a);
+}
+
+cudaError_t launch_hw_sb(const Args& a, int sb, bool forward) {
+  return sb == 4 ? launch_hw<4>(a, forward) : sb == 2 ? launch_hw<2>(a, forward)
+                                                      : launch_hw<1>(a, forward);
+}
+
+// B3: hw_forward, d_forward, mac_d_inverse, hw_inverse
 cudaError_t launch(const Args& a) {
   const int nbh = a.h / 2 + 1, npos = nbh * kTW;
   const int sb = slabs_per_block(nbh);
-  if (sb == 0 || a.groups < 1 || a.cin % a.groups || a.cout % a.groups || a.d < 1 ||
-      a.od < 1 || a.od > a.d || a.oh < 1 || a.oh > a.h || a.ow < 1 || a.ow > a.w ||
-      a.nbd < 1 || kDHop * a.nbd < a.od || a.nwb < 1 || a.hop < 1 || a.nitem < 1 ||
-      a.item0 < 0 || (a.d + sb - 1) / sb > 65535 || a.nbd > 65535 ||
-      (a.od + sb - 1) / sb > 65535 || (npos + kThreads - 1) / kThreads > 65535)
+  if (!hw_args_ok(a, sb) || a.nbd < 1 || kDHop * a.nbd < a.od || a.nbd > 65535)
     return cudaErrorInvalidValue;
   const int opg = a.cout / a.groups;
 
-  cudaError_t err = sb == 4 ? launch_hw_forward<4>(a)
-                  : sb == 2 ? launch_hw_forward<2>(a)
-                            : launch_hw_forward<1>(a);
+  cudaError_t err = launch_hw_sb(a, sb, true);
   if (err != cudaSuccess) return err;
   fused3d_d_forward<<<dim3(a.nitem * a.cin, (npos + kThreads - 1) / kThreads), kThreads, 0,
                       a.stream>>>(a.t, a.df, a.s, a.d, nbh, a.nbd);
@@ -475,15 +579,30 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   err = opg % 4 == 0 ? launch_mac<4>(a) : opg % 2 == 0 ? launch_mac<2>(a) : launch_mac<1>(a);
   if (err != cudaSuccess) return err;
-  return sb == 4 ? launch_hw_inverse<4>(a)
-       : sb == 2 ? launch_hw_inverse<2>(a)
-                 : launch_hw_inverse<1>(a);
+  return launch_hw_sb(a, sb, false);
+}
+
+// B4: hw_forward, tap_mac, hw_inverse
+cudaError_t launch_tap(const Args& a) {
+  const int sb = slabs_per_block(a.h / 2 + 1);
+  if (!hw_args_ok(a, sb) || a.kd < 1 || a.od != a.d - a.kd + 1 ||
+      (a.od + kDHop - 1) / kDHop > 65535)
+    return cudaErrorInvalidValue;
+  const int opg = a.cout / a.groups;
+
+  cudaError_t err = launch_hw_sb(a, sb, true);
+  if (err != cudaSuccess) return err;
+  err = opg % 4 == 0 ? launch_tap_mac<4>(a)
+      : opg % 2 == 0 ? launch_tap_mac<2>(a)
+                     : launch_tap_mac<1>(a);
+  if (err != cudaSuccess) return err;
+  return launch_hw_sb(a, sb, false);
 }
 
 }  // namespace
 
 // Runs items [item0, item0 + nitem) (item = batch index * nwb + W block) of
-// one convolution. x (B, Cin, d, h, w) f32; ks (Cout, Cin/groups, 16, h/2+1,
+// one convolution through B3, the v4 chain. x (B, Cin, d, h, w) f32; ks (Cout, Cin/groups, 16, h/2+1,
 // 64); fh (h/2+1, h); wf and wb (64, 64); df (16, 16); ei (8, 16); ch (oh,
 // h/2+1); scratch t (nitem, Cin, d, h/2+1, 64), s (nitem, Cin, nbd, 16, h/2+1,
 // 64), z (nitem, Cout, od, h/2+1, 64); out (B, Cout, od, oh, ow) f32. Complex
@@ -495,7 +614,7 @@ extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, co
                                void* t, void* s, void* z, void* out, int cin, int cout,
                                int groups, int d, int h, int w, int od, int oh, int ow, int nbd,
                                int nwb, int hop, int item0, int nitem, void* stream) {
-  Args a;
+  Args a{};
   a.x = static_cast<const float*>(x);
   a.ks = static_cast<const float2*>(ks);
   a.fh = static_cast<const float2*>(fh);
@@ -524,6 +643,45 @@ extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, co
   a.nitem = nitem;
   a.stream = static_cast<cudaStream_t>(stream);
   return launch(a);
+}
+
+// Runs items [item0, item0 + nitem) of one convolution through B4, the tap
+// chain. x (B, Cin, d, h, w) f32; ks (Cout, Cin/groups, kd, h/2+1, 64), the
+// conjugated per-tap 2D spectra; fh, wf, wb and ch as for fused3d_forward;
+// scratch t (nitem, Cin, d, h/2+1, 64) and z (nitem, Cout, od, h/2+1, 64),
+// od = d - kd + 1; out (B, Cout, od, oh, ow) f32. Returns
+// cudaGetLastError() after the three launches (0 when all were accepted).
+extern "C" int fused3d_tap_forward(const void* x, const void* ks, const void* fh,
+                                   const void* wf, const void* wb, const void* ch, void* t,
+                                   void* z, void* out, int cin, int cout, int groups, int d,
+                                   int h, int w, int kd, int od, int oh, int ow, int nwb,
+                                   int hop, int item0, int nitem, void* stream) {
+  Args a{};
+  a.x = static_cast<const float*>(x);
+  a.ks = static_cast<const float2*>(ks);
+  a.fh = static_cast<const float2*>(fh);
+  a.wf = static_cast<const float2*>(wf);
+  a.wb = static_cast<const float2*>(wb);
+  a.ch = static_cast<const float2*>(ch);
+  a.t = static_cast<float2*>(t);
+  a.z = static_cast<float2*>(z);
+  a.out = static_cast<float*>(out);
+  a.cin = cin;
+  a.cout = cout;
+  a.groups = groups;
+  a.d = d;
+  a.h = h;
+  a.w = w;
+  a.kd = kd;
+  a.od = od;
+  a.oh = oh;
+  a.ow = ow;
+  a.nwb = nwb;
+  a.hop = hop;
+  a.item0 = item0;
+  a.nitem = nitem;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return launch_tap(a);
 }
 
 // Dynamic shared memory of one block of the H/W kernels for an H with

@@ -1,29 +1,35 @@
-"""Fused 3D FFT convolution: host side of the CUDA kernel ``csrc/fused3d.cu``.
+"""Fused 3D FFT convolution: host side of the CUDA kernels ``csrc/fused3d.cu``.
 
-The port's counterpart of the "v4" (overlap-save-D) path of
-``fft_conv_tpu/kernels/fused3d.py``, the JAX package's plan for KD <= 9. The
-whole padded volume is transformed: a one-sided H DFT at the full H
-(NBH = H/2+1 rows), a 64-point W DFT (W zero-padded to 64, or cut into
-overlap-save blocks of 64 columns when W is wider), and along D a DFT-16 per
-block of 16 samples on a hop of 8 (zeros past D). The per-bin complex MAC
-over each group's input channels against the conjugated kernel spectra is
-then a pointwise product; the inverse DFT-16 keeps the 8 valid d of each
-block, and the inverse W DFT and the H irfft keep the valid columns and
-rows.
+The port's counterpart of ``fft_conv_tpu/kernels/fused3d.py``, with both of
+its plans. Either way the whole padded volume is transformed along H and W
+per d-slab: a one-sided H DFT at the full H (NBH = H/2+1 rows) and a
+64-point W DFT (W zero-padded to 64, or cut into overlap-save blocks of 64
+columns when W is wider). Along D:
 
-On a CUDA tensor ``_fused3d_forward`` launches the kernel; on a CPU tensor
-it runs ``_fused3d_forward_reference``, the same blocked pipeline written
-with torch ops (the counterpart of the JAX package's Pallas interpret mode).
-There is no other route: a CUDA tensor launches the kernel or raises.
+* 'v4' (kernel B3, the JAX package's plan for KD <= 9): a DFT-16 per block
+  of 16 samples on a hop of 8 (zeros past D). The MAC over each group's
+  input channels against the conjugated kernel spectra is then a pointwise
+  product, and the inverse DFT-16 keeps the 8 valid d of each block.
+* 'tap' (kernel B4, for KD > 9 and wherever the v4 plan does not fit): D
+  stays in the tap domain. For every (h-bin, w-bin) the MAC is the
+  correlation Y[o, d] = sum_c sum_t S[c, d + t] K[o, c, t] over the KD taps,
+  against the conjugated per-tap 2D kernel spectra.
+
+The inverse W DFT and the H irfft then keep the valid columns and rows.
+
+On a CUDA tensor ``_fused3d_forward`` launches the plan's kernel; on a CPU
+tensor it runs the plan's plain version (``_fused3d_forward_reference``,
+``_fused3d_tap_reference``), the same pipeline written with torch ops (the
+counterpart of the JAX package's Pallas interpret mode). There is no other
+route: a CUDA tensor launches the kernel or raises.
 
 Gradients: ``_Fused3dCore`` is a ``torch.autograd.Function`` whose backward
 is the composed path, shared with the 1D and 2D kernels
-(``fused1d._fused_bwd``).
+(``fused1d._fused_bwd``). ``fft_conv_transpose3d_fused`` runs a transposed
+convolution through the same forward on a zero-stuffed signal.
 
-Not ported from the JAX module: the "tap" kernel for KD > 9 (a plan of that
-mode raises ``NotImplementedError`` naming B4), ``plan_fft_conv3d``,
-``fft_conv_transpose3d_fused`` and the TPU's precision, MAC, staging,
-inline-spectra and x-pack switches (ROADMAP §A, §B).
+Not ported from the JAX module: ``plan_fft_conv3d`` and the TPU's precision,
+MAC, staging, inline-spectra and x-pack switches (ROADMAP §A, §B).
 """
 
 import ctypes
@@ -46,39 +52,33 @@ _DB = 16
 _DHOP = 8
 
 # The JAX package bounds its TPU cell by VMEM budgets (resident spectra of
-# 24 MiB, a whole-volume cell of 96 MiB). This kernel keeps no volume in
-# shared memory: its blocks hold a few d-slabs of NBH x 64 complex values.
-# Its own limits are:
-#   * the conjugated kernel spectra (Cout, Cin/g, 16, NBH, 64) complex, which
-#     every (batch, D-block) block of the MAC re-reads: kept within half of
-#     the card's 50 MB L2. The 1D/2D budget of 16 MiB would not do: the
-#     spectra of the library's 3D benchmark row (64^3, K=8, 8 -> 8 channels)
-#     are 17.3 MB, and they must fuse;
+# 24 MiB, a whole-volume cell of 96 MiB for v4 and 80 MiB for tap). These
+# kernels keep no volume in shared memory: their blocks hold a few d-slabs
+# of NBH x 64 complex values. Their own limits are:
+#   * the conjugated kernel spectra, which the MAC re-reads: v4's (Cout,
+#     Cin/g, 16, NBH, 64) complex once per (batch, D-block), tap's (Cout,
+#     Cin/g, KD, NBH, 64) once per (batch, chunk of 8 valid d). Kept within
+#     half of the card's 50 MB L2. The 1D/2D budget of 16 MiB would not do:
+#     the v4 spectra of the library's 3D benchmark row (64^3, K=8, 8 -> 8
+#     channels) are 17.3 MB, and they must fuse;
 _SPECTRA_BUDGET = 24 * 2**20
-#   * the shared memory of one block of the H/W phases (csrc/fused3d.cu:
-#     Cfg<SB>::smem): SB d-slabs of NBH x 64 complex, SB in {4, 2, 1}, at
-#     most what a Hopper block can use, so NBH <= 454 (H <= 907);
+#   * the shared memory of one block of the H/W phases, which both plans run
+#     (csrc/fused3d.cu: Cfg<SB>::smem): SB d-slabs of NBH x 64 complex,
+#     SB in {4, 2, 1}, at most what a Hopper block can use, so NBH <= 454
+#     (H <= 907);
 _SMEM_LIMIT = 232448
-#   * the scratch that the phases hand on, per (batch, W-block) item: the
-#     H/W spectra T (Cin, D, NBH, 64), the block spectra S (Cin, NBD, 16,
-#     NBH, 64) and the inverse-D output Z (Cout, OD, NBH, 64), complex. The
-#     wrapper runs the items in ranges under this budget, so one item must
+#   * the scratch that the kernels hand on, per (batch, W-block) item: the
+#     H/W spectra T (Cin, D, NBH, 64), for v4 the block spectra S (Cin, NBD,
+#     16, NBH, 64), and the MAC's output Z (Cout, OD, NBH, 64), complex. The
+#     wrappers run the items in ranges under this budget, so one item must
 #     fit.
 _SCRATCH_BUDGET = 256 * 2**20
-# The "tap" plan (KD > 9) belongs to kernel B4, which is not ported: it keeps
-# the JAX package's budgets, so the port raises naming B4 exactly where the
-# JAX package runs that kernel.
-_TAP_SPECTRA_BUDGET = 24 * 2**20
-_TAP_CELL_BUDGET = 80 * 2**20
-_TAP_MESSAGE = (
-    "the fused 3D 'tap' kernel for this shape (KD > 9, or no overlap-save-D "
-    "plan fits) is not ported yet (ROADMAP §B, B4); pass impl='xla' for the "
-    "composed path"
-)
 
-# Launches of the CUDA kernel chain (four kernels) since import or the last
-# reset; the plain version on CPU tensors does not count.
+# Launches since import or the last reset, one per range of items: of B3's
+# chain of four kernels (v4 plans) and of B4's chain of three (tap plans).
+# The plain versions on CPU tensors do not count.
 launches = 0
+launches_tap = 0
 
 
 def _tap_counts(kd: int) -> Tuple[int, int]:
@@ -110,6 +110,10 @@ def _scratch_bytes_per_item(cin: int, cout: int, d: int, nbh: int, nbd: int, od:
     return (cin * d + cin * nbd * _DB + cout * od) * nbh * _TW * 8
 
 
+def _tap_scratch_bytes_per_item(cin: int, cout: int, d: int, nbh: int, od: int) -> int:
+    return (cin * d + cout * od) * nbh * _TW * 8
+
+
 @lru_cache(maxsize=None)
 def plan_3d(cin: int, cout: int, d: int, h: int, w: int,
             kd: int, kh: int, kw: int, groups: int = 1):
@@ -117,9 +121,10 @@ def plan_3d(cin: int, cout: int, d: int, h: int, w: int,
     ``plan_3d`` with this port's budgets.
 
     ('v4', nbh, nbhp, pp, nbd, vdp) runs kernel B3 (KD <= 9);
-    ('tap', nbh, vdp, pages) is kernel B4's, not ported. Eligibility: W fits
-    one 64-point transform (see ``plan_3d_blocked`` for wider W). ``cin`` is
-    the TOTAL in-channel count."""
+    ('tap', nbh, vdp, pages) runs kernel B4, for larger KD and wherever the
+    v4 plan does not fit. Eligibility: W fits one 64-point transform (see
+    ``plan_3d_blocked`` for wider W). ``cin`` is the TOTAL in-channel
+    count."""
     if w > _TW or kd > d or kh > h or kw > w:
         return None
     if cin % groups or cout % groups:
@@ -151,7 +156,7 @@ def plan_3d_blocked(cin: int, cout: int, d: int, h: int, w: int,
 def _plan_v4(cin: int, cout: int, d: int, h: int, w: int,
              kd: int, kh: int, kw: int, groups: int = 1):
     """The JAX package's overlap-save-D geometry (nbhp, pp and vdp are its
-    TPU layout's, kept so the plans compare equal) under this kernel's
+    TPU layout's, kept so the plans compare equal) under kernel B3's
     budgets: spectra in L2, shared memory, scratch per item."""
     if kd > 9:
         return None  # a 16-sample block leaves 8 valid d only for kd <= 9
@@ -172,27 +177,22 @@ def _plan_v4(cin: int, cout: int, d: int, h: int, w: int,
 
 def _plan_tap(cin: int, cout: int, d: int, h: int, w: int,
               kd: int, kh: int, kw: int, groups: int = 1):
-    """The JAX package's tap-kernel plan and budgets, kept as they are until
-    kernel B4 is ported."""
+    """The JAX package's tap geometry (vdp and pages are its TPU d-pair
+    layout's, kept so the plans compare equal) under kernel B4's budgets:
+    spectra in L2, shared memory, scratch per item."""
     nbh = h // 2 + 1
-    me, mr = _tap_counts(kd)
-    if cout * (me + mr) * (cin // groups) * nbh * 128 * 8 > _TAP_SPECTRA_BUDGET:
-        return None
     vd = d - kd + 1
+    if kd * (cin // groups) * cout * nbh * _TW * 8 > _SPECTRA_BUDGET:
+        return None
+    if _slabs_per_block(nbh) is None:
+        return None
+    if _tap_scratch_bytes_per_item(cin, cout, d, nbh, vd) > _SCRATCH_BUDGET:
+        return None
+    me, mr = _tap_counts(kd)
     vdp = -(-(-(-vd // 2)) // 8) * 8
     maxoff = max(me - 1, mr - 1 if mr else 0)
     wrows = -(-(8 + maxoff) // 8) * 8
-    pages = vdp - 8 + wrows
-    vh = h - kh + 1
-    cell = (
-        cin * h * pages * 128
-        + 4 * cin * nbh * pages * 128
-        + 2 * cout * nbh * vdp * 128
-        + cout * vh * vdp * 128
-    ) * 4
-    if cell > _TAP_CELL_BUDGET:
-        return None
-    return ("tap", nbh, vdp, pages)
+    return ("tap", nbh, vdp, vdp - 8 + wrows)
 
 
 def _w_blocks(w: int, ow: int, nwb: int, hop: int):
@@ -250,65 +250,114 @@ def _spectra_mats(h: int, kd: int, kh: int, kw: int, device: torch.device):
             torch.complex(dr[:kd], di[:kd]).T.contiguous())
 
 
+def _hw_spectra(kernel: torch.Tensor, h: int) -> torch.Tensor:
+    """The per-tap 2D spectra of the (Cout, Cin/g, KD, KH, KW) kernel at the
+    NBH one-sided H bins and the 64 W bins, (Cout, Cin/g, KD, NBH, 64)
+    complex128, not conjugated."""
+    _, _, kd, kh, kw = kernel.shape
+    fh, fw, _ = _spectra_mats(h, kd, kh, kw, kernel.device)
+    return (fh @ kernel.detach().to(torch.complex128)) @ fw
+
+
 def kernel_spectra_3d(kernel: torch.Tensor, h: int) -> torch.Tensor:
     """Conjugated spectra of the (Cout, Cin/g, KD, KH, KW) kernel at the 16
     D-bins, the NBH one-sided H bins and the 64 W bins: (Cout, Cin/g, 16,
-    NBH, 64) complex on the kernel's device, the kernel's input. The port of
+    NBH, 64) complex on the kernel's device, kernel B3's input. The port of
     the JAX package's ``_kernel_spectra_v4``, without its TPU lane packing.
 
     The three small transforms run in complex128 (over the weights only, and
     exact to float32 rounding whatever TF32 setting the caller chose); the
     result is complex128 for a float64 kernel and complex64 otherwise."""
     cout, cpg, kd, kh, kw = kernel.shape
-    fh, fw, fd = _spectra_mats(h, kd, kh, kw, kernel.device)
-    b = (fh @ kernel.detach().to(torch.complex128)) @ fw   # (Cout, Cin/g, KD, NBH, 64)
-    out = torch.conj_physical(fd @ b.flatten(3)).reshape(cout, cpg, _DB, fh.shape[0], _TW)
+    fd = _spectra_mats(h, kd, kh, kw, kernel.device)[2]
+    b = _hw_spectra(kernel, h)                      # (Cout, Cin/g, KD, NBH, 64)
+    out = torch.conj_physical(fd @ b.flatten(3)).reshape(cout, cpg, _DB, b.shape[3], _TW)
     return out if kernel.dtype == torch.float64 else out.to(torch.complex64)
 
 
-def _v4_plan(x_shape, kernel_shape, groups: int):
-    """(nbh, nbd, nwb, hop) of the v4 plan for a padded signal and a
-    dilated kernel; raises where the kernel cannot run."""
+def kernel_spectra_tap(kernel: torch.Tensor, h: int) -> torch.Tensor:
+    """Conjugated per-tap 2D spectra of the (Cout, Cin/g, KD, KH, KW) kernel
+    at the NBH one-sided H bins and the 64 W bins: (Cout, Cin/g, KD, NBH, 64)
+    complex on the kernel's device, kernel B4's input. The port of the JAX
+    package's ``_kernel_spectra_3d``, without its TPU packing (even taps and
+    half-shifted "R" taps in 128 lanes).
+
+    The H and W transforms run in complex128 over the weights only; the
+    result is complex128 for a float64 kernel and complex64 otherwise."""
+    out = torch.conj_physical(_hw_spectra(kernel, h))
+    return out if kernel.dtype == torch.float64 else out.to(torch.complex64)
+
+
+def _plan_for(x_shape, kernel_shape, groups: int, mode: Optional[str] = None):
+    """(plan, nwb, hop) for a padded signal and a dilated kernel; raises
+    ValueError where no plan fits, or where the plan is not of ``mode``
+    ('v4' runs B3, 'tap' runs B4) when one is named."""
     _, cin, d, h, w = x_shape
     cout, cpg, kd, kh, kw = kernel_shape
     blocked = plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
     if blocked is None:
         raise ValueError("no fused 3D configuration fits this shape")
-    plan, nwb, hop = blocked
-    if plan[0] == "tap":
-        raise NotImplementedError(_TAP_MESSAGE)
-    return plan[1], plan[4], nwb, hop
+    if mode is not None and blocked[0][0] != mode:
+        raise ValueError(f"this shape plans '{blocked[0][0]}', not '{mode}'")
+    return blocked
+
+
+def _stack_w_blocks(x: torch.Tensor, blocks) -> torch.Tensor:
+    """(B, Cin, D, H, W) -> (B * nwb, Cin, D, H, <= 64): the W blocks stacked
+    into the batch."""
+    if len(blocks) == 1:
+        return x
+    b, cin, d, h, _ = x.shape
+    x = torch.stack([x[..., s:s + _TW] for s, _, _ in blocks], dim=1)
+    return x.reshape(b * len(blocks), cin, d, h, _TW)
+
+
+def _hw_forward_reference(x: torch.Tensor, fr, fi, wr, wi):
+    """(re, im) of the one-sided H DFT and then the W DFT-64 of every d-slab
+    of the stacked blocks (W zero-padded to 64): (B', Cin, D, NBH, 64)."""
+    x = TF.pad(x, (0, _TW - x.shape[-1]))
+    hr, hi = fr @ x, fi @ x
+    return hr @ wr - hi @ wi, hr @ wi + hi @ wr
+
+
+def _hw_inverse_reference(zr, zi, ur, ui, cr, ci, blocks, ow: int) -> torch.Tensor:
+    """The inverse W DFT and the H irfft on the valid rows of the MAC's
+    output (B', Cout, OD, NBH, 64), and the stored columns of each W block
+    put side by side: (B, Cout, OD, OH, OW)."""
+    e_r = zr @ ur - zi @ ui
+    e_i = zr @ ui + zi @ ur
+    out = cr @ e_r + ci @ e_i                       # (B', Cout, OD, OH, 64)
+    if len(blocks) == 1:
+        return out[..., :ow]
+    out = out.reshape(-1, len(blocks), *out.shape[1:])
+    return torch.cat([out[:, i, ..., lo:hi] for i, (_, lo, hi) in enumerate(blocks)], dim=-1)
 
 
 def _fused3d_forward_reference(
     x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1
 ) -> torch.Tensor:
-    """The kernel's plain PyTorch version: the same blocked pipeline in split
+    """Kernel B3's plain PyTorch version: the same blocked pipeline in split
     re/im arithmetic, float64 for a float64 signal and float32 otherwise.
 
     ``x_padded`` (B, Cin, D, H, W) already padded, ``kernel`` (Cout, Cin/g,
-    KD, KH, KW) already dilated; returns the valid correlation (B, Cout, OD,
-    OH, OW). W wider than 64 runs as stacked overlap-save blocks.
+    KD, KH, KW) already dilated, and a 'v4' plan; returns the valid
+    correlation (B, Cout, OD, OH, OW). W wider than 64 runs as stacked
+    overlap-save blocks.
     """
     dt = torch.float64 if x_padded.dtype == torch.float64 else torch.float32
     b, cin, d, h, w = x_padded.shape
     cout, cpg, kd, kh, kw = kernel.shape
-    nbh, nbd, nwb, hop = _v4_plan(x_padded.shape, kernel.shape, groups)
+    plan, nwb, hop = _plan_for(x_padded.shape, kernel.shape, groups, "v4")
+    nbh, nbd = plan[1], plan[4]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     blocks = _w_blocks(w, ow, nwb, hop)
+    fr, fi, wr, wi, ur, ui, dr, di, er, ei, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
 
-    x = x_padded.to(dt)
-    if nwb > 1:
-        x = torch.stack([x[..., s:s + _TW] for s, _, _ in blocks], dim=1)
-        x = x.reshape(b * nwb, cin, d, h, _TW)
-    # W to 64 columns, D to the NBD + 1 chunks of 8 that the blocks read
-    x = TF.pad(x, (0, _TW - x.shape[-1], 0, 0, 0, _DHOP * (nbd + 1) - d))
-    fr, fi, wr, wi, ur, ui, dr, di, er, ei, cr, ci = _torch_mats(h, oh, dt, x.device)
-
-    # one-sided H DFT, then the W DFT-64, per d-slab
-    hr, hi = fr @ x, fi @ x                         # (B', Cin, Dp, NBH, 64)
-    tr = hr @ wr - hi @ wi
-    ti = hr @ wi + hi @ wr
+    # one-sided H DFT, then the W DFT-64, per d-slab; D to the NBD + 1
+    # chunks of 8 slabs that the blocks read (zeros past D)
+    tr, ti = _hw_forward_reference(_stack_w_blocks(x_padded.to(dt), blocks), fr, fi, wr, wi)
+    dpad = (0, 0, 0, 0, 0, _DHOP * (nbd + 1) - d)
+    tr, ti = TF.pad(tr, dpad), TF.pad(ti, dpad)
     # D: blocks of 16 slabs on a hop of 8, a DFT-16 each
     tr = tr.unfold(2, _DB, _DHOP)                   # (B', Cin, NBD, NBH, 64, 16)
     ti = ti.unfold(2, _DB, _DHOP)
@@ -332,15 +381,46 @@ def _fused3d_forward_reference(
     zi = torch.einsum(inv, er, yi) + torch.einsum(inv, ei, yr)
     zr = zr.reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
     zi = zi.reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
+    return _hw_inverse_reference(zr, zi, ur, ui, cr, ci, blocks, ow)
 
-    # inverse W DFT, then the H irfft on the valid rows
-    e_r = zr @ ur - zi @ ui
-    e_i = zr @ ui + zi @ ur
-    out = cr @ e_r + ci @ e_i                       # (B', Cout, OD, OH, 64)
-    if nwb == 1:
-        return out[..., :ow]
-    out = out.reshape(b, nwb, cout, od, oh, _TW)
-    return torch.cat([out[:, i, ..., lo:hi] for i, (_, lo, hi) in enumerate(blocks)], dim=-1)
+
+def _fused3d_tap_reference(
+    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1
+) -> torch.Tensor:
+    """Kernel B4's plain PyTorch version: the same pipeline in split re/im
+    arithmetic, float64 for a float64 signal and float32 otherwise.
+
+    ``x_padded`` (B, Cin, D, H, W) already padded, ``kernel`` (Cout, Cin/g,
+    KD, KH, KW) already dilated, and a 'tap' plan; returns the valid
+    correlation (B, Cout, OD, OH, OW). W wider than 64 runs as stacked
+    overlap-save blocks.
+    """
+    dt = torch.float64 if x_padded.dtype == torch.float64 else torch.float32
+    b, cin, d, h, w = x_padded.shape
+    cout, cpg, kd, kh, kw = kernel.shape
+    plan, nwb, hop = _plan_for(x_padded.shape, kernel.shape, groups, "tap")
+    nbh = plan[1]
+    od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
+    blocks = _w_blocks(w, ow, nwb, hop)
+    fr, fi, wr, wi, ur, ui, _, _, _, _, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
+
+    # one-sided H DFT, then the W DFT-64, per d-slab
+    tr, ti = _hw_forward_reference(_stack_w_blocks(x_padded.to(dt), blocks), fr, fi, wr, wi)
+    # D stays in the tap domain: the KD slabs from each valid d on
+    bb = b * nwb
+    tr = tr.reshape(bb, groups, cpg, d, nbh, _TW).unfold(3, kd, 1)  # (B', g, Cin/g, OD, NBH, 64, KD)
+    ti = ti.reshape(bb, groups, cpg, d, nbh, _TW).unfold(3, kd, 1)
+
+    # correlation over the taps and the group's in-channels, per (h, w) bin
+    ks = kernel_spectra_tap(kernel.to(dt), h)       # (Cout, Cin/g, KD, NBH, 64)
+    kr = ks.real.reshape(groups, cout // groups, cpg, kd, nbh, _TW)
+    ki = ks.imag.reshape(groups, cout // groups, cpg, kd, nbh, _TW)
+    mac = "bgcdnzt,goctnz->bgodnz"
+    yr = torch.einsum(mac, tr, kr) - torch.einsum(mac, ti, ki)
+    yi = torch.einsum(mac, tr, ki) + torch.einsum(mac, ti, kr)
+    yr = yr.reshape(bb, cout, od, nbh, _TW)
+    yi = yi.reshape(bb, cout, od, nbh, _TW)
+    return _hw_inverse_reference(yr, yi, ur, ui, cr, ci, blocks, ow)
 
 
 def _library() -> ctypes.CDLL:
@@ -349,6 +429,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused3d_forward.argtypes = [p] * 12 + [i] * 14 + [p]
         lib.fused3d_forward.restype = i
+        lib.fused3d_tap_forward.argtypes = [p] * 9 + [i] * 14 + [p]
+        lib.fused3d_tap_forward.restype = i
         lib.fused3d_error_string.argtypes = [i]
         lib.fused3d_error_string.restype = ctypes.c_char_p
         lib.fused3d_smem_bytes.argtypes = [i]
@@ -356,23 +438,34 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _check_launch_inputs(x_padded: torch.Tensor, spectra: torch.Tensor, what: str) -> None:
+    if not (x_padded.is_cuda and spectra.device == x_padded.device):
+        raise ValueError(f"{what} kernel: signal and spectra must be on one CUDA device")
+    if x_padded.dtype != torch.float32 or spectra.dtype != torch.complex64:
+        raise ValueError(f"{what} kernel takes a float32 signal and complex64 spectra")
+
+
+def _raise_on_error(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.fused3d_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {err})")
+
+
 def _launch_fused3d(
     x_padded: torch.Tensor, spectra: torch.Tensor, groups: int, k: Tuple[int, int, int]
 ) -> torch.Tensor:
-    """Runs the CUDA kernel chain on ``x_padded`` (B, Cin, D, H, W) float32
-    with the conjugated spectra (Cout, Cin/g, 16, NBH, 64) complex64 of a
-    (KD, KH, KW) kernel, both on one CUDA device. Returns the valid
+    """Runs kernel B3's chain on ``x_padded`` (B, Cin, D, H, W) float32 with
+    the conjugated spectra (Cout, Cin/g, 16, NBH, 64) complex64 of a (KD, KH,
+    KW) kernel whose plan is 'v4', both on one CUDA device. Returns the valid
     correlation (B, Cout, OD, OH, OW)."""
     global launches
-    if not (x_padded.is_cuda and spectra.device == x_padded.device):
-        raise ValueError("fused3d kernel: signal and spectra must be on one CUDA device")
-    if x_padded.dtype != torch.float32 or spectra.dtype != torch.complex64:
-        raise ValueError("fused3d kernel takes a float32 signal and complex64 spectra")
+    _check_launch_inputs(x_padded, spectra, "fused3d")
     x_padded = x_padded.contiguous()
     spectra = spectra.contiguous()
     b, cin, d, h, w = x_padded.shape
     cout, cpg = spectra.shape[:2]
-    nbh, nbd, nwb, hop = _v4_plan(x_padded.shape, (cout, cpg) + tuple(k), groups)
+    plan, nwb, hop = _plan_for(x_padded.shape, (cout, cpg) + tuple(k), groups, "v4")
+    nbh, nbd = plan[1], plan[4]
     if spectra.shape[2:] != (_DB, nbh, _TW) or cpg * groups != cin:
         raise ValueError(f"fused3d kernel: spectra {tuple(spectra.shape)} do not fit "
                          f"H={h}, Cin={cin}, groups={groups}")
@@ -400,22 +493,69 @@ def _launch_fused3d(
                 cin, cout, groups, d, h, w, od, oh, ow, nbd, nwb, hop,
                 item0, min(chunk, items - item0), stream,
             )
-            if err != 0:
-                msg = lib.fused3d_error_string(err).decode()
-                raise RuntimeError(f"fused3d kernel launch failed: {msg} (cudaError {err})")
+            _raise_on_error(lib, err, "fused3d")
             launches += 1
     return out
 
 
+def _launch_fused3d_tap(
+    x_padded: torch.Tensor, spectra: torch.Tensor, groups: int, k: Tuple[int, int, int]
+) -> torch.Tensor:
+    """Runs kernel B4's chain on ``x_padded`` (B, Cin, D, H, W) float32 with
+    the conjugated per-tap spectra (Cout, Cin/g, KD, NBH, 64) complex64 of a
+    (KD, KH, KW) kernel whose plan is 'tap', both on one CUDA device.
+    Returns the valid correlation (B, Cout, OD, OH, OW)."""
+    global launches_tap
+    _check_launch_inputs(x_padded, spectra, "fused3d tap")
+    x_padded = x_padded.contiguous()
+    spectra = spectra.contiguous()
+    b, cin, d, h, w = x_padded.shape
+    cout, cpg = spectra.shape[:2]
+    kd, kh, kw = k
+    plan, nwb, hop = _plan_for(x_padded.shape, (cout, cpg) + tuple(k), groups, "tap")
+    nbh = plan[1]
+    if spectra.shape[2:] != (kd, nbh, _TW) or cpg * groups != cin:
+        raise ValueError(f"fused3d tap kernel: spectra {tuple(spectra.shape)} do not fit "
+                         f"KD={kd}, H={h}, Cin={cin}, groups={groups}")
+    od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
+    items = b * nwb
+    per_item = _tap_scratch_bytes_per_item(cin, cout, d, nbh, od)
+    chunk = max(1, min(items, _SCRATCH_BUDGET // per_item))
+
+    lib = _library()
+    fh, wf, wb, _, _, ch = _device_mats(h, oh, x_padded.device)
+    dev, c64 = x_padded.device, torch.complex64
+    out = torch.empty((b, cout, od, oh, ow), device=dev, dtype=torch.float32)
+    t = torch.empty((chunk, cin, d, nbh, _TW), device=dev, dtype=c64)
+    z = torch.empty((chunk, cout, od, nbh, _TW), device=dev, dtype=c64)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        for item0 in range(0, items, chunk):
+            err = lib.fused3d_tap_forward(
+                x_padded.data_ptr(), spectra.data_ptr(), fh.data_ptr(), wf.data_ptr(),
+                wb.data_ptr(), ch.data_ptr(), t.data_ptr(), z.data_ptr(), out.data_ptr(),
+                cin, cout, groups, d, h, w, kd, od, oh, ow, nwb, hop,
+                item0, min(chunk, items - item0), stream,
+            )
+            _raise_on_error(lib, err, "fused3d tap")
+            launches_tap += 1
+    return out
+
+
 def _fused3d_forward(x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1):
-    """Valid correlation of ``x_padded`` with ``kernel``: the CUDA kernel for
-    a CUDA tensor, the plain version for a CPU one."""
+    """Valid correlation of ``x_padded`` with ``kernel`` through the plan's
+    kernel (B3 for 'v4', B4 for 'tap') on a CUDA tensor, through its plain
+    version on a CPU one."""
+    if x_padded.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused3d runs on CUDA or CPU tensors, got {x_padded.device}")
+    tap = _plan_for(x_padded.shape, kernel.shape, groups)[0][0] == "tap"
     if x_padded.is_cuda:
-        spectra = kernel_spectra_3d(kernel, x_padded.shape[3])
-        return _launch_fused3d(x_padded.float(), spectra, groups, tuple(kernel.shape[2:]))
-    if x_padded.device.type == "cpu":
-        return _fused3d_forward_reference(x_padded.float(), kernel.float(), groups)
-    raise ValueError(f"fused3d runs on CUDA or CPU tensors, got {x_padded.device}")
+        h, k = x_padded.shape[3], tuple(kernel.shape[2:])
+        if tap:
+            return _launch_fused3d_tap(x_padded.float(), kernel_spectra_tap(kernel, h), groups, k)
+        return _launch_fused3d(x_padded.float(), kernel_spectra_3d(kernel, h), groups, k)
+    reference = _fused3d_tap_reference if tap else _fused3d_forward_reference
+    return reference(x_padded.float(), kernel.float(), groups)
 
 
 class _Fused3dCore(torch.autograd.Function):
@@ -451,9 +591,9 @@ def fft_conv3d_fused(
 
     Padding modes, stride, dilation and groups are wrapper transforms
     around the unit-stride kernel, as in the 1D and 2D functions; W wider
-    than 64 runs as overlap-save W blocks. Raises ValueError when no fused
-    configuration fits (unlike the JAX function it does not fall back), and
-    NotImplementedError for a shape whose plan is the unported tap kernel.
+    than 64 runs as overlap-save W blocks. A 'v4' plan runs kernel B3, a
+    'tap' plan kernel B4. Raises ValueError when no fused configuration
+    fits (unlike the JAX function it does not fall back).
     """
     out = fft_conv3d_fused_if_fits(
         signal, kernel, bias, padding, padding_mode, stride, dilation, groups
@@ -462,7 +602,7 @@ def fft_conv3d_fused(
         raise ValueError(
             "no fused 3D FFT configuration fits this shape (W blocks wider "
             "than 64, or the spectra, the shared memory or the scratch exceed "
-            "the kernel's budgets); use fft_conv(impl='xla')"
+            "the kernels' budgets); use fft_conv(impl='xla')"
         )
     return out
 
@@ -481,9 +621,9 @@ def fft_conv3d_fused_if_fits(
     """``fft_conv3d_fused``, or None when ``plan_3d_blocked`` finds no plan
     for the padded signal and the dilated kernel, or when the plan cuts W
     into blocks and ``w_blocks`` is False (``fft_conv(impl="auto")`` fuses
-    single-block plans only, as the JAX package does). Any other 'tap' plan
-    raises NotImplementedError. The one place where the gate is checked, for
-    both the fused function and ``fft_conv(impl="auto")``."""
+    single-block plans only, as the JAX package does). The one place where
+    the gate is checked, for both the fused function and
+    ``fft_conv(impl="auto")``."""
     if signal.ndim != 5 or kernel.ndim != 5:
         raise ValueError(
             "fft_conv3d_fused expects (B, Cin, D, H, W) and (Cout, Cin/g, KD, KH, KW)"
@@ -505,11 +645,65 @@ def fft_conv3d_fused_if_fits(
     blocked = plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
     if blocked is None or (blocked[1] > 1 and not w_blocks):
         return None
-    if blocked[0][0] == "tap":
-        raise NotImplementedError(_TAP_MESSAGE)
     out = _Fused3dCore.apply(x.float(), kernel.float(), groups)
     if stride_ != (1, 1, 1):
         out = out[:, :, ::stride_[0], ::stride_[1], ::stride_[2]]
     if bias is not None:
         out = out + bias.reshape(1, -1, 1, 1, 1)
     return out.to(signal.dtype)
+
+
+def fft_conv_transpose3d_fused(
+    signal: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding=0,
+    stride=1,
+    dilation=1,
+    groups: int = 1,
+    output_padding=0,
+) -> torch.Tensor:
+    """Fused 3D transposed convolution, ``ops.fft_conv_transpose`` semantics.
+
+    A transposed convolution is the full correlation of the zero-stuffed
+    signal with the flipped, (Cin, Cout/g)-swapped, dilated kernel
+    (``F._transpose_kernel_layout``), cropped by ``padding`` on each side.
+    One stuffed signal is built per call (left pad K-1, stride-1 zeros
+    between samples, right pad K-1+output_padding) and runs through
+    ``fft_conv3d_fused``. Its volume is wider than 64 at usual shapes (78^3
+    at 64^3, K=8), so the W blocks carry it. As in the JAX package, an
+    output_padding past torch's limit is accepted. Raises ValueError where
+    no fused plan fits.
+    """
+    if signal.ndim != 5 or kernel.ndim != 5:
+        raise ValueError(
+            "fft_conv_transpose3d_fused expects (B, Cin, D, H, W) and "
+            "(Cin, Cout/g, KD, KH, KW)"
+        )
+    padding_ = to_ntuple(padding, 3)
+    stride_ = to_ntuple(stride, 3)
+    output_padding_ = to_ntuple(output_padding, 3)
+    cin = kernel.shape[0]
+    if signal.shape[1] != cin:
+        raise ValueError(f"kernel Cin {cin} != signal Cin {signal.shape[1]}")
+    if cin % groups:
+        raise ValueError(f"in_channels {cin} not divisible by groups {groups}")
+    w = F._transpose_kernel_layout(kernel, groups, to_ntuple(dilation, 3))
+    dims = list(zip(signal.shape[2:], w.shape[2:], stride_, padding_, output_padding_))
+    out_shape = tuple((s - 1) * t - 2 * p + k + op for s, k, t, p, op in dims)
+    if any(o < 1 for o in out_shape):
+        raise ValueError(
+            f"non-positive output shape {out_shape} (spatial {tuple(signal.shape[2:])}, "
+            f"kernel {tuple(kernel.shape[2:])}, padding {padding_})"
+        )
+    x = signal.new_zeros(
+        tuple(signal.shape[:2]) + tuple((s - 1) * t + 2 * k - 1 + op for s, k, t, _, op in dims)
+    )
+    x[(slice(None), slice(None))
+      + tuple(slice(k - 1, k + (s - 1) * t, t) for s, k, t, _, _ in dims)] = signal
+    out = fft_conv3d_fused(x, w, groups=groups)
+    out = out[(slice(None), slice(None))
+              + tuple(slice(p, p + o) for p, o in zip(padding_, out_shape))]
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1, 1)
+    return out

@@ -11,10 +11,12 @@ constructor raises when there is no CUDA device unless ``device="cpu"`` was
 asked for.
 
 The port provides the 1D, 2D and 3D layers. The transposed layers run the
-composed path (``impl="xla"``) by default, because their fused routes are not
-ported yet (ROADMAP.md §A); ``impl="auto"`` on a 1D or 2D CUDA signal raises
-for them rather than quietly running something else. For the 3D transposed
-layer the JAX package's "auto" is the composed path too.
+composed path (``impl="xla"``) by default. ``FFTConvTranspose3d(impl="fused")``
+runs the fused 3D transposed route (kernels B3 and B4); the fused 1D and 2D
+transposed routes are not ported yet (ROADMAP.md §A), so ``impl="auto"`` on a
+1D or 2D CUDA signal raises for them rather than quietly running something
+else. For the 3D transposed layer the JAX package's "auto" is the composed
+path too.
 """
 
 from typing import Iterable, Optional, Union
@@ -162,7 +164,7 @@ class _FFTConvTransposeForward(_FFTConvBase):
     """Forward via ``fft_conv_transpose``."""
 
     transposed = True
-    default_impl = "xla"  # the fused transposed route is not ported yet
+    default_impl = "xla"  # 1D/2D have no fused route yet; 3D's auto is composed
 
     def forward(self, signal: torch.Tensor) -> torch.Tensor:
         self._check_input(signal)

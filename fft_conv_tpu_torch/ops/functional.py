@@ -13,10 +13,12 @@ Semantics match the reference exactly (cited per step):
 
 Routing (``impl=``) follows the JAX package, with "on a TPU" read as "the
 signal is a CUDA tensor": ``auto`` sends a 1D, 2D or 3D CUDA signal whose
-plan fits to the fused kernel (in 3D a single-W-block plan only). A 3D plan of
-the unported tap kernel (B4) raises ``NotImplementedError`` rather than
-quietly running the composed path (``impl="xla"`` asks for that path).
-bfloat16/float16 inputs are computed in float32 and cast back.
+plan fits to the fused kernel (in 3D a single-W-block plan only).
+``fft_conv_transpose(impl="fused")`` runs the fused 3D transposed path; the
+fused 1D and 2D transposed paths are not ported yet and raise
+``NotImplementedError`` rather than quietly running the composed path
+(``impl="xla"`` asks for that path). bfloat16/float16 inputs are computed in
+float32 and cast back.
 """
 
 from typing import Iterable, Optional, Union
@@ -205,9 +207,8 @@ def fft_conv(
     name is kept from the JAX package), "fused" (require the fused path: the
     CUDA kernel on a CUDA tensor, its plain PyTorch version on a CPU tensor;
     ValueError if no plan fits), "tiled" (not ported yet:
-    NotImplementedError). A 3D shape whose plan is the tap kernel (KD > 9)
-    raises NotImplementedError under "auto" on a CUDA signal and under
-    "fused": that kernel (B4) is not ported yet.
+    NotImplementedError). In 3D a 'v4' plan (KD <= 9) runs kernel B3 and a
+    'tap' plan (KD > 9, or where v4 does not fit) kernel B4.
     """
     n = _check_rank(signal, kernel, "(out_channels, in_channels/groups, *k)")
     stride_ = to_ntuple(stride, n)
@@ -331,11 +332,15 @@ def fft_conv_transpose(
       signal: (B, Cin, *spatial); kernel: (Cin, Cout/groups, *k)
       (transposed-conv weight convention); bias: (Cout,) or None.
 
-    ``impl``: the fused transposed paths are not ported yet, so "fused" and
-    "tiled" raise NotImplementedError, and so does "auto" for a 1D or 2D
-    CUDA signal (whose JAX counterpart routes to a fused kernel). Otherwise
-    "auto" runs the composed path, as "xla" does: for a CPU signal, and for
-    a 3D CUDA signal, where the JAX package's "auto" does the same.
+    ``impl``: "fused" on a 3D signal runs ``fft_conv_transpose3d_fused``
+    (kernel B3 or B4 on a CUDA tensor, their plain versions on a CPU one;
+    ValueError when no plan fits the stuffed volume). The fused 1D and 2D
+    transposed paths are not ported yet, so "fused" raises
+    NotImplementedError for them, and so does "auto" for a 1D or 2D CUDA
+    signal (whose JAX counterpart routes to a fused kernel); "tiled" raises
+    too. Otherwise "auto" runs the composed path, as "xla" does: for a CPU
+    signal, and for a 3D CUDA signal, where the JAX package's "auto" does
+    the same.
 
     Reference semantics: functional.py:92-176. Kernel flip + group transpose
     turns transposed conv into a regular FFT correlation; signal interior
@@ -366,17 +371,21 @@ def fft_conv_transpose(
         raise NotImplementedError(
             "impl='tiled' (overlap-save tiling) is not ported yet (ROADMAP §A.10)"
         )
-    if impl == "fused":
-        if n > 3:
-            raise ValueError("impl='fused' requires 1D/2D/3D input")
-        raise NotImplementedError(
-            "the fused transposed-conv path is not ported yet (ROADMAP §A); "
-            "pass impl='xla' for the composed path"
-        )
-    if impl == "auto" and signal.is_cuda and n in (1, 2):
+    if impl == "fused" and n > 3:
+        raise ValueError("impl='fused' requires 1D/2D/3D input")
+    if n in (1, 2) and (impl == "fused" or (impl == "auto" and signal.is_cuda)):
         raise NotImplementedError(
             f"the fused {n}D transposed-conv path is not ported yet (ROADMAP "
             f"§A); pass impl='xla' for the composed path"
+        )
+    if impl == "fused":
+        from ..kernels.fused3d import fft_conv_transpose3d_fused
+
+        # the plan of the stuffed volume is checked where the forward is
+        # (fft_conv3d_fused_if_fits); no plan raises ValueError there
+        return fft_conv_transpose3d_fused(
+            signal, kernel, bias, padding=padding_, stride=stride_,
+            dilation=dilation_, groups=groups, output_padding=output_padding_,
         )
 
     return _fft_conv_transpose(

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the fused 1D, 2D and 3D kernels against their
-plain versions, and the routes that only a CUDA tensor takes.
+"""The port on a CUDA card: the fused 1D, 2D and 3D kernels (B1, B2, B3 and
+B4) against their plain versions, and the routes that only a CUDA tensor
+takes.
 
 Every test here is marked ``cuda`` and skips without a card. The file imports
 no JAX, so it also runs where JAX is not installed:
@@ -86,9 +87,13 @@ def test_auto_on_cuda_raises_for_unported_fused_routes(cuda):
     y = ft.fft_conv(torch.zeros(1, 2, 8, 8, 8, device=cuda),
                     torch.zeros(2, 2, 3, 3, 3, device=cuda))
     assert y.shape == (1, 2, 6, 6, 6) and fused3d.launches == before + 1
-    with pytest.raises(NotImplementedError, match="B4"):
-        ft.fft_conv(torch.zeros(1, 2, 30, 16, 12, device=cuda),
-                    torch.zeros(2, 2, 11, 3, 3, device=cuda))
+    # KD = 11 plans 'tap': auto launches B4
+    before = fused3d.launches, fused3d.launches_tap
+    y = ft.fft_conv(torch.ones(1, 2, 30, 16, 12, device=cuda),
+                    torch.ones(2, 2, 11, 3, 3, device=cuda))
+    assert (fused3d.launches, fused3d.launches_tap) == (before[0], before[1] + 1)
+    assert y.shape == (1, 2, 20, 14, 10)
+    assert torch.allclose(y, torch.full_like(y, 2 * 11 * 3 * 3), rtol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ft.fft_conv_transpose(torch.zeros(1, 2, 20, device=cuda),
                               torch.zeros(2, 2, 3, device=cuda))
@@ -277,3 +282,80 @@ def test_3d_layer_on_cuda_launches_the_kernel(cuda):
     _assert_close_scaled(y.detach().cpu().numpy(), y_ref.detach().cpu().numpy())
     transposed = ft.FFTConvTranspose3d(4, 4, 3)
     assert transposed.impl == "xla" and transposed(x).shape == (2, 4, 22, 26, 24)
+
+
+# (B, Cin, Cout, D, H, W, KD, KH, KW, groups): the B4 row (64^3, K=10, 4
+# output channels a thread), groups with 1 and 2 output channels a thread,
+# odd sizes with KD = 11, W blocks of 64 (nwb = 4) with KD = 12, and KD = 3
+# where v4's spectra (69 MB) do not fit but the tap ones do
+FUSED3D_TAP = [
+    (2, 8, 8, 64, 64, 64, 10, 10, 10, 1),
+    (1, 6, 6, 26, 12, 10, 11, 3, 3, 2),
+    (1, 6, 6, 26, 12, 10, 11, 3, 3, 3),
+    (1, 2, 3, 25, 19, 21, 11, 5, 3, 1),
+    (2, 4, 4, 24, 20, 200, 12, 3, 7, 1),
+    (1, 16, 16, 20, 64, 64, 3, 3, 3, 1),
+]
+
+
+@pytest.mark.parametrize("b,cin,cout,d,h,w,kd,kh,kw,groups", FUSED3D_TAP)
+def test_3d_tap_kernel_matches_plain_version(cuda, b, cin, cout, d, h, w, kd, kh, kw, groups):
+    x, k = _tensors(cuda, d + h + w + 1, (b, cin, d, h, w), (cout, cin // groups, kd, kh, kw))
+    k /= (cin // groups * kd * kh * kw) ** 0.5
+    assert fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)[0][0] == "tap"
+    before = fused3d.launches, fused3d.launches_tap
+    y = fused3d._launch_fused3d_tap(x, fused3d.kernel_spectra_tap(k, h), groups, (kd, kh, kw))
+    torch.cuda.synchronize()
+    assert (fused3d.launches, fused3d.launches_tap) == (before[0], before[1] + 1)
+    y_ref = fused3d._fused3d_tap_reference(x, k, groups)
+    _assert_close_scaled(y.cpu().numpy(), y_ref.cpu().numpy())
+
+
+def test_3d_tap_kernel_in_item_ranges(cuda, monkeypatch):
+    x, k = _tensors(cuda, 4, (2, 4, 24, 20, 150), (4, 4, 10, 5, 7))
+    monkeypatch.setattr(fused3d, "_SCRATCH_BUDGET",
+                        2 * fused3d._tap_scratch_bytes_per_item(4, 4, 24, 11, 15))
+    before = fused3d.launches_tap
+    y = fused3d._launch_fused3d_tap(x, fused3d.kernel_spectra_tap(k, 20), 1, (10, 5, 7))
+    assert fused3d.launches_tap - before == 3  # 2 x 3 W blocks, 2 a launch
+    y_ref = fused3d._fused3d_tap_reference(x, k)
+    _assert_close_scaled(y.cpu().numpy(), y_ref.cpu().numpy())
+
+
+def test_3d_tap_routes_on_cuda_launch_b4(cuda):
+    x, w, b = _tensors(cuda, 21, (2, 4, 22, 20, 16), (6, 2, 6, 3, 3), (6,))
+    kw = dict(padding=1, stride=(1, 2, 1), dilation=(2, 1, 1), groups=2, padding_mode="reflect")
+    before = fused3d.launches_tap
+    y = ft.fft_conv(x, w, b, impl="auto", **kw)  # KD = 6 dilates to 11
+    assert fused3d.launches_tap == before + 1
+    _assert_close_scaled(y.cpu().numpy(), ft.fft_conv(x, w, b, impl="xla", **kw).cpu().numpy())
+    # forward and backward of a KD = 10 layer
+    layer = ft.FFTConv3d(4, 4, 10, padding=1, generator=torch.Generator().manual_seed(1))
+    xg = x.clone().requires_grad_()
+    (layer(xg) ** 2).mean().backward()
+    assert fused3d.launches_tap == before + 2
+    gx, gw = xg.grad.clone(), layer.weight.grad.clone()
+    xg.grad = layer.weight.grad = None
+    (ft.fft_conv(xg, layer.weight, layer.bias, padding=1, impl="xla") ** 2).mean().backward()
+    _assert_close_scaled(gx.cpu().numpy(), xg.grad.cpu().numpy())
+    _assert_close_scaled(gw.cpu().numpy(), layer.weight.grad.cpu().numpy())
+
+
+@pytest.mark.parametrize("k,st,pad,op,dil,groups", [
+    (3, 2, 1, 1, 1, 2),    # v4: B3
+    (4, 1, 0, 0, 3, 1),    # dilation 3 takes K = 4 to 10: tap, B4, two W blocks
+])
+def test_3d_transpose_fused_on_cuda(cuda, k, st, pad, op, dil, groups):
+    x, w, b = _tensors(cuda, 22 + k, (2, 4, 12, 14, 60), (4, 6 // groups, k, k, k), (6,))
+    kw = dict(stride=st, padding=pad, output_padding=op, dilation=dil, groups=groups)
+    before = fused3d.launches, fused3d.launches_tap
+    y = ft.fft_conv_transpose(x, w, b, impl="fused", **kw)
+    rose = fused3d.launches - before[0], fused3d.launches_tap - before[1]
+    assert rose == ((1, 0) if dil == 1 else (0, 1))
+    y_ref = ft.fft_conv_transpose(x, w, b, impl="xla", **kw)
+    _assert_close_scaled(y.cpu().numpy(), y_ref.cpu().numpy())
+    layer = ft.FFTConvTranspose3d(4, 6, k, impl="fused", **kw)
+    with torch.no_grad():
+        layer.weight.copy_(w)
+        layer.bias.copy_(b)
+    _assert_close_scaled(layer(x).detach().cpu().numpy(), y_ref.cpu().numpy())

@@ -182,17 +182,20 @@ def test_tiled_is_not_ported(fn):
 
 @pytest.mark.parametrize("ndim", [2, 3])
 def test_fused_2d_3d_raise_not_implemented(ndim):
-    """What is not ported yet raises: the fused 2D and 3D transposed routes,
-    and the 3D tap kernel (B4, KD > 9). The fused 2D and 3D forward routes
-    run (B2's and B3's plain versions on a CPU tensor)."""
+    """What is not ported yet raises: the fused 2D transposed route. The
+    fused 2D and 3D forward routes run (B2's, B3's and B4's plain versions on
+    a CPU tensor), and so does the fused 3D transposed route."""
     x = torch.zeros((1, 2) + (8,) * ndim)
     w = torch.zeros((2, 2) + (3,) * ndim)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.fft_conv_transpose(x, w, impl="fused")
     assert ft.fft_conv(x, w, impl="fused").shape == (1, 2) + (6,) * ndim
-    if ndim == 3:
-        with pytest.raises(NotImplementedError, match="B4"):
-            ft.fft_conv(torch.zeros(1, 2, 12, 8, 8), torch.zeros(2, 2, 11, 3, 3), impl="fused")
+    if ndim == 2:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ft.fft_conv_transpose(x, w, impl="fused")
+        return
+    assert ft.fft_conv_transpose(x, w, impl="fused").shape == (1, 2) + (10,) * ndim
+    y = ft.fft_conv(torch.ones(1, 2, 12, 8, 8), torch.ones(2, 2, 11, 3, 3), impl="fused")
+    assert y.shape == (1, 2, 2, 6, 6)
+    assert torch.allclose(y, torch.full_like(y, 2 * 11 * 3 * 3), rtol=1e-5)
 
 
 def test_fused_transpose_raises_not_implemented():

@@ -1,11 +1,11 @@
 """The port's fused 3D path against the JAX package's.
 
-On the CPU the port's wrapper runs the kernel's plain version
-(``_fused3d_forward_reference``), and the JAX wrapper runs its Pallas kernel
-in interpret mode with the bf16x3-exact split, as ``tests/test_pallas3d.py``
-runs it. Both are held with ``helpers._assert_close_scaled``, the error model
-of that precision. The CUDA kernel itself is tested on the card in
-``test_torch_cuda.py``.
+On the CPU the port's wrapper runs the plan's plain version
+(``_fused3d_forward_reference`` for kernel B3, ``_fused3d_tap_reference`` for
+B4), and the JAX wrapper runs its Pallas kernel in interpret mode with the
+bf16x3-exact split, as ``tests/test_pallas3d.py`` runs it. Both are held with
+``helpers._assert_close_scaled``, the error model of that precision. The
+CUDA kernels themselves are tested on the card in ``test_torch_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -48,10 +48,19 @@ PARITY = [
     (2, 2, 3, 10, 8, 200, 2, 2, 7, 1, 1, 1, 0, "constant"),   # nwb = 4
     (1, 1, 1, 8, 8, 122, 2, 2, 7, 1, 1, 1, 0, "constant"),    # nwb = 2, ow = 2 hops
 ]
+# tap plans (B4): the KD = 11 rows of tests/test_pallas3d.py (CONFIGS and the
+# grouped case of test_fused3d_groups), a W-blocked one, and stride with a
+# dilation that takes KD = 6 to 11, under reflect padding
+TAP_PARITY = [
+    (1, 2, 2, 30, 16, 12, 11, 3, 3, 1, 1, 1, 0, "constant"),
+    (1, 6, 6, 26, 12, 10, 11, 3, 3, 2, 1, 1, 0, "constant"),
+    (1, 2, 2, 24, 10, 100, 10, 3, 5, 1, 1, 1, 0, "constant"),  # nwb = 2
+    (1, 2, 3, 24, 14, 12, 6, 3, 3, 1, (2, 1, 2), (2, 1, 1), 1, "reflect"),
+]
 
 
 @pytest.mark.parametrize(
-    "b,cin,cout,d,h,w,kd,kh,kw,groups,stride,dilation,padding,mode", PARITY
+    "b,cin,cout,d,h,w,kd,kh,kw,groups,stride,dilation,padding,mode", PARITY + TAP_PARITY
 )
 def test_plain_version_matches_jax_fused(b, cin, cout, d, h, w, kd, kh, kw, groups,
                                          stride, dilation, padding, mode):
@@ -61,11 +70,20 @@ def test_plain_version_matches_jax_fused(b, cin, cout, d, h, w, kd, kh, kw, grou
                groups=groups)
     y_jax = jax_fused3d.fft_conv3d_fused(jnp.asarray(x), jnp.asarray(k),
                                          jnp.asarray(bias), **kw_)
-    before = fused3d.launches
+    before = fused3d.launches, fused3d.launches_tap
     y = fused3d.fft_conv3d_fused(torch.from_numpy(x), torch.from_numpy(k),
                                  torch.from_numpy(bias), **kw_)
-    assert fused3d.launches == before
+    assert (fused3d.launches, fused3d.launches_tap) == before
     _assert_close_scaled(y.numpy(), np.asarray(y_jax))
+
+
+def test_tap_rows_plan_tap_in_both_packages():
+    for b, cin, cout, d, h, w, kd, kh, kw, groups, _, dil, pad, _ in TAP_PARITY:
+        dil = (dil,) * 3 if isinstance(dil, int) else dil
+        args = (cin, cout, d + 2 * pad, h + 2 * pad, w + 2 * pad,
+                (kd - 1) * dil[0] + 1, (kh - 1) * dil[1] + 1, (kw - 1) * dil[2] + 1, groups)
+        assert fused3d.plan_3d_blocked(*args) == jax_fused3d.plan_3d_blocked(*args)
+        assert fused3d.plan_3d_blocked(*args)[0][0] == "tap"
 
 
 def test_fft_conv_fused_3d_matches_jax():
@@ -136,9 +154,37 @@ def test_budgets_differ_from_jax_where_intended():
     assert [fused3d._slabs_per_block(n) for n in (113, 114, 227, 228, 454, 455)] == \
         [4, 2, 2, 1, 1, None]
     assert fused3d._plan_v4(1, 1, 9, 908, 8, 3, 3, 3) is None
-    # the tap plan keeps the JAX budgets until B4 is ported
-    assert fused3d._plan_tap(8, 8, 64, 64, 64, 11, 8, 8) == \
-        jax_fused3d._plan_tap(8, 8, 64, 64, 64, 11, 8, 8)
+    # the tap plan keeps the JAX geometry under B4's budgets: its spectra
+    # (Cout, Cin/g, KD, NBH, 64) in L2, B3's shared memory, T + Z per item.
+    # The B4 row (64^3, K=10, 8 -> 8) plans alike, with 10.8 MB of spectra
+    assert fused3d.plan_3d(8, 8, 64, 64, 64, 10, 10, 10) == ("tap", 33, 32, 40)
+    assert jax_fused3d.plan_3d(8, 8, 64, 64, 64, 10, 10, 10) == ("tap", 33, 32, 40)
+    assert 8 * 8 * 10 * 33 * 64 * 8 <= fused3d._SPECTRA_BUDGET
+    assert fused3d._tap_scratch_bytes_per_item(8, 8, 64, 33, 55) == (8 * 64 + 8 * 55) * 33 * 64 * 8
+    # K=11: the TPU's spectra of 12 taps at 128 lanes are 25.9 MB, past its
+    # 24 MiB; here 11 taps at 64 bins are 11.9 MB
+    assert jax_fused3d.plan_3d(8, 8, 64, 64, 64, 11, 11, 11) is None
+    assert fused3d.plan_3d(8, 8, 64, 64, 64, 11, 11, 11) == ("tap", 33, 32, 40)
+    # 16 -> 16 at 64^3, KD <= 5: v4's 16 D-bins of spectra are 69 MB, KD taps
+    # are not (the TPU refuses v4 for its unroll limit and tap for its 80 MiB
+    # cell); KD = 6 is 25.9 MB, past B4's budget too
+    assert jax_fused3d.plan_3d(16, 16, 64, 64, 64, 3, 3, 3) is None
+    assert fused3d._plan_v4(16, 16, 64, 64, 64, 3, 3, 3) is None
+    assert fused3d.plan_3d(16, 16, 64, 64, 64, 3, 3, 3) == ("tap", 33, 32, 40)
+    assert fused3d.plan_3d(16, 16, 64, 64, 64, 5, 5, 5)[0] == "tap"
+    assert fused3d.plan_3d(16, 16, 64, 64, 64, 6, 6, 6) is None
+    # the stuffed 82^3 volume of a transposed conv at 64^3, K=10: two W
+    # blocks of B4 here, nothing in the JAX package (its auto and fused
+    # routes take the composed path)
+    assert jax_fused3d.plan_3d_blocked(8, 8, 82, 82, 82, 10, 10, 10) is None
+    assert fused3d.plan_3d_blocked(8, 8, 82, 82, 82, 10, 10, 10) == (("tap", 42, 40, 48), 2, 55)
+    # shared memory: no tap plan past NBH = 454, where the TPU's cell fits
+    assert jax_fused3d.plan_3d(1, 1, 10, 908, 8, 10, 3, 3) == ("tap", 455, 8, 16)
+    assert fused3d.plan_3d(1, 1, 10, 908, 8, 10, 3, 3) is None
+    assert fused3d.plan_3d(1, 1, 10, 906, 8, 10, 3, 3) == ("tap", 454, 8, 16)
+    # scratch: T + Z of one item within 256 MiB
+    assert fused3d._tap_scratch_bytes_per_item(1, 1, 2048, 129, 2039) > fused3d._SCRATCH_BUDGET
+    assert fused3d._plan_tap(1, 1, 2048, 256, 64, 10, 3, 3) is None
     # no fallback: the port raises where the JAX function takes the composed path
     x, k = np.zeros((1, 1, 8, 8, 300), np.float32), np.zeros((1, 1, 2, 2, 70), np.float32)
     assert jax_fused3d.fft_conv3d_fused(jnp.asarray(x), jnp.asarray(k)).shape == (1, 1, 7, 7, 231)
@@ -178,6 +224,33 @@ def test_kernel_spectra_match_jax(shape, h):
     assert np.abs(spectra.imag.numpy() - unpack(ki)).max() < 2e-5
 
 
+@pytest.mark.parametrize("shape,h", [((4, 2, 11, 3, 3), 16), ((3, 3, 10, 5, 7), 19),
+                                     ((2, 1, 1, 4, 4), 12)])
+def test_kernel_spectra_tap_match_jax(shape, h):
+    """The JAX package packs the taps for its d-pair lanes: (NBH, Cin/g,
+    ME + MR, Cout, 128) with even tap 2t at t < ME and odd tap 2m' + 1 in R
+    tap ME + m' (m' < MO), each in lanes [0, 64). The port keeps (Cout, Cin/g,
+    KD, NBH, 64)."""
+    cout, cpg, kd = shape[:3]
+    (k,) = _arrays(sum(shape) + h, shape)
+    k /= np.sqrt(k[0].size)
+    nbh = h // 2 + 1
+    me, _ = fused3d._tap_counts(kd)
+
+    def unpack(a):  # (n, c, T, o, 128) -> (o, c, kd, n, 64)
+        a = np.asarray(a)[..., :64].transpose(3, 1, 2, 0, 4)
+        out = np.empty((cout, cpg, kd, nbh, 64), a.dtype)
+        out[:, :, 0::2] = a[:, :, :me]
+        out[:, :, 1::2] = a[:, :, me:me + kd // 2]
+        return out
+
+    kr, ki = jax_fused3d._kernel_spectra_3d(jnp.asarray(k), h, nbh)
+    spectra = fused3d.kernel_spectra_tap(torch.from_numpy(k), h)
+    assert spectra.dtype == torch.complex64 and spectra.shape == (cout, cpg, kd, nbh, 64)
+    assert np.abs(spectra.real.numpy() - unpack(kr)).max() < 2e-5
+    assert np.abs(spectra.imag.numpy() - unpack(ki)).max() < 2e-5
+
+
 @pytest.mark.parametrize("shape,k,groups", [
     ((2, 4, 20, 24, 30), (4, 2, 5, 3, 4), 2),   # one W block, 3 D blocks
     ((1, 2, 12, 9, 150), (3, 2, 9, 4, 7), 1),   # 3 W blocks, odd H, KD = 9
@@ -195,21 +268,119 @@ def test_plain_version_is_exact_in_float64(shape, k, groups):
     assert (y - y_ref).abs().max() < 1e-9
 
 
+@pytest.mark.parametrize("shape,k,groups", [
+    ((2, 3, 28, 16, 20), (4, 3, 12, 3, 5), 1),  # one W block
+    ((1, 4, 24, 9, 150), (6, 2, 10, 4, 7), 2),  # 3 W blocks, odd H, groups
+])
+def test_tap_plain_version_is_exact_in_float64(shape, k, groups):
+    """B4's plain version in float64 against the composed path: agreement to
+    float64 rounding shows the tap windows, the one-sided rows, the irfft
+    weights, the W blocks and the valid-region crop are exact."""
+    x, w = _arrays(sum(shape) + 1, shape, k)
+    xt = torch.from_numpy(x).double()
+    wt = torch.from_numpy(w).double()
+    assert fused3d._plan_for(xt.shape, wt.shape, groups)[0][0] == "tap"
+    y = fused3d._fused3d_tap_reference(xt, wt, groups)
+    y_ref = ft.fft_conv(xt, wt, groups=groups, impl="xla")
+    assert y.dtype == torch.float64 and y.shape == y_ref.shape
+    assert (y - y_ref).abs().max() < 1e-9
+
+
 def test_tap_plan_raises_naming_b4():
-    """KD = 11 plans the JAX package's tap kernel (B4), which is not ported:
-    the fused routes raise, on the CPU as on the card; auto on a CPU signal
-    is the composed path."""
+    """KD = 11 plans the tap kernel (B4): every fused route runs its plain
+    version on a CPU tensor and launches nothing; auto on a CPU signal is
+    the composed path. Each plain version takes only its own plan."""
     x, k = _arrays(11, (1, 2, 30, 16, 12), (2, 2, 11, 3, 3))
     xt, kt = torch.from_numpy(x), torch.from_numpy(k)
     assert fused3d.plan_3d(2, 2, 30, 16, 12, 11, 3, 3)[0] == "tap"
-    with pytest.raises(NotImplementedError, match="B4"):
-        fused3d.fft_conv3d_fused(xt, kt)
-    with pytest.raises(NotImplementedError, match="B4"):
-        ft.fft_conv(xt, kt, impl="fused")
-    with pytest.raises(NotImplementedError, match="B4"):
-        fused3d._fused3d_forward(xt, kt)
+    before = fused3d.launches, fused3d.launches_tap
+    y_ref = fused3d._fused3d_tap_reference(xt, kt)
+    assert torch.equal(fused3d.fft_conv3d_fused(xt, kt), y_ref)
+    assert torch.equal(ft.fft_conv(xt, kt, impl="fused"), y_ref)
+    assert torch.equal(fused3d._fused3d_forward(xt, kt), y_ref)
+    assert (fused3d.launches, fused3d.launches_tap) == before
+    _assert_close_scaled(y_ref.numpy(), ft.fft_conv(xt, kt, impl="xla").numpy())
     y = ft.fft_conv(xt, kt, impl="auto")
     assert torch.equal(y, ft.fft_conv(xt, kt, impl="xla"))
+    with pytest.raises(ValueError, match="plans 'tap', not 'v4'"):
+        fused3d._fused3d_forward_reference(xt, kt)
+    with pytest.raises(ValueError, match="plans 'v4', not 'tap'"):
+        fused3d._fused3d_tap_reference(xt, kt[:, :, :9])
+
+
+def test_tap_gradients_match_composed():
+    x, w = _arrays(4, (2, 4, 24, 12, 14), (4, 2, 11, 3, 5))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    kw = dict(padding=(0, 1, 2), groups=2)
+    (fused3d.fft_conv3d_fused(xt, wt, **kw) ** 2).mean().backward()
+    gx, gw = xt.grad.clone(), wt.grad.clone()
+    xt.grad = wt.grad = None
+    (ft.fft_conv(xt, wt, impl="xla", **kw) ** 2).mean().backward()
+    _assert_close_scaled(gx.numpy(), xt.grad.numpy())
+    _assert_close_scaled(gw.numpy(), wt.grad.numpy())
+
+
+# (B, Cin, Cout, D, H, W, K, stride, padding, output_padding, dilation, groups):
+# tests/test_pallas3d.py:TCONFIGS; the last one's stuffed W of 78 runs in two
+# W blocks
+TCONFIGS = [
+    (1, 2, 3, 10, 12, 10, 3, 1, 0, 0, 1, 1),
+    (2, 2, 2, 8, 9, 10, 4, 2, 1, 1, 1, 1),
+    (1, 4, 4, 7, 8, 9, 3, 1, 0, 0, 2, 2),
+    (1, 2, 2, 12, 14, 64, 8, 1, 0, 0, 1, 1),
+]
+
+
+@pytest.mark.parametrize("b,cin,cout,d,h,w,k,st,pad,op,dil,groups", TCONFIGS)
+def test_transpose_matches_jax_fused(b, cin, cout, d, h, w, k, st, pad, op, dil, groups):
+    x, wt, bias = _arrays(d + k + st, (b, cin, d, h, w), (cin, cout // groups, k, k, k),
+                          (cout,))
+    kw = dict(stride=st, padding=pad, output_padding=op, dilation=dil, groups=groups)
+    y_jax = jax_fused3d.fft_conv_transpose3d_fused(jnp.asarray(x), jnp.asarray(wt),
+                                                   jnp.asarray(bias), **kw)
+    before = fused3d.launches, fused3d.launches_tap
+    y = fused3d.fft_conv_transpose3d_fused(torch.from_numpy(x), torch.from_numpy(wt),
+                                           torch.from_numpy(bias), **kw)
+    assert (fused3d.launches, fused3d.launches_tap) == before
+    _assert_close_scaled(y.numpy(), np.asarray(y_jax))
+
+
+def test_fft_conv_transpose_fused_3d_matches_jax():
+    """The transposed route through the public entry point on both sides: a
+    tap plan (K = 11 on the stuffed volume) with stride and output padding."""
+    x, wt, bias = _arrays(6, (1, 2, 8, 7, 9), (2, 3, 11, 3, 3), (3,))
+    kw = dict(stride=(2, 1, 2), padding=(1, 0, 2), output_padding=(1, 0, 1), impl="fused")
+    cout = 3
+    assert fused3d.plan_3d_blocked(2, cout, 35, 13, 37, 11, 3, 3)[0][0] == "tap"
+    y = ft.fft_conv_transpose(torch.from_numpy(x), torch.from_numpy(wt),
+                              torch.from_numpy(bias), **kw)
+    y_jax = fc.fft_conv_transpose(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bias), **kw)
+    _assert_close_scaled(y.numpy(), np.asarray(y_jax))
+    _assert_close_scaled(y.numpy(), ft.fft_conv_transpose(
+        torch.from_numpy(x), torch.from_numpy(wt), torch.from_numpy(bias),
+        **{**kw, "impl": "xla"}).numpy())
+
+
+def test_transpose_fused_validation():
+    x, w = torch.zeros(1, 4, 6, 6, 6), torch.zeros(4, 2, 3, 3, 3)
+    with pytest.raises(ValueError, match="expects"):
+        fused3d.fft_conv_transpose3d_fused(x[0], w)
+    with pytest.raises(ValueError, match="!= signal Cin"):
+        fused3d.fft_conv_transpose3d_fused(x, w[:3])
+    with pytest.raises(ValueError, match="divisible"):
+        fused3d.fft_conv_transpose3d_fused(x, w, groups=3)
+    with pytest.raises(ValueError, match="non-positive"):
+        fused3d.fft_conv_transpose3d_fused(x, w, padding=5)
+    # an output_padding past torch's limit is accepted, as in the JAX package
+    y = fused3d.fft_conv_transpose3d_fused(x, w, output_padding=2)
+    assert y.shape == ft.fft_conv_transpose(x, w, output_padding=2, impl="xla").shape
+    # no plan fits the stuffed volume: W blocks need KW <= 64
+    wide = (torch.zeros(1, 1, 4, 4, 80), torch.zeros(1, 1, 2, 2, 70))
+    with pytest.raises(ValueError, match="no fused 3D FFT configuration"):
+        ft.fft_conv_transpose(*wide, impl="fused")
+    with pytest.raises(ValueError, match="no fused 3D FFT configuration"):
+        fused3d.fft_conv_transpose3d_fused(*wide)
 
 
 def test_fused3d_gradients_match_composed():

@@ -136,6 +136,24 @@ def test_3d_transpose_layer_matches_jax(stride, padding, output_padding, dilatio
     _assert_almost_equal(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
 
 
+@pytest.mark.parametrize("kernel_size,stride,padding,output_padding,groups",
+                         [((3, 2, 3), 2, 1, 1, 2), ((11, 3, 3), (1, 2, 1), (2, 0, 1), 0, 1)])
+def test_3d_transpose_layer_fused_matches_jax(kernel_size, stride, padding, output_padding,
+                                              groups):
+    """FFTConvTranspose3d(impl="fused") on both sides: a v4 plan (B3's plain
+    version here) and a tap plan (KD = 11, B4's)."""
+    jax_layer, torch_layer = _pair(
+        "FFTConvTranspose3d", 4, 6, kernel_size, stride=stride, padding=padding,
+        output_padding=output_padding, groups=groups, impl="fused",
+    )
+    x = np.random.default_rng(10).standard_normal((2, 4, 7, 6, 5)).astype(np.float32)
+    before = fused3d.launches, fused3d.launches_tap
+    with torch.no_grad():
+        y = torch_layer(torch.from_numpy(x))
+    assert (fused3d.launches, fused3d.launches_tap) == before
+    _assert_close_scaled(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
+
+
 @pytest.mark.parametrize("cls", ["FFTConv3d", "FFTConvTranspose3d"])
 def test_3d_state_dict_matches_jax(cls):
     jax_layer, torch_layer = _pair(cls, 4, 6, (3, 2, 5), groups=2, impl="xla")
