@@ -5,15 +5,17 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, checks
 each against its plain PyTorch version on the card, drives the main path
-(``fft_conv(..., impl="auto")``, ``fft_conv_transpose(..., impl="fused")``
-and the ``nn.FFTConv1d/2d/3d`` and ``nn.FFTConvTranspose3d`` layers forward
+(``fft_conv(..., impl="auto")``, ``fft_conv_transpose`` and the
+``nn.FFTConv1d/2d/3d`` and ``nn.FFTConvTranspose1d/2d/3d`` layers forward
 and backward) at the library's benchmark shapes (B=2, 8 -> 8 channels,
 float32, bias, inputs from a torch.Generator seeded with 0: 1D at L=32768
 with K in {256, 1024, 3840}, 2D at 512 x 512 with K in {16, 34}, 3D at 64^3
 with K=8, forward and transposed) and at 64^3 with K=10 (the 3D tap kernel
-B4, and its transposed call), shows through the launch counters that the
-main path ran the kernels, and times each kernel beside its plain version,
-the composed path, one library call and the least time the card could take.
+B4, and its transposed call); the 2D rows run once more under
+``set_fused2d_kernel("v3")`` (kernel B5). It shows through the launch
+counters that each path ran its kernels, and times each kernel beside its
+plain version, the composed path, one library call and the least time the
+card could take.
 
 Every phase prints one line; any failed check raises and the script exits
 non-zero without a result. The last line is
@@ -171,6 +173,20 @@ def fused2d_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
     tiles = -(-(h - k + 1) // v1) * -(-(w - k + 1) // v2)
     fwd = 4 * nb1 * t1 * t2 + 8 * nb1 * t2 * t2
     inv = 8 * (cin // groups) * nb1 * t2 + 8 * nb1 * t2 * t2 + 4 * v1 * nb1 * t2
+    return b * tiles * (cin * fwd + cout * inv)
+
+
+def fused2d_v3_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
+    """The flops kernel B5 (csrc/fused2d.cu, the v3 schedule) does for one
+    call, over whole T1 x T2 tiles: per input channel, the stacked H DFT
+    (2 NB1 x T1 x T2 real) and the W DFT (four real products of NB1 x T2 x
+    T2); per output channel, B2's MAC, the stacked H inverse on the V1 valid
+    rows (two real products of V1 x 2 NB1 x T2) and the real W inverse
+    (V1 x 2 T2 x T2)."""
+    t1, v1, nb1, t2, v2 = plan
+    tiles = -(-(h - k + 1) // v1) * -(-(w - k + 1) // v2)
+    fwd = 4 * nb1 * t1 * t2 + 8 * nb1 * t2 * t2
+    inv = 8 * (cin // groups) * nb1 * t2 + 8 * v1 * nb1 * t2 + 4 * v1 * t2 * t2
     return b * tiles * (cin * fwd + cout * inv)
 
 
@@ -432,6 +448,261 @@ def time_2d(torch, inputs, errs, per_row):
         print(json.dumps({"phase": "timing", "kernel": "B2", **row}))
         torch.cuda.synchronize()
     return rows
+
+
+def check_fused2d_v3(torch, dev, gen, inputs):
+    """B5 against its plain version on the card at the 2D benchmark rows
+    (B2's inputs), with groups=2, at a T1 = 256 (K1 = 70), a T1 = 384 (K1 =
+    200) and a T2 = 256 (K2 = 100) plan, and with the tiles split over
+    several launches. Returns the rows' max abs errors."""
+    from fft_conv_tpu_torch.kernels import fused2d
+
+    lib = fused2d._library()
+    for t1 in (128, 256, 384):
+        for t2 in (128, 256):
+            smem = lib.fused2d_v3_smem_bytes(t1, t2)
+            check(smem == fused2d._smem_bytes_v3(t1 // 2 + 1, t2),
+                  f"B5's shared memory at T1={t1}, T2={t2} differs from the kernel's {smem}")
+
+    def vs_plain(x, wt, groups, what, **extra):
+        cout, cpg, k1, k2 = wt.shape
+        plan = fused2d.tile_plan_2d(k1, k2, cpg, cout)
+        spectra = fused2d.kernel_spectra_2d_planes(wt, plan[0], plan[2], plan[3])
+        before = fused2d.launches, fused2d.launches_v3
+        y = fused2d._launch_fused2d_v3(x, spectra, plan, groups, (k1, k2))
+        torch.cuda.synchronize()
+        launched = fused2d.launches - before[0], fused2d.launches_v3 - before[1]
+        check(launched[0] == 0 and launched[1] >= 1, f"B5 {what}: launched (B2, B5) {launched}")
+        mx, mean, sigma = close_scaled(
+            y, fused2d._fused2d_forward_reference_v3(x, wt, groups), f"B5 vs plain, {what}")
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B5", "case": what,
+                          "plan": dict(zip(("T1", "V1", "NB1", "T2", "V2"), plan)),
+                          "launches": launched[1], "max_abs_err": mx, "mean_abs_err": mean,
+                          "sigma": sigma, "bar_max": 1.2e-4 * sigma, "bar_mean": 2e-5 * sigma,
+                          **extra}))
+        return mx
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    errs = [vs_plain(x, wt, 1, f"K={wt.shape[-1]}") for x, wt, _, _ in inputs]
+    x, wt, _, plan = inputs[0]
+    vs_plain(x, wt[:, :4].contiguous(), 2, "groups=2")
+    vs_plain(randn(2, 8, 300, 280), randn(8, 8, 70, 5) / 60.0, 1, "T1=256, K=(70, 5)")
+    vs_plain(randn(1, 4, 420, 150), randn(4, 4, 200, 9) / 85.0, 1, "T1=384, K=(200, 9)")
+    vs_plain(randn(2, 8, 200, 400), randn(8, 8, 12, 100) / 100.0, 1, "T2=256, K=(12, 100)")
+    budget = fused2d._SCRATCH_BUDGET
+    try:
+        fused2d._SCRATCH_BUDGET = 4 * fused2d._scratch_bytes_per_tile(plan[2], plan[3], 2, 8)
+        vs_plain(x, wt, 1, "tile ranges of 4 tiles")
+    finally:
+        fused2d._SCRATCH_BUDGET = budget
+    torch.cuda.synchronize()
+    return errs
+
+
+def main_path_2d_v3(torch, inputs):
+    """Under set_fused2d_kernel("v3"), counted from zero: fft_conv(impl=
+    "auto") at both 2D rows and FFTConv2d(8, 8, 16) forward and backward
+    launch B5 and not B2. Returns (B5 launches per row, total)."""
+    from fft_conv_tpu_torch import FFTConv2d, fft_conv
+    from fft_conv_tpu_torch.kernels import fused2d
+
+    def counts():
+        torch.cuda.synchronize()
+        return fused2d.launches, fused2d.launches_v3
+
+    fused2d.set_fused2d_kernel("v3")
+    try:
+        fused2d.launches = fused2d.launches_v3 = 0
+        per_row = []
+        for (b, cin, cout, h, w, k), (x, wt, bias, _) in zip(BENCH_SHAPES_2D, inputs):
+            before = counts()
+            y = fft_conv(x, wt, bias, impl="auto")
+            rose = tuple(a - c for a, c in zip(counts(), before))
+            check(rose[0] == 0 and rose[1] >= 1,
+                  f"fft_conv(impl='auto') under v3 at K={k} launched (B2, B5) {rose}")
+            per_row.append(rose[1])
+            mx, mean, _ = close_scaled(y, fft_conv(x, wt, bias, impl="xla"),
+                                       f"2D auto under v3 vs xla K={k}")
+            print(json.dumps({"phase": "main_path", "kernel": "B5", "K": k, "launches": rose[1],
+                              "max_abs_err_vs_composed": mx, "mean_abs_err": mean}))
+
+        layer = FFTConv2d(8, 8, 16, device="cuda", generator=torch.Generator().manual_seed(0))
+        x = inputs[0][0].clone().requires_grad_()
+        before = counts()
+        y = layer(x)
+        y.sum().backward()
+        rose = tuple(a - c for a, c in zip(counts(), before))
+        check(rose[0] == 0 and rose[1] >= 1, f"FFTConv2d under v3 launched (B2, B5) {rose}")
+        w_ref = layer.weight.detach().clone().requires_grad_()
+        x_ref = inputs[0][0].clone().requires_grad_()
+        y_ref = fft_conv(x_ref, w_ref, layer.bias.detach(), impl="xla")
+        y_ref.sum().backward()
+        close_scaled(y, y_ref, "FFTConv2d under v3 forward vs xla")
+        gw_err, _, _ = close_scaled(layer.weight.grad, w_ref.grad, "FFTConv2d v3 weight grad")
+        gx_err, _, _ = close_scaled(x.grad, x_ref.grad, "FFTConv2d v3 input grad")
+        launched = counts()
+        print(json.dumps({"phase": "module", "kernel": "B5", "launches": rose[1],
+                          "weight_grad_max_abs_err": gw_err, "input_grad_max_abs_err": gx_err}))
+        print(json.dumps({"phase": "main_path_counts", "kernels": "B2, B5 under v3",
+                          "launches": launched[0], "launches_v3": launched[1]}))
+    finally:
+        fused2d.set_fused2d_kernel("v2")
+    return per_row, launched[1]
+
+
+def main_path_transposed(torch, inputs1d, inputs2d):
+    """The repaired transposed routes, counted from zero: the default call
+    fft_conv_transpose(x, w, bias) on the 1D rows' signals (B1) and on the 2D
+    rows' (B2, and B5 under "v3"), and FFTConvTranspose1d(8, 8, 1024) and
+    FFTConvTranspose2d(8, 8, 16) with their default impl forward and
+    backward (B2, then B5 under "v3"), each held to impl="xla". The weights
+    are the forward rows' (8 -> 8, so (Cin, Cout, K) has their shape)."""
+    from fft_conv_tpu_torch import FFTConvTranspose1d, FFTConvTranspose2d, fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused1d, fused2d
+
+    def counts():
+        torch.cuda.synchronize()
+        return fused1d.launches, fused2d.launches, fused2d.launches_v3
+
+    def drive(x, wt, bias, want, what):
+        before = counts()
+        y = fft_conv_transpose(x, wt, bias)
+        rose = tuple(a - c for a, c in zip(counts(), before))
+        check([r > 0 for r in rose] == want, f"{what} launched (B1, B2, B5) {rose}")
+        mx, mean, _ = close_scaled(y, fft_conv_transpose(x, wt, bias, impl="xla"), what)
+        print(json.dumps({"phase": "main_path", "case": what, "launches": rose,
+                          "max_abs_err_vs_composed": mx, "mean_abs_err": mean}))
+
+    def layer_pass(layer, x, want, what):
+        xg = x.clone().requires_grad_()
+        before = counts()
+        y = layer(xg)
+        y.sum().backward()
+        rose = tuple(a - c for a, c in zip(counts(), before))
+        check(layer.impl == "auto" and [r > 0 for r in rose] == want,
+              f"{what} (impl={layer.impl!r}) launched (B1, B2, B5) {rose}")
+        w_ref = layer.weight.detach().clone().requires_grad_()
+        x_ref = x.clone().requires_grad_()
+        y_ref = fft_conv_transpose(x_ref, w_ref, layer.bias.detach(), impl="xla")
+        y_ref.sum().backward()
+        close_scaled(y, y_ref, f"{what} forward vs xla")
+        gw_err, _, _ = close_scaled(layer.weight.grad, w_ref.grad, f"{what} weight grad")
+        gx_err, _, _ = close_scaled(xg.grad, x_ref.grad, f"{what} input grad")
+        print(json.dumps({"phase": "module", "case": what, "launches": rose,
+                          "weight_grad_max_abs_err": gw_err, "input_grad_max_abs_err": gx_err}))
+
+    fused1d.launches = fused2d.launches = fused2d.launches_v3 = 0
+    for x, wt, bias, _ in inputs1d:
+        drive(x, wt, bias, [True, False, False],
+              f"fft_conv_transpose 1D L={x.shape[-1]} K={wt.shape[-1]}")
+    for x, wt, bias, _ in inputs2d:
+        drive(x, wt, bias, [False, True, False], f"fft_conv_transpose 2D K={wt.shape[-1]}")
+    gen = torch.Generator().manual_seed(0)
+    layer_pass(FFTConvTranspose1d(8, 8, 1024, device="cuda", generator=gen), inputs1d[1][0],
+               [True, False, False], "FFTConvTranspose1d(8, 8, 1024)")
+    layer2 = FFTConvTranspose2d(8, 8, 16, device="cuda", generator=gen)
+    layer_pass(layer2, inputs2d[0][0], [False, True, False], "FFTConvTranspose2d(8, 8, 16)")
+    fused2d.set_fused2d_kernel("v3")
+    try:
+        for x, wt, bias, _ in inputs2d:
+            drive(x, wt, bias, [False, False, True],
+                  f"fft_conv_transpose 2D K={wt.shape[-1]} under v3")
+        layer2.weight.grad = layer2.bias.grad = None
+        layer_pass(layer2, inputs2d[0][0], [False, False, True],
+                   "FFTConvTranspose2d(8, 8, 16) under v3")
+    finally:
+        fused2d.set_fused2d_kernel("v2")
+    launched = counts()
+    print(json.dumps({"phase": "main_path_counts", "kernels": "B1, B2, B5 (transposed)",
+                      "launches": dict(zip(("B1", "B2", "B5"), launched))}))
+
+
+def time_2d_v3(torch, inputs, errs, per_row):
+    """The timing rows of B5 at the 2D benchmark shapes, taken beside B2's
+    (time_2d) in the same run: `auto_*` under set_fused2d_kernel("v3")."""
+    import torch.nn.functional as TF
+
+    from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.kernels import fused2d
+
+    rows = []
+    for (b, cin, cout, h, w, k), (x, wt, _, plan), err, nl in zip(
+        BENCH_SHAPES_2D, inputs, errs, per_row
+    ):
+        t1, _, nb1, t2, _ = plan
+        spectra = fused2d.kernel_spectra_2d_planes(wt, t1, nb1, t2)
+
+        def kernel():
+            return fused2d._launch_fused2d_v3(x, spectra, plan, 1, (k, k))
+
+        def auto():
+            return fft_conv(x, wt, impl="auto")
+
+        def composed():
+            return fft_conv(x, wt, impl="xla")
+
+        nbytes, flops = fused2d_work(b, cin, cout, h, w, k, plan)
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = {
+            "K": k, "plan": list(plan), "launches": nl, "max_abs_err": err,
+            "ms": device_ms(kernel),
+            "call_ms": call_ms(kernel),
+            "spectra_ms": device_ms(lambda: fused2d.kernel_spectra_2d_planes(wt, t1, nb1, t2)),
+            "composed_ms": device_ms(composed),
+            "composed_call_ms": call_ms(composed),
+            "plain_ms": call_ms(lambda: fused2d._fused2d_forward_reference_v3(x, wt)),
+            "library_ms": device_ms(lambda: TF.conv2d(x, wt)),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_flops": fused2d_v3_kernel_flops(b, cin, cout, h, w, k, plan),
+            # B5's two kernels, one by one (device time per call)
+            "phase_ms": phase_split_ms(torch, kernel, "fused2d_v3_"),
+        }
+        fused2d.set_fused2d_kernel("v3")
+        try:
+            row["auto_ms"] = device_ms(auto)
+            row["auto_call_ms"] = call_ms(auto)
+        finally:
+            fused2d.set_fused2d_kernel("v2")
+        row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
+        rows.append(row)
+        print(json.dumps({"phase": "timing", "kernel": "B5", **row}))
+        torch.cuda.synchronize()
+    return rows
+
+
+def time_transposed_1d_2d(torch, inputs1d, inputs2d):
+    """The repaired transposed routes at the 1D and 2D benchmark rows
+    (stride 1): the fused route's device time and call latency
+    (`fused_ms`, `fused_call_ms`; in 2D also under "v3", `fused_v3_ms`)
+    against the composed path's."""
+    from fft_conv_tpu_torch import fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused2d
+
+    for x, wt, bias, _ in list(inputs1d) + list(inputs2d):
+        def fused():
+            return fft_conv_transpose(x, wt, bias, impl="fused")
+
+        def composed():
+            return fft_conv_transpose(x, wt, bias, impl="xla")
+
+        row = {
+            "shape": list(x.shape), "K": wt.shape[-1],
+            "fused_ms": device_ms(fused),
+            "fused_call_ms": call_ms(fused),
+            "composed_ms": device_ms(composed),
+            "composed_call_ms": call_ms(composed),
+        }
+        if x.ndim == 4:
+            fused2d.set_fused2d_kernel("v3")
+            try:
+                row["fused_v3_ms"] = device_ms(fused)
+            finally:
+                fused2d.set_fused2d_kernel("v2")
+        print(json.dumps({"phase": "timing", "kernel": "B1" if x.ndim == 3 else "B2",
+                          "case": f"fft_conv_transpose {x.ndim - 2}D", **row}))
+        torch.cuda.synchronize()
 
 
 def check_fused3d(torch, dev, gen):
@@ -980,6 +1251,7 @@ def main() -> int:
                       "max_abs_err": mx}))
     torch.cuda.synchronize()
     inputs2d, errs2d = check_fused2d(torch, dev, gen)
+    errs2v3 = check_fused2d_v3(torch, dev, gen, inputs2d)
     inputs3d, errs3d = check_fused3d(torch, dev, gen)
     inputs3t, errs3t = check_fused3d_tap(torch, dev, gen)
 
@@ -1019,6 +1291,8 @@ def main() -> int:
                       "weight_grad_max_abs_err": gw_err, "input_grad_max_abs_err": gx_err}))
     torch.cuda.synchronize()
     per_row2d, main_launches2d = main_path_2d(torch, inputs2d)
+    per_row2v3, main_launches2v3 = main_path_2d_v3(torch, inputs2d)
+    main_path_transposed(torch, inputs, inputs2d)
     per_row3d, main_launches3d = main_path_3d(torch, inputs3d)
     per_row3t, main_launches3t, t_inputs = main_path_3d_tap(torch, inputs3t)
 
@@ -1064,15 +1338,20 @@ def main() -> int:
         torch.cuda.synchronize()
 
     rows2d = time_2d(torch, inputs2d, errs2d, per_row2d)
+    rows2v3 = time_2d_v3(torch, inputs2d, errs2v3, per_row2v3)
     rows3d = time_3d(torch, inputs3d, errs3d, per_row3d)
     rows3t = time_3d_tap(torch, inputs3t, errs3t, per_row3t)
     time_transposed_3d(torch, inputs3t[0][0], t_inputs)
+    time_transposed_1d_2d(torch, inputs, inputs2d)
 
     print(json.dumps({"kernels": [
         kernel_entry("B1_fused1d", "fft_conv_tpu_torch/kernels/csrc/fused1d.cu",
                      "fft_conv_tpu/kernels/fused1d.py:291", main_launches, errs, shapes),
         kernel_entry("B2_fused2d", "fft_conv_tpu_torch/kernels/csrc/fused2d.cu",
                      "fft_conv_tpu/kernels/fused2d.py:308", main_launches2d, errs2d, rows2d),
+        kernel_entry("B5_fused2d_v3", "fft_conv_tpu_torch/kernels/csrc/fused2d.cu",
+                     "fft_conv_tpu/kernels/fused2d.py:419", main_launches2v3, errs2v3,
+                     rows2v3),
         kernel_entry("B3_fused3d", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",
                      "fft_conv_tpu/kernels/fused3d.py:735", main_launches3d, errs3d, rows3d),
         kernel_entry("B4_fused3d_tap", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",

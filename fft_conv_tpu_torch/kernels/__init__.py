@@ -1,10 +1,17 @@
-"""The port's kernels: the fused 1D (B1), 2D (B2), 3D overlap-save-D (B3) and
-3D tap (B4) kernels so far; B2's alternate schedule and the 3D x-pack kernel
-are listed in ROADMAP.md §B."""
+"""The port's kernels: the fused 1D (B1), 2D (B2, and B5 on the "v3"
+schedule that ``set_fused2d_kernel`` selects), 3D overlap-save-D (B3) and 3D
+tap (B4) kernels, their wrappers and the fused transposed routes in 1D, 2D
+and 3D. The 3D x-pack kernel is listed in ROADMAP.md §B."""
 
 from .fourstep import four_step_fft, four_step_ifft, kernel_spectrum
-from .fused1d import choose_fft_size, fft_conv1d_fused
-from .fused2d import fft_conv2d_fused, fused2d_fits, tile_plan_2d
+from .fused1d import choose_fft_size, fft_conv1d_fused, fft_conv_transpose1d_fused
+from .fused2d import (
+    fft_conv2d_fused,
+    fft_conv_transpose2d_fused,
+    fused2d_fits,
+    set_fused2d_kernel,
+    tile_plan_2d,
+)
 from .fused3d import (
     fft_conv3d_fused,
     fft_conv_transpose3d_fused,
@@ -16,7 +23,10 @@ __all__ = [
     "fft_conv1d_fused",
     "fft_conv2d_fused",
     "fft_conv3d_fused",
+    "fft_conv_transpose1d_fused",
+    "fft_conv_transpose2d_fused",
     "fft_conv_transpose3d_fused",
+    "set_fused2d_kernel",
     "choose_fft_size",
     "fused2d_fits",
     "tile_plan_2d",

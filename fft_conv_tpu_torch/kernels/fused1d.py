@@ -398,3 +398,60 @@ def fft_conv1d_fused(
     if bias is not None:
         out = out + bias.reshape(1, -1, 1)
     return out.to(signal.dtype)
+
+
+def fft_conv_transpose1d_fused(
+    signal: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding=0,
+    stride=1,
+    dilation=1,
+    groups: int = 1,
+    output_padding=0,
+) -> torch.Tensor:
+    """Fused 1D transposed convolution, ``ops.fft_conv_transpose`` semantics:
+    ``fft_conv1d_fused`` on the zero-stuffed signal (``F._fused_transpose``),
+    the port of the JAX package's ``fft_conv_transpose1d_fused``. Raises
+    ValueError where no FFT size fits the stuffed signal."""
+    out = fft_conv_transpose1d_fused_if_fits(
+        signal, kernel, bias, padding, stride, dilation, groups, output_padding
+    )
+    if out is None:
+        raise ValueError(
+            "no fused FFT configuration fits this shape (the stuffed signal "
+            "of the transposed conv leaves no full 128-sample block of valid "
+            "outputs, or the spectra or the scratch exceed the kernel's "
+            "budgets); use fft_conv_transpose(impl='xla')"
+        )
+    return out
+
+
+def fft_conv_transpose1d_fused_if_fits(
+    signal: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding=0,
+    stride=1,
+    dilation=1,
+    groups: int = 1,
+    output_padding=0,
+) -> Optional[torch.Tensor]:
+    """``fft_conv_transpose1d_fused``, or None when ``choose_fft_size`` finds
+    no FFT size for the stuffed signal and the dilated kernel; the gate of
+    ``fft_conv_transpose(impl="auto")``."""
+    if signal.ndim != 3 or kernel.ndim != 3:
+        raise ValueError(
+            "fft_conv_transpose1d_fused expects (B, Cin, L) and (Cin, Cout/g, K)"
+        )
+
+    def forward(x, w, g):
+        cout, cpg, k = w.shape
+        if choose_fft_size(k, x.shape[-1], cpg, cout, batch=x.shape[0], groups=g) is None:
+            return None
+        return fft_conv1d_fused(x, w, groups=g)
+
+    return F._fused_transpose(
+        signal, kernel, bias, to_ntuple(padding, 1), to_ntuple(stride, 1),
+        to_ntuple(dilation, 1), groups, to_ntuple(output_padding, 1), forward,
+    )

@@ -8,20 +8,30 @@ T1/2+1 rows), the full W DFT, a per-bin grouped complex MAC over the group's
 input channels against the conjugated kernel spectra, the inverse W DFT and
 the H irfft on the V1 valid rows, all as dense DFT matrix products.
 
-On a CUDA tensor ``_fused2d_forward`` launches the kernel; on a CPU tensor
-it runs ``_fused2d_forward_reference``, the same tiled pipeline written with
+Two schedules of that one function, chosen by ``set_fused2d_kernel`` (or
+the ``FFTCONV_2D_KERNEL`` environment variable, read at import) as in the
+JAX package: "v2" (the default) runs kernel B2, complex products on
+interleaved (re, im) pairs; "v3" runs kernel B5 (``csrc/fused2d.cu``,
+``fused2d_v3_forward``), where re and im are stacked into the rows of real
+products and the inverse runs H first on the stacked [yr; yi].
+
+On a CUDA tensor ``_fused2d_forward`` launches the chosen kernel; on a CPU
+tensor it runs its plain version (``_fused2d_forward_reference`` or
+``_fused2d_forward_reference_v3``), the same tiled pipeline written with
 torch ops (the counterpart of the JAX package's Pallas interpret mode).
 There is no other route: a CUDA tensor launches the kernel or raises.
 
 Gradients: ``_Fused2dCore`` is a ``torch.autograd.Function`` whose backward
 is the composed path, shared with the 1D kernel (``fused1d._fused_bwd``).
 
-Not ported from the JAX module: ``plan_fft_conv2d``,
-``fft_conv_transpose2d_fused`` (ROADMAP §A) and the TPU's precision,
-kernel-version, MAC-mode and prefetch switches.
+``fft_conv_transpose2d_fused`` runs the forward on the zero-stuffed signal.
+
+Not ported from the JAX module: ``plan_fft_conv2d`` (ROADMAP §A) and the
+TPU's precision, MAC-mode and prefetch switches.
 """
 
 import ctypes
+import os
 from functools import lru_cache
 from typing import Optional, Tuple
 
@@ -56,9 +66,24 @@ _SCRATCH_BUDGET = 256 * 2**20
 # CUDA's limit on gridDim.y, which carries the tiles of one launch.
 _MAX_TILES_PER_LAUNCH = 65535
 
-# Launches of the CUDA kernel pair (phase 1 + phase 2) since import or the
-# last reset; the plain version on CPU tensors does not count.
+# Launches of the CUDA kernel pairs (phase 1 + phase 2) since import or the
+# last reset: ``launches`` counts B2, ``launches_v3`` counts B5. The plain
+# versions on CPU tensors do not count.
 launches = 0
+launches_v3 = 0
+
+# The tile-kernel schedule: "v2" (B2) or "v3" (B5). _fused2d_forward reads it
+# at call time, as the JAX package's does.
+_KERNEL2D_VERSION = os.environ.get("FFTCONV_2D_KERNEL", "v2")
+
+
+def set_fused2d_kernel(version: str) -> None:
+    """Selects the 2D tile-kernel schedule: "v2" (kernel B2) or "v3"
+    (kernel B5). Both compute the same function under the same tile plan."""
+    global _KERNEL2D_VERSION
+    if version not in ("v2", "v3"):
+        raise ValueError(f"unknown fused2d kernel version: {version!r}")
+    _KERNEL2D_VERSION = version
 
 
 def _smem_bytes(nb1: int, t2: int) -> int:
@@ -73,6 +98,20 @@ def _smem_bytes(nb1: int, t2: int) -> int:
     return nb1 * t2 * 8 + stage
 
 
+def _smem_bytes_v3(nb1: int, t2: int) -> int:
+    """Shared memory of one block of B5 (either phase), as csrc/fused2d.cu's
+    ``V3Cfg`` computes it: the stacked 2·NB1 x T2 real matrix plus the
+    larger phase's panels (phase 1: an H-forward row panel and a window
+    panel, or a W-forward panel pair; phase 2: the R x 2·T2 [zr | zi] chunk
+    and the larger of the H-inverse row panels and a W-inverse panel). The
+    library's ``fused2d_v3_smem_bytes`` exports the kernel's own figure; a
+    card test holds the two equal."""
+    kc, rows, chunk = 4096 // t2, 8 * 1024 // t2, 16
+    phase1 = max(rows * kc + kc * t2, 2 * kc * t2)
+    phase2 = chunk * 2 * t2 + max(2 * chunk * kc, kc * t2)
+    return 4 * (2 * nb1 * t2 + max(phase1, phase2))
+
+
 def tile_plan_2d(k1: int, k2: int, cin_g: int, cout: int):
     """(T1, V1, NB1, T2, V2) or None when no fused configuration fits.
 
@@ -81,6 +120,9 @@ def tile_plan_2d(k1: int, k2: int, cin_g: int, cout: int):
     T1 >= 128 + K1 - 1 (128 for K1 <= 65), V1 = T1-K1+1 rounded down to a
     multiple of 8, and T2 the first of {128, 256} leaving V2 = T2-K2+1 >= 32.
     The budgets are this kernel's (see ``_SPECTRA_BUDGET``, ``_SMEM_LIMIT``).
+    B5's shared memory (``_smem_bytes_v3``) fits exactly where B2's does, so
+    one plan serves both schedules and the switch never changes routing (a
+    test holds the two gates equal).
     """
     t1 = 128 if k1 <= 65 else -(-(128 + k1 - 1) // 128) * 128
     if t1 < k1 + 8:
@@ -152,6 +194,41 @@ def _device_mats(t1: int, nb1: int, t2: int, v1: int, device: torch.device):
     return tuple(torch.complex(m[i], m[i + 1]) for i in range(0, len(m), 2))
 
 
+@lru_cache(maxsize=None)
+def _mats_2d_v3(t1: int, nb1: int, t2: int, v1: int, dtype=np.float32):
+    """B5's real factors, the JAX package's ``_mats_2d_v3`` without its
+    NB1P row padding (which only keeps the TPU's 8-row sublanes aligned and
+    multiplies zeros), as ``dtype`` numpy arrays:
+      f2 (2·NB1, T1)     [fr; fi], the one-sided H DFT on stacked rows
+      wr, wi (T2, T2)    the W DFT
+      ur, ui (T2, T2)    the inverse W DFT (1/T2 folded in)
+      cz1 (V1, 2·NB1)    [ cr | ci]: Re of the H inverse on [yr; yi]
+      cz2 (V1, 2·NB1)    [-ci | cr]: Im of the H inverse on [yr; yi]
+    so that the valid rows of a tile are Re((C̄ Y) U) = cz1·Y·ur - cz2·Y·ui,
+    which equals v2's cr·Re(Y U) + ci·Im(Y U): the transforms commute."""
+    fr, fi, wr, wi, ur, ui, cr, ci = _mats_2d(t1, nb1, t2, v1, np.float64)
+    out = (np.concatenate([fr, fi]), wr, wi, ur, ui,
+           np.concatenate([cr, ci], axis=1), np.concatenate([-ci, cr], axis=1))
+    return tuple(np.ascontiguousarray(m, dtype) for m in out)
+
+
+@lru_cache(maxsize=None)
+def _torch_mats_v3(t1: int, nb1: int, t2: int, v1: int, dtype: torch.dtype,
+                   device: torch.device):
+    """``_mats_2d_v3`` as torch tensors of ``dtype`` on ``device``."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    return tuple(torch.from_numpy(m).to(device) for m in _mats_2d_v3(t1, nb1, t2, v1, npdt))
+
+
+@lru_cache(maxsize=None)
+def _device_mats_v3(t1: int, nb1: int, t2: int, v1: int, device: torch.device):
+    """B5's float32 factors on ``device``: f2, wr, wi, u2 = [ur; -ui]
+    (2·T2, T2), so that the W inverse of [zr | zi] is one real product, and
+    cz1, cz2."""
+    f2, wr, wi, ur, ui, cz1, cz2 = _torch_mats_v3(t1, nb1, t2, v1, torch.float32, device)
+    return f2, wr, wi, torch.cat([ur, -ui]).contiguous(), cz1, cz2
+
+
 def kernel_spectra_2d(kernel: torch.Tensor, t1: int, nb1: int, t2: int) -> torch.Tensor:
     """Conjugated spectra of the (Cout, Cin/g, K1, K2) kernel on the tile
     grid, (Cout, Cin/g, NB1, T2) complex on the kernel's device: the kernel's
@@ -180,34 +257,29 @@ def _tiling(plan, hp: int, wp: int, k1: int, k2: int) -> Tuple[int, int, int, in
     return oh, ow, -(-oh // v1), -(-ow // v2)
 
 
-def _fused2d_forward_reference(
-    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1
-) -> torch.Tensor:
-    """The kernel's plain PyTorch version: the same tiled pipeline in split
-    re/im arithmetic, float64 for a float64 signal and float32 otherwise.
-
-    ``x_padded`` (B, Cin, Hp, Wp) already padded, ``kernel`` (Cout, Cin/g,
-    K1, K2) already dilated; returns the valid correlation (B, Cout, OH, OW).
-    """
+def _reference_tiles(x_padded: torch.Tensor, kernel: torch.Tensor):
+    """The shared head of the plain versions: (plan, working dtype, the
+    (B, Cin, nt1, nt2, T1, T2) windows of the zero-extended signal)."""
     dt = torch.float64 if x_padded.dtype == torch.float64 else torch.float32
-    b, cin, hp, wp = x_padded.shape
+    _, _, hp, wp = x_padded.shape
     cout, cpg, k1, k2 = kernel.shape
     plan = tile_plan_2d(k1, k2, cpg, cout)
     if plan is None:
         raise ValueError("no fused 2D configuration fits this shape")
-    t1, v1, nb1, t2, v2 = plan
-    oh, ow, nt1, nt2 = _tiling(plan, hp, wp, k1, k2)
+    t1, v1, _, t2, v2 = plan
+    _, _, nt1, nt2 = _tiling(plan, hp, wp, k1, k2)
     need_h, need_w = (nt1 - 1) * v1 + t1, (nt2 - 1) * v2 + t2
     x = TF.pad(x_padded.to(dt), (0, need_w - wp, 0, need_h - hp))
-    a = x.unfold(2, t1, v1).unfold(3, t2, v2)  # (B, Cin, nt1, nt2, T1, T2)
-    fr, fi, wr, wi, ur, ui, cr, ci = _torch_mats(t1, nb1, t2, v1, dt, x.device)
+    return plan, dt, x.unfold(2, t1, v1).unfold(3, t2, v2)
 
-    # one-sided H DFT, then the full W DFT
-    hr, hi = fr @ a, fi @ a  # (B, Cin, nt1, nt2, NB1, T2)
-    dr = hr @ wr - hi @ wi
-    di = hr @ wi + hi @ wr
 
-    # per-bin complex MAC over each out-channel's group of in-channels
+def _reference_mac(dr, di, kernel, groups, plan, dt):
+    """Per-bin complex MAC over each out-channel's group of in-channels:
+    (yr, yi) of shape (B, Cout, nt1, nt2, NB1, T2) from the tile spectra
+    (B, Cin, nt1, nt2, NB1, T2)."""
+    t1, _, nb1, t2, _ = plan
+    b, _, nt1, nt2 = dr.shape[:4]
+    cout, cpg = kernel.shape[:2]
     ks = kernel_spectra_2d(kernel.to(dt), t1, nb1, t2)
     kr = ks.real.reshape(groups, cout // groups, cpg, nb1, t2)
     ki = ks.imag.reshape(groups, cout // groups, cpg, nb1, t2)
@@ -216,15 +288,67 @@ def _fused2d_forward_reference(
     mac = "bgcijkz,gockz->bgoijkz"
     yr = torch.einsum(mac, dr, kr) - torch.einsum(mac, di, ki)
     yi = torch.einsum(mac, dr, ki) + torch.einsum(mac, di, kr)
-    yr = yr.reshape(b, cout, nt1, nt2, nb1, t2)
-    yi = yi.reshape(b, cout, nt1, nt2, nb1, t2)
+    return yr.reshape(b, cout, nt1, nt2, nb1, t2), yi.reshape(b, cout, nt1, nt2, nb1, t2)
+
+
+def _reference_stitch(out, x_padded, kernel, plan):
+    """(B, Cout, nt1, nt2, V1, T2) tile outputs -> the valid correlation
+    (B, Cout, OH, OW): the V2 valid columns of each tile, side by side."""
+    _, v1, _, _, v2 = plan
+    b, cout, nt1, nt2 = out.shape[:4]
+    oh, ow, _, _ = _tiling(plan, *x_padded.shape[2:], *kernel.shape[2:])
+    out = out[..., :v2].permute(0, 1, 2, 4, 3, 5)
+    return out.reshape(b, cout, nt1 * v1, nt2 * v2)[:, :, :oh, :ow]
+
+
+def _fused2d_forward_reference(
+    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1
+) -> torch.Tensor:
+    """B2's plain PyTorch version: the same tiled pipeline in split re/im
+    arithmetic, float64 for a float64 signal and float32 otherwise.
+
+    ``x_padded`` (B, Cin, Hp, Wp) already padded, ``kernel`` (Cout, Cin/g,
+    K1, K2) already dilated; returns the valid correlation (B, Cout, OH, OW).
+    """
+    plan, dt, a = _reference_tiles(x_padded, kernel)
+    t1, v1, nb1, t2, _ = plan
+    fr, fi, wr, wi, ur, ui, cr, ci = _torch_mats(t1, nb1, t2, v1, dt, a.device)
+
+    # one-sided H DFT, then the full W DFT
+    hr, hi = fr @ a, fi @ a  # (B, Cin, nt1, nt2, NB1, T2)
+    dr = hr @ wr - hi @ wi
+    di = hr @ wi + hi @ wr
+    yr, yi = _reference_mac(dr, di, kernel, groups, plan, dt)
 
     # inverse W DFT, then the H irfft on the V1 valid rows
     er = yr @ ur - yi @ ui
     ei = yr @ ui + yi @ ur
     out = cr @ er + ci @ ei  # (B, Cout, nt1, nt2, V1, T2)
-    out = out[..., :v2].permute(0, 1, 2, 4, 3, 5)
-    return out.reshape(b, cout, nt1 * v1, nt2 * v2)[:, :, :oh, :ow]
+    return _reference_stitch(out, x_padded, kernel, plan)
+
+
+def _fused2d_forward_reference_v3(
+    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1
+) -> torch.Tensor:
+    """B5's plain PyTorch version: the v3 schedule step by step, float64 for
+    a float64 signal and float32 otherwise. One stacked H product gives
+    [hr; hi]; two stacked W products are recombined into dr and di; the MAC
+    is B2's; the inverse runs H first on the stacked [yr; yi] (zr = cz1·Y,
+    zi = cz2·Y), then out = zr·ur - zi·ui on the V2 valid columns.
+    Arguments and result as ``_fused2d_forward_reference``."""
+    plan, dt, a = _reference_tiles(x_padded, kernel)
+    t1, v1, nb1, t2, _ = plan
+    f2, wr, wi, ur, ui, cz1, cz2 = _torch_mats_v3(t1, nb1, t2, v1, dt, a.device)
+
+    b2 = f2 @ a  # (B, Cin, nt1, nt2, 2·NB1, T2): [hr; hi]
+    d1, d2 = b2 @ wr, b2 @ wi  # [hr·wr; hi·wr], [hr·wi; hi·wi]
+    dr = d1[..., :nb1, :] - d2[..., nb1:, :]
+    di = d2[..., :nb1, :] + d1[..., nb1:, :]
+    yr, yi = _reference_mac(dr, di, kernel, groups, plan, dt)
+
+    y2 = torch.cat([yr, yi], dim=-2)  # (B, Cout, nt1, nt2, 2·NB1, T2)
+    zr, zi = cz1 @ y2, cz2 @ y2  # (B, Cout, nt1, nt2, V1, T2)
+    return _reference_stitch(zr @ ur - zi @ ui, x_padded, kernel, plan)
 
 
 def _library() -> ctypes.CDLL:
@@ -237,7 +361,50 @@ def _library() -> ctypes.CDLL:
         lib.fused2d_error_string.restype = ctypes.c_char_p
         lib.fused2d_smem_bytes.argtypes = [i, i]
         lib.fused2d_smem_bytes.restype = ctypes.c_longlong
+        lib.fused2d_v3_forward.argtypes = [p] * 10 + [i] * 15 + [p]
+        lib.fused2d_v3_forward.restype = i
+        lib.fused2d_v3_smem_bytes.argtypes = [i, i]
+        lib.fused2d_v3_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def kernel_spectra_2d_planes(kernel: torch.Tensor, t1: int, nb1: int, t2: int) -> torch.Tensor:
+    """B5's input: ``kernel_spectra_2d`` as split planes (Cout, Cin/g, 2,
+    NB1, T2) of the real and imaginary parts, float32 (float64 for a
+    float64 kernel)."""
+    ks = kernel_spectra_2d(kernel, t1, nb1, t2)
+    return torch.stack([ks.real, ks.imag], dim=2).contiguous()
+
+
+def _check_launch(x_padded, spectra, plan, groups, k, v3):
+    """The checks both launchers share: B2 takes complex64 spectra (Cout,
+    Cin/g, NB1, T2), B5 float32 planes (Cout, Cin/g, 2, NB1, T2). Returns
+    the contiguous signal and spectra, (OH, OW), the tiles across W, the
+    tile count and the tiles per launch."""
+    what = "fused2d_v3" if v3 else "fused2d"
+    dtype = torch.float32 if v3 else torch.complex64
+    if not (x_padded.is_cuda and spectra.device == x_padded.device):
+        raise ValueError(f"{what} kernel: signal and spectra must be on one CUDA device")
+    if x_padded.dtype != torch.float32 or spectra.dtype != dtype:
+        raise ValueError(f"{what} kernel takes a float32 signal and {dtype} spectra")
+    x_padded = x_padded.contiguous()
+    spectra = spectra.contiguous()
+    b, cin, hp, wp = x_padded.shape
+    cout, cpg = spectra.shape[:2]
+    _, _, nb1, t2, _ = plan
+    tail = ((2,) if v3 else ()) + (nb1, t2)
+    if spectra.shape[2:] != tail or cpg * groups != cin or cout % groups:
+        raise ValueError(f"{what} kernel: spectra {tuple(spectra.shape)} do not fit "
+                         f"the plan {plan}, Cin={cin}, groups={groups}")
+    oh, ow, nt1, nt2 = _tiling(plan, hp, wp, *k)
+    if oh < 1 or ow < 1:
+        raise ValueError(f"{what} kernel: the kernel is larger than the signal")
+    ntiles = nt1 * nt2
+    # tiles per launch: as many as the scratch budget holds (the routing gate,
+    # fused2d_fits, has checked that one tile does)
+    per_tile = _scratch_bytes_per_tile(nb1, t2, b, cin)
+    chunk = max(1, min(ntiles, _SCRATCH_BUDGET // per_tile, _MAX_TILES_PER_LAUNCH))
+    return x_padded, spectra, oh, ow, nt2, ntiles, chunk
 
 
 def _launch_fused2d(
@@ -248,26 +415,11 @@ def _launch_fused2d(
     (K1, K2) kernel, both on one CUDA device, under the tile plan ``plan``.
     Returns the valid correlation (B, Cout, OH, OW)."""
     global launches
-    if not (x_padded.is_cuda and spectra.device == x_padded.device):
-        raise ValueError("fused2d kernel: signal and spectra must be on one CUDA device")
-    if x_padded.dtype != torch.float32 or spectra.dtype != torch.complex64:
-        raise ValueError("fused2d kernel takes a float32 signal and complex64 spectra")
-    x_padded = x_padded.contiguous()
-    spectra = spectra.contiguous()
+    x_padded, spectra, oh, ow, nt2, ntiles, chunk = _check_launch(
+        x_padded, spectra, plan, groups, k, v3=False)
     b, cin, hp, wp = x_padded.shape
-    cout, cpg, nbk, t2k = spectra.shape
+    cout = spectra.shape[0]
     t1, v1, nb1, t2, v2 = plan
-    if nbk != nb1 or t2k != t2 or cpg * groups != cin or cout % groups:
-        raise ValueError(f"fused2d kernel: spectra {tuple(spectra.shape)} do not fit "
-                         f"the plan {plan}, Cin={cin}, groups={groups}")
-    oh, ow, nt1, nt2 = _tiling(plan, hp, wp, *k)
-    if oh < 1 or ow < 1:
-        raise ValueError("fused2d kernel: the kernel is larger than the signal")
-    ntiles = nt1 * nt2
-    # tiles per launch: as many as the scratch budget holds (the routing gate,
-    # fused2d_fits, has checked that one tile does)
-    per_tile = _scratch_bytes_per_tile(nb1, t2, b, cin)
-    chunk = max(1, min(ntiles, _SCRATCH_BUDGET // per_tile, _MAX_TILES_PER_LAUNCH))
 
     lib = _library()
     fh, wf, wb, ch = _device_mats(t1, nb1, t2, v1, x_padded.device)
@@ -289,19 +441,61 @@ def _launch_fused2d(
     return out
 
 
+def _launch_fused2d_v3(
+    x_padded: torch.Tensor, spectra: torch.Tensor, plan, groups: int, k: Tuple[int, int]
+) -> torch.Tensor:
+    """Runs kernel B5 (phase 1 + phase 2) on ``x_padded`` (B, Cin, Hp, Wp)
+    float32 with the split-plane spectra (Cout, Cin/g, 2, NB1, T2) float32
+    of a (K1, K2) kernel (``kernel_spectra_2d_planes``), both on one CUDA
+    device, under the tile plan ``plan``. Returns the valid correlation
+    (B, Cout, OH, OW)."""
+    global launches_v3
+    x_padded, spectra, oh, ow, nt2, ntiles, chunk = _check_launch(
+        x_padded, spectra, plan, groups, k, v3=True)
+    b, cin, hp, wp = x_padded.shape
+    cout = spectra.shape[0]
+    t1, v1, nb1, t2, v2 = plan
+
+    lib = _library()
+    mats = _device_mats_v3(t1, nb1, t2, v1, x_padded.device)
+    out = torch.empty((b, cout, oh, ow), device=x_padded.device, dtype=torch.float32)
+    # the stacked tile spectra [dr; di], as many bytes as B2's complex D
+    d = torch.empty((chunk, b, cin, 2, nb1, t2), device=x_padded.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x_padded.device).cuda_stream
+    with torch.cuda.device(x_padded.device):
+        for tile0 in range(0, ntiles, chunk):
+            err = lib.fused2d_v3_forward(
+                x_padded.data_ptr(), spectra.data_ptr(), *(m.data_ptr() for m in mats),
+                d.data_ptr(), out.data_ptr(),
+                b, cin, cout, groups, hp, wp, t1, t2, v1, v2, nt2,
+                tile0, min(chunk, ntiles - tile0), oh, ow, stream,
+            )
+            if err != 0:
+                msg = lib.fused2d_error_string(err).decode()
+                raise RuntimeError(f"fused2d_v3 kernel launch failed: {msg} (cudaError {err})")
+            launches_v3 += 1
+    return out
+
+
 def _fused2d_forward(x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1):
-    """Valid correlation of ``x_padded`` with ``kernel``: the CUDA kernel for
-    a CUDA tensor, the plain version for a CPU one."""
+    """Valid correlation of ``x_padded`` with ``kernel`` under the schedule
+    that ``set_fused2d_kernel`` chose, read at call time: the CUDA kernel
+    (B2 or B5) for a CUDA tensor, its plain version for a CPU one."""
+    v3 = _KERNEL2D_VERSION == "v3"
     if x_padded.is_cuda:
         cout, cpg, k1, k2 = kernel.shape
         plan = tile_plan_2d(k1, k2, cpg, cout)
         if plan is None:
             raise ValueError("no fused 2D configuration fits this shape")
         t1, _, nb1, t2, _ = plan
+        if v3:
+            spectra = kernel_spectra_2d_planes(kernel, t1, nb1, t2)
+            return _launch_fused2d_v3(x_padded.float(), spectra, plan, groups, (k1, k2))
         spectra = kernel_spectra_2d(kernel, t1, nb1, t2)
         return _launch_fused2d(x_padded.float(), spectra, plan, groups, (k1, k2))
     if x_padded.device.type == "cpu":
-        return _fused2d_forward_reference(x_padded.float(), kernel.float(), groups)
+        reference = _fused2d_forward_reference_v3 if v3 else _fused2d_forward_reference
+        return reference(x_padded.float(), kernel.float(), groups)
     raise ValueError(f"fused2d runs on CUDA or CPU tensors, got {x_padded.device}")
 
 
@@ -393,3 +587,55 @@ def fft_conv2d_fused_if_fits(
     if bias is not None:
         out = out + bias.reshape(1, -1, 1, 1)
     return out.to(signal.dtype)
+
+
+def fft_conv_transpose2d_fused(
+    signal: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding=0,
+    stride=1,
+    dilation=1,
+    groups: int = 1,
+    output_padding=0,
+) -> torch.Tensor:
+    """Fused 2D transposed convolution, ``ops.fft_conv_transpose`` semantics:
+    ``fft_conv2d_fused`` (B2, or B5 under "v3") on the zero-stuffed signal
+    (``F._fused_transpose``), the port of the JAX package's
+    ``fft_conv_transpose2d_fused``. Raises ValueError where no fused
+    configuration fits the stuffed signal."""
+    out = fft_conv_transpose2d_fused_if_fits(
+        signal, kernel, bias, padding, stride, dilation, groups, output_padding
+    )
+    if out is None:
+        raise ValueError(
+            "no fused 2D FFT configuration fits this shape (no tile plan for the "
+            "stuffed signal of the transposed conv, or the spectra, the shared "
+            "memory or the scratch exceed the kernel's budgets); use "
+            "fft_conv_transpose(impl='xla')"
+        )
+    return out
+
+
+def fft_conv_transpose2d_fused_if_fits(
+    signal: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding=0,
+    stride=1,
+    dilation=1,
+    groups: int = 1,
+    output_padding=0,
+) -> Optional[torch.Tensor]:
+    """``fft_conv_transpose2d_fused``, or None when
+    ``fft_conv2d_fused_if_fits`` finds no fit for the stuffed signal; the
+    gate of ``fft_conv_transpose(impl="auto")``."""
+    if signal.ndim != 4 or kernel.ndim != 4:
+        raise ValueError(
+            "fft_conv_transpose2d_fused expects (B, Cin, H, W) and (Cin, Cout/g, K1, K2)"
+        )
+    return F._fused_transpose(
+        signal, kernel, bias, to_ntuple(padding, 2), to_ntuple(stride, 2),
+        to_ntuple(dilation, 2), groups, to_ntuple(output_padding, 2),
+        lambda x, w, g: fft_conv2d_fused_if_fits(x, w, groups=g),
+    )

@@ -665,14 +665,9 @@ def fft_conv_transpose3d_fused(
 ) -> torch.Tensor:
     """Fused 3D transposed convolution, ``ops.fft_conv_transpose`` semantics.
 
-    A transposed convolution is the full correlation of the zero-stuffed
-    signal with the flipped, (Cin, Cout/g)-swapped, dilated kernel
-    (``F._transpose_kernel_layout``), cropped by ``padding`` on each side.
-    One stuffed signal is built per call (left pad K-1, stride-1 zeros
-    between samples, right pad K-1+output_padding) and runs through
-    ``fft_conv3d_fused``. Its volume is wider than 64 at usual shapes (78^3
-    at 64^3, K=8), so the W blocks carry it. As in the JAX package, an
-    output_padding past torch's limit is accepted. Raises ValueError where
+    ``fft_conv3d_fused`` on the zero-stuffed signal
+    (``F._fused_transpose``). Its volume is wider than 64 at usual shapes
+    (78^3 at 64^3, K=8), so the W blocks carry it. Raises ValueError where
     no fused plan fits.
     """
     if signal.ndim != 5 or kernel.ndim != 5:
@@ -680,30 +675,8 @@ def fft_conv_transpose3d_fused(
             "fft_conv_transpose3d_fused expects (B, Cin, D, H, W) and "
             "(Cin, Cout/g, KD, KH, KW)"
         )
-    padding_ = to_ntuple(padding, 3)
-    stride_ = to_ntuple(stride, 3)
-    output_padding_ = to_ntuple(output_padding, 3)
-    cin = kernel.shape[0]
-    if signal.shape[1] != cin:
-        raise ValueError(f"kernel Cin {cin} != signal Cin {signal.shape[1]}")
-    if cin % groups:
-        raise ValueError(f"in_channels {cin} not divisible by groups {groups}")
-    w = F._transpose_kernel_layout(kernel, groups, to_ntuple(dilation, 3))
-    dims = list(zip(signal.shape[2:], w.shape[2:], stride_, padding_, output_padding_))
-    out_shape = tuple((s - 1) * t - 2 * p + k + op for s, k, t, p, op in dims)
-    if any(o < 1 for o in out_shape):
-        raise ValueError(
-            f"non-positive output shape {out_shape} (spatial {tuple(signal.shape[2:])}, "
-            f"kernel {tuple(kernel.shape[2:])}, padding {padding_})"
-        )
-    x = signal.new_zeros(
-        tuple(signal.shape[:2]) + tuple((s - 1) * t + 2 * k - 1 + op for s, k, t, _, op in dims)
+    return F._fused_transpose(
+        signal, kernel, bias, to_ntuple(padding, 3), to_ntuple(stride, 3),
+        to_ntuple(dilation, 3), groups, to_ntuple(output_padding, 3),
+        lambda x, w, g: fft_conv3d_fused(x, w, groups=g),
     )
-    x[(slice(None), slice(None))
-      + tuple(slice(k - 1, k + (s - 1) * t, t) for s, k, t, _, _ in dims)] = signal
-    out = fft_conv3d_fused(x, w, groups=groups)
-    out = out[(slice(None), slice(None))
-              + tuple(slice(p, p + o) for p, o in zip(padding_, out_shape))]
-    if bias is not None:
-        out = out + bias.reshape(1, -1, 1, 1, 1)
-    return out

@@ -10,13 +10,12 @@ Layers are built on the card: ``device=None`` means ``"cuda"``, and the
 constructor raises when there is no CUDA device unless ``device="cpu"`` was
 asked for.
 
-The port provides the 1D, 2D and 3D layers. The transposed layers run the
-composed path (``impl="xla"``) by default. ``FFTConvTranspose3d(impl="fused")``
-runs the fused 3D transposed route (kernels B3 and B4); the fused 1D and 2D
-transposed routes are not ported yet (ROADMAP.md §A), so ``impl="auto"`` on a
-1D or 2D CUDA signal raises for them rather than quietly running something
-else. For the 3D transposed layer the JAX package's "auto" is the composed
-path too.
+The port provides the 1D, 2D and 3D layers. Every layer defaults to
+``impl="auto"``, as the JAX layers do: on a CUDA signal the 1D and 2D layers,
+transposed or not, and ``FFTConv3d`` run their fused kernels where a plan
+fits; ``FFTConvTranspose3d`` runs the composed path, as the JAX package's
+"auto" does, and its fused route (kernels B3 and B4) under
+``impl="fused"``. On a CPU signal "auto" is the composed path.
 """
 
 from typing import Iterable, Optional, Union
@@ -48,7 +47,6 @@ class _FFTConvBase(nn.Module):
 
     ndim: int = 1  # spatial rank; overridden per subclass
     transposed: bool = False
-    default_impl: str = "auto"
 
     def __init__(
         self,
@@ -63,7 +61,7 @@ class _FFTConvBase(nn.Module):
         bias: bool = True,
         padding_mode: str = "zeros",
         *,
-        impl: Optional[str] = None,
+        impl: str = "auto",
         generator: Optional[torch.Generator] = None,
         device=None,
         dtype: torch.dtype = torch.float32,
@@ -84,7 +82,6 @@ class _FFTConvBase(nn.Module):
                 f"padding_mode must be one of {_CONV_PADDING_MODES}, "
                 f"got {padding_mode!r}"
             )
-        impl = self.default_impl if impl is None else impl
         if impl not in IMPLS:
             raise ValueError(f"unknown impl: {impl!r}")
 
@@ -164,7 +161,6 @@ class _FFTConvTransposeForward(_FFTConvBase):
     """Forward via ``fft_conv_transpose``."""
 
     transposed = True
-    default_impl = "xla"  # 1D/2D have no fused route yet; 3D's auto is composed
 
     def forward(self, signal: torch.Tensor) -> torch.Tensor:
         self._check_input(signal)

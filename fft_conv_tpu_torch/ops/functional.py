@@ -13,12 +13,11 @@ Semantics match the reference exactly (cited per step):
 
 Routing (``impl=``) follows the JAX package, with "on a TPU" read as "the
 signal is a CUDA tensor": ``auto`` sends a 1D, 2D or 3D CUDA signal whose
-plan fits to the fused kernel (in 3D a single-W-block plan only).
-``fft_conv_transpose(impl="fused")`` runs the fused 3D transposed path; the
-fused 1D and 2D transposed paths are not ported yet and raise
-``NotImplementedError`` rather than quietly running the composed path
-(``impl="xla"`` asks for that path). bfloat16/float16 inputs are computed in
-float32 and cast back.
+plan fits to the fused kernel (in 3D a single-W-block plan only), and a 1D
+or 2D transposed conv on a CUDA signal to the fused transposed path when
+the stuffed full correlation fits. ``fft_conv_transpose(impl="fused")`` runs
+the fused transposed path in 1D, 2D and 3D. bfloat16/float16 inputs are
+computed in float32 and cast back.
 """
 
 from typing import Iterable, Optional, Union
@@ -146,6 +145,52 @@ def _stuff_signal(signal: torch.Tensor, k_dil, stride_) -> torch.Tensor:
         (slice(None), slice(None))
         + tuple(slice(k - 1, None, t) for k, t in zip(k_dil, stride_))
     ] = signal
+    return out
+
+
+def _fused_transpose(signal, kernel, bias, padding_, stride_, dilation_, groups,
+                     output_padding_, forward):
+    """A transposed convolution through a fused forward: the shared body of
+    ``fft_conv_transpose{1,2,3}d_fused``.
+
+    It is the full correlation of the zero-stuffed signal with the flipped,
+    (Cin, Cout/g)-swapped, dilated kernel (``_transpose_kernel_layout``),
+    cropped by ``padding`` on each side. The stuffed signal is the signal
+    with stride-1 zeros between samples, padded by one ``F.pad`` with K-1
+    on the left and K-1+output_padding on the right. ``forward(x, w,
+    groups)`` is the rank's unit-stride fused forward; where it returns None
+    (no plan fits), so does this. As in the JAX package, an output_padding
+    past torch's limit is accepted.
+    """
+    cin = kernel.shape[0]
+    if signal.shape[1] != cin:
+        raise ValueError(f"kernel Cin {cin} != signal Cin {signal.shape[1]}")
+    if cin % groups:
+        raise ValueError(f"in_channels {cin} not divisible by groups {groups}")
+    w = _transpose_kernel_layout(kernel, groups, dilation_)
+    dims = list(zip(signal.shape[2:], w.shape[2:], stride_, padding_, output_padding_))
+    out_shape = tuple((s - 1) * t - 2 * p + k + op for s, k, t, p, op in dims)
+    if any(o < 1 for o in out_shape):
+        raise ValueError(
+            f"non-positive output shape {out_shape} (spatial {tuple(signal.shape[2:])}, "
+            f"kernel {tuple(kernel.shape[2:])}, padding {padding_})"
+        )
+    x = signal
+    if any(t != 1 for t in stride_):
+        x = signal.new_zeros(
+            tuple(signal.shape[:2]) + tuple((s - 1) * t + 1 for s, _, t, _, _ in dims)
+        )
+        x[(slice(None), slice(None)) + tuple(slice(None, None, t) for t in stride_)] = signal
+    pad = []
+    for _, k, _, _, op in reversed(dims):  # F.pad lists the last dim first
+        pad += [k - 1, k - 1 + op]
+    out = forward(F.pad(x, pad), w, groups)
+    if out is None:
+        return None
+    out = out[(slice(None), slice(None))
+              + tuple(slice(p, p + o) for p, o in zip(padding_, out_shape))]
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * len(out_shape))
     return out
 
 
@@ -332,15 +377,14 @@ def fft_conv_transpose(
       signal: (B, Cin, *spatial); kernel: (Cin, Cout/groups, *k)
       (transposed-conv weight convention); bias: (Cout,) or None.
 
-    ``impl``: "fused" on a 3D signal runs ``fft_conv_transpose3d_fused``
-    (kernel B3 or B4 on a CUDA tensor, their plain versions on a CPU one;
-    ValueError when no plan fits the stuffed volume). The fused 1D and 2D
-    transposed paths are not ported yet, so "fused" raises
-    NotImplementedError for them, and so does "auto" for a 1D or 2D CUDA
-    signal (whose JAX counterpart routes to a fused kernel); "tiled" raises
-    too. Otherwise "auto" runs the composed path, as "xla" does: for a CPU
-    signal, and for a 3D CUDA signal, where the JAX package's "auto" does
-    the same.
+    ``impl``: "fused" runs ``fft_conv_transpose{1,2,3}d_fused``: the fused
+    forward (B1, B2 or B5, B3 or B4 on a CUDA tensor, their plain versions
+    on a CPU one) on the zero-stuffed signal, ValueError when no plan fits
+    it. "auto" on a 1D or 2D CUDA signal runs the same route when the
+    stuffed full correlation fits, and the composed path when it does not;
+    on a CPU signal, and on a 3D CUDA signal, "auto" runs the composed path,
+    as "xla" does and as the JAX package's "auto" does. "tiled" is not
+    ported yet and raises NotImplementedError.
 
     Reference semantics: functional.py:92-176. Kernel flip + group transpose
     turns transposed conv into a regular FFT correlation; signal interior
@@ -373,20 +417,29 @@ def fft_conv_transpose(
         )
     if impl == "fused" and n > 3:
         raise ValueError("impl='fused' requires 1D/2D/3D input")
+    args = (signal, kernel, bias, padding_, stride_, dilation_, groups, output_padding_)
     if n in (1, 2) and (impl == "fused" or (impl == "auto" and signal.is_cuda)):
-        raise NotImplementedError(
-            f"the fused {n}D transposed-conv path is not ported yet (ROADMAP "
-            f"§A); pass impl='xla' for the composed path"
-        )
-    if impl == "fused":
+        if n == 1:
+            from ..kernels.fused1d import (
+                fft_conv_transpose1d_fused as fused,
+                fft_conv_transpose1d_fused_if_fits as fused_if_fits,
+            )
+        else:
+            from ..kernels.fused2d import (
+                fft_conv_transpose2d_fused as fused,
+                fft_conv_transpose2d_fused_if_fits as fused_if_fits,
+            )
+        if impl == "fused":
+            return fused(*args)  # raises when no plan fits the stuffed signal
+        out = fused_if_fits(*args)
+        if out is not None:
+            return out
+    elif impl == "fused":
         from ..kernels.fused3d import fft_conv_transpose3d_fused
 
         # the plan of the stuffed volume is checked where the forward is
         # (fft_conv3d_fused_if_fits); no plan raises ValueError there
-        return fft_conv_transpose3d_fused(
-            signal, kernel, bias, padding=padding_, stride=stride_,
-            dilation=dilation_, groups=groups, output_padding=output_padding_,
-        )
+        return fft_conv_transpose3d_fused(*args)
 
     return _fft_conv_transpose(
         signal, kernel, bias, stride_, padding_, output_padding_, dilation_,

@@ -1,5 +1,5 @@
-"""The port on a CUDA card: the fused 1D, 2D and 3D kernels (B1, B2, B3 and
-B4) against their plain versions, and the routes that only a CUDA tensor
+"""The port on a CUDA card: the fused 1D, 2D and 3D kernels (B1, B2, B5, B3
+and B4) against their plain versions, and the routes that only a CUDA tensor
 takes.
 
 Every test here is marked ``cuda`` and skips without a card. The file imports
@@ -80,6 +80,8 @@ def test_fused_gradients_on_cuda_match_composed(cuda):
 
 
 def test_auto_on_cuda_raises_for_unported_fused_routes(cuda):
+    """Every fused route under ``auto`` on a CUDA signal launches its kernel,
+    the 1D and 2D transposed routes included; nothing raises."""
     before = fused2d.launches
     y = ft.fft_conv(torch.zeros(1, 2, 8, 8, device=cuda), torch.zeros(2, 2, 3, 3, device=cuda))
     assert y.shape == (1, 2, 6, 6) and fused2d.launches == before + 1
@@ -94,12 +96,42 @@ def test_auto_on_cuda_raises_for_unported_fused_routes(cuda):
     assert (fused3d.launches, fused3d.launches_tap) == (before[0], before[1] + 1)
     assert y.shape == (1, 2, 20, 14, 10)
     assert torch.allclose(y, torch.full_like(y, 2 * 11 * 3 * 3), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.fft_conv_transpose(torch.zeros(1, 2, 20, device=cuda),
-                              torch.zeros(2, 2, 3, device=cuda))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.fft_conv_transpose(torch.zeros(1, 2, 20, 20, device=cuda),
-                              torch.zeros(2, 2, 3, 3, device=cuda))
+    # the transposed routes: B1 in 1D, B2 in 2D
+    before = fused1d.launches
+    y = ft.fft_conv_transpose(torch.ones(1, 2, 20, device=cuda), torch.ones(2, 2, 3, device=cuda))
+    assert y.shape == (1, 2, 22) and fused1d.launches == before + 1
+    assert torch.allclose(y[:, :, 2:-2], torch.full_like(y[:, :, 2:-2], 2 * 3), rtol=1e-5)
+    before = fused2d.launches
+    y = ft.fft_conv_transpose(torch.ones(1, 2, 20, 20, device=cuda),
+                              torch.ones(2, 2, 3, 3, device=cuda))
+    assert y.shape == (1, 2, 22, 22) and fused2d.launches == before + 1
+    assert torch.allclose(y[:, :, 2:-2, 2:-2], torch.full_like(y[:, :, 2:-2, 2:-2], 2 * 9),
+                          rtol=1e-5)
+
+
+@pytest.mark.parametrize("k,st,pad,op,dil,groups", [
+    (5, 1, 0, 0, 1, 1), (7, 2, 1, 1, 2, 2), (4, 3, 2, 3, 1, 1),
+])
+def test_1d_2d_transpose_fused_on_cuda(cuda, k, st, pad, op, dil, groups):
+    """fft_conv_transpose(impl="auto") on a CUDA signal launches B1 in 1D and
+    B2 in 2D, and agrees with the composed path; so do the layers' default."""
+    for n, (kern_mod, shape) in enumerate([(fused1d, (2, 4, 3000)), (fused2d, (2, 4, 60, 50))]):
+        nd = n + 1
+        x, w, b = _tensors(cuda, 30 + k + nd, shape, (4, 6 // groups) + (k,) * nd, (6,))
+        kw = dict(stride=st, padding=pad, output_padding=op, dilation=dil, groups=groups)
+        before = kern_mod.launches
+        y = ft.fft_conv_transpose(x, w, b, **kw)
+        assert kern_mod.launches == before + 1
+        y_ref = ft.fft_conv_transpose(x, w, b, impl="xla", **kw)
+        _assert_close_scaled(y.cpu().numpy(), y_ref.cpu().numpy())
+        layer = (ft.FFTConvTranspose1d, ft.FFTConvTranspose2d)[n](4, 6, k, **kw)
+        assert layer.impl == "auto"
+        with torch.no_grad():
+            layer.weight.copy_(w)
+            layer.bias.copy_(b)
+            y = layer(x)
+        assert kern_mod.launches == before + 2
+        _assert_close_scaled(y.cpu().numpy(), y_ref.cpu().numpy())
 
 
 # (B, Cin, Cout, H, W, K1, K2, groups): T2 = 128 with partial last tiles and
@@ -147,6 +179,78 @@ def test_2d_kernel_in_tile_ranges(cuda, monkeypatch):
     _assert_close_scaled(y.cpu().numpy(), y_ref.numpy())
 
 
+@pytest.fixture
+def v3():
+    """Kernel B5 for the test's duration."""
+    was = fused2d._KERNEL2D_VERSION
+    fused2d.set_fused2d_kernel("v3")
+    yield
+    fused2d.set_fused2d_kernel(was)
+
+
+# B2's cases and a T1 = 384 plan (K1 = 200)
+FUSED2D_V3 = FUSED2D + [(1, 2, 2, 400, 150, 200, 9, 1)]
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w,k1,k2,groups", FUSED2D_V3)
+def test_2d_v3_kernel_matches_plain_version(cuda, b, cin, cout, h, w, k1, k2, groups):
+    x, k = _tensors(cuda, h + k2 + 1, (b, cin, h, w), (cout, cin // groups, k1, k2))
+    k /= (cin // groups * k1 * k2) ** 0.5
+    plan = fused2d.tile_plan_2d(k1, k2, cin // groups, cout)
+    spectra = fused2d.kernel_spectra_2d_planes(k, plan[0], plan[2], plan[3])
+    before = fused2d.launches, fused2d.launches_v3
+    y = fused2d._launch_fused2d_v3(x, spectra, plan, groups, (k1, k2))
+    torch.cuda.synchronize()
+    assert (fused2d.launches, fused2d.launches_v3) == (before[0], before[1] + 1)
+    y_ref = fused2d._fused2d_forward_reference_v3(x.cpu(), k.cpu(), groups)
+    _assert_close_scaled(y.cpu().numpy(), y_ref.numpy())
+
+
+@pytest.mark.parametrize("t1", [128, 256, 384])
+@pytest.mark.parametrize("t2", [128, 256])
+def test_2d_v3_smem_formula_matches_kernel(cuda, t1, t2):
+    """B5's shared-memory figure in the host is the kernel's own."""
+    lib = fused2d._library()
+    assert fused2d._smem_bytes_v3(t1 // 2 + 1, t2) == lib.fused2d_v3_smem_bytes(t1, t2)
+
+
+def test_2d_v3_kernel_in_tile_ranges(cuda, monkeypatch):
+    x, k = _tensors(cuda, 5, (2, 4, 400, 300), (4, 4, 16, 16))
+    plan = fused2d.tile_plan_2d(16, 16, 4, 4)
+    monkeypatch.setattr(fused2d, "_SCRATCH_BUDGET",
+                        2 * fused2d._scratch_bytes_per_tile(plan[2], plan[3], 2, 4))
+    spectra = fused2d.kernel_spectra_2d_planes(k, plan[0], plan[2], plan[3])
+    before = fused2d.launches_v3
+    y = fused2d._launch_fused2d_v3(x, spectra, plan, 1, (16, 16))
+    assert fused2d.launches_v3 - before > 1
+    y_ref = fused2d._fused2d_forward_reference_v3(x.cpu(), k.cpu())
+    _assert_close_scaled(y.cpu().numpy(), y_ref.numpy())
+
+
+def test_auto_under_v3_routes_2d_cuda_to_b5(cuda, v3):
+    x, w, b = _tensors(cuda, 24, (2, 4, 160, 150), (6, 2, 9, 7), (6,))
+    kw = dict(padding=3, stride=(2, 3), dilation=2, groups=2, padding_mode="circular")
+    before = fused2d.launches, fused2d.launches_v3
+    y = ft.fft_conv(x, w, b, impl="auto", **kw)
+    assert (fused2d.launches, fused2d.launches_v3) == (before[0], before[1] + 1)
+    _assert_close_scaled(y.cpu().numpy(), ft.fft_conv(x, w, b, impl="xla", **kw).cpu().numpy())
+    # the transposed route and a layer's forward and backward
+    wt = _tensors(cuda, 25, (4, 3, 5, 6))[0]
+    y = ft.fft_conv_transpose(x, wt, stride=2, padding=1)
+    assert (fused2d.launches, fused2d.launches_v3) == (before[0], before[1] + 2)
+    _assert_close_scaled(y.cpu().numpy(), ft.fft_conv_transpose(
+        x, wt, stride=2, padding=1, impl="xla").cpu().numpy())
+    layer = ft.FFTConv2d(4, 4, 11, padding=2, generator=torch.Generator().manual_seed(2))
+    xg = x.clone().requires_grad_()
+    (layer(xg) ** 2).mean().backward()
+    assert (fused2d.launches, fused2d.launches_v3) == (before[0], before[1] + 3)
+    gx, gw = xg.grad.clone(), layer.weight.grad.clone()
+    xg.grad = layer.weight.grad = None
+    (ft.fft_conv(xg, layer.weight, layer.bias, padding=2, impl="xla") ** 2).mean().backward()
+    _assert_close_scaled(gx.cpu().numpy(), xg.grad.cpu().numpy())
+    _assert_close_scaled(gw.cpu().numpy(), layer.weight.grad.cpu().numpy())
+
+
 def test_auto_routes_2d_cuda_to_the_kernel(cuda):
     x, w, b = _tensors(cuda, 14, (2, 4, 160, 150), (6, 2, 9, 7), (6,))
     kw = dict(padding=3, stride=(2, 3), dilation=2, groups=2, padding_mode="circular")
@@ -179,7 +283,9 @@ def test_2d_layer_on_cuda_launches_the_kernel(cuda):
     y_ref = ft.fft_conv(x, layer.weight, layer.bias, padding=1, impl="xla")
     _assert_close_scaled(y.detach().cpu().numpy(), y_ref.detach().cpu().numpy())
     transposed = ft.FFTConvTranspose2d(4, 4, 5)
-    assert transposed.impl == "xla" and transposed(x).shape == (2, 4, 204, 184)
+    before = fused2d.launches
+    assert transposed.impl == "auto" and transposed(x).shape == (2, 4, 204, 184)
+    assert fused2d.launches == before + 1
 
 
 def test_layer_on_cuda_launches_the_kernel(cuda):
@@ -192,7 +298,8 @@ def test_layer_on_cuda_launches_the_kernel(cuda):
     y_ref = ft.fft_conv(x, layer.weight, layer.bias, impl="xla")
     _assert_close_scaled(y.detach().cpu().numpy(), y_ref.detach().cpu().numpy())
     transposed = ft.FFTConvTranspose1d(4, 4, 16)
-    assert transposed(x).shape == (2, 4, 5015)
+    before = fused1d.launches
+    assert transposed(x).shape == (2, 4, 5015) and fused1d.launches == before + 1
 
 
 # (B, Cin, Cout, D, H, W, KD, KH, KW, groups): the benchmark row (SB = 4 slabs
@@ -280,8 +387,10 @@ def test_3d_layer_on_cuda_launches_the_kernel(cuda):
     assert fused3d.launches == before + 1
     y_ref = ft.fft_conv(x, layer.weight, layer.bias, padding=1, impl="xla")
     _assert_close_scaled(y.detach().cpu().numpy(), y_ref.detach().cpu().numpy())
-    transposed = ft.FFTConvTranspose3d(4, 4, 3)
-    assert transposed.impl == "xla" and transposed(x).shape == (2, 4, 22, 26, 24)
+    transposed = ft.FFTConvTranspose3d(4, 4, 3)  # 3D "auto" is the composed path
+    before = fused3d.launches, fused3d.launches_tap
+    assert transposed.impl == "auto" and transposed(x).shape == (2, 4, 22, 26, 24)
+    assert (fused3d.launches, fused3d.launches_tap) == before
 
 
 # (B, Cin, Cout, D, H, W, KD, KH, KW, groups): the B4 row (64^3, K=10, 4

@@ -182,25 +182,33 @@ def test_tiled_is_not_ported(fn):
 
 @pytest.mark.parametrize("ndim", [2, 3])
 def test_fused_2d_3d_raise_not_implemented(ndim):
-    """What is not ported yet raises: the fused 2D transposed route. The
-    fused 2D and 3D forward routes run (B2's, B3's and B4's plain versions on
-    a CPU tensor), and so does the fused 3D transposed route."""
+    """Nothing of the fused 2D and 3D routes raises NotImplementedError any
+    more: the forward routes and the transposed routes run (B2's, B3's and
+    B4's plain versions on a CPU tensor)."""
     x = torch.zeros((1, 2) + (8,) * ndim)
     w = torch.zeros((2, 2) + (3,) * ndim)
     assert ft.fft_conv(x, w, impl="fused").shape == (1, 2) + (6,) * ndim
-    if ndim == 2:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ft.fft_conv_transpose(x, w, impl="fused")
-        return
     assert ft.fft_conv_transpose(x, w, impl="fused").shape == (1, 2) + (10,) * ndim
+    if ndim == 2:
+        return
     y = ft.fft_conv(torch.ones(1, 2, 12, 8, 8), torch.ones(2, 2, 11, 3, 3), impl="fused")
     assert y.shape == (1, 2, 2, 6, 6)
     assert torch.allclose(y, torch.full_like(y, 2 * 11 * 3 * 3), rtol=1e-5)
 
 
 def test_fused_transpose_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.fft_conv_transpose(torch.zeros(1, 2, 20), torch.zeros(2, 2, 3), impl="fused")
+    """The fused 1D transposed route runs on a CPU tensor (B1's plain
+    version on the stuffed signal); where no FFT size fits the stuffed
+    signal it raises ValueError, as the forward does, and only
+    impl="tiled" is still NotImplementedError."""
+    x, w = torch.ones(1, 2, 20), torch.ones(2, 2, 3)
+    y = ft.fft_conv_transpose(x, w, impl="fused")
+    assert y.shape == (1, 2, 22)
+    assert torch.allclose(y[:, :, 2:-2], torch.full_like(y[:, :, 2:-2], 6.0), rtol=1e-5)
+    with pytest.raises(ValueError, match="no fused FFT configuration"):
+        ft.fft_conv_transpose(torch.zeros(1, 1, 10), torch.zeros(1, 1, 8100), impl="fused")
+    with pytest.raises(NotImplementedError, match=r"§A\.10"):
+        ft.fft_conv_transpose(x, w, impl="tiled")
 
 
 def test_fused_without_a_plan_raises_like_jax():

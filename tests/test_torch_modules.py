@@ -154,6 +154,30 @@ def test_3d_transpose_layer_fused_matches_jax(kernel_size, stride, padding, outp
     _assert_close_scaled(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
 
 
+@pytest.mark.parametrize("cls,kernel_size,stride,padding,output_padding,dilation,groups", [
+    ("FFTConvTranspose1d", 9, 3, 2, 1, 2, 2),
+    ("FFTConvTranspose1d", 40, 2, 0, 3, 1, 1),
+    ("FFTConvTranspose2d", (5, 3), 2, 1, 1, 2, 2),
+    ("FFTConvTranspose2d", (7, 4), (3, 1), (2, 0), (0, 1), 1, 1),
+])
+def test_1d_2d_transpose_layer_fused_matches_jax(cls, kernel_size, stride, padding,
+                                                 output_padding, dilation, groups):
+    """FFTConvTranspose1d/2d(impl="fused") on both sides: B1's and B2's plain
+    versions on the stuffed signal here, the Pallas kernels in interpret mode
+    there."""
+    jax_layer, torch_layer = _pair(
+        cls, 4, 6, kernel_size, stride=stride, padding=padding,
+        output_padding=output_padding, dilation=dilation, groups=groups, impl="fused",
+    )
+    shape = (2, 4, 300) if cls.endswith("1d") else (2, 4, 23, 19)
+    x = np.random.default_rng(12).standard_normal(shape).astype(np.float32)
+    before = fused1d.launches, fused2d.launches, fused2d.launches_v3
+    with torch.no_grad():
+        y = torch_layer(torch.from_numpy(x))
+    assert (fused1d.launches, fused2d.launches, fused2d.launches_v3) == before
+    _assert_close_scaled(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
+
+
 @pytest.mark.parametrize("cls", ["FFTConv3d", "FFTConvTranspose3d"])
 def test_3d_state_dict_matches_jax(cls):
     jax_layer, torch_layer = _pair(cls, 4, 6, (3, 2, 5), groups=2, impl="xla")
@@ -189,13 +213,25 @@ def test_conv_layer_padding_modes_match_jax(padding_mode):
 
 
 def test_transpose_layer_runs_the_composed_path_by_default():
-    layer = ft.FFTConvTranspose1d(2, 3, 4, device="cpu")
-    assert layer.impl == "xla"
-    assert ft.FFTConv1d(2, 3, 4, device="cpu").impl == "auto"
-    assert ft.FFTConvTranspose2d(2, 3, 4, device="cpu").impl == "xla"
-    assert ft.FFTConv2d(2, 3, 4, device="cpu").impl == "auto"
-    assert ft.FFTConvTranspose3d(2, 3, 4, device="cpu").impl == "xla"
-    assert ft.FFTConv3d(2, 3, 4, device="cpu").impl == "auto"
+    """Every layer defaults to impl="auto", as the JAX layers do; on a CPU
+    signal "auto" is the composed path, so a transposed layer's default
+    forward there equals impl="xla" bit for bit and launches nothing."""
+    for cls in ("FFTConv1d", "FFTConvTranspose1d", "FFTConv2d", "FFTConvTranspose2d",
+                "FFTConv3d", "FFTConvTranspose3d"):
+        assert getattr(ft.nn, cls)(2, 3, 4, device="cpu").impl == "auto"
+        assert getattr(fc.nn, cls)(2, 3, 4).impl == "auto"
+    layer = ft.FFTConvTranspose1d(2, 3, 4, stride=2, device="cpu")
+    layer2 = ft.FFTConvTranspose2d(2, 3, 4, stride=2, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal((2, 2, 30)).astype(np.float32))
+    before = fused1d.launches, fused2d.launches, fused2d.launches_v3
+    with torch.no_grad():
+        y = layer(x)
+        y2 = layer2(x.reshape(2, 2, 5, 6))
+        assert torch.equal(y, ft.fft_conv_transpose(x, layer.weight, layer.bias, stride=2,
+                                                    impl="xla"))
+        assert torch.equal(y2, ft.fft_conv_transpose(x.reshape(2, 2, 5, 6), layer2.weight,
+                                                     layer2.bias, stride=2, impl="xla"))
+    assert (fused1d.launches, fused2d.launches, fused2d.launches_v3) == before
 
 
 @pytest.mark.parametrize("cls,shape,fan_in", [
