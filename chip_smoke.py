@@ -12,10 +12,13 @@ float32, bias, inputs from a torch.Generator seeded with 0: 1D at L=32768
 with K in {256, 1024, 3840}, 2D at 512 x 512 with K in {16, 34}, 3D at 64^3
 with K=8, forward and transposed) and at 64^3 with K=10 (the 3D tap kernel
 B4, and its transposed call); the 2D rows run once more under
-``set_fused2d_kernel("v3")`` (kernel B5). It shows through the launch
-counters that each path ran its kernels, and times each kernel beside its
-plain version, the composed path, one library call and the least time the
-card could take.
+``set_fused2d_kernel("v3")`` (kernel B5), the 3D row's paths under
+``set_fused3d_xpack("pk")`` (the x-pack kernel B6 ahead of B3), and every
+row through a serving plan (``ops.plan_fft_conv``,
+``ops.plan_fft_conv_transpose``) with its kernel spectra baked. It shows
+through the launch counters that each path ran its kernels, and times each
+kernel beside its plain version, the composed path, one library call and the
+least time the card could take.
 
 Every phase prints one line; any failed check raises and the script exits
 non-zero without a result. The last line is
@@ -23,6 +26,7 @@ non-zero without a result. The last line is
 It imports nothing of JAX: the port stands alone.
 """
 
+import functools
 import json
 import os
 import statistics
@@ -410,6 +414,7 @@ def time_2d(torch, inputs, errs, per_row):
 
     from fft_conv_tpu_torch import fft_conv
     from fft_conv_tpu_torch.kernels import fused2d
+    from fft_conv_tpu_torch.ops import plan_fft_conv
 
     rows = []
     for (b, cin, cout, h, w, k), (x, wt, _, plan), err, nl in zip(
@@ -417,6 +422,7 @@ def time_2d(torch, inputs, errs, per_row):
     ):
         t1, _, nb1, t2, _ = plan
         spectra = fused2d.kernel_spectra_2d(wt, t1, nb1, t2)
+        planned = plan_fft_conv(wt, signal_spatial=(h, w))
 
         def kernel():
             return fused2d._launch_fused2d(x, spectra, plan, 1, (k, k))
@@ -436,6 +442,8 @@ def time_2d(torch, inputs, errs, per_row):
             "spectra_ms": device_ms(lambda: fused2d.kernel_spectra_2d(wt, t1, nb1, t2)),
             "auto_ms": device_ms(auto),
             "auto_call_ms": call_ms(auto),
+            "plan_ms": device_ms(lambda: planned(x)),
+            "plan_call_ms": call_ms(lambda: planned(x)),
             "composed_ms": device_ms(composed),
             "composed_call_ms": call_ms(composed),
             "plain_ms": call_ms(lambda: fused2d._fused2d_forward_reference(x, wt)),
@@ -626,6 +634,7 @@ def time_2d_v3(torch, inputs, errs, per_row):
 
     from fft_conv_tpu_torch import fft_conv
     from fft_conv_tpu_torch.kernels import fused2d
+    from fft_conv_tpu_torch.ops import plan_fft_conv
 
     rows = []
     for (b, cin, cout, h, w, k), (x, wt, _, plan), err, nl in zip(
@@ -633,6 +642,7 @@ def time_2d_v3(torch, inputs, errs, per_row):
     ):
         t1, _, nb1, t2, _ = plan
         spectra = fused2d.kernel_spectra_2d_planes(wt, t1, nb1, t2)
+        planned = plan_fft_conv(wt, signal_spatial=(h, w))
 
         def kernel():
             return fused2d._launch_fused2d_v3(x, spectra, plan, 1, (k, k))
@@ -663,6 +673,8 @@ def time_2d_v3(torch, inputs, errs, per_row):
         try:
             row["auto_ms"] = device_ms(auto)
             row["auto_call_ms"] = call_ms(auto)
+            row["plan_ms"] = device_ms(lambda: planned(x))
+            row["plan_call_ms"] = call_ms(lambda: planned(x))
         finally:
             fused2d.set_fused2d_kernel("v2")
         row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
@@ -679,6 +691,7 @@ def time_transposed_1d_2d(torch, inputs1d, inputs2d):
     against the composed path's."""
     from fft_conv_tpu_torch import fft_conv_transpose
     from fft_conv_tpu_torch.kernels import fused2d
+    from fft_conv_tpu_torch.ops import plan_fft_conv_transpose
 
     for x, wt, bias, _ in list(inputs1d) + list(inputs2d):
         def fused():
@@ -687,10 +700,14 @@ def time_transposed_1d_2d(torch, inputs1d, inputs2d):
         def composed():
             return fft_conv_transpose(x, wt, bias, impl="xla")
 
+        planned = plan_fft_conv_transpose(wt, bias, signal_spatial=x.shape[2:],
+                                          max_batch=x.shape[0])
         row = {
             "shape": list(x.shape), "K": wt.shape[-1],
             "fused_ms": device_ms(fused),
             "fused_call_ms": call_ms(fused),
+            "plan_ms": device_ms(lambda: planned(x)),
+            "plan_call_ms": call_ms(lambda: planned(x)),
             "composed_ms": device_ms(composed),
             "composed_call_ms": call_ms(composed),
         }
@@ -860,12 +877,14 @@ def time_3d(torch, inputs, errs, per_row):
 
     from fft_conv_tpu_torch import fft_conv
     from fft_conv_tpu_torch.kernels import fused3d
+    from fft_conv_tpu_torch.ops import plan_fft_conv
 
     rows = []
     for (b, cin, cout, d, h, w, k), (x, wt, _, plan), err, nl in zip(
         BENCH_SHAPES_3D, inputs, errs, per_row
     ):
         spectra = fused3d.kernel_spectra_3d(wt, h)
+        planned = plan_fft_conv(wt, signal_spatial=(d, h, w))
 
         def kernel():
             return fused3d._launch_fused3d(x, spectra, 1, (k, k, k))
@@ -885,6 +904,8 @@ def time_3d(torch, inputs, errs, per_row):
             "spectra_ms": device_ms(lambda: fused3d.kernel_spectra_3d(wt, h)),
             "auto_ms": device_ms(auto),
             "auto_call_ms": call_ms(auto),
+            "plan_ms": device_ms(lambda: planned(x)),
+            "plan_call_ms": call_ms(lambda: planned(x)),
             "composed_ms": device_ms(composed),
             "composed_call_ms": call_ms(composed),
             "plain_ms": call_ms(lambda: fused3d._fused3d_forward_reference(x, wt)),
@@ -894,6 +915,15 @@ def time_3d(torch, inputs, errs, per_row):
             # B3's four kernels, one by one (device time per call)
             "phase_ms": phase_split_ms(torch, kernel, "fused3d_"),
         }
+        # the same calls with B6 packing the signal ahead of B3
+        fused3d.set_fused3d_xpack("pk")
+        try:
+            row["auto_pk_ms"] = device_ms(auto)
+            row["auto_pk_call_ms"] = call_ms(auto)
+            row["plan_pk_ms"] = device_ms(lambda: planned(x))
+            row["phase_pk_ms"] = phase_split_ms(torch, auto, "fused3d_")
+        finally:
+            fused3d.set_fused3d_xpack("h2")
         row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
         rows.append(row)
         print(json.dumps({"phase": "timing", "kernel": "B3", **row}))
@@ -1074,12 +1104,14 @@ def time_3d_tap(torch, inputs, errs, per_row):
 
     from fft_conv_tpu_torch import fft_conv
     from fft_conv_tpu_torch.kernels import fused3d
+    from fft_conv_tpu_torch.ops import plan_fft_conv
 
     rows = []
     for (b, cin, cout, d, h, w, k), (x, wt, _, plan), err, nl in zip(
         BENCH_SHAPES_3D_TAP, inputs, errs, per_row
     ):
         spectra = fused3d.kernel_spectra_tap(wt, h)
+        planned = plan_fft_conv(wt, signal_spatial=(d, h, w))
 
         def kernel():
             return fused3d._launch_fused3d_tap(x, spectra, 1, (k, k, k))
@@ -1099,6 +1131,8 @@ def time_3d_tap(torch, inputs, errs, per_row):
             "spectra_ms": device_ms(lambda: fused3d.kernel_spectra_tap(wt, h)),
             "auto_ms": device_ms(auto),
             "auto_call_ms": call_ms(auto),
+            "plan_ms": device_ms(lambda: planned(x)),
+            "plan_call_ms": call_ms(lambda: planned(x)),
             "composed_ms": device_ms(composed),
             "composed_call_ms": call_ms(composed),
             "plain_ms": call_ms(lambda: fused3d._fused3d_tap_reference(x, wt)),
@@ -1121,6 +1155,7 @@ def time_transposed_3d(torch, x, t_inputs):
     import torch.nn.functional as TF
 
     from fft_conv_tpu_torch import fft_conv_transpose
+    from fft_conv_tpu_torch.ops import plan_fft_conv_transpose
 
     for k, wt, bias, plan, nwb in t_inputs:
         def fused():
@@ -1129,10 +1164,14 @@ def time_transposed_3d(torch, x, t_inputs):
         def composed():
             return fft_conv_transpose(x, wt, bias, impl="xla")
 
+        # the 3D transposed plan is the torch.fft tier, as auto is composed here
+        planned = plan_fft_conv_transpose(wt, bias, signal_spatial=x.shape[2:])
         row = {
             "K": k, "plan": list(plan), "w_blocks": nwb,
             "fused_ms": device_ms(fused),
             "fused_call_ms": call_ms(fused),
+            "plan_ms": device_ms(lambda: planned(x)),
+            "plan_call_ms": call_ms(lambda: planned(x)),
             "composed_ms": device_ms(composed),
             "composed_call_ms": call_ms(composed),
             "library_ms": device_ms(lambda: TF.conv_transpose3d(x, wt, bias)),
@@ -1145,18 +1184,303 @@ def time_transposed_3d(torch, x, t_inputs):
         torch.cuda.synchronize()
 
 
+def pack3d_bytes(b, cin, d, h, w, pp, nwb):
+    """Bytes kernel B6 must move for one call: the signal (B, Cin, D, H, W)
+    read once and xp (B * nwb, H, Cin * PP, 128) written once. It does no
+    arithmetic, so bytes bound it."""
+    return 4 * b * cin * d * h * w + 4 * b * nwb * h * cin * pp * 128
+
+
+def check_pack3d(torch, dev, gen, inputs3d):
+    """B6 against its plain version, required equal, into an output filled
+    with NaN first so that an unwritten element shows: at the 3D row (PP =
+    40 pads D from 64 to 80), at the stuffed 78^3 volume of the transposed
+    call at K=8 (two W blocks, the clamped last one off 16 B alignment), with
+    groups=2 and at W < 64. At each, B3 reading the packed layout is held to
+    B3's direct read (the same values in the same order, so expected bit for
+    bit) and to the plain version. Returns the timing cases and B6's max abs
+    errors."""
+    import torch.nn.functional as TF
+
+    from fft_conv_tpu_torch.kernels import fused3d
+
+    x0, wt, _, _ = inputs3d[0]
+    cases = [
+        ("64^3 K=8", x0, wt, 1),
+        ("stuffed 78^3, K=8, 2 W blocks", TF.pad(x0, (7,) * 6), wt, 1),
+        ("64^3 K=8 groups=2", x0, wt[:, :4].contiguous(), 2),
+        ("D, H, W = 41, 37, 45, K = (9, 5, 7)",
+         torch.randn(2, 8, 41, 37, 45, generator=gen).to(dev),
+         (torch.randn(8, 8, 9, 5, 7, generator=gen) / 50.0).to(dev), 1),
+    ]
+    timed, errs = [], []
+    for what, x, k, groups in cases:
+        b, cin, d, h, w = x.shape
+        kk = tuple(k.shape[2:])
+        plan, nwb, hop = fused3d.plan_3d_blocked(cin, k.shape[0], d, h, w, *kk, groups)
+        check(plan[0] == "v4", f"B6 {what}: plan {plan}")
+        pp = plan[3]
+        out = torch.full((b * nwb, h, cin * pp, 128), float("nan"), device=dev)
+        before = fused3d.launches_pack
+        xp = fused3d._launch_pack3d(x, pp, nwb, hop, out=out)
+        torch.cuda.synchronize()
+        check(fused3d.launches_pack == before + 1, f"B6 {what}: not one launch")
+        check(bool(xp.isfinite().all()), f"B6 {what}: an element of xp was not written")
+        ref = fused3d._pack3d_reference(x, pp, nwb, hop)
+        err = float((xp - ref).abs().max())
+        check(torch.equal(xp, ref), f"B6 {what}: differs from its plain version by {err}")
+        errs.append(err)
+
+        spectra = fused3d.kernel_spectra_3d(k, h)
+        direct = fused3d._launch_fused3d(x, spectra, groups, kk)
+        packed = fused3d._launch_fused3d(x, spectra, groups, kk, packed=True)
+        torch.cuda.synchronize()
+        diff = float((packed - direct).abs().max())
+        close_scaled(packed, direct, f"B3 'pk' vs direct, {what}")
+        mx, mean, sigma = close_scaled(
+            packed, fused3d._fused3d_forward_reference(x, k, groups, packed=True),
+            f"B3 'pk' vs plain, {what}")
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B6", "case": what,
+                          "plan": list(plan), "w_blocks": nwb, "xp_shape": list(xp.shape),
+                          "exact": True, "max_abs_err": err,
+                          "B3_pk_bit_equal_to_direct": torch.equal(packed, direct),
+                          "B3_pk_max_abs_diff_to_direct": diff,
+                          "B3_pk_max_abs_err_vs_plain": mx, "mean_abs_err": mean,
+                          "sigma": sigma}))
+        if groups == 1 and what != cases[-1][0]:
+            timed.append((what, x, pp, nwb, hop))
+    torch.cuda.synchronize()
+    return timed, errs
+
+
+def main_path_pk(torch, inputs3d):
+    """Under set_fused3d_xpack("pk"), counted from zero: fft_conv(impl=
+    "auto") at the 3D row, FFTConv3d(8, 8, 8) forward and backward,
+    fft_conv_transpose(impl="fused") at 64^3 K=8 (a 'v4' plan of the stuffed
+    78^3 volume in two W blocks) and the 3D row's serving plan each launch B6
+    once and B3 once, B4 never; each is held to impl="xla". Returns B6's
+    launches."""
+    from fft_conv_tpu_torch import FFTConv3d, fft_conv, fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused3d
+    from fft_conv_tpu_torch.ops import plan_fft_conv
+
+    x, wt, bias, _ = inputs3d[0]
+    plan = plan_fft_conv(wt, bias, signal_spatial=x.shape[2:])
+    gen = torch.Generator().manual_seed(2)
+    wt_t = (torch.randn(8, 8, 8, 8, 8, generator=gen) / (8 * 8 ** 3) ** 0.5).to(x.device)
+    layer = FFTConv3d(8, 8, 8, device="cuda", generator=torch.Generator().manual_seed(0))
+
+    def counts():
+        torch.cuda.synchronize()
+        return fused3d.launches, fused3d.launches_tap, fused3d.launches_pack
+
+    def drive(what, fn, ref):
+        before = counts()
+        y = fn()
+        rose = tuple(a - c for a, c in zip(counts(), before))
+        check(rose == (1, 0, 1), f"{what} under 'pk' launched (B3, B4, B6) {rose}")
+        mx, mean, _ = close_scaled(y, ref(), f"{what} under 'pk' vs xla")
+        print(json.dumps({"phase": "main_path", "kernel": "B6", "case": f"{what} under 'pk'",
+                          "launches": dict(zip(("B3", "B4", "B6"), rose)),
+                          "max_abs_err_vs_composed": mx, "mean_abs_err": mean}))
+
+    fused3d.set_fused3d_xpack("pk")
+    try:
+        fused3d.launches = fused3d.launches_tap = fused3d.launches_pack = 0
+        drive("fft_conv(impl='auto') 64^3 K=8", lambda: fft_conv(x, wt, bias),
+              lambda: fft_conv(x, wt, bias, impl="xla"))
+        xg = x.clone().requires_grad_()
+        before = counts()
+        y = layer(xg)
+        y.sum().backward()
+        rose = tuple(a - c for a, c in zip(counts(), before))
+        check(rose == (1, 0, 1), f"FFTConv3d(8, 8, 8) under 'pk' launched (B3, B4, B6) {rose}")
+        w_ref = layer.weight.detach().clone().requires_grad_()
+        x_ref = x.clone().requires_grad_()
+        y_ref = fft_conv(x_ref, w_ref, layer.bias.detach(), impl="xla")
+        y_ref.sum().backward()
+        close_scaled(y, y_ref, "FFTConv3d under 'pk' forward vs xla")
+        gw_err, _, _ = close_scaled(layer.weight.grad, w_ref.grad, "FFTConv3d 'pk' weight grad")
+        gx_err, _, _ = close_scaled(xg.grad, x_ref.grad, "FFTConv3d 'pk' input grad")
+        print(json.dumps({"phase": "module", "kernel": "B6",
+                          "case": "FFTConv3d(8, 8, 8) under 'pk'",
+                          "launches": dict(zip(("B3", "B4", "B6"), rose)),
+                          "weight_grad_max_abs_err": gw_err, "input_grad_max_abs_err": gx_err}))
+        drive("fft_conv_transpose(impl='fused') 64^3 K=8",
+              lambda: fft_conv_transpose(x, wt_t, bias, impl="fused"),
+              lambda: fft_conv_transpose(x, wt_t, bias, impl="xla"))
+        drive("plan_fft_conv 64^3 K=8", lambda: plan(x),
+              lambda: fft_conv(x, wt, bias, impl="xla"))
+        launched = counts()
+    finally:
+        fused3d.set_fused3d_xpack("h2")
+    print(json.dumps({"phase": "main_path_counts", "kernels": "B3, B4, B6 under 'pk'",
+                      "launches": dict(zip(("B3", "B4", "B6"), launched))}))
+    torch.cuda.synchronize()
+    return launched[2]
+
+
+SPECTRA_FUNCTIONS = ("fused1d.kernel_spectra_one_sided", "fused1d.kernel_spectrum",
+                     "fused2d.kernel_spectra_2d", "fused2d.kernel_spectra_2d_planes",
+                     "fused3d.kernel_spectra_3d", "fused3d.kernel_spectra_tap",
+                     "fused3d._hw_spectra")
+
+
+def main_path_plans(torch, inputs1d, inputs2d, inputs3d, inputs3t):
+    """The serving plans, counted from zero: one plan_fft_conv per benchmark
+    row (B1 at the 1D rows, B2 at the 2D rows and B5 on the same plans under
+    "v3", B3 at 3D K=8, B4 at 3D K=10), plan_fft_conv_transpose at the 1D
+    and 2D rows (B1, B2) and at 64^3 K=8 (the torch.fft tier, as the 3D
+    transposed auto path is composed), and the 2D row at stride 2 (the
+    torch.fft tier). Each planned call launches its kernel once and no
+    other, computes no kernel spectra (every function that computes them is
+    wrapped with a counter while the calls run) and matches the unplanned
+    default call within the bar."""
+    from fft_conv_tpu_torch import fft_conv, fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused1d, fused2d, fused3d
+    from fft_conv_tpu_torch.ops import plan_fft_conv, plan_fft_conv_transpose
+
+    modules = {"fused1d": fused1d, "fused2d": fused2d, "fused3d": fused3d}
+    names = ("B1", "B2", "B5", "B3", "B4", "B6")
+
+    def counts():
+        torch.cuda.synchronize()
+        return (fused1d.launches, fused2d.launches, fused2d.launches_v3, fused3d.launches,
+                fused3d.launches_tap, fused3d.launches_pack)
+
+    # (what, plan, signal, the default call it stands for, kernel or None, "v3")
+    cases = []
+    for x, w, b, _ in inputs1d:
+        cases.append((f"plan_fft_conv 1D K={w.shape[-1]}",
+                      plan_fft_conv(w, b, signal_spatial=x.shape[2:], max_batch=x.shape[0]),
+                      x, functools.partial(fft_conv, x, w, b), "B1", False))
+    for v3 in (False, True):
+        for x, w, b, _ in inputs2d:
+            cases.append((f"plan_fft_conv 2D K={w.shape[-1]}" + (" under v3" if v3 else ""),
+                          plan_fft_conv(w, b, signal_spatial=x.shape[2:]), x,
+                          functools.partial(fft_conv, x, w, b), "B5" if v3 else "B2", v3))
+    for (x, w, b, _), kernel in ((inputs3d[0], "B3"), (inputs3t[0], "B4")):
+        cases.append((f"plan_fft_conv 3D K={w.shape[-1]}",
+                      plan_fft_conv(w, b, signal_spatial=x.shape[2:]), x,
+                      functools.partial(fft_conv, x, w, b), kernel, False))
+    for (x, w, b, _), kernel in [(i, "B1") for i in inputs1d] + [(i, "B2") for i in inputs2d]:
+        cases.append((f"plan_fft_conv_transpose {x.ndim - 2}D K={w.shape[-1]}",
+                      plan_fft_conv_transpose(w, b, signal_spatial=x.shape[2:],
+                                              max_batch=x.shape[0]),
+                      x, functools.partial(fft_conv_transpose, x, w, b), kernel, False))
+    x, w, b, _ = inputs3d[0]
+    cases.append(("plan_fft_conv_transpose 3D K=8 (torch.fft tier)",
+                  plan_fft_conv_transpose(w, b, signal_spatial=x.shape[2:]), x,
+                  functools.partial(fft_conv_transpose, x, w, b), None, False))
+    x, w, b, _ = inputs2d[0]
+    cases.append(("plan_fft_conv 2D K=16 stride 2 (torch.fft tier)",
+                  plan_fft_conv(w, b, stride=2, signal_spatial=x.shape[2:]), x,
+                  functools.partial(fft_conv, x, w, b, stride=2), None, False))
+
+    # the unplanned calls first: their launches and spectra are not the path's
+    refs = []
+    for _, _, _, ref, _, v3 in cases:
+        fused2d.set_fused2d_kernel("v3" if v3 else "v2")
+        refs.append(ref())
+    fused2d.set_fused2d_kernel("v2")
+    torch.cuda.synchronize()
+
+    spectra_calls = []
+    real = {}
+    for name in SPECTRA_FUNCTIONS:
+        mod, attr = name.split(".")
+        real[name] = getattr(modules[mod], attr)
+        setattr(modules[mod], attr,
+                lambda *a, _f=real[name], _n=name, **k: spectra_calls.append(_n) or _f(*a, **k))
+    outs = []
+    try:
+        fused1d.launches = fused2d.launches = fused2d.launches_v3 = 0
+        fused3d.launches = fused3d.launches_tap = fused3d.launches_pack = 0
+        for what, plan, x, _, kernel, v3 in cases:
+            fused2d.set_fused2d_kernel("v3" if v3 else "v2")
+            before = counts()
+            y = plan(x)
+            rose = dict(zip(names, (a - c for a, c in zip(counts(), before))))
+            want = {n: int(n == kernel) for n in names}
+            check(rose == want, f"{what} launched {rose}, not {want}")
+            outs.append((y, rose))
+        launched = counts()
+    finally:
+        fused2d.set_fused2d_kernel("v2")
+        for name, f in real.items():
+            mod, attr = name.split(".")
+            setattr(modules[mod], attr, f)
+    check(spectra_calls == [], f"planned calls computed kernel spectra: {spectra_calls}")
+    for (what, _, _, _, kernel, _), (y, rose), y_ref in zip(cases, outs, refs):
+        mx, mean, _ = close_scaled(y, y_ref, f"{what} vs the unplanned call")
+        print(json.dumps({"phase": "main_path", "case": what, "kernel": kernel,
+                          "launches": rose, "spectra_calls": 0,
+                          "max_abs_err_vs_unplanned": mx, "mean_abs_err": mean}))
+    print(json.dumps({"phase": "main_path_counts", "kernels": "serving plans",
+                      "launches": dict(zip(names, launched)), "spectra_calls": 0}))
+    torch.cuda.synchronize()
+
+
+def time_tier3(torch, inputs2d):
+    """The torch.fft tier of plan_fft_conv at the 2D row at stride 2, beside
+    the unplanned default call (B2 on the card) and the composed path."""
+    from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.ops import plan_fft_conv
+
+    x, wt, _, _ = inputs2d[0]
+    planned = plan_fft_conv(wt, stride=2, signal_spatial=x.shape[2:])
+    row = {
+        "K": wt.shape[-1], "stride": 2,
+        "plan_ms": device_ms(lambda: planned(x)),
+        "plan_call_ms": call_ms(lambda: planned(x)),
+        "auto_ms": device_ms(lambda: fft_conv(x, wt, stride=2)),
+        "composed_ms": device_ms(lambda: fft_conv(x, wt, stride=2, impl="xla")),
+    }
+    print(json.dumps({"phase": "timing", "case": "plan_fft_conv 2D, torch.fft tier", **row}))
+    torch.cuda.synchronize()
+
+
+def time_pack3d(torch, timed):
+    """B6's timing rows: its device time and latency, its plain version's
+    latency and its bytes bound, at the 3D row and the stuffed 78^3 volume.
+    No PyTorch call computes this permutation, so library_ms is null."""
+    from fft_conv_tpu_torch.kernels import fused3d
+
+    rows = []
+    for what, x, pp, nwb, hop in timed:
+        def kernel():
+            return fused3d._launch_pack3d(x, pp, nwb, hop)
+
+        nbytes = pack3d_bytes(*x.shape, pp, nwb)
+        bound_ms, bound_by = bound(nbytes, 0)
+        row = {
+            "case": what, "PP": pp, "w_blocks": nwb,
+            "ms": device_ms(kernel), "call_ms": call_ms(kernel),
+            "plain_ms": call_ms(lambda: fused3d._pack3d_reference(x, pp, nwb, hop)),
+            "library_ms": None, "bytes": nbytes, "flops": 0,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        row["pack_ms"], row["pack_call_ms"], row["pack_bound_ms"] = (
+            row["ms"], row["call_ms"], bound_ms)
+        rows.append(row)
+        print(json.dumps({"phase": "timing", "kernel": "B6", **row}))
+        torch.cuda.synchronize()
+    return rows
+
+
 def kernel_entry(name, source, replaces, launches, errs, rows):
     """One entry of the ``kernels`` line: the sums over the timed rows."""
     def total(key):
         return sum(r[key] for r in rows)
 
+    library = [r["library_ms"] for r in rows]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": max(errs),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"),
         "bound_by": bound(total("bytes"), total("flops"))[1],
-        "library_ms": total("library_ms"), "shapes": rows,
+        "library_ms": None if None in library else sum(library), "shapes": rows,
     }
 
 
@@ -1177,6 +1501,7 @@ def main() -> int:
 
     from fft_conv_tpu_torch import FFTConv1d, fft_conv
     from fft_conv_tpu_torch.kernels import _build, fused1d
+    from fft_conv_tpu_torch.ops import plan_fft_conv
 
     check("jax" not in sys.modules and "fft_conv_tpu" not in sys.modules,
           "the port pulled in JAX or the JAX package")
@@ -1254,6 +1579,7 @@ def main() -> int:
     errs2v3 = check_fused2d_v3(torch, dev, gen, inputs2d)
     inputs3d, errs3d = check_fused3d(torch, dev, gen)
     inputs3t, errs3t = check_fused3d_tap(torch, dev, gen)
+    timed_pack, errs_pack = check_pack3d(torch, dev, gen, inputs3d)
 
     # phases 3b and 4: the main path, counted from zero
     fused1d.launches = 0
@@ -1295,6 +1621,8 @@ def main() -> int:
     main_path_transposed(torch, inputs, inputs2d)
     per_row3d, main_launches3d = main_path_3d(torch, inputs3d)
     per_row3t, main_launches3t, t_inputs = main_path_3d_tap(torch, inputs3t)
+    main_launches_pack = main_path_pk(torch, inputs3d)
+    main_path_plans(torch, inputs, inputs2d, inputs3d, inputs3t)
 
     # phase 5: timings. "*_ms" is device time (CUDA graph replay), "*_call_ms"
     # the latency a caller sees; inputs stay in L2 between calls, as for a
@@ -1305,6 +1633,7 @@ def main() -> int:
         BENCH_SHAPES, inputs, errs, per_shape_launches
     ):
         spectra = fused1d.kernel_spectra_one_sided(w, n)
+        planned = plan_fft_conv(w, signal_spatial=(l,), max_batch=b)
 
         def kernel():
             return fused1d._launch_fused1d(x, spectra, n, 1, k)
@@ -1324,6 +1653,8 @@ def main() -> int:
             "spectra_ms": device_ms(lambda: fused1d.kernel_spectra_one_sided(w, n)),
             "auto_ms": device_ms(auto),
             "auto_call_ms": call_ms(auto),
+            "plan_ms": device_ms(lambda: planned(x)),
+            "plan_call_ms": call_ms(lambda: planned(x)),
             "composed_ms": device_ms(composed),
             "composed_call_ms": call_ms(composed),
             # the plain version copies its constants from the host on every
@@ -1343,6 +1674,8 @@ def main() -> int:
     rows3t = time_3d_tap(torch, inputs3t, errs3t, per_row3t)
     time_transposed_3d(torch, inputs3t[0][0], t_inputs)
     time_transposed_1d_2d(torch, inputs, inputs2d)
+    time_tier3(torch, inputs2d)
+    rows_pack = time_pack3d(torch, timed_pack)
 
     print(json.dumps({"kernels": [
         kernel_entry("B1_fused1d", "fft_conv_tpu_torch/kernels/csrc/fused1d.cu",
@@ -1356,6 +1689,9 @@ def main() -> int:
                      "fft_conv_tpu/kernels/fused3d.py:735", main_launches3d, errs3d, rows3d),
         kernel_entry("B4_fused3d_tap", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",
                      "fft_conv_tpu/kernels/fused3d.py:1233", main_launches3t, errs3t, rows3t),
+        kernel_entry("B6_pack3d", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",
+                     "fft_conv_tpu/kernels/fused3d.py:1184", main_launches_pack, errs_pack,
+                     rows_pack),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,8 @@ package.
 Public API mirrors ``fft_conv_tpu/__init__.py``, limited to what the port
 provides so far: the ``functional`` and ``nn`` submodules, ``fft_conv``,
 ``fft_conv_transpose``, ``complex_matmul`` and the 1D, 2D and 3D layers.
+The serving plans are ``ops.plan_fft_conv`` and
+``ops.plan_fft_conv_transpose``, as in the JAX package.
 """
 
 from . import functional, nn

@@ -74,9 +74,24 @@
 // OPB = 4. Tensor cores (wgmma), TMA staging, a MAC block that serves several
 // d-chunks and fusing the phases are left for later work.
 //
-// Entry points: fused3d_forward (B3) and fused3d_tap_forward (B4), plain C
-// interfaces loaded with ctypes. Each returns cudaGetLastError() after its
-// launches; 0 means all were accepted.
+// B6 replaces fft_conv_tpu/kernels/fused3d.py:1184 (_pack3d_call), the TPU's
+// x-pack kernel of the "pk" x-pack mode: a pure permutation of the signal
+// into the layout xp (items, H, Cin * PP, 128), xp[item, h, c * PP + p,
+// 64 * s + w] = x[b, c, 2p + s, h, start + w] (zeros for d >= D and past W),
+// where PP is the plan's d-pair count and start the item's W-block start.
+// It also fuses the wrapper's pad and W-block stack in front of the TPU
+// kernel, so nothing runs ahead of it. B3 then reads xp in place of x
+// (hw_forward's packed mode: slab d of channel c is row c * PP + d / 2,
+// lanes 64 * (d % 2) + [0, 64), every lane valid). Bound: bytes, the signal
+// read once and xp written once (16.8 + 21.0 MB at the 64^3 benchmark row,
+// 0.0113 ms at 3.35 TB/s). One thread writes one float4 of an xp row, so a
+// warp reads two 256 B runs of the signal and writes one 512 B row; a read
+// is a float4 where the source is 16 B aligned and wholly inside W, else
+// four masked scalars (the clamped last W block starts off alignment).
+//
+// Entry points: fused3d_forward (B3), fused3d_tap_forward (B4) and
+// fused3d_pack (B6), plain C interfaces loaded with ctypes. Each returns
+// cudaGetLastError() after its launches; 0 means all were accepted.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -130,23 +145,30 @@ struct Item {
   int b, start, lo, hi;
 };
 
+// The first input column of W block wb.
+__device__ __forceinline__ int block_start(int wb, int hop, int w) {
+  return min(wb * hop, max(w - kTW, 0));
+}
+
 __device__ __forceinline__ Item item_geom(int item, int nwb, int hop, int w, int ow) {
   const int wb = item % nwb;
   Item g;
   g.b = item / nwb;
-  g.start = min(wb * hop, max(w - kTW, 0));
+  g.start = block_start(wb, hop, w);
   g.lo = wb * hop - g.start;
   g.hi = min(hop, ow - g.start);
   return g;
 }
 
-template <int SB>
+// PK: x is B6's packed layout (items, h, Cin * pp, 128) in place of the
+// signal (B, Cin, d, h, w); the arithmetic is the same.
+template <int SB, bool PK>
 __global__ void __launch_bounds__(kThreads, 2)
-fused3d_hw_forward(const float* __restrict__ x,    // (B, Cin, d, h, w)
+fused3d_hw_forward(const float* __restrict__ x,    // (B, Cin, d, h, w), or packed
                    const float2* __restrict__ fh,  // (nbh, h) one-sided H DFT rows
                    const float2* __restrict__ wf,  // (64, 64) W DFT
                    float2* __restrict__ t,         // (items of this launch, Cin, d, nbh, 64)
-                   int cin, int d, int h, int w, int ow, int nwb, int hop, int item0) {
+                   int cin, int d, int h, int w, int ow, int nwb, int hop, int item0, int pp) {
   constexpr int RPT = Cfg<SB>::kRpt;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* s_a = reinterpret_cast<float2*>(smem_raw);  // (SB, nbh, 64)
@@ -154,10 +176,22 @@ fused3d_hw_forward(const float* __restrict__ x,    // (B, Cin, d, h, w)
   const int nbh = h / 2 + 1;
   const int tid = threadIdx.x, cl = tid % kTW, rg = tid / kTW;
   const int it = blockIdx.x / cin, c = blockIdx.x % cin;
-  const Item g = item_geom(item0 + it, nwb, hop, w, ow);
   const int d0 = blockIdx.y * SB, ns = min(SB, d - d0);
-  const float* xs = x + (((int64_t)g.b * cin + c) * d + d0) * h * w + g.start + cl;
-  const bool col_in = g.start + cl < w;
+  // slab s of the block at xs + soff(s) + hh * hs; d0 is even when SB > 1
+  const float* xs;
+  int64_t hs;
+  bool col_in;
+  if (PK) {
+    xs = x + ((int64_t)(item0 + it) * h * cin + c) * pp * 2 * kTW + (d0 >> 1) * 2 * kTW +
+         (d0 & 1) * kTW + cl;
+    hs = (int64_t)cin * pp * 2 * kTW;
+    col_in = true;  // B6 wrote the zeros past W
+  } else {
+    const Item g = item_geom(item0 + it, nwb, hop, w, ow);
+    xs = x + (((int64_t)g.b * cin + c) * d + d0) * h * w + g.start + cl;
+    hs = w;
+    col_in = g.start + cl < w;
+  }
   const Passes ps = split_rows(nbh, kRowGroups * RPT);
 
   // H forward, one-sided: A[s] = F_H (nbh x h) . X[s] (h x 64), X real
@@ -173,8 +207,10 @@ fused3d_hw_forward(const float* __restrict__ x,    // (B, Cin, d, h, w)
     for (int hh = 0; hh < h; ++hh) {
       float xv[SB];
 #pragma unroll
-      for (int s = 0; s < SB; ++s)
-        xv[s] = (col_in && s < ns) ? __ldg(xs + ((int64_t)s * h + hh) * w) : 0.f;
+      for (int s = 0; s < SB; ++s) {
+        const int64_t soff = PK ? (s >> 1) * 2 * kTW + (s & 1) * kTW : (int64_t)s * h * w;
+        xv[s] = (col_in && s < ns) ? __ldg(xs + soff + hh * hs) : 0.f;
+      }
 #pragma unroll
       for (int q = 0; q < RPT; ++q) {
         if (q < nq) {
@@ -387,6 +423,36 @@ fused3d_tap_mac(const float2* __restrict__ t,   // (items of this launch, Cin, d
   }
 }
 
+// B6: one thread per float4 of xp (items, h, Cin * pp, 128), n4 of them.
+__global__ void __launch_bounds__(kThreads)
+fused3d_pack_x(const float* __restrict__ x,  // (B, Cin, d, h, w)
+               float4* __restrict__ xp,      // (B * nwb, h, Cin * pp, 128)
+               int cin, int d, int h, int w, int pp, int nwb, int hop, int64_t n4) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n4) return;
+  const int q = (int)(i % (2 * kTW / 4));         // float4 of the row
+  const int64_t row = i / (2 * kTW / 4);          // (item, h, c * pp + p)
+  const int cp = (int)(row % (cin * pp));
+  const int64_t ih = row / (cin * pp);
+  const int hh = (int)(ih % h), item = (int)(ih / h);
+  const int c = cp / pp, dd = 2 * (cp % pp) + q / (kTW / 4);
+  const int col = block_start(item % nwb, hop, w) + 4 * (q % (kTW / 4));
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (dd < d) {
+    const float* src =
+        x + ((((int64_t)(item / nwb) * cin + c) * d + dd) * h + hh) * w;
+    if (col + 3 < w && (reinterpret_cast<uintptr_t>(src + col) & 15) == 0) {
+      v = __ldg(reinterpret_cast<const float4*>(src + col));
+    } else {
+      if (col < w) v.x = __ldg(src + col);
+      if (col + 1 < w) v.y = __ldg(src + col + 1);
+      if (col + 2 < w) v.z = __ldg(src + col + 2);
+      if (col + 3 < w) v.w = __ldg(src + col + 3);
+    }
+  }
+  xp[i] = v;
+}
+
 template <int SB>
 __global__ void __launch_bounds__(kThreads, 2)
 fused3d_hw_inverse(const float2* __restrict__ z,   // (items of this launch, Cout, od, nbh, 64)
@@ -498,17 +564,19 @@ struct Args {
   float2 *t, *s, *z;
   float* out;
   int cin, cout, groups, d, h, w, od, oh, ow, nbd, kd, nwb, hop, item0, nitem;
+  int pp;  // > 0: x is B6's packed layout with pp d-pairs (B3 only)
   cudaStream_t stream;
 };
 
-template <int SB>
+template <int SB, bool PK>
 cudaError_t launch_hw_forward(const Args& a) {
   const size_t smem = Cfg<SB>::smem(a.h / 2 + 1);
   cudaError_t err = cudaFuncSetAttribute(
-      fused3d_hw_forward<SB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused3d_hw_forward<SB, PK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fused3d_hw_forward<SB><<<dim3(a.nitem * a.cin, (a.d + SB - 1) / SB), kThreads, smem, a.stream>>>(
-      a.x, a.fh, a.wf, a.t, a.cin, a.d, a.h, a.w, a.ow, a.nwb, a.hop, a.item0);
+  fused3d_hw_forward<SB, PK><<<dim3(a.nitem * a.cin, (a.d + SB - 1) / SB), kThreads, smem,
+                               a.stream>>>(
+      a.x, a.fh, a.wf, a.t, a.cin, a.d, a.h, a.w, a.ow, a.nwb, a.hop, a.item0, a.pp);
   return cudaGetLastError();
 }
 
@@ -555,7 +623,8 @@ bool hw_args_ok(const Args& a, int sb) {
 
 template <int SB>
 cudaError_t launch_hw(const Args& a, bool forward) {
-  return forward ? launch_hw_forward<SB>(a) : launch_hw_inverse<SB>(a);
+  if (!forward) return launch_hw_inverse<SB>(a);
+  return a.pp > 0 ? launch_hw_forward<SB, true>(a) : launch_hw_forward<SB, false>(a);
 }
 
 cudaError_t launch_hw_sb(const Args& a, int sb, bool forward) {
@@ -567,7 +636,8 @@ cudaError_t launch_hw_sb(const Args& a, int sb, bool forward) {
 cudaError_t launch(const Args& a) {
   const int nbh = a.h / 2 + 1, npos = nbh * kTW;
   const int sb = slabs_per_block(nbh);
-  if (!hw_args_ok(a, sb) || a.nbd < 1 || kDHop * a.nbd < a.od || a.nbd > 65535)
+  if (!hw_args_ok(a, sb) || a.nbd < 1 || kDHop * a.nbd < a.od || a.nbd > 65535 ||
+      a.pp < 0 || (a.pp > 0 && 2 * a.pp < a.d))
     return cudaErrorInvalidValue;
   const int opg = a.cout / a.groups;
 
@@ -602,18 +672,19 @@ cudaError_t launch_tap(const Args& a) {
 }  // namespace
 
 // Runs items [item0, item0 + nitem) (item = batch index * nwb + W block) of
-// one convolution through B3, the v4 chain. x (B, Cin, d, h, w) f32; ks (Cout, Cin/groups, 16, h/2+1,
-// 64); fh (h/2+1, h); wf and wb (64, 64); df (16, 16); ei (8, 16); ch (oh,
-// h/2+1); scratch t (nitem, Cin, d, h/2+1, 64), s (nitem, Cin, nbd, 16, h/2+1,
-// 64), z (nitem, Cout, od, h/2+1, 64); out (B, Cout, od, oh, ow) f32. Complex
-// arrays are interleaved (re, im) float pairs. W blocks start at
-// min(i * hop, max(w - 64, 0)); with nwb = 1, hop is ow. Returns
+// one convolution through B3, the v4 chain. x (B, Cin, d, h, w) f32, or with
+// pp > 0 B6's packed layout (B * nwb, h, Cin * pp, 128) f32; ks (Cout,
+// Cin/groups, 16, h/2+1, 64); fh (h/2+1, h); wf and wb (64, 64); df (16, 16);
+// ei (8, 16); ch (oh, h/2+1); scratch t (nitem, Cin, d, h/2+1, 64), s (nitem,
+// Cin, nbd, 16, h/2+1, 64), z (nitem, Cout, od, h/2+1, 64); out (B, Cout, od,
+// oh, ow) f32. Complex arrays are interleaved (re, im) float pairs. W blocks
+// start at min(i * hop, max(w - 64, 0)); with nwb = 1, hop is ow. Returns
 // cudaGetLastError() after the four launches (0 when all were accepted).
 extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, const void* wf,
                                const void* wb, const void* df, const void* ei, const void* ch,
                                void* t, void* s, void* z, void* out, int cin, int cout,
                                int groups, int d, int h, int w, int od, int oh, int ow, int nbd,
-                               int nwb, int hop, int item0, int nitem, void* stream) {
+                               int nwb, int hop, int item0, int nitem, int pp, void* stream) {
   Args a{};
   a.x = static_cast<const float*>(x);
   a.ks = static_cast<const float2*>(ks);
@@ -641,6 +712,7 @@ extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, co
   a.hop = hop;
   a.item0 = item0;
   a.nitem = nitem;
+  a.pp = pp;
   a.stream = static_cast<cudaStream_t>(stream);
   return launch(a);
 }
@@ -682,6 +754,24 @@ extern "C" int fused3d_tap_forward(const void* x, const void* ks, const void* fh
   a.nitem = nitem;
   a.stream = static_cast<cudaStream_t>(stream);
   return launch_tap(a);
+}
+
+// B6: packs x (B, Cin, d, h, w) f32 into xp (B * nwb, h, Cin * pp, 128) f32,
+// xp[b * nwb + j, h, c * pp + p, 64 * s + wl] = x[b, c, 2p + s, h, start_j +
+// wl] with start_j = min(j * hop, max(w - 64, 0)), zeros for 2p + s >= d and
+// for start_j + wl >= w. Every element of xp is written. Returns
+// cudaGetLastError() after the launch.
+extern "C" int fused3d_pack(const void* x, void* xp, int b, int cin, int d, int h, int w,
+                            int pp, int nwb, int hop, void* stream) {
+  if (b < 1 || cin < 1 || d < 1 || h < 1 || w < 1 || pp < 1 || 2 * pp < d || nwb < 1 ||
+      hop < 1 || (nwb > 1 && w < kTW))
+    return cudaErrorInvalidValue;
+  const int64_t n4 = (int64_t)b * nwb * h * cin * pp * (2 * kTW / 4);
+  const int64_t blocks = (n4 + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  fused3d_pack_x<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float4*>(xp), cin, d, h, w, pp, nwb, hop, n4);
+  return cudaGetLastError();
 }
 
 // Dynamic shared memory of one block of the H/W kernels for an H with

@@ -18,6 +18,9 @@ Gradients: ``_FusedCore`` is a ``torch.autograd.Function`` whose backward is
 two composed-path convolutions (``ops/functional.py``): dx is the transposed
 convolution of the output gradient with the kernel, dw the correlation of
 the signal with the output gradient, batch acting as the contracted channel.
+
+``plan_fft_conv1d`` bakes the kernel spectra once for serving, as the JAX
+package's does; the planned call runs the same forward with them.
 """
 
 import ctypes
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as TF
 
 from ..ops import functional as F
+from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
 from .fourstep import fft_factor_matrices, kernel_spectrum
@@ -160,8 +164,17 @@ def _blocking(n: int, k: int, l_pad: int) -> Tuple[int, int, int]:
     return v1, v_total, -(-v_total // (v1 * n2))
 
 
+def _spectra_or(spectra: Optional[torch.Tensor], dt: torch.dtype, compute) -> torch.Tensor:
+    """A plan's baked complex ``spectra`` in the complex type of the working
+    dtype ``dt``, or ``compute()`` when there are none."""
+    if spectra is None:
+        return compute()
+    return spectra.to(torch.complex128 if dt == torch.float64 else torch.complex64)
+
+
 def _fused_forward_reference(
-    x_padded: torch.Tensor, kernel: torch.Tensor, n: int, groups: int = 1
+    x_padded: torch.Tensor, kernel: torch.Tensor, n: int, groups: int = 1,
+    spectra: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernel's plain PyTorch version: the same blocked one-sided
     four-step pipeline in split re/im arithmetic, float64 for a float64
@@ -169,6 +182,8 @@ def _fused_forward_reference(
 
     ``x_padded`` (B, Cin, L) already padded, ``kernel`` (Cout, Cin/g, K)
     already dilated; returns the valid correlation (B, Cout, L - K + 1).
+    ``spectra``: a plan's baked ``kernel_spectra_one_sided``, or None to
+    compute them.
     """
     dt = torch.float64 if x_padded.dtype == torch.float64 else torch.float32
     b, cin, l_pad = x_padded.shape
@@ -193,7 +208,10 @@ def _fused_forward_reference(
     di = cr @ f2i + ci @ f2r
 
     # per-bin complex MAC over each out-channel's group of in-channels
-    kr, ki = kernel_spectrum(kernel.to(dt), n, n1, n2, rows=h)
+    if spectra is None:
+        kr, ki = kernel_spectrum(kernel.to(dt), n, n1, n2, rows=h)
+    else:
+        kr, ki = spectra.real.to(dt), spectra.imag.to(dt)
     kr = kr.reshape(groups, cout // groups, h, cpg, n2)
     ki = ki.reshape(groups, cout // groups, h, cpg, n2)
     dr = dr.reshape(b, groups, cpg, nblk, h, n2)
@@ -293,17 +311,19 @@ def kernel_spectra_one_sided(kernel: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _fused_forward(
-    x_padded: torch.Tensor, kernel: torch.Tensor, n: int, groups: int = 1
+    x_padded: torch.Tensor, kernel: torch.Tensor, n: int, groups: int = 1,
+    spectra: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Valid correlation of ``x_padded`` with ``kernel`` at FFT size ``n``:
-    the CUDA kernel for a CUDA tensor, the plain version for a CPU one."""
+    the CUDA kernel for a CUDA tensor, the plain version for a CPU one.
+    ``spectra``: a plan's baked ``kernel_spectra_one_sided``, or None to
+    compute them."""
     if x_padded.is_cuda:
-        return _launch_fused1d(
-            x_padded.float(), kernel_spectra_one_sided(kernel, n), n, groups,
-            kernel.shape[-1],
-        )
+        if spectra is None:
+            spectra = kernel_spectra_one_sided(kernel, n)
+        return _launch_fused1d(x_padded.float(), spectra, n, groups, kernel.shape[-1])
     if x_padded.device.type == "cpu":
-        return _fused_forward_reference(x_padded.float(), kernel.float(), n, groups)
+        return _fused_forward_reference(x_padded.float(), kernel.float(), n, groups, spectra)
     raise ValueError(f"fused1d runs on CUDA or CPU tensors, got {x_padded.device}")
 
 
@@ -332,13 +352,14 @@ def _fused_bwd(x_padded, kernel, g, groups, need_dx=True, need_dw=True):
 
 
 class _FusedCore(torch.autograd.Function):
-    """The fused correlation with the composed path as its backward."""
+    """The fused correlation with the composed path as its backward;
+    ``spectra`` are a plan's baked kernel spectra (None: computed per call)."""
 
     @staticmethod
-    def forward(ctx, x_padded, kernel, n, groups):
+    def forward(ctx, x_padded, kernel, n, groups, spectra=None):
         ctx.save_for_backward(x_padded, kernel)
         ctx.groups = groups
-        return _fused_forward(x_padded, kernel, n, groups)
+        return _fused_forward(x_padded, kernel, n, groups, spectra)
 
     @staticmethod
     def backward(ctx, g):
@@ -347,7 +368,7 @@ class _FusedCore(torch.autograd.Function):
             x_padded, kernel, g.contiguous(), ctx.groups,
             ctx.needs_input_grad[0], ctx.needs_input_grad[1],
         )
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def fft_conv1d_fused(
@@ -398,6 +419,60 @@ def fft_conv1d_fused(
     if bias is not None:
         out = out + bias.reshape(1, -1, 1)
     return out.to(signal.dtype)
+
+
+def plan_fft_conv1d(
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding: int = 0,
+    signal_length: Optional[int] = None,
+    cache_spectrum: bool = True,
+    max_batch: int = 1,
+    device: Device = None,
+):
+    """Returns ``fn(signal) -> out`` with the kernel baked in, on ``device``
+    (the card unless ``device="cpu"``): the port of the JAX package's
+    ``plan_fft_conv1d``.
+
+    When ``signal_length`` is given and an FFT size fits a batch of
+    ``max_batch``, the conjugated one-sided spectra are computed once here
+    and each call runs only the signal's side. The call re-checks its batch
+    and takes the composed path where it would bust the kernel's budgets
+    (``cell_fits``). Otherwise (no length, no fit, or ``cache_spectrum``
+    False) each call runs ``fft_conv1d_fused``, which computes the spectra
+    and raises where no FFT size fits. The signal's gradient flows through
+    the composed path; the baked kernel is a constant.
+    """
+    dev = resolve_device(device, "plans are built")
+    cout, cin, k = kernel.shape
+    kernel = kernel.detach().to(dev, torch.float32)
+    bias = None if bias is None else bias.detach().to(dev, torch.float32)
+    n = None
+    if signal_length is not None:
+        n = choose_fft_size(k, signal_length + 2 * padding, cin, cout, batch=max_batch)
+    if n is None or not cache_spectrum:
+        def unplanned(signal: torch.Tensor) -> torch.Tensor:
+            if signal.device != dev:
+                raise ValueError(f"plan lives on {dev}, got a signal on {signal.device}")
+            return fft_conv1d_fused(signal, kernel, bias, padding=padding)
+
+        return unplanned
+
+    spectra = kernel_spectra_one_sided(kernel, n)
+
+    def planned(signal: torch.Tensor) -> torch.Tensor:
+        check_planned_signal(signal, (signal_length,), dev)
+        if not cell_fits(n, signal.shape[0], cin, cout):
+            # this batch busts the planned FFT size's budgets
+            return F.fft_conv(signal, kernel, bias, padding=(padding,), impl="xla").to(
+                signal.dtype)
+        x = F._pad_signal(signal, (padding,), "constant")
+        out = _FusedCore.apply(x.float(), kernel, n, 1, spectra)
+        if bias is not None:
+            out = out + bias.reshape(1, -1, 1)
+        return out.to(signal.dtype)
+
+    return planned
 
 
 def fft_conv_transpose1d_fused(

@@ -25,9 +25,11 @@ Gradients: ``_Fused2dCore`` is a ``torch.autograd.Function`` whose backward
 is the composed path, shared with the 1D kernel (``fused1d._fused_bwd``).
 
 ``fft_conv_transpose2d_fused`` runs the forward on the zero-stuffed signal.
+``plan_fft_conv2d`` bakes the kernel spectra once for serving; its calls
+follow the schedule chosen at call time, as the JAX package's do.
 
-Not ported from the JAX module: ``plan_fft_conv2d`` (ROADMAP §A) and the
-TPU's precision, MAC-mode and prefetch switches.
+Not ported from the JAX module: the TPU's precision, MAC-mode and prefetch
+switches.
 """
 
 import ctypes
@@ -41,9 +43,10 @@ import torch.nn.functional as TF
 
 from ..ops import functional as F
 from ..ops.spectral import _dft_mats, _irfft_mats, _rfft_mats
+from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
-from .fused1d import _fused_bwd
+from .fused1d import _fused_bwd, _spectra_or
 
 _T2_CANDIDATES = (128, 256)
 
@@ -273,14 +276,15 @@ def _reference_tiles(x_padded: torch.Tensor, kernel: torch.Tensor):
     return plan, dt, x.unfold(2, t1, v1).unfold(3, t2, v2)
 
 
-def _reference_mac(dr, di, kernel, groups, plan, dt):
+def _reference_mac(dr, di, kernel, groups, plan, dt, spectra=None):
     """Per-bin complex MAC over each out-channel's group of in-channels:
     (yr, yi) of shape (B, Cout, nt1, nt2, NB1, T2) from the tile spectra
-    (B, Cin, nt1, nt2, NB1, T2)."""
+    (B, Cin, nt1, nt2, NB1, T2), against a plan's baked ``spectra`` or,
+    when there are none, ``kernel_spectra_2d``."""
     t1, _, nb1, t2, _ = plan
     b, _, nt1, nt2 = dr.shape[:4]
     cout, cpg = kernel.shape[:2]
-    ks = kernel_spectra_2d(kernel.to(dt), t1, nb1, t2)
+    ks = _spectra_or(spectra, dt, lambda: kernel_spectra_2d(kernel.to(dt), t1, nb1, t2))
     kr = ks.real.reshape(groups, cout // groups, cpg, nb1, t2)
     ki = ks.imag.reshape(groups, cout // groups, cpg, nb1, t2)
     dr = dr.reshape(b, groups, cpg, nt1, nt2, nb1, t2)
@@ -302,13 +306,16 @@ def _reference_stitch(out, x_padded, kernel, plan):
 
 
 def _fused2d_forward_reference(
-    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1
+    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
+    spectra: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """B2's plain PyTorch version: the same tiled pipeline in split re/im
     arithmetic, float64 for a float64 signal and float32 otherwise.
 
     ``x_padded`` (B, Cin, Hp, Wp) already padded, ``kernel`` (Cout, Cin/g,
     K1, K2) already dilated; returns the valid correlation (B, Cout, OH, OW).
+    ``spectra``: a plan's baked ``kernel_spectra_2d``, or None to compute
+    them.
     """
     plan, dt, a = _reference_tiles(x_padded, kernel)
     t1, v1, nb1, t2, _ = plan
@@ -318,7 +325,7 @@ def _fused2d_forward_reference(
     hr, hi = fr @ a, fi @ a  # (B, Cin, nt1, nt2, NB1, T2)
     dr = hr @ wr - hi @ wi
     di = hr @ wi + hi @ wr
-    yr, yi = _reference_mac(dr, di, kernel, groups, plan, dt)
+    yr, yi = _reference_mac(dr, di, kernel, groups, plan, dt, spectra)
 
     # inverse W DFT, then the H irfft on the V1 valid rows
     er = yr @ ur - yi @ ui
@@ -328,7 +335,8 @@ def _fused2d_forward_reference(
 
 
 def _fused2d_forward_reference_v3(
-    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1
+    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
+    spectra: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """B5's plain PyTorch version: the v3 schedule step by step, float64 for
     a float64 signal and float32 otherwise. One stacked H product gives
@@ -344,7 +352,7 @@ def _fused2d_forward_reference_v3(
     d1, d2 = b2 @ wr, b2 @ wi  # [hr·wr; hi·wr], [hr·wi; hi·wi]
     dr = d1[..., :nb1, :] - d2[..., nb1:, :]
     di = d2[..., :nb1, :] + d1[..., nb1:, :]
-    yr, yi = _reference_mac(dr, di, kernel, groups, plan, dt)
+    yr, yi = _reference_mac(dr, di, kernel, groups, plan, dt, spectra)
 
     y2 = torch.cat([yr, yi], dim=-2)  # (B, Cout, nt1, nt2, 2·NB1, T2)
     zr, zi = cz1 @ y2, cz2 @ y2  # (B, Cout, nt1, nt2, V1, T2)
@@ -368,12 +376,17 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _planes(spectra: torch.Tensor) -> torch.Tensor:
+    """Complex spectra (Cout, Cin/g, NB1, T2) as B5's split planes (Cout,
+    Cin/g, 2, NB1, T2): a copy, no transform."""
+    return torch.stack([spectra.real, spectra.imag], dim=2).contiguous()
+
+
 def kernel_spectra_2d_planes(kernel: torch.Tensor, t1: int, nb1: int, t2: int) -> torch.Tensor:
     """B5's input: ``kernel_spectra_2d`` as split planes (Cout, Cin/g, 2,
     NB1, T2) of the real and imaginary parts, float32 (float64 for a
     float64 kernel)."""
-    ks = kernel_spectra_2d(kernel, t1, nb1, t2)
-    return torch.stack([ks.real, ks.imag], dim=2).contiguous()
+    return _planes(kernel_spectra_2d(kernel, t1, nb1, t2))
 
 
 def _check_launch(x_padded, spectra, plan, groups, k, v3):
@@ -477,10 +490,15 @@ def _launch_fused2d_v3(
     return out
 
 
-def _fused2d_forward(x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1):
+def _fused2d_forward(
+    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
+    spectra: Optional[torch.Tensor] = None,
+):
     """Valid correlation of ``x_padded`` with ``kernel`` under the schedule
     that ``set_fused2d_kernel`` chose, read at call time: the CUDA kernel
-    (B2 or B5) for a CUDA tensor, its plain version for a CPU one."""
+    (B2 or B5) for a CUDA tensor, its plain version for a CPU one.
+    ``spectra``: a plan's baked ``kernel_spectra_2d`` (B5 takes them as
+    planes, ``_planes``), or None to compute them."""
     v3 = _KERNEL2D_VERSION == "v3"
     if x_padded.is_cuda:
         cout, cpg, k1, k2 = kernel.shape
@@ -488,25 +506,26 @@ def _fused2d_forward(x_padded: torch.Tensor, kernel: torch.Tensor, groups: int =
         if plan is None:
             raise ValueError("no fused 2D configuration fits this shape")
         t1, _, nb1, t2, _ = plan
+        if spectra is None:
+            spectra = kernel_spectra_2d(kernel, t1, nb1, t2)
         if v3:
-            spectra = kernel_spectra_2d_planes(kernel, t1, nb1, t2)
-            return _launch_fused2d_v3(x_padded.float(), spectra, plan, groups, (k1, k2))
-        spectra = kernel_spectra_2d(kernel, t1, nb1, t2)
+            return _launch_fused2d_v3(x_padded.float(), _planes(spectra), plan, groups, (k1, k2))
         return _launch_fused2d(x_padded.float(), spectra, plan, groups, (k1, k2))
     if x_padded.device.type == "cpu":
         reference = _fused2d_forward_reference_v3 if v3 else _fused2d_forward_reference
-        return reference(x_padded.float(), kernel.float(), groups)
+        return reference(x_padded.float(), kernel.float(), groups, spectra)
     raise ValueError(f"fused2d runs on CUDA or CPU tensors, got {x_padded.device}")
 
 
 class _Fused2dCore(torch.autograd.Function):
-    """The fused 2D correlation with the composed path as its backward."""
+    """The fused 2D correlation with the composed path as its backward;
+    ``spectra`` are a plan's baked kernel spectra (None: computed per call)."""
 
     @staticmethod
-    def forward(ctx, x_padded, kernel, groups):
+    def forward(ctx, x_padded, kernel, groups, spectra=None):
         ctx.save_for_backward(x_padded, kernel)
         ctx.groups = groups
-        return _fused2d_forward(x_padded, kernel, groups)
+        return _fused2d_forward(x_padded, kernel, groups, spectra)
 
     @staticmethod
     def backward(ctx, g):
@@ -515,7 +534,7 @@ class _Fused2dCore(torch.autograd.Function):
             x_padded, kernel, g.contiguous(), ctx.groups,
             ctx.needs_input_grad[0], ctx.needs_input_grad[1],
         )
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def fft_conv2d_fused(
@@ -587,6 +606,52 @@ def fft_conv2d_fused_if_fits(
     if bias is not None:
         out = out + bias.reshape(1, -1, 1, 1)
     return out.to(signal.dtype)
+
+
+def plan_fft_conv2d(
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding=0,
+    padding_mode: str = "constant",
+    *,
+    signal_hw,
+    device: Device = None,
+):
+    """Serving plan: the kernel's tile spectra are computed once, on
+    ``device`` (the card unless ``device="cpu"``), and the returned
+    ``fn(signal) -> out`` only transforms the signal, whose spatial shape
+    must be ``signal_hw``. The port of the JAX package's ``plan_fft_conv2d``:
+    groups=1, stride=1, dilation=1; raises ValueError where
+    ``fused2d_fits`` does not hold. Each call runs the schedule that
+    ``set_fused2d_kernel`` names at that time (B2, or B5 on the same
+    spectra as planes). The signal's gradient flows through the composed
+    path; the baked kernel is a constant."""
+    if kernel.ndim != 4:
+        raise ValueError("plan_fft_conv2d expects (Cout, Cin, K1, K2)")
+    dev = resolve_device(device, "plans are built")
+    padding_ = to_ntuple(padding, 2)
+    h, w = (int(s) for s in signal_hw)
+    cout, cin, k1, k2 = kernel.shape
+    hp, wp = h + 2 * padding_[0], w + 2 * padding_[1]
+    if not fused2d_fits(k1, k2, cin, cout, (hp, wp)):
+        raise ValueError(
+            "no fused 2D configuration fits this shape (no tile plan, or the "
+            "kernel is larger than the padded signal)"
+        )
+    t1, _, nb1, t2, _ = tile_plan_2d(k1, k2, cin, cout)
+    kernel = kernel.detach().to(dev, torch.float32)
+    bias = None if bias is None else bias.detach().to(dev, torch.float32)
+    spectra = kernel_spectra_2d(kernel, t1, nb1, t2)
+
+    def planned(signal: torch.Tensor) -> torch.Tensor:
+        check_planned_signal(signal, (h, w), dev)
+        x = F._pad_signal(signal, padding_, padding_mode)
+        out = _Fused2dCore.apply(x.float(), kernel, 1, spectra)
+        if bias is not None:
+            out = out + bias.reshape(1, -1, 1, 1)
+        return out.to(signal.dtype)
+
+    return planned
 
 
 def fft_conv_transpose2d_fused(

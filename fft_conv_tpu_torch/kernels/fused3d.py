@@ -17,19 +17,28 @@ columns when W is wider). Along D:
 
 The inverse W DFT and the H irfft then keep the valid columns and rows.
 
-On a CUDA tensor ``_fused3d_forward`` launches the plan's kernel; on a CPU
-tensor it runs the plan's plain version (``_fused3d_forward_reference``,
-``_fused3d_tap_reference``), the same pipeline written with torch ops (the
-counterpart of the JAX package's Pallas interpret mode). There is no other
-route: a CUDA tensor launches the kernel or raises.
+The x-pack switch (``set_fused3d_xpack``, read at call time as the JAX
+package reads it) names how a 'v4' plan's kernel reads the signal. Under
+"pk" kernel B6 (``fused3d_pack``) first packs it into the JAX package's
+x layout (B', H, Cin·PP, 128), the d-pairs of each channel side by side in
+128 lanes, and B3 reads that; under the other names B3 reads (B, Cin, D,
+H, W) directly. A 'tap' plan always reads directly.
+
+On a CUDA tensor ``_fused3d_forward`` launches the plan's kernels; on a CPU
+tensor it runs their plain versions (``_pack3d_reference``,
+``_fused3d_forward_reference``, ``_fused3d_tap_reference``), the same
+pipeline written with torch ops (the counterpart of the JAX package's
+Pallas interpret mode). There is no other route: a CUDA tensor launches the
+kernel or raises.
 
 Gradients: ``_Fused3dCore`` is a ``torch.autograd.Function`` whose backward
 is the composed path, shared with the 1D and 2D kernels
 (``fused1d._fused_bwd``). ``fft_conv_transpose3d_fused`` runs a transposed
 convolution through the same forward on a zero-stuffed signal.
+``plan_fft_conv3d`` bakes the kernel spectra once for serving.
 
-Not ported from the JAX module: ``plan_fft_conv3d`` and the TPU's precision,
-MAC, staging, inline-spectra and x-pack switches (ROADMAP §A, §B).
+Not ported from the JAX module: the TPU's precision, MAC, staging and
+inline-spectra switches (ROADMAP §A).
 """
 
 import ctypes
@@ -42,9 +51,10 @@ import torch.nn.functional as TF
 
 from ..ops import functional as F
 from ..ops.spectral import _dft_mats, _irfft_mats, _rfft_mats
+from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
-from .fused1d import _fused_bwd
+from .fused1d import _fused_bwd, _spectra_or
 
 # W transform length, and the D blocks: 16 samples on a hop of 8
 _TW = 64
@@ -75,10 +85,29 @@ _SMEM_LIMIT = 232448
 _SCRATCH_BUDGET = 256 * 2**20
 
 # Launches since import or the last reset, one per range of items: of B3's
-# chain of four kernels (v4 plans) and of B4's chain of three (tap plans).
-# The plain versions on CPU tensors do not count.
+# chain of four kernels (v4 plans) and of B4's chain of three (tap plans);
+# and of B6, one per call of a 'v4' plan under "pk". The plain versions on
+# CPU tensors do not count.
 launches = 0
 launches_tap = 0
+launches_pack = 0
+
+# How a 'v4' plan reads the signal; _fused3d_forward reads it at call time.
+# "pk" runs B6 ahead of B3. "h", "h2", "d2" and "d0" name the JAX package's
+# TPU HBM layouts, which have no kernel here: under them B3 reads (B, Cin, D,
+# H, W) directly. The default is the JAX package's.
+_XPACK3D = "h2"
+
+
+def set_fused3d_xpack(mode: str) -> None:
+    """Selects how a 'v4' plan's kernel reads the signal: "pk" packs it with
+    kernel B6 and runs B3 on the packed layout; "h", "h2", "d2" and "d0"
+    (the JAX package's TPU layouts) keep B3's direct read. Both compute the
+    same function."""
+    global _XPACK3D
+    if mode not in ("h", "d2", "d0", "h2", "pk"):
+        raise ValueError(f"unknown fused 3D x-pack mode: {mode!r}")
+    _XPACK3D = mode
 
 
 def _tap_counts(kd: int) -> Tuple[int, int]:
@@ -195,15 +224,18 @@ def _plan_tap(cin: int, cout: int, d: int, h: int, w: int,
     return ("tap", nbh, vdp, vdp - 8 + wrows)
 
 
+def _w_starts(w: int, nwb: int, hop: int):
+    """The first input column of each W block: the last block is clamped to
+    end at the input's edge."""
+    return [min(i * hop, max(w - _TW, 0)) for i in range(nwb)]
+
+
 def _w_blocks(w: int, ow: int, nwb: int, hop: int):
     """[(start, lo, hi)] per W block: input columns [start, start + 64),
-    stored output columns start + [lo, hi). The last block is clamped to end
-    at the input's edge; its first lo columns repeat its neighbour's."""
-    out = []
-    for i in range(nwb):
-        start = min(i * hop, max(w - _TW, 0))
-        out.append((start, i * hop - start, min(hop, ow - start)))
-    return out
+    stored output columns start + [lo, hi). The clamped last block's first
+    lo columns repeat its neighbour's."""
+    return [(start, i * hop - start, min(hop, ow - start))
+            for i, start in enumerate(_w_starts(w, nwb, hop))]
 
 
 @lru_cache(maxsize=None)
@@ -302,20 +334,45 @@ def _plan_for(x_shape, kernel_shape, groups: int, mode: Optional[str] = None):
     return blocked
 
 
-def _stack_w_blocks(x: torch.Tensor, blocks) -> torch.Tensor:
-    """(B, Cin, D, H, W) -> (B * nwb, Cin, D, H, <= 64): the W blocks stacked
-    into the batch."""
-    if len(blocks) == 1:
+def _stack_w_blocks(x: torch.Tensor, starts) -> torch.Tensor:
+    """(B, Cin, D, H, W) -> (B * nwb, Cin, D, H, <= 64): the W blocks that
+    start at ``starts`` stacked into the batch."""
+    if len(starts) == 1:
         return x
     b, cin, d, h, _ = x.shape
-    x = torch.stack([x[..., s:s + _TW] for s, _, _ in blocks], dim=1)
-    return x.reshape(b * len(blocks), cin, d, h, _TW)
+    x = torch.stack([x[..., s:s + _TW] for s in starts], dim=1)
+    return x.reshape(b * len(starts), cin, d, h, _TW)
 
 
-def _hw_forward_reference(x: torch.Tensor, fr, fi, wr, wi):
+def _pack3d_reference(x_padded: torch.Tensor, pp: int, nwb: int, hop: int) -> torch.Tensor:
+    """Kernel B6's plain PyTorch version: (B, Cin, D, H, W) -> xp (B * nwb,
+    H, Cin·PP, 128), xp[b·nwb + j, h, c·PP + p, 64·s + w] = x[b, c, 2p + s,
+    h, start_j + w], zeros past D and past W: the W blocks stacked, D padded
+    to 2·PP and W to 64, and the d-pairs of each channel put side by side in
+    the lanes, H outermost (the JAX package's pad, stack and
+    ``_pack3d_call``)."""
+    b, cin, d, h, w = x_padded.shape
+    x = _stack_w_blocks(x_padded, _w_starts(w, nwb, hop))
+    x = TF.pad(x, (0, _TW - x.shape[-1], 0, 0, 0, 2 * pp - d))
+    x = x.reshape(b * nwb, cin, pp, 2, h, _TW).permute(0, 4, 1, 2, 3, 5)
+    return x.reshape(b * nwb, h, cin * pp, 2 * _TW)
+
+
+def _hw_forward_reference(x: torch.Tensor, fr, fi, wr, wi, packed=None):
     """(re, im) of the one-sided H DFT and then the W DFT-64 of every d-slab
-    of the stacked blocks (W zero-padded to 64): (B', Cin, D, NBH, 64)."""
-    x = TF.pad(x, (0, _TW - x.shape[-1]))
+    of the stacked blocks (W zero-padded to 64): (B', Cin, D, NBH, 64).
+
+    ``x`` is the stacked blocks (B', Cin, D, H, <= 64); with ``packed`` =
+    (Cin, D) it is B6's layout (B', H, Cin·PP, 128) instead, read slab by
+    slab as B3 reads it: slab d of channel c is row c·PP + d // 2, lanes
+    64·(d % 2) + [0, 64)."""
+    if packed is None:
+        x = TF.pad(x, (0, _TW - x.shape[-1]))
+    else:
+        cin, d = packed
+        bb, h, rows, _ = x.shape
+        x = x.reshape(bb, h, cin, rows // cin, 2, _TW).permute(0, 2, 3, 4, 1, 5)
+        x = x.reshape(bb, cin, 2 * (rows // cin), h, _TW)[:, :, :d].contiguous()
     hr, hi = fr @ x, fi @ x
     return hr @ wr - hi @ wi, hr @ wi + hi @ wr
 
@@ -334,7 +391,8 @@ def _hw_inverse_reference(zr, zi, ur, ui, cr, ci, blocks, ow: int) -> torch.Tens
 
 
 def _fused3d_forward_reference(
-    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1
+    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
+    spectra: Optional[torch.Tensor] = None, packed: bool = False,
 ) -> torch.Tensor:
     """Kernel B3's plain PyTorch version: the same blocked pipeline in split
     re/im arithmetic, float64 for a float64 signal and float32 otherwise.
@@ -342,7 +400,10 @@ def _fused3d_forward_reference(
     ``x_padded`` (B, Cin, D, H, W) already padded, ``kernel`` (Cout, Cin/g,
     KD, KH, KW) already dilated, and a 'v4' plan; returns the valid
     correlation (B, Cout, OD, OH, OW). W wider than 64 runs as stacked
-    overlap-save blocks.
+    overlap-save blocks. ``spectra``: the baked ``kernel_spectra_3d``, or
+    None to compute them. ``packed``: pack the signal first
+    (``_pack3d_reference``, B6) and read the packed layout, as B3 does
+    under "pk".
     """
     dt = torch.float64 if x_padded.dtype == torch.float64 else torch.float32
     b, cin, d, h, w = x_padded.shape
@@ -355,7 +416,12 @@ def _fused3d_forward_reference(
 
     # one-sided H DFT, then the W DFT-64, per d-slab; D to the NBD + 1
     # chunks of 8 slabs that the blocks read (zeros past D)
-    tr, ti = _hw_forward_reference(_stack_w_blocks(x_padded.to(dt), blocks), fr, fi, wr, wi)
+    if packed:
+        xp = _pack3d_reference(x_padded.to(dt), plan[3], nwb, hop)
+        tr, ti = _hw_forward_reference(xp, fr, fi, wr, wi, packed=(cin, d))
+    else:
+        x = _stack_w_blocks(x_padded.to(dt), [s for s, _, _ in blocks])
+        tr, ti = _hw_forward_reference(x, fr, fi, wr, wi)
     dpad = (0, 0, 0, 0, 0, _DHOP * (nbd + 1) - d)
     tr, ti = TF.pad(tr, dpad), TF.pad(ti, dpad)
     # D: blocks of 16 slabs on a hop of 8, a DFT-16 each
@@ -365,7 +431,7 @@ def _fused3d_forward_reference(
     si = (tr @ di + ti @ dr).permute(0, 1, 2, 5, 3, 4)
 
     # pointwise complex MAC over each out-channel's group of in-channels
-    ks = kernel_spectra_3d(kernel.to(dt), h)        # (Cout, Cin/g, 16, NBH, 64)
+    ks = _spectra_or(spectra, dt, lambda: kernel_spectra_3d(kernel.to(dt), h))
     kr = ks.real.reshape(groups, cout // groups, cpg, _DB, nbh, _TW)
     ki = ks.imag.reshape(groups, cout // groups, cpg, _DB, nbh, _TW)
     bb = b * nwb
@@ -385,7 +451,8 @@ def _fused3d_forward_reference(
 
 
 def _fused3d_tap_reference(
-    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1
+    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
+    spectra: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Kernel B4's plain PyTorch version: the same pipeline in split re/im
     arithmetic, float64 for a float64 signal and float32 otherwise.
@@ -393,7 +460,8 @@ def _fused3d_tap_reference(
     ``x_padded`` (B, Cin, D, H, W) already padded, ``kernel`` (Cout, Cin/g,
     KD, KH, KW) already dilated, and a 'tap' plan; returns the valid
     correlation (B, Cout, OD, OH, OW). W wider than 64 runs as stacked
-    overlap-save blocks.
+    overlap-save blocks. ``spectra``: the baked ``kernel_spectra_tap``, or
+    None to compute them.
     """
     dt = torch.float64 if x_padded.dtype == torch.float64 else torch.float32
     b, cin, d, h, w = x_padded.shape
@@ -405,14 +473,15 @@ def _fused3d_tap_reference(
     fr, fi, wr, wi, ur, ui, _, _, _, _, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
 
     # one-sided H DFT, then the W DFT-64, per d-slab
-    tr, ti = _hw_forward_reference(_stack_w_blocks(x_padded.to(dt), blocks), fr, fi, wr, wi)
+    x = _stack_w_blocks(x_padded.to(dt), [s for s, _, _ in blocks])
+    tr, ti = _hw_forward_reference(x, fr, fi, wr, wi)
     # D stays in the tap domain: the KD slabs from each valid d on
     bb = b * nwb
     tr = tr.reshape(bb, groups, cpg, d, nbh, _TW).unfold(3, kd, 1)  # (B', g, Cin/g, OD, NBH, 64, KD)
     ti = ti.reshape(bb, groups, cpg, d, nbh, _TW).unfold(3, kd, 1)
 
     # correlation over the taps and the group's in-channels, per (h, w) bin
-    ks = kernel_spectra_tap(kernel.to(dt), h)       # (Cout, Cin/g, KD, NBH, 64)
+    ks = _spectra_or(spectra, dt, lambda: kernel_spectra_tap(kernel.to(dt), h))
     kr = ks.real.reshape(groups, cout // groups, cpg, kd, nbh, _TW)
     ki = ks.imag.reshape(groups, cout // groups, cpg, kd, nbh, _TW)
     mac = "bgcdnzt,goctnz->bgodnz"
@@ -427,8 +496,10 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused3d")
     if lib.fused3d_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused3d_forward.argtypes = [p] * 12 + [i] * 14 + [p]
+        lib.fused3d_forward.argtypes = [p] * 12 + [i] * 15 + [p]
         lib.fused3d_forward.restype = i
+        lib.fused3d_pack.argtypes = [p] * 2 + [i] * 8 + [p]
+        lib.fused3d_pack.restype = i
         lib.fused3d_tap_forward.argtypes = [p] * 9 + [i] * 14 + [p]
         lib.fused3d_tap_forward.restype = i
         lib.fused3d_error_string.argtypes = [i]
@@ -451,13 +522,44 @@ def _raise_on_error(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {err})")
 
 
+def _launch_pack3d(
+    x_padded: torch.Tensor, pp: int, nwb: int, hop: int, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Runs kernel B6 on ``x_padded`` (B, Cin, D, H, W) float32 on a CUDA
+    device: returns xp (B * nwb, H, Cin·PP, 128) float32, the layout of
+    ``_pack3d_reference``, written into ``out`` when one is given."""
+    global launches_pack
+    if not x_padded.is_cuda or x_padded.dtype != torch.float32:
+        raise ValueError("fused3d pack kernel takes a float32 signal on a CUDA device")
+    x_padded = x_padded.contiguous()
+    b, cin, d, h, w = x_padded.shape
+    shape = (b * nwb, h, cin * pp, 2 * _TW)
+    if out is None:
+        out = torch.empty(shape, device=x_padded.device, dtype=torch.float32)
+    elif (tuple(out.shape) != shape or out.dtype != torch.float32
+          or out.device != x_padded.device or not out.is_contiguous()):
+        raise ValueError(f"fused3d pack kernel: out must be a contiguous float32 {shape} "
+                         f"on {x_padded.device}")
+    lib = _library()
+    with torch.cuda.device(x_padded.device):
+        err = lib.fused3d_pack(
+            x_padded.data_ptr(), out.data_ptr(), b, cin, d, h, w, pp, nwb, hop,
+            torch.cuda.current_stream(x_padded.device).cuda_stream,
+        )
+    _raise_on_error(lib, err, "fused3d pack")
+    launches_pack += 1
+    return out
+
+
 def _launch_fused3d(
-    x_padded: torch.Tensor, spectra: torch.Tensor, groups: int, k: Tuple[int, int, int]
+    x_padded: torch.Tensor, spectra: torch.Tensor, groups: int, k: Tuple[int, int, int],
+    packed: bool = False,
 ) -> torch.Tensor:
     """Runs kernel B3's chain on ``x_padded`` (B, Cin, D, H, W) float32 with
     the conjugated spectra (Cout, Cin/g, 16, NBH, 64) complex64 of a (KD, KH,
     KW) kernel whose plan is 'v4', both on one CUDA device. Returns the valid
-    correlation (B, Cout, OD, OH, OW)."""
+    correlation (B, Cout, OD, OH, OW). ``packed``: pack the signal with
+    kernel B6 first and let B3 read the packed layout ("pk")."""
     global launches
     _check_launch_inputs(x_padded, spectra, "fused3d")
     x_padded = x_padded.contiguous()
@@ -478,6 +580,8 @@ def _launch_fused3d(
     chunk = max(1, min(items, _SCRATCH_BUDGET // per_item))
 
     lib = _library()
+    pp = plan[3] if packed else 0
+    x = _launch_pack3d(x_padded, pp, nwb, hop) if packed else x_padded
     mats = _device_mats(h, oh, x_padded.device)
     dev, c64 = x_padded.device, torch.complex64
     out = torch.empty((b, cout, od, oh, ow), device=dev, dtype=torch.float32)
@@ -488,10 +592,10 @@ def _launch_fused3d(
     with torch.cuda.device(dev):
         for item0 in range(0, items, chunk):
             err = lib.fused3d_forward(
-                x_padded.data_ptr(), spectra.data_ptr(), *(m.data_ptr() for m in mats),
+                x.data_ptr(), spectra.data_ptr(), *(m.data_ptr() for m in mats),
                 t.data_ptr(), s.data_ptr(), z.data_ptr(), out.data_ptr(),
                 cin, cout, groups, d, h, w, od, oh, ow, nbd, nwb, hop,
-                item0, min(chunk, items - item0), stream,
+                item0, min(chunk, items - item0), pp, stream,
             )
             _raise_on_error(lib, err, "fused3d")
             launches += 1
@@ -542,30 +646,40 @@ def _launch_fused3d_tap(
     return out
 
 
-def _fused3d_forward(x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1):
+def _fused3d_forward(
+    x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
+    spectra: Optional[torch.Tensor] = None,
+):
     """Valid correlation of ``x_padded`` with ``kernel`` through the plan's
-    kernel (B3 for 'v4', B4 for 'tap') on a CUDA tensor, through its plain
-    version on a CPU one."""
+    kernels (B3 for 'v4', after B6 under "pk"; B4 for 'tap') on a CUDA
+    tensor, through their plain versions on a CPU one. ``spectra``: the
+    plan's baked kernel spectra (``kernel_spectra_3d`` for 'v4',
+    ``kernel_spectra_tap`` for 'tap'), or None to compute them."""
     if x_padded.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused3d runs on CUDA or CPU tensors, got {x_padded.device}")
     tap = _plan_for(x_padded.shape, kernel.shape, groups)[0][0] == "tap"
+    packed = not tap and _XPACK3D == "pk"
     if x_padded.is_cuda:
         h, k = x_padded.shape[3], tuple(kernel.shape[2:])
         if tap:
-            return _launch_fused3d_tap(x_padded.float(), kernel_spectra_tap(kernel, h), groups, k)
-        return _launch_fused3d(x_padded.float(), kernel_spectra_3d(kernel, h), groups, k)
-    reference = _fused3d_tap_reference if tap else _fused3d_forward_reference
-    return reference(x_padded.float(), kernel.float(), groups)
+            ks = kernel_spectra_tap(kernel, h) if spectra is None else spectra
+            return _launch_fused3d_tap(x_padded.float(), ks, groups, k)
+        ks = kernel_spectra_3d(kernel, h) if spectra is None else spectra
+        return _launch_fused3d(x_padded.float(), ks, groups, k, packed)
+    if tap:
+        return _fused3d_tap_reference(x_padded.float(), kernel.float(), groups, spectra)
+    return _fused3d_forward_reference(x_padded.float(), kernel.float(), groups, spectra, packed)
 
 
 class _Fused3dCore(torch.autograd.Function):
-    """The fused 3D correlation with the composed path as its backward."""
+    """The fused 3D correlation with the composed path as its backward;
+    ``spectra`` are a plan's baked kernel spectra (None: computed per call)."""
 
     @staticmethod
-    def forward(ctx, x_padded, kernel, groups):
+    def forward(ctx, x_padded, kernel, groups, spectra=None):
         ctx.save_for_backward(x_padded, kernel)
         ctx.groups = groups
-        return _fused3d_forward(x_padded, kernel, groups)
+        return _fused3d_forward(x_padded, kernel, groups, spectra)
 
     @staticmethod
     def backward(ctx, g):
@@ -574,7 +688,7 @@ class _Fused3dCore(torch.autograd.Function):
             x_padded, kernel, g.contiguous(), ctx.groups,
             ctx.needs_input_grad[0], ctx.needs_input_grad[1],
         )
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def fft_conv3d_fused(
@@ -680,3 +794,48 @@ def fft_conv_transpose3d_fused(
         to_ntuple(dilation, 3), groups, to_ntuple(output_padding, 3),
         lambda x, w, g: fft_conv3d_fused(x, w, groups=g),
     )
+
+
+def plan_fft_conv3d(
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    padding=0,
+    padding_mode: str = "constant",
+    *,
+    signal_dhw,
+    device: Device = None,
+):
+    """Serving plan: the kernel's spectra for the plan's kernel (B3's for
+    'v4', B4's for 'tap') are computed once, on ``device`` (the card unless
+    ``device="cpu"``), and the returned ``fn(signal) -> out`` only
+    transforms the signal, whose spatial shape must be ``signal_dhw``. The
+    port of the JAX package's ``plan_fft_conv3d``: groups=1, stride=1,
+    dilation=1; W wider than 64 runs in W blocks, which share the spectra.
+    Raises ValueError where no fused plan fits. The signal's gradient flows
+    through the composed path; the baked kernel is a constant."""
+    if kernel.ndim != 5:
+        raise ValueError("plan_fft_conv3d expects (Cout, Cin, KD, KH, KW)")
+    dev = resolve_device(device, "plans are built")
+    padding_ = to_ntuple(padding, 3)
+    d, h, w = (int(s) for s in signal_dhw)
+    cout, cin, kd, kh, kw = kernel.shape
+    dp, hp, wp = d + 2 * padding_[0], h + 2 * padding_[1], w + 2 * padding_[2]
+    if kd > dp or kh > hp or kw > wp:
+        raise ValueError("Kernel size can't be greater than actual input size")
+    blocked = plan_3d_blocked(cin, cout, dp, hp, wp, kd, kh, kw)
+    if blocked is None:
+        raise ValueError("no fused 3D configuration fits this shape")
+    kernel = kernel.detach().to(dev, torch.float32)
+    bias = None if bias is None else bias.detach().to(dev, torch.float32)
+    spectra_of = kernel_spectra_3d if blocked[0][0] == "v4" else kernel_spectra_tap
+    spectra = spectra_of(kernel, hp)
+
+    def planned(signal: torch.Tensor) -> torch.Tensor:
+        check_planned_signal(signal, (d, h, w), dev)
+        x = F._pad_signal(signal, padding_, padding_mode)
+        out = _Fused3dCore.apply(x.float(), kernel, 1, spectra)
+        if bias is not None:
+            out = out + bias.reshape(1, -1, 1, 1, 1)
+        return out.to(signal.dtype)
+
+    return planned

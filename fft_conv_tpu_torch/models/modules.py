@@ -24,22 +24,13 @@ import torch
 from torch import nn
 
 from ..ops.functional import IMPLS, fft_conv, fft_conv_transpose
+from ..utils.device import resolve_device
 from ..utils.shapes import to_ntuple
 from .init import init_conv_params
 
 IntOrTuple = Union[int, Iterable[int]]
 
 _CONV_PADDING_MODES = ("zeros", "reflect", "replicate", "circular")
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: FFT convolution layers are built on the card "
-            "unless device='cpu' is passed"
-        )
-    return dev
 
 
 class _FFTConvBase(nn.Module):
@@ -106,7 +97,7 @@ class _FFTConvBase(nn.Module):
             generator = torch.Generator().manual_seed(0)
         weight, bias_ = init_conv_params(
             generator, weight_shape, bias, self.out_channels, dtype=dtype,
-            device=_resolve_device(device),
+            device=resolve_device(device, "FFT convolution layers are built"),
         )
         self.weight = nn.Parameter(weight)
         self.bias = None if bias_ is None else nn.Parameter(bias_)

@@ -1,3 +1,10 @@
 from .functional import complex_matmul, fft_conv, fft_conv_transpose
+from .plan import plan_fft_conv, plan_fft_conv_transpose
 
-__all__ = ["fft_conv", "fft_conv_transpose", "complex_matmul"]
+__all__ = [
+    "fft_conv",
+    "fft_conv_transpose",
+    "complex_matmul",
+    "plan_fft_conv",
+    "plan_fft_conv_transpose",
+]

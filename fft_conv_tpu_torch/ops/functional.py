@@ -148,19 +148,34 @@ def _stuff_signal(signal: torch.Tensor, k_dil, stride_) -> torch.Tensor:
     return out
 
 
+def _stuff_full(signal: torch.Tensor, k_dil, stride_, output_padding_) -> torch.Tensor:
+    """The signal of a transposed conv's full correlation: stride-1 zeros
+    between samples, then one ``F.pad`` with K-1 on the left and
+    K-1+output_padding on the right of each spatial dim."""
+    x = signal
+    if any(t != 1 for t in stride_):
+        x = signal.new_zeros(
+            tuple(signal.shape[:2])
+            + tuple((s - 1) * t + 1 for s, t in zip(signal.shape[2:], stride_))
+        )
+        x[(slice(None), slice(None)) + tuple(slice(None, None, t) for t in stride_)] = signal
+    pad = []
+    for k, op in zip(reversed(tuple(k_dil)), reversed(tuple(output_padding_))):
+        pad += [k - 1, k - 1 + op]  # F.pad lists the last dim first
+    return F.pad(x, pad)
+
+
 def _fused_transpose(signal, kernel, bias, padding_, stride_, dilation_, groups,
                      output_padding_, forward):
     """A transposed convolution through a fused forward: the shared body of
     ``fft_conv_transpose{1,2,3}d_fused``.
 
-    It is the full correlation of the zero-stuffed signal with the flipped,
-    (Cin, Cout/g)-swapped, dilated kernel (``_transpose_kernel_layout``),
-    cropped by ``padding`` on each side. The stuffed signal is the signal
-    with stride-1 zeros between samples, padded by one ``F.pad`` with K-1
-    on the left and K-1+output_padding on the right. ``forward(x, w,
-    groups)`` is the rank's unit-stride fused forward; where it returns None
-    (no plan fits), so does this. As in the JAX package, an output_padding
-    past torch's limit is accepted.
+    It is the full correlation of the zero-stuffed signal (``_stuff_full``)
+    with the flipped, (Cin, Cout/g)-swapped, dilated kernel
+    (``_transpose_kernel_layout``), cropped by ``padding`` on each side.
+    ``forward(x, w, groups)`` is the rank's unit-stride fused forward; where
+    it returns None (no plan fits), so does this. As in the JAX package, an
+    output_padding past torch's limit is accepted.
     """
     cin = kernel.shape[0]
     if signal.shape[1] != cin:
@@ -175,16 +190,7 @@ def _fused_transpose(signal, kernel, bias, padding_, stride_, dilation_, groups,
             f"non-positive output shape {out_shape} (spatial {tuple(signal.shape[2:])}, "
             f"kernel {tuple(kernel.shape[2:])}, padding {padding_})"
         )
-    x = signal
-    if any(t != 1 for t in stride_):
-        x = signal.new_zeros(
-            tuple(signal.shape[:2]) + tuple((s - 1) * t + 1 for s, _, t, _, _ in dims)
-        )
-        x[(slice(None), slice(None)) + tuple(slice(None, None, t) for t in stride_)] = signal
-    pad = []
-    for _, k, _, _, op in reversed(dims):  # F.pad lists the last dim first
-        pad += [k - 1, k - 1 + op]
-    out = forward(F.pad(x, pad), w, groups)
+    out = forward(_stuff_full(signal, w.shape[2:], stride_, output_padding_), w, groups)
     if out is None:
         return None
     out = out[(slice(None), slice(None))

@@ -6,12 +6,12 @@ the conversion is a copy of numpy arrays onto a device. The caller turns the
 JAX arrays into numpy (``np.asarray``); this module imports no JAX.
 """
 
-from typing import Mapping, Optional, Tuple, Union
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-Device = Union[str, torch.device, None]
+from .device import Device, resolve_device
 
 
 def _to_tensor(array, device: Device) -> torch.Tensor:
@@ -19,9 +19,11 @@ def _to_tensor(array, device: Device) -> torch.Tensor:
 
 
 def params_from_jax(
-    weight: np.ndarray, bias: Optional[np.ndarray], device: Device = "cpu"
+    weight: np.ndarray, bias: Optional[np.ndarray], device: Device = None
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(weight, bias-or-None) as float32 tensors on ``device``."""
+    """(weight, bias-or-None) as float32 tensors on ``device``, the card
+    unless ``device="cpu"`` is passed (RuntimeError without a card)."""
+    device = resolve_device(device, "parameters are carried")
     return (
         _to_tensor(weight, device),
         None if bias is None else _to_tensor(bias, device),

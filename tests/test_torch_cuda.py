@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the fused 1D, 2D and 3D kernels (B1, B2, B5, B3
-and B4) against their plain versions, and the routes that only a CUDA tensor
-takes.
+"""The port on a CUDA card: the fused 1D, 2D and 3D kernels (B1, B2, B5, B3,
+B4 and the x-pack kernel B6) against their plain versions, the serving
+plans, and the routes that only a CUDA tensor takes.
 
 Every test here is marked ``cuda`` and skips without a card. The file imports
 no JAX, so it also runs where JAX is not installed:
@@ -468,3 +468,158 @@ def test_3d_transpose_fused_on_cuda(cuda, k, st, pad, op, dil, groups):
         layer.weight.copy_(w)
         layer.bias.copy_(b)
     _assert_close_scaled(layer(x).detach().cpu().numpy(), y_ref.cpu().numpy())
+
+
+# (B, Cin, D, H, W, (KD, KH, KW), groups): B6 at the benchmark row (PP = 40,
+# D = 64 padded to 80), D < 2PP with W < 64, two W blocks whose clamped last
+# block starts off 16 B alignment (the stuffed 78^3 volume's W), groups = 2,
+# and H large enough for SB = 1 in B3
+PACK3D = [
+    (2, 8, 64, 64, 64, (8, 8, 8), 1),
+    (1, 2, 20, 16, 14, (5, 3, 3), 1),
+    (2, 3, 12, 6, 78, (3, 3, 8), 1),
+    (1, 4, 9, 5, 64, (2, 3, 3), 2),
+    (1, 1, 9, 460, 8, (2, 2, 2), 1),
+]
+
+
+@pytest.mark.parametrize("b,cin,d,h,w,k,groups", PACK3D)
+def test_pack_kernel_equals_plain_version_and_pk_equals_direct(cuda, b, cin, d, h, w, k, groups):
+    """B6 writes every element (the output starts as NaN) and equals its
+    plain version exactly; B3 reading the packed layout gives B3's direct
+    result bit for bit."""
+    x, kern = _tensors(cuda, d + h + w, (b, cin, d, h, w), (cin, cin // groups) + k)
+    kern /= (cin // groups * k[0] * k[1] * k[2]) ** 0.5
+    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cin, d, h, w, *k, groups)
+    assert plan[0] == "v4"
+    out = torch.full((b * nwb, h, cin * plan[3], 128), float("nan"), device=cuda)
+    before = fused3d.launches_pack
+    xp = fused3d._launch_pack3d(x, plan[3], nwb, hop, out=out)
+    torch.cuda.synchronize()
+    assert fused3d.launches_pack == before + 1 and xp.data_ptr() == out.data_ptr()
+    assert torch.equal(xp, fused3d._pack3d_reference(x, plan[3], nwb, hop))
+    spectra = fused3d.kernel_spectra_3d(kern, h)
+    direct = fused3d._launch_fused3d(x, spectra, groups, k)
+    packed = fused3d._launch_fused3d(x, spectra, groups, k, packed=True)
+    torch.cuda.synchronize()
+    assert fused3d.launches_pack == before + 2
+    assert torch.equal(packed, direct)
+    y_ref = fused3d._fused3d_forward_reference(x, kern, groups, packed=True)
+    _assert_close_scaled(packed.cpu().numpy(), y_ref.cpu().numpy())
+
+
+def test_pk_routes_on_cuda(cuda):
+    """Under "pk" a 'v4' call of auto, of a layer and of the fused transposed
+    route runs B6 and then B3; a 'tap' call runs B4 alone."""
+    x, w, wt = _tensors(cuda, 23, (2, 4, 18, 20, 16), (6, 2, 3, 3, 3), (6, 2, 11, 3, 3))
+    try:
+        fused3d.set_fused3d_xpack("pk")
+        before = fused3d.launches, fused3d.launches_tap, fused3d.launches_pack
+        y = ft.fft_conv(x, w, groups=2, padding=1)
+        assert (fused3d.launches, fused3d.launches_tap, fused3d.launches_pack) == (
+            before[0] + 1, before[1], before[2] + 1)
+        _assert_close_scaled(y.cpu().numpy(),
+                             ft.fft_conv(x, w, groups=2, padding=1, impl="xla").cpu().numpy())
+        y = ft.fft_conv(x, wt, groups=2)
+        assert (fused3d.launches_tap, fused3d.launches_pack) == (before[1] + 1, before[2] + 1)
+        _assert_close_scaled(y.cpu().numpy(),
+                             ft.fft_conv(x, wt, groups=2, impl="xla").cpu().numpy())
+        layer = ft.FFTConv3d(4, 4, 5, padding=1, generator=torch.Generator().manual_seed(2))
+        xg = x.clone().requires_grad_()
+        (layer(xg) ** 2).mean().backward()
+        assert fused3d.launches_pack == before[2] + 2
+        gx = xg.grad.clone()
+        xg.grad = None
+        (ft.fft_conv(xg, layer.weight, layer.bias, padding=1, impl="xla") ** 2).mean().backward()
+        _assert_close_scaled(gx.cpu().numpy(), xg.grad.cpu().numpy())
+        wtr = w[:4].reshape(4, 2, 3, 3, 3)  # (Cin, Cout, K, K, K)
+        y = ft.fft_conv_transpose(x, wtr, stride=2, impl="fused")
+        assert fused3d.launches_pack == before[2] + 3
+        _assert_close_scaled(
+            y.cpu().numpy(), ft.fft_conv_transpose(x, wtr, stride=2, impl="xla").cpu().numpy())
+    finally:
+        fused3d.set_fused3d_xpack("h2")
+
+
+def _counting_spectra(monkeypatch):
+    calls = []
+    for module, name in ((fused1d, "kernel_spectra_one_sided"),
+                         (fused2d, "kernel_spectra_2d"), (fused2d, "kernel_spectra_2d_planes"),
+                         (fused3d, "kernel_spectra_3d"), (fused3d, "kernel_spectra_tap")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name,
+                            lambda *a, _r=real, _n=name, **k: calls.append(_n) or _r(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("ndim,kernel_shape,counter", [
+    (1, (4, 4, 300), (fused1d, "launches")),
+    (2, (4, 4, 9, 7), (fused2d, "launches")),
+    (3, (4, 4, 5, 3, 3), (fused3d, "launches")),
+    (3, (4, 4, 11, 3, 3), (fused3d, "launches_tap")),
+])
+def test_plan_on_cuda_launches_its_kernel_once_per_call(cuda, monkeypatch, ndim, kernel_shape,
+                                                        counter):
+    """A plan on the card is tier 1: each call launches its kernel once and
+    computes no spectra; the call is CUDA-graph capturable."""
+    spatial = {1: (5000,), 2: (150, 140), 3: (20, 24, 18)}[ndim]
+    x, w, b = _tensors(cuda, 24 + ndim, (2, 4) + spatial, kernel_shape, (4,))
+    plan = ft.ops.plan_fft_conv(w, b, padding=1, signal_spatial=spatial)
+    calls = _counting_spectra(monkeypatch)
+    module, name = counter
+    before = getattr(module, name)
+    y = plan(x)
+    torch.cuda.synchronize()
+    assert getattr(module, name) == before + 1 and calls == []
+    y_ref = ft.fft_conv(x, w, b, padding=1, impl="xla")
+    _assert_close_scaled(y.cpu().numpy(), y_ref.cpu().numpy())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_graph = plan(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y_graph, y)
+    xg = x.clone().requires_grad_()
+    plan(xg).sum().backward()
+    g_ref = x.clone().requires_grad_()
+    ft.fft_conv(g_ref, w, b, padding=1, impl="xla").sum().backward()
+    _assert_close_scaled(xg.grad.cpu().numpy(), g_ref.grad.cpu().numpy())
+
+
+def test_plans_on_cuda_follow_the_switches(cuda):
+    x2, w2, x3, w3 = _tensors(cuda, 25, (2, 4, 150, 140), (4, 4, 9, 7), (1, 4, 20, 24, 18),
+                              (4, 4, 5, 3, 3))
+    plan2 = ft.ops.plan_fft_conv(w2, signal_spatial=(150, 140))
+    plan3 = ft.ops.plan_fft_conv(w3, signal_spatial=(20, 24, 18))
+    y2, y3 = plan2(x2), plan3(x3)
+    try:
+        fused2d.set_fused2d_kernel("v3")
+        fused3d.set_fused3d_xpack("pk")
+        before = fused2d.launches, fused2d.launches_v3, fused3d.launches_pack
+        y2v3, y3pk = plan2(x2), plan3(x3)
+        assert (fused2d.launches, fused2d.launches_v3, fused3d.launches_pack) == (
+            before[0], before[1] + 1, before[2] + 1)
+    finally:
+        fused2d.set_fused2d_kernel("v2")
+        fused3d.set_fused3d_xpack("h2")
+    _assert_close_scaled(y2v3.cpu().numpy(), y2.cpu().numpy())
+    assert torch.equal(y3pk, y3)
+    with pytest.raises(ValueError, match="plan lives on"):
+        plan2(x2.cpu())
+
+
+def test_transposed_plans_on_cuda(cuda):
+    """1D and 2D transposed plans run B1 and B2 on the stuffed signal; the
+    3D one stays on the torch.fft tier."""
+    x1, w1, x2, w2, x3, w3 = _tensors(cuda, 26, (2, 4, 3000), (4, 4, 200), (2, 4, 60, 50),
+                                      (4, 4, 7, 9), (1, 4, 12, 14, 16), (4, 2, 3, 3, 3))
+    for x, w, module, kw in ((x1, w1, fused1d, dict(stride=2, padding=3)),
+                             (x2, w2, fused2d, dict(stride=(2, 1), output_padding=(1, 0))),
+                             (x3, w3, fused3d, dict(stride=2, groups=2))):
+        plan = ft.ops.plan_fft_conv_transpose(w, signal_spatial=x.shape[2:], **kw)
+        before = module.launches
+        y = plan(x)
+        torch.cuda.synchronize()
+        assert module.launches == before + (x.ndim != 5)
+        y_ref = ft.fft_conv_transpose(x, w, impl="xla", **kw)
+        _assert_close_scaled(y.cpu().numpy(), y_ref.cpu().numpy())

@@ -332,6 +332,12 @@ def test_input_rank_is_checked():
         layer(torch.zeros(2, 10))
 
 
+def test_params_from_jax_default_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax(np.ones((2, 3, 4)), np.zeros(2))
+
+
 def test_repr_matches_jax():
     kw = dict(stride=2, padding=1, dilation=2, groups=2, bias=False, padding_mode="reflect")
     j = repr(fc.nn.FFTConv1d(4, 6, 3, **kw))
@@ -342,7 +348,7 @@ def test_repr_matches_jax():
 def test_convert_checks_names_and_shapes():
     w, b = params_from_jax(np.ones((2, 3, 4)), np.zeros(2), device="cpu")
     assert w.dtype == torch.float32 and tuple(w.shape) == (2, 3, 4) and b.shape == (2,)
-    assert params_from_jax(np.ones((2, 3, 4)), None)[1] is None
+    assert params_from_jax(np.ones((2, 3, 4)), None, device="cpu")[1] is None
     layer = ft.FFTConv1d(3, 2, 4, device="cpu")
     module_from_jax_state(layer, {"weight": np.ones((2, 3, 4)), "bias": np.zeros(2)})
     assert torch.equal(layer.weight.detach(), torch.ones(2, 3, 4))
