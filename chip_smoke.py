@@ -140,11 +140,130 @@ def fused1d_work(b, cin, cout, l, k, n, groups=1):
     return nbytes, flops
 
 
+def _free_root(k, n):
+    """A product by the root exp(-2 pi i k / n) needs no flops when the root
+    is 1, -1, i or -i: at most a swap and a sign, which fold into the add."""
+    return 4 * k % n == 0
+
+
+@functools.lru_cache(maxsize=None)
+def _short_dft_flops(n, live, need, kernel):
+    """Flops of one n-point DFT as csrc/fused2d.cu's short_dft runs it, an
+    FMA as two: radix-2 butterflies on the bit-reversed input for a power of
+    two, the dense product for another n. Inputs j >= live are zero and
+    outputs m >= need are not used. kernel: the kernel's own arithmetic
+    (every product by a root other than root[0] = 1 costs 6, every add 2);
+    else only what the outputs need: no product by 1, -1 or +-i, no add
+    with a zero, nothing that reaches no used output."""
+    free = (lambda k: k == 0) if kernel else (lambda k: _free_root(k, n))
+    if n & (n - 1):  # per used output, a product per live term, an add past the first
+        terms = min(live, n)
+        return need * 2 * max(terms - 1, 0) + sum(
+            6 for m in range(need) for j in range(terms) if not free(m * j % n))
+    bits = n.bit_length() - 1
+    masks = [[int(format(i, f"0{bits}b")[::-1], 2) < live for i in range(n)]]
+    for s in range(1, bits):  # masks[s]: the inputs of stage s that may be nonzero
+        prev, half = masks[-1], 1 << (s - 1)
+        masks.append([prev[i] or prev[i ^ half] for i in range(n)])
+    flops, used = 0, [m < need for m in range(n)]
+    for s in reversed(range(len(masks))):
+        half, lv, below = 1 << s, masks[s], [False] * n
+        for p in (i for i in range(n) if not i & half):
+            q, j = p + half, p % half
+            if not (used[p] or used[q]):
+                continue
+            below[p], below[q] = lv[p], lv[q]
+            if lv[q] and not free(j * n // (2 * half)):
+                flops += 6
+            if lv[p] and lv[q]:
+                flops += 2 * (used[p] + used[q])
+        used = below
+    return flops
+
+
+@functools.lru_cache(maxsize=None)
+def _four_step_flops(t, live, need, kernel=False):
+    """Flops of one complex length-t DFT through B2's four-step split
+    (fused2d._SPLITS): B A-point DFTs over j1 of x[j1 B + j2], the twiddle
+    tw[m1, j2], A B-point DFTs onto the bins m1 + A m2. Inputs j >= live are
+    zero, bins m >= need are not used; kernel as _short_dft_flops (the kernel
+    multiplies by the twiddle wherever m1 > 0)."""
+    from fft_conv_tpu_torch.kernels import fused2d
+
+    a, b = fused2d._SPLITS[t]
+    want = [[m1 + a * m2 < need for m2 in range(b)] for m1 in range(a)]
+    rows = sum(map(any, want))  # the A-point DFTs' outputs m1 that step 2 uses
+    flops, live2 = 0, 0
+    for j2 in range(b):
+        lv = sum(j1 * b + j2 < live for j1 in range(a))  # inputs j1 < lv are live
+        if lv == 0:
+            continue
+        live2 = j2 + 1
+        flops += _short_dft_flops(a, lv, rows, kernel)
+        flops += sum(6 for m1 in range(rows)
+                     if (m1 > 0 if kernel else not _free_root(m1 * j2, t)))
+    for m1 in range(rows):
+        flops += _short_dft_flops(b, live2, sum(want[m1]), kernel)
+    return flops
+
+
 def fused2d_work(b, cin, cout, h, w, k, plan, groups=1):
-    """(bytes, flops) the fused 2D function must move and do for one call.
+    """(bytes, flops) the fused 2D function must move and do for one call,
+    with every DFT factored as kernel B2 factors it.
 
     Bytes: the signal and the spectra (Cout, Cin/g, NB1, T2) read once, the
-    output written once. Flops: the dense DFT products of the tiled
+    output written once. Flops, with an FMA as two, counted by
+    _four_step_flops for only what the call needs: no product by 1, -1 or
+    +-i, none over the zeros past the signal's edge and none for outputs
+    that are not stored. Per tile, with rows_in x cols_in samples inside the
+    signal and rows_out x cols_out outputs stored: per input channel the W
+    DFT of the row pairs inside the signal (two real rows as one complex
+    row, zero past cols_in) and the H DFT of T2/2 complex columns (the real
+    columns 0 and T2/2 as one, zero past rows_in); per output channel the
+    MAC over the group's channels (8, Cin/g x NB1 x T2), the inverse W DFT
+    of the NB1 one-sided rows onto the columns of the stored column pairs
+    and the H irfft of those pairs (two real columns as one complex
+    transform) onto the rows_out stored rows."""
+    t1, v1, nb1, t2, v2 = plan
+    oh, ow = h - k + 1, w - k + 1
+    cpg = cin // groups
+    flops = 0
+    for h0 in range(0, oh, v1):
+        rows_in, rows_out = min(t1, h - h0), min(v1, oh - h0)
+        for w0 in range(0, ow, v2):
+            cols_in, pairs = min(t2, w - w0), -(-min(v2, ow - w0) // 2)
+            flops += cin * (-(-rows_in // 2) * _four_step_flops(t2, cols_in, t2)
+                            + t2 // 2 * _four_step_flops(t1, rows_in, t1))
+            flops += cout * (8 * cpg * nb1 * t2 + nb1 * _four_step_flops(t2, t2, 2 * pairs)
+                             + pairs * _four_step_flops(t1, t1, rows_out))
+    nbytes = 4 * b * cin * h * w + 8 * cout * cpg * nb1 * t2 + 4 * b * cout * oh * ow
+    return nbytes, b * flops
+
+
+def fused2d_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
+    """The flops csrc/fused2d.cu's B2 does for one call, over whole T1 x T2
+    tiles with the kernel's own arithmetic (_four_step_flops(kernel=True)):
+    per input channel the W DFT of the T1/2 row pairs and the H DFT of T2/2
+    columns, per output channel the MAC, the inverse W DFT of the NB1 rows
+    and the H irfft of T2/2 column pairs; plus the arithmetic of the
+    real-data packing: splitting the W bins k and -k of two packed rows (4
+    per H input), the DC/Nyquist column split (8 per bin), the Hermitian
+    extension of the inverse's column pairs (2 per H input) and the output
+    scale (1 per sample of the V1 rows)."""
+    t1, v1, nb1, t2, v2 = plan
+    tiles = -(-(h - k + 1) // v1) * -(-(w - k + 1) // v2)
+    f1, f2 = _four_step_flops(t1, t1, t1, True), _four_step_flops(t2, t2, t2, True)
+    fwd = t1 // 2 * f2 + t2 // 2 * f1 + 4 * t1 * t2 // 2 + 8 * nb1
+    inv = 8 * (cin // groups) * nb1 * t2 + nb1 * f2 + t2 // 2 * f1 + 2 * t1 * t2 // 2 + v1 * t2
+    return b * tiles * (cin * fwd + cout * inv)
+
+
+def fused2d_dense_work(b, cin, cout, h, w, k, plan, groups=1):
+    """(bytes, flops) of the fused 2D function with every DFT a dense
+    product, the count PR 7 bounded B2 with, kept for kernel B5 (which
+    still runs dense products) and as B2's `dense_bound_ms`.
+
+    Bytes as fused2d_work. Flops: the dense DFT products of the tiled
     algorithm with an FMA as two, restricted to what the call needs: no
     product over the zeros past the signal's edge and none for outputs that
     are not stored. Per tile, with rows_in x cols_in samples inside the
@@ -152,9 +271,7 @@ def fused2d_work(b, cin, cout, h, w, k, plan, groups=1):
     one-sided H DFT (real x complex, 4 per term, NB1 x rows_in x cols_in)
     and the W DFT (complex, 8, NB1 x cols_in x T2); per output channel, the
     MAC over the group's channels (8, Cin/g x NB1 x T2), the inverse W DFT
-    (8, NB1 x T2 x cols_out) and the H irfft (4, rows_out x NB1 x cols_out).
-    csrc/fused2d.cu does more than this: it runs every product over the
-    whole T1 x T2 tile."""
+    (8, NB1 x T2 x cols_out) and the H irfft (4, rows_out x NB1 x cols_out)."""
     t1, v1, nb1, t2, v2 = plan
     oh, ow = h - k + 1, w - k + 1
     cpg = cin // groups
@@ -168,16 +285,6 @@ def fused2d_work(b, cin, cout, h, w, k, plan, groups=1):
                              + 4 * rows_out * nb1 * cols_out)
     nbytes = 4 * b * cin * h * w + 8 * cout * cpg * nb1 * t2 + 4 * b * cout * oh * ow
     return nbytes, b * flops
-
-
-def fused2d_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
-    """The flops csrc/fused2d.cu does for one call: every product of
-    fused2d_work over the whole T1 x T2 tile, the H irfft on V1 rows."""
-    t1, v1, nb1, t2, v2 = plan
-    tiles = -(-(h - k + 1) // v1) * -(-(w - k + 1) // v2)
-    fwd = 4 * nb1 * t1 * t2 + 8 * nb1 * t2 * t2
-    inv = 8 * (cin // groups) * nb1 * t2 + 8 * nb1 * t2 * t2 + 4 * v1 * nb1 * t2
-    return b * tiles * (cin * fwd + cout * inv)
 
 
 def fused2d_v3_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
@@ -296,9 +403,11 @@ def bound(nbytes, flops):
 
 def check_fused2d(torch, dev, gen):
     """B2 against its plain version on the card at the 2D benchmark rows,
-    with groups=2, through fft_conv2d_fused's argument surface, and with
-    the tiles split over several launches. Returns the rows' inputs and
-    their max abs errors."""
+    with groups=2, at every other plan tile_plan_2d admits (T1 = 256 with
+    K1 = 70, T1 = 384 with K1 = 200, T2 = 256 with K2 = 100, alone and with
+    groups=2), through fft_conv2d_fused's argument surface, and with the
+    tiles split over several launches. Returns the rows' inputs and their
+    max abs errors."""
     from fft_conv_tpu_torch.kernels import fused2d
     from fft_conv_tpu_torch.ops import functional as F
 
@@ -310,34 +419,46 @@ def check_fused2d(torch, dev, gen):
                   f"tile plan's shared memory at T1={t1}, T2={t2} differs from the "
                   f"kernel's {smem}")
 
+    def vs_plain(x, wt, groups, what, **extra):
+        cout, cpg, k1, k2 = wt.shape
+        plan = fused2d.tile_plan_2d(k1, k2, cpg, cout)
+        spectra = fused2d.kernel_spectra_2d(wt, plan[0], plan[2], plan[3])
+        before = fused2d.launches, fused2d.launches_v3
+        y = fused2d._launch_fused2d(x, spectra, plan, groups, (k1, k2))
+        torch.cuda.synchronize()
+        launched = fused2d.launches - before[0], fused2d.launches_v3 - before[1]
+        check(launched[0] >= 1 and launched[1] == 0, f"B2 {what}: launched (B2, B5) {launched}")
+        mx, mean, sigma = close_scaled(
+            y, fused2d._fused2d_forward_reference(x, wt, groups), f"B2 vs plain, {what}")
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B2", "case": what,
+                          "plan": dict(zip(("T1", "V1", "NB1", "T2", "V2"), plan)),
+                          "launches": launched[0], "max_abs_err": mx, "mean_abs_err": mean,
+                          "sigma": sigma, "bar_max": 1.2e-4 * sigma, "bar_mean": 2e-5 * sigma,
+                          **extra}))
+        return mx
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
     inputs, errs = [], []
     for b, cin, cout, h, w, k in BENCH_SHAPES_2D:
-        x = torch.randn(b, cin, h, w, generator=gen).to(dev)
-        wt = (torch.randn(cout, cin, k, k, generator=gen) / (cin * k * k) ** 0.5).to(dev)
-        bias = torch.randn(cout, generator=gen).to(dev)
+        x = randn(b, cin, h, w)
+        wt = randn(cout, cin, k, k) / (cin * k * k) ** 0.5
+        bias = randn(cout)
         plan = fused2d.tile_plan_2d(k, k, cin, cout)
         check(plan is not None and fused2d.fused2d_fits(k, k, cin, cout, (h, w), batch=b),
               f"no fused 2D plan at K={k}")
         inputs.append((x, wt, bias, plan))
-        spectra = fused2d.kernel_spectra_2d(wt, plan[0], plan[2], plan[3])
-        y = fused2d._launch_fused2d(x, spectra, plan, 1, (k, k))
-        torch.cuda.synchronize()
-        mx, mean, sigma = close_scaled(y, fused2d._fused2d_forward_reference(x, wt),
-                                       f"B2 vs plain K={k}")
-        errs.append(mx)
-        print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B2", "K": k,
-                          "plan": dict(zip(("T1", "V1", "NB1", "T2", "V2"), plan)),
-                          "max_abs_err": mx, "mean_abs_err": mean, "sigma": sigma,
-                          "bar_max": 1.2e-4 * sigma, "bar_mean": 2e-5 * sigma}))
+        errs.append(vs_plain(x, wt, 1, f"K={k}"))
 
     x, wt, bias, plan = inputs[0]
     k = wt.shape[-1]
-    wg = wt[:, :4].contiguous()  # groups=2: (Cout, Cin/2, K, K)
-    y = fused2d._launch_fused2d(
-        x, fused2d.kernel_spectra_2d(wg, plan[0], plan[2], plan[3]), plan, 2, (k, k))
-    mx, _, _ = close_scaled(y, fused2d._fused2d_forward_reference(x, wg, 2), "B2 groups=2")
-    print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B2", "case": "groups=2",
-                      "max_abs_err": mx}))
+    vs_plain(x, wt[:, :4].contiguous(), 2, "groups=2")
+    vs_plain(randn(2, 8, 300, 280), randn(8, 8, 70, 5) / 60.0, 1, "T1=256, K=(70, 5)")
+    vs_plain(randn(1, 4, 420, 150), randn(4, 4, 200, 9) / 85.0, 1, "T1=384, K=(200, 9)")
+    vs_plain(randn(2, 8, 200, 400), randn(8, 8, 12, 100) / 100.0, 1, "T2=256, K=(12, 100)")
+    vs_plain(randn(2, 4, 200, 300), randn(6, 2, 12, 100) / 50.0, 2,
+             "T2=256, K=(12, 100), groups=2")
 
     kw = dict(padding=5, padding_mode="reflect", stride=(2, 3), dilation=2)
     y = fused2d.fft_conv2d_fused(x, wt, bias, **kw)
@@ -439,6 +560,8 @@ def time_2d(torch, inputs, errs, per_row):
             "K": k, "plan": list(plan), "launches": nl, "max_abs_err": err,
             "ms": device_ms(kernel),
             "call_ms": call_ms(kernel),
+            # B2's two kernels, one by one (device time per call)
+            "phase_ms": phase_split_ms(torch, kernel, "fused2d_"),
             "spectra_ms": device_ms(lambda: fused2d.kernel_spectra_2d(wt, t1, nb1, t2)),
             "auto_ms": device_ms(auto),
             "auto_call_ms": call_ms(auto),
@@ -450,6 +573,8 @@ def time_2d(torch, inputs, errs, per_row):
             "library_ms": device_ms(lambda: TF.conv2d(x, wt)),
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
             "kernel_flops": fused2d_kernel_flops(b, cin, cout, h, w, k, plan),
+            # the bound of PR 7's count, every DFT a dense product
+            "dense_bound_ms": bound(*fused2d_dense_work(b, cin, cout, h, w, k, plan))[0],
         }
         row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
         rows.append(row)
@@ -653,7 +778,7 @@ def time_2d_v3(torch, inputs, errs, per_row):
         def composed():
             return fft_conv(x, wt, impl="xla")
 
-        nbytes, flops = fused2d_work(b, cin, cout, h, w, k, plan)
+        nbytes, flops = fused2d_dense_work(b, cin, cout, h, w, k, plan)
         bound_ms, bound_by = bound(nbytes, flops)
         row = {
             "K": k, "plan": list(plan), "launches": nl, "max_abs_err": err,

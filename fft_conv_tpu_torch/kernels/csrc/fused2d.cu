@@ -1,46 +1,56 @@
 // Fused 2D overlap-save FFT convolution for Hopper (sm_90a), in FP32.
 //
-// Replaces the TPU kernel fft_conv_tpu/kernels/fused2d.py:308 (_make_kernel_2d,
-// built by _fused2d_call): the valid cross-correlation of a (B, Cin, Hp, Wp)
-// signal with a (Cout, Cin/g, K1, K2) kernel, computed on overlap-save tiles
-// of T1 x T2 samples (T1 a multiple of 128, T2 in {128, 256}) that overlap by
-// K1-1 rows and K2-1 columns. Per tile: the one-sided H DFT (NB1 = T1/2+1
-// rows), the full W DFT (T2 x T2), a per-bin grouped complex MAC over the
+// Kernel B2 (fused2d_forward) replaces the TPU kernel
+// fft_conv_tpu/kernels/fused2d.py:308 (_make_kernel_2d, built by
+// _fused2d_call): the valid cross-correlation of a (B, Cin, Hp, Wp) signal
+// with a (Cout, Cin/g, K1, K2) kernel, computed on overlap-save tiles of
+// T1 x T2 samples (T1 in {128, 256, 384} at T2 = 128, T1 = 128 at T2 = 256)
+// that overlap by K1-1 rows and K2-1 columns. Per tile: the one-sided H DFT
+// (NB1 = T1/2+1 rows), the full W DFT, a per-bin grouped complex MAC over the
 // group's input channels against the conjugated kernel spectra, the inverse
 // W DFT, and the H irfft on the V1 valid rows (DC and Nyquist weighted 1, the
-// rest 2, their imaginary rows zeroed). Every product is a dense DFT matrix
-// product done here in FP32 FMAs. The host side (tile plan, factor matrices,
-// kernel spectra, tile ranges) is in fft_conv_tpu_torch/kernels/fused2d.py.
+// rest 2). The host side (tile plan, factors, kernel spectra, tile ranges) is
+// in fft_conv_tpu_torch/kernels/fused2d.py.
 //
-// Partition. The TPU cell holds every input channel's tile spectrum of an
-// H-block in its vector memory and loops over all W tiles; one channel's
-// spectrum alone is 65 x 128 complex (66.5 KB) and the W DFT matrix 128 KB,
-// more than a Hopper block can hold next to each other. So the work is cut
-// into two kernels launched back to back on the caller's stream:
-//   phase 1, grid (B * Cin, tiles): read one channel's T1 x T2 window
-//     straight from the padded signal (zeros past its edge: no padded or
-//     windowed copy), run the H then the W DFT, and write the tile spectrum
-//     D (NB1, T2) to a scratch buffer (tiles, B * Cin, NB1, T2);
+// Factored DFTs. The TPU kernel runs every DFT as a dense matrix product on
+// its matrix unit: 128 complex multiply-adds per point and axis. Here each
+// axis is a four-step transform T = A * B (128 = 16 * 8, 256 = 16 * 16,
+// 384 = 24 * 16; fourstep.fft_factor_matrices, built in float64 and cast to
+// float32 by the host): the A-point DFT over j1 of x[j1 B + j2], the twiddle
+// tw[m1, j2], the B-point DFT over j2, bin m1 + A m2. A thread holds one short
+// DFT in registers; a power-of-two length runs as radix-2 butterflies on the
+// roots of unity (row 1 of the factor), 24 as the dense product. Real data is
+// packed in pairs: rows 2r and 2r+1 of the window are one complex row for the
+// W DFT, whose bins k and -k are split apart when the H DFT reads them;
+// columns 0 and T2/2 (real in H) share one complex H transform; the inverse
+// runs the H irfft on two columns at once as one complex transform of their
+// Hermitian extensions. So a tile costs a few tens of flops per point and
+// axis, where a dense 128-point product costs 512 (real input) to 1024.
+//
+// Partition. A block holds one NB1 x T2 complex plane in shared memory
+// (66.5 KB at T1 = T2 = 128, 197.6 KB at T1 = 384), swizzled (column
+// c ^ (row & 15)) so that neighbouring rows fall in distinct banks. Two
+// kernels run back to back on the caller's stream:
+//   phase 1, grid (B * Cin, tiles): read one channel's window straight from
+//     the padded signal (zeros past its edge), the W DFT of the packed rows
+//     in place, then the H DFT on G columns at a time through a staging
+//     buffer, its bins written in natural order (D[-k1, -k2] = conj D[k1, k2]
+//     fills the columns past T2/2) to a scratch D (tiles, B * Cin, NB1, T2);
 //   phase 2, grid (B * Cout, tiles): MAC over the group's channels of D
-//     against the spectra (both read through L2) into shared memory, run the
-//     inverse W DFT in place and the H irfft, and store the V1 x V2 valid
-//     samples straight into (B, Cout, OH, OW), clipped at the last tile row
-//     and column.
-// Each block keeps one NB1 x T2 complex matrix in shared memory (66.5 KB at
-// T1 = T2 = 128) and streams the factor matrices from global memory in
-// panels of KC rows or columns: every block reads the same few hundred KB,
-// which stay in L2. The caller runs the tiles in ranges so that D stays
-// bounded.
+//     against the spectra (both read through L2) into the plane, the inverse
+//     W DFT in place, then the H irfft on G column pairs at a time, storing
+//     the V1 x V2 valid samples straight into (B, Cout, OH, OW).
+// The caller runs the tiles in ranges so that D stays bounded.
 //
 // Bound. At the library's 2D benchmark shapes (B=2, 8 -> 8 channels,
-// 512 x 512, K in {16, 34}) the kernels move about 37 MB once and do 10-14
-// GFLOP, so the bound is the FP32 CUDA-core rate, not HBM. Each thread owns
-// T2/64 columns and up to 17 (complex) or 28 (real) interleaved rows of a
-// product and keeps their sums in registers; per contraction step it reads
-// one shared-memory broadcast per row and one value per column, so a complex
-// product does 4 FMAs per row-column pair for about one shared-memory load
-// per 8 FMAs. Tensor cores (wgmma), TMA staging and fusing the two phases are
-// left for later work.
+// 512 x 512, K in {16, 34}) the factored transforms and the MAC come to about
+// 1 GFLOP a call and the signal, spectra and output to about 37 MB, so the
+// card's bound is a few hundredths of a millisecond and neither HBM nor the
+// FP32 rate sets the pace: shared-memory traffic does (each axis reads and
+// writes the plane twice), with the barriers between the steps, and phase 2
+// re-reading D and the spectra through L2 once per output channel, most of
+// B2's time. Serving several output channels per read of D, tensor cores,
+// TMA staging and fusing the two phases are left for later work.
 //
 // Entry point: fused2d_forward (plain C interface, loaded with ctypes). It
 // returns cudaGetLastError() after the launches; 0 means both were accepted.
@@ -53,13 +63,13 @@
 // dr = hr wr - hi wi and di = hr wi + hi wr; the MAC is B2's; the inverse runs
 // H first on the stacked Y = [yr; yi]: zr = [cr | ci] . Y and zi = [-ci | cr] . Y
 // on the V1 valid rows only, then out = [zr | zi] . [ur; -ui], one real product
-// whose result is the real output (B2 runs the complex W inverse on all NB1
-// rows). The TPU pads NB1 to a multiple of 8 rows for its sublanes; B5 does not.
-// Same two-kernel partition and bound as B2. Every product is an FP32 FMA
-// panel product with the thread tile of v3_panel_fma (4 columns a thread in
-// each 128-column group, 8 row groups, float4 shared-memory loads); phase 2
-// runs the inverse in chunks of 16 output rows so that [zr | zi] never takes
-// more than 16 x 2 T2 floats beside the stacked Y.
+// whose result is the real output. The TPU pads NB1 to a multiple of 8 rows for
+// its sublanes; B5 does not. Every DFT is a dense FP32 FMA panel product with
+// the thread tile of v3_panel_fma (4 columns a thread in each 128-column group,
+// 8 row groups, float4 shared-memory loads); phase 2 runs the inverse in chunks
+// of 16 output rows so that [zr | zi] never takes more than 16 x 2 T2 floats
+// beside the stacked Y. At the benchmark shapes it does 10-14 GFLOP a call, so
+// the FP32 CUDA-core rate bounds it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,35 +77,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kColThreads = 64;                     // threads across columns
-constexpr int kRowGroups = kThreads / kColThreads;  // interleaved row groups
-constexpr int kMaxSmem = 232448;                    // a Hopper block's shared memory
+constexpr int kMaxSmem = 232448;  // a Hopper block's shared memory
 
 constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
-
-template <int T2>
-struct Cfg {
-  static constexpr int kCW = T2 / kColThreads;     // columns per thread
-  static constexpr int kKC = 4096 / T2;            // contraction panel
-  static constexpr int kRptC = T2 == 128 ? 17 : 9;   // complex rows per thread per pass
-  static constexpr int kRptR = T2 == 128 ? 28 : 14;  // real rows per thread per pass
-  static constexpr int kRowsC = kRowGroups * kRptC;
-  static constexpr int kRowsR = kRowGroups * kRptR;
-  // panels staged per step: H forward (F_H rows + window rows), W forward or
-  // inverse (W rows), H inverse (irfft rows)
-  static constexpr size_t kStage = cmax(
-      (size_t)kRowsC * kKC * sizeof(float2) + (size_t)kKC * T2 * sizeof(float),
-      cmax((size_t)kKC * T2 * sizeof(float2), (size_t)kRowsR * kKC * sizeof(float2)));
-  static size_t smem(int nb1) { return (size_t)nb1 * T2 * sizeof(float2) + kStage; }
-};
-
-// acc += a * b (complex)
-__device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
-  acc.x = fmaf(a.x, b.x, acc.x);
-  acc.x = fmaf(-a.y, b.y, acc.x);
-  acc.y = fmaf(a.x, b.y, acc.y);
-  acc.y = fmaf(a.y, b.x, acc.y);
-}
 
 // Rows of an m-row product are computed in n passes of `rows` rows each
 // (the last may be shorter), at most rows_max per pass.
@@ -108,270 +92,380 @@ __device__ __forceinline__ Passes split_rows(int m, int rows_max) {
   return {n, (m + n - 1) / n};
 }
 
-// Number of this thread's interleaved rows rg, rg + 4, ... below nrow.
-__device__ __forceinline__ int own_rows(int nrow, int rg) {
-  return nrow > rg ? (nrow - rg + kRowGroups - 1) / kRowGroups : 0;
+// ---- Kernel B2: factored DFTs ------------------------------------------------
+
+// The four-step split T = A * B of a DFT length T in {128, 256, 384}
+// (fused2d.py: _SPLITS).
+__host__ __device__ constexpr int split_a(int t) { return t == 384 ? 24 : 16; }
+__host__ __device__ constexpr int split_b(int t) { return t == 128 ? 8 : 16; }
+// columns (phase 1) or column pairs (phase 2) of one H pass through the staging
+__host__ __device__ constexpr int stage_cols(int t1) { return t1 >= 384 ? 8 : 32; }
+
+// One block's dynamic shared memory, either phase: the NB1 x T2 plane, the
+// staging (G x T1), the packed DC/Nyquist column (T1) and the factors (A and
+// B roots and the twiddle of each axis), all float2. Past T1 = 384 the plane
+// alone, which is already more than a block can hold.
+__host__ __device__ constexpr size_t smem_bytes(int t1, int t2) {
+  return t1 > 384 ? sizeof(float2) * (size_t)(t1 / 2 + 1) * t2
+                  : sizeof(float2) * ((size_t)(t1 / 2 + 1) * t2 + (size_t)stage_cols(t1) * t1 +
+                                      t1 + split_a(t1) + split_b(t1) + t1 + split_a(t2) +
+                                      split_b(t2) + t2);
 }
 
-// Copies `rows` rows of T2 complex values (16-byte aligned) into shared memory.
-template <int T2>
-__device__ __forceinline__ void stage_rows(float2* dst, const float2* __restrict__ src,
-                                           int rows) {
-  const float4* s = reinterpret_cast<const float4*>(src);
-  float4* t = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < rows * T2 / 2; i += kThreads) t[i] = __ldg(s + i);
+template <int T1, int T2>
+struct B2Plan {
+  static constexpr int kA1 = split_a(T1), kB1 = split_b(T1);
+  static constexpr int kA2 = split_a(T2), kB2 = split_b(T2);
+  static constexpr int kNB1 = T1 / 2 + 1, kG = stage_cols(T1);
+  static constexpr int kPlane = kNB1 * T2, kStage = kG * T1;
+  static constexpr int kFac = kA1 + kB1 + T1 + kA2 + kB2 + T2;
+  static constexpr size_t kSmem = smem_bytes(T1, T2);
+  static constexpr int kMinBlocks = T1 == 128 && T2 == 128 ? 2 : 1;
+  static_assert(kSmem <= (size_t)kMaxSmem, "B2's plane does not fit a block");
+  static_assert(kThreads % kA2 == 0 && kB1 % 2 == 0, "unsupported split");
+};
+
+__host__ __device__ constexpr int bitrev(int i, int n) {
+  int r = 0;
+  for (int m = n >> 1; m > 0; m >>= 1, i >>= 1) r = (r << 1) | (i & 1);
+  return r;
 }
 
-// s_m (rows of the current pass) <- s_m . W, W (T2 x T2) complex streamed from
-// global memory in panels of KC rows. Rows [row0, row0 + nrow) of s_m are
-// read; the result is left in acc.
-template <int T2>
-__device__ __forceinline__ void square_dft_pass(
-    const float2* s_m, float2* s_w, const float2* __restrict__ w, int row0, int nrow,
-    float2 (&acc)[Cfg<T2>::kRptC][Cfg<T2>::kCW]) {
-  using C = Cfg<T2>;
-  constexpr int CW = C::kCW, KC = C::kKC, RPT = C::kRptC;
-  const int tid = threadIdx.x, cl = tid % kColThreads, rg = tid / kColThreads;
-  const int nq = own_rows(nrow, rg);
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+// a * w, or a * conj(w) for the inverse
+template <bool INV>
+__device__ __forceinline__ float2 cmulw(float2 a, float2 w) {
+  if (INV) w.y = -w.y;
+  return make_float2(fmaf(a.x, w.x, -a.y * w.y), fmaf(a.x, w.y, a.y * w.x));
+}
+
+// acc += a * b (complex)
+__device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
+  acc.x = fmaf(a.x, b.x, acc.x);
+  acc.x = fmaf(-a.y, b.y, acc.x);
+  acc.y = fmaf(a.x, b.y, acc.y);
+  acc.y = fmaf(a.y, b.x, acc.y);
+}
+
+// One radix-2 stage of LEN-point butterflies (decimation in time), then the
+// next; the twiddle root[0] = 1 is skipped.
+template <int N, int LEN, bool INV>
+__device__ __forceinline__ void dit_stages(float2 (&t)[N], const float2* root) {
+  if constexpr (LEN <= N) {
 #pragma unroll
-  for (int q = 0; q < RPT; ++q)
+    for (int i = 0; i < N; i += LEN) {
 #pragma unroll
-    for (int c = 0; c < CW; ++c) acc[q][c] = make_float2(0.f, 0.f);
-  for (int k0 = 0; k0 < T2; k0 += KC) {
-    stage_rows<T2>(s_w, w + (int64_t)k0 * T2, KC);
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      float2 bv[CW];
-#pragma unroll
-      for (int c = 0; c < CW; ++c) bv[c] = s_w[kk * T2 + cl + c * kColThreads];
-#pragma unroll
-      for (int q = 0; q < RPT; ++q) {
-        if (q < nq) {
-          const float2 a = s_m[(row0 + rg + q * kRowGroups) * T2 + k0 + kk];
-#pragma unroll
-          for (int c = 0; c < CW; ++c) cmac(acc[q][c], a, bv[c]);
-        }
+      for (int j = 0; j < LEN / 2; ++j) {
+        const float2 u = t[i + j];
+        float2 w = t[i + j + LEN / 2];
+        if (j != 0) w = cmulw<INV>(w, root[j * (N / LEN)]);
+        t[i + j] = cadd(u, w);
+        t[i + j + LEN / 2] = csub(u, w);
       }
     }
-    __syncthreads();  // the panel is consumed before the next one overwrites it
+    dit_stages<N, 2 * LEN, INV>(t, root);
   }
 }
 
-template <int T2>
-__global__ void __launch_bounds__(kThreads, 2)
-fused2d_spectra(const float* __restrict__ x,    // (B, Cin, hp, wp)
-                const float2* __restrict__ fh,  // (nb1, t1) one-sided H DFT rows
-                const float2* __restrict__ wf,  // (T2, T2) W DFT
-                float2* __restrict__ d,         // (tiles of this launch, B * Cin, nb1, T2)
-                int hp, int wp, int t1, int nb1, int v1, int v2, int nt2, int tile0) {
-  using C = Cfg<T2>;
-  constexpr int CW = C::kCW, KC = C::kKC, RPT = C::kRptC;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* s_h = reinterpret_cast<float2*>(smem_raw);            // (nb1, T2)
-  float2* s_f = s_h + (size_t)nb1 * T2;                          // (kRowsC, KC) panel
-  float* s_a = reinterpret_cast<float*>(s_f + C::kRowsC * KC);   // (KC, T2) window rows
-  float2* s_w = s_f;                                             // (KC, T2) W panel
+// v <- the N-point DFT of v (INV: conjugated, unscaled), natural order in and
+// out; root[k] = exp(-2 pi i k / N) in shared memory. A power of two runs as
+// radix-2 butterflies on the bit-reversed input; another N as the dense
+// product f[m, j] = root[(m j) % N].
+template <int N, bool INV>
+__device__ __forceinline__ void short_dft(float2 (&v)[N], const float2* root) {
+  float2 t[N];
+  if constexpr ((N & (N - 1)) == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) t[i] = v[bitrev(i, N)];
+    dit_stages<N, 2, INV>(t, root);
+  } else {
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      float2 acc = v[0];
+#pragma unroll
+      for (int j = 1; j < N; ++j) {
+        const int k = (m * j) % N;
+        if (k == 0) {
+          acc = cadd(acc, v[j]);
+        } else {
+          const float2 w = root[k];
+          cmac(acc, v[j], INV ? make_float2(w.x, -w.y) : w);
+        }
+      }
+      t[m] = acc;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = t[i];
+}
 
-  const int tid = threadIdx.x, cl = tid % kColThreads, rg = tid / kColThreads;
+// Index of (row, column) in the swizzled plane of rows of T2 complex values.
+template <int T2>
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * T2 + (c ^ (r & 15));
+}
+
+// In-place DFT (INV: conjugated, unscaled) of rows [0, nrows) of the plane,
+// T = A * B, natural bin order in and out. Step 1, one (row, j2) a thread at
+// a time, in place: the A-point DFT over j1 of [j1 B + j2] and the twiddle,
+// left at [m1 B + j2]. Step 2, 256 / A rows at a time: the B-point DFT over j2
+// of [m1 B + j2], held in registers across a barrier and written back at the
+// natural bins m1 + A m2. Neighbouring lanes take neighbouring rows, which the
+// swizzle puts in distinct banks. Ends with a barrier.
+template <int T, bool INV>
+__device__ void row_dft(float2* s_p, int nrows, const float2* ra, const float2* rb,
+                        const float2* tw) {
+  constexpr int A = split_a(T), B = split_b(T), R = kThreads / A;
+  const int tid = threadIdx.x;
+  for (int t = tid; t < nrows * B; t += kThreads) {
+    const int row = t % nrows, j2 = t / nrows;
+    float2 v[A];
+#pragma unroll
+    for (int j1 = 0; j1 < A; ++j1) v[j1] = s_p[sw<T>(row, j1 * B + j2)];
+    short_dft<A, INV>(v, ra);
+#pragma unroll
+    for (int m1 = 0; m1 < A; ++m1)
+      s_p[sw<T>(row, m1 * B + j2)] = m1 == 0 ? v[0] : cmulw<INV>(v[m1], tw[m1 * B + j2]);
+  }
+  __syncthreads();
+  const int m1 = tid / R;
+  for (int r0 = 0; r0 < nrows; r0 += R) {
+    const int row = r0 + tid % R;
+    float2 u[B];
+    if (row < nrows) {
+#pragma unroll
+      for (int j2 = 0; j2 < B; ++j2) u[j2] = s_p[sw<T>(row, m1 * B + j2)];
+      short_dft<B, INV>(u, rb);
+    }
+    __syncthreads();  // every row of the round is read before any is written
+    if (row < nrows) {
+#pragma unroll
+      for (int m2 = 0; m2 < B; ++m2) s_p[sw<T>(row, m1 + A * m2)] = u[m2];
+    }
+    __syncthreads();
+  }
+}
+
+// Shared memory of a B2 block: plane, staging, packed column, factors.
+template <int T1, int T2>
+struct B2Smem {
+  float2 *plane, *stage, *packed, *ra1, *rb1, *tw1, *ra2, *rb2, *tw2;
+
+  // carves the dynamic shared memory and stages the factors (no barrier)
+  __device__ __forceinline__ B2Smem(unsigned char* raw, const float2* __restrict__ fac) {
+    using P = B2Plan<T1, T2>;
+    plane = reinterpret_cast<float2*>(raw);
+    stage = plane + P::kPlane;
+    packed = stage + P::kStage;
+    ra1 = packed + T1;
+    for (int i = threadIdx.x; i < P::kFac; i += kThreads) ra1[i] = __ldg(fac + i);
+    rb1 = ra1 + P::kA1;
+    tw1 = rb1 + P::kB1;
+    ra2 = tw1 + T1;
+    rb2 = ra2 + P::kA2;
+    tw2 = rb2 + P::kB2;
+  }
+};
+
+template <int T1, int T2>
+__global__ void __launch_bounds__(kThreads, B2Plan<T1, T2>::kMinBlocks)
+fused2d_spectra(const float* __restrict__ x,    // (B, Cin, hp, wp)
+                const float2* __restrict__ fac,  // factors, fused2d.py: _device_factors
+                float2* __restrict__ d,          // (tiles of this launch, B * Cin, NB1, T2)
+                int hp, int wp, int v1, int v2, int nt2, int tile0) {
+  using P = B2Plan<T1, T2>;
+  constexpr int A1 = P::kA1, B1 = P::kB1, G = P::kG, N1 = T1 / 2, N2 = T2 / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const B2Smem<T1, T2> s(smem_raw, fac);
+  float2* s_p = s.plane;
+
+  const int tid = threadIdx.x;
   const int tile = tile0 + blockIdx.y;
   const int h0 = (tile / nt2) * v1, w0 = (tile % nt2) * v2;
   const float* xs = x + (int64_t)blockIdx.x * hp * wp;
 
-  // H forward, one-sided: s_h = F_H (nb1 x t1) . A (t1 x T2), A the real window
-  const Passes ps = split_rows(nb1, C::kRowsC);
-  for (int p = 0; p < ps.n; ++p) {
-    const int row0 = p * ps.rows, nrow = min(ps.rows, nb1 - row0);
-    const int nq = own_rows(nrow, rg);
-    float2 acc[RPT][CW];
-#pragma unroll
-    for (int q = 0; q < RPT; ++q)
-#pragma unroll
-      for (int c = 0; c < CW; ++c) acc[q][c] = make_float2(0.f, 0.f);
-    for (int t0 = 0; t0 < t1; t0 += KC) {
-      for (int i = tid; i < nrow * KC; i += kThreads)
-        s_f[i] = __ldg(fh + (int64_t)(row0 + i / KC) * t1 + t0 + i % KC);
-      for (int i = tid; i < KC * T2; i += kThreads) {
-        const int hr = h0 + t0 + i / T2, wc = w0 + i % T2;
-        s_a[i] = (hr < hp && wc < wp) ? __ldg(xs + (int64_t)hr * wp + wc) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        float bv[CW];
-#pragma unroll
-        for (int c = 0; c < CW; ++c) bv[c] = s_a[kk * T2 + cl + c * kColThreads];
-#pragma unroll
-        for (int q = 0; q < RPT; ++q) {
-          if (q < nq) {
-            const float2 f = s_f[(rg + q * kRowGroups) * KC + kk];
-#pragma unroll
-            for (int c = 0; c < CW; ++c) {
-              acc[q][c].x = fmaf(f.x, bv[c], acc[q][c].x);
-              acc[q][c].y = fmaf(f.y, bv[c], acc[q][c].y);
-            }
-          }
-        }
-      }
-      __syncthreads();
+  // the window, rows 2r and 2r + 1 packed as complex row r (zeros past the edge)
+  for (int i = tid; i < N1 * T2; i += kThreads) {
+    const int r = i / T2, c = i % T2, hr = h0 + 2 * r, wc = w0 + c;
+    float2 z = make_float2(0.f, 0.f);
+    if (wc < wp) {
+      if (hr < hp) z.x = __ldg(xs + (int64_t)hr * wp + wc);
+      if (hr + 1 < hp) z.y = __ldg(xs + (int64_t)(hr + 1) * wp + wc);
     }
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      if (q < nq) {
-#pragma unroll
-        for (int c = 0; c < CW; ++c)
-          s_h[(row0 + rg + q * kRowGroups) * T2 + cl + c * kColThreads] = acc[q][c];
-      }
-    }
+    s_p[sw<T2>(r, c)] = z;
   }
   __syncthreads();
 
-  // W forward: D = s_h . W_T2, written to the scratch
-  float2* dout = d + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * nb1 * T2;
-  for (int p = 0; p < ps.n; ++p) {
-    const int row0 = p * ps.rows, nrow = min(ps.rows, nb1 - row0);
-    const int nq = own_rows(nrow, rg);
-    float2 acc[RPT][CW];
-    square_dft_pass<T2>(s_h, s_w, wf, row0, nrow, acc);
+  // W DFT of the packed rows: Z_r[k] = X_2r[k] + i X_2r+1[k]
+  row_dft<T2, false>(s_p, N1, s.ra2, s.rb2, s.tw2);
+
+  // H DFT of column col of X, col in [1, T2/2), or of X[., 0] + i X[., T2/2]
+  // for col = 0; G columns a pass
+  float2* dout = d + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * P::kPlane;
+  for (int c0 = 0; c0 < N2; c0 += G) {
+    for (int t = tid; t < G * B1; t += kThreads) {
+      const int g = t % G, j2 = t / G, col = c0 + g;
+      const bool odd = j2 & 1;  // row j1 B1 + j2 has the parity of j2
+      const int ck = col == 0 ? 0 : col, cm = col == 0 ? N2 : T2 - col;
+      float2 v[A1];
 #pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      if (q < nq) {
+      for (int j1 = 0; j1 < A1; ++j1) {
+        const int rr = (j1 * B1 + j2) >> 1;
+        const float2 zk = s_p[sw<T2>(rr, ck)], zm = s_p[sw<T2>(rr, cm)];
+        if (col == 0)  // X_r[0] + i X_r[T2/2], both real
+          v[j1] = odd ? make_float2(zk.y, zm.y) : make_float2(zk.x, zm.x);
+        else  // X_2r[k] = (Z[k] + conj Z[-k]) / 2, X_2r+1[k] = (Z[k] - conj Z[-k]) / 2i
+          v[j1] = odd ? make_float2(0.5f * (zk.y + zm.y), 0.5f * (zm.x - zk.x))
+                      : make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+      }
+      short_dft<A1, false>(v, s.ra1);
 #pragma unroll
-        for (int c = 0; c < CW; ++c)
-          dout[(row0 + rg + q * kRowGroups) * T2 + cl + c * kColThreads] = acc[q][c];
+      for (int m1 = 0; m1 < A1; ++m1)
+        s.stage[(m1 * B1 + j2) * G + g] =
+            m1 == 0 ? v[0] : cmulw<false>(v[m1], s.tw1[m1 * B1 + j2]);
+    }
+    __syncthreads();
+    for (int t = tid; t < G * A1; t += kThreads) {
+      const int g = t % G, m1 = t / G, col = c0 + g;
+      float2 u[B1];
+#pragma unroll
+      for (int j2 = 0; j2 < B1; ++j2) u[j2] = s.stage[(m1 * B1 + j2) * G + g];
+      short_dft<B1, false>(u, s.rb1);
+#pragma unroll
+      for (int m2 = 0; m2 < B1; ++m2) {
+        const int k1 = m1 + A1 * m2;
+        if (col == 0) {
+          s.packed[k1] = u[m2];
+        } else {
+          if (k1 <= N1) dout[k1 * T2 + col] = u[m2];
+          if (k1 == 0 || k1 >= N1)  // D[-k1, -col] = conj X[k1, col]
+            dout[((T1 - k1) % T1) * T2 + T2 - col] = make_float2(u[m2].x, -u[m2].y);
+        }
+      }
+    }
+    __syncthreads();
+    if (c0 == 0) {  // split C = X0 + i XN into columns 0 and T2/2
+      for (int k = tid; k < P::kNB1; k += kThreads) {
+        const float2 p = s.packed[k], q = s.packed[(T1 - k) % T1];
+        dout[k * T2] = make_float2(0.5f * (p.x + q.x), 0.5f * (p.y - q.y));
+        dout[k * T2 + N2] = make_float2(0.5f * (p.y + q.y), 0.5f * (q.x - p.x));
       }
     }
   }
 }
 
-template <int T2>
-__global__ void __launch_bounds__(kThreads, 2)
-fused2d_mac_inverse(const float2* __restrict__ d,   // (tiles of this launch, B * Cin, nb1, T2)
-                    const float2* __restrict__ ks,  // (Cout, Cin/g, nb1, T2), conjugated
-                    const float2* __restrict__ wb,  // (T2, T2) inverse W DFT (1/T2 folded in)
-                    const float2* __restrict__ ch,  // (v1, nb1) H irfft rows as (cr, ci) pairs
-                    float* __restrict__ out,        // (B, Cout, oh, ow)
-                    int batch, int cin, int cout, int groups, int nb1, int v1, int v2,
-                    int nt2, int tile0, int oh, int ow) {
-  using C = Cfg<T2>;
-  constexpr int CW = C::kCW, KC = C::kKC, RPT = C::kRptC, RPTR = C::kRptR;
+template <int T1, int T2>
+__global__ void __launch_bounds__(kThreads, B2Plan<T1, T2>::kMinBlocks)
+fused2d_mac_inverse(const float2* __restrict__ d,    // (tiles of this launch, B * Cin, NB1, T2)
+                    const float2* __restrict__ ks,   // (Cout, Cin/g, NB1, T2), conjugated
+                    const float2* __restrict__ fac,  // factors, fused2d.py: _device_factors
+                    float* __restrict__ out,         // (B, Cout, oh, ow)
+                    int batch, int cin, int cout, int groups, int v1, int v2, int nt2,
+                    int tile0, int oh, int ow) {
+  using P = B2Plan<T1, T2>;
+  constexpr int A1 = P::kA1, B1 = P::kB1, G = P::kG, N1 = T1 / 2, N2 = T2 / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* s_y = reinterpret_cast<float2*>(smem_raw);  // (nb1, T2): Y, then E
-  float2* s_w = s_y + (size_t)nb1 * T2;               // (KC, T2) W panel
-  float2* s_c = s_w;                                  // (kRowsR, KC) irfft panel
+  const B2Smem<T1, T2> s(smem_raw, fac);
+  float2* s_p = s.plane;
 
-  const int tid = threadIdx.x, cl = tid % kColThreads, rg = tid / kColThreads;
+  const int tid = threadIdx.x;
   const int b = blockIdx.x / cout, o = blockIdx.x % cout;
-  const int cpg = cin / groups, g = o / (cout / groups);
+  const int cpg = cin / groups, g0 = o / (cout / groups);
   const int tile = tile0 + blockIdx.y;
   const int h0 = (tile / nt2) * v1, w0 = (tile % nt2) * v2;
-  const int64_t plane = (int64_t)nb1 * T2;
+  const int64_t plane = P::kPlane;
 
   // per-bin MAC over this out-channel's group: Y = sum_c D[c] * K[o, c]
-  const float2* dg = d + (((int64_t)blockIdx.y * batch + b) * cin + (int64_t)g * cpg) * plane;
+  const float2* dg = d + (((int64_t)blockIdx.y * batch + b) * cin + (int64_t)g0 * cpg) * plane;
   const float2* ko = ks + (int64_t)o * cpg * plane;
-  for (int i = tid; i < nb1 * T2; i += kThreads) {
+  for (int i = tid; i < P::kPlane; i += kThreads) {
     float2 y = make_float2(0.f, 0.f);
     for (int ci = 0; ci < cpg; ++ci) cmac(y, __ldg(dg + ci * plane + i), __ldg(ko + ci * plane + i));
-    s_y[i] = y;
+    s_p[sw<T2>(i / T2, i % T2)] = y;
   }
   __syncthreads();
 
-  // W inverse, in place: each pass reads and then overwrites its own rows
-  {
-    const Passes ps = split_rows(nb1, C::kRowsC);
-    for (int p = 0; p < ps.n; ++p) {
-      const int row0 = p * ps.rows, nrow = min(ps.rows, nb1 - row0);
-      const int nq = own_rows(nrow, rg);
-      float2 acc[RPT][CW];
-      square_dft_pass<T2>(s_y, s_w, wb, row0, nrow, acc);
-#pragma unroll
-      for (int q = 0; q < RPT; ++q) {
-        if (q < nq) {
-#pragma unroll
-          for (int c = 0; c < CW; ++c)
-            s_y[(row0 + rg + q * kRowGroups) * T2 + cl + c * kColThreads] = acc[q][c];
-        }
-      }
-    }
-  }
-  __syncthreads();
+  // inverse W DFT of the NB1 rows, in place
+  row_dft<T2, true>(s_p, P::kNB1, s.ra2, s.rb2, s.tw2);
 
-  // H irfft on the valid rows: out[v, z] = sum_k cr[v, k] Er[k, z] + ci[v, k] Ei[k, z]
+  // H irfft of columns 2q and 2q + 1 at once: the inverse DFT of
+  // c = H_2q + i H_2q+1, H the Hermitian extension of a one-sided column,
+  // whose real and imaginary parts are the two real output columns
+  const float scale = 1.f / (float)(T1 * T2);
   float* oplane = out + ((int64_t)b * cout + o) * oh * ow;
-  const Passes ps = split_rows(v1, C::kRowsR);
-  for (int p = 0; p < ps.n; ++p) {
-    const int row0 = p * ps.rows, nrow = min(ps.rows, v1 - row0);
-    const int nq = own_rows(nrow, rg);
-    float acc[RPTR][CW];
+  for (int c0 = 0; c0 < N2; c0 += G) {
+    for (int t = tid; t < G * B1; t += kThreads) {
+      const int g = t % G, j2 = t / G, q = c0 + g;
+      float2 v[A1];
 #pragma unroll
-    for (int q = 0; q < RPTR; ++q)
-#pragma unroll
-      for (int c = 0; c < CW; ++c) acc[q][c] = 0.f;
-    for (int k0 = 0; k0 < nb1; k0 += KC) {
-      const int kn = min(KC, nb1 - k0);
-      for (int i = tid; i < nrow * KC; i += kThreads) {
-        const int kk = i % KC;
-        s_c[i] = kk < kn ? __ldg(ch + (int64_t)(row0 + i / KC) * nb1 + k0 + kk)
-                         : make_float2(0.f, 0.f);
+      for (int j1 = 0; j1 < A1; ++j1) {
+        const int k = j1 * B1 + j2, kk = k <= N1 ? k : T1 - k, sh = kk & 15;
+        // columns 2q and 2q + 1 sit side by side, in swapped order for odd rows
+        const float4 e = *reinterpret_cast<const float4*>(s_p + kk * T2 + ((2 * q) ^ (sh & ~1)));
+        const float2 e0 = sh & 1 ? make_float2(e.z, e.w) : make_float2(e.x, e.y);
+        const float2 e1 = sh & 1 ? make_float2(e.x, e.y) : make_float2(e.z, e.w);
+        if (k == 0 || k == N1)  // real bins: their imaginary parts drop out
+          v[j1] = make_float2(e0.x, e1.x);
+        else if (k < N1)  // E0 + i E1
+          v[j1] = make_float2(e0.x - e1.y, e0.y + e1.x);
+        else  // conj(E0) + i conj(E1) of bin T1 - k
+          v[j1] = make_float2(e0.x + e1.y, e1.x - e0.y);
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kn; ++kk) {
-        float2 ev[CW];
+      short_dft<A1, true>(v, s.ra1);
 #pragma unroll
-        for (int c = 0; c < CW; ++c) ev[c] = s_y[(k0 + kk) * T2 + cl + c * kColThreads];
-#pragma unroll
-        for (int q = 0; q < RPTR; ++q) {
-          if (q < nq) {
-            const float2 w = s_c[(rg + q * kRowGroups) * KC + kk];
-#pragma unroll
-            for (int c = 0; c < CW; ++c)
-              acc[q][c] = fmaf(w.x, ev[c].x, fmaf(w.y, ev[c].y, acc[q][c]));
-          }
-        }
-      }
-      __syncthreads();
+      for (int m1 = 0; m1 < A1; ++m1)
+        s.stage[(m1 * B1 + j2) * G + g] =
+            m1 == 0 ? v[0] : cmulw<true>(v[m1], s.tw1[m1 * B1 + j2]);
     }
+    __syncthreads();
+    for (int t = tid; t < G * A1; t += kThreads) {
+      const int g = t % G, m1 = t / G, z = 2 * (c0 + g), ox = w0 + z;
+      float2 u[B1];
 #pragma unroll
-    for (int q = 0; q < RPTR; ++q) {
-      const int oy = h0 + row0 + rg + q * kRowGroups;
-      if (q < nq && oy < oh) {
+      for (int j2 = 0; j2 < B1; ++j2) u[j2] = s.stage[(m1 * B1 + j2) * G + g];
+      short_dft<B1, true>(u, s.rb1);
 #pragma unroll
-        for (int c = 0; c < CW; ++c) {
-          const int z = cl + c * kColThreads, ox = w0 + z;
-          if (z < v2 && ox < ow) oplane[(int64_t)oy * ow + ox] = acc[q][c];
+      for (int m2 = 0; m2 < B1; ++m2) {
+        const int vr = m1 + A1 * m2, oy = h0 + vr;
+        if (vr < v1 && oy < oh) {
+          float* row = oplane + (int64_t)oy * ow + ox;
+          if (z < v2 && ox < ow) row[0] = u[m2].x * scale;
+          if (z + 1 < v2 && ox + 1 < ow) row[1] = u[m2].y * scale;
         }
       }
     }
+    __syncthreads();  // the staging is read before the next pass overwrites it
   }
 }
 
-template <int T2>
-cudaError_t launch(const float* x, const float2* ks, const float2* fh, const float2* wf,
-                   const float2* wb, const float2* ch, float2* d, float* out, int batch,
-                   int cin, int cout, int groups, int hp, int wp, int t1, int v1, int v2,
+template <int T1, int T2>
+cudaError_t launch(const float* x, const float2* ks, const float2* fac, float2* d, float* out,
+                   int batch, int cin, int cout, int groups, int hp, int wp, int v1, int v2,
                    int nt2, int tile0, int ntile, int oh, int ow, cudaStream_t stream) {
-  using C = Cfg<T2>;
-  const int nb1 = t1 / 2 + 1;
-  const size_t smem = C::smem(nb1);
-  if (t1 < C::kKC || t1 % C::kKC || v1 < 1 || v1 > t1 || v2 < 1 || v2 > T2 || nt2 < 1 ||
-      ntile < 1 || ntile > 65535 || tile0 < 0 || groups < 1 || cin % groups ||
-      cout % groups || smem > (size_t)kMaxSmem)
+  constexpr size_t smem = B2Plan<T1, T2>::kSmem;
+  if (v1 < 1 || v1 > T1 || v2 < 1 || v2 > T2 || nt2 < 1 || ntile < 1 || ntile > 65535 ||
+      tile0 < 0 || groups < 1 || cin % groups || cout % groups)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fused2d_spectra<T2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused2d_spectra<T1, T2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      fused2d_mac_inverse<T2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused2d_mac_inverse<T1, T2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
 
-  fused2d_spectra<T2><<<dim3(batch * cin, ntile), kThreads, smem, stream>>>(
-      x, fh, wf, d, hp, wp, t1, nb1, v1, v2, nt2, tile0);
+  fused2d_spectra<T1, T2><<<dim3(batch * cin, ntile), kThreads, smem, stream>>>(
+      x, fac, d, hp, wp, v1, v2, nt2, tile0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fused2d_mac_inverse<T2><<<dim3(batch * cout, ntile), kThreads, smem, stream>>>(
-      d, ks, wb, ch, out, batch, cin, cout, groups, nb1, v1, v2, nt2, tile0, oh, ow);
+  fused2d_mac_inverse<T1, T2><<<dim3(batch * cout, ntile), kThreads, smem, stream>>>(
+      d, ks, fac, out, batch, cin, cout, groups, v1, v2, nt2, tile0, oh, ow);
   return cudaGetLastError();
 }
 
@@ -738,49 +832,39 @@ cudaError_t launch_v3(const float* x, const float* ks, const float* f2, const fl
 }  // namespace
 
 // Runs tiles [tile0, tile0 + ntile) (row-major over nt1 x nt2) of one
-// convolution. x (B, Cin, hp, wp) f32; ks (Cout, Cin/groups, t1/2+1, t2);
-// fh (t1/2+1, t1); wf and wb (t2, t2); ch (v1, t1/2+1); d scratch (ntile, B,
-// Cin, t1/2+1, t2); out (B, Cout, oh, ow) f32. Complex arrays are interleaved
-// (re, im) float pairs. Returns cudaGetLastError() after the two launches (0
-// when both were accepted).
-extern "C" int fused2d_forward(const void* x, const void* ks, const void* fh, const void* wf,
-                               const void* wb, const void* ch, void* d, void* out, int batch,
-                               int cin, int cout, int groups, int hp, int wp, int t1, int t2,
-                               int v1, int v2, int nt2, int tile0, int ntile, int oh, int ow,
-                               void* stream) {
+// convolution with kernel B2. x (B, Cin, hp, wp) f32; ks (Cout, Cin/groups,
+// t1/2+1, t2) the conjugated spectra; fac the factors (fused2d.py:
+// _device_factors); d scratch (ntile, B, Cin, t1/2+1, t2); out (B, Cout, oh,
+// ow) f32. Complex arrays are interleaved (re, im) float pairs. Returns
+// cudaGetLastError() after the two launches (0 when both were accepted).
+extern "C" int fused2d_forward(const void* x, const void* ks, const void* fac, void* d,
+                               void* out, int batch, int cin, int cout, int groups, int hp,
+                               int wp, int t1, int t2, int v1, int v2, int nt2, int tile0,
+                               int ntile, int oh, int ow, void* stream) {
   const auto* xf = static_cast<const float*>(x);
   const auto* ksc = static_cast<const float2*>(ks);
-  const auto* fhc = static_cast<const float2*>(fh);
-  const auto* wfc = static_cast<const float2*>(wf);
-  const auto* wbc = static_cast<const float2*>(wb);
-  const auto* chc = static_cast<const float2*>(ch);
+  const auto* fc = static_cast<const float2*>(fac);
   auto* dc = static_cast<float2*>(d);
   auto* of = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (t2) {
-    case 128:
-      return launch<128>(xf, ksc, fhc, wfc, wbc, chc, dc, of, batch, cin, cout, groups, hp, wp,
-                         t1, v1, v2, nt2, tile0, ntile, oh, ow, s);
-    case 256:
-      return launch<256>(xf, ksc, fhc, wfc, wbc, chc, dc, of, batch, cin, cout, groups, hp, wp,
-                         t1, v1, v2, nt2, tile0, ntile, oh, ow, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define FUSED2D_LAUNCH(T1, T2)                                                              \
+  if (t1 == T1 && t2 == T2)                                                                 \
+    return launch<T1, T2>(xf, ksc, fc, dc, of, batch, cin, cout, groups, hp, wp, v1, v2, nt2, \
+                          tile0, ntile, oh, ow, s);
+  FUSED2D_LAUNCH(128, 128)
+  FUSED2D_LAUNCH(256, 128)
+  FUSED2D_LAUNCH(384, 128)
+  FUSED2D_LAUNCH(128, 256)
+#undef FUSED2D_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of one block of either kernel for a (t1, t2) tile,
-// or -1 for a T2 the kernel does not take. The host's tile plan mirrors this
+// B2's dynamic shared memory of one block of either kernel for a (t1, t2)
+// tile, or -1 for a T2 it does not take. The host's tile plan mirrors this
 // formula (fused2d.py: _smem_bytes); a card test holds the two together.
 extern "C" long long fused2d_smem_bytes(int t1, int t2) {
-  switch (t2) {
-    case 128:
-      return (long long)Cfg<128>::smem(t1 / 2 + 1);
-    case 256:
-      return (long long)Cfg<256>::smem(t1 / 2 + 1);
-    default:
-      return -1;
-  }
+  if ((t2 != 128 && t2 != 256) || t1 < 128 || t1 % 128) return -1;
+  return (long long)smem_bytes(t1, t2);
 }
 
 // Kernel B5 on tiles [tile0, tile0 + ntile) of one convolution. x (B, Cin,

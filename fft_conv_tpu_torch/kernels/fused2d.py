@@ -6,14 +6,16 @@ rows and K2-1 columns; each tile yields V1 x V2 valid outputs of the
 cross-correlation. Per tile the kernel runs the one-sided H DFT (NB1 =
 T1/2+1 rows), the full W DFT, a per-bin grouped complex MAC over the group's
 input channels against the conjugated kernel spectra, the inverse W DFT and
-the H irfft on the V1 valid rows, all as dense DFT matrix products.
+the H irfft on the V1 valid rows.
 
 Two schedules of that one function, chosen by ``set_fused2d_kernel`` (or
 the ``FFTCONV_2D_KERNEL`` environment variable, read at import) as in the
-JAX package: "v2" (the default) runs kernel B2, complex products on
-interleaved (re, im) pairs; "v3" runs kernel B5 (``csrc/fused2d.cu``,
-``fused2d_v3_forward``), where re and im are stacked into the rows of real
-products and the inverse runs H first on the stacked [yr; yi].
+JAX package: "v2" (the default) runs kernel B2, which computes every DFT
+axis as a factored (four-step) transform T = A * B, short DFTs with a
+twiddle between them, in natural bin order; "v3" runs kernel B5
+(``csrc/fused2d.cu``, ``fused2d_v3_forward``), dense DFT products where re
+and im are stacked into the rows of real products and the inverse runs H
+first on the stacked [yr; yi].
 
 On a CUDA tensor ``_fused2d_forward`` launches the chosen kernel; on a CPU
 tensor it runs its plain version (``_fused2d_forward_reference`` or
@@ -46,6 +48,7 @@ from ..ops.spectral import _dft_mats, _irfft_mats, _rfft_mats
 from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
+from .fourstep import fft_factor_matrices
 from .fused1d import _fused_bwd, _spectra_or
 
 _T2_CANDIDATES = (128, 256)
@@ -58,9 +61,9 @@ _T2_CANDIDATES = (128, 256)
 #     every (tile, batch) block of phase 2 re-reads: kept in a third of the
 #     card's 50 MB L2, as for the 1D kernel;
 _SPECTRA_BUDGET = 16 * 2**20
-#   * the shared memory of one block (csrc/fused2d.cu: Cfg<T2>::smem), at
-#     most what a Hopper block can use. It rules out T2 = 256 with T1 > 128
-#     and T1 > 384;
+#   * the shared memory of one block (csrc/fused2d.cu: smem_bytes, which
+#     holds the whole NB1 x T2 complex plane), at most what a Hopper block
+#     can use. It rules out T2 = 256 with T1 > 128 and T1 > 384;
 _SMEM_LIMIT = 232448
 #   * the scratch D that phase 1 hands to phase 2, (tiles, B, Cin, NB1, T2)
 #     complex. The wrapper runs the tiles in ranges that keep D under this
@@ -89,16 +92,27 @@ def set_fused2d_kernel(version: str) -> None:
     _KERNEL2D_VERSION = version
 
 
+# B2's four-step split T = A * B of each DFT length it takes (A-point DFTs
+# first, then the twiddle, then B-point DFTs), as csrc/fused2d.cu's split_a
+# and split_b.
+_SPLITS = {128: (16, 8), 256: (16, 16), 384: (24, 16)}
+
+
 def _smem_bytes(nb1: int, t2: int) -> int:
-    """Shared memory of one block of either phase, as csrc/fused2d.cu
-    computes it: the NB1 x T2 complex matrix plus the largest staged panel.
-    The library's ``fused2d_smem_bytes`` exports the kernel's own figure; a
-    card test holds the two equal."""
-    kc = 4096 // t2
-    rows_c = 4 * (17 if t2 == 128 else 9)
-    rows_r = 4 * (28 if t2 == 128 else 14)
-    stage = max(rows_c * kc * 8 + kc * t2 * 4, kc * t2 * 8, rows_r * kc * 8)
-    return nb1 * t2 * 8 + stage
+    """Shared memory of one block of either phase of B2, as csrc/fused2d.cu
+    computes it (``smem_bytes``): the NB1 x T2 complex plane, the staging
+    of G columns of the H transforms (G = 32, or 8 at T1 = 384), one T1
+    column for the packed DC/Nyquist column, and the factors (the roots of
+    both short DFTs and the twiddle of each axis), all complex64. Past
+    T1 = 384 the plane alone, already more than a block holds. The
+    library's ``fused2d_smem_bytes`` exports the kernel's own figure; a card
+    test holds the two equal."""
+    t1 = 2 * (nb1 - 1)
+    if t1 > 384:
+        return 8 * nb1 * t2
+    g = 8 if t1 == 384 else 32
+    fac = sum(_SPLITS[t1]) + t1 + sum(_SPLITS[t2]) + t2
+    return 8 * (nb1 * t2 + g * t1 + t1 + fac)
 
 
 def _smem_bytes_v3(nb1: int, t2: int) -> int:
@@ -189,12 +203,81 @@ def _torch_mats(t1: int, nb1: int, t2: int, v1: int, dtype: torch.dtype,
 
 
 @lru_cache(maxsize=None)
-def _device_mats(t1: int, nb1: int, t2: int, v1: int, device: torch.device):
-    """The kernel's factor matrices as interleaved complex64 tensors on
-    ``device``: F_H (NB1, T1), W and its inverse (T2, T2), and the irfft
-    rows (V1, NB1) as (cr, ci) pairs."""
-    m = _torch_mats(t1, nb1, t2, v1, torch.float32, device)
-    return tuple(torch.complex(m[i], m[i + 1]) for i in range(0, len(m), 2))
+def _torch_factors(t: int, dtype: torch.dtype, device: torch.device):
+    """(f1, f2, tw) of the four-step split ``_SPLITS[t]`` from
+    ``fourstep.fft_factor_matrices`` (built in float64), as (re, im) pairs
+    of ``dtype`` tensors on ``device``: f1 (A, A), f2 (B, B) and the
+    twiddle (A, B)."""
+    out = []
+    for m in fft_factor_matrices(*_SPLITS[t]):
+        out += [torch.from_numpy(np.ascontiguousarray(part)).to(device, dtype)
+                for part in (m.real, m.imag)]
+    return tuple(out)
+
+
+@lru_cache(maxsize=None)
+def _device_factors(t1: int, t2: int, device: torch.device) -> torch.Tensor:
+    """B2's factors as one complex64 vector on ``device``, in the order
+    csrc/fused2d.cu stages them: for H then W, the A roots of unity (row 1
+    of f1), the B roots (row 1 of f2) and the (A, B) twiddle, row-major.
+    The kernel reads f1[m, j] as root[(m * j) % A]."""
+    parts = []
+    for t in (t1, t2):
+        f1, f2, tw = fft_factor_matrices(*_SPLITS[t])
+        parts += [f1[1], f2[1], tw.reshape(-1)]
+    return torch.from_numpy(np.concatenate(parts).astype(np.complex64)).to(device)
+
+
+def _dft_last(xr: torch.Tensor, xi: Optional[torch.Tensor], inverse: bool):
+    """Unscaled DFT (inverse: conjugated) of the last axis, length T, through
+    the four-step factors of ``_SPLITS[T]``: the A-point DFT f1 over j1 of
+    x[j1 * B + j2], the twiddle, the B-point DFT f2 over j2, and the result
+    read back in natural bin order (X[m1 + A * m2] = D[m1, m2]). ``xi`` None
+    is a real input. Returns (re, im) in the dtype of ``xr``."""
+    t = xr.shape[-1]
+    a, b = _SPLITS[t]
+    f1r, f1i, f2r, f2i, twr, twi = _torch_factors(t, xr.dtype, xr.device)
+    if inverse:
+        f1i, f2i, twi = -f1i, -f2i, -twi
+    lead = xr.shape[:-1]
+    ar = xr.reshape(*lead, a, b)
+    br, bi = f1r @ ar, f1i @ ar
+    if xi is not None:
+        ai = xi.reshape(*lead, a, b)
+        br, bi = br - f1i @ ai, bi + f1r @ ai
+    cr, ci = br * twr - bi * twi, br * twi + bi * twr
+    dr, di = cr @ f2r - ci @ f2i, cr @ f2i + ci @ f2r
+    return (dr.transpose(-1, -2).reshape(*lead, t), di.transpose(-1, -2).reshape(*lead, t))
+
+
+def _h_forward(a: torch.Tensor):
+    """One-sided H DFT of real windows (..., T1, T2): (re, im) of the NB1 =
+    T1/2+1 first bins, (..., NB1, T2)."""
+    nb1 = a.shape[-2] // 2 + 1
+    hr, hi = _dft_last(a.transpose(-1, -2), None, False)
+    return hr[..., :nb1].transpose(-1, -2), hi[..., :nb1].transpose(-1, -2)
+
+
+def _w_inverse(yr: torch.Tensor, yi: torch.Tensor):
+    """Inverse W DFT of the rows (..., R, T2) complex, 1/T2 included."""
+    t2 = yr.shape[-1]
+    er, ei = _dft_last(yr, yi, True)
+    return er / t2, ei / t2
+
+
+def _h_irfft(er: torch.Tensor, ei: torch.Tensor, v1: int) -> torch.Tensor:
+    """The H irfft of one-sided columns (..., NB1, T2) on the V1 first rows:
+    bins weighted 1 (DC, Nyquist) or 2 (the rest), zero-extended to T1 =
+    2 (NB1 - 1), the inverse DFT, its real part, 1/T1. The imaginary parts
+    of DC and Nyquist drop out with the real part, as irfft drops them."""
+    nb1 = er.shape[-2]
+    t1 = 2 * (nb1 - 1)
+    w = torch.full((nb1, 1), 2.0, dtype=er.dtype, device=er.device)
+    w[0] = w[-1] = 1.0
+    zr = TF.pad((er * w).transpose(-1, -2), (0, t1 - nb1))
+    zi = TF.pad((ei * w).transpose(-1, -2), (0, t1 - nb1))
+    out, _ = _dft_last(zr, zi, True)
+    return out[..., :v1].transpose(-1, -2) / t1
 
 
 @lru_cache(maxsize=None)
@@ -309,8 +392,12 @@ def _fused2d_forward_reference(
     x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
     spectra: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """B2's plain PyTorch version: the same tiled pipeline in split re/im
-    arithmetic, float64 for a float64 signal and float32 otherwise.
+    """B2's plain PyTorch version: the same tiled pipeline with each DFT
+    axis factored as the kernel factors it (``_dft_last``: the same factors,
+    twiddles and natural bin order), in split re/im arithmetic, float64 for
+    a float64 signal and float32 otherwise. The kernel runs the short DFTs
+    as butterflies and packs real rows and columns in pairs; this version
+    applies the factors as dense products.
 
     ``x_padded`` (B, Cin, Hp, Wp) already padded, ``kernel`` (Cout, Cin/g,
     K1, K2) already dilated; returns the valid correlation (B, Cout, OH, OW).
@@ -318,19 +405,10 @@ def _fused2d_forward_reference(
     them.
     """
     plan, dt, a = _reference_tiles(x_padded, kernel)
-    t1, v1, nb1, t2, _ = plan
-    fr, fi, wr, wi, ur, ui, cr, ci = _torch_mats(t1, nb1, t2, v1, dt, a.device)
-
-    # one-sided H DFT, then the full W DFT
-    hr, hi = fr @ a, fi @ a  # (B, Cin, nt1, nt2, NB1, T2)
-    dr = hr @ wr - hi @ wi
-    di = hr @ wi + hi @ wr
+    v1 = plan[1]
+    dr, di = _dft_last(*_h_forward(a), False)  # W DFT: (B, Cin, nt1, nt2, NB1, T2)
     yr, yi = _reference_mac(dr, di, kernel, groups, plan, dt, spectra)
-
-    # inverse W DFT, then the H irfft on the V1 valid rows
-    er = yr @ ur - yi @ ui
-    ei = yr @ ui + yi @ ur
-    out = cr @ er + ci @ ei  # (B, Cout, nt1, nt2, V1, T2)
+    out = _h_irfft(*_w_inverse(yr, yi), v1)  # (B, Cout, nt1, nt2, V1, T2)
     return _reference_stitch(out, x_padded, kernel, plan)
 
 
@@ -363,7 +441,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused2d")
     if lib.fused2d_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused2d_forward.argtypes = [p] * 8 + [i] * 15 + [p]
+        lib.fused2d_forward.argtypes = [p] * 5 + [i] * 15 + [p]
         lib.fused2d_forward.restype = i
         lib.fused2d_error_string.argtypes = [i]
         lib.fused2d_error_string.restype = ctypes.c_char_p
@@ -435,15 +513,15 @@ def _launch_fused2d(
     t1, v1, nb1, t2, v2 = plan
 
     lib = _library()
-    fh, wf, wb, ch = _device_mats(t1, nb1, t2, v1, x_padded.device)
+    fac = _device_factors(t1, t2, x_padded.device)
     out = torch.empty((b, cout, oh, ow), device=x_padded.device, dtype=torch.float32)
     d = torch.empty((chunk, b, cin, nb1, t2), device=x_padded.device, dtype=torch.complex64)
     stream = torch.cuda.current_stream(x_padded.device).cuda_stream
     with torch.cuda.device(x_padded.device):
         for tile0 in range(0, ntiles, chunk):
             err = lib.fused2d_forward(
-                x_padded.data_ptr(), spectra.data_ptr(), fh.data_ptr(), wf.data_ptr(),
-                wb.data_ptr(), ch.data_ptr(), d.data_ptr(), out.data_ptr(),
+                x_padded.data_ptr(), spectra.data_ptr(), fac.data_ptr(), d.data_ptr(),
+                out.data_ptr(),
                 b, cin, cout, groups, hp, wp, t1, t2, v1, v2, nt2,
                 tile0, min(chunk, ntiles - tile0), oh, ow, stream,
             )

@@ -1,10 +1,11 @@
 """Dense DFT matrices, the port's own numpy copy of the matrix functions in
 ``fft_conv_tpu/ops/spectral.py``.
 
-The fused 2D kernel (``kernels/fused2d.py``) runs its transforms as dense
-matrix products over tile axes of 128 or 256 samples, so it needs the
-one-sided real DFT, its Hermitian inverse and the square complex DFT as
-split re/im matrices. They are float32 by default, as in the JAX package;
+The fused 2D kernel B5 (``kernels/fused2d.py``, the "v3" schedule) runs
+its transforms as dense matrix products over tile axes of 128 to 384
+samples, so it needs the one-sided real DFT, its Hermitian inverse and the
+square complex DFT as split re/im matrices; the 2D kernel spectra are
+computed with them, and B2's factored transforms are tested against them. They are float32 by default, as in the JAX package;
 ``dtype=np.float64`` gives the same matrices in float64 for an oracle.
 
 The DFT-matmul convolution path of that module is not ported yet

@@ -135,12 +135,14 @@ def test_1d_2d_transpose_fused_on_cuda(cuda, k, st, pad, op, dil, groups):
 
 
 # (B, Cin, Cout, H, W, K1, K2, groups): T2 = 128 with partial last tiles and
-# nt2 > 2, T2 = 256 (K2 > 97), T1 = 256 (K1 > 65), and groups
+# nt2 > 2, T2 = 256 (K2 > 97), T1 = 256 (K1 > 65), T1 = 384 (K1 > 129), and
+# groups: every plan tile_plan_2d admits
 FUSED2D = [
     (2, 8, 8, 300, 290, 16, 16, 1),
     (1, 3, 2, 129, 400, 7, 9, 1),
     (2, 4, 6, 200, 300, 12, 100, 2),
     (1, 2, 2, 300, 140, 70, 5, 1),
+    (1, 2, 2, 400, 150, 200, 9, 1),
 ]
 
 
@@ -188,11 +190,7 @@ def v3():
     fused2d.set_fused2d_kernel(was)
 
 
-# B2's cases and a T1 = 384 plan (K1 = 200)
-FUSED2D_V3 = FUSED2D + [(1, 2, 2, 400, 150, 200, 9, 1)]
-
-
-@pytest.mark.parametrize("b,cin,cout,h,w,k1,k2,groups", FUSED2D_V3)
+@pytest.mark.parametrize("b,cin,cout,h,w,k1,k2,groups", FUSED2D)
 def test_2d_v3_kernel_matches_plain_version(cuda, b, cin, cout, h, w, k1, k2, groups):
     x, k = _tensors(cuda, h + k2 + 1, (b, cin, h, w), (cout, cin // groups, k1, k2))
     k /= (cin // groups * k1 * k2) ** 0.5

@@ -35,6 +35,8 @@ PARITY = [
     (2, 4, 4, 160, 150, 9, 7, 2, (2, 3), 2, 3, "circular"),
     (2, 4, 4, 160, 150, 9, 7, 1, 1, 1, 3, "reflect"),
     (2, 4, 4, 160, 150, 9, 7, 1, (2, 1), (1, 2), 3, "constant"),
+    (1, 2, 2, 420, 150, 200, 9, 1, 1, 1, 0, "constant"),    # T1 = 384
+    (1, 2, 2, 130, 300, 12, 100, 1, 1, 1, 0, "constant"),   # T2 = 256
 ]
 
 
@@ -87,7 +89,7 @@ def test_tile_plan_at_the_benchmark_rows():
     # 5 x 5 and 6 x 6 tiles per 512 x 512 image
     assert fused2d._tiling(fused2d.tile_plan_2d(16, 16, 8, 8), 512, 512, 16, 16)[2:] == (5, 5)
     assert fused2d._tiling(fused2d.tile_plan_2d(34, 34, 8, 8), 512, 512, 34, 34)[2:] == (6, 6)
-    assert fused2d._smem_bytes(65, 128) == 100352
+    assert fused2d._smem_bytes(65, 128) == 102784
 
 
 def test_budgets_differ_from_jax_where_intended():
@@ -128,6 +130,33 @@ def test_kernel_spectra_match_jax(k1, k2, groups):
     assert spectra.dtype == torch.complex64 and spectra.shape == kr.shape
     assert np.abs(spectra.real.numpy() - np.asarray(kr)).max() < 1e-6
     assert np.abs(spectra.imag.numpy() - np.asarray(ki)).max() < 1e-6
+
+
+@pytest.mark.parametrize("t", [128, 256, 384])
+def test_factored_transforms_match_dense_products(t):
+    """B2's four-step transforms (the plain version's, with the kernel's
+    factors and natural bin order) against the dense DFT matrices of
+    ``_torch_mats`` in float64: the one-sided H DFT and the H irfft at
+    T1 = t, the W DFT (``_dft_last``) and its inverse at T2 = t."""
+    nb1, v1 = t // 2 + 1, t - 7
+    fr, fi, wr, wi, ur, ui, cr, ci = fused2d._torch_mats(t, nb1, t, v1, torch.float64,
+                                                        torch.device("cpu"))
+    a, yr, yi = (torch.from_numpy(m).double() for m in _arrays(t, (2, t, t), (2, nb1, t),
+                                                              (2, nb1, t)))
+
+    def close(got, want):
+        assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+
+    hr, hi = fused2d._h_forward(a)
+    close(hr, fr @ a)
+    close(hi, fi @ a)
+    dr, di = fused2d._dft_last(yr, yi, False)
+    close(dr, yr @ wr - yi @ wi)
+    close(di, yr @ wi + yi @ wr)
+    er, ei = fused2d._w_inverse(yr, yi)
+    close(er, yr @ ur - yi @ ui)
+    close(ei, yr @ ui + yi @ ur)
+    close(fused2d._h_irfft(yr, yi, v1), cr @ yr + ci @ yi)
 
 
 @pytest.mark.parametrize("shape,k,groups", [
