@@ -147,25 +147,26 @@ def _free_root(k, n):
 
 
 @functools.lru_cache(maxsize=None)
-def _short_dft_flops(n, live, need, kernel):
-    """Flops of one n-point DFT as csrc/fused2d.cu's short_dft runs it, an
-    FMA as two: radix-2 butterflies on the bit-reversed input for a power of
-    two, the dense product for another n. Inputs j >= live are zero and
-    outputs m >= need are not used. kernel: the kernel's own arithmetic
-    (every product by a root other than root[0] = 1 costs 6, every add 2);
-    else only what the outputs need: no product by 1, -1 or +-i, no add
-    with a zero, nothing that reaches no used output."""
+def _short_dft_flops(n, live, need, kernel, first=0):
+    """Flops of one n-point DFT as csrc/fused2d.cu's short_dft runs it (and
+    csrc/fused3d.cu's, for n = 8), an FMA as two: radix-2 butterflies on the
+    bit-reversed input for a power of two, the dense product for another n.
+    Inputs j >= live are zero and only the outputs first <= m < need are
+    used. kernel: the kernel's own arithmetic (every product by a root other
+    than root[0] = 1 costs 6, every add 2); else only what the outputs need:
+    no product by 1, -1 or +-i, no add with a zero, nothing that reaches no
+    used output."""
     free = (lambda k: k == 0) if kernel else (lambda k: _free_root(k, n))
     if n & (n - 1):  # per used output, a product per live term, an add past the first
         terms = min(live, n)
-        return need * 2 * max(terms - 1, 0) + sum(
-            6 for m in range(need) for j in range(terms) if not free(m * j % n))
+        return (need - first) * 2 * max(terms - 1, 0) + sum(
+            6 for m in range(first, need) for j in range(terms) if not free(m * j % n))
     bits = n.bit_length() - 1
     masks = [[int(format(i, f"0{bits}b")[::-1], 2) < live for i in range(n)]]
     for s in range(1, bits):  # masks[s]: the inputs of stage s that may be nonzero
         prev, half = masks[-1], 1 << (s - 1)
         masks.append([prev[i] or prev[i ^ half] for i in range(n)])
-    flops, used = 0, [m < need for m in range(n)]
+    flops, used = 0, [first <= m < need for m in range(n)]
     for s in reversed(range(len(masks))):
         half, lv, below = 1 << s, masks[s], [False] * n
         for p in (i for i in range(n) if not i & half):
@@ -181,17 +182,29 @@ def _short_dft_flops(n, live, need, kernel):
     return flops
 
 
-@functools.lru_cache(maxsize=None)
-def _four_step_flops(t, live, need, kernel=False):
-    """Flops of one complex length-t DFT through B2's four-step split
-    (fused2d._SPLITS): B A-point DFTs over j1 of x[j1 B + j2], the twiddle
-    tw[m1, j2], A B-point DFTs onto the bins m1 + A m2. Inputs j >= live are
-    zero, bins m >= need are not used; kernel as _short_dft_flops (the kernel
-    multiplies by the twiddle wherever m1 > 0)."""
-    from fft_conv_tpu_torch.kernels import fused2d
+def _split(t):
+    """The four-step split (A, B) of a DFT length t as the kernels factor it
+    (B2's fused2d._SPLITS, B3's and B4's W split fused3d._W_SPLIT), else the
+    most-square power-of-two split for another power of two, else None (no
+    split: the length is counted as a dense product)."""
+    from fft_conv_tpu_torch.kernels import fourstep, fused2d, fused3d
 
-    a, b = fused2d._SPLITS[t]
-    want = [[m1 + a * m2 < need for m2 in range(b)] for m1 in range(a)]
+    if t in fused2d._SPLITS:
+        return fused2d._SPLITS[t]
+    if t == fused3d._TW:
+        return fused3d._W_SPLIT
+    return fourstep.split_factors(t) if t >= 4 and not t & (t - 1) else None
+
+
+@functools.lru_cache(maxsize=None)
+def _four_step_flops(t, live, need, kernel=False, first=0):
+    """Flops of one complex length-t DFT through its four-step split
+    (_split): B A-point DFTs over j1 of x[j1 B + j2], the twiddle tw[m1, j2],
+    A B-point DFTs onto the bins m1 + A m2. Inputs j >= live are zero, only
+    the bins first <= m < need are used; kernel as _short_dft_flops (the
+    kernel multiplies by the twiddle wherever m1 > 0)."""
+    a, b = _split(t)
+    want = [[first <= m1 + a * m2 < need for m2 in range(b)] for m1 in range(a)]
     rows = sum(map(any, want))  # the A-point DFTs' outputs m1 that step 2 uses
     flops, live2 = 0, 0
     for j2 in range(b):
@@ -203,7 +216,9 @@ def _four_step_flops(t, live, need, kernel=False):
         flops += sum(6 for m1 in range(rows)
                      if (m1 > 0 if kernel else not _free_root(m1 * j2, t)))
     for m1 in range(rows):
-        flops += _short_dft_flops(b, live2, sum(want[m1]), kernel)
+        used = [m2 for m2 in range(b) if want[m1][m2]]
+        if used:
+            flops += _short_dft_flops(b, live2, used[-1] + 1, kernel, used[0])
     return flops
 
 
@@ -301,58 +316,108 @@ def fused2d_v3_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
     return b * tiles * (cin * fwd + cout * inv)
 
 
-def fused3d_work(b, cin, cout, d, h, w, k, groups=1):
+def _hw_slab_flops(h, oh, nbh, cols_in, lo, hi, dense=False):
+    """(per input d-slab, per output d-slab) flops of the H/W transforms of
+    one W block with cols_in of its 64 columns inside the signal and the
+    block columns [lo, hi) stored, an FMA as two.
+
+    dense: the dense count, every transform a dense product: the one-sided H
+    DFT (real x complex, 4 per term, NBH x H x cols_in), the W DFT (8, NBH x
+    cols_in x 64), the inverse W DFT onto the stored columns (8, NBH x 64 x
+    stored) and the H irfft on the valid rows (4, OH x NBH x stored). Else
+    the least work the call needs, by _four_step_flops: the W DFT-64 of the
+    NBH rows over the live columns and its inverse onto the stored ones,
+    factored 8 x 8 as B3 and B4 run them; the H DFT and irfft factored where
+    H has a split (_split), two real columns as one complex transform as
+    fused2d_work counts B2's, and dense as above where it has none."""
+    stored = hi - lo
+    if dense:
+        return (4 * nbh * h * cols_in + 8 * nbh * cols_in * 64,
+                8 * nbh * 64 * stored + 4 * oh * nbh * stored)
+    fwd = nbh * _four_step_flops(64, cols_in, 64)
+    inv = nbh * _four_step_flops(64, 64, hi, first=lo)
+    if _split(h):
+        fwd += -(-cols_in // 2) * _four_step_flops(h, h, h)
+        inv += -(-stored // 2) * _four_step_flops(h, h, oh)
+    else:
+        fwd += 4 * nbh * h * cols_in
+        inv += 4 * oh * nbh * stored
+    return fwd, inv
+
+
+def _hw_kernel_flops(h, oh, nbh, d, od, sb):
+    """(per input channel, per output channel) flops that B3's and B4's H/W
+    kernels do for one item: the dense H DFT over whole groups of SB slabs
+    and all 64 columns, the factored W DFT-64 of the d slabs' NBH rows with
+    the kernel's own arithmetic (_four_step_flops(kernel=True)); the inverse
+    W DFT of the od slabs' rows with its 1/64 (2 per value), and the dense H
+    irfft over whole groups of SB slabs."""
+    fw = _four_step_flops(64, 64, 64, True)
+    return (-(-d // sb) * sb * 4 * nbh * h * 64 + d * nbh * fw,
+            od * nbh * (fw + 2 * 64) + -(-od // sb) * sb * 4 * oh * nbh * 64)
+
+
+def fused3d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
     """(bytes, flops) the fused 3D function must move and do for one call.
 
     Bytes: the signal and the spectra (Cout, Cin/g, 16, NBH, 64) read once,
-    the output written once. Flops: the dense DFT products of the
-    overlap-save-D algorithm with an FMA as two, restricted to what the call
-    needs. Per W block, with cols_in of its 64 columns inside the signal and
-    cols_out outputs stored: per input channel and d-slab, the one-sided H
-    DFT (real x complex, 4 per term, NBH x H x cols_in) and the W DFT
-    (complex, 8, NBH x cols_in x 64); per input channel and bin, the DFT-16
-    of each block as two 8-slab partial DFTs (8 per term, over the slabs
-    inside D) and their sum (2 per value); per output channel and bin, the
-    MAC over the group's channels at the 16 D-bins of each block (8) and the
-    inverse DFT-16 onto the OD valid d (8); per output channel and valid d,
-    the inverse W DFT onto the stored columns (8, NBH x 64 x cols_out) and
-    the H irfft on the valid rows (4, OH x NBH x cols_out)."""
+    the output written once. Flops, with an FMA as two, restricted to what
+    the call needs. Per W block, with cols_in of its 64 columns inside the
+    signal and cols_out outputs stored: per input channel and d-slab, the H
+    and W transforms (_hw_slab_flops); per input channel and bin, the DFT-16
+    of each block as two 8-slab partial DFTs, each 8-slab chunk's once, and
+    their sum (2 per value, where the second chunk reaches inside D); per
+    output channel and bin, the MAC over the group's channels at the 16
+    D-bins of each block (8) and the inverse DFT-16 onto the block's valid d
+    below OD; per output channel and valid d, the inverse W DFT and the H
+    irfft (_hw_slab_flops). The DFT-16s are counted by _four_step_flops (16
+    = 4 x 4, over the chunk's slabs inside D, onto the valid d only). dense:
+    every transform a dense product, the partial DFTs 8 per term over the
+    slabs inside D and the inverse 8 per term onto the OD valid d, the count
+    of `dense_bound_ms`."""
     from fft_conv_tpu_torch.kernels import fused3d
 
     plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k, groups)
     nbh, nbd = plan[1], plan[4]
     od, oh, ow = d - k + 1, h - k + 1, w - k + 1
     cpg, npos = cin // groups, nbh * 64
+    live = [min(8, d - 8 * m) for m in range(nbd + 1)]  # each chunk's slabs inside D
+    valid = [min(8, od - 8 * j) for j in range(nbd)]    # each block's valid d
+    if dense:
+        d_fwd, d_inv = 8 * 16 * d + 2 * 16 * nbd, 8 * 16 * od
+    else:
+        d_fwd = sum(_four_step_flops(16, lv, 16) for lv in live if lv > 0)
+        d_fwd += 2 * 16 * sum(lv > 0 for lv in live[1:])
+        d_inv = sum(_four_step_flops(16, 16, v) for v in valid)
     flops = 0
     for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
-        cols_in, cols_out = min(64, w - start), hi - lo
-        flops += cin * d * (4 * nbh * h * cols_in + 8 * nbh * cols_in * 64)
-        flops += cin * npos * (8 * 16 * d + 2 * 16 * nbd)
-        flops += cout * npos * (8 * cpg * 16 * nbd + 8 * 16 * od)
-        flops += cout * od * (8 * nbh * 64 * cols_out + 4 * oh * nbh * cols_out)
+        fwd, inv = _hw_slab_flops(h, oh, nbh, min(64, w - start), lo, hi, dense)
+        flops += cin * d * fwd + cout * od * inv
+        flops += cin * npos * d_fwd
+        flops += cout * npos * (8 * cpg * 16 * nbd + d_inv)
     nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * 16 * nbh * 64
               + 4 * b * cout * od * oh * ow)
     return nbytes, b * flops
 
 
 def fused3d_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
-    """The flops csrc/fused3d.cu does for one call: the H/W phases over all
-    64 columns of a block and over whole groups of SB slabs, the inverse
-    DFT-16 onto all 8 d of a block."""
+    """The flops csrc/fused3d.cu does for one call: the H/W kernels as
+    _hw_kernel_flops counts them, the inverse DFT-16 onto all 8 d of a
+    block."""
     from fft_conv_tpu_torch.kernels import fused3d
 
     plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k, groups)
     nbh, nbd = plan[1], plan[4]
     od, oh = d - k + 1, h - k + 1
-    sb, npos = fused3d._slabs_per_block(nbh), nbh * 64
-    item = cin * -(-d // sb) * sb * (4 * nbh * h * 64 + 8 * nbh * 64 * 64)
+    npos = nbh * 64
+    fwd, inv = _hw_kernel_flops(h, oh, nbh, d, od, fused3d._slabs_per_block(nbh))
+    item = cin * fwd + cout * inv
     item += cin * npos * (8 * 16 * d + 2 * 16 * nbd)
     item += cout * npos * nbd * (8 * (cin // groups) * 16 + 8 * 8 * 16)
-    item += cout * -(-od // sb) * sb * (8 * nbh * 64 * 64 + 4 * oh * nbh * 64)
     return b * nwb * item
 
 
-def fused3d_tap_work(b, cin, cout, d, h, w, k, groups=1):
+def fused3d_tap_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
     """(bytes, flops) the fused 3D function must move and do for one call of
     a 'tap' plan (kernel B4), counted as in fused3d_work: the H/W transforms
     per input channel and d-slab, the tap MAC per output channel, valid d
@@ -368,10 +433,9 @@ def fused3d_tap_work(b, cin, cout, d, h, w, k, groups=1):
     cpg, npos = cin // groups, nbh * 64
     flops = 0
     for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
-        cols_in, cols_out = min(64, w - start), hi - lo
-        flops += cin * d * (4 * nbh * h * cols_in + 8 * nbh * cols_in * 64)
+        fwd, inv = _hw_slab_flops(h, oh, nbh, min(64, w - start), lo, hi, dense)
+        flops += cin * d * fwd + cout * od * inv
         flops += cout * npos * od * 8 * cpg * k
-        flops += cout * od * (8 * nbh * 64 * cols_out + 4 * oh * nbh * cols_out)
     nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * k * nbh * 64
               + 4 * b * cout * od * oh * ow)
     return nbytes, b * flops
@@ -379,17 +443,17 @@ def fused3d_tap_work(b, cin, cout, d, h, w, k, groups=1):
 
 def fused3d_tap_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
     """The flops csrc/fused3d.cu's tap chain does for one call: the H/W
-    kernels over all 64 columns of a block and over whole groups of SB
-    slabs, the tap MAC onto all 8 d of each chunk."""
+    kernels as _hw_kernel_flops counts them, the tap MAC onto all 8 d of
+    each chunk."""
     from fft_conv_tpu_torch.kernels import fused3d
 
     plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k, groups)
     nbh = plan[1]
     od, oh = d - k + 1, h - k + 1
-    sb, npos = fused3d._slabs_per_block(nbh), nbh * 64
-    item = cin * -(-d // sb) * sb * (4 * nbh * h * 64 + 8 * nbh * 64 * 64)
+    npos = nbh * 64
+    fwd, inv = _hw_kernel_flops(h, oh, nbh, d, od, fused3d._slabs_per_block(nbh))
+    item = cin * fwd + cout * inv
     item += cout * npos * -(-od // 8) * 8 * 8 * (cin // groups) * k
-    item += cout * -(-od // sb) * sb * (8 * nbh * 64 * 64 + 4 * oh * nbh * 64)
     return b * nwb * item
 
 
@@ -851,8 +915,10 @@ def check_fused3d(torch, dev, gen):
     """B3 against its plain version on the card at the 3D benchmark row, with
     groups=2, at odd sizes with KD=9 (the hop edge), through
     fft_conv3d_fused's argument surface (stride, dilation, reflect padding),
-    with W cut into 4 overlap-save blocks, and with the items split over
-    several launches. Returns the row's inputs and its max abs errors."""
+    with W cut into 4 overlap-save blocks, at H = 226 and 454 (2 and 1 slabs
+    a block), at the stuffed 78^3 volume of the transposed K=8 call, and
+    with the items split over several launches. Returns the row's inputs and
+    its max abs errors."""
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import functional as F
 
@@ -893,6 +959,11 @@ def check_fused3d(torch, dev, gen):
              "D, H, W = 41, 37, 45, K = (9, 5, 7)")
     vs_plain(randn(2, 8, 24, 32, 200), randn(8, 8, 3, 5, 7) / 20.0, 1,
              "W=200 in 4 W blocks")
+    # each slab count of the H/W kernels (SB = 4 above, 2 and 1 here), and
+    # the stuffed volume of the transposed K=8 call (NBH 40, 2 W blocks)
+    vs_plain(randn(1, 2, 12, 226, 64), randn(2, 2, 3, 3, 3) / 5.0, 1, "H=226 (NBH 114, SB=2)")
+    vs_plain(randn(1, 2, 12, 454, 64), randn(2, 2, 3, 3, 3) / 5.0, 1, "H=454 (NBH 228, SB=1)")
+    vs_plain(randn(2, 8, 78, 78, 78), wt, 1, "stuffed 78^3, K=8, 2 W blocks")
 
     xs, ws = randn(2, 8, 40, 36, 44), randn(8, 8, 3, 3, 3) / 15.0
     kw = dict(padding=3, padding_mode="reflect", stride=(2, 1, 3), dilation=2)
@@ -1037,6 +1108,8 @@ def time_3d(torch, inputs, errs, per_row):
             "library_ms": device_ms(lambda: TF.conv3d(x, wt)),
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
             "kernel_flops": fused3d_kernel_flops(b, cin, cout, d, h, w, k),
+            # the bound with every transform a dense product
+            "dense_bound_ms": bound(*fused3d_work(b, cin, cout, d, h, w, k, dense=True))[0],
             # B3's four kernels, one by one (device time per call)
             "phase_ms": phase_split_ms(torch, kernel, "fused3d_"),
         }
@@ -1061,8 +1134,10 @@ def check_fused3d_tap(torch, dev, gen):
     at odd sizes with KD=11 and an odd H, with W cut into 4 overlap-save
     blocks at KD=12, through fft_conv3d_fused's argument surface (stride,
     dilation 2 taking K=6 to 11, reflect padding), at 64^3 K=11 (a plan the
-    JAX package refuses), and with the items split over several launches.
-    Returns the row's inputs and its max abs errors."""
+    JAX package refuses), at H = 226 and 454 (2 and 1 slabs a block), at the
+    stuffed 82^3 volume of the transposed K=10 call, and with the items
+    split over several launches. Returns the row's inputs and its max abs
+    errors."""
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import functional as F
 
@@ -1101,6 +1176,9 @@ def check_fused3d_tap(torch, dev, gen):
              "W=200 in 4 W blocks, KD=12")
     w11 = randn(8, 8, 11, 11, 11) / (8 * 11 ** 3) ** 0.5
     vs_plain(x, w11, 1, "64^3 K=11", plan=list(fused3d.plan_3d(8, 8, 64, 64, 64, 11, 11, 11)))
+    vs_plain(randn(1, 2, 16, 226, 64), randn(2, 2, 10, 3, 5) / 8.0, 1, "H=226 (NBH 114, SB=2)")
+    vs_plain(randn(1, 2, 14, 454, 64), randn(2, 2, 10, 3, 3) / 8.0, 1, "H=454 (NBH 228, SB=1)")
+    vs_plain(randn(2, 8, 82, 82, 82), wt, 1, "stuffed 82^3, K=10, 2 W blocks")
 
     xs, ws = randn(2, 8, 40, 36, 44), randn(8, 8, 6, 3, 3) / 20.0
     kw = dict(padding=3, padding_mode="reflect", stride=(2, 1, 3), dilation=2)
@@ -1264,6 +1342,8 @@ def time_3d_tap(torch, inputs, errs, per_row):
             "library_ms": device_ms(lambda: TF.conv3d(x, wt)),
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
             "kernel_flops": fused3d_tap_kernel_flops(b, cin, cout, d, h, w, k),
+            # the bound with every transform a dense product
+            "dense_bound_ms": bound(*fused3d_tap_work(b, cin, cout, d, h, w, k, dense=True))[0],
             # B4's three kernels, one by one (device time per call)
             "phase_ms": phase_split_ms(torch, kernel, "fused3d_"),
         }

@@ -17,9 +17,16 @@
 // the tap domain and correlates along it, Y[o, d] = sum_c sum_u T[c, d + u]
 // K[o, c, u], against the conjugated per-tap 2D spectra. Then the inverse W
 // DFT and the H irfft (DC and Nyquist weighted 1, the rest 2, their
-// imaginary rows zeroed) keep the valid columns and rows. Every transform is
-// a dense DFT matrix product in FP32 FMAs. The host side (plans, factor
-// matrices, kernel spectra, item ranges) is in
+// imaginary rows zeroed) keep the valid columns and rows. All arithmetic is
+// FP32 on CUDA cores. The H DFT, the H irfft, the DFT-16 and the MAC are
+// dense products; the W DFT-64 and its inverse are four-step transforms 64 =
+// 8 * 8 (fourstep.fft_factor_matrices(8, 8), built in float64 and cast to
+// float32 by the host): per row, the 8-point DFT over j1 of x[8 j1 + j2] and
+// the twiddle tw[m1, j2], in place in shared memory, then the 8-point DFT
+// over j2 onto the bin m1 + 8 m2, in natural order. Each 8-point DFT runs in
+// registers as radix-2 butterflies on the roots of unity, so a row costs
+// about 1.6 kflop where the dense product cost 32.8. The host side (plans,
+// factors, kernel spectra, item ranges) is in
 // fft_conv_tpu_torch/kernels/fused3d.py.
 //
 // Partition. A TPU cell holds a whole volume of every channel in its vector
@@ -31,7 +38,8 @@
 // W-block) pair:
 //   1 hw_forward (B3 and B4), grid (items * Cin, D / SB): SB d-slabs read
 //     straight from the signal, the one-sided H DFT into shared memory, the
-//     W DFT into the scratch T (items, Cin, D, NBH, 64);
+//     factored W DFT (step 1 in place, step 2 stored from registers) into
+//     the scratch T (items, Cin, D, NBH, 64);
 //   2 d_forward (B3), grid (items * Cin, positions / 256): one thread per
 //     (n, z) bin walks D in chunks of 8 slabs; the DFT-16 of block j is the
 //     sum of two 8-slab partial DFTs, A[j] + (-1)^f A[j+1], so each slab
@@ -49,25 +57,32 @@
 //     L2; the sums stay in registers (OPB x 8 complex, whatever KD is).
 //     Writes Z (items, Cout, OD, NBH, 64);
 //   4 hw_inverse (B3 and B4), grid (items * Cout, OD / SB): SB slabs of Z
-//     into shared memory, the inverse W DFT in place, the H irfft on the
-//     valid rows, and the valid (d, h, w) samples stored straight into
-//     (B, Cout, OD, OH, OW).
+//     into shared memory, the factored inverse W DFT in place, the H irfft
+//     on the valid rows, and the valid (d, h, w) samples stored straight
+//     into (B, Cout, OD, OH, OW).
 // SB, the slabs a block of phases 1 and 4 holds, is 4 when 4 * NBH * 64
 // complex values fit a block's shared memory (67.6 KB at H = 64), else 2 or 1.
+// Those rows are swizzled (sw) so that the strided accesses of the W steps,
+// a half-warp on 8 columns 8 apart in each of two rows, fall in distinct
+// banks; the W factors stay out of shared memory, whose formula is the
+// plan's (roots in registers, the twiddle through L1).
 //
 // Bound. At the library's 3D benchmark (B=2, 8 -> 8 channels, 64^3, K=8) B3's
-// call needs about 3.7 GFLOP of dense products (FMA = 2): H DFT 0.55, W DFT
-// 1.11, DFT-16 0.29, MAC 0.28, inverse D 0.25, inverse W on the 57 stored
-// columns 0.88, H irfft on the 57 valid rows 0.39: 0.056 ms at the FP32
-// CUDA-core rate of 67 TFLOP/s. It must move about 46 MB (signal 16.8, spectra
-// 17.3, output 11.9): 0.014 ms at 3.35 TB/s. So operations bound it. B4 at
-// the same volume with K=10 needs about 4.0 GFLOP (H DFT 0.55, W DFT 1.11,
-// tap MAC 1.19, inverse W on the 55 stored columns 0.82, H irfft 0.35):
-// 0.060 ms, against 38.2 MB to move (0.011 ms); operations bound it too. The
-// dense products (phases 1 and 4) are register-tiled: a thread owns one
-// column of SB slabs and up to 9 (complex) or 15 (real) rows, and per
-// contraction step reads one shared-memory or L1 broadcast per row and one
-// value per slab, about one load per 5 FMAs at SB = 4. The MAC phases read
+// call needs about 0.52 GFLOP (FMA = 2; chip_smoke.py: fused3d_work, every
+// transform factored where its length splits, the DFT-16s too, no product
+// by 1, -1 or +-i, none over zeros past D, none for outputs not stored):
+// 0.008 ms at the FP32 CUDA-core rate of 67 TFLOP/s. It must move about 46
+// MB (signal 16.8, spectra 17.3, output 11.9): 0.014 ms at 3.35 TB/s, so
+// bytes bound it. Done as dense products the same call was 3.7 GFLOP, half
+// of them the W DFTs (H DFT 0.55, W DFT 1.11, DFT-16 0.29, MAC 0.28, inverse
+// D 0.25, inverse W 0.88, H irfft 0.39).
+// The kernels do about 2.0 GFLOP: the H transforms stay dense. B4 at the same
+// volume with K=10 needs about 1.34 GFLOP (0.020 ms, the tap MAC 1.19 of it)
+// against 38.2 MB to move (0.011 ms); operations bound it. The dense H
+// products (phases 1 and 4) are register-tiled: a thread owns one column of
+// SB slabs and up to 9 (complex) or 15 (real) rows, and per contraction step
+// reads one L1 broadcast per row and one value per slab, about one load per
+// 5 FMAs at SB = 4. The MAC phases read
 // their operands through L2: B3's about 0.35 GB at the benchmark; B4's the
 // spectra once per (item, 8-d chunk), about 0.15 GB at 64^3 K=10, and per
 // (tap, channel) one T value and OPB spectra values for 32 complex MACs at
@@ -107,7 +122,7 @@ constexpr int kMaxSmem = 232448;                // a Hopper block's shared memor
 
 template <int SB>
 struct Cfg {
-  // rows a thread owns per pass: complex (H forward, W forward and inverse)
+  // rows a thread owns per pass of the dense H stages: complex (H forward)
   // and real (H irfft); sized so that the sums and the loads the compiler
   // hoists ahead of them stay within 128 registers without spills
   static constexpr int kRpt = SB == 4 ? 9 : (SB == 2 ? 13 : 17);
@@ -121,6 +136,107 @@ __device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
   acc.x = fmaf(-a.y, b.y, acc.x);
   acc.y = fmaf(a.x, b.y, acc.y);
   acc.y = fmaf(a.y, b.x, acc.y);
+}
+
+// ---- The W DFT-64, factored as 8 * 8 ------------------------------------------
+
+// The four-step split 64 = A * B (fused3d.py: _W_SPLIT). The host hands the
+// factors (fused3d.py: _w_factors) as one vector: the A roots of unity, the
+// B roots and the (A, B) twiddle tw[m1, j2], row-major; the inverse
+// conjugates all three.
+constexpr int kWA = 8, kWB = 8;
+static_assert(kWA * kWB == kTW, "the W split must factor the W length");
+
+__host__ __device__ constexpr int bitrev(int i, int n) {
+  int r = 0;
+  for (int m = n >> 1; m > 0; m >>= 1, i >>= 1) r = (r << 1) | (i & 1);
+  return r;
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+// a * w, or a * conj(w) for the inverse
+template <bool INV>
+__device__ __forceinline__ float2 cmulw(float2 a, float2 w) {
+  if (INV) w.y = -w.y;
+  return make_float2(fmaf(a.x, w.x, -a.y * w.y), fmaf(a.x, w.y, a.y * w.x));
+}
+
+// One radix-2 stage of LEN-point butterflies (decimation in time), then the
+// next; the twiddle root[0] = 1 is skipped.
+template <int N, int LEN, bool INV>
+__device__ __forceinline__ void dit_stages(float2 (&t)[N], const float2 (&root)[N / 2]) {
+  if constexpr (LEN <= N) {
+#pragma unroll
+    for (int i = 0; i < N; i += LEN) {
+#pragma unroll
+      for (int j = 0; j < LEN / 2; ++j) {
+        const float2 u = t[i + j];
+        float2 w = t[i + j + LEN / 2];
+        if (j != 0) w = cmulw<INV>(w, root[j * (N / LEN)]);
+        t[i + j] = cadd(u, w);
+        t[i + j + LEN / 2] = csub(u, w);
+      }
+    }
+    dit_stages<N, 2 * LEN, INV>(t, root);
+  }
+}
+
+// v <- the N-point DFT of v (N a power of two; INV: conjugated, unscaled),
+// natural order in and out, as radix-2 butterflies on the bit-reversed
+// input; root[k] = exp(-2 pi i k / N) for k < N / 2, in registers.
+template <int N, bool INV>
+__device__ __forceinline__ void short_dft(float2 (&v)[N], const float2 (&root)[N / 2]) {
+  float2 t[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) t[i] = v[bitrev(i, N)];
+  dit_stages<N, 2, INV>(t, root);
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = t[i];
+}
+
+// The roots of the two short DFTs, from the factor vector into registers.
+__device__ __forceinline__ void load_roots(const float2* __restrict__ fac, float2 (&ra)[kWA / 2],
+                                           float2 (&rb)[kWB / 2]) {
+#pragma unroll
+  for (int k = 0; k < kWA / 2; ++k) ra[k] = __ldg(fac + k);
+#pragma unroll
+  for (int k = 0; k < kWB / 2; ++k) rb[k] = __ldg(fac + kWA + k);
+}
+
+// Index of (row, column) in a block's shared rows of 64 complex values. The
+// column c = 8 a + b is stored at 8 (a ^ (row & 1)) + (b ^ a), a permutation
+// of the row, so that each half-warp's 16 float2 fall in distinct banks when
+// it reads or writes two neighbouring rows, the first even, at the 8 columns
+// 8 a + b of one a (W step 1, the inverse's step 2 stores) or of one b (W
+// step 2), or 16 neighbouring columns of one row (the H stages).
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * kTW + (c ^ (c >> 3) ^ ((r & 1) << 3));
+}
+
+// Step 1 of the factored W DFT (INV: conjugated) on rows [0, nrows) of the
+// block's shared rows, in place: for each (row, j2), the A-point DFT over j1
+// of column j1 B + j2 and the twiddle tw[m1, j2], left at column m1 B + j2.
+// B neighbouring threads take the B values of j2 of one row. No barrier.
+template <bool INV>
+__device__ __forceinline__ void w_step1(float2* s_r, int nrows, const float2 (&ra)[kWA / 2],
+                                        const float2* __restrict__ tw) {
+  for (int i = threadIdx.x; i < nrows * kWB; i += kThreads) {
+    const int row = i / kWB, j2 = i % kWB;
+    float2 v[kWA];
+#pragma unroll
+    for (int j1 = 0; j1 < kWA; ++j1) v[j1] = s_r[sw(row, j1 * kWB + j2)];
+    short_dft<kWA, INV>(v, ra);
+#pragma unroll
+    for (int m1 = 0; m1 < kWA; ++m1)
+      s_r[sw(row, m1 * kWB + j2)] = m1 == 0 ? v[0] : cmulw<INV>(v[m1], __ldg(tw + m1 * kWB + j2));
+  }
 }
 
 // Rows of an m-row product are computed in n passes of `rows` rows each
@@ -166,12 +282,12 @@ template <int SB, bool PK>
 __global__ void __launch_bounds__(kThreads, 2)
 fused3d_hw_forward(const float* __restrict__ x,    // (B, Cin, d, h, w), or packed
                    const float2* __restrict__ fh,  // (nbh, h) one-sided H DFT rows
-                   const float2* __restrict__ wf,  // (64, 64) W DFT
+                   const float2* __restrict__ wfac,  // W factors (A + B + A * B), see kWA
                    float2* __restrict__ t,         // (items of this launch, Cin, d, nbh, 64)
                    int cin, int d, int h, int w, int ow, int nwb, int hop, int item0, int pp) {
   constexpr int RPT = Cfg<SB>::kRpt;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* s_a = reinterpret_cast<float2*>(smem_raw);  // (SB, nbh, 64)
+  float2* s_a = reinterpret_cast<float2*>(smem_raw);  // (SB * nbh, 64) rows, swizzled (sw)
 
   const int nbh = h / 2 + 1;
   const int tid = threadIdx.x, cl = tid % kTW, rg = tid / kTW;
@@ -228,43 +344,30 @@ fused3d_hw_forward(const float* __restrict__ x,    // (B, Cin, d, h, w), or pack
       if (q < nq) {
 #pragma unroll
         for (int s = 0; s < SB; ++s)
-          s_a[((int64_t)s * nbh + row0 + rg + q * kRowGroups) * kTW + cl] = acc[q][s];
+          s_a[sw(s * nbh + row0 + rg + q * kRowGroups, cl)] = acc[q][s];
       }
     }
   }
   __syncthreads();
 
-  // W forward: T[s] = A[s] . W64, written to the scratch
+  // W forward, T[s] = A[s] . W64 on the slabs inside d, factored: step 1 in
+  // place, then step 2, 8 threads a row (m1 = thread % 8), the B-point DFT
+  // over j2 of column m1 B + j2, stored at the natural bins m1 + A m2 of the
+  // scratch (each store a run of 8 bins, 64 B, per row)
+  const int nrows = ns * nbh;
+  float2 ra[kWA / 2], rb[kWB / 2];
+  load_roots(wfac, ra, rb);
+  w_step1<false>(s_a, nrows, ra, wfac + kWA + kWB);
+  __syncthreads();
   float2* tout = t + ((int64_t)blockIdx.x * d + d0) * nbh * kTW;
-  for (int p = 0; p < ps.n; ++p) {
-    const int row0 = p * ps.rows, nrow = min(ps.rows, nbh - row0);
-    const int nq = own_rows(nrow, rg);
-    float2 acc[RPT][SB];
+  for (int i = tid; i < nrows * kWA; i += kThreads) {
+    const int row = i / kWA, m1 = i % kWA;
+    float2 u[kWB];
 #pragma unroll
-    for (int q = 0; q < RPT; ++q)
+    for (int j2 = 0; j2 < kWB; ++j2) u[j2] = s_a[sw(row, m1 * kWB + j2)];
+    short_dft<kWB, false>(u, rb);
 #pragma unroll
-      for (int s = 0; s < SB; ++s) acc[q][s] = make_float2(0.f, 0.f);
-#pragma unroll 2
-    for (int k = 0; k < kTW; ++k) {
-      const float2 wv = __ldg(wf + k * kTW + cl);
-#pragma unroll
-      for (int q = 0; q < RPT; ++q) {
-        if (q < nq) {
-          const int row = row0 + rg + q * kRowGroups;
-#pragma unroll
-          for (int s = 0; s < SB; ++s) cmac(acc[q][s], s_a[(s * nbh + row) * kTW + k], wv);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      if (q < nq) {
-        const int row = row0 + rg + q * kRowGroups;
-#pragma unroll
-        for (int s = 0; s < SB; ++s)
-          if (s < ns) tout[((int64_t)s * nbh + row) * kTW + cl] = acc[q][s];
-      }
-    }
+    for (int m2 = 0; m2 < kWB; ++m2) tout[(int64_t)row * kTW + m1 + kWA * m2] = u[m2];
   }
 }
 
@@ -456,13 +559,13 @@ fused3d_pack_x(const float* __restrict__ x,  // (B, Cin, d, h, w)
 template <int SB>
 __global__ void __launch_bounds__(kThreads, 2)
 fused3d_hw_inverse(const float2* __restrict__ z,   // (items of this launch, Cout, od, nbh, 64)
-                   const float2* __restrict__ wb,  // (64, 64) inverse W DFT (1/64 folded in)
+                   const float2* __restrict__ wfac,  // W factors (A + B + A * B), see kWA
                    const float2* __restrict__ ch,  // (oh, nbh) H irfft rows as (cr, ci) pairs
                    float* __restrict__ out,        // (B, Cout, od, oh, ow)
                    int cout, int h, int w, int od, int oh, int ow, int nwb, int hop, int item0) {
-  constexpr int RPT = Cfg<SB>::kRpt, RPTR = Cfg<SB>::kRptR;
+  constexpr int RPTR = Cfg<SB>::kRptR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* s_z = reinterpret_cast<float2*>(smem_raw);  // (SB, nbh, 64): Z, then E
+  float2* s_z = reinterpret_cast<float2*>(smem_raw);  // (SB * nbh, 64) rows of Z, then E (sw)
 
   const int nbh = h / 2 + 1, npos = nbh * kTW;
   const int tid = threadIdx.x, cl = tid % kTW, rg = tid / kTW;
@@ -473,38 +576,33 @@ fused3d_hw_inverse(const float2* __restrict__ z,   // (items of this launch, Cou
   // the block's slabs are contiguous in Z; zeros past od
   const float2* zs = z + ((int64_t)blockIdx.x * od + d0) * npos;
   for (int i = tid; i < SB * npos; i += kThreads)
-    s_z[i] = i < ns * npos ? __ldg(zs + i) : make_float2(0.f, 0.f);
+    s_z[sw(i / kTW, i % kTW)] = i < ns * npos ? __ldg(zs + i) : make_float2(0.f, 0.f);
   __syncthreads();
 
-  // W inverse, in place: each pass reads and then overwrites its own rows
-  const Passes ps = split_rows(nbh, kRowGroups * RPT);
-  for (int p = 0; p < ps.n; ++p) {
-    const int row0 = p * ps.rows, nrow = min(ps.rows, nbh - row0);
-    const int nq = own_rows(nrow, rg);
-    float2 acc[RPT][SB];
+  // W inverse on the slabs inside od, in place, factored with the conjugated
+  // factors: step 1, then step 2 in rounds of 256 / 8 rows, 8 threads a row
+  // (m1 = thread % 8), each holding its B-point DFT across a barrier and
+  // storing it, 1/64 applied, at the natural bins m1 + A m2
+  const int nrows = ns * nbh;
+  {
+    float2 ra[kWA / 2], rb[kWB / 2];
+    load_roots(wfac, ra, rb);
+    w_step1<true>(s_z, nrows, ra, wfac + kWA + kWB);
+    __syncthreads();
+    const int m1 = tid % kWA;
+    for (int r0 = 0; r0 < nrows; r0 += kThreads / kWA) {
+      const int row = r0 + tid / kWA;
+      float2 u[kWB];
+      if (row < nrows) {
 #pragma unroll
-    for (int q = 0; q < RPT; ++q)
-#pragma unroll
-      for (int s = 0; s < SB; ++s) acc[q][s] = make_float2(0.f, 0.f);
-#pragma unroll 2
-    for (int k = 0; k < kTW; ++k) {
-      const float2 u = __ldg(wb + k * kTW + cl);
-#pragma unroll
-      for (int q = 0; q < RPT; ++q) {
-        if (q < nq) {
-          const int row = row0 + rg + q * kRowGroups;
-#pragma unroll
-          for (int s = 0; s < SB; ++s) cmac(acc[q][s], s_z[(s * nbh + row) * kTW + k], u);
-        }
+        for (int j2 = 0; j2 < kWB; ++j2) u[j2] = s_z[sw(row, m1 * kWB + j2)];
+        short_dft<kWB, true>(u, rb);
       }
-    }
-    __syncthreads();  // every read of this pass's rows is done
+      __syncthreads();  // every read of the round's rows is done
+      if (row < nrows) {
 #pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      if (q < nq) {
-        const int row = row0 + rg + q * kRowGroups;
-#pragma unroll
-        for (int s = 0; s < SB; ++s) s_z[(s * nbh + row) * kTW + cl] = acc[q][s];
+        for (int m2 = 0; m2 < kWB; ++m2)
+          s_z[sw(row, m1 + kWA * m2)] = make_float2(u[m2].x * (1.f / kTW), u[m2].y * (1.f / kTW));
       }
     }
   }
@@ -526,7 +624,7 @@ fused3d_hw_inverse(const float2* __restrict__ z,   // (items of this launch, Cou
     for (int n = 0; n < nbh; ++n) {
       float2 ev[SB];
 #pragma unroll
-      for (int s = 0; s < SB; ++s) ev[s] = s_z[(s * nbh + n) * kTW + cl];
+      for (int s = 0; s < SB; ++s) ev[s] = s_z[sw(s * nbh + n, cl)];
 #pragma unroll
       for (int q = 0; q < RPTR; ++q) {
         if (q < nq) {
@@ -560,7 +658,7 @@ int slabs_per_block(int nbh) {
 
 struct Args {
   const float* x;
-  const float2 *ks, *fh, *wf, *wb, *df, *ei, *ch;
+  const float2 *ks, *fh, *wfac, *df, *ei, *ch;
   float2 *t, *s, *z;
   float* out;
   int cin, cout, groups, d, h, w, od, oh, ow, nbd, kd, nwb, hop, item0, nitem;
@@ -576,7 +674,7 @@ cudaError_t launch_hw_forward(const Args& a) {
   if (err != cudaSuccess) return err;
   fused3d_hw_forward<SB, PK><<<dim3(a.nitem * a.cin, (a.d + SB - 1) / SB), kThreads, smem,
                                a.stream>>>(
-      a.x, a.fh, a.wf, a.t, a.cin, a.d, a.h, a.w, a.ow, a.nwb, a.hop, a.item0, a.pp);
+      a.x, a.fh, a.wfac, a.t, a.cin, a.d, a.h, a.w, a.ow, a.nwb, a.hop, a.item0, a.pp);
   return cudaGetLastError();
 }
 
@@ -587,7 +685,7 @@ cudaError_t launch_hw_inverse(const Args& a) {
       fused3d_hw_inverse<SB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   fused3d_hw_inverse<SB><<<dim3(a.nitem * a.cout, (a.od + SB - 1) / SB), kThreads, smem, a.stream>>>(
-      a.z, a.wb, a.ch, a.out, a.cout, a.h, a.w, a.od, a.oh, a.ow, a.nwb, a.hop, a.item0);
+      a.z, a.wfac, a.ch, a.out, a.cout, a.h, a.w, a.od, a.oh, a.ow, a.nwb, a.hop, a.item0);
   return cudaGetLastError();
 }
 
@@ -674,23 +772,25 @@ cudaError_t launch_tap(const Args& a) {
 // Runs items [item0, item0 + nitem) (item = batch index * nwb + W block) of
 // one convolution through B3, the v4 chain. x (B, Cin, d, h, w) f32, or with
 // pp > 0 B6's packed layout (B * nwb, h, Cin * pp, 128) f32; ks (Cout,
-// Cin/groups, 16, h/2+1, 64); fh (h/2+1, h); wf and wb (64, 64); df (16, 16);
-// ei (8, 16); ch (oh, h/2+1); scratch t (nitem, Cin, d, h/2+1, 64), s (nitem,
-// Cin, nbd, 16, h/2+1, 64), z (nitem, Cout, od, h/2+1, 64); out (B, Cout, od,
-// oh, ow) f32. Complex arrays are interleaved (re, im) float pairs. W blocks
-// start at min(i * hop, max(w - 64, 0)); with nwb = 1, hop is ow. Returns
-// cudaGetLastError() after the four launches (0 when all were accepted).
-extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, const void* wf,
-                               const void* wb, const void* df, const void* ei, const void* ch,
-                               void* t, void* s, void* z, void* out, int cin, int cout,
+// Cin/groups, 16, h/2+1, 64); fh (h/2+1, h); wfac the W factors, 8 + 8 + 64
+// complex (fused3d.py: _w_factors), which hw_forward reads as they are and
+// hw_inverse conjugated; df (16, 16); ei (8, 16); ch (oh, h/2+1); scratch t
+// (nitem, Cin, d, h/2+1, 64), s (nitem, Cin, nbd, 16, h/2+1, 64), z (nitem,
+// Cout, od, h/2+1, 64);
+// out (B, Cout, od, oh, ow) f32. Complex arrays are interleaved (re, im)
+// float pairs. W blocks start at min(i * hop, max(w - 64, 0)); with nwb = 1,
+// hop is ow. Returns cudaGetLastError() after the four launches (0 when all
+// were accepted).
+extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, const void* wfac,
+                               const void* df, const void* ei, const void* ch, void* t,
+                               void* s, void* z, void* out, int cin, int cout,
                                int groups, int d, int h, int w, int od, int oh, int ow, int nbd,
                                int nwb, int hop, int item0, int nitem, int pp, void* stream) {
   Args a{};
   a.x = static_cast<const float*>(x);
   a.ks = static_cast<const float2*>(ks);
   a.fh = static_cast<const float2*>(fh);
-  a.wf = static_cast<const float2*>(wf);
-  a.wb = static_cast<const float2*>(wb);
+  a.wfac = static_cast<const float2*>(wfac);
   a.df = static_cast<const float2*>(df);
   a.ei = static_cast<const float2*>(ei);
   a.ch = static_cast<const float2*>(ch);
@@ -719,12 +819,12 @@ extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, co
 
 // Runs items [item0, item0 + nitem) of one convolution through B4, the tap
 // chain. x (B, Cin, d, h, w) f32; ks (Cout, Cin/groups, kd, h/2+1, 64), the
-// conjugated per-tap 2D spectra; fh, wf, wb and ch as for fused3d_forward;
+// conjugated per-tap 2D spectra; fh, wfac and ch as for fused3d_forward;
 // scratch t (nitem, Cin, d, h/2+1, 64) and z (nitem, Cout, od, h/2+1, 64),
 // od = d - kd + 1; out (B, Cout, od, oh, ow) f32. Returns
 // cudaGetLastError() after the three launches (0 when all were accepted).
 extern "C" int fused3d_tap_forward(const void* x, const void* ks, const void* fh,
-                                   const void* wf, const void* wb, const void* ch, void* t,
+                                   const void* wfac, const void* ch, void* t,
                                    void* z, void* out, int cin, int cout, int groups, int d,
                                    int h, int w, int kd, int od, int oh, int ow, int nwb,
                                    int hop, int item0, int nitem, void* stream) {
@@ -732,8 +832,7 @@ extern "C" int fused3d_tap_forward(const void* x, const void* ks, const void* fh
   a.x = static_cast<const float*>(x);
   a.ks = static_cast<const float2*>(ks);
   a.fh = static_cast<const float2*>(fh);
-  a.wf = static_cast<const float2*>(wf);
-  a.wb = static_cast<const float2*>(wb);
+  a.wfac = static_cast<const float2*>(wfac);
   a.ch = static_cast<const float2*>(ch);
   a.t = static_cast<float2*>(t);
   a.z = static_cast<float2*>(z);

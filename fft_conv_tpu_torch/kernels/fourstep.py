@@ -65,6 +65,44 @@ def _real_factors(n1: int, n2: int, rows: int, dtype: torch.dtype, device: torch
     )
 
 
+@lru_cache(maxsize=None)
+def _factor_tensors(n1: int, n2: int, dtype: torch.dtype, device: torch.device):
+    """(f1, f2, tw) of ``fft_factor_matrices(n1, n2)`` (built in float64)
+    as (re, im) pairs of ``dtype`` tensors on ``device``: f1 (n1, n1), f2
+    (n2, n2) and the twiddle (n1, n2), made once per device."""
+    out = []
+    for m in fft_factor_matrices(n1, n2):
+        out += [torch.from_numpy(np.ascontiguousarray(part)).to(device, dtype)
+                for part in (m.real, m.imag)]
+    return tuple(out)
+
+
+def dft_last(xr: torch.Tensor, xi: Optional[torch.Tensor], split: Tuple[int, int],
+             inverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unscaled DFT (inverse: conjugated) of the last axis, length T = A·B
+    with ``split`` = (A, B), through the four-step factors: the A-point DFT
+    f1 over j1 of x[j1 * B + j2], the twiddle, the B-point DFT f2 over j2,
+    and the result read back in natural bin order (X[m1 + A * m2] =
+    D[m1, m2]), as the fused kernels run it. ``xi`` None is a real input.
+    Returns (re, im) in the dtype of ``xr``."""
+    t = xr.shape[-1]
+    a, b = split
+    if a * b != t:
+        raise ValueError(f"split {split} does not factor length {t}")
+    f1r, f1i, f2r, f2i, twr, twi = _factor_tensors(a, b, xr.dtype, xr.device)
+    if inverse:
+        f1i, f2i, twi = -f1i, -f2i, -twi
+    lead = xr.shape[:-1]
+    ar = xr.reshape(*lead, a, b)
+    br, bi = f1r @ ar, f1i @ ar
+    if xi is not None:
+        ai = xi.reshape(*lead, a, b)
+        br, bi = br - f1i @ ai, bi + f1r @ ai
+    cr, ci = br * twr - bi * twi, br * twi + bi * twr
+    dr, di = cr @ f2r - ci @ f2i, cr @ f2i + ci @ f2r
+    return (dr.transpose(-1, -2).reshape(*lead, t), di.transpose(-1, -2).reshape(*lead, t))
+
+
 def four_step_fft(x: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
     """Scrambled-order DFT of the last axis (length n1*n2), complex in/out.
 

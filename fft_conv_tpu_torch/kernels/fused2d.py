@@ -48,7 +48,7 @@ from ..ops.spectral import _dft_mats, _irfft_mats, _rfft_mats
 from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
-from .fourstep import fft_factor_matrices
+from .fourstep import dft_last, fft_factor_matrices
 from .fused1d import _fused_bwd, _spectra_or
 
 _T2_CANDIDATES = (128, 256)
@@ -203,19 +203,6 @@ def _torch_mats(t1: int, nb1: int, t2: int, v1: int, dtype: torch.dtype,
 
 
 @lru_cache(maxsize=None)
-def _torch_factors(t: int, dtype: torch.dtype, device: torch.device):
-    """(f1, f2, tw) of the four-step split ``_SPLITS[t]`` from
-    ``fourstep.fft_factor_matrices`` (built in float64), as (re, im) pairs
-    of ``dtype`` tensors on ``device``: f1 (A, A), f2 (B, B) and the
-    twiddle (A, B)."""
-    out = []
-    for m in fft_factor_matrices(*_SPLITS[t]):
-        out += [torch.from_numpy(np.ascontiguousarray(part)).to(device, dtype)
-                for part in (m.real, m.imag)]
-    return tuple(out)
-
-
-@lru_cache(maxsize=None)
 def _device_factors(t1: int, t2: int, device: torch.device) -> torch.Tensor:
     """B2's factors as one complex64 vector on ``device``, in the order
     csrc/fused2d.cu stages them: for H then W, the A roots of unity (row 1
@@ -230,24 +217,10 @@ def _device_factors(t1: int, t2: int, device: torch.device) -> torch.Tensor:
 
 def _dft_last(xr: torch.Tensor, xi: Optional[torch.Tensor], inverse: bool):
     """Unscaled DFT (inverse: conjugated) of the last axis, length T, through
-    the four-step factors of ``_SPLITS[T]``: the A-point DFT f1 over j1 of
-    x[j1 * B + j2], the twiddle, the B-point DFT f2 over j2, and the result
-    read back in natural bin order (X[m1 + A * m2] = D[m1, m2]). ``xi`` None
-    is a real input. Returns (re, im) in the dtype of ``xr``."""
-    t = xr.shape[-1]
-    a, b = _SPLITS[t]
-    f1r, f1i, f2r, f2i, twr, twi = _torch_factors(t, xr.dtype, xr.device)
-    if inverse:
-        f1i, f2i, twi = -f1i, -f2i, -twi
-    lead = xr.shape[:-1]
-    ar = xr.reshape(*lead, a, b)
-    br, bi = f1r @ ar, f1i @ ar
-    if xi is not None:
-        ai = xi.reshape(*lead, a, b)
-        br, bi = br - f1i @ ai, bi + f1r @ ai
-    cr, ci = br * twr - bi * twi, br * twi + bi * twr
-    dr, di = cr @ f2r - ci @ f2i, cr @ f2i + ci @ f2r
-    return (dr.transpose(-1, -2).reshape(*lead, t), di.transpose(-1, -2).reshape(*lead, t))
+    the four-step factors of ``_SPLITS[T]`` (``fourstep.dft_last``): bins in
+    natural order. ``xi`` None is a real input. Returns (re, im) in the
+    dtype of ``xr``."""
+    return dft_last(xr, xi, _SPLITS[xr.shape[-1]], inverse)
 
 
 def _h_forward(a: torch.Tensor):

@@ -2,9 +2,10 @@
 
 The port's counterpart of ``fft_conv_tpu/kernels/fused3d.py``, with both of
 its plans. Either way the whole padded volume is transformed along H and W
-per d-slab: a one-sided H DFT at the full H (NBH = H/2+1 rows) and a
-64-point W DFT (W zero-padded to 64, or cut into overlap-save blocks of 64
-columns when W is wider). Along D:
+per d-slab: a one-sided H DFT at the full H (NBH = H/2+1 rows, a dense
+product) and a 64-point W DFT (W zero-padded to 64, or cut into
+overlap-save blocks of 64 columns when W is wider), factored 64 = 8·8 as a
+four-step transform (``_w_factors``). Along D:
 
 * 'v4' (kernel B3, the JAX package's plan for KD <= 9): a DFT-16 per block
   of 16 samples on a hop of 8 (zeros past D). The MAC over each group's
@@ -54,10 +55,13 @@ from ..ops.spectral import _dft_mats, _irfft_mats, _rfft_mats
 from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
+from .fourstep import dft_last, fft_factor_matrices
 from .fused1d import _fused_bwd, _spectra_or
 
-# W transform length, and the D blocks: 16 samples on a hop of 8
+# W transform length and its four-step split 64 = 8 * 8 (the kernels factor
+# the W DFT so), and the D blocks: 16 samples on a hop of 8
 _TW = 64
+_W_SPLIT = (8, 8)
 _DB = 16
 _DHOP = 8
 
@@ -257,19 +261,38 @@ def _mats_3d(h: int, vh: int, dtype=np.float32):
 
 @lru_cache(maxsize=None)
 def _torch_mats(h: int, vh: int, dtype: torch.dtype, device: torch.device):
-    """``_mats_3d`` as torch tensors of ``dtype`` on ``device``, made once per
-    device so that repeated calls copy nothing from the host."""
+    """``_mats_3d`` without its dense W DFT-64 pairs (the kernels and their
+    plain versions factor W: ``_w_factors``, ``fourstep.dft_last``) as torch
+    tensors of ``dtype`` on ``device``, made once per device so that repeated
+    calls copy nothing from the host: (fr, fi, dr, di, er, ei, cr, ci)."""
     npdt = np.float64 if dtype == torch.float64 else np.float32
-    return tuple(torch.from_numpy(m).to(device) for m in _mats_3d(h, vh, npdt))
+    m = _mats_3d(h, vh, npdt)
+    return tuple(torch.from_numpy(m[i]).to(device) for i in (0, 1, 6, 7, 8, 9, 10, 11))
+
+
+@lru_cache(maxsize=None)
+def _w_factors(device: torch.device) -> torch.Tensor:
+    """The factors of the W DFT-64 as one complex64 vector of 80 on
+    ``device``, from ``fourstep.fft_factor_matrices(8, 8)`` (built in
+    float64), in the order csrc/fused3d.cu reads them: the 8 roots of unity
+    of step 1 (row 1 of f1), the 8 of step 2 (row 1 of f2) and the (8, 8)
+    twiddle tw[m1, j2] = exp(-2 pi i m1 j2 / 64), row-major. The kernel
+    reads f1[m, j] as root[(m * j) % 8]; its inverse conjugates all three."""
+    f1, f2, tw = fft_factor_matrices(*_W_SPLIT)
+    parts = np.concatenate([f1[1], f2[1], tw.reshape(-1)]).astype(np.complex64)
+    return torch.from_numpy(parts).to(device)
 
 
 @lru_cache(maxsize=None)
 def _device_mats(h: int, vh: int, device: torch.device):
-    """The kernel's factor matrices as interleaved complex64 tensors on
-    ``device``: F_H (NBH, H), W and its inverse (64, 64), the DFT-16 (16, 16),
-    its inverse rows (8, 16) and the irfft rows (VH, NBH) as (cr, ci) pairs."""
+    """The kernel's factors as interleaved complex64 tensors on ``device``,
+    in the order of the entry points' arguments: F_H (NBH, H), the W factors
+    (``_w_factors``, one slot that the forward and the inverse both read),
+    the DFT-16 (16, 16), its inverse rows (8, 16) and the irfft rows (VH,
+    NBH) as (cr, ci) pairs."""
     m = _torch_mats(h, vh, torch.float32, device)
-    return tuple(torch.complex(m[i], m[i + 1]) for i in range(0, len(m), 2))
+    fh, df, ei, ch = (torch.complex(m[i], m[i + 1]) for i in (0, 2, 4, 6))
+    return fh, _w_factors(device), df, ei, ch
 
 
 @lru_cache(maxsize=None)
@@ -277,7 +300,8 @@ def _spectra_mats(h: int, kd: int, kh: int, kw: int, device: torch.device):
     """complex128 factors of the kernel spectra on ``device``: the one-sided
     H DFT on the KH taps (NBH, KH), the W DFT-64 on the KW taps (KW, 64) and
     the DFT-16 on the KD taps (16, KD)."""
-    fr, fi, wr, wi, _, _, dr, di = _torch_mats(h, 1, torch.float64, device)[:8]
+    m = _mats_3d(h, 1, np.float64)
+    fr, fi, wr, wi, dr, di = (torch.from_numpy(m[i]).to(device) for i in (0, 1, 2, 3, 6, 7))
     return (torch.complex(fr[:, :kh], fi[:, :kh]), torch.complex(wr[:kw], wi[:kw]),
             torch.complex(dr[:kd], di[:kd]).T.contiguous())
 
@@ -358,9 +382,11 @@ def _pack3d_reference(x_padded: torch.Tensor, pp: int, nwb: int, hop: int) -> to
     return x.reshape(b * nwb, h, cin * pp, 2 * _TW)
 
 
-def _hw_forward_reference(x: torch.Tensor, fr, fi, wr, wi, packed=None):
-    """(re, im) of the one-sided H DFT and then the W DFT-64 of every d-slab
-    of the stacked blocks (W zero-padded to 64): (B', Cin, D, NBH, 64).
+def _hw_forward_reference(x: torch.Tensor, fr, fi, packed=None):
+    """(re, im) of the one-sided H DFT (a dense product) and then the W
+    DFT-64 (factored 8 x 8, ``fourstep.dft_last``, bins in natural order) of
+    every d-slab of the stacked blocks (W zero-padded to 64): (B', Cin, D,
+    NBH, 64).
 
     ``x`` is the stacked blocks (B', Cin, D, H, <= 64); with ``packed`` =
     (Cin, D) it is B6's layout (B', H, Cin·PP, 128) instead, read slab by
@@ -373,16 +399,16 @@ def _hw_forward_reference(x: torch.Tensor, fr, fi, wr, wi, packed=None):
         bb, h, rows, _ = x.shape
         x = x.reshape(bb, h, cin, rows // cin, 2, _TW).permute(0, 2, 3, 4, 1, 5)
         x = x.reshape(bb, cin, 2 * (rows // cin), h, _TW)[:, :, :d].contiguous()
-    hr, hi = fr @ x, fi @ x
-    return hr @ wr - hi @ wi, hr @ wi + hi @ wr
+    return dft_last(fr @ x, fi @ x, _W_SPLIT, False)
 
 
-def _hw_inverse_reference(zr, zi, ur, ui, cr, ci, blocks, ow: int) -> torch.Tensor:
-    """The inverse W DFT and the H irfft on the valid rows of the MAC's
-    output (B', Cout, OD, NBH, 64), and the stored columns of each W block
-    put side by side: (B, Cout, OD, OH, OW)."""
-    e_r = zr @ ur - zi @ ui
-    e_i = zr @ ui + zi @ ur
+def _hw_inverse_reference(zr, zi, cr, ci, blocks, ow: int) -> torch.Tensor:
+    """The inverse W DFT (factored 8 x 8, 1/64 included) and the H irfft (a
+    dense product) on the valid rows of the MAC's output (B', Cout, OD, NBH,
+    64), and the stored columns of each W block put side by side: (B, Cout,
+    OD, OH, OW)."""
+    e_r, e_i = dft_last(zr, zi, _W_SPLIT, True)
+    e_r, e_i = e_r / _TW, e_i / _TW
     out = cr @ e_r + ci @ e_i                       # (B', Cout, OD, OH, 64)
     if len(blocks) == 1:
         return out[..., :ow]
@@ -412,16 +438,16 @@ def _fused3d_forward_reference(
     nbh, nbd = plan[1], plan[4]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     blocks = _w_blocks(w, ow, nwb, hop)
-    fr, fi, wr, wi, ur, ui, dr, di, er, ei, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
+    fr, fi, dr, di, er, ei, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
 
     # one-sided H DFT, then the W DFT-64, per d-slab; D to the NBD + 1
     # chunks of 8 slabs that the blocks read (zeros past D)
     if packed:
         xp = _pack3d_reference(x_padded.to(dt), plan[3], nwb, hop)
-        tr, ti = _hw_forward_reference(xp, fr, fi, wr, wi, packed=(cin, d))
+        tr, ti = _hw_forward_reference(xp, fr, fi, packed=(cin, d))
     else:
         x = _stack_w_blocks(x_padded.to(dt), [s for s, _, _ in blocks])
-        tr, ti = _hw_forward_reference(x, fr, fi, wr, wi)
+        tr, ti = _hw_forward_reference(x, fr, fi)
     dpad = (0, 0, 0, 0, 0, _DHOP * (nbd + 1) - d)
     tr, ti = TF.pad(tr, dpad), TF.pad(ti, dpad)
     # D: blocks of 16 slabs on a hop of 8, a DFT-16 each
@@ -447,7 +473,7 @@ def _fused3d_forward_reference(
     zi = torch.einsum(inv, er, yi) + torch.einsum(inv, ei, yr)
     zr = zr.reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
     zi = zi.reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
-    return _hw_inverse_reference(zr, zi, ur, ui, cr, ci, blocks, ow)
+    return _hw_inverse_reference(zr, zi, cr, ci, blocks, ow)
 
 
 def _fused3d_tap_reference(
@@ -470,11 +496,11 @@ def _fused3d_tap_reference(
     nbh = plan[1]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     blocks = _w_blocks(w, ow, nwb, hop)
-    fr, fi, wr, wi, ur, ui, _, _, _, _, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
+    fr, fi, _, _, _, _, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
 
     # one-sided H DFT, then the W DFT-64, per d-slab
     x = _stack_w_blocks(x_padded.to(dt), [s for s, _, _ in blocks])
-    tr, ti = _hw_forward_reference(x, fr, fi, wr, wi)
+    tr, ti = _hw_forward_reference(x, fr, fi)
     # D stays in the tap domain: the KD slabs from each valid d on
     bb = b * nwb
     tr = tr.reshape(bb, groups, cpg, d, nbh, _TW).unfold(3, kd, 1)  # (B', g, Cin/g, OD, NBH, 64, KD)
@@ -489,18 +515,18 @@ def _fused3d_tap_reference(
     yi = torch.einsum(mac, tr, ki) + torch.einsum(mac, ti, kr)
     yr = yr.reshape(bb, cout, od, nbh, _TW)
     yi = yi.reshape(bb, cout, od, nbh, _TW)
-    return _hw_inverse_reference(yr, yi, ur, ui, cr, ci, blocks, ow)
+    return _hw_inverse_reference(yr, yi, cr, ci, blocks, ow)
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused3d")
     if lib.fused3d_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused3d_forward.argtypes = [p] * 12 + [i] * 15 + [p]
+        lib.fused3d_forward.argtypes = [p] * 11 + [i] * 15 + [p]
         lib.fused3d_forward.restype = i
         lib.fused3d_pack.argtypes = [p] * 2 + [i] * 8 + [p]
         lib.fused3d_pack.restype = i
-        lib.fused3d_tap_forward.argtypes = [p] * 9 + [i] * 14 + [p]
+        lib.fused3d_tap_forward.argtypes = [p] * 8 + [i] * 14 + [p]
         lib.fused3d_tap_forward.restype = i
         lib.fused3d_error_string.argtypes = [i]
         lib.fused3d_error_string.restype = ctypes.c_char_p
@@ -627,7 +653,7 @@ def _launch_fused3d_tap(
     chunk = max(1, min(items, _SCRATCH_BUDGET // per_item))
 
     lib = _library()
-    fh, wf, wb, _, _, ch = _device_mats(h, oh, x_padded.device)
+    fh, wfac, _, _, ch = _device_mats(h, oh, x_padded.device)
     dev, c64 = x_padded.device, torch.complex64
     out = torch.empty((b, cout, od, oh, ow), device=dev, dtype=torch.float32)
     t = torch.empty((chunk, cin, d, nbh, _TW), device=dev, dtype=c64)
@@ -636,8 +662,8 @@ def _launch_fused3d_tap(
     with torch.cuda.device(dev):
         for item0 in range(0, items, chunk):
             err = lib.fused3d_tap_forward(
-                x_padded.data_ptr(), spectra.data_ptr(), fh.data_ptr(), wf.data_ptr(),
-                wb.data_ptr(), ch.data_ptr(), t.data_ptr(), z.data_ptr(), out.data_ptr(),
+                x_padded.data_ptr(), spectra.data_ptr(), fh.data_ptr(), wfac.data_ptr(),
+                ch.data_ptr(), t.data_ptr(), z.data_ptr(), out.data_ptr(),
                 cin, cout, groups, d, h, w, kd, od, oh, ow, nwb, hop,
                 item0, min(chunk, items - item0), stream,
             )

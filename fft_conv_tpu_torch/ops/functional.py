@@ -468,9 +468,13 @@ def _fft_conv_transpose(
         signal.shape[2:], k_spatial, stride_, padding_, output_padding_, dilation_
     )
     # FFT length >= linear-conv length s + k - 1, rounded per policy; "even"
-    # reproduces the reference exactly (functional.py:143)
+    # reproduces the reference exactly (functional.py:143). It also covers
+    # the crop's end o + p: past the correlation, where output_padding runs
+    # beyond it, the samples are zeros (a wrap lands in the k - 1 leading
+    # zeros of the stuffed signal), as torch's conv_transpose gives them
     fft_shape = tuple(
-        _fft_length(s + k - 1, fft_policy) for s, k in zip(signal_.shape[2:], k_dil)
+        _fft_length(max(s + k - 1, o + p), fft_policy)
+        for s, k, o, p in zip(signal_.shape[2:], k_dil, out_shape, padding_)
     )
     out = _freq_domain_conv(signal_, kernel, fft_shape, groups)
     # crop [p : out+p] per dim (functional.py:163-169)

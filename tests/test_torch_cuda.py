@@ -303,7 +303,8 @@ def test_layer_on_cuda_launches_the_kernel(cuda):
 # (B, Cin, Cout, D, H, W, KD, KH, KW, groups): the benchmark row (SB = 4 slabs
 # a block, 4 output channels a thread), groups with 1 and 2 output channels a
 # thread, odd sizes, KD = 9 (the hop edge), W blocks of 64 (nwb = 4 and 2),
-# and H large enough for SB = 2 and SB = 1
+# and H large enough for SB = 2 and SB = 1 (230, 460; and 226, 454, where
+# NBH = 114 and 228 are the first to take SB = 2 and SB = 1)
 FUSED3D = [
     (2, 8, 8, 64, 64, 64, 8, 8, 8, 1),
     (1, 6, 6, 20, 24, 30, 3, 3, 3, 2),
@@ -314,6 +315,8 @@ FUSED3D = [
     (1, 1, 1, 8, 8, 122, 2, 2, 7, 1),
     (1, 1, 2, 10, 230, 20, 3, 3, 3, 1),
     (1, 1, 1, 9, 460, 8, 2, 2, 2, 1),
+    (1, 2, 2, 12, 226, 64, 3, 3, 3, 1),
+    (1, 2, 2, 12, 454, 64, 3, 3, 3, 1),
 ]
 
 
@@ -394,7 +397,8 @@ def test_3d_layer_on_cuda_launches_the_kernel(cuda):
 # (B, Cin, Cout, D, H, W, KD, KH, KW, groups): the B4 row (64^3, K=10, 4
 # output channels a thread), groups with 1 and 2 output channels a thread,
 # odd sizes with KD = 11, W blocks of 64 (nwb = 4) with KD = 12, and KD = 3
-# where v4's spectra (69 MB) do not fit but the tap ones do
+# where v4's spectra (69 MB) do not fit but the tap ones do; H = 226 and 454
+# take SB = 2 and SB = 1
 FUSED3D_TAP = [
     (2, 8, 8, 64, 64, 64, 10, 10, 10, 1),
     (1, 6, 6, 26, 12, 10, 11, 3, 3, 2),
@@ -402,6 +406,8 @@ FUSED3D_TAP = [
     (1, 2, 3, 25, 19, 21, 11, 5, 3, 1),
     (2, 4, 4, 24, 20, 200, 12, 3, 7, 1),
     (1, 16, 16, 20, 64, 64, 3, 3, 3, 1),
+    (1, 2, 2, 16, 226, 64, 10, 3, 5, 1),
+    (1, 2, 2, 14, 454, 64, 10, 3, 3, 1),
 ]
 
 

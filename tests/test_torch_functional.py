@@ -114,6 +114,41 @@ def test_fft_conv_transpose_3d_matches_jax():
     _assert_almost_equal(y_torch, y_jax)
 
 
+# (rank, size, K, stride, padding, output_padding, dilation) where the crop
+# [p, p + out) of the composed transposed path runs past its correlation
+PAST_CORRELATION = [
+    (n, *cfg) for n in (1, 2, 3)
+    for cfg in ((8, 2, 3, 0, 2, 1), (8, 1, 4, 0, 3, 1), (6, 1, 5, 1, 4, 1))
+] + [(1, 9, 2, 6, 0, 5, 1), (2, 5, 2, 6, 0, 5, 2), (1, 8, 2, 6, 1, 5, 2)]
+
+
+@pytest.mark.parametrize("ndim,size,k,stride,padding,output_padding,dilation",
+                         PAST_CORRELATION)
+def test_transpose_past_the_correlation_matches_torch(ndim, size, k, stride, padding,
+                                                       output_padding, dilation):
+    """Where output_padding - padding runs past the full correlation, the
+    composed path (impl="xla"), the fused route (its plain version here) and
+    the transposed layer give torch's shape, and zeros plus bias there. The
+    JAX package raises on these calls, so torch is the reference."""
+    k_dil = dilation * (k - 1) + 1
+    stuffed = (size - 1) * stride + 1 + k_dil - 1
+    out = (size - 1) * stride - 2 * padding + k_dil + output_padding
+    assert out + padding > (stuffed + k_dil - 1 + 1) // 2 * 2  # past the old FFT length
+    x, w, b = _arrays(ndim + size + k, (2, 2) + (size,) * ndim, (2, 3) + (k,) * ndim, (3,))
+    kw = dict(stride=stride, padding=padding, output_padding=output_padding,
+              dilation=dilation)
+    xt, wt, bt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b)
+    ref = getattr(torch.nn.functional, f"conv_transpose{ndim}d")(xt, wt, bt, **kw).numpy()
+    assert ref.shape[2:] == (out,) * ndim
+    for impl in ("xla", "fused"):
+        _assert_almost_equal(ft.fft_conv_transpose(xt, wt, bt, impl=impl, **kw).numpy(), ref)
+    layer = getattr(ft.nn, f"FFTConvTranspose{ndim}d")(2, 3, k, device="cpu", **kw)
+    with torch.no_grad():
+        layer.weight.copy_(wt)
+        layer.bias.copy_(bt)
+        _assert_almost_equal(layer(xt).numpy(), ref)
+
+
 @pytest.mark.parametrize("policy", ["even", "pow2"])
 def test_fft_policy_matches_jax(policy):
     x, w = _arrays(5, (1, 3, 50), (2, 3, 7))

@@ -202,6 +202,58 @@ def test_mats_match_jax(h, vh):
         assert np.abs(a - b).max() <= 1e-6
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_w_dft_factored_matches_dense(inverse, dtype):
+    """The W DFT-64 and its inverse through the 8 x 8 factors (the plain
+    version's ``fourstep.dft_last`` with ``_W_SPLIT``, 1/64 applied after the
+    inverse as the kernel applies it) against the dense matrices of
+    ``ops/spectral.py:_dft_mats(64)``: exact in float64, within the bar in
+    float32."""
+    from fft_conv_tpu_torch.kernels.fourstep import dft_last
+    from fft_conv_tpu_torch.ops.spectral import _dft_mats
+
+    xr, xi = (torch.from_numpy(a).to(dtype) for a in _arrays(64 + inverse, (3, 5, 64), (3, 5, 64)))
+    yr, yi = dft_last(xr, xi, fused3d._W_SPLIT, inverse)
+    if inverse:
+        yr, yi = yr / 64, yi / 64
+    wr, wi = (torch.from_numpy(m) for m in _dft_mats(64, inverse, np.float64))
+    x = torch.complex(xr.double(), xi.double())
+    ref = x @ torch.complex(wr, wi)
+    assert yr.dtype == dtype and yr.shape == (3, 5, 64)
+    if dtype == torch.float64:
+        assert (yr - ref.real).abs().max() < 1e-12 and (yi - ref.imag).abs().max() < 1e-12
+    else:
+        _assert_close_scaled(yr.numpy(), ref.real.numpy())
+        _assert_close_scaled(yi.numpy(), ref.imag.numpy())
+
+
+def test_w_factors_are_laid_out_as_the_kernel_reads_them():
+    """``_w_factors`` is the 8 roots of step 1, the 8 of step 2 and the (8, 8)
+    twiddle row-major, complex64: f1[m, j] = root[(m * j) % 8] rebuilds the
+    short DFT, tw[m1, j2] = exp(-2 pi i m1 j2 / 64); ``_device_mats`` hands
+    the vector in its one slot, which the forward and the inverse both read,
+    in the order of the entry points' arguments."""
+    from fft_conv_tpu_torch.kernels.fourstep import fft_factor_matrices
+
+    fac = fused3d._w_factors(torch.device("cpu"))
+    assert fac.dtype == torch.complex64 and fac.shape == (8 + 8 + 64,)
+    f1, f2, tw = fft_factor_matrices(8, 8)
+    m = np.arange(8)
+    for roots, f in ((fac[:8].numpy(), f1), (fac[8:16].numpy(), f2)):
+        np.testing.assert_allclose(roots, np.exp(-2j * np.pi * m / 8), atol=1e-7)
+        np.testing.assert_allclose(roots[np.outer(m, m) % 8], f, atol=1e-7)
+    np.testing.assert_allclose(fac[16:].numpy().reshape(8, 8),
+                               np.exp(-2j * np.pi * np.outer(m, m) / 64), atol=1e-7)
+    np.testing.assert_allclose(fac[16:].numpy().reshape(8, 8), tw, atol=1e-7)
+    fh, wfac, df, ei, ch = fused3d._device_mats(64, 57, torch.device("cpu"))
+    assert wfac is fac
+    fr, fi, _, _, _, _, dr, di, er, eim, cr, ci = fused3d._mats_3d(64, 57)
+    for got, re, im in ((fh, fr, fi), (df, dr, di), (ei, er, eim), (ch, cr, ci)):
+        assert got.dtype == torch.complex64
+        assert torch.equal(got, torch.complex(torch.from_numpy(re), torch.from_numpy(im)))
+
+
 @pytest.mark.parametrize("shape,h", [((4, 4, 8, 8, 8), 64), ((6, 2, 5, 7, 3), 19),
                                      ((2, 3, 9, 3, 3), 16)])
 def test_kernel_spectra_match_jax(shape, h):

@@ -357,3 +357,13 @@ def test_convert_checks_names_and_shapes():
     with pytest.raises(ValueError, match="shape mismatch"):
         module_from_jax_state(layer, {"weight": np.ones((2, 3, 5)), "bias": np.zeros(2)})
 
+
+
+def test_models_export_the_six_layers_as_jax_does():
+    import fft_conv_tpu.models as jax_models
+    import fft_conv_tpu_torch.models as torch_models
+
+    assert sorted(torch_models.__all__) == sorted(jax_models.__all__)
+    assert len(torch_models.__all__) == 6
+    for name in jax_models.__all__:
+        assert getattr(torch_models, name) is getattr(ft.nn, name)
