@@ -117,29 +117,6 @@ def device_ms(fn):
     return _event_ms(graph.replay, GRAPH_REPS)
 
 
-def fused1d_work(b, cin, cout, l, k, n, groups=1):
-    """(bytes, flops) the fused 1D kernel must move and does for one call.
-
-    Bytes: the signal and the one-sided spectra read once, the output
-    written once. Flops, counted from csrc/fused1d.cu with an FMA as two
-    and only the N1/2+1 rows that the one-sided pipeline needs: per block
-    and input channel, stage 1 (real x complex, 4 per term), twiddle (6),
-    stage 2 (complex, 8); per block and output channel, the MAC over the
-    group's channels (8), inverse stage 1 (8), conjugate twiddle (6) and
-    inverse stage 2 on the V1 valid rows (real part, 4)."""
-    n1, n2 = n // 128, 128
-    h = n1 // 2 + 1
-    v1 = (n - k + 1) // n2
-    l_out = l - k + 1
-    nblk = -(-l_out // (v1 * n2))
-    cpg = cin // groups
-    fwd = h * n1 * n2 * 4 + h * n2 * 6 + h * n2 * n2 * 8
-    inv = h * n2 * cpg * 8 + h * n2 * n2 * 8 + h * n2 * 6 + v1 * n2 * h * 4
-    flops = nblk * b * (cin * fwd + cout * inv)
-    nbytes = 4 * b * cin * l + 8 * cout * h * cpg * n2 + 4 * b * cout * l_out
-    return nbytes, flops
-
-
 def _free_root(k, n):
     """A product by the root exp(-2 pi i k / n) needs no flops when the root
     is 1, -1, i or -i: at most a swap and a sign, which fold into the add."""
@@ -220,6 +197,100 @@ def _four_step_flops(t, live, need, kernel=False, first=0):
         if used:
             flops += _short_dft_flops(b, live2, used[-1] + 1, kernel, used[0])
     return flops
+
+
+def _blocks_1d(l, k, n):
+    """(V1, valid output length, [(samples inside the signal, outputs
+    stored)] per overlap-save block) of the fused 1D function at FFT size n."""
+    v1 = (n - k + 1) // 128
+    l_out = l - k + 1
+    hop = v1 * 128
+    return v1, l_out, [(min(n, l - s), min(hop, l_out - s)) for s in range(0, l_out, hop)]
+
+
+def fused1d_work(b, cin, cout, l, k, n, groups=1):
+    """(bytes, flops) the fused 1D function must move and do for one call,
+    with every DFT factored as kernel B1 factors it.
+
+    Bytes: the signal and the one-sided spectra (Cout, N1/2+1, Cin/g, 128)
+    read once, the output written once. Flops, with an FMA as two, counted
+    for only what the call needs (_short_dft_flops, _four_step_flops: no
+    product by 1, -1 or +-i, none over the zeros past the signal's edge,
+    none for outputs that are not stored). Per block, with s_in samples
+    inside the signal and s_out outputs stored: per input channel, the
+    N1-point DFT of each column pair (columns c and c + 64 as one complex
+    column, zero past s_in; all N1 bins, which the split needs), the split
+    of bins k and -k into the two columns' one-sided spectra (4 adds per
+    pair and row 0 < k1 < N1/2, the 1/2 folded into the twiddle), the
+    twiddle on the N1/2+1 rows (6 per complex product, 2 on the real row
+    N1/2) and the 128-point DFT of each row; per output channel, the MAC
+    over the group's channels (8, Cin/g x (N1/2+1) x 128), the inverse
+    128-point DFT of each row onto the stored columns, the conjugate
+    twiddle, the Hermitian extension of each stored column pair (2 per bin
+    0 < k < N1, k != N1/2) and its N1-point inverse onto the stored rows."""
+    n1 = n // 128
+    h, nh = n1 // 2 + 1, n1 // 2
+    v1, l_out, blocks = _blocks_1d(l, k, n)
+    cpg = cin // groups
+    tw = sum(0 if _free_root(k1 * j2, n) else (2 if k1 == nh else 6)
+             for k1 in range(1, h) for j2 in range(128))
+    itw = sum(0 if _free_root(k1 * j2, n) else 6 for k1 in range(1, h) for j2 in range(128))
+    flops = 0
+    for s_in, s_out in blocks:
+        live = [max(0, min(n1, -(-(s_in - c) // 128))) for c in range(64)]
+        fwd = sum(_short_dft_flops(n1, lv, n1, False) for lv in live if lv)
+        fwd += 64 * 4 * (h - 2) + tw + h * _four_step_flops(128, 128, 128)
+        pairs = [min(v1, -(-(s_out - c) // 128)) for c in range(min(64, s_out))]
+        inv = 8 * cpg * h * 128 + h * _four_step_flops(128, 128, min(128, s_out)) + itw
+        inv += sum(2 * (n1 - 2) + _short_dft_flops(n1, n1, rows, False) for rows in pairs)
+        flops += cin * fwd + cout * inv
+    nbytes = 4 * b * cin * l + 8 * cout * h * cpg * 128 + 4 * b * cout * l_out
+    return nbytes, b * flops
+
+
+def fused1d_kernel_flops(b, cin, cout, l, k, n, groups=1):
+    """The flops csrc/fused1d.cu's B1 does for one call, over whole blocks
+    with the kernel's own arithmetic (_four_step_flops(kernel=True)): per
+    input channel the N1-point DFT of the 64 column pairs, the split (8 per
+    pair and row), the twiddle (6 per bin) and the 128-point DFT of each
+    row; per output channel the MAC, the inverse row DFTs, the conjugate
+    twiddle, the Hermitian extension (2 per pair and bin), the column
+    pairs' inverse N1-point DFT (its second step only on the rows
+    m1 < min(V1, A)) and the output scale (1 per sample of the V1 rows)."""
+    n1 = n // 128
+    h = n1 // 2 + 1
+    v1, _, blocks = _blocks_1d(l, k, n)
+    a, bb = _split(n1)
+    row = _four_step_flops(128, 128, 128, True)
+    col = _four_step_flops(n1, n1, n1, True)
+    col1 = bb * (_short_dft_flops(a, a, a, True) + 6 * (a - 1))  # the inverse's step 1
+    col2 = min(v1, a) * _short_dft_flops(bb, bb, bb, True)
+    fwd = 64 * col + 8 * 64 * h + 6 * h * 128 + h * row
+    inv = (8 * (cin // groups) * h * 128 + h * row + 6 * h * 128 + 2 * 64 * n1
+           + 64 * (col1 + col2) + v1 * 128)
+    return b * len(blocks) * (cin * fwd + cout * inv)
+
+
+def fused1d_dense_work(b, cin, cout, l, k, n, groups=1):
+    """(bytes, flops) of the fused 1D function with every DFT a dense
+    product, the count B1's first, dense design was bounded with, kept as
+    its `dense_bound_ms`.
+
+    Bytes as fused1d_work. Flops, counted from the dense pipeline with an
+    FMA as two and only the N1/2+1 rows that the one-sided pipeline needs:
+    per block and input channel, stage 1 (real x complex, 4 per term),
+    twiddle (6), stage 2 (complex, 8); per block and output channel, the MAC
+    over the group's channels (8), inverse stage 1 (8), conjugate twiddle (6)
+    and inverse stage 2 on the V1 valid rows (real part, 4)."""
+    n1, n2 = n // 128, 128
+    h = n1 // 2 + 1
+    v1, l_out, blocks = _blocks_1d(l, k, n)
+    cpg = cin // groups
+    fwd = h * n1 * n2 * 4 + h * n2 * 6 + h * n2 * n2 * 8
+    inv = h * n2 * cpg * 8 + h * n2 * n2 * 8 + h * n2 * 6 + v1 * n2 * h * 4
+    flops = len(blocks) * b * (cin * fwd + cout * inv)
+    nbytes = 4 * b * cin * l + 8 * cout * h * cpg * n2 + 4 * b * cout * l_out
+    return nbytes, flops
 
 
 def fused2d_work(b, cin, cout, h, w, k, plan, groups=1):
@@ -463,6 +534,85 @@ def bound(nbytes, flops):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+
+
+def check_fused1d(torch, dev, inputs):
+    """B1 against its plain version on the card at the 1D benchmark rows,
+    with groups=2, with the blocks split over several launches, at V1 = 1
+    (K = N - 127) for N1 = 16 and 64, on a single block, at Cin = 3 with
+    groups=3 and on the stuffed signal of the K=256 transposed row (L =
+    33278). Between them they run each phase at each N1 in both block
+    sizes (512 threads where a phase's grid has no more blocks than the card
+    has SMs: the K=3840 row, the single block, groups=3). The extra cases
+    draw from their own generator. Returns the rows' max abs errors."""
+    from fft_conv_tpu_torch.kernels import fused1d
+
+    def vs_plain(x, w, n, groups, what):
+        before = fused1d.launches
+        y = fused1d._launch_fused1d(x, fused1d.kernel_spectra_one_sided(w, n), n, groups,
+                                    w.shape[-1])
+        torch.cuda.synchronize()
+        launched = fused1d.launches - before
+        check(launched >= 1, f"B1 {what}: no launch")
+        mx, mean, sigma = close_scaled(
+            y, fused1d._fused_forward_reference(x, w, n, groups), f"B1 vs plain, {what}")
+        v1, v_total, nblk = fused1d._blocking(n, w.shape[-1], x.shape[-1])
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B1", "case": what, "N": n,
+                          "V1": v1, "blocks": nblk, "launches": launched, "max_abs_err": mx,
+                          "mean_abs_err": mean, "sigma": sigma, "bar_max": 1.2e-4 * sigma,
+                          "bar_mean": 2e-5 * sigma}))
+        return mx
+
+    errs = [vs_plain(x, w, n, 1, f"K={w.shape[-1]}") for x, w, _, n in inputs]
+    x, w, _, n = inputs[1]
+    vs_plain(x, w[:, :4].contiguous(), n, 2, "groups=2")
+    budget = fused1d._SCRATCH_BUDGET
+    try:
+        fused1d._SCRATCH_BUDGET = 3 * fused1d._scratch_bytes_per_block(n, 2, 8)
+        before = fused1d.launches
+        vs_plain(x, w, n, 1, "block ranges")
+        split = fused1d.launches - before
+    finally:
+        fused1d._SCRATCH_BUDGET = budget
+    check(split > 1, "the block ranges did not split")
+
+    gen = torch.Generator().manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    for n in (2048, 8192):
+        k = n - 127
+        vs_plain(randn(2, 8, 20000), randn(8, 8, k, scale=(8 * k) ** -0.5), n, 1,
+                 f"V1=1, K={k}")
+    vs_plain(randn(2, 8, 1900), randn(8, 8, 256, scale=(8 * 256) ** -0.5), 2048, 1,
+             "single block, L=1900, K=256")
+    vs_plain(randn(2, 3, 20000), randn(6, 1, 700, scale=700 ** -0.5), 4096, 3,
+             "Cin=3, groups=3, K=700")
+    b, cin, cout, l, k = BENCH_SHAPES[0]
+    ls = l + 2 * (k - 1)
+    vs_plain(randn(b, cin, ls), randn(cout, cin, k, scale=(cin * k) ** -0.5),
+             fused1d.choose_fft_size(k, ls, cin, cout, batch=b), 1,
+             f"stuffed transposed length L={ls}, K={k}")
+    torch.cuda.synchronize()
+    return errs
+
+
+def ptxas_spills(log):
+    """{function: (spill stores, spill loads)} in bytes, from nvcc's
+    -Xptxas -v output."""
+    import re
+
+    spills, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn:
+            spills[fn] = (int(m.group(1)), int(m.group(2)))
+            fn = None
+    return spills
 
 
 def check_fused2d(torch, dev, gen):
@@ -1736,6 +1886,15 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": round(build_s, 2),
                       "libraries": {k: str(v.relative_to(HERE)) for k, v in paths.items()},
                       "ptxas": ptxas}))
+    if "fused1d" not in _build.build_logs:  # built by an earlier run: again, for its report
+        paths["fused1d"].unlink()
+        _build.build(["fused1d"])
+    spills = ptxas_spills(_build.build_logs["fused1d"])
+    # both phases at N1 = 16, 32, 64, each at 256 and 512 threads
+    entries = [fn for fn in spills if "fused1d_" in fn]
+    check(len(entries) == 12 and not any(sum(v) for v in spills.values()),
+          f"B1's 12 entry points spill registers or are missing: {spills}")
+    print(json.dumps({"phase": "ptxas", "kernel": "B1", "spill_bytes": spills}))
     torch.cuda.synchronize()
 
     gen = torch.Generator().manual_seed(0)
@@ -1748,38 +1907,11 @@ def main() -> int:
         check(n is not None, f"no fused plan at K={k}")
         inputs.append((x, w, bias, n))
 
-    # phase 3a: the kernel against its plain version, at the main path's
-    # shapes, then with groups and with the blocks split over several launches
+    # phase 3a: each kernel against its plain version, at the main path's
+    # shapes and the cases around them
     print("tolerance: err_mean < 2e-5*sigma and err_max < 1.2e-4*sigma, "
           "sigma = max(1, std(ref)) (tests/helpers.py:_assert_close_scaled)")
-    errs = []
-    for (b, cin, cout, l, k), (x, w, bias, n) in zip(BENCH_SHAPES, inputs):
-        spectra = fused1d.kernel_spectra_one_sided(w, n)
-        y = fused1d._launch_fused1d(x, spectra, n, 1, k)
-        torch.cuda.synchronize()
-        y_ref = fused1d._fused_forward_reference(x, w, n)
-        mx, mean, sigma = close_scaled(y, y_ref, f"B1 vs plain K={k}")
-        errs.append(mx)
-        print(json.dumps({"phase": "kernel_vs_plain", "K": k, "N": n, "max_abs_err": mx,
-                          "mean_abs_err": mean, "sigma": sigma}))
-    x, w, _, n = inputs[1]
-    wg = w[:, :4].contiguous()  # groups=2: (Cout, Cin/2, K)
-    y = fused1d._launch_fused1d(x, fused1d.kernel_spectra_one_sided(wg, n), n, 2, wg.shape[-1])
-    mx, _, _ = close_scaled(y, fused1d._fused_forward_reference(x, wg, n, 2), "B1 groups=2")
-    print(json.dumps({"phase": "kernel_vs_plain", "case": "groups=2", "max_abs_err": mx}))
-    budget = fused1d._SCRATCH_BUDGET
-    try:
-        fused1d._SCRATCH_BUDGET = 3 * fused1d._scratch_bytes_per_block(n, 2, 8)
-        before = fused1d.launches
-        y = fused1d._launch_fused1d(x, fused1d.kernel_spectra_one_sided(w, n), n, 1, w.shape[-1])
-        split = fused1d.launches - before
-    finally:
-        fused1d._SCRATCH_BUDGET = budget
-    check(split > 1, "the block ranges did not split")
-    mx, _, _ = close_scaled(y, fused1d._fused_forward_reference(x, w, n), "B1 in block ranges")
-    print(json.dumps({"phase": "kernel_vs_plain", "case": f"{split} block ranges",
-                      "max_abs_err": mx}))
-    torch.cuda.synchronize()
+    errs = check_fused1d(torch, dev, inputs)
     inputs2d, errs2d = check_fused2d(torch, dev, gen)
     errs2v3 = check_fused2d_v3(torch, dev, gen, inputs2d)
     inputs3d, errs3d = check_fused3d(torch, dev, gen)
@@ -1855,6 +1987,8 @@ def main() -> int:
             "K": k, "N": n, "launches": nl, "max_abs_err": err,
             "ms": device_ms(kernel),
             "call_ms": call_ms(kernel),
+            # B1's two kernels, one by one (device time per call)
+            "phase_ms": phase_split_ms(torch, kernel, "fused1d_"),
             "spectra_ms": device_ms(lambda: fused1d.kernel_spectra_one_sided(w, n)),
             "auto_ms": device_ms(auto),
             "auto_call_ms": call_ms(auto),
@@ -1867,6 +2001,9 @@ def main() -> int:
             "plain_ms": call_ms(lambda: fused1d._fused_forward_reference(x, w, n)),
             "library_ms": device_ms(lambda: TF.conv1d(x, w)),
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_flops": fused1d_kernel_flops(b, cin, cout, l, k, n),
+            # the bound of the dense count, every DFT a dense product
+            "dense_bound_ms": bound(*fused1d_dense_work(b, cin, cout, l, k, n))[0],
         }
         row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
         shapes.append(row)

@@ -7,7 +7,10 @@ cross-correlation (the first V samples of its circular result). Per block
 the kernel runs the one-sided four-step DFT (only rows k1 in [0, N1/2] of the
 scrambled spectrum, see ``_factor_consts``), a per-bin complex MAC over the
 group's input channels against the conjugated kernel spectra, and the
-inverse pipeline, writing only valid outputs.
+inverse pipeline, writing only valid outputs. Every DFT of it is factored:
+the N1-point column DFTs as ``_COL_SPLITS`` on column pairs packed as one
+complex column, the 128-point row DFTs as ``_ROW_SPLIT``
+(``fourstep.dft_last``).
 
 On a CUDA tensor ``_fused_forward`` launches the kernel; on a CPU tensor it
 runs ``_fused_forward_reference``, the same blocked pipeline written with
@@ -35,9 +38,13 @@ from ..ops import functional as F
 from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
-from .fourstep import fft_factor_matrices, kernel_spectrum
+from .fourstep import dft_last, fft_factor_matrices, kernel_spectrum
 
 _N2 = 128
+# The kernel's four-step splits (A, B): N1 = A * B for the column DFTs of
+# stage 1 and the c2r, 128 = 16 * 8 for the row DFTs (as B2's T = 128)
+_COL_SPLITS = {16: (4, 4), 32: (8, 4), 64: (8, 8)}
+_ROW_SPLIT = (16, 8)
 _FFT_SIZES = (2048, 4096, 8192)
 
 # The JAX package bounds its TPU cell by two VMEM budgets (resident spectra
@@ -136,7 +143,9 @@ def _factor_consts(n1: int, n2: int, v1: int, dtype=np.float32):
       rows only, pair-doubling folded in.
 
     Returns (f1r, f1i, f2r, f2i, twr, twi, if1r, if1i, if2r, if2i) as
-    ``dtype`` numpy arrays (float32 for the kernel, float64 for an oracle).
+    ``dtype`` numpy arrays. These dense factors are the JAX package's, kept
+    as the float64 oracle of the tests; the kernel and its plain version run
+    the factored transforms instead.
     """
     f1, f2, tw = fft_factor_matrices(n1, n2)
     h1 = n1 // 2
@@ -172,13 +181,71 @@ def _spectra_or(spectra: Optional[torch.Tensor], dt: torch.dtype, compute) -> to
     return spectra.to(torch.complex128 if dt == torch.float64 else torch.complex64)
 
 
+@lru_cache(maxsize=None)
+def _twiddle_rows(h: int, dt: torch.dtype, device: torch.device):
+    """(re, im) of the four-step twiddle rows tw[k1, j2] = exp(-2 pi i k1 j2
+    / N), k1 < h, as ``dt`` tensors on ``device``."""
+    tw = fft_factor_matrices(2 * (h - 1), _N2)[2][:h]
+    return (torch.from_numpy(np.ascontiguousarray(tw.real)).to(device, dt),
+            torch.from_numpy(np.ascontiguousarray(tw.imag)).to(device, dt))
+
+
+def _forward_spectrum(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's phase 1 on real windows ``a`` (..., N1, 128): the
+    one-sided scrambled spectrum D (..., N1/2+1, 128) as (re, im).
+
+    Stage 1 packs columns c and c + 64 as one complex column, runs its
+    N1-point DFT (``_COL_SPLITS``) and splits bins k and -k into the two
+    columns' spectra on rows k1 <= N1/2; then the twiddle and stage 2, the
+    128-point DFT of each row (``_ROW_SPLIT``)."""
+    n1 = a.shape[-2]
+    h = n1 // 2 + 1
+    zr, zi = dft_last(a[..., :64].transpose(-1, -2), a[..., 64:].transpose(-1, -2),
+                      _COL_SPLITS[n1], False)  # (..., 64, N1)
+    k = torch.arange(h, device=a.device)
+    m = (n1 - k) % n1
+    pr, pi, qr, qi = zr[..., k], zi[..., k], zr[..., m], zi[..., m]
+    # X_c = (Z[k] + conj Z[-k]) / 2, X_c+64 = (Z[k] - conj Z[-k]) / 2i
+    br = torch.cat([pr + qr, pi + qi], dim=-2).transpose(-1, -2) / 2
+    bi = torch.cat([pi - qi, qr - pr], dim=-2).transpose(-1, -2) / 2
+    twr, twi = _twiddle_rows(h, a.dtype, a.device)
+    cr, ci = br * twr - bi * twi, br * twi + bi * twr
+    return dft_last(cr, ci, _ROW_SPLIT, False)
+
+
+def _inverse_valid(yr: torch.Tensor, yi: torch.Tensor, v1: int) -> torch.Tensor:
+    """The kernel's inverse on one-sided spectra Y (..., N1/2+1, 128): the
+    first V1 rows (..., V1, 128) of the real block, 1/N included.
+
+    The conjugated 128-point row DFT and the conjugate twiddle give G; the
+    c2r then runs columns c and c + 64 at once, as one conjugated N1-point
+    DFT of their Hermitian extensions G[N1 - k] = conj G[k] (bins 0 and
+    N1/2 taken real), whose real and imaginary parts are the two columns."""
+    h = yr.shape[-2]
+    n1 = 2 * (h - 1)
+    er, ei = dft_last(yr, yi, _ROW_SPLIT, True)
+    twr, twi = _twiddle_rows(h, yr.dtype, yr.device)
+    gr, gi = (er * twr + ei * twi).transpose(-1, -2), (ei * twr - er * twi).transpose(-1, -2)
+    k = torch.arange(n1, device=yr.device)
+    kk = torch.minimum(k, n1 - k)
+    ar, ai, br, bi = gr[..., :64, kk], gi[..., :64, kk], gr[..., 64:, kk], gi[..., 64:, kk]
+    real = (k == 0) | (k == n1 // 2)
+    low = k < n1 // 2
+    vr = torch.where(real, ar, torch.where(low, ar - bi, ar + bi))
+    vi = torch.where(real, br, torch.where(low, ai + br, br - ai))
+    outr, outi = dft_last(vr, vi, _COL_SPLITS[n1], True)  # (..., 64, N1)
+    out = torch.cat([outr[..., :v1], outi[..., :v1]], dim=-2).transpose(-1, -2)
+    return out / (n1 * _N2)
+
+
 def _fused_forward_reference(
     x_padded: torch.Tensor, kernel: torch.Tensor, n: int, groups: int = 1,
     spectra: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernel's plain PyTorch version: the same blocked one-sided
-    four-step pipeline in split re/im arithmetic, float64 for a float64
-    signal and float32 otherwise.
+    pipeline with the same factored transforms (``_forward_spectrum``, the
+    MAC, ``_inverse_valid``), float64 for a float64 signal and float32
+    otherwise.
 
     ``x_padded`` (B, Cin, L) already padded, ``kernel`` (Cout, Cin/g, K)
     already dilated; returns the valid correlation (B, Cout, L - K + 1).
@@ -195,17 +262,7 @@ def _fused_forward_reference(
     need = (nblk - 1) * v + n
     x = TF.pad(x_padded.to(dt), (0, need - l_pad))
     a = x.unfold(2, n, v).reshape(b, cin, nblk, n1, n2)
-    f1r, f1i, f2r, f2i, twr, twi, if1r, if1i, if2r, if2i = (
-        torch.from_numpy(m).to(x.device)
-        for m in _factor_consts(n1, n2, v1, np.float64 if dt == torch.float64 else np.float32)
-    )
-
-    # forward stage 1 (one-sided rows), twiddle, forward stage 2
-    br, bi = f1r @ a, f1i @ a  # (B, Cin, nblk, H, N2)
-    cr = br * twr - bi * twi
-    ci = br * twi + bi * twr
-    dr = cr @ f2r - ci @ f2i
-    di = cr @ f2i + ci @ f2r
+    dr, di = _forward_spectrum(a)  # (B, Cin, nblk, H, N2)
 
     # per-bin complex MAC over each out-channel's group of in-channels
     if spectra is None:
@@ -222,25 +279,24 @@ def _fused_forward_reference(
     yr = yr.reshape(b, cout, nblk, h, n2)
     yi = yi.reshape(b, cout, nblk, h, n2)
 
-    # inverse stage 1, conjugate twiddle, inverse stage 2 (valid rows)
-    er = yr @ if2r - yi @ if2i
-    ei = yr @ if2i + yi @ if2r
-    gr = er * twr + ei * twi
-    gi = ei * twr - er * twi
-    out = if1r @ gr - if1i @ gi  # (B, Cout, nblk, V1, N2)
+    out = _inverse_valid(yr, yi, v1)  # (B, Cout, nblk, V1, N2)
     return out.reshape(b, cout, nblk * v)[:, :, :v_total]
 
 
 @lru_cache(maxsize=None)
-def _device_consts(n1: int, v1: int, device: torch.device):
-    """The kernel's factor matrices as interleaved complex64 tensors on
-    ``device``: (f1, tw, f2, if1w, if2)."""
-    f1r, f1i, f2r, f2i, twr, twi, if1r, if1i, if2r, if2i = _factor_consts(n1, _N2, v1)
-    pairs = ((f1r, f1i), (twr, twi), (f2r, f2i), (if1r, if1i), (if2r, if2i))
-    return tuple(
-        torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
-        for re, im in pairs
-    )
+def _device_consts(n1: int, device: torch.device):
+    """The kernel's factors as complex64 tensors on ``device``: (fac, tw).
+    ``fac`` is one vector in the order csrc/fused1d.cu reads it: for the
+    column split (A, B) = ``_COL_SPLITS[n1]`` and then the row split
+    ``_ROW_SPLIT``, the A roots of unity (row 1 of f1), the B roots (row 1
+    of f2) and the (A, B) twiddle, row-major. ``tw`` is the (N1/2+1, 128)
+    four-step twiddle. All built in float64 (``fft_factor_matrices``)."""
+    parts = []
+    for split in (_COL_SPLITS[n1], _ROW_SPLIT):
+        f1, f2, tw = fft_factor_matrices(*split)
+        parts += [f1[1], f2[1], tw.reshape(-1)]
+    fac = torch.from_numpy(np.concatenate(parts).astype(np.complex64)).to(device)
+    return fac, torch.complex(*_twiddle_rows(n1 // 2 + 1, torch.float32, device))
 
 
 def _library() -> ctypes.CDLL:
@@ -248,7 +304,7 @@ def _library() -> ctypes.CDLL:
     if lib.fused1d_forward.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fused1d_forward.argtypes = [
-            p, ll, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ll, p,
+            p, ll, p, p, p, p, p, i, i, i, i, i, i, i, i, ll, p,
         ]
         lib.fused1d_forward.restype = i
         lib.fused1d_error_string.argtypes = [i]
@@ -282,16 +338,15 @@ def _launch_fused1d(
     chunk = min(nblk, _SCRATCH_BUDGET // per_block, _MAX_BLOCKS_PER_LAUNCH)
 
     lib = _library()
-    f1, tw, f2, if1w, if2 = _device_consts(n1, v1, x_padded.device)
+    fac, tw = _device_consts(n1, x_padded.device)
     out = torch.empty((b, cout, v_total), device=x_padded.device, dtype=torch.float32)
     d = torch.empty((chunk, b, cin, h, _N2), device=x_padded.device, dtype=torch.complex64)
     stream = torch.cuda.current_stream(x_padded.device).cuda_stream
     with torch.cuda.device(x_padded.device):
         for blk0 in range(0, nblk, chunk):
             err = lib.fused1d_forward(
-                x_padded.data_ptr(), l_pad, spectra.data_ptr(), f1.data_ptr(),
-                tw.data_ptr(), f2.data_ptr(), if1w.data_ptr(), if2.data_ptr(),
-                d.data_ptr(), out.data_ptr(), b, cin, cout, groups, n1, v1,
+                x_padded.data_ptr(), l_pad, spectra.data_ptr(), fac.data_ptr(),
+                tw.data_ptr(), d.data_ptr(), out.data_ptr(), b, cin, cout, groups, n1, v1,
                 blk0, min(chunk, nblk - blk0), v_total, stream,
             )
             if err != 0:

@@ -39,7 +39,8 @@ convolution through the same forward on a zero-stuffed signal.
 ``plan_fft_conv3d`` bakes the kernel spectra once for serving.
 
 Not ported from the JAX module: the TPU's precision, MAC, staging and
-inline-spectra switches (ROADMAP §A).
+inline-spectra switches: the port's kernels compute in FP32 with one
+schedule each.
 """
 
 import ctypes

@@ -282,7 +282,8 @@ def fft_conv(
         raise ValueError(f"unknown impl: {impl!r}")
     if impl == "tiled":
         raise NotImplementedError(
-            "impl='tiled' (overlap-save tiling) is not ported yet (ROADMAP §A.10)"
+            "impl='tiled' (overlap-save tiling, fft_conv_tpu/ops/tiled.py) is not "
+            "ported yet"
         )
     if impl == "fused" and n > 3:
         raise ValueError("impl='fused' requires 1D/2D/3D input")
@@ -419,7 +420,8 @@ def fft_conv_transpose(
         raise ValueError(f"unknown impl: {impl!r}")
     if impl == "tiled":
         raise NotImplementedError(
-            "impl='tiled' (overlap-save tiling) is not ported yet (ROADMAP §A.10)"
+            "impl='tiled' (overlap-save tiling, fft_conv_tpu/ops/tiled.py) is not "
+            "ported yet"
         )
     if impl == "fused" and n > 3:
         raise ValueError("impl='fused' requires 1D/2D/3D input")

@@ -8,8 +8,8 @@ square complex DFT as split re/im matrices; the 2D kernel spectra are
 computed with them, and B2's factored transforms are tested against them. They are float32 by default, as in the JAX package;
 ``dtype=np.float64`` gives the same matrices in float64 for an oracle.
 
-The DFT-matmul convolution path of that module is not ported yet
-(ROADMAP §A.10).
+The DFT-matmul convolution path of that module, and the overlap-save
+tiling of ``fft_conv_tpu/ops/tiled.py``, are not ported yet.
 """
 
 from functools import lru_cache

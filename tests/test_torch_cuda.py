@@ -1,6 +1,8 @@
 """The port on a CUDA card: the fused 1D, 2D and 3D kernels (B1, B2, B5, B3,
 B4 and the x-pack kernel B6) against their plain versions, the serving
-plans, and the routes that only a CUDA tensor takes.
+plans, and the routes that only a CUDA tensor takes. B1 is also held at the
+edges of its blocking: V1 = 1, a single block, Cin = 3 with groups = 3 and
+a stuffed transposed length.
 
 Every test here is marked ``cuda`` and skips without a card. The file imports
 no JAX, so it also runs where JAX is not installed:
@@ -35,9 +37,22 @@ def _tensors(device, seed, *shapes):
             for s in shapes]
 
 
-@pytest.mark.parametrize("n,k,groups", [(2048, 256, 1), (4096, 1000, 2), (8192, 3840, 4)])
-def test_kernel_matches_plain_version(cuda, n, k, groups):
-    x, w = _tensors(cuda, n, (2, 8, 20000), (8, 8 // groups, k))
+# (B, Cin, Cout, L, K, N, groups): the three FFT sizes, then the edges of the
+# blocking. Between them each phase runs at each N1 in both block sizes: 512
+# threads where a phase's grid has no more blocks than the card has SMs (N =
+# 4096 and 8192 at L = 20000, the single block, groups=3), else 256.
+@pytest.mark.parametrize("b,cin,cout,l,k,n,groups", [
+    (2, 8, 8, 20000, 256, 2048, 1),
+    (2, 8, 8, 20000, 1000, 4096, 2),
+    (2, 8, 8, 20000, 3840, 8192, 4),
+    (2, 8, 8, 20000, 2048 - 127, 2048, 1),   # V1 = 1 at N1 = 16
+    (2, 8, 8, 20000, 8192 - 127, 8192, 1),   # V1 = 1 at N1 = 64
+    (2, 8, 8, 1900, 256, 2048, 1),           # a single, partial block
+    (2, 3, 6, 20000, 700, 4096, 3),          # Cin = 3, groups = 3
+    (2, 8, 8, 33278, 256, 2048, 1),          # the stuffed signal of the K=256 transposed row
+])
+def test_kernel_matches_plain_version(cuda, b, cin, cout, l, k, n, groups):
+    x, w = _tensors(cuda, n, (b, cin, l), (cout, cin // groups, k))
     before = fused1d.launches
     y = fused1d._launch_fused1d(x, fused1d.kernel_spectra_one_sided(w, n), n, groups, k)
     torch.cuda.synchronize()

@@ -25,12 +25,18 @@ def _arrays(seed, *shapes):
 
 
 # (B, Cin, Cout, L, K, groups, stride, dilation, padding, padding_mode); every
-# case has several overlap-save blocks and a remainder block, and N <= 4096
+# case has several overlap-save blocks and a remainder block. FFT sizes
+# (choose_fft_size): 4096, 4096, 2048, 2048, then 2048, 4096 and 8192 with
+# groups, and 8192 at V1 = 1 (K = N - 127)
 PARITY = [
     (2, 4, 4, 5000, 300, 1, 1, 1, 0, "constant"),
     (2, 4, 6, 5000, 300, 2, 2, 1, 3, "reflect"),
     (1, 3, 3, 3000, 100, 3, 1, 2, 5, "circular"),
     (2, 2, 4, 4100, 256, 1, 3, 1, 7, "replicate"),
+    (2, 4, 6, 6000, 150, 2, 1, 1, 0, "constant"),
+    (2, 4, 4, 9000, 1000, 2, 1, 1, 0, "constant"),
+    (1, 4, 2, 12000, 3000, 2, 1, 1, 0, "constant"),
+    (1, 2, 2, 9000, 8192 - 127, 1, 1, 1, 0, "constant"),
 ]
 
 
@@ -47,6 +53,37 @@ def test_plain_version_matches_jax_fused(b, cin, cout, l, k, groups, stride, dil
                                  torch.from_numpy(bias), **kw)
     assert fused1d.launches == before
     _assert_close_scaled(y.numpy(), np.asarray(y_jax))
+
+
+@pytest.mark.parametrize("n", [2048, 4096, 8192])
+def test_factored_stages_equal_the_dense_factors_in_float64(n):
+    """Each half of the factored pipeline against the dense one-sided
+    factors of ``_factor_consts`` in float64: the forward (column pairs,
+    their split into one-sided spectra, twiddle, row DFT) on real windows,
+    and the inverse (row DFT, conjugate twiddle, the c2r of column pairs)
+    on arbitrary complex spectra, for several V1."""
+    n1 = n // 128
+    h = n1 // 2 + 1
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.standard_normal((3, n1, 128)))
+    f1r, f1i, f2r, f2i, twr, twi, *_ = (
+        torch.from_numpy(m) for m in fused1d._factor_consts(n1, 128, 1, np.float64))
+    br, bi = f1r @ a, f1i @ a
+    cr, ci = br * twr - bi * twi, br * twi + bi * twr
+    dr, di = fused1d._forward_spectrum(a)
+    assert dr.dtype == torch.float64 and dr.shape == (3, h, 128)
+    assert (dr - (cr @ f2r - ci @ f2i)).abs().max() < 1e-10
+    assert (di - (cr @ f2i + ci @ f2r)).abs().max() < 1e-10
+
+    yr, yi = (torch.from_numpy(rng.standard_normal((3, h, 128))) for _ in range(2))
+    for v1 in (1, n1 // 2, n1 - 1, n1):
+        *_, twr, twi, if1r, if1i, if2r, if2i = (
+            torch.from_numpy(m) for m in fused1d._factor_consts(n1, 128, v1, np.float64))
+        er, ei = yr @ if2r - yi @ if2i, yr @ if2i + yi @ if2r
+        gr, gi = er * twr + ei * twi, ei * twr - er * twi
+        out = fused1d._inverse_valid(yr, yi, v1)
+        assert out.shape == (3, v1, 128)
+        assert (out - (if1r @ gr - if1i @ gi)).abs().max() < 1e-12
 
 
 @pytest.mark.parametrize(
