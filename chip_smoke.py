@@ -346,8 +346,8 @@ def fused2d_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
 
 def fused2d_dense_work(b, cin, cout, h, w, k, plan, groups=1):
     """(bytes, flops) of the fused 2D function with every DFT a dense
-    product, the count PR 7 bounded B2 with, kept for kernel B5 (which
-    still runs dense products) and as B2's `dense_bound_ms`.
+    product, the count B2 was first bounded with, kept as B2's and B5's
+    `dense_bound_ms`.
 
     Bytes as fused2d_work. Flops: the dense DFT products of the tiled
     algorithm with an FMA as two, restricted to what the call needs: no
@@ -375,15 +375,22 @@ def fused2d_dense_work(b, cin, cout, h, w, k, plan, groups=1):
 
 def fused2d_v3_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
     """The flops kernel B5 (csrc/fused2d.cu, the v3 schedule) does for one
-    call, over whole T1 x T2 tiles: per input channel, the stacked H DFT
-    (2 NB1 x T1 x T2 real) and the W DFT (four real products of NB1 x T2 x
-    T2); per output channel, B2's MAC, the stacked H inverse on the V1 valid
-    rows (two real products of V1 x 2 NB1 x T2) and the real W inverse
-    (V1 x 2 T2 x T2)."""
+    call, over whole T1 x T2 tiles with the kernel's own arithmetic
+    (_four_step_flops(kernel=True)): per input channel the H DFT of T2/2
+    packed column pairs, the split of their bins k and -k (8 per pair and
+    row 0 < k < T1/2) and the W DFT of the NB1 rows; per output channel the
+    MAC, the folded H inverse (T2/2 T1-point transforms; assembling S costs
+    8 per column pair at k = 0 and T1/2 and 2 per bin for the shared pair of
+    columns 0 and T2/2), the W c2r of ceil(V1/2) row pairs (T2-point
+    transforms, 2 per bin for the Hermitian extension) and the output scale
+    (1 per stored sample of a tile)."""
     t1, v1, nb1, t2, v2 = plan
     tiles = -(-(h - k + 1) // v1) * -(-(w - k + 1) // v2)
-    fwd = 4 * nb1 * t1 * t2 + 8 * nb1 * t2 * t2
-    inv = 8 * (cin // groups) * nb1 * t2 + 8 * v1 * nb1 * t2 + 4 * v1 * t2 * t2
+    f1, f2 = _four_step_flops(t1, t1, t1, True), _four_step_flops(t2, t2, t2, True)
+    n1, n2 = t1 // 2, t2 // 2
+    fwd = n2 * f1 + 8 * (n1 - 1) * n2 + nb1 * f2
+    inv = (8 * (cin // groups) * nb1 * t2 + n2 * f1 + 8 * (n2 - 1) + 2 * (t1 - 2)
+           + -(-v1 // 2) * (f2 + 2 * t2) + v1 * v2)
     return b * tiles * (cin * fwd + cout * inv)
 
 
@@ -992,7 +999,8 @@ def time_2d_v3(torch, inputs, errs, per_row):
         def composed():
             return fft_conv(x, wt, impl="xla")
 
-        nbytes, flops = fused2d_dense_work(b, cin, cout, h, w, k, plan)
+        # the least work of the function B5 computes, as B2's bound
+        nbytes, flops = fused2d_work(b, cin, cout, h, w, k, plan)
         bound_ms, bound_by = bound(nbytes, flops)
         row = {
             "K": k, "plan": list(plan), "launches": nl, "max_abs_err": err,
@@ -1005,6 +1013,8 @@ def time_2d_v3(torch, inputs, errs, per_row):
             "library_ms": device_ms(lambda: TF.conv2d(x, wt)),
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
             "kernel_flops": fused2d_v3_kernel_flops(b, cin, cout, h, w, k, plan),
+            # the bound of the dense count, every DFT a dense product
+            "dense_bound_ms": bound(*fused2d_dense_work(b, cin, cout, h, w, k, plan))[0],
             # B5's two kernels, one by one (device time per call)
             "phase_ms": phase_split_ms(torch, kernel, "fused2d_v3_"),
         }
@@ -1886,15 +1896,22 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": round(build_s, 2),
                       "libraries": {k: str(v.relative_to(HERE)) for k, v in paths.items()},
                       "ptxas": ptxas}))
-    if "fused1d" not in _build.build_logs:  # built by an earlier run: again, for its report
-        paths["fused1d"].unlink()
-        _build.build(["fused1d"])
+    for name in ("fused1d", "fused2d"):
+        if name not in _build.build_logs:  # built by an earlier run: again, for its report
+            paths[name].unlink()
+            _build.build([name])
     spills = ptxas_spills(_build.build_logs["fused1d"])
     # both phases at N1 = 16, 32, 64, each at 256 and 512 threads
     entries = [fn for fn in spills if "fused1d_" in fn]
     check(len(entries) == 12 and not any(sum(v) for v in spills.values()),
           f"B1's 12 entry points spill registers or are missing: {spills}")
     print(json.dumps({"phase": "ptxas", "kernel": "B1", "spill_bytes": spills}))
+    # B5: both phases at each of the four tile plans
+    spills = {fn: v for fn, v in ptxas_spills(_build.build_logs["fused2d"]).items()
+              if "fused2d_v3_" in fn}
+    check(len(spills) == 8 and not any(sum(v) for v in spills.values()),
+          f"B5's 8 entry points spill registers or are missing: {spills}")
+    print(json.dumps({"phase": "ptxas", "kernel": "B5", "spill_bytes": spills}))
     torch.cuda.synchronize()
 
     gen = torch.Generator().manual_seed(0)

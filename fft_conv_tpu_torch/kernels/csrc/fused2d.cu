@@ -57,19 +57,25 @@
 //
 // Kernel B5 (fused2d_v3_forward, further down) replaces the TPU kernel
 // fft_conv_tpu/kernels/fused2d.py:419 (_make_kernel_2d_v3): the same function
-// on the "v3" schedule, where re and im are stacked into the rows of REAL
-// products. Per tile: one product [fr; fi] (2 NB1 x T1) . window gives
-// [hr; hi]; two stacked products of it with wr and wi are recombined into
-// dr = hr wr - hi wi and di = hr wi + hi wr; the MAC is B2's; the inverse runs
-// H first on the stacked Y = [yr; yi]: zr = [cr | ci] . Y and zi = [-ci | cr] . Y
-// on the V1 valid rows only, then out = [zr | zi] . [ur; -ui], one real product
-// whose result is the real output. The TPU pads NB1 to a multiple of 8 rows for
-// its sublanes; B5 does not. Every DFT is a dense FP32 FMA panel product with
-// the thread tile of v3_panel_fma (4 columns a thread in each 128-column group,
-// 8 row groups, float4 shared-memory loads); phase 2 runs the inverse in chunks
-// of 16 output rows so that [zr | zi] never takes more than 16 x 2 T2 floats
-// beside the stacked Y. At the benchmark shapes it does 10-14 GFLOP a call, so
-// the FP32 CUDA-core rate bounds it.
+// on the "v3" schedule, where the forward runs H first and the inverse runs H
+// first on the MAC's output. It uses B2's plan, factors, plane, staging and
+// short DFTs (B2Smem without the packed column), and the v3 layouts: D and the
+// spectra as split (re, im) planes.
+//   phase 1, grid (B * Cin, tiles): the H DFT of the window's columns q and
+//     q + T2/2 packed as one complex column, read straight from the signal;
+//     bins k and -k of each packed column split into the two columns'
+//     one-sided spectra; the W DFT of the NB1 rows in place; D out as
+//     (tiles, B * Cin, 2, NB1, T2), equal to B2's D up to rounding;
+//   phase 2, grid (B * Cout, tiles): B2's MAC into the plane, then the folded
+//     H-first inverse: the real output needs only the W-Hermitian half h of
+//     z = C Y (C the one-sided H inverse), and h[., l] is one T1-point inverse
+//     DFT of a spectrum assembled from Y's columns l and T2 - l (T2/2 of them
+//     a tile, columns 0 and T2/2 sharing one), written back into the slots of
+//     those two columns; then the W c2r of the V1 valid rows, two rows as one
+//     complex T2-point inverse, stored straight into (B, Cout, OH, OW).
+// Per tile and output channel the inverse runs T2/2 T1-point transforms and
+// ceil(V1/2) T2-point ones, where B2's runs T2/2 and NB1. The only dense short DFT is
+// the 24-point one at T1 = 384, as in B2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,19 +84,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmem = 232448;  // a Hopper block's shared memory
-
-constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
-
-// Rows of an m-row product are computed in n passes of `rows` rows each
-// (the last may be shorter), at most rows_max per pass.
-struct Passes {
-  int n, rows;
-};
-
-__device__ __forceinline__ Passes split_rows(int m, int rows_max) {
-  const int n = (m + rows_max - 1) / rows_max;
-  return {n, (m + n - 1) / n};
-}
 
 // ---- Kernel B2: factored DFTs ------------------------------------------------
 
@@ -102,14 +95,14 @@ __host__ __device__ constexpr int split_b(int t) { return t == 128 ? 8 : 16; }
 __host__ __device__ constexpr int stage_cols(int t1) { return t1 >= 384 ? 8 : 32; }
 
 // One block's dynamic shared memory, either phase: the NB1 x T2 plane, the
-// staging (G x T1), the packed DC/Nyquist column (T1) and the factors (A and
-// B roots and the twiddle of each axis), all float2. Past T1 = 384 the plane
-// alone, which is already more than a block can hold.
-__host__ __device__ constexpr size_t smem_bytes(int t1, int t2) {
+// staging (G x T1), the packed DC/Nyquist column (T1; B2 only) and the
+// factors (A and B roots and the twiddle of each axis), all float2. Past
+// T1 = 384 the plane alone, which is already more than a block can hold.
+__host__ __device__ constexpr size_t smem_bytes(int t1, int t2, bool packed = true) {
   return t1 > 384 ? sizeof(float2) * (size_t)(t1 / 2 + 1) * t2
                   : sizeof(float2) * ((size_t)(t1 / 2 + 1) * t2 + (size_t)stage_cols(t1) * t1 +
-                                      t1 + split_a(t1) + split_b(t1) + t1 + split_a(t2) +
-                                      split_b(t2) + t2);
+                                      (packed ? t1 : 0) + split_a(t1) + split_b(t1) + t1 +
+                                      split_a(t2) + split_b(t2) + t2);
 }
 
 template <int T1, int T2>
@@ -120,6 +113,7 @@ struct B2Plan {
   static constexpr int kPlane = kNB1 * T2, kStage = kG * T1;
   static constexpr int kFac = kA1 + kB1 + T1 + kA2 + kB2 + T2;
   static constexpr size_t kSmem = smem_bytes(T1, T2);
+  static constexpr size_t kSmemV3 = smem_bytes(T1, T2, false);  // B5: no packed column
   static constexpr int kMinBlocks = T1 == 128 && T2 == 128 ? 2 : 1;
   static_assert(kSmem <= (size_t)kMaxSmem, "B2's plane does not fit a block");
   static_assert(kThreads % kA2 == 0 && kB1 % 2 == 0, "unsupported split");
@@ -253,8 +247,9 @@ __device__ void row_dft(float2* s_p, int nrows, const float2* ra, const float2* 
   }
 }
 
-// Shared memory of a B2 block: plane, staging, packed column, factors.
-template <int T1, int T2>
+// Shared memory of a B2 block: plane, staging, packed column (PACKED; B5's
+// blocks have none), factors.
+template <int T1, int T2, bool PACKED = true>
 struct B2Smem {
   float2 *plane, *stage, *packed, *ra1, *rb1, *tw1, *ra2, *rb2, *tw2;
 
@@ -263,8 +258,8 @@ struct B2Smem {
     using P = B2Plan<T1, T2>;
     plane = reinterpret_cast<float2*>(raw);
     stage = plane + P::kPlane;
-    packed = stage + P::kStage;
-    ra1 = packed + T1;
+    packed = PACKED ? stage + P::kStage : nullptr;
+    ra1 = stage + P::kStage + (PACKED ? T1 : 0);
     for (int i = threadIdx.x; i < P::kFac; i += kThreads) ra1[i] = __ldg(fac + i);
     rb1 = ra1 + P::kA1;
     tw1 = rb1 + P::kB1;
@@ -469,224 +464,91 @@ cudaError_t launch(const float* x, const float2* ks, const float2* fac, float2* 
   return cudaGetLastError();
 }
 
-// ---- Kernel B5: the v3 schedule ----------------------------------------------
+// ---- Kernel B5: B2's factored transforms on the v3 schedule -------------------
 
-constexpr int kV3ColThreads = 32;                        // threads across columns
-constexpr int kV3RowGroups = kThreads / kV3ColThreads;   // interleaved row groups
-
-template <int T2>
-struct V3Cfg {
-  static constexpr int kCG = T2 / 128;     // a thread's columns: 128 g + 4 cl + c, g < kCG
-  static constexpr int kKC = 4096 / T2;    // contraction panel
-  static constexpr int kRptH = 8 / kCG;    // H forward: rows a thread per pass
-  // W forward: row pairs a thread per pass; one at T2 = 256, where four
-  // products' float4 panels of 256 columns are in flight at once
-  static constexpr int kRptW = kCG == 1 ? 4 : 1;
-  static constexpr int kRptI = 2;          // inverse: rows a thread per chunk
-  static constexpr int kChunk = kV3RowGroups * kRptI;  // output rows a chunk (16)
-  // panels (floats) beside the stacked matrix: phase 1 stages an H-forward
-  // row panel and a window panel, or a wr and a wi panel; phase 2 holds the
-  // [zr | zi] chunk and either a cz1 and a cz2 row panel or a u2 panel
-  static constexpr size_t kPhase1 =
-      cmax((size_t)kV3RowGroups * kRptH * kKC + (size_t)kKC * T2, (size_t)2 * kKC * T2);
-  static constexpr size_t kPhase2 =
-      (size_t)kChunk * 2 * T2 + cmax((size_t)2 * kChunk * kKC, (size_t)kKC * T2);
-  static size_t smem(int nb1) {
-    return sizeof(float) * ((size_t)2 * nb1 * T2 + cmax(kPhase1, kPhase2));
-  }
-};
-
-// Number of this thread's interleaved rows rg, rg + 8, ... below nrow.
-__device__ __forceinline__ int v3_own_rows(int nrow, int rg) {
-  return nrow > rg ? (nrow - rg + kV3RowGroups - 1) / kV3RowGroups : 0;
-}
-
-__device__ __forceinline__ void fma4(float (&acc)[4], float a, float4 b) {
-  acc[0] = fmaf(a, b.x, acc[0]);
-  acc[1] = fmaf(a, b.y, acc[1]);
-  acc[2] = fmaf(a, b.z, acc[2]);
-  acc[3] = fmaf(a, b.w, acc[3]);
-}
-
-template <int RPT, int CG>
-__device__ __forceinline__ void v3_zero(float (&acc)[RPT][CG][4]) {
-#pragma unroll
-  for (int q = 0; q < RPT; ++q)
-#pragma unroll
-    for (int g = 0; g < CG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[q][g][c] = 0.f;
-}
-
-__device__ __forceinline__ float4 v3_vec(const float (&v)[4]) {
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// acc[q][g][c] += sum_{k < kn} A[q][k] B[k][128 g + 4 cl + c] for q < nq, where
-// A[q] is the row of this thread's q-th interleaved row: a + q * 8 * lda (a at
-// the row of q = 0; a and lda multiples of 4 floats, in shared memory), and B
-// is kn rows of T2 = 128 CG floats in shared memory. Four k at a time: one
-// float4 of each A row, one float4 of B per k and column group.
-template <int RPT, int CG>
-__device__ __forceinline__ void v3_panel_fma(float (&acc)[RPT][CG][4], const float* a, int lda,
-                                             int nq, const float* b, int kn) {
-  constexpr int T2 = CG * 128;
-  const float* bc = b + 4 * (threadIdx.x % kV3ColThreads);
-  const int kn4 = kn & ~3;
-  for (int k = 0; k < kn4; k += 4) {
-    float4 bv[4][CG];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int g = 0; g < CG; ++g)
-        bv[j][g] = *reinterpret_cast<const float4*>(bc + (k + j) * T2 + 128 * g);
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      if (q < nq) {
-        const float4 av = *reinterpret_cast<const float4*>(a + q * kV3RowGroups * lda + k);
-#pragma unroll
-        for (int g = 0; g < CG; ++g) {
-          fma4(acc[q][g], av.x, bv[0][g]);
-          fma4(acc[q][g], av.y, bv[1][g]);
-          fma4(acc[q][g], av.z, bv[2][g]);
-          fma4(acc[q][g], av.w, bv[3][g]);
-        }
-      }
-    }
-  }
-  for (int k = kn4; k < kn; ++k) {
-    float4 bv[CG];
-#pragma unroll
-    for (int g = 0; g < CG; ++g)
-      bv[g] = *reinterpret_cast<const float4*>(bc + k * T2 + 128 * g);
-#pragma unroll
-    for (int q = 0; q < RPT; ++q) {
-      if (q < nq) {
-        const float av = a[q * kV3RowGroups * lda + k];
-#pragma unroll
-        for (int g = 0; g < CG; ++g) fma4(acc[q][g], av, bv[g]);
-      }
-    }
-  }
-}
-
-// Copies `rows` dense rows of T2 floats (16-byte aligned) into shared memory.
-template <int T2>
-__device__ __forceinline__ void v3_stage_dense(float* dst, const float* __restrict__ src,
-                                               int rows) {
-  const float4* s = reinterpret_cast<const float4*>(src);
-  float4* t = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < rows * T2 / 4; i += kThreads) t[i] = __ldg(s + i);
-}
-
-// Copies columns [k0, k0 + kn) of `rows` rows of a matrix with row stride ld
-// (src at its first row) into a (rows, KC) panel, zeros past kn.
-template <int KC>
-__device__ __forceinline__ void v3_stage_rows(float* dst, const float* __restrict__ src, int ld,
-                                              int rows, int k0, int kn) {
-  for (int i = threadIdx.x; i < rows * KC; i += kThreads) {
-    const int k = i % KC;
-    dst[i] = k < kn ? __ldg(src + (int64_t)(i / KC) * ld + k0 + k) : 0.f;
-  }
-}
-
-template <int T2>
-__global__ void __launch_bounds__(kThreads, T2 == 128 ? 2 : 1)
-fused2d_v3_spectra(const float* __restrict__ x,   // (B, Cin, hp, wp)
-                   const float* __restrict__ f2,  // (2 nb1, t1): [fr; fi]
-                   const float* __restrict__ wr,  // (T2, T2) W DFT, real part
-                   const float* __restrict__ wi,  // (T2, T2) imaginary part
-                   float* __restrict__ d,         // (tiles of this launch, B * Cin, 2, nb1, T2)
-                   int hp, int wp, int t1, int nb1, int v1, int v2, int nt2, int tile0) {
-  using C = V3Cfg<T2>;
-  constexpr int CG = C::kCG, KC = C::kKC, RH = C::kRptH, RW = C::kRptW;
+// Phase 1 of B5: the window's tile spectra, H first. Writes D as B2's D in
+// split planes [dr; di] (tiles of this launch, B * Cin, 2, NB1, T2).
+template <int T1, int T2>
+__global__ void __launch_bounds__(kThreads, B2Plan<T1, T2>::kMinBlocks)
+fused2d_v3_spectra(const float* __restrict__ x,    // (B, Cin, hp, wp)
+                   const float2* __restrict__ fac,  // factors, fused2d.py: _device_factors
+                   float* __restrict__ d,           // (tiles of this launch, B * Cin, 2, NB1, T2)
+                   int hp, int wp, int v1, int v2, int nt2, int tile0) {
+  using P = B2Plan<T1, T2>;
+  constexpr int A1 = P::kA1, B1 = P::kB1, G = P::kG, N1 = T1 / 2, N2 = T2 / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s_b = reinterpret_cast<float*>(smem_raw);  // (2 nb1, T2): [hr; hi]
-  float* s_p = s_b + (size_t)2 * nb1 * T2;          // panels
+  const B2Smem<T1, T2, false> s(smem_raw, fac);
+  float2* s_p = s.plane;
 
-  const int tid = threadIdx.x, cl = tid % kV3ColThreads, rg = tid / kV3ColThreads;
+  const int tid = threadIdx.x;
   const int tile = tile0 + blockIdx.y;
   const int h0 = (tile / nt2) * v1, w0 = (tile % nt2) * v2;
   const float* xs = x + (int64_t)blockIdx.x * hp * wp;
+  __syncthreads();  // the factors are staged before the first DFT reads them
 
-  // H forward, one stacked product: s_b = f2 (2 nb1 x t1) . A (t1 x T2), A the
-  // real window read straight from the signal (zeros past its edge)
-  {
-    float* s_f = s_p;                               // (8 RH, KC) rows of f2
-    float* s_a = s_p + kV3RowGroups * RH * KC;      // (KC, T2) window rows
-    const Passes ps = split_rows(2 * nb1, kV3RowGroups * RH);
-    for (int p = 0; p < ps.n; ++p) {
-      const int row0 = p * ps.rows, nrow = min(ps.rows, 2 * nb1 - row0);
-      const int nq = v3_own_rows(nrow, rg);
-      float acc[RH][CG][4];
-      v3_zero<RH, CG>(acc);
-      for (int k0 = 0; k0 < t1; k0 += KC) {
-        v3_stage_rows<KC>(s_f, f2 + (int64_t)row0 * t1, t1, nrow, k0, KC);
-        for (int i = tid; i < KC * T2; i += kThreads) {
-          const int hr = h0 + k0 + i / T2, wc = w0 + i % T2;
-          s_a[i] = (hr < hp && wc < wp) ? __ldg(xs + (int64_t)hr * wp + wc) : 0.f;
-        }
-        __syncthreads();
-        v3_panel_fma<RH, CG>(acc, s_f + rg * KC, KC, nq, s_a, KC);
-        __syncthreads();  // the panels are consumed before the next ones overwrite them
-      }
+  // H DFT of the real columns q and q + T2/2 as one complex column Z, read
+  // straight from the signal (zeros past its edge), G pairs a pass. Bin k1 of
+  // Z goes to row k1 of column q for k1 < T1/2, to row T1 - k1 of column
+  // q + T2/2 for k1 > T1/2 and to row 0 of column q + T2/2 for k1 = T1/2:
+  // bins k and -k side by side in one row
+  for (int c0 = 0; c0 < N2; c0 += G) {
+    for (int t = tid; t < G * B1; t += kThreads) {
+      const int g = t % G, j2 = t / G, wa = w0 + c0 + g, wb = wa + N2;
+      float2 v[A1];
 #pragma unroll
-      for (int q = 0; q < RH; ++q) {
-        if (q < nq) {
-          float* row = s_b + (size_t)(row0 + rg + q * kV3RowGroups) * T2 + 4 * cl;
-#pragma unroll
-          for (int g = 0; g < CG; ++g)
-            *reinterpret_cast<float4*>(row + 128 * g) = v3_vec(acc[q][g]);
-        }
+      for (int j1 = 0; j1 < A1; ++j1) {
+        const int hr = h0 + j1 * B1 + j2;
+        const float* row = xs + (int64_t)hr * wp;
+        v[j1] = make_float2(hr < hp && wa < wp ? __ldg(row + wa) : 0.f,
+                            hr < hp && wb < wp ? __ldg(row + wb) : 0.f);
       }
+      short_dft<A1, false>(v, s.ra1);
+#pragma unroll
+      for (int m1 = 0; m1 < A1; ++m1)
+        s.stage[(m1 * B1 + j2) * G + g] =
+            m1 == 0 ? v[0] : cmulw<false>(v[m1], s.tw1[m1 * B1 + j2]);
+    }
+    __syncthreads();
+    for (int t = tid; t < G * A1; t += kThreads) {
+      const int g = t % G, m1 = t / G, q = c0 + g;
+      float2 u[B1];
+#pragma unroll
+      for (int j2 = 0; j2 < B1; ++j2) u[j2] = s.stage[(m1 * B1 + j2) * G + g];
+      short_dft<B1, false>(u, s.rb1);
+#pragma unroll
+      for (int m2 = 0; m2 < B1; ++m2) {
+        const int k1 = m1 + A1 * m2;
+        s_p[k1 < N1 ? sw<T2>(k1, q) : sw<T2>(k1 == N1 ? 0 : T1 - k1, q + N2)] = u[m2];
+      }
+    }
+    __syncthreads();  // the staging is read before the next pass overwrites it
+  }
+
+  // split each Z into its two columns' one-sided bins, in place:
+  // X_q[k] = (Z[k] + conj Z[-k]) / 2, X_q+T2/2[k] = (Z[k] - conj Z[-k]) / 2i;
+  // row 0 holds Z[0] and Z[T1/2], where both columns are real
+  for (int i = tid; i < N1 * N2; i += kThreads) {
+    const int k = i / N2, q = i % N2;
+    const float2 a = s_p[sw<T2>(k, q)], b = s_p[sw<T2>(k, q + N2)];
+    if (k == 0) {
+      s_p[sw<T2>(0, q)] = make_float2(a.x, 0.f);
+      s_p[sw<T2>(0, q + N2)] = make_float2(a.y, 0.f);
+      s_p[sw<T2>(N1, q)] = make_float2(b.x, 0.f);
+      s_p[sw<T2>(N1, q + N2)] = make_float2(b.y, 0.f);
+    } else {
+      s_p[sw<T2>(k, q)] = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
+      s_p[sw<T2>(k, q + N2)] = make_float2(0.5f * (a.y + b.y), 0.5f * (b.x - a.x));
     }
   }
   __syncthreads();
 
-  // W forward, two stacked products recombined in registers: for the row
-  // pair (r, nb1 + r) of s_b, dr[r] = hr wr - hi wi and di[r] = hr wi + hi wr,
-  // written to the scratch as the planes [dr; di]
-  float* dout = d + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * nb1 * T2;
-  float* s_wr = s_p;            // (KC, T2) rows of wr
-  float* s_wi = s_p + KC * T2;  // (KC, T2) rows of wi
-  const Passes ps = split_rows(nb1, kV3RowGroups * RW);
-  for (int p = 0; p < ps.n; ++p) {
-    const int row0 = p * ps.rows, nrow = min(ps.rows, nb1 - row0);
-    const int nq = v3_own_rows(nrow, rg);
-    float rr[RW][CG][4], ri[RW][CG][4], ir[RW][CG][4], ii[RW][CG][4];
-    v3_zero<RW, CG>(rr);
-    v3_zero<RW, CG>(ri);
-    v3_zero<RW, CG>(ir);
-    v3_zero<RW, CG>(ii);
-    const float* top = s_b + (size_t)(row0 + rg) * T2;  // hr rows
-    const float* bot = top + (size_t)nb1 * T2;          // hi rows
-    for (int k0 = 0; k0 < T2; k0 += KC) {
-      v3_stage_dense<T2>(s_wr, wr + (int64_t)k0 * T2, KC);
-      v3_stage_dense<T2>(s_wi, wi + (int64_t)k0 * T2, KC);
-      __syncthreads();
-      v3_panel_fma<RW, CG>(rr, top + k0, T2, nq, s_wr, KC);
-      v3_panel_fma<RW, CG>(ri, top + k0, T2, nq, s_wi, KC);
-      v3_panel_fma<RW, CG>(ir, bot + k0, T2, nq, s_wr, KC);
-      v3_panel_fma<RW, CG>(ii, bot + k0, T2, nq, s_wi, KC);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int q = 0; q < RW; ++q) {
-      if (q < nq) {
-        float* row = dout + (int64_t)(row0 + rg + q * kV3RowGroups) * T2 + 4 * cl;
-#pragma unroll
-        for (int g = 0; g < CG; ++g) {
-          float dr[4], di[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            dr[c] = rr[q][g][c] - ii[q][g][c];
-            di[c] = ri[q][g][c] + ir[q][g][c];
-          }
-          *reinterpret_cast<float4*>(row + 128 * g) = v3_vec(dr);
-          *reinterpret_cast<float4*>(row + (int64_t)nb1 * T2 + 128 * g) = v3_vec(di);
-        }
-      }
-    }
+  // W DFT of the NB1 rows in place, then D out as its re and im planes
+  row_dft<T2, false>(s_p, P::kNB1, s.ra2, s.rb2, s.tw2);
+  float* dout = d + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * 2 * P::kPlane;
+  for (int i = tid; i < P::kPlane; i += kThreads) {
+    const float2 z = s_p[sw<T2>(i / T2, i % T2)];
+    dout[i] = z.x;
+    dout[P::kPlane + i] = z.y;
   }
 }
 
@@ -703,36 +565,48 @@ __device__ __forceinline__ void cmac4(float4& yr, float4& yi, float4 dr, float4 
   yi.w = fmaf(dr.w, ki.w, fmaf(di.w, kr.w, yi.w));
 }
 
-template <int T2>
-__global__ void __launch_bounds__(kThreads, T2 == 128 ? 2 : 1)
-fused2d_v3_mac_inverse(const float* __restrict__ d,    // (tiles of this launch, B * Cin, 2, nb1, T2)
-                       const float* __restrict__ ks,   // (Cout, Cin/g, 2, nb1, T2), conjugated
-                       const float* __restrict__ cz1,  // (v1, 2 nb1): [cr | ci]
-                       const float* __restrict__ cz2,  // (v1, 2 nb1): [-ci | cr]
-                       const float* __restrict__ u2,   // (2 T2, T2): [ur; -ui], 1/T2 folded in
-                       float* __restrict__ out,        // (B, Cout, oh, ow)
-                       int batch, int cin, int cout, int groups, int nb1, int v1, int v2,
-                       int nt2, int tile0, int oh, int ow) {
-  using C = V3Cfg<T2>;
-  constexpr int CG = C::kCG, KC = C::kKC, RI = C::kRptI, R = C::kChunk;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s_y = reinterpret_cast<float*>(smem_raw);  // (2 nb1, T2): [yr; yi]
-  float* s_z = s_y + (size_t)2 * nb1 * T2;          // (R, 2 T2): [zr | zi]
-  float* s_c1 = s_z + R * 2 * T2;                   // (R, KC) rows of cz1
-  float* s_c2 = s_c1 + R * KC;                      // (R, KC) rows of cz2
-  float* s_u = s_c1;                                // (KC, T2) rows of u2
+// h[n, l] of the folded H inverse, l in [0, T2/2]: row n of column l for
+// n < NB1, else row n - NB1 of column T2 - l; columns 0 and T2/2 share their
+// slots as the real and imaginary parts of one value (in column 0, then T2/2)
+template <int T1, int T2>
+__device__ __forceinline__ float2 folded_h(const float2* s_p, int n, int l) {
+  constexpr int NB1 = T1 / 2 + 1, N2 = T2 / 2;
+  const int c = l == N2 ? 0 : l, m = c == 0 ? N2 : T2 - c;
+  const float2 z = n < NB1 ? s_p[sw<T2>(n, c)] : s_p[sw<T2>(n - NB1, m)];
+  return c != 0 ? z : make_float2(l == 0 ? z.x : z.y, 0.f);
+}
 
-  const int tid = threadIdx.x, cl = tid % kV3ColThreads, rg = tid / kV3ColThreads;
+// Phase 2 of B5: the MAC, then the v3 inverse, H first and folded.
+template <int T1, int T2>
+__global__ void __launch_bounds__(kThreads, B2Plan<T1, T2>::kMinBlocks)
+fused2d_v3_mac_inverse(const float* __restrict__ d,    // (tiles of this launch, B * Cin, 2, NB1, T2)
+                       const float* __restrict__ ks,   // (Cout, Cin/g, 2, NB1, T2), conjugated
+                       const float2* __restrict__ fac,  // factors, fused2d.py: _device_factors
+                       float* __restrict__ out,         // (B, Cout, oh, ow)
+                       int batch, int cin, int cout, int groups, int v1, int v2, int nt2,
+                       int tile0, int oh, int ow) {
+  using P = B2Plan<T1, T2>;
+  constexpr int A1 = P::kA1, B1 = P::kB1, A2 = P::kA2, B2 = P::kB2, G = P::kG;
+  constexpr int N1 = T1 / 2, N2 = T2 / 2, NB1 = P::kNB1;
+  // row pairs of one W chunk: a power of two, at least A2, whose T2-point
+  // transforms fit the staging
+  constexpr int R = P::kStage / T2 >= 64 ? 64 : P::kStage / T2 >= 32 ? 32 : 16;
+  static_assert(R * T2 <= P::kStage && R >= A2, "the W chunk does not fit the staging");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const B2Smem<T1, T2, false> s(smem_raw, fac);
+  float2* s_p = s.plane;
+
+  const int tid = threadIdx.x;
   const int b = blockIdx.x / cout, o = blockIdx.x % cout;
-  const int cpg = cin / groups, g = o / (cout / groups);
+  const int cpg = cin / groups, g0 = o / (cout / groups);
   const int tile = tile0 + blockIdx.y;
   const int h0 = (tile / nt2) * v1, w0 = (tile % nt2) * v2;
-  const int64_t plane = (int64_t)nb1 * T2;
+  const int64_t plane = P::kPlane;
 
-  // per-bin MAC over this out-channel's group into the stacked Y = [yr; yi]
-  const float* dg = d + (((int64_t)blockIdx.y * batch + b) * cin + (int64_t)g * cpg) * 2 * plane;
+  // per-bin MAC over this out-channel's group: Y = sum_c D[c] * K[o, c]
+  const float* dg = d + (((int64_t)blockIdx.y * batch + b) * cin + (int64_t)g0 * cpg) * 2 * plane;
   const float* ko = ks + (int64_t)o * cpg * 2 * plane;
-  for (int i = tid; i < plane / 4; i += kThreads) {
+  for (int i = tid; i < P::kPlane / 4; i += kThreads) {
     float4 yr = make_float4(0.f, 0.f, 0.f, 0.f), yi = yr;
     for (int c = 0; c < cpg; ++c) {
       const float4* dc = reinterpret_cast<const float4*>(dg + c * 2 * plane);
@@ -740,92 +614,139 @@ fused2d_v3_mac_inverse(const float* __restrict__ d,    // (tiles of this launch,
       cmac4(yr, yi, __ldg(dc + i), __ldg(dc + plane / 4 + i), __ldg(kc + i),
             __ldg(kc + plane / 4 + i));
     }
-    reinterpret_cast<float4*>(s_y)[i] = yr;
-    reinterpret_cast<float4*>(s_y + plane)[i] = yi;
+    const int k = 4 * i / T2, c = 4 * i % T2;
+    s_p[sw<T2>(k, c)] = make_float2(yr.x, yi.x);
+    s_p[sw<T2>(k, c + 1)] = make_float2(yr.y, yi.y);
+    s_p[sw<T2>(k, c + 2)] = make_float2(yr.z, yi.z);
+    s_p[sw<T2>(k, c + 3)] = make_float2(yr.w, yi.w);
   }
   __syncthreads();
 
-  // the inverse in chunks of R valid rows: H first on the stacked Y, then W
-  float* oplane = out + ((int64_t)b * cout + o) * oh * ow;
-  const int kz = 2 * nb1;
-  for (int r0 = 0; r0 < v1; r0 += R) {
-    const int nrow = min(R, v1 - r0), nq = v3_own_rows(nrow, rg);
-    float zr[RI][CG][4], zi[RI][CG][4];
-    v3_zero<RI, CG>(zr);
-    v3_zero<RI, CG>(zi);
-    for (int k0 = 0; k0 < kz; k0 += KC) {
-      const int kn = min(KC, kz - k0);
-      v3_stage_rows<KC>(s_c1, cz1 + (int64_t)r0 * kz, kz, nrow, k0, kn);
-      v3_stage_rows<KC>(s_c2, cz2 + (int64_t)r0 * kz, kz, nrow, k0, kn);
-      __syncthreads();
-      v3_panel_fma<RI, CG>(zr, s_c1 + rg * KC, KC, nq, s_y + (size_t)k0 * T2, kn);
-      v3_panel_fma<RI, CG>(zi, s_c2 + rg * KC, KC, nq, s_y + (size_t)k0 * T2, kn);
-      __syncthreads();
+  // Folded H inverse. out = Re(IDFT_W(z)), z = C Y the one-sided H inverse,
+  // needs only the W-Hermitian half h[n, l] = (z[n, l] + conj z[n, -l]) / 2,
+  // l in [0, T2/2], and T1 h[., l] is the T1-point inverse DFT of S with
+  // S[k] = Y[k, l], S[-k] = conj Y[k, -l] (0 < k < T1/2) and the mean of the
+  // two at k = 0 and T1/2: one transform per column pair (l, T2 - l), and one
+  // for the real columns 0 and T2/2 together as S_0 + i S_T2/2. Each pass of G
+  // pairs reads its pairs' columns, then writes the V1 valid rows of h back
+  // into them (folded_h); the 1/T1 is left for the output.
+  for (int c0 = 0; c0 < N2; c0 += G) {
+    for (int t = tid; t < G * B1; t += kThreads) {
+      const int g = t % G, j2 = t / G, l = c0 + g, m = l == 0 ? N2 : T2 - l;
+      float2 v[A1];
+#pragma unroll
+      for (int j1 = 0; j1 < A1; ++j1) {
+        const int k = j1 * B1 + j2, kk = k <= N1 ? k : T1 - k;
+        const bool mid = k == 0 || k == N1;
+        if (l == 0) {  // S_0 + i S_T2/2; both S are Hermitian
+          const float2 a = s_p[sw<T2>(kk, 0)], e = s_p[sw<T2>(kk, N2)];
+          v[j1] = mid ? make_float2(a.x, e.x)
+                      : k < N1 ? make_float2(a.x - e.y, a.y + e.x)
+                               : make_float2(a.x + e.y, e.x - a.y);
+        } else if (mid) {
+          const float2 a = s_p[sw<T2>(kk, l)], e = s_p[sw<T2>(kk, m)];
+          v[j1] = make_float2(0.5f * (a.x + e.x), 0.5f * (a.y - e.y));
+        } else if (k < N1) {
+          v[j1] = s_p[sw<T2>(kk, l)];
+        } else {
+          const float2 e = s_p[sw<T2>(kk, m)];
+          v[j1] = make_float2(e.x, -e.y);
+        }
+      }
+      short_dft<A1, true>(v, s.ra1);
+#pragma unroll
+      for (int m1 = 0; m1 < A1; ++m1)
+        s.stage[(m1 * B1 + j2) * G + g] =
+            m1 == 0 ? v[0] : cmulw<true>(v[m1], s.tw1[m1 * B1 + j2]);
     }
+    __syncthreads();
+    for (int t = tid; t < G * A1; t += kThreads) {
+      const int g = t % G, m1 = t / G, l = c0 + g, m = l == 0 ? N2 : T2 - l;
+      float2 u[B1];
 #pragma unroll
-    for (int q = 0; q < RI; ++q) {
-      if (q < nq) {
-        float* row = s_z + (rg + q * kV3RowGroups) * 2 * T2 + 4 * cl;
+      for (int j2 = 0; j2 < B1; ++j2) u[j2] = s.stage[(m1 * B1 + j2) * G + g];
+      short_dft<B1, true>(u, s.rb1);
 #pragma unroll
-        for (int gg = 0; gg < CG; ++gg) {
-          *reinterpret_cast<float4*>(row + 128 * gg) = v3_vec(zr[q][gg]);
-          *reinterpret_cast<float4*>(row + T2 + 128 * gg) = v3_vec(zi[q][gg]);
+      for (int m2 = 0; m2 < B1; ++m2) {
+        const int n = m1 + A1 * m2;
+        if (n < v1) s_p[n < NB1 ? sw<T2>(n, l) : sw<T2>(n - NB1, m)] = u[m2];
+      }
+    }
+    __syncthreads();  // the staging is read before the next pass overwrites it
+  }
+
+  // W c2r of the V1 rows of h: rows 2p and 2p + 1 as one complex T2-point
+  // inverse of c = E_2p + i E_2p+1, E the Hermitian extension of a row, whose
+  // real and imaginary parts are the two output rows; R row pairs a chunk
+  // through the staging, held at [(m1 B2 + j2) R + (p ^ m1)] so that both
+  // steps read and write it without bank conflicts
+  const float scale = 1.f / (float)(T1 * T2);
+  float* oplane = out + ((int64_t)b * cout + o) * oh * ow;
+  const int npair = (v1 + 1) / 2;
+  for (int p0 = 0; p0 < npair; p0 += R) {
+    for (int t = tid; t < R * B2; t += kThreads) {
+      const int pr = t % R, j2 = t / R, r = 2 * (p0 + pr);
+      if (r >= v1) continue;
+      const bool two = r + 1 < v1;
+      float2 v[A2];
+#pragma unroll
+      for (int j1 = 0; j1 < A2; ++j1) {
+        const int c = j1 * B2 + j2, l = c <= N2 ? c : T2 - c;
+        const float2 e0 = folded_h<T1, T2>(s_p, r, l);
+        const float2 e1 = two ? folded_h<T1, T2>(s_p, r + 1, l) : make_float2(0.f, 0.f);
+        v[j1] = c <= N2 ? make_float2(e0.x - e1.y, e0.y + e1.x)   // E0 + i E1
+                        : make_float2(e0.x + e1.y, e1.x - e0.y);  // conj(E0) + i conj(E1)
+      }
+      short_dft<A2, true>(v, s.ra2);
+#pragma unroll
+      for (int m1 = 0; m1 < A2; ++m1)
+        s.stage[(m1 * B2 + j2) * R + (pr ^ m1)] =
+            m1 == 0 ? v[0] : cmulw<true>(v[m1], s.tw2[m1 * B2 + j2]);
+    }
+    __syncthreads();
+    for (int t = tid; t < R * A2; t += kThreads) {
+      const int m1 = t % A2, pr = t / A2, r = 2 * (p0 + pr), oy = h0 + r;
+      if (r >= v1 || oy >= oh) continue;
+      float2 u[B2];
+#pragma unroll
+      for (int j2 = 0; j2 < B2; ++j2) u[j2] = s.stage[(m1 * B2 + j2) * R + (pr ^ m1)];
+      short_dft<B2, true>(u, s.rb2);
+      float* row = oplane + (int64_t)oy * ow;
+      const bool two = r + 1 < v1 && oy + 1 < oh;
+#pragma unroll
+      for (int m2 = 0; m2 < B2; ++m2) {
+        const int z = m1 + A2 * m2, ox = w0 + z;
+        if (z < v2 && ox < ow) {
+          row[ox] = u[m2].x * scale;
+          if (two) row[ow + ox] = u[m2].y * scale;
         }
       }
     }
     __syncthreads();
-
-    // W inverse of the chunk, real output: [zr | zi] (R x 2 T2) . u2 (2 T2 x T2)
-    float acc[RI][CG][4];
-    v3_zero<RI, CG>(acc);
-    for (int k0 = 0; k0 < 2 * T2; k0 += KC) {
-      v3_stage_dense<T2>(s_u, u2 + (int64_t)k0 * T2, KC);
-      __syncthreads();
-      v3_panel_fma<RI, CG>(acc, s_z + rg * 2 * T2 + k0, 2 * T2, nq, s_u, KC);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int q = 0; q < RI; ++q) {
-      const int oy = h0 + r0 + rg + q * kV3RowGroups;
-      if (q < nq && oy < oh) {
-#pragma unroll
-        for (int gg = 0; gg < CG; ++gg)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int z = 128 * gg + 4 * cl + c, ox = w0 + z;
-            if (z < v2 && ox < ow) oplane[(int64_t)oy * ow + ox] = acc[q][gg][c];
-          }
-      }
-    }
   }
 }
 
-template <int T2>
-cudaError_t launch_v3(const float* x, const float* ks, const float* f2, const float* wr,
-                      const float* wi, const float* u2, const float* cz1, const float* cz2,
-                      float* d, float* out, int batch, int cin, int cout, int groups, int hp,
-                      int wp, int t1, int v1, int v2, int nt2, int tile0, int ntile, int oh,
-                      int ow, cudaStream_t stream) {
-  using C = V3Cfg<T2>;
-  const int nb1 = t1 / 2 + 1;
-  const size_t smem = C::smem(nb1);
-  if (t1 < C::kKC || t1 % C::kKC || v1 < 1 || v1 > t1 || v2 < 1 || v2 > T2 || nt2 < 1 ||
-      ntile < 1 || ntile > 65535 || tile0 < 0 || groups < 1 || cin % groups ||
-      cout % groups || smem > (size_t)kMaxSmem)
+template <int T1, int T2>
+cudaError_t launch_v3(const float* x, const float* ks, const float2* fac, float* d, float* out,
+                      int batch, int cin, int cout, int groups, int hp, int wp, int v1, int v2,
+                      int nt2, int tile0, int ntile, int oh, int ow, cudaStream_t stream) {
+  constexpr size_t smem = B2Plan<T1, T2>::kSmemV3;
+  if (v1 < 1 || v1 > T1 || v2 < 1 || v2 > T2 || nt2 < 1 || ntile < 1 || ntile > 65535 ||
+      tile0 < 0 || groups < 1 || cin % groups || cout % groups)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fused2d_v3_spectra<T2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused2d_v3_spectra<T1, T2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      fused2d_v3_mac_inverse<T2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused2d_v3_mac_inverse<T1, T2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
 
-  fused2d_v3_spectra<T2><<<dim3(batch * cin, ntile), kThreads, smem, stream>>>(
-      x, f2, wr, wi, d, hp, wp, t1, nb1, v1, v2, nt2, tile0);
+  fused2d_v3_spectra<T1, T2><<<dim3(batch * cin, ntile), kThreads, smem, stream>>>(
+      x, fac, d, hp, wp, v1, v2, nt2, tile0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fused2d_v3_mac_inverse<T2><<<dim3(batch * cout, ntile), kThreads, smem, stream>>>(
-      d, ks, cz1, cz2, u2, out, batch, cin, cout, groups, nb1, v1, v2, nt2, tile0, oh, ow);
+  fused2d_v3_mac_inverse<T1, T2><<<dim3(batch * cout, ntile), kThreads, smem, stream>>>(
+      d, ks, fac, out, batch, cin, cout, groups, v1, v2, nt2, tile0, oh, ow);
   return cudaGetLastError();
 }
 
@@ -867,51 +788,38 @@ extern "C" long long fused2d_smem_bytes(int t1, int t2) {
   return (long long)smem_bytes(t1, t2);
 }
 
-// Kernel B5 on tiles [tile0, tile0 + ntile) of one convolution. x (B, Cin,
-// hp, wp) f32; ks (Cout, Cin/groups, 2, t1/2+1, t2) the conjugated spectra as
-// (re, im) planes; f2 (t1 + 2, t1); wr, wi (t2, t2); u2 (2 t2, t2); cz1, cz2
-// (v1, t1 + 2); d scratch (ntile, B, Cin, 2, t1/2+1, t2); out (B, Cout, oh,
-// ow) f32, all float32. Returns cudaGetLastError() after the two launches.
-extern "C" int fused2d_v3_forward(const void* x, const void* ks, const void* f2, const void* wr,
-                                  const void* wi, const void* u2, const void* cz1,
-                                  const void* cz2, void* d, void* out, int batch, int cin,
-                                  int cout, int groups, int hp, int wp, int t1, int t2, int v1,
-                                  int v2, int nt2, int tile0, int ntile, int oh, int ow,
-                                  void* stream) {
+// Kernel B5 on tiles [tile0, tile0 + ntile) of one convolution: arguments as
+// fused2d_forward's, but ks (Cout, Cin/groups, 2, t1/2+1, t2) float32, the
+// conjugated spectra as (re, im) planes, and d scratch (ntile, B, Cin, 2,
+// t1/2+1, t2) float32. Returns cudaGetLastError() after the two launches.
+extern "C" int fused2d_v3_forward(const void* x, const void* ks, const void* fac, void* d,
+                                  void* out, int batch, int cin, int cout, int groups, int hp,
+                                  int wp, int t1, int t2, int v1, int v2, int nt2, int tile0,
+                                  int ntile, int oh, int ow, void* stream) {
   const auto* xf = static_cast<const float*>(x);
   const auto* ksf = static_cast<const float*>(ks);
-  const auto* f2f = static_cast<const float*>(f2);
-  const auto* wrf = static_cast<const float*>(wr);
-  const auto* wif = static_cast<const float*>(wi);
-  const auto* u2f = static_cast<const float*>(u2);
-  const auto* c1f = static_cast<const float*>(cz1);
-  const auto* c2f = static_cast<const float*>(cz2);
+  const auto* fc = static_cast<const float2*>(fac);
   auto* df = static_cast<float*>(d);
   auto* of = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (t2) {
-    case 128:
-      return launch_v3<128>(xf, ksf, f2f, wrf, wif, u2f, c1f, c2f, df, of, batch, cin, cout,
-                            groups, hp, wp, t1, v1, v2, nt2, tile0, ntile, oh, ow, s);
-    case 256:
-      return launch_v3<256>(xf, ksf, f2f, wrf, wif, u2f, c1f, c2f, df, of, batch, cin, cout,
-                            groups, hp, wp, t1, v1, v2, nt2, tile0, ntile, oh, ow, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define FUSED2D_V3_LAUNCH(T1, T2)                                                             \
+  if (t1 == T1 && t2 == T2)                                                                   \
+    return launch_v3<T1, T2>(xf, ksf, fc, df, of, batch, cin, cout, groups, hp, wp, v1, v2,    \
+                             nt2, tile0, ntile, oh, ow, s);
+  FUSED2D_V3_LAUNCH(128, 128)
+  FUSED2D_V3_LAUNCH(256, 128)
+  FUSED2D_V3_LAUNCH(384, 128)
+  FUSED2D_V3_LAUNCH(128, 256)
+#undef FUSED2D_V3_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 // B5's dynamic shared memory of one block of either kernel for a (t1, t2)
-// tile, or -1 for a T2 it does not take (fused2d.py: _smem_bytes_v3).
+// tile: B2's without the packed column. -1 for a T2 it does not take
+// (fused2d.py: _smem_bytes_v3).
 extern "C" long long fused2d_v3_smem_bytes(int t1, int t2) {
-  switch (t2) {
-    case 128:
-      return (long long)V3Cfg<128>::smem(t1 / 2 + 1);
-    case 256:
-      return (long long)V3Cfg<256>::smem(t1 / 2 + 1);
-    default:
-      return -1;
-  }
+  if ((t2 != 128 && t2 != 256) || t1 < 128 || t1 % 128) return -1;
+  return (long long)smem_bytes(t1, t2, false);
 }
 
 // The CUDA runtime's message for an error code returned above.

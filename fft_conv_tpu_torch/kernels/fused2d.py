@@ -13,9 +13,10 @@ the ``FFTCONV_2D_KERNEL`` environment variable, read at import) as in the
 JAX package: "v2" (the default) runs kernel B2, which computes every DFT
 axis as a factored (four-step) transform T = A * B, short DFTs with a
 twiddle between them, in natural bin order; "v3" runs kernel B5
-(``csrc/fused2d.cu``, ``fused2d_v3_forward``), dense DFT products where re
-and im are stacked into the rows of real products and the inverse runs H
-first on the stacked [yr; yi].
+(``csrc/fused2d.cu``, ``fused2d_v3_forward``), the same factored transforms
+on the v3 schedule: H first in the forward (columns packed in pairs), and
+an H-first inverse folded into one T1-point transform per W column pair
+(``_v3_inverse``), then the W c2r on row pairs.
 
 On a CUDA tensor ``_fused2d_forward`` launches the chosen kernel; on a CPU
 tensor it runs its plain version (``_fused2d_forward_reference`` or
@@ -117,16 +118,12 @@ def _smem_bytes(nb1: int, t2: int) -> int:
 
 def _smem_bytes_v3(nb1: int, t2: int) -> int:
     """Shared memory of one block of B5 (either phase), as csrc/fused2d.cu's
-    ``V3Cfg`` computes it: the stacked 2·NB1 x T2 real matrix plus the
-    larger phase's panels (phase 1: an H-forward row panel and a window
-    panel, or a W-forward panel pair; phase 2: the R x 2·T2 [zr | zi] chunk
-    and the larger of the H-inverse row panels and a W-inverse panel). The
+    ``smem_bytes(t1, t2, false)`` computes it: B2's (``_smem_bytes``)
+    without the packed DC/Nyquist column, which B5 does not use. The
     library's ``fused2d_v3_smem_bytes`` exports the kernel's own figure; a
     card test holds the two equal."""
-    kc, rows, chunk = 4096 // t2, 8 * 1024 // t2, 16
-    phase1 = max(rows * kc + kc * t2, 2 * kc * t2)
-    phase2 = chunk * 2 * t2 + max(2 * chunk * kc, kc * t2)
-    return 4 * (2 * nb1 * t2 + max(phase1, phase2))
+    t1 = 2 * (nb1 - 1)
+    return _smem_bytes(nb1, t2) - (8 * t1 if t1 <= 384 else 0)
 
 
 def tile_plan_2d(k1: int, k2: int, cin_g: int, cout: int):
@@ -255,37 +252,74 @@ def _h_irfft(er: torch.Tensor, ei: torch.Tensor, v1: int) -> torch.Tensor:
 
 @lru_cache(maxsize=None)
 def _mats_2d_v3(t1: int, nb1: int, t2: int, v1: int, dtype=np.float32):
-    """B5's real factors, the JAX package's ``_mats_2d_v3`` without its
-    NB1P row padding (which only keeps the TPU's 8-row sublanes aligned and
-    multiplies zeros), as ``dtype`` numpy arrays:
+    """The JAX package's dense v3 factors without its NB1P row padding
+    (which only keeps the TPU's 8-row sublanes aligned and multiplies
+    zeros), as ``dtype`` numpy arrays:
       f2 (2·NB1, T1)     [fr; fi], the one-sided H DFT on stacked rows
       wr, wi (T2, T2)    the W DFT
       ur, ui (T2, T2)    the inverse W DFT (1/T2 folded in)
       cz1 (V1, 2·NB1)    [ cr | ci]: Re of the H inverse on [yr; yi]
       cz2 (V1, 2·NB1)    [-ci | cr]: Im of the H inverse on [yr; yi]
-    so that the valid rows of a tile are Re((C̄ Y) U) = cz1·Y·ur - cz2·Y·ui,
-    which equals v2's cr·Re(Y U) + ci·Im(Y U): the transforms commute."""
+    so that the valid rows of a tile are Re((C̄ Y) U) = cz1·Y·ur - cz2·Y·ui.
+    On no path: the oracle of the float64 tests of ``_v3_forward`` and
+    ``_v3_inverse``, which B5 and its plain version run instead."""
     fr, fi, wr, wi, ur, ui, cr, ci = _mats_2d(t1, nb1, t2, v1, np.float64)
     out = (np.concatenate([fr, fi]), wr, wi, ur, ui,
            np.concatenate([cr, ci], axis=1), np.concatenate([-ci, cr], axis=1))
     return tuple(np.ascontiguousarray(m, dtype) for m in out)
 
 
-@lru_cache(maxsize=None)
-def _torch_mats_v3(t1: int, nb1: int, t2: int, v1: int, dtype: torch.dtype,
-                   device: torch.device):
-    """``_mats_2d_v3`` as torch tensors of ``dtype`` on ``device``."""
-    npdt = np.float64 if dtype == torch.float64 else np.float32
-    return tuple(torch.from_numpy(m).to(device) for m in _mats_2d_v3(t1, nb1, t2, v1, npdt))
+def _v3_forward(a: torch.Tensor):
+    """B5's tile spectra of real windows (..., T1, T2), H first: columns q
+    and q + T2/2 packed as one complex column Z, its T1-point DFT, bins k
+    and -k split into the two columns' one-sided spectra (X_q = (Z[k] +
+    conj Z[-k]) / 2, X_q+T2/2 = (Z[k] - conj Z[-k]) / 2i), then the W DFT
+    of the NB1 rows. Returns (dr, di) (..., NB1, T2): B2's D."""
+    t1, t2 = a.shape[-2:]
+    nb1, n2 = t1 // 2 + 1, t2 // 2
+    zr, zi = _dft_last(a[..., :n2].transpose(-1, -2), a[..., n2:].transpose(-1, -2), False)
+    neg = -torch.arange(nb1, device=a.device) % t1
+    ar, ai, br, bi = zr[..., :nb1], zi[..., :nb1], zr[..., neg], zi[..., neg]
+    hr = torch.cat([ar + br, ai + bi], dim=-2) / 2  # (..., T2, NB1): columns q, then q + T2/2
+    hi = torch.cat([ai - bi, br - ar], dim=-2) / 2
+    return _dft_last(hr.transpose(-1, -2), hi.transpose(-1, -2), False)
 
 
-@lru_cache(maxsize=None)
-def _device_mats_v3(t1: int, nb1: int, t2: int, v1: int, device: torch.device):
-    """B5's float32 factors on ``device``: f2, wr, wi, u2 = [ur; -ui]
-    (2·T2, T2), so that the W inverse of [zr | zi] is one real product, and
-    cz1, cz2."""
-    f2, wr, wi, ur, ui, cz1, cz2 = _torch_mats_v3(t1, nb1, t2, v1, torch.float32, device)
-    return f2, wr, wi, torch.cat([ur, -ui]).contiguous(), cz1, cz2
+def _v3_inverse(yr: torch.Tensor, yi: torch.Tensor, v1: int) -> torch.Tensor:
+    """B5's inverse of the tile spectra (..., NB1, T2): the V1 valid rows
+    (..., V1, T2) of the tile, real. H first and folded: the output is
+    Re(IDFT_W(z)) for z = C Y (C the one-sided H inverse), which needs only
+    the W-Hermitian half h[n, l] = (z[n, l] + conj z[n, -l]) / 2 for l in
+    [0, T2/2], and T1·h[., l] is the T1-point inverse DFT of S with S[k] =
+    Y[k, l], S[-k] = conj Y[k, -l] (0 < k < T1/2) and the mean of the two
+    at k = 0 and T1/2. The real columns 0 and T2/2 share one transform as
+    S_0 + i S_T2/2. Then the W c2r of the rows of h: rows 2p and 2p + 1 as
+    one complex inverse of their Hermitian extensions."""
+    nb1, t2 = yr.shape[-2:]
+    t1, n1, n2 = 2 * (nb1 - 1), nb1 - 1, t2 // 2
+    cols = torch.arange(n2 + 1, device=yr.device)
+    ar, ai = yr[..., cols], yi[..., cols]  # (..., NB1, T2/2 + 1): columns l
+    br, bi = yr[..., -cols % t2], yi[..., -cols % t2]  # columns -l
+    mr, mi = (ar + br) / 2, (ai - bi) / 2  # S at k = 0 and T1/2
+    sr = torch.cat([mr[..., :1, :], ar[..., 1:n1, :], mr[..., n1:, :],
+                    br[..., 1:n1, :].flip(-2)], dim=-2)  # (..., T1, T2/2 + 1)
+    si = torch.cat([mi[..., :1, :], ai[..., 1:n1, :], mi[..., n1:, :],
+                    -bi[..., 1:n1, :].flip(-2)], dim=-2)
+    pr = torch.cat([sr[..., :1] - si[..., n2:], sr[..., 1:n2]], dim=-1)  # (..., T1, T2/2)
+    pi = torch.cat([si[..., :1] + sr[..., n2:], si[..., 1:n2]], dim=-1)
+    hr, hi = _dft_last(pr.transpose(-1, -2), pi.transpose(-1, -2), True)  # (..., T2/2, T1)
+    hr, hi = hr[..., :v1] / t1, hi[..., :v1] / t1
+    zero = torch.zeros_like(hr[..., :1, :])
+    hr = torch.cat([hr, hi[..., :1, :]], dim=-2).transpose(-1, -2)  # (..., V1, T2/2 + 1)
+    hi = torch.cat([zero, hi[..., 1:, :], zero], dim=-2).transpose(-1, -2)
+    if v1 % 2:
+        hr, hi = TF.pad(hr, (0, 0, 0, 1)), TF.pad(hi, (0, 0, 0, 1))
+    er = torch.cat([hr, hr[..., 1:n2].flip(-1)], dim=-1)  # Hermitian extensions (..., ·, T2)
+    ei = torch.cat([hi, -hi[..., 1:n2].flip(-1)], dim=-1)
+    outr, outi = _dft_last(er[..., 0::2, :] - ei[..., 1::2, :],
+                           ei[..., 0::2, :] + er[..., 1::2, :], True)
+    out = torch.stack([outr, outi], dim=-2).flatten(-3, -2)
+    return out[..., :v1, :] / t2
 
 
 def kernel_spectra_2d(kernel: torch.Tensor, t1: int, nb1: int, t2: int) -> torch.Tensor:
@@ -389,25 +423,15 @@ def _fused2d_forward_reference_v3(
     x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
     spectra: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """B5's plain PyTorch version: the v3 schedule step by step, float64 for
-    a float64 signal and float32 otherwise. One stacked H product gives
-    [hr; hi]; two stacked W products are recombined into dr and di; the MAC
-    is B2's; the inverse runs H first on the stacked [yr; yi] (zr = cz1·Y,
-    zi = cz2·Y), then out = zr·ur - zi·ui on the V2 valid columns.
-    Arguments and result as ``_fused2d_forward_reference``."""
+    """B5's plain PyTorch version: the v3 schedule with B5's factors, float64
+    for a float64 signal and float32 otherwise. The H-first forward on
+    packed column pairs, then W (``_v3_forward``); B2's MAC; the folded
+    H-first inverse and the W c2r on row pairs (``_v3_inverse``), every DFT
+    through ``_dft_last`` in split re/im arithmetic. Arguments and result as
+    ``_fused2d_forward_reference``."""
     plan, dt, a = _reference_tiles(x_padded, kernel)
-    t1, v1, nb1, t2, _ = plan
-    f2, wr, wi, ur, ui, cz1, cz2 = _torch_mats_v3(t1, nb1, t2, v1, dt, a.device)
-
-    b2 = f2 @ a  # (B, Cin, nt1, nt2, 2·NB1, T2): [hr; hi]
-    d1, d2 = b2 @ wr, b2 @ wi  # [hr·wr; hi·wr], [hr·wi; hi·wi]
-    dr = d1[..., :nb1, :] - d2[..., nb1:, :]
-    di = d2[..., :nb1, :] + d1[..., nb1:, :]
-    yr, yi = _reference_mac(dr, di, kernel, groups, plan, dt, spectra)
-
-    y2 = torch.cat([yr, yi], dim=-2)  # (B, Cout, nt1, nt2, 2·NB1, T2)
-    zr, zi = cz1 @ y2, cz2 @ y2  # (B, Cout, nt1, nt2, V1, T2)
-    return _reference_stitch(zr @ ur - zi @ ui, x_padded, kernel, plan)
+    yr, yi = _reference_mac(*_v3_forward(a), kernel, groups, plan, dt, spectra)
+    return _reference_stitch(_v3_inverse(yr, yi, plan[1]), x_padded, kernel, plan)
 
 
 def _library() -> ctypes.CDLL:
@@ -420,7 +444,7 @@ def _library() -> ctypes.CDLL:
         lib.fused2d_error_string.restype = ctypes.c_char_p
         lib.fused2d_smem_bytes.argtypes = [i, i]
         lib.fused2d_smem_bytes.restype = ctypes.c_longlong
-        lib.fused2d_v3_forward.argtypes = [p] * 10 + [i] * 15 + [p]
+        lib.fused2d_v3_forward.argtypes = [p] * 5 + [i] * 15 + [p]
         lib.fused2d_v3_forward.restype = i
         lib.fused2d_v3_smem_bytes.argtypes = [i, i]
         lib.fused2d_v3_smem_bytes.restype = ctypes.c_longlong
@@ -521,7 +545,7 @@ def _launch_fused2d_v3(
     t1, v1, nb1, t2, v2 = plan
 
     lib = _library()
-    mats = _device_mats_v3(t1, nb1, t2, v1, x_padded.device)
+    fac = _device_factors(t1, t2, x_padded.device)
     out = torch.empty((b, cout, oh, ow), device=x_padded.device, dtype=torch.float32)
     # the stacked tile spectra [dr; di], as many bytes as B2's complex D
     d = torch.empty((chunk, b, cin, 2, nb1, t2), device=x_padded.device, dtype=torch.float32)
@@ -529,8 +553,8 @@ def _launch_fused2d_v3(
     with torch.cuda.device(x_padded.device):
         for tile0 in range(0, ntiles, chunk):
             err = lib.fused2d_v3_forward(
-                x_padded.data_ptr(), spectra.data_ptr(), *(m.data_ptr() for m in mats),
-                d.data_ptr(), out.data_ptr(),
+                x_padded.data_ptr(), spectra.data_ptr(), fac.data_ptr(), d.data_ptr(),
+                out.data_ptr(),
                 b, cin, cout, groups, hp, wp, t1, t2, v1, v2, nt2,
                 tile0, min(chunk, ntiles - tile0), oh, ow, stream,
             )

@@ -1,12 +1,12 @@
 """Dense DFT matrices, the port's own numpy copy of the matrix functions in
 ``fft_conv_tpu/ops/spectral.py``.
 
-The fused 2D kernel B5 (``kernels/fused2d.py``, the "v3" schedule) runs
-its transforms as dense matrix products over tile axes of 128 to 384
-samples, so it needs the one-sided real DFT, its Hermitian inverse and the
-square complex DFT as split re/im matrices; the 2D kernel spectra are
-computed with them, and B2's factored transforms are tested against them. They are float32 by default, as in the JAX package;
-``dtype=np.float64`` gives the same matrices in float64 for an oracle.
+The one-sided real DFT, its Hermitian inverse and the square complex DFT
+as split re/im matrices: the fused 2D and 3D kernels' spectra are computed
+with them, B3's and B4's dense H and D stages take theirs from here, and
+the factored transforms of B2 and B5 are tested against them. They are
+float32 by default, as in the JAX package; ``dtype=np.float64`` gives the
+same matrices in float64 for an oracle.
 
 The DFT-matmul convolution path of that module, and the overlap-save
 tiling of ``fft_conv_tpu/ops/tiled.py``, are not ported yet.

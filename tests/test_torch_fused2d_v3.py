@@ -65,6 +65,56 @@ def test_mats_v3_match_jax_without_the_padded_rows(t1, t2, v1):
     assert f2_64.dtype == np.float64 and np.abs(f2_64 - f2).max() < 1e-6
 
 
+# every plan tile_plan_2d admits, each at V1 = T1 - 15 and T1 - 33 (odd, so
+# the last row pair of the W c2r has one row)
+PLANS = [(128, 128), (256, 128), (384, 128), (128, 256)]
+
+
+@pytest.mark.parametrize("t1,t2,v1", [(t1, t2, t1 - c) for t1, t2 in PLANS for c in (15, 33)])
+def test_folded_inverse_equals_dense_v3_inverse_in_float64(t1, t2, v1):
+    """B5's folded H-first inverse (the column-pair spectra S, one T1-point
+    inverse each on the V1 rows, then the W c2r on row pairs) equals the
+    dense v3 inverse cz1·Y·ur - cz2·Y·ui for a Y that is not Hermitian."""
+    nb1 = t1 // 2 + 1
+    yr, yi = np.random.default_rng(t1 + t2 + v1).standard_normal((2, 2, nb1, t2))
+    _, _, _, ur, ui, cz1, cz2 = fused2d._mats_2d_v3(t1, nb1, t2, v1, np.float64)
+    y2 = np.concatenate([yr, yi], axis=-2)
+    want = (cz1 @ y2) @ ur - (cz2 @ y2) @ ui
+    got = fused2d._v3_inverse(torch.from_numpy(yr), torch.from_numpy(yi), v1)
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("t1,t2", PLANS)
+def test_packed_column_forward_equals_dense_v3_forward_in_float64(t1, t2):
+    """B5's H-first forward on packed column pairs equals the dense v3
+    forward: [hr; hi] = f2·a, dr = hr·wr - hi·wi, di = hr·wi + hi·wr."""
+    nb1 = t1 // 2 + 1
+    a = np.random.default_rng(t1 * t2).standard_normal((2, t1, t2))
+    f2, wr, wi = fused2d._mats_2d_v3(t1, nb1, t2, 1, np.float64)[:3]
+    b2 = f2 @ a
+    hr, hi = b2[:, :nb1], b2[:, nb1:]
+    want = hr @ wr - hi @ wi, hr @ wi + hi @ wr
+    got = fused2d._v3_forward(torch.from_numpy(a))
+    scale = max(np.abs(m).max() for m in want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        assert np.abs(g.numpy() - w).max() <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("shape,k,groups", [
+    ((2, 3, 140, 170), (4, 3, 16, 16), 1),
+    ((1, 4, 150, 160), (6, 2, 9, 7), 2),     # groups
+    ((1, 2, 140, 300), (2, 2, 12, 100), 1),  # T2 = 256
+])
+def test_plain_v3_matches_plain_v2(shape, k, groups):
+    """The two schedules' plain versions agree in float32 on the same inputs."""
+    x, w = (torch.from_numpy(a) for a in _arrays(sum(k) + groups, shape, k))
+    y = fused2d._fused2d_forward_reference_v3(x, w, groups)
+    assert y.dtype == torch.float32
+    _assert_close_scaled(y.numpy(), fused2d._fused2d_forward_reference(x, w, groups).numpy())
+
+
 @pytest.mark.parametrize("b,cin,cout,h,w,k1,k2,groups,stride,dilation,padding,mode", PARITY)
 def test_plain_v3_matches_jax_fused_v3(v3, b, cin, cout, h, w, k1, k2, groups, stride,
                                        dilation, padding, mode):
@@ -170,9 +220,9 @@ def test_v3_shared_memory_fits_where_v2_does(t2):
         assert ((fused2d._smem_bytes(nb1, t2) <= fused2d._SMEM_LIMIT)
                 == (fused2d._smem_bytes_v3(nb1, t2) <= fused2d._SMEM_LIMIT)), t1
     # the largest plan: T1 = 384 at T2 = 128, and T1 = 128 at T2 = 256
-    assert fused2d._smem_bytes_v3(193, 128) == 230400
-    assert fused2d._smem_bytes_v3(65, 256) == 182272
-    assert fused2d._smem_bytes_v3(65, 128) == 99328
+    assert fused2d._smem_bytes_v3(193, 128) == 226816
+    assert fused2d._smem_bytes_v3(65, 256) == 169408
+    assert fused2d._smem_bytes_v3(65, 128) == 101760
 
 
 def test_v3_kernel_wrapper_takes_only_cuda_tensors():
