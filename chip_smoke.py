@@ -18,7 +18,17 @@ row through a serving plan (``ops.plan_fft_conv``,
 ``ops.plan_fft_conv_transpose``) with its kernel spectra baked. It shows
 through the launch counters that each path ran its kernels, and times each
 kernel beside its plain version, the composed path, one library call and the
-least time the card could take.
+least time the card could take (the counts of ``fft_conv_tpu_torch.kernels.costs``).
+Then three phases drive the modules around the kernels: ``streaming`` (each
+1D row's signal fed to ``ops.streaming_conv1d_step`` in 8 frames of 4096
+samples, a ragged split, dilation 2 and groups 2; one B1 launch per chunk,
+held to the one-shot call; the step's and the stream's times), ``harness``
+(``bench.harness`` and ``bench.profiling`` on the 1D K=1024 row:
+``benchmark_fori`` within 10% of the host clock over back-to-back graph
+replays, the allocator's peak, ``cost_analysis`` holding B1's own count and
+the per-call spectra, ``roofline``, a trace that names B1's kernels) and
+``checkpoint`` (``utils.checkpoint`` round trips on the card, bit for bit,
+and a ``torch.nn.ConvTranspose1d`` state dict in ``FFTConvTranspose1d``).
 
 Every phase prints one line; any failed check raises and the script exits
 non-zero without a result. The last line is
@@ -47,11 +57,13 @@ BENCH_SHAPES_3D = [(2, 8, 8, 64, 64, 64, 8)]
 BENCH_SHAPES_3D_TAP = [(2, 8, 8, 64, 64, 64, 10)]
 # the transposed 3D calls: the benchmark row (B3, two W blocks) and K=10 (B4)
 TRANSPOSED_3D_K = (8, 10)
-# NVIDIA's data sheet for the H100 SXM: HBM rate and FP32 rate outside the
-# tensor cores (the kernel uses FP32 FMAs only)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
 WARMUP, ITERS, GRAPH_REPS = 5, 30, 20
+# the streaming phase: each 1D row's 32768 samples as 8 frames of 4096, as a
+# server filters a long audio signal, and at K=1024 a ragged split of them
+STREAM_CHUNK, STREAM_CHUNKS = 4096, 8
+# the harness phase's witness: graph replays timed together on the host clock
+WITNESS_REPLAYS = 200
+RAGGED_CHUNKS = (1000, 5000, 26768)
 
 
 def check(ok, message):
@@ -75,472 +87,36 @@ def close_scaled(y, y_ref, what):
     return mx, mean, sigma
 
 
-def _event_ms(run, per=1):
-    """Median over ITERS of the CUDA-event time of run(), divided by per."""
+def call_ms(fn):
+    """Latency of one call as a caller sees it, host work included: the
+    median over ITERS of CUDA events around each call, after WARMUP calls.
+    At these sizes the host enqueues slower than the card computes, so this
+    is mostly host time."""
     import torch
 
+    for _ in range(WARMUP):
+        fn()
     times = []
     for _ in range(ITERS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        run()
+        fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / per)
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def call_ms(fn):
-    """Latency of one call as a caller sees it, host work included: events
-    around each call after WARMUP calls. At these sizes the host enqueues
-    slower than the card computes, so this is mostly host time."""
-    for _ in range(WARMUP):
-        fn()
-    return _event_ms(fn)
 
 
 def device_ms(fn):
     """Device time of one call: GRAPH_REPS calls captured in a CUDA graph
-    (after WARMUP eager calls, which build caches and plans), the graph
-    replayed ITERS times, the median divided by GRAPH_REPS. The replay
-    carries no host work, so this is the card's own time."""
-    import torch
+    (after warm-up eager calls, which build caches and plans), the graph
+    replayed, the median divided by GRAPH_REPS: the package's own graph
+    timer, ``bench.harness.graph_seconds``, which ``benchmark_fori`` runs.
+    The replay carries no host work, so this is the card's own time."""
+    from fft_conv_tpu_torch.bench.harness import graph_seconds
 
-    for _ in range(WARMUP):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(GRAPH_REPS):
-            fn()
-    return _event_ms(graph.replay, GRAPH_REPS)
-
-
-def _free_root(k, n):
-    """A product by the root exp(-2 pi i k / n) needs no flops when the root
-    is 1, -1, i or -i: at most a swap and a sign, which fold into the add."""
-    return 4 * k % n == 0
-
-
-@functools.lru_cache(maxsize=None)
-def _short_dft_flops(n, live, need, kernel, first=0):
-    """Flops of one n-point DFT as csrc/fused2d.cu's short_dft runs it (and
-    csrc/fused3d.cu's, for n = 8), an FMA as two: radix-2 butterflies on the
-    bit-reversed input for a power of two, the dense product for another n.
-    Inputs j >= live are zero and only the outputs first <= m < need are
-    used. kernel: the kernel's own arithmetic (every product by a root other
-    than root[0] = 1 costs 6, every add 2); else only what the outputs need:
-    no product by 1, -1 or +-i, no add with a zero, nothing that reaches no
-    used output."""
-    free = (lambda k: k == 0) if kernel else (lambda k: _free_root(k, n))
-    if n & (n - 1):  # per used output, a product per live term, an add past the first
-        terms = min(live, n)
-        return (need - first) * 2 * max(terms - 1, 0) + sum(
-            6 for m in range(first, need) for j in range(terms) if not free(m * j % n))
-    bits = n.bit_length() - 1
-    masks = [[int(format(i, f"0{bits}b")[::-1], 2) < live for i in range(n)]]
-    for s in range(1, bits):  # masks[s]: the inputs of stage s that may be nonzero
-        prev, half = masks[-1], 1 << (s - 1)
-        masks.append([prev[i] or prev[i ^ half] for i in range(n)])
-    flops, used = 0, [first <= m < need for m in range(n)]
-    for s in reversed(range(len(masks))):
-        half, lv, below = 1 << s, masks[s], [False] * n
-        for p in (i for i in range(n) if not i & half):
-            q, j = p + half, p % half
-            if not (used[p] or used[q]):
-                continue
-            below[p], below[q] = lv[p], lv[q]
-            if lv[q] and not free(j * n // (2 * half)):
-                flops += 6
-            if lv[p] and lv[q]:
-                flops += 2 * (used[p] + used[q])
-        used = below
-    return flops
-
-
-def _split(t):
-    """The four-step split (A, B) of a DFT length t as the kernels factor it
-    (B2's fused2d._SPLITS, B3's and B4's W split fused3d._W_SPLIT), else the
-    most-square power-of-two split for another power of two, else None (no
-    split: the length is counted as a dense product)."""
-    from fft_conv_tpu_torch.kernels import fourstep, fused2d, fused3d
-
-    if t in fused2d._SPLITS:
-        return fused2d._SPLITS[t]
-    if t == fused3d._TW:
-        return fused3d._W_SPLIT
-    return fourstep.split_factors(t) if t >= 4 and not t & (t - 1) else None
-
-
-@functools.lru_cache(maxsize=None)
-def _four_step_flops(t, live, need, kernel=False, first=0):
-    """Flops of one complex length-t DFT through its four-step split
-    (_split): B A-point DFTs over j1 of x[j1 B + j2], the twiddle tw[m1, j2],
-    A B-point DFTs onto the bins m1 + A m2. Inputs j >= live are zero, only
-    the bins first <= m < need are used; kernel as _short_dft_flops (the
-    kernel multiplies by the twiddle wherever m1 > 0)."""
-    a, b = _split(t)
-    want = [[first <= m1 + a * m2 < need for m2 in range(b)] for m1 in range(a)]
-    rows = sum(map(any, want))  # the A-point DFTs' outputs m1 that step 2 uses
-    flops, live2 = 0, 0
-    for j2 in range(b):
-        lv = sum(j1 * b + j2 < live for j1 in range(a))  # inputs j1 < lv are live
-        if lv == 0:
-            continue
-        live2 = j2 + 1
-        flops += _short_dft_flops(a, lv, rows, kernel)
-        flops += sum(6 for m1 in range(rows)
-                     if (m1 > 0 if kernel else not _free_root(m1 * j2, t)))
-    for m1 in range(rows):
-        used = [m2 for m2 in range(b) if want[m1][m2]]
-        if used:
-            flops += _short_dft_flops(b, live2, used[-1] + 1, kernel, used[0])
-    return flops
-
-
-def _blocks_1d(l, k, n):
-    """(V1, valid output length, [(samples inside the signal, outputs
-    stored)] per overlap-save block) of the fused 1D function at FFT size n."""
-    v1 = (n - k + 1) // 128
-    l_out = l - k + 1
-    hop = v1 * 128
-    return v1, l_out, [(min(n, l - s), min(hop, l_out - s)) for s in range(0, l_out, hop)]
-
-
-def fused1d_work(b, cin, cout, l, k, n, groups=1):
-    """(bytes, flops) the fused 1D function must move and do for one call,
-    with every DFT factored as kernel B1 factors it.
-
-    Bytes: the signal and the one-sided spectra (Cout, N1/2+1, Cin/g, 128)
-    read once, the output written once. Flops, with an FMA as two, counted
-    for only what the call needs (_short_dft_flops, _four_step_flops: no
-    product by 1, -1 or +-i, none over the zeros past the signal's edge,
-    none for outputs that are not stored). Per block, with s_in samples
-    inside the signal and s_out outputs stored: per input channel, the
-    N1-point DFT of each column pair (columns c and c + 64 as one complex
-    column, zero past s_in; all N1 bins, which the split needs), the split
-    of bins k and -k into the two columns' one-sided spectra (4 adds per
-    pair and row 0 < k1 < N1/2, the 1/2 folded into the twiddle), the
-    twiddle on the N1/2+1 rows (6 per complex product, 2 on the real row
-    N1/2) and the 128-point DFT of each row; per output channel, the MAC
-    over the group's channels (8, Cin/g x (N1/2+1) x 128), the inverse
-    128-point DFT of each row onto the stored columns, the conjugate
-    twiddle, the Hermitian extension of each stored column pair (2 per bin
-    0 < k < N1, k != N1/2) and its N1-point inverse onto the stored rows."""
-    n1 = n // 128
-    h, nh = n1 // 2 + 1, n1 // 2
-    v1, l_out, blocks = _blocks_1d(l, k, n)
-    cpg = cin // groups
-    tw = sum(0 if _free_root(k1 * j2, n) else (2 if k1 == nh else 6)
-             for k1 in range(1, h) for j2 in range(128))
-    itw = sum(0 if _free_root(k1 * j2, n) else 6 for k1 in range(1, h) for j2 in range(128))
-    flops = 0
-    for s_in, s_out in blocks:
-        live = [max(0, min(n1, -(-(s_in - c) // 128))) for c in range(64)]
-        fwd = sum(_short_dft_flops(n1, lv, n1, False) for lv in live if lv)
-        fwd += 64 * 4 * (h - 2) + tw + h * _four_step_flops(128, 128, 128)
-        pairs = [min(v1, -(-(s_out - c) // 128)) for c in range(min(64, s_out))]
-        inv = 8 * cpg * h * 128 + h * _four_step_flops(128, 128, min(128, s_out)) + itw
-        inv += sum(2 * (n1 - 2) + _short_dft_flops(n1, n1, rows, False) for rows in pairs)
-        flops += cin * fwd + cout * inv
-    nbytes = 4 * b * cin * l + 8 * cout * h * cpg * 128 + 4 * b * cout * l_out
-    return nbytes, b * flops
-
-
-def fused1d_kernel_flops(b, cin, cout, l, k, n, groups=1):
-    """The flops csrc/fused1d.cu's B1 does for one call, over whole blocks
-    with the kernel's own arithmetic (_four_step_flops(kernel=True)): per
-    input channel the N1-point DFT of the 64 column pairs, the split (8 per
-    pair and row), the twiddle (6 per bin) and the 128-point DFT of each
-    row; per output channel the MAC, the inverse row DFTs, the conjugate
-    twiddle, the Hermitian extension (2 per pair and bin), the column
-    pairs' inverse N1-point DFT (its second step only on the rows
-    m1 < min(V1, A)) and the output scale (1 per sample of the V1 rows)."""
-    n1 = n // 128
-    h = n1 // 2 + 1
-    v1, _, blocks = _blocks_1d(l, k, n)
-    a, bb = _split(n1)
-    row = _four_step_flops(128, 128, 128, True)
-    col = _four_step_flops(n1, n1, n1, True)
-    col1 = bb * (_short_dft_flops(a, a, a, True) + 6 * (a - 1))  # the inverse's step 1
-    col2 = min(v1, a) * _short_dft_flops(bb, bb, bb, True)
-    fwd = 64 * col + 8 * 64 * h + 6 * h * 128 + h * row
-    inv = (8 * (cin // groups) * h * 128 + h * row + 6 * h * 128 + 2 * 64 * n1
-           + 64 * (col1 + col2) + v1 * 128)
-    return b * len(blocks) * (cin * fwd + cout * inv)
-
-
-def fused1d_dense_work(b, cin, cout, l, k, n, groups=1):
-    """(bytes, flops) of the fused 1D function with every DFT a dense
-    product, the count B1's first, dense design was bounded with, kept as
-    its `dense_bound_ms`.
-
-    Bytes as fused1d_work. Flops, counted from the dense pipeline with an
-    FMA as two and only the N1/2+1 rows that the one-sided pipeline needs:
-    per block and input channel, stage 1 (real x complex, 4 per term),
-    twiddle (6), stage 2 (complex, 8); per block and output channel, the MAC
-    over the group's channels (8), inverse stage 1 (8), conjugate twiddle (6)
-    and inverse stage 2 on the V1 valid rows (real part, 4)."""
-    n1, n2 = n // 128, 128
-    h = n1 // 2 + 1
-    v1, l_out, blocks = _blocks_1d(l, k, n)
-    cpg = cin // groups
-    fwd = h * n1 * n2 * 4 + h * n2 * 6 + h * n2 * n2 * 8
-    inv = h * n2 * cpg * 8 + h * n2 * n2 * 8 + h * n2 * 6 + v1 * n2 * h * 4
-    flops = len(blocks) * b * (cin * fwd + cout * inv)
-    nbytes = 4 * b * cin * l + 8 * cout * h * cpg * n2 + 4 * b * cout * l_out
-    return nbytes, flops
-
-
-def fused2d_work(b, cin, cout, h, w, k, plan, groups=1):
-    """(bytes, flops) the fused 2D function must move and do for one call,
-    with every DFT factored as kernel B2 factors it.
-
-    Bytes: the signal and the spectra (Cout, Cin/g, NB1, T2) read once, the
-    output written once. Flops, with an FMA as two, counted by
-    _four_step_flops for only what the call needs: no product by 1, -1 or
-    +-i, none over the zeros past the signal's edge and none for outputs
-    that are not stored. Per tile, with rows_in x cols_in samples inside the
-    signal and rows_out x cols_out outputs stored: per input channel the W
-    DFT of the row pairs inside the signal (two real rows as one complex
-    row, zero past cols_in) and the H DFT of T2/2 complex columns (the real
-    columns 0 and T2/2 as one, zero past rows_in); per output channel the
-    MAC over the group's channels (8, Cin/g x NB1 x T2), the inverse W DFT
-    of the NB1 one-sided rows onto the columns of the stored column pairs
-    and the H irfft of those pairs (two real columns as one complex
-    transform) onto the rows_out stored rows."""
-    t1, v1, nb1, t2, v2 = plan
-    oh, ow = h - k + 1, w - k + 1
-    cpg = cin // groups
-    flops = 0
-    for h0 in range(0, oh, v1):
-        rows_in, rows_out = min(t1, h - h0), min(v1, oh - h0)
-        for w0 in range(0, ow, v2):
-            cols_in, pairs = min(t2, w - w0), -(-min(v2, ow - w0) // 2)
-            flops += cin * (-(-rows_in // 2) * _four_step_flops(t2, cols_in, t2)
-                            + t2 // 2 * _four_step_flops(t1, rows_in, t1))
-            flops += cout * (8 * cpg * nb1 * t2 + nb1 * _four_step_flops(t2, t2, 2 * pairs)
-                             + pairs * _four_step_flops(t1, t1, rows_out))
-    nbytes = 4 * b * cin * h * w + 8 * cout * cpg * nb1 * t2 + 4 * b * cout * oh * ow
-    return nbytes, b * flops
-
-
-def fused2d_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
-    """The flops csrc/fused2d.cu's B2 does for one call, over whole T1 x T2
-    tiles with the kernel's own arithmetic (_four_step_flops(kernel=True)):
-    per input channel the W DFT of the T1/2 row pairs and the H DFT of T2/2
-    columns, per output channel the MAC, the inverse W DFT of the NB1 rows
-    and the H irfft of T2/2 column pairs; plus the arithmetic of the
-    real-data packing: splitting the W bins k and -k of two packed rows (4
-    per H input), the DC/Nyquist column split (8 per bin), the Hermitian
-    extension of the inverse's column pairs (2 per H input) and the output
-    scale (1 per sample of the V1 rows)."""
-    t1, v1, nb1, t2, v2 = plan
-    tiles = -(-(h - k + 1) // v1) * -(-(w - k + 1) // v2)
-    f1, f2 = _four_step_flops(t1, t1, t1, True), _four_step_flops(t2, t2, t2, True)
-    fwd = t1 // 2 * f2 + t2 // 2 * f1 + 4 * t1 * t2 // 2 + 8 * nb1
-    inv = 8 * (cin // groups) * nb1 * t2 + nb1 * f2 + t2 // 2 * f1 + 2 * t1 * t2 // 2 + v1 * t2
-    return b * tiles * (cin * fwd + cout * inv)
-
-
-def fused2d_dense_work(b, cin, cout, h, w, k, plan, groups=1):
-    """(bytes, flops) of the fused 2D function with every DFT a dense
-    product, the count B2 was first bounded with, kept as B2's and B5's
-    `dense_bound_ms`.
-
-    Bytes as fused2d_work. Flops: the dense DFT products of the tiled
-    algorithm with an FMA as two, restricted to what the call needs: no
-    product over the zeros past the signal's edge and none for outputs that
-    are not stored. Per tile, with rows_in x cols_in samples inside the
-    signal and rows_out x cols_out outputs stored: per input channel, the
-    one-sided H DFT (real x complex, 4 per term, NB1 x rows_in x cols_in)
-    and the W DFT (complex, 8, NB1 x cols_in x T2); per output channel, the
-    MAC over the group's channels (8, Cin/g x NB1 x T2), the inverse W DFT
-    (8, NB1 x T2 x cols_out) and the H irfft (4, rows_out x NB1 x cols_out)."""
-    t1, v1, nb1, t2, v2 = plan
-    oh, ow = h - k + 1, w - k + 1
-    cpg = cin // groups
-    flops = 0
-    for h0 in range(0, oh, v1):
-        rows_in, rows_out = min(t1, h - h0), min(v1, oh - h0)
-        for w0 in range(0, ow, v2):
-            cols_in, cols_out = min(t2, w - w0), min(v2, ow - w0)
-            flops += cin * (4 * nb1 * rows_in * cols_in + 8 * nb1 * cols_in * t2)
-            flops += cout * (8 * cpg * nb1 * t2 + 8 * nb1 * t2 * cols_out
-                             + 4 * rows_out * nb1 * cols_out)
-    nbytes = 4 * b * cin * h * w + 8 * cout * cpg * nb1 * t2 + 4 * b * cout * oh * ow
-    return nbytes, b * flops
-
-
-def fused2d_v3_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
-    """The flops kernel B5 (csrc/fused2d.cu, the v3 schedule) does for one
-    call, over whole T1 x T2 tiles with the kernel's own arithmetic
-    (_four_step_flops(kernel=True)): per input channel the H DFT of T2/2
-    packed column pairs, the split of their bins k and -k (8 per pair and
-    row 0 < k < T1/2) and the W DFT of the NB1 rows; per output channel the
-    MAC, the folded H inverse (T2/2 T1-point transforms; assembling S costs
-    8 per column pair at k = 0 and T1/2 and 2 per bin for the shared pair of
-    columns 0 and T2/2), the W c2r of ceil(V1/2) row pairs (T2-point
-    transforms, 2 per bin for the Hermitian extension) and the output scale
-    (1 per stored sample of a tile)."""
-    t1, v1, nb1, t2, v2 = plan
-    tiles = -(-(h - k + 1) // v1) * -(-(w - k + 1) // v2)
-    f1, f2 = _four_step_flops(t1, t1, t1, True), _four_step_flops(t2, t2, t2, True)
-    n1, n2 = t1 // 2, t2 // 2
-    fwd = n2 * f1 + 8 * (n1 - 1) * n2 + nb1 * f2
-    inv = (8 * (cin // groups) * nb1 * t2 + n2 * f1 + 8 * (n2 - 1) + 2 * (t1 - 2)
-           + -(-v1 // 2) * (f2 + 2 * t2) + v1 * v2)
-    return b * tiles * (cin * fwd + cout * inv)
-
-
-def _hw_slab_flops(h, oh, nbh, cols_in, lo, hi, dense=False):
-    """(per input d-slab, per output d-slab) flops of the H/W transforms of
-    one W block with cols_in of its 64 columns inside the signal and the
-    block columns [lo, hi) stored, an FMA as two.
-
-    dense: the dense count, every transform a dense product: the one-sided H
-    DFT (real x complex, 4 per term, NBH x H x cols_in), the W DFT (8, NBH x
-    cols_in x 64), the inverse W DFT onto the stored columns (8, NBH x 64 x
-    stored) and the H irfft on the valid rows (4, OH x NBH x stored). Else
-    the least work the call needs, by _four_step_flops: the W DFT-64 of the
-    NBH rows over the live columns and its inverse onto the stored ones,
-    factored 8 x 8 as B3 and B4 run them; the H DFT and irfft factored where
-    H has a split (_split), two real columns as one complex transform as
-    fused2d_work counts B2's, and dense as above where it has none."""
-    stored = hi - lo
-    if dense:
-        return (4 * nbh * h * cols_in + 8 * nbh * cols_in * 64,
-                8 * nbh * 64 * stored + 4 * oh * nbh * stored)
-    fwd = nbh * _four_step_flops(64, cols_in, 64)
-    inv = nbh * _four_step_flops(64, 64, hi, first=lo)
-    if _split(h):
-        fwd += -(-cols_in // 2) * _four_step_flops(h, h, h)
-        inv += -(-stored // 2) * _four_step_flops(h, h, oh)
-    else:
-        fwd += 4 * nbh * h * cols_in
-        inv += 4 * oh * nbh * stored
-    return fwd, inv
-
-
-def _hw_kernel_flops(h, oh, nbh, d, od, sb):
-    """(per input channel, per output channel) flops that B3's and B4's H/W
-    kernels do for one item: the dense H DFT over whole groups of SB slabs
-    and all 64 columns, the factored W DFT-64 of the d slabs' NBH rows with
-    the kernel's own arithmetic (_four_step_flops(kernel=True)); the inverse
-    W DFT of the od slabs' rows with its 1/64 (2 per value), and the dense H
-    irfft over whole groups of SB slabs."""
-    fw = _four_step_flops(64, 64, 64, True)
-    return (-(-d // sb) * sb * 4 * nbh * h * 64 + d * nbh * fw,
-            od * nbh * (fw + 2 * 64) + -(-od // sb) * sb * 4 * oh * nbh * 64)
-
-
-def fused3d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
-    """(bytes, flops) the fused 3D function must move and do for one call.
-
-    Bytes: the signal and the spectra (Cout, Cin/g, 16, NBH, 64) read once,
-    the output written once. Flops, with an FMA as two, restricted to what
-    the call needs. Per W block, with cols_in of its 64 columns inside the
-    signal and cols_out outputs stored: per input channel and d-slab, the H
-    and W transforms (_hw_slab_flops); per input channel and bin, the DFT-16
-    of each block as two 8-slab partial DFTs, each 8-slab chunk's once, and
-    their sum (2 per value, where the second chunk reaches inside D); per
-    output channel and bin, the MAC over the group's channels at the 16
-    D-bins of each block (8) and the inverse DFT-16 onto the block's valid d
-    below OD; per output channel and valid d, the inverse W DFT and the H
-    irfft (_hw_slab_flops). The DFT-16s are counted by _four_step_flops (16
-    = 4 x 4, over the chunk's slabs inside D, onto the valid d only). dense:
-    every transform a dense product, the partial DFTs 8 per term over the
-    slabs inside D and the inverse 8 per term onto the OD valid d, the count
-    of `dense_bound_ms`."""
-    from fft_conv_tpu_torch.kernels import fused3d
-
-    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k, groups)
-    nbh, nbd = plan[1], plan[4]
-    od, oh, ow = d - k + 1, h - k + 1, w - k + 1
-    cpg, npos = cin // groups, nbh * 64
-    live = [min(8, d - 8 * m) for m in range(nbd + 1)]  # each chunk's slabs inside D
-    valid = [min(8, od - 8 * j) for j in range(nbd)]    # each block's valid d
-    if dense:
-        d_fwd, d_inv = 8 * 16 * d + 2 * 16 * nbd, 8 * 16 * od
-    else:
-        d_fwd = sum(_four_step_flops(16, lv, 16) for lv in live if lv > 0)
-        d_fwd += 2 * 16 * sum(lv > 0 for lv in live[1:])
-        d_inv = sum(_four_step_flops(16, 16, v) for v in valid)
-    flops = 0
-    for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
-        fwd, inv = _hw_slab_flops(h, oh, nbh, min(64, w - start), lo, hi, dense)
-        flops += cin * d * fwd + cout * od * inv
-        flops += cin * npos * d_fwd
-        flops += cout * npos * (8 * cpg * 16 * nbd + d_inv)
-    nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * 16 * nbh * 64
-              + 4 * b * cout * od * oh * ow)
-    return nbytes, b * flops
-
-
-def fused3d_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
-    """The flops csrc/fused3d.cu does for one call: the H/W kernels as
-    _hw_kernel_flops counts them, the inverse DFT-16 onto all 8 d of a
-    block."""
-    from fft_conv_tpu_torch.kernels import fused3d
-
-    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k, groups)
-    nbh, nbd = plan[1], plan[4]
-    od, oh = d - k + 1, h - k + 1
-    npos = nbh * 64
-    fwd, inv = _hw_kernel_flops(h, oh, nbh, d, od, fused3d._slabs_per_block(nbh))
-    item = cin * fwd + cout * inv
-    item += cin * npos * (8 * 16 * d + 2 * 16 * nbd)
-    item += cout * npos * nbd * (8 * (cin // groups) * 16 + 8 * 8 * 16)
-    return b * nwb * item
-
-
-def fused3d_tap_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
-    """(bytes, flops) the fused 3D function must move and do for one call of
-    a 'tap' plan (kernel B4), counted as in fused3d_work: the H/W transforms
-    per input channel and d-slab, the tap MAC per output channel, valid d
-    and bin over the group's channels and the KD taps (8 per term), the
-    inverse W DFT onto the stored columns and the H irfft on the valid rows
-    per output channel and valid d. Bytes: the signal and the spectra
-    (Cout, Cin/g, KD, NBH, 64) read once, the output written once."""
-    from fft_conv_tpu_torch.kernels import fused3d
-
-    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k, groups)
-    nbh = plan[1]
-    od, oh, ow = d - k + 1, h - k + 1, w - k + 1
-    cpg, npos = cin // groups, nbh * 64
-    flops = 0
-    for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
-        fwd, inv = _hw_slab_flops(h, oh, nbh, min(64, w - start), lo, hi, dense)
-        flops += cin * d * fwd + cout * od * inv
-        flops += cout * npos * od * 8 * cpg * k
-    nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * k * nbh * 64
-              + 4 * b * cout * od * oh * ow)
-    return nbytes, b * flops
-
-
-def fused3d_tap_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
-    """The flops csrc/fused3d.cu's tap chain does for one call: the H/W
-    kernels as _hw_kernel_flops counts them, the tap MAC onto all 8 d of
-    each chunk."""
-    from fft_conv_tpu_torch.kernels import fused3d
-
-    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, k, k, k, groups)
-    nbh = plan[1]
-    od, oh = d - k + 1, h - k + 1
-    npos = nbh * 64
-    fwd, inv = _hw_kernel_flops(h, oh, nbh, d, od, fused3d._slabs_per_block(nbh))
-    item = cin * fwd + cout * inv
-    item += cout * npos * -(-od // 8) * 8 * 8 * (cin // groups) * k
-    return b * nwb * item
-
-
-def bound(nbytes, flops):
-    """(bound_ms, bound_by): the larger of the bytes and the operations
-    bound on the card's data-sheet rates."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+    return graph_seconds(fn, GRAPH_REPS)[0] * 1e3
 
 
 def check_fused1d(torch, dev, inputs):
@@ -755,6 +331,8 @@ def time_2d(torch, inputs, errs, per_row):
     import torch.nn.functional as TF
 
     from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.kernels.costs import (
+        bound, fused2d_dense_work, fused2d_kernel_flops, fused2d_work)
     from fft_conv_tpu_torch.kernels import fused2d
     from fft_conv_tpu_torch.ops import plan_fft_conv
 
@@ -979,6 +557,8 @@ def time_2d_v3(torch, inputs, errs, per_row):
     import torch.nn.functional as TF
 
     from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.kernels.costs import (
+        bound, fused2d_dense_work, fused2d_v3_kernel_flops, fused2d_work)
     from fft_conv_tpu_torch.kernels import fused2d
     from fft_conv_tpu_torch.ops import plan_fft_conv
 
@@ -1232,6 +812,7 @@ def time_3d(torch, inputs, errs, per_row):
     import torch.nn.functional as TF
 
     from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.kernels.costs import bound, fused3d_kernel_flops, fused3d_work
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import plan_fft_conv
 
@@ -1466,6 +1047,7 @@ def time_3d_tap(torch, inputs, errs, per_row):
     import torch.nn.functional as TF
 
     from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.kernels.costs import bound, fused3d_tap_kernel_flops, fused3d_tap_work
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import plan_fft_conv
 
@@ -1547,13 +1129,6 @@ def time_transposed_3d(torch, x, t_inputs):
         print(json.dumps({"phase": "timing", "kernel": "B3" if plan[0] == "v4" else "B4",
                           "case": "fft_conv_transpose 64^3", **row}))
         torch.cuda.synchronize()
-
-
-def pack3d_bytes(b, cin, d, h, w, pp, nwb):
-    """Bytes kernel B6 must move for one call: the signal (B, Cin, D, H, W)
-    read once and xp (B * nwb, H, Cin * PP, 128) written once. It does no
-    arithmetic, so bytes bound it."""
-    return 4 * b * cin * d * h * w + 4 * b * nwb * h * cin * pp * 128
 
 
 def check_pack3d(torch, dev, gen, inputs3d):
@@ -1809,6 +1384,7 @@ def time_pack3d(torch, timed):
     """B6's timing rows: its device time and latency, its plain version's
     latency and its bytes bound, at the 3D row and the stuffed 78^3 volume.
     No PyTorch call computes this permutation, so library_ms is null."""
+    from fft_conv_tpu_torch.kernels.costs import bound, pack3d_bytes
     from fft_conv_tpu_torch.kernels import fused3d
 
     rows = []
@@ -1833,8 +1409,274 @@ def time_pack3d(torch, timed):
     return rows
 
 
+def run_stream(torch, x, w, bias, sizes, dilation=1, groups=1):
+    """x fed to the streaming step in chunks of ``sizes`` from a zero
+    state, as a server filtering a long signal frame by frame: (the chunks'
+    outputs, the final state)."""
+    from fft_conv_tpu_torch.ops import streaming_conv1d_init, streaming_conv1d_step
+
+    state = streaming_conv1d_init(x.shape[0], x.shape[1], w.shape[-1], dilation)
+    outs, start = [], 0
+    for size in sizes:
+        y, state = streaming_conv1d_step(state, x[..., start:start + size], w, bias,
+                                         dilation=dilation, groups=groups)
+        outs.append(y)
+        start += size
+    return outs, state
+
+
+def phase_streaming(torch, inputs, rows):
+    """Phase 6, the streaming path, counted from zero: each 1D row's signal
+    (B=2, 8 -> 8, bias) as 8 chunks of STREAM_CHUNK samples, and at K=1024
+    a ragged stream (RAGGED_CHUNKS), dilation 2 at K=256 and groups 2 at
+    K=256. Each chunk launches B1 once; the joined outputs match the
+    one-shot call over the left-padded stream (auto, on the card) and the
+    composed path; the final state is the stream's last K_dil - 1 samples
+    exactly. At K=1024 one step's weight gradient matches the composed
+    path. Then per row the device time and call latency of one step and of
+    the whole stream (in one CUDA graph), beside the one-shot call."""
+    import torch.nn.functional as TF
+
+    from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.kernels import fused1d
+    from fft_conv_tpu_torch.ops import streaming_conv1d_init, streaming_conv1d_step
+
+    frames = [STREAM_CHUNK] * STREAM_CHUNKS
+    cases = [(f"K={w.shape[-1]}, {STREAM_CHUNKS} x {STREAM_CHUNK}", x, w, bias, frames, 1, 1)
+             for x, w, bias, _ in inputs]
+    x, w, bias, _ = inputs[1]
+    cases.append((f"K=1024, ragged {RAGGED_CHUNKS}", x, w, bias, RAGGED_CHUNKS, 1, 1))
+    x, w, bias, _ = inputs[0]
+    cases.append(("K=256, dilation 2", x, w, bias, frames, 2, 1))
+    cases.append(("K=256, groups 2", x, w[:, :4].contiguous(), bias, frames, 1, 2))
+
+    torch.cuda.synchronize()
+    fused1d.launches = 0
+    streamed = []
+    for what, x, w, bias, sizes, dilation, groups in cases:
+        check(sum(sizes) == x.shape[-1], f"stream {what}: chunks do not cover the signal")
+        before = fused1d.launches
+        outs, state = run_stream(torch, x, w, bias, sizes, dilation, groups)
+        torch.cuda.synchronize()
+        rose = fused1d.launches - before
+        check(rose == len(sizes),
+              f"stream {what}: B1 launched {rose} times for {len(sizes)} chunks")
+        streamed.append((torch.cat(outs, dim=-1), state, rose))
+    launched = fused1d.launches
+    print(json.dumps({"phase": "main_path_counts", "kernels": "B1 (streaming)",
+                      "launches": launched, "chunks": sum(len(c[4]) for c in cases)}))
+
+    for (what, x, w, bias, sizes, dilation, groups), (y, state, rose) in zip(cases, streamed):
+        k_dil = (w.shape[-1] - 1) * dilation + 1
+        xp = TF.pad(x, (k_dil - 1, 0))
+        kw = dict(dilation=dilation, groups=groups)
+        mx, mean, sigma = close_scaled(y, fft_conv(xp, w, bias, **kw), f"stream {what} vs one-shot")
+        mxc, _, _ = close_scaled(y, fft_conv(xp, w, bias, impl="xla", **kw),
+                                 f"stream {what} vs composed")
+        check(torch.equal(state, x[..., x.shape[-1] - (k_dil - 1):]),
+              f"stream {what}: the final state is not the last K_dil - 1 samples")
+        print(json.dumps({"phase": "streaming", "case": what, "chunks": list(sizes),
+                          "launches": rose, "max_abs_err_vs_oneshot": mx, "mean_abs_err": mean,
+                          "max_abs_err_vs_composed": mxc, "sigma": sigma,
+                          "state_exact": True}))
+
+    # one step's weight gradient at K=1024, from a state of real samples
+    x, w, bias, _ = inputs[1]
+    k = w.shape[-1]
+    state = x[..., STREAM_CHUNK - (k - 1):STREAM_CHUNK]
+    chunk = x[..., STREAM_CHUNK:2 * STREAM_CHUNK]
+    g = torch.randn(2, 8, STREAM_CHUNK, generator=torch.Generator().manual_seed(3)).to(x.device)
+    wg = w.clone().requires_grad_()
+    before = fused1d.launches
+    y, _ = streaming_conv1d_step(state, chunk, wg, bias)
+    (y * g).sum().backward()
+    torch.cuda.synchronize()
+    check(fused1d.launches == before + 1, "the differentiated step did not launch B1 once")
+    w_ref = w.clone().requires_grad_()
+    (fft_conv(torch.cat([state, chunk], dim=-1), w_ref, bias, impl="xla") * g).sum().backward()
+    gw_err, _, _ = close_scaled(wg.grad, w_ref.grad, "stream step weight grad vs composed")
+    print(json.dumps({"phase": "streaming", "case": "K=1024 step, weight gradient",
+                      "weight_grad_max_abs_err": gw_err}))
+
+    # timings: "*_ms" device time (CUDA graph replay), "*_call_ms" latency
+    out = []
+    for (x, w, bias, _), row in zip(inputs, rows):
+        k = w.shape[-1]
+        state0 = streaming_conv1d_init(x.shape[0], x.shape[1], k)
+        chunk = x[..., :STREAM_CHUNK]
+
+        def step():
+            return streaming_conv1d_step(state0, chunk, w, bias)
+
+        def stream():
+            return run_stream(torch, x, w, bias, frames)
+
+        n = fused1d.choose_fft_size(k, STREAM_CHUNK + k - 1, x.shape[1], w.shape[0],
+                                    batch=x.shape[0])
+        srow = {
+            "K": k, "chunk": STREAM_CHUNK, "chunks": STREAM_CHUNKS, "N": n,
+            "stream_step_ms": device_ms(step),
+            "stream_step_call_ms": call_ms(step),
+            "stream_ms": device_ms(stream),
+            "stream_call_ms": call_ms(stream),
+            # B1's own device time in one stream, from torch.profiler
+            "stream_b1_ms": sum(phase_split_ms(torch, stream, "fused1d_").values()),
+            # the kernel spectra that every step computes anew
+            "step_spectra_ms": device_ms(lambda: fused1d.kernel_spectra_one_sided(w, n)),
+            "auto_ms": row["auto_ms"], "auto_call_ms": row["auto_call_ms"],
+        }
+        srow["stream_over_auto"] = srow["stream_ms"] / srow["auto_ms"]
+        out.append(srow)
+        print(json.dumps({"phase": "timing", "kernel": "B1", "case": "streaming", **srow}))
+        torch.cuda.synchronize()
+    return launched, out
+
+
+def phase_harness(torch, inputs, rows):
+    """Phase 7, the measurement modules on the 1D K=1024 row: benchmark_fori
+    on the serving plan (the median of CUDA-event times of graph replays,
+    the timer of device_ms too) within 10% of a witness that shares none of
+    its code, the host clock over WITNESS_REPLAYS back-to-back replays of a
+    graph of the same calls captured here (the card, not the host, sets
+    their pace); torch.profiler's time of B1's two kernels over eager calls
+    of the plan no more than 10% above it; measure's peak (above 0 GiB),
+    benchmark and benchmark_chained on the auto call (positive means),
+    cost_analysis of the auto call (B1 recorded once with its kernel_flops,
+    plus the flops of the spectra the call computes), roofline's
+    hbm_fraction in (0, 1.05], and a trace file that names B1's two
+    kernels."""
+    from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.bench.harness import (
+        benchmark, benchmark_chained, benchmark_fori, measure, peak_memory_gib)
+    from fft_conv_tpu_torch.bench.profiling import cost_analysis, roofline, trace
+    from fft_conv_tpu_torch.kernels import fused1d
+    from fft_conv_tpu_torch.kernels.costs import fused1d_kernel_flops, fused1d_work
+    from fft_conv_tpu_torch.ops import plan_fft_conv
+
+    x, w, _, n = inputs[1]
+    b, cin, l = x.shape
+    cout, _, k = w.shape
+    planned = plan_fft_conv(w, signal_spatial=(l,), max_batch=b)
+    fori_ms = benchmark_fori(planned, x, num_iterations=GRAPH_REPS).mean * 1e3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_REPS):
+            planned(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(WITNESS_REPLAYS):
+        graph.replay()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (WITNESS_REPLAYS * GRAPH_REPS)
+    del graph
+    check(abs(fori_ms / wall_ms - 1) <= 0.10,
+          f"benchmark_fori {fori_ms:.5f} ms is not within 10% of the host clock's "
+          f"{wall_ms:.5f} ms over {WITNESS_REPLAYS} graph replays")
+    b1_split = phase_split_ms(torch, lambda: planned(x), "fused1d_")
+    b1_ms = sum(b1_split.values())
+    check(len(b1_split) == 2 and b1_ms <= 1.10 * fori_ms,
+          f"the profiler's B1 kernels {b1_split} exceed benchmark_fori {fori_ms:.5f} ms")
+
+    with measure() as r:
+        fft_conv(x, w, impl="auto")
+    check(r["memory"] > 0, f"measure() read a peak of {r['memory']} GiB")
+    t, mem = benchmark(lambda: fft_conv(x, w, impl="auto"), num_iterations=10)
+    tc = benchmark_chained(fft_conv, x, w, num_iterations=16)
+    check(t.mean > 0 and tc.mean > 0, f"benchmark {t}, benchmark_chained {tc}")
+    peak, source = peak_memory_gib(fft_conv, x, w)
+
+    counts = cost_analysis(fft_conv, x, w)
+    kernel_flops = fused1d_kernel_flops(b, cin, cout, l, k, n)
+    spectra_flops = cost_analysis(fused1d.kernel_spectra_one_sided, w, n)["flops"]
+    b1 = counts["kernels"].get("B1", {})
+    check(b1.get("flops") == kernel_flops and b1.get("calls") == 1
+          and spectra_flops > 0 and counts["flops"] == kernel_flops + spectra_flops,
+          f"cost_analysis {counts} is not B1's kernel_flops {kernel_flops} plus the "
+          f"spectra's {spectra_flops}")
+    rl = roofline(fft_conv, x, w)
+    check(0 < rl["hbm_fraction"] <= 1.05, f"roofline's hbm_fraction {rl['hbm_fraction']}")
+
+    log_dir = os.path.join(HERE, "build", "chip_smoke", "trace")
+    with trace(log_dir):
+        fft_conv(x, w, impl="auto")
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        text = f.read()
+    named = {name: name in text for name in ("fused1d_spectra", "fused1d_mac_inverse")}
+    check(all(named.values()), f"the trace does not name B1's kernels: {named}")
+    print(json.dumps({
+        "phase": "harness", "K": k, "benchmark_fori_ms": fori_ms, "replay_wall_ms": wall_ms,
+        "fori_over_wall": fori_ms / wall_ms, "profiler_b1_ms": b1_ms,
+        "profiler_b1_split_ms": b1_split, "measure_s": r["time"], "measure_gib": r["memory"],
+        "benchmark_mean_s": t.mean, "benchmark_std_s": t.std, "benchmark_gib": mem.mean,
+        "benchmark_chained_mean_s": tc.mean, "peak_memory_gib": peak, "peak_source": source,
+        "cost_flops": counts["flops"], "cost_bytes": counts["bytes accessed"],
+        "cost_kernels": counts["kernels"], "kernel_flops": kernel_flops,
+        "spectra_flops": spectra_flops,
+        "kernel_bytes": fused1d_work(b, cin, cout, l, k, n)[0], "roofline": rl,
+        "trace_names": named, "auto_ms": rows[1]["auto_ms"]}))
+    torch.cuda.synchronize()
+
+
+def phase_checkpoint(torch, inputs):
+    """Phase 8, checkpoints on the card: an FFTConv1d(8, 8, 1024) saved and
+    loaded into a layer built from another seed (weights, bias and outputs
+    equal bit for bit, B1 launched), and a torch.nn.ConvTranspose1d state
+    dict restored into FFTConvTranspose1d, held to conv_transpose1d (TF32
+    off) at the bar."""
+    import numpy as np
+
+    from fft_conv_tpu_torch import FFTConv1d, FFTConvTranspose1d
+    from fft_conv_tpu_torch.kernels import fused1d
+    from fft_conv_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    x = inputs[1][0]
+    ckpt_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, "ckpt.npz")
+    layer = FFTConv1d(8, 8, 1024, device="cuda", generator=torch.Generator().manual_seed(0))
+    save_checkpoint(path, layer)
+    fresh = FFTConv1d(8, 8, 1024, device="cuda", generator=torch.Generator().manual_seed(1))
+    check(not torch.equal(fresh.weight, layer.weight), "the two seeds gave one weight")
+    loaded = load_checkpoint(path, fresh)
+    check(loaded is fresh and fresh.weight.is_cuda, "load_checkpoint did not load in place")
+    check(torch.equal(fresh.weight, layer.weight) and torch.equal(fresh.bias, layer.bias),
+          "the loaded parameters differ from the saved ones")
+    before = fused1d.launches
+    with torch.no_grad():
+        y, y_loaded = layer(x), fresh(x)
+    torch.cuda.synchronize()
+    check(fused1d.launches == before + 2, "the layers did not launch B1")
+    check(torch.equal(y, y_loaded), "the loaded layer's outputs differ from the saved layer's")
+
+    gen = torch.Generator().manual_seed(2)
+    tl = torch.nn.ConvTranspose1d(8, 8, 1024)
+    with torch.no_grad():
+        tl.weight.copy_(torch.randn(8, 8, 1024, generator=gen) / (8 * 1024) ** 0.5)
+        tl.bias.copy_(torch.randn(8, generator=gen))
+    tl = tl.to(x.device)
+    tpath = os.path.join(ckpt_dir, "conv_transpose1d.npz")
+    np.savez(tpath, **{k: v.detach().cpu().numpy() for k, v in tl.state_dict().items()})
+    ours = load_checkpoint(tpath, FFTConvTranspose1d(8, 8, 1024, device="cuda",
+                                                     generator=torch.Generator().manual_seed(3)))
+    before = fused1d.launches
+    with torch.no_grad():
+        y = ours(x)
+        torch.cuda.synchronize()
+        rose = fused1d.launches - before
+        mx, mean, sigma = close_scaled(y, tl(x), "FFTConvTranspose1d from a ConvTranspose1d")
+    check(rose >= 1, "FFTConvTranspose1d did not launch B1")
+    print(json.dumps({"phase": "checkpoint", "npz_round_trip_bit_equal": True,
+                      "layer": "FFTConv1d(8, 8, 1024)", "launches": rose,
+                      "conv_transpose1d_interop_max_abs_err": mx, "mean_abs_err": mean,
+                      "sigma": sigma}))
+    torch.cuda.synchronize()
+
+
 def kernel_entry(name, source, replaces, launches, errs, rows):
     """One entry of the ``kernels`` line: the sums over the timed rows."""
+    from fft_conv_tpu_torch.kernels.costs import bound
+
     def total(key):
         return sum(r[key] for r in rows)
 
@@ -1865,6 +1707,8 @@ def main() -> int:
     import torch.nn.functional as TF
 
     from fft_conv_tpu_torch import FFTConv1d, fft_conv
+    from fft_conv_tpu_torch.kernels.costs import (
+        bound, fused1d_dense_work, fused1d_kernel_flops, fused1d_work)
     from fft_conv_tpu_torch.kernels import _build, fused1d
     from fft_conv_tpu_torch.ops import plan_fft_conv
 
@@ -2035,6 +1879,14 @@ def main() -> int:
     time_transposed_1d_2d(torch, inputs, inputs2d)
     time_tier3(torch, inputs2d)
     rows_pack = time_pack3d(torch, timed_pack)
+
+    # phases 6 to 8: the streaming path (counted from zero), the
+    # measurement modules, checkpoints
+    phase_streaming(torch, inputs, shapes)
+    phase_harness(torch, inputs, shapes)
+    phase_checkpoint(torch, inputs)
+    check("jax" not in sys.modules and "fft_conv_tpu" not in sys.modules,
+          "the port pulled in JAX or the JAX package")
 
     print(json.dumps({"kernels": [
         kernel_entry("B1_fused1d", "fft_conv_tpu_torch/kernels/csrc/fused1d.cu",

@@ -10,7 +10,10 @@ Public API mirrors ``fft_conv_tpu/__init__.py``, limited to what the port
 provides so far: the ``functional`` and ``nn`` submodules, ``fft_conv``,
 ``fft_conv_transpose``, ``complex_matmul`` and the 1D, 2D and 3D layers.
 The serving plans are ``ops.plan_fft_conv`` and
-``ops.plan_fft_conv_transpose``, as in the JAX package.
+``ops.plan_fft_conv_transpose``, the streaming step
+``ops.streaming_conv1d_step``, the checkpoints ``utils.checkpoint`` and the
+measurement harness ``bench`` (aliased as ``benchmark_utils``), as in the
+JAX package.
 """
 
 from . import functional, nn

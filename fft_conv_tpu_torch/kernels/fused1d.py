@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from . import costs
 from ..ops import functional as F
 from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
@@ -372,14 +373,24 @@ def _fused_forward(
     """Valid correlation of ``x_padded`` with ``kernel`` at FFT size ``n``:
     the CUDA kernel for a CUDA tensor, the plain version for a CPU one.
     ``spectra``: a plan's baked ``kernel_spectra_one_sided``, or None to
-    compute them."""
-    if x_padded.is_cuda:
-        if spectra is None:
-            spectra = kernel_spectra_one_sided(kernel, n)
-        return _launch_fused1d(x_padded.float(), spectra, n, groups, kernel.shape[-1])
-    if x_padded.device.type == "cpu":
+    compute them. They are computed here, ahead of the call's record for a
+    running cost analysis (``costs.record``), so that the analysis counts
+    their FFTs as the aten ops they are, on the CPU as on the card; the
+    record holds the kernel's own count, whichever of the two runs."""
+    if x_padded.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused1d runs on CUDA or CPU tensors, got {x_padded.device}")
+    if spectra is None:
+        spectra = kernel_spectra_one_sided(kernel, n)
+    b, cin, l_pad = x_padded.shape
+    cout, _, k = kernel.shape
+    record = costs.IDLE
+    if costs.active():
+        record = costs.record("B1", costs.fused1d_kernel_flops(b, cin, cout, l_pad, k, n, groups),
+                              costs.fused1d_work(b, cin, cout, l_pad, k, n, groups)[0])
+    with record:
+        if x_padded.is_cuda:
+            return _launch_fused1d(x_padded.float(), spectra, n, groups, k)
         return _fused_forward_reference(x_padded.float(), kernel.float(), n, groups, spectra)
-    raise ValueError(f"fused1d runs on CUDA or CPU tensors, got {x_padded.device}")
 
 
 def _fused_bwd(x_padded, kernel, g, groups, need_dx=True, need_dw=True):

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from . import costs
 from ..ops import functional as F
 from ..ops.spectral import _dft_mats, _irfft_mats, _rfft_mats
 from ..utils.device import Device, check_planned_signal, resolve_device
@@ -573,23 +574,36 @@ def _fused2d_forward(
     that ``set_fused2d_kernel`` chose, read at call time: the CUDA kernel
     (B2 or B5) for a CUDA tensor, its plain version for a CPU one.
     ``spectra``: a plan's baked ``kernel_spectra_2d`` (B5 takes them as
-    planes, ``_planes``), or None to compute them."""
+    planes, ``_planes``), or None to compute them. They are computed here,
+    ahead of the call's record for a running cost analysis
+    (``costs.record``), so that the analysis counts their transforms as the
+    aten ops they are, on the CPU as on the card; the record holds the
+    kernel's own count, whichever of the two runs."""
+    if x_padded.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused2d runs on CUDA or CPU tensors, got {x_padded.device}")
     v3 = _KERNEL2D_VERSION == "v3"
-    if x_padded.is_cuda:
-        cout, cpg, k1, k2 = kernel.shape
-        plan = tile_plan_2d(k1, k2, cpg, cout)
-        if plan is None:
-            raise ValueError("no fused 2D configuration fits this shape")
+    b, cin, hp, wp = x_padded.shape
+    cout, cpg, k1, k2 = kernel.shape
+    plan = tile_plan_2d(k1, k2, cpg, cout)
+    if plan is None:
+        raise ValueError("no fused 2D configuration fits this shape")
+    if spectra is None:
         t1, _, nb1, t2, _ = plan
-        if spectra is None:
-            spectra = kernel_spectra_2d(kernel, t1, nb1, t2)
-        if v3:
-            return _launch_fused2d_v3(x_padded.float(), _planes(spectra), plan, groups, (k1, k2))
-        return _launch_fused2d(x_padded.float(), spectra, plan, groups, (k1, k2))
-    if x_padded.device.type == "cpu":
+        spectra = kernel_spectra_2d(kernel, t1, nb1, t2)
+    record = costs.IDLE
+    if costs.active():
+        shape = (b, cin, cout, hp, wp, (k1, k2), plan, groups)
+        kernel_flops = costs.fused2d_v3_kernel_flops if v3 else costs.fused2d_kernel_flops
+        record = costs.record("B5" if v3 else "B2", kernel_flops(*shape),
+                              costs.fused2d_work(*shape)[0])
+    with record:
+        if x_padded.is_cuda:
+            if v3:
+                return _launch_fused2d_v3(x_padded.float(), _planes(spectra), plan, groups,
+                                          (k1, k2))
+            return _launch_fused2d(x_padded.float(), spectra, plan, groups, (k1, k2))
         reference = _fused2d_forward_reference_v3 if v3 else _fused2d_forward_reference
         return reference(x_padded.float(), kernel.float(), groups, spectra)
-    raise ValueError(f"fused2d runs on CUDA or CPU tensors, got {x_padded.device}")
 
 
 class _Fused2dCore(torch.autograd.Function):

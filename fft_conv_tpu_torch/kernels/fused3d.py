@@ -51,6 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from . import costs
 from ..ops import functional as F
 from ..ops.spectral import _dft_mats, _irfft_mats, _rfft_mats
 from ..utils.device import Device, check_planned_signal, resolve_device
@@ -681,21 +682,41 @@ def _fused3d_forward(
     kernels (B3 for 'v4', after B6 under "pk"; B4 for 'tap') on a CUDA
     tensor, through their plain versions on a CPU one. ``spectra``: the
     plan's baked kernel spectra (``kernel_spectra_3d`` for 'v4',
-    ``kernel_spectra_tap`` for 'tap'), or None to compute them."""
+    ``kernel_spectra_tap`` for 'tap'), or None to compute them. They are
+    computed here, ahead of the call's records for a running cost analysis
+    (``costs.record``), so that the analysis counts their transforms as the
+    aten ops they are, on the CPU as on the card; the records hold the
+    kernels' own counts (B6's too under "pk"), whichever of the kernels and
+    plain versions run."""
     if x_padded.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused3d runs on CUDA or CPU tensors, got {x_padded.device}")
-    tap = _plan_for(x_padded.shape, kernel.shape, groups)[0][0] == "tap"
+    plan, nwb, _ = _plan_for(x_padded.shape, kernel.shape, groups)
+    tap = plan[0] == "tap"
     packed = not tap and _XPACK3D == "pk"
-    if x_padded.is_cuda:
-        h, k = x_padded.shape[3], tuple(kernel.shape[2:])
+    b, cin, d, h, w = x_padded.shape
+    k = tuple(kernel.shape[2:])
+    if spectra is None:
+        spectra = kernel_spectra_tap(kernel, h) if tap else kernel_spectra_3d(kernel, h)
+    record = pack = costs.IDLE
+    if costs.active():
+        shape = (b, cin, kernel.shape[0], d, h, w, k, groups)
         if tap:
-            ks = kernel_spectra_tap(kernel, h) if spectra is None else spectra
-            return _launch_fused3d_tap(x_padded.float(), ks, groups, k)
-        ks = kernel_spectra_3d(kernel, h) if spectra is None else spectra
-        return _launch_fused3d(x_padded.float(), ks, groups, k, packed)
-    if tap:
-        return _fused3d_tap_reference(x_padded.float(), kernel.float(), groups, spectra)
-    return _fused3d_forward_reference(x_padded.float(), kernel.float(), groups, spectra, packed)
+            record = costs.record("B4", costs.fused3d_tap_kernel_flops(*shape),
+                                  costs.fused3d_tap_work(*shape)[0])
+        else:
+            record = costs.record("B3", costs.fused3d_kernel_flops(*shape),
+                                  costs.fused3d_work(*shape)[0])
+        if packed:
+            pack = costs.record("B6", 0, costs.pack3d_bytes(b, cin, d, h, w, plan[3], nwb))
+    with record, pack:
+        if x_padded.is_cuda:
+            if tap:
+                return _launch_fused3d_tap(x_padded.float(), spectra, groups, k)
+            return _launch_fused3d(x_padded.float(), spectra, groups, k, packed)
+        if tap:
+            return _fused3d_tap_reference(x_padded.float(), kernel.float(), groups, spectra)
+        return _fused3d_forward_reference(x_padded.float(), kernel.float(), groups, spectra,
+                                          packed)
 
 
 class _Fused3dCore(torch.autograd.Function):

@@ -1,5 +1,6 @@
 from .functional import complex_matmul, fft_conv, fft_conv_transpose
 from .plan import plan_fft_conv, plan_fft_conv_transpose
+from .streaming import streaming_conv1d_init, streaming_conv1d_step
 
 __all__ = [
     "fft_conv",
@@ -7,4 +8,6 @@ __all__ = [
     "complex_matmul",
     "plan_fft_conv",
     "plan_fft_conv_transpose",
+    "streaming_conv1d_init",
+    "streaming_conv1d_step",
 ]

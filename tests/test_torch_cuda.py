@@ -2,7 +2,8 @@
 B4 and the x-pack kernel B6) against their plain versions, the serving
 plans, and the routes that only a CUDA tensor takes. B1 is also held at the
 edges of its blocking: V1 = 1, a single block, Cin = 3 with groups = 3 and
-a stuffed transposed length.
+a stuffed transposed length. A stream of chunks launches B1 once per chunk,
+and a checkpoint round trip on the card is exact.
 
 Every test here is marked ``cuda`` and skips without a card. The file imports
 no JAX, so it also runs where JAX is not installed:
@@ -642,3 +643,41 @@ def test_transposed_plans_on_cuda(cuda):
         assert module.launches == before + (x.ndim != 5)
         y_ref = ft.fft_conv_transpose(x, w, impl="xla", **kw)
         _assert_close_scaled(y.cpu().numpy(), y_ref.cpu().numpy())
+
+
+def test_streaming_on_cuda_launches_b1_per_chunk(cuda):
+    """A 1D stream at the K=1024 benchmark row (B=2, 8 -> 8): 8 chunks of
+    4096 samples, one B1 launch each; the joined outputs equal the one-shot
+    call over the left-padded stream, and the final state the last K-1
+    samples."""
+    from fft_conv_tpu_torch.ops import streaming_conv1d_init, streaming_conv1d_step
+
+    x, w, b = _tensors(cuda, 27, (2, 8, 32768), (8, 8, 1024), (8,))
+    w = w / (8 * 1024) ** 0.5
+    state = streaming_conv1d_init(2, 8, 1024)
+    assert state.device.type == "cuda"
+    before = fused1d.launches
+    outs = []
+    for i in range(8):
+        y, state = streaming_conv1d_step(state, x[..., 4096 * i:4096 * (i + 1)], w, b)
+        outs.append(y)
+    torch.cuda.synchronize()
+    assert fused1d.launches == before + 8
+    y_ref = ft.fft_conv(torch.nn.functional.pad(x, (1023, 0)), w, b, impl="xla")
+    _assert_close_scaled(torch.cat(outs, dim=-1).cpu().numpy(), y_ref.cpu().numpy())
+    assert torch.equal(state, x[..., -1023:])
+
+
+def test_checkpoint_round_trip_on_cuda(cuda, tmp_path):
+    from fft_conv_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    layer = ft.FFTConv1d(8, 8, 1024, generator=torch.Generator().manual_seed(0))
+    path = str(tmp_path / "ckpt.npz")
+    save_checkpoint(path, layer)
+    fresh = load_checkpoint(path, ft.FFTConv1d(8, 8, 1024,
+                                               generator=torch.Generator().manual_seed(1)))
+    assert fresh.weight.device.type == "cuda"
+    assert torch.equal(fresh.weight, layer.weight) and torch.equal(fresh.bias, layer.bias)
+    (x,) = _tensors(cuda, 28, (2, 8, 32768))
+    with torch.no_grad():
+        assert torch.equal(fresh(x), layer(x))

@@ -11,7 +11,9 @@ run on one card, for example a ``git archive`` of the parent commit
 unpacked under ``build/``: run parent, change, change, parent. The timing
 helpers (``device_ms``, a CUDA graph of 20 calls replayed 30 times, and
 ``phase_split_ms``, torch.profiler's device time per kernel) are those of
-this script's own ``chip_smoke.py``. Inputs come from a torch.Generator
+this script's own ``chip_smoke.py``; ``device_ms`` runs the package's
+``bench.harness.graph_seconds``, so a tree under ``--root`` must have
+``fft_conv_tpu_torch/bench/harness.py``. Inputs come from a torch.Generator
 seeded with 0; each row also prints its max abs error against the plain
 version. Prints one JSON line per row.
 """
