@@ -29,6 +29,12 @@ replays, the allocator's peak, ``cost_analysis`` holding B1's own count and
 the per-call spectra, ``roofline``, a trace that names B1's kernels) and
 ``checkpoint`` (``utils.checkpoint`` round trips on the card, bit for bit,
 and a ``torch.nn.ConvTranspose1d`` state dict in ``FFTConvTranspose1d``).
+Last, ``tiled`` drives ``impl="tiled"`` (the overlap-save DFT-matmul tiles
+of ``ops/tiled.py``, cuBLAS products in FP32, no fused kernel) at the 2D
+rows, the 1D K=1024 row, the 2D transposed K=16 row, the 3D row (whose tile
+plan is the whole volume: the composed path) and an ``FFTConv2d`` layer,
+each held to the composed path, and a tiled call with TF32 allowed
+globally.
 
 Every phase prints one line; any failed check raises and the script exits
 non-zero without a result. The last line is
@@ -786,10 +792,11 @@ def main_path_3d(torch, inputs):
     return per_row, total
 
 
-def phase_split_ms(torch, fn, prefix, reps=GRAPH_REPS):
-    """Device time per call of each kernel whose name holds ``prefix``, from
+def profile_ms(torch, fn, group, reps=GRAPH_REPS):
+    """Device time per call of fn() summed by group(kernel name), from
     torch.profiler's CUDA activity over ``reps`` calls of fn() (after one
-    warm-up call); {} when the profiler records no device time."""
+    warm-up call); kernels whose group is None are left out, and the result
+    is {} when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -801,10 +808,19 @@ def phase_split_ms(torch, fn, prefix, reps=GRAPH_REPS):
     split = {}
     for evt in prof.key_averages():
         us = getattr(evt, "device_time_total", 0) or getattr(evt, "cuda_time_total", 0)
-        if prefix in evt.key and us:
-            name = evt.key.split(prefix, 1)[1].split("<")[0].split("(")[0]
+        name = group(evt.key) if us and evt.device_type == torch.autograd.DeviceType.CUDA else None
+        if name is not None:
             split[name] = split.get(name, 0.0) + us / 1e3 / reps
     return split
+
+
+def phase_split_ms(torch, fn, prefix, reps=GRAPH_REPS):
+    """Device time per call of each kernel whose name holds ``prefix``,
+    named by what follows the prefix (``profile_ms``)."""
+    return profile_ms(
+        torch, fn,
+        lambda key: key.split(prefix, 1)[1].split("<")[0].split("(")[0] if prefix in key else None,
+        reps)
 
 
 def time_3d(torch, inputs, errs, per_row):
@@ -1673,6 +1689,156 @@ def phase_checkpoint(torch, inputs):
     torch.cuda.synchronize()
 
 
+def kind_split_ms(torch, fn):
+    """Device time per call of fn() by kind of kernel (``profile_ms``):
+    cuBLAS products ("gemm" in the name), reductions ("reduce"), and the
+    rest (elementwise ops and the copies that permute operands)."""
+    return profile_ms(
+        torch, fn, lambda key: next((k for k in ("gemm", "reduce") if k in key.lower()), "other"))
+
+
+def phase_tiled(torch, inputs1d, inputs2d, inputs3d):
+    """Phase 9, the DFT-matmul path. impl="tiled" at the 2D rows, the 1D
+    K=1024 row, the 2D transposed K=16 row and the 3D row, and an
+    FFTConv2d(8, 8, 16, impl="tiled") forward and backward: each call's tile
+    (read from the transforms it runs) is plan_tiles's, its result is within
+    the bar of impl="xla" (the 3D row, whose plan is the whole volume, equal
+    to it), and no fused kernel launches. Times: tiled_ms (device) and
+    tiled_call_ms beside composed_ms and auto_ms; cost_analysis and roofline
+    of the 2D K=16 tiled call. Then the 2D K=16 tiled call with TF32
+    allowed globally, through the legacy flag and through the newer
+    per-backend flag where torch has it: within the bar, the caller's flag
+    as it was after (beside it, for reading only, the same call with the
+    FP32 scope removed)."""
+    import contextlib
+
+    from fft_conv_tpu_torch import FFTConv2d, fft_conv, fft_conv_transpose
+    from fft_conv_tpu_torch.bench.profiling import cost_analysis, roofline
+    from fft_conv_tpu_torch.kernels import fused1d, fused2d, fused3d
+    from fft_conv_tpu_torch.kernels.costs import FP32_FLOPS_PER_S
+    from fft_conv_tpu_torch.ops import spectral, tiled
+
+    names = ("B1", "B2", "B5", "B3", "B4", "B6")
+
+    def counts():
+        torch.cuda.synchronize()
+        return dict(zip(names, (fused1d.launches, fused2d.launches, fused2d.launches_v3,
+                                fused3d.launches, fused3d.launches_tap,
+                                fused3d.launches_pack)))
+
+    def traced_tiles(fn):
+        """fn()'s result and the tile shapes of the DFT-matmul transforms it ran."""
+        tiles = set()
+        real = tiled.rfftn_matmul
+        tiled.rfftn_matmul = lambda x, shape: tiles.add(tuple(shape)) or real(x, shape)
+        try:
+            y = fn()
+        finally:
+            tiled.rfftn_matmul = real
+        return y, sorted(tiles)
+
+    x2, w16, b16, _ = inputs2d[0]
+    # (what, impl="tiled" call, the same call composed, auto, plan_tiles's
+    # arguments); a transposed call's tiles cover the interior-stuffed signal
+    rows = []
+    for (x, w, b, _), fn in [(i, fft_conv) for i in inputs2d + [inputs1d[1]]] + [
+            (inputs2d[0], fft_conv_transpose), (inputs3d[0], fft_conv)]:
+        spatial, k = tuple(x.shape[2:]), tuple(w.shape[2:])
+        out_len = tuple(s - kk + 1 for s, kk in zip(spatial, k))
+        cout = w.shape[0]
+        if fn is fft_conv_transpose:
+            spatial = out_len = tuple(s + kk - 1 for s, kk in zip(spatial, k))
+            cout = w.shape[1]
+        rows.append((f"{fn.__name__} {len(k)}D K={k[0]}",
+                     functools.partial(fn, x, w, b, impl="tiled"),
+                     functools.partial(fn, x, w, b, impl="xla"), functools.partial(fn, x, w, b),
+                     (spatial, k, out_len, (x.shape[0], x.shape[1], cout))))
+    out = []
+    for what, call, composed, auto, plan_args in rows:
+        tile = tiled.plan_tiles(*plan_args)[0]
+        degenerate = tile == tiled.untiled_shape(*plan_args[:3])
+        y_ref = composed()
+        before = counts()
+        y, ran = traced_tiles(call)
+        check(counts() == before, f"{what} impl='tiled' launched a fused kernel")
+        if degenerate:
+            check(ran == [] and torch.equal(y, y_ref), f"{what}: not the composed path")
+            mx = mean = 0.0
+        else:
+            check(ran == [tile], f"{what} ran tiles {ran}, not plan_tiles's {tile}")
+            mx, mean, _ = close_scaled(y, y_ref, f"{what} impl='tiled' vs xla")
+        row = {"case": what + (" (whole-signal plan: composed)" if degenerate else ""),
+               "tile": list(tile), "tiled": not degenerate,
+               "launches": {n: 0 for n in names}, "max_abs_err_vs_composed": mx,
+               "mean_abs_err": mean,
+               "tiled_ms": device_ms(call), "tiled_call_ms": call_ms(call),
+               "composed_ms": device_ms(composed), "auto_ms": device_ms(auto)}
+        out.append(row)
+        print(json.dumps({"phase": "tiled", **row}))
+        torch.cuda.synchronize()
+
+    cout, cin, k = w16.shape[:3]
+    layer = FFTConv2d(cin, cout, k, impl="tiled", device=x2.device,
+                      generator=torch.Generator().manual_seed(0))
+    x = x2.clone().requires_grad_()
+    before = counts()
+    y, ran = traced_tiles(lambda: layer(x))
+    y.sum().backward()
+    check(counts() == before, "FFTConv2d(impl='tiled') launched a fused kernel")
+    check(ran == [tuple(out[0]["tile"])], f"FFTConv2d(impl='tiled') ran tiles {ran}")
+    w_ref = layer.weight.detach().clone().requires_grad_()
+    x_ref = x2.clone().requires_grad_()
+    y_ref = fft_conv(x_ref, w_ref, layer.bias.detach(), impl="xla")
+    y_ref.sum().backward()
+    mx, _, _ = close_scaled(y, y_ref, "FFTConv2d(impl='tiled') forward vs xla")
+    gw_err, _, _ = close_scaled(layer.weight.grad, w_ref.grad, "tiled weight grad vs xla")
+    gx_err, _, _ = close_scaled(x.grad, x_ref.grad, "tiled input grad vs xla")
+    print(json.dumps({"phase": "tiled", "case": f"FFTConv2d({cin}, {cout}, {k}, impl='tiled')",
+                      "tile": out[0]["tile"], "launches": {n: 0 for n in names},
+                      "max_abs_err_vs_composed": mx, "weight_grad_max_abs_err": gw_err,
+                      "input_grad_max_abs_err": gx_err}))
+
+    tiled16 = rows[0][1]
+    counted = cost_analysis(tiled16)
+    rl = roofline(lambda s: fft_conv(s, w16, b16, impl="tiled"), x2)
+    kinds = kind_split_ms(torch, tiled16)
+    print(json.dumps({"phase": "tiled", "case": f"cost of {rows[0][0]} impl='tiled'",
+                      "cost_flops": counted["flops"], "cost_bytes": counted["bytes accessed"],
+                      "cost_kernels": counted["kernels"],
+                      "fp32_fraction_of_tiled_ms": counted["flops"] / (out[0]["tiled_ms"] * 1e-3)
+                      / FP32_FLOPS_PER_S, "roofline": rl, "kind_split_ms": kinds,
+                      "fp32_fraction_of_gemm_ms": counted["flops"] / (kinds.get("gemm", 0) * 1e-3)
+                      / FP32_FLOPS_PER_S if kinds.get("gemm") else None}))
+
+    # the FP32 scope under a global TF32 setting
+    y_ref = rows[0][2]()
+    m = torch.backends.cuda.matmul
+    settings = [("allow_tf32=True", lambda: setattr(m, "allow_tf32", True))]
+    if hasattr(m, "fp32_precision"):
+        settings.append(("fp32_precision='tf32'", lambda: setattr(m, "fp32_precision", "tf32")))
+    scope = spectral._fp32_products
+    for what, allow in settings:
+        try:
+            allow()
+            y = tiled16()
+            check(m.fp32_precision == "tf32" if hasattr(m, "fp32_precision") else m.allow_tf32,
+                  f"the tiled call did not restore {what}")
+            spectral._fp32_products = contextlib.nullcontext
+            y_unscoped = tiled16()
+        finally:
+            spectral._fp32_products = scope
+            torch.set_float32_matmul_precision("highest")
+            if hasattr(m, "fp32_precision"):
+                m.fp32_precision = "none"
+        mx, mean, _ = close_scaled(y, y_ref, f"tiled K=16 under {what} vs xla")
+        err = (y_unscoped.double() - y_ref.double()).abs()
+        print(json.dumps({"phase": "tiled", "case": f"{rows[0][0]} impl='tiled', {what}",
+                          "max_abs_err_vs_composed": mx, "mean_abs_err": mean,
+                          "without_fp32_scope_max_abs_err": float(err.max()),
+                          "without_fp32_scope_mean_abs_err": float(err.mean())}))
+        torch.cuda.synchronize()
+
+
 def kernel_entry(name, source, replaces, launches, errs, rows):
     """One entry of the ``kernels`` line: the sums over the timed rows."""
     from fft_conv_tpu_torch.kernels.costs import bound
@@ -1885,6 +2051,8 @@ def main() -> int:
     phase_streaming(torch, inputs, shapes)
     phase_harness(torch, inputs, shapes)
     phase_checkpoint(torch, inputs)
+    # phase 9: impl="tiled" (cuBLAS products, no kernel)
+    phase_tiled(torch, inputs, inputs2d, inputs3d)
     check("jax" not in sys.modules and "fft_conv_tpu" not in sys.modules,
           "the port pulled in JAX or the JAX package")
 

@@ -6,14 +6,15 @@ transposed convolution as hand-written CUDA kernels for Hopper
 (``kernels/``). It imports torch and numpy, and nothing of JAX or of the JAX
 package.
 
-Public API mirrors ``fft_conv_tpu/__init__.py``, limited to what the port
-provides so far: the ``functional`` and ``nn`` submodules, ``fft_conv``,
-``fft_conv_transpose``, ``complex_matmul`` and the 1D, 2D and 3D layers.
-The serving plans are ``ops.plan_fft_conv`` and
-``ops.plan_fft_conv_transpose``, the streaming step
-``ops.streaming_conv1d_step``, the checkpoints ``utils.checkpoint`` and the
-measurement harness ``bench`` (aliased as ``benchmark_utils``), as in the
-JAX package.
+Public API mirrors ``fft_conv_tpu/__init__.py``: the ``functional`` and
+``nn`` submodules, ``fft_conv``, ``fft_conv_transpose``, ``complex_matmul``
+and the 1D, 2D and 3D layers, with every ``impl`` ("auto", "xla", "fused",
+"tiled"; the overlap-save tiling is ``ops.tiled``, on the split re/im
+DFT products of ``ops.spectral``). The serving plans are
+``ops.plan_fft_conv`` and ``ops.plan_fft_conv_transpose``, the streaming
+step ``ops.streaming_conv1d_step``, the checkpoints ``utils.checkpoint`` and
+the measurement harness ``bench`` (aliased as ``benchmark_utils``), as in
+the JAX package. Not ported yet: ``parallel`` (sharding) and the examples.
 """
 
 from . import functional, nn

@@ -15,7 +15,9 @@ The port provides the 1D, 2D and 3D layers. Every layer defaults to
 transposed or not, and ``FFTConv3d`` run their fused kernels where a plan
 fits; ``FFTConvTranspose3d`` runs the composed path, as the JAX package's
 "auto" does, and its fused route (kernels B3 and B4) under
-``impl="fused"``. On a CPU signal "auto" is the composed path.
+``impl="fused"``. On a CPU signal "auto" is the composed path. Any layer
+runs ``impl="tiled"`` (the overlap-save tiles of ``ops/tiled.py``) on
+either device.
 """
 
 from typing import Iterable, Optional, Union

@@ -16,8 +16,10 @@ signal is a CUDA tensor": ``auto`` sends a 1D, 2D or 3D CUDA signal whose
 plan fits to the fused kernel (in 3D a single-W-block plan only), and a 1D
 or 2D transposed conv on a CUDA signal to the fused transposed path when
 the stuffed full correlation fits. ``fft_conv_transpose(impl="fused")`` runs
-the fused transposed path in 1D, 2D and 3D. bfloat16/float16 inputs are
-computed in float32 and cast back.
+the fused transposed path in 1D, 2D and 3D. ``impl="tiled"`` runs the
+overlap-save DFT-matmul tiling (``ops/tiled.py``) on either device; unlike
+the JAX package on a TPU, ``auto`` never picks it (its cost model was fit
+to a TPU). bfloat16/float16 inputs are computed in float32 and cast back.
 """
 
 from typing import Iterable, Optional, Union
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.shapes import conv_transpose_output_shape, dilated_size, next_pow2, to_ntuple
+from .tiled import plan_tiles, tiled_valid_corr, untiled_shape
 
 # Composed-path FFT length policy:
 #   "even" — reference parity: round each padded spatial size up to even
@@ -205,8 +208,8 @@ def _freq_domain_conv(signal, kernel, fft_shape, groups):
 
     Conjugating the kernel spectrum makes this cross-correlation, matching
     torch's "convolution" convention (reference functional.py:68-75). The
-    JAX package's DFT-matmul branch (``ops/spectral.py``) runs only on a
-    TPU, so the port takes the FFT branch alone.
+    JAX package's DFT-matmul branch of this function runs only on a TPU
+    and is not carried, so the port lowers it to ``torch.fft`` alone.
     """
     in_dtype = signal.dtype
     if in_dtype in (torch.bfloat16, torch.float16):
@@ -257,9 +260,10 @@ def fft_conv(
     signals take the composed path), "xla" (always the composed path; the
     name is kept from the JAX package), "fused" (require the fused path: the
     CUDA kernel on a CUDA tensor, its plain PyTorch version on a CPU tensor;
-    ValueError if no plan fits), "tiled" (not ported yet:
-    NotImplementedError). In 3D a 'v4' plan (KD <= 9) runs kernel B3 and a
-    'tap' plan (KD > 9, or where v4 does not fit) kernel B4.
+    ValueError if no plan fits), "tiled" (overlap-save DFT-matmul tiles,
+    ``ops/tiled.py``, on either device; the composed path where the tile
+    plan is the whole signal). In 3D a 'v4' plan (KD <= 9) runs kernel B3
+    and a 'tap' plan (KD > 9, or where v4 does not fit) kernel B4.
     """
     n = _check_rank(signal, kernel, "(out_channels, in_channels/groups, *k)")
     stride_ = to_ntuple(stride, n)
@@ -280,11 +284,6 @@ def fft_conv(
         )
     if impl not in IMPLS:
         raise ValueError(f"unknown impl: {impl!r}")
-    if impl == "tiled":
-        raise NotImplementedError(
-            "impl='tiled' (overlap-save tiling, fft_conv_tpu/ops/tiled.py) is not "
-            "ported yet"
-        )
     if impl == "fused" and n > 3:
         raise ValueError("impl='fused' requires 1D/2D/3D input")
     wants_fused = impl == "fused" or (impl == "auto" and signal.is_cuda)
@@ -331,13 +330,21 @@ def fft_conv(
 
     return _fft_conv(
         signal, kernel, bias, stride_, padding_, dilation_, int(groups),
-        padding_mode, fft_policy or DEFAULT_FFT_POLICY,
+        padding_mode, fft_policy or DEFAULT_FFT_POLICY, impl == "tiled",
     )
+
+
+def _tiles_pay(spatial, k_spatial, out_len, channels) -> bool:
+    """False for a degenerate tile plan (every axis one whole transform):
+    whole-axis dense DFT products are strictly worse than the FFT path, so
+    ``impl="tiled"`` falls through to it, as in the JAX package."""
+    tile, _, _ = plan_tiles(spatial, k_spatial, out_len, channels)
+    return tile != untiled_shape(spatial, k_spatial, out_len)
 
 
 def _fft_conv(
     signal, kernel, bias, stride_, padding_, dilation_, groups, padding_mode,
-    fft_policy,
+    fft_policy, use_tiled=False,
 ):
     n = signal.ndim - 2
     kernel = _dilate_kernel(kernel, dilation_)
@@ -351,15 +358,21 @@ def _fft_conv(
             f"{tuple(kernel.shape[2:])}"
         )
 
-    # circular transform at >= signal length; the crop never touches the
-    # wraparound (reference functional.py:64-66)
-    fft_shape = tuple(_fft_length(s, fft_policy) for s in signal.shape[2:])
-    out = _freq_domain_conv(signal, kernel, fft_shape, groups)
-    # crop to the valid region [0 : s-k+1 : stride] (functional.py:76-82)
-    out = out[
-        (slice(None), slice(None))
-        + tuple(slice(0, v, t) for v, t in zip(valid, stride_))
-    ]
+    spatial, k_spatial = tuple(signal.shape[2:]), tuple(kernel.shape[2:])
+    channels = (signal.shape[0], signal.shape[1], kernel.shape[0])
+    if use_tiled and _tiles_pay(spatial, k_spatial, tuple(valid), channels):
+        out = tiled_valid_corr(signal, kernel, groups, out_len=tuple(valid))
+        out = out[(slice(None), slice(None)) + tuple(slice(None, None, t) for t in stride_)]
+    else:
+        # circular transform at >= signal length; the crop never touches the
+        # wraparound (reference functional.py:64-66)
+        fft_shape = tuple(_fft_length(s, fft_policy) for s in spatial)
+        out = _freq_domain_conv(signal, kernel, fft_shape, groups)
+        # crop to the valid region [0 : s-k+1 : stride] (functional.py:76-82)
+        out = out[
+            (slice(None), slice(None))
+            + tuple(slice(0, v, t) for v, t in zip(valid, stride_))
+        ]
 
     if bias is not None:
         out = out + bias.to(out.dtype).reshape((1, -1) + (1,) * n)
@@ -390,8 +403,10 @@ def fft_conv_transpose(
     it. "auto" on a 1D or 2D CUDA signal runs the same route when the
     stuffed full correlation fits, and the composed path when it does not;
     on a CPU signal, and on a 3D CUDA signal, "auto" runs the composed path,
-    as "xla" does and as the JAX package's "auto" does. "tiled" is not
-    ported yet and raises NotImplementedError.
+    as "xla" does and as the JAX package's "auto" does. "tiled" runs the
+    overlap-save tiling on the stuffed signal (outputs [0, out + padding) of
+    its zero-extended correlation, the first ``padding`` cropped), or the
+    composed path where the tile plan is the whole signal.
 
     Reference semantics: functional.py:92-176. Kernel flip + group transpose
     turns transposed conv into a regular FFT correlation; signal interior
@@ -418,11 +433,6 @@ def fft_conv_transpose(
         )
     if impl not in IMPLS:
         raise ValueError(f"unknown impl: {impl!r}")
-    if impl == "tiled":
-        raise NotImplementedError(
-            "impl='tiled' (overlap-save tiling, fft_conv_tpu/ops/tiled.py) is not "
-            "ported yet"
-        )
     if impl == "fused" and n > 3:
         raise ValueError("impl='fused' requires 1D/2D/3D input")
     args = (signal, kernel, bias, padding_, stride_, dilation_, groups, output_padding_)
@@ -451,13 +461,13 @@ def fft_conv_transpose(
 
     return _fft_conv_transpose(
         signal, kernel, bias, stride_, padding_, output_padding_, dilation_,
-        int(groups), fft_policy or DEFAULT_FFT_POLICY,
+        int(groups), fft_policy or DEFAULT_FFT_POLICY, impl == "tiled",
     )
 
 
 def _fft_conv_transpose(
     signal, kernel, bias, stride_, padding_, output_padding_, dilation_, groups,
-    fft_policy,
+    fft_policy, use_tiled=False,
 ):
     n = signal.ndim - 2
     k_spatial = tuple(kernel.shape[2:])
@@ -469,20 +479,27 @@ def _fft_conv_transpose(
     out_shape = conv_transpose_output_shape(
         signal.shape[2:], k_spatial, stride_, padding_, output_padding_, dilation_
     )
-    # FFT length >= linear-conv length s + k - 1, rounded per policy; "even"
-    # reproduces the reference exactly (functional.py:143). It also covers
-    # the crop's end o + p: past the correlation, where output_padding runs
-    # beyond it, the samples are zeros (a wrap lands in the k - 1 leading
-    # zeros of the stuffed signal), as torch's conv_transpose gives them
-    fft_shape = tuple(
-        _fft_length(max(s + k - 1, o + p), fft_policy)
-        for s, k, o, p in zip(signal_.shape[2:], k_dil, out_shape, padding_)
-    )
-    out = _freq_domain_conv(signal_, kernel, fft_shape, groups)
+    out_full = tuple(o + p for o, p in zip(out_shape, padding_))
+    channels = (signal_.shape[0], signal_.shape[1], kernel.shape[0])
+    if use_tiled and _tiles_pay(tuple(signal_.shape[2:]), k_dil, out_full, channels):
+        # outputs [0, out + p) of the zero-extended correlation
+        out = tiled_valid_corr(signal_, kernel, groups, out_len=out_full)
+    else:
+        # FFT length >= linear-conv length s + k - 1, rounded per policy;
+        # "even" reproduces the reference exactly (functional.py:143). It
+        # also covers the crop's end o + p: past the correlation, where
+        # output_padding runs beyond it, the samples are zeros (a wrap lands
+        # in the k - 1 leading zeros of the stuffed signal), as torch's
+        # conv_transpose gives them
+        fft_shape = tuple(
+            _fft_length(max(s + k - 1, o), fft_policy)
+            for s, k, o in zip(signal_.shape[2:], k_dil, out_full)
+        )
+        out = _freq_domain_conv(signal_, kernel, fft_shape, groups)
     # crop [p : out+p] per dim (functional.py:163-169)
     out = out[
         (slice(None), slice(None))
-        + tuple(slice(p, s + p) for s, p in zip(out_shape, padding_))
+        + tuple(slice(p, o) for p, o in zip(padding_, out_full))
     ]
 
     if bias is not None:

@@ -15,9 +15,10 @@ Plan tiers, most to least specialised:
   3. Everything else bakes the kernel's conjugated ``rfftn`` spectrum and
      runs the signal's transforms per call (``torch.fft``), with any stride,
      dilation, groups and padding mode.
-The JAX package's tier 2 (split re/im matmul-DFT spectra for short axes) is
-not ported yet: the configs it serves take tier 3 here, which computes the
-same function.
+The JAX package's tier 2 (split re/im DFT-matmul spectra for short axes,
+gated to a TPU) is not carried: the configs it serves take tier 3 here,
+which computes the same function and ran faster on an H100 (ROADMAP.md,
+section C).
 """
 
 from typing import Iterable, Optional, Union

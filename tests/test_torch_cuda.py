@@ -3,7 +3,9 @@ B4 and the x-pack kernel B6) against their plain versions, the serving
 plans, and the routes that only a CUDA tensor takes. B1 is also held at the
 edges of its blocking: V1 = 1, a single block, Cin = 3 with groups = 3 and
 a stuffed transposed length. A stream of chunks launches B1 once per chunk,
-and a checkpoint round trip on the card is exact.
+and a checkpoint round trip on the card is exact. ``impl="tiled"`` runs its
+DFT products in FP32 on the card, forward and backward, under a global TF32
+setting too, and a tiled call replays in a CUDA graph.
 
 Every test here is marked ``cuda`` and skips without a card. The file imports
 no JAX, so it also runs where JAX is not installed:
@@ -681,3 +683,74 @@ def test_checkpoint_round_trip_on_cuda(cuda, tmp_path):
     (x,) = _tensors(cuda, 28, (2, 8, 32768))
     with torch.no_grad():
         assert torch.equal(fresh(x), layer(x))
+
+
+def _launch_counts():
+    torch.cuda.synchronize()
+    return (fused1d.launches, fused2d.launches, fused2d.launches_v3, fused3d.launches,
+            fused3d.launches_tap, fused3d.launches_pack)
+
+
+_TF32_SETTINGS = {
+    "allow_tf32": lambda m: setattr(m, "allow_tf32", True),
+    "medium": lambda m: torch.set_float32_matmul_precision("medium"),
+    "fp32_precision tf32": lambda m: setattr(m, "fp32_precision", "tf32"),
+}
+
+
+@pytest.fixture(params=list(_TF32_SETTINGS))
+def tf32_allowed(request):
+    """TF32 allowed globally through the legacy flag, the precision string
+    or the newer per-backend flag; torch's defaults after."""
+    m = torch.backends.cuda.matmul
+    _TF32_SETTINGS[request.param](m)
+    try:
+        yield m
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        m.fp32_precision = "none"
+
+
+@pytest.mark.parametrize("fn,shapes,kw", [
+    ("fft_conv", ((2, 4, 256, 250), (4, 2, 9, 7), (4,)), dict(padding=2, stride=(1, 2), groups=2)),
+    ("fft_conv_transpose", ((2, 4, 90, 84), (4, 3, 9, 7), (3,)),
+     dict(stride=2, padding=1, output_padding=1)),
+])
+def test_tiled_on_cuda_runs_fp32_products_under_tf32(cuda, tf32_allowed, fn, shapes, kw):
+    """A 2D tiled call (several tiles a dim) with TF32 allowed globally
+    stays within the bar of the composed path, launches no fused kernel and
+    leaves the caller's setting as it found it."""
+    x, w, b = _tensors(cuda, 40, *shapes)
+    y_ref = getattr(ft, fn)(x, w, b, impl="xla", **kw)
+    before = _launch_counts()
+    y = getattr(ft, fn)(x, w, b, impl="tiled", **kw)
+    assert tf32_allowed.fp32_precision == "tf32"
+    assert _launch_counts() == before
+    _assert_close_scaled(y.cpu().numpy(), y_ref.cpu().numpy())
+
+
+def test_tiled_call_replays_in_a_cuda_graph(cuda):
+    x, w = _tensors(cuda, 41, (2, 8, 512, 512), (8, 8, 16, 16))
+    y = ft.fft_conv(x, w, impl="tiled")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_graph = ft.fft_conv(x, w, impl="tiled")
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y_graph, y)
+    _assert_close_scaled(y.cpu().numpy(), ft.fft_conv(x, w, impl="xla").cpu().numpy())
+
+
+def test_tiled_gradients_on_cuda_under_tf32(cuda, tf32_allowed):
+    """The products' backward, which runs outside the forward's FP32 scope,
+    enters its own: a tiled call's gradients stay within the bar of the
+    composed path's with TF32 allowed globally."""
+    x, w = _tensors(cuda, 42, (2, 4, 256, 250), (6, 4, 9, 7))  # tiles of 96 x 128
+    grads = []
+    for impl in ("tiled", "xla"):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (ft.fft_conv(xg, wg, impl=impl) ** 2).sum().backward()
+        grads.append((xg.grad, wg.grad))
+    assert tf32_allowed.fp32_precision == "tf32"
+    for got, want in zip(*grads):
+        _assert_close_scaled(got.cpu().numpy(), want.cpu().numpy())

@@ -210,9 +210,20 @@ def test_fused_on_cpu_runs_the_plain_version():
 
 @pytest.mark.parametrize("fn", ["fft_conv", "fft_conv_transpose"])
 def test_tiled_is_not_ported(fn):
-    x, w = _arrays(9, (1, 2, 20), (2, 2, 3))
-    with pytest.raises(NotImplementedError, match=r"tiled\.py\) is not ported yet"):
-        getattr(ft, fn)(torch.from_numpy(x), torch.from_numpy(w), impl="tiled")
+    """impl="tiled" runs the overlap-save tiles (a 1D plan of several tiles
+    here) and matches the JAX package's impl="tiled"."""
+    from fft_conv_tpu_torch.ops.tiled import plan_tiles, untiled_shape
+
+    x, w, b = _arrays(9, (2, 4, 3000), (4, 2, 200), (4,))
+    kw = dict(stride=2, padding=3, groups=2, impl="tiled")
+    if fn == "fft_conv_transpose":
+        kw["output_padding"] = 1
+    y_jax = getattr(fc, fn)(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), **kw)
+    y = getattr(ft, fn)(*map(torch.from_numpy, (x, w, b)), **kw)
+    _assert_close_scaled(y.numpy(), np.asarray(y_jax))
+    spatial, out = ((3006,), (2807,)) if fn == "fft_conv" else ((6198,), (6196,))
+    tile = plan_tiles(spatial, (200,), out, (2, 4, 4))[0]
+    assert tile != untiled_shape(spatial, (200,), out)
 
 
 @pytest.mark.parametrize("ndim", [2, 3])
@@ -234,16 +245,16 @@ def test_fused_2d_3d_raise_not_implemented(ndim):
 def test_fused_transpose_raises_not_implemented():
     """The fused 1D transposed route runs on a CPU tensor (B1's plain
     version on the stuffed signal); where no FFT size fits the stuffed
-    signal it raises ValueError, as the forward does, and only
-    impl="tiled" is still NotImplementedError."""
+    signal it raises ValueError, as the forward does; impl="tiled" runs
+    too (the composed path here, where one tile is the whole signal)."""
     x, w = torch.ones(1, 2, 20), torch.ones(2, 2, 3)
     y = ft.fft_conv_transpose(x, w, impl="fused")
     assert y.shape == (1, 2, 22)
     assert torch.allclose(y[:, :, 2:-2], torch.full_like(y[:, :, 2:-2], 6.0), rtol=1e-5)
     with pytest.raises(ValueError, match="no fused FFT configuration"):
         ft.fft_conv_transpose(torch.zeros(1, 1, 10), torch.zeros(1, 1, 8100), impl="fused")
-    with pytest.raises(NotImplementedError, match=r"tiled\.py\) is not ported yet"):
-        ft.fft_conv_transpose(x, w, impl="tiled")
+    assert torch.equal(ft.fft_conv_transpose(x, w, impl="tiled"),
+                       ft.fft_conv_transpose(x, w, impl="xla"))
 
 
 def test_fused_without_a_plan_raises_like_jax():
@@ -296,7 +307,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, fft_conv_tpu_torch, fft_conv_tpu_torch.kernels.fused1d, "
         "fft_conv_tpu_torch.kernels.fused2d, fft_conv_tpu_torch.kernels.fused3d, "
-        "fft_conv_tpu_torch.ops.spectral, "
+        "fft_conv_tpu_torch.ops.spectral, fft_conv_tpu_torch.ops.tiled, "
+        "fft_conv_tpu_torch.ops.plan, "
         "fft_conv_tpu_torch.utils.convert; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'fft_conv_tpu' or m.startswith('fft_conv_tpu.')]; "

@@ -101,6 +101,36 @@ def test_2d_transpose_layer_matches_jax(stride, padding, output_padding, dilatio
     _assert_almost_equal(y.numpy(), np.asarray(jax_layer(jnp.asarray(x))))
 
 
+@pytest.mark.parametrize("cls,args,kw,hw", [
+    ("FFTConv2d", (4, 6, (9, 7)), dict(padding=(3, 2), stride=(1, 2), groups=2), (256, 250)),
+    ("FFTConvTranspose2d", (4, 6, (7, 5)), dict(stride=2, padding=1, output_padding=1),
+     (90, 84)),
+])
+def test_2d_tiled_layers_match_jax(cls, args, kw, hw):
+    """The 2D layers with impl="tiled" (tiles of 96 x 48 and 192 x 48 here),
+    forward and gradients, the JAX layer's parameters carried by
+    ``params_from_jax``."""
+    jax_layer = getattr(fc.nn, cls)(*args, key=jax.random.key(7), impl="tiled", **kw)
+    layer = getattr(ft.nn, cls)(*args, impl="tiled", device="cpu", **kw)
+    weight, bias = params_from_jax(np.asarray(jax_layer.weight), np.asarray(jax_layer.bias),
+                                   device="cpu")
+    with torch.no_grad():
+        layer.weight.copy_(weight)
+        layer.bias.copy_(bias)
+    x = np.random.default_rng(8).standard_normal((2, 4) + hw).astype(np.float32)
+
+    def loss(m, s):
+        return (m(s) ** 2).mean()
+
+    g_layer, g_x = jax.grad(loss, argnums=(0, 1))(jax_layer, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    y = layer(xt)
+    _assert_close_scaled(y.detach().numpy(), np.asarray(jax_layer(jnp.asarray(x))))
+    (y ** 2).mean().backward()
+    _assert_close_scaled(layer.weight.grad.numpy(), np.asarray(g_layer.weight))
+    _assert_close_scaled(xt.grad.numpy(), np.asarray(g_x))
+
+
 def test_3d_slice_forward_matches_jax():
     """The 3D slice: FFTConv3d forward through the fused route on both sides
     (B3's plain version here, the Pallas kernel in interpret mode there)."""
