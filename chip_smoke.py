@@ -34,7 +34,13 @@ of ``ops/tiled.py``, cuBLAS products in FP32, no fused kernel) at the 2D
 rows, the 1D K=1024 row, the 2D transposed K=16 row, the 3D row (whose tile
 plan is the whole volume: the composed path) and an ``FFTConv2d`` layer,
 each held to the composed path, and a tiled call with TF32 allowed
-globally.
+globally. Then ``parallel`` starts a one-rank NCCL group and runs
+``fft_conv_tpu_torch.parallel`` on the mesh ``make_mesh()``: the sharded
+forward at the 1D K=1024, 2D K=16 and 3D K=8 rows (B1, B2, B3 once each),
+``tp_mode="in"`` and the transposed function at 1D K=256 and 2D K=16, each
+bit-equal to the unsharded call, a weight gradient, a one-shard
+overlap-save call (no kernel), a DP forward with no NCCL call, and the
+sharded call's time beside the unsharded one's.
 
 Every phase prints one line; any failed check raises and the script exits
 non-zero without a result. The last line is
@@ -1839,6 +1845,144 @@ def phase_tiled(torch, inputs1d, inputs2d, inputs3d):
         torch.cuda.synchronize()
 
 
+def phase_parallel(torch, inputs1d, inputs2d, inputs3d):
+    """Phase 10, ``fft_conv_tpu_torch.parallel`` on a one-rank NCCL group
+    (a FileStore in a temporary directory, no network) and the mesh
+    ``make_mesh()`` = (1, 1, 1) on the card, counted from zero:
+    fft_conv_sharded(impl="auto") at 1D K=1024, 2D K=16 and 3D K=8 (B1, B2,
+    B3 once each), tp_mode="in" at 1D K=256 (B1), fft_conv_transpose_sharded
+    at 1D K=256 and 2D K=16 (B1, B2); each output equal, bit for bit, to the
+    unsharded call on the same inputs, and within the bar of impl="xla".
+    The weight gradient through fft_conv_sharded(impl="fused") at 1D K=1024
+    within the bar of xla's; one-shard overlap-save at 1D K=1024 within the
+    bar of fft_conv with no fused kernel launched; no NCCL kernel and no
+    NCCL call in the DP forward (torch.profiler). Times: sharded_ms and
+    sharded_call_ms beside auto_ms and auto_call_ms at 1D K=1024 and 2D
+    K=16. The group is destroyed at the end."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from fft_conv_tpu_torch import fft_conv, fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused1d, fused2d, fused3d
+    from fft_conv_tpu_torch.parallel import (
+        fft_conv_sharded, fft_conv_spatial_sharded, fft_conv_transpose_sharded, make_mesh)
+
+    names = ("B1", "B2", "B5", "B3", "B4", "B6")
+
+    def counts():
+        torch.cuda.synchronize()
+        return dict(zip(names, (fused1d.launches, fused2d.launches, fused2d.launches_v3,
+                                fused3d.launches, fused3d.launches_tap,
+                                fused3d.launches_pack)))
+
+    x1, w1, b1, _ = inputs1d[1]     # K=1024
+    x0, w0, b0, _ = inputs1d[0]     # K=256
+    x2, w2, b2, _ = inputs2d[0]     # K=16
+    x3, w3, b3, _ = inputs3d[0]     # K=8
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            check(tuple(mesh.shape) == (1, 1, 1) and mesh.device_type == "cuda",
+                  f"make_mesh() gave {mesh}")
+            # (what, sharded call, the same call unsharded, xla's, the kernel it launches)
+            calls = [
+                ("fft_conv_sharded 1D K=1024", lambda: fft_conv_sharded(x1, w1, b1, mesh=mesh),
+                 lambda: fft_conv(x1, w1, b1), lambda: fft_conv(x1, w1, b1, impl="xla"), "B1"),
+                ("fft_conv_sharded 2D K=16", lambda: fft_conv_sharded(x2, w2, b2, mesh=mesh),
+                 lambda: fft_conv(x2, w2, b2), lambda: fft_conv(x2, w2, b2, impl="xla"), "B2"),
+                ("fft_conv_sharded 3D K=8", lambda: fft_conv_sharded(x3, w3, b3, mesh=mesh),
+                 lambda: fft_conv(x3, w3, b3), lambda: fft_conv(x3, w3, b3, impl="xla"), "B3"),
+                ("fft_conv_sharded 1D K=256 tp_mode='in'",
+                 lambda: fft_conv_sharded(x0, w0, b0, mesh=mesh, tp_mode="in"),
+                 lambda: fft_conv(x0, w0, b0), lambda: fft_conv(x0, w0, b0, impl="xla"), "B1"),
+                ("fft_conv_transpose_sharded 1D K=256",
+                 lambda: fft_conv_transpose_sharded(x0, w0, b0, mesh=mesh),
+                 lambda: fft_conv_transpose(x0, w0, b0),
+                 lambda: fft_conv_transpose(x0, w0, b0, impl="xla"), "B1"),
+                ("fft_conv_transpose_sharded 2D K=16",
+                 lambda: fft_conv_transpose_sharded(x2, w2, b2, mesh=mesh),
+                 lambda: fft_conv_transpose(x2, w2, b2),
+                 lambda: fft_conv_transpose(x2, w2, b2, impl="xla"), "B2"),
+            ]
+            fused1d.launches = fused2d.launches = fused2d.launches_v3 = 0
+            fused3d.launches = fused3d.launches_tap = fused3d.launches_pack = 0
+            path = dict.fromkeys(names, 0)
+            for what, sharded, unsharded, xla, kernel in calls:
+                before = counts()
+                y = sharded()
+                rose = {k: v - before[k] for k, v in counts().items()}
+                check(rose == {k: int(k == kernel) for k in names},
+                      f"{what} launched {rose}, not {kernel} once")
+                for k in names:
+                    path[k] += rose[k]
+                placements = [repr(p) for p in y.placements]
+                y = y.to_local()  # one rank: the local block is the whole
+                y_ref = unsharded()
+                check(torch.equal(y, y_ref), f"{what}: not bit-equal to the unsharded call")
+                mx, mean, _ = close_scaled(y, xla(), f"{what} vs xla")
+                print(json.dumps({"phase": "parallel", "case": what, "launches": rose[kernel],
+                                  "kernel": kernel, "placements": placements,
+                                  "bit_equal_to_unsharded": True,
+                                  "max_abs_err_vs_xla": mx, "mean_abs_err": mean}))
+            print(json.dumps({"phase": "main_path_counts", "kernels": "B1, B2, B3 (parallel)",
+                              "launches": path}))
+
+            # the weight gradient through the fused route
+            w = w1.clone().requires_grad_()
+            before = counts()
+            fft_conv_sharded(x1, w, b1, mesh=mesh, impl="fused").to_local().sum().backward()
+            check(counts()["B1"] - before["B1"] == 1, "the sharded fused call did not launch B1")
+            w_ref = w1.clone().requires_grad_()
+            fft_conv(x1, w_ref, b1, impl="xla").sum().backward()
+            gw_err, _, _ = close_scaled(w.grad, w_ref.grad, "sharded fused weight grad vs xla")
+            print(json.dumps({"phase": "parallel", "case": "fft_conv_sharded 1D K=1024 "
+                              "impl='fused', weight gradient", "max_abs_err_vs_xla": gw_err}))
+
+            # one-shard overlap-save: the composed path, no fused kernel
+            before = counts()
+            y = fft_conv_spatial_sharded(x1, w1, b1, mesh=mesh)
+            check(counts() == before, "overlap-save launched a fused kernel")
+            mx, mean, _ = close_scaled(y, fft_conv(x1, w1, b1, impl="xla"), "overlap-save vs xla")
+            print(json.dumps({"phase": "parallel", "case": "fft_conv_spatial_sharded 1D K=1024, "
+                              "one shard", "launches": 0, "max_abs_err_vs_xla": mx,
+                              "mean_abs_err": mean}))
+
+            # the DP forward makes no NCCL call and launches no NCCL kernel
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fft_conv_sharded(x1, w1, b1, mesh=mesh)
+                torch.cuda.synchronize()
+            nccl = sorted({e.name for e in prof.events() if "nccl" in e.name.lower()})
+            device = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            check(device and not nccl, f"the DP forward: NCCL events {nccl}, "
+                  f"{len(device)} device events")
+            print(json.dumps({"phase": "parallel", "case": "DP forward, torch.profiler",
+                              "nccl_events": nccl, "device_events": len(device)}))
+
+            # times, beside the unsharded auto call's, in the same phase
+            for what, (x, wt, bias) in (("1D K=1024", (x1, w1, b1)), ("2D K=16", (x2, w2, b2))):
+                def sharded():
+                    return fft_conv_sharded(x, wt, bias, mesh=mesh)
+
+                def auto():
+                    return fft_conv(x, wt, bias, impl="auto")
+
+                # the DTensor wrapper is host work only: a CUDA graph captures the call
+                row = {"case": what, "sharded_ms": device_ms(sharded), "auto_ms": device_ms(auto),
+                       "sharded_call_ms": call_ms(sharded), "auto_call_ms": call_ms(auto)}
+                row["sharded_over_auto"] = row["sharded_ms"] / row["auto_ms"]
+                row["call_ms_added"] = row["sharded_call_ms"] - row["auto_call_ms"]
+                print(json.dumps({"phase": "timing", "kernel": "B1" if x.ndim == 3 else "B2",
+                                  "path": "parallel", **row}))
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.synchronize()
+
+
 def kernel_entry(name, source, replaces, launches, errs, rows):
     """One entry of the ``kernels`` line: the sums over the timed rows."""
     from fft_conv_tpu_torch.kernels.costs import bound
@@ -2053,6 +2197,8 @@ def main() -> int:
     phase_checkpoint(torch, inputs)
     # phase 9: impl="tiled" (cuBLAS products, no kernel)
     phase_tiled(torch, inputs, inputs2d, inputs3d)
+    # phase 10: the parallel package on a one-rank NCCL group (B1, B2, B3)
+    phase_parallel(torch, inputs, inputs2d, inputs3d)
     check("jax" not in sys.modules and "fft_conv_tpu" not in sys.modules,
           "the port pulled in JAX or the JAX package")
 

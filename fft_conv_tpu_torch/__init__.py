@@ -14,7 +14,9 @@ DFT products of ``ops.spectral``). The serving plans are
 ``ops.plan_fft_conv`` and ``ops.plan_fft_conv_transpose``, the streaming
 step ``ops.streaming_conv1d_step``, the checkpoints ``utils.checkpoint`` and
 the measurement harness ``bench`` (aliased as ``benchmark_utils``), as in
-the JAX package. Not ported yet: ``parallel`` (sharding) and the examples.
+the JAX package, and the sharded convolution ``parallel`` (a
+``torch.distributed`` device mesh, DTensor placements). Not ported yet: the
+examples.
 """
 
 from . import functional, nn
