@@ -40,7 +40,17 @@ forward at the 1D K=1024, 2D K=16 and 3D K=8 rows (B1, B2, B3 once each),
 ``tp_mode="in"`` and the transposed function at 1D K=256 and 2D K=16, each
 bit-equal to the unsharded call, a weight gradient, a one-shard
 overlap-save call (no kernel), a DP forward with no NCCL call, and the
-sharded call's time beside the unsharded one's.
+sharded call's time beside the unsharded one's. Phase 11 runs the five
+examples of ``fft_conv_tpu_torch.examples`` at the JAX scripts' sizes, each
+counted from zero (B1 258 times in the audio example, B2 4 in the serving
+plans, B2 3 in the filter bank, none in the volume example, whose padded
+70^3 "auto" does not fuse, B1 10 in training), every output held to
+impl="xla", and the volume call once more under impl="fused" (B3 over two
+W blocks). Phase 12 runs the benchmark sweep
+(``bench.generate_benchmark_plot.run_sweep``) at 1D K in {1, 256, 3840},
+2D {1, 16, 34}, 3D {1, 8}: every row present but the fused rows no plan
+fits, finite times, the allocator read, B1, B2 and B3 launched, and the
+FFT methods held to the direct baselines at one K per rank.
 
 Every phase prints one line; any failed check raises and the script exits
 non-zero without a result. The last line is
@@ -50,6 +60,7 @@ It imports nothing of JAX: the port stands alone.
 
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -76,6 +87,19 @@ STREAM_CHUNK, STREAM_CHUNKS = 4096, 8
 # the harness phase's witness: graph replays timed together on the host clock
 WITNESS_REPLAYS = 200
 RAGGED_CHUNKS = (1000, 5000, 26768)
+# the launch counters' names, in _counts' order
+KERNEL_NAMES = ("B1", "B2", "B5", "B3", "B4", "B6")
+# the examples phase: the launches each example makes at the JAX scripts'
+# sizes (the audio example: one-shot, plan, 256 stream steps; training: two
+# layers' forwards in each of 5 steps, the backward composed; the volume's
+# padded 70^3 needs two W blocks, which "auto" does not fuse)
+EXAMPLE_LAUNCHES = {"long_audio_filter": {"B1": 258}, "serving_plans": {"B2": 4},
+                    "image_filter_bank_2d": {"B2": 3}, "volume_stencil_3d": {},
+                    "train_fft_cnn": {"B1": 10}}
+# the sweep phase: the kernel sizes swept per config (1D, 2D, 3D), and the
+# one per config at which the methods are held to the baselines
+SWEEP_KS = ((1, 256, 3840), (1, 16, 34), (1, 8))
+SWEEP_HELD_K = (256, 16, 8)
 
 
 def check(ok, message):
@@ -1865,17 +1889,8 @@ def phase_parallel(torch, inputs1d, inputs2d, inputs3d):
     from torch.profiler import ProfilerActivity, profile
 
     from fft_conv_tpu_torch import fft_conv, fft_conv_transpose
-    from fft_conv_tpu_torch.kernels import fused1d, fused2d, fused3d
     from fft_conv_tpu_torch.parallel import (
         fft_conv_sharded, fft_conv_spatial_sharded, fft_conv_transpose_sharded, make_mesh)
-
-    names = ("B1", "B2", "B5", "B3", "B4", "B6")
-
-    def counts():
-        torch.cuda.synchronize()
-        return dict(zip(names, (fused1d.launches, fused2d.launches, fused2d.launches_v3,
-                                fused3d.launches, fused3d.launches_tap,
-                                fused3d.launches_pack)))
 
     x1, w1, b1, _ = inputs1d[1]     # K=1024
     x0, w0, b0, _ = inputs1d[0]     # K=256
@@ -1908,16 +1923,15 @@ def phase_parallel(torch, inputs1d, inputs2d, inputs3d):
                  lambda: fft_conv_transpose(x2, w2, b2),
                  lambda: fft_conv_transpose(x2, w2, b2, impl="xla"), "B2"),
             ]
-            fused1d.launches = fused2d.launches = fused2d.launches_v3 = 0
-            fused3d.launches = fused3d.launches_tap = fused3d.launches_pack = 0
-            path = dict.fromkeys(names, 0)
+            _reset_counts()
+            path = dict.fromkeys(KERNEL_NAMES, 0)
             for what, sharded, unsharded, xla, kernel in calls:
-                before = counts()
+                before = _counts(torch)
                 y = sharded()
-                rose = {k: v - before[k] for k, v in counts().items()}
-                check(rose == {k: int(k == kernel) for k in names},
+                rose = {k: v - before[k] for k, v in _counts(torch).items()}
+                check(rose == {k: int(k == kernel) for k in KERNEL_NAMES},
                       f"{what} launched {rose}, not {kernel} once")
-                for k in names:
+                for k in KERNEL_NAMES:
                     path[k] += rose[k]
                 placements = [repr(p) for p in y.placements]
                 y = y.to_local()  # one rank: the local block is the whole
@@ -1933,9 +1947,10 @@ def phase_parallel(torch, inputs1d, inputs2d, inputs3d):
 
             # the weight gradient through the fused route
             w = w1.clone().requires_grad_()
-            before = counts()
+            before = _counts(torch)
             fft_conv_sharded(x1, w, b1, mesh=mesh, impl="fused").to_local().sum().backward()
-            check(counts()["B1"] - before["B1"] == 1, "the sharded fused call did not launch B1")
+            check(_counts(torch)["B1"] - before["B1"] == 1,
+                  "the sharded fused call did not launch B1")
             w_ref = w1.clone().requires_grad_()
             fft_conv(x1, w_ref, b1, impl="xla").sum().backward()
             gw_err, _, _ = close_scaled(w.grad, w_ref.grad, "sharded fused weight grad vs xla")
@@ -1943,9 +1958,9 @@ def phase_parallel(torch, inputs1d, inputs2d, inputs3d):
                               "impl='fused', weight gradient", "max_abs_err_vs_xla": gw_err}))
 
             # one-shard overlap-save: the composed path, no fused kernel
-            before = counts()
+            before = _counts(torch)
             y = fft_conv_spatial_sharded(x1, w1, b1, mesh=mesh)
-            check(counts() == before, "overlap-save launched a fused kernel")
+            check(_counts(torch) == before, "overlap-save launched a fused kernel")
             mx, mean, _ = close_scaled(y, fft_conv(x1, w1, b1, impl="xla"), "overlap-save vs xla")
             print(json.dumps({"phase": "parallel", "case": "fft_conv_spatial_sharded 1D K=1024, "
                               "one shard", "launches": 0, "max_abs_err_vs_xla": mx,
@@ -1980,6 +1995,267 @@ def phase_parallel(torch, inputs1d, inputs2d, inputs3d):
                                   "path": "parallel", **row}))
         finally:
             dist.destroy_process_group()
+    torch.cuda.synchronize()
+
+
+def _counts(torch):
+    """The six launch counters (B1, B2, B5, B3, B4, B6), after a sync."""
+    from fft_conv_tpu_torch.kernels import fused1d, fused2d, fused3d
+
+    torch.cuda.synchronize()
+    return dict(zip(KERNEL_NAMES, (fused1d.launches, fused2d.launches, fused2d.launches_v3,
+                                   fused3d.launches, fused3d.launches_tap,
+                                   fused3d.launches_pack)))
+
+
+def _reset_counts():
+    from fft_conv_tpu_torch.kernels import fused1d, fused2d, fused3d
+
+    fused1d.launches = fused2d.launches = fused2d.launches_v3 = 0
+    fused3d.launches = fused3d.launches_tap = fused3d.launches_pack = 0
+
+
+def _errors(pairs):
+    """{name: [max abs err, mean abs err]} of each (name, output, impl="xla"
+    reference) pair, each within the bar."""
+    errs = {}
+    for what, y, y_ref in pairs:
+        mx, mean, _ = close_scaled(y, y_ref, what)
+        errs[what] = [mx, mean]
+    return errs
+
+
+def phase_examples(torch):
+    """Phase 11, the five examples of ``fft_conv_tpu_torch.examples`` at the
+    JAX scripts' sizes on the card, each counted from zero: every output
+    within the bar of the same calls under impl="xla", the launches each
+    example must make (EXAMPLE_LAUNCHES), and the example's main call timed.
+    Then the volume example's call under impl="fused" (B3 over two W
+    blocks), held to the composed path."""
+    import torch.nn.functional as TF
+
+    from fft_conv_tpu_torch import FFTConv1d, fft_conv, fft_conv_transpose
+    from fft_conv_tpu_torch.examples import (
+        image_filter_bank_2d, long_audio_filter, serving_plans, train_fft_cnn,
+        volume_stencil_3d)
+    from fft_conv_tpu_torch.utils.convert import module_from_jax_state
+
+    def layer_errors(what, layer, x, pad, y):
+        # the layer's output and its loss's gradients against xla's
+        w = layer.weight.detach().clone().requires_grad_()
+        b = layer.bias.detach().clone().requires_grad_()
+        y_ref = fft_conv(x, w, b, padding=pad, impl="xla")
+        (y_ref ** 2).mean().backward()
+        return [(f"{what} forward", y, y_ref),
+                (f"{what} weight grad", layer.weight.grad, w.grad),
+                (f"{what} bias grad", layer.bias.grad, b.grad)]
+
+    def audio(r):
+        taps = r["fir"].shape[-1]
+        x, fir = r["audio"], r["fir"]
+        y_ref = fft_conv(x, fir, padding=taps // 2, impl="xla")
+        stream_ref = fft_conv(TF.pad(x, (taps - 1, 0)), fir, impl="xla")
+        pairs = [("one-shot", r["filtered"], y_ref), ("planned", r["served"], y_ref),
+                 ("streamed", r["streamed"], stream_ref)]
+        return pairs, lambda: fft_conv(x, fir, padding=taps // 2)
+
+    def serving(r):
+        check(r["rejected"] is not None, "the wrong-shape call was not rejected")
+        up_image = r["small"].shape[-1]
+        feats = fft_conv(r["images"], r["bank"], r["bias"], padding=r["bank"].shape[-1] // 2,
+                         impl="xla")
+
+        def up_ref(x):
+            return fft_conv_transpose(x, r["up_k"], stride=2, padding=1, impl="xla")
+
+        head = up_ref(torch.tanh(feats)[:, :r["bank"].shape[0], :up_image, :up_image])
+        pairs = [("planned conv", r["feats"], feats),
+                 ("planned transpose", r["big"], up_ref(r["small"])),
+                 ("composed pipeline", r["head"], head)]
+        return pairs, lambda: r["conv"](r["images"])
+
+    def filter_bank(r):
+        pad = r["bank"].shape[-1] // 2
+        pairs = [("responses", r["responses"],
+                  fft_conv(r["images"], r["bank"], padding=pad, impl="xla"))]
+        pairs += layer_errors("FFTConv2d", r["layer"], r["images"], pad, r["y"])
+        return pairs, lambda: fft_conv(r["images"], r["bank"], padding=pad)
+
+    def volume(r):
+        pad = r["psf"].shape[-1] // 2
+        pairs = [("smoothed", r["smoothed"],
+                  fft_conv(r["volumes"], r["psf"], padding=pad, impl="xla"))]
+        pairs += layer_errors("FFTConv3d", r["layer"], r["volumes"], pad, r["y"])
+        return pairs, lambda: fft_conv(r["volumes"], r["psf"], padding=pad)
+
+    def train(r):
+        # the same five steps from the same parameters, every layer on xla
+        k = r["model"]["conv1"].kernel_size[0]
+        hidden = r["model"]["conv1"].out_channels
+        model = torch.nn.ModuleDict({
+            "conv1": FFTConv1d(3, hidden, k, padding=k // 2, impl="xla", device=r["x"].device),
+            "conv2": FFTConv1d(hidden, 1, k, padding=k // 2, impl="xla", device=r["x"].device)})
+        module_from_jax_state(model, r["initial_state"])
+        opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+        losses = []
+        for _ in r["losses"]:
+            opt.zero_grad()
+            loss = torch.mean((model["conv2"](torch.relu(model["conv1"](r["x"])))
+                               - r["target"]) ** 2)
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        pairs = [("losses", torch.tensor(r["losses"], dtype=torch.float64),
+                  torch.tensor(losses, dtype=torch.float64))]
+        trained = model.state_dict()
+        pairs += [(f"trained {name}", value, trained[name])
+                  for name, value in r["model"].state_dict().items()]
+
+        def forward():
+            with torch.no_grad():
+                return r["model"]["conv2"](torch.relu(r["model"]["conv1"](r["x"])))
+
+        return pairs, forward
+
+    examples = [("long_audio_filter", long_audio_filter, audio),
+                ("serving_plans", serving_plans, serving),
+                ("image_filter_bank_2d", image_filter_bank_2d, filter_bank),
+                ("volume_stencil_3d", volume_stencil_3d, volume),
+                ("train_fft_cnn", train_fft_cnn, train)]
+    path = dict.fromkeys(KERNEL_NAMES, 0)
+    for name, module, reference in examples:
+        _reset_counts()
+        t0 = time.perf_counter()
+        r = module.run()
+        rose = _counts(torch)
+        run_s = time.perf_counter() - t0
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want.update(EXAMPLE_LAUNCHES[name])
+        check(rose == want, f"example {name} launched {rose}, not {want}")
+        for k in KERNEL_NAMES:
+            path[k] += rose[k]
+        pairs, main_call = reference(r)
+        errs = _errors(pairs)
+        print(json.dumps({"phase": "examples", "example": name,
+                          "launches": {k: v for k, v in rose.items() if v},
+                          "max_and_mean_abs_err_vs_xla": errs, "run_s": run_s,
+                          "call_ms": call_ms(main_call), "ms": device_ms(main_call)}))
+        if name == "volume_stencil_3d":
+            volume_r = r
+        del r
+        torch.cuda.synchronize()
+    print(json.dumps({"phase": "main_path_counts", "kernels": "examples", "launches": path}))
+
+    # the volume example's call under impl="fused": B3 over two W blocks
+    x, psf = volume_r["volumes"], volume_r["psf"]
+    pad = psf.shape[-1] // 2
+    _reset_counts()
+    y = fft_conv(x, psf, padding=pad, impl="fused")
+    rose = _counts(torch)
+    check(rose["B3"] >= 1 and sum(rose.values()) == rose["B3"],
+          f"the fused volume call launched {rose}, not B3 alone")
+    mx, mean, _ = close_scaled(y, volume_r["smoothed"], "fused volume vs composed")
+    print(json.dumps({"phase": "examples", "case": "volume_stencil_3d call, impl='fused' "
+                      "(70^3 padded, two W blocks)", "launches": rose["B3"], "kernel": "B3",
+                      "max_abs_err_vs_composed": mx, "mean_abs_err": mean,
+                      "fused_ms": device_ms(lambda: fft_conv(x, psf, padding=pad,
+                                                             impl="fused")),
+                      "auto_ms": device_ms(lambda: fft_conv(x, psf, padding=pad))}))
+    torch.cuda.synchronize()
+
+
+def phase_sweep(torch, rows1d, rows2d, rows3d):
+    """Phase 12, ``bench.generate_benchmark_plot.run_sweep`` on the card at
+    SWEEP_KS, counted from zero: every (config, K, method) row present but
+    the fused rows whose plan does not fit, each time finite and positive,
+    the allocator's peak read, B1, B2 and B3 launched; the checkpoint holds
+    the rows; ``plot`` writes a PNG or prints its skip line. At one K per
+    rank the methods are held to the baselines, and the sweep's fft_conv
+    time printed beside phase 5's auto_ms."""
+    import dataclasses
+    import io
+    import tempfile
+    from contextlib import redirect_stdout
+    from importlib.util import find_spec
+
+    from fft_conv_tpu_torch.bench import generate_benchmark_plot as gbp
+    from fft_conv_tpu_torch.kernels.fused1d import choose_fft_size
+    from fft_conv_tpu_torch.kernels.fused2d import fused2d_fits
+    from fft_conv_tpu_torch.kernels.fused3d import plan_3d_blocked
+
+    def fits(cfg, k, transposed):
+        # the gates of the fused wrappers, at the padded (stuffed) size
+        s = cfg.input_size + (2 * k - 2 if transposed else 0)
+        b, cin, cout = cfg.batch_size, cfg.in_channels, cfg.out_channels
+        if cfg.ndim == 1:
+            return choose_fft_size(k, s, cin, cout, batch=b) is not None
+        if cfg.ndim == 2:
+            return fused2d_fits(k, k, cin, cout, (s, s), batch=b)
+        return plan_3d_blocked(cin, cout, s, s, s, k, k, k) is not None
+
+    configs = [dataclasses.replace(c, kernel_sizes=ks) for c, ks in zip(gbp.CONFIGS, SWEEP_KS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint = os.path.join(tmp, "benchmark_results.json")
+        _reset_counts()
+        t0 = time.perf_counter()
+        rows = gbp.run_sweep(configs, checkpoint_path=checkpoint)
+        sweep_s = time.perf_counter() - t0
+        rose = _counts(torch)
+        with open(checkpoint) as f:
+            check(json.load(f) == rows, "the checkpoint does not hold the sweep's rows")
+        printed = io.StringIO()
+        with redirect_stdout(printed):
+            gbp.plot(rows, os.path.join(tmp, "benchmark.png"))
+    plot_line = printed.getvalue().strip()
+    check(plot_line == ("matplotlib unavailable; skipping plot" if find_spec("matplotlib") is None
+                        else f"wrote {os.path.join(tmp, 'benchmark.png')}"),
+          f"plot printed {plot_line!r}")
+    check(all(rose[k] > 0 for k in ("B1", "B2", "B3")), f"the sweep launched {rose}")
+    want = [(c.label, k, m) for c in configs for k in c.kernel_sizes for m in gbp._methods(c.ndim)
+            if "fused" not in m or fits(c, k, "transpose" in m)]
+    got = [(r["config"], r["kernel_size"], r["method"]) for r in rows]
+    check(got == want, f"the sweep's rows {got} are not {want}")
+    for r in rows:
+        check(r["time_mean_s"] is not None and math.isfinite(r["time_mean_s"])
+              and r["time_mean_s"] > 0, f"{r}: no finite positive time")
+        check(r["peak_mem_source"] == "cuda_allocator" and r["peak_mem_gib"] > 0,
+              f"{r}: the allocator's peak was not read")
+        check(r["platform"] == torch.cuda.get_device_name(), f"{r}: platform")
+
+    # at one K per rank: the FFT methods against the baselines
+    gen = torch.Generator().manual_seed(12)
+    held = {}
+    for cfg, k in zip(configs, SWEEP_HELD_K):
+        shape = (cfg.batch_size, cfg.in_channels) + (cfg.input_size,) * cfg.ndim
+        sig = torch.randn(shape, generator=gen).cuda()
+        ker = torch.randn((cfg.out_channels, cfg.in_channels) + (k,) * cfg.ndim,
+                          generator=gen).cuda()
+        ker_t = ker.transpose(0, 1).contiguous()
+        bias = torch.randn(cfg.out_channels, generator=gen).cuda()
+        methods = gbp._methods(cfg.ndim)
+        naive = methods["naive_conv"](sig, ker, bias)
+        naive_t = methods["naive_conv_transpose"](sig, ker_t, bias)
+        for m in ("fft_conv", "fft_conv_fused"):
+            held[f"{cfg.label} K={k} {m}"] = close_scaled(
+                methods[m](sig, ker, bias), naive, f"sweep {cfg.label} K={k} {m}")[0]
+        for m in ("fft_conv_transpose", "fft_conv_transpose_fused"):
+            held[f"{cfg.label} K={k} {m}"] = close_scaled(
+                methods[m](sig, ker_t, bias), naive_t, f"sweep {cfg.label} K={k} {m}")[0]
+    phase5 = {("1D", r["K"]): r["auto_ms"] for r in rows1d}
+    phase5.update({("2D", r["K"]): r["auto_ms"] for r in rows2d})
+    phase5.update({("3D", r["K"]): r["auto_ms"] for r in rows3d})
+    beside = [{"config": r["config"], "K": r["kernel_size"],
+               "sweep_fft_conv_ms": r["time_mean_s"] * 1e3,
+               "phase5_auto_ms": phase5[(r["config"], r["kernel_size"])]}
+              for r in rows if r["method"] == "fft_conv"
+              and (r["config"], r["kernel_size"]) in phase5]
+    print(json.dumps({"phase": "sweep", "rows": len(rows), "sweep_s": sweep_s,
+                      "launches": {k: v for k, v in rose.items() if v},
+                      "max_abs_err_vs_baseline": held, "plot": plot_line,
+                      "fft_conv_beside_auto": beside}))
+    print(json.dumps({"phase": "sweep", "ms": {
+        f"{r['config']} K={r['kernel_size']} {r['method']}": r["time_mean_s"] * 1e3
+        for r in rows}}))
     torch.cuda.synchronize()
 
 
@@ -2199,6 +2475,10 @@ def main() -> int:
     phase_tiled(torch, inputs, inputs2d, inputs3d)
     # phase 10: the parallel package on a one-rank NCCL group (B1, B2, B3)
     phase_parallel(torch, inputs, inputs2d, inputs3d)
+    # phase 11: the five examples at the JAX scripts' sizes
+    phase_examples(torch)
+    # phase 12: the benchmark sweep at SWEEP_KS
+    phase_sweep(torch, shapes, rows2d, rows3d)
     check("jax" not in sys.modules and "fft_conv_tpu" not in sys.modules,
           "the port pulled in JAX or the JAX package")
 

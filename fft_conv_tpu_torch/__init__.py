@@ -14,9 +14,10 @@ DFT products of ``ops.spectral``). The serving plans are
 ``ops.plan_fft_conv`` and ``ops.plan_fft_conv_transpose``, the streaming
 step ``ops.streaming_conv1d_step``, the checkpoints ``utils.checkpoint`` and
 the measurement harness ``bench`` (aliased as ``benchmark_utils``), as in
-the JAX package, and the sharded convolution ``parallel`` (a
-``torch.distributed`` device mesh, DTensor placements). Not ported yet: the
-examples.
+the JAX package, the sharded convolution ``parallel`` (a
+``torch.distributed`` device mesh, DTensor placements), the benchmark sweep
+``bench.generate_benchmark_plot`` and the JAX package's five example
+scripts as ``examples``.
 """
 
 from . import functional, nn
