@@ -80,6 +80,21 @@ BENCH_SHAPES_3D = [(2, 8, 8, 64, 64, 64, 8)]
 BENCH_SHAPES_3D_TAP = [(2, 8, 8, 64, 64, 64, 10)]
 # the transposed 3D calls: the benchmark row (B3, two W blocks) and K=10 (B4)
 TRANSPOSED_3D_K = (8, 10)
+# (x shape, kernel shape, groups, case): the factored H/W kernels of B3 and B4
+# at the H they take besides the rows' 64, at odd D and odd OD, and at a
+# clamped third W block (start 86 of W = 150)
+FACTORED_3D = [
+    ((2, 8, 13, 16, 20), (8, 8, 3, 3, 3), 1, "H=16, D=13 (OD 11)"),
+    ((2, 8, 18, 32, 40), (8, 4, 4, 5, 5), 2, "H=32, D=18 (OD 15), groups=2"),
+    ((1, 4, 11, 128, 64), (4, 4, 5, 7, 3), 1, "H=128, D=11 (OD 7)"),
+    ((2, 4, 9, 64, 150), (4, 4, 3, 3, 7), 1, "H=64, W=150 in 3 W blocks, D=9 (OD 7)"),
+]
+FACTORED_3D_TAP = [
+    ((2, 4, 21, 16, 12), (4, 4, 11, 3, 3), 1, "H=16, D=21 (OD 11)"),
+    ((2, 4, 24, 32, 30), (4, 4, 10, 5, 3), 1, "H=32, D=24 (OD 15)"),
+    ((1, 4, 13, 128, 20), (4, 4, 10, 5, 5), 1, "H=128, D=13 (OD 4)"),
+    ((2, 4, 20, 64, 150), (4, 4, 12, 3, 7), 1, "H=64, W=150 in 3 W blocks, OD=9"),
+]
 WARMUP, ITERS, GRAPH_REPS = 5, 30, 20
 # the streaming phase: each 1D row's 32768 samples as 8 frames of 4096, as a
 # server filters a long audio signal, and at K=1024 a ragged split of them
@@ -232,6 +247,24 @@ def ptxas_spills(log):
             spills[fn] = (int(m.group(1)), int(m.group(2)))
             fn = None
     return spills
+
+
+def ptxas_registers(log):
+    """{kernel: registers a thread} from nvcc's -Xptxas -v output, each
+    kernel named by its mangled name from its identifier to its template
+    arguments (e.g. fused3d_hw_forward_fILi64ELi2ELb0EE: <64, 2, false>)."""
+    import re
+
+    regs, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = re.sub(r"^.*?\d+(fused\dd_)", r"\1", m.group(1)).split("Ev", 1)[0]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+            fn = None
+    return regs
 
 
 def check_fused2d(torch, dev, gen):
@@ -692,9 +725,11 @@ def check_fused3d(torch, dev, gen):
     groups=2, at odd sizes with KD=9 (the hop edge), through
     fft_conv3d_fused's argument surface (stride, dilation, reflect padding),
     with W cut into 4 overlap-save blocks, at H = 226 and 454 (2 and 1 slabs
-    a block), at the stuffed 78^3 volume of the transposed K=8 call, and
-    with the items split over several launches. Returns the row's inputs and
-    its max abs errors."""
+    a block of the dense H/W kernels), at the stuffed 78^3 volume of the
+    transposed K=8 call, at H = 16, 32 and 128 (the factored H/W kernels,
+    like the row's H = 64) with odd D and odd OD, at a clamped third W block,
+    and with the items split over several launches. Each case prints which
+    H/W kernels it ran. Returns the row's inputs and its max abs errors."""
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import functional as F
 
@@ -711,6 +746,7 @@ def check_fused3d(torch, dev, gen):
         mx, mean, sigma = close_scaled(y, fused3d._fused3d_forward_reference(x, wt, groups),
                                        f"B3 vs plain, {what}")
         print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B3", "case": what,
+                          "h_path": fused3d._h_path(x.shape[3]),
                           "max_abs_err": mx, "mean_abs_err": mean, "sigma": sigma,
                           "bar_max": 1.2e-4 * sigma, "bar_mean": 2e-5 * sigma, **extra}))
         return mx
@@ -740,6 +776,10 @@ def check_fused3d(torch, dev, gen):
     vs_plain(randn(1, 2, 12, 226, 64), randn(2, 2, 3, 3, 3) / 5.0, 1, "H=226 (NBH 114, SB=2)")
     vs_plain(randn(1, 2, 12, 454, 64), randn(2, 2, 3, 3, 3) / 5.0, 1, "H=454 (NBH 228, SB=1)")
     vs_plain(randn(2, 8, 78, 78, 78), wt, 1, "stuffed 78^3, K=8, 2 W blocks")
+    # the factored H/W kernels at their other H, a last slab paired with
+    # zeros in the forward (odd D), the inverse (odd OD) or both
+    for shape, k, groups, what in FACTORED_3D:
+        vs_plain(randn(*shape), randn(*k) / math.sqrt(math.prod(k[1:])), groups, what)
 
     xs, ws = randn(2, 8, 40, 36, 44), randn(8, 8, 3, 3, 3) / 15.0
     kw = dict(padding=3, padding_mode="reflect", stride=(2, 1, 3), dilation=2)
@@ -921,10 +961,11 @@ def check_fused3d_tap(torch, dev, gen):
     at odd sizes with KD=11 and an odd H, with W cut into 4 overlap-save
     blocks at KD=12, through fft_conv3d_fused's argument surface (stride,
     dilation 2 taking K=6 to 11, reflect padding), at 64^3 K=11 (a plan the
-    JAX package refuses), at H = 226 and 454 (2 and 1 slabs a block), at the
-    stuffed 82^3 volume of the transposed K=10 call, and with the items
-    split over several launches. Returns the row's inputs and its max abs
-    errors."""
+    JAX package refuses), at H = 226 and 454 (2 and 1 slabs a block of the
+    dense H/W kernels), at the stuffed 82^3 volume of the transposed K=10
+    call, at H = 16, 32 and 128 with odd D or odd OD and at a clamped third
+    W block (the factored H/W kernels), and with the items split over
+    several launches. Returns the row's inputs and its max abs errors."""
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import functional as F
 
@@ -937,7 +978,8 @@ def check_fused3d_tap(torch, dev, gen):
         mx, mean, sigma = close_scaled(y, fused3d._fused3d_tap_reference(x, wt, groups),
                                        f"B4 vs plain, {what}")
         print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B4", "case": what,
-                          "max_abs_err": mx, "mean_abs_err": mean, "sigma": sigma,
+                          "h_path": fused3d._h_path(x.shape[3]), "max_abs_err": mx,
+                          "mean_abs_err": mean, "sigma": sigma,
                           "bar_max": 1.2e-4 * sigma, "bar_mean": 2e-5 * sigma, **extra}))
         return mx
 
@@ -966,6 +1008,8 @@ def check_fused3d_tap(torch, dev, gen):
     vs_plain(randn(1, 2, 16, 226, 64), randn(2, 2, 10, 3, 5) / 8.0, 1, "H=226 (NBH 114, SB=2)")
     vs_plain(randn(1, 2, 14, 454, 64), randn(2, 2, 10, 3, 3) / 8.0, 1, "H=454 (NBH 228, SB=1)")
     vs_plain(randn(2, 8, 82, 82, 82), wt, 1, "stuffed 82^3, K=10, 2 W blocks")
+    for shape, k, groups, what in FACTORED_3D_TAP:
+        vs_plain(randn(*shape), randn(*k) / math.sqrt(math.prod(k[1:])), groups, what)
 
     xs, ws = randn(2, 8, 40, 36, 44), randn(8, 8, 6, 3, 3) / 20.0
     kw = dict(padding=3, padding_mode="reflect", stride=(2, 1, 3), dilation=2)
@@ -1182,7 +1226,9 @@ def check_pack3d(torch, dev, gen, inputs3d):
     with NaN first so that an unwritten element shows: at the 3D row (PP =
     40 pads D from 64 to 80), at the stuffed 78^3 volume of the transposed
     call at K=8 (two W blocks, the clamped last one off 16 B alignment), with
-    groups=2 and at W < 64. At each, B3 reading the packed layout is held to
+    groups=2, at W < 64 and at H = 32 with an odd D and a clamped second W
+    block (the factored H/W kernels read the packed layout there as at the
+    3D row). At each, B3 reading the packed layout is held to
     B3's direct read (the same values in the same order, so expected bit for
     bit) and to the plain version. Returns the timing cases and B6's max abs
     errors."""
@@ -1191,16 +1237,20 @@ def check_pack3d(torch, dev, gen, inputs3d):
     from fft_conv_tpu_torch.kernels import fused3d
 
     x0, wt, _, _ = inputs3d[0]
+    # (case, x, kernel, groups, timed)
     cases = [
-        ("64^3 K=8", x0, wt, 1),
-        ("stuffed 78^3, K=8, 2 W blocks", TF.pad(x0, (7,) * 6), wt, 1),
-        ("64^3 K=8 groups=2", x0, wt[:, :4].contiguous(), 2),
+        ("64^3 K=8", x0, wt, 1, True),
+        ("stuffed 78^3, K=8, 2 W blocks", TF.pad(x0, (7,) * 6), wt, 1, True),
+        ("64^3 K=8 groups=2", x0, wt[:, :4].contiguous(), 2, False),
         ("D, H, W = 41, 37, 45, K = (9, 5, 7)",
          torch.randn(2, 8, 41, 37, 45, generator=gen).to(dev),
-         (torch.randn(8, 8, 9, 5, 7, generator=gen) / 50.0).to(dev), 1),
+         (torch.randn(8, 8, 9, 5, 7, generator=gen) / 50.0).to(dev), 1, False),
+        ("D, H, W = 15, 32, 70, K = (3, 3, 7)",
+         torch.randn(2, 8, 15, 32, 70, generator=gen).to(dev),
+         (torch.randn(8, 8, 3, 3, 7, generator=gen) / 15.0).to(dev), 1, False),
     ]
     timed, errs = [], []
-    for what, x, k, groups in cases:
+    for what, x, k, groups, timed_case in cases:
         b, cin, d, h, w = x.shape
         kk = tuple(k.shape[2:])
         plan, nwb, hop = fused3d.plan_3d_blocked(cin, k.shape[0], d, h, w, *kk, groups)
@@ -1228,12 +1278,13 @@ def check_pack3d(torch, dev, gen, inputs3d):
             f"B3 'pk' vs plain, {what}")
         print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B6", "case": what,
                           "plan": list(plan), "w_blocks": nwb, "xp_shape": list(xp.shape),
+                          "h_path": fused3d._h_path(h),
                           "exact": True, "max_abs_err": err,
                           "B3_pk_bit_equal_to_direct": torch.equal(packed, direct),
                           "B3_pk_max_abs_diff_to_direct": diff,
                           "B3_pk_max_abs_err_vs_plain": mx, "mean_abs_err": mean,
                           "sigma": sigma}))
-        if groups == 1 and what != cases[-1][0]:
+        if timed_case:
             timed.append((what, x, pp, nwb, hop))
     torch.cuda.synchronize()
     return timed, errs
@@ -2326,7 +2377,7 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": round(build_s, 2),
                       "libraries": {k: str(v.relative_to(HERE)) for k, v in paths.items()},
                       "ptxas": ptxas}))
-    for name in ("fused1d", "fused2d"):
+    for name in ("fused1d", "fused2d", "fused3d"):
         if name not in _build.build_logs:  # built by an earlier run: again, for its report
             paths[name].unlink()
             _build.build([name])
@@ -2342,6 +2393,16 @@ def main() -> int:
     check(len(spills) == 8 and not any(sum(v) for v in spills.values()),
           f"B5's 8 entry points spill registers or are missing: {spills}")
     print(json.dumps({"phase": "ptxas", "kernel": "B5", "spill_bytes": spills}))
+    # B3, B4 and B6: every entry point of fused3d.cu (the dense H/W kernels
+    # at SB = 4, 2, 1, direct and packed, the factored ones at H = 16, 32, 64,
+    # 128, the D, MAC and pack kernels), and the H/W kernels' registers
+    spills = ptxas_spills(_build.build_logs["fused3d"])
+    check(len(spills) == 29 and not any(sum(v) for v in spills.values()),
+          f"fused3d.cu's 29 entry points spill registers or are missing: {spills}")
+    hw_regs = {fn: r for fn, r in ptxas_registers(_build.build_logs["fused3d"]).items()
+               if "_hw_" in fn}
+    print(json.dumps({"phase": "ptxas", "kernel": "B3, B4, B6", "spill_bytes": spills,
+                      "hw_registers": hw_regs}))
     torch.cuda.synchronize()
 
     gen = torch.Generator().manual_seed(0)

@@ -408,14 +408,34 @@ def _hw_slab_flops(h, oh, nbh, cols_in, lo, hi, dense=False):
 
 def _hw_kernel_flops(h, oh, nbh, d, od, sb):
     """(per input channel, per output channel) flops that B3's and B4's H/W
-    kernels do for one item: the dense H DFT over whole groups of SB slabs
-    and all 64 columns, the factored W DFT-64 of the d slabs' NBH rows with
-    the kernel's own arithmetic (_four_step_flops(kernel=True)); the inverse
-    W DFT of the od slabs' rows with its 1/64 (2 per value), and the dense H
-    irfft over whole groups of SB slabs."""
+    kernels do for one item, with the kernels' own arithmetic
+    (_short_dft_flops and _four_step_flops with kernel=True): the factored W
+    DFT-64 of the d slabs' NBH rows; the inverse W DFT of the od slabs' rows
+    with its 1/64 (2 per value). For an H the kernels factor
+    (fused3d._H_SPLITS), per slab pair (ceil(d / 2) of them, the last one
+    padded with a zero slab; ceil(od / 2) in the inverse): the H-point DFT
+    of the 64 packed columns, the split of bins k and H - k (8 per value of
+    the 8 columns a W step 1 task reads, 16 for the two real rows of k = 0
+    and H / 2, whose 8-point DFTs the kernel splits after running them on
+    the packed row), and in the inverse the Hermitian extension (4 per bin
+    pair), W step 2 of both slabs (of the rows 0 and H / 2 too), the
+    conjugated H-point DFT of the 64 columns and the 1/H of the stored rows
+    (1 per value, over all 64 columns). For every other H the dense H DFT
+    over whole groups of SB slabs and all 64 columns, and the dense H irfft
+    likewise."""
+    from . import fused3d
+
     fw = _four_step_flops(64, 64, 64, True)
-    return (-(-d // sb) * sb * 4 * nbh * h * 64 + d * nbh * fw,
-            od * nbh * (fw + 2 * 64) + -(-od // sb) * sb * 4 * oh * nbh * 64)
+    if h not in fused3d._H_SPLITS:
+        return (-(-d // sb) * sb * 4 * nbh * h * 64 + d * nbh * fw,
+                od * nbh * (fw + 2 * 64) + -(-od // sb) * sb * 4 * oh * nbh * 64)
+    d8, fh = _short_dft_flops(8, 8, 8, True), _four_step_flops(h, h, h, True)
+    twiddle = 7 * 6  # W step 1's twiddles on a row, per j2
+    fwd_pair = (64 * fh + 8 * (h * d8 + 2 * nbh * twiddle + 64 * (h // 2 - 1) + 128)
+                + 2 * nbh * 8 * d8)
+    inv_pair = 8 * ((h // 2 - 1) * (2 * d8 + 64) + 4 * d8 + 32) + 64 * fh + 2 * oh * 64
+    return (-(-d // 2) * fwd_pair,
+            od * nbh * 8 * (d8 + twiddle) + -(-od // 2) * inv_pair)
 
 
 def fused3d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):

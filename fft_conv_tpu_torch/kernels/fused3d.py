@@ -2,10 +2,14 @@
 
 The port's counterpart of ``fft_conv_tpu/kernels/fused3d.py``, with both of
 its plans. Either way the whole padded volume is transformed along H and W
-per d-slab: a one-sided H DFT at the full H (NBH = H/2+1 rows, a dense
-product) and a 64-point W DFT (W zero-padded to 64, or cut into
-overlap-save blocks of 64 columns when W is wider), factored 64 = 8·8 as a
-four-step transform (``_w_factors``). Along D:
+per d-slab: a one-sided H DFT at the full H (NBH = H/2+1 rows) and a
+64-point W DFT (W zero-padded to 64, or cut into overlap-save blocks of 64
+columns when W is wider), factored 64 = 8·8 as a four-step transform
+(``_w_factors``). For H = 16, 32, 64 and 128 (``_H_SPLITS``) the H DFT and
+its inverse are factored too and run on slab pairs: two d-slabs packed as one
+complex column, one H-point DFT, bins k and H - k split into the two slabs'
+rows (``_h_forward_pairs``), and a c2r of two slabs at once
+(``_h_inverse_pairs``); every other H keeps the dense products. Along D:
 
 * 'v4' (kernel B3, the JAX package's plan for KD <= 9): a DFT-16 per block
   of 16 samples on a hop of 8 (zeros past D). The MAC over each group's
@@ -57,13 +61,17 @@ from ..ops.spectral import _dft_mats, _irfft_mats, _rfft_mats
 from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
-from .fourstep import dft_last, fft_factor_matrices
+from .fourstep import dft_last, fft_factor_matrices, split_factors
 from .fused1d import _fused_bwd, _spectra_or
 
 # W transform length and its four-step split 64 = 8 * 8 (the kernels factor
 # the W DFT so), and the D blocks: 16 samples on a hop of 8
 _TW = 64
 _W_SPLIT = (8, 8)
+# The H lengths whose DFT the kernels factor, with their four-step splits
+# (csrc/fused3d.cu: HSplit): the powers of two 16 to 128, slab pairs through
+# one complex transform each; every other H keeps the dense products
+_H_SPLITS = {h: split_factors(h) for h in (16, 32, 64, 128)}
 _DB = 16
 _DHOP = 8
 
@@ -273,16 +281,28 @@ def _torch_mats(h: int, vh: int, dtype: torch.dtype, device: torch.device):
 
 
 @lru_cache(maxsize=None)
-def _w_factors(device: torch.device) -> torch.Tensor:
-    """The factors of the W DFT-64 as one complex64 vector of 80 on
-    ``device``, from ``fourstep.fft_factor_matrices(8, 8)`` (built in
-    float64), in the order csrc/fused3d.cu reads them: the 8 roots of unity
-    of step 1 (row 1 of f1), the 8 of step 2 (row 1 of f2) and the (8, 8)
-    twiddle tw[m1, j2] = exp(-2 pi i m1 j2 / 64), row-major. The kernel
-    reads f1[m, j] as root[(m * j) % 8]; its inverse conjugates all three."""
-    f1, f2, tw = fft_factor_matrices(*_W_SPLIT)
+def _factor_vector(split: Tuple[int, int], device: torch.device) -> torch.Tensor:
+    """The factors of a four-step split (A, B) as one complex64 vector of
+    A + B + A·B on ``device``, from ``fourstep.fft_factor_matrices`` (built
+    in float64), in the order csrc/fused3d.cu reads them: the A roots of
+    unity of step 1 (row 1 of f1), the B of step 2 (row 1 of f2) and the
+    (A, B) twiddle tw[m1, j2] = exp(-2 pi i m1 j2 / (A·B)), row-major. The
+    kernel reads f1[m, j] as root[(m * j) % A]; its inverse conjugates all
+    three."""
+    f1, f2, tw = fft_factor_matrices(*split)
     parts = np.concatenate([f1[1], f2[1], tw.reshape(-1)]).astype(np.complex64)
     return torch.from_numpy(parts).to(device)
+
+
+def _w_factors(device: torch.device) -> torch.Tensor:
+    """The factors of the W DFT-64 (``_W_SPLIT``), a complex64 vector of 80:
+    ``_factor_vector``."""
+    return _factor_vector(_W_SPLIT, device)
+
+
+def _h_path(h: int) -> str:
+    """Which H/W kernels an H runs: "factored" (``_H_SPLITS``) or "dense"."""
+    return "factored" if h in _H_SPLITS else "dense"
 
 
 @lru_cache(maxsize=None)
@@ -290,11 +310,17 @@ def _device_mats(h: int, vh: int, device: torch.device):
     """The kernel's factors as interleaved complex64 tensors on ``device``,
     in the order of the entry points' arguments: F_H (NBH, H), the W factors
     (``_w_factors``, one slot that the forward and the inverse both read),
-    the DFT-16 (16, 16), its inverse rows (8, 16) and the irfft rows (VH,
-    NBH) as (cr, ci) pairs."""
+    the H factors (``_factor_vector`` of ``_H_SPLITS[h]``, read alike), the
+    DFT-16 (16, 16), its inverse rows (8, 16) and the irfft rows (VH, NBH)
+    as (cr, ci) pairs. For an H in ``_H_SPLITS`` F_H and the irfft rows are
+    None (the factored kernels take the H factors), for any other H the H
+    factors are."""
     m = _torch_mats(h, vh, torch.float32, device)
-    fh, df, ei, ch = (torch.complex(m[i], m[i + 1]) for i in (0, 2, 4, 6))
-    return fh, _w_factors(device), df, ei, ch
+    df, ei = (torch.complex(m[i], m[i + 1]) for i in (2, 4))
+    if h in _H_SPLITS:
+        return None, _w_factors(device), _factor_vector(_H_SPLITS[h], device), df, ei, None
+    fh, ch = (torch.complex(m[i], m[i + 1]) for i in (0, 6))
+    return fh, _w_factors(device), None, df, ei, ch
 
 
 @lru_cache(maxsize=None)
@@ -384,8 +410,50 @@ def _pack3d_reference(x_padded: torch.Tensor, pp: int, nwb: int, hop: int) -> to
     return x.reshape(b * nwb, h, cin * pp, 2 * _TW)
 
 
+def _h_forward_pairs(x: torch.Tensor):
+    """The factored H/W kernel's one-sided H DFT of real slabs ``x`` (...,
+    D, H, C), H in ``_H_SPLITS``: slabs 2p and 2p+1 (zeros past D) packed as
+    one complex column x_2p + i x_2p+1, its H-point DFT through the split
+    ``_H_SPLITS[H]`` (``fourstep.dft_last``), and bins k and H - k split into
+    the two slabs' rows k <= H/2. Returns (re, im), each (..., D, H/2+1, C)."""
+    d, h = x.shape[-3], x.shape[-2]
+    x = TF.pad(x, (0, 0, 0, 0, 0, d % 2)).transpose(-1, -2)   # (..., 2P, C, H)
+    zr, zi = dft_last(x[..., 0::2, :, :], x[..., 1::2, :, :], _H_SPLITS[h], False)
+    k = torch.arange(h // 2 + 1, device=x.device)
+    m = (h - k) % h
+    pr, pi, qr, qi = zr[..., k], zi[..., k], zr[..., m], zi[..., m]
+    # X_2p = (Z[k] + conj Z[-k]) / 2, X_2p+1 = (Z[k] - conj Z[-k]) / 2i
+    re = torch.stack([pr + qr, pi + qi], dim=-3).flatten(-4, -3) / 2
+    im = torch.stack([pi - qi, qr - pr], dim=-3).flatten(-4, -3) / 2
+    return re[..., :d, :, :].transpose(-1, -2), im[..., :d, :, :].transpose(-1, -2)
+
+
+def _h_inverse_pairs(er: torch.Tensor, ei: torch.Tensor, h: int, oh: int) -> torch.Tensor:
+    """The factored H/W kernel's H irfft of one-sided slabs (..., OD, H/2+1,
+    C), H in ``_H_SPLITS``, onto the rows [0, oh): slabs 2p and 2p+1 (zeros
+    past OD) at once, as one conjugated H-point DFT of E_2p + i E_2p+1, each
+    Hermitian-extended (E[H - k] = conj E[k], DC and Nyquist taken real as
+    the dense irfft weights them), whose real and imaginary parts are the
+    two slabs' rows; 1/H applied. Returns (..., OD, oh, C)."""
+    od = er.shape[-3]
+    pad = (0, 0, 0, 0, 0, od % 2)
+    er, ei = TF.pad(er, pad).transpose(-1, -2), TF.pad(ei, pad).transpose(-1, -2)
+    k = torch.arange(h, device=er.device)
+    kk = torch.minimum(k, h - k)
+    ar, ai = er[..., 0::2, :, kk], ei[..., 0::2, :, kk]   # (..., P, C, H)
+    br, bi = er[..., 1::2, :, kk], ei[..., 1::2, :, kk]
+    real = (k == 0) | (k == h // 2)
+    low = k < h // 2
+    vr = torch.where(real, ar, torch.where(low, ar - bi, ar + bi))
+    vi = torch.where(real, br, torch.where(low, ai + br, br - ai))
+    outr, outi = dft_last(vr, vi, _H_SPLITS[h], True)  # (..., P, C, H)
+    out = torch.stack([outr[..., :oh], outi[..., :oh]], dim=-3).flatten(-4, -3)
+    return out[..., :od, :, :].transpose(-1, -2) / h
+
+
 def _hw_forward_reference(x: torch.Tensor, fr, fi, packed=None):
-    """(re, im) of the one-sided H DFT (a dense product) and then the W
+    """(re, im) of the one-sided H DFT (``_h_forward_pairs`` for H in
+    ``_H_SPLITS``, else the dense product with ``fr``, ``fi``) and then the W
     DFT-64 (factored 8 x 8, ``fourstep.dft_last``, bins in natural order) of
     every d-slab of the stacked blocks (W zero-padded to 64): (B', Cin, D,
     NBH, 64).
@@ -401,17 +469,25 @@ def _hw_forward_reference(x: torch.Tensor, fr, fi, packed=None):
         bb, h, rows, _ = x.shape
         x = x.reshape(bb, h, cin, rows // cin, 2, _TW).permute(0, 2, 3, 4, 1, 5)
         x = x.reshape(bb, cin, 2 * (rows // cin), h, _TW)[:, :, :d].contiguous()
-    return dft_last(fr @ x, fi @ x, _W_SPLIT, False)
+    if x.shape[-2] in _H_SPLITS:
+        ar, ai = _h_forward_pairs(x)
+    else:
+        ar, ai = fr @ x, fi @ x
+    return dft_last(ar, ai, _W_SPLIT, False)
 
 
-def _hw_inverse_reference(zr, zi, cr, ci, blocks, ow: int) -> torch.Tensor:
-    """The inverse W DFT (factored 8 x 8, 1/64 included) and the H irfft (a
-    dense product) on the valid rows of the MAC's output (B', Cout, OD, NBH,
-    64), and the stored columns of each W block put side by side: (B, Cout,
-    OD, OH, OW)."""
+def _hw_inverse_reference(zr, zi, cr, ci, blocks, h: int, ow: int) -> torch.Tensor:
+    """The inverse W DFT (factored 8 x 8, 1/64 included) and the H irfft
+    (``_h_inverse_pairs`` for H in ``_H_SPLITS``, else the dense product
+    with ``cr``, ``ci``) on the valid rows of the MAC's output (B', Cout, OD,
+    NBH, 64), and the stored columns of each W block put side by side: (B,
+    Cout, OD, OH, OW)."""
     e_r, e_i = dft_last(zr, zi, _W_SPLIT, True)
     e_r, e_i = e_r / _TW, e_i / _TW
-    out = cr @ e_r + ci @ e_i                       # (B', Cout, OD, OH, 64)
+    if h in _H_SPLITS:                              # (B', Cout, OD, OH, 64)
+        out = _h_inverse_pairs(e_r, e_i, h, cr.shape[0])
+    else:
+        out = cr @ e_r + ci @ e_i
     if len(blocks) == 1:
         return out[..., :ow]
     out = out.reshape(-1, len(blocks), *out.shape[1:])
@@ -475,7 +551,7 @@ def _fused3d_forward_reference(
     zi = torch.einsum(inv, er, yi) + torch.einsum(inv, ei, yr)
     zr = zr.reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
     zi = zi.reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
-    return _hw_inverse_reference(zr, zi, cr, ci, blocks, ow)
+    return _hw_inverse_reference(zr, zi, cr, ci, blocks, h, ow)
 
 
 def _fused3d_tap_reference(
@@ -517,24 +593,30 @@ def _fused3d_tap_reference(
     yi = torch.einsum(mac, tr, ki) + torch.einsum(mac, ti, kr)
     yr = yr.reshape(bb, cout, od, nbh, _TW)
     yi = yi.reshape(bb, cout, od, nbh, _TW)
-    return _hw_inverse_reference(yr, yi, cr, ci, blocks, ow)
+    return _hw_inverse_reference(yr, yi, cr, ci, blocks, h, ow)
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused3d")
     if lib.fused3d_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused3d_forward.argtypes = [p] * 11 + [i] * 15 + [p]
+        lib.fused3d_forward.argtypes = [p] * 12 + [i] * 15 + [p]
         lib.fused3d_forward.restype = i
         lib.fused3d_pack.argtypes = [p] * 2 + [i] * 8 + [p]
         lib.fused3d_pack.restype = i
-        lib.fused3d_tap_forward.argtypes = [p] * 8 + [i] * 14 + [p]
+        lib.fused3d_tap_forward.argtypes = [p] * 9 + [i] * 14 + [p]
         lib.fused3d_tap_forward.restype = i
         lib.fused3d_error_string.argtypes = [i]
         lib.fused3d_error_string.restype = ctypes.c_char_p
         lib.fused3d_smem_bytes.argtypes = [i]
         lib.fused3d_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address for the entry points, None (NULL) for an
+    argument the kernels that run do not read."""
+    return None if t is None else t.data_ptr()
 
 
 def _check_launch_inputs(x_padded: torch.Tensor, spectra: torch.Tensor, what: str) -> None:
@@ -620,7 +702,7 @@ def _launch_fused3d(
     with torch.cuda.device(dev):
         for item0 in range(0, items, chunk):
             err = lib.fused3d_forward(
-                x.data_ptr(), spectra.data_ptr(), *(m.data_ptr() for m in mats),
+                x.data_ptr(), spectra.data_ptr(), *(_ptr(m) for m in mats),
                 t.data_ptr(), s.data_ptr(), z.data_ptr(), out.data_ptr(),
                 cin, cout, groups, d, h, w, od, oh, ow, nbd, nwb, hop,
                 item0, min(chunk, items - item0), pp, stream,
@@ -655,7 +737,7 @@ def _launch_fused3d_tap(
     chunk = max(1, min(items, _SCRATCH_BUDGET // per_item))
 
     lib = _library()
-    fh, wfac, _, _, ch = _device_mats(h, oh, x_padded.device)
+    fh, wfac, hfac, _, _, ch = _device_mats(h, oh, x_padded.device)
     dev, c64 = x_padded.device, torch.complex64
     out = torch.empty((b, cout, od, oh, ow), device=dev, dtype=torch.float32)
     t = torch.empty((chunk, cin, d, nbh, _TW), device=dev, dtype=c64)
@@ -664,8 +746,8 @@ def _launch_fused3d_tap(
     with torch.cuda.device(dev):
         for item0 in range(0, items, chunk):
             err = lib.fused3d_tap_forward(
-                x_padded.data_ptr(), spectra.data_ptr(), fh.data_ptr(), wfac.data_ptr(),
-                ch.data_ptr(), t.data_ptr(), z.data_ptr(), out.data_ptr(),
+                x_padded.data_ptr(), spectra.data_ptr(), _ptr(fh), _ptr(wfac), _ptr(hfac),
+                _ptr(ch), t.data_ptr(), z.data_ptr(), out.data_ptr(),
                 cin, cout, groups, d, h, w, kd, od, oh, ow, nwb, hop,
                 item0, min(chunk, items - item0), stream,
             )

@@ -318,11 +318,14 @@ def test_layer_on_cuda_launches_the_kernel(cuda):
     assert transposed(x).shape == (2, 4, 5015) and fused1d.launches == before + 1
 
 
-# (B, Cin, Cout, D, H, W, KD, KH, KW, groups): the benchmark row (SB = 4 slabs
-# a block, 4 output channels a thread), groups with 1 and 2 output channels a
-# thread, odd sizes, KD = 9 (the hop edge), W blocks of 64 (nwb = 4 and 2),
-# and H large enough for SB = 2 and SB = 1 (230, 460; and 226, 454, where
-# NBH = 114 and 228 are the first to take SB = 2 and SB = 1)
+# (B, Cin, Cout, D, H, W, KD, KH, KW, groups): the benchmark row (4 output
+# channels a thread), groups with 1 and 2 output channels a thread, odd
+# sizes, KD = 9 (the hop edge), W blocks of 64 (nwb = 4 and 2), and H large
+# enough for SB = 2 and SB = 1 in the dense H/W kernels (230, 460; and 226,
+# 454, where NBH = 114 and 228 are the first to take SB = 2 and SB = 1). Then
+# the factored H/W kernels at each other H they take (16, 32, 128; 64 is the
+# benchmark row's), at odd D and odd OD (the last slab paired with zeros in
+# the forward, the inverse, or both), groups, and a clamped third W block
 FUSED3D = [
     (2, 8, 8, 64, 64, 64, 8, 8, 8, 1),
     (1, 6, 6, 20, 24, 30, 3, 3, 3, 2),
@@ -335,6 +338,10 @@ FUSED3D = [
     (1, 1, 1, 9, 460, 8, 2, 2, 2, 1),
     (1, 2, 2, 12, 226, 64, 3, 3, 3, 1),
     (1, 2, 2, 12, 454, 64, 3, 3, 3, 1),
+    (1, 2, 3, 13, 16, 20, 3, 3, 3, 1),
+    (2, 4, 4, 18, 32, 40, 4, 5, 5, 2),
+    (1, 2, 2, 11, 128, 64, 5, 7, 3, 1),
+    (1, 2, 2, 9, 64, 150, 3, 3, 7, 1),
 ]
 
 
@@ -416,7 +423,8 @@ def test_3d_layer_on_cuda_launches_the_kernel(cuda):
 # output channels a thread), groups with 1 and 2 output channels a thread,
 # odd sizes with KD = 11, W blocks of 64 (nwb = 4) with KD = 12, and KD = 3
 # where v4's spectra (69 MB) do not fit but the tap ones do; H = 226 and 454
-# take SB = 2 and SB = 1
+# take SB = 2 and SB = 1 in the dense H/W kernels. Then the factored H/W
+# kernels at H = 16, 32, 128, at odd D and odd OD, and a clamped third W block
 FUSED3D_TAP = [
     (2, 8, 8, 64, 64, 64, 10, 10, 10, 1),
     (1, 6, 6, 26, 12, 10, 11, 3, 3, 2),
@@ -426,6 +434,10 @@ FUSED3D_TAP = [
     (1, 16, 16, 20, 64, 64, 3, 3, 3, 1),
     (1, 2, 2, 16, 226, 64, 10, 3, 5, 1),
     (1, 2, 2, 14, 454, 64, 10, 3, 3, 1),
+    (1, 2, 2, 21, 16, 12, 11, 3, 3, 1),
+    (1, 2, 3, 24, 32, 30, 10, 5, 3, 1),
+    (1, 2, 2, 13, 128, 20, 10, 5, 5, 1),
+    (1, 2, 2, 20, 64, 150, 12, 3, 7, 1),
 ]
 
 
@@ -495,13 +507,15 @@ def test_3d_transpose_fused_on_cuda(cuda, k, st, pad, op, dil, groups):
 # (B, Cin, D, H, W, (KD, KH, KW), groups): B6 at the benchmark row (PP = 40,
 # D = 64 padded to 80), D < 2PP with W < 64, two W blocks whose clamped last
 # block starts off 16 B alignment (the stuffed 78^3 volume's W), groups = 2,
-# and H large enough for SB = 1 in B3
+# and H large enough for SB = 1 in B3; then an odd D at H = 32 with a clamped
+# W block, for B3's factored H/W kernels
 PACK3D = [
     (2, 8, 64, 64, 64, (8, 8, 8), 1),
     (1, 2, 20, 16, 14, (5, 3, 3), 1),
     (2, 3, 12, 6, 78, (3, 3, 8), 1),
     (1, 4, 9, 5, 64, (2, 3, 3), 2),
     (1, 1, 9, 460, 8, (2, 2, 2), 1),
+    (1, 3, 15, 32, 70, (3, 3, 7), 1),
 ]
 
 

@@ -29,7 +29,9 @@ def _arrays(seed, *shapes):
 # (B, Cin, Cout, D, H, W, KD, KH, KW, groups, stride, dilation, padding, mode):
 # the v4 rows of tests/test_pallas3d.py:CONFIGS (odd sizes, KD = 9 at the hop
 # edge, the benchmark-like KD = 8), its stride/dilation cases, the three
-# padding modes, groups (2, 3) and (3, 3), and both W-blocked shapes
+# padding modes, groups (2, 3) and (3, 3), and both W-blocked shapes; then
+# H = 32 and 128, which take the factored H/W kernels, at odd D (the last
+# slab paired with zeros) and odd OD
 PARITY = [
     (1, 2, 3, 20, 24, 16, 3, 5, 4, 1, 1, 1, 0, "constant"),
     (2, 4, 4, 32, 32, 32, 4, 4, 4, 1, 1, 1, 2, "constant"),
@@ -47,15 +49,21 @@ PARITY = [
     (1, 6, 6, 10, 12, 10, 3, 3, 3, 3, 1, 1, 0, "constant"),
     (2, 2, 3, 10, 8, 200, 2, 2, 7, 1, 1, 1, 0, "constant"),   # nwb = 4
     (1, 1, 1, 8, 8, 122, 2, 2, 7, 1, 1, 1, 0, "constant"),    # nwb = 2, ow = 2 hops
+    (1, 2, 3, 11, 32, 20, 3, 3, 3, 1, 1, 1, 0, "constant"),
+    (1, 1, 2, 8, 128, 12, 2, 5, 3, 1, 1, 1, 0, "constant"),
+    (1, 2, 2, 13, 30, 14, 4, 3, 3, 2, 1, 1, 1, "reflect"),    # H = 32 after padding
 ]
 # tap plans (B4): the KD = 11 rows of tests/test_pallas3d.py (CONFIGS and the
 # grouped case of test_fused3d_groups), a W-blocked one, and stride with a
-# dilation that takes KD = 6 to 11, under reflect padding
+# dilation that takes KD = 6 to 11, under reflect padding; then H = 32 at odd
+# D and odd OD, and H = 128, on the factored H/W kernels
 TAP_PARITY = [
     (1, 2, 2, 30, 16, 12, 11, 3, 3, 1, 1, 1, 0, "constant"),
     (1, 6, 6, 26, 12, 10, 11, 3, 3, 2, 1, 1, 0, "constant"),
     (1, 2, 2, 24, 10, 100, 10, 3, 5, 1, 1, 1, 0, "constant"),  # nwb = 2
     (1, 2, 3, 24, 14, 12, 6, 3, 3, 1, (2, 1, 2), (2, 1, 1), 1, "reflect"),
+    (1, 2, 2, 21, 32, 12, 11, 3, 3, 1, 1, 1, 0, "constant"),
+    (1, 1, 2, 12, 128, 10, 10, 3, 3, 1, 1, 1, 0, "constant"),
 ]
 
 
@@ -233,7 +241,9 @@ def test_w_factors_are_laid_out_as_the_kernel_reads_them():
     twiddle row-major, complex64: f1[m, j] = root[(m * j) % 8] rebuilds the
     short DFT, tw[m1, j2] = exp(-2 pi i m1 j2 / 64); ``_device_mats`` hands
     the vector in its one slot, which the forward and the inverse both read,
-    in the order of the entry points' arguments."""
+    in the order of the entry points' arguments: with the dense F_H and
+    irfft rows at an H the kernels do not factor (78), with the H factors in
+    their place at one they do (64, split 8 x 8 like W)."""
     from fft_conv_tpu_torch.kernels.fourstep import fft_factor_matrices
 
     fac = fused3d._w_factors(torch.device("cpu"))
@@ -246,12 +256,96 @@ def test_w_factors_are_laid_out_as_the_kernel_reads_them():
     np.testing.assert_allclose(fac[16:].numpy().reshape(8, 8),
                                np.exp(-2j * np.pi * np.outer(m, m) / 64), atol=1e-7)
     np.testing.assert_allclose(fac[16:].numpy().reshape(8, 8), tw, atol=1e-7)
-    fh, wfac, df, ei, ch = fused3d._device_mats(64, 57, torch.device("cpu"))
-    assert wfac is fac
-    fr, fi, _, _, _, _, dr, di, er, eim, cr, ci = fused3d._mats_3d(64, 57)
+    fh, wfac, hfac, df, ei, ch = fused3d._device_mats(78, 71, torch.device("cpu"))
+    assert wfac is fac and hfac is None
+    fr, fi, _, _, _, _, dr, di, er, eim, cr, ci = fused3d._mats_3d(78, 71)
     for got, re, im in ((fh, fr, fi), (df, dr, di), (ei, er, eim), (ch, cr, ci)):
         assert got.dtype == torch.complex64
         assert torch.equal(got, torch.complex(torch.from_numpy(re), torch.from_numpy(im)))
+    fh, wfac, hfac, df2, ei2, ch = fused3d._device_mats(64, 57, torch.device("cpu"))
+    assert fh is None and ch is None and wfac is fac
+    assert torch.equal(hfac, fac) and torch.equal(df2, df) and torch.equal(ei2, ei)
+
+
+@pytest.mark.parametrize("h", [16, 32, 64, 128])
+def test_h_factors_are_laid_out_as_the_kernel_reads_them(h):
+    """The H factors of ``_device_mats`` for each H the kernels factor: the
+    split of ``fourstep.split_factors`` (csrc/fused3d.cu: HSplit), its A
+    roots, its B roots and the (A, B) twiddle exp(-2 pi i m1 j2 / H),
+    row-major, complex64; no dense F_H or irfft rows."""
+    from fft_conv_tpu_torch.kernels.fourstep import split_factors
+
+    a, b = fused3d._H_SPLITS[h]
+    assert (a, b) == split_factors(h) == {16: (4, 4), 32: (8, 4), 64: (8, 8), 128: (16, 8)}[h]
+    fh, _, hfac, _, _, ch = fused3d._device_mats(h, h - 3, torch.device("cpu"))
+    assert fh is None and ch is None
+    assert hfac.dtype == torch.complex64 and hfac.shape == (a + b + a * b,)
+    np.testing.assert_allclose(hfac[:a].numpy(), np.exp(-2j * np.pi * np.arange(a) / a), atol=1e-7)
+    np.testing.assert_allclose(hfac[a:a + b].numpy(), np.exp(-2j * np.pi * np.arange(b) / b),
+                               atol=1e-7)
+    np.testing.assert_allclose(hfac[a + b:].numpy().reshape(a, b),
+                               np.exp(-2j * np.pi * np.outer(np.arange(a), np.arange(b)) / h),
+                               atol=1e-7)
+    assert fused3d._h_path(h) == "factored" and fused3d._h_path(h + 2) == "dense"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("h", [16, 32, 64, 128])
+def test_h_dft_factored_matches_dense(h, inverse, dtype):
+    """The factored H/W kernel's H transforms (the plain versions
+    ``_h_forward_pairs``, slab pairs through one H-point DFT and the split of
+    bins k and H - k, and ``_h_inverse_pairs``, the c2r of two slabs at once)
+    against the dense float64 oracle of ``_mats_3d``, the one-sided DFT rows
+    and the irfft rows: within 1e-12 relative in float64, within the bar in
+    float32. An odd slab count (the last slab paired with zeros) and OH < H."""
+    d, oh, cols = 5, h - 5, 7
+    fr, fi, _, _, _, _, _, _, _, _, cr, ci = (torch.from_numpy(m) for m in
+                                               fused3d._mats_3d(h, oh, np.float64))
+    if inverse:
+        er, ei = (torch.from_numpy(a) for a in _arrays(h + 1, (2, d, h // 2 + 1, cols),
+                                                         (2, d, h // 2 + 1, cols)))
+        got = (fused3d._h_inverse_pairs(er.to(dtype), ei.to(dtype), h, oh),)
+        want = (cr @ er.double() + ci @ ei.double(),)
+        assert got[0].shape == (2, d, oh, cols)
+    else:
+        (x,) = (torch.from_numpy(a) for a in _arrays(h, (2, d, h, cols)))
+        got = fused3d._h_forward_pairs(x.to(dtype))
+        want = (fr @ x.double(), fi @ x.double())
+        assert got[0].shape == got[1].shape == (2, d, h // 2 + 1, cols)
+    for y, y_ref in zip(got, want):
+        assert y.dtype == dtype
+        if dtype == torch.float64:
+            assert (y - y_ref).abs().max() <= 1e-12 * y_ref.abs().max()
+        else:
+            _assert_close_scaled(y.numpy(), y_ref.numpy())
+
+
+def test_shared_memory_and_plans_are_unchanged():
+    """The factored H/W kernels use at most the plan's shared memory, so the
+    plan's figures stay as they were: SB = 4, 2, 1 by the formula SB * NBH *
+    64 * 8 <= 232448 at every NBH from 5 to 454, and the plans of both
+    chains at the H around each factored length and at the dense ones."""
+    for nbh in range(5, 455):
+        sb = 4 if nbh <= 113 else 2 if nbh <= 227 else 1
+        assert fused3d._slabs_per_block(nbh) == sb
+        assert fused3d._smem_bytes(nbh) == sb * nbh * 64 * 8 <= fused3d._SMEM_LIMIT
+    assert fused3d._slabs_per_block(455) is None and fused3d._smem_bytes(455) == -1
+    v4 = {15: ("v4", 8, 8, 16, 2, 8), 16: ("v4", 9, 16, 16, 2, 8), 17: ("v4", 9, 16, 16, 2, 8),
+          32: ("v4", 17, 24, 16, 2, 8), 64: ("v4", 33, 40, 16, 2, 8),
+          78: ("v4", 40, 40, 16, 2, 8), 82: ("v4", 42, 48, 16, 2, 8),
+          127: ("v4", 64, 64, 16, 2, 8), 128: ("v4", 65, 72, 16, 2, 8),
+          129: ("v4", 65, 72, 16, 2, 8), 226: ("v4", 114, 120, 16, 2, 8),
+          454: ("v4", 228, 232, 16, 2, 8), 906: ("v4", 454, 456, 16, 2, 8), 908: None}
+    tap = {15: ("tap", 8, 8, 16), 16: ("tap", 9, 8, 16), 32: ("tap", 17, 8, 16),
+           64: ("tap", 33, 8, 16), 128: ("tap", 65, 8, 16), 454: ("tap", 228, 8, 16),
+           908: None}
+    for h, plan in v4.items():
+        assert fused3d.plan_3d(1, 2, 16, h, 64, 3, 3, 3) == plan
+    for h, plan in tap.items():
+        assert fused3d.plan_3d(1, 2, 16, h, 64, 10, 3, 3) == plan
+    assert fused3d.plan_3d_blocked(8, 8, 64, 64, 64, 8, 8, 8) == (("v4", 33, 40, 40, 8, 32), 1, 57)
+    assert fused3d.plan_3d_blocked(8, 8, 64, 64, 64, 10, 10, 10) == (("tap", 33, 32, 40), 1, 55)
 
 
 @pytest.mark.parametrize("shape,h", [((4, 4, 8, 8, 8), 64), ((6, 2, 5, 7, 3), 19),
