@@ -95,6 +95,20 @@ FACTORED_3D_TAP = [
     ((1, 4, 13, 128, 20), (4, 4, 10, 5, 5), 1, "H=128, D=13 (OD 4)"),
     ((2, 4, 20, 64, 150), (4, 4, 12, 3, 7), 1, "H=64, W=150 in 3 W blocks, OD=9"),
 ]
+# (x shape, kernel shape, groups, case): the D kernels' edges, a group whose
+# spectra a block stages in several chunks (B3: 8 channels a chunk at 8
+# out-channels a block; B4: 128 (channel, tap) entries at 4) and KD close
+# to D
+D_EDGES_3D = [
+    ((2, 24, 20, 8, 20), (24, 24, 3, 3, 3), 1, "Cin = Cout = 24: 3 staged chunks"),
+    ((1, 48, 12, 8, 24), (24, 16, 5, 3, 3), 3, "groups=3, 16 -> 8 a group: 2 staged chunks"),
+    ((2, 4, 10, 16, 12), (4, 4, 9, 3, 3), 1, "D=10, KD=9 (OD 2)"),
+]
+D_EDGES_3D_TAP = [
+    ((2, 16, 14, 16, 12), (16, 16, 11, 3, 3), 1, "Cin = Cout = 16, KD=11: 2 staged chunks"),
+    ((1, 4, 64, 64, 64), (4, 4, 60, 3, 3), 1, "D=64, KD=60 (OD 5): 2 staged chunks"),
+    ((2, 4, 20, 16, 12), (4, 4, 20, 3, 3), 1, "KD = D = 20 (OD 1)"),
+]
 WARMUP, ITERS, GRAPH_REPS = 5, 30, 20
 # the streaming phase: each 1D row's 32768 samples as 8 frames of 4096, as a
 # server filters a long audio signal, and at K=1024 a ragged split of them
@@ -728,8 +742,9 @@ def check_fused3d(torch, dev, gen):
     a block of the dense H/W kernels), at the stuffed 78^3 volume of the
     transposed K=8 call, at H = 16, 32 and 128 (the factored H/W kernels,
     like the row's H = 64) with odd D and odd OD, at a clamped third W block,
-    and with the items split over several launches. Each case prints which
-    H/W kernels it ran. Returns the row's inputs and its max abs errors."""
+    with the items split over several launches, and at the D kernel's edges
+    (D_EDGES_3D). Each case prints which H/W kernels it ran. Returns the
+    row's inputs and its max abs errors."""
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import functional as F
 
@@ -777,8 +792,9 @@ def check_fused3d(torch, dev, gen):
     vs_plain(randn(1, 2, 12, 454, 64), randn(2, 2, 3, 3, 3) / 5.0, 1, "H=454 (NBH 228, SB=1)")
     vs_plain(randn(2, 8, 78, 78, 78), wt, 1, "stuffed 78^3, K=8, 2 W blocks")
     # the factored H/W kernels at their other H, a last slab paired with
-    # zeros in the forward (odd D), the inverse (odd OD) or both
-    for shape, k, groups, what in FACTORED_3D:
+    # zeros in the forward (odd D), the inverse (odd OD) or both; then the D
+    # kernel's edges: a group staged in 3 chunks, KD close to D
+    for shape, k, groups, what in FACTORED_3D + D_EDGES_3D:
         vs_plain(randn(*shape), randn(*k) / math.sqrt(math.prod(k[1:])), groups, what)
 
     xs, ws = randn(2, 8, 40, 36, 44), randn(8, 8, 3, 3, 3) / 15.0
@@ -862,11 +878,12 @@ def main_path_3d(torch, inputs):
     return per_row, total
 
 
-def profile_ms(torch, fn, group, reps=GRAPH_REPS):
+def profile_ms(torch, fn, group, reps=GRAPH_REPS, count=False):
     """Device time per call of fn() summed by group(kernel name), from
     torch.profiler's CUDA activity over ``reps`` calls of fn() (after one
     warm-up call); kernels whose group is None are left out, and the result
-    is {} when the profiler records no device time."""
+    is {} when the profiler records no device time. ``count``: launches
+    per call in place of the time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -880,17 +897,35 @@ def profile_ms(torch, fn, group, reps=GRAPH_REPS):
         us = getattr(evt, "device_time_total", 0) or getattr(evt, "cuda_time_total", 0)
         name = group(evt.key) if us and evt.device_type == torch.autograd.DeviceType.CUDA else None
         if name is not None:
-            split[name] = split.get(name, 0.0) + us / 1e3 / reps
+            split[name] = split.get(name, 0.0) + (evt.count if count else us / 1e3) / reps
     return split
 
 
-def phase_split_ms(torch, fn, prefix, reps=GRAPH_REPS):
-    """Device time per call of each kernel whose name holds ``prefix``,
-    named by what follows the prefix (``profile_ms``)."""
+def phase_split_ms(torch, fn, prefix, reps=GRAPH_REPS, count=False):
+    """Device time (``count``: launches) per call of each kernel whose name
+    holds ``prefix``, named by what follows the prefix (``profile_ms``)."""
     return profile_ms(
         torch, fn,
         lambda key: key.split(prefix, 1)[1].split("<")[0].split("(")[0] if prefix in key else None,
-        reps)
+        reps, count)
+
+
+def d_stage(torch, phase_ms, name, work, kernel, chain):
+    """The D kernel's time beside its stage's bound (T and the spectra in,
+    Z out; flops from kernels/costs.py), and the launches of one call of
+    ``kernel`` by kernel name: one each of hw_forward, ``name`` and
+    hw_inverse (factored or dense), three in all. The profiler may drop an
+    event of the GRAPH_REPS calls, so each count is rounded."""
+    from fft_conv_tpu_torch.kernels.costs import bound
+
+    per_call = phase_split_ms(torch, kernel, "fused3d_", count=True)
+    check(len(per_call) == 3 and all(round(n) == 1 for n in per_call.values())
+          and name in per_call and any(k.startswith("hw_forward") for k in per_call)
+          and any(k.startswith("hw_inverse") for k in per_call),
+          f"{chain}: not three launches a call of hw_forward, {name}, hw_inverse: {per_call}")
+    ms, by = bound(*work)
+    return {"kernel": name, "ms": phase_ms.get(name), "bytes": work[0], "flops": work[1],
+            "bound_ms": ms, "bound_by": by, "launches_per_call": per_call}
 
 
 def time_3d(torch, inputs, errs, per_row):
@@ -898,7 +933,8 @@ def time_3d(torch, inputs, errs, per_row):
     import torch.nn.functional as TF
 
     from fft_conv_tpu_torch import fft_conv
-    from fft_conv_tpu_torch.kernels.costs import bound, fused3d_kernel_flops, fused3d_work
+    from fft_conv_tpu_torch.kernels.costs import (
+        bound, fused3d_d_work, fused3d_kernel_flops, fused3d_work)
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import plan_fft_conv
 
@@ -937,9 +973,11 @@ def time_3d(torch, inputs, errs, per_row):
             "kernel_flops": fused3d_kernel_flops(b, cin, cout, d, h, w, k),
             # the bound with every transform a dense product
             "dense_bound_ms": bound(*fused3d_work(b, cin, cout, d, h, w, k, dense=True))[0],
-            # B3's four kernels, one by one (device time per call)
+            # B3's three kernels, one by one (device time per call)
             "phase_ms": phase_split_ms(torch, kernel, "fused3d_"),
         }
+        row["d_stage"] = d_stage(torch, row["phase_ms"], "d_mac",
+                                 fused3d_d_work(b, cin, cout, d, h, w, k), kernel, "B3")
         # the same calls with B6 packing the signal ahead of B3
         fused3d.set_fused3d_xpack("pk")
         try:
@@ -964,8 +1002,9 @@ def check_fused3d_tap(torch, dev, gen):
     JAX package refuses), at H = 226 and 454 (2 and 1 slabs a block of the
     dense H/W kernels), at the stuffed 82^3 volume of the transposed K=10
     call, at H = 16, 32 and 128 with odd D or odd OD and at a clamped third
-    W block (the factored H/W kernels), and with the items split over
-    several launches. Returns the row's inputs and its max abs errors."""
+    W block (the factored H/W kernels), at the D kernel's edges
+    (D_EDGES_3D_TAP) and with the items split over several launches.
+    Returns the row's inputs and its max abs errors."""
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import functional as F
 
@@ -1008,7 +1047,7 @@ def check_fused3d_tap(torch, dev, gen):
     vs_plain(randn(1, 2, 16, 226, 64), randn(2, 2, 10, 3, 5) / 8.0, 1, "H=226 (NBH 114, SB=2)")
     vs_plain(randn(1, 2, 14, 454, 64), randn(2, 2, 10, 3, 3) / 8.0, 1, "H=454 (NBH 228, SB=1)")
     vs_plain(randn(2, 8, 82, 82, 82), wt, 1, "stuffed 82^3, K=10, 2 W blocks")
-    for shape, k, groups, what in FACTORED_3D_TAP:
+    for shape, k, groups, what in FACTORED_3D_TAP + D_EDGES_3D_TAP:
         vs_plain(randn(*shape), randn(*k) / math.sqrt(math.prod(k[1:])), groups, what)
 
     xs, ws = randn(2, 8, 40, 36, 44), randn(8, 8, 6, 3, 3) / 20.0
@@ -1137,7 +1176,8 @@ def time_3d_tap(torch, inputs, errs, per_row):
     import torch.nn.functional as TF
 
     from fft_conv_tpu_torch import fft_conv
-    from fft_conv_tpu_torch.kernels.costs import bound, fused3d_tap_kernel_flops, fused3d_tap_work
+    from fft_conv_tpu_torch.kernels.costs import (
+        bound, fused3d_tap_kernel_flops, fused3d_tap_mac_work, fused3d_tap_work)
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import plan_fft_conv
 
@@ -1179,6 +1219,8 @@ def time_3d_tap(torch, inputs, errs, per_row):
             # B4's three kernels, one by one (device time per call)
             "phase_ms": phase_split_ms(torch, kernel, "fused3d_"),
         }
+        row["d_stage"] = d_stage(torch, row["phase_ms"], "tap_mac",
+                                 fused3d_tap_mac_work(b, cin, cout, d, h, w, k), kernel, "B4")
         row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
         rows.append(row)
         print(json.dumps({"phase": "timing", "kernel": "B4", **row}))
@@ -2395,14 +2437,15 @@ def main() -> int:
     print(json.dumps({"phase": "ptxas", "kernel": "B5", "spill_bytes": spills}))
     # B3, B4 and B6: every entry point of fused3d.cu (the dense H/W kernels
     # at SB = 4, 2, 1, direct and packed, the factored ones at H = 16, 32, 64,
-    # 128, the D, MAC and pack kernels), and the H/W kernels' registers
+    # 128, the D kernels d_mac at 8, 4, 2, 1 and tap_mac at 4, 2, 1 output
+    # channels a block, the pack kernel), and the H/W and D kernels' registers
     spills = ptxas_spills(_build.build_logs["fused3d"])
     check(len(spills) == 29 and not any(sum(v) for v in spills.values()),
           f"fused3d.cu's 29 entry points spill registers or are missing: {spills}")
-    hw_regs = {fn: r for fn, r in ptxas_registers(_build.build_logs["fused3d"]).items()
-               if "_hw_" in fn}
+    regs = {fn: r for fn, r in ptxas_registers(_build.build_logs["fused3d"]).items()
+            if "_hw_" in fn or "_d_mac" in fn or "_tap_mac" in fn}
     print(json.dumps({"phase": "ptxas", "kernel": "B3, B4, B6", "spill_bytes": spills,
-                      "hw_registers": hw_regs}))
+                      "registers": regs}))
     torch.cuda.synchronize()
 
     gen = torch.Generator().manual_seed(0)

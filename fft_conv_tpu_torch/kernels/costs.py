@@ -460,9 +460,46 @@ def fused3d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
 
     kd, kh, kw = _ks(k, 3)
     plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
-    nbh, nbd = plan[1], plan[4]
+    nbh = plan[1]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
-    cpg, npos = cin // groups, nbh * 64
+    cpg = cin // groups
+    flops = 0
+    for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
+        fwd, inv = _hw_slab_flops(h, oh, nbh, min(64, w - start), lo, hi, dense)
+        flops += cin * d * fwd + cout * od * inv
+    nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * 16 * nbh * 64
+              + 4 * b * cout * od * oh * ow)
+    return nbytes, b * flops + fused3d_d_work(b, cin, cout, d, h, w, k, groups, dense)[1]
+
+
+def _d_stage(b, cin, cout, d, h, w, kd, kh, kw, groups, taps):
+    """(items, NBH·64 bins, OD, bytes) of the D stage of one call whose
+    spectra hold ``taps`` D entries (16 D-bins, or the KD taps): T (items,
+    Cin, D, bins) and the spectra read once, Z (items, Cout, OD, bins)
+    written once, complex64."""
+    from . import fused3d
+
+    plan, nwb, _ = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
+    items, npos, od = b * nwb, plan[1] * 64, d - kd + 1
+    nbytes = 8 * npos * (items * (cin * d + cout * od) + cout * (cin // groups) * taps)
+    return items, npos, od, nbytes
+
+
+def fused3d_d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
+    """(bytes, flops) B3's D stage (between the H/W spectra T and the MAC's
+    output Z) must move and do for one call, the bound of its kernel
+    (fused3d_d_mac). Bytes: _d_stage. Flops, with an FMA as two: per input
+    channel and bin, the DFT-16 of each block as two 8-slab partial DFTs,
+    each 8-slab chunk's once, and their sum (2 per value, where the second
+    chunk reaches inside D); per output channel and bin, the MAC over the
+    group's channels at the 16 D-bins of each block (8) and the inverse
+    DFT-16 onto the block's valid d below OD. The DFT-16s are counted by
+    _four_step_flops (16 = 4 x 4, over the chunk's slabs inside D, onto the
+    valid d only). dense: the partial DFTs 8 per term over the slabs inside
+    D and the inverse 8 per term onto the OD valid d."""
+    kd, kh, kw = _ks(k, 3)
+    items, npos, od, nbytes = _d_stage(b, cin, cout, d, h, w, kd, kh, kw, groups, 16)
+    nbd = -(-od // 8)
     live = [min(8, d - 8 * m) for m in range(nbd + 1)]  # each chunk's slabs inside D
     valid = [min(8, od - 8 * j) for j in range(nbd)]    # each block's valid d
     if dense:
@@ -471,32 +508,36 @@ def fused3d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
         d_fwd = sum(_four_step_flops(16, lv, 16) for lv in live if lv > 0)
         d_fwd += 2 * 16 * sum(lv > 0 for lv in live[1:])
         d_inv = sum(_four_step_flops(16, 16, v) for v in valid)
-    flops = 0
-    for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
-        fwd, inv = _hw_slab_flops(h, oh, nbh, min(64, w - start), lo, hi, dense)
-        flops += cin * d * fwd + cout * od * inv
-        flops += cin * npos * d_fwd
-        flops += cout * npos * (8 * cpg * 16 * nbd + d_inv)
-    nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * 16 * nbh * 64
-              + 4 * b * cout * od * oh * ow)
-    return nbytes, b * flops
+    per_item = cin * d_fwd + cout * (8 * (cin // groups) * 16 * nbd + d_inv)
+    return nbytes, items * npos * per_item
 
 
 def fused3d_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
-    """The flops csrc/fused3d.cu does for one call: the H/W kernels as
-    _hw_kernel_flops counts them, the inverse DFT-16 onto all 8 d of a
-    block."""
+    """The flops csrc/fused3d.cu does for one call of B3: the H/W kernels
+    as _hw_kernel_flops counts them and fused3d_d_mac's own arithmetic, 4
+    lanes a (bin, D block), every slab of a block counted (zeros past D
+    too). Per lane, per input channel and block of OPB output channels
+    (fused3d._opb; the block recomputes the channel's DFT-16): step 1 of the
+    DFT-16 at one output m1 (16 a j2: two real FMA pairs and a complex FMA),
+    three twiddles and the 4-point DFT of step 2. The MAC per output and
+    input channel at the 16 D-bins. Per lane and output channel: the
+    conjugated 4-point DFT, three twiddles, four rotations onto m2 = 1, the
+    six complex adds of the two shuffle rounds and the 1/16 of the two d it
+    stores."""
     from . import fused3d
 
     kd, kh, kw = _ks(k, 3)
     plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
     nbh, nbd = plan[1], plan[4]
     od, oh = d - kd + 1, h - kh + 1
-    npos = nbh * 64
+    npos, cpg = nbh * 64, cin // groups
     fwd, inv = _hw_kernel_flops(h, oh, nbh, d, od, fused3d._slabs_per_block(nbh))
+    dft4 = _short_dft_flops(4, 4, 4, True)
+    d_fwd = 4 * (4 * 16 + 3 * 6 + dft4)
+    d_inv = 4 * (dft4 + 3 * 6 + 4 * 6 + 6 * 2 + 2 * 2)
+    opb = fused3d._opb(cout // groups, fused3d._D_OPB)
     item = cin * fwd + cout * inv
-    item += cin * npos * (8 * 16 * d + 2 * 16 * nbd)
-    item += cout * npos * nbd * (8 * (cin // groups) * 16 + 8 * 8 * 16)
+    item += npos * nbd * ((cout // opb) * cpg * d_fwd + cout * (cpg * 16 * 8 + d_inv))
     return b * nwb * item
 
 
@@ -514,31 +555,40 @@ def fused3d_tap_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
     plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
     nbh = plan[1]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
-    cpg, npos = cin // groups, nbh * 64
+    cpg = cin // groups
     flops = 0
     for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
         fwd, inv = _hw_slab_flops(h, oh, nbh, min(64, w - start), lo, hi, dense)
         flops += cin * d * fwd + cout * od * inv
-        flops += cout * npos * od * 8 * cpg * kd
     nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * kd * nbh * 64
               + 4 * b * cout * od * oh * ow)
-    return nbytes, b * flops
+    return nbytes, b * flops + fused3d_tap_mac_work(b, cin, cout, d, h, w, k, groups)[1]
+
+
+def fused3d_tap_mac_work(b, cin, cout, d, h, w, k, groups=1):
+    """(bytes, flops) B4's tap MAC must move and do for one call, the bound
+    of its kernel (fused3d_tap_mac): bytes as _d_stage with the KD taps;
+    per output channel, valid d and bin, the MAC over the group's channels
+    and the KD taps (8 per term)."""
+    kd, kh, kw = _ks(k, 3)
+    items, npos, od, nbytes = _d_stage(b, cin, cout, d, h, w, kd, kh, kw, groups, kd)
+    return nbytes, items * cout * npos * od * 8 * (cin // groups) * kd
 
 
 def fused3d_tap_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
     """The flops csrc/fused3d.cu's tap chain does for one call: the H/W
-    kernels as _hw_kernel_flops counts them, the tap MAC onto all 8 d of
-    each chunk."""
+    kernels as _hw_kernel_flops counts them, the tap MAC onto all
+    fused3d._TAP_DC d of each chunk a thread takes."""
     from . import fused3d
 
     kd, kh, kw = _ks(k, 3)
     plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
     nbh = plan[1]
     od, oh = d - kd + 1, h - kh + 1
-    npos = nbh * 64
+    npos, dc = nbh * 64, fused3d._TAP_DC
     fwd, inv = _hw_kernel_flops(h, oh, nbh, d, od, fused3d._slabs_per_block(nbh))
     item = cin * fwd + cout * inv
-    item += cout * npos * -(-od // 8) * 8 * 8 * (cin // groups) * kd
+    item += cout * npos * -(-od // dc) * dc * 8 * (cin // groups) * kd
     return b * nwb * item
 
 

@@ -34,8 +34,9 @@
 // output rows. An odd last slab is paired with zeros. Every other H (the
 // stuffed 78 and 82 of the 3D transposed rows, odd H, H > 128) keeps the
 // dense products, a one-sided H DFT and an irfft on the valid rows. The D
-// DFT-16 and the MAC are dense products. The host side (plans, factors,
-// kernel spectra, item ranges) is in fft_conv_tpu_torch/kernels/fused3d.py.
+// DFT-16 and its inverse are four-step transforms 16 = 4 * 4 (fused3d.py:
+// _D_SPLIT), the MACs complex FMAs. The host side (plans, factors, kernel
+// spectra, item ranges) is in fft_conv_tpu_torch/kernels/fused3d.py.
 //
 // Partition. A TPU cell holds a whole volume of every channel in its vector
 // memory (90.5 MB at the 64^3 benchmark); one D-block's spectrum of one
@@ -48,27 +49,26 @@
 //     the signal, the one-sided H DFT into shared memory, the factored W DFT
 //     (step 1 in place, step 2 stored from registers) into the scratch T
 //     (items, Cin, D, NBH, 64);
-//   2 d_forward (B3), grid (items * Cin, positions / 256): one thread per
-//     (n, z) bin walks D in chunks of 8 slabs; the DFT-16 of block j is the
-//     sum of two 8-slab partial DFTs, A[j] + (-1)^f A[j+1], so each slab
-//     enters one partial DFT only. Writes S (items, Cin, NBD, 16, NBH, 64);
-//   3 mac_d_inverse (B3), grid (items * Cout / OPB, NBD, positions / 256):
-//     one thread per bin and OPB output channels of one group streams the 16
-//     D-bins, MACs over the group's channels (S and the spectra from L2) and
-//     accumulates straight into the 8 valid d of the inverse DFT-16, in
-//     registers. Writes Z (items, Cout, OD, NBH, 64);
-//   3' tap_mac (B4, in place of 2 and 3), grid (items * Cout / OPB, OD / 8,
-//     positions / 256): one thread per bin, OPB output channels of one group
-//     and 8 consecutive valid d. For each of the group's channels it walks
-//     the KD taps with a window of 8 T values in registers, shifted by one
-//     slab a tap, and reads its OPB channels' spectra at that tap through
-//     L2; the sums stay in registers (OPB x 8 complex, whatever KD is).
+//   2 d_mac (B3), grid (positions / 8, Cout / OPB): a block owns 8 (n, z)
+//     bins and OPB output channels of one group, stages their spectra in
+//     shared memory once and walks every (item, D-block) pair of the launch,
+//     a warp a pair: per input channel the factored DFT-16 of the block's 16
+//     slabs of T (4 lanes a bin, each at 4 of the 16 D-bins), the MAC, and
+//     after the group's channels the inverse DFT-16 onto the 8 valid d,
+//     finished across the 4 lanes by shuffles. S lives in registers only.
 //     Writes Z (items, Cout, OD, NBH, 64);
-//   4 hw_inverse (B3 and B4), grid (items * Cout, OD / SB): SB slabs of Z
+//   2' tap_mac (B4, in place of 2), grid (positions / 16, Cout / OPB): a
+//     block owns 16 bins and OPB output channels of one group, stages their
+//     per-tap spectra once and walks every (item, chunk of 8 valid d) pair,
+//     a thread a (bin, pair): for each of the group's channels it slides a
+//     window of T values over the KD taps in registers, a slab a tap, and
+//     reads its OPB spectra at that tap from shared memory; the sums stay in
+//     registers (OPB x 8 complex, whatever KD is). Writes Z;
+//   3 hw_inverse (B3 and B4), grid (items * Cout, OD / SB): SB slabs of Z
 //     into shared memory, the factored inverse W DFT in place, the H inverse
 //     on the valid rows, and the valid (d, h, w) samples stored straight
 //     into (B, Cout, OD, OH, OW).
-// Two versions of phases 1 and 4 run:
+// Two versions of phases 1 and 3 run:
 //   * factored (H = 16 to 128, fused3d_hw_forward_f and fused3d_hw_inverse_f,
 //     SB = kSBF = 2 slabs, one pair): phase 1 copies the two slabs' H x 64
 //     samples into shared memory by cp.async, 16 bytes a thread (4-byte
@@ -107,9 +107,9 @@
 // MB (signal 16.8, spectra 17.3, output 11.9): 0.014 ms at 3.35 TB/s, so
 // bytes bound it. Done as dense products the same call was 3.7 GFLOP, half
 // of them the W DFTs (H DFT 0.55, W DFT 1.11, DFT-16 0.29, MAC 0.28, inverse
-// D 0.25, inverse W 0.88, H irfft 0.39). With H and W factored the kernels
-// do about 1.1 GFLOP, most of it in the dense DFT-16s and the MAC
-// (costs.fused3d_kernel_flops). B4 at the same volume with K=10 needs about
+// D 0.25, inverse W 0.88, H irfft 0.39). With every DFT factored the kernels
+// do about 0.70 GFLOP, 0.48 of it in d_mac (costs.fused3d_kernel_flops). B4
+// at the same volume with K=10 needs about
 // 1.34 GFLOP (0.020 ms, the tap MAC 1.19 of it) against 38.2 MB to move
 // (0.011 ms); operations bound it.
 //
@@ -125,12 +125,28 @@
 // inverse 0.016, about half the HBM rate; two pairs a block, 2 to 4 blocks
 // an SM and 128-thread blocks all time within 5% of that.
 //
-// The MAC phases read their operands through L2: B3's about 0.35 GB at the
-// benchmark; B4's the spectra once per (item, 8-d chunk), about 0.15 GB at
-// 64^3 K=10, and per (tap, channel) one T value and OPB spectra values for
-// 32 complex MACs at OPB = 4. Tensor cores (wgmma), TMA staging, a MAC block
-// that serves several d-chunks and fusing the phases are left for later
-// work.
+// Schedule of the D kernels. Their stage moves T in, the spectra in and Z
+// out (50.0 MB for B3 at the benchmark, 0.0149 ms at 3.35 TB/s, bytes bound
+// it: costs.fused3d_d_work; 43.0 MB and 1.19 GFLOP for B4 at K=10, 0.0178
+// ms, operations bound it: costs.fused3d_tap_mac_work). As two kernels
+// (DFT-16, then MAC and inverse) B3 would pass S, twice the size of T,
+// through L2 and re-read it and the spectra, about 0.4 GB. d_mac keeps S in
+// registers and reads each spectrum value
+// once per block: a block owns 8 bins and all 8 output channels of a group
+// (a 64 KB tile), so T is read twice (the blocks of a D-block pair overlap
+// by 8 slabs; re-read rather than carried, since a carry would hold 4
+// complex values a lane per channel of the group) and the L2 traffic is
+// about 67 MB. 264 blocks of 8 warps, 2 an SM, one wave on 132 SMs. The
+// DFT-16 runs at one output of step 1 a lane (the 4 lanes of a bin read
+// the same 16 slabs, one request), so no shuffle is needed before the MAC;
+// the inverse ends in a reduce-scatter over the 4 lanes that keeps only the
+// 8 valid d. tap_mac reads each spectrum value once per block (16 bins x 4
+// output channels) and T (17 slabs for 8 d at KD = 10) twice, one output
+// chunk each; per tap a thread does 32 complex MACs for 4 shared-memory
+// reads and one L2 read, issued a tap ahead. A group whose
+// tile exceeds kStageBytes is staged in chunks of channels (d_mac) or of
+// (channel, tap) entries (tap_mac), re-staged once per round of pairs.
+// Tensor cores (wgmma) and TMA staging are left for later work.
 //
 // B6 replaces fft_conv_tpu/kernels/fused3d.py:1184 (_pack3d_call), the TPU's
 // x-pack kernel of the "pk" x-pack mode: a pure permutation of the signal
@@ -153,6 +169,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -411,161 +429,6 @@ fused3d_hw_forward(const float* __restrict__ x,    // (B, Cin, d, h, w), or pack
     short_dft<kWB, false>(u, rb);
 #pragma unroll
     for (int m2 = 0; m2 < kWB; ++m2) tout[(int64_t)row * kTW + m1 + kWA * m2] = u[m2];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused3d_d_forward(const float2* __restrict__ t,   // (items of this launch, Cin, d, nbh, 64)
-                  const float2* __restrict__ df,  // (16, 16) DFT-16; rows t < 8 are read
-                  float2* __restrict__ s,         // (items of this launch, Cin, nbd, 16, nbh, 64)
-                  int d, int nbh, int nbd) {
-  __shared__ float2 s_w[kDHop * kDB];
-  for (int i = threadIdx.x; i < kDHop * kDB; i += kThreads) s_w[i] = df[i];
-  __syncthreads();
-  const int npos = nbh * kTW;
-  const int pos = blockIdx.y * kThreads + threadIdx.x;
-  if (pos >= npos) return;
-  const float2* tp = t + (int64_t)blockIdx.x * d * npos + pos;
-  float2* sp = s + (int64_t)blockIdx.x * nbd * kDB * npos + pos;
-
-  // A[m] = partial DFT-16 of slabs [8m, 8m + 8); block j = A[j] + (-1)^f A[j+1]
-  float2 prev[kDB], cur[kDB];
-#pragma unroll
-  for (int f = 0; f < kDB; ++f) prev[f] = make_float2(0.f, 0.f);
-  for (int m = 0; m <= nbd; ++m) {
-#pragma unroll
-    for (int f = 0; f < kDB; ++f) cur[f] = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int tt = 0; tt < kDHop; ++tt) {
-      const int dd = m * kDHop + tt;
-      if (dd < d) {
-        const float2 v = __ldg(tp + (int64_t)dd * npos);
-#pragma unroll
-        for (int f = 0; f < kDB; ++f) cmac(cur[f], v, s_w[tt * kDB + f]);
-      }
-    }
-    if (m > 0) {
-#pragma unroll
-      for (int f = 0; f < kDB; ++f) {
-        const float2 o = (f & 1) ? make_float2(prev[f].x - cur[f].x, prev[f].y - cur[f].y)
-                                 : make_float2(prev[f].x + cur[f].x, prev[f].y + cur[f].y);
-        sp[((int64_t)(m - 1) * kDB + f) * npos] = o;
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < kDB; ++f) prev[f] = cur[f];
-  }
-}
-
-template <int OPB>
-__global__ void __launch_bounds__(kThreads)
-fused3d_mac_d_inverse(const float2* __restrict__ s,   // (items of this launch, Cin, nbd, 16, nbh, 64)
-                      const float2* __restrict__ ks,  // (Cout, Cin/g, 16, nbh, 64), conjugated
-                      const float2* __restrict__ ei,  // (8, 16) inverse DFT-16 rows, 1/16 folded in
-                      float2* __restrict__ z,         // (items of this launch, Cout, od, nbh, 64)
-                      int cin, int cout, int groups, int nbh, int nbd, int od) {
-  __shared__ float2 s_e[kDHop * kDB];
-  for (int i = threadIdx.x; i < kDHop * kDB; i += kThreads) s_e[i] = ei[i];
-  __syncthreads();
-  const int64_t npos = (int64_t)nbh * kTW;
-  const int pos = blockIdx.z * kThreads + threadIdx.x;
-  if (pos >= npos) return;
-  const int nchunk = cout / OPB;
-  const int it = blockIdx.x / nchunk, o0 = (blockIdx.x % nchunk) * OPB;
-  const int cpg = cin / groups, g = o0 / (cout / groups);
-  const int j = blockIdx.y;
-  const float2* sp = s + (((int64_t)it * cin + g * cpg) * nbd + j) * kDB * npos + pos;
-  const float2* kp = ks + (int64_t)o0 * cpg * kDB * npos + pos;
-
-  float2 acc[OPB][kDHop];
-#pragma unroll
-  for (int o = 0; o < OPB; ++o)
-#pragma unroll
-    for (int q = 0; q < kDHop; ++q) acc[o][q] = make_float2(0.f, 0.f);
-  for (int f = 0; f < kDB; ++f) {
-    // Y[o] = sum over the group's channels of S[c] * K[o, c] at this D-bin
-    float2 y[OPB];
-#pragma unroll
-    for (int o = 0; o < OPB; ++o) y[o] = make_float2(0.f, 0.f);
-    for (int ci = 0; ci < cpg; ++ci) {
-      const float2 sv = __ldg(sp + ((int64_t)ci * nbd * kDB + f) * npos);
-#pragma unroll
-      for (int o = 0; o < OPB; ++o)
-        cmac(y[o], sv, __ldg(kp + (((int64_t)o * cpg + ci) * kDB + f) * npos));
-    }
-    // inverse DFT-16 onto the 8 valid d of the block
-#pragma unroll
-    for (int q = 0; q < kDHop; ++q) {
-      const float2 e = s_e[q * kDB + f];
-#pragma unroll
-      for (int o = 0; o < OPB; ++o) cmac(acc[o][q], y[o], e);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kDHop; ++q) {
-    const int dd = j * kDHop + q;
-    if (dd < od) {
-#pragma unroll
-      for (int o = 0; o < OPB; ++o)
-        z[(((int64_t)it * cout + o0 + o) * od + dd) * npos + pos] = acc[o][q];
-    }
-  }
-}
-
-template <int OPB>
-__global__ void __launch_bounds__(kThreads)
-fused3d_tap_mac(const float2* __restrict__ t,   // (items of this launch, Cin, d, nbh, 64)
-                const float2* __restrict__ ks,  // (Cout, Cin/g, kd, nbh, 64), conjugated
-                float2* __restrict__ z,         // (items of this launch, Cout, od, nbh, 64)
-                int cin, int cout, int groups, int d, int nbh, int kd, int od) {
-  const int64_t npos = (int64_t)nbh * kTW;
-  const int pos = blockIdx.z * kThreads + threadIdx.x;
-  if (pos >= npos) return;
-  const int nchunk = cout / OPB;
-  const int it = blockIdx.x / nchunk, o0 = (blockIdx.x % nchunk) * OPB;
-  const int cpg = cin / groups, g = o0 / (cout / groups);
-  const int d0 = blockIdx.y * kDHop;
-  const float2* tp = t + ((int64_t)it * cin + g * cpg) * d * npos + pos;
-  const float2* kp = ks + (int64_t)o0 * cpg * kd * npos + pos;
-
-  // Y[o, d0 + q] = sum over the group's channels c and the taps u of
-  // T[c, d0 + q + u] * K[o, c, u]; slabs at or past d (only read for q
-  // whose d0 + q >= od, which is not stored) count as zeros
-  float2 acc[OPB][kDHop];
-#pragma unroll
-  for (int o = 0; o < OPB; ++o)
-#pragma unroll
-    for (int q = 0; q < kDHop; ++q) acc[o][q] = make_float2(0.f, 0.f);
-  for (int ci = 0; ci < cpg; ++ci) {
-    const float2* tc = tp + (int64_t)ci * d * npos;
-    // a window of the 8 slabs d0 + u + [0, 8), slid by one slab per tap
-    float2 win[kDHop];
-#pragma unroll
-    for (int q = 0; q < kDHop; ++q)
-      win[q] = d0 + q < d ? __ldg(tc + (int64_t)(d0 + q) * npos) : make_float2(0.f, 0.f);
-    for (int u = 0; u < kd; ++u) {
-#pragma unroll
-      for (int o = 0; o < OPB; ++o) {
-        const float2 k = __ldg(kp + (((int64_t)o * cpg + ci) * kd + u) * npos);
-#pragma unroll
-        for (int q = 0; q < kDHop; ++q) cmac(acc[o][q], win[q], k);
-      }
-      if (u + 1 < kd) {
-#pragma unroll
-        for (int q = 0; q + 1 < kDHop; ++q) win[q] = win[q + 1];
-        const int dn = d0 + kDHop + u;
-        win[kDHop - 1] = dn < d ? __ldg(tc + (int64_t)dn * npos) : make_float2(0.f, 0.f);
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kDHop; ++q) {
-    const int dd = d0 + q;
-    if (dd < od) {
-#pragma unroll
-      for (int o = 0; o < OPB; ++o)
-        z[(((int64_t)it * cout + o0 + o) * od + dd) * npos + pos] = acc[o][q];
-    }
   }
 }
 
@@ -1157,6 +1020,281 @@ fused3d_hw_inverse_f(const float2* __restrict__ z,     // (items of launch, Cout
   }
 }
 
+// ---- The D stages: B3's DFT-16, MAC and inverse in one kernel; B4's tap MAC --
+
+// The four-step split of the D DFT-16, 16 = kDF * kDF (fused3d.py: _D_SPLIT).
+// The host hands its factors in one vector laid out as the W factors: the 4
+// roots exp(-2 pi i k / 4) of step 1, the 4 of step 2 and the (4, 4) twiddle
+// tw[m1, j2] = exp(-2 pi i m1 j2 / 16), row-major; the inverse conjugates all
+// three.
+constexpr int kDF = 4;
+static_assert(kDF * kDF == kDB && kDF == 4, "the D block must split 4 * 4");
+// fused3d_d_mac: the bins a warp holds (lane bin + kDBins l, l < kDF), the
+// most warps a block (one (item, D-block) pair each at a time) and the most
+// output channels a block (fused3d.py: _D_OPB)
+constexpr int kDBins = 32 / kDF;
+constexpr int kDWarps = 8;
+constexpr int kDOpb = 8;
+// fused3d_tap_mac: the bins a block, its most threads, the most output
+// channels a block and the valid d a thread (fused3d.py: _TAP_DC)
+constexpr int kTapBins = 16;
+constexpr int kTapThreads = 256;
+constexpr int kTapOpb = 4;
+constexpr int kTapDC = 8;
+static_assert(32 % kTapBins == 0 && kTapBins % 2 == 0, "whole warps, 16-byte copies");
+// the kernel spectra one block of a D kernel stages in shared memory at once
+constexpr int kStageBytes = 65536;
+
+__device__ __forceinline__ float2 shfl_xor2(float2 v, int mask) {
+  return make_float2(__shfl_xor_sync(0xffffffffu, v.x, mask),
+                     __shfl_xor_sync(0xffffffffu, v.y, mask));
+}
+
+// B3's D stage, grid (npos / kDBins, cout / OPB), 32 * P threads. A block
+// owns kDBins (h, w) bins and OPB output channels of one group; it stages
+// their conjugated spectra (in chunks of cc channels) and walks every (item,
+// D-block) pair of the launch, warp w taking pairs w, w + P, ... Lane bin +
+// kDBins l owns the D-bins f = l + 4 f2 (f2 < 4) of its bin: per input
+// channel it reads the block's 16 slabs (8 j + [0, 16), zeros past d; the 4
+// lanes of a bin read the same addresses), takes step 1 of the factored
+// DFT-16 at its one output m1 = l, the twiddle and step 2 in registers, and
+// MACs its 4 D-bins into y[OPB][4]. After the group's channels, per output
+// channel: step 1 of the conjugated DFT-16 over f2, its twiddle, and step 2
+// over l across the bin's 4 lanes onto the 8 valid d only, as a
+// reduce-scatter of two shuffle rounds, after which lane l holds d = 8 j + l
+// and 8 j + l + 4. S never leaves registers.
+template <int OPB>
+__global__ void __launch_bounds__(32 * kDWarps, 2)
+fused3d_d_mac(const float2* __restrict__ t,     // (items of this launch, Cin, d, nbh, 64)
+              const float2* __restrict__ ks,    // (Cout, Cin/g, 16, nbh, 64), conjugated
+              const float2* __restrict__ dfac,  // DFT-16 factors (4 + 4 + 16), see kDF
+              float2* __restrict__ z,           // (items of this launch, Cout, od, nbh, 64)
+              int cin, int cout, int groups, int d, int nbh, int nbd, int od, int nitem,
+              int cc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* s_k = reinterpret_cast<float2*>(smem_raw);  // rows (channel, o, f) of kDBins
+  const int64_t npos = (int64_t)nbh * kTW;
+  const int lane = threadIdx.x % 32, bin = lane % kDBins, l = lane / kDBins;
+  const int warp = threadIdx.x / 32, nwarp = blockDim.x / 32;
+  const int64_t pos0 = (int64_t)blockIdx.x * kDBins, pos = pos0 + bin;
+  const int cpg = cin / groups, o0 = blockIdx.y * OPB, c0 = o0 / (cout / groups) * cpg;
+  const int nchunk = (cpg + cc - 1) / cc, npair = nitem * nbd;
+
+  // channels [k cc, k cc + cc) of the group (fewer in the last chunk), every
+  // copy issued at once, 16 bytes each
+  auto stage = [&](int k) {
+    const int rows = min(cc, cpg - k * cc) * OPB * kDB;
+    for (int i = threadIdx.x; i < rows * (kDBins / 2); i += blockDim.x) {
+      const int row = i / (kDBins / 2), q = i % (kDBins / 2);
+      const int c = k * cc + row / (OPB * kDB), o = row / kDB % OPB, f = row % kDB;
+      cp_async16(s_k + row * kDBins + 2 * q,
+                 ks + (((int64_t)(o0 + o) * cpg + c) * kDB + f) * npos + pos0 + 2 * q);
+    }
+    cp_async_wait_all();
+  };
+
+  // step 1's root exp(-2 pi i l / 4) and its square (-1)^l, the forward's
+  // twiddles tw[l, j2], step 2's roots
+  const float2 rl = __ldg(dfac + l);
+  const float sl = (l & 1) ? -1.f : 1.f;
+  float2 twf[kDF], rb[kDF / 2];
+#pragma unroll
+  for (int j2 = 1; j2 < kDF; ++j2) twf[j2] = __ldg(dfac + 2 * kDF + l * kDF + j2);
+  roots_of<kDF>(dfac + kDF, rb);
+
+  if (nchunk == 1) {
+    stage(0);
+    __syncthreads();
+  }
+  for (int p0 = 0; p0 < npair; p0 += nwarp) {
+    const int p = p0 + warp, it = p / nbd, j = p % nbd;
+    const bool live = p < npair;  // uniform in the warp
+    float2 y[OPB][kDF];
+#pragma unroll
+    for (int o = 0; o < OPB; ++o)
+#pragma unroll
+      for (int f2 = 0; f2 < kDF; ++f2) y[o][f2] = make_float2(0.f, 0.f);
+    for (int k = 0; k < nchunk; ++k) {
+      if (nchunk > 1) {
+        __syncthreads();  // every read of the last chunk is done
+        stage(k);
+        __syncthreads();
+      }
+      if (!live) continue;
+      const int ncl = min(cc, cpg - k * cc);
+      for (int cl = 0; cl < ncl; ++cl) {
+        const float2* tp = t + ((int64_t)it * cin + c0 + k * cc + cl) * d * npos + pos;
+        // step 1 at m1 = l, a[j2] = sum_j1 x[4 j1 + j2] r^j1 with r^2 = (-1)^l,
+        // and the twiddle tw[l, j2]
+        float2 a[kDF];
+#pragma unroll
+        for (int j2 = 0; j2 < kDF; ++j2) {
+          float2 x[kDF];
+#pragma unroll
+          for (int j1 = 0; j1 < kDF; ++j1) {
+            const int s = j * kDHop + j1 * kDF + j2;
+            x[j1] = s < d ? __ldg(tp + s * npos) : make_float2(0.f, 0.f);
+          }
+          a[j2] = make_float2(fmaf(sl, x[2].x, x[0].x), fmaf(sl, x[2].y, x[0].y));
+          cmac(a[j2], make_float2(fmaf(sl, x[3].x, x[1].x), fmaf(sl, x[3].y, x[1].y)), rl);
+          if (j2 != 0) a[j2] = cmulw<false>(a[j2], twf[j2]);
+        }
+        // step 2 over j2 onto f = l + 4 f2, then the MAC
+        short_dft<kDF, false>(a, rb);
+        const float2* kp = s_k + (cl * OPB * kDB + l) * kDBins + bin;
+#pragma unroll
+        for (int o = 0; o < OPB; ++o)
+#pragma unroll
+          for (int f2 = 0; f2 < kDF; ++f2)
+            cmac(y[o][f2], a[f2], kp[(o * kDB + kDF * f2) * kDBins]);
+      }
+    }
+    if (!live) continue;
+
+    // inverse DFT-16 onto d = m1 + 4 m2, m2 < 2: step 1 over j1 = f2 onto m1,
+    // the twiddle conj tw[m1, l], step 2 over j2 = l across the bin's lanes
+    // (xor kDBins flips bit 0 of l, xor 2 kDBins bit 1); 1/16 at the store
+    float2 ra[kDF / 2], twi[kDF];
+    roots_of<kDF>(dfac, ra);
+#pragma unroll
+    for (int m1 = 1; m1 < kDF; ++m1) twi[m1] = __ldg(dfac + 2 * kDF + m1 * kDF + l);
+    const float2 rot = __ldg(dfac + kDF + l);  // exp(-2 pi i l / 4), conjugated
+    const bool b1 = l & 2, b0 = l & 1;
+#pragma unroll
+    for (int o = 0; o < OPB; ++o) {
+      short_dft<kDF, true>(y[o], ra);
+      float2 v[kDF][2];
+#pragma unroll
+      for (int m1 = 0; m1 < kDF; ++m1) {
+        v[m1][0] = m1 == 0 ? y[o][0] : cmulw<true>(y[o][m1], twi[m1]);
+        v[m1][1] = cmulw<true>(v[m1][0], rot);
+      }
+      // a lane keeps the m1 whose bit 1 is b1, then the m1 = l
+      float2 w[2][2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int m2 = 0; m2 < 2; ++m2)
+          w[k][m2] = cadd(b1 ? v[2 + k][m2] : v[k][m2],
+                          shfl_xor2(b1 ? v[k][m2] : v[2 + k][m2], 2 * kDBins));
+#pragma unroll
+      for (int m2 = 0; m2 < 2; ++m2) {
+        const float2 u = cadd(b0 ? w[1][m2] : w[0][m2], shfl_xor2(b0 ? w[0][m2] : w[1][m2], kDBins));
+        const int dd = j * kDHop + l + kDF * m2;
+        if (dd < od)
+          z[(((int64_t)it * cout + o0 + o) * od + dd) * npos + pos] =
+              make_float2(u.x * (1.f / kDB), u.y * (1.f / kDB));
+      }
+    }
+  }
+}
+
+// B4's tap MAC, grid (npos / kTapBins, cout / OPB), kTapBins * P threads. A
+// block owns kTapBins bins and OPB output channels of one group; it stages
+// their conjugated per-tap spectra (entries e = c kd + u of the group, in
+// chunks of ce) and walks every (item, chunk of kTapDC valid d) pair of the
+// launch, pair lane threadIdx / kTapBins taking pairs lane, lane + P, ...
+// Per channel a thread slides a window of the kTapDC slabs d0 + u + [0,
+// kTapDC) over the taps u in registers, loading one slab a tap, a tap ahead,
+// and reads its OPB spectra at that tap from shared memory: OPB * kTapDC
+// complex MACs per T load. The sums stay in registers (OPB x kTapDC
+// complex, whatever kd is).
+template <int OPB>
+__global__ void __launch_bounds__(kTapThreads, 2)
+fused3d_tap_mac(const float2* __restrict__ t,   // (items of this launch, Cin, d, nbh, 64)
+                const float2* __restrict__ ks,  // (Cout, Cin/g, kd, nbh, 64), conjugated
+                float2* __restrict__ z,         // (items of this launch, Cout, od, nbh, 64)
+                int cin, int cout, int groups, int d, int nbh, int kd, int od, int nitem,
+                int ce) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* s_k = reinterpret_cast<float2*>(smem_raw);  // rows (entry, o) of kTapBins
+  const int64_t npos = (int64_t)nbh * kTW;
+  const int bin = threadIdx.x % kTapBins, lp = threadIdx.x / kTapBins;
+  const int nlp = blockDim.x / kTapBins;
+  const int64_t pos0 = (int64_t)blockIdx.x * kTapBins, pos = pos0 + bin;
+  const int cpg = cin / groups, o0 = blockIdx.y * OPB, c0 = o0 / (cout / groups) * cpg;
+  const int nent = cpg * kd, nchunk = (nent + ce - 1) / ce;
+  const int ndc = (od + kTapDC - 1) / kTapDC, npair = nitem * ndc;
+
+  auto stage = [&](int k) {
+    const int rows = min(ce, nent - k * ce) * OPB;
+    for (int i = threadIdx.x; i < rows * (kTapBins / 2); i += blockDim.x) {
+      const int row = i / (kTapBins / 2), q = i % (kTapBins / 2);
+      const int e = k * ce + row / OPB, o = row % OPB;
+      cp_async16(s_k + row * kTapBins + 2 * q,
+                 ks + ((int64_t)(o0 + o) * nent + e) * npos + pos0 + 2 * q);
+    }
+    cp_async_wait_all();
+  };
+
+  if (nchunk == 1) {
+    stage(0);
+    __syncthreads();
+  }
+  for (int p0 = 0; p0 < npair; p0 += nlp) {
+    const int p = p0 + lp, it = p / ndc, d0 = p % ndc * kTapDC;
+    const bool live = p < npair;
+    // Y[o, d0 + q] = sum over the group's channels c and the taps u of
+    // T[c, d0 + q + u] K[o, c, u]; slabs at or past d (read only for q with
+    // d0 + q >= od, which is not stored) count as zeros
+    float2 acc[OPB][kTapDC];
+#pragma unroll
+    for (int o = 0; o < OPB; ++o)
+#pragma unroll
+      for (int q = 0; q < kTapDC; ++q) acc[o][q] = make_float2(0.f, 0.f);
+    for (int k = 0; k < nchunk; ++k) {
+      if (nchunk > 1) {
+        __syncthreads();  // every read of the last chunk is done
+        stage(k);
+        __syncthreads();
+      }
+      if (!live) continue;
+      const int ehi = min(nent, (k + 1) * ce);
+      for (int e = k * ce; e < ehi;) {
+        // the taps [ulo, uhi) of channel c that this chunk holds
+        const int c = e / kd, ulo = e % kd, uhi = min(kd, ulo + ehi - e);
+        // slab d0 + ulo + q of channel c at tc + q * npos
+        const float2* tc = t + (((int64_t)it * cin + c0 + c) * d + d0 + ulo) * npos + pos;
+        const float2* kp = s_k + (e - k * ce) * OPB * kTapBins + bin;  // tap ulo
+        float2 win[kTapDC];
+#pragma unroll
+        for (int q = 0; q < kTapDC; ++q)
+          win[q] = d0 + ulo + q < d ? __ldg(tc + q * npos) : make_float2(0.f, 0.f);
+        // taps before `loads` bring in their next slab (one inside d that a
+        // later tap reads)
+        const int loads = min(uhi - ulo - 1, d - d0 - ulo - kTapDC);
+        tc += kTapDC * npos;
+#pragma unroll 1
+        for (int u = 0; u < uhi - ulo; ++u, tc += npos, kp += OPB * kTapBins) {
+          // slab d0 + ulo + u + kTapDC enters the window after this tap
+          const float2 next = u < loads ? __ldg(tc) : make_float2(0.f, 0.f);
+          float2 kv[OPB];
+#pragma unroll
+          for (int o = 0; o < OPB; ++o) kv[o] = kp[o * kTapBins];
+#pragma unroll
+          for (int o = 0; o < OPB; ++o)
+#pragma unroll
+            for (int q = 0; q < kTapDC; ++q) cmac(acc[o][q], win[q], kv[o]);
+#pragma unroll
+          for (int q = 0; q + 1 < kTapDC; ++q) win[q] = win[q + 1];
+          win[kTapDC - 1] = next;
+        }
+        e += uhi - ulo;
+      }
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int q = 0; q < kTapDC; ++q) {
+      const int dd = d0 + q;
+      if (dd < od) {
+#pragma unroll
+        for (int o = 0; o < OPB; ++o)
+          z[(((int64_t)it * cout + o0 + o) * od + dd) * npos + pos] = acc[o][q];
+      }
+    }
+  }
+}
+
 int slabs_per_block(int nbh) {
   if (Cfg<4>::smem(nbh) <= (size_t)kMaxSmem) return 4;
   if (Cfg<2>::smem(nbh) <= (size_t)kMaxSmem) return 2;
@@ -1166,8 +1304,8 @@ int slabs_per_block(int nbh) {
 
 struct Args {
   const float* x;
-  const float2 *ks, *fh, *wfac, *hfac, *df, *ei, *ch;  // fh, ch: dense H; hfac: factored
-  float2 *t, *s, *z;
+  const float2 *ks, *fh, *wfac, *hfac, *dfac, *ch;  // fh, ch: dense H; hfac: factored
+  float2 *t, *z;
   float* out;
   int cin, cout, groups, d, h, w, od, oh, ow, nbd, kd, nwb, hop, item0, nitem;
   int pp;  // > 0: x is B6's packed layout with pp d-pairs (B3 only)
@@ -1239,38 +1377,76 @@ cudaError_t launch_hw_f(const Args& a, bool forward) {
 // Whether H takes the factored H/W kernels (fused3d.py: _H_SPLITS).
 bool factored_h(int h) { return h == 16 || h == 32 || h == 64 || h == 128; }
 
-template <int OPB>
-cudaError_t launch_mac(const Args& a) {
-  const int npos = (a.h / 2 + 1) * kTW;
-  fused3d_mac_d_inverse<OPB><<<dim3(a.nitem * a.cout / OPB, a.nbd, (npos + kThreads - 1) / kThreads),
-                               kThreads, 0, a.stream>>>(
-      a.s, a.ks, a.ei, a.z, a.cin, a.cout, a.groups, a.h / 2 + 1, a.nbd, a.od);
-  return cudaGetLastError();
+// The most output channels of {8, 4, 2, 1}, at most MOST, that divide a
+// group's opg, and the launch of the D kernel at that count (only those
+// counts are built).
+template <template <int> class L, int MOST>
+cudaError_t launch_opb(const Args& a) {
+  const int opg = a.cout / a.groups;
+  if constexpr (MOST >= 8) {
+    if (opg % 8 == 0) return L<8>::run(a);
+  }
+  if constexpr (MOST >= 4) {
+    if (opg % 4 == 0) return L<4>::run(a);
+  }
+  if constexpr (MOST >= 2) {
+    if (opg % 2 == 0) return L<2>::run(a);
+  }
+  return L<1>::run(a);
 }
 
+// fused3d_d_mac: as many warps as pairs, at most kDWarps; the group's
+// channels staged in chunks of cc within kStageBytes
 template <int OPB>
-cudaError_t launch_tap_mac(const Args& a) {
-  const int npos = (a.h / 2 + 1) * kTW;
-  fused3d_tap_mac<OPB><<<dim3(a.nitem * a.cout / OPB, (a.od + kDHop - 1) / kDHop,
-                              (npos + kThreads - 1) / kThreads),
-                         kThreads, 0, a.stream>>>(
-      a.t, a.ks, a.z, a.cin, a.cout, a.groups, a.d, a.h / 2 + 1, a.kd, a.od);
-  return cudaGetLastError();
-}
+struct LaunchDMac {
+  static cudaError_t run(const Args& a) {
+    const int npos = (a.h / 2 + 1) * kTW, cpg = a.cin / a.groups;
+    const int warps = std::min(a.nitem * a.nbd, kDWarps);
+    const int per_channel = OPB * kDB * kDBins * (int)sizeof(float2);
+    const int cc = std::min(cpg, std::max(1, kStageBytes / per_channel));
+    const size_t smem = (size_t)cc * OPB * kDB * kDBins * sizeof(float2);
+    cudaError_t err = allow_smem(fused3d_d_mac<OPB>, smem);
+    if (err != cudaSuccess) return err;
+    fused3d_d_mac<OPB><<<dim3(npos / kDBins, a.cout / OPB), 32 * warps, smem, a.stream>>>(
+        a.t, a.ks, a.dfac, a.z, a.cin, a.cout, a.groups, a.d, a.h / 2 + 1, a.nbd, a.od, a.nitem,
+        cc);
+    return cudaGetLastError();
+  }
+};
+
+// fused3d_tap_mac: as many pair lanes as pairs (whole warps), at most
+// kTapThreads / kTapBins; the group's (channel, tap) entries staged in chunks
+// of ce within kStageBytes
+template <int OPB>
+struct LaunchTapMac {
+  static cudaError_t run(const Args& a) {
+    const int npos = (a.h / 2 + 1) * kTW, nent = a.cin / a.groups * a.kd;
+    const int npair = a.nitem * ((a.od + kTapDC - 1) / kTapDC), per_warp = 32 / kTapBins;
+    const int lanes =
+        std::min((npair + per_warp - 1) / per_warp * per_warp, kTapThreads / kTapBins);
+    const int per_entry = OPB * kTapBins * (int)sizeof(float2);
+    const int ce = std::min(nent, std::max(1, kStageBytes / per_entry));
+    const size_t smem = (size_t)ce * OPB * kTapBins * sizeof(float2);
+    cudaError_t err = allow_smem(fused3d_tap_mac<OPB>, smem);
+    if (err != cudaSuccess) return err;
+    fused3d_tap_mac<OPB><<<dim3(npos / kTapBins, a.cout / OPB), lanes * kTapBins, smem,
+                           a.stream>>>(a.t, a.ks, a.z, a.cin, a.cout, a.groups, a.d, a.h / 2 + 1,
+                                       a.kd, a.od, a.nitem, ce);
+    return cudaGetLastError();
+  }
+};
 
 // The checks both chains need: channels and groups, the valid box, the W
 // blocks, the item range, the H factors of the H/W kernels that run (sb,
-// the plan's slab count, names the dense ones) and their grid limits.
+// the plan's slab count, names the dense ones) and the grid limits.
 bool hw_args_ok(const Args& a, int sb) {
-  const int npos = (a.h / 2 + 1) * kTW;
   const bool fac = factored_h(a.h);
   if (fac ? a.hfac == nullptr : (a.fh == nullptr || a.ch == nullptr)) return false;
   if (fac && sb != 0) sb = kSBF;
   return sb != 0 && a.groups >= 1 && a.cin % a.groups == 0 && a.cout % a.groups == 0 &&
          a.d >= 1 && a.od >= 1 && a.od <= a.d && a.oh >= 1 && a.oh <= a.h && a.ow >= 1 &&
          a.ow <= a.w && a.nwb >= 1 && a.hop >= 1 && a.nitem >= 1 && a.item0 >= 0 &&
-         (a.d + sb - 1) / sb <= 65535 && (a.od + sb - 1) / sb <= 65535 &&
-         (npos + kThreads - 1) / kThreads <= 65535;
+         (a.d + sb - 1) / sb <= 65535 && (a.od + sb - 1) / sb <= 65535 && a.cout <= 65535;
 }
 
 template <int SB>
@@ -1297,22 +1473,16 @@ cudaError_t launch_hw_sb(const Args& a, int sb, bool forward) {
   }
 }
 
-// B3: hw_forward, d_forward, mac_d_inverse, hw_inverse
+// B3: hw_forward, d_mac, hw_inverse
 cudaError_t launch(const Args& a) {
-  const int nbh = a.h / 2 + 1, npos = nbh * kTW;
-  const int sb = slabs_per_block(nbh);
-  if (!hw_args_ok(a, sb) || a.nbd < 1 || kDHop * a.nbd < a.od || a.nbd > 65535 ||
-      a.pp < 0 || (a.pp > 0 && 2 * a.pp < a.d))
+  const int sb = slabs_per_block(a.h / 2 + 1);
+  if (!hw_args_ok(a, sb) || a.dfac == nullptr || a.nbd < 1 || kDHop * a.nbd < a.od ||
+      kDHop * (a.nbd - 1) >= a.od || a.pp < 0 || (a.pp > 0 && 2 * a.pp < a.d))
     return cudaErrorInvalidValue;
-  const int opg = a.cout / a.groups;
 
   cudaError_t err = launch_hw_sb(a, sb, true);
   if (err != cudaSuccess) return err;
-  fused3d_d_forward<<<dim3(a.nitem * a.cin, (npos + kThreads - 1) / kThreads), kThreads, 0,
-                      a.stream>>>(a.t, a.df, a.s, a.d, nbh, a.nbd);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = opg % 4 == 0 ? launch_mac<4>(a) : opg % 2 == 0 ? launch_mac<2>(a) : launch_mac<1>(a);
+  err = launch_opb<LaunchDMac, kDOpb>(a);
   if (err != cudaSuccess) return err;
   return launch_hw_sb(a, sb, false);
 }
@@ -1320,16 +1490,11 @@ cudaError_t launch(const Args& a) {
 // B4: hw_forward, tap_mac, hw_inverse
 cudaError_t launch_tap(const Args& a) {
   const int sb = slabs_per_block(a.h / 2 + 1);
-  if (!hw_args_ok(a, sb) || a.kd < 1 || a.od != a.d - a.kd + 1 ||
-      (a.od + kDHop - 1) / kDHop > 65535)
-    return cudaErrorInvalidValue;
-  const int opg = a.cout / a.groups;
+  if (!hw_args_ok(a, sb) || a.kd < 1 || a.od != a.d - a.kd + 1) return cudaErrorInvalidValue;
 
   cudaError_t err = launch_hw_sb(a, sb, true);
   if (err != cudaSuccess) return err;
-  err = opg % 4 == 0 ? launch_tap_mac<4>(a)
-      : opg % 2 == 0 ? launch_tap_mac<2>(a)
-                     : launch_tap_mac<1>(a);
+  err = launch_opb<LaunchTapMac, kTapOpb>(a);
   if (err != cudaSuccess) return err;
   return launch_hw_sb(a, sb, false);
 }
@@ -1344,17 +1509,16 @@ cudaError_t launch_tap(const Args& a) {
 // hw_inverse conjugated; for h = 16, 32, 64, 128 hfac the H factors, HA + HB
 // + HA * HB complex (fused3d.py: _device_mats), read alike, and fh, ch
 // unused (may be null); for any other h fh (h/2+1, h) and ch (oh, h/2+1), and
-// hfac unused (may be null); df (16, 16); ei (8, 16); scratch t
-// (nitem, Cin, d, h/2+1, 64), s (nitem, Cin, nbd, 16, h/2+1, 64), z (nitem,
-// Cout, od, h/2+1, 64);
-// out (B, Cout, od, oh, ow) f32. Complex arrays are interleaved (re, im)
-// float pairs. W blocks start at min(i * hop, max(w - 64, 0)); with nwb = 1,
-// hop is ow. Returns cudaGetLastError() after the four launches (0 when all
-// were accepted).
+// hfac unused (may be null); dfac the DFT-16 factors, 4 + 4 + 16 complex
+// (fused3d.py: _factor_vector of _D_SPLIT, 16-byte aligned like ks); scratch
+// t (nitem, Cin, d, h/2+1, 64) and z (nitem, Cout, od, h/2+1, 64), nbd = ceil(od
+// / 8); out (B, Cout, od, oh, ow) f32. Complex arrays are interleaved (re,
+// im) float pairs. W blocks start at min(i * hop, max(w - 64, 0)); with nwb
+// = 1, hop is ow. Returns cudaGetLastError() after the three launches (0 when
+// all were accepted).
 extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, const void* wfac,
-                               const void* hfac, const void* df, const void* ei, const void* ch,
-                               void* t,
-                               void* s, void* z, void* out, int cin, int cout,
+                               const void* hfac, const void* dfac, const void* ch, void* t,
+                               void* z, void* out, int cin, int cout,
                                int groups, int d, int h, int w, int od, int oh, int ow, int nbd,
                                int nwb, int hop, int item0, int nitem, int pp, void* stream) {
   Args a{};
@@ -1363,11 +1527,9 @@ extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, co
   a.fh = static_cast<const float2*>(fh);
   a.wfac = static_cast<const float2*>(wfac);
   a.hfac = static_cast<const float2*>(hfac);
-  a.df = static_cast<const float2*>(df);
-  a.ei = static_cast<const float2*>(ei);
+  a.dfac = static_cast<const float2*>(dfac);
   a.ch = static_cast<const float2*>(ch);
   a.t = static_cast<float2*>(t);
-  a.s = static_cast<float2*>(s);
   a.z = static_cast<float2*>(z);
   a.out = static_cast<float*>(out);
   a.cin = cin;
@@ -1391,7 +1553,7 @@ extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, co
 
 // Runs items [item0, item0 + nitem) of one convolution through B4, the tap
 // chain. x (B, Cin, d, h, w) f32; ks (Cout, Cin/groups, kd, h/2+1, 64), the
-// conjugated per-tap 2D spectra; fh, wfac, hfac and ch as for fused3d_forward;
+// conjugated per-tap 2D spectra, 16-byte aligned; fh, wfac, hfac and ch as for fused3d_forward;
 // scratch t (nitem, Cin, d, h/2+1, 64) and z (nitem, Cout, od, h/2+1, 64),
 // od = d - kd + 1; out (B, Cout, od, oh, ow) f32. Returns
 // cudaGetLastError() after the three launches (0 when all were accepted).

@@ -12,9 +12,10 @@ rows (``_h_forward_pairs``), and a c2r of two slabs at once
 (``_h_inverse_pairs``); every other H keeps the dense products. Along D:
 
 * 'v4' (kernel B3, the JAX package's plan for KD <= 9): a DFT-16 per block
-  of 16 samples on a hop of 8 (zeros past D). The MAC over each group's
-  input channels against the conjugated kernel spectra is then a pointwise
-  product, and the inverse DFT-16 keeps the 8 valid d of each block.
+  of 16 samples on a hop of 8 (zeros past D), factored 16 = 4·4
+  (``_D_SPLIT``). The MAC over each group's input channels against the
+  conjugated kernel spectra is then a pointwise product, and the inverse
+  DFT-16, factored alike, keeps the 8 valid d of each block.
 * 'tap' (kernel B4, for KD > 9 and wherever the v4 plan does not fit): D
   stays in the tap domain. For every (h-bin, w-bin) the MAC is the
   correlation Y[o, d] = sum_c sum_t S[c, d + t] K[o, c, t] over the KD taps,
@@ -74,14 +75,21 @@ _W_SPLIT = (8, 8)
 _H_SPLITS = {h: split_factors(h) for h in (16, 32, 64, 128)}
 _DB = 16
 _DHOP = 8
+# The four-step split of the D DFT-16 (csrc/fused3d.cu: kDF)
+_D_SPLIT = split_factors(_DB)
+# B3's D kernel's most output channels a block (csrc/fused3d.cu: kDOpb; it
+# takes the most of 8, 4, 2, 1 within it that divides a group's
+# out-channels, ``_opb``) and the tap MAC's valid d a thread (kTapDC)
+_D_OPB = 8
+_TAP_DC = 8
 
 # The JAX package bounds its TPU cell by VMEM budgets (resident spectra of
 # 24 MiB, a whole-volume cell of 96 MiB for v4 and 80 MiB for tap). These
 # kernels keep no volume in shared memory: their blocks hold a few d-slabs
 # of NBH x 64 complex values. Their own limits are:
-#   * the conjugated kernel spectra, which the MAC re-reads: v4's (Cout,
-#     Cin/g, 16, NBH, 64) complex once per (batch, D-block), tap's (Cout,
-#     Cin/g, KD, NBH, 64) once per (batch, chunk of 8 valid d). Kept within
+#   * the conjugated kernel spectra, v4's (Cout, Cin/g, 16, NBH, 64) and
+#     tap's (Cout, Cin/g, KD, NBH, 64) complex, which each D kernel block
+#     stages in shared memory for its bins and output channels. Kept within
 #     half of the card's 50 MB L2. The 1D/2D budget of 16 MiB would not do:
 #     the v4 spectra of the library's 3D benchmark row (64^3, K=8, 8 -> 8
 #     channels) are 17.3 MB, and they must fuse;
@@ -92,14 +100,15 @@ _SPECTRA_BUDGET = 24 * 2**20
 #     (H <= 907);
 _SMEM_LIMIT = 232448
 #   * the scratch that the kernels hand on, per (batch, W-block) item: the
-#     H/W spectra T (Cin, D, NBH, 64), for v4 the block spectra S (Cin, NBD,
-#     16, NBH, 64), and the MAC's output Z (Cout, OD, NBH, 64), complex. The
-#     wrappers run the items in ranges under this budget, so one item must
-#     fit.
+#     H/W spectra T (Cin, D, NBH, 64) and the MAC's output Z (Cout, OD, NBH,
+#     64), complex. The wrappers run the items in ranges under this budget,
+#     so one item must fit. For v4 it also counts the DFT-16 block spectra
+#     S (Cin, NBD, 16, NBH, 64), though B3 keeps them in registers: the
+#     plans that the JAX-parity tests hold and the item ranges rest on it.
 _SCRATCH_BUDGET = 256 * 2**20
 
 # Launches since import or the last reset, one per range of items: of B3's
-# chain of four kernels (v4 plans) and of B4's chain of three (tap plans);
+# chain of three kernels (v4 plans) and of B4's chain of three (tap plans);
 # and of B6, one per call of a 'v4' plan under "pk". The plain versions on
 # CPU tensors do not count.
 launches = 0
@@ -130,6 +139,13 @@ def _tap_counts(kd: int) -> Tuple[int, int]:
     me = (kd + 1) // 2
     mo = kd // 2
     return me, (mo + 1) if mo else 0
+
+
+def _opb(opg: int, most: int) -> int:
+    """The output channels one block of a D kernel takes: the most of 8, 4,
+    2, 1, at most ``most``, that divides a group's ``opg`` out-channels
+    (csrc/fused3d.cu: launch_opb)."""
+    return next(n for n in (8, 4, 2, 1) if n <= most and opg % n == 0)
 
 
 def _slabs_per_block(nbh: int) -> Optional[int]:
@@ -255,10 +271,10 @@ def _w_blocks(w: int, ow: int, nwb: int, hop: int):
 @lru_cache(maxsize=None)
 def _mats_3d(h: int, vh: int, dtype=np.float32):
     """Split factor matrices as ``dtype`` numpy arrays (float32 for the
-    kernel, float64 for an oracle): H one-sided forward (NBH, H), W DFT-64
-    forward and inverse (64, 64), D DFT-16 forward (16, 16), the inverse
-    DFT-16 rows of the 8 valid d (8, 16) with its 1/16, and the H irfft
-    valid rows (VH, NBH)."""
+    kernel's dense H, float64 for the kernel spectra and for an oracle): H
+    one-sided forward (NBH, H), W DFT-64 forward and inverse (64, 64), D
+    DFT-16 forward (16, 16), the inverse DFT-16 rows of the 8 valid d (8, 16)
+    with its 1/16, and the H irfft valid rows (VH, NBH)."""
     fr, fi = _rfft_mats(h, np.float64)               # (H, NBH)
     wr, wi = _dft_mats(_TW, False, np.float64)
     ur, ui = _dft_mats(_TW, True, np.float64)
@@ -271,13 +287,14 @@ def _mats_3d(h: int, vh: int, dtype=np.float32):
 
 @lru_cache(maxsize=None)
 def _torch_mats(h: int, vh: int, dtype: torch.dtype, device: torch.device):
-    """``_mats_3d`` without its dense W DFT-64 pairs (the kernels and their
-    plain versions factor W: ``_w_factors``, ``fourstep.dft_last``) as torch
-    tensors of ``dtype`` on ``device``, made once per device so that repeated
-    calls copy nothing from the host: (fr, fi, dr, di, er, ei, cr, ci)."""
+    """``_mats_3d``'s dense H pairs (the kernels and their plain versions
+    factor the W DFT-64 and the DFT-16: ``_w_factors``, ``_D_SPLIT``,
+    ``fourstep.dft_last``) as torch tensors of ``dtype`` on ``device``, made
+    once per device so that repeated calls copy nothing from the host: (fr,
+    fi, cr, ci)."""
     npdt = np.float64 if dtype == torch.float64 else np.float32
     m = _mats_3d(h, vh, npdt)
-    return tuple(torch.from_numpy(m[i]).to(device) for i in (0, 1, 6, 7, 8, 9, 10, 11))
+    return tuple(torch.from_numpy(m[i]).to(device) for i in (0, 1, 10, 11))
 
 
 @lru_cache(maxsize=None)
@@ -311,16 +328,15 @@ def _device_mats(h: int, vh: int, device: torch.device):
     in the order of the entry points' arguments: F_H (NBH, H), the W factors
     (``_w_factors``, one slot that the forward and the inverse both read),
     the H factors (``_factor_vector`` of ``_H_SPLITS[h]``, read alike), the
-    DFT-16 (16, 16), its inverse rows (8, 16) and the irfft rows (VH, NBH)
-    as (cr, ci) pairs. For an H in ``_H_SPLITS`` F_H and the irfft rows are
-    None (the factored kernels take the H factors), for any other H the H
-    factors are."""
-    m = _torch_mats(h, vh, torch.float32, device)
-    df, ei = (torch.complex(m[i], m[i + 1]) for i in (2, 4))
+    DFT-16 factors (``_factor_vector`` of ``_D_SPLIT``, read alike, B3 only)
+    and the irfft rows (VH, NBH) as (cr, ci) pairs. For an H in
+    ``_H_SPLITS`` F_H and the irfft rows are None (the factored kernels take
+    the H factors), for any other H the H factors are."""
+    dfac = _factor_vector(_D_SPLIT, device)
     if h in _H_SPLITS:
-        return None, _w_factors(device), _factor_vector(_H_SPLITS[h], device), df, ei, None
-    fh, ch = (torch.complex(m[i], m[i + 1]) for i in (0, 6))
-    return fh, _w_factors(device), None, df, ei, ch
+        return None, _w_factors(device), _factor_vector(_H_SPLITS[h], device), dfac, None
+    fr, fi, cr, ci = _torch_mats(h, vh, torch.float32, device)
+    return torch.complex(fr, fi), _w_factors(device), None, dfac, torch.complex(cr, ci)
 
 
 @lru_cache(maxsize=None)
@@ -516,7 +532,7 @@ def _fused3d_forward_reference(
     nbh, nbd = plan[1], plan[4]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     blocks = _w_blocks(w, ow, nwb, hop)
-    fr, fi, dr, di, er, ei, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
+    fr, fi, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
 
     # one-sided H DFT, then the W DFT-64, per d-slab; D to the NBD + 1
     # chunks of 8 slabs that the blocks read (zeros past D)
@@ -528,29 +544,24 @@ def _fused3d_forward_reference(
         tr, ti = _hw_forward_reference(x, fr, fi)
     dpad = (0, 0, 0, 0, 0, _DHOP * (nbd + 1) - d)
     tr, ti = TF.pad(tr, dpad), TF.pad(ti, dpad)
-    # D: blocks of 16 slabs on a hop of 8, a DFT-16 each
-    tr = tr.unfold(2, _DB, _DHOP)                   # (B', Cin, NBD, NBH, 64, 16)
-    ti = ti.unfold(2, _DB, _DHOP)
-    sr = (tr @ dr - ti @ di).permute(0, 1, 2, 5, 3, 4)  # (B', Cin, NBD, 16, NBH, 64)
-    si = (tr @ di + ti @ dr).permute(0, 1, 2, 5, 3, 4)
+    # D: blocks of 16 slabs on a hop of 8, a DFT-16 each, factored 4 x 4
+    bb = b * nwb
+    tr = tr.unfold(2, _DB, _DHOP).reshape(bb, groups, cpg, nbd, nbh, _TW, _DB)
+    ti = ti.unfold(2, _DB, _DHOP).reshape(bb, groups, cpg, nbd, nbh, _TW, _DB)
+    sr, si = dft_last(tr, ti, _D_SPLIT, False)
 
     # pointwise complex MAC over each out-channel's group of in-channels
     ks = _spectra_or(spectra, dt, lambda: kernel_spectra_3d(kernel.to(dt), h))
     kr = ks.real.reshape(groups, cout // groups, cpg, _DB, nbh, _TW)
     ki = ks.imag.reshape(groups, cout // groups, cpg, _DB, nbh, _TW)
-    bb = b * nwb
-    sr = sr.reshape(bb, groups, cpg, nbd, _DB, nbh, _TW)
-    si = si.reshape(bb, groups, cpg, nbd, _DB, nbh, _TW)
-    mac = "bgcjfnz,gocfnz->bgojfnz"
+    mac = "bgcjnzf,gocfnz->bgojnzf"
     yr = torch.einsum(mac, sr, kr) - torch.einsum(mac, si, ki)
     yi = torch.einsum(mac, sr, ki) + torch.einsum(mac, si, kr)
 
-    # inverse DFT-16 on the 8 valid d of each block
-    inv = "qf,bgojfnz->bgojqnz"
-    zr = torch.einsum(inv, er, yr) - torch.einsum(inv, ei, yi)
-    zi = torch.einsum(inv, er, yi) + torch.einsum(inv, ei, yr)
-    zr = zr.reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
-    zi = zi.reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
+    # inverse DFT-16, factored alike, kept to the 8 valid d of each block
+    zr, zi = (v[..., :_DHOP] / _DB for v in dft_last(yr, yi, _D_SPLIT, True))
+    zr = zr.permute(0, 1, 2, 3, 6, 4, 5).reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
+    zi = zi.permute(0, 1, 2, 3, 6, 4, 5).reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
     return _hw_inverse_reference(zr, zi, cr, ci, blocks, h, ow)
 
 
@@ -574,7 +585,7 @@ def _fused3d_tap_reference(
     nbh = plan[1]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     blocks = _w_blocks(w, ow, nwb, hop)
-    fr, fi, _, _, _, _, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
+    fr, fi, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
 
     # one-sided H DFT, then the W DFT-64, per d-slab
     x = _stack_w_blocks(x_padded.to(dt), [s for s, _, _ in blocks])
@@ -600,7 +611,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused3d")
     if lib.fused3d_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused3d_forward.argtypes = [p] * 12 + [i] * 15 + [p]
+        lib.fused3d_forward.argtypes = [p] * 10 + [i] * 15 + [p]
         lib.fused3d_forward.restype = i
         lib.fused3d_pack.argtypes = [p] * 2 + [i] * 8 + [p]
         lib.fused3d_pack.restype = i
@@ -619,11 +630,17 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _check_launch_inputs(x_padded: torch.Tensor, spectra: torch.Tensor, what: str) -> None:
+def _check_launch_inputs(x_padded: torch.Tensor, spectra: torch.Tensor, what: str):
+    """The contiguous signal and spectra a chain takes; the spectra 16-byte
+    aligned, as the D kernels copy them into shared memory."""
     if not (x_padded.is_cuda and spectra.device == x_padded.device):
         raise ValueError(f"{what} kernel: signal and spectra must be on one CUDA device")
     if x_padded.dtype != torch.float32 or spectra.dtype != torch.complex64:
         raise ValueError(f"{what} kernel takes a float32 signal and complex64 spectra")
+    spectra = spectra.contiguous()
+    if spectra.data_ptr() % 16:
+        spectra = spectra.clone()
+    return x_padded.contiguous(), spectra
 
 
 def _raise_on_error(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -671,9 +688,7 @@ def _launch_fused3d(
     correlation (B, Cout, OD, OH, OW). ``packed``: pack the signal with
     kernel B6 first and let B3 read the packed layout ("pk")."""
     global launches
-    _check_launch_inputs(x_padded, spectra, "fused3d")
-    x_padded = x_padded.contiguous()
-    spectra = spectra.contiguous()
+    x_padded, spectra = _check_launch_inputs(x_padded, spectra, "fused3d")
     b, cin, d, h, w = x_padded.shape
     cout, cpg = spectra.shape[:2]
     plan, nwb, hop = _plan_for(x_padded.shape, (cout, cpg) + tuple(k), groups, "v4")
@@ -685,7 +700,7 @@ def _launch_fused3d(
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     items = b * nwb
     # (batch, W-block) items per launch: as many as the scratch budget holds
-    # (the plan has checked that one does)
+    # (the plan has checked that one does; the budget still counts S)
     per_item = _scratch_bytes_per_item(cin, cout, d, nbh, nbd, od)
     chunk = max(1, min(items, _SCRATCH_BUDGET // per_item))
 
@@ -696,14 +711,13 @@ def _launch_fused3d(
     dev, c64 = x_padded.device, torch.complex64
     out = torch.empty((b, cout, od, oh, ow), device=dev, dtype=torch.float32)
     t = torch.empty((chunk, cin, d, nbh, _TW), device=dev, dtype=c64)
-    s = torch.empty((chunk, cin, nbd, _DB, nbh, _TW), device=dev, dtype=c64)
     z = torch.empty((chunk, cout, od, nbh, _TW), device=dev, dtype=c64)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         for item0 in range(0, items, chunk):
             err = lib.fused3d_forward(
                 x.data_ptr(), spectra.data_ptr(), *(_ptr(m) for m in mats),
-                t.data_ptr(), s.data_ptr(), z.data_ptr(), out.data_ptr(),
+                t.data_ptr(), z.data_ptr(), out.data_ptr(),
                 cin, cout, groups, d, h, w, od, oh, ow, nbd, nwb, hop,
                 item0, min(chunk, items - item0), pp, stream,
             )
@@ -720,9 +734,7 @@ def _launch_fused3d_tap(
     (KD, KH, KW) kernel whose plan is 'tap', both on one CUDA device.
     Returns the valid correlation (B, Cout, OD, OH, OW)."""
     global launches_tap
-    _check_launch_inputs(x_padded, spectra, "fused3d tap")
-    x_padded = x_padded.contiguous()
-    spectra = spectra.contiguous()
+    x_padded, spectra = _check_launch_inputs(x_padded, spectra, "fused3d tap")
     b, cin, d, h, w = x_padded.shape
     cout, cpg = spectra.shape[:2]
     kd, kh, kw = k
@@ -737,7 +749,7 @@ def _launch_fused3d_tap(
     chunk = max(1, min(items, _SCRATCH_BUDGET // per_item))
 
     lib = _library()
-    fh, wfac, hfac, _, _, ch = _device_mats(h, oh, x_padded.device)
+    fh, wfac, hfac, _, ch = _device_mats(h, oh, x_padded.device)
     dev, c64 = x_padded.device, torch.complex64
     out = torch.empty((b, cout, od, oh, ow), device=dev, dtype=torch.float32)
     t = torch.empty((chunk, cin, d, nbh, _TW), device=dev, dtype=c64)

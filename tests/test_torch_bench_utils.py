@@ -146,6 +146,26 @@ def test_counts_3d_at_the_benchmark_rows():
     assert [round(p, 5) for p in pack] == [0.01127, 0.02433]
 
 
+def test_d_stage_counts_3d_at_the_benchmark_rows():
+    """B3's and B4's D kernels at the 64^3 rows: the kernels' own flops (B3's
+    DFT-16 factored 4 x 4 at one output a lane, the tap MAC onto chunks of 8
+    d), and the D stages' bounds, T and the spectra in and Z out (50.0 and
+    43.0 MB): bytes bind B3's, operations B4's. The least work of each stage
+    is part of its chain's and no more than the kernel does."""
+    assert round(costs.fused3d_kernel_flops(2, 8, 8, 64, 64, 64, 8) / 1e9, 3) == 0.695
+    assert round(costs.fused3d_tap_kernel_flops(2, 8, 8, 64, 64, 64, 10) / 1e9, 3) == 1.427
+    d_bytes, d_flops = costs.fused3d_d_work(2, 8, 8, 64, 64, 64, 8)
+    t_bytes, t_flops = costs.fused3d_tap_mac_work(2, 8, 8, 64, 64, 64, 10)
+    assert (d_bytes, t_bytes) == (50012160, 42983424)
+    ms, by = costs.bound(d_bytes, d_flops)
+    assert (round(ms, 5), by) == (0.01493, "bytes")
+    ms, by = costs.bound(t_bytes, t_flops)
+    assert (round(ms, 5), by) == (0.01775, "operations")
+    assert d_flops < costs.fused3d_work(2, 8, 8, 64, 64, 64, 8)[1]
+    assert t_flops < costs.fused3d_tap_work(2, 8, 8, 64, 64, 64, 10)[1]
+    assert t_flops <= costs.fused3d_tap_kernel_flops(2, 8, 8, 64, 64, 64, 10)
+
+
 def test_int_and_tuple_kernel_sizes_count_alike():
     plan = fused2d.tile_plan_2d(16, 16, 8, 8)
     assert costs.fused2d_work(2, 8, 8, 512, 512, 16, plan) == costs.fused2d_work(

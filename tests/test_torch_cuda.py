@@ -325,7 +325,9 @@ def test_layer_on_cuda_launches_the_kernel(cuda):
 # 454, where NBH = 114 and 228 are the first to take SB = 2 and SB = 1). Then
 # the factored H/W kernels at each other H they take (16, 32, 128; 64 is the
 # benchmark row's), at odd D and odd OD (the last slab paired with zeros in
-# the forward, the inverse, or both), groups, and a clamped third W block
+# the forward, the inverse, or both), groups, and a clamped third W block.
+# Last the D kernel's edges: groups whose spectra a block stages in 3 and 2
+# chunks (8 channels a chunk at 8 out-channels a block), KD = 9 at D = 10
 FUSED3D = [
     (2, 8, 8, 64, 64, 64, 8, 8, 8, 1),
     (1, 6, 6, 20, 24, 30, 3, 3, 3, 2),
@@ -342,6 +344,9 @@ FUSED3D = [
     (2, 4, 4, 18, 32, 40, 4, 5, 5, 2),
     (1, 2, 2, 11, 128, 64, 5, 7, 3, 1),
     (1, 2, 2, 9, 64, 150, 3, 3, 7, 1),
+    (2, 24, 24, 20, 8, 20, 3, 3, 3, 1),
+    (1, 48, 24, 12, 8, 24, 5, 3, 3, 3),
+    (2, 4, 4, 10, 16, 12, 9, 3, 3, 1),
 ]
 
 
@@ -424,7 +429,9 @@ def test_3d_layer_on_cuda_launches_the_kernel(cuda):
 # odd sizes with KD = 11, W blocks of 64 (nwb = 4) with KD = 12, and KD = 3
 # where v4's spectra (69 MB) do not fit but the tap ones do; H = 226 and 454
 # take SB = 2 and SB = 1 in the dense H/W kernels. Then the factored H/W
-# kernels at H = 16, 32, 128, at odd D and odd OD, and a clamped third W block
+# kernels at H = 16, 32, 128, at odd D and odd OD, and a clamped third W
+# block. Last the tap MAC's edges: (channel, tap) spectra a block stages in 2
+# chunks (128 entries at 4 out-channels a block), KD = 60 at D = 64, KD = D
 FUSED3D_TAP = [
     (2, 8, 8, 64, 64, 64, 10, 10, 10, 1),
     (1, 6, 6, 26, 12, 10, 11, 3, 3, 2),
@@ -438,6 +445,9 @@ FUSED3D_TAP = [
     (1, 2, 3, 24, 32, 30, 10, 5, 3, 1),
     (1, 2, 2, 13, 128, 20, 10, 5, 5, 1),
     (1, 2, 2, 20, 64, 150, 12, 3, 7, 1),
+    (2, 16, 16, 14, 16, 12, 11, 3, 3, 1),
+    (1, 4, 4, 64, 64, 64, 60, 3, 3, 1),
+    (2, 4, 4, 20, 16, 12, 20, 3, 3, 1),
 ]
 
 

@@ -31,7 +31,9 @@ def _arrays(seed, *shapes):
 # edge, the benchmark-like KD = 8), its stride/dilation cases, the three
 # padding modes, groups (2, 3) and (3, 3), and both W-blocked shapes; then
 # H = 32 and 128, which take the factored H/W kernels, at odd D (the last
-# slab paired with zeros) and odd OD
+# slab paired with zeros) and odd OD; then the D kernel's edges: NBD = 1,
+# odd D with OD not a multiple of 8, and a group of 24 channels, wider than
+# one chunk of the spectra its blocks stage (8 channels at 8 out-channels)
 PARITY = [
     (1, 2, 3, 20, 24, 16, 3, 5, 4, 1, 1, 1, 0, "constant"),
     (2, 4, 4, 32, 32, 32, 4, 4, 4, 1, 1, 1, 2, "constant"),
@@ -52,11 +54,16 @@ PARITY = [
     (1, 2, 3, 11, 32, 20, 3, 3, 3, 1, 1, 1, 0, "constant"),
     (1, 1, 2, 8, 128, 12, 2, 5, 3, 1, 1, 1, 0, "constant"),
     (1, 2, 2, 13, 30, 14, 4, 3, 3, 2, 1, 1, 1, "reflect"),    # H = 32 after padding
+    (1, 2, 2, 12, 14, 12, 5, 3, 3, 1, 1, 1, 0, "constant"),   # NBD = 1
+    (1, 2, 3, 19, 12, 10, 2, 3, 3, 1, 1, 1, 0, "constant"),   # OD = 18
+    (1, 24, 24, 10, 8, 8, 3, 3, 3, 1, 1, 1, 0, "constant"),   # 3 staged chunks
 ]
 # tap plans (B4): the KD = 11 rows of tests/test_pallas3d.py (CONFIGS and the
 # grouped case of test_fused3d_groups), a W-blocked one, and stride with a
 # dilation that takes KD = 6 to 11, under reflect padding; then H = 32 at odd
-# D and odd OD, and H = 128, on the factored H/W kernels
+# D and odd OD, and H = 128, on the factored H/W kernels; then KD = D (OD =
+# 1), KD close to an odd D with groups 3, and a group of 16 channels at KD =
+# 11, wider than one chunk of the (channel, tap) spectra a block stages
 TAP_PARITY = [
     (1, 2, 2, 30, 16, 12, 11, 3, 3, 1, 1, 1, 0, "constant"),
     (1, 6, 6, 26, 12, 10, 11, 3, 3, 2, 1, 1, 0, "constant"),
@@ -64,6 +71,9 @@ TAP_PARITY = [
     (1, 2, 3, 24, 14, 12, 6, 3, 3, 1, (2, 1, 2), (2, 1, 1), 1, "reflect"),
     (1, 2, 2, 21, 32, 12, 11, 3, 3, 1, 1, 1, 0, "constant"),
     (1, 1, 2, 12, 128, 10, 10, 3, 3, 1, 1, 1, 0, "constant"),
+    (1, 2, 2, 12, 10, 12, 12, 3, 3, 1, 1, 1, 0, "constant"),
+    (1, 6, 6, 17, 10, 10, 16, 3, 3, 3, 1, 1, 0, "constant"),
+    (1, 16, 16, 14, 8, 8, 11, 3, 3, 1, 1, 1, 0, "constant"),
 ]
 
 
@@ -236,6 +246,45 @@ def test_w_dft_factored_matches_dense(inverse, dtype):
         _assert_close_scaled(yi.numpy(), ref.imag.numpy())
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_d_dft_factored_matches_dense(inverse, dtype):
+    """B3's DFT-16 and its inverse through the 4 x 4 factors (the plain
+    version's ``fourstep.dft_last`` with ``_D_SPLIT``; the inverse kept to
+    the 8 valid d of a block with its 1/16, as the kernel keeps and scales
+    them) against the dense rows of ``_mats_3d``, the (16, 16) DFT-16 and
+    the (8, 16) inverse rows: within 1e-12 in float64, within the bar in
+    float32."""
+    from fft_conv_tpu_torch.kernels.fourstep import dft_last
+
+    xr, xi = (torch.from_numpy(a).to(dtype) for a in _arrays(16 + inverse, (3, 5, 16), (3, 5, 16)))
+    yr, yi = dft_last(xr, xi, fused3d._D_SPLIT, inverse)
+    *_, dr, di, er, ei, _, _ = fused3d._mats_3d(16, 1, np.float64)
+    if inverse:
+        yr, yi = yr[..., :8] / 16, yi[..., :8] / 16
+        m = torch.complex(torch.from_numpy(er), torch.from_numpy(ei)).T
+    else:
+        m = torch.complex(torch.from_numpy(dr), torch.from_numpy(di))
+    ref = torch.complex(xr.double(), xi.double()) @ m
+    assert yr.dtype == dtype and yr.shape == ref.shape
+    if dtype == torch.float64:
+        assert (yr - ref.real).abs().max() < 1e-12 and (yi - ref.imag).abs().max() < 1e-12
+    else:
+        _assert_close_scaled(yr.numpy(), ref.real.numpy())
+        _assert_close_scaled(yi.numpy(), ref.imag.numpy())
+
+
+def test_d_kernel_output_channels_a_block():
+    """The output channels a block of a D kernel takes, as csrc/fused3d.cu
+    picks them (launch_opb): the most of 8, 4, 2, 1, at most 8 for B3's
+    d_mac (``_D_OPB``) and 4 for the tap MAC, that divides a group's
+    out-channels; costs.fused3d_kernel_flops counts B3's DFT-16s once per
+    such block."""
+    assert fused3d._D_OPB == 8
+    assert [fused3d._opb(n, 8) for n in (8, 24, 12, 6, 3)] == [8, 8, 4, 2, 1]
+    assert [fused3d._opb(n, 4) for n in (8, 16, 6, 1)] == [4, 4, 2, 1]
+
+
 def test_w_factors_are_laid_out_as_the_kernel_reads_them():
     """``_w_factors`` is the 8 roots of step 1, the 8 of step 2 and the (8, 8)
     twiddle row-major, complex64: f1[m, j] = root[(m * j) % 8] rebuilds the
@@ -243,7 +292,8 @@ def test_w_factors_are_laid_out_as_the_kernel_reads_them():
     the vector in its one slot, which the forward and the inverse both read,
     in the order of the entry points' arguments: with the dense F_H and
     irfft rows at an H the kernels do not factor (78), with the H factors in
-    their place at one they do (64, split 8 x 8 like W)."""
+    their place at one they do (64, split 8 x 8 like W); the DFT-16 factors
+    (split 4 x 4) at both."""
     from fft_conv_tpu_torch.kernels.fourstep import fft_factor_matrices
 
     fac = fused3d._w_factors(torch.device("cpu"))
@@ -256,15 +306,21 @@ def test_w_factors_are_laid_out_as_the_kernel_reads_them():
     np.testing.assert_allclose(fac[16:].numpy().reshape(8, 8),
                                np.exp(-2j * np.pi * np.outer(m, m) / 64), atol=1e-7)
     np.testing.assert_allclose(fac[16:].numpy().reshape(8, 8), tw, atol=1e-7)
-    fh, wfac, hfac, df, ei, ch = fused3d._device_mats(78, 71, torch.device("cpu"))
+    fh, wfac, hfac, dfac, ch = fused3d._device_mats(78, 71, torch.device("cpu"))
     assert wfac is fac and hfac is None
-    fr, fi, _, _, _, _, dr, di, er, eim, cr, ci = fused3d._mats_3d(78, 71)
-    for got, re, im in ((fh, fr, fi), (df, dr, di), (ei, er, eim), (ch, cr, ci)):
+    fr, fi, _, _, _, _, _, _, _, _, cr, ci = fused3d._mats_3d(78, 71)
+    for got, re, im in ((fh, fr, fi), (ch, cr, ci)):
         assert got.dtype == torch.complex64
         assert torch.equal(got, torch.complex(torch.from_numpy(re), torch.from_numpy(im)))
-    fh, wfac, hfac, df2, ei2, ch = fused3d._device_mats(64, 57, torch.device("cpu"))
+    assert fused3d._D_SPLIT == (4, 4) and dfac.dtype == torch.complex64
+    m4 = np.arange(4)
+    np.testing.assert_allclose(dfac[:4].numpy(), np.exp(-2j * np.pi * m4 / 4), atol=1e-7)
+    np.testing.assert_allclose(dfac[4:8].numpy(), np.exp(-2j * np.pi * m4 / 4), atol=1e-7)
+    np.testing.assert_allclose(dfac[8:].numpy().reshape(4, 4),
+                               np.exp(-2j * np.pi * np.outer(m4, m4) / 16), atol=1e-7)
+    fh, wfac, hfac, dfac2, ch = fused3d._device_mats(64, 57, torch.device("cpu"))
     assert fh is None and ch is None and wfac is fac
-    assert torch.equal(hfac, fac) and torch.equal(df2, df) and torch.equal(ei2, ei)
+    assert torch.equal(hfac, fac) and dfac2 is dfac
 
 
 @pytest.mark.parametrize("h", [16, 32, 64, 128])
@@ -277,7 +333,7 @@ def test_h_factors_are_laid_out_as_the_kernel_reads_them(h):
 
     a, b = fused3d._H_SPLITS[h]
     assert (a, b) == split_factors(h) == {16: (4, 4), 32: (8, 4), 64: (8, 8), 128: (16, 8)}[h]
-    fh, _, hfac, _, _, ch = fused3d._device_mats(h, h - 3, torch.device("cpu"))
+    fh, _, hfac, _, ch = fused3d._device_mats(h, h - 3, torch.device("cpu"))
     assert fh is None and ch is None
     assert hfac.dtype == torch.complex64 and hfac.shape == (a + b + a * b,)
     np.testing.assert_allclose(hfac[:a].numpy(), np.exp(-2j * np.pi * np.arange(a) / a), atol=1e-7)

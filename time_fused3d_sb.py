@@ -6,7 +6,7 @@ ran ("h_path"): "factored" for H = 16, 32, 64, 128 (one slab pair a block,
 whatever SB the plan gives), "dense" for every other H and for a tree that
 has no factored kernels.
 
-    python3 time_fused3d_sb.py [--root DIR] [--variant SB,THREADS,BLOCKS ...]
+    python3 time_fused3d_sb.py [--root DIR] [--main-rows] [--variant SPEC ...]
 
 ``--root`` is the checkout whose ``fft_conv_tpu_torch`` is timed (default:
 the directory of this script), so that two trees can be compared in one
@@ -18,14 +18,20 @@ this script's own ``chip_smoke.py``; ``device_ms`` runs the package's
 ``bench.harness.graph_seconds``, so a tree under ``--root`` must have
 ``fft_conv_tpu_torch/bench/harness.py``. Inputs come from a torch.Generator
 seeded with 0; each row also prints its max abs error against the plain
-version. Prints one JSON line per row.
+version. Prints one JSON line per row; ``--main-rows`` times the two 64^3
+rows only.
 
-Each ``--variant`` times the rows once more with the factored H/W kernels
-built with other constants: the slabs a block holds (kSBF), its threads
-(kHwThreads) and the blocks an SM is to hold (kHwBlocks, the launch bounds)
-put into a copy of the tree's ``csrc/fused3d.cu``, built with the package's
-nvcc flags under ``build/`` and loaded in place of the package's library.
-The rows name the variant ("default" is the tree's own library).
+Each ``--variant`` times the rows once more with kernels built with other
+constants, put into a copy of the tree's ``csrc/fused3d.cu``, built with
+the package's nvcc flags under ``build/`` and loaded in place of the
+package's library. SPEC is either ``SB,THREADS,BLOCKS``, the factored H/W
+kernels' slabs a block (kSBF), threads (kHwThreads) and blocks an SM
+(kHwBlocks, the launch bounds), or ``NAME=VALUE[,NAME=VALUE...]`` naming
+any ``constexpr int`` of the source, for example the D kernels' tiles:
+``kDWarps=4,kDOpb=4`` (fused3d_d_mac: warps and output channels a block),
+``kTapBins=32,kTapOpb=2,kTapDC=16`` (fused3d_tap_mac: bins and output
+channels a block, valid d a thread), ``kStageBytes=32768``. The rows name
+the variant ("default" is the tree's own library).
 """
 
 import argparse
@@ -51,31 +57,41 @@ ROWS = [
 ]
 
 
-def variant_library(sb, threads, blocks):
-    """fused3d.cu of the timed tree built with the factored H/W kernels'
-    constants kSBF, kHwThreads and kHwBlocks set to these values."""
+def variant_constants(spec):
+    """[(name, value)] of a --variant SPEC."""
+    if "=" not in spec:
+        return list(zip(("kSBF", "kHwThreads", "kHwBlocks"), (int(v) for v in spec.split(","))))
+    return [(name.strip(), int(value)) for name, value in
+            (part.split("=") for part in spec.split(","))]
+
+
+def variant_library(constants):
+    """fused3d.cu of the timed tree built with these (name, value)
+    constants."""
     from fft_conv_tpu_torch.kernels import _build
 
     src = (_build.CSRC / "fused3d.cu").read_text()
-    for name, value in (("kSBF", sb), ("kHwThreads", threads), ("kHwBlocks", blocks)):
+    for name, value in constants:
         src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};", src)
         if n != 1:
             sys.exit(f"time_fused3d_sb.py: no {name} in csrc/fused3d.cu of this tree")
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    cu = out / f"fused3d_{sb}_{threads}_{blocks}.cu"
+    cu = out / ("fused3d_" + "_".join(f"{n}{v}" for n, v in constants) + ".cu")
     cu.write_text(src)
     so = cu.with_suffix(".so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], check=True,
-                   capture_output=True)
-    return ctypes.CDLL(str(so))
+    log = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                         check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(so)), log.stdout + log.stderr
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=HERE)
-    parser.add_argument("--variant", action="append", default=[], metavar="SB,THREADS,BLOCKS")
+    parser.add_argument("--variant", action="append", default=[], metavar="SPEC")
+    parser.add_argument("--main-rows", action="store_true")
     args = parser.parse_args()
+    rows = [r for r in ROWS if r[4:6] == (64, 64)] if args.main_rows else ROWS
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -88,22 +104,28 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("time_fused3d_sb.py needs a CUDA device")
-    time_rows(root, "default", smoke, torch, fused3d)
+    time_rows(root, "default", smoke, torch, fused3d, rows)
     load = _build.load
     for variant in args.variant:
-        lib = variant_library(*(int(v) for v in variant.split(",")))
+        lib, log = variant_library(variant_constants(variant))
+        print(json.dumps({"variant": variant,
+                          "registers": {k: v for k, v in smoke.ptxas_registers(log).items()
+                                        if "_mac" in k},
+                          "spill_bytes": {k: v for k, v in smoke.ptxas_spills(log).items()
+                                          if "_mac" in k}}), flush=True)
         _build.load = lambda name, lib=lib: lib if name == "fused3d" else load(name)
         try:
-            time_rows(root, variant, smoke, torch, fused3d)
+            time_rows(root, variant, smoke, torch, fused3d, rows)
         finally:
             _build.load = load
 
 
-def time_rows(root, variant, smoke, torch, fused3d):
-    """One JSON line per row of ROWS, inputs from a generator seeded with 0."""
+def time_rows(root, variant, smoke, torch, fused3d, rows):
+    """One JSON line per row of ``rows``, inputs from a generator seeded
+    with 0."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    for chain, b, cin, cout, d, h, w, k in ROWS:
+    for chain, b, cin, cout, d, h, w, k in rows:
         x = torch.randn(b, cin, d, h, w, device=dev, generator=gen)
         wt = torch.randn(cout, cin, k, k, k, device=dev, generator=gen) / k ** 1.5
         if chain == "B3":
