@@ -73,27 +73,58 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_SHAPES = [(2, 8, 8, 32768, 256), (2, 8, 8, 32768, 1024), (2, 8, 8, 32768, 3840)]
 # (B, Cin, Cout, H, W, K): its 2D rows
 BENCH_SHAPES_2D = [(2, 8, 8, 512, 512, 16), (2, 8, 8, 512, 512, 34)]
-# (B, Cin, Cout, D, H, W, K): its 3D row
-BENCH_SHAPES_3D = [(2, 8, 8, 64, 64, 64, 8)]
+# (B, Cin, Cout, D, H, W, K): its 3D row, then the same call at 48^3, whose
+# H/W kernels run the mixed-radix working length Hw = 48 = 8 x 6
+BENCH_SHAPES_3D = [(2, 8, 8, 64, 64, 64, 8), (2, 8, 8, 48, 48, 48, 8)]
 # the B4 row: the 3D row's volume, batch and channels with the smallest
-# kernel past the v4 plan's KD <= 9
-BENCH_SHAPES_3D_TAP = [(2, 8, 8, 64, 64, 64, 10)]
+# kernel past the v4 plan's KD <= 9; then at 48^3
+BENCH_SHAPES_3D_TAP = [(2, 8, 8, 64, 64, 64, 10), (2, 8, 8, 48, 48, 48, 10)]
 # the transposed 3D calls: the benchmark row (B3, two W blocks) and K=10 (B4)
 TRANSPOSED_3D_K = (8, 10)
 # (x shape, kernel shape, groups, case): the factored H/W kernels of B3 and B4
-# at the H they take besides the rows' 64, at odd D and odd OD, and at a
-# clamped third W block (start 86 of W = 150)
+# at the H they take besides the rows' 64, 48 and the stuffed 78 and 82, at
+# odd D and odd OD, and at a clamped third W block (start 86 of W = 150): the
+# four built for their constant splits (16, 32, 64, 128); then the one that
+# takes its split as arguments at one H of each radix it runs (HA 3 to 16,
+# HB 2 to 16; 18 = 3 x 6, 22 = 11 x 2, 30 = 5 x 6, 54 = 9 x 6, 60 = 10 x 6,
+# 98 = 7 x 14, 110 = 11 x 10, 120 = 12 x 10, 156 = 13 x 12, 196 = 14 x 14,
+# 240 = 15 x 16,
+# 256 = 16 x 16), and at H padded to their working length (17 -> 18, 37 ->
+# 40, 121 -> 126, 200 -> 208, 229 -> 240)
 FACTORED_3D = [
     ((2, 8, 13, 16, 20), (8, 8, 3, 3, 3), 1, "H=16, D=13 (OD 11)"),
     ((2, 8, 18, 32, 40), (8, 4, 4, 5, 5), 2, "H=32, D=18 (OD 15), groups=2"),
     ((1, 4, 11, 128, 64), (4, 4, 5, 7, 3), 1, "H=128, D=11 (OD 7)"),
     ((2, 4, 9, 64, 150), (4, 4, 3, 3, 7), 1, "H=64, W=150 in 3 W blocks, D=9 (OD 7)"),
+    ((2, 4, 13, 18, 20), (4, 4, 3, 3, 3), 1, "H=18 (3 x 6), D=13"),
+    ((2, 4, 10, 22, 20), (4, 4, 3, 3, 3), 1, "H=22 (11 x 2)"),
+    ((2, 4, 9, 30, 24), (4, 4, 4, 5, 3), 1, "H=30 (5 x 6), D=9 (OD 6)"),
+    ((1, 4, 11, 54, 40), (4, 4, 3, 7, 5), 1, "H=54 (9 x 6)"),
+    ((2, 4, 9, 60, 150), (4, 4, 3, 3, 7), 1, "H=60 (10 x 6), W=150 in 3 W blocks"),
+    ((1, 4, 10, 98, 20), (4, 4, 3, 3, 3), 1, "H=98 (7 x 14)"),
+    ((1, 4, 9, 110, 20), (4, 2, 3, 3, 3), 2, "H=110 (11 x 10), groups=2"),
+    ((1, 4, 10, 120, 20), (4, 4, 3, 3, 3), 1, "H=120 (12 x 10)"),
+    ((1, 2, 11, 156, 20), (2, 2, 3, 5, 3), 1, "H=156 (13 x 12)"),
+    ((1, 2, 10, 196, 20), (2, 2, 3, 3, 3), 1, "H=196 (14 x 14)"),
+    ((1, 2, 9, 240, 20), (2, 2, 3, 3, 3), 1, "H=240 (15 x 16)"),
+    ((1, 2, 10, 256, 20), (2, 2, 3, 3, 3), 1, "H=256 (16 x 16)"),
+    ((2, 4, 11, 17, 20), (4, 4, 3, 3, 3), 1, "H=17 padded to 18"),
+    ((2, 4, 10, 37, 45), (4, 4, 3, 5, 7), 1, "H=37 padded to 40"),
+    ((1, 4, 11, 121, 20), (4, 4, 3, 3, 3), 1, "H=121 padded to 126 (9 x 14)"),
+    ((1, 2, 11, 200, 40), (2, 2, 3, 3, 3), 1, "H=200 padded to 208 (13 x 16)"),
+    ((1, 2, 10, 229, 20), (2, 2, 3, 3, 3), 1, "H=229 padded to 240"),
 ]
 FACTORED_3D_TAP = [
     ((2, 4, 21, 16, 12), (4, 4, 11, 3, 3), 1, "H=16, D=21 (OD 11)"),
     ((2, 4, 24, 32, 30), (4, 4, 10, 5, 3), 1, "H=32, D=24 (OD 15)"),
     ((1, 4, 13, 128, 20), (4, 4, 10, 5, 5), 1, "H=128, D=13 (OD 4)"),
     ((2, 4, 20, 64, 150), (4, 4, 12, 3, 7), 1, "H=64, W=150 in 3 W blocks, OD=9"),
+    ((2, 4, 21, 26, 12), (4, 4, 10, 3, 3), 1, "H=26 (13 x 2)"),
+    ((2, 4, 20, 70, 30), (4, 4, 11, 5, 3), 1, "H=70 (7 x 10), OD 10"),
+    ((1, 4, 14, 150, 20), (4, 4, 10, 3, 3), 1, "H=150 (15 x 10)"),
+    ((2, 4, 21, 33, 12), (4, 4, 11, 3, 3), 1, "H=33 padded to 36"),
+    ((1, 4, 14, 82, 150), (4, 4, 10, 3, 7), 1, "H=82 padded to 84, W=150 in 3 W blocks"),
+    ((1, 2, 15, 203, 20), (2, 2, 12, 3, 3), 1, "H=203 padded to 208"),
 ]
 # (x shape, kernel shape, groups, case): the D kernels' edges, a group whose
 # spectra a block stages in several chunks (B3: 8 channels a chunk at 8
@@ -735,16 +766,18 @@ def time_transposed_1d_2d(torch, inputs1d, inputs2d):
 
 
 def check_fused3d(torch, dev, gen):
-    """B3 against its plain version on the card at the 3D benchmark row, with
-    groups=2, at odd sizes with KD=9 (the hop edge), through
+    """B3 against its plain version on the card at the 3D benchmark rows (64^3
+    and 48^3), with groups=2, at odd sizes with KD=9 (the hop edge), through
     fft_conv3d_fused's argument surface (stride, dilation, reflect padding),
-    with W cut into 4 overlap-save blocks, at H = 226 and 454 (2 and 1 slabs
-    a block of the dense H/W kernels), at the stuffed 78^3 volume of the
-    transposed K=8 call, at H = 16, 32 and 128 (the factored H/W kernels,
-    like the row's H = 64) with odd D and odd OD, at a clamped third W block,
-    with the items split over several launches, and at the D kernel's edges
-    (D_EDGES_3D). Each case prints which H/W kernels it ran. Returns the
-    row's inputs and its max abs errors."""
+    with W cut into 4 overlap-save blocks, at H = 12, 300 and 454 (4, 2 and 1
+    slabs a block of the dense H/W kernels, outside 16 to 256), at the
+    stuffed 78^3 volume of the transposed K=8 call, at the factored H/W
+    kernels' other H (FACTORED_3D: the constant splits, a case per radix of
+    the kernel that takes its split as arguments, padded H) with odd D and
+    odd OD, at a clamped third W block, with the items split over several
+    launches, and at the D kernel's edges (D_EDGES_3D). Each case prints
+    which H/W kernels it ran and at which working length. Returns the rows'
+    inputs and their max abs errors."""
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import functional as F
 
@@ -756,12 +789,13 @@ def check_fused3d(torch, dev, gen):
 
     def vs_plain(x, wt, groups, what, **extra):
         k = tuple(wt.shape[2:])
-        y = fused3d._launch_fused3d(x, fused3d.kernel_spectra_3d(wt, x.shape[3]), groups, k)
+        hw = fused3d._h_work(x.shape[3])[0]
+        y = fused3d._launch_fused3d(x, fused3d.kernel_spectra_3d(wt, hw), groups, k)
         torch.cuda.synchronize()
         mx, mean, sigma = close_scaled(y, fused3d._fused3d_forward_reference(x, wt, groups),
                                        f"B3 vs plain, {what}")
         print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B3", "case": what,
-                          "h_path": fused3d._h_path(x.shape[3]),
+                          "h_path": fused3d._h_path(x.shape[3]), "hw": hw,
                           "max_abs_err": mx, "mean_abs_err": mean, "sigma": sigma,
                           "bar_max": 1.2e-4 * sigma, "bar_mean": 2e-5 * sigma, **extra}))
         return mx
@@ -786,10 +820,14 @@ def check_fused3d(torch, dev, gen):
              "D, H, W = 41, 37, 45, K = (9, 5, 7)")
     vs_plain(randn(2, 8, 24, 32, 200), randn(8, 8, 3, 5, 7) / 20.0, 1,
              "W=200 in 4 W blocks")
-    # each slab count of the H/W kernels (SB = 4 above, 2 and 1 here), and
-    # the stuffed volume of the transposed K=8 call (NBH 40, 2 W blocks)
-    vs_plain(randn(1, 2, 12, 226, 64), randn(2, 2, 3, 3, 3) / 5.0, 1, "H=226 (NBH 114, SB=2)")
-    vs_plain(randn(1, 2, 12, 454, 64), randn(2, 2, 3, 3, 3) / 5.0, 1, "H=454 (NBH 228, SB=1)")
+    # the dense H/W kernels, at H outside 16 to 256: each slab count (SB = 4
+    # at H = 12, 2 and 1 here); then the stuffed volume of the transposed K=8
+    # call (Hw = 78 = 13 x 6, NBH 40, 2 W blocks)
+    vs_plain(randn(2, 4, 14, 12, 20), randn(4, 4, 3, 3, 3) / 10.0, 1, "H=12 (dense, SB=4)")
+    vs_plain(randn(1, 2, 12, 300, 64), randn(2, 2, 3, 3, 3) / 5.0, 1,
+             "H=300 (dense, NBH 151, SB=2)")
+    vs_plain(randn(1, 2, 12, 454, 64), randn(2, 2, 3, 3, 3) / 5.0, 1,
+             "H=454 (dense, NBH 228, SB=1)")
     vs_plain(randn(2, 8, 78, 78, 78), wt, 1, "stuffed 78^3, K=8, 2 W blocks")
     # the factored H/W kernels at their other H, a last slab paired with
     # zeros in the forward (odd D), the inverse (odd OD) or both; then the D
@@ -928,13 +966,25 @@ def d_stage(torch, phase_ms, name, work, kernel, chain):
             "bound_ms": ms, "bound_by": by, "launches_per_call": per_call}
 
 
+def hw_pair(phase_ms, work):
+    """The H/W kernels' share of a chain's phase_ms (hw_forward and
+    hw_inverse, factored or dense) beside their stage's bound (the signal
+    and T, Z and the output, once each; kernels/costs.py:
+    fused3d_hw_work)."""
+    from fft_conv_tpu_torch.kernels.costs import bound
+
+    ms, by = bound(*work)
+    pair = sum(v for k, v in phase_ms.items() if k.startswith("hw_"))
+    return {"ms": pair, "bytes": work[0], "flops": work[1], "bound_ms": ms, "bound_by": by}
+
+
 def time_3d(torch, inputs, errs, per_row):
     """The timing row of the 3D benchmark shape (see phase 5 of main)."""
     import torch.nn.functional as TF
 
     from fft_conv_tpu_torch import fft_conv
     from fft_conv_tpu_torch.kernels.costs import (
-        bound, fused3d_d_work, fused3d_kernel_flops, fused3d_work)
+        bound, fused3d_hw_work, fused3d_d_work, fused3d_kernel_flops, fused3d_work)
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import plan_fft_conv
 
@@ -942,7 +992,8 @@ def time_3d(torch, inputs, errs, per_row):
     for (b, cin, cout, d, h, w, k), (x, wt, _, plan), err, nl in zip(
         BENCH_SHAPES_3D, inputs, errs, per_row
     ):
-        spectra = fused3d.kernel_spectra_3d(wt, h)
+        hw = fused3d._h_work(h)[0]
+        spectra = fused3d.kernel_spectra_3d(wt, hw)
         planned = plan_fft_conv(wt, signal_spatial=(d, h, w))
 
         def kernel():
@@ -957,10 +1008,11 @@ def time_3d(torch, inputs, errs, per_row):
         nbytes, flops = fused3d_work(b, cin, cout, d, h, w, k)
         bound_ms, bound_by = bound(nbytes, flops)
         row = {
-            "K": k, "plan": list(plan), "launches": nl, "max_abs_err": err,
+            "K": k, "dhw": [d, h, w], "hw": hw, "h_path": fused3d._h_path(h),
+            "plan": list(plan), "launches": nl, "max_abs_err": err,
             "ms": device_ms(kernel),
             "call_ms": call_ms(kernel),
-            "spectra_ms": device_ms(lambda: fused3d.kernel_spectra_3d(wt, h)),
+            "spectra_ms": device_ms(lambda: fused3d.kernel_spectra_3d(wt, hw)),
             "auto_ms": device_ms(auto),
             "auto_call_ms": call_ms(auto),
             "plan_ms": device_ms(lambda: planned(x)),
@@ -988,6 +1040,7 @@ def time_3d(torch, inputs, errs, per_row):
         finally:
             fused3d.set_fused3d_xpack("h2")
         row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
+        row["hw_pair"] = hw_pair(row["phase_ms"], fused3d_hw_work(b, cin, cout, d, h, w, k))
         rows.append(row)
         print(json.dumps({"phase": "timing", "kernel": "B3", **row}))
         torch.cuda.synchronize()
@@ -995,29 +1048,30 @@ def time_3d(torch, inputs, errs, per_row):
 
 
 def check_fused3d_tap(torch, dev, gen):
-    """B4 against its plain version on the card at the B4 row, with groups=2,
-    at odd sizes with KD=11 and an odd H, with W cut into 4 overlap-save
-    blocks at KD=12, through fft_conv3d_fused's argument surface (stride,
-    dilation 2 taking K=6 to 11, reflect padding), at 64^3 K=11 (a plan the
-    JAX package refuses), at H = 226 and 454 (2 and 1 slabs a block of the
-    dense H/W kernels), at the stuffed 82^3 volume of the transposed K=10
-    call, at H = 16, 32 and 128 with odd D or odd OD and at a clamped third
-    W block (the factored H/W kernels), at the D kernel's edges
-    (D_EDGES_3D_TAP) and with the items split over several launches.
-    Returns the row's inputs and its max abs errors."""
+    """B4 against its plain version on the card at the B4 rows (64^3, 48^3),
+    with groups=2, at odd sizes with KD=11 and an odd H, with W cut into 4
+    overlap-save blocks at KD=12, through fft_conv3d_fused's argument surface
+    (stride, dilation 2 taking K=6 to 11, reflect padding), at 64^3 K=11 (a plan the
+    JAX package refuses), at H = 10, 300 and 454 (4, 2 and 1 slabs a block
+    of the dense H/W kernels), at the stuffed 82^3 volume of the transposed
+    K=10 call (padded to Hw = 84), at the factored H/W kernels' other H
+    (FACTORED_3D_TAP) with odd D or odd OD and at a clamped third W block,
+    at the D kernel's edges (D_EDGES_3D_TAP) and with the items split over
+    several launches. Returns the rows' inputs and their max abs errors."""
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import functional as F
 
     def vs_plain(x, wt, groups, what, **extra):
         k = tuple(wt.shape[2:])
+        hw = fused3d._h_work(x.shape[3])[0]
         before = fused3d.launches_tap
-        y = fused3d._launch_fused3d_tap(x, fused3d.kernel_spectra_tap(wt, x.shape[3]), groups, k)
+        y = fused3d._launch_fused3d_tap(x, fused3d.kernel_spectra_tap(wt, hw), groups, k)
         torch.cuda.synchronize()
         check(fused3d.launches_tap == before + 1, f"B4 {what}: not one launch")
         mx, mean, sigma = close_scaled(y, fused3d._fused3d_tap_reference(x, wt, groups),
                                        f"B4 vs plain, {what}")
         print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B4", "case": what,
-                          "h_path": fused3d._h_path(x.shape[3]), "max_abs_err": mx,
+                          "h_path": fused3d._h_path(x.shape[3]), "hw": hw, "max_abs_err": mx,
                           "mean_abs_err": mean, "sigma": sigma,
                           "bar_max": 1.2e-4 * sigma, "bar_mean": 2e-5 * sigma, **extra}))
         return mx
@@ -1044,9 +1098,12 @@ def check_fused3d_tap(torch, dev, gen):
              "W=200 in 4 W blocks, KD=12")
     w11 = randn(8, 8, 11, 11, 11) / (8 * 11 ** 3) ** 0.5
     vs_plain(x, w11, 1, "64^3 K=11", plan=list(fused3d.plan_3d(8, 8, 64, 64, 64, 11, 11, 11)))
-    vs_plain(randn(1, 2, 16, 226, 64), randn(2, 2, 10, 3, 5) / 8.0, 1, "H=226 (NBH 114, SB=2)")
-    vs_plain(randn(1, 2, 14, 454, 64), randn(2, 2, 10, 3, 3) / 8.0, 1, "H=454 (NBH 228, SB=1)")
-    vs_plain(randn(2, 8, 82, 82, 82), wt, 1, "stuffed 82^3, K=10, 2 W blocks")
+    vs_plain(randn(2, 4, 20, 10, 12), randn(4, 4, 10, 3, 3) / 10.0, 1, "H=10 (dense, SB=4)")
+    vs_plain(randn(1, 2, 16, 300, 64), randn(2, 2, 10, 3, 5) / 8.0, 1,
+             "H=300 (dense, NBH 151, SB=2)")
+    vs_plain(randn(1, 2, 14, 454, 64), randn(2, 2, 10, 3, 3) / 8.0, 1,
+             "H=454 (dense, NBH 228, SB=1)")
+    vs_plain(randn(2, 8, 82, 82, 82), wt, 1, "stuffed 82^3, K=10, Hw=84, 2 W blocks")
     for shape, k, groups, what in FACTORED_3D_TAP + D_EDGES_3D_TAP:
         vs_plain(randn(*shape), randn(*k) / math.sqrt(math.prod(k[1:])), groups, what)
 
@@ -1177,7 +1234,7 @@ def time_3d_tap(torch, inputs, errs, per_row):
 
     from fft_conv_tpu_torch import fft_conv
     from fft_conv_tpu_torch.kernels.costs import (
-        bound, fused3d_tap_kernel_flops, fused3d_tap_mac_work, fused3d_tap_work)
+        bound, fused3d_hw_work, fused3d_tap_kernel_flops, fused3d_tap_mac_work, fused3d_tap_work)
     from fft_conv_tpu_torch.kernels import fused3d
     from fft_conv_tpu_torch.ops import plan_fft_conv
 
@@ -1185,7 +1242,8 @@ def time_3d_tap(torch, inputs, errs, per_row):
     for (b, cin, cout, d, h, w, k), (x, wt, _, plan), err, nl in zip(
         BENCH_SHAPES_3D_TAP, inputs, errs, per_row
     ):
-        spectra = fused3d.kernel_spectra_tap(wt, h)
+        hw = fused3d._h_work(h)[0]
+        spectra = fused3d.kernel_spectra_tap(wt, hw)
         planned = plan_fft_conv(wt, signal_spatial=(d, h, w))
 
         def kernel():
@@ -1200,10 +1258,11 @@ def time_3d_tap(torch, inputs, errs, per_row):
         nbytes, flops = fused3d_tap_work(b, cin, cout, d, h, w, k)
         bound_ms, bound_by = bound(nbytes, flops)
         row = {
-            "K": k, "plan": list(plan), "launches": nl, "max_abs_err": err,
+            "K": k, "dhw": [d, h, w], "hw": hw, "h_path": fused3d._h_path(h),
+            "plan": list(plan), "launches": nl, "max_abs_err": err,
             "ms": device_ms(kernel),
             "call_ms": call_ms(kernel),
-            "spectra_ms": device_ms(lambda: fused3d.kernel_spectra_tap(wt, h)),
+            "spectra_ms": device_ms(lambda: fused3d.kernel_spectra_tap(wt, hw)),
             "auto_ms": device_ms(auto),
             "auto_call_ms": call_ms(auto),
             "plan_ms": device_ms(lambda: planned(x)),
@@ -1222,6 +1281,7 @@ def time_3d_tap(torch, inputs, errs, per_row):
         row["d_stage"] = d_stage(torch, row["phase_ms"], "tap_mac",
                                  fused3d_tap_mac_work(b, cin, cout, d, h, w, k), kernel, "B4")
         row["auto_busy_share"] = row["auto_ms"] / row["auto_call_ms"]
+        row["hw_pair"] = hw_pair(row["phase_ms"], fused3d_hw_work(b, cin, cout, d, h, w, k))
         rows.append(row)
         print(json.dumps({"phase": "timing", "kernel": "B4", **row}))
         torch.cuda.synchronize()
@@ -1230,10 +1290,15 @@ def time_3d_tap(torch, inputs, errs, per_row):
 
 def time_transposed_3d(torch, x, t_inputs):
     """The transposed 3D calls at 64^3: the fused route's device time and
-    call latency, the composed path's, and conv_transpose3d (TF32 off)."""
+    call latency, the composed path's, and conv_transpose3d (TF32 off); the
+    bound of the fused chain on the stuffed volume and its H/W kernels'
+    share beside their stage's bound, and the working length they ran."""
     import torch.nn.functional as TF
 
     from fft_conv_tpu_torch import fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused3d
+    from fft_conv_tpu_torch.kernels.costs import (
+        bound, fused3d_hw_work, fused3d_tap_work, fused3d_work)
     from fft_conv_tpu_torch.ops import plan_fft_conv_transpose
 
     for k, wt, bias, plan, nwb in t_inputs:
@@ -1258,6 +1323,15 @@ def time_transposed_3d(torch, x, t_inputs):
             # stuffed signal, kernel spectra, crop and bias
             "phase_ms": phase_split_ms(torch, fused, "fused3d_"),
         }
+        b, cin, full = x.shape[0], x.shape[1], x.shape[2] + 2 * (k - 1)
+        cout = wt.shape[1]
+        work = (fused3d_work if plan[0] == "v4" else fused3d_tap_work)(
+            b, cin, cout, full, full, full, k)
+        row.update({"stuffed": full, "hw": fused3d._h_work(full)[0],
+                    "h_path": fused3d._h_path(full), "bytes": work[0], "flops": work[1]})
+        row["bound_ms"], row["bound_by"] = bound(*work)
+        row["hw_pair"] = hw_pair(row["phase_ms"],
+                                 fused3d_hw_work(b, cin, cout, full, full, full, k))
         print(json.dumps({"phase": "timing", "kernel": "B3" if plan[0] == "v4" else "B4",
                           "case": "fft_conv_transpose 64^3", **row}))
         torch.cuda.synchronize()
@@ -1268,9 +1342,11 @@ def check_pack3d(torch, dev, gen, inputs3d):
     with NaN first so that an unwritten element shows: at the 3D row (PP =
     40 pads D from 64 to 80), at the stuffed 78^3 volume of the transposed
     call at K=8 (two W blocks, the clamped last one off 16 B alignment), with
-    groups=2, at W < 64 and at H = 32 with an odd D and a clamped second W
-    block (the factored H/W kernels read the packed layout there as at the
-    3D row). At each, B3 reading the packed layout is held to
+    groups=2, at W < 64 with H = 37 (the factored H/W kernels pad it to Hw
+    = 40 and read the packed layout's 37 rows) and at H = 32 with an odd D
+    and a clamped second W block (the factored H/W kernels read the packed
+    layout there as at the 3D row). At each, B3 reading the packed layout
+    is held to
     B3's direct read (the same values in the same order, so expected bit for
     bit) and to the plain version. Returns the timing cases and B6's max abs
     errors."""
@@ -1309,7 +1385,7 @@ def check_pack3d(torch, dev, gen, inputs3d):
         check(torch.equal(xp, ref), f"B6 {what}: differs from its plain version by {err}")
         errs.append(err)
 
-        spectra = fused3d.kernel_spectra_3d(k, h)
+        spectra = fused3d.kernel_spectra_3d(k, fused3d._h_work(h)[0])
         direct = fused3d._launch_fused3d(x, spectra, groups, kk)
         packed = fused3d._launch_fused3d(x, spectra, groups, kk, packed=True)
         torch.cuda.synchronize()
@@ -1320,7 +1396,7 @@ def check_pack3d(torch, dev, gen, inputs3d):
             f"B3 'pk' vs plain, {what}")
         print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B6", "case": what,
                           "plan": list(plan), "w_blocks": nwb, "xp_shape": list(xp.shape),
-                          "h_path": fused3d._h_path(h),
+                          "h_path": fused3d._h_path(h), "hw": fused3d._h_work(h)[0],
                           "exact": True, "max_abs_err": err,
                           "B3_pk_bit_equal_to_direct": torch.equal(packed, direct),
                           "B3_pk_max_abs_diff_to_direct": diff,
@@ -2336,7 +2412,7 @@ def phase_sweep(torch, rows1d, rows2d, rows3d):
                 methods[m](sig, ker_t, bias), naive_t, f"sweep {cfg.label} K={k} {m}")[0]
     phase5 = {("1D", r["K"]): r["auto_ms"] for r in rows1d}
     phase5.update({("2D", r["K"]): r["auto_ms"] for r in rows2d})
-    phase5.update({("3D", r["K"]): r["auto_ms"] for r in rows3d})
+    phase5.update({("3D", r["K"]): r["auto_ms"] for r in rows3d if r["dhw"] == [64, 64, 64]})
     beside = [{"config": r["config"], "K": r["kernel_size"],
                "sweep_fft_conv_ms": r["time_mean_s"] * 1e3,
                "phase5_auto_ms": phase5[(r["config"], r["kernel_size"])]}
@@ -2436,16 +2512,16 @@ def main() -> int:
           f"B5's 8 entry points spill registers or are missing: {spills}")
     print(json.dumps({"phase": "ptxas", "kernel": "B5", "spill_bytes": spills}))
     # B3, B4 and B6: every entry point of fused3d.cu (the dense H/W kernels
-    # at SB = 4, 2, 1, direct and packed, the factored ones at H = 16, 32, 64,
-    # 128, the D kernels d_mac at 8, 4, 2, 1 and tap_mac at 4, 2, 1 output
-    # channels a block, the pack kernel), and the H/W and D kernels' registers
+    # at SB = 4, 2, 1, direct and packed; the factored ones built for H = 16,
+    # 32, 64, 128 and the one that takes any split, direct and packed; the D
+    # kernels d_mac at 8, 4, 2, 1 and tap_mac at 4, 2, 1 output channels a
+    # block; the pack kernel), and every entry point's registers
     spills = ptxas_spills(_build.build_logs["fused3d"])
-    check(len(spills) == 29 and not any(sum(v) for v in spills.values()),
-          f"fused3d.cu's 29 entry points spill registers or are missing: {spills}")
-    regs = {fn: r for fn, r in ptxas_registers(_build.build_logs["fused3d"]).items()
-            if "_hw_" in fn or "_d_mac" in fn or "_tap_mac" in fn}
+    check(len(spills) == 32 and not any(sum(v) for v in spills.values()),
+          f"fused3d.cu's 32 entry points spill registers or are missing: {spills}")
+    regs = ptxas_registers(_build.build_logs["fused3d"])
     print(json.dumps({"phase": "ptxas", "kernel": "B3, B4, B6", "spill_bytes": spills,
-                      "registers": regs}))
+                      "registers": regs, "build_s": round(build_s, 2)}))
     torch.cuda.synchronize()
 
     gen = torch.Generator().manual_seed(0)

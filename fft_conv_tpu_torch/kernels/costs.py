@@ -102,17 +102,75 @@ def _free_root(k, n):
     return 4 * k % n == 0
 
 
+def _sym_dft_flops(n, live, need, kernel, first):
+    """Flops of csrc/fused3d.cu's dft_emit for an n that is not a power of
+    two, the real-symmetric form: s_j, d_j = v_j +- v_(n-j) (4 per
+    pair 0 < j < n/2), X[0] the sum of v_0, v_(n/2) and the s_j, and per
+    pair of bins m, n - m the sums P = v_0 [+- v_(n/2)] + sum_j s_j cos and
+    Q = sum_j d_j sin (4 per complex-by-real FMA, 2 per term whose cos or
+    sin is +-1, none where it is 0), then X[m], X[n-m] = P -+ i Q (2 each).
+    kernel: every term and bin counted; else only the live inputs (j <
+    live), the used bins (first <= m < need) and no add into a zero."""
+    half = (n - 1) // 2
+    if kernel:
+        live, need, first = n, n, 0
+    lv = [j < live for j in range(n)]
+    used = [first <= m < need for m in range(n)]
+    mid = n % 2 == 0 and lv[n // 2]
+    flops = sum(4 if kernel or (lv[j] and lv[n - j]) else 0 for j in range(1, half + 1))
+    nz = [False] + [lv[j] or lv[n - j] for j in range(1, half + 1)]
+
+    def adds(terms):  # complex adds of a sum of `terms` nonzero terms
+        return 2 * max(terms - 1, 0)
+
+    if used[0]:
+        flops += adds(lv[0] + mid + sum(nz[1:]))
+    for m in range(1, n // 2 + 1):
+        bins = [m] if 2 * m == n else [m, n - m]
+        if not any(used[b] for b in bins):
+            continue
+        p_add = q_add = fma = 0
+        for j in range(1, half + 1):
+            if not nz[j]:
+                continue
+            e = m * j % n
+            if 4 * e % n:
+                fma += 1
+            elif e == 0 or 2 * e == n:
+                p_add += 1
+            else:
+                q_add += 1
+        if kernel:  # P starts at v_0, Q at 0
+            flops += 8 * fma + 2 * (mid + p_add) + 2 * q_add + 4 * (len(bins) == 2)
+            continue
+        p_terms = lv[0] + mid + p_add
+        flops += 8 * fma + adds(p_terms) + adds(q_add)
+        if fma:  # the first product into an empty P or Q is a multiply
+            flops -= 2 * (p_terms == 0) + 2 * (q_add == 0)
+        if len(bins) == 2:
+            flops += 2 * sum(used[b] for b in bins)
+    return flops
+
+
 @functools.lru_cache(maxsize=None)
-def _short_dft_flops(n, live, need, kernel, first=0):
+def _short_dft_flops(n, live, need, kernel, first=0, fold=False):
     """Flops of one n-point DFT as csrc/fused2d.cu's short_dft runs it (and
-    csrc/fused3d.cu's, for n = 8), an FMA as two: radix-2 butterflies on the
-    bit-reversed input for a power of two, the dense product for another n.
-    Inputs j >= live are zero and only the outputs first <= m < need are
-    used. kernel: the kernel's own arithmetic (every product by a root other
-    than root[0] = 1 costs 6, every add 2); else only what the outputs need:
-    no product by 1, -1 or +-i, no add with a zero, nothing that reaches no
-    used output."""
-    free = (lambda k: k == 0) if kernel else (lambda k: _free_root(k, n))
+    csrc/fused3d.cu's), an FMA as two: radix-2 butterflies on the
+    bit-reversed input for a power of two, the real-symmetric form of
+    csrc/fused3d.cu's dft_emit for another n up to 16 and for an odd n
+    (_sym_dft_flops), the dense product for another even one (B2's 24).
+    Inputs j >= live are zero and
+    only the outputs first <= m < need are used. kernel: the kernel's own
+    arithmetic (every product by a root other than root[0] = 1 costs 6, and
+    with fold, as the 3D H steps run them, none by root[n/4] = -i either;
+    every add 2); else only what the outputs need: no product by 1, -1 or
+    +-i, no add with a zero, nothing that reaches no used output."""
+    if kernel:
+        free = (lambda k: k == 0 or (fold and 4 * k == n))
+    else:
+        free = (lambda k: _free_root(k, n))
+    if n & (n - 1) and (n <= 16 or n % 2):
+        return _sym_dft_flops(n, live, need, kernel, first)
     if n & (n - 1):  # per used output, a product per live term, an add past the first
         terms = min(live, n)
         return (need - first) * 2 * max(terms - 1, 0) + sum(
@@ -141,24 +199,31 @@ def _short_dft_flops(n, live, need, kernel, first=0):
 def _split(t):
     """The four-step split (A, B) of a DFT length t as the kernels factor it
     (B2's fused2d._SPLITS, B3's and B4's W split fused3d._W_SPLIT), else the
-    most-square power-of-two split for another power of two, else None (no
-    split: the length is counted as a dense product)."""
+    most-square power-of-two split for another power of two, else the
+    mixed-radix split of B3's and B4's H transforms (fourstep.mixed_split:
+    both factors at most 16, B even) where t has one; else, for the least
+    work of an even H that has none (82 = 41 * 2, which the kernels pad to
+    84), the most-square split with B even and any A; else None (no split:
+    the length is counted as a dense product)."""
     from . import fourstep, fused2d, fused3d
 
     if t in fused2d._SPLITS:
         return fused2d._SPLITS[t]
     if t == fused3d._TW:
         return fused3d._W_SPLIT
-    return fourstep.split_factors(t) if t >= 4 and not t & (t - 1) else None
+    if t >= 4 and not t & (t - 1):
+        return fourstep.split_factors(t)
+    return fourstep.mixed_split(t) or fourstep.mixed_split(t, max(t // 2, 2))
 
 
 @functools.lru_cache(maxsize=None)
-def _four_step_flops(t, live, need, kernel=False, first=0):
+def _four_step_flops(t, live, need, kernel=False, first=0, fold=False):
     """Flops of one complex length-t DFT through its four-step split
     (_split): B A-point DFTs over j1 of x[j1 B + j2], the twiddle tw[m1, j2],
     A B-point DFTs onto the bins m1 + A m2. Inputs j >= live are zero, only
-    the bins first <= m < need are used; kernel as _short_dft_flops (the
-    kernel multiplies by the twiddle wherever m1 > 0)."""
+    the bins first <= m < need are used; kernel and fold as
+    _short_dft_flops (the kernel multiplies by the twiddle wherever
+    m1 > 0)."""
     a, b = _split(t)
     want = [[first <= m1 + a * m2 < need for m2 in range(b)] for m1 in range(a)]
     rows = sum(map(any, want))  # the A-point DFTs' outputs m1 that step 2 uses
@@ -168,13 +233,13 @@ def _four_step_flops(t, live, need, kernel=False, first=0):
         if lv == 0:
             continue
         live2 = j2 + 1
-        flops += _short_dft_flops(a, lv, rows, kernel)
+        flops += _short_dft_flops(a, lv, rows, kernel, 0, fold)
         flops += sum(6 for m1 in range(rows)
                      if (m1 > 0 if kernel else not _free_root(m1 * j2, t)))
     for m1 in range(rows):
         used = [m2 for m2 in range(b) if want[m1][m2]]
         if used:
-            flops += _short_dft_flops(b, live2, used[-1] + 1, kernel, used[0])
+            flops += _short_dft_flops(b, live2, used[-1] + 1, kernel, used[0], fold)
     return flops
 
 
@@ -406,40 +471,81 @@ def _hw_slab_flops(h, oh, nbh, cols_in, lo, hi, dense=False):
     return fwd, inv
 
 
-def _hw_kernel_flops(h, oh, nbh, d, od, sb):
+def _hw_kernel_flops(h, oh, d, od):
     """(per input channel, per output channel) flops that B3's and B4's H/W
     kernels do for one item, with the kernels' own arithmetic
-    (_short_dft_flops and _four_step_flops with kernel=True): the factored W
+    (_short_dft_flops and _four_step_flops with kernel=True), at the working
+    length Hw and its NBH = Hw/2+1 bins (fused3d._h_work): the factored W
     DFT-64 of the d slabs' NBH rows; the inverse W DFT of the od slabs' rows
-    with its 1/64 (2 per value). For an H the kernels factor
-    (fused3d._H_SPLITS), per slab pair (ceil(d / 2) of them, the last one
-    padded with a zero slab; ceil(od / 2) in the inverse): the H-point DFT
-    of the 64 packed columns, the split of bins k and H - k (8 per value of
-    the 8 columns a W step 1 task reads, 16 for the two real rows of k = 0
-    and H / 2, whose 8-point DFTs the kernel splits after running them on
-    the packed row), and in the inverse the Hermitian extension (4 per bin
-    pair), W step 2 of both slabs (of the rows 0 and H / 2 too), the
-    conjugated H-point DFT of the 64 columns and the 1/H of the stored rows
-    (1 per value, over all 64 columns). For every other H the dense H DFT
-    over whole groups of SB slabs and all 64 columns, and the dense H irfft
-    likewise."""
+    with its 1/64 (2 per value). For an H the kernels factor, per slab pair
+    (ceil(d / 2) of them, the last one padded with a zero slab; ceil(od / 2)
+    in the inverse): the Hw-point DFT of the 64 packed columns (its radix-2
+    DFTs with root[n/4] = -i folded, fold=True), the split of bins k and
+    Hw - k (8 per value of the 8 columns a W step 1 task reads, 16 for the
+    two real rows of k = 0 and Hw / 2, whose 8-point DFTs the kernel splits
+    after running them on the packed row), and in the inverse the Hermitian
+    extension (4 per bin pair), W step 2 of both slabs (of the rows 0 and
+    Hw / 2 too), the conjugated Hw-point DFT of the 64 columns and the 1/Hw
+    of the stored rows (1 per value, over all 64 columns). For every other H
+    (Hw = H) the dense H DFT over whole groups of SB slabs and all 64
+    columns, and the dense H irfft likewise."""
     from . import fused3d
 
     fw = _four_step_flops(64, 64, 64, True)
-    if h not in fused3d._H_SPLITS:
+    hw, split = fused3d._h_work(h)
+    nbh = hw // 2 + 1
+    if split is None:
+        sb = fused3d._slabs_per_block(nbh)
         return (-(-d // sb) * sb * 4 * nbh * h * 64 + d * nbh * fw,
                 od * nbh * (fw + 2 * 64) + -(-od // sb) * sb * 4 * oh * nbh * 64)
-    d8, fh = _short_dft_flops(8, 8, 8, True), _four_step_flops(h, h, h, True)
+    d8, fh = _short_dft_flops(8, 8, 8, True), _four_step_flops(hw, hw, hw, True, 0, True)
     twiddle = 7 * 6  # W step 1's twiddles on a row, per j2
-    fwd_pair = (64 * fh + 8 * (h * d8 + 2 * nbh * twiddle + 64 * (h // 2 - 1) + 128)
+    fwd_pair = (64 * fh + 8 * (hw * d8 + 2 * nbh * twiddle + 64 * (hw // 2 - 1) + 128)
                 + 2 * nbh * 8 * d8)
-    inv_pair = 8 * ((h // 2 - 1) * (2 * d8 + 64) + 4 * d8 + 32) + 64 * fh + 2 * oh * 64
+    inv_pair = 8 * ((hw // 2 - 1) * (2 * d8 + 64) + 4 * d8 + 32) + 64 * fh + 2 * oh * 64
     return (-(-d // 2) * fwd_pair,
             od * nbh * 8 * (d8 + twiddle) + -(-od // 2) * inv_pair)
 
 
+def _hw_stage_flops(cin, cout, d, h, w, kd, kh, kw, groups, dense):
+    """Flops of the H/W transforms of one batch element of a call, least
+    work at the signal's own H (no credit for a working length's padding):
+    per W block, with cols_in of its 64 columns inside the signal and the
+    block columns [lo, hi) stored, per input channel and d-slab and per
+    output channel and valid d (_hw_slab_flops)."""
+    from . import fused3d
+
+    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
+    od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
+    flops = 0
+    for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
+        fwd, inv = _hw_slab_flops(h, oh, plan[1], min(64, w - start), lo, hi, dense)
+        flops += cin * d * fwd + cout * od * inv
+    return flops
+
+
+def fused3d_hw_work(b, cin, cout, d, h, w, k, groups=1):
+    """(bytes, flops) the H/W stage of B3 and B4 (hw_forward and hw_inverse,
+    the pair of kernels between the signal and T and between Z and the
+    output) must move and do for one call, least work at the signal's own
+    H: the signal read and T (items, Cin, D, NBH, 64) written, Z (items,
+    Cout, OD, NBH, 64) read and the output written, once each, complex64
+    and float32; flops as _hw_stage_flops."""
+    from . import fused3d
+
+    kd, kh, kw = _ks(k, 3)
+    plan, nwb, _ = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
+    od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
+    nbytes = (4 * b * cin * d * h * w + 8 * b * nwb * (cin * d + cout * od) * plan[1] * 64
+              + 4 * b * cout * od * oh * ow)
+    return nbytes, b * _hw_stage_flops(cin, cout, d, h, w, kd, kh, kw, groups, False)
+
+
 def fused3d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
-    """(bytes, flops) the fused 3D function must move and do for one call.
+    """(bytes, flops) the fused 3D function must move and do for one call,
+    least work at the signal's own H (the kernels' working length pads H
+    where it does not split, fused3d._h_work; the bound does not credit
+    that padding).
 
     Bytes: the signal and the spectra (Cout, Cin/g, 16, NBH, 64) read once,
     the output written once. Flops, with an FMA as two, restricted to what
@@ -459,14 +565,11 @@ def fused3d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
     from . import fused3d
 
     kd, kh, kw = _ks(k, 3)
-    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
+    plan, _, _ = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
     nbh = plan[1]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     cpg = cin // groups
-    flops = 0
-    for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
-        fwd, inv = _hw_slab_flops(h, oh, nbh, min(64, w - start), lo, hi, dense)
-        flops += cin * d * fwd + cout * od * inv
+    flops = _hw_stage_flops(cin, cout, d, h, w, kd, kh, kw, groups, dense)
     nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * 16 * nbh * 64
               + 4 * b * cout * od * oh * ow)
     return nbytes, b * flops + fused3d_d_work(b, cin, cout, d, h, w, k, groups, dense)[1]
@@ -514,8 +617,9 @@ def fused3d_d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
 
 def fused3d_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
     """The flops csrc/fused3d.cu does for one call of B3: the H/W kernels
-    as _hw_kernel_flops counts them and fused3d_d_mac's own arithmetic, 4
-    lanes a (bin, D block), every slab of a block counted (zeros past D
+    as _hw_kernel_flops counts them and fused3d_d_mac's own arithmetic over
+    the Hw/2+1 bins of the working length (fused3d._h_work), 4 lanes a
+    (bin, D block), every slab of a block counted (zeros past D
     too). Per lane, per input channel and block of OPB output channels
     (fused3d._opb; the block recomputes the channel's DFT-16): step 1 of the
     DFT-16 at one output m1 (16 a j2: two real FMA pairs and a complex FMA),
@@ -528,10 +632,10 @@ def fused3d_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
 
     kd, kh, kw = _ks(k, 3)
     plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
-    nbh, nbd = plan[1], plan[4]
+    nbd = plan[4]
     od, oh = d - kd + 1, h - kh + 1
-    npos, cpg = nbh * 64, cin // groups
-    fwd, inv = _hw_kernel_flops(h, oh, nbh, d, od, fused3d._slabs_per_block(nbh))
+    npos, cpg = fused3d._nbh_work(h) * 64, cin // groups
+    fwd, inv = _hw_kernel_flops(h, oh, d, od)
     dft4 = _short_dft_flops(4, 4, 4, True)
     d_fwd = 4 * (4 * 16 + 3 * 6 + dft4)
     d_inv = 4 * (dft4 + 3 * 6 + 4 * 6 + 6 * 2 + 2 * 2)
@@ -552,14 +656,11 @@ def fused3d_tap_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
     from . import fused3d
 
     kd, kh, kw = _ks(k, 3)
-    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
+    plan, _, _ = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
     nbh = plan[1]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     cpg = cin // groups
-    flops = 0
-    for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
-        fwd, inv = _hw_slab_flops(h, oh, nbh, min(64, w - start), lo, hi, dense)
-        flops += cin * d * fwd + cout * od * inv
+    flops = _hw_stage_flops(cin, cout, d, h, w, kd, kh, kw, groups, dense)
     nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * kd * nbh * 64
               + 4 * b * cout * od * oh * ow)
     return nbytes, b * flops + fused3d_tap_mac_work(b, cin, cout, d, h, w, k, groups)[1]
@@ -577,16 +678,16 @@ def fused3d_tap_mac_work(b, cin, cout, d, h, w, k, groups=1):
 
 def fused3d_tap_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
     """The flops csrc/fused3d.cu's tap chain does for one call: the H/W
-    kernels as _hw_kernel_flops counts them, the tap MAC onto all
-    fused3d._TAP_DC d of each chunk a thread takes."""
+    kernels as _hw_kernel_flops counts them, the tap MAC over the Hw/2+1
+    bins of the working length onto all fused3d._TAP_DC d of each chunk a
+    thread takes."""
     from . import fused3d
 
     kd, kh, kw = _ks(k, 3)
-    plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
-    nbh = plan[1]
+    _, nwb, _ = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
     od, oh = d - kd + 1, h - kh + 1
-    npos, dc = nbh * 64, fused3d._TAP_DC
-    fwd, inv = _hw_kernel_flops(h, oh, nbh, d, od, fused3d._slabs_per_block(nbh))
+    npos, dc = fused3d._nbh_work(h) * 64, fused3d._TAP_DC
+    fwd, inv = _hw_kernel_flops(h, oh, d, od)
     item = cin * fwd + cout * inv
     item += cout * npos * -(-od // dc) * dc * 8 * (cin // groups) * kd
     return b * nwb * item

@@ -7,8 +7,9 @@
 // built by _fused3d_call), the "tap" plan for KD > 9 and for shapes where the
 // v4 plan does not fit. Both compute the valid cross-correlation of a padded
 // (B, Cin, D, H, W) signal with a (Cout, Cin/g, KD, KH, KW) kernel. The whole
-// volume is transformed along H and W per d-slab: a one-sided H DFT at the
-// full H (NBH = H/2+1 rows) and a 64-point W DFT over a block of 64 columns
+// volume is transformed along H and W per d-slab: a one-sided H DFT at a
+// working length Hw >= H (NBH = Hw/2+1 rows; see below) and a 64-point W DFT
+// over a block of 64 columns
 // (zeros past the signal's edge; wider signals run as overlap-save W blocks,
 // the last one clamped to end at the edge). Along D, B3 takes a DFT-16 per
 // block of 16 slabs on a hop of 8 (zeros past D), so its MAC over each
@@ -23,16 +24,27 @@
 // to float32 by the host): per row, the 8-point DFT over j1 of x[8 j1 + j2]
 // and the twiddle tw[m1, j2], in place in shared memory, then the 8-point DFT
 // over j2 onto the bin m1 + 8 m2, in natural order. Each short DFT runs in
-// registers as radix-2 butterflies on the roots of unity. For H = 16, 32, 64
-// and 128 the H transforms are factored too (HA * HB = 4 * 4, 8 * 4, 8 * 8,
-// 16 * 8, fourstep.split_factors) and run on slab pairs, as B1 runs its
-// columns: the forward packs slabs 2p and 2p + 1 as one complex column
-// x_2p + i x_2p+1, takes its H-point DFT and splits bins k and H - k into the
-// two slabs' one-sided rows; the inverse takes one conjugated H-point DFT of
-// E_2p + i E_2p+1, each Hermitian-extended (DC and Nyquist taken real, as the
-// irfft weights them), whose real and imaginary parts are the two slabs'
-// output rows. An odd last slab is paired with zeros. Every other H (the
-// stuffed 78 and 82 of the 3D transposed rows, odd H, H > 128) keeps the
+// registers as radix-2 butterflies on the roots of unity.
+//
+// The H transforms. For every H from 16 to 256 they run at the working
+// length Hw, the least even length >= H that splits as Hw = HA * HB with
+// both factors at most 16 and HB even (fused3d.py: _h_work,
+// fourstep.padded_split): H itself where it splits (the powers of two as
+// 4 * 4 to 16 * 16, 48 = 8 * 6, the stuffed 78 = 13 * 6 of the 3D
+// transposed K=8 row), else a few rows more (82 -> 84 = 7 * 12 for K=10; at
+// most 3 rows, at H = 33). The signal's rows H to Hw - 1 are zeros: the
+// H-circular correlation at Hw equals the linear one on the valid rows,
+// since no stored row wraps. The H transforms are factored four-step and run
+// on slab pairs, as B1 runs its columns: the forward packs slabs 2p and
+// 2p + 1 as one complex column x_2p + i x_2p+1, takes its Hw-point DFT and
+// splits bins k and Hw - k into the two slabs' one-sided rows; the inverse
+// takes one conjugated Hw-point DFT of E_2p + i E_2p+1, each
+// Hermitian-extended (DC and Nyquist taken real, as the irfft weights them),
+// whose real and imaginary parts are the two slabs' output rows. An odd last
+// slab is paired with zeros. Their short DFTs (dft_emit) are radix-2 for a
+// power of two and the real-symmetric form for 3, 5, 6, 7, 9 to 15, each a
+// pair of sums for two bins. Outside 16 to 256 (H < 16, and 256 < H <= 906,
+// as far as the plan's NBH <= 454 goes) Hw = H and the H transforms are
 // dense products, a one-sided H DFT and an irfft on the valid rows. The D
 // DFT-16 and its inverse are four-step transforms 16 = 4 * 4 (fused3d.py:
 // _D_SPLIT), the MACs complex FMAs. The host side (plans, factors, kernel
@@ -69,22 +81,25 @@
 //     on the valid rows, and the valid (d, h, w) samples stored straight
 //     into (B, Cout, OD, OH, OW).
 // Two versions of phases 1 and 3 run:
-//   * factored (H = 16 to 128, fused3d_hw_forward_f and fused3d_hw_inverse_f,
-//     SB = kSBF = 2 slabs, one pair): phase 1 copies the two slabs' H x 64
-//     samples into shared memory by cp.async, 16 bytes a thread (4-byte
-//     copies with zero-fill where a row runs past W or starts off alignment,
-//     zero-fill past D), all issued at the block's start, into two planes of
-//     H + 2 rows (px: 16-byte chunks permuted per row), slab 2p in one and
+//   * factored (H = 16 to 256, fused3d_hw_forward_f and fused3d_hw_inverse_f,
+//     SB = kSBF = 2 slabs, one pair; built for the constant splits of Hw =
+//     16, 32, 64, 128 and once for a split handed as arguments, whose H
+//     steps dispatch to the short DFT of each radix): phase 1 copies the two
+//     slabs' H x 64 samples into shared memory by cp.async, 16 bytes a
+//     thread (4-byte copies with zero-fill where a row runs past W or starts
+//     off alignment, zero-fill past D, zeros in rows H to Hw - 1), all issued
+//     at the block's start, into two planes of Hw + 2 rows (px: 16-byte
+//     chunks permuted per row), slab 2p in one and
 //     2p + 1 in the other, so that the packed complex column is read across
 //     them; then, each step in place and ended by a barrier, the H DFT's two
-//     steps, W step 1 fused with the split of bins k and H - k, and W step 2,
+//     steps, W step 1 fused with the split of bins k and Hw - k, and W step 2,
 //     whose rows are put back in natural bin order and stored to T a whole
 //     512-byte row per warp instruction. Phase 4 copies its contiguous run of
 //     Z by 8-byte cp.async into the swizzled rows (sw), runs W step 1, then W
 //     step 2 on the rows k of both slabs at once, writing the pair's
 //     Hermitian-extended column V in place of their rows, then the H inverse's
 //     two steps, storing Re and Im of its rows below OH to the two slabs;
-//   * dense (every other H, fused3d_hw_forward and fused3d_hw_inverse): SB
+//   * dense (H < 16 or H > 256, fused3d_hw_forward and fused3d_hw_inverse): SB
 //     is 4 when 4 * NBH * 64 complex values fit a block's shared memory
 //     (67.6 KB at H = 64), else 2 or 1. The H DFT reads the signal with
 //     __ldg inside its contraction and the H irfft reads the rows of E, both
@@ -108,22 +123,33 @@
 // bytes bound it. Done as dense products the same call was 3.7 GFLOP, half
 // of them the W DFTs (H DFT 0.55, W DFT 1.11, DFT-16 0.29, MAC 0.28, inverse
 // D 0.25, inverse W 0.88, H irfft 0.39). With every DFT factored the kernels
-// do about 0.70 GFLOP, 0.48 of it in d_mac (costs.fused3d_kernel_flops). B4
+// do about 0.68 GFLOP, 0.48 of it in d_mac (costs.fused3d_kernel_flops). B4
 // at the same volume with K=10 needs about
 // 1.34 GFLOP (0.020 ms, the tap MAC 1.19 of it) against 38.2 MB to move
-// (0.011 ms); operations bound it.
+// (0.011 ms); operations bound it. At the stuffed volumes of the transposed
+// rows the least work is counted at the signal's own H (no credit for the
+// padding to Hw): 78^3 at K=8 (B3, two W blocks) 1.62 GFLOP and 74.2 MB,
+// 0.024 ms (operations); 82^3 at K=10 (B4) 5.17 GFLOP, the tap MAC 4.0 of
+// it, 0.077 ms (operations). The H/W pair's stage there moves 151 and 167
+// MB (the signal and T, Z and the output, once each; costs.fused3d_hw_work):
+// 0.045 and 0.050 ms, bytes bound it.
 //
 // Schedule of the factored H/W kernels. Neither bound holds them: the pair
 // moves about 61 MB at 64^3 (x 16.8 and T 17.3 in the forward, Z 15.4 and
 // the output 11.9 in the inverse; 0.018 ms at 3.35 TB/s) and does about 0.2
 // GFLOP. Each block runs a chain of copies, barriers and short DFTs, so a
-// block holds one slab pair (33.8 KB at H = 64), its steps keep no sums
-// across a barrier, and __launch_bounds__(256, kHwBlocks = 3) caps a thread
-// at 80 registers, so that 3 blocks (24 warps) share an SM; the grids are
-// 512 blocks (forward) and 464 / 448 (inverse, B3 / B4) at the benchmark, on
-// 396 slots. On the H100 (PERF.md) the forward takes about 0.022 ms and the
-// inverse 0.016, about half the HBM rate; two pairs a block, 2 to 4 blocks
-// an SM and 128-thread blocks all time within 5% of that.
+// block holds one slab pair ((Hw + 2) * 512 B: 33.8 KB at Hw = 64, 132 KB
+// at 256), its steps keep no sums across a barrier, and for the four
+// constant splits __launch_bounds__(256, kHwBlocks = 3) caps a thread at 80
+// registers, so that 3 blocks (24 warps) share an SM; the grids are 512
+// blocks (forward) and 464 / 448 (inverse, B3 / B4) at the benchmark, on
+// 396 slots. The kernels that take their split as arguments hold the
+// runtime row strides and radix cases in registers too: at 80 they spill,
+// so they are bounded at kHwBlocksAny = 2 blocks an SM (128 registers);
+// shared memory allows 2 blocks up to Hw = 224 and 1 up to 256. On the H100
+// (PERF.md) the forward takes about 0.022 ms and the inverse 0.016 at 64^3,
+// about half the HBM rate; two pairs a block, 2 to 4 blocks an SM and
+// 128-thread blocks all time within 5% of that.
 //
 // Schedule of the D kernels. Their stage moves T in, the spectra in and Z
 // out (50.0 MB for B3 at the benchmark, 0.0149 ms at 3.35 TB/s, bytes bound
@@ -230,9 +256,11 @@ __device__ __forceinline__ float2 cmulw(float2 a, float2 w) {
 }
 
 // One radix-2 stage of LEN-point butterflies (decimation in time), then the
-// next; the twiddle root[0] = 1 is skipped.
-template <int N, int LEN, bool INV>
-__device__ __forceinline__ void dit_stages(float2 (&t)[N], const float2 (&root)[N / 2]) {
+// next; the twiddle root[0] = 1 is skipped, and with FOLD so is root[N / 4]
+// = -i, taken as a swap and a sign (the H steps' short DFTs; the W and D
+// ones keep the product). root holds R >= N / 2 roots.
+template <int N, int LEN, bool INV, int R, bool FOLD = false>
+__device__ __forceinline__ void dit_stages(float2 (&t)[N], const float2 (&root)[R]) {
   if constexpr (LEN <= N) {
 #pragma unroll
     for (int i = 0; i < N; i += LEN) {
@@ -240,24 +268,30 @@ __device__ __forceinline__ void dit_stages(float2 (&t)[N], const float2 (&root)[
       for (int j = 0; j < LEN / 2; ++j) {
         const float2 u = t[i + j];
         float2 w = t[i + j + LEN / 2];
-        if (j != 0) w = cmulw<INV>(w, root[j * (N / LEN)]);
+        const int k = j * (N / LEN);
+        if (FOLD && 4 * k == N)
+          w = INV ? make_float2(-w.y, w.x) : make_float2(w.y, -w.x);  // w * (+-i)
+        else if (k != 0)
+          w = cmulw<INV>(w, root[k]);
         t[i + j] = cadd(u, w);
         t[i + j + LEN / 2] = csub(u, w);
       }
     }
-    dit_stages<N, 2 * LEN, INV>(t, root);
+    dit_stages<N, 2 * LEN, INV, R, FOLD>(t, root);
   }
 }
 
 // v <- the N-point DFT of v (N a power of two; INV: conjugated, unscaled),
 // natural order in and out, as radix-2 butterflies on the bit-reversed
-// input; root[k] = exp(-2 pi i k / N) for k < N / 2, in registers.
-template <int N, bool INV>
-__device__ __forceinline__ void short_dft(float2 (&v)[N], const float2 (&root)[N / 2]) {
+// input; root[k] = exp(-2 pi i k / N) for k < N / 2 (of R >= N / 2), in
+// registers.
+template <int N, bool INV, int R, bool FOLD = false>
+__device__ __forceinline__ void short_dft(float2 (&v)[N], const float2 (&root)[R]) {
+  static_assert(R >= N / 2, "the roots of the short DFT");
   float2 t[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) t[i] = v[bitrev(i, N)];
-  dit_stages<N, 2, INV>(t, root);
+  dit_stages<N, 2, INV, R, FOLD>(t, root);
 #pragma unroll
   for (int i = 0; i < N; ++i) v[i] = t[i];
 }
@@ -555,14 +589,20 @@ fused3d_hw_inverse(const float2* __restrict__ z,   // (items of this launch, Cou
   }
 }
 
-// ---- The factored H/W kernels, for H = 16, 32, 64, 128 ----------------------
+// ---- The factored H/W kernels, for every H from 16 to 256 ------------------
 
-// The four-step split H = HA * HB of the H DFT (fused3d.py: _H_SPLITS, the
-// splits of fourstep.split_factors). The host hands the factors in one vector
-// laid out as the W factors are: the HA roots, the HB roots and the (HA, HB)
-// twiddle tw[m1, j2] = exp(-2 pi i m1 j2 / H), row-major.
+// The four-step split Hw = HA * HB of the H DFT at the working length Hw
+// (fused3d.py: _h_work, fourstep.padded_split: both factors at most 16, HB
+// even). The kernels are built once for each of the four powers of two below
+// (their splits are constants, as in fourstep.split_factors) and once with H
+// = 0, which takes any split the host hands it (ha, hb) and dispatches each H
+// step to the DFT built for its radix. The host hands the factors in one
+// vector laid out as the W factors are: the HA roots, the HB roots and the
+// (HA, HB) twiddle tw[m1, j2] = exp(-2 pi i m1 j2 / Hw), row-major.
 template <int H>
-struct HSplit;
+struct HSplit {
+  static constexpr int A = 0, B = 0;  // the split comes as kernel arguments
+};
 template <>
 struct HSplit<16> {
   static constexpr int A = 4, B = 4;
@@ -579,6 +619,7 @@ template <>
 struct HSplit<128> {
   static constexpr int A = 16, B = 8;
 };
+constexpr int kMaxRadix = 16;
 
 // Slabs a block of the factored kernels holds (an even count: one slab pair
 // or two), its threads, and the blocks an SM holds at once, which caps a
@@ -588,12 +629,114 @@ struct HSplit<128> {
 constexpr int kSBF = 2;
 constexpr int kHwThreads = 256;
 constexpr int kHwBlocks = 3;
+// the same for the kernels that take their split as arguments (H = 0): at
+// 3 blocks (80 registers) ptxas spills their runtime strides, at 2 it does
+// not
+constexpr int kHwBlocksAny = 2;
+// rows of threads: a block's threads as kHwRows rows of 64 columns
+constexpr int kHwRows = kHwThreads / kTW;
+static_assert(kHwThreads % kTW == 0 && kSBF % 2 == 0, "whole rows of threads, slab pairs");
 
-// The first N / 2 roots of unity exp(-2 pi i k / N) of a factor vector.
 template <int N>
-__device__ __forceinline__ void roots_of(const float2* __restrict__ fac, float2 (&root)[N / 2]) {
+struct Int {};
+
+// f(Int<n>{}): the radix N itself when it is known at compile time (N > 0),
+// else the case of n among N0, N0 + STEP, ..., kMaxRadix (none for another n,
+// which the host's checks rule out). f is a functor whose templated
+// operator() is forced inline, so that every case is inlined into the kernel.
+template <int N0, int STEP, class F>
+__device__ __forceinline__ void radix_case(int n, const F& f) {
+  if (n == N0) {
+    f(Int<N0>{});
+    return;
+  }
+  if constexpr (N0 + STEP <= kMaxRadix) radix_case<N0 + STEP, STEP>(n, f);
+}
+
+template <int N, int N0, int STEP, class F>
+__device__ __forceinline__ void with_radix(int n, const F& f) {
+  if constexpr (N > 0) {
+    f(Int<N>{});
+  } else {
+    radix_case<N0, STEP>(n, f);
+  }
+}
+
+// The roots an N-point short DFT reads, root[k] = exp(-2 pi i k / N) for k <
+// N / 2, and k = N / 2 too for an odd N (roots_of).
+__host__ __device__ constexpr int nroots(int n) { return n / 2 + (n & 1); }
+
+// The N-point DFT of v (INV: conjugated, unscaled), N from 2 to 16, handed
+// out one bin at a time as emit(m, X[m]) (m a constant once unrolled); v is
+// clobbered. A power of two runs short_dft's radix-2 butterflies (FOLD). Another N
+// runs the real-symmetric form: with s_j = v_j + v_(N-j) and d_j = v_j -
+// v_(N-j) for 0 < j < N / 2,
+//   X[m] = P_m - i Q_m and X[N - m] = P_m + i Q_m (INV: the signs swapped),
+//   P_m = v_0 [+ (-1)^m v_(N/2), N even] + sum_j s_j cos(2 pi m j / N),
+//   Q_m = sum_j d_j sin(2 pi m j / N),
+// so that one pair of sums gives two bins. cos and sin are read from
+// root[f], f = m j mod N folded to f <= N / 2; the products by 0 and +-1
+// (m j mod N a multiple of N / 4) are left out at compile time.
+template <int N, bool INV, class Emit>
+__device__ __forceinline__ void dft_emit(float2 (&v)[N], const float2 (&root)[nroots(N)],
+                                         const Emit& emit) {
+  if constexpr ((N & (N - 1)) == 0) {
+    short_dft<N, INV, nroots(N), true>(v, root);
 #pragma unroll
-  for (int k = 0; k < N / 2; ++k) root[k] = __ldg(fac + k);
+    for (int m = 0; m < N; ++m) emit(m, v[m]);
+  } else {
+    constexpr int J = (N - 1) / 2;  // the pairs (j, N - j)
+#pragma unroll
+    for (int j = 1; j <= J; ++j) {
+      const float2 a = v[j], b = v[N - j];
+      v[j] = cadd(a, b);      // s_j
+      v[N - j] = csub(a, b);  // d_j
+    }
+    float2 x0 = v[0];
+    if (N % 2 == 0) x0 = cadd(x0, v[N / 2]);
+#pragma unroll
+    for (int j = 1; j <= J; ++j) x0 = cadd(x0, v[j]);
+    emit(0, x0);
+#pragma unroll
+    for (int m = 1; m <= N / 2; ++m) {
+      float2 p = v[0], q = make_float2(0.f, 0.f);
+      if (N % 2 == 0) p = (m & 1) ? csub(p, v[N / 2]) : cadd(p, v[N / 2]);
+#pragma unroll
+      for (int j = 1; j <= J; ++j) {
+        const int e = m * j % N, f = e <= N / 2 ? e : N - e;
+        if (4 * e % N == 0) {  // cos and sin are 0 or +-1
+          if (e == 0) p = cadd(p, v[j]);
+          if (2 * e == N) p = csub(p, v[j]);
+          if (4 * e == N) q = cadd(q, v[N - j]);
+          if (4 * e == 3 * N) q = csub(q, v[N - j]);
+        } else {
+          // cos(2 pi e / N) = root[f].x, sin(2 pi e / N) = -+root[f].y
+          const float cs = root[f].x, sn = e <= N / 2 ? -root[f].y : root[f].y;
+          p.x = fmaf(cs, v[j].x, p.x);
+          p.y = fmaf(cs, v[j].y, p.y);
+          q.x = fmaf(sn, v[N - j].x, q.x);
+          q.y = fmaf(sn, v[N - j].y, q.y);
+        }
+      }
+      if (2 * m == N) {
+        emit(m, p);  // Q = 0: every m j mod N is 0 or N / 2
+      } else {
+        const float2 lo = make_float2(p.x + q.y, p.y - q.x);  // P - i Q
+        const float2 hi = make_float2(p.x - q.y, p.y + q.x);  // P + i Q
+        emit(m, INV ? hi : lo);
+        emit(N - m, INV ? lo : hi);
+      }
+    }
+  }
+}
+
+// The nroots(N) roots of unity exp(-2 pi i k / N) an N-point short DFT
+// reads, from the N roots at the head of a factor vector's part.
+template <int N>
+__device__ __forceinline__ void roots_of(const float2* __restrict__ fac,
+                                         float2 (&root)[nroots(N)]) {
+#pragma unroll
+  for (int k = 0; k < nroots(N); ++k) root[k] = __ldg(fac + k);
 }
 
 // Asynchronous copies into shared memory (cp.async): 16 bytes; 8 or 4 bytes
@@ -622,9 +765,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // f = 0, 3, 4, 7 for r % 4 = 0..3, so that the copies land as whole chunks
 // and, with the lane orders below, every step is free of bank conflicts: a
 // warp on 32 neighbouring columns of one row (the copies and the H steps), 8
-// lanes on 8 neighbouring columns of each of 4 neighbouring rows (W step 1
-// and the stores of W step 2), and 16-byte reads of chunks 2 m1 and 2 m1 + 1
-// by a quarter warp of m1 = 2q, 2q + 1 on 4 neighbouring rows (W step 2).
+// lanes on 8 neighbouring columns of each of 4 neighbouring rows (W step 1,
+// where HB / 2 is a multiple of 4 or the rows run on, and the stores of W
+// step 2), and 16-byte reads of chunks 2 m1 and 2 m1 + 1 by a quarter warp
+// of m1 = 2q, 2q + 1 on 4 neighbouring rows (W step 2).
 __device__ __forceinline__ int px(int r, int c) {
   const int f = ((r & 1) * 3) | ((r & 2) << 1);
   return r * kTW + ((((c >> 2) ^ f) << 2) | (c & 3));
@@ -639,63 +783,237 @@ __device__ __forceinline__ void split_bins(float2& z, float2& zm) {
   zm = make_float2(0.5f * (a.y + b.y), 0.5f * (b.x - a.x));
 }
 
-// Factored hw_forward for H = 16, 32, 64, 128, grid (items * Cin, d / SB).
-// The SB slabs sit in SB / 2 pair regions of two planes (px) of H + 2 rows:
-// slab 2p in the "re" plane, slab 2p + 1 in the "im" plane, so that a column
-// of the two planes is the packed complex column x_2p + i x_2p+1. Steps, each
-// in place and ended by a barrier: 0 the copies; 1 and 2 the H-point DFT of
-// each packed column, four-step, leaving bin k = m1 + HA m2 at row
-// m1 HB + m2; 3 W step 1 fused with the split of bins k and H - k into the
-// two slabs' rows (X_2p[k] where Z[k] was, X_2p+1[k] where Z[H - k] was, the
-// four real rows of k = 0 and H / 2 in rows 0, HB / 2, H and H + 1); 4 W
-// step 2, each warp on 4 rows, the bins put back in natural order and each
-// row stored to T as one 512-byte run.
-template <int H, int SB, bool PK>
-__global__ void __launch_bounds__(kHwThreads, kHwBlocks)
-fused3d_hw_forward_f(const float* __restrict__ x,       // (B, Cin, d, H, w), or packed
+// The H steps of the factored kernels, one functor a step: operator()(Int<N>)
+// runs the step at radix N (with_radix), each short DFT handing its bins to a
+// store (dft_emit). Planes and rows are as in the kernels below.
+
+// Forward: a bin of step 1 (m1) times the twiddle tw[m1, j2], to row
+// m1 HB + j2 of both planes.
+struct FwdStore1 {
+  float *re, *im;
+  const float2* tw;
+  int hb, j2, col;
+  __device__ __forceinline__ void operator()(int m1, float2 y) const {
+    if (m1 != 0) y = cmulw<false>(y, __ldg(tw + m1 * hb + j2));
+    const int o = px(m1 * hb + j2, col);
+    re[o] = y.x;
+    im[o] = y.y;
+  }
+};
+
+// Forward: a bin of step 2 (m2) to row row0 + m2 of both planes.
+struct FwdStore2 {
+  float *re, *im;
+  int row0, col;
+  __device__ __forceinline__ void operator()(int m2, float2 y) const {
+    const int o = px(row0 + m2, col);
+    re[o] = y.x;
+    im[o] = y.y;
+  }
+};
+
+// Forward step 1: for each (pair, j2, column), the A-point DFT over j1 of
+// rows j1 HB + j2 and the twiddle, in place.
+struct FwdStep1 {
+  float* s_x;
+  const float2* hfac;
+  int ha, hb, pr, np, col, rg;
+  template <int A>
+  __device__ __forceinline__ void operator()(Int<A>) const {
+    float2 ra[nroots(A)];
+    roots_of<A>(hfac, ra);
+    for (int p = 0; p < np; ++p) {
+      float* re = s_x + p * 2 * pr * kTW;
+      float* im = re + pr * kTW;
+#pragma unroll 1
+      for (int j2 = rg; j2 < hb; j2 += kHwRows) {
+        float2 v[A];
+#pragma unroll
+        for (int j1 = 0; j1 < A; ++j1) {
+          const int o = px(j1 * hb + j2, col);
+          v[j1] = make_float2(re[o], im[o]);
+        }
+        dft_emit<A, false>(v, ra, FwdStore1{re, im, hfac + A + hb, hb, j2, col});
+      }
+    }
+  }
+};
+
+// Forward step 2: for each (pair, m1, column), the B-point DFT over j2 of
+// rows m1 B + j2, in place.
+struct FwdStep2 {
+  float* s_x;
+  const float2* hfac;
+  int ha, hb, pr, np, col, rg;
+  template <int B>
+  __device__ __forceinline__ void operator()(Int<B>) const {
+    float2 rb[nroots(B)];
+    roots_of<B>(hfac + ha, rb);
+    for (int p = 0; p < np; ++p) {
+      float* re = s_x + p * 2 * pr * kTW;
+      float* im = re + pr * kTW;
+#pragma unroll 1
+      for (int m1 = rg; m1 < ha; m1 += kHwRows) {
+        float2 u[B];
+#pragma unroll
+        for (int j2 = 0; j2 < B; ++j2) {
+          const int o = px(m1 * B + j2, col);
+          u[j2] = make_float2(re[o], im[o]);
+        }
+        dft_emit<B, false>(u, rb, FwdStore2{re, im, m1 * B, col});
+      }
+    }
+  }
+};
+
+// Inverse: the row of V[j] of a pair (V[j] at row base + j for j <= H / 2,
+// else at base + NBH + H - j, base = 2 p NBH).
+__device__ __forceinline__ int vrow(int base, int h, int j) {
+  return base + (j <= h / 2 ? j : h / 2 + 1 + h - j);
+}
+
+// Inverse: a bin of step 3 (m1) times the conjugate twiddle, to V[m1 HB + j2].
+struct InvStore3 {
+  float2* s_z;
+  const float2* tw;
+  int base, h, hb, j2, col;
+  __device__ __forceinline__ void operator()(int m1, float2 y) const {
+    if (m1 != 0) y = cmulw<true>(y, __ldg(tw + m1 * hb + j2));
+    s_z[sw(vrow(base, h, m1 * hb + j2), col)] = y;
+  }
+};
+
+// Inverse: a bin of step 4 (m2), output row m1 + HA m2 of slabs 2p (Re) and
+// 2p + 1 (Im), 1/H applied, where it is below oh and the slab inside od.
+struct InvStore4 {
+  float* obase;
+  int p, ha, m1, col, ns, oh, ow;
+  float inv_h;
+  __device__ __forceinline__ void operator()(int m2, float2 y) const {
+    const int hh = m1 + ha * m2;
+    if (hh < oh) {
+      obase[((int64_t)2 * p * oh + hh) * ow + col] = y.x * inv_h;
+      if (2 * p + 1 < ns) obase[((int64_t)(2 * p + 1) * oh + hh) * ow + col] = y.y * inv_h;
+    }
+  }
+};
+
+// Inverse step 3: for each (pair, j2, column), the conjugated A-point DFT
+// over j1 of V[j1 HB + j2] and the conjugate twiddle, in place.
+struct InvStep3 {
+  float2* s_z;
+  const float2* hfac;
+  int ha, hb, np, col, rg;
+  template <int A>
+  __device__ __forceinline__ void operator()(Int<A>) const {
+    const int h = A * hb;
+    float2 ra[nroots(A)];
+    roots_of<A>(hfac, ra);
+    for (int p = 0; p < np; ++p) {
+      const int base = 2 * p * (h / 2 + 1);
+#pragma unroll 1
+      for (int j2 = rg; j2 < hb; j2 += kHwRows) {
+        float2 v[A];
+#pragma unroll
+        for (int j1 = 0; j1 < A; ++j1) v[j1] = s_z[sw(vrow(base, h, j1 * hb + j2), col)];
+        dft_emit<A, true>(v, ra, InvStore3{s_z, hfac + A + hb, base, h, hb, j2, col});
+      }
+    }
+  }
+};
+
+// Inverse step 4: for each (pair, m1 < oh, column), the conjugated B-point
+// DFT over j2 of V[m1 B + j2] onto the output rows m1 + HA m2.
+struct InvStep4 {
+  float2* s_z;
+  const float2* hfac;
+  float* obase;
+  int ha, hb, np, ns, col, rg, oh, ow;
+  template <int B>
+  __device__ __forceinline__ void operator()(Int<B>) const {
+    const int h = ha * B;
+    const float inv_h = 1.f / h;
+    float2 rb[nroots(B)];
+    roots_of<B>(hfac + ha, rb);
+    for (int p = 0; p < np; ++p) {
+      const int base = 2 * p * (h / 2 + 1);
+#pragma unroll 1
+      for (int m1 = rg; m1 < ha && m1 < oh; m1 += kHwRows) {
+        float2 u[B];
+#pragma unroll
+        for (int j2 = 0; j2 < B; ++j2) u[j2] = s_z[sw(vrow(base, h, m1 * B + j2), col)];
+        dft_emit<B, true>(u, rb, InvStore4{obase, p, ha, m1, col, ns, oh, ow, inv_h});
+      }
+    }
+  }
+};
+
+// Factored hw_forward at the working length H = HA * HB (HT, or the
+// arguments ha, hb when HT = 0), grid (items * Cin, d / SB), for a signal of
+// h <= H rows (rows h to H - 1 are zeros). The SB slabs sit in SB / 2 pair
+// regions of two planes (px) of H + 2 rows: slab 2p in the "re" plane, slab
+// 2p + 1 in the "im" plane, so that a column of the two planes is the packed
+// complex column x_2p + i x_2p+1. Steps, each in place and ended by a
+// barrier: 0 the copies; 1 and 2 the H-point DFT of each packed column,
+// four-step, leaving bin k = m1 + HA m2 at row m1 HB + m2; 3 W step 1 fused
+// with the split of bins k and H - k into the two slabs' rows (X_2p[k] where
+// Z[k] was, X_2p+1[k] where Z[H - k] was, the four real rows of k = 0 and
+// H / 2 in rows 0, HB / 2, H and H + 1); 4 W step 2, each warp on 4 rows, the
+// bins put back in natural order and each row stored to T as one 512-byte
+// run.
+template <int HT, int SB, bool PK>
+__global__ void __launch_bounds__(kHwThreads, HT ? kHwBlocks : kHwBlocksAny)
+fused3d_hw_forward_f(const float* __restrict__ x,       // (B, Cin, d, h, w), or packed
                      const float2* __restrict__ hfac,   // H factors (HA + HB + HA * HB)
                      const float2* __restrict__ wfac,   // W factors (A + B + A * B)
                      float2* __restrict__ t,            // (items of this launch, Cin, d, H/2+1, 64)
-                     int cin, int d, int w, int ow, int nwb, int hop, int item0, int pp) {
-  constexpr int HA = HSplit<H>::A, HB = HSplit<H>::B, NBH = H / 2 + 1;
-  constexpr int PR = H + 2;               // rows of a plane: H bins, two spare rows
-  constexpr int PAIR = 2 * PR * kTW;      // floats of a pair region
-  static_assert(SB % 2 == 0 && HB % 2 == 0, "slab pairs, and bin H / 2 at row HB / 2");
+                     int cin, int d, int h, int w, int ow, int nwb, int hop, int item0, int pp,
+                     int ha, int hb) {
+  const int HA = HT ? HSplit<HT>::A : ha, HB = HT ? HSplit<HT>::B : hb;
+  const int H = HA * HB, NBH = H / 2 + 1;
+  const int PR = H + 2;               // rows of a plane: H bins, two spare rows
+  const int PAIR = 2 * PR * kTW;      // floats of a pair region
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* s_x = reinterpret_cast<float*>(smem_raw);
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, col = tid % kTW, rg = tid / kTW;
   const int it = blockIdx.x / cin, c = blockIdx.x % cin;
   const int d0 = blockIdx.y * SB, ns = min(SB, d - d0), np = (ns + 1) / 2;
 
-  // 0: the live pairs' slabs, H rows of 64 samples each, by 16-byte copies,
-  // all issued at once; zeros past w and past d. Slab s of the block at
-  // xs + soff(s) + hh * hs
+  // 0: the live pairs' slabs, h rows of 64 samples each, by 16-byte copies,
+  // all issued at once; zeros past w, past d and from row h on. Slab s of
+  // the block at xs + soff(s) + hh * hs
   const float* xs;
   int64_t hs;
   int start = 0;
   if (PK) {  // slab d of channel c in row c * pp + d / 2, lanes 64 (d % 2) + [0, 64)
-    xs = x + ((int64_t)(item0 + it) * H * cin + c) * pp * 2 * kTW + (int64_t)(d0 >> 1) * 2 * kTW;
+    xs = x + ((int64_t)(item0 + it) * h * cin + c) * pp * 2 * kTW + (int64_t)(d0 >> 1) * 2 * kTW;
     hs = (int64_t)cin * pp * 2 * kTW;
   } else {
     const Item g = item_geom(item0 + it, nwb, hop, w, ow);
-    xs = x + (((int64_t)g.b * cin + c) * d + d0) * H * w + g.start;
+    xs = x + (((int64_t)g.b * cin + c) * d + d0) * h * w + g.start;
     hs = w;
     start = g.start;
   }
-  for (int i = tid; i < 2 * np * H * 16; i += kHwThreads) {
-    const int q = i % 16, hh = (i / 16) % H, s = i / (16 * H);
-    float* dst = s_x + (s >> 1) * PAIR + (s & 1) * PR * kTW + px(hh, 4 * q);
-    const int64_t soff = PK ? (s >> 1) * 2 * kTW + (s & 1) * kTW : (int64_t)s * H * w;
-    const float* src = xs + soff + hh * hs + 4 * q;
-    const int col = start + 4 * q;
-    if (PK || (s < ns && col + 3 < w && (reinterpret_cast<uintptr_t>(src) & 15) == 0)) {
-      cp_async16(dst, src);  // B6 wrote the zeros past w and past d
-    } else {
+  {
+    const int q = tid % 16, col4 = start + 4 * q;
+    for (int s = 0; s < 2 * np; ++s) {
+      float* plane = s_x + (s >> 1) * PAIR + (s & 1) * PR * kTW;
+      const int64_t soff = PK ? (s >> 1) * 2 * kTW + (s & 1) * kTW : (int64_t)s * h * w;
+      for (int hh = tid / 16; hh < H; hh += kHwThreads / 16) {
+        float* dst = plane + px(hh, 4 * q);
+        const float* src = xs + soff + hh * hs + 4 * q;
+        if (hh >= h) {
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else if (PK || (s < ns && col4 + 3 < w && (reinterpret_cast<uintptr_t>(src) & 15) == 0)) {
+          cp_async16(dst, src);  // B6 wrote the zeros past w and past d
+        } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool in = s < ns && col + e < w;
-        cp_async4(dst + e, in ? src + e : x, in ? 4 : 0);
+          for (int e = 0; e < 4; ++e) {
+            const bool in = s < ns && col4 + e < w;
+            cp_async4(dst + e, in ? src + e : x, in ? 4 : 0);
+          }
+        }
       }
     }
   }
@@ -703,122 +1021,82 @@ fused3d_hw_forward_f(const float* __restrict__ x,       // (B, Cin, d, H, w), or
   __syncthreads();
 
   // 1: for each (pair, j2, column), the HA-point DFT over j1 of rows
-  // j1 HB + j2 and the twiddle, in place
-  {
-    float2 ra[HA / 2];
-    roots_of<HA>(hfac, ra);
-    for (int i = tid; i < np * HB * kTW; i += kHwThreads) {
-      const int col = i % kTW, j2 = (i / kTW) % HB;
-      float* re = s_x + (i / (kTW * HB)) * PAIR;
-      float* im = re + PR * kTW;
-      float2 v[HA];
-#pragma unroll
-      for (int j1 = 0; j1 < HA; ++j1) {
-        const int o = px(j1 * HB + j2, col);
-        v[j1] = make_float2(re[o], im[o]);
-      }
-      short_dft<HA, false>(v, ra);
-#pragma unroll
-      for (int m1 = 0; m1 < HA; ++m1) {
-        const float2 y = m1 == 0 ? v[0] : cmulw<false>(v[m1], __ldg(hfac + HA + HB + m1 * HB + j2));
-        const int o = px(m1 * HB + j2, col);
-        re[o] = y.x;
-        im[o] = y.y;
-      }
-    }
-  }
+  // j1 HB + j2 and the twiddle, in place; 2: for each (pair, m1, column), the
+  // HB-point DFT over j2 of rows m1 HB + j2; bin m1 + HA m2 stays at row
+  // m1 HB + m2
+  with_radix<HSplit<HT>::A, 2, 1>(HA, FwdStep1{s_x, hfac, HA, HB, PR, np, col, rg});
   __syncthreads();
-
-  // 2: for each (pair, m1, column), the HB-point DFT over j2 of rows
-  // m1 HB + j2; bin m1 + HA m2 stays at row m1 HB + m2
-  {
-    float2 rb[HB / 2];
-    roots_of<HB>(hfac + HA, rb);
-    for (int i = tid; i < np * HA * kTW; i += kHwThreads) {
-      const int col = i % kTW, m1 = (i / kTW) % HA;
-      float* re = s_x + (i / (kTW * HA)) * PAIR;
-      float* im = re + PR * kTW;
-      float2 u[HB];
-#pragma unroll
-      for (int j2 = 0; j2 < HB; ++j2) {
-        const int o = px(m1 * HB + j2, col);
-        u[j2] = make_float2(re[o], im[o]);
-      }
-      short_dft<HB, false>(u, rb);
-#pragma unroll
-      for (int m2 = 0; m2 < HB; ++m2) {
-        const int o = px(m1 * HB + m2, col);
-        re[o] = u[m2].x;
-        im[o] = u[m2].y;
-      }
-    }
-  }
+  with_radix<HSplit<HT>::B, 2, 2>(HB, FwdStep2{s_x, hfac, HA, HB, PR, np, col, rg});
   __syncthreads();
 
   float2 wa[kWA / 2];
   roots_of<kWA>(wfac, wa);
   const float2* wtw = wfac + kWA + kWB;
 
-  // 3: for each (pair, bin k < H / 2, j2), with k = m1 + HA m2 taken so that
-  // 4 neighbouring tasks hold 4 neighbouring rows: the split of Z[k] and
-  // Z[H - k] (for k = 0, Z[0] and Z[H / 2]) at columns j1 8 + j2, then W step 1
-  // on the slabs' rows, written back at columns m1 8 + j2
-  for (int i = tid; i < np * (H / 2) * kWB; i += kHwThreads) {
-    const int j2 = i % kWB, tk = (i / kWB) % (H / 2);
-    float* re = s_x + (i / (kWB * (H / 2))) * PAIR;
+  // 3: for each (pair, bin k < H / 2, j2), with k = m1 + HA m2 taken as
+  // m1 = tk / (HB / 2), m2 = tk % (HB / 2) so that neighbouring tasks tk hold
+  // neighbouring rows: the split of Z[k] and Z[H - k] (for k = 0, Z[0] and
+  // Z[H / 2]) at columns j1 8 + j2, then W step 1 on the slabs' rows, written
+  // back at columns m1 8 + j2
+  const int jw = tid % kWB;
+  for (int p = 0; p < np; ++p) {
+    float* re = s_x + p * PAIR;
     float* im = re + PR * kTW;
-    const int k = tk / (HB / 2) + HA * (tk % (HB / 2));
-    const int kp = k == 0 ? H / 2 : H - k;
-    const int r = (k % HA) * HB + k / HA, rp = (kp % HA) * HB + kp / HA;
-    float2 a[kWA], b[kWA], tw[kWA];
+    for (int tk = tid / kWB; tk < H / 2; tk += kHwThreads / kWB) {
+      const int m1 = tk / (HB / 2), m2 = tk % (HB / 2);
+      // the rows of bin k and of bin H - k (for k = 0, of bin H / 2)
+      const int r = m1 * HB + m2;
+      const int rp = m1 ? (HA - m1) * HB + HB - 1 - m2 : m2 ? HB - m2 : HB / 2;
+      float2 a[kWA], b[kWA], tw[kWA];
 #pragma unroll
-    for (int j1 = 0; j1 < kWA; ++j1) {
-      const int o = px(r, j1 * kWB + j2), op = px(rp, j1 * kWB + j2);
-      a[j1] = make_float2(re[o], im[o]);
-      b[j1] = make_float2(re[op], im[op]);
-      tw[j1] = __ldg(wtw + j1 * kWB + j2);  // tw[m1, j2], used at m1 = j1
-    }
-    if (k != 0) {
-#pragma unroll
-      for (int j1 = 0; j1 < kWA; ++j1) split_bins(a[j1], b[j1]);
-      short_dft<kWA, false>(a, wa);
-      short_dft<kWA, false>(b, wa);
-#pragma unroll
-      for (int m1 = 0; m1 < kWA; ++m1) {
-        const float2 ya = m1 == 0 ? a[0] : cmulw<false>(a[m1], tw[m1]);
-        const float2 yb = m1 == 0 ? b[0] : cmulw<false>(b[m1], tw[m1]);
-        const int o = px(r, m1 * kWB + j2), op = px(rp, m1 * kWB + j2);
-        re[o] = ya.x;
-        im[o] = ya.y;
-        re[op] = yb.x;
-        im[op] = yb.y;
+      for (int j1 = 0; j1 < kWA; ++j1) {
+        const int o = px(r, j1 * kWB + jw), op = px(rp, j1 * kWB + jw);
+        a[j1] = make_float2(re[o], im[o]);
+        b[j1] = make_float2(re[op], im[op]);
+        tw[j1] = __ldg(wtw + j1 * kWB + jw);  // tw[m1, j2], used at m1 = j1
       }
-    } else {
-      // Z[0] and Z[H / 2] pack two real rows each (X_2p + i X_2p+1): the
-      // 8-point DFT of a packed row splits into those of its two real rows,
-      // Hermitian in m1; X_2p+1[0] goes to row H, X_2p+1[H / 2] to row H + 1
-      short_dft<kWA, false>(a, wa);
-      short_dft<kWA, false>(b, wa);
+      if (tk != 0) {
 #pragma unroll
-      for (int m1 = 0; m1 < kWA; ++m1) {
-        float2 p0 = a[m1], q0 = a[(kWA - m1) % kWA], p1 = b[m1], q1 = b[(kWA - m1) % kWA];
-        split_bins(p0, q0);
-        split_bins(p1, q1);
-        if (m1 != 0) {
-          p0 = cmulw<false>(p0, tw[m1]);
-          q0 = cmulw<false>(q0, tw[m1]);
-          p1 = cmulw<false>(p1, tw[m1]);
-          q1 = cmulw<false>(q1, tw[m1]);
+        for (int j1 = 0; j1 < kWA; ++j1) split_bins(a[j1], b[j1]);
+        short_dft<kWA, false>(a, wa);
+        short_dft<kWA, false>(b, wa);
+#pragma unroll
+        for (int m = 0; m < kWA; ++m) {
+          const float2 ya = m == 0 ? a[0] : cmulw<false>(a[m], tw[m]);
+          const float2 yb = m == 0 ? b[0] : cmulw<false>(b[m], tw[m]);
+          const int o = px(r, m * kWB + jw), op = px(rp, m * kWB + jw);
+          re[o] = ya.x;
+          im[o] = ya.y;
+          re[op] = yb.x;
+          im[op] = yb.y;
         }
-        const int col = m1 * kWB + j2;
-        re[px(r, col)] = p0.x;
-        im[px(r, col)] = p0.y;
-        re[px(H, col)] = q0.x;
-        im[px(H, col)] = q0.y;
-        re[px(rp, col)] = p1.x;
-        im[px(rp, col)] = p1.y;
-        re[px(H + 1, col)] = q1.x;
-        im[px(H + 1, col)] = q1.y;
+      } else {
+        // Z[0] and Z[H / 2] pack two real rows each (X_2p + i X_2p+1): the
+        // 8-point DFT of a packed row splits into those of its two real rows,
+        // Hermitian in m; X_2p+1[0] goes to row H, X_2p+1[H / 2] to row H + 1
+        short_dft<kWA, false>(a, wa);
+        short_dft<kWA, false>(b, wa);
+#pragma unroll
+        for (int m = 0; m < kWA; ++m) {
+          float2 p0 = a[m], q0 = a[(kWA - m) % kWA], p1 = b[m], q1 = b[(kWA - m) % kWA];
+          split_bins(p0, q0);
+          split_bins(p1, q1);
+          if (m != 0) {
+            p0 = cmulw<false>(p0, tw[m]);
+            q0 = cmulw<false>(q0, tw[m]);
+            p1 = cmulw<false>(p1, tw[m]);
+            q1 = cmulw<false>(q1, tw[m]);
+          }
+          const int cc = m * kWB + jw;
+          re[px(r, cc)] = p0.x;
+          im[px(r, cc)] = p0.y;
+          re[px(H, cc)] = q0.x;
+          im[px(H, cc)] = q0.y;
+          re[px(rp, cc)] = p1.x;
+          im[px(rp, cc)] = p1.y;
+          re[px(H + 1, cc)] = q1.x;
+          im[px(H + 1, cc)] = q1.y;
+        }
       }
     }
   }
@@ -832,81 +1110,80 @@ fused3d_hw_forward_f(const float* __restrict__ x,       // (B, Cin, d, H, w), or
   roots_of<kWB>(wfac + kWA, wb);
   float2* tout = t + ((int64_t)blockIdx.x * d + d0) * NBH * kTW;
   const int lane = tid % 32, m1 = ((lane >> 3) << 1) | (lane & 1), rl = (lane >> 1) & 3;
-  const int nr = np * PR;
-  for (int r0 = 4 * (tid / 32); r0 < nr; r0 += 4 * (kHwThreads / 32)) {
-    const int row = r0 + rl;
-    float* re = s_x + (row / PR) * PAIR;
+  for (int p = 0; p < np; ++p) {
+    float* re = s_x + p * PAIR;
     float* im = re + PR * kTW;
-    const int r = row % PR;
-    float2 u[kWB];
-    if (row < nr) {
-      const float4 a0 = *reinterpret_cast<const float4*>(re + px(r, m1 * kWB));
-      const float4 a1 = *reinterpret_cast<const float4*>(re + px(r, m1 * kWB + 4));
-      const float4 b0 = *reinterpret_cast<const float4*>(im + px(r, m1 * kWB));
-      const float4 b1 = *reinterpret_cast<const float4*>(im + px(r, m1 * kWB + 4));
-      u[0] = make_float2(a0.x, b0.x);
-      u[1] = make_float2(a0.y, b0.y);
-      u[2] = make_float2(a0.z, b0.z);
-      u[3] = make_float2(a0.w, b0.w);
-      u[4] = make_float2(a1.x, b1.x);
-      u[5] = make_float2(a1.y, b1.y);
-      u[6] = make_float2(a1.z, b1.z);
-      u[7] = make_float2(a1.w, b1.w);
-      short_dft<kWB, false>(u, wb);
-    }
-    __syncwarp();  // the warp's rows are its own: every read of them is done
-    if (row < nr) {
-#pragma unroll
-      for (int m2 = 0; m2 < kWB; ++m2) {
-        const int o = px(r, m1 + kWA * m2);
-        re[o] = u[m2].x;
-        im[o] = u[m2].y;
+    for (int r0 = 4 * (tid / 32); r0 < PR; r0 += 4 * (kHwThreads / 32)) {
+      const int r = r0 + rl;
+      float2 u[kWB];
+      if (r < PR) {
+        const float4 a0 = *reinterpret_cast<const float4*>(re + px(r, m1 * kWB));
+        const float4 a1 = *reinterpret_cast<const float4*>(re + px(r, m1 * kWB + 4));
+        const float4 b0 = *reinterpret_cast<const float4*>(im + px(r, m1 * kWB));
+        const float4 b1 = *reinterpret_cast<const float4*>(im + px(r, m1 * kWB + 4));
+        u[0] = make_float2(a0.x, b0.x);
+        u[1] = make_float2(a0.y, b0.y);
+        u[2] = make_float2(a0.z, b0.z);
+        u[3] = make_float2(a0.w, b0.w);
+        u[4] = make_float2(a1.x, b1.x);
+        u[5] = make_float2(a1.y, b1.y);
+        u[6] = make_float2(a1.z, b1.z);
+        u[7] = make_float2(a1.w, b1.w);
+        short_dft<kWB, false>(u, wb);
       }
-    }
-    __syncwarp();
+      __syncwarp();  // the warp's rows are its own: every read of them is done
+      if (r < PR) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int rq = r0 + q, pq = rq / PR, r2 = rq % PR;
-      // the slab and one-sided bin of plane row r2 (see step 3)
-      const int kz = r2 / HB + HA * (r2 % HB);
-      const int s = 2 * pq + (r2 >= H || kz > H / 2);
-      const int kk = r2 == H ? 0 : r2 == H + 1 ? H / 2 : kz > H / 2 ? H - kz : kz;
-      if (rq < nr && s < ns) {
-        const float* req = s_x + pq * PAIR;
-        const float2 vr = *reinterpret_cast<const float2*>(req + px(r2, 2 * lane));
-        const float2 vi = *reinterpret_cast<const float2*>(req + PR * kTW + px(r2, 2 * lane));
-        *reinterpret_cast<float4*>(tout + ((int64_t)s * NBH + kk) * kTW + 2 * lane) =
-            make_float4(vr.x, vi.x, vr.y, vi.y);
+        for (int m2 = 0; m2 < kWB; ++m2) {
+          const int o = px(r, m1 + kWA * m2);
+          re[o] = u[m2].x;
+          im[o] = u[m2].y;
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r2 = r0 + q;
+        // the slab and one-sided bin of plane row r2 (see step 3)
+        const int kz = r2 / HB + HA * (r2 % HB);
+        const int s = 2 * p + (r2 >= H || kz > H / 2);
+        const int kk = r2 == H ? 0 : r2 == H + 1 ? H / 2 : kz > H / 2 ? H - kz : kz;
+        if (r2 < PR && s < ns) {
+          const float2 vr = *reinterpret_cast<const float2*>(re + px(r2, 2 * lane));
+          const float2 vi = *reinterpret_cast<const float2*>(im + px(r2, 2 * lane));
+          *reinterpret_cast<float4*>(tout + ((int64_t)s * NBH + kk) * kTW + 2 * lane) =
+              make_float4(vr.x, vi.x, vr.y, vi.y);
+        }
       }
     }
   }
 }
 
-// Factored hw_inverse for H = 16, 32, 64, 128, grid (items * Cout, od / SB).
-// Steps, each ended by a barrier: 0 the block's contiguous run of Z by 8-byte
-// copies into the swizzled rows (sw); 1 W step 1, as in the dense kernel; 2 W
-// step 2 on the rows k of both slabs of a pair at once (for k = 0 also their
-// rows H / 2), 1/64 applied, then the pair's Hermitian-extended column
-// V = E_2p + i E_2p+1 written in place: V[k] at row k of slab 2p, V[H - k] at
-// row k of slab 2p + 1 (V[0] and V[H / 2] real in each part, as the dense
-// irfft weights DC and Nyquist); 3 and 4 the conjugated H-point DFT of each
-// column of V, four-step, whose real and imaginary parts are the two slabs'
-// output rows; rows below oh and the block's columns [lo, hi) are stored,
-// 1/H applied.
-template <int H, int SB>
-__global__ void __launch_bounds__(kHwThreads, kHwBlocks)
+// Factored hw_inverse at the working length H = HA * HB (HT, or ha, hb when
+// HT = 0), grid (items * Cout, od / SB). Steps, each ended by a barrier: 0
+// the block's contiguous run of Z by 8-byte copies into the swizzled rows
+// (sw); 1 W step 1, as in the dense kernel; 2 W step 2 on the rows k of both
+// slabs of a pair at once (for k = 0 also their rows H / 2), 1/64 applied,
+// then the pair's Hermitian-extended column V = E_2p + i E_2p+1 written in
+// place: V[k] at row k of slab 2p, V[H - k] at row k of slab 2p + 1 (V[0] and
+// V[H / 2] real in each part, as the dense irfft weights DC and Nyquist); 3
+// and 4 the conjugated H-point DFT of each column of V, four-step, whose real
+// and imaginary parts are the two slabs' output rows; rows below oh and the
+// block's columns [lo, hi) are stored, 1/H applied.
+template <int HT, int SB>
+__global__ void __launch_bounds__(kHwThreads, HT ? kHwBlocks : kHwBlocksAny)
 fused3d_hw_inverse_f(const float2* __restrict__ z,     // (items of launch, Cout, od, H/2+1, 64)
                      const float2* __restrict__ hfac,  // H factors (HA + HB + HA * HB)
                      const float2* __restrict__ wfac,  // W factors (A + B + A * B)
                      float* __restrict__ out,          // (B, Cout, od, oh, ow)
-                     int cout, int w, int od, int oh, int ow, int nwb, int hop, int item0) {
-  constexpr int HA = HSplit<H>::A, HB = HSplit<H>::B, NBH = H / 2 + 1, NPOS = NBH * kTW;
+                     int cout, int w, int od, int oh, int ow, int nwb, int hop, int item0,
+                     int ha, int hb) {
+  const int HA = HT ? HSplit<HT>::A : ha, HB = HT ? HSplit<HT>::B : hb;
+  const int H = HA * HB, NBH = H / 2 + 1, NPOS = NBH * kTW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* s_z = reinterpret_cast<float2*>(smem_raw);  // (SB * NBH, 64) rows (sw)
 
-  const int tid = threadIdx.x;
-  const int it = blockIdx.x / cout, o = blockIdx.x % cout;
-  const Item g = item_geom(item0 + it, nwb, hop, w, ow);
+  const int tid = threadIdx.x, col = tid % kTW, rg = tid / kTW;
   const int d0 = blockIdx.y * SB, ns = min(SB, od - d0), np = (ns + 1) / 2;
 
   // 0: the live pairs' slabs, contiguous in Z; zeros past od
@@ -925,99 +1202,73 @@ fused3d_hw_inverse_f(const float2* __restrict__ z,     // (items of launch, Cout
 
   // 2: W step 2 on (pair, k < H / 2, m1), 8 lanes of one warp a task; each
   // task reads its rows, then writes them back in place
-  const int ntask = np * (H / 2) * kWA;
-  for (int i0 = 0; i0 < ntask; i0 += kHwThreads) {
-    const int i = i0 + tid, m1 = i % kWA, k = (i / kWA) % (H / 2);
-    const int ra = (i / (kWA * (H / 2))) * 2 * NBH + k, rb = ra + NBH;
-    // V[k] and V[H - k]; for k = 0, V[0] and V[H / 2]
-    const int r2 = k == 0 ? ra + H / 2 : rb;
-    float2 u[kWB], v[kWB];
-    if (i < ntask) {
+  {
+    const int m1 = tid % kWA;
+    for (int p = 0; p < np; ++p) {
+      for (int k0 = 0; k0 < H / 2; k0 += kHwThreads / kWA) {
+        const int k = k0 + tid / kWA;
+        const bool live = k < H / 2;
+        const int ra = 2 * p * NBH + k, rb = ra + NBH;
+        // V[k] and V[H - k]; for k = 0, V[0] and V[H / 2]
+        const int r2 = k == 0 ? ra + H / 2 : rb;
+        float2 u[kWB], v[kWB];
+        if (live) {
 #pragma unroll
-      for (int j2 = 0; j2 < kWB; ++j2) {
-        u[j2] = s_z[sw(ra, m1 * kWB + j2)];
-        v[j2] = s_z[sw(rb, m1 * kWB + j2)];
-      }
-      short_dft<kWB, true>(u, wb);
-      short_dft<kWB, true>(v, wb);
-      if (k != 0) {
+          for (int j2 = 0; j2 < kWB; ++j2) {
+            u[j2] = s_z[sw(ra, m1 * kWB + j2)];
+            v[j2] = s_z[sw(rb, m1 * kWB + j2)];
+          }
+          short_dft<kWB, true>(u, wb);
+          short_dft<kWB, true>(v, wb);
+          if (k != 0) {
 #pragma unroll
-        for (int m2 = 0; m2 < kWB; ++m2) {
-          const float2 e = u[m2], f = v[m2];
-          u[m2] = make_float2(e.x - f.y, e.y + f.x);  // E_2p + i E_2p+1
-          v[m2] = make_float2(e.x + f.y, f.x - e.y);  // conj E_2p + i conj E_2p+1
+            for (int m2 = 0; m2 < kWB; ++m2) {
+              const float2 e = u[m2], f = v[m2];
+              u[m2] = make_float2(e.x - f.y, e.y + f.x);  // E_2p + i E_2p+1
+              v[m2] = make_float2(e.x + f.y, f.x - e.y);  // conj E_2p + i conj E_2p+1
+            }
+          } else {
+            float2 e[kWB];
+#pragma unroll
+            for (int j2 = 0; j2 < kWB; ++j2) {
+              u[j2] = make_float2(u[j2].x, v[j2].x);
+              v[j2] = s_z[sw(ra + H / 2, m1 * kWB + j2)];
+              e[j2] = s_z[sw(rb + H / 2, m1 * kWB + j2)];
+            }
+            short_dft<kWB, true>(v, wb);
+            short_dft<kWB, true>(e, wb);
+#pragma unroll
+            for (int m2 = 0; m2 < kWB; ++m2) v[m2] = make_float2(v[m2].x, e[m2].x);
+          }
         }
-      } else {
-        float2 e[kWB];
+        __syncwarp();  // a task's 8 lanes have read its rows
+        if (live) {
 #pragma unroll
-        for (int j2 = 0; j2 < kWB; ++j2) {
-          u[j2] = make_float2(u[j2].x, v[j2].x);
-          v[j2] = s_z[sw(ra + H / 2, m1 * kWB + j2)];
-          e[j2] = s_z[sw(rb + H / 2, m1 * kWB + j2)];
+          for (int m2 = 0; m2 < kWB; ++m2) {
+            const int cc = m1 + kWA * m2;
+            s_z[sw(ra, cc)] = make_float2(u[m2].x * (1.f / kTW), u[m2].y * (1.f / kTW));
+            s_z[sw(r2, cc)] = make_float2(v[m2].x * (1.f / kTW), v[m2].y * (1.f / kTW));
+          }
         }
-        short_dft<kWB, true>(v, wb);
-        short_dft<kWB, true>(e, wb);
-#pragma unroll
-        for (int m2 = 0; m2 < kWB; ++m2) v[m2] = make_float2(v[m2].x, e[m2].x);
-      }
-    }
-    __syncwarp();  // a task's 8 lanes have read its rows
-    if (i < ntask) {
-#pragma unroll
-      for (int m2 = 0; m2 < kWB; ++m2) {
-        const int col = m1 + kWA * m2;
-        s_z[sw(ra, col)] = make_float2(u[m2].x * (1.f / kTW), u[m2].y * (1.f / kTW));
-        s_z[sw(r2, col)] = make_float2(v[m2].x * (1.f / kTW), v[m2].y * (1.f / kTW));
       }
     }
   }
   __syncthreads();
 
   // 3: for each (pair, j2, column), the conjugated HA-point DFT over j1 of
-  // V[j1 HB + j2] and the conjugate twiddle, in place. V[j] of pair p is at
-  // row 2 p NBH + j for j <= H / 2, else at 2 p NBH + NBH + H - j
-  auto vrow = [](int p, int j) { return 2 * p * NBH + (j <= H / 2 ? j : NBH + H - j); };
-  {
-    float2 ra[HA / 2];
-    roots_of<HA>(hfac, ra);
-    for (int i = tid; i < np * HB * kTW; i += kHwThreads) {
-      const int col = i % kTW, j2 = (i / kTW) % HB, p = i / (kTW * HB);
-      float2 v[HA];
-#pragma unroll
-      for (int j1 = 0; j1 < HA; ++j1) v[j1] = s_z[sw(vrow(p, j1 * HB + j2), col)];
-      short_dft<HA, true>(v, ra);
-#pragma unroll
-      for (int m1 = 0; m1 < HA; ++m1)
-        s_z[sw(vrow(p, m1 * HB + j2), col)] =
-            m1 == 0 ? v[0] : cmulw<true>(v[m1], __ldg(hfac + HA + HB + m1 * HB + j2));
-    }
-  }
+  // V[j1 HB + j2] and the conjugate twiddle, in place; 4: for each (pair,
+  // m1, column), the conjugated HB-point DFT over j2 onto the rows
+  // h = m1 + HA m2, Re to slab 2p and Im to slab 2p + 1, 1/H applied
+  with_radix<HSplit<HT>::A, 2, 1>(HA, InvStep3{s_z, hfac, HA, HB, np, col, rg});
   __syncthreads();
-
-  // 4: for each (pair, m1, column), the conjugated HB-point DFT over j2 onto
-  // the rows h = m1 + HA m2; Re to slab 2p, Im to slab 2p + 1
-  {
-    float2 rb[HB / 2];
-    roots_of<HB>(hfac + HA, rb);
-    float* obase = out + (((int64_t)g.b * cout + o) * od + d0) * oh * ow + g.start;
-    for (int i = tid; i < np * HA * kTW; i += kHwThreads) {
-      const int col = i % kTW, m1 = (i / kTW) % HA, p = i / (kTW * HA);
-      if (col < g.lo || col >= g.hi || m1 >= oh) continue;
-      float2 u[HB];
-#pragma unroll
-      for (int j2 = 0; j2 < HB; ++j2) u[j2] = s_z[sw(vrow(p, m1 * HB + j2), col)];
-      short_dft<HB, true>(u, rb);
-#pragma unroll
-      for (int m2 = 0; m2 < HB; ++m2) {
-        const int hh = m1 + HA * m2;
-        if (hh < oh) {
-          obase[((int64_t)2 * p * oh + hh) * ow + col] = u[m2].x * (1.f / H);
-          if (2 * p + 1 < ns)
-            obase[((int64_t)(2 * p + 1) * oh + hh) * ow + col] = u[m2].y * (1.f / H);
-        }
-      }
-    }
-  }
+  // the item's geometry only now, so that no register holds it through the
+  // steps above
+  const int it = blockIdx.x / cout, o = blockIdx.x % cout;
+  const Item g = item_geom(item0 + it, nwb, hop, w, ow);
+  if (col >= g.lo && col < g.hi)
+    with_radix<HSplit<HT>::B, 2, 2>(
+        HB, InvStep4{s_z, hfac, out + (((int64_t)g.b * cout + o) * od + d0) * oh * ow + g.start,
+                     HA, HB, np, ns, col, rg, oh, ow});
 }
 
 // ---- The D stages: B3's DFT-16, MAC and inverse in one kernel; B4's tap MAC --
@@ -1308,7 +1559,9 @@ struct Args {
   float2 *t, *z;
   float* out;
   int cin, cout, groups, d, h, w, od, oh, ow, nbd, kd, nwb, hop, item0, nitem;
-  int pp;  // > 0: x is B6's packed layout with pp d-pairs (B3 only)
+  int pp;      // > 0: x is B6's packed layout with pp d-pairs (B3 only)
+  int ha, hb;  // the factored H/W kernels' split of hw, or 0, 0: the dense ones
+  int hw;      // the H transforms' working length: ha * hb, or h (dense)
   cudaStream_t stream;
 };
 
@@ -1346,36 +1599,44 @@ cudaError_t allow_smem(K* kernel, size_t smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int H, bool PK>
+// The factored H/W kernels at the working length a.hw: kSBF slabs of
+// hw / 2 + 1 rows a block, as many blocks an SM as that shared memory allows
+// (3 up to hw = 144, 2 up to 222, 1 up to 256).
+template <int HT, bool PK>
 cudaError_t launch_hw_forward_f(const Args& a) {
-  const auto kernel = fused3d_hw_forward_f<H, kSBF, PK>;
-  const size_t smem = Cfg<kSBF>::smem(H / 2 + 1);
+  const auto kernel = fused3d_hw_forward_f<HT, kSBF, PK>;
+  const size_t smem = Cfg<kSBF>::smem(a.hw / 2 + 1);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.nitem * a.cin, (a.d + kSBF - 1) / kSBF), kHwThreads, smem, a.stream>>>(
-      a.x, a.hfac, a.wfac, a.t, a.cin, a.d, a.w, a.ow, a.nwb, a.hop, a.item0, a.pp);
+      a.x, a.hfac, a.wfac, a.t, a.cin, a.d, a.h, a.w, a.ow, a.nwb, a.hop, a.item0, a.pp, a.ha,
+      a.hb);
   return cudaGetLastError();
 }
 
-template <int H>
+template <int HT>
 cudaError_t launch_hw_inverse_f(const Args& a) {
-  const auto kernel = fused3d_hw_inverse_f<H, kSBF>;
-  const size_t smem = Cfg<kSBF>::smem(H / 2 + 1);
+  const auto kernel = fused3d_hw_inverse_f<HT, kSBF>;
+  const size_t smem = Cfg<kSBF>::smem(a.hw / 2 + 1);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.nitem * a.cout, (a.od + kSBF - 1) / kSBF), kHwThreads, smem, a.stream>>>(
-      a.z, a.hfac, a.wfac, a.out, a.cout, a.w, a.od, a.oh, a.ow, a.nwb, a.hop, a.item0);
+      a.z, a.hfac, a.wfac, a.out, a.cout, a.w, a.od, a.oh, a.ow, a.nwb, a.hop, a.item0, a.ha,
+      a.hb);
   return cudaGetLastError();
 }
 
-template <int H>
+template <int HT>
 cudaError_t launch_hw_f(const Args& a, bool forward) {
-  if (!forward) return launch_hw_inverse_f<H>(a);
-  return a.pp > 0 ? launch_hw_forward_f<H, true>(a) : launch_hw_forward_f<H, false>(a);
+  if (!forward) return launch_hw_inverse_f<HT>(a);
+  return a.pp > 0 ? launch_hw_forward_f<HT, true>(a) : launch_hw_forward_f<HT, false>(a);
 }
 
-// Whether H takes the factored H/W kernels (fused3d.py: _H_SPLITS).
-bool factored_h(int h) { return h == 16 || h == 32 || h == 64 || h == 128; }
+// Whether a.ha, a.hb is the split the kernels built for HT run.
+template <int HT>
+bool split_is(const Args& a) {
+  return a.ha == HSplit<HT>::A && a.hb == HSplit<HT>::B;
+}
 
 // The most output channels of {8, 4, 2, 1}, at most MOST, that divide a
 // group's opg, and the launch of the D kernel at that count (only those
@@ -1400,7 +1661,7 @@ cudaError_t launch_opb(const Args& a) {
 template <int OPB>
 struct LaunchDMac {
   static cudaError_t run(const Args& a) {
-    const int npos = (a.h / 2 + 1) * kTW, cpg = a.cin / a.groups;
+    const int npos = (a.hw / 2 + 1) * kTW, cpg = a.cin / a.groups;
     const int warps = std::min(a.nitem * a.nbd, kDWarps);
     const int per_channel = OPB * kDB * kDBins * (int)sizeof(float2);
     const int cc = std::min(cpg, std::max(1, kStageBytes / per_channel));
@@ -1408,7 +1669,7 @@ struct LaunchDMac {
     cudaError_t err = allow_smem(fused3d_d_mac<OPB>, smem);
     if (err != cudaSuccess) return err;
     fused3d_d_mac<OPB><<<dim3(npos / kDBins, a.cout / OPB), 32 * warps, smem, a.stream>>>(
-        a.t, a.ks, a.dfac, a.z, a.cin, a.cout, a.groups, a.d, a.h / 2 + 1, a.nbd, a.od, a.nitem,
+        a.t, a.ks, a.dfac, a.z, a.cin, a.cout, a.groups, a.d, a.hw / 2 + 1, a.nbd, a.od, a.nitem,
         cc);
     return cudaGetLastError();
   }
@@ -1420,7 +1681,7 @@ struct LaunchDMac {
 template <int OPB>
 struct LaunchTapMac {
   static cudaError_t run(const Args& a) {
-    const int npos = (a.h / 2 + 1) * kTW, nent = a.cin / a.groups * a.kd;
+    const int npos = (a.hw / 2 + 1) * kTW, nent = a.cin / a.groups * a.kd;
     const int npair = a.nitem * ((a.od + kTapDC - 1) / kTapDC), per_warp = 32 / kTapBins;
     const int lanes =
         std::min((npair + per_warp - 1) / per_warp * per_warp, kTapThreads / kTapBins);
@@ -1430,18 +1691,23 @@ struct LaunchTapMac {
     cudaError_t err = allow_smem(fused3d_tap_mac<OPB>, smem);
     if (err != cudaSuccess) return err;
     fused3d_tap_mac<OPB><<<dim3(npos / kTapBins, a.cout / OPB), lanes * kTapBins, smem,
-                           a.stream>>>(a.t, a.ks, a.z, a.cin, a.cout, a.groups, a.d, a.h / 2 + 1,
+                           a.stream>>>(a.t, a.ks, a.z, a.cin, a.cout, a.groups, a.d, a.hw / 2 + 1,
                                        a.kd, a.od, a.nitem, ce);
     return cudaGetLastError();
   }
 };
 
 // The checks both chains need: channels and groups, the valid box, the W
-// blocks, the item range, the H factors of the H/W kernels that run (sb,
-// the plan's slab count, names the dense ones) and the grid limits.
+// blocks, the item range, the H factors of the H/W kernels that run (a split
+// of radices 2 to 16, HB even, of a working length hw >= h, with hfac; or
+// the dense ones, fh and ch, at the plan's slab count sb) and the grid
+// limits.
 bool hw_args_ok(const Args& a, int sb) {
-  const bool fac = factored_h(a.h);
-  if (fac ? a.hfac == nullptr : (a.fh == nullptr || a.ch == nullptr)) return false;
+  const bool fac = a.ha != 0 || a.hb != 0;
+  if (fac ? (a.hfac == nullptr || a.ha < 2 || a.ha > kMaxRadix || a.hb < 2 ||
+             a.hb > kMaxRadix || a.hb % 2 != 0 || a.hw < a.h)
+          : (a.fh == nullptr || a.ch == nullptr))
+    return false;
   if (fac && sb != 0) sb = kSBF;
   return sb != 0 && a.groups >= 1 && a.cin % a.groups == 0 && a.cout % a.groups == 0 &&
          a.d >= 1 && a.od >= 1 && a.od <= a.d && a.oh >= 1 && a.oh <= a.h && a.ow >= 1 &&
@@ -1455,27 +1721,24 @@ cudaError_t launch_hw(const Args& a, bool forward) {
   return a.pp > 0 ? launch_hw_forward<SB, true>(a) : launch_hw_forward<SB, false>(a);
 }
 
-// The H/W kernels of one direction: the factored ones for H = 16, 32, 64,
-// 128, else the dense ones at the plan's slab count sb.
+// The H/W kernels of one direction: the factored ones when the host hands a
+// split (those built for its H where it is one of the four constant splits,
+// else those that take it as arguments), else the dense ones at the plan's
+// slab count sb.
 cudaError_t launch_hw_sb(const Args& a, int sb, bool forward) {
-  switch (a.h) {
-    case 16:
-      return launch_hw_f<16>(a, forward);
-    case 32:
-      return launch_hw_f<32>(a, forward);
-    case 64:
-      return launch_hw_f<64>(a, forward);
-    case 128:
-      return launch_hw_f<128>(a, forward);
-    default:
-      return sb == 4 ? launch_hw<4>(a, forward) : sb == 2 ? launch_hw<2>(a, forward)
-                                                          : launch_hw<1>(a, forward);
-  }
+  if (a.ha == 0)
+    return sb == 4 ? launch_hw<4>(a, forward) : sb == 2 ? launch_hw<2>(a, forward)
+                                                        : launch_hw<1>(a, forward);
+  if (split_is<16>(a)) return launch_hw_f<16>(a, forward);
+  if (split_is<32>(a)) return launch_hw_f<32>(a, forward);
+  if (split_is<64>(a)) return launch_hw_f<64>(a, forward);
+  if (split_is<128>(a)) return launch_hw_f<128>(a, forward);
+  return launch_hw_f<0>(a, forward);
 }
 
 // B3: hw_forward, d_mac, hw_inverse
 cudaError_t launch(const Args& a) {
-  const int sb = slabs_per_block(a.h / 2 + 1);
+  const int sb = slabs_per_block(a.hw / 2 + 1);
   if (!hw_args_ok(a, sb) || a.dfac == nullptr || a.nbd < 1 || kDHop * a.nbd < a.od ||
       kDHop * (a.nbd - 1) >= a.od || a.pp < 0 || (a.pp > 0 && 2 * a.pp < a.d))
     return cudaErrorInvalidValue;
@@ -1489,7 +1752,7 @@ cudaError_t launch(const Args& a) {
 
 // B4: hw_forward, tap_mac, hw_inverse
 cudaError_t launch_tap(const Args& a) {
-  const int sb = slabs_per_block(a.h / 2 + 1);
+  const int sb = slabs_per_block(a.hw / 2 + 1);
   if (!hw_args_ok(a, sb) || a.kd < 1 || a.od != a.d - a.kd + 1) return cudaErrorInvalidValue;
 
   cudaError_t err = launch_hw_sb(a, sb, true);
@@ -1502,25 +1765,28 @@ cudaError_t launch_tap(const Args& a) {
 }  // namespace
 
 // Runs items [item0, item0 + nitem) (item = batch index * nwb + W block) of
-// one convolution through B3, the v4 chain. x (B, Cin, d, h, w) f32, or with
-// pp > 0 B6's packed layout (B * nwb, h, Cin * pp, 128) f32; ks (Cout,
-// Cin/groups, 16, h/2+1, 64); wfac the W factors, 8 + 8 + 64 complex
-// (fused3d.py: _w_factors), which hw_forward reads as they are and
-// hw_inverse conjugated; for h = 16, 32, 64, 128 hfac the H factors, HA + HB
-// + HA * HB complex (fused3d.py: _device_mats), read alike, and fh, ch
-// unused (may be null); for any other h fh (h/2+1, h) and ch (oh, h/2+1), and
-// hfac unused (may be null); dfac the DFT-16 factors, 4 + 4 + 16 complex
-// (fused3d.py: _factor_vector of _D_SPLIT, 16-byte aligned like ks); scratch
-// t (nitem, Cin, d, h/2+1, 64) and z (nitem, Cout, od, h/2+1, 64), nbd = ceil(od
-// / 8); out (B, Cout, od, oh, ow) f32. Complex arrays are interleaved (re,
-// im) float pairs. W blocks start at min(i * hop, max(w - 64, 0)); with nwb
-// = 1, hop is ow. Returns cudaGetLastError() after the three launches (0 when
-// all were accepted).
+// one convolution through B3, the v4 chain. The H transforms run at the
+// working length hw = ha * hb >= h (fused3d.py: _h_work) on the factored H/W
+// kernels, or, with ha = hb = 0, at hw = h on the dense ones. x (B, Cin, d,
+// h, w) f32, or with pp > 0 B6's packed layout (B * nwb, h, Cin * pp, 128)
+// f32; ks (Cout, Cin/groups, 16, hw/2+1, 64); wfac the W factors, 8 + 8 + 64
+// complex (fused3d.py: _w_factors), which hw_forward reads as they are and
+// hw_inverse conjugated; factored: hfac the H factors, ha + hb + ha * hb
+// complex (fused3d.py: _device_mats), read alike, and fh, ch unused (may be
+// null); dense: fh (h/2+1, h) and ch (oh, h/2+1), and hfac unused (may be
+// null); dfac the DFT-16 factors, 4 + 4 + 16 complex (fused3d.py:
+// _factor_vector of _D_SPLIT, 16-byte aligned like ks); scratch t (nitem,
+// Cin, d, hw/2+1, 64) and z (nitem, Cout, od, hw/2+1, 64), nbd = ceil(od /
+// 8); out (B, Cout, od, oh, ow) f32. Complex arrays are interleaved (re, im)
+// float pairs. W blocks start at min(i * hop, max(w - 64, 0)); with nwb = 1,
+// hop is ow. Returns cudaGetLastError() after the three launches (0 when all
+// were accepted).
 extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, const void* wfac,
                                const void* hfac, const void* dfac, const void* ch, void* t,
                                void* z, void* out, int cin, int cout,
                                int groups, int d, int h, int w, int od, int oh, int ow, int nbd,
-                               int nwb, int hop, int item0, int nitem, int pp, void* stream) {
+                               int nwb, int hop, int item0, int nitem, int pp, int ha, int hb,
+                               void* stream) {
   Args a{};
   a.x = static_cast<const float*>(x);
   a.ks = static_cast<const float2*>(ks);
@@ -1547,21 +1813,26 @@ extern "C" int fused3d_forward(const void* x, const void* ks, const void* fh, co
   a.item0 = item0;
   a.nitem = nitem;
   a.pp = pp;
+  a.ha = ha;
+  a.hb = hb;
+  a.hw = ha != 0 ? ha * hb : h;
   a.stream = static_cast<cudaStream_t>(stream);
   return launch(a);
 }
 
 // Runs items [item0, item0 + nitem) of one convolution through B4, the tap
-// chain. x (B, Cin, d, h, w) f32; ks (Cout, Cin/groups, kd, h/2+1, 64), the
-// conjugated per-tap 2D spectra, 16-byte aligned; fh, wfac, hfac and ch as for fused3d_forward;
-// scratch t (nitem, Cin, d, h/2+1, 64) and z (nitem, Cout, od, h/2+1, 64),
-// od = d - kd + 1; out (B, Cout, od, oh, ow) f32. Returns
-// cudaGetLastError() after the three launches (0 when all were accepted).
+// chain. x (B, Cin, d, h, w) f32; ks (Cout, Cin/groups, kd, hw/2+1, 64), the
+// conjugated per-tap 2D spectra, 16-byte aligned; fh, wfac, hfac, ch, ha and
+// hb (hw = ha * hb, or h) as for fused3d_forward; scratch t (nitem, Cin, d,
+// hw/2+1, 64) and z (nitem, Cout, od, hw/2+1, 64), od = d - kd + 1; out (B,
+// Cout, od, oh, ow) f32. Returns cudaGetLastError() after the three launches
+// (0 when all were accepted).
 extern "C" int fused3d_tap_forward(const void* x, const void* ks, const void* fh,
                                    const void* wfac, const void* hfac, const void* ch, void* t,
                                    void* z, void* out, int cin, int cout, int groups, int d,
                                    int h, int w, int kd, int od, int oh, int ow, int nwb,
-                                   int hop, int item0, int nitem, void* stream) {
+                                   int hop, int item0, int nitem, int ha, int hb,
+                                   void* stream) {
   Args a{};
   a.x = static_cast<const float*>(x);
   a.ks = static_cast<const float2*>(ks);
@@ -1586,6 +1857,9 @@ extern "C" int fused3d_tap_forward(const void* x, const void* ks, const void* fh
   a.hop = hop;
   a.item0 = item0;
   a.nitem = nitem;
+  a.ha = ha;
+  a.hb = hb;
+  a.hw = ha != 0 ? ha * hb : h;
   a.stream = static_cast<cudaStream_t>(stream);
   return launch_tap(a);
 }

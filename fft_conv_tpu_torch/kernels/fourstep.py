@@ -45,6 +45,32 @@ def split_factors(n: int) -> Tuple[int, int]:
     return n1, n // n1
 
 
+def mixed_split(n: int, most: int = 16) -> Optional[Tuple[int, int]]:
+    """N -> (A, B), N = A·B with 2 <= A, B <= ``most`` and B even: the most
+    square such split (A >= B on a tie), or None when N has none. For the
+    powers of two 16 to 256 it is ``split_factors``'s."""
+    best = None
+    for b in range(2, most + 1, 2):
+        a = n // b
+        if a * b == n and 2 <= a <= most:
+            key = (abs(a - b), -a)
+            if best is None or key < best[0]:
+                best = (key, (a, b))
+    return None if best is None else best[1]
+
+
+def padded_split(n: int, most: int = 16) -> Tuple[int, Tuple[int, int]]:
+    """(M, (A, B)): the least even length M >= N that has a ``mixed_split``,
+    and that split. A DFT of N samples zero-padded to M then runs as A- and
+    B-point DFTs. Raises ValueError past ``most``², where none exists."""
+    if n > most * most:
+        raise ValueError(f"no split with factors <= {most} reaches length {n}")
+    m = n + n % 2
+    while mixed_split(m, most) is None:
+        m += 2
+    return m, mixed_split(m, most)
+
+
 def _complex_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.complex128 if dtype in (torch.float64, torch.complex128) else torch.complex64
 

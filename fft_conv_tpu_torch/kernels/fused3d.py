@@ -2,14 +2,24 @@
 
 The port's counterpart of ``fft_conv_tpu/kernels/fused3d.py``, with both of
 its plans. Either way the whole padded volume is transformed along H and W
-per d-slab: a one-sided H DFT at the full H (NBH = H/2+1 rows) and a
-64-point W DFT (W zero-padded to 64, or cut into overlap-save blocks of 64
-columns when W is wider), factored 64 = 8·8 as a four-step transform
-(``_w_factors``). For H = 16, 32, 64 and 128 (``_H_SPLITS``) the H DFT and
-its inverse are factored too and run on slab pairs: two d-slabs packed as one
-complex column, one H-point DFT, bins k and H - k split into the two slabs'
-rows (``_h_forward_pairs``), and a c2r of two slabs at once
-(``_h_inverse_pairs``); every other H keeps the dense products. Along D:
+per d-slab: a one-sided H DFT and a 64-point W DFT (W zero-padded to 64, or
+cut into overlap-save blocks of 64 columns when W is wider), factored 64 =
+8·8 as a four-step transform (``_w_factors``).
+
+The H transforms run at a working length Hw (``_h_work``). For every H from
+16 to 256 (``_H_FACTORED``) Hw is the least even length >= H that splits as
+Hw = HA·HB with both factors at most 16 and HB even
+(``fourstep.padded_split``): H itself where it splits (48 = 8·6, 78 = 13·6,
+the powers of two as before), else a few rows more (82 -> 84 = 7·12, 200 ->
+208 = 13·16; at most 1/8 of H, at H = 33). The signal's rows H to Hw - 1 are
+zeros, and the H-circular correlation at Hw equals the linear one on the
+valid rows h <= H - KH, since no stored row wraps; the spectra, T and Z
+then hold Hw/2+1 one-sided bins. The H DFT and its inverse run factored on
+slab pairs: two d-slabs packed as one complex column, one Hw-point DFT, bins
+k and Hw - k split into the two slabs' rows (``_h_forward_pairs``), and a
+c2r of two slabs at once (``_h_inverse_pairs``). Outside that range (H <
+16, 256 < H <= 906) Hw = H and the H transforms are dense products. Along
+D:
 
 * 'v4' (kernel B3, the JAX package's plan for KD <= 9): a DFT-16 per block
   of 16 samples on a hop of 8 (zeros past D), factored 16 = 4·4
@@ -62,17 +72,17 @@ from ..ops.spectral import _dft_mats, _irfft_mats, _rfft_mats
 from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
-from .fourstep import dft_last, fft_factor_matrices, split_factors
+from .fourstep import dft_last, fft_factor_matrices, padded_split, split_factors
 from .fused1d import _fused_bwd, _spectra_or
 
 # W transform length and its four-step split 64 = 8 * 8 (the kernels factor
 # the W DFT so), and the D blocks: 16 samples on a hop of 8
 _TW = 64
 _W_SPLIT = (8, 8)
-# The H lengths whose DFT the kernels factor, with their four-step splits
-# (csrc/fused3d.cu: HSplit): the powers of two 16 to 128, slab pairs through
-# one complex transform each; every other H keeps the dense products
-_H_SPLITS = {h: split_factors(h) for h in (16, 32, 64, 128)}
+# The signal H whose transforms the kernels factor at a working length
+# (``_h_work``), slab pairs through one complex transform each; every other
+# H keeps the dense products
+_H_FACTORED = (16, 256)
 _DB = 16
 _DHOP = 8
 # The four-step split of the D DFT-16 (csrc/fused3d.cu: kDF)
@@ -148,6 +158,26 @@ def _opb(opg: int, most: int) -> int:
     return next(n for n in (8, 4, 2, 1) if n <= most and opg % n == 0)
 
 
+@lru_cache(maxsize=None)
+def _h_work(h: int) -> Tuple[int, Optional[Tuple[int, int]]]:
+    """(Hw, split): the working length of the H transforms for a signal of
+    H rows and its four-step split (HA, HB), ``fourstep.padded_split`` for
+    H in ``_H_FACTORED`` (csrc/fused3d.cu: fused3d_hw_forward_f); (H, None)
+    outside it, where the dense kernels run at H."""
+    lo, hi = _H_FACTORED
+    return padded_split(h) if lo <= h <= hi else (h, None)
+
+
+def _h_path(h: int) -> str:
+    """Which H/W kernels an H runs: "factored" (``_H_FACTORED``) or "dense"."""
+    return "dense" if _h_work(h)[1] is None else "factored"
+
+
+def _nbh_work(h: int) -> int:
+    """One-sided H bins of the kernels' spectra, T and Z: Hw/2+1."""
+    return _h_work(h)[0] // 2 + 1
+
+
 def _slabs_per_block(nbh: int) -> Optional[int]:
     """SB, the d-slabs one block of the H/W phases holds: the most of
     {4, 2, 1} whose shared memory fits, as csrc/fused3d.cu picks it."""
@@ -214,22 +244,23 @@ def plan_3d_blocked(cin: int, cout: int, d: int, h: int, w: int,
 
 def _plan_v4(cin: int, cout: int, d: int, h: int, w: int,
              kd: int, kh: int, kw: int, groups: int = 1):
-    """The JAX package's overlap-save-D geometry (nbhp, pp and vdp are its
-    TPU layout's, kept so the plans compare equal) under kernel B3's
-    budgets: spectra in L2, shared memory, scratch per item."""
+    """The JAX package's overlap-save-D geometry (nbh, nbhp, pp and vdp are
+    its TPU layout's, kept so the plans compare equal) under kernel B3's
+    budgets, counted at the Hw/2+1 bins the kernels hold (``_h_work``):
+    spectra in L2, shared memory, scratch per item."""
     if kd > 9:
         return None  # a 16-sample block leaves 8 valid d only for kd <= 9
-    nbh = h // 2 + 1
+    nbh, nbw = h // 2 + 1, _nbh_work(h)
     nbhp = -(-nbh // 8) * 8
     vd = d - kd + 1
     nbd = -(-vd // 8)
     pp = -(-(4 * (nbd - 1) + 8) // 8) * 8
     vdp = -(-(4 * nbd) // 8) * 8
-    if _DB * (cin // groups) * cout * nbh * _TW * 8 > _SPECTRA_BUDGET:
+    if _DB * (cin // groups) * cout * nbw * _TW * 8 > _SPECTRA_BUDGET:
         return None
-    if _slabs_per_block(nbh) is None:
+    if _slabs_per_block(nbw) is None:
         return None
-    if _scratch_bytes_per_item(cin, cout, d, nbh, nbd, vd) > _SCRATCH_BUDGET:
+    if _scratch_bytes_per_item(cin, cout, d, nbw, nbd, vd) > _SCRATCH_BUDGET:
         return None
     return ("v4", nbh, nbhp, pp, nbd, vdp)
 
@@ -237,15 +268,16 @@ def _plan_v4(cin: int, cout: int, d: int, h: int, w: int,
 def _plan_tap(cin: int, cout: int, d: int, h: int, w: int,
               kd: int, kh: int, kw: int, groups: int = 1):
     """The JAX package's tap geometry (vdp and pages are its TPU d-pair
-    layout's, kept so the plans compare equal) under kernel B4's budgets:
-    spectra in L2, shared memory, scratch per item."""
-    nbh = h // 2 + 1
+    layout's, kept so the plans compare equal) under kernel B4's budgets,
+    counted at the Hw/2+1 bins the kernels hold (``_h_work``): spectra in
+    L2, shared memory, scratch per item."""
+    nbh, nbw = h // 2 + 1, _nbh_work(h)
     vd = d - kd + 1
-    if kd * (cin // groups) * cout * nbh * _TW * 8 > _SPECTRA_BUDGET:
+    if kd * (cin // groups) * cout * nbw * _TW * 8 > _SPECTRA_BUDGET:
         return None
-    if _slabs_per_block(nbh) is None:
+    if _slabs_per_block(nbw) is None:
         return None
-    if _tap_scratch_bytes_per_item(cin, cout, d, nbh, vd) > _SCRATCH_BUDGET:
+    if _tap_scratch_bytes_per_item(cin, cout, d, nbw, vd) > _SCRATCH_BUDGET:
         return None
     me, mr = _tap_counts(kd)
     vdp = -(-(-(-vd // 2)) // 8) * 8
@@ -317,24 +349,20 @@ def _w_factors(device: torch.device) -> torch.Tensor:
     return _factor_vector(_W_SPLIT, device)
 
 
-def _h_path(h: int) -> str:
-    """Which H/W kernels an H runs: "factored" (``_H_SPLITS``) or "dense"."""
-    return "factored" if h in _H_SPLITS else "dense"
-
-
 @lru_cache(maxsize=None)
 def _device_mats(h: int, vh: int, device: torch.device):
     """The kernel's factors as interleaved complex64 tensors on ``device``,
     in the order of the entry points' arguments: F_H (NBH, H), the W factors
     (``_w_factors``, one slot that the forward and the inverse both read),
-    the H factors (``_factor_vector`` of ``_H_SPLITS[h]``, read alike), the
-    DFT-16 factors (``_factor_vector`` of ``_D_SPLIT``, read alike, B3 only)
-    and the irfft rows (VH, NBH) as (cr, ci) pairs. For an H in
-    ``_H_SPLITS`` F_H and the irfft rows are None (the factored kernels take
-    the H factors), for any other H the H factors are."""
+    the H factors (``_factor_vector`` of the split of ``_h_work(h)``, read
+    alike), the DFT-16 factors (``_factor_vector`` of ``_D_SPLIT``, read
+    alike, B3 only) and the irfft rows (VH, NBH) as (cr, ci) pairs. For an
+    H the kernels factor F_H and the irfft rows are None (the factored
+    kernels take the H factors), for any other H the H factors are."""
     dfac = _factor_vector(_D_SPLIT, device)
-    if h in _H_SPLITS:
-        return None, _w_factors(device), _factor_vector(_H_SPLITS[h], device), dfac, None
+    split = _h_work(h)[1]
+    if split is not None:
+        return None, _w_factors(device), _factor_vector(split, device), dfac, None
     fr, fi, cr, ci = _torch_mats(h, vh, torch.float32, device)
     return torch.complex(fr, fi), _w_factors(device), None, dfac, torch.complex(cr, ci)
 
@@ -426,17 +454,20 @@ def _pack3d_reference(x_padded: torch.Tensor, pp: int, nwb: int, hop: int) -> to
     return x.reshape(b * nwb, h, cin * pp, 2 * _TW)
 
 
-def _h_forward_pairs(x: torch.Tensor):
+def _h_forward_pairs(x: torch.Tensor, hw: Optional[int] = None):
     """The factored H/W kernel's one-sided H DFT of real slabs ``x`` (...,
-    D, H, C), H in ``_H_SPLITS``: slabs 2p and 2p+1 (zeros past D) packed as
-    one complex column x_2p + i x_2p+1, its H-point DFT through the split
-    ``_H_SPLITS[H]`` (``fourstep.dft_last``), and bins k and H - k split into
-    the two slabs' rows k <= H/2. Returns (re, im), each (..., D, H/2+1, C)."""
+    D, H, C) at the working length ``hw`` (default ``_h_work(H)``; rows H
+    to hw - 1 zeros): slabs 2p and 2p+1 (zeros past D) packed as one complex
+    column x_2p + i x_2p+1, its hw-point DFT through the split
+    ``fourstep.padded_split`` gives hw (``fourstep.dft_last``), and bins k
+    and hw - k split into the two slabs' rows k <= hw/2. Returns (re, im),
+    each (..., D, hw/2+1, C)."""
     d, h = x.shape[-3], x.shape[-2]
-    x = TF.pad(x, (0, 0, 0, 0, 0, d % 2)).transpose(-1, -2)   # (..., 2P, C, H)
-    zr, zi = dft_last(x[..., 0::2, :, :], x[..., 1::2, :, :], _H_SPLITS[h], False)
-    k = torch.arange(h // 2 + 1, device=x.device)
-    m = (h - k) % h
+    hw = _h_work(h)[0] if hw is None else hw
+    x = TF.pad(x, (0, 0, 0, hw - h, 0, d % 2)).transpose(-1, -2)   # (..., 2P, C, hw)
+    zr, zi = dft_last(x[..., 0::2, :, :], x[..., 1::2, :, :], padded_split(hw)[1], False)
+    k = torch.arange(hw // 2 + 1, device=x.device)
+    m = (hw - k) % hw
     pr, pi, qr, qi = zr[..., k], zi[..., k], zr[..., m], zi[..., m]
     # X_2p = (Z[k] + conj Z[-k]) / 2, X_2p+1 = (Z[k] - conj Z[-k]) / 2i
     re = torch.stack([pr + qr, pi + qi], dim=-3).flatten(-4, -3) / 2
@@ -444,35 +475,36 @@ def _h_forward_pairs(x: torch.Tensor):
     return re[..., :d, :, :].transpose(-1, -2), im[..., :d, :, :].transpose(-1, -2)
 
 
-def _h_inverse_pairs(er: torch.Tensor, ei: torch.Tensor, h: int, oh: int) -> torch.Tensor:
-    """The factored H/W kernel's H irfft of one-sided slabs (..., OD, H/2+1,
-    C), H in ``_H_SPLITS``, onto the rows [0, oh): slabs 2p and 2p+1 (zeros
-    past OD) at once, as one conjugated H-point DFT of E_2p + i E_2p+1, each
-    Hermitian-extended (E[H - k] = conj E[k], DC and Nyquist taken real as
+def _h_inverse_pairs(er: torch.Tensor, ei: torch.Tensor, hw: int, oh: int) -> torch.Tensor:
+    """The factored H/W kernel's H irfft at the working length ``hw`` of
+    one-sided slabs (..., OD, hw/2+1, C) onto the rows [0, oh): slabs 2p and
+    2p+1 (zeros past OD) at once, as one conjugated hw-point DFT (the split
+    of ``fourstep.padded_split``) of E_2p + i E_2p+1, each
+    Hermitian-extended (E[hw - k] = conj E[k], DC and Nyquist taken real as
     the dense irfft weights them), whose real and imaginary parts are the
-    two slabs' rows; 1/H applied. Returns (..., OD, oh, C)."""
+    two slabs' rows; 1/hw applied. Returns (..., OD, oh, C)."""
     od = er.shape[-3]
     pad = (0, 0, 0, 0, 0, od % 2)
     er, ei = TF.pad(er, pad).transpose(-1, -2), TF.pad(ei, pad).transpose(-1, -2)
-    k = torch.arange(h, device=er.device)
-    kk = torch.minimum(k, h - k)
-    ar, ai = er[..., 0::2, :, kk], ei[..., 0::2, :, kk]   # (..., P, C, H)
+    k = torch.arange(hw, device=er.device)
+    kk = torch.minimum(k, hw - k)
+    ar, ai = er[..., 0::2, :, kk], ei[..., 0::2, :, kk]   # (..., P, C, hw)
     br, bi = er[..., 1::2, :, kk], ei[..., 1::2, :, kk]
-    real = (k == 0) | (k == h // 2)
-    low = k < h // 2
+    real = (k == 0) | (k == hw // 2)
+    low = k < hw // 2
     vr = torch.where(real, ar, torch.where(low, ar - bi, ar + bi))
     vi = torch.where(real, br, torch.where(low, ai + br, br - ai))
-    outr, outi = dft_last(vr, vi, _H_SPLITS[h], True)  # (..., P, C, H)
+    outr, outi = dft_last(vr, vi, padded_split(hw)[1], True)  # (..., P, C, hw)
     out = torch.stack([outr[..., :oh], outi[..., :oh]], dim=-3).flatten(-4, -3)
-    return out[..., :od, :, :].transpose(-1, -2) / h
+    return out[..., :od, :, :].transpose(-1, -2) / hw
 
 
 def _hw_forward_reference(x: torch.Tensor, fr, fi, packed=None):
-    """(re, im) of the one-sided H DFT (``_h_forward_pairs`` for H in
-    ``_H_SPLITS``, else the dense product with ``fr``, ``fi``) and then the W
-    DFT-64 (factored 8 x 8, ``fourstep.dft_last``, bins in natural order) of
-    every d-slab of the stacked blocks (W zero-padded to 64): (B', Cin, D,
-    NBH, 64).
+    """(re, im) of the one-sided H DFT (``_h_forward_pairs`` at the working
+    length for an H the kernels factor, else the dense product with ``fr``,
+    ``fi``) and then the W DFT-64 (factored 8 x 8, ``fourstep.dft_last``,
+    bins in natural order) of every d-slab of the stacked blocks (W
+    zero-padded to 64): (B', Cin, D, Hw/2+1, 64).
 
     ``x`` is the stacked blocks (B', Cin, D, H, <= 64); with ``packed`` =
     (Cin, D) it is B6's layout (B', H, Cin·PP, 128) instead, read slab by
@@ -485,7 +517,7 @@ def _hw_forward_reference(x: torch.Tensor, fr, fi, packed=None):
         bb, h, rows, _ = x.shape
         x = x.reshape(bb, h, cin, rows // cin, 2, _TW).permute(0, 2, 3, 4, 1, 5)
         x = x.reshape(bb, cin, 2 * (rows // cin), h, _TW)[:, :, :d].contiguous()
-    if x.shape[-2] in _H_SPLITS:
+    if _h_path(x.shape[-2]) == "factored":
         ar, ai = _h_forward_pairs(x)
     else:
         ar, ai = fr @ x, fi @ x
@@ -494,14 +526,14 @@ def _hw_forward_reference(x: torch.Tensor, fr, fi, packed=None):
 
 def _hw_inverse_reference(zr, zi, cr, ci, blocks, h: int, ow: int) -> torch.Tensor:
     """The inverse W DFT (factored 8 x 8, 1/64 included) and the H irfft
-    (``_h_inverse_pairs`` for H in ``_H_SPLITS``, else the dense product
-    with ``cr``, ``ci``) on the valid rows of the MAC's output (B', Cout, OD,
-    NBH, 64), and the stored columns of each W block put side by side: (B,
-    Cout, OD, OH, OW)."""
+    (``_h_inverse_pairs`` at the working length for an H the kernels
+    factor, else the dense product with ``cr``, ``ci``) on the valid rows of
+    the MAC's output (B', Cout, OD, Hw/2+1, 64), and the stored columns of
+    each W block put side by side: (B, Cout, OD, OH, OW)."""
     e_r, e_i = dft_last(zr, zi, _W_SPLIT, True)
     e_r, e_i = e_r / _TW, e_i / _TW
-    if h in _H_SPLITS:                              # (B', Cout, OD, OH, 64)
-        out = _h_inverse_pairs(e_r, e_i, h, cr.shape[0])
+    if _h_path(h) == "factored":                    # (B', Cout, OD, OH, 64)
+        out = _h_inverse_pairs(e_r, e_i, _h_work(h)[0], cr.shape[0])
     else:
         out = cr @ e_r + ci @ e_i
     if len(blocks) == 1:
@@ -520,8 +552,8 @@ def _fused3d_forward_reference(
     ``x_padded`` (B, Cin, D, H, W) already padded, ``kernel`` (Cout, Cin/g,
     KD, KH, KW) already dilated, and a 'v4' plan; returns the valid
     correlation (B, Cout, OD, OH, OW). W wider than 64 runs as stacked
-    overlap-save blocks. ``spectra``: the baked ``kernel_spectra_3d``, or
-    None to compute them. ``packed``: pack the signal first
+    overlap-save blocks. ``spectra``: the baked ``kernel_spectra_3d`` at the
+    working length ``_h_work(H)``, or None to compute them. ``packed``: pack the signal first
     (``_pack3d_reference``, B6) and read the packed layout, as B3 does
     under "pk".
     """
@@ -529,7 +561,7 @@ def _fused3d_forward_reference(
     b, cin, d, h, w = x_padded.shape
     cout, cpg, kd, kh, kw = kernel.shape
     plan, nwb, hop = _plan_for(x_padded.shape, kernel.shape, groups, "v4")
-    nbh, nbd = plan[1], plan[4]
+    nbh, nbd = _nbh_work(h), plan[4]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     blocks = _w_blocks(w, ow, nwb, hop)
     fr, fi, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
@@ -551,7 +583,7 @@ def _fused3d_forward_reference(
     sr, si = dft_last(tr, ti, _D_SPLIT, False)
 
     # pointwise complex MAC over each out-channel's group of in-channels
-    ks = _spectra_or(spectra, dt, lambda: kernel_spectra_3d(kernel.to(dt), h))
+    ks = _spectra_or(spectra, dt, lambda: kernel_spectra_3d(kernel.to(dt), _h_work(h)[0]))
     kr = ks.real.reshape(groups, cout // groups, cpg, _DB, nbh, _TW)
     ki = ks.imag.reshape(groups, cout // groups, cpg, _DB, nbh, _TW)
     mac = "bgcjnzf,gocfnz->bgojnzf"
@@ -575,14 +607,14 @@ def _fused3d_tap_reference(
     ``x_padded`` (B, Cin, D, H, W) already padded, ``kernel`` (Cout, Cin/g,
     KD, KH, KW) already dilated, and a 'tap' plan; returns the valid
     correlation (B, Cout, OD, OH, OW). W wider than 64 runs as stacked
-    overlap-save blocks. ``spectra``: the baked ``kernel_spectra_tap``, or
-    None to compute them.
+    overlap-save blocks. ``spectra``: the baked ``kernel_spectra_tap`` at the
+    working length ``_h_work(H)``, or None to compute them.
     """
     dt = torch.float64 if x_padded.dtype == torch.float64 else torch.float32
     b, cin, d, h, w = x_padded.shape
     cout, cpg, kd, kh, kw = kernel.shape
     plan, nwb, hop = _plan_for(x_padded.shape, kernel.shape, groups, "tap")
-    nbh = plan[1]
+    nbh = _nbh_work(h)
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     blocks = _w_blocks(w, ow, nwb, hop)
     fr, fi, cr, ci = _torch_mats(h, oh, dt, x_padded.device)
@@ -596,7 +628,7 @@ def _fused3d_tap_reference(
     ti = ti.reshape(bb, groups, cpg, d, nbh, _TW).unfold(3, kd, 1)
 
     # correlation over the taps and the group's in-channels, per (h, w) bin
-    ks = _spectra_or(spectra, dt, lambda: kernel_spectra_tap(kernel.to(dt), h))
+    ks = _spectra_or(spectra, dt, lambda: kernel_spectra_tap(kernel.to(dt), _h_work(h)[0]))
     kr = ks.real.reshape(groups, cout // groups, cpg, kd, nbh, _TW)
     ki = ks.imag.reshape(groups, cout // groups, cpg, kd, nbh, _TW)
     mac = "bgcdnzt,goctnz->bgodnz"
@@ -611,11 +643,11 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused3d")
     if lib.fused3d_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused3d_forward.argtypes = [p] * 10 + [i] * 15 + [p]
+        lib.fused3d_forward.argtypes = [p] * 10 + [i] * 17 + [p]
         lib.fused3d_forward.restype = i
         lib.fused3d_pack.argtypes = [p] * 2 + [i] * 8 + [p]
         lib.fused3d_pack.restype = i
-        lib.fused3d_tap_forward.argtypes = [p] * 9 + [i] * 14 + [p]
+        lib.fused3d_tap_forward.argtypes = [p] * 9 + [i] * 16 + [p]
         lib.fused3d_tap_forward.restype = i
         lib.fused3d_error_string.argtypes = [i]
         lib.fused3d_error_string.restype = ctypes.c_char_p
@@ -683,8 +715,9 @@ def _launch_fused3d(
     packed: bool = False,
 ) -> torch.Tensor:
     """Runs kernel B3's chain on ``x_padded`` (B, Cin, D, H, W) float32 with
-    the conjugated spectra (Cout, Cin/g, 16, NBH, 64) complex64 of a (KD, KH,
-    KW) kernel whose plan is 'v4', both on one CUDA device. Returns the valid
+    the conjugated spectra (Cout, Cin/g, 16, Hw/2+1, 64) complex64
+    (``kernel_spectra_3d`` at Hw, ``_h_work(H)``) of a (KD, KH, KW) kernel
+    whose plan is 'v4', both on one CUDA device. Returns the valid
     correlation (B, Cout, OD, OH, OW). ``packed``: pack the signal with
     kernel B6 first and let B3 read the packed layout ("pk")."""
     global launches
@@ -692,10 +725,11 @@ def _launch_fused3d(
     b, cin, d, h, w = x_padded.shape
     cout, cpg = spectra.shape[:2]
     plan, nwb, hop = _plan_for(x_padded.shape, (cout, cpg) + tuple(k), groups, "v4")
-    nbh, nbd = plan[1], plan[4]
+    (hw, split), nbd = _h_work(h), plan[4]
+    nbh = hw // 2 + 1
     if spectra.shape[2:] != (_DB, nbh, _TW) or cpg * groups != cin:
         raise ValueError(f"fused3d kernel: spectra {tuple(spectra.shape)} do not fit "
-                         f"H={h}, Cin={cin}, groups={groups}")
+                         f"H={h} (spectra at Hw={hw}), Cin={cin}, groups={groups}")
     kd, kh, kw = k
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     items = b * nwb
@@ -719,7 +753,7 @@ def _launch_fused3d(
                 x.data_ptr(), spectra.data_ptr(), *(_ptr(m) for m in mats),
                 t.data_ptr(), z.data_ptr(), out.data_ptr(),
                 cin, cout, groups, d, h, w, od, oh, ow, nbd, nwb, hop,
-                item0, min(chunk, items - item0), pp, stream,
+                item0, min(chunk, items - item0), pp, *(split or (0, 0)), stream,
             )
             _raise_on_error(lib, err, "fused3d")
             launches += 1
@@ -730,19 +764,21 @@ def _launch_fused3d_tap(
     x_padded: torch.Tensor, spectra: torch.Tensor, groups: int, k: Tuple[int, int, int]
 ) -> torch.Tensor:
     """Runs kernel B4's chain on ``x_padded`` (B, Cin, D, H, W) float32 with
-    the conjugated per-tap spectra (Cout, Cin/g, KD, NBH, 64) complex64 of a
-    (KD, KH, KW) kernel whose plan is 'tap', both on one CUDA device.
-    Returns the valid correlation (B, Cout, OD, OH, OW)."""
+    the conjugated per-tap spectra (Cout, Cin/g, KD, Hw/2+1, 64) complex64
+    (``kernel_spectra_tap`` at Hw, ``_h_work(H)``) of a (KD, KH, KW) kernel
+    whose plan is 'tap', both on one CUDA device. Returns the valid
+    correlation (B, Cout, OD, OH, OW)."""
     global launches_tap
     x_padded, spectra = _check_launch_inputs(x_padded, spectra, "fused3d tap")
     b, cin, d, h, w = x_padded.shape
     cout, cpg = spectra.shape[:2]
     kd, kh, kw = k
     plan, nwb, hop = _plan_for(x_padded.shape, (cout, cpg) + tuple(k), groups, "tap")
-    nbh = plan[1]
+    hw, split = _h_work(h)
+    nbh = hw // 2 + 1
     if spectra.shape[2:] != (kd, nbh, _TW) or cpg * groups != cin:
         raise ValueError(f"fused3d tap kernel: spectra {tuple(spectra.shape)} do not fit "
-                         f"KD={kd}, H={h}, Cin={cin}, groups={groups}")
+                         f"KD={kd}, H={h} (spectra at Hw={hw}), Cin={cin}, groups={groups}")
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     items = b * nwb
     per_item = _tap_scratch_bytes_per_item(cin, cout, d, nbh, od)
@@ -761,7 +797,7 @@ def _launch_fused3d_tap(
                 x_padded.data_ptr(), spectra.data_ptr(), _ptr(fh), _ptr(wfac), _ptr(hfac),
                 _ptr(ch), t.data_ptr(), z.data_ptr(), out.data_ptr(),
                 cin, cout, groups, d, h, w, kd, od, oh, ow, nwb, hop,
-                item0, min(chunk, items - item0), stream,
+                item0, min(chunk, items - item0), *(split or (0, 0)), stream,
             )
             _raise_on_error(lib, err, "fused3d tap")
             launches_tap += 1
@@ -776,7 +812,8 @@ def _fused3d_forward(
     kernels (B3 for 'v4', after B6 under "pk"; B4 for 'tap') on a CUDA
     tensor, through their plain versions on a CPU one. ``spectra``: the
     plan's baked kernel spectra (``kernel_spectra_3d`` for 'v4',
-    ``kernel_spectra_tap`` for 'tap'), or None to compute them. They are
+    ``kernel_spectra_tap`` for 'tap', at the working length ``_h_work(H)``),
+    or None to compute them. They are
     computed here, ahead of the call's records for a running cost analysis
     (``costs.record``), so that the analysis counts their transforms as the
     aten ops they are, on the CPU as on the card; the records hold the
@@ -790,7 +827,8 @@ def _fused3d_forward(
     b, cin, d, h, w = x_padded.shape
     k = tuple(kernel.shape[2:])
     if spectra is None:
-        spectra = kernel_spectra_tap(kernel, h) if tap else kernel_spectra_3d(kernel, h)
+        hw = _h_work(h)[0]
+        spectra = kernel_spectra_tap(kernel, hw) if tap else kernel_spectra_3d(kernel, hw)
     record = pack = costs.IDLE
     if costs.active():
         shape = (b, cin, kernel.shape[0], d, h, w, k, groups)
@@ -948,7 +986,8 @@ def plan_fft_conv3d(
     device: Device = None,
 ):
     """Serving plan: the kernel's spectra for the plan's kernel (B3's for
-    'v4', B4's for 'tap') are computed once, on ``device`` (the card unless
+    'v4', B4's for 'tap', at the working length ``_h_work``) are computed
+    once, on ``device`` (the card unless
     ``device="cpu"``), and the returned ``fn(signal) -> out`` only
     transforms the signal, whose spatial shape must be ``signal_dhw``. The
     port of the JAX package's ``plan_fft_conv3d``: groups=1, stride=1,
@@ -970,7 +1009,7 @@ def plan_fft_conv3d(
     kernel = kernel.detach().to(dev, torch.float32)
     bias = None if bias is None else bias.detach().to(dev, torch.float32)
     spectra_of = kernel_spectra_3d if blocked[0][0] == "v4" else kernel_spectra_tap
-    spectra = spectra_of(kernel, hp)
+    spectra = spectra_of(kernel, _h_work(hp)[0])
 
     def planned(signal: torch.Tensor) -> torch.Tensor:
         check_planned_signal(signal, (d, h, w), dev)

@@ -149,11 +149,12 @@ def test_counts_3d_at_the_benchmark_rows():
 def test_d_stage_counts_3d_at_the_benchmark_rows():
     """B3's and B4's D kernels at the 64^3 rows: the kernels' own flops (B3's
     DFT-16 factored 4 x 4 at one output a lane, the tap MAC onto chunks of 8
-    d), and the D stages' bounds, T and the spectra in and Z out (50.0 and
-    43.0 MB): bytes bind B3's, operations B4's. The least work of each stage
-    is part of its chain's and no more than the kernel does."""
-    assert round(costs.fused3d_kernel_flops(2, 8, 8, 64, 64, 64, 8) / 1e9, 3) == 0.695
-    assert round(costs.fused3d_tap_kernel_flops(2, 8, 8, 64, 64, 64, 10) / 1e9, 3) == 1.427
+    d; the H/W kernels' radix-2 H steps take root[n/4] = -i as a swap), and
+    the D stages' bounds, T and the spectra in and Z out (50.0 and 43.0 MB):
+    bytes bind B3's, operations B4's. The least work of each stage is part
+    of its chain's and no more than the kernel does."""
+    assert round(costs.fused3d_kernel_flops(2, 8, 8, 64, 64, 64, 8) / 1e9, 3) == 0.677
+    assert round(costs.fused3d_tap_kernel_flops(2, 8, 8, 64, 64, 64, 10) / 1e9, 3) == 1.409
     d_bytes, d_flops = costs.fused3d_d_work(2, 8, 8, 64, 64, 64, 8)
     t_bytes, t_flops = costs.fused3d_tap_mac_work(2, 8, 8, 64, 64, 64, 10)
     assert (d_bytes, t_bytes) == (50012160, 42983424)
@@ -164,6 +165,55 @@ def test_d_stage_counts_3d_at_the_benchmark_rows():
     assert d_flops < costs.fused3d_work(2, 8, 8, 64, 64, 64, 8)[1]
     assert t_flops < costs.fused3d_tap_work(2, 8, 8, 64, 64, 64, 10)[1]
     assert t_flops <= costs.fused3d_tap_kernel_flops(2, 8, 8, 64, 64, 64, 10)
+
+
+# (H = D = W, K, chain bytes, chain bound, by, kernel GFLOP, H/W stage bytes,
+# H/W stage bound): B3 and B4 at 48^3 (Hw = 48 = 8 x 6), the stuffed 78^3 of
+# the transposed K=8 call (B3, Hw = 78 = 13 x 6) and 82^3 of K=10 (B4, Hw =
+# 84 = 7 x 12), B=2, 8 -> 8
+MIXED_ROWS = [
+    (48, 8, 24596032, 0.00734, "bytes", 0.389, 29716032, 0.00887),
+    (48, 10, 19066304, 0.01063, "operations", 0.771, 28691904, 0.00856),
+    (78, 8, 74249152, 0.02417, "operations", 2.173, 150926272, 0.04505),
+    (82, 10, 73947200, 0.07722, "operations", 5.422, 166844480, 0.04980),
+]
+
+
+@pytest.mark.parametrize("s,k,nbytes,bound_ms,by,kernel_gflop,hw_bytes,hw_ms", MIXED_ROWS)
+def test_counts_3d_at_mixed_radix_rows(s, k, nbytes, bound_ms, by, kernel_gflop, hw_bytes, hw_ms):
+    """Least work at the signal's own H: an H that splits into factors of at
+    most 16 is counted as that four-step transform (78 = 13 x 6 through the
+    real-symmetric 13-point DFT), and 82 through 41 x 2, so the bound does
+    not credit the kernels' padding to Hw = 84 and counts no dense H DFT.
+    The kernels' own flops are counted at Hw. The H/W stage (the signal and
+    T, Z and the output, once each at the signal's NBH) is bytes-bound."""
+    work = costs.fused3d_work if k <= 9 else costs.fused3d_tap_work
+    kernel = costs.fused3d_kernel_flops if k <= 9 else costs.fused3d_tap_kernel_flops
+    got_bytes, flops = work(2, 8, 8, s, s, s, k)
+    ms, got_by = costs.bound(got_bytes, flops)
+    assert (got_bytes, round(ms, 5), got_by) == (nbytes, bound_ms, by)
+    assert round(kernel(2, 8, 8, s, s, s, k) / 1e9, 3) == kernel_gflop
+    hw = costs.fused3d_hw_work(2, 8, 8, s, s, s, k)
+    assert hw[0] == hw_bytes and costs.bound(*hw) == (pytest.approx(hw_ms, abs=5e-6), "bytes")
+    # least work: no more than the kernels do, and less than every dense count
+    assert hw[1] < flops <= kernel(2, 8, 8, s, s, s, k)
+    assert ms < costs.bound(*work(2, 8, 8, s, s, s, k, dense=True))[0]
+    assert costs._split(s) == ({48: (8, 6), 78: (13, 6), 82: (41, 2)}[s])
+
+
+def test_symmetric_short_dfts_count_their_terms():
+    """The 3D H steps' short DFTs of lengths that are not powers of two run
+    the real-symmetric form (csrc/fused3d.cu: dft_emit): 18 flops for the
+    kernel's 3-point DFT (s and d 4, X[0] 2, one complex-by-real FMA pair
+    each for P and Q 8, X[1] and X[2] 4) and 16 of least work (Q's first
+    product a multiply); B2's 24-point DFT keeps the dense count."""
+    assert costs._short_dft_flops(3, 3, 3, True) == 18
+    assert costs._short_dft_flops(3, 3, 3, False) == 16
+    assert costs._short_dft_flops(13, 13, 13, True) == 348
+    for n in (5, 6, 7, 9, 10, 11, 12, 13, 14, 15):
+        assert costs._short_dft_flops(n, n, n, False) <= costs._short_dft_flops(n, n, n, True)
+    assert costs._short_dft_flops(24, 24, 24, True) == 24 * (2 * 23) + 6 * sum(
+        1 for m in range(24) for j in range(24) if m * j % 24)
 
 
 def test_int_and_tuple_kernel_sizes_count_alike():

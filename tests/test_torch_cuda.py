@@ -320,14 +320,16 @@ def test_layer_on_cuda_launches_the_kernel(cuda):
 
 # (B, Cin, Cout, D, H, W, KD, KH, KW, groups): the benchmark row (4 output
 # channels a thread), groups with 1 and 2 output channels a thread, odd
-# sizes, KD = 9 (the hop edge), W blocks of 64 (nwb = 4 and 2), and H large
-# enough for SB = 2 and SB = 1 in the dense H/W kernels (230, 460; and 226,
-# 454, where NBH = 114 and 228 are the first to take SB = 2 and SB = 1). Then
-# the factored H/W kernels at each other H they take (16, 32, 128; 64 is the
-# benchmark row's), at odd D and odd OD (the last slab paired with zeros in
-# the forward, the inverse, or both), groups, and a clamped third W block.
-# Last the D kernel's edges: groups whose spectra a block stages in 3 and 2
-# chunks (8 channels a chunk at 8 out-channels a block), KD = 9 at D = 10
+# sizes, KD = 9 (the hop edge), W blocks of 64 (nwb = 4 and 2), and H past
+# 256 for SB = 2 and SB = 1 in the dense H/W kernels (300, 460; and 454, where
+# NBH = 228 is the first to take SB = 1). Then the factored H/W kernels at the
+# constant splits' other H (16, 32, 128; 64 is the benchmark row's), at odd D
+# and odd OD (the last slab paired with zeros in the forward, the inverse, or
+# both), groups, and a clamped third W block; at mixed-radix working lengths
+# (the stuffed 78 = 13 x 6, 48 = 8 x 6, 230 padded to 240, 226 padded to
+# 240, 37 padded to 40, 200 padded to 208). Last the D kernel's edges: groups
+# whose spectra a block stages in 3 and 2 chunks (8 channels a chunk at 8
+# out-channels a block), KD = 9 at D = 10
 FUSED3D = [
     (2, 8, 8, 64, 64, 64, 8, 8, 8, 1),
     (1, 6, 6, 20, 24, 30, 3, 3, 3, 2),
@@ -340,6 +342,11 @@ FUSED3D = [
     (1, 1, 1, 9, 460, 8, 2, 2, 2, 1),
     (1, 2, 2, 12, 226, 64, 3, 3, 3, 1),
     (1, 2, 2, 12, 454, 64, 3, 3, 3, 1),
+    (1, 2, 2, 12, 300, 64, 3, 3, 3, 1),
+    (2, 4, 4, 14, 78, 78, 8, 8, 8, 1),
+    (2, 4, 4, 12, 48, 48, 4, 5, 3, 2),
+    (1, 2, 2, 11, 37, 45, 3, 5, 7, 1),
+    (1, 2, 2, 10, 200, 20, 3, 3, 3, 1),
     (1, 2, 3, 13, 16, 20, 3, 3, 3, 1),
     (2, 4, 4, 18, 32, 40, 4, 5, 5, 2),
     (1, 2, 2, 11, 128, 64, 5, 7, 3, 1),
@@ -355,7 +362,8 @@ def test_3d_kernel_matches_plain_version(cuda, b, cin, cout, d, h, w, kd, kh, kw
     x, k = _tensors(cuda, d + h + w, (b, cin, d, h, w), (cout, cin // groups, kd, kh, kw))
     k /= (cin // groups * kd * kh * kw) ** 0.5
     before = fused3d.launches
-    y = fused3d._launch_fused3d(x, fused3d.kernel_spectra_3d(k, h), groups, (kd, kh, kw))
+    hw = fused3d._h_work(h)[0]
+    y = fused3d._launch_fused3d(x, fused3d.kernel_spectra_3d(k, hw), groups, (kd, kh, kw))
     torch.cuda.synchronize()
     assert fused3d.launches == before + 1
     y_ref = fused3d._fused3d_forward_reference(x, k, groups)
@@ -427,11 +435,12 @@ def test_3d_layer_on_cuda_launches_the_kernel(cuda):
 # (B, Cin, Cout, D, H, W, KD, KH, KW, groups): the B4 row (64^3, K=10, 4
 # output channels a thread), groups with 1 and 2 output channels a thread,
 # odd sizes with KD = 11, W blocks of 64 (nwb = 4) with KD = 12, and KD = 3
-# where v4's spectra (69 MB) do not fit but the tap ones do; H = 226 and 454
-# take SB = 2 and SB = 1 in the dense H/W kernels. Then the factored H/W
-# kernels at H = 16, 32, 128, at odd D and odd OD, and a clamped third W
-# block. Last the tap MAC's edges: (channel, tap) spectra a block stages in 2
-# chunks (128 entries at 4 out-channels a block), KD = 60 at D = 64, KD = D
+# where v4's spectra (69 MB) do not fit but the tap ones do; H = 300 and 454
+# take SB = 2 and SB = 1 in the dense H/W kernels (226 is padded to 240).
+# Then the factored H/W kernels at H = 16, 32, 128, at odd D and odd OD, and
+# a clamped third W block; at the stuffed 82 padded to 84 (7 x 12) and at 70
+# (7 x 10). Last the tap MAC's edges: (channel, tap) spectra a block stages in
+# 2 chunks (128 entries at 4 out-channels a block), KD = 60 at D = 64, KD = D
 FUSED3D_TAP = [
     (2, 8, 8, 64, 64, 64, 10, 10, 10, 1),
     (1, 6, 6, 26, 12, 10, 11, 3, 3, 2),
@@ -441,6 +450,9 @@ FUSED3D_TAP = [
     (1, 16, 16, 20, 64, 64, 3, 3, 3, 1),
     (1, 2, 2, 16, 226, 64, 10, 3, 5, 1),
     (1, 2, 2, 14, 454, 64, 10, 3, 3, 1),
+    (1, 2, 2, 14, 300, 64, 10, 3, 3, 1),
+    (2, 4, 4, 20, 82, 82, 10, 10, 10, 1),
+    (1, 2, 3, 24, 70, 30, 10, 5, 3, 1),
     (1, 2, 2, 21, 16, 12, 11, 3, 3, 1),
     (1, 2, 3, 24, 32, 30, 10, 5, 3, 1),
     (1, 2, 2, 13, 128, 20, 10, 5, 5, 1),
@@ -457,7 +469,8 @@ def test_3d_tap_kernel_matches_plain_version(cuda, b, cin, cout, d, h, w, kd, kh
     k /= (cin // groups * kd * kh * kw) ** 0.5
     assert fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)[0][0] == "tap"
     before = fused3d.launches, fused3d.launches_tap
-    y = fused3d._launch_fused3d_tap(x, fused3d.kernel_spectra_tap(k, h), groups, (kd, kh, kw))
+    y = fused3d._launch_fused3d_tap(x, fused3d.kernel_spectra_tap(k, fused3d._h_work(h)[0]), groups,
+                                    (kd, kh, kw))
     torch.cuda.synchronize()
     assert (fused3d.launches, fused3d.launches_tap) == (before[0], before[1] + 1)
     y_ref = fused3d._fused3d_tap_reference(x, k, groups)
@@ -518,7 +531,7 @@ def test_3d_transpose_fused_on_cuda(cuda, k, st, pad, op, dil, groups):
 # D = 64 padded to 80), D < 2PP with W < 64, two W blocks whose clamped last
 # block starts off 16 B alignment (the stuffed 78^3 volume's W), groups = 2,
 # and H large enough for SB = 1 in B3; then an odd D at H = 32 with a clamped
-# W block, for B3's factored H/W kernels
+# W block, for B3's factored H/W kernels, and H = 37, which they pad to 40
 PACK3D = [
     (2, 8, 64, 64, 64, (8, 8, 8), 1),
     (1, 2, 20, 16, 14, (5, 3, 3), 1),
@@ -526,6 +539,7 @@ PACK3D = [
     (1, 4, 9, 5, 64, (2, 3, 3), 2),
     (1, 1, 9, 460, 8, (2, 2, 2), 1),
     (1, 3, 15, 32, 70, (3, 3, 7), 1),
+    (2, 4, 11, 37, 45, (3, 5, 7), 1),
 ]
 
 
@@ -544,7 +558,7 @@ def test_pack_kernel_equals_plain_version_and_pk_equals_direct(cuda, b, cin, d, 
     torch.cuda.synchronize()
     assert fused3d.launches_pack == before + 1 and xp.data_ptr() == out.data_ptr()
     assert torch.equal(xp, fused3d._pack3d_reference(x, plan[3], nwb, hop))
-    spectra = fused3d.kernel_spectra_3d(kern, h)
+    spectra = fused3d.kernel_spectra_3d(kern, fused3d._h_work(h)[0])
     direct = fused3d._launch_fused3d(x, spectra, groups, k)
     packed = fused3d._launch_fused3d(x, spectra, groups, k, packed=True)
     torch.cuda.synchronize()

@@ -33,7 +33,9 @@ def _arrays(seed, *shapes):
 # H = 32 and 128, which take the factored H/W kernels, at odd D (the last
 # slab paired with zeros) and odd OD; then the D kernel's edges: NBD = 1,
 # odd D with OD not a multiple of 8, and a group of 24 channels, wider than
-# one chunk of the spectra its blocks stage (8 channels at 8 out-channels)
+# one chunk of the spectra its blocks stage (8 channels at 8 out-channels);
+# then H that run at a mixed-radix working length: the stuffed 78 (13 x 6),
+# 48 (8 x 6) and 70 (7 x 10) as they are, the prime 37 padded to 40 (5 x 8)
 PARITY = [
     (1, 2, 3, 20, 24, 16, 3, 5, 4, 1, 1, 1, 0, "constant"),
     (2, 4, 4, 32, 32, 32, 4, 4, 4, 1, 1, 1, 2, "constant"),
@@ -57,13 +59,19 @@ PARITY = [
     (1, 2, 2, 12, 14, 12, 5, 3, 3, 1, 1, 1, 0, "constant"),   # NBD = 1
     (1, 2, 3, 19, 12, 10, 2, 3, 3, 1, 1, 1, 0, "constant"),   # OD = 18
     (1, 24, 24, 10, 8, 8, 3, 3, 3, 1, 1, 1, 0, "constant"),   # 3 staged chunks
+    (1, 2, 2, 10, 78, 12, 3, 5, 3, 1, 1, 1, 0, "constant"),   # Hw = 78
+    (1, 2, 3, 9, 48, 10, 4, 3, 3, 1, 1, 1, 0, "constant"),    # Hw = 48
+    (1, 2, 2, 9, 70, 10, 3, 7, 3, 1, 1, 1, 0, "constant"),    # Hw = 70
+    (1, 2, 2, 11, 37, 10, 3, 4, 3, 1, 1, 1, 0, "constant"),   # Hw = 40
 ]
 # tap plans (B4): the KD = 11 rows of tests/test_pallas3d.py (CONFIGS and the
 # grouped case of test_fused3d_groups), a W-blocked one, and stride with a
 # dilation that takes KD = 6 to 11, under reflect padding; then H = 32 at odd
 # D and odd OD, and H = 128, on the factored H/W kernels; then KD = D (OD =
 # 1), KD close to an odd D with groups 3, and a group of 16 channels at KD =
-# 11, wider than one chunk of the (channel, tap) spectra a block stages
+# 11, wider than one chunk of the (channel, tap) spectra a block stages; then
+# the stuffed 82 at KD = 10 (padded to Hw = 84 = 7 x 12), 48 and 70 as they
+# are, the prime 37 padded to 40
 TAP_PARITY = [
     (1, 2, 2, 30, 16, 12, 11, 3, 3, 1, 1, 1, 0, "constant"),
     (1, 6, 6, 26, 12, 10, 11, 3, 3, 2, 1, 1, 0, "constant"),
@@ -74,6 +82,10 @@ TAP_PARITY = [
     (1, 2, 2, 12, 10, 12, 12, 3, 3, 1, 1, 1, 0, "constant"),
     (1, 6, 6, 17, 10, 10, 16, 3, 3, 3, 1, 1, 0, "constant"),
     (1, 16, 16, 14, 8, 8, 11, 3, 3, 1, 1, 1, 0, "constant"),
+    (1, 1, 2, 12, 82, 10, 10, 5, 3, 1, 1, 1, 0, "constant"),  # Hw = 84
+    (1, 2, 2, 13, 48, 10, 10, 3, 3, 1, 1, 1, 0, "constant"),  # Hw = 48
+    (1, 2, 2, 12, 70, 10, 11, 3, 3, 1, 1, 1, 0, "constant"),  # Hw = 70
+    (1, 2, 2, 12, 37, 10, 10, 4, 3, 1, 1, 1, 0, "constant"),  # Hw = 40
 ]
 
 
@@ -203,6 +215,13 @@ def test_budgets_differ_from_jax_where_intended():
     # scratch: T + Z of one item within 256 MiB
     assert fused3d._tap_scratch_bytes_per_item(1, 1, 2048, 129, 2039) > fused3d._SCRATCH_BUDGET
     assert fused3d._plan_tap(1, 1, 2048, 256, 64, 10, 3, 3) is None
+    # budgets count the kernels' Hw/2+1 bins: H = 34 runs at Hw = 36 (19 bins,
+    # not 18), where 13 -> 13 channels of v4 spectra pass 24 MiB
+    assert fused3d._h_work(34) == (36, (6, 6))
+    assert 16 * 13 * 13 * 18 * 64 * 8 <= fused3d._SPECTRA_BUDGET < 16 * 13 * 13 * 19 * 64 * 8
+    assert fused3d._plan_v4(13, 13, 16, 34, 16, 3, 3, 3) is None
+    assert fused3d.plan_3d(13, 13, 16, 34, 16, 3, 3, 3) == ("tap", 18, 8, 16)
+    assert fused3d._plan_v4(13, 13, 16, 32, 16, 3, 3, 3)[0] == "v4"
     # no fallback: the port raises where the JAX function takes the composed path
     x, k = np.zeros((1, 1, 8, 8, 300), np.float32), np.zeros((1, 1, 2, 2, 70), np.float32)
     assert jax_fused3d.fft_conv3d_fused(jnp.asarray(x), jnp.asarray(k)).shape == (1, 1, 7, 7, 231)
@@ -291,9 +310,9 @@ def test_w_factors_are_laid_out_as_the_kernel_reads_them():
     short DFT, tw[m1, j2] = exp(-2 pi i m1 j2 / 64); ``_device_mats`` hands
     the vector in its one slot, which the forward and the inverse both read,
     in the order of the entry points' arguments: with the dense F_H and
-    irfft rows at an H the kernels do not factor (78), with the H factors in
-    their place at one they do (64, split 8 x 8 like W); the DFT-16 factors
-    (split 4 x 4) at both."""
+    irfft rows at an H the kernels do not factor (12, below 16), with the H
+    factors in their place at one they do (64, split 8 x 8 like W; 78, split
+    13 x 6); the DFT-16 factors (split 4 x 4) at all."""
     from fft_conv_tpu_torch.kernels.fourstep import fft_factor_matrices
 
     fac = fused3d._w_factors(torch.device("cpu"))
@@ -306,9 +325,9 @@ def test_w_factors_are_laid_out_as_the_kernel_reads_them():
     np.testing.assert_allclose(fac[16:].numpy().reshape(8, 8),
                                np.exp(-2j * np.pi * np.outer(m, m) / 64), atol=1e-7)
     np.testing.assert_allclose(fac[16:].numpy().reshape(8, 8), tw, atol=1e-7)
-    fh, wfac, hfac, dfac, ch = fused3d._device_mats(78, 71, torch.device("cpu"))
+    fh, wfac, hfac, dfac, ch = fused3d._device_mats(12, 9, torch.device("cpu"))
     assert wfac is fac and hfac is None
-    fr, fi, _, _, _, _, _, _, _, _, cr, ci = fused3d._mats_3d(78, 71)
+    fr, fi, _, _, _, _, _, _, _, _, cr, ci = fused3d._mats_3d(12, 9)
     for got, re, im in ((fh, fr, fi), (ch, cr, ci)):
         assert got.dtype == torch.complex64
         assert torch.equal(got, torch.complex(torch.from_numpy(re), torch.from_numpy(im)))
@@ -321,18 +340,34 @@ def test_w_factors_are_laid_out_as_the_kernel_reads_them():
     fh, wfac, hfac, dfac2, ch = fused3d._device_mats(64, 57, torch.device("cpu"))
     assert fh is None and ch is None and wfac is fac
     assert torch.equal(hfac, fac) and dfac2 is dfac
+    fh, _, hfac, _, ch = fused3d._device_mats(78, 71, torch.device("cpu"))
+    assert fh is None and ch is None and hfac.shape == (13 + 6 + 13 * 6,)
 
 
-@pytest.mark.parametrize("h", [16, 32, 64, 128])
+# signal H and the working length and split the kernels take for it: the
+# powers of two as before, H that split (18, 24, 48, 78, 96, 256), H padded
+# to the next length that does (82 -> 84, 200 -> 208, 33 -> 36, the worst
+# padding, 1/11 of H)
+H_WORK = {16: (16, (4, 4)), 18: (18, (3, 6)), 24: (24, (6, 4)), 32: (32, (8, 4)),
+          33: (36, (6, 6)), 48: (48, (8, 6)), 64: (64, (8, 8)), 78: (78, (13, 6)),
+          82: (84, (7, 12)), 88: (88, (11, 8)), 96: (96, (12, 8)), 128: (128, (16, 8)),
+          200: (208, (13, 16)), 256: (256, (16, 16))}
+
+
+@pytest.mark.parametrize("h", sorted(H_WORK))
 def test_h_factors_are_laid_out_as_the_kernel_reads_them(h):
     """The H factors of ``_device_mats`` for each H the kernels factor: the
-    split of ``fourstep.split_factors`` (csrc/fused3d.cu: HSplit), its A
-    roots, its B roots and the (A, B) twiddle exp(-2 pi i m1 j2 / H),
-    row-major, complex64; no dense F_H or irfft rows."""
+    split of the working length Hw (``_h_work``, ``fourstep.padded_split``;
+    csrc/fused3d.cu: HSplit for the powers of two, the arguments ha, hb
+    otherwise), its A roots, its B roots and the (A, B) twiddle
+    exp(-2 pi i m1 j2 / Hw), row-major, complex64; no dense F_H or irfft
+    rows. H below 16 and above 256 keep the dense kernels."""
     from fft_conv_tpu_torch.kernels.fourstep import split_factors
 
-    a, b = fused3d._H_SPLITS[h]
-    assert (a, b) == split_factors(h) == {16: (4, 4), 32: (8, 4), 64: (8, 8), 128: (16, 8)}[h]
+    hw, (a, b) = H_WORK[h]
+    assert fused3d._h_work(h) == (hw, (a, b)) and b % 2 == 0 and max(a, b) <= 16
+    if not h & (h - 1):
+        assert (a, b) == split_factors(h)
     fh, _, hfac, _, ch = fused3d._device_mats(h, h - 3, torch.device("cpu"))
     assert fh is None and ch is None
     assert hfac.dtype == torch.complex64 and hfac.shape == (a + b + a * b,)
@@ -340,35 +375,59 @@ def test_h_factors_are_laid_out_as_the_kernel_reads_them(h):
     np.testing.assert_allclose(hfac[a:a + b].numpy(), np.exp(-2j * np.pi * np.arange(b) / b),
                                atol=1e-7)
     np.testing.assert_allclose(hfac[a + b:].numpy().reshape(a, b),
-                               np.exp(-2j * np.pi * np.outer(np.arange(a), np.arange(b)) / h),
+                               np.exp(-2j * np.pi * np.outer(np.arange(a), np.arange(b)) / hw),
                                atol=1e-7)
-    assert fused3d._h_path(h) == "factored" and fused3d._h_path(h + 2) == "dense"
+    assert fused3d._h_path(h) == "factored"
+    assert [fused3d._h_path(n) for n in (8, 15, 257, 454)] == ["dense"] * 4
+    assert [fused3d._h_work(n) for n in (15, 257)] == [(15, None), (257, None)]
+
+
+def test_working_lengths_pad_little():
+    """Every H from 16 to 256 runs at an even working length Hw >= H that
+    splits into factors of at most 16, HB even; H itself wherever H splits;
+    never more than 1/8 of H of padding (the most is 3 rows at H = 33), and
+    at most 8% at the stuffed 3D transposed rows (78 -> 78, 82 -> 84)."""
+    from fft_conv_tpu_torch.kernels.fourstep import mixed_split
+
+    worst = 0.0
+    for h in range(16, 257):
+        hw, (a, b) = fused3d._h_work(h)
+        assert hw >= h and hw % 2 == 0 and a * b == hw and b % 2 == 0 and max(a, b) <= 16
+        assert mixed_split(hw) == (a, b)
+        assert all(mixed_split(n) is None for n in range(h, hw))
+        worst = max(worst, (hw - h) / h)
+    assert worst == 3 / 33 <= 1 / 8
+    assert fused3d._h_work(78)[0] == 78 and fused3d._h_work(82)[0] == 84
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("h", [16, 32, 64, 128])
+@pytest.mark.parametrize("h", sorted(H_WORK))
 def test_h_dft_factored_matches_dense(h, inverse, dtype):
-    """The factored H/W kernel's H transforms (the plain versions
-    ``_h_forward_pairs``, slab pairs through one H-point DFT and the split of
-    bins k and H - k, and ``_h_inverse_pairs``, the c2r of two slabs at once)
-    against the dense float64 oracle of ``_mats_3d``, the one-sided DFT rows
-    and the irfft rows: within 1e-12 relative in float64, within the bar in
-    float32. An odd slab count (the last slab paired with zeros) and OH < H."""
+    """The factored H/W kernel's H transforms at the working length Hw (the
+    plain versions ``_h_forward_pairs``, slab pairs through one Hw-point DFT
+    of the zero-padded column and the split of bins k and Hw - k, and
+    ``_h_inverse_pairs``, the c2r of two slabs at once) against the dense
+    float64 oracle of ``_mats_3d`` at Hw, the one-sided DFT rows and the
+    irfft rows: within 1e-12 relative in float64, within the bar in float32.
+    An odd slab count (the last slab paired with zeros), OH < H and, where
+    Hw > H, the signal's rows H to Hw - 1 zeros."""
+    hw = H_WORK[h][0]
     d, oh, cols = 5, h - 5, 7
     fr, fi, _, _, _, _, _, _, _, _, cr, ci = (torch.from_numpy(m) for m in
-                                               fused3d._mats_3d(h, oh, np.float64))
+                                               fused3d._mats_3d(hw, oh, np.float64))
     if inverse:
-        er, ei = (torch.from_numpy(a) for a in _arrays(h + 1, (2, d, h // 2 + 1, cols),
-                                                         (2, d, h // 2 + 1, cols)))
-        got = (fused3d._h_inverse_pairs(er.to(dtype), ei.to(dtype), h, oh),)
+        er, ei = (torch.from_numpy(a) for a in _arrays(h + 1, (2, d, hw // 2 + 1, cols),
+                                                         (2, d, hw // 2 + 1, cols)))
+        got = (fused3d._h_inverse_pairs(er.to(dtype), ei.to(dtype), hw, oh),)
         want = (cr @ er.double() + ci @ ei.double(),)
         assert got[0].shape == (2, d, oh, cols)
     else:
         (x,) = (torch.from_numpy(a) for a in _arrays(h, (2, d, h, cols)))
         got = fused3d._h_forward_pairs(x.to(dtype))
-        want = (fr @ x.double(), fi @ x.double())
-        assert got[0].shape == got[1].shape == (2, d, h // 2 + 1, cols)
+        xw = torch.nn.functional.pad(x.double(), (0, 0, 0, hw - h))
+        want = (fr @ xw, fi @ xw)
+        assert got[0].shape == got[1].shape == (2, d, hw // 2 + 1, cols)
     for y, y_ref in zip(got, want):
         assert y.dtype == dtype
         if dtype == torch.float64:
@@ -456,6 +515,8 @@ def test_kernel_spectra_tap_match_jax(shape, h):
 @pytest.mark.parametrize("shape,k,groups", [
     ((2, 4, 20, 24, 30), (4, 2, 5, 3, 4), 2),   # one W block, 3 D blocks
     ((1, 2, 12, 9, 150), (3, 2, 9, 4, 7), 1),   # 3 W blocks, odd H, KD = 9
+    ((1, 2, 11, 37, 20), (2, 2, 3, 5, 3), 1),   # H = 37 padded to Hw = 40
+    ((1, 2, 10, 82, 70), (2, 1, 4, 9, 7), 2),   # H = 82 padded to 84, 2 W blocks
 ])
 def test_plain_version_is_exact_in_float64(shape, k, groups):
     """The blocked pipeline in float64 against the composed path: agreement to
@@ -473,6 +534,7 @@ def test_plain_version_is_exact_in_float64(shape, k, groups):
 @pytest.mark.parametrize("shape,k,groups", [
     ((2, 3, 28, 16, 20), (4, 3, 12, 3, 5), 1),  # one W block
     ((1, 4, 24, 9, 150), (6, 2, 10, 4, 7), 2),  # 3 W blocks, odd H, groups
+    ((1, 2, 16, 82, 12), (2, 2, 10, 11, 3), 1),  # H = 82 padded to Hw = 84
 ])
 def test_tap_plain_version_is_exact_in_float64(shape, k, groups):
     """B4's plain version in float64 against the composed path: agreement to

@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Times kernels B3 and B4 (csrc/fused3d.cu) on one NVIDIA GPU at one shape
-per SB, the plan's slabs a block of the dense H/W kernels (4, 2, 1), with
-the device time of each of their kernels. Each row names the H/W kernels it
-ran ("h_path"): "factored" for H = 16, 32, 64, 128 (one slab pair a block,
-whatever SB the plan gives), "dense" for every other H and for a tree that
-has no factored kernels.
+"""Times kernels B3 and B4 (csrc/fused3d.cu) on one NVIDIA GPU at the 3D
+benchmark rows, at the same calls at 48^3 and at the stuffed volumes of the
+transposed rows (78^3 at K=8, 82^3 at K=10), and at one shape per SB, the
+plan's slabs a block of the dense H/W kernels (4, 2, 1), with the device
+time of each of their kernels. Each row names the H/W kernels it ran
+("h_path") and the working length of their H transforms ("hw"): "factored"
+for every H from 16 to 256 (one slab pair a block, whatever SB the plan
+gives; in a tree from before the working lengths, for H = 16, 32, 64, 128
+only), "dense" for every other H and for a tree that has no factored
+kernels.
 
     python3 time_fused3d_sb.py [--root DIR] [--main-rows] [--variant SPEC ...]
 
@@ -44,15 +48,21 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# (chain, B, Cin, Cout, D, H, W, K): the 3D benchmark rows (SB = 4; H = 64
-# runs the factored H/W kernels) and the largest volumes of chip_smoke.py's
-# checks that keep each chain's plan at H = 226 (NBH 114, SB = 2) and H = 454
-# (NBH 228, SB = 1), both dense
+# (chain, B, Cin, Cout, D, H, W, K): the 3D benchmark rows (H = 64 runs the
+# factored H/W kernels at their constant split), the same calls at 48^3 (Hw
+# = 48 = 8 x 6), the stuffed volumes of the transposed rows (78^3 in two W
+# blocks, Hw = 78 = 13 x 6; 82^3, Hw = 84 = 7 x 12), and volumes that keep
+# each chain's plan on the dense kernels at H = 300 (NBH 151, SB = 2) and
+# H = 454 (NBH 228, SB = 1)
 ROWS = [
     ("B3", 2, 8, 8, 64, 64, 64, 8),
-    ("B3", 2, 4, 4, 16, 226, 64, 3),
+    ("B3", 2, 8, 8, 48, 48, 48, 8),
+    ("B3", 2, 8, 8, 78, 78, 78, 8),
+    ("B3", 2, 4, 4, 16, 300, 64, 3),
     ("B3", 2, 2, 2, 12, 454, 64, 3),
     ("B4", 2, 8, 8, 64, 64, 64, 10),
+    ("B4", 2, 8, 8, 48, 48, 48, 10),
+    ("B4", 2, 8, 8, 82, 82, 82, 10),
     ("B4", 2, 8, 8, 16, 454, 64, 3),
 ]
 
@@ -110,9 +120,9 @@ def main():
         lib, log = variant_library(variant_constants(variant))
         print(json.dumps({"variant": variant,
                           "registers": {k: v for k, v in smoke.ptxas_registers(log).items()
-                                        if "_mac" in k},
+                                        if "_mac" in k or "_hw_" in k},
                           "spill_bytes": {k: v for k, v in smoke.ptxas_spills(log).items()
-                                          if "_mac" in k}}), flush=True)
+                                          if "_mac" in k or "_hw_" in k}}), flush=True)
         _build.load = lambda name, lib=lib: lib if name == "fused3d" else load(name)
         try:
             time_rows(root, variant, smoke, torch, fused3d, rows)
@@ -128,11 +138,14 @@ def time_rows(root, variant, smoke, torch, fused3d, rows):
     for chain, b, cin, cout, d, h, w, k in rows:
         x = torch.randn(b, cin, d, h, w, device=dev, generator=gen)
         wt = torch.randn(cout, cin, k, k, k, device=dev, generator=gen) / k ** 1.5
+        # the working length of the H transforms (H itself in a tree from
+        # before it)
+        hw = fused3d._h_work(h)[0] if hasattr(fused3d, "_h_work") else h
         if chain == "B3":
-            spectra = fused3d.kernel_spectra_3d(wt, h)
+            spectra = fused3d.kernel_spectra_3d(wt, hw)
             launch, reference = fused3d._launch_fused3d, fused3d._fused3d_forward_reference
         else:
-            spectra = fused3d.kernel_spectra_tap(wt, h)
+            spectra = fused3d.kernel_spectra_tap(wt, hw)
             launch, reference = fused3d._launch_fused3d_tap, fused3d._fused3d_tap_reference
         plan = fused3d._plan_for(x.shape, wt.shape, 1)[0]
         h_path = fused3d._h_path(h) if hasattr(fused3d, "_h_path") else "dense"
@@ -144,6 +157,7 @@ def time_rows(root, variant, smoke, torch, fused3d, rows):
         print(json.dumps({
             "root": root, "variant": variant, "chain": chain, "shape": [b, cin, cout, d, h, w, k],
             "plan": list(plan), "sb": fused3d._slabs_per_block(plan[1]), "h_path": h_path,
+            "hw": hw,
             "max_abs_err": err,
             "ms": smoke.device_ms(kernel),
             "phase_ms": smoke.phase_split_ms(torch, kernel, "fused3d_"),
