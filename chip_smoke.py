@@ -19,7 +19,14 @@ row through a serving plan (``ops.plan_fft_conv``,
 through the launch counters that each path ran its kernels, and times each
 kernel beside its plain version, the composed path, one library call and the
 least time the card could take (the counts of ``fft_conv_tpu_torch.kernels.costs``).
-Then three phases drive the modules around the kernels: ``streaming`` (each
+Phase 5b turns on ``set_fused3d_inline`` (off by default): kernel B7, which
+computes B3's kernel spectra from the raw taps, against its plain version
+at the working lengths 64, 48, 78 and a dense 12; the 3D rows under
+``impl="auto"`` and the K=8 transposed call under ``impl="fused"`` with B7
+launched once ahead of B3, each held to the composed path; B7's time beside
+the torch spectra it replaces, ``torch.fft.fftn`` and its bound, and each
+call with inline on and off. Then three phases drive the modules around the
+kernels: ``streaming`` (each
 1D row's signal fed to ``ops.streaming_conv1d_step`` in 8 frames of 4096
 samples, a ragged split, dilation 2 and groups 2; one B1 launch per chunk,
 held to the one-shot call; the step's and the stream's times), ``harness``
@@ -141,14 +148,22 @@ D_EDGES_3D_TAP = [
     ((2, 4, 20, 16, 12), (4, 4, 20, 3, 3), 1, "KD = D = 20 (OD 1)"),
 ]
 WARMUP, ITERS, GRAPH_REPS = 5, 30, 20
+# profile_ms's traces of one call at most, while a trace holds none of its kernels
+PROFILE_TRIES = 3
 # the streaming phase: each 1D row's 32768 samples as 8 frames of 4096, as a
 # server filters a long audio signal, and at K=1024 a ragged split of them
 STREAM_CHUNK, STREAM_CHUNKS = 4096, 8
 # the harness phase's witness: graph replays timed together on the host clock
 WITNESS_REPLAYS = 200
 RAGGED_CHUNKS = (1000, 5000, 26768)
+# (taps, Hw, case): kernel B7 against its plain version at the working
+# lengths of the 3D rows' H and of the transposed K=8 row's stuffed volume,
+# and at a dense H
+INLINE_HW = [((8, 8, 8, 8, 8), 64, "64^3 K=8 (Hw 64)"), ((8, 8, 8, 8, 8), 48, "48^3 K=8 (Hw 48)"),
+             ((8, 8, 8, 8, 8), 78, "stuffed 78^3 K=8 (Hw 78)"),
+             ((4, 4, 3, 3, 3), 12, "H=12 (dense, Hw 12)")]
 # the launch counters' names, in _counts' order
-KERNEL_NAMES = ("B1", "B2", "B5", "B3", "B4", "B6")
+KERNEL_NAMES = ("B1", "B2", "B5", "B3", "B4", "B6", "B7")
 # the examples phase: the launches each example makes at the JAX scripts'
 # sizes (the audio example: one-shot, plan, 256 stream steps; training: two
 # layers' forwards in each of 5 steps, the backward composed; the volume's
@@ -921,21 +936,28 @@ def profile_ms(torch, fn, group, reps=GRAPH_REPS, count=False):
     torch.profiler's CUDA activity over ``reps`` calls of fn() (after one
     warm-up call); kernels whose group is None are left out, and the result
     is {} when the profiler records no device time. ``count``: launches
-    per call in place of the time."""
+    per call in place of the time. Every caller's fn() launches kernels of
+    the group, so a trace in which the group is empty is taken again, up to
+    PROFILE_TRIES times in all: on the H100 one such trace was followed by
+    full ones of the same calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     split = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "device_time_total", 0) or getattr(evt, "cuda_time_total", 0)
-        name = group(evt.key) if us and evt.device_type == torch.autograd.DeviceType.CUDA else None
-        if name is not None:
-            split[name] = split.get(name, 0.0) + (evt.count if count else us / 1e3) / reps
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            us = getattr(evt, "device_time_total", 0) or getattr(evt, "cuda_time_total", 0)
+            cuda = evt.device_type == torch.autograd.DeviceType.CUDA
+            name = group(evt.key) if us and cuda else None
+            if name is not None:
+                split[name] = split.get(name, 0.0) + (evt.count if count else us / 1e3) / reps
+        if split:
+            break
     return split
 
 
@@ -1335,6 +1357,104 @@ def time_transposed_3d(torch, x, t_inputs):
         print(json.dumps({"phase": "timing", "kernel": "B3" if plan[0] == "v4" else "B4",
                           "case": "fft_conv_transpose 64^3", **row}))
         torch.cuda.synchronize()
+
+
+def phase_inline(torch, gen, inputs3d, x_t, t_inputs):
+    """Phase 5b, the inline spectra (``set_fused3d_inline(True)``): kernel
+    B7 against its plain version at INLINE_HW (within 1e-5·max|ref|, and
+    against the complex128 spectra); then, counted from zero, the main path
+    under inline: fft_conv(impl="auto") at the 3D rows and
+    fft_conv_transpose(impl="fused") at the K=8 transposed row, each held to
+    the composed path, B7 once and B3 once a call; then B7's time beside the
+    spectra it replaces (``kernel_spectra_3d``), one torch.fft.fftn call, its
+    plain version and its bound, and each call's time with inline on and
+    off. The switch is restored. Returns (B7 launches, errors, rows)."""
+    from fft_conv_tpu_torch import fft_conv, fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused3d
+    from fft_conv_tpu_torch.kernels.costs import bound, fused3d_spectra_work
+    from fft_conv_tpu_torch.ops import functional as F
+
+    errs = []
+    for shape, hw, what in INLINE_HW:
+        k = (torch.randn(*shape, generator=gen) / math.sqrt(math.prod(shape[1:]))).cuda()
+        got = fused3d._launch_spectra_v4(k, hw)
+        torch.cuda.synchronize()
+        ref = fused3d._spectra_v4_reference(k, hw)
+        oracle = fused3d.kernel_spectra_3d(k.double(), hw)
+        mx = float((got - ref).abs().max())
+        bar = 1e-5 * float(ref.abs().max())
+        check(got.shape == ref.shape and bool(got.isfinite().all()) and mx <= bar,
+              f"B7 vs plain, {what}: err_max {mx:.3e} > {bar:.3e}")
+        mx_oracle = float((got.to(torch.complex128) - oracle).abs().max())
+        check(mx_oracle <= 1e-5 * float(oracle.abs().max()),
+              f"B7 vs complex128, {what}: err_max {mx_oracle:.3e}")
+        errs.append(mx)
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B7", "case": what, "hw": hw,
+                          "taps": list(shape), "max_abs_err": mx, "bar_max": bar,
+                          "max_abs_err_vs_complex128": mx_oracle}))
+
+    calls = []
+    for (b, cin, cout, d, h, w, k), (x, wt, bias, _) in zip(BENCH_SHAPES_3D, inputs3d):
+        calls.append((f"fft_conv(impl='auto') {d}^3 K={k}", wt, fused3d._h_work(h)[0],
+                      functools.partial(fft_conv, x, wt, bias, impl="auto"),
+                      functools.partial(fft_conv, x, wt, bias, impl="xla")))
+    k, wt, bias, _, _ = t_inputs[0]
+    full = x_t.shape[2] + 2 * (k - 1)
+    # the transposed call's spectra: its kernel as the stuffed correlation takes it
+    wt_corr = F._transpose_kernel_layout(wt, 1, (1, 1, 1))
+    calls.append((f"fft_conv_transpose(impl='fused') {x_t.shape[2]}^3 K={k}", wt_corr,
+                  fused3d._h_work(full)[0],
+                  functools.partial(fft_conv_transpose, x_t, wt, bias, impl="fused"),
+                  functools.partial(fft_conv_transpose, x_t, wt, bias, impl="xla")))
+
+    fused3d.set_fused3d_inline(True)
+    try:
+        _reset_counts()
+        for what, _, _, call, composed in calls:
+            before = _counts(torch)
+            y = call()
+            rose = {n: v - before[n] for n, v in _counts(torch).items()}
+            check(rose == {n: int(n in ("B3", "B7")) for n in KERNEL_NAMES},
+                  f"inline {what} launched {rose}, not B7 and B3 once each")
+            mx, mean, _ = close_scaled(y, composed(), f"inline {what} vs xla")
+            print(json.dumps({"phase": "main_path", "kernel": "B7", "case": what,
+                              "launches": rose["B7"], "launches_b3": rose["B3"],
+                              "max_abs_err_vs_composed": mx, "mean_abs_err": mean}))
+        launched = _counts(torch)["B7"]
+        print(json.dumps({"phase": "main_path_counts", "kernels": "B7 (inline)",
+                          "launches": launched}))
+
+        rows = []
+        for what, wt, hw, call, _ in calls:
+            nbytes, flops = fused3d_spectra_work(wt.shape[1], wt.shape[0], hw, wt.shape[2:])
+            bound_ms, bound_by = bound(nbytes, flops)
+            row = {
+                "case": what, "hw": hw, "taps": list(wt.shape),
+                "ms": device_ms(lambda: fused3d._launch_spectra_v4(wt, hw)),
+                "spectra_ms": device_ms(lambda: fused3d.kernel_spectra_3d(wt, hw)),
+                "library_ms": device_ms(lambda: torch.fft.fftn(wt, s=(16, hw, 64),
+                                                               dim=(2, 3, 4))),
+                "plain_ms": call_ms(lambda: fused3d._spectra_v4_reference(wt, hw)),
+                "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+                "auto_inline_ms": device_ms(call),
+                "auto_inline_call_ms": call_ms(call),
+                "phase_inline_ms": phase_split_ms(torch, call, "fused3d_"),
+            }
+            row["inline_spectra_ms"] = row["ms"]
+            row["spectra_library_ms"] = row["library_ms"]
+            fused3d.set_fused3d_inline(False)
+            try:
+                row["auto_ms"] = device_ms(call)
+                row["auto_call_ms"] = call_ms(call)
+            finally:
+                fused3d.set_fused3d_inline(True)
+            rows.append(row)
+            print(json.dumps({"phase": "timing", "kernel": "B7", **row}))
+    finally:
+        fused3d.set_fused3d_inline(False)
+    check(not fused3d._INLINE3D, "the inline switch was not restored")
+    torch.cuda.synchronize()
+    return launched, errs, rows
 
 
 def check_pack3d(torch, dev, gen, inputs3d):
@@ -2168,13 +2288,13 @@ def phase_parallel(torch, inputs1d, inputs2d, inputs3d):
 
 
 def _counts(torch):
-    """The six launch counters (B1, B2, B5, B3, B4, B6), after a sync."""
+    """The seven launch counters (B1, B2, B5, B3, B4, B6, B7), after a sync."""
     from fft_conv_tpu_torch.kernels import fused1d, fused2d, fused3d
 
     torch.cuda.synchronize()
     return dict(zip(KERNEL_NAMES, (fused1d.launches, fused2d.launches, fused2d.launches_v3,
                                    fused3d.launches, fused3d.launches_tap,
-                                   fused3d.launches_pack)))
+                                   fused3d.launches_pack, fused3d.launches_spectra)))
 
 
 def _reset_counts():
@@ -2182,6 +2302,7 @@ def _reset_counts():
 
     fused1d.launches = fused2d.launches = fused2d.launches_v3 = 0
     fused3d.launches = fused3d.launches_tap = fused3d.launches_pack = 0
+    fused3d.launches_spectra = 0
 
 
 def _errors(pairs):
@@ -2515,12 +2636,12 @@ def main() -> int:
     # at SB = 4, 2, 1, direct and packed; the factored ones built for H = 16,
     # 32, 64, 128 and the one that takes any split, direct and packed; the D
     # kernels d_mac at 8, 4, 2, 1 and tap_mac at 4, 2, 1 output channels a
-    # block; the pack kernel), and every entry point's registers
+    # block; the pack kernel; B7), and every entry point's registers
     spills = ptxas_spills(_build.build_logs["fused3d"])
-    check(len(spills) == 32 and not any(sum(v) for v in spills.values()),
-          f"fused3d.cu's 32 entry points spill registers or are missing: {spills}")
+    check(len(spills) == 33 and not any(sum(v) for v in spills.values()),
+          f"fused3d.cu's 33 entry points spill registers or are missing: {spills}")
     regs = ptxas_registers(_build.build_logs["fused3d"])
-    print(json.dumps({"phase": "ptxas", "kernel": "B3, B4, B6", "spill_bytes": spills,
+    print(json.dumps({"phase": "ptxas", "kernel": "B3, B4, B6, B7", "spill_bytes": spills,
                       "registers": regs, "build_s": round(build_s, 2)}))
     torch.cuda.synchronize()
 
@@ -2642,6 +2763,9 @@ def main() -> int:
     rows3d = time_3d(torch, inputs3d, errs3d, per_row3d)
     rows3t = time_3d_tap(torch, inputs3t, errs3t, per_row3t)
     time_transposed_3d(torch, inputs3t[0][0], t_inputs)
+    # phase 5b: the inline spectra (B7 ahead of B3), counted from zero
+    main_launches_b7, errs_b7, rows_b7 = phase_inline(torch, gen, inputs3d, inputs3t[0][0],
+                                                      t_inputs)
     time_transposed_1d_2d(torch, inputs, inputs2d)
     time_tier3(torch, inputs2d)
     rows_pack = time_pack3d(torch, timed_pack)
@@ -2677,6 +2801,9 @@ def main() -> int:
         kernel_entry("B6_pack3d", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",
                      "fft_conv_tpu/kernels/fused3d.py:1184", main_launches_pack, errs_pack,
                      rows_pack),
+        kernel_entry("B7_fused3d_spectra", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",
+                     "fft_conv_tpu/kernels/fused3d.py:792", main_launches_b7, errs_b7,
+                     rows_b7),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """The port's kernels: the fused 1D (B1), 2D (B2, and B5 on the "v3"
 schedule that ``set_fused2d_kernel`` selects), 3D overlap-save-D (B3, reading
-a signal packed by the x-pack kernel B6 under ``set_fused3d_xpack("pk")``)
-and 3D tap (B4) kernels, their wrappers, the fused transposed routes in 1D,
-2D and 3D, and the serving plans with baked spectra."""
+a signal packed by the x-pack kernel B6 under ``set_fused3d_xpack("pk")``,
+and spectra computed from the raw taps by kernel B7 under
+``set_fused3d_inline(True)``) and 3D tap (B4) kernels, their wrappers, the
+fused transposed routes in 1D, 2D and 3D, and the serving plans with baked
+spectra."""
 
 from .fourstep import four_step_fft, four_step_ifft, kernel_spectrum
 from .fused1d import (
@@ -25,6 +27,7 @@ from .fused3d import (
     plan_3d,
     plan_3d_blocked,
     plan_fft_conv3d,
+    set_fused3d_inline,
     set_fused3d_xpack,
 )
 
@@ -37,6 +40,7 @@ __all__ = [
     "fft_conv_transpose3d_fused",
     "set_fused2d_kernel",
     "set_fused3d_xpack",
+    "set_fused3d_inline",
     "plan_fft_conv1d",
     "plan_fft_conv2d",
     "plan_fft_conv3d",

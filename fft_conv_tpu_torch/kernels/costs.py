@@ -1,12 +1,13 @@
 """The kernels' own cost counts, and the record a ``cost_analysis`` reads.
 
 The counts of the work each fused function must do and of the work each
-kernel does (B1 ``csrc/fused1d.cu``, B2 and B5 ``csrc/fused2d.cu``, B3, B4
-and B6 ``csrc/fused3d.cu``), with the bound they give on the H100's
+kernel does (B1 ``csrc/fused1d.cu``, B2 and B5 ``csrc/fused2d.cu``, B3, B4,
+B6 and B7 ``csrc/fused3d.cu``), with the bound they give on the H100's
 data-sheet rates. They are the port's counterparts of the
 ``pl.CostEstimate`` of each Pallas call in the JAX package
 (``fft_conv_tpu/kernels/fused1d.py:458``, ``fused2d.py:541``,
-``fused3d.py:1170``, ``:1221``, ``:1404``), kept beside the kernels as JAX
+``fused3d.py:1170``, ``:1221``, ``:1404``; B7's is the inline term of
+``fused3d.py:1161``), kept beside the kernels as JAX
 keeps them beside its calls. ``chip_smoke.py`` prints them as ``bound_ms``,
 ``dense_bound_ms`` and ``kernel_flops``.
 
@@ -69,7 +70,7 @@ def tallying() -> Iterator[Tally]:
 
 @contextlib.contextmanager
 def record(kernel: str, flops: int, nbytes: int) -> Iterator[None]:
-    """Records one call of ``kernel`` (B1 ... B6) in the innermost running
+    """Records one call of ``kernel`` (B1 ... B7) in the innermost running
     tally around the block that runs it or its plain version, and pauses
     the counting of aten ops in the block. ``flops``: the kernel's own count
     (``*_kernel_flops``); ``nbytes``: the inputs read once and the outputs
@@ -691,6 +692,40 @@ def fused3d_tap_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
     item = cin * fwd + cout * inv
     item += cout * npos * -(-od // dc) * dc * 8 * (cin // groups) * kd
     return b * nwb * item
+
+
+def fused3d_spectra_work(cin, cout, h, k, groups=1):
+    """(bytes, flops) kernel B7 must move and do for one call: the (Cout,
+    Cin/g, KD, KH, KW) float32 taps read once and the conjugated spectra
+    (Cout, Cin/g, 16, Hw/2+1, 64) complex64 written once, at the working
+    length Hw = fused3d._h_work(h), the length B3 reads them at. Flops, with
+    an FMA as two, per (out, in) channel pair, the separable transforms on
+    the taps: the W DFT-64 of each (d, h) row of KW real taps (4 per tap and
+    bin), the one-sided H DFT of the KH rows at each D tap and W bin (8 per
+    term) and the DFT-16 of the KD taps at each (H, W) bin (8 per term)."""
+    from . import fused3d
+
+    kd, kh, kw = _ks(k, 3)
+    nbh, pairs = fused3d._nbh_work(h), cout * (cin // groups)
+    nbytes = pairs * (4 * kd * kh * kw + 8 * 16 * nbh * 64)
+    flops = 4 * kd * kh * kw * 64 + 8 * kd * nbh * 64 * kh + 8 * 16 * nbh * 64 * kd
+    return nbytes, pairs * flops
+
+
+def fused3d_spectra_kernel_flops(cin, cout, h, k, groups=1):
+    """The flops csrc/fused3d.cu's fused3d_spectra_v4 does for one call: per
+    (out, in) channel pair and block of fused3d._SPEC_NB one-sided H bins
+    (the last block's bins past Hw/2+1 too), the W DFT-64 of every row of
+    taps again and the H DFT onto all the block's bins; the DFT-16 onto the
+    Hw/2+1 bins alone."""
+    from . import fused3d
+
+    kd, kh, kw = _ks(k, 3)
+    nbh, nb = fused3d._nbh_work(h), fused3d._SPEC_NB
+    blocks = -(-nbh // nb)
+    per_pair = blocks * (4 * kd * kh * kw * 64 + 8 * kd * nb * 64 * kh)
+    per_pair += 8 * 16 * nbh * 64 * kd
+    return cout * (cin // groups) * per_pair
 
 
 def bound(nbytes, flops):

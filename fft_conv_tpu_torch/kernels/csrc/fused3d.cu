@@ -189,9 +189,14 @@
 // is a float4 where the source is 16 B aligned and wholly inside W, else
 // four masked scalars (the clamped last W block starts off alignment).
 //
-// Entry points: fused3d_forward (B3), fused3d_tap_forward (B4) and
-// fused3d_pack (B6), plain C interfaces loaded with ctypes. Each returns
-// cudaGetLastError() after its launches; 0 means all were accepted.
+// B7 (fused3d_spectra_taps, below) computes B3's kernel spectra from the raw
+// taps on the card under set_fused3d_inline, the port of the TPU kernel's
+// inline-spectra body.
+//
+// Entry points: fused3d_forward (B3), fused3d_tap_forward (B4),
+// fused3d_pack (B6) and fused3d_spectra_v4 (B7), plain C interfaces loaded
+// with ctypes. Each returns cudaGetLastError() after its launches; 0 means
+// all were accepted.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1546,6 +1551,130 @@ fused3d_tap_mac(const float2* __restrict__ t,   // (items of this launch, Cin, d
   }
 }
 
+// ---- B7: B3's kernel spectra from the raw taps --------------------------------
+
+// B7 replaces the inline body of the TPU kernel
+// (fft_conv_tpu/kernels/fused3d.py:792-812: grid cell 0 of _make_kernel_v4
+// under set_fused3d_inline computes the spectra into scratch that persists
+// across the cells). A Hopper grid has no first cell that the others wait
+// for, so B7 is a launch of its own at the head of B3's chain, writing the
+// conjugated spectra
+//   ks[o, c, f, n, z] = conj(sum_{t, u, v} k[o, c, t, u, v]
+//                            e^{-2 pi i (f t / 16 + n u / hw + z v / 64)})
+// at the 16 D-bins, the hw/2+1 one-sided H bins and the 64 W bins in the
+// layout fused3d_d_mac reads (the entry point fused3d_spectra_v4). It is
+// bound by the bytes it writes (17.3 MB at the 64^3 benchmark row, against
+// 0.2 GFLOP), so its stores are whole rows of 64 W bins, 256 contiguous
+// bytes a warp, and it spends few instructions a value. It computes
+// separably: grid (Cout * Cin/g, ceil(nbh / kSpecNB)); a block stages its
+// pair's taps and two root tables in shared memory (see below); thread (z,
+// r) owns W bin z, and row group r the D taps t = r, r + 4, ...: for each,
+// the W DFT-64 of the KH rows of taps at z, each summed into the block's
+// kSpecNB H bins in registers (the H DFT), then stored to shared memory;
+// after a barrier, thread (z, r) takes the DFT-16 over the KD taps (zeros
+// past KD) of the block's H bins r, r + 4, ... at z, factored 4 * 4 in
+// registers as B3's D stage factors it (kDF, dfac), conjugated and stored.
+// The roots exp(-2 pi i m / N) of the W and H transforms come from the
+// host's float64 tables (fused3d.py: _spectra_roots), taken at (bin * tap)
+// mod N into the tables; the DFT-16 factors are B3's (fused3d.py:
+// _factor_vector of _D_SPLIT). The W and H steps do most of its
+// instructions, so they read only shared memory, each read a broadcast or
+// 32 neighbouring values: the taps (a warp reads one), w_tab[v] (a warp
+// reads 32 z) and h_tab[u] (one).
+constexpr int kSpecNB = 8;
+constexpr int kSpecThreads = 256;
+constexpr int kSpecRows = kSpecThreads / kTW;
+static_assert(kSpecNB % kSpecRows == 0, "whole H bins a row group");
+
+__global__ void __launch_bounds__(kSpecThreads)
+fused3d_spectra_taps(const float* __restrict__ k,       // (pairs, kd, kh, kw) taps
+                     const float2* __restrict__ roots,  // 64 W roots, hw H roots
+                     const float2* __restrict__ dfac,   // DFT-16 factors (4 + 4 + 16)
+                     float2* __restrict__ ks,           // (pairs, 16, hw/2+1, 64)
+                     int kd, int kh, int kw, int hw) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // shared memory: the W roots as a (kw, 64) table, w_tab[v][z] = exp(-2 pi
+  // i z v / 64), so that a warp reads 32 neighbouring values; the H roots of
+  // the block's bins as a (kh, kSpecNB) table, h_tab[u][j] = exp(-2 pi i (n0
+  // + j) u / hw); the partial spectra; the pair's taps
+  float2* w_tab = reinterpret_cast<float2*>(smem_raw);
+  float2* h_tab = w_tab + kw * kTW;
+  float2* part = h_tab + kh * kSpecNB;  // (kd, kSpecNB, 64): the W and H DFTs done
+  float* s_taps = reinterpret_cast<float*>(part + kd * kSpecNB * kTW);
+  const int nbh = hw / 2 + 1, n0 = blockIdx.y * kSpecNB, ntaps = kd * kh * kw;
+  const int z = threadIdx.x % kTW, r = threadIdx.x / kTW;
+  const float* taps = k + (int64_t)blockIdx.x * ntaps;
+  for (int i = threadIdx.x; i < ntaps; i += kSpecThreads) s_taps[i] = __ldg(taps + i);
+  for (int i = threadIdx.x; i < kw * kTW; i += kSpecThreads)
+    w_tab[i] = __ldg(roots + (((i / kTW) * (i % kTW)) & (kTW - 1)));
+  for (int i = threadIdx.x; i < kh * kSpecNB; i += kSpecThreads)
+    h_tab[i] = __ldg(roots + kTW + (i / kSpecNB) * (n0 + i % kSpecNB) % hw);
+  __syncthreads();
+
+  for (int t = r; t < kd; t += kSpecRows) {
+    float2 acc[kSpecNB];
+#pragma unroll
+    for (int j = 0; j < kSpecNB; ++j) acc[j] = make_float2(0.f, 0.f);
+    for (int u = 0; u < kh; ++u) {
+      const float* row = s_taps + (t * kh + u) * kw;
+      float2 a = make_float2(0.f, 0.f);  // the W DFT-64 of row u at bin z
+#pragma unroll 4
+      for (int v = 0; v < kw; ++v) {
+        const float x = row[v];
+        const float2 e = w_tab[v * kTW + z];
+        a.x = fmaf(x, e.x, a.x);
+        a.y = fmaf(x, e.y, a.y);
+      }
+#pragma unroll
+      for (int j = 0; j < kSpecNB; ++j) cmac(acc[j], a, h_tab[u * kSpecNB + j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kSpecNB; ++j) part[(t * kSpecNB + j) * kTW + z] = acc[j];
+  }
+
+  // the DFT-16 factors: step 1's and step 2's roots (the twiddles tw[m1, j2]
+  // are read where they are used)
+  float2 ra[kDF / 2], rb[kDF / 2];
+  roots_of<kDF>(dfac, ra);
+  roots_of<kDF>(dfac + kDF, rb);
+  __syncthreads();
+
+#pragma unroll 1
+  for (int jj = 0; jj < kSpecNB / kSpecRows; ++jj) {
+    const int j = r + kSpecRows * jj, n = n0 + j;
+    if (n >= nbh) break;
+    // step 1: per j2, the 4-point DFT over j1 of x[4 j1 + j2] and the twiddle
+    float2 c[kDF][kDF];
+#pragma unroll
+    for (int j2 = 0; j2 < kDF; ++j2) {
+      float2 v[kDF];
+#pragma unroll
+      for (int j1 = 0; j1 < kDF; ++j1) {
+        const int s = kDF * j1 + j2;
+        v[j1] = s < kd ? part[(s * kSpecNB + j) * kTW + z] : make_float2(0.f, 0.f);
+      }
+      short_dft<kDF, false>(v, ra);
+#pragma unroll
+      for (int m1 = 0; m1 < kDF; ++m1)
+        c[m1][j2] = (m1 && j2) ? cmulw<false>(v[m1], __ldg(dfac + 2 * kDF + m1 * kDF + j2)) : v[m1];
+    }
+    // step 2: per m1, the 4-point DFT over j2 onto f = m1 + 4 m2; conjugated
+    float2* out = ks + ((int64_t)blockIdx.x * kDB * nbh + n) * kTW + z;
+#pragma unroll
+    for (int m1 = 0; m1 < kDF; ++m1) {
+      short_dft<kDF, false>(c[m1], rb);
+#pragma unroll
+      for (int m2 = 0; m2 < kDF; ++m2)
+        out[(int64_t)(m1 + kDF * m2) * nbh * kTW] = make_float2(c[m1][m2].x, -c[m1][m2].y);
+    }
+  }
+}
+
+size_t spectra_smem(int kd, int kh, int kw) {
+  return (size_t)(kw * kTW + kh * kSpecNB + kd * kSpecNB * kTW) * sizeof(float2) +
+         (size_t)kd * kh * kw * sizeof(float);
+}
+
 int slabs_per_block(int nbh) {
   if (Cfg<4>::smem(nbh) <= (size_t)kMaxSmem) return 4;
   if (Cfg<2>::smem(nbh) <= (size_t)kMaxSmem) return 2;
@@ -1862,6 +1991,30 @@ extern "C" int fused3d_tap_forward(const void* x, const void* ks, const void* fh
   a.hw = ha != 0 ? ha * hb : h;
   a.stream = static_cast<cudaStream_t>(stream);
   return launch_tap(a);
+}
+
+// B7: the conjugated spectra ks (pairs, 16, hw/2+1, 64) complex of the taps k
+// (pairs, kd, kh, kw) f32, pairs = Cout * Cin/groups, for B3 at the working
+// length hw (fused3d.py: kernel_spectra_3d, _spectra_v4_reference); roots
+// the 64 + hw roots exp(-2 pi i m / N) of the W and H transforms (fused3d.py:
+// _spectra_roots); dfac the DFT-16 factors, 4 + 4 + 16 complex, as
+// fused3d_forward takes them. Every element of ks is written. Returns
+// cudaGetLastError() after the launch.
+extern "C" int fused3d_spectra_v4(const void* k, const void* roots, const void* dfac, void* ks,
+                                  int pairs, int kd, int kh, int kw, int hw, void* stream) {
+  const int blocks_y = (hw / 2 + 1 + kSpecNB - 1) / kSpecNB;
+  const size_t smem = spectra_smem(kd, kh, kw);
+  if (pairs < 1 || kd < 1 || kd > 9 || kh < 1 || kh > hw || kw < 1 || kw > kTW ||
+      blocks_y > 65535 || smem > (size_t)kMaxSmem || dfac == nullptr)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused3d_spectra_taps, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fused3d_spectra_taps<<<dim3(pairs, blocks_y), kSpecThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(k), static_cast<const float2*>(roots),
+      static_cast<const float2*>(dfac), static_cast<float2*>(ks), kd, kh, kw, hw);
+  return cudaGetLastError();
 }
 
 // B6: packs x (B, Cin, d, h, w) f32 into xp (B * nwb, h, Cin * pp, 128) f32,

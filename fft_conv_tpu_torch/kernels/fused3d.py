@@ -53,9 +53,17 @@ is the composed path, shared with the 1D and 2D kernels
 convolution through the same forward on a zero-stuffed signal.
 ``plan_fft_conv3d`` bakes the kernel spectra once for serving.
 
-Not ported from the JAX module: the TPU's precision, MAC, staging and
-inline-spectra switches: the port's kernels compute in FP32 with one
-schedule each.
+The inline switch (``set_fused3d_inline``, off by default as in the JAX
+package) makes an unplanned 'v4' call compute its kernel spectra from the
+raw taps with kernel B7 (``fused3d_spectra_v4``: the W DFT-64, the
+one-sided H DFT at Hw and the conjugated DFT-16 of the taps, FP32, twiddles
+from float64 tables), launched at the head of B3's chain, in place of the
+complex128 torch transforms of ``kernel_spectra_3d``; on a CPU tensor its
+plain version ``_spectra_v4_reference`` runs. Plans (baked spectra) and
+'tap' calls never take it, nor does a shape outside ``_inline_fits_v4``.
+
+Not ported from the JAX module: the TPU's precision, MAC and staging
+switches: the port's kernels compute in FP32 with one schedule each.
 """
 
 import ctypes
@@ -92,6 +100,8 @@ _D_SPLIT = split_factors(_DB)
 # out-channels, ``_opb``) and the tap MAC's valid d a thread (kTapDC)
 _D_OPB = 8
 _TAP_DC = 8
+# B7's one-sided H bins a block (csrc/fused3d.cu: kSpecNB)
+_SPEC_NB = 8
 
 # The JAX package bounds its TPU cell by VMEM budgets (resident spectra of
 # 24 MiB, a whole-volume cell of 96 MiB for v4 and 80 MiB for tap). These
@@ -124,6 +134,8 @@ _SCRATCH_BUDGET = 256 * 2**20
 launches = 0
 launches_tap = 0
 launches_pack = 0
+# Launches of B7, one per inline call of a 'v4' plan on a CUDA tensor
+launches_spectra = 0
 
 # How a 'v4' plan reads the signal; _fused3d_forward reads it at call time.
 # "pk" runs B6 ahead of B3. "h", "h2", "d2" and "d0" name the JAX package's
@@ -141,6 +153,22 @@ def set_fused3d_xpack(mode: str) -> None:
     if mode not in ("h", "d2", "d0", "h2", "pk"):
         raise ValueError(f"unknown fused 3D x-pack mode: {mode!r}")
     _XPACK3D = mode
+
+
+# Whether an unplanned 'v4' call computes its kernel spectra with kernel B7
+# (``_inline_fits_v4`` permitting); _fused3d_forward reads it at call time.
+# Off by default, as in the JAX package.
+_INLINE3D = False
+
+
+def set_fused3d_inline(on: bool) -> None:
+    """Toggles the in-kernel spectra of 'v4' calls: on, an unplanned 'v4'
+    call whose shape passes ``_inline_fits_v4`` computes its kernel spectra
+    from the raw taps with kernel B7 (its plain version on a CPU tensor)
+    instead of ``kernel_spectra_3d``; plans and 'tap' calls are unchanged.
+    Both compute the same function."""
+    global _INLINE3D
+    _INLINE3D = bool(on)
 
 
 def _tap_counts(kd: int) -> Tuple[int, int]:
@@ -286,6 +314,32 @@ def _plan_tap(cin: int, cout: int, d: int, h: int, w: int,
     return ("tap", nbh, vdp, vdp - 8 + wrows)
 
 
+def _spectra_smem_bytes(kd: int, kh: int, kw: int) -> int:
+    """Shared memory of one block of kernel B7 (csrc/fused3d.cu:
+    spectra_smem): the W roots as a (KW, 64) table, the H roots of the
+    block's bins as a (KH, ``_SPEC_NB``) table and its partial spectra, KD x
+    ``_SPEC_NB`` one-sided H bins x 64 W bins, complex; and the pair's
+    float32 taps."""
+    return (kw * _TW + kh * _SPEC_NB + kd * _SPEC_NB * _TW) * 8 + kd * kh * kw * 4
+
+
+@lru_cache(maxsize=None)
+def _inline_fits_v4(cin: int, cout: int, d: int, h: int, w: int,
+                    kd: int, kh: int, kw: int, groups: int = 1) -> bool:
+    """Whether an inline call may compute its spectra with kernel B7: the
+    shape plans 'v4' (``plan_3d_blocked``: B3's budgets, W blocks included)
+    and B7's block fits its shared memory (the pair's taps among it, so a
+    kernel of more than about 50,000 taps a channel pair is refused). The
+    JAX signature, with the port's limits in place of the TPU's VMEM cap:
+    B7 writes the spectra that B3 then reads, at the size B3's plan admits,
+    so the 64^3 K=8 8 -> 8 row runs inline here, where the JAX gate refuses
+    it (133.74M of VMEM > 128M)."""
+    blocked = plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
+    if blocked is None or blocked[0][0] != "v4":
+        return False
+    return _spectra_smem_bytes(kd, kh, kw) <= _SMEM_LIMIT
+
+
 def _w_starts(w: int, nwb: int, hop: int):
     """The first input column of each W block: the last block is clamped to
     end at the input's edge."""
@@ -414,6 +468,40 @@ def kernel_spectra_tap(kernel: torch.Tensor, h: int) -> torch.Tensor:
     result is complex128 for a float64 kernel and complex64 otherwise."""
     out = torch.conj_physical(_hw_spectra(kernel, h))
     return out if kernel.dtype == torch.float64 else out.to(torch.complex64)
+
+
+@lru_cache(maxsize=None)
+def _spectra_roots(hw: int, device: torch.device) -> torch.Tensor:
+    """The roots of unity of kernel B7's W and H transforms as one complex64
+    vector of 64 + Hw on ``device``, built in float64 and then cast:
+    exp(-2 pi i m / N) for m < N, N = 64 (W) and ``hw`` (H), in the order
+    csrc/fused3d.cu reads them."""
+    parts = [np.exp(-2j * np.pi * np.arange(n) / n) for n in (_TW, hw)]
+    return torch.from_numpy(np.concatenate(parts).astype(np.complex64)).to(device)
+
+
+def _spectra_v4_reference(kernel: torch.Tensor, hw: int) -> torch.Tensor:
+    """Kernel B7's plain PyTorch version: ``kernel_spectra_3d(kernel, hw)``
+    computed as B7 computes it, in FP32 from the raw (Cout, Cin/g, KD, KH,
+    KW) taps: the W DFT-64 of each (d, h) row of taps and the one-sided H
+    DFT at ``hw`` of the KH rows, each a product with the roots of
+    ``_spectra_roots`` taken at (bin · tap) mod N; then the DFT-16 of the KD
+    taps (zeros past KD), factored 4 x 4 (``_D_SPLIT``,
+    ``fourstep.dft_last``), and the conjugate. Returns (Cout, Cin/g, 16,
+    hw/2+1, 64) complex64."""
+    cout, cpg, kd, kh, kw = kernel.shape
+    dev = kernel.device
+    roots = _spectra_roots(hw, dev)
+    nbh = hw // 2 + 1
+
+    def table(rows: int, cols: int, n: int, rts: torch.Tensor) -> torch.Tensor:
+        return rts[torch.outer(torch.arange(rows, device=dev), torch.arange(cols, device=dev)) % n]
+
+    a = kernel.detach().float().to(torch.complex64) @ table(kw, _TW, _TW, roots[:_TW])  # W
+    b = table(nbh, kh, hw, roots[_TW:]) @ a                   # H: (Cout, Cin/g, KD, NBH, 64)
+    b = TF.pad(b.movedim(2, -1), (0, _DB - kd))               # D last, zeros past KD
+    sr, si = dft_last(b.real, b.imag, _D_SPLIT, False)
+    return torch.complex(sr, -si).movedim(-1, 2).contiguous()
 
 
 def _plan_for(x_shape, kernel_shape, groups: int, mode: Optional[str] = None):
@@ -649,6 +737,8 @@ def _library() -> ctypes.CDLL:
         lib.fused3d_pack.restype = i
         lib.fused3d_tap_forward.argtypes = [p] * 9 + [i] * 16 + [p]
         lib.fused3d_tap_forward.restype = i
+        lib.fused3d_spectra_v4.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.fused3d_spectra_v4.restype = i
         lib.fused3d_error_string.argtypes = [i]
         lib.fused3d_error_string.restype = ctypes.c_char_p
         lib.fused3d_smem_bytes.argtypes = [i]
@@ -707,6 +797,33 @@ def _launch_pack3d(
         )
     _raise_on_error(lib, err, "fused3d pack")
     launches_pack += 1
+    return out
+
+
+def _launch_spectra_v4(kernel: torch.Tensor, hw: int) -> torch.Tensor:
+    """Runs kernel B7 on the (Cout, Cin/g, KD, KH, KW) float32 taps on a
+    CUDA device: returns the conjugated spectra (Cout, Cin/g, 16, hw/2+1,
+    64) complex64 at the working length ``hw`` (``_h_work(H)``), the input
+    of ``_launch_fused3d``, computed on the caller's stream."""
+    global launches_spectra
+    if not kernel.is_cuda or kernel.dtype != torch.float32:
+        raise ValueError("fused3d spectra kernel takes float32 taps on a CUDA device")
+    cout, cpg, kd, kh, kw = kernel.shape
+    if not (1 <= kd <= 9 and kh <= hw and 1 <= kw <= _TW):
+        raise ValueError(f"fused3d spectra kernel: taps {tuple(kernel.shape)} do not fit "
+                         f"KD <= 9, KH <= Hw = {hw}, KW <= {_TW}")
+    kernel = kernel.detach().contiguous()
+    dev = kernel.device
+    out = torch.empty((cout, cpg, _DB, hw // 2 + 1, _TW), device=dev, dtype=torch.complex64)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.fused3d_spectra_v4(
+            kernel.data_ptr(), _spectra_roots(hw, dev).data_ptr(),
+            _factor_vector(_D_SPLIT, dev).data_ptr(), out.data_ptr(),
+            cout * cpg, kd, kh, kw, hw, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on_error(lib, err, "fused3d spectra")
+    launches_spectra += 1
     return out
 
 
@@ -818,7 +935,9 @@ def _fused3d_forward(
     (``costs.record``), so that the analysis counts their transforms as the
     aten ops they are, on the CPU as on the card; the records hold the
     kernels' own counts (B6's too under "pk"), whichever of the kernels and
-    plain versions run."""
+    plain versions run. Under ``set_fused3d_inline(True)`` an unplanned 'v4'
+    call that passes ``_inline_fits_v4`` computes them with kernel B7 (its
+    plain version on the CPU) under B7's own record instead."""
     if x_padded.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused3d runs on CUDA or CPU tensors, got {x_padded.device}")
     plan, nwb, _ = _plan_for(x_padded.shape, kernel.shape, groups)
@@ -826,12 +945,26 @@ def _fused3d_forward(
     packed = not tap and _XPACK3D == "pk"
     b, cin, d, h, w = x_padded.shape
     k = tuple(kernel.shape[2:])
-    if spectra is None:
-        hw = _h_work(h)[0]
+    cout = kernel.shape[0]
+    hw = _h_work(h)[0]
+    inline = (spectra is None and not tap and _INLINE3D
+              and _inline_fits_v4(cin, cout, d, h, w, *k, groups))
+    if inline:
+        spectra_record = costs.IDLE
+        if costs.active():
+            spectra_record = costs.record(
+                "B7", costs.fused3d_spectra_kernel_flops(cin, cout, h, k, groups),
+                costs.fused3d_spectra_work(cin, cout, h, k, groups)[0])
+        with spectra_record:
+            if x_padded.is_cuda:
+                spectra = _launch_spectra_v4(kernel.float(), hw)
+            else:
+                spectra = _spectra_v4_reference(kernel, hw)
+    elif spectra is None:
         spectra = kernel_spectra_tap(kernel, hw) if tap else kernel_spectra_3d(kernel, hw)
     record = pack = costs.IDLE
     if costs.active():
-        shape = (b, cin, kernel.shape[0], d, h, w, k, groups)
+        shape = (b, cin, cout, d, h, w, k, groups)
         if tap:
             record = costs.record("B4", costs.fused3d_tap_kernel_flops(*shape),
                                   costs.fused3d_tap_work(*shape)[0])

@@ -146,6 +146,20 @@ def test_counts_3d_at_the_benchmark_rows():
     assert [round(p, 5) for p in pack] == [0.01127, 0.02433]
 
 
+@pytest.mark.parametrize("h,nbytes,bound_ms", [
+    (64, 17432576, 0.00520), (48, 13238272, 0.00395), (78, 21102592, 0.00630)])
+def test_spectra_counts_at_the_3d_rows(h, nbytes, bound_ms):
+    """B7 at the 8 -> 8, K=8 rows (64^3, 48^3 and the stuffed 78^3 of the
+    transposed call): 131 KB of taps read and the spectra (8, 8, 16, Hw/2+1,
+    64) complex64 written (17.3 MB at 64^3), bytes bound; the kernel does no
+    less than the separable least work."""
+    got, flops = costs.fused3d_spectra_work(8, 8, h, 8)
+    assert got == nbytes == 8 * 8 * (4 * 512 + 8 * 16 * (h // 2 + 1) * 64)
+    ms, by = costs.bound(got, flops)
+    assert (round(ms, 5), by) == (bound_ms, "bytes")
+    assert flops <= costs.fused3d_spectra_kernel_flops(8, 8, h, 8)
+
+
 def test_d_stage_counts_3d_at_the_benchmark_rows():
     """B3's and B4's D kernels at the 64^3 rows: the kernels' own flops (B3's
     DFT-16 factored 4 x 4 at one output a lane, the tap MAC onto chunks of 8
@@ -293,6 +307,19 @@ def test_cost_analysis_records_the_2d_and_3d_kernels():
     plan3, nwb, _ = fused3d.plan_3d_blocked(2, 2, 12, 10, 12, 3, 3, 3)
     assert got == {"B3": b3, "B6": {"calls": 1, "flops": 0,
                                     "bytes": costs.pack3d_bytes(1, 2, 12, 10, 12, plan3[3], nwb)}}
+
+    # under inline B7 computes the spectra: its record and B3's are all the
+    # call counts, as no aten op computes spectra
+    fused3d.set_fused3d_inline(True)
+    try:
+        out = cost_analysis(lambda: ft.fft_conv(x3, w3, impl="fused"))
+    finally:
+        fused3d.set_fused3d_inline(False)
+    b7 = {"calls": 1, "flops": costs.fused3d_spectra_kernel_flops(2, 2, 10, (3, 3, 3)),
+          "bytes": costs.fused3d_spectra_work(2, 2, 10, (3, 3, 3))[0]}
+    assert out["kernels"] == {"B7": b7, "B3": b3}
+    assert out["flops"] == b7["flops"] + b3["flops"]
+    assert b7["bytes"] == 2 * 2 * (4 * 27 + 8 * 16 * 6 * 64)
 
     x4, w4 = t(1, 2, 14, 8, 8), t(2, 2, 11, 3, 3)
     shape4 = (1, 2, 2, 14, 8, 8, (11, 3, 3))

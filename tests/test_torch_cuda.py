@@ -1,5 +1,6 @@
 """The port on a CUDA card: the fused 1D, 2D and 3D kernels (B1, B2, B5, B3,
-B4 and the x-pack kernel B6) against their plain versions, the serving
+B4, the x-pack kernel B6 and the spectra kernel B7) against their plain
+versions, the serving
 plans, and the routes that only a CUDA tensor takes. B1 is also held at the
 edges of its blocking: V1 = 1, a single block, Cin = 3 with groups = 3 and
 a stuffed transposed length. A stream of chunks launches B1 once per chunk,
@@ -386,6 +387,56 @@ def test_3d_kernel_in_item_ranges(cuda, monkeypatch):
     assert fused3d.launches - before == 3  # 2 x 3 W blocks, 2 a launch
     y_ref = fused3d._fused3d_forward_reference(x, k)
     _assert_close_scaled(y.cpu().numpy(), y_ref.cpu().numpy())
+
+
+# (taps, Hw): B7 at the 64^3 K=8 row (Hw 64), 48^3 (Hw 48), the stuffed 78^3
+# of the transposed K=8 row (Hw 78), a dense H (12), the padded 82 -> 84 and
+# the dense 300 (the largest H table a block stages here), groups = 2 and KD
+# = 1 and 9
+SPECTRA_V4 = [
+    ((8, 8, 8, 8, 8), 64), ((8, 8, 8, 8, 8), 48), ((8, 8, 8, 8, 8), 78),
+    ((4, 4, 3, 3, 3), 12), ((4, 2, 9, 5, 7), 84), ((2, 2, 1, 3, 64), 300),
+]
+
+
+@pytest.mark.parametrize("shape,hw", SPECTRA_V4)
+def test_spectra_kernel_matches_plain_version(cuda, shape, hw):
+    """B7 against its plain version on the card, and both against the
+    complex128 spectra: within 1e-5·max|ref|."""
+    (k,) = _tensors(cuda, hw, shape)
+    before = fused3d.launches_spectra
+    got = fused3d._launch_spectra_v4(k, hw)
+    torch.cuda.synchronize()
+    assert fused3d.launches_spectra == before + 1
+    ref = fused3d._spectra_v4_reference(k, hw)
+    oracle = fused3d.kernel_spectra_3d(k.double(), hw)
+    assert got.shape == ref.shape == oracle.shape and got.dtype == torch.complex64
+    scale = float(oracle.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert float((got.to(torch.complex128) - oracle).abs().max()) <= 1e-5 * scale
+
+
+def test_inline_routes_3d_cuda_to_b7(cuda):
+    """Under inline an unplanned 'v4' call launches B7 once ahead of B3 and
+    matches the composed path; a 'tap' call and a serving plan launch no B7;
+    a float64 kernel is taken as float32, as B3 takes it."""
+    x, w, b, xt, wt = _tensors(cuda, 23, (2, 4, 18, 20, 16), (6, 2, 3, 3, 3), (6,),
+                               (1, 2, 30, 16, 12), (2, 2, 11, 3, 3))
+    plan = fused3d.plan_fft_conv3d(w[:, :2].repeat(1, 2, 1, 1, 1), signal_dhw=(18, 20, 16))
+    fused3d.set_fused3d_inline(True)
+    try:
+        before = fused3d.launches, fused3d.launches_spectra
+        y = ft.fft_conv(x, w, b, groups=2, impl="auto")
+        y64 = ft.fft_conv(x.double(), w.double(), b.double(), groups=2, impl="auto")
+        assert (fused3d.launches, fused3d.launches_spectra) == (before[0] + 2, before[1] + 2)
+        ft.fft_conv(xt, wt, impl="fused")
+        plan(x)
+        assert fused3d.launches_spectra == before[1] + 2
+    finally:
+        fused3d.set_fused3d_inline(False)
+    y_ref = ft.fft_conv(x, w, b, groups=2, impl="xla")
+    _assert_close_scaled(y.cpu().numpy(), y_ref.cpu().numpy())
+    _assert_close_scaled(y64.cpu().numpy(), y_ref.cpu().numpy())
 
 
 def test_auto_routes_3d_cuda_to_the_kernel(cuda):

@@ -222,6 +222,11 @@ def test_budgets_differ_from_jax_where_intended():
     assert fused3d._plan_v4(13, 13, 16, 34, 16, 3, 3, 3) is None
     assert fused3d.plan_3d(13, 13, 16, 34, 16, 3, 3, 3) == ("tap", 18, 8, 16)
     assert fused3d._plan_v4(13, 13, 16, 32, 16, 3, 3, 3)[0] == "v4"
+    # inline spectra: the JAX gate adds them to the TPU's whole-volume cell
+    # (133.74M > 128M of VMEM at the 64^3 K=8 8 -> 8 row); here kernel B7
+    # writes them ahead of B3 at the size B3's v4 plan admits
+    assert not jax_fused3d._inline_fits_v4(8, 8, 64, 64, 64, 8, 8, 8, 1)
+    assert fused3d._inline_fits_v4(8, 8, 64, 64, 64, 8, 8, 8, 1)
     # no fallback: the port raises where the JAX function takes the composed path
     x, k = np.zeros((1, 1, 8, 8, 300), np.float32), np.zeros((1, 1, 2, 2, 70), np.float32)
     assert jax_fused3d.fft_conv3d_fused(jnp.asarray(x), jnp.asarray(k)).shape == (1, 1, 7, 7, 231)
