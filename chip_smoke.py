@@ -25,7 +25,15 @@ at the working lengths 64, 48, 78 and a dense 12; the 3D rows under
 ``impl="auto"`` and the K=8 transposed call under ``impl="fused"`` with B7
 launched once ahead of B3, each held to the composed path; B7's time beside
 the torch spectra it replaces, ``torch.fft.fftn`` and its bound, and each
-call with inline on and off. Then three phases drive the modules around the
+call with inline on and off. Phase 5c runs B1 under
+``set_fused_precision("bf16x3")`` and ``("bf16")``, the tensor-core pair of
+``csrc/fused1d.cu``: against its plain version at check_fused1d's cases
+("bf16" under its own bar, ``close_bf16``), through the 1D main paths
+(``fft_conv``, a plan, the transposed call, ``FFTConv1d``) counted from zero,
+with the three modes' errors against the float64 composed path ordered, and
+timed beside "highest" at the 1D rows; phase 2 fails if any of B1's 36
+entry points spills or a tensor-core one holds no HMMA instruction
+(``cuobjdump -sass``). Then three phases drive the modules around the
 kernels: ``streaming`` (each
 1D row's signal fed to ``ops.streaming_conv1d_step`` in 8 frames of 4096
 samples, a ragged split, dilation 2 and groups 2; one B1 launch per chunk,
@@ -230,7 +238,26 @@ def device_ms(fn):
     return graph_seconds(fn, GRAPH_REPS)[0] * 1e3
 
 
-def check_fused1d(torch, dev, inputs):
+def close_bf16(y, y_ref, what):
+    """The bar of B1's "bf16" tensor-core pair against its plain version
+    (tests/test_torch_cuda.py:_assert_bf16_kernel_close): err_mean < 5e-4 *
+    sigma and err_max < 2.5e-2 * sigma, sigma = max(1, std(ref)). Both round
+    the same operands to bf16, but their FP32 sums can differ in the last
+    bit, which now and then flips an operand's rounding by one bf16 step;
+    the mean bar is a tenth of the JAX package's serving bar against the
+    exact result. Returns (max abs err, mean abs err, sigma)."""
+    y, y_ref = y.detach(), y_ref.detach()
+    check(y.shape == y_ref.shape, f"{what}: shape {tuple(y.shape)} vs {tuple(y_ref.shape)}")
+    check(bool(y.isfinite().all()), f"{what}: non-finite values")
+    err = (y.double() - y_ref.double()).abs()
+    sigma = max(1.0, float(y_ref.double().std()))
+    mean, mx = float(err.mean()), float(err.max())
+    check(mean < 5e-4 * sigma, f"{what}: err_mean {mean:.3e} >= 5e-4 * {sigma:.3f}")
+    check(mx < 2.5e-2 * sigma, f"{what}: err_max {mx:.3e} >= 2.5e-2 * {sigma:.3f}")
+    return mx, mean, sigma
+
+
+def check_fused1d(torch, dev, inputs, mode="highest"):
     """B1 against its plain version on the card at the 1D benchmark rows,
     with groups=2, with the blocks split over several launches, at V1 = 1
     (K = N - 127) for N1 = 16 and 64, on a single block, at Cin = 3 with
@@ -238,23 +265,34 @@ def check_fused1d(torch, dev, inputs):
     33278). Between them they run each phase at each N1 in both block
     sizes (512 threads where a phase's grid has no more blocks than the card
     has SMs: the K=3840 row, the single block, groups=3). The extra cases
-    draw from their own generator. Returns the rows' max abs errors."""
+    draw from their own generator. ``mode``: the precision mode, whose
+    kernel pair and plain version are compared ("bf16x3" and "bf16": the
+    tensor-core pair, at the same two block sizes; "bf16" under
+    ``close_bf16``). Returns the rows' max abs errors."""
     from fft_conv_tpu_torch.kernels import fused1d
 
+    name = "B1" if mode == "highest" else f"B1 {mode}"
+    close, bars = (close_bf16, (2.5e-2, 5e-4)) if mode == "bf16" else (close_scaled,
+                                                                        (1.2e-4, 2e-5))
+
+    def count():
+        return fused1d.launches if mode == "highest" else fused1d.launches_tc
+
     def vs_plain(x, w, n, groups, what):
-        before = fused1d.launches
+        before = count()
         y = fused1d._launch_fused1d(x, fused1d.kernel_spectra_one_sided(w, n), n, groups,
-                                    w.shape[-1])
+                                    w.shape[-1], mode)
         torch.cuda.synchronize()
-        launched = fused1d.launches - before
-        check(launched >= 1, f"B1 {what}: no launch")
-        mx, mean, sigma = close_scaled(
-            y, fused1d._fused_forward_reference(x, w, n, groups), f"B1 vs plain, {what}")
+        launched = count() - before
+        check(launched >= 1, f"{name} {what}: no launch")
+        mx, mean, sigma = close(
+            y, fused1d._fused_forward_reference(x, w, n, groups, mode=mode),
+            f"{name} vs plain, {what}")
         v1, v_total, nblk = fused1d._blocking(n, w.shape[-1], x.shape[-1])
-        print(json.dumps({"phase": "kernel_vs_plain", "kernel": "B1", "case": what, "N": n,
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel": name, "case": what, "N": n,
                           "V1": v1, "blocks": nblk, "launches": launched, "max_abs_err": mx,
-                          "mean_abs_err": mean, "sigma": sigma, "bar_max": 1.2e-4 * sigma,
-                          "bar_mean": 2e-5 * sigma}))
+                          "mean_abs_err": mean, "sigma": sigma, "bar_max": bars[0] * sigma,
+                          "bar_mean": bars[1] * sigma}))
         return mx
 
     errs = [vs_plain(x, w, n, 1, f"K={w.shape[-1]}") for x, w, _, n in inputs]
@@ -263,9 +301,9 @@ def check_fused1d(torch, dev, inputs):
     budget = fused1d._SCRATCH_BUDGET
     try:
         fused1d._SCRATCH_BUDGET = 3 * fused1d._scratch_bytes_per_block(n, 2, 8)
-        before = fused1d.launches
+        before = count()
         vs_plain(x, w, n, 1, "block ranges")
-        split = fused1d.launches - before
+        split = count() - before
     finally:
         fused1d._SCRATCH_BUDGET = budget
     check(split > 1, "the block ranges did not split")
@@ -325,6 +363,168 @@ def ptxas_registers(log):
             regs[fn] = int(m.group(1))
             fn = None
     return regs
+
+
+def sass_hmma(path):
+    """{kernel: HMMA instructions} of each kernel in the library at path,
+    from ``cuobjdump -sass``: the tensor-core products it issues."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"\bHMMA\b", ln):
+            counts[fn] += 1
+    return counts
+
+
+def main_path_precision(torch, inputs, mode):
+    """B1's main paths under ``set_fused_precision(mode)`` ("bf16x3" or
+    "bf16"), counted from zero: fft_conv(x, w, bias) (impl="auto") at the
+    three 1D rows, a tier-1 plan of each (ops.plan_fft_conv), the
+    transposed call fft_conv_transpose(x, w, bias) on each row's signal,
+    and FFTConv1d(8, 8, 1024) forward. Each launches the tensor-core pair
+    once and the FP32 pair never, and is held to the composed path in
+    float64: "bf16x3" under the FP32 bar, "bf16" under the JAX package's
+    serving bar (err_mean < 5e-3 * sigma, err_max < 5e-2 * sigma). Returns
+    the tensor-core launches and {case: err_mean / sigma}."""
+    from fft_conv_tpu_torch import FFTConv1d, fft_conv, fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused1d
+    from fft_conv_tpu_torch.ops import plan_fft_conv
+
+    def held(y, ref, what):
+        y_ref = ref()
+        if mode == "bf16x3":
+            mx, mean, sigma = close_scaled(y, y_ref, what)
+        else:
+            err = (y.detach().double() - y_ref).abs()
+            sigma = max(1.0, float(y_ref.std()))
+            mean, mx = float(err.mean()), float(err.max())
+            check(mean < 5e-3 * sigma and mx < 5e-2 * sigma,
+                  f"{what}: err_mean {mean:.3e}, err_max {mx:.3e} past the serving bar at "
+                  f"sigma {sigma:.3f}")
+        return mean / sigma, mx / sigma
+
+    def drive(fn, ref, what):
+        before = fused1d.launches, fused1d.launches_tc
+        with torch.no_grad():
+            y = fn()
+        torch.cuda.synchronize()
+        rose = fused1d.launches - before[0], fused1d.launches_tc - before[1]
+        check(rose == (0, 1), f"{what} under {mode!r} launched (FP32, tensor-core) {rose}")
+        mean, mx = held(y, ref, what)
+        print(json.dumps({"phase": "main_path_precision", "mode": mode, "case": what,
+                          "launches_tc": rose[1], "err_mean_vs_float64": mean,
+                          "err_max_vs_float64": mx}))
+        return mean
+
+    errs = {}
+    fused1d.set_fused_precision(mode)
+    fused1d.launches = fused1d.launches_tc = 0
+    layer = FFTConv1d(8, 8, 1024, device="cuda", generator=torch.Generator().manual_seed(0))
+    for x, w, bias, _ in inputs:
+        k, l = w.shape[-1], x.shape[-1]
+        x64, w64, b64 = x.double(), w.double(), bias.double()
+        planned = plan_fft_conv(w, bias, signal_spatial=(l,), max_batch=x.shape[0])
+        errs[f"auto K={k}"] = drive(lambda: fft_conv(x, w, bias),
+                                    lambda: fft_conv(x64, w64, b64, impl="xla"),
+                                    f"fft_conv auto K={k}")
+        drive(lambda: planned(x), lambda: fft_conv(x64, w64, b64, impl="xla"), f"plan K={k}")
+        drive(lambda: fft_conv_transpose(x, w, bias),
+              lambda: fft_conv_transpose(x64, w64, b64, impl="xla"),
+              f"fft_conv_transpose K={k}")
+    x = inputs[1][0]
+    drive(lambda: layer(x), lambda: fft_conv(x.double(), layer.weight.double(),
+                                             layer.bias.double(), impl="xla"),
+          "FFTConv1d(8, 8, 1024)")
+    torch.cuda.synchronize()
+    launched = fused1d.launches_tc
+    check(fused1d.launches == 0, f"the FP32 pair ran under {mode!r}")
+    return launched, errs
+
+
+def phase_precision(torch, dev, inputs, shapes):
+    """Phase 5c: B1's precision modes. Under "bf16x3" and "bf16" the
+    tensor-core pair against its plain version at check_fused1d's cases and
+    the main paths of main_path_precision (counted from zero); at the 1D
+    rows the errors of fft_conv under the three modes against the composed
+    path in float64, ordered "highest" < "bf16x3" < "bf16" with err_mean
+    at least 4x and then 50x the one before (the CPU tests measure about
+    35x and 650x; a mode running another's arithmetic gives 1x); then the
+    three modes timed side by side at each row: the kernel pair's device time
+    and call latency, its two kernels (profiler), fft_conv and the plan, the
+    plain version, and the bound (``costs.fused1d_work`` for "highest",
+    ``costs.fused1d_tc_work`` with the products at the bf16 rate otherwise).
+    "highest" is restored at the end, so later phases run as before.
+    Returns {mode: (launches, kernel-vs-plain errors, timing rows)} for the
+    bf16 modes."""
+    from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.kernels import fused1d
+    from fft_conv_tpu_torch.kernels.costs import bound, fused1d_tc_work, fused1d_work
+    from fft_conv_tpu_torch.ops import plan_fft_conv
+
+    out = {}
+    try:
+        for mode in fused1d.PRECISION_MODES[1:]:
+            fused1d.set_fused_precision("highest")
+            errs = check_fused1d(torch, dev, inputs, mode)
+            launched, _ = main_path_precision(torch, inputs, mode)
+            print(json.dumps({"phase": "main_path_counts", "mode": mode,
+                              "launches_tc": launched}))
+            out[mode] = (launched, errs, [])
+        for (b, cin, cout, l, k), (x, w, bias, n) in zip(BENCH_SHAPES, inputs):
+            ref = fft_conv(x.double(), w.double(), bias.double(), impl="xla")
+            sigma = max(1.0, float(ref.std()))
+            order = []
+            for mode in fused1d.PRECISION_MODES:
+                fused1d.set_fused_precision(mode)
+                order.append(float((fft_conv(x, w, bias).double() - ref).abs().mean()) / sigma)
+            print(json.dumps({"phase": "precision_order", "K": k, "err_mean_vs_float64":
+                              dict(zip(fused1d.PRECISION_MODES, order))}))
+            check(4 * order[0] < order[1] and 50 * order[1] < order[2],
+                  f"K={k}: the modes' errors against float64 are not ordered: {order}")
+        for (b, cin, cout, l, k), (x, w, bias, n), base in zip(BENCH_SHAPES, inputs, shapes):
+            spectra = fused1d.kernel_spectra_one_sided(w, n)
+            planned = plan_fft_conv(w, signal_spatial=(l,), max_batch=b)
+            for mode in fused1d.PRECISION_MODES:
+                fused1d.set_fused_precision(mode)
+
+                def kernel():
+                    return fused1d._launch_fused1d(x, spectra, n, 1, k, mode)
+
+                def auto():
+                    return fft_conv(x, w, impl="auto")
+
+                if mode == "highest":
+                    (nbytes, flops), bf16_flops = fused1d_work(b, cin, cout, l, k, n), 0
+                else:
+                    nbytes, bf16_flops, flops = fused1d_tc_work(b, cin, cout, l, k, n, mode)
+                bound_ms, bound_by = bound(nbytes, flops, bf16_flops)
+                row = {
+                    "mode": mode, "K": k, "N": n,
+                    "ms": device_ms(kernel), "call_ms": call_ms(kernel),
+                    "phase_ms": phase_split_ms(torch, kernel, "fused1d_"),
+                    "auto_ms": device_ms(auto), "plan_ms": device_ms(lambda: planned(x)),
+                    "plain_ms": call_ms(
+                        lambda: fused1d._fused_forward_reference(x, w, n, mode=mode)),
+                    "library_ms": base["library_ms"], "composed_ms": base["composed_ms"],
+                    "bytes": nbytes, "flops": flops, "bf16_flops": bf16_flops,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                }
+                if mode != "highest":
+                    out[mode][2].append({**row, "max_abs_err": out[mode][1][len(out[mode][2])]})
+                print(json.dumps({"phase": "timing_precision", **row}))
+                torch.cuda.synchronize()
+    finally:
+        fused1d.set_fused_precision("highest")
+    return out
 
 
 def check_fused2d(torch, dev, gen):
@@ -2554,7 +2754,7 @@ def kernel_entry(name, source, replaces, launches, errs, rows):
     from fft_conv_tpu_torch.kernels.costs import bound
 
     def total(key):
-        return sum(r[key] for r in rows)
+        return sum(r.get(key, 0) for r in rows)
 
     library = [r["library_ms"] for r in rows]
     return {
@@ -2562,7 +2762,7 @@ def kernel_entry(name, source, replaces, launches, errs, rows):
         "launches": launches, "max_abs_err": max(errs),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"),
-        "bound_by": bound(total("bytes"), total("flops"))[1],
+        "bound_by": bound(total("bytes"), total("flops"), total("bf16_flops"))[1],
         "library_ms": None if None in library else sum(library), "shapes": rows,
     }
 
@@ -2621,11 +2821,21 @@ def main() -> int:
             paths[name].unlink()
             _build.build([name])
     spills = ptxas_spills(_build.build_logs["fused1d"])
-    # both phases at N1 = 16, 32, 64, each at 256 and 512 threads
-    entries = [fn for fn in spills if "fused1d_" in fn]
-    check(len(entries) == 12 and not any(sum(v) for v in spills.values()),
-          f"B1's 12 entry points spill registers or are missing: {spills}")
-    print(json.dumps({"phase": "ptxas", "kernel": "B1", "spill_bytes": spills}))
+    # the FP32 pair: both phases at N1 = 16, 32, 64, each at 256 and 512
+    # threads; the tensor-core pair: the same under "bf16x3" and under
+    # "bf16", each entry point holding HMMA (tensor-core) instructions
+    entries = [fn for fn in spills if "fused1d_" in fn and "_tc" not in fn]
+    tc_entries = [fn for fn in spills if "fused1d_" in fn and "_tc" in fn]
+    check(len(entries) == 12 and len(tc_entries) == 24
+          and not any(sum(v) for v in spills.values()),
+          f"B1's 36 entry points spill registers or are missing: {spills}")
+    hmma = {fn: c for fn, c in sass_hmma(paths["fused1d"]).items() if "fused1d_" in fn}
+    check(sorted(fn for fn in hmma if "_tc" in fn) == sorted(tc_entries)
+          and all(hmma[fn] > 0 for fn in tc_entries),
+          f"B1's tensor-core entry points lack HMMA instructions: {hmma}")
+    print(json.dumps({"phase": "ptxas", "kernel": "B1", "spill_bytes": spills,
+                      "registers": ptxas_registers(_build.build_logs["fused1d"]),
+                      "sass_hmma": hmma}))
     # B5: both phases at each of the four tile plans
     spills = {fn: v for fn, v in ptxas_spills(_build.build_logs["fused2d"]).items()
               if "fused2d_v3_" in fn}
@@ -2769,6 +2979,8 @@ def main() -> int:
     time_transposed_1d_2d(torch, inputs, inputs2d)
     time_tier3(torch, inputs2d)
     rows_pack = time_pack3d(torch, timed_pack)
+    # phase 5c: B1's precision modes (the tensor-core pair), counted from zero
+    precision = phase_precision(torch, dev, inputs, shapes)
 
     # phases 6 to 8: the streaming path (counted from zero), the
     # measurement modules, checkpoints
@@ -2804,6 +3016,10 @@ def main() -> int:
         kernel_entry("B7_fused3d_spectra", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",
                      "fft_conv_tpu/kernels/fused3d.py:792", main_launches_b7, errs_b7,
                      rows_b7),
+    ] + [
+        kernel_entry(f"B1_fused1d_{mode}", "fft_conv_tpu_torch/kernels/csrc/fused1d.cu",
+                     "fft_conv_tpu/kernels/fused1d.py:291", *precision[mode])
+        for mode in fused1d.PRECISION_MODES[1:]
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

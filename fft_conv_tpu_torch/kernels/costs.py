@@ -26,10 +26,12 @@ import contextlib
 import functools
 from typing import Dict, Iterator, List
 
-# NVIDIA's data sheet for the H100 SXM: HBM rate and FP32 rate outside the
-# tensor cores (the kernels use FP32 FMAs only)
+# NVIDIA's data sheet for the H100 SXM: HBM rate, FP32 rate outside the
+# tensor cores, and the dense bf16 tensor-core rate (B1's "bf16x3" and
+# "bf16" modes; every other kernel uses FP32 FMAs only)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 
 class Tally:
@@ -314,6 +316,55 @@ def fused1d_kernel_flops(b, cin, cout, l, k, n, groups=1):
     inv = (8 * (cin // groups) * h * 128 + h * row + 6 * h * 128 + 2 * 64 * n1
            + 64 * (col1 + col2) + v1 * 128)
     return b * len(blocks) * (cin * fwd + cout * inv)
+
+
+def fused1d_tc_work(b, cin, cout, l, k, n, mode, groups=1):
+    """(bytes, product flops, FP32 flops) of B1's tensor-core pair under
+    ``mode`` ("bf16x3" or "bf16") for one call, over whole blocks, as the
+    kernels run it (csrc/fused1d.cu, fused1d_spectra_tc and
+    fused1d_mac_inverse_tc).
+
+    Bytes as fused1d_work. Product flops (an FMA as two, a complex R-point
+    step as the real 2R x 2R product), times 3 under "bf16x3": per block and
+    input channel the N1-point DFT of the 64 column pairs (dense at N1 = 16
+    and 32, two 8-point steps at N1 = 64: fused1d._TC_COL_SPLITS) and the
+    row DFTs of the N1/2+1 rows as 16 · 8; per block and output channel the
+    inverse row DFTs and the c2r's N1-point DFT of the 64 pairs onto the V1
+    stored rows (dense: whole n-tiles of 4 rows; factored: all). FP32
+    flops: the split (8 per pair and row), the four-step twiddle (6 per
+    bin), the row and column splits' twiddles (6 per product by a root
+    other than 1), the MAC, the conjugate twiddle and Hermitian extension
+    of the c2r (14 per pair and bin) and the output scale."""
+    n1 = n // 128
+    h = n1 // 2 + 1
+    v1, _, blocks = _blocks_1d(l, k, n)
+    passes = 3 if mode == "bf16x3" else 1
+    rows = h * (8 * 2 * 32 * 32 + 16 * 2 * 16 * 16)  # 8 vectors of 16, 16 of 8, a row
+    row_tw = 6 * h * 8 * 15  # step 1's outputs m1 > 0
+    if n1 == 64:  # 8 vectors of 8 points, then 8 more, a pair
+        col = c2r = 64 * 2 * 8 * 2 * 16 * 16
+        col_tw = 6 * 64 * 8 * 7
+    else:
+        col = 64 * 2 * (2 * n1) ** 2
+        c2r = 64 * 2 * (2 * n1) * (8 * -(-v1 // 4))
+        col_tw = 0
+    fwd = 8 * 64 * h + 6 * h * 128 + row_tw + col_tw
+    inv = 8 * (cin // groups) * h * 128 + row_tw + col_tw + 14 * 64 * n1 + v1 * 128
+    calls = b * len(blocks)
+    nbytes = fused1d_work(b, cin, cout, l, k, n, groups)[0]
+    return (nbytes, calls * passes * (cin * (col + rows) + cout * (rows + c2r)),
+            calls * (cin * fwd + cout * inv))
+
+
+def fused1d_record(b, cin, cout, l, k, n, groups, mode):
+    """The ``record`` of one B1 call under precision ``mode``: "B1" with the
+    FP32 pair's count under "highest", "B1_bf16x3" or "B1_bf16" with the
+    tensor-core pair's (product and FP32 flops together) otherwise."""
+    if mode == "highest":
+        return record("B1", fused1d_kernel_flops(b, cin, cout, l, k, n, groups),
+                      fused1d_work(b, cin, cout, l, k, n, groups)[0])
+    nbytes, products, rest = fused1d_tc_work(b, cin, cout, l, k, n, mode, groups)
+    return record(f"B1_{mode}", products + rest, nbytes)
 
 
 def fused1d_dense_work(b, cin, cout, l, k, n, groups=1):
@@ -728,11 +779,13 @@ def fused3d_spectra_kernel_flops(cin, cout, h, k, groups=1):
     return cout * (cin // groups) * per_pair
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, bf16_flops=0):
     """(bound_ms, bound_by): the larger of the bytes and the operations
-    bound on the card's data-sheet rates."""
+    bound on the card's data-sheet rates, the operations' time being the
+    FP32 ``flops`` at the FP32 rate plus the tensor-core ``bf16_flops`` at
+    the bf16 rate (the steps of one block run one after the other)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    ops_ms = (flops / FP32_FLOPS_PER_S + bf16_flops / BF16_FLOPS_PER_S) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
 
 

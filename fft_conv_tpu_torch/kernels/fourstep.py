@@ -104,13 +104,15 @@ def _factor_tensors(n1: int, n2: int, dtype: torch.dtype, device: torch.device):
 
 
 def dft_last(xr: torch.Tensor, xi: Optional[torch.Tensor], split: Tuple[int, int],
-             inverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+             inverse: bool, dot=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Unscaled DFT (inverse: conjugated) of the last axis, length T = A·B
     with ``split`` = (A, B), through the four-step factors: the A-point DFT
     f1 over j1 of x[j1 * B + j2], the twiddle, the B-point DFT f2 over j2,
     and the result read back in natural bin order (X[m1 + A * m2] =
     D[m1, m2]), as the fused kernels run it. ``xi`` None is a real input.
-    Returns (re, im) in the dtype of ``xr``."""
+    ``dot(a, b)`` forms each real product of the two DFT steps (None: the
+    plain ``a @ b``; the fused 1D kernel's bf16 modes pass their rounding
+    products). Returns (re, im) in the dtype of ``xr``."""
     t = xr.shape[-1]
     a, b = split
     if a * b != t:
@@ -118,14 +120,15 @@ def dft_last(xr: torch.Tensor, xi: Optional[torch.Tensor], split: Tuple[int, int
     f1r, f1i, f2r, f2i, twr, twi = _factor_tensors(a, b, xr.dtype, xr.device)
     if inverse:
         f1i, f2i, twi = -f1i, -f2i, -twi
+    mm = torch.matmul if dot is None else dot
     lead = xr.shape[:-1]
     ar = xr.reshape(*lead, a, b)
-    br, bi = f1r @ ar, f1i @ ar
+    br, bi = mm(f1r, ar), mm(f1i, ar)
     if xi is not None:
         ai = xi.reshape(*lead, a, b)
-        br, bi = br - f1i @ ai, bi + f1r @ ai
+        br, bi = br - mm(f1i, ai), bi + mm(f1r, ai)
     cr, ci = br * twr - bi * twi, br * twi + bi * twr
-    dr, di = cr @ f2r - ci @ f2i, cr @ f2i + ci @ f2r
+    dr, di = mm(cr, f2r) - mm(ci, f2i), mm(cr, f2i) + mm(ci, f2r)
     return (dr.transpose(-1, -2).reshape(*lead, t), di.transpose(-1, -2).reshape(*lead, t))
 
 

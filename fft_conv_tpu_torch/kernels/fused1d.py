@@ -12,10 +12,17 @@ the N1-point column DFTs as ``_COL_SPLITS`` on column pairs packed as one
 complex column, the 128-point row DFTs as ``_ROW_SPLIT``
 (``fourstep.dft_last``).
 
-On a CUDA tensor ``_fused_forward`` launches the kernel; on a CPU tensor it
-runs ``_fused_forward_reference``, the same blocked pipeline written with
-torch ops (the counterpart of the JAX package's Pallas interpret mode).
-There is no other route: a CUDA tensor launches the kernel or raises.
+``set_fused_precision`` picks how the DFT products are formed, as the JAX
+package's switch of that name does: "highest" (the default here) runs the
+FP32 kernel pair, "bf16x3" and "bf16" the tensor-core pair of the same
+source, whose DFT steps are bf16 products (hi/lo splits, three products or
+one), their column DFTs dense or factored 8 · 8 (``_TC_COL_SPLITS``).
+
+On a CUDA tensor ``_fused_forward`` launches the kernel pair of the mode; on
+a CPU tensor it runs ``_fused_forward_reference``, the same blocked pipeline
+written with torch ops, the mode's roundings included (the counterpart of
+the JAX package's Pallas interpret mode). There is no other route: a CUDA
+tensor launches the kernel or raises.
 
 Gradients: ``_FusedCore`` is a ``torch.autograd.Function`` whose backward is
 two composed-path convolutions (``ops/functional.py``): dx is the transposed
@@ -39,13 +46,17 @@ from ..ops import functional as F
 from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
-from .fourstep import dft_last, fft_factor_matrices, kernel_spectrum
+from .fourstep import _factor_tensors, dft_last, fft_factor_matrices, kernel_spectrum
 
 _N2 = 128
 # The kernel's four-step splits (A, B): N1 = A * B for the column DFTs of
 # stage 1 and the c2r, 128 = 16 * 8 for the row DFTs (as B2's T = 128)
 _COL_SPLITS = {16: (4, 4), 32: (8, 4), 64: (8, 8)}
 _ROW_SPLIT = (16, 8)
+# The tensor-core kernels' column DFTs: dense at N1 = 16 and 32 (2 N1 real
+# fills each k-step of 16, where a radix-4 step would fill half), 8 · 8 at
+# N1 = 64 (both radix-8 steps fill it, at a quarter of the dense products)
+_TC_COL_SPLITS = {16: None, 32: None, 64: (8, 8)}
 _FFT_SIZES = (2048, 4096, 8192)
 
 # The JAX package bounds its TPU cell by two VMEM budgets (resident spectra
@@ -64,9 +75,34 @@ _SCRATCH_BUDGET = 256 * 2**20
 # CUDA's limit on gridDim.y, which carries the blocks of one launch.
 _MAX_BLOCKS_PER_LAUNCH = 65535
 
-# Launches of the CUDA kernel pair (phase 1 + phase 2) since import or the
-# last reset; the plain version on CPU tensors does not count.
+# Launches of the FP32 kernel pair (phase 1 + phase 2) since import or the
+# last reset, and of the tensor-core pair (the modes "bf16x3" and "bf16");
+# the plain version on CPU tensors does not count.
 launches = 0
+launches_tc = 0
+
+# How the DFT products are formed (set_fused_precision): "highest" FP32,
+# "bf16x3" three bf16 products of hi/lo splits (lo.lo dropped), "bf16" one.
+# The twiddles, the one-sided split, the MAC and 1/N are FP32 in every mode.
+PRECISION_MODES = ("highest", "bf16x3", "bf16")
+_PRECISION_MODE = "highest"
+# the tensor-core kernel's code of each bf16 mode: its products per k-step
+_TC_MODE = {"bf16x3": 3, "bf16": 1}
+
+
+def set_fused_precision(mode: str) -> None:
+    """Selects how the fused 1D kernel forms its DFT products, read at
+    every call: "highest" (FP32, the FP32 kernel pair), "bf16x3" (bf16
+    tensor-core products of hi/lo splits, three a product, near FP32) or
+    "bf16" (one bf16 product, an opt-in serving mode outside the FP32 bar).
+    Any other name raises ValueError. The 2D and 3D kernels are not
+    affected. The port of the JAX package's ``set_fused_precision``
+    (``fft_conv_tpu/kernels/fused1d.py:177``), whose default is "bf16x3";
+    this one's is "highest"."""
+    global _PRECISION_MODE
+    if mode not in PRECISION_MODES:
+        raise ValueError(f"unknown fused precision mode: {mode!r}")
+    _PRECISION_MODE = mode
 
 
 def fused_split(n: int) -> Tuple[int, int]:
@@ -191,18 +227,57 @@ def _twiddle_rows(h: int, dt: torch.dtype, device: torch.device):
             torch.from_numpy(np.ascontiguousarray(tw.imag)).to(device, dt))
 
 
-def _forward_spectrum(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest even), in its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The "bf16x3" product: hi = bf16(x) and lo = bf16(x - hi) of both
+    operands, lo.hi + hi.lo + hi.hi summed in the operands' dtype."""
+    ah, bh = _bf16(a), _bf16(b)
+    return _bf16(a - ah) @ bh + ah @ _bf16(b - bh) + ah @ bh
+
+
+def _dot1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The "bf16" product: bf16(a) @ bf16(b), summed in the operands' dtype."""
+    return _bf16(a) @ _bf16(b)
+
+
+# the product that forms each DFT step of a mode (None: the FP32 ``@``)
+_DOTS = {"highest": None, "bf16x3": _dot3, "bf16": _dot1}
+
+
+def _column_dft(xr: torch.Tensor, xi: torch.Tensor, inverse: bool,
+                dot) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The unscaled N1-point DFT (inverse: conjugated) of the last axis of
+    xr + i xi as the kernels run it: ``_COL_SPLITS`` in FP32 (``dot`` None);
+    under a tensor-core mode each real product through ``dot``, as one dense
+    product (the DFT matrix is symmetric) or factored (``_TC_COL_SPLITS``)."""
+    n1 = xr.shape[-1]
+    split = _COL_SPLITS[n1] if dot is None else _TC_COL_SPLITS[n1]
+    if split is not None:
+        return dft_last(xr, xi, split, inverse, dot)
+    fr, fi = _factor_tensors(n1, 1, xr.dtype, xr.device)[:2]
+    if inverse:
+        fi = -fi
+    return dot(xr, fr) - dot(xi, fi), dot(xr, fi) + dot(xi, fr)
+
+
+def _forward_spectrum(a: torch.Tensor, dot=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's phase 1 on real windows ``a`` (..., N1, 128): the
     one-sided scrambled spectrum D (..., N1/2+1, 128) as (re, im).
 
     Stage 1 packs columns c and c + 64 as one complex column, runs its
     N1-point DFT (``_COL_SPLITS``) and splits bins k and -k into the two
     columns' spectra on rows k1 <= N1/2; then the twiddle and stage 2, the
-    128-point DFT of each row (``_ROW_SPLIT``)."""
+    128-point DFT of each row (``_ROW_SPLIT``). ``dot``: the product of a
+    tensor-core mode (``_DOTS``), under which the column DFT is that of the
+    tensor-core kernels (``_column_dft``); None is FP32."""
     n1 = a.shape[-2]
     h = n1 // 2 + 1
-    zr, zi = dft_last(a[..., :64].transpose(-1, -2), a[..., 64:].transpose(-1, -2),
-                      _COL_SPLITS[n1], False)  # (..., 64, N1)
+    zr, zi = _column_dft(a[..., :64].transpose(-1, -2), a[..., 64:].transpose(-1, -2),
+                         False, dot)  # (..., 64, N1)
     k = torch.arange(h, device=a.device)
     m = (n1 - k) % n1
     pr, pi, qr, qi = zr[..., k], zi[..., k], zr[..., m], zi[..., m]
@@ -211,20 +286,21 @@ def _forward_spectrum(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     bi = torch.cat([pi - qi, qr - pr], dim=-2).transpose(-1, -2) / 2
     twr, twi = _twiddle_rows(h, a.dtype, a.device)
     cr, ci = br * twr - bi * twi, br * twi + bi * twr
-    return dft_last(cr, ci, _ROW_SPLIT, False)
+    return dft_last(cr, ci, _ROW_SPLIT, False, dot)
 
 
-def _inverse_valid(yr: torch.Tensor, yi: torch.Tensor, v1: int) -> torch.Tensor:
+def _inverse_valid(yr: torch.Tensor, yi: torch.Tensor, v1: int, dot=None) -> torch.Tensor:
     """The kernel's inverse on one-sided spectra Y (..., N1/2+1, 128): the
     first V1 rows (..., V1, 128) of the real block, 1/N included.
 
     The conjugated 128-point row DFT and the conjugate twiddle give G; the
     c2r then runs columns c and c + 64 at once, as one conjugated N1-point
     DFT of their Hermitian extensions G[N1 - k] = conj G[k] (bins 0 and
-    N1/2 taken real), whose real and imaginary parts are the two columns."""
+    N1/2 taken real), whose real and imaginary parts are the two columns.
+    ``dot`` as in ``_forward_spectrum``."""
     h = yr.shape[-2]
     n1 = 2 * (h - 1)
-    er, ei = dft_last(yr, yi, _ROW_SPLIT, True)
+    er, ei = dft_last(yr, yi, _ROW_SPLIT, True, dot)
     twr, twi = _twiddle_rows(h, yr.dtype, yr.device)
     gr, gi = (er * twr + ei * twi).transpose(-1, -2), (ei * twr - er * twi).transpose(-1, -2)
     k = torch.arange(n1, device=yr.device)
@@ -234,14 +310,14 @@ def _inverse_valid(yr: torch.Tensor, yi: torch.Tensor, v1: int) -> torch.Tensor:
     low = k < n1 // 2
     vr = torch.where(real, ar, torch.where(low, ar - bi, ar + bi))
     vi = torch.where(real, br, torch.where(low, ai + br, br - ai))
-    outr, outi = dft_last(vr, vi, _COL_SPLITS[n1], True)  # (..., 64, N1)
+    outr, outi = _column_dft(vr, vi, True, dot)  # (..., 64, N1)
     out = torch.cat([outr[..., :v1], outi[..., :v1]], dim=-2).transpose(-1, -2)
     return out / (n1 * _N2)
 
 
 def _fused_forward_reference(
     x_padded: torch.Tensor, kernel: torch.Tensor, n: int, groups: int = 1,
-    spectra: Optional[torch.Tensor] = None,
+    spectra: Optional[torch.Tensor] = None, mode: str = "highest",
 ) -> torch.Tensor:
     """The kernel's plain PyTorch version: the same blocked one-sided
     pipeline with the same factored transforms (``_forward_spectrum``, the
@@ -251,7 +327,10 @@ def _fused_forward_reference(
     ``x_padded`` (B, Cin, L) already padded, ``kernel`` (Cout, Cin/g, K)
     already dilated; returns the valid correlation (B, Cout, L - K + 1).
     ``spectra``: a plan's baked ``kernel_spectra_one_sided``, or None to
-    compute them.
+    compute them. ``mode``: the precision mode whose kernel pair this
+    stands for; under "bf16x3" and "bf16" each DFT product rounds its
+    operands to bfloat16 where the tensor-core kernels do (``_DOTS``), the
+    column DFTs factored as they run them (``_TC_COL_SPLITS``).
     """
     dt = torch.float64 if x_padded.dtype == torch.float64 else torch.float32
     b, cin, l_pad = x_padded.shape
@@ -263,7 +342,8 @@ def _fused_forward_reference(
     need = (nblk - 1) * v + n
     x = TF.pad(x_padded.to(dt), (0, need - l_pad))
     a = x.unfold(2, n, v).reshape(b, cin, nblk, n1, n2)
-    dr, di = _forward_spectrum(a)  # (B, Cin, nblk, H, N2)
+    dot = _DOTS[mode]
+    dr, di = _forward_spectrum(a, dot)  # (B, Cin, nblk, H, N2)
 
     # per-bin complex MAC over each out-channel's group of in-channels
     if spectra is None:
@@ -280,7 +360,7 @@ def _fused_forward_reference(
     yr = yr.reshape(b, cout, nblk, h, n2)
     yi = yi.reshape(b, cout, nblk, h, n2)
 
-    out = _inverse_valid(yr, yi, v1)  # (B, Cout, nblk, V1, N2)
+    out = _inverse_valid(yr, yi, v1, dot)  # (B, Cout, nblk, V1, N2)
     return out.reshape(b, cout, nblk * v)[:, :, :v_total]
 
 
@@ -300,6 +380,51 @@ def _device_consts(n1: int, device: torch.device):
     return fac, torch.complex(*_twiddle_rows(n1 // 2 + 1, torch.float32, device))
 
 
+def _b_fragments(m: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The complex (R, R) DFT matrix ``m`` (output k, input j) as the B
+    operand of csrc/fused1d.cu's ``mma.sync`` m16n8k16 products: the real
+    (2R, 2R) matrix B[2j + p, 2k + q] ([[Fr, Fi], [-Fi, Fr]] by (p, q)) in
+    float32, split into hi = bf16(B) and lo = bf16(B - hi), each laid out as
+    the fragments the lanes read: for k-step s < R/8, n-tile u < R/4 and
+    lane l (g = l // 4, t = l % 4) the two words (B[16 s + 2t, 8u + g],
+    B[16 s + 2t + 1, 8u + g]) and (the same at rows + 8), the lower index in
+    the low 16 bits. Returns (hi, lo) as uint32 vectors of 2 R^2 words."""
+    r = m.shape[0]
+    fr, fi = m.real.astype(np.float32).T, m.imag.astype(np.float32).T  # [j, k]
+    big = np.empty((2 * r, 2 * r), np.float32)
+    big[0::2, 0::2], big[1::2, 0::2], big[0::2, 1::2], big[1::2, 1::2] = fr, -fi, fi, fr
+    t32 = torch.from_numpy(big)
+    hi = t32.to(torch.bfloat16)
+    lo = (t32 - hi.float()).to(torch.bfloat16)
+    s, u, lane = np.meshgrid(np.arange(r // 8), np.arange(r // 4), np.arange(32), indexing="ij")
+    row, col = 16 * s + 2 * (lane % 4), 8 * u + lane // 4
+    out = []
+    for half in (hi, lo):
+        bits = half.view(torch.int16).numpy().view(np.uint16).astype(np.uint32)
+        words = [bits[row + d, col] | bits[row + d + 1, col] << 16 for d in (0, 8)]
+        out.append(np.stack(words, axis=-1).reshape(-1))
+    return out[0], out[1]
+
+
+@lru_cache(maxsize=None)
+def _tc_fragments(n1: int, device: torch.device) -> torch.Tensor:
+    """The tensor-core kernels' DFT matrices as one int32 tensor on
+    ``device``, in the order csrc/fused1d.cu's ``TcPlan`` reads them: the
+    dense N1-point DFT where the column DFT is dense (``_TC_COL_SPLITS``),
+    then the 16- and 8-point DFTs of the row split ``_ROW_SPLIT`` (the
+    8-point one also the factored column DFT's), each forward and then
+    conjugated, each as its hi and then its lo fragments (``_b_fragments``).
+    Built in float64 (``fft_factor_matrices``) and rounded to float32 before
+    the split, as the plain version rounds them."""
+    parts = []
+    dense = () if _TC_COL_SPLITS[n1] else (n1,)
+    for r in (*dense, *_ROW_SPLIT):
+        f = fft_factor_matrices(r, 1)[0]
+        for m in (f, np.conj(f)):
+            parts += _b_fragments(m)
+    return torch.from_numpy(np.concatenate(parts).view(np.int32)).to(device)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused1d")
     if lib.fused1d_forward.argtypes is None:
@@ -308,18 +433,27 @@ def _library() -> ctypes.CDLL:
             p, ll, p, p, p, p, p, i, i, i, i, i, i, i, i, ll, p,
         ]
         lib.fused1d_forward.restype = i
+        lib.fused1d_forward_tc.argtypes = [
+            p, ll, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ll, p,
+        ]
+        lib.fused1d_forward_tc.restype = i
         lib.fused1d_error_string.argtypes = [i]
         lib.fused1d_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _launch_fused1d(
-    x_padded: torch.Tensor, spectra: torch.Tensor, n: int, groups: int, k: int
+    x_padded: torch.Tensor, spectra: torch.Tensor, n: int, groups: int, k: int,
+    mode: str = "highest",
 ) -> torch.Tensor:
-    """Runs the CUDA kernel pair on ``x_padded`` (B, Cin, L) float32 with the
-    one-sided conjugated spectra (Cout, N1/2+1, Cin/g, 128) complex64, both
-    contiguous on one CUDA device. Returns (B, Cout, L - K + 1)."""
-    global launches
+    """Runs the CUDA kernel pair of ``mode`` on ``x_padded`` (B, Cin, L)
+    float32 with the one-sided conjugated spectra (Cout, N1/2+1, Cin/g, 128)
+    complex64, both contiguous on one CUDA device: the FP32 pair under
+    "highest" (counted in ``launches``), the tensor-core pair under "bf16x3"
+    and "bf16" (``launches_tc``). Returns (B, Cout, L - K + 1)."""
+    global launches, launches_tc
+    if mode not in PRECISION_MODES:
+        raise ValueError(f"unknown fused precision mode: {mode!r}")
     if not (x_padded.is_cuda and spectra.device == x_padded.device):
         raise ValueError("fused1d kernel: signal and spectra must be on one CUDA device")
     if x_padded.dtype != torch.float32 or spectra.dtype != torch.complex64:
@@ -328,6 +462,8 @@ def _launch_fused1d(
     b, cin, l_pad = x_padded.shape
     cout, h, cpg, n2 = spectra.shape
     n1, _ = fused_split(n)
+    if n1 not in _COL_SPLITS:
+        raise ValueError(f"fused1d kernel: FFT size {n} is not one of {_FFT_SIZES}")
     if h != n1 // 2 + 1 or n2 != _N2 or cpg * groups != cin or cout % groups:
         raise ValueError(f"fused1d kernel: spectra {tuple(spectra.shape)} do not fit "
                          f"N={n}, Cin={cin}, groups={groups}")
@@ -340,20 +476,28 @@ def _launch_fused1d(
 
     lib = _library()
     fac, tw = _device_consts(n1, x_padded.device)
+    frag = None if mode == "highest" else _tc_fragments(n1, x_padded.device)
     out = torch.empty((b, cout, v_total), device=x_padded.device, dtype=torch.float32)
     d = torch.empty((chunk, b, cin, h, _N2), device=x_padded.device, dtype=torch.complex64)
     stream = torch.cuda.current_stream(x_padded.device).cuda_stream
     with torch.cuda.device(x_padded.device):
         for blk0 in range(0, nblk, chunk):
-            err = lib.fused1d_forward(
-                x_padded.data_ptr(), l_pad, spectra.data_ptr(), fac.data_ptr(),
-                tw.data_ptr(), d.data_ptr(), out.data_ptr(), b, cin, cout, groups, n1, v1,
-                blk0, min(chunk, nblk - blk0), v_total, stream,
-            )
+            pointers = (x_padded.data_ptr(), l_pad, spectra.data_ptr())
+            rest = (fac.data_ptr(), tw.data_ptr(), d.data_ptr(), out.data_ptr(), b, cin, cout,
+                    groups, n1)
+            blocks = (v1, blk0, min(chunk, nblk - blk0), v_total, stream)
+            if frag is None:
+                err = lib.fused1d_forward(*pointers, *rest, *blocks)
+            else:
+                err = lib.fused1d_forward_tc(*pointers, frag.data_ptr(), *rest, _TC_MODE[mode],
+                                             *blocks)
             if err != 0:
                 msg = lib.fused1d_error_string(err).decode()
                 raise RuntimeError(f"fused1d kernel launch failed: {msg} (cudaError {err})")
-            launches += 1
+            if frag is None:
+                launches += 1
+            else:
+                launches_tc += 1
     return out
 
 
@@ -371,7 +515,8 @@ def _fused_forward(
     spectra: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Valid correlation of ``x_padded`` with ``kernel`` at FFT size ``n``:
-    the CUDA kernel for a CUDA tensor, the plain version for a CPU one.
+    the CUDA kernel pair of the precision mode (read here, at every call)
+    for a CUDA tensor, the plain version of that pair for a CPU one.
     ``spectra``: a plan's baked ``kernel_spectra_one_sided``, or None to
     compute them. They are computed here, ahead of the call's record for a
     running cost analysis (``costs.record``), so that the analysis counts
@@ -383,14 +528,15 @@ def _fused_forward(
         spectra = kernel_spectra_one_sided(kernel, n)
     b, cin, l_pad = x_padded.shape
     cout, _, k = kernel.shape
+    mode = _PRECISION_MODE
     record = costs.IDLE
     if costs.active():
-        record = costs.record("B1", costs.fused1d_kernel_flops(b, cin, cout, l_pad, k, n, groups),
-                              costs.fused1d_work(b, cin, cout, l_pad, k, n, groups)[0])
+        record = costs.fused1d_record(b, cin, cout, l_pad, k, n, groups, mode)
     with record:
         if x_padded.is_cuda:
-            return _launch_fused1d(x_padded.float(), spectra, n, groups, k)
-        return _fused_forward_reference(x_padded.float(), kernel.float(), n, groups, spectra)
+            return _launch_fused1d(x_padded.float(), spectra, n, groups, k, mode)
+        return _fused_forward_reference(x_padded.float(), kernel.float(), n, groups, spectra,
+                                        mode)
 
 
 def _fused_bwd(x_padded, kernel, g, groups, need_dx=True, need_dw=True):

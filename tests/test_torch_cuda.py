@@ -1,6 +1,6 @@
 """The port on a CUDA card: the fused 1D, 2D and 3D kernels (B1, B2, B5, B3,
 B4, the x-pack kernel B6 and the spectra kernel B7) against their plain
-versions, the serving
+versions, B1's tensor-core pair under each bf16 precision mode too, the serving
 plans, and the routes that only a CUDA tensor takes. B1 is also held at the
 edges of its blocking: V1 = 1, a single block, Cin = 3 with groups = 3 and
 a stuffed transposed length. A stream of chunks launches B1 once per chunk,
@@ -45,7 +45,7 @@ def _tensors(device, seed, *shapes):
 # blocking. Between them each phase runs at each N1 in both block sizes: 512
 # threads where a phase's grid has no more blocks than the card has SMs (N =
 # 4096 and 8192 at L = 20000, the single block, groups=3), else 256.
-@pytest.mark.parametrize("b,cin,cout,l,k,n,groups", [
+B1_CASES = [
     (2, 8, 8, 20000, 256, 2048, 1),
     (2, 8, 8, 20000, 1000, 4096, 2),
     (2, 8, 8, 20000, 3840, 8192, 4),
@@ -54,7 +54,10 @@ def _tensors(device, seed, *shapes):
     (2, 8, 8, 1900, 256, 2048, 1),           # a single, partial block
     (2, 3, 6, 20000, 700, 4096, 3),          # Cin = 3, groups = 3
     (2, 8, 8, 33278, 256, 2048, 1),          # the stuffed signal of the K=256 transposed row
-])
+]
+
+
+@pytest.mark.parametrize("b,cin,cout,l,k,n,groups", B1_CASES)
 def test_kernel_matches_plain_version(cuda, b, cin, cout, l, k, n, groups):
     x, w = _tensors(cuda, n, (b, cin, l), (cout, cin // groups, k))
     before = fused1d.launches
@@ -63,6 +66,124 @@ def test_kernel_matches_plain_version(cuda, b, cin, cout, l, k, n, groups):
     assert fused1d.launches == before + 1
     y_ref = fused1d._fused_forward_reference(x.cpu(), w.cpu(), n, groups)
     _assert_close_scaled(y.cpu().numpy(), y_ref.numpy())
+
+
+@pytest.fixture
+def precision():
+    """Restores B1's default precision mode after the test."""
+    yield fused1d.set_fused_precision
+    fused1d.set_fused_precision("highest")
+
+
+def _assert_bf16_kernel_close(y, y_ref):
+    """The bar of the "bf16" tensor-core pair against its plain version:
+    err_mean < 5e-4·σ and err_max < 2.5e-2·σ, σ = max(1, std(ref)). The two
+    round the same operands to bf16, but their FP32 sums (tensor-core
+    accumulation, FMAs) can differ in the last bit, which now and then flips
+    an operand's rounding and moves that element by one bf16 step (2^-7 of
+    it). On the CPU, rounding the plain version's sums from float64 instead
+    moves it by up to err_mean 4.8e-5·σ and err_max 4.1e-3·σ over
+    ``B1_CASES``; on an H100 the kernel was at most 2.0e-4·σ and 8.9e-3·σ
+    from it, at the K=3840 row (N = 8192). The mean bar is a tenth of the JAX
+    package's serving bar against the exact result, and the "bf16" mode's
+    own error takes 3.6e-3·σ of that, so a kernel running another mode's
+    arithmetic, or misplacing a product, fails it; the max bar is half the
+    serving bar."""
+    y, y_ref = np.asarray(y, np.float64), np.asarray(y_ref, np.float64)
+    assert y.shape == y_ref.shape
+    sigma = max(1.0, float(y_ref.std()))
+    err = np.abs(y - y_ref)
+    assert err.mean() < 5e-4 * sigma and err.max() < 2.5e-2 * sigma, (
+        f"mean {err.mean():.3e} max {err.max():.3e} sigma {sigma:.1f}")
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("b,cin,cout,l,k,n,groups", B1_CASES + [
+    (2, 8, 8, 32768, 256, 2048, 1),    # the 1D benchmark rows
+    (2, 8, 8, 32768, 1024, 4096, 1),
+    (2, 8, 8, 32768, 3840, 8192, 1),
+])
+def test_tc_kernel_matches_plain_version(cuda, mode, b, cin, cout, l, k, n, groups):
+    """B1's tensor-core pair against its plain version of the same mode:
+    "bf16x3" under the FP32 bar, "bf16" under ``_assert_bf16_kernel_close``."""
+    x, w = _tensors(cuda, n, (b, cin, l), (cout, cin // groups, k))
+    before = fused1d.launches, fused1d.launches_tc
+    y = fused1d._launch_fused1d(x, fused1d.kernel_spectra_one_sided(w, n), n, groups, k, mode)
+    torch.cuda.synchronize()
+    assert (fused1d.launches, fused1d.launches_tc) == (before[0], before[1] + 1)
+    y_ref = fused1d._fused_forward_reference(x.cpu(), w.cpu(), n, groups, mode=mode)
+    check = _assert_close_scaled if mode == "bf16x3" else _assert_bf16_kernel_close
+    check(y.cpu().numpy(), y_ref.numpy())
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_tc_kernel_in_block_ranges(cuda, monkeypatch, mode):
+    x, w = _tensors(cuda, 1, (2, 4, 30000), (4, 4, 500))
+    monkeypatch.setattr(fused1d, "_SCRATCH_BUDGET",
+                        2 * fused1d._scratch_bytes_per_block(2048, 2, 4))
+    before = fused1d.launches_tc
+    y = fused1d._launch_fused1d(x, fused1d.kernel_spectra_one_sided(w, 2048), 2048, 1, 500,
+                                mode)
+    assert fused1d.launches_tc - before > 1
+    y_ref = fused1d._fused_forward_reference(x.cpu(), w.cpu(), 2048, mode=mode)
+    check = _assert_close_scaled if mode == "bf16x3" else _assert_bf16_kernel_close
+    check(y.cpu().numpy(), y_ref.numpy())
+
+
+def test_tc_kernel_refuses_what_it_does_not_run(cuda):
+    """An FFT size outside 2048, 4096, 8192 (N1 = 8 here), an unknown mode
+    and float64 spectra raise; nothing is launched."""
+    x, w = _tensors(cuda, 3, (1, 2, 3000), (2, 2, 100))
+    before = fused1d.launches, fused1d.launches_tc
+    with pytest.raises(ValueError, match="FFT size 1024"):
+        fused1d._launch_fused1d(x, fused1d.kernel_spectra_one_sided(w, 1024), 1024, 1, 100,
+                                "bf16")
+    spectra = fused1d.kernel_spectra_one_sided(w, 2048)
+    with pytest.raises(ValueError, match="precision mode"):
+        fused1d._launch_fused1d(x, spectra, 2048, 1, 100, "fp8")
+    with pytest.raises(ValueError, match="complex64"):
+        fused1d._launch_fused1d(x, spectra.to(torch.complex128), 2048, 1, 100, "bf16x3")
+    assert (fused1d.launches, fused1d.launches_tc) == before
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_tc_modes_route_every_1d_path_on_cuda(cuda, precision, mode):
+    """Under a bf16 mode a CUDA tensor's 1D calls (``fft_conv`` under "auto",
+    a plan, the transposed route, ``FFTConv1d``, a stream step) launch the
+    tensor-core pair and not the FP32 one, each within the mode's bar of the
+    composed path; back under "highest" they launch the FP32 pair."""
+    x, w, b = _tensors(cuda, 28, (2, 4, 9000), (4, 4, 300), (4,))
+    layer = ft.FFTConv1d(4, 4, 256, generator=torch.Generator().manual_seed(0))
+    plan = ft.ops.plan_fft_conv(w, b, signal_spatial=(9000,))
+    state = ft.ops.streaming_conv1d_init(2, 4, 300)
+    calls = [
+        (lambda: ft.fft_conv(x, w, b), lambda: ft.fft_conv(x, w, b, impl="xla")),
+        (lambda: plan(x), lambda: ft.fft_conv(x, w, b, impl="xla")),
+        (lambda: ft.fft_conv_transpose(x, w, b, padding=2),
+         lambda: ft.fft_conv_transpose(x, w, b, padding=2, impl="xla")),
+        (lambda: layer(x), lambda: ft.fft_conv(x, layer.weight, layer.bias, impl="xla")),
+        (lambda: ft.ops.streaming_conv1d_step(state, x, w, b)[0],
+         lambda: ft.fft_conv(torch.nn.functional.pad(x, (299, 0)), w, b, impl="xla")),
+    ]
+    check = _assert_close_scaled if mode == "bf16x3" else _assert_bf16_kernel_close
+    precision(mode)
+    for fn, ref in calls:
+        before = fused1d.launches, fused1d.launches_tc
+        with torch.no_grad():
+            y = fn()
+        torch.cuda.synchronize()
+        assert fused1d.launches == before[0] and fused1d.launches_tc == before[1] + 1
+        y_ref = ref().detach().cpu().numpy()
+        if mode == "bf16x3":
+            check(y.cpu().numpy(), y_ref)
+        else:  # against the exact result, the JAX package's serving bar
+            sigma = max(1.0, float(y_ref.std()))
+            err = np.abs(y.cpu().numpy() - y_ref)
+            assert err.mean() < 5e-3 * sigma and err.max() < 5e-2 * sigma
+    precision("highest")
+    before = fused1d.launches, fused1d.launches_tc
+    plan(x)
+    assert (fused1d.launches, fused1d.launches_tc) == (before[0] + 1, before[1])
 
 
 def test_kernel_in_block_ranges(cuda, monkeypatch):
