@@ -33,7 +33,13 @@ call with inline on and off. Phase 5c runs B1 under
 with the three modes' errors against the float64 composed path ordered, and
 timed beside "highest" at the 1D rows; phase 2 fails if any of B1's 36
 entry points spills or a tensor-core one holds no HMMA instruction
-(``cuobjdump -sass``). Then three phases drive the modules around the
+(``cuobjdump -sass``). Phase 5d does the same for B2 under
+``set_fused2d_precision("bf16x3")`` and ``("bf16")``, the tensor-core pair of
+``csrc/fused2d.cu``: against its plain version at check_fused2d's cases,
+through the 2D main paths (``fft_conv``, a plan, the transposed call,
+``FFTConv2d``) counted from zero, the modes' errors ordered, and the three
+modes timed at the 2D rows; phase 2 fails if one of its 16 entry points
+spills or holds no HMMA. Then three phases drive the modules around the
 kernels: ``streaming`` (each
 1D row's signal fed to ``ops.streaming_conv1d_step`` in 8 frames of 4096
 samples, a ragged split, dilation 2 and groups 2; one B1 launch per chunk,
@@ -255,6 +261,31 @@ def close_bf16(y, y_ref, what):
     check(mean < 5e-4 * sigma, f"{what}: err_mean {mean:.3e} >= 5e-4 * {sigma:.3f}")
     check(mx < 2.5e-2 * sigma, f"{what}: err_max {mx:.3e} >= 2.5e-2 * {sigma:.3f}")
     return mx, mean, sigma
+
+
+def close_bf16_2d(y, y_ref, y_exact, what):
+    """The bar of B2's "bf16" tensor-core pair against its plain version
+    (tests/test_torch_cuda.py:_assert_bf16_2d_kernel_close): err_mean <
+    2e-3 * sigma, err_max < 2.5e-2 * sigma, and the kernel's err_mean against
+    the float64 result ``y_exact`` within 1% of the plain version's. A bf16
+    rounding that goes the other way in a tile's first steps spreads through
+    its eight rounding steps (a call up to 1.2e-3 * sigma apart on an H100,
+    survey_fused2d_bf16.py), so the pointwise bar is looser than
+    close_bf16's, and the ratio, within 0.11% there, holds the kernel to the
+    mode's arithmetic.
+    Returns (max abs err, mean abs err, sigma, error ratio)."""
+    y, y_ref, y_exact = y.detach().double(), y_ref.detach().double(), y_exact.detach().double()
+    check(y.shape == y_ref.shape, f"{what}: shape {tuple(y.shape)} vs {tuple(y_ref.shape)}")
+    check(bool(y.isfinite().all()), f"{what}: non-finite values")
+    err = (y - y_ref).abs()
+    sigma = max(1.0, float(y_ref.std()))
+    mean, mx = float(err.mean()), float(err.max())
+    check(mean < 2e-3 * sigma, f"{what}: err_mean {mean:.3e} >= 2e-3 * {sigma:.3f}")
+    check(mx < 2.5e-2 * sigma, f"{what}: err_max {mx:.3e} >= 2.5e-2 * {sigma:.3f}")
+    ratio = float((y - y_exact).abs().mean()) / float((y_ref - y_exact).abs().mean())
+    check(abs(ratio - 1) < 1e-2, f"{what}: err_mean against float64 {ratio:.4f}x the plain "
+                                 f"version's")
+    return mx, mean, sigma, ratio
 
 
 def check_fused1d(torch, dev, inputs, mode="highest"):
@@ -524,6 +555,251 @@ def phase_precision(torch, dev, inputs, shapes):
                 torch.cuda.synchronize()
     finally:
         fused1d.set_fused_precision("highest")
+    return out
+
+
+def check_fused2d_tc(torch, inputs, mode):
+    """B2's tensor-core pair under ``mode`` ("bf16x3" or "bf16") against its
+    plain version of that mode (``_fused2d_forward_reference(...,
+    mode=)``) at check_fused2d's cases: the 2D rows (B2's inputs), groups=2,
+    T1 = 256 (K1 = 70), T1 = 384 (K1 = 200), T2 = 256 (K2 = 100) alone and
+    with groups=2, fft_conv2d_fused's stride, dilation and reflect padding,
+    and the tiles split over several launches. The extra cases draw from a
+    generator of their own, so that the phases after this one see the inputs
+    they saw before it. "bf16x3" under the FP32 bar, "bf16" under
+    ``close_bf16_2d``. Returns the rows' max abs errors."""
+    from fft_conv_tpu_torch.kernels import fused2d
+    from fft_conv_tpu_torch.ops import functional as F
+
+    name = f"B2 {mode}"
+    bars = (2.5e-2, 2e-3) if mode == "bf16" else (1.2e-4, 2e-5)
+
+    def close(y, x, wt, groups, what):
+        """(max abs err, mean abs err, sigma, error ratio or None) of y
+        against the plain version of ``mode`` on x and wt."""
+        y_ref = fused2d._fused2d_forward_reference(x, wt, groups, mode=mode)
+        if mode == "bf16x3":
+            return (*close_scaled(y, y_ref, what), None)
+        exact = fused2d._fused2d_forward_reference(x.double(), wt.double(), groups)
+        return close_bf16_2d(y, y_ref, exact, what)
+
+    def launch(x, wt, groups):
+        cout, cpg, k1, k2 = wt.shape
+        plan = fused2d.tile_plan_2d(k1, k2, cpg, cout)
+        spectra = fused2d.kernel_spectra_2d(wt, plan[0], plan[2], plan[3])
+        return fused2d._launch_fused2d(x, spectra, plan, groups, (k1, k2), mode), plan
+
+    def vs_plain(x, wt, groups, what):
+        before = fused2d.launches, fused2d.launches_tc
+        y, plan = launch(x, wt, groups)
+        torch.cuda.synchronize()
+        launched = fused2d.launches - before[0], fused2d.launches_tc - before[1]
+        check(launched[0] == 0 and launched[1] >= 1,
+              f"{name} {what}: launched (FP32, tensor-core) {launched}")
+        mx, mean, sigma, ratio = close(y, x, wt, groups, f"{name} vs plain, {what}")
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel": name, "case": what,
+                          "plan": dict(zip(("T1", "V1", "NB1", "T2", "V2"), plan)),
+                          "launches": launched[1], "max_abs_err": mx, "mean_abs_err": mean,
+                          "sigma": sigma, "bar_max": bars[0] * sigma,
+                          "bar_mean": bars[1] * sigma, "err_ratio_vs_float64": ratio}))
+        return mx
+
+    gen = torch.Generator().manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda")
+
+    errs = [vs_plain(x, wt, 1, f"K={wt.shape[-1]}") for x, wt, _, _ in inputs]
+    x, wt, bias, plan = inputs[0]
+    vs_plain(x, wt[:, :4].contiguous(), 2, "groups=2")
+    vs_plain(randn(2, 8, 300, 280), randn(8, 8, 70, 5) / 60.0, 1, "T1=256, K=(70, 5)")
+    vs_plain(randn(1, 4, 420, 150), randn(4, 4, 200, 9) / 85.0, 1, "T1=384, K=(200, 9)")
+    vs_plain(randn(2, 8, 200, 400), randn(8, 8, 12, 100) / 100.0, 1, "T2=256, K=(12, 100)")
+    vs_plain(randn(2, 4, 200, 300), randn(6, 2, 12, 100) / 50.0, 2,
+             "T2=256, K=(12, 100), groups=2")
+
+    kw = dict(padding=5, padding_mode="reflect", stride=(2, 3), dilation=2)
+    was = fused2d._PRECISION_2D
+    try:
+        fused2d.set_fused2d_precision(mode)
+        before = fused2d.launches_tc
+        y = fused2d.fft_conv2d_fused(x, wt, bias, **kw)
+        check(fused2d.launches_tc == before + 1, f"{name}: fft_conv2d_fused did not launch it")
+    finally:
+        fused2d.set_fused2d_precision(was)
+    xp = F._pad_signal(x, (5, 5), "reflect")
+    wd = F._dilate_kernel(wt, (2, 2))
+    y_ref = fused2d._fused2d_forward_reference(xp, wd, mode=mode)[:, :, ::2, ::3]
+    y_out = y - bias.reshape(1, -1, 1, 1)
+    if mode == "bf16x3":
+        mx = close_scaled(y_out, y_ref, f"{name} stride/dilation/reflect")[0]
+    else:
+        exact = fused2d._fused2d_forward_reference(xp.double(), wd.double())[:, :, ::2, ::3]
+        mx = close_bf16_2d(y_out, y_ref, exact, f"{name} stride/dilation/reflect")[0]
+    print(json.dumps({"phase": "kernel_vs_plain", "kernel": name,
+                      "case": "stride=(2, 3), dilation=2, reflect padding 5",
+                      "max_abs_err": mx}))
+
+    budget = fused2d._SCRATCH_BUDGET
+    try:
+        fused2d._SCRATCH_BUDGET = 4 * fused2d._scratch_bytes_per_tile(plan[2], plan[3], 2, 8)
+        before = fused2d.launches_tc
+        y, _ = launch(x, wt, 1)
+        split = fused2d.launches_tc - before
+    finally:
+        fused2d._SCRATCH_BUDGET = budget
+    check(split > 1, f"{name}: the tile ranges did not split")
+    mx = close(y, x, wt, 1, f"{name} in tile ranges")[0]
+    print(json.dumps({"phase": "kernel_vs_plain", "kernel": name,
+                      "case": f"{split} tile ranges", "max_abs_err": mx}))
+    torch.cuda.synchronize()
+    return errs
+
+
+def main_path_precision_2d(torch, inputs, mode):
+    """B2's main paths under ``set_fused2d_precision(mode)`` ("bf16x3" or
+    "bf16"), counted from zero: fft_conv(x, w, bias) (impl="auto") at the two
+    2D rows, a tier-1 plan of each (ops.plan_fft_conv), the transposed call
+    fft_conv_transpose(x, w, bias) on each row's signal, and FFTConv2d(8, 8,
+    16) forward. Each launches the tensor-core pair once and neither B2's
+    FP32 pair nor B5, and is held to the composed path in float64: "bf16x3"
+    under the FP32 bar, "bf16" under the JAX package's serving bar (err_mean
+    < 5e-3 * sigma, err_max < 5e-2 * sigma). Returns the tensor-core
+    launches."""
+    from fft_conv_tpu_torch import FFTConv2d, fft_conv, fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused2d
+    from fft_conv_tpu_torch.ops import plan_fft_conv
+
+    def held(y, y_ref, what):
+        if mode == "bf16x3":
+            mx, mean, sigma = close_scaled(y, y_ref, what)
+        else:
+            err = (y.detach().double() - y_ref).abs()
+            sigma = max(1.0, float(y_ref.std()))
+            mean, mx = float(err.mean()), float(err.max())
+            check(mean < 5e-3 * sigma and mx < 5e-2 * sigma,
+                  f"{what}: err_mean {mean:.3e}, err_max {mx:.3e} past the serving bar at "
+                  f"sigma {sigma:.3f}")
+        return mean / sigma, mx / sigma
+
+    def drive(fn, ref, what):
+        before = fused2d.launches, fused2d.launches_tc, fused2d.launches_v3
+        with torch.no_grad():
+            y = fn()
+        torch.cuda.synchronize()
+        rose = tuple(now - was for now, was in zip(
+            (fused2d.launches, fused2d.launches_tc, fused2d.launches_v3), before))
+        check(rose == (0, 1, 0), f"{what} under {mode!r} launched (FP32, tensor-core, B5) {rose}")
+        mean, mx = held(y, ref(), what)
+        print(json.dumps({"phase": "main_path_precision", "mode": mode, "case": what,
+                          "launches_tc": rose[1], "err_mean_vs_float64": mean,
+                          "err_max_vs_float64": mx}))
+
+    fused2d.set_fused2d_precision(mode)
+    fused2d.launches = fused2d.launches_tc = fused2d.launches_v3 = 0
+    layer = FFTConv2d(8, 8, 16, device="cuda", generator=torch.Generator().manual_seed(0))
+    for (b, cin, cout, h, w, k), (x, wt, bias, _) in zip(BENCH_SHAPES_2D, inputs):
+        x64, w64, b64 = x.double(), wt.double(), bias.double()
+        planned = plan_fft_conv(wt, bias, signal_spatial=(h, w))
+        drive(lambda: fft_conv(x, wt, bias), lambda: fft_conv(x64, w64, b64, impl="xla"),
+              f"fft_conv auto 2D K={k}")
+        drive(lambda: planned(x), lambda: fft_conv(x64, w64, b64, impl="xla"), f"plan 2D K={k}")
+        drive(lambda: fft_conv_transpose(x, wt, bias),
+              lambda: fft_conv_transpose(x64, w64, b64, impl="xla"),
+              f"fft_conv_transpose 2D K={k}")
+    x = inputs[0][0]
+    drive(lambda: layer(x), lambda: fft_conv(x.double(), layer.weight.double(),
+                                             layer.bias.double(), impl="xla"),
+          "FFTConv2d(8, 8, 16)")
+    torch.cuda.synchronize()
+    check(fused2d.launches == 0 and fused2d.launches_v3 == 0,
+          f"B2's FP32 pair or B5 ran under {mode!r}")
+    return fused2d.launches_tc
+
+
+def phase_precision_2d(torch, inputs, rows):
+    """Phase 5d: B2's precision modes, phase 5c's 2D counterpart. Under
+    "bf16x3" and "bf16" the tensor-core pair against its plain version at
+    check_fused2d's cases (check_fused2d_tc) and the main paths of
+    main_path_precision_2d (counted from zero); at the 2D rows the errors of
+    fft_conv under the three modes against the composed path in float64,
+    ordered "highest" < "bf16x3" < "bf16" with err_mean at least 4x and then
+    50x the one before (the CPU tests measure about 37x and 670x), "bf16"
+    inside the serving bar; then the three modes timed side by side at each
+    row: the kernel pair's device time and call latency, its two kernels
+    (profiler), fft_conv and the plan, the plain version, and the bound
+    (``costs.fused2d_work`` for "highest", ``costs.fused2d_tc_work`` with the
+    products at the bf16 rate otherwise). "highest" is restored at the end.
+    Returns {mode: (launches, kernel-vs-plain errors, timing rows)} for the
+    bf16 modes."""
+    from fft_conv_tpu_torch import fft_conv
+    from fft_conv_tpu_torch.kernels import fused2d
+    from fft_conv_tpu_torch.kernels.costs import bound, fused2d_tc_work, fused2d_work
+    from fft_conv_tpu_torch.ops import plan_fft_conv
+
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        for mode in fused2d.PRECISION_MODES[1:]:
+            fused2d.set_fused2d_precision("highest")
+            errs = check_fused2d_tc(torch, inputs, mode)
+            launched = main_path_precision_2d(torch, inputs, mode)
+            print(json.dumps({"phase": "main_path_counts", "kernels": "B2 tensor-core pair",
+                              "mode": mode, "launches_tc": launched}))
+            out[mode] = (launched, errs, [])
+        for (b, cin, cout, h, w, k), (x, wt, bias, _) in zip(BENCH_SHAPES_2D, inputs):
+            ref = fft_conv(x.double(), wt.double(), bias.double(), impl="xla")
+            sigma = max(1.0, float(ref.std()))
+            order, worst = [], []
+            for mode in fused2d.PRECISION_MODES:
+                fused2d.set_fused2d_precision(mode)
+                err = (fft_conv(x, wt, bias).double() - ref).abs()
+                order.append(float(err.mean()) / sigma)
+                worst.append(float(err.max()) / sigma)
+            print(json.dumps({"phase": "precision_order", "kernel": "B2", "K": k,
+                              "err_mean_vs_float64": dict(zip(fused2d.PRECISION_MODES, order)),
+                              "err_max_vs_float64": dict(zip(fused2d.PRECISION_MODES, worst))}))
+            check(4 * order[0] < order[1] and 50 * order[1] < order[2],
+                  f"2D K={k}: the modes' errors against float64 are not ordered: {order}")
+            check(order[2] < 5e-3 and worst[2] < 5e-2,
+                  f"2D K={k}: 'bf16' past the serving bar: {order[2]}, {worst[2]}")
+        for (b, cin, cout, h, w, k), (x, wt, _, plan), base in zip(BENCH_SHAPES_2D, inputs, rows):
+            t1, _, nb1, t2, _ = plan
+            spectra = fused2d.kernel_spectra_2d(wt, t1, nb1, t2)
+            planned = plan_fft_conv(wt, signal_spatial=(h, w))
+            for mode in fused2d.PRECISION_MODES:
+                fused2d.set_fused2d_precision(mode)
+
+                def kernel():
+                    return fused2d._launch_fused2d(x, spectra, plan, 1, (k, k), mode)
+
+                def auto():
+                    return fft_conv(x, wt, impl="auto")
+
+                if mode == "highest":
+                    (nbytes, flops), bf16_flops = fused2d_work(b, cin, cout, h, w, k, plan), 0
+                else:
+                    nbytes, bf16_flops, flops = fused2d_tc_work(b, cin, cout, h, w, k, plan,
+                                                                mode)
+                bound_ms, bound_by = bound(nbytes, flops, bf16_flops)
+                row = {
+                    "mode": mode, "K": k, "plan": list(plan),
+                    "ms": device_ms(kernel), "call_ms": call_ms(kernel),
+                    "phase_ms": phase_split_ms(torch, kernel, "fused2d_"),
+                    "auto_ms": device_ms(auto), "plan_ms": device_ms(lambda: planned(x)),
+                    "plain_ms": call_ms(
+                        lambda: fused2d._fused2d_forward_reference(x, wt, mode=mode)),
+                    "library_ms": base["library_ms"], "composed_ms": base["composed_ms"],
+                    "bytes": nbytes, "flops": flops, "bf16_flops": bf16_flops,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                }
+                if mode != "highest":
+                    out[mode][2].append({**row, "max_abs_err": out[mode][1][len(out[mode][2])]})
+                print(json.dumps({"phase": "timing_precision", "kernel": "B2", **row}))
+                torch.cuda.synchronize()
+    finally:
+        fused2d.set_fused2d_precision("highest")
+    print(json.dumps({"phase": "precision_2d", "seconds": time.perf_counter() - t0}))
     return out
 
 
@@ -2842,6 +3118,20 @@ def main() -> int:
     check(len(spills) == 8 and not any(sum(v) for v in spills.values()),
           f"B5's 8 entry points spill registers or are missing: {spills}")
     print(json.dumps({"phase": "ptxas", "kernel": "B5", "spill_bytes": spills}))
+    # B2's tensor-core pair: both phases at each of the four tile plans under
+    # "bf16x3" and under "bf16", each holding HMMA instructions
+    spills = {fn: v for fn, v in ptxas_spills(_build.build_logs["fused2d"]).items()
+              if "fused2d_" in fn and "_tc" in fn}
+    check(len(spills) == 16 and not any(sum(v) for v in spills.values()),
+          f"B2's 16 tensor-core entry points spill registers or are missing: {spills}")
+    hmma = {fn: c for fn, c in sass_hmma(paths["fused2d"]).items()
+            if "fused2d_" in fn and "_tc" in fn}
+    check(sorted(hmma) == sorted(spills) and all(c > 0 for c in hmma.values()),
+          f"B2's tensor-core entry points lack HMMA instructions: {hmma}")
+    print(json.dumps({"phase": "ptxas", "kernel": "B2 tensor-core pair", "spill_bytes": spills,
+                      "registers": {fn: r for fn, r in ptxas_registers(
+                          _build.build_logs["fused2d"]).items() if "_tc" in fn},
+                      "sass_hmma": hmma}))
     # B3, B4 and B6: every entry point of fused3d.cu (the dense H/W kernels
     # at SB = 4, 2, 1, direct and packed; the factored ones built for H = 16,
     # 32, 64, 128 and the one that takes any split, direct and packed; the D
@@ -2981,6 +3271,8 @@ def main() -> int:
     rows_pack = time_pack3d(torch, timed_pack)
     # phase 5c: B1's precision modes (the tensor-core pair), counted from zero
     precision = phase_precision(torch, dev, inputs, shapes)
+    # phase 5d: B2's precision modes (its tensor-core pair), counted from zero
+    precision2d = phase_precision_2d(torch, inputs2d, rows2d)
 
     # phases 6 to 8: the streaming path (counted from zero), the
     # measurement modules, checkpoints
@@ -3019,6 +3311,10 @@ def main() -> int:
     ] + [
         kernel_entry(f"B1_fused1d_{mode}", "fft_conv_tpu_torch/kernels/csrc/fused1d.cu",
                      "fft_conv_tpu/kernels/fused1d.py:291", *precision[mode])
+        for mode in fused1d.PRECISION_MODES[1:]
+    ] + [
+        kernel_entry(f"B2_fused2d_{mode}", "fft_conv_tpu_torch/kernels/csrc/fused2d.cu",
+                     "fft_conv_tpu/kernels/fused2d.py:308", *precision2d[mode])
         for mode in fused1d.PRECISION_MODES[1:]
     ]}))
     print(json.dumps({"ok": True, "device": {

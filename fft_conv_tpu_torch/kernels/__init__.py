@@ -1,6 +1,7 @@
 """The port's kernels: the fused 1D (B1, its DFT products bf16 tensor-core
 products under ``set_fused_precision("bf16x3")`` or ``("bf16")``), 2D (B2,
-and B5 on the "v3" schedule that ``set_fused2d_kernel`` selects), 3D
+the same under ``set_fused2d_precision``, and B5 on the "v3" schedule that
+``set_fused2d_kernel`` selects), 3D
 overlap-save-D (B3, reading a signal packed by the x-pack kernel B6 under
 ``set_fused3d_xpack("pk")``, and spectra computed from the raw taps by
 kernel B7 under ``set_fused3d_inline(True)``) and 3D tap (B4) kernels, their
@@ -21,6 +22,7 @@ from .fused2d import (
     fused2d_fits,
     plan_fft_conv2d,
     set_fused2d_kernel,
+    set_fused2d_precision,
     tile_plan_2d,
 )
 from .fused3d import (
@@ -42,6 +44,7 @@ __all__ = [
     "fft_conv_transpose3d_fused",
     "set_fused_precision",
     "set_fused2d_kernel",
+    "set_fused2d_precision",
     "set_fused3d_xpack",
     "set_fused3d_inline",
     "plan_fft_conv1d",

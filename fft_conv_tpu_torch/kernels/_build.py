@@ -4,8 +4,9 @@ Each source ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled for Hopper (``sm_90a``) without PyTorch's headers, so a
 build takes seconds. Libraries go to ``build/fft_conv_tpu_torch/`` at the
 root of the checkout (``build/`` is git-ignored), named by a hash of the
-source and the flags: an edited source is rebuilt at its next use and a
-stale library is never loaded. Nothing is built when a module is imported;
+source, the headers it may include (``csrc/*.cuh``) and the flags: an
+edited source or header is rebuilt at its next use and a stale library is
+never loaded. Nothing is built when a module is imported;
 ``load`` builds on first use, ``build`` builds ahead of time.
 """
 
@@ -48,10 +49,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` lives, named by a hash of the
+    source, every header of ``csrc/`` (in name order) and the flags."""
+    digest = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:

@@ -27,8 +27,8 @@ import functools
 from typing import Dict, Iterator, List
 
 # NVIDIA's data sheet for the H100 SXM: HBM rate, FP32 rate outside the
-# tensor cores, and the dense bf16 tensor-core rate (B1's "bf16x3" and
-# "bf16" modes; every other kernel uses FP32 FMAs only)
+# tensor cores, and the dense bf16 tensor-core rate (B1's and B2's "bf16x3"
+# and "bf16" modes; every other kernel uses FP32 FMAs only)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
@@ -421,6 +421,61 @@ def fused2d_work(b, cin, cout, h, w, k, plan, groups=1):
                              + pairs * _four_step_flops(t1, t1, rows_out))
     nbytes = 4 * b * cin * h * w + 8 * cout * cpg * nb1 * t2 + 4 * b * cout * oh * ow
     return nbytes, b * flops
+
+
+def fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups=1):
+    """(bytes, product flops, FP32 flops) of B2's tensor-core pair under
+    ``mode`` ("bf16x3" or "bf16") for one call, over whole T1 x T2 tiles, as
+    the kernels run it (csrc/fused2d.cu, fused2d_spectra_tc and
+    fused2d_mac_inverse_tc).
+
+    Bytes as fused2d_work. Product flops (an FMA as two, a complex R-point
+    step as the real 2R x 2R product on each vector, 8 R^2), times 3 under
+    "bf16x3", each T-point DFT factored A · B (fused2d._SPLITS) as B vectors
+    of A points and A of B: per tile and input channel the W DFT of the T1/2
+    packed rows and the H DFT of T2/2 columns; per tile and output channel
+    the inverse W DFT of the NB1 rows and the H irfft of T2/2 column pairs
+    onto all T1 rows. FP32 flops: the twiddles (6 per product by a root
+    other than 1), the split of the W bins of two packed rows (4 per H
+    input), the DC/Nyquist column split (8 per bin), the MAC, the Hermitian
+    extension (2 per H input) and the output scale (1 per sample of the V1
+    rows)."""
+    t1, v1, nb1, t2, v2 = plan
+    k1, k2 = _ks(k, 2)
+    tiles = -(-(h - k1 + 1) // v1) * -(-(w - k2 + 1) // v2)
+    passes = 3 if mode == "bf16x3" else 1
+
+    def products(t):
+        a, bb = _split(t)
+        return 8 * (bb * a * a + a * bb * bb)
+
+    def twiddles(t):
+        a, bb = _split(t)
+        return 6 * (a - 1) * bb
+
+    n1, n2 = t1 // 2, t2 // 2
+    fwd = n1 * products(t2) + n2 * products(t1)
+    inv = nb1 * products(t2) + n2 * products(t1)
+    fwd32 = n1 * twiddles(t2) + n2 * twiddles(t1) + 4 * t1 * n2 + 8 * nb1
+    inv32 = (8 * (cin // groups) * nb1 * t2 + nb1 * twiddles(t2) + n2 * twiddles(t1)
+             + 2 * t1 * n2 + v1 * t2)
+    calls = b * tiles
+    nbytes = fused2d_work(b, cin, cout, h, w, k, plan, groups)[0]
+    return (nbytes, calls * passes * (cin * fwd + cout * inv),
+            calls * (cin * fwd32 + cout * inv32))
+
+
+def fused2d_record(b, cin, cout, h, w, k, plan, groups, mode, v3=False):
+    """The ``record`` of one 2D fused call under precision ``mode``: "B2"
+    (or "B5" under "v3") with the FP32 pair's count under "highest",
+    "B2_bf16x3" or "B2_bf16" with the tensor-core pair's (product and FP32
+    flops together) otherwise."""
+    shape = (b, cin, cout, h, w, k, plan, groups)
+    if mode == "highest":
+        flops = fused2d_v3_kernel_flops if v3 else fused2d_kernel_flops
+        return record("B5" if v3 else "B2", flops(*shape), fused2d_work(*shape)[0])
+    nbytes, products, rest = fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups)
+    return record(f"B2_{mode}", products + rest, nbytes)
 
 
 def fused2d_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):

@@ -76,9 +76,44 @@
 // Per tile and output channel the inverse runs T2/2 T1-point transforms and
 // ceil(V1/2) T2-point ones, where B2's runs T2/2 and NB1. The only dense short DFT is
 // the 24-point one at T1 = 384, as in B2.
+//
+// B2's tensor-core modes (fused2d.py: set_fused2d_precision "bf16x3" and
+// "bf16", the JAX package's switch of that name, fft_conv_tpu/kernels/
+// fused2d.py:52-71, whose modes reach every DFT product of the 2D body through
+// _dot). A second pair, fused2d_spectra_tc and fused2d_mac_inverse_tc <T1, T2,
+// MODE> (entry point fused2d_forward_tc), runs B2's two phases on B2's plan,
+// grid, swizzled NB1 x T2 plane, staging and scratch D, with every DFT step a
+// bf16 mma.sync product with an FP32 accumulator (bf16_mma.cuh: dft_step),
+// as the TPU kernel forms each DFT product from bf16 operands under those
+// modes: the W DFT of the packed rows, the one-sided H DFT, the inverse W DFT
+// and the H irfft of column pairs, each factored as B2 factors it (16 * 8,
+// 16 * 16, 24 * 16; a 24-point step is three whole k-steps of 16, so nothing
+// is padded), each step's matrix read as B fragments from the host's
+// buffer (fused2d.py: _tc_fragments). Factored and not dense on both axes:
+// a dense 128-point step would do 5x the products of 16 * 8, and its
+// matrices (hi and lo, forward and conjugated) would take 512 KB where all
+// the factored steps' take 28 KB, re-read by every warp. The operands stay FP32 in the plane, and a warp splits them
+// into bf16 hi/lo as it loads its tile's A fragments, so that one plane
+// serves every mode and fits a block at T1 = 384 (a split plane would need a
+// second one to write into). Each step runs in place: a warp loads all of
+// its 16 vectors before it stores any output, into the same slots, so a row
+// DFT leaves bin m1 + A m2 at column m1 B + m2 (tc_col) and its readers (the
+// H DFT, the H irfft) index through that permutation; D keeps B2's natural
+// order. The twiddles (rounded as the plain version rounds them, without
+// FMA: a bf16 rounding that goes the other way early in a tile spreads
+// through its later steps), the split of the packed pairs, the MAC, the
+// Hermitian extension and 1/(T1 T2) stay FP32. What bounds this pair is the
+// chain each warp runs per tile of 16 vectors (shared-memory loads, the
+// products, the stores) between the barriers of the steps, and phase 2's MAC
+// re-reading D and the spectra through L2, FP32 in every mode; so each
+// step's lanes are placed (tile_rows, stg, the H steps' vector order) for
+// their loads and stores to reach 16 distinct bank pairs, where the first
+// version's H loaders met 4- and 8-way conflicts through tc_col.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -750,6 +785,291 @@ cudaError_t launch_v3(const float* x, const float* ks, const float2* fac, float*
   return cudaGetLastError();
 }
 
+// ---- B2's tensor-core pair (the modes "bf16x3" and "bf16") -------------------
+
+constexpr int kWarps = kThreads / 32;
+
+// a * w, or a * conj(w) for the inverse, rounded as the plain version rounds
+// it (two products, then their sum, each to FP32; no FMA), so that the bf16
+// operand the next step rounds it to is the plain version's
+template <bool INV>
+__device__ __forceinline__ float2 cmulw_rn(float2 a, float2 w) {
+  if (INV) w.y = -w.y;
+  return make_float2(__fsub_rn(__fmul_rn(a.x, w.x), __fmul_rn(a.y, w.y)),
+                     __fadd_rn(__fmul_rn(a.x, w.y), __fmul_rn(a.y, w.x)));
+}
+
+// The column that holds bin (or sample) k of a row after row_dft_tc<T>:
+// bin m1 + A m2 is left at m1 B + m2.
+template <int T>
+__device__ __forceinline__ int tc_col(int k) {
+  return (k % split_a(T)) * split_b(T) + k / split_a(T);
+}
+
+// Vector m of a row step's step 2, of NVEC: each whole block of 16 vectors
+// keeps its vectors, but lane group g takes the block's vectors 2g and 2g + 1
+// (rows r + 2g and r + 2g + 1), so that its 4 elements of 8 rows (columns
+// m1 B + t) fall in 16 distinct bank pairs of the swizzled plane. A partial
+// last block keeps its order.
+template <int NVEC>
+__device__ __forceinline__ int tile_rows(int m) {
+  if (m >= (NVEC & ~15)) return m;
+  return (m & ~15) | ((m & 7) << 1) | ((m >> 3) & 1);
+}
+
+// Index of (column c of a pass, element k) in the staging of an H pass: column
+// by column, bits 2 and 3 of k swizzled by c + k / 16, so that a lane group
+// of step 1 (8 consecutive j2 of one column, 4 m1) and one of step 2 (8
+// columns, 4 consecutive j2) each reach 16 distinct bank pairs.
+template <int T1>
+__device__ __forceinline__ int stg(int c, int k) {
+  return c * T1 + (k ^ (((c + (k >> 4)) & 3) << 2));
+}
+
+// In-place DFT (INV: conjugated, unscaled) of the NROWS rows of the plane,
+// T = A * B, on the tensor cores. Step 1: vector (row, j2) = element j1 at
+// column j1 B + j2, its A-point DFT and then the twiddle tw[m1 B + j2] in FP32,
+// back at column m1 B + j2. Step 2: vector (row, m1) = element j2 at column
+// m1 B + j2, its B-point DFT, back in the same columns: bin m1 + A m2 at
+// column m1 B + m2 (tc_col). Both steps leave each vector in its own slots,
+// so they need no second plane. Ends with a barrier.
+template <int T, int NROWS, bool X3, bool INV>
+__device__ __forceinline__ void row_dft_tc(float2* s_p, const uint32_t* __restrict__ frag,
+                                           const float2* tw) {
+  constexpr int A = split_a(T), B = split_b(T);
+  bf16_mma::dft_step<A, X3, kWarps>(
+      NROWS * B, frag + bf16_mma::frag_offset(A, INV),
+      [&](int m, int j1) { return s_p[sw<T>(m % NROWS, j1 * B + m / NROWS)]; },
+      [&](int m, int m1, float2 v) {
+        const int j2 = m / NROWS;
+        s_p[sw<T>(m % NROWS, m1 * B + j2)] = m1 == 0 ? v : cmulw_rn<INV>(v, tw[m1 * B + j2]);
+      });
+  __syncthreads();
+  bf16_mma::dft_step<B, X3, kWarps>(
+      NROWS * A, frag + bf16_mma::frag_offset(B, INV),
+      [&](int m, int j2) {
+        m = tile_rows<NROWS * A>(m);
+        return s_p[sw<T>(m % NROWS, (m / NROWS) * B + j2)];
+      },
+      [&](int m, int m2, float2 v) {
+        m = tile_rows<NROWS * A>(m);
+        s_p[sw<T>(m % NROWS, (m / NROWS) * B + m2)] = v;
+      });
+  __syncthreads();
+}
+
+// Phase 1 under a tensor-core mode (MODE 3: "bf16x3", 1: "bf16"):
+// fused2d_spectra's function, every DFT step a bf16 product.
+template <int T1, int T2, int MODE>
+__global__ void __launch_bounds__(kThreads, B2Plan<T1, T2>::kMinBlocks)
+fused2d_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
+                   const uint32_t* __restrict__ frag,  // fused2d.py: _tc_fragments
+                   const float2* __restrict__ fac,     // factors, fused2d.py: _device_factors
+                   float2* __restrict__ d,             // (tiles of this launch, B * Cin, NB1, T2)
+                   int hp, int wp, int v1, int v2, int nt2, int tile0) {
+  using P = B2Plan<T1, T2>;
+  constexpr bool X3 = MODE == 3;
+  constexpr int A1 = P::kA1, B1 = P::kB1, G = P::kG, N1 = T1 / 2, N2 = T2 / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const B2Smem<T1, T2> s(smem_raw, fac);
+  float2* s_p = s.plane;
+
+  const int tid = threadIdx.x;
+  const int tile = tile0 + blockIdx.y;
+  const int h0 = (tile / nt2) * v1, w0 = (tile % nt2) * v2;
+  const float* xs = x + (int64_t)blockIdx.x * hp * wp;
+
+  // the window, rows 2r and 2r + 1 packed as complex row r (zeros past the edge)
+  for (int i = tid; i < N1 * T2; i += kThreads) {
+    const int r = i / T2, c = i % T2, hr = h0 + 2 * r, wc = w0 + c;
+    float2 z = make_float2(0.f, 0.f);
+    if (wc < wp) {
+      if (hr < hp) z.x = __ldg(xs + (int64_t)hr * wp + wc);
+      if (hr + 1 < hp) z.y = __ldg(xs + (int64_t)(hr + 1) * wp + wc);
+    }
+    s_p[sw<T2>(r, c)] = z;
+  }
+  __syncthreads();
+
+  // W DFT of the packed rows: Z_r[k] = X_2r[k] + i X_2r+1[k], bin k at tc_col(k)
+  row_dft_tc<T2, N1, X3, false>(s_p, frag, s.tw2);
+
+  // H DFT of column col of X, col in [1, T2/2), or of X[., 0] + i X[., T2/2]
+  // for col = 0, G columns a pass: step 1 splits the W bins k and -k of the
+  // packed rows in FP32 as it loads them (as fused2d_spectra), runs the
+  // A1-point DFT of each (col, j2) (lanes on j2, so that a load reads one
+  // column's rows) and the twiddle into the staging at (col, m1 B1 + j2);
+  // step 2 runs the B1-point DFT of each (col, m1) (lanes on columns, so
+  // that D's stores are row segments) and writes the bins k1 = m1 + A1 m2
+  // to D in natural order
+  float2* dout = d + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * P::kPlane;
+  for (int c0 = 0; c0 < N2; c0 += G) {
+    bf16_mma::dft_step<A1, X3, kWarps>(
+        G * B1, frag + bf16_mma::frag_offset(A1, false),
+        [&](int m, int j1) {
+          const int col = c0 + m / B1, h = j1 * B1 + m % B1, rr = h >> 1;
+          const int ck = tc_col<T2>(col == 0 ? 0 : col), cm = tc_col<T2>(col == 0 ? N2 : T2 - col);
+          const float2 zk = s_p[sw<T2>(rr, ck)], zm = s_p[sw<T2>(rr, cm)];
+          if (col == 0)  // X_r[0] + i X_r[T2/2], both real
+            return h & 1 ? make_float2(zk.y, zm.y) : make_float2(zk.x, zm.x);
+          // X_2r[k] = (Z[k] + conj Z[-k]) / 2, X_2r+1[k] = (Z[k] - conj Z[-k]) / 2i
+          return h & 1 ? make_float2(0.5f * (zk.y + zm.y), 0.5f * (zm.x - zk.x))
+                       : make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+        },
+        [&](int m, int m1, float2 v) {
+          const int j2 = m % B1;
+          s.stage[stg<T1>(m / B1, m1 * B1 + j2)] =
+              m1 == 0 ? v : cmulw_rn<false>(v, s.tw1[m1 * B1 + j2]);
+        });
+    __syncthreads();
+    bf16_mma::dft_step<B1, X3, kWarps>(
+        G * A1, frag + bf16_mma::frag_offset(B1, false),
+        [&](int m, int j2) { return s.stage[stg<T1>(m % G, (m / G) * B1 + j2)]; },
+        [&](int m, int m2, float2 v) {
+          const int col = c0 + m % G, k1 = m / G + A1 * m2;
+          if (col == 0) {
+            s.packed[k1] = v;
+          } else {
+            if (k1 <= N1) dout[k1 * T2 + col] = v;
+            if (k1 == 0 || k1 >= N1)  // D[-k1, -col] = conj X[k1, col]
+              dout[((T1 - k1) % T1) * T2 + T2 - col] = make_float2(v.x, -v.y);
+          }
+        });
+    __syncthreads();
+    if (c0 == 0) {  // split C = X0 + i XN into columns 0 and T2/2
+      for (int k = tid; k < P::kNB1; k += kThreads) {
+        const float2 p = s.packed[k], q = s.packed[(T1 - k) % T1];
+        dout[k * T2] = make_float2(0.5f * (p.x + q.x), 0.5f * (p.y - q.y));
+        dout[k * T2 + N2] = make_float2(0.5f * (p.y + q.y), 0.5f * (q.x - p.x));
+      }
+    }
+  }
+}
+
+// Phase 2 under a tensor-core mode: fused2d_mac_inverse's function, every
+// DFT step a bf16 product; the MAC is FP32 as in every mode.
+template <int T1, int T2, int MODE>
+__global__ void __launch_bounds__(kThreads, B2Plan<T1, T2>::kMinBlocks)
+fused2d_mac_inverse_tc(const float2* __restrict__ d,       // (tiles of this launch, B * Cin, NB1, T2)
+                       const float2* __restrict__ ks,      // (Cout, Cin/g, NB1, T2), conjugated
+                       const uint32_t* __restrict__ frag,  // fused2d.py: _tc_fragments
+                       const float2* __restrict__ fac,     // factors, fused2d.py: _device_factors
+                       float* __restrict__ out,            // (B, Cout, oh, ow)
+                       int batch, int cin, int cout, int groups, int v1, int v2, int nt2,
+                       int tile0, int oh, int ow) {
+  using P = B2Plan<T1, T2>;
+  constexpr bool X3 = MODE == 3;
+  constexpr int A1 = P::kA1, B1 = P::kB1, G = P::kG, N1 = T1 / 2, N2 = T2 / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const B2Smem<T1, T2> s(smem_raw, fac);
+  float2* s_p = s.plane;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / cout, o = blockIdx.x % cout;
+  const int cpg = cin / groups, g0 = o / (cout / groups);
+  const int tile = tile0 + blockIdx.y;
+  const int h0 = (tile / nt2) * v1, w0 = (tile % nt2) * v2;
+  const int64_t plane = P::kPlane;
+
+  // per-bin MAC over this out-channel's group: Y = sum_c D[c] * K[o, c]
+  const float2* dg = d + (((int64_t)blockIdx.y * batch + b) * cin + (int64_t)g0 * cpg) * plane;
+  const float2* ko = ks + (int64_t)o * cpg * plane;
+  for (int i = tid; i < P::kPlane; i += kThreads) {
+    float2 y = make_float2(0.f, 0.f);
+    for (int ci = 0; ci < cpg; ++ci) cmac(y, __ldg(dg + ci * plane + i), __ldg(ko + ci * plane + i));
+    s_p[sw<T2>(i / T2, i % T2)] = y;
+  }
+  __syncthreads();
+
+  // inverse W DFT of the NB1 rows in place, sample n at tc_col(n)
+  row_dft_tc<T2, P::kNB1, X3, true>(s_p, frag, s.tw2);
+
+  // H irfft of columns 2q and 2q + 1 at once, G pairs a pass: the inverse
+  // DFT of c = H_2q + i H_2q+1, H the Hermitian extension of a one-sided
+  // column (formed in FP32 as step 1 loads it, as fused2d_mac_inverse), whose
+  // real and imaginary parts are the two output columns; step 1 (lanes on
+  // the bins of one pair) into the staging with the conjugate twiddle, step 2
+  // (lanes on pairs) onto the output rows m1 + A1 m2, of which the V1 valid
+  // ones are stored with 1/(T1 T2)
+  const float scale = 1.f / (float)(T1 * T2);
+  float* oplane = out + ((int64_t)b * cout + o) * oh * ow;
+  for (int c0 = 0; c0 < N2; c0 += G) {
+    bf16_mma::dft_step<A1, X3, kWarps>(
+        G * B1, frag + bf16_mma::frag_offset(A1, true),
+        [&](int m, int j1) {
+          const int q = c0 + m / B1, k = j1 * B1 + m % B1, kk = k <= N1 ? k : T1 - k;
+          const float2 e0 = s_p[sw<T2>(kk, tc_col<T2>(2 * q))];
+          const float2 e1 = s_p[sw<T2>(kk, tc_col<T2>(2 * q + 1))];
+          if (k == 0 || k == N1)  // real bins: their imaginary parts drop out
+            return make_float2(e0.x, e1.x);
+          if (k < N1)  // E0 + i E1
+            return make_float2(e0.x - e1.y, e0.y + e1.x);
+          return make_float2(e0.x + e1.y, e1.x - e0.y);  // conj(E0) + i conj(E1) of bin T1 - k
+        },
+        [&](int m, int m1, float2 v) {
+          const int j2 = m % B1;
+          s.stage[stg<T1>(m / B1, m1 * B1 + j2)] =
+              m1 == 0 ? v : cmulw_rn<true>(v, s.tw1[m1 * B1 + j2]);
+        });
+    __syncthreads();
+    bf16_mma::dft_step<B1, X3, kWarps>(
+        G * A1, frag + bf16_mma::frag_offset(B1, true),
+        [&](int m, int j2) { return s.stage[stg<T1>(m % G, (m / G) * B1 + j2)]; },
+        [&](int m, int m2, float2 v) {
+          const int z = 2 * (c0 + m % G), ox = w0 + z, vr = m / G + A1 * m2, oy = h0 + vr;
+          if (vr < v1 && oy < oh) {
+            float* row = oplane + (int64_t)oy * ow + ox;
+            if (z < v2 && ox < ow) row[0] = v.x * scale;
+            if (z + 1 < v2 && ox + 1 < ow) row[1] = v.y * scale;
+          }
+        });
+    __syncthreads();  // the staging is read before the next pass overwrites it
+  }
+}
+
+template <int T1, int T2, int MODE>
+cudaError_t launch_tc(const float* x, const float2* ks, const uint32_t* frag, const float2* fac,
+                      float2* d, float* out, int batch, int cin, int cout, int groups, int hp,
+                      int wp, int v1, int v2, int nt2, int tile0, int ntile, int oh, int ow,
+                      cudaStream_t stream) {
+  constexpr size_t smem = B2Plan<T1, T2>::kSmem;
+  if (v1 < 1 || v1 > T1 || v2 < 1 || v2 > T2 || nt2 < 1 || ntile < 1 || ntile > 65535 ||
+      tile0 < 0 || groups < 1 || cin % groups || cout % groups)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused2d_spectra_tc<T1, T2, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused2d_mac_inverse_tc<T1, T2, MODE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+
+  fused2d_spectra_tc<T1, T2, MODE><<<dim3(batch * cin, ntile), kThreads, smem, stream>>>(
+      x, frag, fac, d, hp, wp, v1, v2, nt2, tile0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused2d_mac_inverse_tc<T1, T2, MODE><<<dim3(batch * cout, ntile), kThreads, smem, stream>>>(
+      d, ks, frag, fac, out, batch, cin, cout, groups, v1, v2, nt2, tile0, oh, ow);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_tc_plan(int t1, int t2, const float* x, const float2* ks,
+                           const uint32_t* frag, const float2* fac, float2* d, float* out,
+                           int batch, int cin, int cout, int groups, int hp, int wp, int v1,
+                           int v2, int nt2, int tile0, int ntile, int oh, int ow,
+                           cudaStream_t stream) {
+#define FUSED2D_TC_LAUNCH(T1, T2)                                                          \
+  if (t1 == T1 && t2 == T2)                                                                \
+    return launch_tc<T1, T2, MODE>(x, ks, frag, fac, d, out, batch, cin, cout, groups, hp, \
+                                   wp, v1, v2, nt2, tile0, ntile, oh, ow, stream);
+  FUSED2D_TC_LAUNCH(128, 128)
+  FUSED2D_TC_LAUNCH(256, 128)
+  FUSED2D_TC_LAUNCH(384, 128)
+  FUSED2D_TC_LAUNCH(128, 256)
+#undef FUSED2D_TC_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Runs tiles [tile0, tile0 + ntile) (row-major over nt1 x nt2) of one
@@ -777,6 +1097,31 @@ extern "C" int fused2d_forward(const void* x, const void* ks, const void* fac, v
   FUSED2D_LAUNCH(384, 128)
   FUSED2D_LAUNCH(128, 256)
 #undef FUSED2D_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+// fused2d_forward under a tensor-core mode: mode 3 is "bf16x3", 1 is "bf16";
+// frag the fragment buffer of fused2d.py:_tc_fragments, the other arguments
+// as fused2d_forward's. Returns cudaGetLastError() after the two launches (0
+// when both were accepted).
+extern "C" int fused2d_forward_tc(const void* x, const void* ks, const void* frag,
+                                  const void* fac, void* d, void* out, int batch, int cin,
+                                  int cout, int groups, int hp, int wp, int t1, int t2, int mode,
+                                  int v1, int v2, int nt2, int tile0, int ntile, int oh, int ow,
+                                  void* stream) {
+  const auto* xf = static_cast<const float*>(x);
+  const auto* ksc = static_cast<const float2*>(ks);
+  const auto* fr = static_cast<const uint32_t*>(frag);
+  const auto* fc = static_cast<const float2*>(fac);
+  auto* dc = static_cast<float2*>(d);
+  auto* of = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (mode == 3)
+    return launch_tc_plan<3>(t1, t2, xf, ksc, fr, fc, dc, of, batch, cin, cout, groups, hp, wp,
+                             v1, v2, nt2, tile0, ntile, oh, ow, s);
+  if (mode == 1)
+    return launch_tc_plan<1>(t1, t2, xf, ksc, fr, fc, dc, of, batch, cin, cout, groups, hp, wp,
+                             v1, v2, nt2, tile0, ntile, oh, ow, s);
   return cudaErrorInvalidValue;
 }
 

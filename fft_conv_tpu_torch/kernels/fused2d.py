@@ -31,8 +31,16 @@ is the composed path, shared with the 1D kernel (``fused1d._fused_bwd``).
 ``plan_fft_conv2d`` bakes the kernel spectra once for serving; its calls
 follow the schedule chosen at call time, as the JAX package's do.
 
-Not ported from the JAX module: the TPU's precision, MAC-mode and prefetch
-switches.
+``set_fused2d_precision`` picks how B2 forms its DFT products, as the JAX
+package's switch of that name does: "highest" (the default here) runs B2's
+FP32 kernel pair, "bf16x3" and "bf16" its tensor-core pair in the same
+source (``fused2d_forward_tc``), whose DFT steps are bf16 products (hi/lo
+splits, three products or one) on B2's factors. The plain version of that
+pair (``_tc_spectra``, ``_tc_inverse``) runs B2's kernel order, W first on
+packed rows, so that it rounds the same operands. B5 has no tensor-core
+pair yet: "v3" under a bf16 mode raises.
+
+Not ported from the JAX module: the TPU's MAC-mode and prefetch switches.
 """
 
 import ctypes
@@ -51,7 +59,8 @@ from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
 from .fourstep import dft_last, fft_factor_matrices
-from .fused1d import _fused_bwd, _spectra_or
+from .fused1d import (PRECISION_MODES, _DOTS, _TC_MODE, _b_fragments, _fused_bwd,
+                      _spectra_or)
 
 _T2_CANDIDATES = (128, 256)
 
@@ -75,10 +84,18 @@ _SCRATCH_BUDGET = 256 * 2**20
 _MAX_TILES_PER_LAUNCH = 65535
 
 # Launches of the CUDA kernel pairs (phase 1 + phase 2) since import or the
-# last reset: ``launches`` counts B2, ``launches_v3`` counts B5. The plain
-# versions on CPU tensors do not count.
+# last reset: ``launches`` counts B2's FP32 pair, ``launches_tc`` its
+# tensor-core pair (the modes "bf16x3" and "bf16"), ``launches_v3`` B5. The
+# plain versions on CPU tensors do not count.
 launches = 0
+launches_tc = 0
 launches_v3 = 0
+
+# How B2 forms its DFT products (set_fused2d_precision), one of
+# PRECISION_MODES, the 1D kernel's modes: "highest" FP32, "bf16x3" three bf16
+# products of hi/lo splits (lo.lo dropped), "bf16" one. The twiddles, the
+# splits of packed pairs, the MAC and the scale are FP32 in every mode.
+_PRECISION_2D = "highest"
 
 # The tile-kernel schedule: "v2" (B2) or "v3" (B5). _fused2d_forward reads it
 # at call time, as the JAX package's does.
@@ -92,6 +109,22 @@ def set_fused2d_kernel(version: str) -> None:
     if version not in ("v2", "v3"):
         raise ValueError(f"unknown fused2d kernel version: {version!r}")
     _KERNEL2D_VERSION = version
+
+
+def set_fused2d_precision(mode: str) -> None:
+    """Selects how the fused 2D kernel B2 forms its DFT products, read at
+    every 2D call: "highest" (FP32, B2's FP32 pair), "bf16x3" (bf16
+    tensor-core products of hi/lo splits, three a product, near FP32) or
+    "bf16" (one bf16 product, an opt-in serving mode outside the FP32 bar).
+    Any other name raises ValueError. Independent of the 1D and 3D kernels'
+    switches. The port of the JAX package's ``set_fused2d_precision``
+    (``fft_conv_tpu/kernels/fused2d.py:60``), whose default is "bf16x3";
+    this one's is "highest". The "v3" schedule (B5) runs only under
+    "highest" for now: a 2D call under "v3" and a bf16 mode raises."""
+    global _PRECISION_2D
+    if mode not in PRECISION_MODES:
+        raise ValueError(f"unknown fused precision mode: {mode!r}")
+    _PRECISION_2D = mode
 
 
 # B2's four-step split T = A * B of each DFT length it takes (A-point DFTs
@@ -213,12 +246,33 @@ def _device_factors(t1: int, t2: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.concatenate(parts).astype(np.complex64)).to(device)
 
 
-def _dft_last(xr: torch.Tensor, xi: Optional[torch.Tensor], inverse: bool):
+# the lengths of the tensor-core pair's DFT steps: the factors of _SPLITS
+_TC_RADICES = (8, 16, 24)
+
+
+@lru_cache(maxsize=None)
+def _tc_fragments(device: torch.device) -> torch.Tensor:
+    """The tensor-core pair's DFT matrices as one int32 tensor on ``device``,
+    in the order csrc/bf16_mma.cuh's ``frag_offset`` reads them: for R in
+    ``_TC_RADICES`` the R-point DFT, forward and then conjugated, each as its
+    hi and then its lo fragments (``fused1d._b_fragments``). Built in float64
+    (``fft_factor_matrices``) and rounded to float32 before the split, as the
+    plain version rounds them."""
+    parts = []
+    for r in _TC_RADICES:
+        f = fft_factor_matrices(r, 1)[0]
+        for m in (f, np.conj(f)):
+            parts += _b_fragments(m)
+    return torch.from_numpy(np.concatenate(parts).view(np.int32)).to(device)
+
+
+def _dft_last(xr: torch.Tensor, xi: Optional[torch.Tensor], inverse: bool, dot=None):
     """Unscaled DFT (inverse: conjugated) of the last axis, length T, through
     the four-step factors of ``_SPLITS[T]`` (``fourstep.dft_last``): bins in
-    natural order. ``xi`` None is a real input. Returns (re, im) in the
-    dtype of ``xr``."""
-    return dft_last(xr, xi, _SPLITS[xr.shape[-1]], inverse)
+    natural order. ``xi`` None is a real input. ``dot``: the product of a
+    tensor-core mode (``fused1d._DOTS``) for each real product of the two
+    steps, None for FP32. Returns (re, im) in the dtype of ``xr``."""
+    return dft_last(xr, xi, _SPLITS[xr.shape[-1]], inverse, dot)
 
 
 def _h_forward(a: torch.Tensor):
@@ -249,6 +303,62 @@ def _h_irfft(er: torch.Tensor, ei: torch.Tensor, v1: int) -> torch.Tensor:
     zi = TF.pad((ei * w).transpose(-1, -2), (0, t1 - nb1))
     out, _ = _dft_last(zr, zi, True)
     return out[..., :v1].transpose(-1, -2) / t1
+
+
+def _tc_spectra(a: torch.Tensor, dot) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 of B2's tensor-core pair on real windows (..., T1, T2), in the
+    kernel's order: the W DFT of rows 2r and 2r + 1 packed as one complex
+    row; per column col in [1, T2/2) the split of its W bins col and -col into
+    the column of X (X_2r = (Z[k] + conj Z[-k]) / 2, X_2r+1 = (Z[k] - conj
+    Z[-k]) / 2i), and for col = 0 the real columns X[., 0] + i X[., T2/2] as
+    one; the H DFT of those T2/2 columns; D's columns T2/2 + 1 .. T2 - 1 from
+    conj D[-k1, -col], columns 0 and T2/2 split out of the packed one. Each
+    DFT product through ``dot``, the rest FP32. Returns D (..., NB1, T2) as
+    (re, im)."""
+    t1, t2 = a.shape[-2:]
+    nb1, n2 = t1 // 2 + 1, t2 // 2
+    zr, zi = _dft_last(a[..., 0::2, :], a[..., 1::2, :], False, dot)  # (..., T1/2, T2)
+    cols = torch.arange(1, n2, device=a.device)
+    pr, pi, qr, qi = zr[..., cols], zi[..., cols], zr[..., t2 - cols], zi[..., t2 - cols]
+    xr = torch.stack([0.5 * (pr + qr), 0.5 * (pi + qi)], dim=-2).flatten(-3, -2)  # (..., T1, ·)
+    xi = torch.stack([0.5 * (pi - qi), 0.5 * (qr - pr)], dim=-2).flatten(-3, -2)
+    c0r = torch.stack([zr[..., 0], zi[..., 0]], dim=-1).flatten(-2)  # X[., 0], real
+    c0i = torch.stack([zr[..., n2], zi[..., n2]], dim=-1).flatten(-2)  # X[., T2/2], real
+    hr, hi = _dft_last(torch.cat([c0r.unsqueeze(-2), xr.transpose(-1, -2)], dim=-2),
+                        torch.cat([c0i.unsqueeze(-2), xi.transpose(-1, -2)], dim=-2),
+                        False, dot)  # (..., T2/2, T1): bins k1 of each column
+    k = torch.arange(nb1, device=a.device)
+    mk = (t1 - k) % t1
+    lo_r, lo_i = hr[..., 1:, :nb1].transpose(-1, -2), hi[..., 1:, :nb1].transpose(-1, -2)
+    up_r, up_i = hr[..., 1:, mk].flip(-2).transpose(-1, -2), hi[..., 1:, mk].flip(-2).transpose(-1, -2)
+    p_r, p_i, q_r, q_i = hr[..., 0, :nb1], hi[..., 0, :nb1], hr[..., 0, mk], hi[..., 0, mk]
+    dr = torch.cat([(0.5 * (p_r + q_r)).unsqueeze(-1), lo_r,
+                    (0.5 * (p_i + q_i)).unsqueeze(-1), up_r], dim=-1)
+    di = torch.cat([(0.5 * (p_i - q_i)).unsqueeze(-1), lo_i,
+                    (0.5 * (q_r - p_r)).unsqueeze(-1), -up_i], dim=-1)
+    return dr, di
+
+
+def _tc_inverse(yr: torch.Tensor, yi: torch.Tensor, v1: int, dot) -> torch.Tensor:
+    """Phase 2's inverse in B2's tensor-core pair on the MAC's output (...,
+    NB1, T2), in the kernel's order: the inverse W DFT of the NB1 rows; then
+    per column pair (2q, 2q + 1) one inverse T1-point DFT of c = E_2q + i
+    E_2q+1, E the Hermitian extension of a one-sided column (bins 0 and T1/2
+    taken real), whose real and imaginary parts are the two output columns;
+    the V1 first rows (..., V1, T2), times 1/(T1 T2) in float32. Each DFT
+    product through ``dot``, the rest FP32."""
+    nb1, t2 = yr.shape[-2:]
+    t1, n1 = 2 * (nb1 - 1), nb1 - 1
+    er, ei = _dft_last(yr, yi, True, dot)  # (..., NB1, T2): samples in natural order
+    k = torch.arange(t1, device=yr.device)
+    kk = torch.minimum(k, t1 - k)
+    e0r, e0i, e1r, e1i = er[..., kk, 0::2], ei[..., kk, 0::2], er[..., kk, 1::2], ei[..., kk, 1::2]
+    real, low = ((k == 0) | (k == n1)).unsqueeze(-1), (k < n1).unsqueeze(-1)
+    vr = torch.where(real, e0r, torch.where(low, e0r - e1i, e0r + e1i))  # (..., T1, T2/2)
+    vi = torch.where(real, e1r, torch.where(low, e0i + e1r, e1r - e0i))
+    outr, outi = _dft_last(vr.transpose(-1, -2), vi.transpose(-1, -2), True, dot)
+    out = torch.stack([outr, outi], dim=-2).flatten(-3, -2).transpose(-1, -2)  # (..., T1, T2)
+    return out[..., :v1, :] * (1.0 / (t1 * t2))
 
 
 @lru_cache(maxsize=None)
@@ -398,7 +508,7 @@ def _reference_stitch(out, x_padded, kernel, plan):
 
 def _fused2d_forward_reference(
     x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
-    spectra: Optional[torch.Tensor] = None,
+    spectra: Optional[torch.Tensor] = None, mode: str = "highest",
 ) -> torch.Tensor:
     """B2's plain PyTorch version: the same tiled pipeline with each DFT
     axis factored as the kernel factors it (``_dft_last``: the same factors,
@@ -410,13 +520,24 @@ def _fused2d_forward_reference(
     ``x_padded`` (B, Cin, Hp, Wp) already padded, ``kernel`` (Cout, Cin/g,
     K1, K2) already dilated; returns the valid correlation (B, Cout, OH, OW).
     ``spectra``: a plan's baked ``kernel_spectra_2d``, or None to compute
-    them.
+    them. ``mode``: the precision mode whose kernel pair this stands for;
+    under "bf16x3" and "bf16" the tensor-core pair's order (``_tc_spectra``,
+    ``_tc_inverse``) with each DFT product rounding its operands to bfloat16
+    where that pair does (``fused1d._DOTS``).
     """
+    if mode not in PRECISION_MODES:
+        raise ValueError(f"unknown fused precision mode: {mode!r}")
     plan, dt, a = _reference_tiles(x_padded, kernel)
     v1 = plan[1]
-    dr, di = _dft_last(*_h_forward(a), False)  # W DFT: (B, Cin, nt1, nt2, NB1, T2)
+    if mode == "highest":
+        dr, di = _dft_last(*_h_forward(a), False)  # W DFT: (B, Cin, nt1, nt2, NB1, T2)
+    else:
+        dr, di = _tc_spectra(a, _DOTS[mode])
     yr, yi = _reference_mac(dr, di, kernel, groups, plan, dt, spectra)
-    out = _h_irfft(*_w_inverse(yr, yi), v1)  # (B, Cout, nt1, nt2, V1, T2)
+    if mode == "highest":
+        out = _h_irfft(*_w_inverse(yr, yi), v1)  # (B, Cout, nt1, nt2, V1, T2)
+    else:
+        out = _tc_inverse(yr, yi, v1, _DOTS[mode])
     return _reference_stitch(out, x_padded, kernel, plan)
 
 
@@ -441,6 +562,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused2d_forward.argtypes = [p] * 5 + [i] * 15 + [p]
         lib.fused2d_forward.restype = i
+        lib.fused2d_forward_tc.argtypes = [p] * 6 + [i] * 16 + [p]
+        lib.fused2d_forward_tc.restype = i
         lib.fused2d_error_string.argtypes = [i]
         lib.fused2d_error_string.restype = ctypes.c_char_p
         lib.fused2d_smem_bytes.argtypes = [i, i]
@@ -497,13 +620,18 @@ def _check_launch(x_padded, spectra, plan, groups, k, v3):
 
 
 def _launch_fused2d(
-    x_padded: torch.Tensor, spectra: torch.Tensor, plan, groups: int, k: Tuple[int, int]
+    x_padded: torch.Tensor, spectra: torch.Tensor, plan, groups: int, k: Tuple[int, int],
+    mode: str = "highest",
 ) -> torch.Tensor:
-    """Runs the CUDA kernel pair on ``x_padded`` (B, Cin, Hp, Wp) float32
-    with the conjugated spectra (Cout, Cin/g, NB1, T2) complex64 of a
-    (K1, K2) kernel, both on one CUDA device, under the tile plan ``plan``.
-    Returns the valid correlation (B, Cout, OH, OW)."""
-    global launches
+    """Runs the CUDA kernel pair of ``mode`` on ``x_padded`` (B, Cin, Hp, Wp)
+    float32 with the conjugated spectra (Cout, Cin/g, NB1, T2) complex64 of
+    a (K1, K2) kernel, both on one CUDA device, under the tile plan ``plan``:
+    B2's FP32 pair under "highest" (counted in ``launches``), its
+    tensor-core pair under "bf16x3" and "bf16" (``launches_tc``). Returns
+    the valid correlation (B, Cout, OH, OW)."""
+    global launches, launches_tc
+    if mode not in PRECISION_MODES:
+        raise ValueError(f"unknown fused precision mode: {mode!r}")
     x_padded, spectra, oh, ow, nt2, ntiles, chunk = _check_launch(
         x_padded, spectra, plan, groups, k, v3=False)
     b, cin, hp, wp = x_padded.shape
@@ -512,21 +640,29 @@ def _launch_fused2d(
 
     lib = _library()
     fac = _device_factors(t1, t2, x_padded.device)
+    frag = None if mode == "highest" else _tc_fragments(x_padded.device)
     out = torch.empty((b, cout, oh, ow), device=x_padded.device, dtype=torch.float32)
     d = torch.empty((chunk, b, cin, nb1, t2), device=x_padded.device, dtype=torch.complex64)
     stream = torch.cuda.current_stream(x_padded.device).cuda_stream
     with torch.cuda.device(x_padded.device):
         for tile0 in range(0, ntiles, chunk):
-            err = lib.fused2d_forward(
-                x_padded.data_ptr(), spectra.data_ptr(), fac.data_ptr(), d.data_ptr(),
-                out.data_ptr(),
-                b, cin, cout, groups, hp, wp, t1, t2, v1, v2, nt2,
-                tile0, min(chunk, ntiles - tile0), oh, ow, stream,
-            )
+            tiles = (v1, v2, nt2, tile0, min(chunk, ntiles - tile0), oh, ow, stream)
+            if frag is None:
+                err = lib.fused2d_forward(
+                    x_padded.data_ptr(), spectra.data_ptr(), fac.data_ptr(), d.data_ptr(),
+                    out.data_ptr(), b, cin, cout, groups, hp, wp, t1, t2, *tiles)
+            else:
+                err = lib.fused2d_forward_tc(
+                    x_padded.data_ptr(), spectra.data_ptr(), frag.data_ptr(), fac.data_ptr(),
+                    d.data_ptr(), out.data_ptr(), b, cin, cout, groups, hp, wp, t1, t2,
+                    _TC_MODE[mode], *tiles)
             if err != 0:
                 msg = lib.fused2d_error_string(err).decode()
                 raise RuntimeError(f"fused2d kernel launch failed: {msg} (cudaError {err})")
-            launches += 1
+            if frag is None:
+                launches += 1
+            else:
+                launches_tc += 1
     return out
 
 
@@ -571,8 +707,12 @@ def _fused2d_forward(
     spectra: Optional[torch.Tensor] = None,
 ):
     """Valid correlation of ``x_padded`` with ``kernel`` under the schedule
-    that ``set_fused2d_kernel`` chose, read at call time: the CUDA kernel
-    (B2 or B5) for a CUDA tensor, its plain version for a CPU one.
+    that ``set_fused2d_kernel`` chose and the precision mode that
+    ``set_fused2d_precision`` chose, both read at call time: the CUDA kernel
+    pair (B2's FP32 or tensor-core pair, or B5) for a CUDA tensor, its plain
+    version for a CPU one. "v3" under a bf16 mode raises ValueError on both
+    devices: B5 has no tensor-core pair yet, and the call neither falls back
+    to FP32 nor ignores the mode.
     ``spectra``: a plan's baked ``kernel_spectra_2d`` (B5 takes them as
     planes, ``_planes``), or None to compute them. They are computed here,
     ahead of the call's record for a running cost analysis
@@ -582,6 +722,12 @@ def _fused2d_forward(
     if x_padded.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused2d runs on CUDA or CPU tensors, got {x_padded.device}")
     v3 = _KERNEL2D_VERSION == "v3"
+    mode = _PRECISION_2D
+    if v3 and mode != "highest":
+        raise ValueError(
+            f"the 'v3' 2D schedule (kernel B5) has no tensor-core pair for precision mode "
+            f"{mode!r} yet; it comes with the slice that gives B5 the bf16 modes. Use "
+            f"set_fused2d_kernel('v2') or set_fused2d_precision('highest')")
     b, cin, hp, wp = x_padded.shape
     cout, cpg, k1, k2 = kernel.shape
     plan = tile_plan_2d(k1, k2, cpg, cout)
@@ -592,18 +738,18 @@ def _fused2d_forward(
         spectra = kernel_spectra_2d(kernel, t1, nb1, t2)
     record = costs.IDLE
     if costs.active():
-        shape = (b, cin, cout, hp, wp, (k1, k2), plan, groups)
-        kernel_flops = costs.fused2d_v3_kernel_flops if v3 else costs.fused2d_kernel_flops
-        record = costs.record("B5" if v3 else "B2", kernel_flops(*shape),
-                              costs.fused2d_work(*shape)[0])
+        record = costs.fused2d_record(b, cin, cout, hp, wp, (k1, k2), plan, groups, mode, v3)
     with record:
         if x_padded.is_cuda:
             if v3:
                 return _launch_fused2d_v3(x_padded.float(), _planes(spectra), plan, groups,
                                           (k1, k2))
-            return _launch_fused2d(x_padded.float(), spectra, plan, groups, (k1, k2))
-        reference = _fused2d_forward_reference_v3 if v3 else _fused2d_forward_reference
-        return reference(x_padded.float(), kernel.float(), groups, spectra)
+            return _launch_fused2d(x_padded.float(), spectra, plan, groups, (k1, k2), mode)
+        if v3:
+            return _fused2d_forward_reference_v3(x_padded.float(), kernel.float(), groups,
+                                                 spectra)
+        return _fused2d_forward_reference(x_padded.float(), kernel.float(), groups, spectra,
+                                          mode)
 
 
 class _Fused2dCore(torch.autograd.Function):

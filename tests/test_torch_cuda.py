@@ -1,6 +1,6 @@
 """The port on a CUDA card: the fused 1D, 2D and 3D kernels (B1, B2, B5, B3,
 B4, the x-pack kernel B6 and the spectra kernel B7) against their plain
-versions, B1's tensor-core pair under each bf16 precision mode too, the serving
+versions, B1's and B2's tensor-core pairs under each bf16 precision mode too, the serving
 plans, and the routes that only a CUDA tensor takes. B1 is also held at the
 edges of its blocking: V1 = 1, a single block, Cin = 3 with groups = 3 and
 a stuffed transposed length. A stream of chunks launches B1 once per chunk,
@@ -319,6 +319,145 @@ def test_2d_kernel_in_tile_ranges(cuda, monkeypatch):
     assert fused2d.launches - before > 1
     y_ref = fused2d._fused2d_forward_reference(x.cpu(), k.cpu())
     _assert_close_scaled(y.cpu().numpy(), y_ref.numpy())
+
+
+def _assert_bf16_2d_kernel_close(y, y_ref, y_exact):
+    """The bar of B2's "bf16" tensor-core pair against its plain version
+    ``y_ref``, with ``y_exact`` the result in float64: err_max < 2.5e-2·σ and
+    err_mean < 2e-3·σ (σ = max(1, std(ref))), and the kernel's err_mean
+    against ``y_exact`` within 1% of the plain version's. The two round the
+    same operands to bf16 after FP32 sums of another order, and where one
+    operand of a tile's first steps rounds the other way, the change moves
+    later operands by a fraction of a bf16 step and flips some of their
+    roundings too, through the eight rounding steps of a tile: whole tiles
+    then differ. On an H100 (``survey_fused2d_bf16.py``, 32 calls) one call
+    was 1.2e-3·σ from its plain version (past ``_assert_bf16_kernel_close``'s
+    5e-4·σ, set for B1's fewer steps), while the two errors against float64
+    stayed within 0.11% of each other. So the mean bar is 2e-3·σ, under the
+    3.8e-3 to 4.4e-3·σ that a kernel running "bf16x3" arithmetic would be
+    from the plain version, and the ratio tells the modes apart and catches
+    a rounding added or left out, which moves the error by about 6% (one
+    step in eight)."""
+    y, y_ref, y_exact = (np.asarray(a, np.float64) for a in (y, y_ref, y_exact))
+    assert y.shape == y_ref.shape == y_exact.shape
+    sigma = max(1.0, float(y_ref.std()))
+    err = np.abs(y - y_ref)
+    assert err.mean() < 2e-3 * sigma and err.max() < 2.5e-2 * sigma, (
+        f"mean {err.mean():.3e} max {err.max():.3e} sigma {sigma:.1f}")
+    ours, plain = np.abs(y - y_exact).mean(), np.abs(y_ref - y_exact).mean()
+    assert abs(ours / plain - 1) < 1e-2, f"err_mean vs float64 {ours:.4e}, plain {plain:.4e}"
+
+
+def _assert_tc_2d_close(mode, y, x, k, groups=1):
+    """B2's tensor-core pair's output ``y`` against its plain version of
+    ``mode`` on the CPU: "bf16x3" under the FP32 bar, "bf16" under
+    ``_assert_bf16_2d_kernel_close``."""
+    y_ref = fused2d._fused2d_forward_reference(x.cpu(), k.cpu(), groups, mode=mode).numpy()
+    if mode == "bf16x3":
+        _assert_close_scaled(y.cpu().numpy(), y_ref)
+    else:
+        exact = fused2d._fused2d_forward_reference(x.cpu().double(), k.cpu().double(), groups)
+        _assert_bf16_2d_kernel_close(y.cpu().numpy(), y_ref, exact.numpy())
+
+
+@pytest.fixture
+def precision2d():
+    """Restores B2's default precision mode and the "v2" schedule after the
+    test."""
+    yield fused2d.set_fused2d_precision
+    fused2d.set_fused2d_precision("highest")
+    fused2d.set_fused2d_kernel("v2")
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("b,cin,cout,h,w,k1,k2,groups", FUSED2D + [
+    (2, 8, 8, 512, 512, 16, 16, 1),    # the 2D benchmark rows
+    (2, 8, 8, 512, 512, 34, 34, 1),
+])
+def test_tc_2d_kernel_matches_plain_version(cuda, mode, b, cin, cout, h, w, k1, k2, groups):
+    """B2's tensor-core pair against its plain version of the same mode at
+    every tile shape (128 x 128, 256 x 128, 384 x 128, 128 x 256) and the
+    benchmark rows: "bf16x3" under the FP32 bar, "bf16" under
+    ``_assert_bf16_2d_kernel_close``."""
+    x, k = _tensors(cuda, h + k2, (b, cin, h, w), (cout, cin // groups, k1, k2))
+    k /= (cin // groups * k1 * k2) ** 0.5
+    plan = fused2d.tile_plan_2d(k1, k2, cin // groups, cout)
+    spectra = fused2d.kernel_spectra_2d(k, plan[0], plan[2], plan[3])
+    before = fused2d.launches, fused2d.launches_tc
+    y = fused2d._launch_fused2d(x, spectra, plan, groups, (k1, k2), mode)
+    torch.cuda.synchronize()
+    assert (fused2d.launches, fused2d.launches_tc) == (before[0], before[1] + 1)
+    _assert_tc_2d_close(mode, y, x, k, groups)
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_tc_2d_kernel_in_tile_ranges(cuda, monkeypatch, mode):
+    x, k = _tensors(cuda, 2, (2, 4, 400, 300), (4, 4, 16, 16))
+    plan = fused2d.tile_plan_2d(16, 16, 4, 4)
+    monkeypatch.setattr(fused2d, "_SCRATCH_BUDGET",
+                        2 * fused2d._scratch_bytes_per_tile(plan[2], plan[3], 2, 4))
+    spectra = fused2d.kernel_spectra_2d(k, plan[0], plan[2], plan[3])
+    before = fused2d.launches_tc
+    y = fused2d._launch_fused2d(x, spectra, plan, 1, (16, 16), mode)
+    assert fused2d.launches_tc - before > 1
+    _assert_tc_2d_close(mode, y, x, k)
+
+
+def test_tc_2d_kernel_refuses_what_it_does_not_run(cuda, precision2d):
+    """An unknown mode and complex128 spectra raise, and so does a call under
+    "v3" and a bf16 mode (B5 has no tensor-core pair yet); nothing is
+    launched."""
+    x, w = _tensors(cuda, 3, (1, 2, 150, 140), (2, 2, 9, 9))
+    plan = fused2d.tile_plan_2d(9, 9, 2, 2)
+    spectra = fused2d.kernel_spectra_2d(w, plan[0], plan[2], plan[3])
+    before = fused2d.launches, fused2d.launches_tc, fused2d.launches_v3
+    with pytest.raises(ValueError, match="precision mode"):
+        fused2d._launch_fused2d(x, spectra, plan, 1, (9, 9), "fp8")
+    with pytest.raises(ValueError, match="complex64"):
+        fused2d._launch_fused2d(x, spectra.to(torch.complex128), plan, 1, (9, 9), "bf16")
+    precision2d("bf16x3")
+    fused2d.set_fused2d_kernel("v3")
+    with pytest.raises(ValueError, match="'v3'.*tensor-core"):
+        ft.fft_conv(x, w)
+    assert (fused2d.launches, fused2d.launches_tc, fused2d.launches_v3) == before
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_tc_modes_route_every_2d_path_on_cuda(cuda, precision2d, mode):
+    """Under a bf16 mode a CUDA tensor's 2D calls (``fft_conv`` under "auto",
+    a plan, the transposed route, ``FFTConv2d``) launch B2's tensor-core pair
+    and neither its FP32 pair nor B5, each within the mode's bar of the
+    composed path; back under "highest" they launch the FP32 pair."""
+    x, w, b = _tensors(cuda, 29, (2, 4, 200, 180), (4, 4, 9, 7), (4,))
+    layer = ft.FFTConv2d(4, 4, 11, padding=2, generator=torch.Generator().manual_seed(0))
+    plan = ft.ops.plan_fft_conv(w, b, signal_spatial=(200, 180))
+    calls = [
+        (lambda: ft.fft_conv(x, w, b), lambda: ft.fft_conv(x, w, b, impl="xla")),
+        (lambda: plan(x), lambda: ft.fft_conv(x, w, b, impl="xla")),
+        (lambda: ft.fft_conv_transpose(x, w, b, padding=2),
+         lambda: ft.fft_conv_transpose(x, w, b, padding=2, impl="xla")),
+        (lambda: layer(x),
+         lambda: ft.fft_conv(x, layer.weight, layer.bias, padding=2, impl="xla")),
+    ]
+    precision2d(mode)
+    for fn, ref in calls:
+        before = fused2d.launches, fused2d.launches_tc, fused2d.launches_v3
+        with torch.no_grad():
+            y = fn()
+        torch.cuda.synchronize()
+        assert (fused2d.launches, fused2d.launches_tc, fused2d.launches_v3) == (
+            before[0], before[1] + 1, before[2])
+        y_ref = ref().detach().cpu().numpy()
+        if mode == "bf16x3":
+            _assert_close_scaled(y.cpu().numpy(), y_ref)
+        else:  # against the exact result, the JAX package's serving bar
+            sigma = max(1.0, float(y_ref.std()))
+            err = np.abs(y.cpu().numpy() - y_ref)
+            assert err.mean() < 5e-3 * sigma and err.max() < 5e-2 * sigma
+    precision2d("highest")
+    before = fused2d.launches, fused2d.launches_tc
+    plan(x)
+    assert (fused2d.launches, fused2d.launches_tc) == (before[0] + 1, before[1])
 
 
 @pytest.fixture
