@@ -39,8 +39,17 @@ entry points spills or a tensor-core one holds no HMMA instruction
 through the 2D main paths (``fft_conv``, a plan, the transposed call,
 ``FFTConv2d``) counted from zero, the modes' errors ordered, and the three
 modes timed at the 2D rows; phase 2 fails if one of its 16 entry points
-spills or holds no HMMA. Then three phases drive the modules around the
-kernels: ``streaming`` (each
+spills or holds no HMMA. Phase 5e does the same for B3 and B4 under
+``set_fused3d_precision("bf16x3")`` and ``("bf16")``, their tensor-core
+chains in ``csrc/fused3d.cu``: against their plain versions at the 3D rows
+and around them (dense and odd H, the stuffed transposed volumes, H = 256,
+groups, staged chunks, "pk", item ranges), through the 3D main paths
+(``fft_conv``, plans, the transposed calls, ``FFTConv3d``,
+``FFTConvTranspose3d``, "pk", inline) counted from zero, the modes' errors
+ordered at the 3D rows, and the three modes timed at the four 3D rows;
+phase 2 fails if one of fused3d.cu's 45 entry points spills or one of its
+12 tensor-core ones holds no HMMA. Then three phases drive the modules
+around the kernels: ``streaming`` (each
 1D row's signal fed to ``ops.streaming_conv1d_step`` in 8 frames of 4096
 samples, a ragged split, dilation 2 and groups 2; one B1 launch per chunk,
 held to the one-shot call; the step's and the stream's times), ``harness``
@@ -264,8 +273,10 @@ def close_bf16(y, y_ref, what):
 
 
 def close_bf16_2d(y, y_ref, y_exact, what):
-    """The bar of B2's "bf16" tensor-core pair against its plain version
-    (tests/test_torch_cuda.py:_assert_bf16_2d_kernel_close): err_mean <
+    """The bar of B2's "bf16" tensor-core pair against its plain version, and
+    of B3's and B4's tensor-core chains, whose ten rounding steps spread a
+    flipped rounding alike (tests/test_torch_cuda.py:
+    _assert_bf16_2d_kernel_close): err_mean <
     2e-3 * sigma, err_max < 2.5e-2 * sigma, and the kernel's err_mean against
     the float64 result ``y_exact`` within 1% of the plain version's. A bf16
     rounding that goes the other way in a tile's first steps spreads through
@@ -491,14 +502,15 @@ def phase_precision(torch, dev, inputs, shapes):
     35x and 650x; a mode running another's arithmetic gives 1x); then the
     three modes timed side by side at each row: the kernel pair's device time
     and call latency, its two kernels (profiler), fft_conv and the plan, the
-    plain version, and the bound (``costs.fused1d_work`` for "highest",
-    ``costs.fused1d_tc_work`` with the products at the bf16 rate otherwise).
+    plain version, and the bound (``costs.fused1d_work`` for "highest";
+    otherwise ``costs.mode_bound``, the lesser of that and
+    ``costs.fused1d_tc_work`` with the products at the bf16 rate).
     "highest" is restored at the end, so later phases run as before.
     Returns {mode: (launches, kernel-vs-plain errors, timing rows)} for the
     bf16 modes."""
     from fft_conv_tpu_torch import fft_conv
     from fft_conv_tpu_torch.kernels import fused1d
-    from fft_conv_tpu_torch.kernels.costs import bound, fused1d_tc_work, fused1d_work
+    from fft_conv_tpu_torch.kernels.costs import bound, fused1d_tc_work, fused1d_work, mode_bound
     from fft_conv_tpu_torch.ops import plan_fft_conv
 
     out = {}
@@ -533,11 +545,11 @@ def phase_precision(torch, dev, inputs, shapes):
                 def auto():
                     return fft_conv(x, w, impl="auto")
 
-                if mode == "highest":
-                    (nbytes, flops), bf16_flops = fused1d_work(b, cin, cout, l, k, n), 0
-                else:
-                    nbytes, bf16_flops, flops = fused1d_tc_work(b, cin, cout, l, k, n, mode)
-                bound_ms, bound_by = bound(nbytes, flops, bf16_flops)
+                (nbytes, flops), bf16_flops = fused1d_work(b, cin, cout, l, k, n), 0
+                bound_ms, bound_by = bound(nbytes, flops)
+                if mode != "highest":
+                    bound_ms, bound_by, (nbytes, flops, bf16_flops) = mode_bound(
+                        (nbytes, flops), fused1d_tc_work(b, cin, cout, l, k, n, mode))
                 row = {
                     "mode": mode, "K": k, "N": n,
                     "ms": device_ms(kernel), "call_ms": call_ms(kernel),
@@ -728,13 +740,14 @@ def phase_precision_2d(torch, inputs, rows):
     inside the serving bar; then the three modes timed side by side at each
     row: the kernel pair's device time and call latency, its two kernels
     (profiler), fft_conv and the plan, the plain version, and the bound
-    (``costs.fused2d_work`` for "highest", ``costs.fused2d_tc_work`` with the
-    products at the bf16 rate otherwise). "highest" is restored at the end.
+    (``costs.fused2d_work`` for "highest"; otherwise ``costs.mode_bound``,
+    the lesser of that and ``costs.fused2d_tc_work`` with the products at
+    the bf16 rate). "highest" is restored at the end.
     Returns {mode: (launches, kernel-vs-plain errors, timing rows)} for the
     bf16 modes."""
     from fft_conv_tpu_torch import fft_conv
     from fft_conv_tpu_torch.kernels import fused2d
-    from fft_conv_tpu_torch.kernels.costs import bound, fused2d_tc_work, fused2d_work
+    from fft_conv_tpu_torch.kernels.costs import bound, fused2d_tc_work, fused2d_work, mode_bound
     from fft_conv_tpu_torch.ops import plan_fft_conv
 
     t0 = time.perf_counter()
@@ -776,12 +789,11 @@ def phase_precision_2d(torch, inputs, rows):
                 def auto():
                     return fft_conv(x, wt, impl="auto")
 
-                if mode == "highest":
-                    (nbytes, flops), bf16_flops = fused2d_work(b, cin, cout, h, w, k, plan), 0
-                else:
-                    nbytes, bf16_flops, flops = fused2d_tc_work(b, cin, cout, h, w, k, plan,
-                                                                mode)
-                bound_ms, bound_by = bound(nbytes, flops, bf16_flops)
+                (nbytes, flops), bf16_flops = fused2d_work(b, cin, cout, h, w, k, plan), 0
+                bound_ms, bound_by = bound(nbytes, flops)
+                if mode != "highest":
+                    bound_ms, bound_by, (nbytes, flops, bf16_flops) = mode_bound(
+                        (nbytes, flops), fused2d_tc_work(b, cin, cout, h, w, k, plan, mode))
                 row = {
                     "mode": mode, "K": k, "plan": list(plan),
                     "ms": device_ms(kernel), "call_ms": call_ms(kernel),
@@ -800,6 +812,290 @@ def phase_precision_2d(torch, inputs, rows):
     finally:
         fused2d.set_fused2d_precision("highest")
     print(json.dumps({"phase": "precision_2d", "seconds": time.perf_counter() - t0}))
+    return out
+
+
+def check_fused3d_tc(torch, inputs3d, inputs3t, mode):
+    """B3's and B4's tensor-core chains under ``mode`` ("bf16x3" or "bf16")
+    against their plain versions of that mode (``_fused3d_forward_reference``
+    / ``_fused3d_tap_reference``, ``mode=``) at the 3D rows (B3: 64^3 and
+    48^3 K=8; B4: K=10) and around them: the dense H step at H = 12 and 13
+    (odd), the stuffed 78^3 (Hw 78 = 13 x 6, two W blocks) and 82^3 (Hw 84 =
+    7 x 12) volumes of the transposed rows, H = 256, groups = 2 and 3 (4, 2
+    and 1 output channels a block of d_mac_tc), a group of 24 channels
+    staged in 3 chunks, odd D and OD, "pk" (B6's layout) and the items split
+    over several launches. The extra cases draw from a generator of their
+    own. "bf16x3" under the FP32 bar, "bf16" under ``close_bf16_2d``.
+    Returns the rows' max abs errors, (B3's, B4's)."""
+    from fft_conv_tpu_torch.kernels import fused3d
+
+    gen = torch.Generator().manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda")
+
+    def vs_plain(x, wt, groups, what, packed=False):
+        k = tuple(wt.shape[2:])
+        hw = fused3d._h_work(x.shape[3])[0]
+        tap = fused3d._plan_for(x.shape, wt.shape, groups)[0][0] == "tap"
+        name = f"{'B4' if tap else 'B3'} {mode}"
+        counters = ("launches", "launches_tap", "launches_tc", "launches_tap_tc")
+        before = [getattr(fused3d, c) for c in counters]
+        if tap:
+            y = fused3d._launch_fused3d_tap(x, fused3d.kernel_spectra_tap(wt, hw), groups, k,
+                                            mode)
+            ref = fused3d._fused3d_tap_reference
+        else:
+            y = fused3d._launch_fused3d(x, fused3d.kernel_spectra_3d(wt, hw), groups, k, packed,
+                                        mode)
+            ref = fused3d._fused3d_forward_reference
+        torch.cuda.synchronize()
+        rose = [getattr(fused3d, c) - b for c, b in zip(counters, before)]
+        check(rose[:2] == [0, 0] and rose[3 if tap else 2] >= 1,
+              f"{name} {what}: launched (B3, B4, B3 tc, B4 tc) {rose}")
+        y_ref = ref(x, wt, groups, mode=mode)
+        if mode == "bf16x3":
+            mx, mean, sigma = close_scaled(y, y_ref, f"{name} vs plain, {what}")
+            ratio = None
+        else:
+            exact = ref(x.double(), wt.double(), groups)
+            mx, mean, sigma, ratio = close_bf16_2d(y, y_ref, exact, f"{name} vs plain, {what}")
+        print(json.dumps({"phase": "kernel_vs_plain", "kernel": name, "case": what,
+                          "hw": hw, "split": list(fused3d._h_steps(x.shape[3])),
+                          "launches": max(rose[2:]), "max_abs_err": mx, "mean_abs_err": mean,
+                          "sigma": sigma, "err_ratio_vs_float64": ratio}))
+        return mx
+
+    errs3 = [vs_plain(x, wt, 1, f"{x.shape[3]}^3 K={wt.shape[-1]}") for x, wt, _, _ in inputs3d]
+    errs4 = [vs_plain(x, wt, 1, f"{x.shape[3]}^3 K={wt.shape[-1]}") for x, wt, _, _ in inputs3t]
+    x, wt = inputs3d[0][:2]
+    vs_plain(x, wt, 1, "64^3 K=8 under 'pk'", packed=True)
+    vs_plain(x, wt[:, :4].contiguous(), 2, "64^3 K=8, groups=2")
+    # the twin of tests/test_torch_cuda.py:TC_3D: a case added to one
+    # belongs in the other
+    for shape, k, groups, what in [
+        ((2, 4, 14, 12, 20), (4, 4, 3, 3, 3), 1, "H=12 (one dense step)"),
+        ((1, 6, 13, 13, 30), (6, 2, 4, 3, 5), 3, "H=13 (odd, dense), groups=3, D=13"),
+        ((2, 8, 78, 78, 78), (8, 8, 8, 8, 8), 1, "stuffed 78^3, K=8, 2 W blocks"),
+        ((1, 2, 10, 256, 20), (2, 2, 3, 3, 3), 1, "H=256 (16 x 16)"),
+        ((2, 24, 20, 8, 20), (24, 24, 3, 3, 3), 1, "Cin = Cout = 24: 3 staged chunks"),
+        ((1, 2, 11, 37, 45), (3, 2, 3, 5, 7), 1, "H=37 padded to 40, OD 9"),
+        ((2, 8, 82, 82, 82), (8, 8, 10, 10, 10), 1, "stuffed 82^3, K=10 (Hw 84), 2 W blocks"),
+        ((2, 4, 24, 12, 20), (4, 4, 12, 3, 7), 1, "tap H=12 (one dense step)"),
+        ((1, 6, 21, 26, 12), (6, 2, 10, 3, 3), 3, "tap H=26 (13 x 2), groups=3"),
+    ]:
+        vs_plain(randn(*shape), randn(*k) / math.sqrt(math.prod(k[1:])), groups, what)
+
+    budget = fused3d._SCRATCH_BUDGET
+    try:
+        fused3d._SCRATCH_BUDGET = fused3d._scratch_bytes_per_item(8, 8, 64, 33, 8, 57)
+        vs_plain(x, wt, 1, "64^3 K=8 in 2 item ranges")
+    finally:
+        fused3d._SCRATCH_BUDGET = budget
+    return errs3, errs4
+
+
+def main_path_precision_3d(torch, inputs3d, inputs3t, t_inputs, mode):
+    """B3's and B4's main paths under ``set_fused3d_precision(mode)``
+    ("bf16x3" or "bf16"), counted from zero: fft_conv(x, w, bias)
+    (impl="auto") and a tier-1 plan (ops.plan_fft_conv) at the four 3D rows,
+    the transposed calls fft_conv_transpose(impl="fused") at 64^3 K=8 (B3)
+    and K=10 (B4), FFTConv3d(8, 8, 8) and FFTConvTranspose3d(8, 8, 8,
+    impl="fused") forward, and fft_conv at 64^3 K=8 under "pk" (B6, then B3)
+    and under inline (B7, then B3). Each launches one tensor-core chain once
+    and no FP32 chain, and is held to the composed path in float64:
+    "bf16x3" under the FP32 bar, "bf16" under the JAX package's serving bar.
+    Returns the tensor-core launches (B3's, B4's)."""
+    from fft_conv_tpu_torch import FFTConv3d, FFTConvTranspose3d, fft_conv, fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused3d
+    from fft_conv_tpu_torch.ops import plan_fft_conv
+
+    counters = ("launches", "launches_tap", "launches_tc", "launches_tap_tc")
+
+    def drive(fn, ref, what, tap):
+        before = [getattr(fused3d, c) for c in counters]
+        with torch.no_grad():
+            y = fn()
+        torch.cuda.synchronize()
+        rose = [getattr(fused3d, c) - b for c, b in zip(counters, before)]
+        want = [0, 0, 0, 1] if tap else [0, 0, 1, 0]
+        check(rose == want, f"{what} under {mode!r} launched (B3, B4, B3 tc, B4 tc) {rose}")
+        y_ref = ref()
+        if mode == "bf16x3":
+            mx, mean, sigma = close_scaled(y, y_ref, what)
+        else:
+            err = (y.detach().double() - y_ref).abs()
+            sigma = max(1.0, float(y_ref.std()))
+            mean, mx = float(err.mean()), float(err.max())
+            check(mean < 5e-3 * sigma and mx < 5e-2 * sigma,
+                  f"{what}: err_mean {mean:.3e}, err_max {mx:.3e} past the serving bar at "
+                  f"sigma {sigma:.3f}")
+        print(json.dumps({"phase": "main_path_precision", "mode": mode, "case": what,
+                          "launches": dict(zip(counters, rose)),
+                          "err_mean_vs_float64": mean / sigma, "err_max_vs_float64": mx / sigma}))
+
+    fused3d.set_fused3d_precision(mode)
+    for c in counters:
+        setattr(fused3d, c, 0)
+    rows = [(s, i, False) for s, i in zip(BENCH_SHAPES_3D, inputs3d)]
+    rows += [(s, i, True) for s, i in zip(BENCH_SHAPES_3D_TAP, inputs3t)]
+    for (b, cin, cout, d, h, w, k), (x, wt, bias, _), tap in rows:
+        x64, w64, b64 = x.double(), wt.double(), bias.double()
+        planned = plan_fft_conv(wt, bias, signal_spatial=(d, h, w))
+        drive(lambda: fft_conv(x, wt, bias), lambda: fft_conv(x64, w64, b64, impl="xla"),
+              f"fft_conv auto {h}^3 K={k}", tap)
+        drive(lambda: planned(x), lambda: fft_conv(x64, w64, b64, impl="xla"),
+              f"plan {h}^3 K={k}", tap)
+    x, wt, bias = inputs3d[0][:3]
+    x64 = x.double()
+    for k, wt_t, bias_t, plan, _ in t_inputs:
+        drive(lambda: fft_conv_transpose(x, wt_t, bias_t, impl="fused"),
+              lambda: fft_conv_transpose(x64, wt_t.double(), bias_t.double(), impl="xla"),
+              f"fft_conv_transpose(impl='fused') 64^3 K={k}", plan[0] == "tap")
+    layer = FFTConv3d(8, 8, 8, device="cuda", generator=torch.Generator().manual_seed(0))
+    drive(lambda: layer(x), lambda: fft_conv(x64, layer.weight.double(), layer.bias.double(),
+                                             impl="xla"), "FFTConv3d(8, 8, 8)", False)
+    tlayer = FFTConvTranspose3d(8, 8, 8, impl="fused", device="cuda",
+                                generator=torch.Generator().manual_seed(0))
+    drive(lambda: tlayer(x), lambda: fft_conv_transpose(
+        x64, tlayer.weight.double(), tlayer.bias.double(), impl="xla"),
+        "FFTConvTranspose3d(8, 8, 8, impl='fused')", False)
+    for name, on, off in (("'pk'", lambda: fused3d.set_fused3d_xpack("pk"),
+                           lambda: fused3d.set_fused3d_xpack("h2")),
+                          ("inline", lambda: fused3d.set_fused3d_inline(True),
+                           lambda: fused3d.set_fused3d_inline(False))):
+        on()
+        try:
+            drive(lambda: fft_conv(x, wt, bias),
+                  lambda: fft_conv(x64, wt.double(), bias.double(), impl="xla"),
+                  f"fft_conv auto 64^3 K=8 under {name}", False)
+        finally:
+            off()
+    torch.cuda.synchronize()
+    check(fused3d.launches == 0 and fused3d.launches_tap == 0,
+          f"an FP32 chain of B3 or B4 ran under {mode!r}")
+    return fused3d.launches_tc, fused3d.launches_tap_tc
+
+
+def phase_precision_3d(torch, inputs3d, inputs3t, t_inputs, rows3d, rows3t):
+    """Phase 5e: B3's and B4's precision modes, phase 5d's 3D counterpart.
+    Under "bf16x3" and "bf16" the tensor-core chains against their plain
+    versions (check_fused3d_tc) and the main paths of main_path_precision_3d
+    (counted from zero); the errors of the three modes against the composed
+    path in float64 at the 3D rows (64^3 K=8 and K=10, 48^3 K=8 and K=10),
+    the transposed calls at 64^3 (the stuffed 78^3 and 82^3, Hw 84) and
+    the 64^3 K=8 call under "pk", ordered "highest" < "bf16x3" < "bf16"
+    with err_mean at least 4x and then 50x the one before (the CPU tests
+    measure about 40x and 600x), "bf16" inside the serving bar; then the
+    three modes timed side by side at the four rows: the chain's device
+    time and call latency, its three kernels (profiler), fft_conv and the
+    plan, the plain version, and the bound (``costs.fused3d_work`` /
+    ``fused3d_tap_work`` for "highest"; otherwise ``costs.mode_bound``, the
+    lesser of that and the tensor-core route's least work,
+    ``costs.fused3d_tc_work`` / ``fused3d_tap_tc_work`` with ``least=True``
+    and the products at the bf16 rate).
+    "highest" is restored at the end. Returns {mode: ((B3's launches,
+    errors, timing rows), (B4's ...))} for the bf16 modes."""
+    from fft_conv_tpu_torch import fft_conv, fft_conv_transpose
+    from fft_conv_tpu_torch.kernels import fused3d
+    from fft_conv_tpu_torch.kernels.costs import (bound, fused3d_tap_tc_work, fused3d_tap_work,
+                                                  fused3d_tc_work, fused3d_work, mode_bound)
+    from fft_conv_tpu_torch.ops import plan_fft_conv
+
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        for mode in fused3d.PRECISION_MODES[1:]:
+            fused3d.set_fused3d_precision("highest")
+            errs3, errs4 = check_fused3d_tc(torch, inputs3d, inputs3t, mode)
+            n3, n4 = main_path_precision_3d(torch, inputs3d, inputs3t, t_inputs, mode)
+            print(json.dumps({"phase": "main_path_counts", "kernels": "B3, B4 tensor-core chains",
+                              "mode": mode, "launches_tc": n3, "launches_tap_tc": n4}))
+            out[mode] = ((n3, errs3, []), (n4, errs4, []))
+        x0 = inputs3d[0][0]
+        calls = [(f"{x.shape[3]}^3 K={wt.shape[-1]}",
+                  lambda x=x, wt=wt, bias=bias: fft_conv(x, wt, bias),
+                  lambda x=x, wt=wt, bias=bias: fft_conv(
+                      x.double(), wt.double(), bias.double(), impl="xla"))
+                 for x, wt, bias, _ in inputs3d + inputs3t]
+        calls += [(f"transposed 64^3 K={k}",
+                   lambda wt=wt, bias=bias: fft_conv_transpose(x0, wt, bias, impl="fused"),
+                   lambda wt=wt, bias=bias: fft_conv_transpose(
+                       x0.double(), wt.double(), bias.double(), impl="xla"))
+                  for k, wt, bias, _, _ in t_inputs]
+        x, wt, bias = inputs3d[0][:3]
+        calls.append(("64^3 K=8 under 'pk'", lambda: fft_conv(x, wt, bias),
+                      lambda: fft_conv(x.double(), wt.double(), bias.double(), impl="xla")))
+        for what, fn, exact in calls:
+            ref = exact()
+            sigma = max(1.0, float(ref.std()))
+            order, worst = [], []
+            for mode in fused3d.PRECISION_MODES:
+                fused3d.set_fused3d_precision(mode)
+                if "'pk'" in what:
+                    fused3d.set_fused3d_xpack("pk")
+                try:
+                    err = (fn().double() - ref).abs()
+                finally:
+                    fused3d.set_fused3d_xpack("h2")
+                order.append(float(err.mean()) / sigma)
+                worst.append(float(err.max()) / sigma)
+            print(json.dumps({"phase": "precision_order", "kernel": "B3/B4", "case": what,
+                              "err_mean_vs_float64": dict(zip(fused3d.PRECISION_MODES, order)),
+                              "err_max_vs_float64": dict(zip(fused3d.PRECISION_MODES, worst))}))
+            check(4 * order[0] < order[1] and 50 * order[1] < order[2],
+                  f"3D {what}: the modes' errors against float64 are not ordered: {order}")
+            check(order[2] < 5e-3 and worst[2] < 5e-2,
+                  f"3D {what}: 'bf16' past the serving bar: {order[2]}, {worst[2]}")
+        rows = [(s, i, base, False) for s, i, base in zip(BENCH_SHAPES_3D, inputs3d, rows3d)]
+        rows += [(s, i, base, True) for s, i, base in zip(BENCH_SHAPES_3D_TAP, inputs3t, rows3t)]
+        for (b, cin, cout, d, h, w, k), (x, wt, _, plan), base, tap in rows:
+            hw = fused3d._h_work(h)[0]
+            spectra = (fused3d.kernel_spectra_tap if tap else fused3d.kernel_spectra_3d)(wt, hw)
+            planned = plan_fft_conv(wt, signal_spatial=(d, h, w))
+            name = "B4" if tap else "B3"
+            for mode in fused3d.PRECISION_MODES:
+                fused3d.set_fused3d_precision(mode)
+
+                def kernel():
+                    if tap:
+                        return fused3d._launch_fused3d_tap(x, spectra, 1, (k, k, k), mode)
+                    return fused3d._launch_fused3d(x, spectra, 1, (k, k, k), mode=mode)
+
+                def plain():
+                    ref = fused3d._fused3d_tap_reference if tap else \
+                        fused3d._fused3d_forward_reference
+                    return ref(x, wt, mode=mode)
+
+                shape = (b, cin, cout, d, h, w, k)
+                nbytes, flops = (fused3d_tap_work if tap else fused3d_work)(*shape)
+                bf16_flops = 0
+                bound_ms, bound_by = bound(nbytes, flops)
+                if mode != "highest":
+                    bound_ms, bound_by, (nbytes, flops, bf16_flops) = mode_bound(
+                        (nbytes, flops), (fused3d_tap_tc_work if tap else fused3d_tc_work)(
+                            *shape, mode, least=True))
+                row = {
+                    "mode": mode, "K": k, "dhw": [d, h, w], "hw": hw,
+                    "split": list(fused3d._h_steps(h)),
+                    "ms": device_ms(kernel), "call_ms": call_ms(kernel),
+                    "phase_ms": phase_split_ms(torch, kernel, "fused3d_"),
+                    "auto_ms": device_ms(lambda: fft_conv(x, wt, impl="auto")),
+                    "plan_ms": device_ms(lambda: planned(x)),
+                    "plain_ms": call_ms(plain),
+                    "library_ms": base["library_ms"], "composed_ms": base["composed_ms"],
+                    "bytes": nbytes, "flops": flops, "bf16_flops": bf16_flops,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                }
+                if mode != "highest":
+                    entry = out[mode][1 if tap else 0]
+                    entry[2].append({**row, "max_abs_err": entry[1][len(entry[2])]})
+                print(json.dumps({"phase": "timing_precision", "kernel": name, **row}))
+                torch.cuda.synchronize()
+    finally:
+        fused3d.set_fused3d_precision("highest")
+        fused3d.set_fused3d_xpack("h2")
+    print(json.dumps({"phase": "precision_3d", "seconds": time.perf_counter() - t0}))
     return out
 
 
@@ -3136,13 +3432,21 @@ def main() -> int:
     # at SB = 4, 2, 1, direct and packed; the factored ones built for H = 16,
     # 32, 64, 128 and the one that takes any split, direct and packed; the D
     # kernels d_mac at 8, 4, 2, 1 and tap_mac at 4, 2, 1 output channels a
-    # block; the pack kernel; B7), and every entry point's registers
+    # block; the pack kernel; B7; the tensor-core kernels under "bf16x3" and
+    # "bf16": hw_forward_tc direct and packed, hw_inverse_tc, d_mac_tc at 4,
+    # 2, 1 output channels a block, each holding HMMA instructions), and
+    # every entry point's registers
     spills = ptxas_spills(_build.build_logs["fused3d"])
-    check(len(spills) == 33 and not any(sum(v) for v in spills.values()),
-          f"fused3d.cu's 33 entry points spill registers or are missing: {spills}")
+    tc_entries = [fn for fn in spills if "_tc" in fn]
+    check(len(spills) == 45 and len(tc_entries) == 12 and not any(sum(v) for v in spills.values()),
+          f"fused3d.cu's 45 entry points spill registers or are missing: {spills}")
+    hmma = {fn: c for fn, c in sass_hmma(paths["fused3d"]).items() if "_tc" in fn}
+    check(sorted(hmma) == sorted(tc_entries) and all(c > 0 for c in hmma.values()),
+          f"fused3d.cu's tensor-core entry points lack HMMA instructions: {hmma}")
     regs = ptxas_registers(_build.build_logs["fused3d"])
-    print(json.dumps({"phase": "ptxas", "kernel": "B3, B4, B6, B7", "spill_bytes": spills,
-                      "registers": regs, "build_s": round(build_s, 2)}))
+    print(json.dumps({"phase": "ptxas", "kernel": "B3, B4, B6, B7 and B3's, B4's tensor-core "
+                      "chains", "spill_bytes": spills, "registers": regs, "sass_hmma": hmma,
+                      "build_s": round(build_s, 2)}))
     torch.cuda.synchronize()
 
     gen = torch.Generator().manual_seed(0)
@@ -3273,6 +3577,9 @@ def main() -> int:
     precision = phase_precision(torch, dev, inputs, shapes)
     # phase 5d: B2's precision modes (its tensor-core pair), counted from zero
     precision2d = phase_precision_2d(torch, inputs2d, rows2d)
+    # phase 5e: B3's and B4's precision modes (their tensor-core chains),
+    # counted from zero
+    precision3d = phase_precision_3d(torch, inputs3d, inputs3t, t_inputs, rows3d, rows3t)
 
     # phases 6 to 8: the streaming path (counted from zero), the
     # measurement modules, checkpoints
@@ -3316,6 +3623,13 @@ def main() -> int:
         kernel_entry(f"B2_fused2d_{mode}", "fft_conv_tpu_torch/kernels/csrc/fused2d.cu",
                      "fft_conv_tpu/kernels/fused2d.py:308", *precision2d[mode])
         for mode in fused1d.PRECISION_MODES[1:]
+    ] + [
+        kernel_entry(f"{name}_{mode}", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",
+                     replaces, *precision3d[mode][i])
+        for mode in fused1d.PRECISION_MODES[1:]
+        for i, (name, replaces) in enumerate((
+            ("B3_fused3d", "fft_conv_tpu/kernels/fused3d.py:735"),
+            ("B4_fused3d_tap", "fft_conv_tpu/kernels/fused3d.py:1233")))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

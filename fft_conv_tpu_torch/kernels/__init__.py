@@ -4,9 +4,11 @@ the same under ``set_fused2d_precision``, and B5 on the "v3" schedule that
 ``set_fused2d_kernel`` selects), 3D
 overlap-save-D (B3, reading a signal packed by the x-pack kernel B6 under
 ``set_fused3d_xpack("pk")``, and spectra computed from the raw taps by
-kernel B7 under ``set_fused3d_inline(True)``) and 3D tap (B4) kernels, their
-wrappers, the fused transposed routes in 1D, 2D and 3D, and the serving
-plans with baked spectra."""
+kernel B7 under ``set_fused3d_inline(True)``) and 3D tap (B4) kernels (B3's
+and B4's DFT products bf16 tensor-core products under
+``set_fused3d_precision("bf16x3")`` or ``("bf16")``), their wrappers, the
+fused transposed routes in 1D, 2D and 3D, and the serving plans with baked
+spectra."""
 
 from .fourstep import four_step_fft, four_step_ifft, kernel_spectrum
 from .fused1d import (
@@ -32,6 +34,7 @@ from .fused3d import (
     plan_3d_blocked,
     plan_fft_conv3d,
     set_fused3d_inline,
+    set_fused3d_precision,
     set_fused3d_xpack,
 )
 
@@ -47,6 +50,7 @@ __all__ = [
     "set_fused2d_precision",
     "set_fused3d_xpack",
     "set_fused3d_inline",
+    "set_fused3d_precision",
     "plan_fft_conv1d",
     "plan_fft_conv2d",
     "plan_fft_conv3d",

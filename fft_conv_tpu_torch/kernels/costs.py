@@ -220,30 +220,39 @@ def _split(t):
 
 
 @functools.lru_cache(maxsize=None)
-def _four_step_flops(t, live, need, kernel=False, first=0, fold=False):
+def _four_step_flops(t, live, need, kernel=False, first=0, fold=False, tc=False):
     """Flops of one complex length-t DFT through its four-step split
     (_split): B A-point DFTs over j1 of x[j1 B + j2], the twiddle tw[m1, j2],
     A B-point DFTs onto the bins m1 + A m2. Inputs j >= live are zero, only
     the bins first <= m < need are used; kernel and fold as
     _short_dft_flops (the kernel multiplies by the twiddle wherever
-    m1 > 0)."""
+    m1 > 0). tc: (product flops, FP32 flops), each short DFT a dense product
+    on the tensor cores over its live inputs onto its used outputs (8 per
+    term), the twiddles FP32."""
     a, b = _split(t)
     want = [[first <= m1 + a * m2 < need for m2 in range(b)] for m1 in range(a)]
     rows = sum(map(any, want))  # the A-point DFTs' outputs m1 that step 2 uses
-    flops, live2 = 0, 0
+    flops, products, live2 = 0, 0, 0
     for j2 in range(b):
         lv = sum(j1 * b + j2 < live for j1 in range(a))  # inputs j1 < lv are live
         if lv == 0:
             continue
         live2 = j2 + 1
-        flops += _short_dft_flops(a, lv, rows, kernel, 0, fold)
+        if tc:
+            products += 8 * lv * rows
+        else:
+            flops += _short_dft_flops(a, lv, rows, kernel, 0, fold)
         flops += sum(6 for m1 in range(rows)
                      if (m1 > 0 if kernel else not _free_root(m1 * j2, t)))
     for m1 in range(rows):
         used = [m2 for m2 in range(b) if want[m1][m2]]
-        if used:
+        if not used:
+            continue
+        if tc:
+            products += 8 * live2 * (used[-1] + 1 - used[0])
+        else:
             flops += _short_dft_flops(b, live2, used[-1] + 1, kernel, used[0], fold)
-    return flops
+    return (products, flops) if tc else flops
 
 
 def _blocks_1d(l, k, n):
@@ -549,7 +558,7 @@ def fused2d_v3_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):
     return b * tiles * (cin * fwd + cout * inv)
 
 
-def _hw_slab_flops(h, oh, nbh, cols_in, lo, hi, dense=False):
+def _hw_slab_flops(h, oh, nbh, cols_in, lo, hi, dense=False, tc=False):
     """(per input d-slab, per output d-slab) flops of the H/W transforms of
     one W block with cols_in of its 64 columns inside the signal and the
     block columns [lo, hi) stored, an FMA as two.
@@ -562,19 +571,30 @@ def _hw_slab_flops(h, oh, nbh, cols_in, lo, hi, dense=False):
     NBH rows over the live columns and its inverse onto the stored ones,
     factored 8 x 8 as B3 and B4 run them; the H DFT and irfft factored where
     H has a split (_split), two real columns as one complex transform as
-    fused2d_work counts B2's, and dense as above where it has none."""
+    fused2d_work counts B2's, and dense as above where it has none. tc: the
+    least work with every short DFT on the tensor cores (_four_step_flops
+    with tc=True, a dense H product too), each of the two then a pair
+    (product flops, FP32 flops)."""
     stored = hi - lo
     if dense:
         return (4 * nbh * h * cols_in + 8 * nbh * cols_in * 64,
                 8 * nbh * 64 * stored + 4 * oh * nbh * stored)
-    fwd = nbh * _four_step_flops(64, cols_in, 64)
-    inv = nbh * _four_step_flops(64, 64, hi, first=lo)
+
+    def dft(n, *args):  # n transforms, as (products, FP32) under tc
+        f = _four_step_flops(*args, tc=tc)
+        return (n * f[0], n * f[1]) if tc else n * f
+
+    def add(u, v):
+        return (u[0] + v[0], u[1] + v[1]) if tc else u + v
+
+    fwd = dft(nbh, 64, cols_in, 64)
+    inv = dft(nbh, 64, 64, hi, False, lo)
     if _split(h):
-        fwd += -(-cols_in // 2) * _four_step_flops(h, h, h)
-        inv += -(-stored // 2) * _four_step_flops(h, h, oh)
-    else:
-        fwd += 4 * nbh * h * cols_in
-        inv += 4 * oh * nbh * stored
+        fwd = add(fwd, dft(-(-cols_in // 2), h, h, h))
+        inv = add(inv, dft(-(-stored // 2), h, h, oh))
+    else:  # a dense product, on the tensor cores under tc
+        fwd = add(fwd, (4 * nbh * h * cols_in, 0) if tc else 4 * nbh * h * cols_in)
+        inv = add(inv, (4 * oh * nbh * stored, 0) if tc else 4 * oh * nbh * stored)
     return fwd, inv
 
 
@@ -614,21 +634,23 @@ def _hw_kernel_flops(h, oh, d, od):
             od * nbh * 8 * (d8 + twiddle) + -(-od // 2) * inv_pair)
 
 
-def _hw_stage_flops(cin, cout, d, h, w, kd, kh, kw, groups, dense):
+def _hw_stage_flops(cin, cout, d, h, w, kd, kh, kw, groups, dense, tc=False):
     """Flops of the H/W transforms of one batch element of a call, least
     work at the signal's own H (no credit for a working length's padding):
     per W block, with cols_in of its 64 columns inside the signal and the
     block columns [lo, hi) stored, per input channel and d-slab and per
-    output channel and valid d (_hw_slab_flops)."""
+    output channel and valid d (_hw_slab_flops; tc: (product flops, FP32
+    flops))."""
     from . import fused3d
 
     plan, nwb, hop = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
-    flops = 0
+    flops = [0, 0]
     for start, lo, hi in fused3d._w_blocks(w, ow, nwb, hop):
-        fwd, inv = _hw_slab_flops(h, oh, plan[1], min(64, w - start), lo, hi, dense)
-        flops += cin * d * fwd + cout * od * inv
-    return flops
+        fwd, inv = _hw_slab_flops(h, oh, plan[1], min(64, w - start), lo, hi, dense, tc)
+        for i, (f, v) in enumerate(zip(fwd, inv) if tc else [(fwd, inv)]):
+            flops[i] += cin * d * f + cout * od * v
+    return tuple(flops) if tc else flops[0]
 
 
 def fused3d_hw_work(b, cin, cout, d, h, w, k, groups=1):
@@ -648,7 +670,7 @@ def fused3d_hw_work(b, cin, cout, d, h, w, k, groups=1):
     return nbytes, b * _hw_stage_flops(cin, cout, d, h, w, kd, kh, kw, groups, False)
 
 
-def fused3d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
+def fused3d_work(b, cin, cout, d, h, w, k, groups=1, dense=False, tc=False):
     """(bytes, flops) the fused 3D function must move and do for one call,
     least work at the signal's own H (the kernels' working length pads H
     where it does not split, fused3d._h_work; the bound does not credit
@@ -668,7 +690,9 @@ def fused3d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
     = 4 x 4, over the chunk's slabs inside D, onto the valid d only). dense:
     every transform a dense product, the partial DFTs 8 per term over the
     slabs inside D and the inverse 8 per term onto the OD valid d, the count
-    of `dense_bound_ms`."""
+    of `dense_bound_ms`. tc: (bytes, FP32 flops, product flops), the least
+    work of the tensor-core route, every short DFT a product
+    (_hw_stage_flops and fused3d_d_work with tc=True), one pass."""
     from . import fused3d
 
     kd, kh, kw = _ks(k, 3)
@@ -676,10 +700,13 @@ def fused3d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
     nbh = plan[1]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     cpg = cin // groups
-    flops = _hw_stage_flops(cin, cout, d, h, w, kd, kh, kw, groups, dense)
+    flops = _hw_stage_flops(cin, cout, d, h, w, kd, kh, kw, groups, dense, tc)
     nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * 16 * nbh * 64
               + 4 * b * cout * od * oh * ow)
-    return nbytes, b * flops + fused3d_d_work(b, cin, cout, d, h, w, k, groups, dense)[1]
+    d_work = fused3d_d_work(b, cin, cout, d, h, w, k, groups, dense, tc)
+    if tc:
+        return nbytes, b * flops[1] + d_work[1], b * flops[0] + d_work[2]
+    return nbytes, b * flops + d_work[1]
 
 
 def _d_stage(b, cin, cout, d, h, w, kd, kh, kw, groups, taps):
@@ -695,7 +722,7 @@ def _d_stage(b, cin, cout, d, h, w, kd, kh, kw, groups, taps):
     return items, npos, od, nbytes
 
 
-def fused3d_d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
+def fused3d_d_work(b, cin, cout, d, h, w, k, groups=1, dense=False, tc=False):
     """(bytes, flops) B3's D stage (between the H/W spectra T and the MAC's
     output Z) must move and do for one call, the bound of its kernel
     (fused3d_d_mac). Bytes: _d_stage. Flops, with an FMA as two: per input
@@ -706,19 +733,27 @@ def fused3d_d_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
     DFT-16 onto the block's valid d below OD. The DFT-16s are counted by
     _four_step_flops (16 = 4 x 4, over the chunk's slabs inside D, onto the
     valid d only). dense: the partial DFTs 8 per term over the slabs inside
-    D and the inverse 8 per term onto the OD valid d."""
+    D and the inverse 8 per term onto the OD valid d. tc: (bytes, FP32
+    flops, product flops), the DFT-16s' short DFTs as products
+    (_four_step_flops with tc=True)."""
     kd, kh, kw = _ks(k, 3)
     items, npos, od, nbytes = _d_stage(b, cin, cout, d, h, w, kd, kh, kw, groups, 16)
     nbd = -(-od // 8)
     live = [min(8, d - 8 * m) for m in range(nbd + 1)]  # each chunk's slabs inside D
     valid = [min(8, od - 8 * j) for j in range(nbd)]    # each block's valid d
+    mac, sums = 8 * (cin // groups) * 16 * nbd, 2 * 16 * sum(lv > 0 for lv in live[1:])
+    if tc:
+        fwd = [_four_step_flops(16, lv, 16, tc=True) for lv in live if lv > 0]
+        inv = [_four_step_flops(16, 16, v, tc=True) for v in valid]
+        products = cin * sum(p for p, _ in fwd) + cout * sum(p for p, _ in inv)
+        fp32 = cin * (sum(f for _, f in fwd) + sums) + cout * (mac + sum(f for _, f in inv))
+        return nbytes, items * npos * fp32, items * npos * products
     if dense:
         d_fwd, d_inv = 8 * 16 * d + 2 * 16 * nbd, 8 * 16 * od
     else:
-        d_fwd = sum(_four_step_flops(16, lv, 16) for lv in live if lv > 0)
-        d_fwd += 2 * 16 * sum(lv > 0 for lv in live[1:])
+        d_fwd = sum(_four_step_flops(16, lv, 16) for lv in live if lv > 0) + sums
         d_inv = sum(_four_step_flops(16, 16, v) for v in valid)
-    per_item = cin * d_fwd + cout * (8 * (cin // groups) * 16 * nbd + d_inv)
+    per_item = cin * d_fwd + cout * (mac + d_inv)
     return nbytes, items * npos * per_item
 
 
@@ -752,14 +787,15 @@ def fused3d_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
     return b * nwb * item
 
 
-def fused3d_tap_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
+def fused3d_tap_work(b, cin, cout, d, h, w, k, groups=1, dense=False, tc=False):
     """(bytes, flops) the fused 3D function must move and do for one call of
     a 'tap' plan (kernel B4), counted as in fused3d_work: the H/W transforms
     per input channel and d-slab, the tap MAC per output channel, valid d
     and bin over the group's channels and the KD taps (8 per term), the
     inverse W DFT onto the stored columns and the H irfft on the valid rows
     per output channel and valid d. Bytes: the signal and the spectra
-    (Cout, Cin/g, KD, NBH, 64) read once, the output written once."""
+    (Cout, Cin/g, KD, NBH, 64) read once, the output written once. tc:
+    (bytes, FP32 flops, product flops) as fused3d_work's, the tap MAC FP32."""
     from . import fused3d
 
     kd, kh, kw = _ks(k, 3)
@@ -767,10 +803,13 @@ def fused3d_tap_work(b, cin, cout, d, h, w, k, groups=1, dense=False):
     nbh = plan[1]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
     cpg = cin // groups
-    flops = _hw_stage_flops(cin, cout, d, h, w, kd, kh, kw, groups, dense)
+    flops = _hw_stage_flops(cin, cout, d, h, w, kd, kh, kw, groups, dense, tc)
     nbytes = (4 * b * cin * d * h * w + 8 * cout * cpg * kd * nbh * 64
               + 4 * b * cout * od * oh * ow)
-    return nbytes, b * flops + fused3d_tap_mac_work(b, cin, cout, d, h, w, k, groups)[1]
+    mac = fused3d_tap_mac_work(b, cin, cout, d, h, w, k, groups)[1]
+    if tc:
+        return nbytes, b * flops[1] + mac, b * flops[0]
+    return nbytes, b * flops + mac
 
 
 def fused3d_tap_mac_work(b, cin, cout, d, h, w, k, groups=1):
@@ -798,6 +837,107 @@ def fused3d_tap_kernel_flops(b, cin, cout, d, h, w, k, groups=1):
     item = cin * fwd + cout * inv
     item += cout * npos * -(-od // dc) * dc * 8 * (cin // groups) * kd
     return b * nwb * item
+
+
+def _hw_tc_flops(h, d, od, oh):
+    """((product, FP32) flops per input channel, the same per output
+    channel) of B3's and B4's tensor-core H/W kernels for one item
+    (csrc/fused3d.cu: fused3d_hw_forward_tc, fused3d_hw_inverse_tc), an FMA
+    as two. Products: a complex step of R points on a vector is the real 2R
+    x 2R product, 8 R^2, with R the step size of its radix
+    (fused3d._tc_radix); per slab pair (ceil(d / 2), ceil(od / 2) in the
+    inverse) the HA-point step on HB·64 vectors and the HB-point step on
+    HA·64 (none for HB = 1, H < 16), per slab both W steps (8-point) on its
+    NBH·8 vectors. FP32: the twiddles (6 each, none at m1 = 0), the split of
+    bins k and Hw - k (4 per one-sided value), the Hermitian extension (2
+    per value of the pair's column), the inverse's 1/64 (2 per value) and
+    1/Hw (1 per row below OH of all 64 columns)."""
+    from . import fused3d
+
+    ha, hb = fused3d._h_steps(h)
+    hw, nbh = ha * hb, ha * hb // 2 + 1
+    ra, rb = fused3d._tc_radix(ha), fused3d._tc_radix(hb)
+    h_prod = 64 * (hb * 8 * ra * ra + (ha * 8 * rb * rb if hb > 1 else 0))
+    h_tw = 6 * 64 * (ha - 1) * hb if hb > 1 else 0
+    w_prod, w_tw = 2 * nbh * 8 * 8 * 64, nbh * 6 * 7 * 8
+    fwd = (-(-d // 2) * h_prod + d * w_prod, -(-d // 2) * (h_tw + 4 * 2 * nbh * 64) + d * w_tw)
+    pairs = -(-od // 2)
+    inv = (pairs * h_prod + od * w_prod,
+           pairs * (h_tw + 2 * hw * 64 + 2 * oh * 64) + od * (w_tw + 2 * nbh * 64))
+    return fwd, inv
+
+
+def fused3d_tc_work(b, cin, cout, d, h, w, k, mode, groups=1, least=False):
+    """(bytes, product flops, FP32 flops) of B3's tensor-core chain under
+    ``mode`` ("bf16x3" or "bf16") for one call, as the kernels run it
+    (csrc/fused3d.cu: fused3d_hw_forward_tc, fused3d_d_mac_tc,
+    fused3d_hw_inverse_tc). Bytes as fused3d_work. Products (times 3 under
+    "bf16x3"): the H/W steps (_hw_tc_flops) and, per item, D block and bin,
+    the dense 16-point DFT of each (channel, block of OPB output channels)
+    pair of its group (8·16², OPB = fused3d._opb at most 4) and the inverse
+    onto the 8 valid d of each output channel (8·16·8). FP32: the H/W
+    kernels' (_hw_tc_flops), the MAC at the 16 D-bins (8 per term) and the
+    1/16 of each stored value (2). least: the least work of that route
+    instead, for its bound (fused3d_work with tc=True)."""
+    from . import fused3d
+
+    passes = 3 if mode == "bf16x3" else 1
+    if least:
+        nbytes, fp32, products = fused3d_work(b, cin, cout, d, h, w, k, groups, tc=True)
+        return nbytes, passes * products, fp32
+    kd, kh, kw = _ks(k, 3)
+    plan, nwb, _ = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
+    nbd, od, oh = plan[4], d - kd + 1, h - kh + 1
+    npos, cpg = fused3d._nbh_work(h) * 64, cin // groups
+    opb = fused3d._opb(cout // groups, fused3d._D_OPB_TC)
+    (fp, f32), (ip, i32) = _hw_tc_flops(h, d, od, oh)
+    products = cin * fp + cout * ip + npos * nbd * ((cout // opb) * cpg * 8 * 256
+                                                    + cout * 8 * 16 * 8)
+    rest = cin * f32 + cout * i32 + npos * (nbd * cout * cpg * 16 * 8 + cout * od * 2)
+    items = b * nwb
+    return (fused3d_work(b, cin, cout, d, h, w, k, groups)[0], items * passes * products,
+            items * rest)
+
+
+def fused3d_tap_tc_work(b, cin, cout, d, h, w, k, mode, groups=1, least=False):
+    """(bytes, product flops, FP32 flops) of B4's tensor-core chain under
+    ``mode`` for one call: the tensor-core H/W kernels as fused3d_tc_work
+    counts them and the FP32 tap MAC as fused3d_tap_kernel_flops does. Bytes
+    as fused3d_tap_work. least: the least work of that route instead, for
+    its bound (fused3d_tap_work with tc=True: the tap MAC onto the OD valid
+    d, the H/W transforms at the signal's own H and W columns, each short
+    DFT a product over its live inputs onto its used outputs)."""
+    from . import fused3d
+
+    passes = 3 if mode == "bf16x3" else 1
+    if least:
+        nbytes, fp32, products = fused3d_tap_work(b, cin, cout, d, h, w, k, groups, tc=True)
+        return nbytes, passes * products, fp32
+    kd, kh, kw = _ks(k, 3)
+    _, nwb, _ = fused3d.plan_3d_blocked(cin, cout, d, h, w, kd, kh, kw, groups)
+    od, oh = d - kd + 1, h - kh + 1
+    npos, dc = fused3d._nbh_work(h) * 64, fused3d._TAP_DC
+    (fp, f32), (ip, i32) = _hw_tc_flops(h, d, od, oh)
+    rest = cin * f32 + cout * i32 + cout * npos * -(-od // dc) * dc * 8 * (cin // groups) * kd
+    items = b * nwb
+    return (fused3d_tap_work(b, cin, cout, d, h, w, k, groups)[0],
+            items * passes * (cin * fp + cout * ip), items * rest)
+
+
+def fused3d_record(b, cin, cout, d, h, w, k, groups, mode, tap):
+    """The ``record`` of one 3D fused call under precision ``mode``: "B3"
+    (or "B4" for a 'tap' plan) with the FP32 chain's count under "highest",
+    "B3_<mode>" or "B4_<mode>" with the tensor-core chain's (product and FP32
+    flops together) otherwise."""
+    shape = (b, cin, cout, d, h, w, k, groups)
+    name = "B4" if tap else "B3"
+    if mode == "highest":
+        flops = fused3d_tap_kernel_flops if tap else fused3d_kernel_flops
+        work = fused3d_tap_work if tap else fused3d_work
+        return record(name, flops(*shape), work(*shape)[0])
+    work = fused3d_tap_tc_work if tap else fused3d_tc_work
+    nbytes, products, rest = work(b, cin, cout, d, h, w, k, mode, groups)
+    return record(f"{name}_{mode}", products + rest, nbytes)
 
 
 def fused3d_spectra_work(cin, cout, h, k, groups=1):
@@ -842,6 +982,20 @@ def bound(nbytes, flops, bf16_flops=0):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = (flops / FP32_FLOPS_PER_S + bf16_flops / BF16_FLOPS_PER_S) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+
+
+def mode_bound(fp32_work, tc_work):
+    """(bound_ms, bound_by, (bytes, FP32 flops, product flops)) of a call
+    under a bf16 precision mode: the lesser of two routes' bounds, the FP32
+    one's least work ``fp32_work`` (bytes, flops) and the tensor-core one's
+    ``tc_work`` (bytes, product flops, FP32 flops; the products of all its
+    passes), with the counts of the route that sets it. An FP32 result
+    meets either mode's accuracy, so the card's least time for the call is
+    the lesser of the two: a bf16 mode's bound is never above the FP32
+    one's. A tie keeps the FP32 route."""
+    fp32 = (fp32_work[0], fp32_work[1], 0)
+    tc = (tc_work[0], tc_work[2], tc_work[1])
+    return min((*bound(*fp32), fp32), (*bound(*tc), tc), key=lambda r: r[0])
 
 
 def pack3d_bytes(b, cin, d, h, w, pp, nwb):

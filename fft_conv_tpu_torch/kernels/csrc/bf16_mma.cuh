@@ -12,8 +12,13 @@
 // bf16(x - hi); "bf16x3" (X3) accumulates lo.hi + hi.lo in one FP32 fragment
 // and hi.hi in another, added at the end, "bf16" hi.hi alone.
 //
-// Included by fused2d.cu. (fused1d.cu keeps its own copies of the mma
-// wrapper and the split, which write split planes rather than read FP32 ones.)
+// Included by fused2d.cu and fused3d.cu. (fused1d.cu keeps its own copies of
+// the mma wrapper and the split, which write split planes rather than read
+// FP32 ones.) fused3d.cu runs an r-point DFT of any r <= 16 as a step of size
+// step_size(r), the r x r matrix in the corner of the larger one: its loads
+// past r read zeros and its stores past r are dropped. Its matrices come in a
+// table per call (fused3d.py: _tc_fragments_3d), each matrix's block
+// table_words(R) words long.
 
 #pragma once
 
@@ -51,6 +56,21 @@ __host__ __device__ constexpr int frag_offset(int r, bool inv) {
   return (r == 8 ? 0 : r == 16 ? 4 * 2 * 64 : 4 * 2 * (64 + 256)) + (inv ? 2 * 2 * r * r : 0);
 }
 
+// The step size of an r-point DFT (r <= 16): whole k-steps of 8 points.
+__host__ __device__ constexpr int step_size(int r) { return r <= 8 ? 8 : 16; }
+
+// Words of one R-point matrix's block in a per-call table: the forward
+// matrix and then the conjugated one, each its hi and then its lo fragments.
+__host__ __device__ constexpr int table_words(int r) { return 4 * 2 * r * r; }
+
+// The B fragment of k-step ks and n-tile nt of one half (hi or lo) of an
+// R-point matrix, for this lane (the layout dft_step reads).
+template <int R>
+__device__ __forceinline__ uint2 b_frag(const uint32_t* __restrict__ half, int ks, int nt,
+                                        int lane) {
+  return __ldg(reinterpret_cast<const uint2*>(half) + (ks * (R / 4) + nt) * 32 + lane);
+}
+
 // One complex R-point DFT step (R a multiple of 8) of nvec vectors on the
 // tensor cores. ld(m, j) gives element j of vector m < nvec as FP32 (read
 // from shared memory, with any FP32 arithmetic the step's input needs), split
@@ -68,8 +88,7 @@ __device__ __forceinline__ void dft_step(int nvec, const uint32_t* __restrict__ 
   static_assert(R % 8 == 0, "a DFT step takes whole k-steps of 8 complex elements");
   constexpr int KS = R / 8, NT = R / 4, NU = NT < 4 ? NT : 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint2* fh = reinterpret_cast<const uint2*>(frag) + lane;
-  const uint2* fl = reinterpret_cast<const uint2*>(frag + 2 * R * R) + lane;
+  const uint32_t* fl = frag + 2 * R * R;
   const int mtiles = (nvec + 15) / 16;
   for (int tile = warp; tile < mtiles; tile += NW) {
     const int m0 = tile * 16 + g, m1 = m0 + 8;
@@ -93,11 +112,10 @@ __device__ __forceinline__ void dft_step(int nvec, const uint32_t* __restrict__ 
 #pragma unroll
         for (int u = 0; u < NU; ++u) {
           if (nt + u < NT) {  // uniform across the warp
-            const int f = (ks * NT + nt + u) * 32;
-            const uint2 bh = __ldg(fh + f);
+            const uint2 bh = b_frag<R>(frag, ks, nt + u, lane);
             if (X3) {
               mma(acl[u], al[ks], bh);
-              mma(acl[u], ah[ks], __ldg(fl + f));
+              mma(acl[u], ah[ks], b_frag<R>(fl, ks, nt + u, lane));
             }
             mma(acc[u], ah[ks], bh);
           }

@@ -19,7 +19,9 @@
 // K[o, c, u], against the conjugated per-tap 2D spectra. Then the inverse W
 // DFT and the H irfft (DC and Nyquist weighted 1, the rest 2, their
 // imaginary rows zeroed) keep the valid columns and rows. All arithmetic is
-// FP32 on CUDA cores. The W DFT-64 and its inverse are four-step transforms
+// FP32 on CUDA cores (the tensor-core chains of the precision modes "bf16x3"
+// and "bf16" are described in the section of the tensor-core kernels). The W DFT-64 and
+// its inverse are four-step transforms
 // 64 = 8 * 8 (fourstep.fft_factor_matrices(8, 8), built in float64 and cast
 // to float32 by the host): per row, the 8-point DFT over j1 of x[8 j1 + j2]
 // and the twiddle tw[m1, j2], in place in shared memory, then the 8-point DFT
@@ -193,7 +195,8 @@
 // taps on the card under set_fused3d_inline, the port of the TPU kernel's
 // inline-spectra body.
 //
-// Entry points: fused3d_forward (B3), fused3d_tap_forward (B4),
+// Entry points: fused3d_forward (B3), fused3d_tap_forward (B4), their
+// tensor-core chains fused3d_forward_tc and fused3d_tap_forward_tc,
 // fused3d_pack (B6) and fused3d_spectra_v4 (B7), plain C interfaces loaded
 // with ctypes. Each returns cudaGetLastError() after its launches; 0 means
 // all were accepted.
@@ -202,6 +205,8 @@
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -779,6 +784,54 @@ __device__ __forceinline__ int px(int r, int c) {
   return r * kTW + ((((c >> 2) ^ f) << 2) | (c & 3));
 }
 
+// Step 0 of the factored forward kernels: the np live pairs' slabs from slab
+// d0 of channel c of item `item` (ns of them inside d), h rows of 64 samples
+// each, by 16-byte copies, all issued at once, into pair regions of two
+// planes of H + 2 rows (px), slab 2p in the first plane of region p and
+// 2p + 1 in the second; zeros past w, past d and in rows h to H - 1. Ends
+// with a barrier.
+template <bool PK>
+__device__ __forceinline__ void copy_pairs(float* s_x, const float* __restrict__ x, int np,
+                                           int ns, int H, int cin, int d, int h, int w, int ow,
+                                           int nwb, int hop, int item, int c, int d0, int pp) {
+  const int PR = H + 2, PAIR = 2 * PR * kTW, tid = threadIdx.x;
+  // slab s of the block at xs + soff(s) + hh * hs
+  const float* xs;
+  int64_t hs;
+  int start = 0;
+  if (PK) {  // slab d of channel c in row c * pp + d / 2, lanes 64 (d % 2) + [0, 64)
+    xs = x + ((int64_t)item * h * cin + c) * pp * 2 * kTW + (int64_t)(d0 >> 1) * 2 * kTW;
+    hs = (int64_t)cin * pp * 2 * kTW;
+  } else {
+    const Item g = item_geom(item, nwb, hop, w, ow);
+    xs = x + (((int64_t)g.b * cin + c) * d + d0) * h * w + g.start;
+    hs = w;
+    start = g.start;
+  }
+  const int q = tid % 16, col4 = start + 4 * q;
+  for (int s = 0; s < 2 * np; ++s) {
+    float* plane = s_x + (s >> 1) * PAIR + (s & 1) * PR * kTW;
+    const int64_t soff = PK ? (s >> 1) * 2 * kTW + (s & 1) * kTW : (int64_t)s * h * w;
+    for (int hh = tid / 16; hh < H; hh += kHwThreads / 16) {
+      float* dst = plane + px(hh, 4 * q);
+      const float* src = xs + soff + hh * hs + 4 * q;
+      if (hh >= h) {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else if (PK || (s < ns && col4 + 3 < w && (reinterpret_cast<uintptr_t>(src) & 15) == 0)) {
+        cp_async16(dst, src);  // B6 wrote the zeros past w and past d
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = s < ns && col4 + e < w;
+          cp_async4(dst + e, in ? src + e : x, in ? 4 : 0);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
 // One-sided H rows of the two slabs of a pair from the bins k and H - k of
 // their packed DFT Z = X_a + i X_b: X_a[k] = (Z[k] + conj Z[-k]) / 2 into z,
 // X_b[k] = (Z[k] - conj Z[-k]) / 2i into zm.
@@ -985,45 +1038,8 @@ fused3d_hw_forward_f(const float* __restrict__ x,       // (B, Cin, d, h, w), or
   const int it = blockIdx.x / cin, c = blockIdx.x % cin;
   const int d0 = blockIdx.y * SB, ns = min(SB, d - d0), np = (ns + 1) / 2;
 
-  // 0: the live pairs' slabs, h rows of 64 samples each, by 16-byte copies,
-  // all issued at once; zeros past w, past d and from row h on. Slab s of
-  // the block at xs + soff(s) + hh * hs
-  const float* xs;
-  int64_t hs;
-  int start = 0;
-  if (PK) {  // slab d of channel c in row c * pp + d / 2, lanes 64 (d % 2) + [0, 64)
-    xs = x + ((int64_t)(item0 + it) * h * cin + c) * pp * 2 * kTW + (int64_t)(d0 >> 1) * 2 * kTW;
-    hs = (int64_t)cin * pp * 2 * kTW;
-  } else {
-    const Item g = item_geom(item0 + it, nwb, hop, w, ow);
-    xs = x + (((int64_t)g.b * cin + c) * d + d0) * h * w + g.start;
-    hs = w;
-    start = g.start;
-  }
-  {
-    const int q = tid % 16, col4 = start + 4 * q;
-    for (int s = 0; s < 2 * np; ++s) {
-      float* plane = s_x + (s >> 1) * PAIR + (s & 1) * PR * kTW;
-      const int64_t soff = PK ? (s >> 1) * 2 * kTW + (s & 1) * kTW : (int64_t)s * h * w;
-      for (int hh = tid / 16; hh < H; hh += kHwThreads / 16) {
-        float* dst = plane + px(hh, 4 * q);
-        const float* src = xs + soff + hh * hs + 4 * q;
-        if (hh >= h) {
-          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-        } else if (PK || (s < ns && col4 + 3 < w && (reinterpret_cast<uintptr_t>(src) & 15) == 0)) {
-          cp_async16(dst, src);  // B6 wrote the zeros past w and past d
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool in = s < ns && col4 + e < w;
-            cp_async4(dst + e, in ? src + e : x, in ? 4 : 0);
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
+  // 0: the live pairs' slabs
+  copy_pairs<PK>(s_x, x, np, ns, H, cin, d, h, w, ow, nwb, hop, item0 + it, c, d0, pp);
 
   // 1: for each (pair, j2, column), the HA-point DFT over j1 of rows
   // j1 HB + j2 and the twiddle, in place; 2: for each (pair, m1, column), the
@@ -1551,6 +1567,439 @@ fused3d_tap_mac(const float2* __restrict__ t,   // (items of this launch, Cin, d
   }
 }
 
+// ---- The tensor-core kernels: the precision modes "bf16x3" and "bf16" -------
+//
+// Under set_fused3d_precision("bf16x3") (MODE 3) and ("bf16") (MODE 1), the
+// JAX package's modes of the same names (fft_conv_tpu/kernels/fused3d.py:104,
+// whose _dot feeds every DFT product of both 3D Pallas bodies), B3 and B4 run
+// these kernels in place of their FP32 H/W kernels and B3 in place of d_mac:
+// every DFT step is a bf16 mma.sync product with an FP32 accumulator
+// (bf16_mma.cuh: dft_step; "bf16x3" lo.hi + hi.lo + hi.hi of hi/lo splits,
+// "bf16" hi.hi), on the same factors as the FP32 kernels where those factor,
+// each radix r run as a step of size step_size(r) with the r-point matrix in
+// its corner; the twiddles (rounded without FMA, as the plain version rounds
+// them: cmulw_rn), the split of bins k and Hw - k, the Hermitian extension,
+// the MACs (B4's tap_mac unchanged) and the scales stay FP32. The matrices
+// come from the per-call table of fused3d.py:_tc_fragments_3d (tc_table).
+// One slab pair a block, as the factored FP32 kernels:
+//   * hw_forward_tc, grid (items * Cin, ceil(d / 2)): the pair's slabs copied
+//     as by the factored forward (copy_pairs); the Hw-point DFT of each packed
+//     column as the HA-point step over j1 (vectors (j2, column), then the
+//     twiddle) and the HB-point step over j2 (vectors (m1, column)), leaving
+//     bin k = m1 + HA m2 at row m1 HB + m2 (for H < 16 one H-point step,
+//     HB = 1, row k); an FP32 pass splitting bins k and Hw - k into the two
+//     slabs' one-sided rows (k = 0 and Hw / 2 of the second slab in the spare
+//     rows Hw and Hw + 1); the two W steps (8 points, vectors (row, j2), then
+//     (row, m1)), the second storing each vector's bins m1 + 8 m2 to T;
+//   * hw_inverse_tc, grid (items * Cout, ceil(od / 2)): the pair's rows of Z
+//     into shared memory (sw); the two conjugated W steps, 1/64 applied,
+//     leaving each sample in its own column; an FP32 pass writing the
+//     pair's Hermitian-extended column V = E_2p + i E_2p+1 in place (V[j] at
+//     row j of the first slab for j <= Hw / 2, at row Hw - j of the second
+//     otherwise: vrow); the conjugated Hw-point DFT of V's columns in two
+//     steps (one for H < 16), the last storing Re and Im of the rows below
+//     OH to the two slabs, 1/Hw applied;
+//   * d_mac_tc (B3), grid (positions / 16, Cout / OPB), OPB <= 4: as d_mac,
+//     but a warp's (item, D-block) pair covers 16 bins, one m-tile: per input
+//     channel the DFT-16 of the block's 16 slabs of those bins is one dense
+//     16-point step (two k-steps, four n-tiles), each n-tile's D-bins MACed
+//     into the lane's sums as it comes out (lane (g, t) holds bins g, g + 8
+//     at D-bins t + 4 nt); after the group's channels, per output channel,
+//     the sums are already the A fragments of the conjugated DFT-16, run onto
+//     the two n-tiles of the 8 valid d.
+// Bound: the same bytes as the FP32 chains; the products at the bf16 rate
+// (kernels/costs.py: fused3d_tc_work, fused3d_tap_tc_work). Made right
+// first: bank conflicts and the occupancy of these kernels are untuned.
+
+// a * w, or a * conj(w) for the inverse, each product rounded on its own (no
+// FMA), as torch rounds the plain version's twiddle, so that the operand the
+// next step rounds to bf16 is the plain version's
+template <bool INV>
+__device__ __forceinline__ float2 cmulw_rn(float2 a, float2 w) {
+  if (INV) w.y = -w.y;
+  return make_float2(__fsub_rn(__fmul_rn(a.x, w.x), __fmul_rn(a.y, w.y)),
+                     __fadd_rn(__fmul_rn(a.x, w.y), __fmul_rn(a.y, w.x)));
+}
+
+// The blocks of a call's fragment table (fused3d.py: _tc_fragments_3d): the
+// HA-point DFT, the HB-point DFT (only for HB > 1), the W 8-point and the D
+// 16-point DFT, each at its step size, forward then conjugated.
+struct TcTable {
+  const uint32_t *a, *b, *w, *d;
+  int ra, rb;  // the step sizes of HA and HB
+};
+
+__host__ __device__ __forceinline__ TcTable tc_table(const uint32_t* frag, int ha, int hb) {
+  TcTable t;
+  t.ra = bf16_mma::step_size(ha);
+  t.rb = hb > 1 ? bf16_mma::step_size(hb) : 0;
+  t.a = frag;
+  t.b = t.a + bf16_mma::table_words(t.ra);
+  t.w = t.b + (hb > 1 ? bf16_mma::table_words(t.rb) : 0);
+  t.d = t.w + bf16_mma::table_words(8);
+  return t;
+}
+
+// The conjugated matrix of a block of step size r.
+__device__ __forceinline__ const uint32_t* conj_block(const uint32_t* block, int r) {
+  return block + bf16_mma::table_words(r) / 2;
+}
+
+// One r-point DFT step (r <= 16) of nvec vectors, at step size r8 =
+// step_size(r) with the r x r matrix in the corner of frag's: ld(m, j) is read
+// for j < r only, st(m, k, v) called for k < r only.
+template <bool X3, typename LD, typename ST>
+__device__ __forceinline__ void tc_step(int r, int r8, int nvec, const uint32_t* frag, LD ld,
+                                        ST st) {
+  constexpr int NW = kHwThreads / 32;
+  const auto ldr = [&](int m, int j) { return j < r ? ld(m, j) : make_float2(0.f, 0.f); };
+  const auto str = [&](int m, int k, float2 v) {
+    if (k < r) st(m, k, v);
+  };
+  if (r8 == 8)
+    bf16_mma::dft_step<8, X3, NW>(nvec, frag, ldr, str);
+  else
+    bf16_mma::dft_step<16, X3, NW>(nvec, frag, ldr, str);
+}
+
+// The row of bin k after the two H steps (k = m1 + HA m2 at m1 HB + m2).
+__device__ __forceinline__ int bin_row(int k, int ha, int hb) { return (k % ha) * hb + k / ha; }
+
+// The tensor-core kernels take up to 255 registers a thread (one block an SM
+// may then be all that fits): made right first, without spills.
+template <bool X3, bool PK>
+__global__ void __launch_bounds__(kHwThreads, 1)
+fused3d_hw_forward_tc(const float* __restrict__ x,         // (B, Cin, d, h, w), or packed
+                      const uint32_t* __restrict__ frag,   // fused3d.py: _tc_fragments_3d
+                      const float2* __restrict__ hfac,     // H factors (HB > 1), see HSplit
+                      const float2* __restrict__ wfac,     // W factors, see kWA
+                      float2* __restrict__ t,              // (items of this launch, Cin, d, H/2+1, 64)
+                      int cin, int d, int h, int w, int ow, int nwb, int hop, int item0, int pp,
+                      int ha, int hb) {
+  const int H = ha * hb, NBH = H / 2 + 1, PR = H + 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* re = reinterpret_cast<float*>(smem_raw);  // two planes of PR rows (px)
+  float* im = re + PR * kTW;
+  const int it = blockIdx.x / cin, c = blockIdx.x % cin;
+  const int d0 = blockIdx.y * 2, ns = min(2, d - d0);
+  // the plane row of one-sided row q = s NBH + k (slab s, bin k) once the
+  // bins are split: the first slab's where Z[k] is, the second's where
+  // Z[H - k] is, rows H and H + 1 for k = 0 and H / 2
+  short* s_row = reinterpret_cast<short*>(im + PR * kTW);
+  for (int q = threadIdx.x; q < 2 * NBH; q += kHwThreads) {
+    const int s = q / NBH, k = q % NBH;
+    s_row[q] = s == 0 ? bin_row(k, ha, hb) : k == 0 ? H : 2 * k == H ? H + 1 : bin_row(H - k, ha, hb);
+  }
+  copy_pairs<PK>(re, x, 1, ns, H, cin, d, h, w, ow, nwb, hop, item0 + it, c, d0, pp);
+  const TcTable tab = tc_table(frag, ha, hb);
+
+  // the H steps: vector m = j2 * 64 + column, elements j1 at rows j1 HB + j2,
+  // then the twiddle; vector m = m1 * 64 + column, elements j2 at rows
+  // m1 HB + j2
+  const auto cell = [&](int row, int col) {
+    const int o = px(row, col);
+    return make_float2(re[o], im[o]);
+  };
+  const auto put = [&](int row, int col, float2 v) {
+    const int o = px(row, col);
+    re[o] = v.x;
+    im[o] = v.y;
+  };
+  tc_step<X3>(
+      ha, tab.ra, hb * kTW, tab.a, [&](int m, int j1) { return cell(j1 * hb + m / kTW, m % kTW); },
+      [&](int m, int m1, float2 v) {
+        const int j2 = m / kTW;
+        if (m1 != 0 && hb > 1) v = cmulw_rn<false>(v, __ldg(hfac + ha + hb + m1 * hb + j2));
+        put(m1 * hb + j2, m % kTW, v);
+      });
+  __syncthreads();
+  if (hb > 1) {
+    tc_step<X3>(
+        hb, tab.rb, ha * kTW, tab.b,
+        [&](int m, int j2) { return cell((m / kTW) * hb + j2, m % kTW); },
+        [&](int m, int m2, float2 v) { put((m / kTW) * hb + m2, m % kTW, v); });
+    __syncthreads();
+  }
+
+  // the split of bins k and H - k (k = 0 and H / 2 with themselves) into the
+  // slabs' one-sided rows (s_row)
+  for (int i = threadIdx.x; i < NBH * kTW; i += kHwThreads) {
+    const int k = i / kTW, col = i % kTW;
+    const int r = s_row[k], rb = s_row[NBH + k], rp = k == 0 || 2 * k == H ? r : rb;
+    float2 a = cell(r, col), b = cell(rp, col);
+    split_bins(a, b);
+    put(r, col, a);
+    put(rb, col, b);
+  }
+  __syncthreads();
+
+  // the W steps on the ns * NBH one-sided rows q = s * NBH + k: vector
+  // m = 8 q + j2, elements j1 at columns 8 j1 + j2, then the twiddle;
+  // vector m = 8 q + m1, elements j2 at columns 8 m1 + j2, bins m1 + 8 m2
+  // stored to T
+  const auto orow = [&](int q) -> int { return s_row[q]; };
+  const float2* wtw = wfac + kWA + kWB;
+  bf16_mma::dft_step<8, X3, kHwThreads / 32>(
+      ns * NBH * kWB, tab.w, [&](int m, int j1) { return cell(orow(m / kWB), j1 * kWB + m % kWB); },
+      [&](int m, int m1, float2 v) {
+        const int j2 = m % kWB;
+        put(orow(m / kWB), m1 * kWB + j2, m1 == 0 ? v : cmulw_rn<false>(v, __ldg(wtw + m1 * kWB + j2)));
+      });
+  __syncthreads();
+  float2* tout = t + ((int64_t)blockIdx.x * d + d0) * NBH * kTW;
+  bf16_mma::dft_step<8, X3, kHwThreads / 32>(
+      ns * NBH * kWA, tab.w,
+      [&](int m, int j2) { return cell(orow(m / kWA), (m % kWA) * kWB + j2); },
+      [&](int m, int m2, float2 v) { tout[(int64_t)(m / kWA) * kTW + m % kWA + kWA * m2] = v; });
+}
+
+template <bool X3>
+__global__ void __launch_bounds__(kHwThreads, 1)
+fused3d_hw_inverse_tc(const float2* __restrict__ z,       // (items of launch, Cout, od, H/2+1, 64)
+                      const uint32_t* __restrict__ frag,  // fused3d.py: _tc_fragments_3d
+                      const float2* __restrict__ hfac,    // H factors (HB > 1)
+                      const float2* __restrict__ wfac,    // W factors
+                      float* __restrict__ out,            // (B, Cout, od, oh, ow)
+                      int cout, int w, int od, int oh, int ow, int nwb, int hop, int item0,
+                      int ha, int hb) {
+  const int H = ha * hb, NBH = H / 2 + 1, NPOS = NBH * kTW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* s_z = reinterpret_cast<float2*>(smem_raw);  // (2 * NBH, 64) rows (sw)
+  const int tid = threadIdx.x;
+  const int d0 = blockIdx.y * 2, ns = min(2, od - d0);
+
+  // the pair's rows, contiguous in Z; zeros past od
+  const float2* zs = z + ((int64_t)blockIdx.x * od + d0) * NPOS;
+  for (int i = tid; i < 2 * NPOS; i += kHwThreads) {
+    const bool in = i < ns * NPOS;
+    cp_async8(s_z + sw(i / kTW, i % kTW), in ? zs + i : zs, in ? 8 : 0);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const TcTable tab = tc_table(frag, ha, hb);
+
+  // the conjugated W steps on the ns * NBH rows: vector m = 8 row + j2, then
+  // the conjugate twiddle; vector m = 8 row + m1, sample m1 + 8 m2 written
+  // to its own column, 1/64 applied (a tile holds two whole rows and loads
+  // them before it stores)
+  const uint32_t* winv = conj_block(tab.w, 8);
+  const float2* wtw = wfac + kWA + kWB;
+  bf16_mma::dft_step<8, X3, kHwThreads / 32>(
+      ns * NBH * kWB, winv,
+      [&](int m, int j1) { return s_z[sw(m / kWB, j1 * kWB + m % kWB)]; },
+      [&](int m, int m1, float2 v) {
+        const int j2 = m % kWB;
+        s_z[sw(m / kWB, m1 * kWB + j2)] =
+            m1 == 0 ? v : cmulw_rn<true>(v, __ldg(wtw + m1 * kWB + j2));
+      });
+  __syncthreads();
+  bf16_mma::dft_step<8, X3, kHwThreads / 32>(
+      ns * NBH * kWA, winv,
+      [&](int m, int j2) { return s_z[sw(m / kWA, (m % kWA) * kWB + j2)]; },
+      [&](int m, int m2, float2 v) {
+        s_z[sw(m / kWA, m % kWA + kWA * m2)] = make_float2(v.x * (1.f / kTW), v.y * (1.f / kTW));
+      });
+  __syncthreads();
+
+  // V = E_2p + i E_2p+1, Hermitian-extended, in place: V[k] = E_a[k] + i E_b[k]
+  // (real parts only at k = 0 and H / 2) at row k, V[H - k] = conj E_a[k] +
+  // i conj E_b[k] at row NBH + k
+  for (int i = tid; i < NPOS; i += kHwThreads) {
+    const int k = i / kTW, col = i % kTW;
+    const float2 e = s_z[sw(k, col)], f = s_z[sw(NBH + k, col)];
+    if (k == 0 || 2 * k == H) {
+      s_z[sw(k, col)] = make_float2(e.x, f.x);
+    } else {
+      s_z[sw(k, col)] = make_float2(e.x - f.y, e.y + f.x);
+      s_z[sw(NBH + k, col)] = make_float2(e.x + f.y, f.x - e.y);
+    }
+  }
+  __syncthreads();
+
+  // the conjugated H-point DFT of V's columns: vector m = j2 * 64 + column,
+  // elements j1 at V[j1 HB + j2], then the conjugate twiddle; vector
+  // m = m1 * 64 + column, elements j2 at V[m1 HB + j2], onto the rows
+  // h = m1 + HA m2 (for HB = 1 the first step alone, onto h = m1). Row h
+  // below oh: Re to the first slab, Im to the second, 1/H applied, at the
+  // columns in [lo, hi)
+  const int it = blockIdx.x / cout, o = blockIdx.x % cout;
+  const Item g = item_geom(item0 + it, nwb, hop, w, ow);
+  float* obase = out + (((int64_t)g.b * cout + o) * od + d0) * oh * ow + g.start;
+  const float inv_h = 1.f / H;
+  const auto store = [&](int hh, int col, float2 v) {
+    if (hh < oh && col >= g.lo && col < g.hi) {
+      obase[(int64_t)hh * ow + col] = v.x * inv_h;
+      if (ns > 1) obase[((int64_t)oh + hh) * ow + col] = v.y * inv_h;
+    }
+  };
+  const auto vcell = [&](int j, int col) -> float2& { return s_z[sw(vrow(0, H, j), col)]; };
+  const uint32_t* ainv = conj_block(tab.a, tab.ra);
+  if (hb == 1) {
+    tc_step<X3>(
+        ha, tab.ra, kTW, ainv, [&](int m, int j1) { return vcell(j1, m); },
+        [&](int m, int m1, float2 v) { store(m1, m, v); });
+    return;
+  }
+  tc_step<X3>(
+      ha, tab.ra, hb * kTW, ainv,
+      [&](int m, int j1) { return vcell(j1 * hb + m / kTW, m % kTW); },
+      [&](int m, int m1, float2 v) {
+        const int j2 = m / kTW;
+        vcell(m1 * hb + j2, m % kTW) =
+            m1 == 0 ? v : cmulw_rn<true>(v, __ldg(hfac + ha + hb + m1 * hb + j2));
+      });
+  __syncthreads();
+  tc_step<X3>(
+      hb, tab.rb, ha * kTW, conj_block(tab.b, tab.rb),
+      [&](int m, int j2) { return vcell((m / kTW) * hb + j2, m % kTW); },
+      [&](int m, int m2, float2 v) { store(m / kTW + ha * m2, m % kTW, v); });
+}
+
+// B3's tensor-core D stage: the bins a block (one m-tile of vectors) and its
+// most output channels (fused3d.py: _D_OPB_TC), which keep a lane's sums,
+// OPB x 8 complex, within its registers
+constexpr int kDBinsTc = 16;
+constexpr int kDOpbTc = 4;
+
+template <int OPB, bool X3>
+__global__ void __launch_bounds__(32 * kDWarps, 1)
+fused3d_d_mac_tc(const float2* __restrict__ t,        // (items of this launch, Cin, d, nbh, 64)
+                 const float2* __restrict__ ks,       // (Cout, Cin/g, 16, nbh, 64), conjugated
+                 const uint32_t* __restrict__ dfrag,  // the D 16-point block of the table
+                 float2* __restrict__ z,              // (items of this launch, Cout, od, nbh, 64)
+                 int cin, int cout, int groups, int d, int nbh, int nbd, int od, int nitem,
+                 int cc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* s_k = reinterpret_cast<float2*>(smem_raw);  // rows (channel, o, f) of kDBinsTc
+  const int64_t npos = (int64_t)nbh * kTW;
+  const int lane = threadIdx.x % 32, g = lane >> 2, tq = lane & 3;
+  const int warp = threadIdx.x / 32, nwarp = blockDim.x / 32;
+  const int64_t pos0 = (int64_t)blockIdx.x * kDBinsTc;
+  const int cpg = cin / groups, o0 = blockIdx.y * OPB, c0 = o0 / (cout / groups) * cpg;
+  const int nchunk = (cpg + cc - 1) / cc, npair = nitem * nbd;
+  const uint32_t* fl = dfrag + 2 * kDB * kDB;             // the forward's lo half
+  const uint32_t* ih = conj_block(dfrag, kDB);            // the conjugated matrix
+  const uint32_t* il = ih + 2 * kDB * kDB;
+
+  auto stage = [&](int k) {
+    const int rows = min(cc, cpg - k * cc) * OPB * kDB;
+    for (int i = threadIdx.x; i < rows * (kDBinsTc / 2); i += blockDim.x) {
+      const int row = i / (kDBinsTc / 2), q = i % (kDBinsTc / 2);
+      const int c = k * cc + row / (OPB * kDB), o = row / kDB % OPB, f = row % kDB;
+      cp_async16(s_k + row * kDBinsTc + 2 * q,
+                 ks + (((int64_t)(o0 + o) * cpg + c) * kDB + f) * npos + pos0 + 2 * q);
+    }
+    cp_async_wait_all();
+  };
+
+  if (nchunk == 1) {
+    stage(0);
+    __syncthreads();
+  }
+  for (int p0 = 0; p0 < npair; p0 += nwarp) {
+    const int p = p0 + warp, it = p / nbd, j = p % nbd;
+    const bool live = p < npair;  // uniform in the warp
+    // y[o][nt][u]: output channel o, D-bin 4 nt + tq of bin g + 8 u
+    float2 y[OPB][4][2];
+#pragma unroll
+    for (int o = 0; o < OPB; ++o)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) y[o][nt][0] = y[o][nt][1] = make_float2(0.f, 0.f);
+    for (int k = 0; k < nchunk; ++k) {
+      if (nchunk > 1) {
+        __syncthreads();  // every read of the last chunk is done
+        stage(k);
+        __syncthreads();
+      }
+      if (!live) continue;
+      const int ncl = min(cc, cpg - k * cc);
+      for (int cl = 0; cl < ncl; ++cl) {
+        // the A fragments: bins g and g + 8, slabs 8 j + e at elements
+        // e = 8 s + tq and e + 4 (zeros past d)
+        const float2* tp = t + ((int64_t)it * cin + c0 + k * cc + cl) * d * npos + pos0;
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int sl = j * kDHop + 8 * s + tq + 4 * e;
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float2 v = sl < d ? __ldg(tp + sl * npos + g + 8 * u) : make_float2(0.f, 0.f);
+              bf16_mma::split<X3>(v, &ah[s][2 * e + u], &al[s][2 * e + u]);
+            }
+          }
+        }
+        // the DFT-16 an n-tile at a time, each tile's D-bins MACed at once
+        const float2* kp = s_k + cl * OPB * kDB * kDBinsTc + g;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float acc[4] = {}, acl[4] = {};
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const uint2 bh = bf16_mma::b_frag<kDB>(dfrag, s, nt, lane);
+            if (X3) {
+              bf16_mma::mma(acl, al[s], bh);
+              bf16_mma::mma(acl, ah[s], bf16_mma::b_frag<kDB>(fl, s, nt, lane));
+            }
+            bf16_mma::mma(acc, ah[s], bh);
+          }
+          if (X3) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[e] += acl[e];
+          }
+          const int f = 4 * nt + tq;
+#pragma unroll
+          for (int o = 0; o < OPB; ++o) {
+            const float2* kr = kp + (o * kDB + f) * kDBinsTc;
+            cmac(y[o][nt][0], make_float2(acc[0], acc[1]), kr[0]);
+            cmac(y[o][nt][1], make_float2(acc[2], acc[3]), kr[8]);
+          }
+        }
+      }
+    }
+    if (!live) continue;
+
+    // per output channel, the conjugated DFT-16 onto d = 4 nt + tq, nt < 2:
+    // the sums are its A fragments (element f = 8 s + tq is y[.][2 s], f + 4
+    // is y[.][2 s + 1]); 1/16 at the store
+#pragma unroll
+    for (int o = 0; o < OPB; ++o) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            bf16_mma::split<X3>(y[o][2 * s + e][u], &ah[s][2 * e + u], &al[s][2 * e + u]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float acc[4] = {}, acl[4] = {};
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const uint2 bh = bf16_mma::b_frag<kDB>(ih, s, nt, lane);
+          if (X3) {
+            bf16_mma::mma(acl, al[s], bh);
+            bf16_mma::mma(acl, ah[s], bf16_mma::b_frag<kDB>(il, s, nt, lane));
+          }
+          bf16_mma::mma(acc, ah[s], bh);
+        }
+        if (X3) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[e] += acl[e];
+        }
+        const int dd = j * kDHop + 4 * nt + tq;
+        if (dd < od) {
+          float2* zp = z + (((int64_t)it * cout + o0 + o) * od + dd) * npos + pos0 + g;
+          zp[0] = make_float2(acc[0] * (1.f / kDB), acc[1] * (1.f / kDB));
+          zp[8] = make_float2(acc[2] * (1.f / kDB), acc[3] * (1.f / kDB));
+        }
+      }
+    }
+  }
+}
+
 // ---- B7: B3's kernel spectra from the raw taps --------------------------------
 
 // B7 replaces the inline body of the TPU kernel
@@ -1685,6 +2134,7 @@ int slabs_per_block(int nbh) {
 struct Args {
   const float* x;
   const float2 *ks, *fh, *wfac, *hfac, *dfac, *ch;  // fh, ch: dense H; hfac: factored
+  const uint32_t* frag;                             // the tensor-core chains' table
   float2 *t, *z;
   float* out;
   int cin, cout, groups, d, h, w, od, oh, ow, nbd, kd, nwb, hop, item0, nitem;
@@ -1826,22 +2276,40 @@ struct LaunchTapMac {
   }
 };
 
-// The checks both chains need: channels and groups, the valid box, the W
-// blocks, the item range, the H factors of the H/W kernels that run (a split
-// of radices 2 to 16, HB even, of a working length hw >= h, with hfac; or
-// the dense ones, fh and ch, at the plan's slab count sb) and the grid
-// limits.
+// The checks every chain needs, with sb slabs a block (0: none fits):
+// channels and groups, the valid box, the W blocks, the item range and the
+// grid limits.
+bool shape_ok(const Args& a, int sb) {
+  return sb != 0 && a.groups >= 1 && a.cin % a.groups == 0 && a.cout % a.groups == 0 &&
+         a.d >= 1 && a.od >= 1 && a.od <= a.d && a.oh >= 1 && a.oh <= a.h && a.ow >= 1 &&
+         a.ow <= a.w && a.nwb >= 1 && a.hop >= 1 && a.nitem >= 1 && a.item0 >= 0 &&
+         (a.d + sb - 1) / sb <= 65535 && (a.od + sb - 1) / sb <= 65535 && a.cout <= 65535;
+}
+
+// The checks both FP32 chains need: shape_ok and the H factors of the H/W
+// kernels that run (a split of radices 2 to 16, HB even, of a working length
+// hw >= h, with hfac; or the dense ones, fh and ch, at the plan's slab count
+// sb).
 bool hw_args_ok(const Args& a, int sb) {
   const bool fac = a.ha != 0 || a.hb != 0;
   if (fac ? (a.hfac == nullptr || a.ha < 2 || a.ha > kMaxRadix || a.hb < 2 ||
              a.hb > kMaxRadix || a.hb % 2 != 0 || a.hw < a.h)
           : (a.fh == nullptr || a.ch == nullptr))
     return false;
-  if (fac && sb != 0) sb = kSBF;
-  return sb != 0 && a.groups >= 1 && a.cin % a.groups == 0 && a.cout % a.groups == 0 &&
-         a.d >= 1 && a.od >= 1 && a.od <= a.d && a.oh >= 1 && a.oh <= a.h && a.ow >= 1 &&
-         a.ow <= a.w && a.nwb >= 1 && a.hop >= 1 && a.nitem >= 1 && a.item0 >= 0 &&
-         (a.d + sb - 1) / sb <= 65535 && (a.od + sb - 1) / sb <= 65535 && a.cout <= 65535;
+  return shape_ok(a, fac && sb != 0 ? kSBF : sb);
+}
+
+// The checks both tensor-core chains need: shape_ok at one slab pair a block
+// and the H steps (HA, HB): a split of radices 2 to 16, HB even, of a
+// working length hw >= h up to 256, with hfac; or (h, 1) for h < 16, one
+// dense step. The table and the W factors are given.
+bool tc_args_ok(const Args& a) {
+  const bool dense = a.hb == 1;
+  if (dense ? (a.ha != a.h || a.h < 1 || a.h > kMaxRadix - 1)
+            : (a.hfac == nullptr || a.ha < 2 || a.ha > kMaxRadix || a.hb < 2 ||
+               a.hb > kMaxRadix || a.hb % 2 != 0 || a.hw < a.h))
+    return false;
+  return a.frag != nullptr && a.wfac != nullptr && shape_ok(a, 2);
 }
 
 template <int SB>
@@ -1889,6 +2357,85 @@ cudaError_t launch_tap(const Args& a) {
   err = launch_opb<LaunchTapMac, kTapOpb>(a);
   if (err != cudaSuccess) return err;
   return launch_hw_sb(a, sb, false);
+}
+
+// Shared memory of one block of the tensor-core H/W kernels at the working
+// length hw: the forward's two planes of hw + 2 rows of 64 floats, which hold
+// the inverse's two slabs of hw/2+1 rows of 64 complex values too, and the
+// forward's table of 2 (hw/2+1) rows.
+size_t tc_smem(int hw) {
+  return (size_t)(hw + 2) * kTW * 2 * sizeof(float) + (size_t)(hw + 2) * sizeof(short);
+}
+
+template <bool X3, bool PK>
+cudaError_t launch_hw_forward_tc(const Args& a) {
+  const auto kernel = fused3d_hw_forward_tc<X3, PK>;
+  const size_t smem = tc_smem(a.hw);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.nitem * a.cin, (a.d + 1) / 2), kHwThreads, smem, a.stream>>>(
+      a.x, a.frag, a.hfac, a.wfac, a.t, a.cin, a.d, a.h, a.w, a.ow, a.nwb, a.hop, a.item0, a.pp,
+      a.ha, a.hb);
+  return cudaGetLastError();
+}
+
+template <bool X3>
+cudaError_t launch_hw_inverse_tc(const Args& a) {
+  const auto kernel = fused3d_hw_inverse_tc<X3>;
+  const size_t smem = tc_smem(a.hw);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.nitem * a.cout, (a.od + 1) / 2), kHwThreads, smem, a.stream>>>(
+      a.z, a.frag, a.hfac, a.wfac, a.out, a.cout, a.w, a.od, a.oh, a.ow, a.nwb, a.hop, a.item0,
+      a.ha, a.hb);
+  return cudaGetLastError();
+}
+
+// fused3d_d_mac_tc: as LaunchDMac, on kDBinsTc bins a block
+template <bool X3>
+struct DMacTc {
+  template <int OPB>
+  struct L {
+    static cudaError_t run(const Args& a) {
+      const int npos = (a.hw / 2 + 1) * kTW, cpg = a.cin / a.groups;
+      const int warps = std::min(a.nitem * a.nbd, kDWarps);
+      const int per_channel = OPB * kDB * kDBinsTc * (int)sizeof(float2);
+      const int cc = std::min(cpg, std::max(1, kStageBytes / per_channel));
+      const size_t smem = (size_t)cc * per_channel;
+      const auto kernel = fused3d_d_mac_tc<OPB, X3>;
+      cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<dim3(npos / kDBinsTc, a.cout / OPB), 32 * warps, smem, a.stream>>>(
+          a.t, a.ks, tc_table(a.frag, a.ha, a.hb).d, a.z, a.cin, a.cout, a.groups, a.d, a.hw / 2 + 1, a.nbd, a.od,
+          a.nitem, cc);
+      return cudaGetLastError();
+    }
+  };
+};
+
+// The tensor-core chain of B3 (hw_forward_tc, d_mac_tc, hw_inverse_tc) or of
+// B4 (tap: hw_forward_tc, tap_mac, hw_inverse_tc), X3 for "bf16x3".
+template <bool X3>
+cudaError_t launch_tc_chain(const Args& a, bool tap) {
+  cudaError_t err = a.pp > 0 ? launch_hw_forward_tc<X3, true>(a)
+                             : launch_hw_forward_tc<X3, false>(a);
+  if (err != cudaSuccess) return err;
+  err = tap ? launch_opb<LaunchTapMac, kTapOpb>(a)
+            : launch_opb<DMacTc<X3>::template L, kDOpbTc>(a);
+  if (err != cudaSuccess) return err;
+  return launch_hw_inverse_tc<X3>(a);
+}
+
+// Either chain under MODE 3 ("bf16x3") or 1 ("bf16"), after the checks of
+// launch or launch_tap and tc_args_ok.
+cudaError_t launch_tc(const Args& a, bool tap, int mode) {
+  const bool ok = tap ? a.kd >= 1 && a.od == a.d - a.kd + 1
+                      : a.nbd >= 1 && kDHop * a.nbd >= a.od && kDHop * (a.nbd - 1) < a.od &&
+                            a.pp >= 0 && (a.pp == 0 || 2 * a.pp >= a.d);
+  if (!ok || !tc_args_ok(a) || (mode != 1 && mode != 3) || (tap && a.pp != 0) ||
+      tc_smem(a.hw) > (size_t)kMaxSmem)
+    return cudaErrorInvalidValue;
+  return mode == 3 ? launch_tc_chain<true>(a, tap) : launch_tc_chain<false>(a, tap);
 }
 
 }  // namespace
@@ -1991,6 +2538,87 @@ extern "C" int fused3d_tap_forward(const void* x, const void* ks, const void* fh
   a.hw = ha != 0 ? ha * hb : h;
   a.stream = static_cast<cudaStream_t>(stream);
   return launch_tap(a);
+}
+
+// B3 under the tensor-core precision modes: fused3d_forward's arguments with
+// frag the table of fused3d.py:_tc_fragments_3d in place of fh, dfac and
+// ch; ha, hb the H steps (fused3d.py: _tc_split: the split of hw for h from
+// 16 to 256, h and 1 below 16), hfac as fused3d_forward takes it (may be
+// null for hb = 1); mode 3 ("bf16x3") or 1 ("bf16"). Returns
+// cudaGetLastError() after the three launches (0 when all were accepted).
+extern "C" int fused3d_forward_tc(const void* x, const void* ks, const void* frag,
+                                  const void* wfac, const void* hfac, void* t, void* z, void* out,
+                                  int cin, int cout, int groups, int d, int h, int w, int od,
+                                  int oh, int ow, int nbd, int nwb, int hop, int item0, int nitem,
+                                  int pp, int ha, int hb, int mode, void* stream) {
+  Args a{};
+  a.x = static_cast<const float*>(x);
+  a.ks = static_cast<const float2*>(ks);
+  a.frag = static_cast<const uint32_t*>(frag);
+  a.wfac = static_cast<const float2*>(wfac);
+  a.hfac = static_cast<const float2*>(hfac);
+  a.t = static_cast<float2*>(t);
+  a.z = static_cast<float2*>(z);
+  a.out = static_cast<float*>(out);
+  a.cin = cin;
+  a.cout = cout;
+  a.groups = groups;
+  a.d = d;
+  a.h = h;
+  a.w = w;
+  a.od = od;
+  a.oh = oh;
+  a.ow = ow;
+  a.nbd = nbd;
+  a.nwb = nwb;
+  a.hop = hop;
+  a.item0 = item0;
+  a.nitem = nitem;
+  a.pp = pp;
+  a.ha = ha;
+  a.hb = hb;
+  a.hw = ha * hb;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return launch_tc(a, false, mode);
+}
+
+// B4 under the tensor-core precision modes: fused3d_tap_forward's arguments
+// with frag, ha, hb, hfac and mode as for fused3d_forward_tc. Returns
+// cudaGetLastError() after the three launches.
+extern "C" int fused3d_tap_forward_tc(const void* x, const void* ks, const void* frag,
+                                      const void* wfac, const void* hfac, void* t, void* z,
+                                      void* out, int cin, int cout, int groups, int d, int h,
+                                      int w, int kd, int od, int oh, int ow, int nwb, int hop,
+                                      int item0, int nitem, int ha, int hb, int mode,
+                                      void* stream) {
+  Args a{};
+  a.x = static_cast<const float*>(x);
+  a.ks = static_cast<const float2*>(ks);
+  a.frag = static_cast<const uint32_t*>(frag);
+  a.wfac = static_cast<const float2*>(wfac);
+  a.hfac = static_cast<const float2*>(hfac);
+  a.t = static_cast<float2*>(t);
+  a.z = static_cast<float2*>(z);
+  a.out = static_cast<float*>(out);
+  a.cin = cin;
+  a.cout = cout;
+  a.groups = groups;
+  a.d = d;
+  a.h = h;
+  a.w = w;
+  a.kd = kd;
+  a.od = od;
+  a.oh = oh;
+  a.ow = ow;
+  a.nwb = nwb;
+  a.hop = hop;
+  a.item0 = item0;
+  a.nitem = nitem;
+  a.ha = ha;
+  a.hb = hb;
+  a.hw = ha * hb;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return launch_tc(a, true, mode);
 }
 
 // B7: the conjugated spectra ks (pairs, 16, hw/2+1, 64) complex of the taps k

@@ -62,8 +62,28 @@ complex128 torch transforms of ``kernel_spectra_3d``; on a CPU tensor its
 plain version ``_spectra_v4_reference`` runs. Plans (baked spectra) and
 'tap' calls never take it, nor does a shape outside ``_inline_fits_v4``.
 
-Not ported from the JAX module: the TPU's precision, MAC and staging
-switches: the port's kernels compute in FP32 with one schedule each.
+The precision switch (``set_fused3d_precision``, read at every 3D call,
+on every route: ``auto``, the fused and transposed functions, plans, the
+layers, "pk", inline and sharded calls) picks how B3 and B4 form their DFT
+products, as the JAX package's switch of that name does. "highest" (the
+default here; "bf16x3" in JAX) runs the FP32 kernels above. "bf16x3" and
+"bf16" run the tensor-core kernels of ``csrc/fused3d.cu``
+(``fused3d_forward_tc``, ``fused3d_tap_forward_tc``): every DFT step a bf16
+``mma.sync`` product (three of hi/lo splits, or one) through
+``csrc/bf16_mma.cuh``, on the factors of the working length (each H radix r
+as an 8- or 16-point step with the r-point DFT in its corner; W 8·8) and,
+in B3, the DFT-16 and its inverse onto the 8 valid d as one dense 16-point
+step each; the twiddles, the bin splits, the Hermitian extension, the MACs
+(B4's tap MAC too) and the scales stay FP32. For H < 16 the H DFT is one
+H-point step on slab pairs at Hw = H; an H past 256 raises ValueError under
+a bf16 mode, on every fused route (``fft_conv(impl="auto")`` on a CUDA
+tensor included, whose gate does not read the mode). On a CPU tensor the plain versions run the tensor-core
+kernels' order (``mode=``), each product rounding its operands through
+``fused1d._DOTS[mode]``; B7 and B4's tap MAC are FP32 in every mode, as in
+the JAX package.
+
+Not ported from the JAX module: the TPU's MAC and staging switches: the
+port's kernels run one schedule each.
 """
 
 import ctypes
@@ -80,8 +100,8 @@ from ..ops.spectral import _dft_mats, _irfft_mats, _rfft_mats
 from ..utils.device import Device, check_planned_signal, resolve_device
 from ..utils.shapes import to_ntuple
 from . import _build
-from .fourstep import dft_last, fft_factor_matrices, padded_split, split_factors
-from .fused1d import _fused_bwd, _spectra_or
+from .fourstep import _factor_tensors, dft_last, fft_factor_matrices, padded_split, split_factors
+from .fused1d import PRECISION_MODES, _DOTS, _TC_MODE, _b_fragments, _fused_bwd, _spectra_or
 
 # W transform length and its four-step split 64 = 8 * 8 (the kernels factor
 # the W DFT so), and the D blocks: 16 samples on a hop of 8
@@ -100,6 +120,9 @@ _D_SPLIT = split_factors(_DB)
 # out-channels, ``_opb``) and the tap MAC's valid d a thread (kTapDC)
 _D_OPB = 8
 _TAP_DC = 8
+# the tensor-core D kernel's most output channels a block (csrc/fused3d.cu:
+# kDOpbTc)
+_D_OPB_TC = 4
 # B7's one-sided H bins a block (csrc/fused3d.cu: kSpecNB)
 _SPEC_NB = 8
 
@@ -136,6 +159,37 @@ launches_tap = 0
 launches_pack = 0
 # Launches of B7, one per inline call of a 'v4' plan on a CUDA tensor
 launches_spectra = 0
+# Launches of the tensor-core chains under "bf16x3" and "bf16", one per
+# range of items: B3's ('v4' plans) and B4's ('tap' plans). The FP32
+# counters above do not move under those modes, nor these under "highest".
+launches_tc = 0
+launches_tap_tc = 0
+
+# How B3 and B4 form their DFT products (set_fused3d_precision), one of
+# PRECISION_MODES: "highest" FP32, "bf16x3" three bf16 products of hi/lo
+# splits (lo.lo dropped), "bf16" one. _fused3d_forward reads it at every
+# call.
+_PRECISION_3D = "highest"
+# The largest signal H the tensor-core kernels take (a working length of two
+# factors <= 16); past it a bf16 mode raises
+_TC_H_MAX = _H_FACTORED[1]
+
+
+def set_fused3d_precision(mode: str) -> None:
+    """Selects how the fused 3D kernels B3 and B4 form their DFT products,
+    read at every 3D call: "highest" (FP32, the FP32 kernels), "bf16x3"
+    (bf16 tensor-core products of hi/lo splits, three a product, near FP32)
+    or "bf16" (one bf16 product, an opt-in serving mode outside the FP32
+    bar). Any other name raises ValueError. Independent of the 1D and 2D
+    kernels' switches. The port of the JAX package's
+    ``set_fused3d_precision`` (``fft_conv_tpu/kernels/fused3d.py:107``),
+    whose default is "bf16x3"; this one's is "highest". Under a bf16 mode a
+    signal H past 256 raises ValueError (no three-factor H transform yet),
+    ``fft_conv(impl="auto")`` on a CUDA tensor included."""
+    global _PRECISION_3D
+    if mode not in PRECISION_MODES:
+        raise ValueError(f"unknown fused precision mode: {mode!r}")
+    _PRECISION_3D = mode
 
 # How a 'v4' plan reads the signal; _fused3d_forward reads it at call time.
 # "pk" runs B6 ahead of B3. "h", "h2", "d2" and "d0" name the JAX package's
@@ -204,6 +258,35 @@ def _h_path(h: int) -> str:
 def _nbh_work(h: int) -> int:
     """One-sided H bins of the kernels' spectra, T and Z: Hw/2+1."""
     return _h_work(h)[0] // 2 + 1
+
+
+def _h_steps(h: int) -> Tuple[int, int]:
+    """(HA, HB): the steps of the H DFT on slab pairs for a signal of H rows
+    (the factored FP32 kernels' and the tensor-core kernels'), at the
+    working length HA·HB = ``_h_work(h)[0]``: the split of ``_h_work`` for H
+    from 16 to 256, and (H, 1), one dense H-point step, for H < 16 (the
+    tensor-core kernels only). Raises ValueError past 256."""
+    if h > _TC_H_MAX:
+        raise ValueError(
+            f"the fused 3D tensor-core kernels (precision modes 'bf16x3' and 'bf16') take "
+            f"H <= {_TC_H_MAX}, got H={h}: a three-factor H transform is not built yet; "
+            f"use set_fused3d_precision('highest')")
+    split = _h_work(h)[1]
+    return (h, 1) if split is None else split
+
+
+def _dft_steps(xr: torch.Tensor, xi: torch.Tensor, split: Tuple[int, int], inverse: bool,
+               dot=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unscaled DFT (inverse: conjugated) of the last axis, length A·B, as
+    the tensor-core kernels run it: factored through ``fourstep.dft_last``
+    for ``split`` = (A, B), or as one dense A-point product for B = 1. Each
+    real product through ``dot`` (None: FP32 ``@``)."""
+    if split[1] > 1:
+        return dft_last(xr, xi, split, inverse, dot)
+    fr, fi = _factor_tensors(split[0], 1, xr.dtype, xr.device)[:2]  # symmetric
+    fi = -fi if inverse else fi
+    mm = torch.matmul if dot is None else dot
+    return mm(xr, fr) - mm(xi, fi), mm(xr, fi) + mm(xi, fr)
 
 
 def _slabs_per_block(nbh: int) -> Optional[int]:
@@ -480,6 +563,35 @@ def _spectra_roots(hw: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.concatenate(parts).astype(np.complex64)).to(device)
 
 
+def _tc_radix(r: int) -> int:
+    """The step size R of the tensor-core kernels for an r-point DFT: 8 for
+    r <= 8, else 16, the r x r matrix in the corner of the R x R one
+    (csrc/bf16_mma.cuh: step_size)."""
+    return 8 if r <= 8 else 16
+
+
+@lru_cache(maxsize=None)
+def _tc_fragments_3d(split: Tuple[int, int], device: torch.device) -> torch.Tensor:
+    """The tensor-core kernels' DFT matrices for the H split (HA, HB) of a
+    call (``_h_steps``) as one int32 tensor on ``device``, in the order
+    csrc/fused3d.cu reads them (bf16_mma.cuh: table_words): the HA-point
+    DFT, then the HB-point DFT when HB > 1, each zero-padded to its step
+    size (``_tc_radix``); then the W 8-point and the D 16-point DFTs; each
+    forward and then conjugated, each as its hi and then its lo fragments
+    (``fused1d._b_fragments``). Built in float64 (``fft_factor_matrices``)
+    and rounded to float32 before the split, as the plain versions round
+    them."""
+    radices = [split[0]] + ([split[1]] if split[1] > 1 else []) + [_W_SPLIT[0], _DB]
+    parts = []
+    for r in radices:
+        size = _tc_radix(r)
+        f = np.zeros((size, size), complex)
+        f[:r, :r] = fft_factor_matrices(r, 1)[0]
+        for m in (f, np.conj(f)):
+            parts += _b_fragments(m)
+    return torch.from_numpy(np.concatenate(parts).view(np.int32)).to(device)
+
+
 def _spectra_v4_reference(kernel: torch.Tensor, hw: int) -> torch.Tensor:
     """Kernel B7's plain PyTorch version: ``kernel_spectra_3d(kernel, hw)``
     computed as B7 computes it, in FP32 from the raw (Cout, Cin/g, KD, KH,
@@ -542,18 +654,19 @@ def _pack3d_reference(x_padded: torch.Tensor, pp: int, nwb: int, hop: int) -> to
     return x.reshape(b * nwb, h, cin * pp, 2 * _TW)
 
 
-def _h_forward_pairs(x: torch.Tensor, hw: Optional[int] = None):
+def _h_forward_pairs(x: torch.Tensor, hw: Optional[int] = None, dot=None):
     """The factored H/W kernel's one-sided H DFT of real slabs ``x`` (...,
     D, H, C) at the working length ``hw`` (default ``_h_work(H)``; rows H
     to hw - 1 zeros): slabs 2p and 2p+1 (zeros past D) packed as one complex
-    column x_2p + i x_2p+1, its hw-point DFT through the split
-    ``fourstep.padded_split`` gives hw (``fourstep.dft_last``), and bins k
-    and hw - k split into the two slabs' rows k <= hw/2. Returns (re, im),
-    each (..., D, hw/2+1, C)."""
+    column x_2p + i x_2p+1, its hw-point DFT in the steps ``_h_steps(hw)``
+    (``_dft_steps``: an hw below 16, which only the tensor-core kernels
+    take, as one dense step), and bins k and hw - k split into the two
+    slabs' rows k <= hw/2. ``dot``: a tensor-core mode's product
+    (``fused1d._DOTS``). Returns (re, im), each (..., D, hw/2+1, C)."""
     d, h = x.shape[-3], x.shape[-2]
     hw = _h_work(h)[0] if hw is None else hw
     x = TF.pad(x, (0, 0, 0, hw - h, 0, d % 2)).transpose(-1, -2)   # (..., 2P, C, hw)
-    zr, zi = dft_last(x[..., 0::2, :, :], x[..., 1::2, :, :], padded_split(hw)[1], False)
+    zr, zi = _dft_steps(x[..., 0::2, :, :], x[..., 1::2, :, :], _h_steps(hw), False, dot)
     k = torch.arange(hw // 2 + 1, device=x.device)
     m = (hw - k) % hw
     pr, pi, qr, qi = zr[..., k], zi[..., k], zr[..., m], zi[..., m]
@@ -563,14 +676,16 @@ def _h_forward_pairs(x: torch.Tensor, hw: Optional[int] = None):
     return re[..., :d, :, :].transpose(-1, -2), im[..., :d, :, :].transpose(-1, -2)
 
 
-def _h_inverse_pairs(er: torch.Tensor, ei: torch.Tensor, hw: int, oh: int) -> torch.Tensor:
+def _h_inverse_pairs(er: torch.Tensor, ei: torch.Tensor, hw: int, oh: int,
+                     dot=None) -> torch.Tensor:
     """The factored H/W kernel's H irfft at the working length ``hw`` of
     one-sided slabs (..., OD, hw/2+1, C) onto the rows [0, oh): slabs 2p and
-    2p+1 (zeros past OD) at once, as one conjugated hw-point DFT (the split
-    of ``fourstep.padded_split``) of E_2p + i E_2p+1, each
-    Hermitian-extended (E[hw - k] = conj E[k], DC and Nyquist taken real as
-    the dense irfft weights them), whose real and imaginary parts are the
-    two slabs' rows; 1/hw applied. Returns (..., OD, oh, C)."""
+    2p+1 (zeros past OD) at once, as one conjugated hw-point DFT (the steps
+    ``_h_steps(hw)``) of E_2p + i E_2p+1, each
+    Hermitian-extended (E[hw - k] = conj E[k], DC and, for an even hw,
+    Nyquist taken real as the dense irfft weights them), whose real and
+    imaginary parts are the two slabs' rows; 1/hw applied. ``dot`` as for
+    ``_h_forward_pairs``. Returns (..., OD, oh, C)."""
     od = er.shape[-3]
     pad = (0, 0, 0, 0, 0, od % 2)
     er, ei = TF.pad(er, pad).transpose(-1, -2), TF.pad(ei, pad).transpose(-1, -2)
@@ -578,21 +693,24 @@ def _h_inverse_pairs(er: torch.Tensor, ei: torch.Tensor, hw: int, oh: int) -> to
     kk = torch.minimum(k, hw - k)
     ar, ai = er[..., 0::2, :, kk], ei[..., 0::2, :, kk]   # (..., P, C, hw)
     br, bi = er[..., 1::2, :, kk], ei[..., 1::2, :, kk]
-    real = (k == 0) | (k == hw // 2)
-    low = k < hw // 2
+    real = (k == 0) | (2 * k == hw)
+    low = 2 * k < hw
     vr = torch.where(real, ar, torch.where(low, ar - bi, ar + bi))
     vi = torch.where(real, br, torch.where(low, ai + br, br - ai))
-    outr, outi = dft_last(vr, vi, padded_split(hw)[1], True)  # (..., P, C, hw)
+    outr, outi = _dft_steps(vr, vi, _h_steps(hw), True, dot)  # (..., P, C, hw)
     out = torch.stack([outr[..., :oh], outi[..., :oh]], dim=-3).flatten(-4, -3)
     return out[..., :od, :, :].transpose(-1, -2) / hw
 
 
-def _hw_forward_reference(x: torch.Tensor, fr, fi, packed=None):
+def _hw_forward_reference(x: torch.Tensor, fr, fi, packed=None, dot=None):
     """(re, im) of the one-sided H DFT (``_h_forward_pairs`` at the working
     length for an H the kernels factor, else the dense product with ``fr``,
     ``fi``) and then the W DFT-64 (factored 8 x 8, ``fourstep.dft_last``,
     bins in natural order) of every d-slab of the stacked blocks (W
-    zero-padded to 64): (B', Cin, D, Hw/2+1, 64).
+    zero-padded to 64): (B', Cin, D, Hw/2+1, 64). ``dot``: a tensor-core
+    mode's product (``fused1d._DOTS``) for every DFT step, the H DFT then on
+    slab pairs at every H (one dense step below 16), as the tensor-core
+    kernel runs it.
 
     ``x`` is the stacked blocks (B', Cin, D, H, <= 64); with ``packed`` =
     (Cin, D) it is B6's layout (B', H, Cin·PP, 128) instead, read slab by
@@ -605,23 +723,24 @@ def _hw_forward_reference(x: torch.Tensor, fr, fi, packed=None):
         bb, h, rows, _ = x.shape
         x = x.reshape(bb, h, cin, rows // cin, 2, _TW).permute(0, 2, 3, 4, 1, 5)
         x = x.reshape(bb, cin, 2 * (rows // cin), h, _TW)[:, :, :d].contiguous()
-    if _h_path(x.shape[-2]) == "factored":
-        ar, ai = _h_forward_pairs(x)
+    if dot is not None or _h_path(x.shape[-2]) == "factored":
+        ar, ai = _h_forward_pairs(x, dot=dot)
     else:
         ar, ai = fr @ x, fi @ x
-    return dft_last(ar, ai, _W_SPLIT, False)
+    return dft_last(ar, ai, _W_SPLIT, False, dot)
 
 
-def _hw_inverse_reference(zr, zi, cr, ci, blocks, h: int, ow: int) -> torch.Tensor:
+def _hw_inverse_reference(zr, zi, cr, ci, blocks, h: int, ow: int, dot=None) -> torch.Tensor:
     """The inverse W DFT (factored 8 x 8, 1/64 included) and the H irfft
     (``_h_inverse_pairs`` at the working length for an H the kernels
     factor, else the dense product with ``cr``, ``ci``) on the valid rows of
     the MAC's output (B', Cout, OD, Hw/2+1, 64), and the stored columns of
-    each W block put side by side: (B, Cout, OD, OH, OW)."""
-    e_r, e_i = dft_last(zr, zi, _W_SPLIT, True)
+    each W block put side by side: (B, Cout, OD, OH, OW). ``dot`` as for
+    ``_hw_forward_reference``."""
+    e_r, e_i = dft_last(zr, zi, _W_SPLIT, True, dot)
     e_r, e_i = e_r / _TW, e_i / _TW
-    if _h_path(h) == "factored":                    # (B', Cout, OD, OH, 64)
-        out = _h_inverse_pairs(e_r, e_i, _h_work(h)[0], cr.shape[0])
+    if dot is not None or _h_path(h) == "factored":  # (B', Cout, OD, OH, 64)
+        out = _h_inverse_pairs(e_r, e_i, _h_work(h)[0], cr.shape[0], dot)
     else:
         out = cr @ e_r + ci @ e_i
     if len(blocks) == 1:
@@ -630,9 +749,18 @@ def _hw_inverse_reference(zr, zi, cr, ci, blocks, h: int, ow: int) -> torch.Tens
     return torch.cat([out[:, i, ..., lo:hi] for i, (_, lo, hi) in enumerate(blocks)], dim=-1)
 
 
+def _tc_split(mode: str, h: int) -> Optional[Tuple[int, int]]:
+    """None under "highest", else the H steps of the tensor-core kernels for
+    a signal of H rows (``_h_steps``). Raises ValueError for an unknown
+    precision mode, and for an H those kernels do not take."""
+    if mode not in PRECISION_MODES:
+        raise ValueError(f"unknown fused precision mode: {mode!r}")
+    return None if mode == "highest" else _h_steps(h)
+
+
 def _fused3d_forward_reference(
     x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
-    spectra: Optional[torch.Tensor] = None, packed: bool = False,
+    spectra: Optional[torch.Tensor] = None, packed: bool = False, mode: str = "highest",
 ) -> torch.Tensor:
     """Kernel B3's plain PyTorch version: the same blocked pipeline in split
     re/im arithmetic, float64 for a float64 signal and float32 otherwise.
@@ -643,11 +771,16 @@ def _fused3d_forward_reference(
     overlap-save blocks. ``spectra``: the baked ``kernel_spectra_3d`` at the
     working length ``_h_work(H)``, or None to compute them. ``packed``: pack the signal first
     (``_pack3d_reference``, B6) and read the packed layout, as B3 does
-    under "pk".
+    under "pk". ``mode``: the precision mode whose kernels this stands for;
+    under "bf16x3" and "bf16" the tensor-core chain's order (the H DFT on
+    slab pairs at every H, the DFT-16 and its inverse as one dense step
+    each) with each DFT product rounding its operands to bfloat16
+    (``fused1d._DOTS``); the MAC stays FP32.
     """
     dt = torch.float64 if x_padded.dtype == torch.float64 else torch.float32
     b, cin, d, h, w = x_padded.shape
     cout, cpg, kd, kh, kw = kernel.shape
+    dot = _DOTS[mode]
     plan, nwb, hop = _plan_for(x_padded.shape, kernel.shape, groups, "v4")
     nbh, nbd = _nbh_work(h), plan[4]
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
@@ -658,17 +791,19 @@ def _fused3d_forward_reference(
     # chunks of 8 slabs that the blocks read (zeros past D)
     if packed:
         xp = _pack3d_reference(x_padded.to(dt), plan[3], nwb, hop)
-        tr, ti = _hw_forward_reference(xp, fr, fi, packed=(cin, d))
+        tr, ti = _hw_forward_reference(xp, fr, fi, packed=(cin, d), dot=dot)
     else:
         x = _stack_w_blocks(x_padded.to(dt), [s for s, _, _ in blocks])
-        tr, ti = _hw_forward_reference(x, fr, fi)
+        tr, ti = _hw_forward_reference(x, fr, fi, dot=dot)
     dpad = (0, 0, 0, 0, 0, _DHOP * (nbd + 1) - d)
     tr, ti = TF.pad(tr, dpad), TF.pad(ti, dpad)
     # D: blocks of 16 slabs on a hop of 8, a DFT-16 each, factored 4 x 4
+    # (one dense step under a tensor-core mode)
+    d_split = _D_SPLIT if dot is None else (_DB, 1)
     bb = b * nwb
     tr = tr.unfold(2, _DB, _DHOP).reshape(bb, groups, cpg, nbd, nbh, _TW, _DB)
     ti = ti.unfold(2, _DB, _DHOP).reshape(bb, groups, cpg, nbd, nbh, _TW, _DB)
-    sr, si = dft_last(tr, ti, _D_SPLIT, False)
+    sr, si = _dft_steps(tr, ti, d_split, False, dot)
 
     # pointwise complex MAC over each out-channel's group of in-channels
     ks = _spectra_or(spectra, dt, lambda: kernel_spectra_3d(kernel.to(dt), _h_work(h)[0]))
@@ -679,15 +814,15 @@ def _fused3d_forward_reference(
     yi = torch.einsum(mac, sr, ki) + torch.einsum(mac, si, kr)
 
     # inverse DFT-16, factored alike, kept to the 8 valid d of each block
-    zr, zi = (v[..., :_DHOP] / _DB for v in dft_last(yr, yi, _D_SPLIT, True))
+    zr, zi = (v[..., :_DHOP] / _DB for v in _dft_steps(yr, yi, d_split, True, dot))
     zr = zr.permute(0, 1, 2, 3, 6, 4, 5).reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
     zi = zi.permute(0, 1, 2, 3, 6, 4, 5).reshape(bb, cout, nbd * _DHOP, nbh, _TW)[:, :, :od]
-    return _hw_inverse_reference(zr, zi, cr, ci, blocks, h, ow)
+    return _hw_inverse_reference(zr, zi, cr, ci, blocks, h, ow, dot)
 
 
 def _fused3d_tap_reference(
     x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
-    spectra: Optional[torch.Tensor] = None,
+    spectra: Optional[torch.Tensor] = None, mode: str = "highest",
 ) -> torch.Tensor:
     """Kernel B4's plain PyTorch version: the same pipeline in split re/im
     arithmetic, float64 for a float64 signal and float32 otherwise.
@@ -696,11 +831,14 @@ def _fused3d_tap_reference(
     KD, KH, KW) already dilated, and a 'tap' plan; returns the valid
     correlation (B, Cout, OD, OH, OW). W wider than 64 runs as stacked
     overlap-save blocks. ``spectra``: the baked ``kernel_spectra_tap`` at the
-    working length ``_h_work(H)``, or None to compute them.
+    working length ``_h_work(H)``, or None to compute them. ``mode`` as for
+    ``_fused3d_forward_reference``: the H/W steps in the tensor-core order
+    with rounded products; the tap MAC stays FP32 in every mode.
     """
     dt = torch.float64 if x_padded.dtype == torch.float64 else torch.float32
     b, cin, d, h, w = x_padded.shape
     cout, cpg, kd, kh, kw = kernel.shape
+    dot = _DOTS[mode]
     plan, nwb, hop = _plan_for(x_padded.shape, kernel.shape, groups, "tap")
     nbh = _nbh_work(h)
     od, oh, ow = d - kd + 1, h - kh + 1, w - kw + 1
@@ -709,7 +847,7 @@ def _fused3d_tap_reference(
 
     # one-sided H DFT, then the W DFT-64, per d-slab
     x = _stack_w_blocks(x_padded.to(dt), [s for s, _, _ in blocks])
-    tr, ti = _hw_forward_reference(x, fr, fi)
+    tr, ti = _hw_forward_reference(x, fr, fi, dot=dot)
     # D stays in the tap domain: the KD slabs from each valid d on
     bb = b * nwb
     tr = tr.reshape(bb, groups, cpg, d, nbh, _TW).unfold(3, kd, 1)  # (B', g, Cin/g, OD, NBH, 64, KD)
@@ -724,7 +862,7 @@ def _fused3d_tap_reference(
     yi = torch.einsum(mac, tr, ki) + torch.einsum(mac, ti, kr)
     yr = yr.reshape(bb, cout, od, nbh, _TW)
     yi = yi.reshape(bb, cout, od, nbh, _TW)
-    return _hw_inverse_reference(yr, yi, cr, ci, blocks, h, ow)
+    return _hw_inverse_reference(yr, yi, cr, ci, blocks, h, ow, dot)
 
 
 def _library() -> ctypes.CDLL:
@@ -739,6 +877,10 @@ def _library() -> ctypes.CDLL:
         lib.fused3d_tap_forward.restype = i
         lib.fused3d_spectra_v4.argtypes = [p] * 4 + [i] * 5 + [p]
         lib.fused3d_spectra_v4.restype = i
+        lib.fused3d_forward_tc.argtypes = [p] * 8 + [i] * 18 + [p]
+        lib.fused3d_forward_tc.restype = i
+        lib.fused3d_tap_forward_tc.argtypes = [p] * 8 + [i] * 17 + [p]
+        lib.fused3d_tap_forward_tc.restype = i
         lib.fused3d_error_string.argtypes = [i]
         lib.fused3d_error_string.restype = ctypes.c_char_p
         lib.fused3d_smem_bytes.argtypes = [i]
@@ -829,15 +971,18 @@ def _launch_spectra_v4(kernel: torch.Tensor, hw: int) -> torch.Tensor:
 
 def _launch_fused3d(
     x_padded: torch.Tensor, spectra: torch.Tensor, groups: int, k: Tuple[int, int, int],
-    packed: bool = False,
+    packed: bool = False, mode: str = "highest",
 ) -> torch.Tensor:
     """Runs kernel B3's chain on ``x_padded`` (B, Cin, D, H, W) float32 with
     the conjugated spectra (Cout, Cin/g, 16, Hw/2+1, 64) complex64
     (``kernel_spectra_3d`` at Hw, ``_h_work(H)``) of a (KD, KH, KW) kernel
     whose plan is 'v4', both on one CUDA device. Returns the valid
     correlation (B, Cout, OD, OH, OW). ``packed``: pack the signal with
-    kernel B6 first and let B3 read the packed layout ("pk")."""
-    global launches
+    kernel B6 first and let B3 read the packed layout ("pk"). ``mode``: the
+    FP32 chain under "highest" (``launches``), the tensor-core chain under
+    "bf16x3" and "bf16" (``launches_tc``); an H the tensor-core chain does
+    not take raises ValueError, as does an unknown mode."""
+    tc = _tc_split(mode, x_padded.shape[3])
     x_padded, spectra = _check_launch_inputs(x_padded, spectra, "fused3d")
     b, cin, d, h, w = x_padded.shape
     cout, cpg = spectra.shape[:2]
@@ -863,29 +1008,35 @@ def _launch_fused3d(
     out = torch.empty((b, cout, od, oh, ow), device=dev, dtype=torch.float32)
     t = torch.empty((chunk, cin, d, nbh, _TW), device=dev, dtype=c64)
     z = torch.empty((chunk, cout, od, nbh, _TW), device=dev, dtype=c64)
+    shape = (cin, cout, groups, d, h, w, od, oh, ow, nbd, nwb, hop)
+    if tc is None:
+        entry, counter, tail = lib.fused3d_forward, "launches", (pp, *(split or (0, 0)))
+        head = (x.data_ptr(), spectra.data_ptr(), *(_ptr(m) for m in mats))
+    else:
+        entry, counter, tail = lib.fused3d_forward_tc, "launches_tc", (pp, *tc, _TC_MODE[mode])
+        head = (x.data_ptr(), spectra.data_ptr(), _tc_fragments_3d(tc, dev).data_ptr(),
+                mats[1].data_ptr(), _ptr(mats[2]))
+    head += (t.data_ptr(), z.data_ptr(), out.data_ptr(), *shape)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         for item0 in range(0, items, chunk):
-            err = lib.fused3d_forward(
-                x.data_ptr(), spectra.data_ptr(), *(_ptr(m) for m in mats),
-                t.data_ptr(), z.data_ptr(), out.data_ptr(),
-                cin, cout, groups, d, h, w, od, oh, ow, nbd, nwb, hop,
-                item0, min(chunk, items - item0), pp, *(split or (0, 0)), stream,
-            )
+            err = entry(*head, item0, min(chunk, items - item0), *tail, stream)
             _raise_on_error(lib, err, "fused3d")
-            launches += 1
+            globals()[counter] += 1
     return out
 
 
 def _launch_fused3d_tap(
-    x_padded: torch.Tensor, spectra: torch.Tensor, groups: int, k: Tuple[int, int, int]
+    x_padded: torch.Tensor, spectra: torch.Tensor, groups: int, k: Tuple[int, int, int],
+    mode: str = "highest",
 ) -> torch.Tensor:
     """Runs kernel B4's chain on ``x_padded`` (B, Cin, D, H, W) float32 with
     the conjugated per-tap spectra (Cout, Cin/g, KD, Hw/2+1, 64) complex64
     (``kernel_spectra_tap`` at Hw, ``_h_work(H)``) of a (KD, KH, KW) kernel
     whose plan is 'tap', both on one CUDA device. Returns the valid
-    correlation (B, Cout, OD, OH, OW)."""
-    global launches_tap
+    correlation (B, Cout, OD, OH, OW). ``mode`` as for ``_launch_fused3d``
+    (``launches_tap`` or ``launches_tap_tc``)."""
+    tc = _tc_split(mode, x_padded.shape[3])
     x_padded, spectra = _check_launch_inputs(x_padded, spectra, "fused3d tap")
     b, cin, d, h, w = x_padded.shape
     cout, cpg = spectra.shape[:2]
@@ -907,17 +1058,22 @@ def _launch_fused3d_tap(
     out = torch.empty((b, cout, od, oh, ow), device=dev, dtype=torch.float32)
     t = torch.empty((chunk, cin, d, nbh, _TW), device=dev, dtype=c64)
     z = torch.empty((chunk, cout, od, nbh, _TW), device=dev, dtype=c64)
+    shape = (cin, cout, groups, d, h, w, kd, od, oh, ow, nwb, hop)
+    if tc is None:
+        entry, counter, tail = lib.fused3d_tap_forward, "launches_tap", split or (0, 0)
+        head = (x_padded.data_ptr(), spectra.data_ptr(), _ptr(fh), _ptr(wfac), _ptr(hfac),
+                _ptr(ch))
+    else:
+        entry, counter, tail = lib.fused3d_tap_forward_tc, "launches_tap_tc", (*tc, _TC_MODE[mode])
+        head = (x_padded.data_ptr(), spectra.data_ptr(), _tc_fragments_3d(tc, dev).data_ptr(),
+                wfac.data_ptr(), _ptr(hfac))
+    head += (t.data_ptr(), z.data_ptr(), out.data_ptr(), *shape)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         for item0 in range(0, items, chunk):
-            err = lib.fused3d_tap_forward(
-                x_padded.data_ptr(), spectra.data_ptr(), _ptr(fh), _ptr(wfac), _ptr(hfac),
-                _ptr(ch), t.data_ptr(), z.data_ptr(), out.data_ptr(),
-                cin, cout, groups, d, h, w, kd, od, oh, ow, nwb, hop,
-                item0, min(chunk, items - item0), *(split or (0, 0)), stream,
-            )
+            err = entry(*head, item0, min(chunk, items - item0), *tail, stream)
             _raise_on_error(lib, err, "fused3d tap")
-            launches_tap += 1
+            globals()[counter] += 1
     return out
 
 
@@ -937,9 +1093,15 @@ def _fused3d_forward(
     kernels' own counts (B6's too under "pk"), whichever of the kernels and
     plain versions run. Under ``set_fused3d_inline(True)`` an unplanned 'v4'
     call that passes ``_inline_fits_v4`` computes them with kernel B7 (its
-    plain version on the CPU) under B7's own record instead."""
+    plain version on the CPU) under B7's own record instead. The precision
+    mode (``set_fused3d_precision``) is read here, once a call: under a
+    bf16 mode the tensor-core chains (or their plain versions of that mode)
+    run, recorded as "B3_<mode>" / "B4_<mode>", and an H past 256 raises
+    ValueError on both devices."""
     if x_padded.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused3d runs on CUDA or CPU tensors, got {x_padded.device}")
+    mode = _PRECISION_3D
+    _tc_split(mode, x_padded.shape[3])
     plan, nwb, _ = _plan_for(x_padded.shape, kernel.shape, groups)
     tap = plan[0] == "tap"
     packed = not tap and _XPACK3D == "pk"
@@ -964,24 +1126,19 @@ def _fused3d_forward(
         spectra = kernel_spectra_tap(kernel, hw) if tap else kernel_spectra_3d(kernel, hw)
     record = pack = costs.IDLE
     if costs.active():
-        shape = (b, cin, cout, d, h, w, k, groups)
-        if tap:
-            record = costs.record("B4", costs.fused3d_tap_kernel_flops(*shape),
-                                  costs.fused3d_tap_work(*shape)[0])
-        else:
-            record = costs.record("B3", costs.fused3d_kernel_flops(*shape),
-                                  costs.fused3d_work(*shape)[0])
+        record = costs.fused3d_record(b, cin, cout, d, h, w, k, groups, mode, tap)
         if packed:
             pack = costs.record("B6", 0, costs.pack3d_bytes(b, cin, d, h, w, plan[3], nwb))
     with record, pack:
         if x_padded.is_cuda:
             if tap:
-                return _launch_fused3d_tap(x_padded.float(), spectra, groups, k)
-            return _launch_fused3d(x_padded.float(), spectra, groups, k, packed)
+                return _launch_fused3d_tap(x_padded.float(), spectra, groups, k, mode)
+            return _launch_fused3d(x_padded.float(), spectra, groups, k, packed, mode)
         if tap:
-            return _fused3d_tap_reference(x_padded.float(), kernel.float(), groups, spectra)
+            return _fused3d_tap_reference(x_padded.float(), kernel.float(), groups, spectra,
+                                          mode)
         return _fused3d_forward_reference(x_padded.float(), kernel.float(), groups, spectra,
-                                          packed)
+                                          packed, mode)
 
 
 class _Fused3dCore(torch.autograd.Function):

@@ -1,6 +1,7 @@
 """The port on a CUDA card: the fused 1D, 2D and 3D kernels (B1, B2, B5, B3,
 B4, the x-pack kernel B6 and the spectra kernel B7) against their plain
-versions, B1's and B2's tensor-core pairs under each bf16 precision mode too, the serving
+versions, B1's and B2's tensor-core pairs and B3's and B4's tensor-core
+chains under each bf16 precision mode too, the serving
 plans, and the routes that only a CUDA tensor takes. B1 is also held at the
 edges of its blocking: V1 = 1, a single block, Cin = 3 with groups = 3 and
 a stuffed transposed length. A stream of chunks launches B1 once per chunk,
@@ -836,6 +837,178 @@ def test_3d_transpose_fused_on_cuda(cuda, k, st, pad, op, dil, groups):
         layer.weight.copy_(w)
         layer.bias.copy_(b)
     _assert_close_scaled(layer(x).detach().cpu().numpy(), y_ref.cpu().numpy())
+
+
+# (B, Cin, Cout, D, H, W, KD, KH, KW, groups): B3's and B4's tensor-core
+# chains at the 3D rows, the dense H step (H = 12, and 13, odd), a padded
+# working length (37 -> 40), the stuffed 78 (13 x 6) in two W blocks, H =
+# 256, groups 2 and 3 and 3 output channels (4, 2 and 1 a block of
+# d_mac_tc), a group staged in 3 chunks; then B4's at K=10, the stuffed 82
+# (Hw 84), a dense H and groups 3. The twin of the cases of
+# chip_smoke.py:check_fused3d_tc, which runs without the tests: a case added
+# to one belongs in the other.
+TC_3D = [
+    (2, 8, 8, 64, 64, 64, 8, 8, 8, 1),
+    (2, 4, 4, 14, 12, 20, 3, 3, 3, 2),
+    (1, 6, 6, 13, 13, 30, 4, 3, 5, 3),
+    (1, 2, 3, 11, 37, 45, 3, 5, 7, 1),
+    (2, 4, 4, 14, 78, 78, 8, 8, 8, 1),
+    (1, 2, 2, 10, 256, 20, 3, 3, 3, 1),
+    (2, 24, 24, 20, 8, 20, 3, 3, 3, 1),
+    (2, 8, 8, 64, 64, 64, 10, 10, 10, 1),
+    (2, 4, 4, 20, 82, 82, 10, 10, 10, 1),
+    (2, 4, 4, 24, 12, 20, 12, 3, 7, 1),
+    (1, 6, 6, 21, 26, 12, 10, 3, 3, 3),
+]
+
+
+@pytest.fixture
+def precision3d():
+    """Restores B3's and B4's default precision mode and the x-pack and
+    inline switches after the test."""
+    yield fused3d.set_fused3d_precision
+    fused3d.set_fused3d_precision("highest")
+    fused3d.set_fused3d_xpack("h2")
+    fused3d.set_fused3d_inline(False)
+
+
+def _launch_tc_3d(x, k, groups, mode, packed=False):
+    """One tensor-core chain of the shape's plan on the card and the counts
+    it moved (B3, B4, B3 tensor-core, B4 tensor-core)."""
+    counters = ("launches", "launches_tap", "launches_tc", "launches_tap_tc")
+    before = [getattr(fused3d, c) for c in counters]
+    hw = fused3d._h_work(x.shape[3])[0]
+    if fused3d._plan_for(x.shape, k.shape, groups)[0][0] == "tap":
+        y = fused3d._launch_fused3d_tap(x, fused3d.kernel_spectra_tap(k, hw), groups,
+                                        tuple(k.shape[2:]), mode)
+    else:
+        y = fused3d._launch_fused3d(x, fused3d.kernel_spectra_3d(k, hw), groups,
+                                    tuple(k.shape[2:]), packed, mode)
+    torch.cuda.synchronize()
+    return y, [getattr(fused3d, c) - b for c, b in zip(counters, before)]
+
+
+def _assert_tc_3d_close(mode, y, x, k, groups=1):
+    """A tensor-core chain's output ``y`` against its plain version of
+    ``mode`` on the card: "bf16x3" under the FP32 bar, "bf16" under
+    ``_assert_bf16_2d_kernel_close`` (ten rounding steps spread a flipped
+    rounding as B2's eight do)."""
+    tap = fused3d._plan_for(x.shape, k.shape, groups)[0][0] == "tap"
+    ref = fused3d._fused3d_tap_reference if tap else fused3d._fused3d_forward_reference
+    y_ref = ref(x, k, groups, mode=mode).cpu().numpy()
+    if mode == "bf16x3":
+        _assert_close_scaled(y.cpu().numpy(), y_ref)
+    else:
+        exact = ref(x.double(), k.double(), groups).cpu().numpy()
+        _assert_bf16_2d_kernel_close(y.cpu().numpy(), y_ref, exact)
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("b,cin,cout,d,h,w,kd,kh,kw,groups", TC_3D)
+def test_tc_3d_kernel_matches_plain_version(cuda, mode, b, cin, cout, d, h, w, kd, kh, kw,
+                                            groups):
+    """B3's and B4's tensor-core chains against their plain versions of the
+    same mode, each launched once and no FP32 chain."""
+    x, k = _tensors(cuda, d + h + w + 2, (b, cin, d, h, w), (cout, cin // groups, kd, kh, kw))
+    k /= (cin // groups * kd * kh * kw) ** 0.5
+    y, rose = _launch_tc_3d(x, k, groups, mode)
+    assert rose == ([0, 0, 0, 1] if kd > 9 else [0, 0, 1, 0])
+    _assert_tc_3d_close(mode, y, x, k, groups)
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_tc_3d_kernel_packed_and_in_item_ranges(cuda, monkeypatch, mode):
+    """B3's tensor-core chain on B6's packed layout ("pk"), and both chains
+    with their items split over several launches."""
+    x, k, kt = _tensors(cuda, 5, (2, 4, 20, 24, 150), (4, 4, 3, 5, 7), (4, 4, 10, 5, 7))
+    y, rose = _launch_tc_3d(x, k / 20, 1, mode, packed=True)
+    assert rose[2] == 1
+    _assert_tc_3d_close(mode, y, x, k / 20)
+    monkeypatch.setattr(fused3d, "_SCRATCH_BUDGET",
+                        2 * fused3d._scratch_bytes_per_item(4, 4, 20, 13, 3, 18))
+    y, rose = _launch_tc_3d(x, k / 20, 1, mode)
+    assert rose[2] == 3  # 2 x 3 W blocks, 2 a launch
+    _assert_tc_3d_close(mode, y, x, k / 20)
+    monkeypatch.setattr(fused3d, "_SCRATCH_BUDGET",
+                        2 * fused3d._tap_scratch_bytes_per_item(4, 4, 20, 13, 11))
+    y, rose = _launch_tc_3d(x, kt / 40, 1, mode)
+    assert rose[3] == 3
+    _assert_tc_3d_close(mode, y, x, kt / 40)
+
+
+def test_tc_3d_refuses_what_it_does_not_run(cuda, precision3d):
+    """An unknown mode, complex128 spectra and, under a bf16 mode, an H past
+    256 raise; nothing is launched."""
+    x, w = _tensors(cuda, 3, (1, 2, 10, 260, 12), (2, 2, 3, 3, 3))
+    counters = ("launches", "launches_tap", "launches_tc", "launches_tap_tc")
+    before = [getattr(fused3d, c) for c in counters]
+    spectra = fused3d.kernel_spectra_3d(w, 260)
+    with pytest.raises(ValueError, match="precision mode"):
+        fused3d._launch_fused3d(x, spectra, 1, (3, 3, 3), mode="fp8")
+    with pytest.raises(ValueError, match="H <= 256"):
+        fused3d._launch_fused3d(x, spectra, 1, (3, 3, 3), mode="bf16")
+    with pytest.raises(ValueError, match="complex64"):
+        fused3d._launch_fused3d(x[..., :20, :], fused3d.kernel_spectra_3d(w, 20).to(
+            torch.complex128), 1, (3, 3, 3), mode="bf16")
+    precision3d("bf16x3")
+    with pytest.raises(ValueError, match="H <= 256"):
+        ft.fft_conv(x, w)
+    assert [getattr(fused3d, c) for c in counters] == before
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_tc_modes_route_every_3d_path_on_cuda(cuda, precision3d, mode):
+    """Under a bf16 mode a CUDA tensor's 3D calls (``fft_conv`` under "auto",
+    a plan, the fused transposed route, ``FFTConv3d``,
+    ``FFTConvTranspose3d``, "pk", inline, a KD = 11 call) launch a
+    tensor-core chain and no FP32 one, each within the mode's bar of the
+    composed path; back under "highest" they launch the FP32 chains."""
+    x, w, b, wt = _tensors(cuda, 31, (2, 4, 20, 24, 30), (4, 4, 5, 3, 3), (4,), (4, 4, 11, 3, 3))
+    w, wt = w / 12, wt / 20
+    layer = ft.FFTConv3d(4, 4, 3, padding=1, generator=torch.Generator().manual_seed(0))
+    tlayer = ft.FFTConvTranspose3d(4, 4, 3, impl="fused",
+                                   generator=torch.Generator().manual_seed(1))
+    plan = ft.ops.plan_fft_conv(w, b, signal_spatial=(20, 24, 30))
+    xla = dict(impl="xla")
+    calls = [
+        (lambda: ft.fft_conv(x, w, b), lambda: ft.fft_conv(x, w, b, **xla), 2),
+        (lambda: plan(x), lambda: ft.fft_conv(x, w, b, **xla), 2),
+        (lambda: ft.fft_conv_transpose(x, w, b, impl="fused"),
+         lambda: ft.fft_conv_transpose(x, w, b, **xla), 2),
+        (lambda: layer(x), lambda: ft.fft_conv(x, layer.weight, layer.bias, padding=1, **xla), 2),
+        (lambda: tlayer(x), lambda: ft.fft_conv_transpose(x, tlayer.weight, tlayer.bias, **xla),
+         2),
+        (lambda: ft.fft_conv(x, wt, b), lambda: ft.fft_conv(x, wt, b, **xla), 3),
+    ]
+    counters = ("launches", "launches_tap", "launches_tc", "launches_tap_tc")
+
+    def held(fn, ref, rises):
+        before = [getattr(fused3d, c) for c in counters]
+        with torch.no_grad():
+            y = fn()
+        torch.cuda.synchronize()
+        rose = [getattr(fused3d, c) - v for c, v in zip(counters, before)]
+        assert rose == [int(i == rises) for i in range(4)], rose
+        y_ref = ref().detach().cpu().numpy()
+        if mode == "bf16x3":
+            _assert_close_scaled(y.cpu().numpy(), y_ref)
+        else:  # against the exact result, the JAX package's serving bar
+            sigma = max(1.0, float(y_ref.std()))
+            err = np.abs(y.cpu().numpy() - y_ref)
+            assert err.mean() < 5e-3 * sigma and err.max() < 5e-2 * sigma
+
+    precision3d(mode)
+    for fn, ref, rises in calls:
+        held(fn, ref, rises)
+    for on in (lambda: fused3d.set_fused3d_xpack("pk"), lambda: fused3d.set_fused3d_inline(True)):
+        on()
+        held(*calls[0])
+        fused3d.set_fused3d_xpack("h2")
+        fused3d.set_fused3d_inline(False)
+    precision3d("highest")
+    before = fused3d.launches, fused3d.launches_tc
+    plan(x)
+    assert (fused3d.launches, fused3d.launches_tc) == (before[0] + 1, before[1])
 
 
 # (B, Cin, D, H, W, (KD, KH, KW), groups): B6 at the benchmark row (PP = 40,
