@@ -34,12 +34,14 @@ with the three modes' errors against the float64 composed path ordered, and
 timed beside "highest" at the 1D rows; phase 2 fails if any of B1's 36
 entry points spills or a tensor-core one holds no HMMA instruction
 (``cuobjdump -sass``). Phase 5d does the same for B2 under
-``set_fused2d_precision("bf16x3")`` and ``("bf16")``, the tensor-core pair of
-``csrc/fused2d.cu``: against its plain version at check_fused2d's cases,
-through the 2D main paths (``fft_conv``, a plan, the transposed call,
-``FFTConv2d``) counted from zero, the modes' errors ordered, and the three
-modes timed at the 2D rows; phase 2 fails if one of its 16 entry points
-spills or holds no HMMA. Phase 5e does the same for B3 and B4 under
+``set_fused2d_precision("bf16x3")`` and ``("bf16")``, the tensor-core route
+of ``csrc/fused2d.cu`` (phase 1, the MAC stage, the inverse stage): against
+its plain version at check_fused2d's cases and at the MAC stage's own
+(groups, one channel a group, B = 3, 24 and 15 channels, 100 output
+channels), through the 2D main paths (``fft_conv``, a plan, the transposed
+call, ``FFTConv2d``) counted from zero, the modes' errors ordered, and the
+three modes timed at the 2D rows, each kernel apart; phase 2 fails if one of
+its 24 entry points spills or holds no HMMA. Phase 5e does the same for B3 and B4 under
 ``set_fused3d_precision("bf16x3")`` and ``("bf16")``, their tensor-core
 chains in ``csrc/fused3d.cu``: against their plain versions at the 3D rows
 and around them (dense and odd H, the stuffed transposed volumes, H = 256,
@@ -273,7 +275,7 @@ def close_bf16(y, y_ref, what):
 
 
 def close_bf16_2d(y, y_ref, y_exact, what):
-    """The bar of B2's "bf16" tensor-core pair against its plain version, and
+    """The bar of B2's "bf16" tensor-core route against its plain version, and
     of B3's and B4's tensor-core chains, whose ten rounding steps spread a
     flipped rounding alike (tests/test_torch_cuda.py:
     _assert_bf16_2d_kernel_close): err_mean <
@@ -571,15 +573,23 @@ def phase_precision(torch, dev, inputs, shapes):
 
 
 def check_fused2d_tc(torch, inputs, mode):
-    """B2's tensor-core pair under ``mode`` ("bf16x3" or "bf16") against its
+    """B2's tensor-core route under ``mode`` ("bf16x3" or "bf16") against its
     plain version of that mode (``_fused2d_forward_reference(...,
     mode=)``) at check_fused2d's cases: the 2D rows (B2's inputs), groups=2,
     T1 = 256 (K1 = 70), T1 = 384 (K1 = 200), T2 = 256 (K2 = 100) alone and
     with groups=2, fft_conv2d_fused's stride, dilation and reflect padding,
-    and the tiles split over several launches. The extra cases draw from a
-    generator of their own, so that the phases after this one see the inputs
-    they saw before it. "bf16x3" under the FP32 bar, "bf16" under
-    ``close_bf16_2d``. Returns the rows' max abs errors."""
+    and the tiles split over several launches (D and Y counted); and at the
+    cases of the route's MAC stage (``fused2d._tc_geometry``): Cout = 6 in 3
+    groups (2 output channels a group), one channel a group (groups = Cin =
+    Cout = 4), B = 3 at the 512 x 512 row (75 units: the last MAC block
+    holds 3 of its 8, and blocks span tiles), Cin = Cout = 24 in 3 groups
+    (at groups = 1 the spectra exceed the plan's budget, so no shape of 24
+    -> 24 channels and one group fuses), Cin = Cout = 15 (4 channel chunks,
+    2 output-channel passes) and Cin = 1, Cout = 100 (2 output-channel
+    blocks). The extra cases draw from a generator of their own, so that
+    the phases after this one see the inputs they saw before it. "bf16x3"
+    under the FP32 bar, "bf16" under ``close_bf16_2d``. Returns the rows'
+    max abs errors."""
     from fft_conv_tpu_torch.kernels import fused2d
     from fft_conv_tpu_torch.ops import functional as F
 
@@ -609,8 +619,14 @@ def check_fused2d_tc(torch, inputs, mode):
         check(launched[0] == 0 and launched[1] >= 1,
               f"{name} {what}: launched (FP32, tensor-core) {launched}")
         mx, mean, sigma, ratio = close(y, x, wt, groups, f"{name} vs plain, {what}")
+        b, cin, h, w = x.shape
+        cout, _, k1, k2 = wt.shape
+        ntiles = math.prod(fused2d._tiling(plan, h, w, k1, k2)[2:])
+        geometry = fused2d._tc_geometry(b, cin, cout, groups, plan, ntiles)
         print(json.dumps({"phase": "kernel_vs_plain", "kernel": name, "case": what,
                           "plan": dict(zip(("T1", "V1", "NB1", "T2", "V2"), plan)),
+                          "geometry": dict(zip(("tiles_a_launch", "units_a_mac_block",
+                                                "out_channels_a_mac_block"), geometry)),
                           "launches": launched[1], "max_abs_err": mx, "mean_abs_err": mean,
                           "sigma": sigma, "bar_max": bars[0] * sigma,
                           "bar_mean": bars[1] * sigma, "err_ratio_vs_float64": ratio}))
@@ -621,6 +637,9 @@ def check_fused2d_tc(torch, inputs, mode):
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to("cuda")
 
+    def kernel(*shape):
+        return randn(*shape) / math.prod(shape[1:]) ** 0.5
+
     errs = [vs_plain(x, wt, 1, f"K={wt.shape[-1]}") for x, wt, _, _ in inputs]
     x, wt, bias, plan = inputs[0]
     vs_plain(x, wt[:, :4].contiguous(), 2, "groups=2")
@@ -629,6 +648,14 @@ def check_fused2d_tc(torch, inputs, mode):
     vs_plain(randn(2, 8, 200, 400), randn(8, 8, 12, 100) / 100.0, 1, "T2=256, K=(12, 100)")
     vs_plain(randn(2, 4, 200, 300), randn(6, 2, 12, 100) / 50.0, 2,
              "T2=256, K=(12, 100), groups=2")
+    vs_plain(randn(2, 6, 300, 290), kernel(6, 2, 16, 16), 3, "Cout=6 in 3 groups (2 a group)")
+    vs_plain(randn(2, 4, 300, 290), kernel(4, 1, 16, 16), 4, "groups=Cin=Cout=4 (1 a group)")
+    vs_plain(randn(3, 8, 512, 512), kernel(8, 8, 16, 16), 1, "B=3, 512 x 512, K=16: 75 units")
+    vs_plain(randn(2, 24, 200, 210), kernel(24, 8, 9, 9), 3, "Cin=Cout=24, groups=3")
+    vs_plain(randn(1, 15, 200, 210), kernel(15, 15, 9, 9), 1,
+             "Cin=Cout=15: 4 channel chunks, 2 output-channel passes")
+    vs_plain(randn(1, 1, 300, 290), kernel(100, 1, 16, 16), 1,
+             "Cin=1, Cout=100: 2 output-channel blocks")
 
     kw = dict(padding=5, padding_mode="reflect", stride=(2, 3), dilation=2)
     was = fused2d._PRECISION_2D
@@ -654,13 +681,14 @@ def check_fused2d_tc(torch, inputs, mode):
 
     budget = fused2d._SCRATCH_BUDGET
     try:
+        # four tiles of D, two of D and Y
         fused2d._SCRATCH_BUDGET = 4 * fused2d._scratch_bytes_per_tile(plan[2], plan[3], 2, 8)
         before = fused2d.launches_tc
         y, _ = launch(x, wt, 1)
         split = fused2d.launches_tc - before
     finally:
         fused2d._SCRATCH_BUDGET = budget
-    check(split > 1, f"{name}: the tile ranges did not split")
+    check(split == 13, f"{name}: 25 tiles ran in {split} tile ranges, not 13 of 2")
     mx = close(y, x, wt, 1, f"{name} in tile ranges")[0]
     print(json.dumps({"phase": "kernel_vs_plain", "kernel": name,
                       "case": f"{split} tile ranges", "max_abs_err": mx}))
@@ -673,7 +701,7 @@ def main_path_precision_2d(torch, inputs, mode):
     "bf16"), counted from zero: fft_conv(x, w, bias) (impl="auto") at the two
     2D rows, a tier-1 plan of each (ops.plan_fft_conv), the transposed call
     fft_conv_transpose(x, w, bias) on each row's signal, and FFTConv2d(8, 8,
-    16) forward. Each launches the tensor-core pair once and neither B2's
+    16) forward. Each launches the tensor-core route once and neither B2's
     FP32 pair nor B5, and is held to the composed path in float64: "bf16x3"
     under the FP32 bar, "bf16" under the JAX package's serving bar (err_mean
     < 5e-3 * sigma, err_max < 5e-2 * sigma). Returns the tensor-core
@@ -731,15 +759,17 @@ def main_path_precision_2d(torch, inputs, mode):
 
 def phase_precision_2d(torch, inputs, rows):
     """Phase 5d: B2's precision modes, phase 5c's 2D counterpart. Under
-    "bf16x3" and "bf16" the tensor-core pair against its plain version at
+    "bf16x3" and "bf16" the tensor-core route against its plain version at
     check_fused2d's cases (check_fused2d_tc) and the main paths of
     main_path_precision_2d (counted from zero); at the 2D rows the errors of
     fft_conv under the three modes against the composed path in float64,
     ordered "highest" < "bf16x3" < "bf16" with err_mean at least 4x and then
     50x the one before (the CPU tests measure about 37x and 670x), "bf16"
     inside the serving bar; then the three modes timed side by side at each
-    row: the kernel pair's device time and call latency, its two kernels
-    (profiler), fft_conv and the plan, the plain version, and the bound
+    row: the kernels' device time and call latency, each kernel apart
+    (profiler: B2's two, or the tensor-core route's three: spectra_tc,
+    mac_tc, inverse_tc), fft_conv and the plan, the plain version, and the
+    bound
     (``costs.fused2d_work`` for "highest"; otherwise ``costs.mode_bound``,
     the lesser of that and ``costs.fused2d_tc_work`` with the products at
     the bf16 rate). "highest" is restored at the end.
@@ -757,7 +787,7 @@ def phase_precision_2d(torch, inputs, rows):
             fused2d.set_fused2d_precision("highest")
             errs = check_fused2d_tc(torch, inputs, mode)
             launched = main_path_precision_2d(torch, inputs, mode)
-            print(json.dumps({"phase": "main_path_counts", "kernels": "B2 tensor-core pair",
+            print(json.dumps({"phase": "main_path_counts", "kernels": "B2 tensor-core route",
                               "mode": mode, "launches_tc": launched}))
             out[mode] = (launched, errs, [])
         for (b, cin, cout, h, w, k), (x, wt, bias, _) in zip(BENCH_SHAPES_2D, inputs):
@@ -3414,17 +3444,18 @@ def main() -> int:
     check(len(spills) == 8 and not any(sum(v) for v in spills.values()),
           f"B5's 8 entry points spill registers or are missing: {spills}")
     print(json.dumps({"phase": "ptxas", "kernel": "B5", "spill_bytes": spills}))
-    # B2's tensor-core pair: both phases at each of the four tile plans under
-    # "bf16x3" and under "bf16", each holding HMMA instructions
+    # B2's tensor-core route: phase 1, the MAC stage and the inverse stage at
+    # each of the four tile plans under "bf16x3" and under "bf16", each
+    # holding HMMA instructions
     spills = {fn: v for fn, v in ptxas_spills(_build.build_logs["fused2d"]).items()
               if "fused2d_" in fn and "_tc" in fn}
-    check(len(spills) == 16 and not any(sum(v) for v in spills.values()),
-          f"B2's 16 tensor-core entry points spill registers or are missing: {spills}")
+    check(len(spills) == 24 and not any(sum(v) for v in spills.values()),
+          f"B2's 24 tensor-core entry points spill registers or are missing: {spills}")
     hmma = {fn: c for fn, c in sass_hmma(paths["fused2d"]).items()
             if "fused2d_" in fn and "_tc" in fn}
     check(sorted(hmma) == sorted(spills) and all(c > 0 for c in hmma.values()),
           f"B2's tensor-core entry points lack HMMA instructions: {hmma}")
-    print(json.dumps({"phase": "ptxas", "kernel": "B2 tensor-core pair", "spill_bytes": spills,
+    print(json.dumps({"phase": "ptxas", "kernel": "B2 tensor-core route", "spill_bytes": spills,
                       "registers": {fn: r for fn, r in ptxas_registers(
                           _build.build_logs["fused2d"]).items() if "_tc" in fn},
                       "sass_hmma": hmma}))
@@ -3575,7 +3606,7 @@ def main() -> int:
     rows_pack = time_pack3d(torch, timed_pack)
     # phase 5c: B1's precision modes (the tensor-core pair), counted from zero
     precision = phase_precision(torch, dev, inputs, shapes)
-    # phase 5d: B2's precision modes (its tensor-core pair), counted from zero
+    # phase 5d: B2's precision modes (its tensor-core route), counted from zero
     precision2d = phase_precision_2d(torch, inputs2d, rows2d)
     # phase 5e: B3's and B4's precision modes (their tensor-core chains),
     # counted from zero

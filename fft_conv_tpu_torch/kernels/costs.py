@@ -433,12 +433,15 @@ def fused2d_work(b, cin, cout, h, w, k, plan, groups=1):
 
 
 def fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups=1):
-    """(bytes, product flops, FP32 flops) of B2's tensor-core pair under
+    """(bytes, product flops, FP32 flops) of B2's tensor-core route under
     ``mode`` ("bf16x3" or "bf16") for one call, over whole T1 x T2 tiles, as
-    the kernels run it (csrc/fused2d.cu, fused2d_spectra_tc and
-    fused2d_mac_inverse_tc).
+    the kernels run it (csrc/fused2d.cu: fused2d_spectra_tc, fused2d_mac_tc,
+    fused2d_inverse_tc).
 
-    Bytes as fused2d_work. Product flops (an FMA as two, a complex R-point
+    Bytes: fused2d_work's, plus the MAC stage's Y (tiles, B, Cout, NB1, T2)
+    complex64, written once by the MAC stage and read once by the inverse
+    stage, the traffic the route adds to hand the MAC apart from the H
+    irfft. Product flops (an FMA as two, a complex R-point
     step as the real 2R x 2R product on each vector, 8 R^2), times 3 under
     "bf16x3", each T-point DFT factored A · B (fused2d._SPLITS) as B vectors
     of A points and A of B: per tile and input channel the W DFT of the T1/2
@@ -469,7 +472,8 @@ def fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups=1):
     inv32 = (8 * (cin // groups) * nb1 * t2 + nb1 * twiddles(t2) + n2 * twiddles(t1)
              + 2 * t1 * n2 + v1 * t2)
     calls = b * tiles
-    nbytes = fused2d_work(b, cin, cout, h, w, k, plan, groups)[0]
+    y_bytes = 8 * calls * cout * nb1 * t2
+    nbytes = fused2d_work(b, cin, cout, h, w, k, plan, groups)[0] + 2 * y_bytes
     return (nbytes, calls * passes * (cin * fwd + cout * inv),
             calls * (cin * fwd32 + cout * inv32))
 
@@ -477,8 +481,8 @@ def fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups=1):
 def fused2d_record(b, cin, cout, h, w, k, plan, groups, mode, v3=False):
     """The ``record`` of one 2D fused call under precision ``mode``: "B2"
     (or "B5" under "v3") with the FP32 pair's count under "highest",
-    "B2_bf16x3" or "B2_bf16" with the tensor-core pair's (product and FP32
-    flops together) otherwise."""
+    "B2_bf16x3" or "B2_bf16" with the tensor-core route's (product and FP32
+    flops together, Y's bytes counted) otherwise."""
     shape = (b, cin, cout, h, w, k, plan, groups)
     if mode == "highest":
         flops = fused2d_v3_kernel_flops if v3 else fused2d_kernel_flops

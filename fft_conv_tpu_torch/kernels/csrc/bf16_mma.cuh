@@ -71,70 +71,79 @@ __device__ __forceinline__ uint2 b_frag(const uint32_t* __restrict__ half, int k
   return __ldg(reinterpret_cast<const uint2*>(half) + (ks * (R / 4) + nt) * 32 + lane);
 }
 
-// One complex R-point DFT step (R a multiple of 8) of nvec vectors on the
-// tensor cores. ld(m, j) gives element j of vector m < nvec as FP32 (read
-// from shared memory, with any FP32 arithmetic the step's input needs), split
-// into bf16 here; st(m, k, value) receives output k of vector m < nvec. frag
-// points at the step's matrix (hi fragments, then lo). Each of the block's NW
-// warps takes one m-tile of 16 vectors at a time: it loads the tile's A
-// fragments, all R elements of its 16 vectors (zeros past nvec), then runs
-// the n-tiles of 4 outputs NU at a time, each with its own accumulators so
-// that their product chains overlap. All of a tile's loads are done before
-// any of its stores (__syncwarp), and only this warp touches the tile's
-// vectors, so st may write in place over the tile's own inputs. No barrier.
-template <int R, bool X3, int NW, typename LD, typename ST>
-__device__ __forceinline__ void dft_step(int nvec, const uint32_t* __restrict__ frag, LD ld,
-                                         ST st) {
+// One 16-vector tile of a complex R-point DFT step (R a multiple of 8) on the
+// tensor cores, run by one warp: vectors m0 + g and m0 + g + 8 of this lane's
+// group g, those past nvec zeros and not stored. ld(m, j) gives element j of
+// vector m as FP32 (read from shared memory, with any FP32 arithmetic the
+// step's input needs), split into bf16 here; st(m, k, value) receives output
+// k of vector m. frag points at the step's matrix (hi fragments, then lo).
+// The warp loads the tile's A fragments, all R elements of its 16 vectors,
+// then runs the n-tiles of 4 outputs NU at a time, each with its own
+// accumulators so that their product chains overlap. All of the tile's loads
+// are done before any of its stores (__syncwarp), so st may write in place
+// over the tile's own inputs. No barrier.
+template <int R, bool X3, typename LD, typename ST>
+__device__ __forceinline__ void dft_tile(int m0, int nvec, const uint32_t* __restrict__ frag,
+                                         LD ld, ST st) {
   static_assert(R % 8 == 0, "a DFT step takes whole k-steps of 8 complex elements");
   constexpr int KS = R / 8, NT = R / 4, NU = NT < 4 ? NT : 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint32_t* fl = frag + 2 * R * R;
-  const int mtiles = (nvec + 15) / 16;
-  for (int tile = warp; tile < mtiles; tile += NW) {
-    const int m0 = tile * 16 + g, m1 = m0 + 8;
-    const bool live0 = m0 < nvec, live1 = m1 < nvec;
-    uint32_t ah[KS][4], al[KS][4];
+  const int ma = m0 + g, mb = ma + 8;
+  const bool live0 = ma < nvec, live1 = mb < nvec;
+  uint32_t ah[KS][4], al[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int j = ks * 8 + t;
+    const float2 zero = make_float2(0.f, 0.f);
+    split<X3>(live0 ? ld(ma, j) : zero, &ah[ks][0], &al[ks][0]);
+    split<X3>(live1 ? ld(mb, j) : zero, &ah[ks][1], &al[ks][1]);
+    split<X3>(live0 ? ld(ma, j + 4) : zero, &ah[ks][2], &al[ks][2]);
+    split<X3>(live1 ? ld(mb, j + 4) : zero, &ah[ks][3], &al[ks][3]);
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int nt = 0; nt < NT; nt += NU) {
+    float acc[NU][4] = {}, acl[NU][4] = {};
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      const int j = ks * 8 + t;
-      const float2 zero = make_float2(0.f, 0.f);
-      split<X3>(live0 ? ld(m0, j) : zero, &ah[ks][0], &al[ks][0]);
-      split<X3>(live1 ? ld(m1, j) : zero, &ah[ks][1], &al[ks][1]);
-      split<X3>(live0 ? ld(m0, j + 4) : zero, &ah[ks][2], &al[ks][2]);
-      split<X3>(live1 ? ld(m1, j + 4) : zero, &ah[ks][3], &al[ks][3]);
-    }
-    __syncwarp();
-#pragma unroll 1
-    for (int nt = 0; nt < NT; nt += NU) {
-      float acc[NU][4] = {}, acl[NU][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-        for (int u = 0; u < NU; ++u) {
-          if (nt + u < NT) {  // uniform across the warp
-            const uint2 bh = b_frag<R>(frag, ks, nt + u, lane);
-            if (X3) {
-              mma(acl[u], al[ks], bh);
-              mma(acl[u], ah[ks], b_frag<R>(fl, ks, nt + u, lane));
-            }
-            mma(acc[u], ah[ks], bh);
-          }
-        }
-      }
 #pragma unroll
       for (int u = 0; u < NU; ++u) {
-        if (nt + u < NT) {
+        if (nt + u < NT) {  // uniform across the warp
+          const uint2 bh = b_frag<R>(frag, ks, nt + u, lane);
           if (X3) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[u][e] += acl[u][e];
+            mma(acl[u], al[ks], bh);
+            mma(acl[u], ah[ks], b_frag<R>(fl, ks, nt + u, lane));
           }
-          const int k = (nt + u) * 4 + t;
-          if (live0) st(m0, k, make_float2(acc[u][0], acc[u][1]));
-          if (live1) st(m1, k, make_float2(acc[u][2], acc[u][3]));
+          mma(acc[u], ah[ks], bh);
         }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      if (nt + u < NT) {
+        if (X3) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[u][e] += acl[u][e];
+        }
+        const int k = (nt + u) * 4 + t;
+        if (live0) st(ma, k, make_float2(acc[u][0], acc[u][1]));
+        if (live1) st(mb, k, make_float2(acc[u][2], acc[u][3]));
       }
     }
   }
+}
+
+// One complex R-point DFT step of nvec vectors (dft_tile's ld, st and
+// frag), its tiles of 16 vectors dealt to the block's NW warps in turn. Only
+// the warp that holds a tile touches its vectors, so st may write in place.
+// No barrier.
+template <int R, bool X3, int NW, typename LD, typename ST>
+__device__ __forceinline__ void dft_step(int nvec, const uint32_t* __restrict__ frag, LD ld,
+                                         ST st) {
+  const int mtiles = (nvec + 15) / 16;
+  for (int tile = threadIdx.x >> 5; tile < mtiles; tile += NW)
+    dft_tile<R, X3>(tile * 16, nvec, frag, ld, st);
 }
 
 }  // namespace bf16_mma

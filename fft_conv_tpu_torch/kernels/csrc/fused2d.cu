@@ -49,8 +49,9 @@
 // FP32 rate sets the pace: shared-memory traffic does (each axis reads and
 // writes the plane twice), with the barriers between the steps, and phase 2
 // re-reading D and the spectra through L2 once per output channel, most of
-// B2's time. Serving several output channels per read of D, tensor cores,
-// TMA staging and fusing the two phases are left for later work.
+// B2's time. Serving several output channels per read of D (the
+// tensor-core route's MAC stage does, below), TMA staging and fusing the two
+// phases are left for later work.
 //
 // Entry point: fused2d_forward (plain C interface, loaded with ctypes). It
 // returns cudaGetLastError() after the launches; 0 means both were accepted.
@@ -79,36 +80,64 @@
 //
 // B2's tensor-core modes (fused2d.py: set_fused2d_precision "bf16x3" and
 // "bf16", the JAX package's switch of that name, fft_conv_tpu/kernels/
-// fused2d.py:52-71, whose modes reach every DFT product of the 2D body through
-// _dot). A second pair, fused2d_spectra_tc and fused2d_mac_inverse_tc <T1, T2,
-// MODE> (entry point fused2d_forward_tc), runs B2's two phases on B2's plan,
-// grid, swizzled NB1 x T2 plane, staging and scratch D, with every DFT step a
-// bf16 mma.sync product with an FP32 accumulator (bf16_mma.cuh: dft_step),
-// as the TPU kernel forms each DFT product from bf16 operands under those
-// modes: the W DFT of the packed rows, the one-sided H DFT, the inverse W DFT
-// and the H irfft of column pairs, each factored as B2 factors it (16 * 8,
-// 16 * 16, 24 * 16; a 24-point step is three whole k-steps of 16, so nothing
-// is padded), each step's matrix read as B fragments from the host's
-// buffer (fused2d.py: _tc_fragments). Factored and not dense on both axes:
-// a dense 128-point step would do 5x the products of 16 * 8, and its
-// matrices (hi and lo, forward and conjugated) would take 512 KB where all
-// the factored steps' take 28 KB, re-read by every warp. The operands stay FP32 in the plane, and a warp splits them
-// into bf16 hi/lo as it loads its tile's A fragments, so that one plane
-// serves every mode and fits a block at T1 = 384 (a split plane would need a
-// second one to write into). Each step runs in place: a warp loads all of
-// its 16 vectors before it stores any output, into the same slots, so a row
-// DFT leaves bin m1 + A m2 at column m1 B + m2 (tc_col) and its readers (the
-// H DFT, the H irfft) index through that permutation; D keeps B2's natural
-// order. The twiddles (rounded as the plain version rounds them, without
-// FMA: a bf16 rounding that goes the other way early in a tile spreads
-// through its later steps), the split of the packed pairs, the MAC, the
-// Hermitian extension and 1/(T1 T2) stay FP32. What bounds this pair is the
-// chain each warp runs per tile of 16 vectors (shared-memory loads, the
-// products, the stores) between the barriers of the steps, and phase 2's MAC
-// re-reading D and the spectra through L2, FP32 in every mode; so each
-// step's lanes are placed (tile_rows, stg, the H steps' vector order) for
-// their loads and stores to reach 16 distinct bank pairs, where the first
-// version's H loaders met 4- and 8-way conflicts through tc_col.
+// fused2d.py:52-71, whose modes reach every DFT product of the 2D body
+// through _dot; they replace the same TPU kernel, _make_kernel_2d). A route
+// of three kernels <T1, T2, MODE> (entry point fused2d_forward_tc) computes
+// B2's function on B2's plan, with every DFT step a bf16 mma.sync product
+// with an FP32 accumulator (bf16_mma.cuh: dft_tile), as the TPU kernel forms
+// each DFT product from bf16 operands under those modes: each axis factored
+// as B2 factors it (16 * 8, 16 * 16, 24 * 16; a 24-point step is three
+// whole k-steps of 16), each step's matrix read as B fragments from the
+// host's buffer (fused2d.py: _tc_fragments). Factored and not dense: a
+// dense 128-point step would do 5x the products of 16 * 8, and its matrices
+// (hi and lo, forward and conjugated) would take 512 KB where all the
+// factored steps' take 28 KB, re-read by every warp. The operands stay FP32
+// in the planes and a warp splits them into bf16 hi/lo as it loads them, so
+// that one plane serves every mode and fits a block at T1 = 384. The
+// twiddles (rounded as the plain version rounds them, without FMA: a bf16
+// rounding that goes the other way early in a tile spreads through its
+// later steps), the split of the packed pairs, the MAC, the Hermitian
+// extension and 1/(T1 T2) stay FP32, and so do D and Y: the operands of the
+// DFT steps are the only values rounded to bf16, where the plain version
+// (fused2d.py: _tc_spectra, _tc_inverse) rounds them.
+//   phase 1, fused2d_spectra_tc, grid (B * Cin, tiles): the window by
+//     4-byte cp.async, rows 2r and 2r + 1 packed as one complex row (zeros
+//     past the edge); the W DFT of the packed rows, each warp owning 8 rows
+//     through both steps (row_dft_tc: the steps meet at __syncwarp, and a
+//     row DFT leaves bin m1 + A m2 at column m1 B + m2, tc_col); the H DFT on
+//     G columns a pass through the staging, each warp owning G / 8 of them
+//     through both steps (hstep_tiles); D (tiles, B * Cin, NB1, T2) in
+//     natural order, as B2's;
+//   MAC stage, fused2d_mac_tc, grid (unit blocks, NB1, groups x output-
+//     channel blocks): for one bin row k1 and up to 8 units (a unit is one
+//     tile of one batch row) and the group's output channels (64 rows of
+//     the plane at T2 = 128, fused2d.py: _tc_geometry), Y = sum_c D[c] K[o,
+//     c] in FP32 in the channels' order, each thread one column, holding
+//     the spectra of 4 output and 4 input channels in registers, D's rows
+//     streamed through the block's cp.async ring 3 units ahead; then the
+//     inverse W DFT of the block's rows (row_dft_tc) and Y (tiles, B, Cout,
+//     NB1, T2) out as the next stage's plane image;
+//   inverse stage, fused2d_inverse_tc, grid (B * Cout, tiles): Y's plane in
+//     by 16-byte cp.async, the H irfft of G column pairs a pass through the
+//     staging (hstep_tiles), the V1 x V2 valid samples into (B, Cout, OH,
+//     OW).
+// What bounds each stage, by count at the 2D rows (B = 2, 8 -> 8, 512^2,
+// K = 16 / 34: 25 / 36 tiles; times in PERF.md). Phase 1 and the
+// inverse stage: shared memory, each axis reading and writing the plane or
+// the staging in the per-warp chain of loads, products and stores of each
+// 16-vector tile. Each warp owns its rows (W) or columns (H) through both
+// steps of a transform, so the steps meet at __syncwarp: phase 1 waits at
+// two block barriers (its window in, the W DFT done) and the inverse stage
+// at one, where B2's pair waited at two for every step pair. The MAC
+// stage: bytes through L2. Where B2's pair re-read D and the spectra per
+// output channel (426 / 613 MB a call), one read of D serves every output
+// channel and one of a block's spectra its 8 units: D 26.6 / 38.3 MB once,
+// the spectra 4.26 MB once a unit block (7 / 9 blocks), Y written and read
+// once (2 x 26.6 / 38.3 MB), about 110 / 155 MB, with D's rows in flight 3
+// units ahead (a barrier a unit); its FP32 MAC, 0.21 / 0.31 GFLOP, is a few
+// microseconds at the card's FP32 rate. The step lanes are placed for 16
+// distinct bank pairs a load or store at T2 = 128 (the row groups' j2 and
+// m1 pairs, stg, the H steps' vector order).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -785,9 +814,19 @@ cudaError_t launch_v3(const float* x, const float* ks, const float2* fac, float*
   return cudaGetLastError();
 }
 
-// ---- B2's tensor-core pair (the modes "bf16x3" and "bf16") -------------------
+// ---- B2's tensor-core route (the modes "bf16x3" and "bf16") ------------------
 
 constexpr int kWarps = kThreads / 32;
+// rows a warp owns through both steps of a row DFT (row_dft_tc)
+constexpr int kRowGroup = 8;
+// The MAC stage: the output channels a thread holds a pass and the input
+// channels a chunk (their spectra held in registers), the units in flight
+// in the block's ring of D, and the bytes of its plane, which bound the
+// (unit, output channel) rows of a block (fused2d.py: _TC_PLANE_BYTES).
+constexpr int kMacOJ = 4;
+constexpr int kMacKC = 4;
+constexpr int kMacStages = 4;
+constexpr int kMacPlaneBytes = 64 * 1024;
 
 // a * w, or a * conj(w) for the inverse, rounded as the plain version rounds
 // it (two products, then their sum, each to FP32; no FMA), so that the bf16
@@ -806,17 +845,6 @@ __device__ __forceinline__ int tc_col(int k) {
   return (k % split_a(T)) * split_b(T) + k / split_a(T);
 }
 
-// Vector m of a row step's step 2, of NVEC: each whole block of 16 vectors
-// keeps its vectors, but lane group g takes the block's vectors 2g and 2g + 1
-// (rows r + 2g and r + 2g + 1), so that its 4 elements of 8 rows (columns
-// m1 B + t) fall in 16 distinct bank pairs of the swizzled plane. A partial
-// last block keeps its order.
-template <int NVEC>
-__device__ __forceinline__ int tile_rows(int m) {
-  if (m >= (NVEC & ~15)) return m;
-  return (m & ~15) | ((m & 7) << 1) | ((m >> 3) & 1);
-}
-
 // Index of (column c of a pass, element k) in the staging of an H pass: column
 // by column, bits 2 and 3 of k swizzled by c + k / 16, so that a lane group
 // of step 1 (8 consecutive j2 of one column, 4 m1) and one of step 2 (8
@@ -826,39 +854,131 @@ __device__ __forceinline__ int stg(int c, int k) {
   return c * T1 + (k ^ (((c + (k >> 4)) & 3) << 2));
 }
 
-// In-place DFT (INV: conjugated, unscaled) of the NROWS rows of the plane,
-// T = A * B, on the tensor cores. Step 1: vector (row, j2) = element j1 at
-// column j1 B + j2, its A-point DFT and then the twiddle tw[m1 B + j2] in FP32,
-// back at column m1 B + j2. Step 2: vector (row, m1) = element j2 at column
-// m1 B + j2, its B-point DFT, back in the same columns: bin m1 + A m2 at
-// column m1 B + m2 (tc_col). Both steps leave each vector in its own slots,
-// so they need no second plane. Ends with a barrier.
-template <int T, int NROWS, bool X3, bool INV>
-__device__ __forceinline__ void row_dft_tc(float2* s_p, const uint32_t* __restrict__ frag,
-                                           const float2* tw) {
-  constexpr int A = split_a(T), B = split_b(T);
-  bf16_mma::dft_step<A, X3, kWarps>(
-      NROWS * B, frag + bf16_mma::frag_offset(A, INV),
-      [&](int m, int j1) { return s_p[sw<T>(m % NROWS, j1 * B + m / NROWS)]; },
-      [&](int m, int m1, float2 v) {
-        const int j2 = m / NROWS;
-        s_p[sw<T>(m % NROWS, m1 * B + j2)] = m1 == 0 ? v : cmulw_rn<INV>(v, tw[m1 * B + j2]);
-      });
-  __syncthreads();
-  bf16_mma::dft_step<B, X3, kWarps>(
-      NROWS * A, frag + bf16_mma::frag_offset(B, INV),
-      [&](int m, int j2) {
-        m = tile_rows<NROWS * A>(m);
-        return s_p[sw<T>(m % NROWS, (m / NROWS) * B + j2)];
-      },
-      [&](int m, int m2, float2 v) {
-        m = tile_rows<NROWS * A>(m);
-        s_p[sw<T>(m % NROWS, (m / NROWS) * B + m2)] = v;
-      });
-  __syncthreads();
+// Asynchronous copies into shared memory (cp.async): 16 or 8 bytes, or 4
+// bytes of which only the first `bytes` are read (the rest zero-filled);
+// copies committed as groups, waited for as all or all but the N newest.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
-// Phase 1 under a tensor-core mode (MODE 3: "bf16x3", 1: "bf16"):
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// In-place DFT (INV: conjugated, unscaled) of rows [0, nrows) of the plane,
+// T = A * B, on the tensor cores, each warp owning kRowGroup rows at a time
+// through both steps, which meet at __syncwarp. Step 1, tiles of the 8 rows
+// at j2 and j2 + 1: vector (row, j2) = element j1 at column j1 B + j2, its
+// A-point DFT and then the twiddle tw[m1 B + j2] in FP32, back at column
+// m1 B + j2. Step 2, tiles of the 8 rows at m1 and m1 + 1 (lane group g
+// takes m1 + (g & 1), so that its 4 elements reach 16 distinct bank pairs at
+// B = 8): vector (row, m1) = element j2 at column m1 B + j2, its B-point DFT,
+// back in the same columns: bin m1 + A m2 at column m1 B + m2 (tc_col). Each
+// vector stays in its own slots, so no second plane. No block barrier: the
+// caller syncs before other warps read the rows.
+template <int T, bool X3, bool INV>
+__device__ __forceinline__ void row_dft_tc(float2* s_p, int nrows,
+                                           const uint32_t* __restrict__ frag, const float2* tw) {
+  constexpr int A = split_a(T), B = split_b(T), RG = kRowGroup;
+  static_assert(RG == 8 && A % 2 == 0 && B % 2 == 0, "a row group's steps take whole tiles");
+  const uint32_t* fa = frag + bf16_mma::frag_offset(A, INV);
+  const uint32_t* fb = frag + bf16_mma::frag_offset(B, INV);
+  const float2 zero = make_float2(0.f, 0.f);
+  for (int r0 = (threadIdx.x >> 5) * RG; r0 < nrows; r0 += kWarps * RG) {
+#pragma unroll 1
+    for (int j2a = 0; j2a < B; j2a += 2) {
+      bf16_mma::dft_tile<A, X3>(
+          0, 16, fa,
+          [&](int v, int j1) {
+            const int row = r0 + (v & 7);
+            return row < nrows ? s_p[sw<T>(row, j1 * B + j2a + (v >> 3))] : zero;
+          },
+          [&](int v, int m1, float2 val) {
+            const int row = r0 + (v & 7), j2 = j2a + (v >> 3);
+            if (row < nrows)
+              s_p[sw<T>(row, m1 * B + j2)] = m1 == 0 ? val : cmulw_rn<INV>(val, tw[m1 * B + j2]);
+          });
+    }
+    __syncwarp();
+#pragma unroll 1
+    for (int m1a = 0; m1a < A; m1a += 2) {
+      bf16_mma::dft_tile<B, X3>(
+          0, 16, fb,
+          [&](int v, int j2) {
+            const int row = r0 + (v & 7), m1 = m1a + ((v ^ (v >> 3)) & 1);
+            return row < nrows ? s_p[sw<T>(row, m1 * B + j2)] : zero;
+          },
+          [&](int v, int m2, float2 val) {
+            const int row = r0 + (v & 7), m1 = m1a + ((v ^ (v >> 3)) & 1);
+            if (row < nrows) s_p[sw<T>(row, m1 * B + m2)] = val;
+          });
+    }
+    __syncwarp();
+  }
+}
+
+// One pass of an H transform, T1 = A1 * B1, over G columns (or column
+// pairs) on the tensor cores, each warp owning CW = G / kWarps of them
+// through both steps, which meet at __syncwarp; the warp's columns of the
+// staging are its own, so passes need no block barrier either. Step 1:
+// vector m = (column m / B1, j2 = m % B1), element j1 = ld(m, j1), its
+// A1-point DFT (INV: conjugated) and the twiddle tw[m1 B1 + j2] in FP32
+// into the staging at (column, m1 B1 + j2); the warp's vectors are tiles of
+// that order. Step 2, tile p: vector v = (column CW w + v % CW, m1 = p 16 /
+// CW + v / CW), its B1-point DFT over j2 from the staging, output m2 to
+// st(column, m1, m2, value) (bin or sample m1 + A1 m2); at T1 = 128 and 256
+// a load of step 2 reaches 16 distinct bank pairs of stg.
+template <int T1, bool X3, bool INV, typename LD, typename ST>
+__device__ __forceinline__ void hstep_tiles(float2* stage, const uint32_t* __restrict__ frag,
+                                            LD ld, const float2* tw, ST st) {
+  constexpr int A1 = split_a(T1), B1 = split_b(T1), G = stage_cols(T1), CW = G / kWarps;
+  static_assert(G % kWarps == 0 && CW * B1 % 16 == 0 && 16 % CW == 0,
+                "a warp's columns take whole tiles");
+  const int warp = threadIdx.x >> 5;
+  const float2 zero = make_float2(0.f, 0.f);
+#pragma unroll 1
+  for (int m0 = warp * CW * B1; m0 < (warp + 1) * CW * B1; m0 += 16)
+    bf16_mma::dft_tile<A1, X3>(
+        m0, G * B1, frag + bf16_mma::frag_offset(A1, INV), ld,
+        [&](int m, int m1, float2 v) {
+          const int j2 = m % B1;
+          stage[stg<T1>(m / B1, m1 * B1 + j2)] = m1 == 0 ? v : cmulw_rn<INV>(v, tw[m1 * B1 + j2]);
+        });
+  __syncwarp();
+#pragma unroll 1
+  for (int p = 0; p < (CW * A1 + 15) / 16; ++p)
+    bf16_mma::dft_tile<B1, X3>(
+        0, 16, frag + bf16_mma::frag_offset(B1, INV),
+        [&](int v, int j2) {
+          const int m1 = p * (16 / CW) + v / CW;
+          return m1 < A1 ? stage[stg<T1>(warp * CW + v % CW, m1 * B1 + j2)] : zero;
+        },
+        [&](int v, int m2, float2 val) {
+          const int m1 = p * (16 / CW) + v / CW;
+          if (m1 < A1) st(warp * CW + v % CW, m1, m2, val);
+        });
+  __syncwarp();
+}
+
+// Phase 1 of the tensor-core route (MODE 3: "bf16x3", 1: "bf16"):
 // fused2d_spectra's function, every DFT step a bf16 product.
 template <int T1, int T2, int MODE>
 __global__ void __launch_bounds__(kThreads, B2Plan<T1, T2>::kMinBlocks)
@@ -879,33 +999,36 @@ fused2d_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
   const int h0 = (tile / nt2) * v1, w0 = (tile % nt2) * v2;
   const float* xs = x + (int64_t)blockIdx.x * hp * wp;
 
-  // the window, rows 2r and 2r + 1 packed as complex row r (zeros past the edge)
-  for (int i = tid; i < N1 * T2; i += kThreads) {
-    const int r = i / T2, c = i % T2, hr = h0 + 2 * r, wc = w0 + c;
-    float2 z = make_float2(0.f, 0.f);
-    if (wc < wp) {
-      if (hr < hp) z.x = __ldg(xs + (int64_t)hr * wp + wc);
-      if (hr + 1 < hp) z.y = __ldg(xs + (int64_t)(hr + 1) * wp + wc);
-    }
-    s_p[sw<T2>(r, c)] = z;
+  // the window by cp.async, rows 2r and 2r + 1 as the real and imaginary
+  // parts of complex row r (zeros past the edge): window row hr = 2r + part,
+  // its T2 samples a row segment of the signal
+  for (int i = tid; i < T1 * T2; i += kThreads) {
+    const int c = i % T2, rp = i / T2, hr = h0 + rp, wc = w0 + c;
+    const bool in = hr < hp && wc < wp;
+    cp_async4(reinterpret_cast<float*>(s_p + sw<T2>(rp >> 1, c)) + (rp & 1),
+              in ? xs + (int64_t)hr * wp + wc : xs, in ? 4 : 0);
   }
+  cp_async_wait_all();
   __syncthreads();
 
   // W DFT of the packed rows: Z_r[k] = X_2r[k] + i X_2r+1[k], bin k at tc_col(k)
-  row_dft_tc<T2, N1, X3, false>(s_p, frag, s.tw2);
+  row_dft_tc<T2, X3, false>(s_p, N1, frag, s.tw2);
+  __syncthreads();
 
   // H DFT of column col of X, col in [1, T2/2), or of X[., 0] + i X[., T2/2]
-  // for col = 0, G columns a pass: step 1 splits the W bins k and -k of the
-  // packed rows in FP32 as it loads them (as fused2d_spectra), runs the
-  // A1-point DFT of each (col, j2) (lanes on j2, so that a load reads one
-  // column's rows) and the twiddle into the staging at (col, m1 B1 + j2);
-  // step 2 runs the B1-point DFT of each (col, m1) (lanes on columns, so
-  // that D's stores are row segments) and writes the bins k1 = m1 + A1 m2
-  // to D in natural order
+  // for col = 0, G columns a pass, each warp owning CW of them through both
+  // steps (hstep_tiles): step 1 splits the W bins k and -k of the packed
+  // rows in FP32 as it loads them (as fused2d_spectra), runs the A1-point
+  // DFT of each (col, j2) (lanes on j2, so that a load reads one column's
+  // rows) and the twiddle into the warp's columns of the staging at (col,
+  // m1 B1 + j2); step 2 runs the B1-point DFT of each (col, m1) and writes
+  // the bins k1 = m1 + A1 m2 to D in natural order. The warp that owns
+  // column 0 splits its packed bins into columns 0 and T2/2.
   float2* dout = d + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * P::kPlane;
+  const int warp = tid >> 5, lane = tid & 31;
   for (int c0 = 0; c0 < N2; c0 += G) {
-    bf16_mma::dft_step<A1, X3, kWarps>(
-        G * B1, frag + bf16_mma::frag_offset(A1, false),
+    hstep_tiles<T1, X3, false>(
+        s.stage, frag,
         [&](int m, int j1) {
           const int col = c0 + m / B1, h = j1 * B1 + m % B1, rr = h >> 1;
           const int ck = tc_col<T2>(col == 0 ? 0 : col), cm = tc_col<T2>(col == 0 ? N2 : T2 - col);
@@ -916,17 +1039,9 @@ fused2d_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
           return h & 1 ? make_float2(0.5f * (zk.y + zm.y), 0.5f * (zm.x - zk.x))
                        : make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
         },
-        [&](int m, int m1, float2 v) {
-          const int j2 = m % B1;
-          s.stage[stg<T1>(m / B1, m1 * B1 + j2)] =
-              m1 == 0 ? v : cmulw_rn<false>(v, s.tw1[m1 * B1 + j2]);
-        });
-    __syncthreads();
-    bf16_mma::dft_step<B1, X3, kWarps>(
-        G * A1, frag + bf16_mma::frag_offset(B1, false),
-        [&](int m, int j2) { return s.stage[stg<T1>(m % G, (m / G) * B1 + j2)]; },
-        [&](int m, int m2, float2 v) {
-          const int col = c0 + m % G, k1 = m / G + A1 * m2;
+        s.tw1,
+        [&](int c, int m1, int m2, float2 v) {
+          const int col = c0 + c, k1 = m1 + A1 * m2;
           if (col == 0) {
             s.packed[k1] = v;
           } else {
@@ -935,9 +1050,8 @@ fused2d_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
               dout[((T1 - k1) % T1) * T2 + T2 - col] = make_float2(v.x, -v.y);
           }
         });
-    __syncthreads();
-    if (c0 == 0) {  // split C = X0 + i XN into columns 0 and T2/2
-      for (int k = tid; k < P::kNB1; k += kThreads) {
+    if (c0 == 0 && warp == 0) {  // split C = X0 + i XN into columns 0 and T2/2
+      for (int k = lane; k < P::kNB1; k += 32) {
         const float2 p = s.packed[k], q = s.packed[(T1 - k) % T1];
         dout[k * T2] = make_float2(0.5f * (p.x + q.x), 0.5f * (p.y - q.y));
         dout[k * T2 + N2] = make_float2(0.5f * (p.y + q.y), 0.5f * (q.x - p.x));
@@ -946,17 +1060,130 @@ fused2d_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
   }
 }
 
-// Phase 2 under a tensor-core mode: fused2d_mac_inverse's function, every
-// DFT step a bf16 product; the MAC is FP32 as in every mode.
+// The MAC stage of the tensor-core route, grid (unit blocks, NB1, groups x
+// output-channel blocks): one bin row k1, output channels [oc0, oc0 + oc) of
+// group g, units [u0, u0 + nu) of this launch (a unit is one tile of one
+// batch row, tile * B + b). Y[u, o] = sum_c D[u, c] K[o, c] in FP32, the
+// group's channels in order, into plane row u * oc + o. Each thread takes
+// one column and, a pass, kMacOJ output channels; a chunk of kMacKC input
+// channels at a time it holds their spectra in registers (read once a
+// block), while the block streams D's rows unit by unit through a ring of
+// kMacStages units in shared memory (16-byte cp.async, kMacStages - 1 units
+// ahead, a barrier a unit), each value serving the kThreads / T2 threads of
+// its column and their kMacOJ output channels each; the sums stay in the
+// plane between chunks. Then the inverse W DFT of every row
+// (row_dft_tc), and Y out as the inverse stage's plane image (row k1,
+// samples in tc_col order, swizzled as sw swizzles row k1).
+template <int T1, int T2, int MODE>
+__global__ void __launch_bounds__(kThreads, 2)
+fused2d_mac_tc(const float2* __restrict__ d,        // (units of this launch, Cin, NB1, T2)
+               const float2* __restrict__ ks,       // (Cout, Cin/g, NB1, T2), conjugated
+               const uint32_t* __restrict__ frag,   // fused2d.py: _tc_fragments
+               const float2* __restrict__ fac,      // factors, fused2d.py: _device_factors
+               float2* __restrict__ y,              // (units of this launch, Cout, NB1, T2)
+               int units, int cin, int cout, int groups, int upb, int ocb) {
+  using P = B2Plan<T1, T2>;
+  constexpr bool X3 = MODE == 3;
+  constexpr int L = kThreads / T2, OJ = kMacOJ, KC = kMacKC, NS = kMacStages;
+  constexpr int64_t plane = P::kPlane;
+  static_assert(kThreads % T2 == 0, "a block's threads take whole rows");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* s_p = reinterpret_cast<float2*>(smem_raw);
+  float2* tw = s_p + (size_t)upb * ocb * T2;  // the W twiddle
+  const int tid = threadIdx.x;
+  float2* ring = tw + T2;  // stage s, channel c, column: (s * KC + c) * T2 + column
+  for (int i = tid; i < T2; i += kThreads)
+    tw[i] = __ldg(fac + P::kA1 + P::kB1 + T1 + P::kA2 + P::kB2 + i);
+
+  const int cpg = cin / groups, og = cout / groups, noc = (og + ocb - 1) / ocb;
+  const int g = blockIdx.z / noc, oc0 = (blockIdx.z % noc) * ocb, oc = min(ocb, og - oc0);
+  const int u0 = blockIdx.x * upb, nu = min(upb, units - u0);
+  const int k1 = blockIdx.y, col = tid % T2, lane = tid / T2;
+  const float2* dk = d + ((int64_t)u0 * cin + (int64_t)g * cpg) * plane + (int64_t)k1 * T2;
+  const float2* kk = ks + (int64_t)(g * og + oc0) * cpg * plane + (int64_t)k1 * T2 + col;
+  for (int ob = 0; ob < oc; ob += L * OJ) {
+    for (int c0 = 0; c0 < cpg; c0 += KC) {
+      const int nc = min(KC, cpg - c0);
+      // unit u's rows D[u, c0 .. c0 + nc, k1] into ring stage u % NS by the
+      // whole block, 16 bytes a copy; one commit group a unit (empty past
+      // the block's units)
+      auto stage = [&](int u) {
+        if (u < nu) {
+          const float2* src = dk + ((int64_t)u * cin + c0) * plane;
+          float2* dst = ring + (u % NS) * KC * T2;
+          for (int i = tid; i < nc * T2 / 2; i += kThreads) {
+            const int c = i / (T2 / 2), q = 2 * (i % (T2 / 2));
+            cp_async16(dst + c * T2 + q, src + c * plane + q);
+          }
+        }
+        cp_async_commit();
+      };
+#pragma unroll
+      for (int u = 0; u < NS - 1; ++u) stage(u);
+      float2 kr[OJ][KC];
+#pragma unroll
+      for (int j = 0; j < OJ; ++j) {
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          const int o = ob + lane + L * j;
+          kr[j][c] = o < oc && c < nc ? __ldg(kk + ((int64_t)o * cpg + c0 + c) * plane)
+                                      : make_float2(0.f, 0.f);
+        }
+      }
+      for (int u = 0; u < nu; ++u) {
+        cp_async_wait<NS - 2>();  // this thread's copies of unit u have landed
+        __syncthreads();  // every thread's have, and stage (u - 1) % NS is read
+        stage(u + NS - 1);
+        const float2* src = ring + (u % NS) * KC * T2 + col;
+        float2 acc[OJ];
+#pragma unroll
+        for (int j = 0; j < OJ; ++j) {
+          const int o = ob + lane + L * j;
+          acc[j] = c0 > 0 && o < oc ? s_p[sw<T2>(u * oc + o, col)] : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          if (c < nc) {
+            const float2 dv = src[c * T2];
+#pragma unroll
+            for (int j = 0; j < OJ; ++j) cmac(acc[j], dv, kr[j][c]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < OJ; ++j) {
+          const int o = ob + lane + L * j;
+          if (o < oc) s_p[sw<T2>(u * oc + o, col)] = acc[j];
+        }
+      }
+      __syncthreads();  // the ring is read before the next chunk's prologue refills it
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // inverse W DFT of the block's rows in place, sample n at tc_col(n)
+  const int rows = nu * oc;
+  row_dft_tc<T2, X3, true>(s_p, rows, frag, tw);
+  __syncthreads();
+  const int sh = k1 & 15;
+  for (int i = tid; i < rows * T2; i += kThreads) {
+    const int r = i / T2, p = i % T2;
+    const int64_t yrow = ((int64_t)(u0 + r / oc) * cout + g * og + oc0 + r % oc) * P::kNB1 + k1;
+    y[yrow * T2 + p] = s_p[sw<T2>(r, p ^ sh)];
+  }
+}
+
+// The inverse stage of the tensor-core route, grid (B * Cout, tiles of this
+// launch): the MAC stage's Y of one (b, o, tile), already the plane's
+// image, into the plane by 16-byte cp.async; then the H irfft of column
+// pairs, storing the V1 x V2 valid samples into (B, Cout, OH, OW).
 template <int T1, int T2, int MODE>
 __global__ void __launch_bounds__(kThreads, B2Plan<T1, T2>::kMinBlocks)
-fused2d_mac_inverse_tc(const float2* __restrict__ d,       // (tiles of this launch, B * Cin, NB1, T2)
-                       const float2* __restrict__ ks,      // (Cout, Cin/g, NB1, T2), conjugated
-                       const uint32_t* __restrict__ frag,  // fused2d.py: _tc_fragments
-                       const float2* __restrict__ fac,     // factors, fused2d.py: _device_factors
-                       float* __restrict__ out,            // (B, Cout, oh, ow)
-                       int batch, int cin, int cout, int groups, int v1, int v2, int nt2,
-                       int tile0, int oh, int ow) {
+fused2d_inverse_tc(const float2* __restrict__ y,       // (units of this launch, Cout, NB1, T2)
+                   const uint32_t* __restrict__ frag,  // fused2d.py: _tc_fragments
+                   const float2* __restrict__ fac,     // factors, fused2d.py: _device_factors
+                   float* __restrict__ out,            // (B, Cout, oh, ow)
+                   int v1, int v2, int nt2, int tile0, int oh, int ow) {
   using P = B2Plan<T1, T2>;
   constexpr bool X3 = MODE == 3;
   constexpr int A1 = P::kA1, B1 = P::kB1, G = P::kG, N1 = T1 / 2, N2 = T2 / 2;
@@ -965,37 +1192,27 @@ fused2d_mac_inverse_tc(const float2* __restrict__ d,       // (tiles of this lau
   float2* s_p = s.plane;
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / cout, o = blockIdx.x % cout;
-  const int cpg = cin / groups, g0 = o / (cout / groups);
   const int tile = tile0 + blockIdx.y;
   const int h0 = (tile / nt2) * v1, w0 = (tile % nt2) * v2;
-  const int64_t plane = P::kPlane;
-
-  // per-bin MAC over this out-channel's group: Y = sum_c D[c] * K[o, c]
-  const float2* dg = d + (((int64_t)blockIdx.y * batch + b) * cin + (int64_t)g0 * cpg) * plane;
-  const float2* ko = ks + (int64_t)o * cpg * plane;
-  for (int i = tid; i < P::kPlane; i += kThreads) {
-    float2 y = make_float2(0.f, 0.f);
-    for (int ci = 0; ci < cpg; ++ci) cmac(y, __ldg(dg + ci * plane + i), __ldg(ko + ci * plane + i));
-    s_p[sw<T2>(i / T2, i % T2)] = y;
-  }
+  // unit (tile, b), output channel o: Y's plane blockIdx.y * B * Cout + b * Cout + o
+  const float2* yp = y + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * P::kPlane;
+  for (int i = tid; i < P::kPlane / 2; i += kThreads) cp_async16(s_p + 2 * i, yp + 2 * i);
+  cp_async_wait_all();
   __syncthreads();
 
-  // inverse W DFT of the NB1 rows in place, sample n at tc_col(n)
-  row_dft_tc<T2, P::kNB1, X3, true>(s_p, frag, s.tw2);
-
-  // H irfft of columns 2q and 2q + 1 at once, G pairs a pass: the inverse
-  // DFT of c = H_2q + i H_2q+1, H the Hermitian extension of a one-sided
-  // column (formed in FP32 as step 1 loads it, as fused2d_mac_inverse), whose
-  // real and imaginary parts are the two output columns; step 1 (lanes on
-  // the bins of one pair) into the staging with the conjugate twiddle, step 2
-  // (lanes on pairs) onto the output rows m1 + A1 m2, of which the V1 valid
-  // ones are stored with 1/(T1 T2)
+  // H irfft of columns 2q and 2q + 1 at once, G pairs a pass, each warp
+  // owning CW of them through both steps (hstep_tiles): the inverse DFT of
+  // c = H_2q + i H_2q+1, H the Hermitian extension of a one-sided column
+  // (formed in FP32 as step 1 loads it, as fused2d_mac_inverse), whose real
+  // and imaginary parts are the two output columns; step 1 (lanes on the
+  // bins of one pair) into the warp's pairs of the staging with the
+  // conjugate twiddle, step 2 onto the output rows m1 + A1 m2, of which the
+  // V1 valid ones are stored with 1/(T1 T2)
   const float scale = 1.f / (float)(T1 * T2);
-  float* oplane = out + ((int64_t)b * cout + o) * oh * ow;
+  float* oplane = out + (int64_t)blockIdx.x * oh * ow;
   for (int c0 = 0; c0 < N2; c0 += G) {
-    bf16_mma::dft_step<A1, X3, kWarps>(
-        G * B1, frag + bf16_mma::frag_offset(A1, true),
+    hstep_tiles<T1, X3, true>(
+        s.stage, frag,
         [&](int m, int j1) {
           const int q = c0 + m / B1, k = j1 * B1 + m % B1, kk = k <= N1 ? k : T1 - k;
           const float2 e0 = s_p[sw<T2>(kk, tc_col<T2>(2 * q))];
@@ -1006,40 +1223,40 @@ fused2d_mac_inverse_tc(const float2* __restrict__ d,       // (tiles of this lau
             return make_float2(e0.x - e1.y, e0.y + e1.x);
           return make_float2(e0.x + e1.y, e1.x - e0.y);  // conj(E0) + i conj(E1) of bin T1 - k
         },
-        [&](int m, int m1, float2 v) {
-          const int j2 = m % B1;
-          s.stage[stg<T1>(m / B1, m1 * B1 + j2)] =
-              m1 == 0 ? v : cmulw_rn<true>(v, s.tw1[m1 * B1 + j2]);
-        });
-    __syncthreads();
-    bf16_mma::dft_step<B1, X3, kWarps>(
-        G * A1, frag + bf16_mma::frag_offset(B1, true),
-        [&](int m, int j2) { return s.stage[stg<T1>(m % G, (m / G) * B1 + j2)]; },
-        [&](int m, int m2, float2 v) {
-          const int z = 2 * (c0 + m % G), ox = w0 + z, vr = m / G + A1 * m2, oy = h0 + vr;
+        s.tw1,
+        [&](int c, int m1, int m2, float2 v) {
+          const int z = 2 * (c0 + c), ox = w0 + z, vr = m1 + A1 * m2, oy = h0 + vr;
           if (vr < v1 && oy < oh) {
             float* row = oplane + (int64_t)oy * ow + ox;
             if (z < v2 && ox < ow) row[0] = v.x * scale;
             if (z + 1 < v2 && ox + 1 < ow) row[1] = v.y * scale;
           }
         });
-    __syncthreads();  // the staging is read before the next pass overwrites it
   }
 }
 
 template <int T1, int T2, int MODE>
 cudaError_t launch_tc(const float* x, const float2* ks, const uint32_t* frag, const float2* fac,
-                      float2* d, float* out, int batch, int cin, int cout, int groups, int hp,
-                      int wp, int v1, int v2, int nt2, int tile0, int ntile, int oh, int ow,
-                      cudaStream_t stream) {
-  constexpr size_t smem = B2Plan<T1, T2>::kSmem;
+                      float2* d, float2* y, float* out, int batch, int cin, int cout, int groups,
+                      int hp, int wp, int v1, int v2, int nt2, int tile0, int ntile, int oh,
+                      int ow, int upb, int ocb, cudaStream_t stream) {
+  using P = B2Plan<T1, T2>;
+  constexpr size_t smem = P::kSmem;
+  // the MAC stage's plane, twiddle and D rings
+  constexpr size_t mac_ring = sizeof(float2) * (T2 + kMacStages * kMacKC * T2);
+  constexpr size_t mac_smem = kMacPlaneBytes + mac_ring;
   if (v1 < 1 || v1 > T1 || v2 < 1 || v2 > T2 || nt2 < 1 || ntile < 1 || ntile > 65535 ||
-      tile0 < 0 || groups < 1 || cin % groups || cout % groups)
+      tile0 < 0 || groups < 1 || cin % groups || cout % groups || upb < 1 || ocb < 1 ||
+      (int64_t)upb * ocb * T2 * (int64_t)sizeof(float2) > kMacPlaneBytes)
     return cudaErrorInvalidValue;
+  const int units = ntile * batch, og = cout / groups;
   cudaError_t err = cudaFuncSetAttribute(
       fused2d_spectra_tc<T1, T2, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fused2d_mac_inverse_tc<T1, T2, MODE>,
+  err = cudaFuncSetAttribute(fused2d_mac_tc<T1, T2, MODE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)mac_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused2d_inverse_tc<T1, T2, MODE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
 
@@ -1047,21 +1264,27 @@ cudaError_t launch_tc(const float* x, const float2* ks, const uint32_t* frag, co
       x, frag, fac, d, hp, wp, v1, v2, nt2, tile0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fused2d_mac_inverse_tc<T1, T2, MODE><<<dim3(batch * cout, ntile), kThreads, smem, stream>>>(
-      d, ks, frag, fac, out, batch, cin, cout, groups, v1, v2, nt2, tile0, oh, ow);
+  const dim3 mac_grid((units + upb - 1) / upb, P::kNB1, groups * ((og + ocb - 1) / ocb));
+  fused2d_mac_tc<T1, T2, MODE><<<mac_grid, kThreads,
+                                 sizeof(float2) * (size_t)upb * ocb * T2 + mac_ring, stream>>>(
+      d, ks, frag, fac, y, units, cin, cout, groups, upb, ocb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused2d_inverse_tc<T1, T2, MODE><<<dim3(batch * cout, ntile), kThreads, smem, stream>>>(
+      y, frag, fac, out, v1, v2, nt2, tile0, oh, ow);
   return cudaGetLastError();
 }
 
 template <int MODE>
 cudaError_t launch_tc_plan(int t1, int t2, const float* x, const float2* ks,
-                           const uint32_t* frag, const float2* fac, float2* d, float* out,
-                           int batch, int cin, int cout, int groups, int hp, int wp, int v1,
-                           int v2, int nt2, int tile0, int ntile, int oh, int ow,
-                           cudaStream_t stream) {
-#define FUSED2D_TC_LAUNCH(T1, T2)                                                          \
-  if (t1 == T1 && t2 == T2)                                                                \
-    return launch_tc<T1, T2, MODE>(x, ks, frag, fac, d, out, batch, cin, cout, groups, hp, \
-                                   wp, v1, v2, nt2, tile0, ntile, oh, ow, stream);
+                           const uint32_t* frag, const float2* fac, float2* d, float2* y,
+                           float* out, int batch, int cin, int cout, int groups, int hp, int wp,
+                           int v1, int v2, int nt2, int tile0, int ntile, int oh, int ow, int upb,
+                           int ocb, cudaStream_t stream) {
+#define FUSED2D_TC_LAUNCH(T1, T2)                                                            \
+  if (t1 == T1 && t2 == T2)                                                                  \
+    return launch_tc<T1, T2, MODE>(x, ks, frag, fac, d, y, out, batch, cin, cout, groups, hp, \
+                                   wp, v1, v2, nt2, tile0, ntile, oh, ow, upb, ocb, stream);
   FUSED2D_TC_LAUNCH(128, 128)
   FUSED2D_TC_LAUNCH(256, 128)
   FUSED2D_TC_LAUNCH(384, 128)
@@ -1101,29 +1324,38 @@ extern "C" int fused2d_forward(const void* x, const void* ks, const void* fac, v
 }
 
 // fused2d_forward under a tensor-core mode: mode 3 is "bf16x3", 1 is "bf16";
-// frag the fragment buffer of fused2d.py:_tc_fragments, the other arguments
-// as fused2d_forward's. Returns cudaGetLastError() after the two launches (0
-// when both were accepted).
+// frag the fragment buffer of fused2d.py:_tc_fragments; y scratch (ntile, B,
+// Cout, t1/2+1, t2) complex for the MAC stage's output; upb and ocb the
+// units (tile, batch row) and the output channels of a MAC-stage block
+// (fused2d.py: _tc_geometry), upb * ocb * t2 * 8 at most
+// fused2d_tc_plane_bytes(); the other arguments as fused2d_forward's.
+// Returns cudaGetLastError() after the three launches (0 when all were
+// accepted).
 extern "C" int fused2d_forward_tc(const void* x, const void* ks, const void* frag,
-                                  const void* fac, void* d, void* out, int batch, int cin,
-                                  int cout, int groups, int hp, int wp, int t1, int t2, int mode,
-                                  int v1, int v2, int nt2, int tile0, int ntile, int oh, int ow,
-                                  void* stream) {
+                                  const void* fac, void* d, void* y, void* out, int batch,
+                                  int cin, int cout, int groups, int hp, int wp, int t1, int t2,
+                                  int mode, int v1, int v2, int nt2, int tile0, int ntile, int oh,
+                                  int ow, int upb, int ocb, void* stream) {
   const auto* xf = static_cast<const float*>(x);
   const auto* ksc = static_cast<const float2*>(ks);
   const auto* fr = static_cast<const uint32_t*>(frag);
   const auto* fc = static_cast<const float2*>(fac);
   auto* dc = static_cast<float2*>(d);
+  auto* yc = static_cast<float2*>(y);
   auto* of = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (mode == 3)
-    return launch_tc_plan<3>(t1, t2, xf, ksc, fr, fc, dc, of, batch, cin, cout, groups, hp, wp,
-                             v1, v2, nt2, tile0, ntile, oh, ow, s);
+    return launch_tc_plan<3>(t1, t2, xf, ksc, fr, fc, dc, yc, of, batch, cin, cout, groups, hp,
+                             wp, v1, v2, nt2, tile0, ntile, oh, ow, upb, ocb, s);
   if (mode == 1)
-    return launch_tc_plan<1>(t1, t2, xf, ksc, fr, fc, dc, of, batch, cin, cout, groups, hp, wp,
-                             v1, v2, nt2, tile0, ntile, oh, ow, s);
+    return launch_tc_plan<1>(t1, t2, xf, ksc, fr, fc, dc, yc, of, batch, cin, cout, groups, hp,
+                             wp, v1, v2, nt2, tile0, ntile, oh, ow, upb, ocb, s);
   return cudaErrorInvalidValue;
 }
+
+// The bytes of the tensor-core route's MAC-stage plane, which bound its
+// blocks' rows (fused2d.py: _TC_PLANE_BYTES; a card test holds the two equal).
+extern "C" long long fused2d_tc_plane_bytes() { return kMacPlaneBytes; }
 
 // B2's dynamic shared memory of one block of either kernel for a (t1, t2)
 // tile, or -1 for a T2 it does not take. The host's tile plan mirrors this

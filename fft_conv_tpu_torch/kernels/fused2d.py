@@ -33,12 +33,27 @@ follow the schedule chosen at call time, as the JAX package's do.
 
 ``set_fused2d_precision`` picks how B2 forms its DFT products, as the JAX
 package's switch of that name does: "highest" (the default here) runs B2's
-FP32 kernel pair, "bf16x3" and "bf16" its tensor-core pair in the same
+FP32 kernel pair, "bf16x3" and "bf16" its tensor-core route in the same
 source (``fused2d_forward_tc``), whose DFT steps are bf16 products (hi/lo
-splits, three products or one) on B2's factors. The plain version of that
-pair (``_tc_spectra``, ``_tc_inverse``) runs B2's kernel order, W first on
-packed rows, so that it rounds the same operands. B5 has no tensor-core
-pair yet: "v3" under a bf16 mode raises.
+splits, three products or one) on B2's factors. The route replaces the same
+TPU kernel (``fft_conv_tpu/kernels/fused2d.py:308``) in three kernels a
+tile range: phase 1 (grid B·Cin x tiles: the window by cp.async, the W DFT
+of packed rows warp by warp, the H DFT; D out); the MAC stage (grid unit
+blocks x NB1 x groups·output-channel blocks, ``_tc_geometry``: for one bin
+row, a few units (tile, batch row) and the group's output channels, the
+FP32 MAC with one read of D for every output channel, then the inverse W
+DFT; Y out, (tiles, B, Cout, NB1, T2) complex64 beside D); the inverse
+stage (grid B·Cout x tiles: Y in, the H irfft, the valid samples out). By
+count the MAC stage moves about a quarter of the L2 bytes that B2's pair
+moved re-reading D and the spectra per output channel; shared memory bounds
+the other two, whose warps each own rows or columns through both steps of a
+transform. D and Y stay FP32, so the
+plain version of the route (``_tc_spectra``, ``_tc_inverse``) rounds where
+B2's pair did: B2's kernel order, W first on packed rows, so that it rounds
+the same operands. A launch takes as many tiles as ``_SCRATCH_BUDGET``
+holds of D and Y, and at least one, so the route runs every shape that
+``fused2d_fits`` admits. B5 has no tensor-core route yet: "v3" under a
+bf16 mode raises.
 
 Not ported from the JAX module: the TPU's MAC-mode and prefetch switches.
 """
@@ -82,11 +97,16 @@ _SMEM_LIMIT = 232448
 _SCRATCH_BUDGET = 256 * 2**20
 # CUDA's limit on gridDim.y, which carries the tiles of one launch.
 _MAX_TILES_PER_LAUNCH = 65535
+#   * under a tensor-core mode, the plane of a MAC-stage block, which holds
+#     (unit, output channel) rows of T2 complex values for the inverse W
+#     DFT (csrc/fused2d.cu: kMacPlaneBytes): two blocks an SM.
+_TC_PLANE_BYTES = 64 * 1024
 
-# Launches of the CUDA kernel pairs (phase 1 + phase 2) since import or the
-# last reset: ``launches`` counts B2's FP32 pair, ``launches_tc`` its
-# tensor-core pair (the modes "bf16x3" and "bf16"), ``launches_v3`` B5. The
-# plain versions on CPU tensors do not count.
+# Launches since import or the last reset, one a tile range: ``launches``
+# counts B2's FP32 pair (phase 1 + phase 2), ``launches_tc`` its tensor-core
+# route (the modes "bf16x3" and "bf16": phase 1, the MAC stage and the
+# inverse stage), ``launches_v3`` B5. The plain versions on CPU tensors do
+# not count.
 launches = 0
 launches_tc = 0
 launches_v3 = 0
@@ -246,13 +266,13 @@ def _device_factors(t1: int, t2: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.concatenate(parts).astype(np.complex64)).to(device)
 
 
-# the lengths of the tensor-core pair's DFT steps: the factors of _SPLITS
+# the lengths of the tensor-core route's DFT steps: the factors of _SPLITS
 _TC_RADICES = (8, 16, 24)
 
 
 @lru_cache(maxsize=None)
 def _tc_fragments(device: torch.device) -> torch.Tensor:
-    """The tensor-core pair's DFT matrices as one int32 tensor on ``device``,
+    """The tensor-core route's DFT matrices as one int32 tensor on ``device``,
     in the order csrc/bf16_mma.cuh's ``frag_offset`` reads them: for R in
     ``_TC_RADICES`` the R-point DFT, forward and then conjugated, each as its
     hi and then its lo fragments (``fused1d._b_fragments``). Built in float64
@@ -306,7 +326,7 @@ def _h_irfft(er: torch.Tensor, ei: torch.Tensor, v1: int) -> torch.Tensor:
 
 
 def _tc_spectra(a: torch.Tensor, dot) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Phase 1 of B2's tensor-core pair on real windows (..., T1, T2), in the
+    """Phase 1 of B2's tensor-core route on real windows (..., T1, T2), in the
     kernel's order: the W DFT of rows 2r and 2r + 1 packed as one complex
     row; per column col in [1, T2/2) the split of its W bins col and -col into
     the column of X (X_2r = (Z[k] + conj Z[-k]) / 2, X_2r+1 = (Z[k] - conj
@@ -340,7 +360,7 @@ def _tc_spectra(a: torch.Tensor, dot) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _tc_inverse(yr: torch.Tensor, yi: torch.Tensor, v1: int, dot) -> torch.Tensor:
-    """Phase 2's inverse in B2's tensor-core pair on the MAC's output (...,
+    """The inverse in B2's tensor-core route on the MAC's output (...,
     NB1, T2), in the kernel's order: the inverse W DFT of the NB1 rows; then
     per column pair (2q, 2q + 1) one inverse T1-point DFT of c = E_2q + i
     E_2q+1, E the Hermitian extension of a one-sided column (bins 0 and T1/2
@@ -521,7 +541,7 @@ def _fused2d_forward_reference(
     K1, K2) already dilated; returns the valid correlation (B, Cout, OH, OW).
     ``spectra``: a plan's baked ``kernel_spectra_2d``, or None to compute
     them. ``mode``: the precision mode whose kernel pair this stands for;
-    under "bf16x3" and "bf16" the tensor-core pair's order (``_tc_spectra``,
+    under "bf16x3" and "bf16" the tensor-core route's order (``_tc_spectra``,
     ``_tc_inverse``) with each DFT product rounding its operands to bfloat16
     where that pair does (``fused1d._DOTS``).
     """
@@ -562,8 +582,10 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused2d_forward.argtypes = [p] * 5 + [i] * 15 + [p]
         lib.fused2d_forward.restype = i
-        lib.fused2d_forward_tc.argtypes = [p] * 6 + [i] * 16 + [p]
+        lib.fused2d_forward_tc.argtypes = [p] * 7 + [i] * 18 + [p]
         lib.fused2d_forward_tc.restype = i
+        lib.fused2d_tc_plane_bytes.argtypes = []
+        lib.fused2d_tc_plane_bytes.restype = ctypes.c_longlong
         lib.fused2d_error_string.argtypes = [i]
         lib.fused2d_error_string.restype = ctypes.c_char_p
         lib.fused2d_smem_bytes.argtypes = [i, i]
@@ -591,8 +613,8 @@ def kernel_spectra_2d_planes(kernel: torch.Tensor, t1: int, nb1: int, t2: int) -
 def _check_launch(x_padded, spectra, plan, groups, k, v3):
     """The checks both launchers share: B2 takes complex64 spectra (Cout,
     Cin/g, NB1, T2), B5 float32 planes (Cout, Cin/g, 2, NB1, T2). Returns
-    the contiguous signal and spectra, (OH, OW), the tiles across W, the
-    tile count and the tiles per launch."""
+    the contiguous signal and spectra, (OH, OW), the tiles across W and the
+    tile count."""
     what = "fused2d_v3" if v3 else "fused2d"
     dtype = torch.float32 if v3 else torch.complex64
     if not (x_padded.is_cuda and spectra.device == x_padded.device):
@@ -611,55 +633,85 @@ def _check_launch(x_padded, spectra, plan, groups, k, v3):
     oh, ow, nt1, nt2 = _tiling(plan, hp, wp, *k)
     if oh < 1 or ow < 1:
         raise ValueError(f"{what} kernel: the kernel is larger than the signal")
-    ntiles = nt1 * nt2
-    # tiles per launch: as many as the scratch budget holds (the routing gate,
-    # fused2d_fits, has checked that one tile does)
-    per_tile = _scratch_bytes_per_tile(nb1, t2, b, cin)
-    chunk = max(1, min(ntiles, _SCRATCH_BUDGET // per_tile, _MAX_TILES_PER_LAUNCH))
-    return x_padded, spectra, oh, ow, nt2, ntiles, chunk
+    return x_padded, spectra, oh, ow, nt2, nt1 * nt2
+
+
+def _tiles_per_launch(per_tile: int, ntiles: int) -> int:
+    """Tiles a launch: as many as ``_SCRATCH_BUDGET`` holds at ``per_tile``
+    scratch bytes a tile, and at least one (the routing gate,
+    ``fused2d_fits``, has checked that one tile of D does)."""
+    return max(1, min(ntiles, _SCRATCH_BUDGET // per_tile, _MAX_TILES_PER_LAUNCH))
+
+
+def _tc_geometry(b: int, cin: int, cout: int, groups: int, plan, ntiles: int):
+    """The tensor-core route's launch geometry, (tiles a launch, units a MAC
+    block, output channels a MAC block), as ``_launch_fused2d`` passes it to
+    ``fused2d_forward_tc``. A launch takes as many tiles as
+    ``_SCRATCH_BUDGET`` holds with both scratch arrays counted, D (tiles, B,
+    Cin, NB1, T2) and the MAC stage's Y (tiles, B, Cout, NB1, T2), and at
+    least one, so the route runs every shape ``fused2d_fits`` admits. A MAC
+    block holds (unit, output channel) rows of T2 complex values in a plane
+    of ``_TC_PLANE_BYTES``: the group's Cout/g output channels, or as many
+    as fit, times as many units (tile, batch row) as fit, the launch's units
+    dealt evenly over the fewest blocks. Its grid is (units / upb, NB1,
+    groups x ceil((Cout/g) / ocb))."""
+    _, _, nb1, t2, _ = plan
+    rows = _TC_PLANE_BYTES // (8 * t2)
+    ocb = min(cout // groups, rows)
+    chunk = _tiles_per_launch(_scratch_bytes_per_tile(nb1, t2, b, cin + cout), ntiles)
+    units = chunk * b
+    blocks = -(-units // (rows // ocb))
+    return chunk, -(-units // blocks), ocb
 
 
 def _launch_fused2d(
     x_padded: torch.Tensor, spectra: torch.Tensor, plan, groups: int, k: Tuple[int, int],
     mode: str = "highest",
 ) -> torch.Tensor:
-    """Runs the CUDA kernel pair of ``mode`` on ``x_padded`` (B, Cin, Hp, Wp)
+    """Runs the CUDA kernels of ``mode`` on ``x_padded`` (B, Cin, Hp, Wp)
     float32 with the conjugated spectra (Cout, Cin/g, NB1, T2) complex64 of
     a (K1, K2) kernel, both on one CUDA device, under the tile plan ``plan``:
     B2's FP32 pair under "highest" (counted in ``launches``), its
-    tensor-core pair under "bf16x3" and "bf16" (``launches_tc``). Returns
-    the valid correlation (B, Cout, OH, OW)."""
+    tensor-core route under "bf16x3" and "bf16" (three kernels a tile range,
+    counted in ``launches_tc``; geometry ``_tc_geometry``). Returns the
+    valid correlation (B, Cout, OH, OW)."""
     global launches, launches_tc
     if mode not in PRECISION_MODES:
         raise ValueError(f"unknown fused precision mode: {mode!r}")
-    x_padded, spectra, oh, ow, nt2, ntiles, chunk = _check_launch(
+    x_padded, spectra, oh, ow, nt2, ntiles = _check_launch(
         x_padded, spectra, plan, groups, k, v3=False)
     b, cin, hp, wp = x_padded.shape
     cout = spectra.shape[0]
     t1, v1, nb1, t2, v2 = plan
 
     lib = _library()
-    fac = _device_factors(t1, t2, x_padded.device)
-    frag = None if mode == "highest" else _tc_fragments(x_padded.device)
-    out = torch.empty((b, cout, oh, ow), device=x_padded.device, dtype=torch.float32)
-    d = torch.empty((chunk, b, cin, nb1, t2), device=x_padded.device, dtype=torch.complex64)
-    stream = torch.cuda.current_stream(x_padded.device).cuda_stream
-    with torch.cuda.device(x_padded.device):
+    dev = x_padded.device
+    fac = _device_factors(t1, t2, dev)
+    out = torch.empty((b, cout, oh, ow), device=dev, dtype=torch.float32)
+    if mode == "highest":
+        chunk = _tiles_per_launch(_scratch_bytes_per_tile(nb1, t2, b, cin), ntiles)
+    else:
+        chunk, upb, ocb = _tc_geometry(b, cin, cout, groups, plan, ntiles)
+        frag = _tc_fragments(dev)
+        y = torch.empty((chunk, b, cout, nb1, t2), device=dev, dtype=torch.complex64)
+    d = torch.empty((chunk, b, cin, nb1, t2), device=dev, dtype=torch.complex64)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         for tile0 in range(0, ntiles, chunk):
-            tiles = (v1, v2, nt2, tile0, min(chunk, ntiles - tile0), oh, ow, stream)
-            if frag is None:
+            tiles = (v1, v2, nt2, tile0, min(chunk, ntiles - tile0), oh, ow)
+            if mode == "highest":
                 err = lib.fused2d_forward(
                     x_padded.data_ptr(), spectra.data_ptr(), fac.data_ptr(), d.data_ptr(),
-                    out.data_ptr(), b, cin, cout, groups, hp, wp, t1, t2, *tiles)
+                    out.data_ptr(), b, cin, cout, groups, hp, wp, t1, t2, *tiles, stream)
             else:
                 err = lib.fused2d_forward_tc(
                     x_padded.data_ptr(), spectra.data_ptr(), frag.data_ptr(), fac.data_ptr(),
-                    d.data_ptr(), out.data_ptr(), b, cin, cout, groups, hp, wp, t1, t2,
-                    _TC_MODE[mode], *tiles)
+                    d.data_ptr(), y.data_ptr(), out.data_ptr(), b, cin, cout, groups, hp, wp,
+                    t1, t2, _TC_MODE[mode], *tiles, upb, ocb, stream)
             if err != 0:
                 msg = lib.fused2d_error_string(err).decode()
                 raise RuntimeError(f"fused2d kernel launch failed: {msg} (cudaError {err})")
-            if frag is None:
+            if mode == "highest":
                 launches += 1
             else:
                 launches_tc += 1
@@ -675,7 +727,7 @@ def _launch_fused2d_v3(
     device, under the tile plan ``plan``. Returns the valid correlation
     (B, Cout, OH, OW)."""
     global launches_v3
-    x_padded, spectra, oh, ow, nt2, ntiles, chunk = _check_launch(
+    x_padded, spectra, oh, ow, nt2, ntiles = _check_launch(
         x_padded, spectra, plan, groups, k, v3=True)
     b, cin, hp, wp = x_padded.shape
     cout = spectra.shape[0]
@@ -684,6 +736,7 @@ def _launch_fused2d_v3(
     lib = _library()
     fac = _device_factors(t1, t2, x_padded.device)
     out = torch.empty((b, cout, oh, ow), device=x_padded.device, dtype=torch.float32)
+    chunk = _tiles_per_launch(_scratch_bytes_per_tile(nb1, t2, b, cin), ntiles)
     # the stacked tile spectra [dr; di], as many bytes as B2's complex D
     d = torch.empty((chunk, b, cin, 2, nb1, t2), device=x_padded.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(x_padded.device).cuda_stream
@@ -708,9 +761,9 @@ def _fused2d_forward(
 ):
     """Valid correlation of ``x_padded`` with ``kernel`` under the schedule
     that ``set_fused2d_kernel`` chose and the precision mode that
-    ``set_fused2d_precision`` chose, both read at call time: the CUDA kernel
-    pair (B2's FP32 or tensor-core pair, or B5) for a CUDA tensor, its plain
-    version for a CPU one. "v3" under a bf16 mode raises ValueError on both
+    ``set_fused2d_precision`` chose, both read at call time: the CUDA
+    kernels (B2's FP32 pair or tensor-core route, or B5) for a CUDA tensor,
+    their plain version for a CPU one. "v3" under a bf16 mode raises ValueError on both
     devices: B5 has no tensor-core pair yet, and the call neither falls back
     to FP32 nor ignores the mode.
     ``spectra``: a plan's baked ``kernel_spectra_2d`` (B5 takes them as

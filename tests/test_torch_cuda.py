@@ -323,7 +323,7 @@ def test_2d_kernel_in_tile_ranges(cuda, monkeypatch):
 
 
 def _assert_bf16_2d_kernel_close(y, y_ref, y_exact):
-    """The bar of B2's "bf16" tensor-core pair against its plain version
+    """The bar of B2's "bf16" tensor-core route against its plain version
     ``y_ref``, with ``y_exact`` the result in float64: err_max < 2.5e-2·σ and
     err_mean < 2e-3·σ (σ = max(1, std(ref))), and the kernel's err_mean
     against ``y_exact`` within 1% of the plain version's. The two round the
@@ -350,7 +350,7 @@ def _assert_bf16_2d_kernel_close(y, y_ref, y_exact):
 
 
 def _assert_tc_2d_close(mode, y, x, k, groups=1):
-    """B2's tensor-core pair's output ``y`` against its plain version of
+    """B2's tensor-core route's output ``y`` against its plain version of
     ``mode`` on the CPU: "bf16x3" under the FP32 bar, "bf16" under
     ``_assert_bf16_2d_kernel_close``."""
     y_ref = fused2d._fused2d_forward_reference(x.cpu(), k.cpu(), groups, mode=mode).numpy()
@@ -374,12 +374,22 @@ def precision2d():
 @pytest.mark.parametrize("b,cin,cout,h,w,k1,k2,groups", FUSED2D + [
     (2, 8, 8, 512, 512, 16, 16, 1),    # the 2D benchmark rows
     (2, 8, 8, 512, 512, 34, 34, 1),
+    # the MAC stage's geometry (fused2d._tc_geometry): 2 output channels a
+    # group, one channel a group, B = 3 (75 units: the last MAC block holds
+    # 3 of 8), 24 -> 24 channels in 3 groups, 15 channels (4 channel chunks,
+    # 2 output-channel passes), 100 output channels (2 blocks of them)
+    (2, 6, 6, 300, 290, 16, 16, 3),
+    (2, 4, 4, 300, 290, 16, 16, 4),
+    (3, 8, 8, 512, 512, 16, 16, 1),
+    (2, 24, 24, 200, 210, 9, 9, 3),
+    (1, 15, 15, 200, 210, 9, 9, 1),
+    (1, 1, 100, 300, 290, 16, 16, 1),
 ])
 def test_tc_2d_kernel_matches_plain_version(cuda, mode, b, cin, cout, h, w, k1, k2, groups):
-    """B2's tensor-core pair against its plain version of the same mode at
-    every tile shape (128 x 128, 256 x 128, 384 x 128, 128 x 256) and the
-    benchmark rows: "bf16x3" under the FP32 bar, "bf16" under
-    ``_assert_bf16_2d_kernel_close``."""
+    """B2's tensor-core route against its plain version of the same mode at
+    every tile shape (128 x 128, 256 x 128, 384 x 128, 128 x 256), the
+    benchmark rows and the MAC stage's cases: "bf16x3" under the FP32 bar,
+    "bf16" under ``_assert_bf16_2d_kernel_close``."""
     x, k = _tensors(cuda, h + k2, (b, cin, h, w), (cout, cin // groups, k1, k2))
     k /= (cin // groups * k1 * k2) ** 0.5
     plan = fused2d.tile_plan_2d(k1, k2, cin // groups, cout)
@@ -393,15 +403,24 @@ def test_tc_2d_kernel_matches_plain_version(cuda, mode, b, cin, cout, h, w, k1, 
 
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
 def test_tc_2d_kernel_in_tile_ranges(cuda, monkeypatch, mode):
+    """A budget of two tiles of D is one tile of D and Y: the 12 tiles run
+    in 12 launches, and a budget under one tile still runs, a tile a
+    launch."""
     x, k = _tensors(cuda, 2, (2, 4, 400, 300), (4, 4, 16, 16))
     plan = fused2d.tile_plan_2d(16, 16, 4, 4)
-    monkeypatch.setattr(fused2d, "_SCRATCH_BUDGET",
-                        2 * fused2d._scratch_bytes_per_tile(plan[2], plan[3], 2, 4))
     spectra = fused2d.kernel_spectra_2d(k, plan[0], plan[2], plan[3])
-    before = fused2d.launches_tc
-    y = fused2d._launch_fused2d(x, spectra, plan, 1, (16, 16), mode)
-    assert fused2d.launches_tc - before > 1
-    _assert_tc_2d_close(mode, y, x, k)
+    for budget in (2 * fused2d._scratch_bytes_per_tile(plan[2], plan[3], 2, 4), 1):
+        monkeypatch.setattr(fused2d, "_SCRATCH_BUDGET", budget)
+        before = fused2d.launches_tc
+        y = fused2d._launch_fused2d(x, spectra, plan, 1, (16, 16), mode)
+        assert fused2d.launches_tc - before == 12
+        _assert_tc_2d_close(mode, y, x, k)
+
+
+def test_tc_2d_plane_bytes_match_kernel(cuda):
+    """The host's MAC-stage plane (``_TC_PLANE_BYTES``, which
+    ``_tc_geometry`` fills) is the kernel's own figure."""
+    assert fused2d._TC_PLANE_BYTES == fused2d._library().fused2d_tc_plane_bytes()
 
 
 def test_tc_2d_kernel_refuses_what_it_does_not_run(cuda, precision2d):
@@ -426,7 +445,7 @@ def test_tc_2d_kernel_refuses_what_it_does_not_run(cuda, precision2d):
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
 def test_tc_modes_route_every_2d_path_on_cuda(cuda, precision2d, mode):
     """Under a bf16 mode a CUDA tensor's 2D calls (``fft_conv`` under "auto",
-    a plan, the transposed route, ``FFTConv2d``) launch B2's tensor-core pair
+    a plan, the transposed route, ``FFTConv2d``) launch B2's tensor-core route
     and neither its FP32 pair nor B5, each within the mode's bar of the
     composed path; back under "highest" they launch the FP32 pair."""
     x, w, b = _tensors(cuda, 29, (2, 4, 200, 180), (4, 4, 9, 7), (4,))

@@ -3,7 +3,7 @@
 The JAX switch picks how the fused 2D kernel forms each DFT matrix product:
 FP32 ("highest"), three bf16 products of hi/lo splits ("bf16x3") or one
 ("bf16"). The port's switch picks B2's kernel pair: the FP32 pair, or the
-tensor-core pair whose DFT steps are bf16 products. On the CPU the wrapper
+tensor-core route whose DFT steps are bf16 products. On the CPU the wrapper
 runs that pair's plain version, which runs the pair's order (W first on
 packed rows) and rounds each product's operands where the kernels do; JAX
 runs its Pallas kernel in interpret mode (its "bf16x3" as the exact split
@@ -12,6 +12,8 @@ runs its Pallas kernel in interpret mode (its "bf16x3" as the exact split
 schedule. The tensor-core kernels themselves are tested on the card in
 ``test_torch_cuda.py``.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -140,7 +142,7 @@ def test_modes_are_told_apart(modes, seed, xs, ws, padding):
 
 @pytest.mark.parametrize("t1,t2", [(128, 128), (256, 128), (384, 128), (128, 256)])
 def test_tc_pipeline_is_exact_in_float64(t1, t2):
-    """The tensor-core pair's order (``_tc_spectra``: W first on packed
+    """The tensor-core route's order (``_tc_spectra``: W first on packed
     rows, the bins k and -k split into columns, the packed DC/Nyquist
     column, the conjugate fill; ``_tc_inverse``: the inverse W DFT, the
     Hermitian extension of column pairs) in float64 with FP32 products
@@ -309,7 +311,8 @@ def test_24_point_fragments_follow_the_mma_layout(inverse):
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
 def test_cost_analysis_records_the_mode(modes, mode):
     """Under a bf16 mode a fused 2D call records "B2_<mode>" with the
-    tensor-core count, three times the products under "bf16x3"; the bound
+    tensor-core count, three times the products under "bf16x3", and the
+    bytes of the route: the function's and the MAC stage's Y; the bound
     weighs the products at the bf16 rate."""
     x, w = (torch.from_numpy(a) for a in _arrays(11, (2, 4, 150, 140), (6, 4, 9, 9)))
     plan = fused2d.tile_plan_2d(9, 9, 4, 6)
@@ -321,7 +324,106 @@ def test_cost_analysis_records_the_mode(modes, mode):
     other = costs.fused2d_tc_work(2, 4, 6, 150, 140, 9, plan,
                                   "bf16" if mode == "bf16x3" else "bf16x3")
     assert products * (1 if mode == "bf16x3" else 3) == other[1] * (3 if mode == "bf16x3" else 1)
-    assert nbytes == costs.fused2d_work(2, 4, 6, 150, 140, 9, plan)[0] and rest == other[2]
+    # the inputs and output once, and the MAC stage's Y (2 x 2 tiles, B = 2,
+    # Cout = 6) written and read once
+    y_bytes = 2 * 2 * 2 * 6 * plan[2] * plan[3] * 8
+    assert nbytes == costs.fused2d_work(2, 4, 6, 150, 140, 9, plan)[0] + 2 * y_bytes
+    assert rest == other[2] and nbytes == other[0]
     ms, by = costs.bound(nbytes, rest, products)
     assert ms == max(nbytes / costs.HBM_BYTES_PER_S,
                      rest / costs.FP32_FLOPS_PER_S + products / costs.BF16_FLOPS_PER_S) * 1e3
+
+
+# (B, Cin, Cout, groups, H, W, K1, K2): shapes fused2d_fits admits, at the
+# 2D rows, every tile plan, groups down to one channel a group, a group of
+# more output channels than a MAC block holds, the largest spectra a plan
+# takes (Cout x Cin/g = 252 at 128 x 128), many tiles, and batches whose
+# D and Y of one tile top _SCRATCH_BUDGET (D alone fits)
+GEOMETRY = [
+    (2, 8, 8, 1, 512, 512, 16, 16),
+    (2, 8, 8, 1, 512, 512, 34, 34),
+    (3, 8, 8, 1, 512, 512, 16, 16),
+    (2, 6, 6, 3, 300, 290, 16, 16),
+    (2, 4, 4, 4, 300, 290, 16, 16),
+    (2, 24, 24, 3, 200, 210, 9, 9),
+    (1, 15, 15, 1, 200, 210, 9, 9),
+    (1, 1, 100, 1, 300, 290, 16, 16),
+    (1, 1, 252, 1, 200, 200, 5, 5),
+    (2, 8, 8, 1, 300, 280, 70, 5),
+    (1, 4, 4, 1, 420, 150, 200, 9),
+    (2, 4, 6, 2, 200, 300, 12, 100),
+    (1, 2, 2, 1, 4096, 4096, 16, 16),
+    (128, 15, 15, 1, 256, 256, 16, 16),
+    (200, 15, 15, 1, 256, 256, 16, 16),
+]
+
+
+def _mac_blocks(b, cin, cout, groups, plan, ntiles):
+    """The tensor-core route's launches as ``_launch_fused2d`` runs them:
+    for each tile range, each MAC block's (units, output channels) as the
+    kernel derives them from ``_tc_geometry`` (csrc/fused2d.cu:
+    fused2d_mac_tc's grid and its first lines). Returns (tiles a launch,
+    units a block, output channels a block, [(tile0, ntile, [(units,
+    output channels)])])."""
+    chunk, upb, ocb = fused2d._tc_geometry(b, cin, cout, groups, plan, ntiles)
+    og = cout // groups
+    noc = -(-og // ocb)
+    launches = []
+    for tile0 in range(0, ntiles, chunk):
+        ntile = min(chunk, ntiles - tile0)
+        units = ntile * b
+        blocks = []
+        for bx in range(-(-units // upb)):
+            for bz in range(groups * noc):
+                g, oc0 = bz // noc, bz % noc * ocb
+                us = range(bx * upb, min(bx * upb + upb, units))
+                blocks.append(([(tile0 + u // b, u % b) for u in us],
+                               [g * og + o for o in range(oc0, min(oc0 + ocb, og))]))
+        launches.append((tile0, ntile, blocks))
+    return chunk, upb, ocb, launches
+
+
+@pytest.mark.parametrize("budget", ["default", "four tiles of D"])
+@pytest.mark.parametrize("b,cin,cout,groups,h,w,k1,k2", GEOMETRY)
+def test_tc_launch_geometry_covers_every_admitted_shape(monkeypatch, budget, b, cin, cout,
+                                                        groups, h, w, k1, k2):
+    """The tensor-core route's launch geometry (``_tc_geometry``, the same
+    under "bf16x3" and "bf16") at shapes ``fused2d_fits`` admits: at least
+    one tile a launch; the launches' tile ranges cover each tile once and
+    their D and Y fit ``_SCRATCH_BUDGET`` unless a launch is one tile; the
+    MAC blocks of a launch cover each (tile, batch row, output channel)
+    once, each inside one group, with rows that fit the plane
+    (``_TC_PLANE_BYTES``) and a grid inside CUDA's limits."""
+    cpg = cin // groups
+    assert fused2d.fused2d_fits(k1, k2, cpg, cout, (h, w), cin_total=cin, batch=b)
+    plan = fused2d.tile_plan_2d(k1, k2, cpg, cout)
+    _, _, nb1, t2, _ = plan
+    if budget != "default":
+        monkeypatch.setattr(fused2d, "_SCRATCH_BUDGET",
+                            4 * fused2d._scratch_bytes_per_tile(nb1, t2, b, cin))
+    ntiles = math.prod(fused2d._tiling(plan, h, w, k1, k2)[2:])
+    chunk, upb, ocb, launches = _mac_blocks(b, cin, cout, groups, plan, ntiles)
+    assert chunk >= 1 and upb >= 1 and 1 <= ocb <= cout // groups
+    assert upb * ocb * t2 * 8 <= fused2d._TC_PLANE_BYTES
+    per_tile = fused2d._scratch_bytes_per_tile(nb1, t2, b, cin + cout)
+    assert chunk == 1 or chunk * per_tile <= fused2d._SCRATCH_BUDGET
+    tiles = [t for tile0, ntile, _ in launches for t in range(tile0, tile0 + ntile)]
+    assert tiles == list(range(ntiles))
+    og = cout // groups
+    for tile0, ntile, blocks in launches:
+        seen = [(t, bb, o) for units, outs in blocks for t, bb in units for o in outs]
+        assert sorted(seen) == [(t, bb, o) for t in range(tile0, tile0 + ntile)
+                                for bb in range(b) for o in range(cout)]
+        assert all(len({o // og for o in outs}) == 1 for _, outs in blocks)
+        assert -(-ntile * b // upb) < 2**31 and groups * -(-og // ocb) <= 65535
+
+
+def test_tc_geometry_fills_the_mac_blocks():
+    """At the 2D rows a MAC block holds all 8 output channels of the group
+    and 8 units (64 rows: one row group of the inverse W DFT for each of its
+    8 warps), the units dealt evenly: 50 units in 7 blocks of at most 8 at
+    K=16, 72 in 9 of 8 at K=34; D and Y of all 25 or 36 tiles in one
+    launch."""
+    for k, ntiles, upb in ((16, 25, 8), (34, 36, 8)):
+        plan = fused2d.tile_plan_2d(k, k, 8, 8)
+        assert fused2d._tc_geometry(2, 8, 8, 1, plan, ntiles) == (ntiles, upb, 8)
