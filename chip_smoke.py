@@ -41,7 +41,12 @@ its plain version at check_fused2d's cases and at the MAC stage's own
 channels), through the 2D main paths (``fft_conv``, a plan, the transposed
 call, ``FFTConv2d``) counted from zero, the modes' errors ordered, and the
 three modes timed at the 2D rows, each kernel apart; phase 2 fails if one of
-its 24 entry points spills or holds no HMMA. Phase 5e does the same for B3 and B4 under
+its 24 entry points spills or holds no HMMA. Phase 5d runs B5 the same way
+under ``set_fused2d_kernel("v3")``: its tensor-core route (B5's phase 1,
+B2's MAC stage without its W DFT, B5's inverse stage) at the same cases and
+main paths, with no other 2D kernel launched, timed beside B5 "highest" and
+B2's route; phase 2 fails if one of its 20 entry points spills, one of its
+16 DFT kernels holds no HMMA or its 4 MAC stages hold any. Phase 5e does the same for B3 and B4 under
 ``set_fused3d_precision("bf16x3")`` and ``("bf16")``, their tensor-core
 chains in ``csrc/fused3d.cu``: against their plain versions at the 3D rows
 and around them (dense and odd H, the stuffed transposed volumes, H = 256,
@@ -94,6 +99,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -377,8 +383,6 @@ def check_fused1d(torch, dev, inputs, mode="highest"):
 def ptxas_spills(log):
     """{function: (spill stores, spill loads)} in bytes, from nvcc's
     -Xptxas -v output."""
-    import re
-
     spills, fn = {}, None
     for ln in log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
@@ -395,8 +399,6 @@ def ptxas_registers(log):
     """{kernel: registers a thread} from nvcc's -Xptxas -v output, each
     kernel named by its mangled name from its identifier to its template
     arguments (e.g. fused3d_hw_forward_fILi64ELi2ELb0EE: <64, 2, false>)."""
-    import re
-
     regs, fn = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -412,7 +414,6 @@ def ptxas_registers(log):
 def sass_hmma(path):
     """{kernel: HMMA instructions} of each kernel in the library at path,
     from ``cuobjdump -sass``: the tensor-core products it issues."""
-    import re
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -572,10 +573,22 @@ def phase_precision(torch, dev, inputs, shapes):
     return out
 
 
-def check_fused2d_tc(torch, inputs, mode):
-    """B2's tensor-core route under ``mode`` ("bf16x3" or "bf16") against its
-    plain version of that mode (``_fused2d_forward_reference(...,
-    mode=)``) at check_fused2d's cases: the 2D rows (B2's inputs), groups=2,
+# fused2d's launch counters: B2's FP32 pair, B2's tensor-core route, B5's
+# FP32 pair, B5's tensor-core route
+COUNTERS_2D = ("launches", "launches_tc", "launches_v3", "launches_v3_tc")
+
+
+def counts_2d():
+    from fft_conv_tpu_torch.kernels import fused2d
+
+    return tuple(getattr(fused2d, c) for c in COUNTERS_2D)
+
+
+def check_fused2d_tc(torch, inputs, mode, v3=False):
+    """B2's tensor-core route (``v3``: B5's) under ``mode`` ("bf16x3" or
+    "bf16") against its plain version of that mode
+    (``_fused2d_forward_reference(..., mode=)``, or ``_v3``'s) at
+    check_fused2d's cases: the 2D rows (B2's inputs), groups=2,
     T1 = 256 (K1 = 70), T1 = 384 (K1 = 200), T2 = 256 (K2 = 100) alone and
     with groups=2, fft_conv2d_fused's stride, dilation and reflect padding,
     and the tiles split over several launches (D and Y counted); and at the
@@ -587,37 +600,47 @@ def check_fused2d_tc(torch, inputs, mode):
     -> 24 channels and one group fuses), Cin = Cout = 15 (4 channel chunks,
     2 output-channel passes) and Cin = 1, Cout = 100 (2 output-channel
     blocks). The extra cases draw from a generator of their own, so that
-    the phases after this one see the inputs they saw before it. "bf16x3"
-    under the FP32 bar, "bf16" under ``close_bf16_2d``. Returns the rows'
-    max abs errors."""
+    the phases after this one see the inputs they saw before it. The
+    kernels are random, so not symmetric: a D in another bin order than the
+    spectra's would show. "bf16x3" under the FP32 bar, "bf16" under
+    ``close_bf16_2d``. No other 2D kernel may launch. Returns the rows' max
+    abs errors."""
     from fft_conv_tpu_torch.kernels import fused2d
     from fft_conv_tpu_torch.ops import functional as F
 
-    name = f"B2 {mode}"
+    name = f"{'B5' if v3 else 'B2'} {mode}"
+    route = 3 if v3 else 1  # the route's counter in COUNTERS_2D
+    plain = fused2d._fused2d_forward_reference_v3 if v3 else fused2d._fused2d_forward_reference
+    launcher = fused2d._launch_fused2d_v3 if v3 else fused2d._launch_fused2d
     bars = (2.5e-2, 2e-3) if mode == "bf16" else (1.2e-4, 2e-5)
+
+    def rose(before):
+        launched = [now - was for now, was in zip(counts_2d(), before)]
+        check(all(n == 0 for i, n in enumerate(launched) if i != route),
+              f"{name}: launched {dict(zip(COUNTERS_2D, launched))}")
+        return launched[route]
 
     def close(y, x, wt, groups, what):
         """(max abs err, mean abs err, sigma, error ratio or None) of y
         against the plain version of ``mode`` on x and wt."""
-        y_ref = fused2d._fused2d_forward_reference(x, wt, groups, mode=mode)
+        y_ref = plain(x, wt, groups, mode=mode)
         if mode == "bf16x3":
             return (*close_scaled(y, y_ref, what), None)
-        exact = fused2d._fused2d_forward_reference(x.double(), wt.double(), groups)
+        exact = plain(x.double(), wt.double(), groups)
         return close_bf16_2d(y, y_ref, exact, what)
 
     def launch(x, wt, groups):
         cout, cpg, k1, k2 = wt.shape
         plan = fused2d.tile_plan_2d(k1, k2, cpg, cout)
         spectra = fused2d.kernel_spectra_2d(wt, plan[0], plan[2], plan[3])
-        return fused2d._launch_fused2d(x, spectra, plan, groups, (k1, k2), mode), plan
+        return launcher(x, spectra, plan, groups, (k1, k2), mode), plan
 
     def vs_plain(x, wt, groups, what):
-        before = fused2d.launches, fused2d.launches_tc
+        before = counts_2d()
         y, plan = launch(x, wt, groups)
         torch.cuda.synchronize()
-        launched = fused2d.launches - before[0], fused2d.launches_tc - before[1]
-        check(launched[0] == 0 and launched[1] >= 1,
-              f"{name} {what}: launched (FP32, tensor-core) {launched}")
+        launched = rose(before)
+        check(launched >= 1, f"{name} {what}: the route did not launch")
         mx, mean, sigma, ratio = close(y, x, wt, groups, f"{name} vs plain, {what}")
         b, cin, h, w = x.shape
         cout, _, k1, k2 = wt.shape
@@ -627,7 +650,7 @@ def check_fused2d_tc(torch, inputs, mode):
                           "plan": dict(zip(("T1", "V1", "NB1", "T2", "V2"), plan)),
                           "geometry": dict(zip(("tiles_a_launch", "units_a_mac_block",
                                                 "out_channels_a_mac_block"), geometry)),
-                          "launches": launched[1], "max_abs_err": mx, "mean_abs_err": mean,
+                          "launches": launched, "max_abs_err": mx, "mean_abs_err": mean,
                           "sigma": sigma, "bar_max": bars[0] * sigma,
                           "bar_mean": bars[1] * sigma, "err_ratio_vs_float64": ratio}))
         return mx
@@ -658,22 +681,25 @@ def check_fused2d_tc(torch, inputs, mode):
              "Cin=1, Cout=100: 2 output-channel blocks")
 
     kw = dict(padding=5, padding_mode="reflect", stride=(2, 3), dilation=2)
-    was = fused2d._PRECISION_2D
+    was = fused2d._PRECISION_2D, fused2d._KERNEL2D_VERSION
     try:
         fused2d.set_fused2d_precision(mode)
-        before = fused2d.launches_tc
+        fused2d.set_fused2d_kernel("v3" if v3 else "v2")
+        before = counts_2d()
         y = fused2d.fft_conv2d_fused(x, wt, bias, **kw)
-        check(fused2d.launches_tc == before + 1, f"{name}: fft_conv2d_fused did not launch it")
+        torch.cuda.synchronize()
+        check(rose(before) == 1, f"{name}: fft_conv2d_fused did not launch it")
     finally:
-        fused2d.set_fused2d_precision(was)
+        fused2d.set_fused2d_precision(was[0])
+        fused2d.set_fused2d_kernel(was[1])
     xp = F._pad_signal(x, (5, 5), "reflect")
     wd = F._dilate_kernel(wt, (2, 2))
-    y_ref = fused2d._fused2d_forward_reference(xp, wd, mode=mode)[:, :, ::2, ::3]
+    y_ref = plain(xp, wd, mode=mode)[:, :, ::2, ::3]
     y_out = y - bias.reshape(1, -1, 1, 1)
     if mode == "bf16x3":
         mx = close_scaled(y_out, y_ref, f"{name} stride/dilation/reflect")[0]
     else:
-        exact = fused2d._fused2d_forward_reference(xp.double(), wd.double())[:, :, ::2, ::3]
+        exact = plain(xp.double(), wd.double())[:, :, ::2, ::3]
         mx = close_bf16_2d(y_out, y_ref, exact, f"{name} stride/dilation/reflect")[0]
     print(json.dumps({"phase": "kernel_vs_plain", "kernel": name,
                       "case": "stride=(2, 3), dilation=2, reflect padding 5",
@@ -683,9 +709,9 @@ def check_fused2d_tc(torch, inputs, mode):
     try:
         # four tiles of D, two of D and Y
         fused2d._SCRATCH_BUDGET = 4 * fused2d._scratch_bytes_per_tile(plan[2], plan[3], 2, 8)
-        before = fused2d.launches_tc
+        before = counts_2d()
         y, _ = launch(x, wt, 1)
-        split = fused2d.launches_tc - before
+        split = rose(before)
     finally:
         fused2d._SCRATCH_BUDGET = budget
     check(split == 13, f"{name}: 25 tiles ran in {split} tile ranges, not 13 of 2")
@@ -696,16 +722,16 @@ def check_fused2d_tc(torch, inputs, mode):
     return errs
 
 
-def main_path_precision_2d(torch, inputs, mode):
-    """B2's main paths under ``set_fused2d_precision(mode)`` ("bf16x3" or
-    "bf16"), counted from zero: fft_conv(x, w, bias) (impl="auto") at the two
-    2D rows, a tier-1 plan of each (ops.plan_fft_conv), the transposed call
-    fft_conv_transpose(x, w, bias) on each row's signal, and FFTConv2d(8, 8,
-    16) forward. Each launches the tensor-core route once and neither B2's
-    FP32 pair nor B5, and is held to the composed path in float64: "bf16x3"
-    under the FP32 bar, "bf16" under the JAX package's serving bar (err_mean
-    < 5e-3 * sigma, err_max < 5e-2 * sigma). Returns the tensor-core
-    launches."""
+def main_path_precision_2d(torch, inputs, mode, v3=False):
+    """B2's main paths (``v3``: B5's, under set_fused2d_kernel("v3")) under
+    ``set_fused2d_precision(mode)`` ("bf16x3" or "bf16"), counted from zero:
+    fft_conv(x, w, bias) (impl="auto") at the two 2D rows, a tier-1 plan of
+    each (ops.plan_fft_conv), the transposed call fft_conv_transpose(x, w,
+    bias) on each row's signal, and FFTConv2d(8, 8, 16) forward. Each
+    launches the schedule's tensor-core route once and no other 2D kernel,
+    and is held to the composed path in float64: "bf16x3" under the FP32
+    bar, "bf16" under the JAX package's serving bar (err_mean < 5e-3 *
+    sigma, err_max < 5e-2 * sigma). Returns the tensor-core launches."""
     from fft_conv_tpu_torch import FFTConv2d, fft_conv, fft_conv_transpose
     from fft_conv_tpu_torch.kernels import fused2d
     from fft_conv_tpu_torch.ops import plan_fft_conv
@@ -722,21 +748,26 @@ def main_path_precision_2d(torch, inputs, mode):
                   f"sigma {sigma:.3f}")
         return mean / sigma, mx / sigma
 
+    route = 3 if v3 else 1  # the route's counter in COUNTERS_2D
+    want = tuple(int(i == route) for i in range(len(COUNTERS_2D)))
+    kernel = "B5" if v3 else "B2"
+
     def drive(fn, ref, what):
-        before = fused2d.launches, fused2d.launches_tc, fused2d.launches_v3
+        before = counts_2d()
         with torch.no_grad():
             y = fn()
         torch.cuda.synchronize()
-        rose = tuple(now - was for now, was in zip(
-            (fused2d.launches, fused2d.launches_tc, fused2d.launches_v3), before))
-        check(rose == (0, 1, 0), f"{what} under {mode!r} launched (FP32, tensor-core, B5) {rose}")
+        rose = tuple(now - was for now, was in zip(counts_2d(), before))
+        check(rose == want, f"{what} under {mode!r} launched {dict(zip(COUNTERS_2D, rose))}")
         mean, mx = held(y, ref(), what)
-        print(json.dumps({"phase": "main_path_precision", "mode": mode, "case": what,
-                          "launches_tc": rose[1], "err_mean_vs_float64": mean,
-                          "err_max_vs_float64": mx}))
+        print(json.dumps({"phase": "main_path_precision", "kernel": kernel, "mode": mode,
+                          "case": what, COUNTERS_2D[route]: rose[route],
+                          "err_mean_vs_float64": mean, "err_max_vs_float64": mx}))
 
     fused2d.set_fused2d_precision(mode)
-    fused2d.launches = fused2d.launches_tc = fused2d.launches_v3 = 0
+    fused2d.set_fused2d_kernel("v3" if v3 else "v2")
+    for counter in COUNTERS_2D:
+        setattr(fused2d, counter, 0)
     layer = FFTConv2d(8, 8, 16, device="cuda", generator=torch.Generator().manual_seed(0))
     for (b, cin, cout, h, w, k), (x, wt, bias, _) in zip(BENCH_SHAPES_2D, inputs):
         x64, w64, b64 = x.double(), wt.double(), bias.double()
@@ -752,29 +783,32 @@ def main_path_precision_2d(torch, inputs, mode):
                                              layer.bias.double(), impl="xla"),
           "FFTConv2d(8, 8, 16)")
     torch.cuda.synchronize()
-    check(fused2d.launches == 0 and fused2d.launches_v3 == 0,
-          f"B2's FP32 pair or B5 ran under {mode!r}")
-    return fused2d.launches_tc
+    launched = counts_2d()
+    fused2d.set_fused2d_kernel("v2")
+    check(all(n == 0 for i, n in enumerate(launched) if i != route),
+          f"another 2D kernel than {kernel}'s route ran under {mode!r}: {launched}")
+    return launched[route]
 
 
 def phase_precision_2d(torch, inputs, rows):
-    """Phase 5d: B2's precision modes, phase 5c's 2D counterpart. Under
-    "bf16x3" and "bf16" the tensor-core route against its plain version at
+    """Phase 5d: B2's and B5's precision modes, phase 5c's 2D counterpart.
+    Under "bf16x3" and "bf16" each schedule's tensor-core route (B2's, and
+    B5's under set_fused2d_kernel("v3")) against its plain version at
     check_fused2d's cases (check_fused2d_tc) and the main paths of
-    main_path_precision_2d (counted from zero); at the 2D rows the errors of
-    fft_conv under the three modes against the composed path in float64,
-    ordered "highest" < "bf16x3" < "bf16" with err_mean at least 4x and then
-    50x the one before (the CPU tests measure about 37x and 670x), "bf16"
-    inside the serving bar; then the three modes timed side by side at each
-    row: the kernels' device time and call latency, each kernel apart
-    (profiler: B2's two, or the tensor-core route's three: spectra_tc,
-    mac_tc, inverse_tc), fft_conv and the plan, the plain version, and the
-    bound
+    main_path_precision_2d (counted from zero); at the 2D rows, for each
+    schedule, the errors of fft_conv under the three modes against the
+    composed path in float64, ordered "highest" < "bf16x3" < "bf16" with
+    err_mean at least 4x and then 50x the one before (the CPU tests measure
+    about 37x and 670x), "bf16" inside the serving bar; then each schedule's
+    three modes timed side by side at each row: the kernels' device time and
+    call latency, each kernel apart (profiler: the FP32 pair's two, or the
+    tensor-core route's three: phase 1, the MAC stage, the inverse stage),
+    fft_conv and the plan, the plain version, and the bound
     (``costs.fused2d_work`` for "highest"; otherwise ``costs.mode_bound``,
-    the lesser of that and ``costs.fused2d_tc_work`` with the products at
-    the bf16 rate). "highest" is restored at the end.
-    Returns {mode: (launches, kernel-vs-plain errors, timing rows)} for the
-    bf16 modes."""
+    the lesser of that and ``costs.fused2d_tc_work`` of the route with the
+    products at the bf16 rate). "highest" and "v2" are restored at the end.
+    Returns {"B2_<mode>" or "B5_<mode>": (launches, kernel-vs-plain errors,
+    timing rows)} for the bf16 modes."""
     from fft_conv_tpu_torch import fft_conv
     from fft_conv_tpu_torch.kernels import fused2d
     from fft_conv_tpu_torch.kernels.costs import bound, fused2d_tc_work, fused2d_work, mode_bound
@@ -782,65 +816,81 @@ def phase_precision_2d(torch, inputs, rows):
 
     t0 = time.perf_counter()
     out = {}
+    schedules = (("B2", False), ("B5", True))
     try:
         for mode in fused2d.PRECISION_MODES[1:]:
-            fused2d.set_fused2d_precision("highest")
-            errs = check_fused2d_tc(torch, inputs, mode)
-            launched = main_path_precision_2d(torch, inputs, mode)
-            print(json.dumps({"phase": "main_path_counts", "kernels": "B2 tensor-core route",
-                              "mode": mode, "launches_tc": launched}))
-            out[mode] = (launched, errs, [])
-        for (b, cin, cout, h, w, k), (x, wt, bias, _) in zip(BENCH_SHAPES_2D, inputs):
-            ref = fft_conv(x.double(), wt.double(), bias.double(), impl="xla")
-            sigma = max(1.0, float(ref.std()))
-            order, worst = [], []
-            for mode in fused2d.PRECISION_MODES:
-                fused2d.set_fused2d_precision(mode)
-                err = (fft_conv(x, wt, bias).double() - ref).abs()
-                order.append(float(err.mean()) / sigma)
-                worst.append(float(err.max()) / sigma)
-            print(json.dumps({"phase": "precision_order", "kernel": "B2", "K": k,
-                              "err_mean_vs_float64": dict(zip(fused2d.PRECISION_MODES, order)),
-                              "err_max_vs_float64": dict(zip(fused2d.PRECISION_MODES, worst))}))
-            check(4 * order[0] < order[1] and 50 * order[1] < order[2],
-                  f"2D K={k}: the modes' errors against float64 are not ordered: {order}")
-            check(order[2] < 5e-3 and worst[2] < 5e-2,
-                  f"2D K={k}: 'bf16' past the serving bar: {order[2]}, {worst[2]}")
+            for name, v3 in schedules:
+                fused2d.set_fused2d_precision("highest")
+                errs = check_fused2d_tc(torch, inputs, mode, v3)
+                launched = main_path_precision_2d(torch, inputs, mode, v3)
+                print(json.dumps({"phase": "main_path_counts",
+                                  "kernels": f"{name} tensor-core route", "mode": mode,
+                                  COUNTERS_2D[3 if v3 else 1]: launched}))
+                out[f"{name}_{mode}"] = (launched, errs, [])
+        for name, v3 in schedules:
+            fused2d.set_fused2d_kernel("v3" if v3 else "v2")
+            for (b, cin, cout, h, w, k), (x, wt, bias, _) in zip(BENCH_SHAPES_2D, inputs):
+                ref = fft_conv(x.double(), wt.double(), bias.double(), impl="xla")
+                sigma = max(1.0, float(ref.std()))
+                order, worst = [], []
+                for mode in fused2d.PRECISION_MODES:
+                    fused2d.set_fused2d_precision(mode)
+                    err = (fft_conv(x, wt, bias).double() - ref).abs()
+                    order.append(float(err.mean()) / sigma)
+                    worst.append(float(err.max()) / sigma)
+                print(json.dumps({"phase": "precision_order", "kernel": name, "K": k,
+                                  "err_mean_vs_float64": dict(zip(fused2d.PRECISION_MODES, order)),
+                                  "err_max_vs_float64": dict(zip(fused2d.PRECISION_MODES, worst))}))
+                check(4 * order[0] < order[1] and 50 * order[1] < order[2],
+                      f"{name} 2D K={k}: the modes' errors against float64 are not ordered: "
+                      f"{order}")
+                check(order[2] < 5e-3 and worst[2] < 5e-2,
+                      f"{name} 2D K={k}: 'bf16' past the serving bar: {order[2]}, {worst[2]}")
         for (b, cin, cout, h, w, k), (x, wt, _, plan), base in zip(BENCH_SHAPES_2D, inputs, rows):
             t1, _, nb1, t2, _ = plan
             spectra = fused2d.kernel_spectra_2d(wt, t1, nb1, t2)
+            planes = fused2d._planes(spectra)
             planned = plan_fft_conv(wt, signal_spatial=(h, w))
-            for mode in fused2d.PRECISION_MODES:
-                fused2d.set_fused2d_precision(mode)
+            for name, v3 in schedules:
+                fused2d.set_fused2d_kernel("v3" if v3 else "v2")
+                plain = (fused2d._fused2d_forward_reference_v3 if v3
+                         else fused2d._fused2d_forward_reference)
+                for mode in fused2d.PRECISION_MODES:
+                    fused2d.set_fused2d_precision(mode)
 
-                def kernel():
-                    return fused2d._launch_fused2d(x, spectra, plan, 1, (k, k), mode)
+                    def kernel():
+                        if v3 and mode == "highest":
+                            return fused2d._launch_fused2d_v3(x, planes, plan, 1, (k, k))
+                        launch = fused2d._launch_fused2d_v3 if v3 else fused2d._launch_fused2d
+                        return launch(x, spectra, plan, 1, (k, k), mode)
 
-                def auto():
-                    return fft_conv(x, wt, impl="auto")
+                    def auto():
+                        return fft_conv(x, wt, impl="auto")
 
-                (nbytes, flops), bf16_flops = fused2d_work(b, cin, cout, h, w, k, plan), 0
-                bound_ms, bound_by = bound(nbytes, flops)
-                if mode != "highest":
-                    bound_ms, bound_by, (nbytes, flops, bf16_flops) = mode_bound(
-                        (nbytes, flops), fused2d_tc_work(b, cin, cout, h, w, k, plan, mode))
-                row = {
-                    "mode": mode, "K": k, "plan": list(plan),
-                    "ms": device_ms(kernel), "call_ms": call_ms(kernel),
-                    "phase_ms": phase_split_ms(torch, kernel, "fused2d_"),
-                    "auto_ms": device_ms(auto), "plan_ms": device_ms(lambda: planned(x)),
-                    "plain_ms": call_ms(
-                        lambda: fused2d._fused2d_forward_reference(x, wt, mode=mode)),
-                    "library_ms": base["library_ms"], "composed_ms": base["composed_ms"],
-                    "bytes": nbytes, "flops": flops, "bf16_flops": bf16_flops,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                }
-                if mode != "highest":
-                    out[mode][2].append({**row, "max_abs_err": out[mode][1][len(out[mode][2])]})
-                print(json.dumps({"phase": "timing_precision", "kernel": "B2", **row}))
-                torch.cuda.synchronize()
+                    (nbytes, flops), bf16_flops = fused2d_work(b, cin, cout, h, w, k, plan), 0
+                    bound_ms, bound_by = bound(nbytes, flops)
+                    if mode != "highest":
+                        bound_ms, bound_by, (nbytes, flops, bf16_flops) = mode_bound(
+                            (nbytes, flops),
+                            fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, v3=v3))
+                    row = {
+                        "mode": mode, "K": k, "plan": list(plan),
+                        "ms": device_ms(kernel), "call_ms": call_ms(kernel),
+                        "phase_ms": phase_split_ms(torch, kernel, "fused2d_"),
+                        "auto_ms": device_ms(auto), "plan_ms": device_ms(lambda: planned(x)),
+                        "plain_ms": call_ms(lambda: plain(x, wt, mode=mode)),
+                        "library_ms": base["library_ms"], "composed_ms": base["composed_ms"],
+                        "bytes": nbytes, "flops": flops, "bf16_flops": bf16_flops,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                    }
+                    if mode != "highest":
+                        entry = out[f"{name}_{mode}"]
+                        entry[2].append({**row, "max_abs_err": entry[1][len(entry[2])]})
+                    print(json.dumps({"phase": "timing_precision", "kernel": name, **row}))
+                    torch.cuda.synchronize()
     finally:
         fused2d.set_fused2d_precision("highest")
+        fused2d.set_fused2d_kernel("v2")
     print(json.dumps({"phase": "precision_2d", "seconds": time.perf_counter() - t0}))
     return out
 
@@ -3440,25 +3490,39 @@ def main() -> int:
                       "sass_hmma": hmma}))
     # B5: both phases at each of the four tile plans
     spills = {fn: v for fn, v in ptxas_spills(_build.build_logs["fused2d"]).items()
-              if "fused2d_v3_" in fn}
+              if "fused2d_v3_" in fn and "_tc" not in fn}
     check(len(spills) == 8 and not any(sum(v) for v in spills.values()),
           f"B5's 8 entry points spill registers or are missing: {spills}")
     print(json.dumps({"phase": "ptxas", "kernel": "B5", "spill_bytes": spills}))
     # B2's tensor-core route: phase 1, the MAC stage and the inverse stage at
     # each of the four tile plans under "bf16x3" and under "bf16", each
-    # holding HMMA instructions
+    # holding HMMA instructions; B5's: its phase 1 and inverse stage likewise,
+    # each holding HMMA instructions, and B2's MAC stage without its W DFT
+    # (MODE 0) at each plan, which holds none
+    def b5_mac(fn):
+        return re.search(r"fused2d_mac_tcILi\d+ELi\d+ELi0E", fn) is not None
+
+    def route(fn):
+        return "B5" if "fused2d_v3_" in fn or b5_mac(fn) else "B2"
+
     spills = {fn: v for fn, v in ptxas_spills(_build.build_logs["fused2d"]).items()
               if "fused2d_" in fn and "_tc" in fn}
-    check(len(spills) == 24 and not any(sum(v) for v in spills.values()),
-          f"B2's 24 tensor-core entry points spill registers or are missing: {spills}")
     hmma = {fn: c for fn, c in sass_hmma(paths["fused2d"]).items()
             if "fused2d_" in fn and "_tc" in fn}
-    check(sorted(hmma) == sorted(spills) and all(c > 0 for c in hmma.values()),
-          f"B2's tensor-core entry points lack HMMA instructions: {hmma}")
-    print(json.dumps({"phase": "ptxas", "kernel": "B2 tensor-core route", "spill_bytes": spills,
-                      "registers": {fn: r for fn, r in ptxas_registers(
-                          _build.build_logs["fused2d"]).items() if "_tc" in fn},
-                      "sass_hmma": hmma}))
+    regs = {fn: r for fn, r in ptxas_registers(_build.build_logs["fused2d"]).items()
+            if "_tc" in fn}
+    for name, count in (("B2", 24), ("B5", 20)):
+        mine = {fn: v for fn, v in spills.items() if route(fn) == name}
+        check(len(mine) == count and not any(sum(v) for v in mine.values()),
+              f"{name}'s {count} tensor-core entry points spill registers or are missing: {mine}")
+        counts = {fn: c for fn, c in hmma.items() if route(fn) == name}
+        check(sorted(counts) == sorted(mine)
+              and all((c == 0) == b5_mac(fn) for fn, c in counts.items()),
+              f"{name}'s tensor-core entry points lack HMMA instructions: {counts}")
+        print(json.dumps({"phase": "ptxas", "kernel": f"{name} tensor-core route",
+                          "spill_bytes": mine,
+                          "registers": {fn: r for fn, r in regs.items() if route(fn) == name},
+                          "sass_hmma": counts}))
     # B3, B4 and B6: every entry point of fused3d.cu (the dense H/W kernels
     # at SB = 4, 2, 1, direct and packed; the factored ones built for H = 16,
     # 32, 64, 128 and the one that takes any split, direct and packed; the D
@@ -3651,9 +3715,11 @@ def main() -> int:
                      "fft_conv_tpu/kernels/fused1d.py:291", *precision[mode])
         for mode in fused1d.PRECISION_MODES[1:]
     ] + [
-        kernel_entry(f"B2_fused2d_{mode}", "fft_conv_tpu_torch/kernels/csrc/fused2d.cu",
-                     "fft_conv_tpu/kernels/fused2d.py:308", *precision2d[mode])
+        kernel_entry(f"{name}_{mode}", "fft_conv_tpu_torch/kernels/csrc/fused2d.cu",
+                     replaces, *precision2d[f"{name[:2]}_{mode}"])
         for mode in fused1d.PRECISION_MODES[1:]
+        for name, replaces in (("B2_fused2d", "fft_conv_tpu/kernels/fused2d.py:308"),
+                               ("B5_fused2d_v3", "fft_conv_tpu/kernels/fused2d.py:419"))
     ] + [
         kernel_entry(f"{name}_{mode}", "fft_conv_tpu_torch/kernels/csrc/fused3d.cu",
                      replaces, *precision3d[mode][i])

@@ -432,11 +432,12 @@ def fused2d_work(b, cin, cout, h, w, k, plan, groups=1):
     return nbytes, b * flops
 
 
-def fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups=1):
+def fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups=1, v3=False):
     """(bytes, product flops, FP32 flops) of B2's tensor-core route under
     ``mode`` ("bf16x3" or "bf16") for one call, over whole T1 x T2 tiles, as
     the kernels run it (csrc/fused2d.cu: fused2d_spectra_tc, fused2d_mac_tc,
-    fused2d_inverse_tc).
+    fused2d_inverse_tc), or with ``v3`` of B5's (fused2d_v3_spectra_tc, the
+    MAC stage, fused2d_v3_inverse_tc).
 
     Bytes: fused2d_work's, plus the MAC stage's Y (tiles, B, Cout, NB1, T2)
     complex64, written once by the MAC stage and read once by the inverse
@@ -451,7 +452,15 @@ def fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups=1):
     other than 1), the split of the W bins of two packed rows (4 per H
     input), the DC/Nyquist column split (8 per bin), the MAC, the Hermitian
     extension (2 per H input) and the output scale (1 per sample of the V1
-    rows)."""
+    rows).
+
+    B5's route, the same bytes: per tile and input channel the H DFT of the
+    T2/2 packed columns and the W DFT of the NB1 rows, per tile and output
+    channel the folded H inverse of T2/2 column pairs onto all T1 rows and
+    the W c2r of the ceil(V1/2) row pairs; FP32: the twiddles, the split of
+    the bins k and -k of a packed column (4 per one-sided value), the MAC,
+    the means at bins 0 and T1/2 (4 per column pair), the Hermitian
+    extension of the row pairs (2 per W input) and the output scale."""
     t1, v1, nb1, t2, v2 = plan
     k1, k2 = _ks(k, 2)
     tiles = -(-(h - k1 + 1) // v1) * -(-(w - k2 + 1) // v2)
@@ -466,11 +475,19 @@ def fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups=1):
         return 6 * (a - 1) * bb
 
     n1, n2 = t1 // 2, t2 // 2
-    fwd = n1 * products(t2) + n2 * products(t1)
-    inv = nb1 * products(t2) + n2 * products(t1)
-    fwd32 = n1 * twiddles(t2) + n2 * twiddles(t1) + 4 * t1 * n2 + 8 * nb1
-    inv32 = (8 * (cin // groups) * nb1 * t2 + nb1 * twiddles(t2) + n2 * twiddles(t1)
-             + 2 * t1 * n2 + v1 * t2)
+    mac = 8 * (cin // groups) * nb1 * t2
+    if v3:
+        pairs = -(-v1 // 2)
+        fwd = n2 * products(t1) + nb1 * products(t2)
+        inv = n2 * products(t1) + pairs * products(t2)
+        fwd32 = n2 * twiddles(t1) + nb1 * twiddles(t2) + 4 * t1 * n2
+        inv32 = (mac + n2 * twiddles(t1) + pairs * twiddles(t2) + 8 * n2 + 2 * pairs * t2
+                 + v1 * t2)
+    else:
+        fwd = n1 * products(t2) + n2 * products(t1)
+        inv = nb1 * products(t2) + n2 * products(t1)
+        fwd32 = n1 * twiddles(t2) + n2 * twiddles(t1) + 4 * t1 * n2 + 8 * nb1
+        inv32 = mac + nb1 * twiddles(t2) + n2 * twiddles(t1) + 2 * t1 * n2 + v1 * t2
     calls = b * tiles
     y_bytes = 8 * calls * cout * nb1 * t2
     nbytes = fused2d_work(b, cin, cout, h, w, k, plan, groups)[0] + 2 * y_bytes
@@ -481,14 +498,15 @@ def fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups=1):
 def fused2d_record(b, cin, cout, h, w, k, plan, groups, mode, v3=False):
     """The ``record`` of one 2D fused call under precision ``mode``: "B2"
     (or "B5" under "v3") with the FP32 pair's count under "highest",
-    "B2_bf16x3" or "B2_bf16" with the tensor-core route's (product and FP32
-    flops together, Y's bytes counted) otherwise."""
+    "B2_bf16x3" or "B2_bf16" ("B5_bf16x3", "B5_bf16") with the tensor-core
+    route's (product and FP32 flops together, Y's bytes counted) otherwise."""
     shape = (b, cin, cout, h, w, k, plan, groups)
+    name = "B5" if v3 else "B2"
     if mode == "highest":
         flops = fused2d_v3_kernel_flops if v3 else fused2d_kernel_flops
-        return record("B5" if v3 else "B2", flops(*shape), fused2d_work(*shape)[0])
-    nbytes, products, rest = fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups)
-    return record(f"B2_{mode}", products + rest, nbytes)
+        return record(name, flops(*shape), fused2d_work(*shape)[0])
+    nbytes, products, rest = fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups, v3)
+    return record(f"{name}_{mode}", products + rest, nbytes)
 
 
 def fused2d_kernel_flops(b, cin, cout, h, w, k, plan, groups=1):

@@ -138,6 +138,40 @@
 // microseconds at the card's FP32 rate. The step lanes are placed for 16
 // distinct bank pairs a load or store at T2 = 128 (the row groups' j2 and
 // m1 pairs, stg, the H steps' vector order).
+//
+// B5's tensor-core modes (the same switch under set_fused2d_kernel("v3"),
+// replacing fft_conv_tpu/kernels/fused2d.py:419, _make_kernel_2d_v3, whose
+// _dot products at :456-458 and :473-477 take the mode): a route of three
+// kernels a tile range behind fused2d_v3_forward_tc, on B2's route's
+// pieces in B5's order, with the same D, Y, fragments and geometry.
+//   phase 1, fused2d_v3_spectra_tc, grid (B * Cin, tiles): the window by
+//     4-byte cp.async, columns q and q + T2/2 as one complex column, laid
+//     out (v3_win) in the slots that the column's bins take after its H DFT
+//     (v3_bin), so that each warp's H DFT (hstep_tiles) writes over what only
+//     it reads and the window needs no buffer of its own (at T1 = 384 the
+//     plane and the staging fill the block); the FP32 split of bins k and -k
+//     (v3_split, as fused2d_v3_spectra); the W DFT of the NB1 rows
+//     (row_dft_tc, bin k2 at tc_col(k2)); D out in natural bin order, B2's
+//     D, which the MAC stage reads against natural-order spectra;
+//   MAC stage, fused2d_mac_tc<T1, T2, 0>: B2's, without the inverse W DFT
+//     (B5's inverse runs H first, on every bin row, which a MAC block does
+//     not hold): Y's rows in natural bin order, the plane image as before;
+//   inverse stage, fused2d_v3_inverse_tc, grid (B * Cout, tiles): Y in by
+//     16-byte cp.async; the folded H inverse of fused2d_v3_mac_inverse
+//     (folded_s: columns 0 and T2/2 share one transform, the imaginary parts
+//     of their bins 0 and T1/2 dropped), each warp owning its column pairs
+//     through both steps, h written over the pairs' own columns
+//     (folded_slot); then the W c2r of the V1 rows, R row pairs a chunk
+//     through the staging (c2r_in: E_2p + i E_2p+1, E_2p+1 zero past an odd
+//     V1), row_dft_tc, and the two output rows stored with 1/(T1 T2), the
+//     1/T1 left for the output so that no bf16 operand is rounded after a
+//     division by T1 = 384.
+// What bounds it, by count as B2's route: shared memory in phase 1 and the
+// inverse stage, bytes through L2 in the MAC stage. Two costs of B5's order
+// that B2's route does not pay, not traced: phase 1's W DFT takes NB1 rows,
+// a ninth row group at T1 = 128 that one warp runs alone, and the W c2r
+// runs R row pairs a chunk (32 at T1 = T2 = 128) behind block barriers,
+// since the plane holds h and the staging no more rows. Times in PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -530,6 +564,38 @@ cudaError_t launch(const float* x, const float2* ks, const float2* fac, float2* 
 
 // ---- Kernel B5: B2's factored transforms on the v3 schedule -------------------
 
+// Where bin k1 of packed column q (columns q and q + T2/2 of a window as one
+// complex column Z) lies in B5's plane after the H DFT: bins k and -k side by
+// side in one row, bin k1 < T1/2 at row k1 of column q, k1 > T1/2 at row
+// T1 - k1 of column q + T2/2, k1 = T1/2 at row 0 of column q + T2/2.
+template <int T1, int T2>
+__device__ __forceinline__ int v3_bin(int k1, int q) {
+  constexpr int N1 = T1 / 2, N2 = T2 / 2;
+  return k1 < N1 ? sw<T2>(k1, q) : sw<T2>(k1 == N1 ? 0 : T1 - k1, q + N2);
+}
+
+// Splits each packed column's bins (v3_bin) into its two columns' one-sided
+// bins, in place, by all the block's threads (no barrier):
+// X_q[k] = (Z[k] + conj Z[-k]) / 2, X_q+T2/2[k] = (Z[k] - conj Z[-k]) / 2i;
+// row 0 holds Z[0] and Z[T1/2], where both columns are real.
+template <int T1, int T2>
+__device__ __forceinline__ void v3_split(float2* s_p) {
+  constexpr int N1 = T1 / 2, N2 = T2 / 2;
+  for (int i = threadIdx.x; i < N1 * N2; i += kThreads) {
+    const int k = i / N2, q = i % N2;
+    const float2 a = s_p[sw<T2>(k, q)], b = s_p[sw<T2>(k, q + N2)];
+    if (k == 0) {
+      s_p[sw<T2>(0, q)] = make_float2(a.x, 0.f);
+      s_p[sw<T2>(0, q + N2)] = make_float2(a.y, 0.f);
+      s_p[sw<T2>(N1, q)] = make_float2(b.x, 0.f);
+      s_p[sw<T2>(N1, q + N2)] = make_float2(b.y, 0.f);
+    } else {
+      s_p[sw<T2>(k, q)] = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
+      s_p[sw<T2>(k, q + N2)] = make_float2(0.5f * (a.y + b.y), 0.5f * (b.x - a.x));
+    }
+  }
+}
+
 // Phase 1 of B5: the window's tile spectra, H first. Writes D as B2's D in
 // split planes [dr; di] (tiles of this launch, B * Cin, 2, NB1, T2).
 template <int T1, int T2>
@@ -539,7 +605,7 @@ fused2d_v3_spectra(const float* __restrict__ x,    // (B, Cin, hp, wp)
                    float* __restrict__ d,           // (tiles of this launch, B * Cin, 2, NB1, T2)
                    int hp, int wp, int v1, int v2, int nt2, int tile0) {
   using P = B2Plan<T1, T2>;
-  constexpr int A1 = P::kA1, B1 = P::kB1, G = P::kG, N1 = T1 / 2, N2 = T2 / 2;
+  constexpr int A1 = P::kA1, B1 = P::kB1, G = P::kG, N2 = T2 / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const B2Smem<T1, T2, false> s(smem_raw, fac);
   float2* s_p = s.plane;
@@ -580,30 +646,12 @@ fused2d_v3_spectra(const float* __restrict__ x,    // (B, Cin, hp, wp)
       for (int j2 = 0; j2 < B1; ++j2) u[j2] = s.stage[(m1 * B1 + j2) * G + g];
       short_dft<B1, false>(u, s.rb1);
 #pragma unroll
-      for (int m2 = 0; m2 < B1; ++m2) {
-        const int k1 = m1 + A1 * m2;
-        s_p[k1 < N1 ? sw<T2>(k1, q) : sw<T2>(k1 == N1 ? 0 : T1 - k1, q + N2)] = u[m2];
-      }
+      for (int m2 = 0; m2 < B1; ++m2) s_p[v3_bin<T1, T2>(m1 + A1 * m2, q)] = u[m2];
     }
     __syncthreads();  // the staging is read before the next pass overwrites it
   }
 
-  // split each Z into its two columns' one-sided bins, in place:
-  // X_q[k] = (Z[k] + conj Z[-k]) / 2, X_q+T2/2[k] = (Z[k] - conj Z[-k]) / 2i;
-  // row 0 holds Z[0] and Z[T1/2], where both columns are real
-  for (int i = tid; i < N1 * N2; i += kThreads) {
-    const int k = i / N2, q = i % N2;
-    const float2 a = s_p[sw<T2>(k, q)], b = s_p[sw<T2>(k, q + N2)];
-    if (k == 0) {
-      s_p[sw<T2>(0, q)] = make_float2(a.x, 0.f);
-      s_p[sw<T2>(0, q + N2)] = make_float2(a.y, 0.f);
-      s_p[sw<T2>(N1, q)] = make_float2(b.x, 0.f);
-      s_p[sw<T2>(N1, q + N2)] = make_float2(b.y, 0.f);
-    } else {
-      s_p[sw<T2>(k, q)] = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
-      s_p[sw<T2>(k, q + N2)] = make_float2(0.5f * (a.y + b.y), 0.5f * (b.x - a.x));
-    }
-  }
+  v3_split<T1, T2>(s_p);
   __syncthreads();
 
   // W DFT of the NB1 rows in place, then D out as its re and im planes
@@ -629,15 +677,62 @@ __device__ __forceinline__ void cmac4(float4& yr, float4& yi, float4 dr, float4 
   yi.w = fmaf(dr.w, ki.w, fmaf(di.w, kr.w, yi.w));
 }
 
-// h[n, l] of the folded H inverse, l in [0, T2/2]: row n of column l for
-// n < NB1, else row n - NB1 of column T2 - l; columns 0 and T2/2 share their
-// slots as the real and imaginary parts of one value (in column 0, then T2/2)
+// Element k of the spectrum S whose T1-point inverse DFT is T1 h[., l] in the
+// folded H inverse of column pair (l, T2 - l), l in [0, T2/2), read from Y
+// in the plane: S[k] = Y[k, l], S[-k] = conj Y[k, -l] (0 < k < T1/2) and the
+// mean of the two at k = 0 and T1/2; for l = 0 the real columns 0 and T2/2
+// as one, S_0 + i S_T2/2 (both S Hermitian).
+template <int T1, int T2>
+__device__ __forceinline__ float2 folded_s(const float2* s_p, int k, int l) {
+  constexpr int N1 = T1 / 2, N2 = T2 / 2;
+  const int m = l == 0 ? N2 : T2 - l, kk = k <= N1 ? k : T1 - k;
+  const bool mid = k == 0 || k == N1;
+  if (l == 0) {
+    const float2 a = s_p[sw<T2>(kk, 0)], e = s_p[sw<T2>(kk, N2)];
+    return mid ? make_float2(a.x, e.x)
+               : k < N1 ? make_float2(a.x - e.y, a.y + e.x) : make_float2(a.x + e.y, e.x - a.y);
+  }
+  if (mid) {
+    const float2 a = s_p[sw<T2>(kk, l)], e = s_p[sw<T2>(kk, m)];
+    return make_float2(0.5f * (a.x + e.x), 0.5f * (a.y - e.y));
+  }
+  if (k < N1) return s_p[sw<T2>(kk, l)];
+  const float2 e = s_p[sw<T2>(kk, m)];
+  return make_float2(e.x, -e.y);
+}
+
+// The slot of h[n, l] of the folded H inverse, l in [0, T2/2): row n of
+// column l for n < NB1, else row n - NB1 of column T2 - l (T2/2 for l = 0),
+// the slots of the pair's own columns, so that a pass writes over what only
+// it reads.
+template <int T1, int T2>
+__device__ __forceinline__ int folded_slot(int n, int l) {
+  constexpr int NB1 = T1 / 2 + 1, N2 = T2 / 2;
+  return n < NB1 ? sw<T2>(n, l) : sw<T2>(n - NB1, l == 0 ? N2 : T2 - l);
+}
+
+// h[n, l] of the folded H inverse, l in [0, T2/2] (folded_slot); columns 0
+// and T2/2 share their slots as the real and imaginary parts of one value
 template <int T1, int T2>
 __device__ __forceinline__ float2 folded_h(const float2* s_p, int n, int l) {
-  constexpr int NB1 = T1 / 2 + 1, N2 = T2 / 2;
-  const int c = l == N2 ? 0 : l, m = c == 0 ? N2 : T2 - c;
-  const float2 z = n < NB1 ? s_p[sw<T2>(n, c)] : s_p[sw<T2>(n - NB1, m)];
+  constexpr int N2 = T2 / 2;
+  const int c = l == N2 ? 0 : l;
+  const float2 z = s_p[folded_slot<T1, T2>(n, c)];
   return c != 0 ? z : make_float2(l == 0 ? z.x : z.y, 0.f);
+}
+
+// Element c of the W c2r input of rows r and r + 1 of h: E_r + i E_r+1, E
+// the Hermitian extension of a row of h (folded_h), E_r+1 = 0 where row
+// r + 1 is past the valid rows (two false). The real and imaginary parts of
+// its inverse DFT are the two output rows.
+template <int T1, int T2>
+__device__ __forceinline__ float2 c2r_in(const float2* s_p, int r, bool two, int c) {
+  constexpr int N2 = T2 / 2;
+  const int l = c <= N2 ? c : T2 - c;
+  const float2 e0 = folded_h<T1, T2>(s_p, r, l);
+  const float2 e1 = two ? folded_h<T1, T2>(s_p, r + 1, l) : make_float2(0.f, 0.f);
+  return c <= N2 ? make_float2(e0.x - e1.y, e0.y + e1.x)   // E0 + i E1
+                 : make_float2(e0.x + e1.y, e1.x - e0.y);  // conj(E0) + i conj(E1)
 }
 
 // Phase 2 of B5: the MAC, then the v3 inverse, H first and folded.
@@ -650,8 +745,7 @@ fused2d_v3_mac_inverse(const float* __restrict__ d,    // (tiles of this launch,
                        int batch, int cin, int cout, int groups, int v1, int v2, int nt2,
                        int tile0, int oh, int ow) {
   using P = B2Plan<T1, T2>;
-  constexpr int A1 = P::kA1, B1 = P::kB1, A2 = P::kA2, B2 = P::kB2, G = P::kG;
-  constexpr int N1 = T1 / 2, N2 = T2 / 2, NB1 = P::kNB1;
+  constexpr int A1 = P::kA1, B1 = P::kB1, A2 = P::kA2, B2 = P::kB2, G = P::kG, N2 = T2 / 2;
   // row pairs of one W chunk: a power of two, at least A2, whose T2-point
   // transforms fit the staging
   constexpr int R = P::kStage / T2 >= 64 ? 64 : P::kStage / T2 >= 32 ? 32 : 16;
@@ -696,27 +790,10 @@ fused2d_v3_mac_inverse(const float* __restrict__ d,    // (tiles of this launch,
   // into them (folded_h); the 1/T1 is left for the output.
   for (int c0 = 0; c0 < N2; c0 += G) {
     for (int t = tid; t < G * B1; t += kThreads) {
-      const int g = t % G, j2 = t / G, l = c0 + g, m = l == 0 ? N2 : T2 - l;
+      const int g = t % G, j2 = t / G, l = c0 + g;
       float2 v[A1];
 #pragma unroll
-      for (int j1 = 0; j1 < A1; ++j1) {
-        const int k = j1 * B1 + j2, kk = k <= N1 ? k : T1 - k;
-        const bool mid = k == 0 || k == N1;
-        if (l == 0) {  // S_0 + i S_T2/2; both S are Hermitian
-          const float2 a = s_p[sw<T2>(kk, 0)], e = s_p[sw<T2>(kk, N2)];
-          v[j1] = mid ? make_float2(a.x, e.x)
-                      : k < N1 ? make_float2(a.x - e.y, a.y + e.x)
-                               : make_float2(a.x + e.y, e.x - a.y);
-        } else if (mid) {
-          const float2 a = s_p[sw<T2>(kk, l)], e = s_p[sw<T2>(kk, m)];
-          v[j1] = make_float2(0.5f * (a.x + e.x), 0.5f * (a.y - e.y));
-        } else if (k < N1) {
-          v[j1] = s_p[sw<T2>(kk, l)];
-        } else {
-          const float2 e = s_p[sw<T2>(kk, m)];
-          v[j1] = make_float2(e.x, -e.y);
-        }
-      }
+      for (int j1 = 0; j1 < A1; ++j1) v[j1] = folded_s<T1, T2>(s_p, j1 * B1 + j2, l);
       short_dft<A1, true>(v, s.ra1);
 #pragma unroll
       for (int m1 = 0; m1 < A1; ++m1)
@@ -725,7 +802,7 @@ fused2d_v3_mac_inverse(const float* __restrict__ d,    // (tiles of this launch,
     }
     __syncthreads();
     for (int t = tid; t < G * A1; t += kThreads) {
-      const int g = t % G, m1 = t / G, l = c0 + g, m = l == 0 ? N2 : T2 - l;
+      const int g = t % G, m1 = t / G, l = c0 + g;
       float2 u[B1];
 #pragma unroll
       for (int j2 = 0; j2 < B1; ++j2) u[j2] = s.stage[(m1 * B1 + j2) * G + g];
@@ -733,7 +810,7 @@ fused2d_v3_mac_inverse(const float* __restrict__ d,    // (tiles of this launch,
 #pragma unroll
       for (int m2 = 0; m2 < B1; ++m2) {
         const int n = m1 + A1 * m2;
-        if (n < v1) s_p[n < NB1 ? sw<T2>(n, l) : sw<T2>(n - NB1, m)] = u[m2];
+        if (n < v1) s_p[folded_slot<T1, T2>(n, l)] = u[m2];
       }
     }
     __syncthreads();  // the staging is read before the next pass overwrites it
@@ -754,13 +831,7 @@ fused2d_v3_mac_inverse(const float* __restrict__ d,    // (tiles of this launch,
       const bool two = r + 1 < v1;
       float2 v[A2];
 #pragma unroll
-      for (int j1 = 0; j1 < A2; ++j1) {
-        const int c = j1 * B2 + j2, l = c <= N2 ? c : T2 - c;
-        const float2 e0 = folded_h<T1, T2>(s_p, r, l);
-        const float2 e1 = two ? folded_h<T1, T2>(s_p, r + 1, l) : make_float2(0.f, 0.f);
-        v[j1] = c <= N2 ? make_float2(e0.x - e1.y, e0.y + e1.x)   // E0 + i E1
-                        : make_float2(e0.x + e1.y, e1.x - e0.y);  // conj(E0) + i conj(E1)
-      }
+      for (int j1 = 0; j1 < A2; ++j1) v[j1] = c2r_in<T1, T2>(s_p, r, two, j1 * B2 + j2);
       short_dft<A2, true>(v, s.ra2);
 #pragma unroll
       for (int m1 = 0; m1 < A2; ++m1)
@@ -1073,7 +1144,9 @@ fused2d_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
 // its column and their kMacOJ output channels each; the sums stay in the
 // plane between chunks. Then the inverse W DFT of every row
 // (row_dft_tc), and Y out as the inverse stage's plane image (row k1,
-// samples in tc_col order, swizzled as sw swizzles row k1).
+// samples in tc_col order, swizzled as sw swizzles row k1). MODE 0 is B5's
+// route, whose inverse runs H first in its own stage: no W DFT here, Y's
+// row k1 out in natural bin order (the same image of it), and no DFT step.
 template <int T1, int T2, int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
 fused2d_mac_tc(const float2* __restrict__ d,        // (units of this launch, Cin, NB1, T2)
@@ -1163,8 +1236,10 @@ fused2d_mac_tc(const float2* __restrict__ d,        // (units of this launch, Ci
 
   // inverse W DFT of the block's rows in place, sample n at tc_col(n)
   const int rows = nu * oc;
-  row_dft_tc<T2, X3, true>(s_p, rows, frag, tw);
-  __syncthreads();
+  if constexpr (MODE != 0) {
+    row_dft_tc<T2, X3, true>(s_p, rows, frag, tw);
+    __syncthreads();
+  }
   const int sh = k1 & 15;
   for (int i = tid; i < rows * T2; i += kThreads) {
     const int r = i / T2, p = i % T2;
@@ -1235,13 +1310,159 @@ fused2d_inverse_tc(const float2* __restrict__ y,       // (units of this launch,
   }
 }
 
+// ---- B5's tensor-core route (the modes "bf16x3" and "bf16") ------------------
+
+// Where sample h of packed column q (columns q and q + T2/2 of the window as
+// one complex column) lies in phase 1's plane: rows h and h + T1/2 at row
+// h % (T1/2) of columns q and q + T2/2, the slots that the column's bins take
+// after its H DFT (v3_bin), so that the DFT writes over what only it reads.
+template <int T1, int T2>
+__device__ __forceinline__ int v3_win(int h, int q) {
+  return sw<T2>(h % (T1 / 2), h < T1 / 2 ? q : q + T2 / 2);
+}
+
+// Phase 1 of B5's tensor-core route (MODE 3: "bf16x3", 1: "bf16"):
+// fused2d_v3_spectra's function, every DFT step a bf16 product, D out as B2's
+// (complex, natural bin order) for the MAC stage.
 template <int T1, int T2, int MODE>
+__global__ void __launch_bounds__(kThreads, B2Plan<T1, T2>::kMinBlocks)
+fused2d_v3_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
+                      const uint32_t* __restrict__ frag,  // fused2d.py: _tc_fragments
+                      const float2* __restrict__ fac,     // factors, fused2d.py: _device_factors
+                      float2* __restrict__ d,             // (tiles of this launch, B * Cin, NB1, T2)
+                      int hp, int wp, int v1, int v2, int nt2, int tile0) {
+  using P = B2Plan<T1, T2>;
+  constexpr bool X3 = MODE == 3;
+  constexpr int A1 = P::kA1, B1 = P::kB1, A2 = P::kA2, B2 = P::kB2, G = P::kG, N2 = T2 / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const B2Smem<T1, T2, false> s(smem_raw, fac);
+  float2* s_p = s.plane;
+
+  const int tid = threadIdx.x;
+  const int tile = tile0 + blockIdx.y;
+  const int h0 = (tile / nt2) * v1, w0 = (tile % nt2) * v2;
+  const float* xs = x + (int64_t)blockIdx.x * hp * wp;
+
+  // the window by cp.async, sample (h, c) the real (c < T2/2) or imaginary
+  // part of packed column c % (T2/2) at v3_win (zeros past the edge)
+  for (int i = tid; i < T1 * T2; i += kThreads) {
+    const int c = i % T2, h = i / T2, hr = h0 + h, wc = w0 + c;
+    const bool in = hr < hp && wc < wp;
+    cp_async4(reinterpret_cast<float*>(s_p + v3_win<T1, T2>(h, c % N2)) + c / N2,
+              in ? xs + (int64_t)hr * wp + wc : xs, in ? 4 : 0);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // H DFT of the packed columns, G a pass, each warp owning CW of them
+  // through both steps (hstep_tiles), its bins written over its own samples
+  // (v3_bin); then the split into one-sided columns and the W DFT of the
+  // NB1 rows, bin k2 at tc_col(k2)
+  for (int c0 = 0; c0 < N2; c0 += G)
+    hstep_tiles<T1, X3, false>(
+        s.stage, frag,
+        [&](int m, int j1) { return s_p[v3_win<T1, T2>(j1 * B1 + m % B1, c0 + m / B1)]; },
+        s.tw1,
+        [&](int c, int m1, int m2, float2 v) { s_p[v3_bin<T1, T2>(m1 + A1 * m2, c0 + c)] = v; });
+  __syncthreads();
+  v3_split<T1, T2>(s_p);
+  __syncthreads();
+  row_dft_tc<T2, X3, false>(s_p, P::kNB1, frag, s.tw2);
+  __syncthreads();
+
+  // D in natural order: plane column p = m1 B2 + m2 holds bin m1 + A2 m2;
+  // lanes read consecutive columns and write whole 32-byte sectors of D
+  float2* dout = d + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * P::kPlane;
+  for (int i = tid; i < P::kPlane; i += kThreads) {
+    const int k1 = i / T2, p = i % T2;
+    dout[k1 * T2 + p / B2 + A2 * (p % B2)] = s_p[sw<T2>(k1, p)];
+  }
+}
+
+// The inverse stage of B5's tensor-core route, grid (B * Cout, tiles of this
+// launch): the MAC stage's Y of one (b, o, tile) (MODE 0's natural order)
+// into the plane by 16-byte cp.async; the folded H inverse of
+// fused2d_v3_mac_inverse, a pass of G column pairs through the staging, each
+// warp owning CW of them through both steps (hstep_tiles), h written over
+// the pairs' own columns (folded_slot); then the W c2r of the V1 rows, R row
+// pairs a chunk: E_2p + i E_2p+1 (c2r_in) into rows of the staging, their
+// inverse DFT (row_dft_tc, sample z at tc_col(z)), the two output rows
+// stored with 1/(T1 T2).
+template <int T1, int T2, int MODE>
+__global__ void __launch_bounds__(kThreads, B2Plan<T1, T2>::kMinBlocks)
+fused2d_v3_inverse_tc(const float2* __restrict__ y,       // (units of this launch, Cout, NB1, T2)
+                      const uint32_t* __restrict__ frag,  // fused2d.py: _tc_fragments
+                      const float2* __restrict__ fac,     // factors, fused2d.py: _device_factors
+                      float* __restrict__ out,            // (B, Cout, oh, ow)
+                      int v1, int v2, int nt2, int tile0, int oh, int ow) {
+  using P = B2Plan<T1, T2>;
+  constexpr bool X3 = MODE == 3;
+  constexpr int A1 = P::kA1, B1 = P::kB1, A2 = P::kA2, B2 = P::kB2, G = P::kG, N2 = T2 / 2;
+  // row pairs of one W chunk: the whole row groups that the staging holds
+  constexpr int R = P::kStage / T2 / kRowGroup * kRowGroup;
+  static_assert(R >= kRowGroup, "the W chunk does not fit the staging");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const B2Smem<T1, T2, false> s(smem_raw, fac);
+  float2* s_p = s.plane;
+
+  const int tid = threadIdx.x;
+  const int tile = tile0 + blockIdx.y;
+  const int h0 = (tile / nt2) * v1, w0 = (tile % nt2) * v2;
+  const float2* yp = y + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * P::kPlane;
+  for (int i = tid; i < P::kPlane / 2; i += kThreads) cp_async16(s_p + 2 * i, yp + 2 * i);
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int c0 = 0; c0 < N2; c0 += G)
+    hstep_tiles<T1, X3, true>(
+        s.stage, frag,
+        [&](int m, int j1) { return folded_s<T1, T2>(s_p, j1 * B1 + m % B1, c0 + m / B1); },
+        s.tw1,
+        [&](int c, int m1, int m2, float2 v) {
+          const int n = m1 + A1 * m2;
+          if (n < v1) s_p[folded_slot<T1, T2>(n, c0 + c)] = v;
+        });
+  __syncthreads();
+
+  const float scale = 1.f / (float)(T1 * T2);
+  float* oplane = out + (int64_t)blockIdx.x * oh * ow;
+  const int npair = (v1 + 1) / 2;
+  for (int p0 = 0; p0 < npair; p0 += R) {
+    const int rows = min(R, npair - p0);
+    for (int i = tid; i < rows * T2; i += kThreads) {
+      const int pr = i / T2, c = i % T2, r = 2 * (p0 + pr);
+      s.stage[sw<T2>(pr, c)] = c2r_in<T1, T2>(s_p, r, r + 1 < v1, c);
+    }
+    __syncthreads();
+    row_dft_tc<T2, X3, true>(s.stage, rows, frag, s.tw2);
+    __syncthreads();
+    // column p = m1 B2 + m2 holds sample z = m1 + A2 m2
+    for (int i = tid; i < rows * T2; i += kThreads) {
+      const int pr = i / T2, p = i % T2, z = p / B2 + A2 * (p % B2);
+      const int r = 2 * (p0 + pr), oy = h0 + r, ox = w0 + z;
+      if (z < v2 && ox < ow && oy < oh) {
+        const float2 v = s.stage[sw<T2>(pr, p)];
+        float* row = oplane + (int64_t)oy * ow + ox;
+        row[0] = v.x * scale;
+        if (r + 1 < v1 && oy + 1 < oh) row[ow] = v.y * scale;
+      }
+    }
+    __syncthreads();  // the staging is read before the next chunk overwrites it
+  }
+}
+
+// B2's tensor-core route, or with V3 B5's: phase 1, the MAC stage (MODE 0
+// for B5: no W DFT) and the inverse stage of each.
+template <int T1, int T2, int MODE, bool V3>
 cudaError_t launch_tc(const float* x, const float2* ks, const uint32_t* frag, const float2* fac,
                       float2* d, float2* y, float* out, int batch, int cin, int cout, int groups,
                       int hp, int wp, int v1, int v2, int nt2, int tile0, int ntile, int oh,
                       int ow, int upb, int ocb, cudaStream_t stream) {
   using P = B2Plan<T1, T2>;
-  constexpr size_t smem = P::kSmem;
+  constexpr size_t smem = V3 ? P::kSmemV3 : P::kSmem;
+  const auto spectra = V3 ? fused2d_v3_spectra_tc<T1, T2, MODE> : fused2d_spectra_tc<T1, T2, MODE>;
+  const auto mac = fused2d_mac_tc<T1, T2, V3 ? 0 : MODE>;
+  const auto inverse = V3 ? fused2d_v3_inverse_tc<T1, T2, MODE> : fused2d_inverse_tc<T1, T2, MODE>;
   // the MAC stage's plane, twiddle and D rings
   constexpr size_t mac_ring = sizeof(float2) * (T2 + kMacStages * kMacKC * T2);
   constexpr size_t mac_smem = kMacPlaneBytes + mac_ring;
@@ -1250,32 +1471,29 @@ cudaError_t launch_tc(const float* x, const float2* ks, const uint32_t* frag, co
       (int64_t)upb * ocb * T2 * (int64_t)sizeof(float2) > kMacPlaneBytes)
     return cudaErrorInvalidValue;
   const int units = ntile * batch, og = cout / groups;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused2d_spectra_tc<T1, T2, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(spectra, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fused2d_mac_tc<T1, T2, MODE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)mac_smem);
+  err = cudaFuncSetAttribute(mac, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)mac_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fused2d_inverse_tc<T1, T2, MODE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(inverse, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
 
-  fused2d_spectra_tc<T1, T2, MODE><<<dim3(batch * cin, ntile), kThreads, smem, stream>>>(
-      x, frag, fac, d, hp, wp, v1, v2, nt2, tile0);
+  spectra<<<dim3(batch * cin, ntile), kThreads, smem, stream>>>(x, frag, fac, d, hp, wp, v1, v2,
+                                                                nt2, tile0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 mac_grid((units + upb - 1) / upb, P::kNB1, groups * ((og + ocb - 1) / ocb));
-  fused2d_mac_tc<T1, T2, MODE><<<mac_grid, kThreads,
-                                 sizeof(float2) * (size_t)upb * ocb * T2 + mac_ring, stream>>>(
+  mac<<<mac_grid, kThreads, sizeof(float2) * (size_t)upb * ocb * T2 + mac_ring, stream>>>(
       d, ks, frag, fac, y, units, cin, cout, groups, upb, ocb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fused2d_inverse_tc<T1, T2, MODE><<<dim3(batch * cout, ntile), kThreads, smem, stream>>>(
-      y, frag, fac, out, v1, v2, nt2, tile0, oh, ow);
+  inverse<<<dim3(batch * cout, ntile), kThreads, smem, stream>>>(y, frag, fac, out, v1, v2, nt2,
+                                                                 tile0, oh, ow);
   return cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, bool V3>
 cudaError_t launch_tc_plan(int t1, int t2, const float* x, const float2* ks,
                            const uint32_t* frag, const float2* fac, float2* d, float2* y,
                            float* out, int batch, int cin, int cout, int groups, int hp, int wp,
@@ -1283,8 +1501,9 @@ cudaError_t launch_tc_plan(int t1, int t2, const float* x, const float2* ks,
                            int ocb, cudaStream_t stream) {
 #define FUSED2D_TC_LAUNCH(T1, T2)                                                            \
   if (t1 == T1 && t2 == T2)                                                                  \
-    return launch_tc<T1, T2, MODE>(x, ks, frag, fac, d, y, out, batch, cin, cout, groups, hp, \
-                                   wp, v1, v2, nt2, tile0, ntile, oh, ow, upb, ocb, stream);
+    return launch_tc<T1, T2, MODE, V3>(x, ks, frag, fac, d, y, out, batch, cin, cout, groups, \
+                                       hp, wp, v1, v2, nt2, tile0, ntile, oh, ow, upb, ocb,     \
+                                       stream);
   FUSED2D_TC_LAUNCH(128, 128)
   FUSED2D_TC_LAUNCH(256, 128)
   FUSED2D_TC_LAUNCH(384, 128)
@@ -1331,11 +1550,13 @@ extern "C" int fused2d_forward(const void* x, const void* ks, const void* fac, v
 // fused2d_tc_plane_bytes(); the other arguments as fused2d_forward's.
 // Returns cudaGetLastError() after the three launches (0 when all were
 // accepted).
-extern "C" int fused2d_forward_tc(const void* x, const void* ks, const void* frag,
-                                  const void* fac, void* d, void* y, void* out, int batch,
-                                  int cin, int cout, int groups, int hp, int wp, int t1, int t2,
-                                  int mode, int v1, int v2, int nt2, int tile0, int ntile, int oh,
-                                  int ow, int upb, int ocb, void* stream) {
+namespace {
+
+template <bool V3>
+int forward_tc(const void* x, const void* ks, const void* frag, const void* fac, void* d,
+               void* y, void* out, int batch, int cin, int cout, int groups, int hp, int wp,
+               int t1, int t2, int mode, int v1, int v2, int nt2, int tile0, int ntile, int oh,
+               int ow, int upb, int ocb, void* stream) {
   const auto* xf = static_cast<const float*>(x);
   const auto* ksc = static_cast<const float2*>(ks);
   const auto* fr = static_cast<const uint32_t*>(frag);
@@ -1345,12 +1566,36 @@ extern "C" int fused2d_forward_tc(const void* x, const void* ks, const void* fra
   auto* of = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (mode == 3)
-    return launch_tc_plan<3>(t1, t2, xf, ksc, fr, fc, dc, yc, of, batch, cin, cout, groups, hp,
-                             wp, v1, v2, nt2, tile0, ntile, oh, ow, upb, ocb, s);
+    return launch_tc_plan<3, V3>(t1, t2, xf, ksc, fr, fc, dc, yc, of, batch, cin, cout, groups,
+                                 hp, wp, v1, v2, nt2, tile0, ntile, oh, ow, upb, ocb, s);
   if (mode == 1)
-    return launch_tc_plan<1>(t1, t2, xf, ksc, fr, fc, dc, yc, of, batch, cin, cout, groups, hp,
-                             wp, v1, v2, nt2, tile0, ntile, oh, ow, upb, ocb, s);
+    return launch_tc_plan<1, V3>(t1, t2, xf, ksc, fr, fc, dc, yc, of, batch, cin, cout, groups,
+                                 hp, wp, v1, v2, nt2, tile0, ntile, oh, ow, upb, ocb, s);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int fused2d_forward_tc(const void* x, const void* ks, const void* frag,
+                                  const void* fac, void* d, void* y, void* out, int batch,
+                                  int cin, int cout, int groups, int hp, int wp, int t1, int t2,
+                                  int mode, int v1, int v2, int nt2, int tile0, int ntile, int oh,
+                                  int ow, int upb, int ocb, void* stream) {
+  return forward_tc<false>(x, ks, frag, fac, d, y, out, batch, cin, cout, groups, hp, wp, t1, t2,
+                           mode, v1, v2, nt2, tile0, ntile, oh, ow, upb, ocb, stream);
+}
+
+// Kernel B5 under a tensor-core mode: its tensor-core route, with arguments
+// as fused2d_forward_tc's (ks the complex spectra, d and y complex scratch
+// of the same shapes; upb and ocb from fused2d.py: _tc_geometry). Returns
+// cudaGetLastError() after the three launches (0 when all were accepted).
+extern "C" int fused2d_v3_forward_tc(const void* x, const void* ks, const void* frag,
+                                     const void* fac, void* d, void* y, void* out, int batch,
+                                     int cin, int cout, int groups, int hp, int wp, int t1,
+                                     int t2, int mode, int v1, int v2, int nt2, int tile0,
+                                     int ntile, int oh, int ow, int upb, int ocb, void* stream) {
+  return forward_tc<true>(x, ks, frag, fac, d, y, out, batch, cin, cout, groups, hp, wp, t1, t2,
+                          mode, v1, v2, nt2, tile0, ntile, oh, ow, upb, ocb, stream);
 }
 
 // The bytes of the tensor-core route's MAC-stage plane, which bound its

@@ -52,8 +52,17 @@ plain version of the route (``_tc_spectra``, ``_tc_inverse``) rounds where
 B2's pair did: B2's kernel order, W first on packed rows, so that it rounds
 the same operands. A launch takes as many tiles as ``_SCRATCH_BUDGET``
 holds of D and Y, and at least one, so the route runs every shape that
-``fused2d_fits`` admits. B5 has no tensor-core route yet: "v3" under a
-bf16 mode raises.
+``fused2d_fits`` admits.
+
+Under "v3" the bf16 modes run B5's tensor-core route (``fused2d_v3_forward_tc``,
+replacing ``fft_conv_tpu/kernels/fused2d.py:419``): the same three stages in
+B5's order. Phase 1 stages the window by cp.async, runs the H DFT of the
+packed column pairs and the W DFT of the NB1 rows, and writes B2's D; the
+MAC stage is B2's without its inverse W DFT (Y in natural bin order, the same
+scratch and geometry); the inverse stage runs the folded H-first inverse and
+then the W c2r on row pairs. Its plain version is
+``_fused2d_forward_reference_v3(..., mode=)``, ``_v3_forward`` and
+``_v3_inverse`` with the mode's products.
 
 Not ported from the JAX module: the TPU's MAC-mode and prefetch switches.
 """
@@ -105,13 +114,14 @@ _TC_PLANE_BYTES = 64 * 1024
 # Launches since import or the last reset, one a tile range: ``launches``
 # counts B2's FP32 pair (phase 1 + phase 2), ``launches_tc`` its tensor-core
 # route (the modes "bf16x3" and "bf16": phase 1, the MAC stage and the
-# inverse stage), ``launches_v3`` B5. The plain versions on CPU tensors do
-# not count.
+# inverse stage), ``launches_v3`` B5's FP32 pair, ``launches_v3_tc`` B5's
+# tensor-core route. The plain versions on CPU tensors do not count.
 launches = 0
 launches_tc = 0
 launches_v3 = 0
+launches_v3_tc = 0
 
-# How B2 forms its DFT products (set_fused2d_precision), one of
+# How B2 and B5 form their DFT products (set_fused2d_precision), one of
 # PRECISION_MODES, the 1D kernel's modes: "highest" FP32, "bf16x3" three bf16
 # products of hi/lo splits (lo.lo dropped), "bf16" one. The twiddles, the
 # splits of packed pairs, the MAC and the scale are FP32 in every mode.
@@ -132,15 +142,15 @@ def set_fused2d_kernel(version: str) -> None:
 
 
 def set_fused2d_precision(mode: str) -> None:
-    """Selects how the fused 2D kernel B2 forms its DFT products, read at
-    every 2D call: "highest" (FP32, B2's FP32 pair), "bf16x3" (bf16
-    tensor-core products of hi/lo splits, three a product, near FP32) or
-    "bf16" (one bf16 product, an opt-in serving mode outside the FP32 bar).
-    Any other name raises ValueError. Independent of the 1D and 3D kernels'
+    """Selects how the fused 2D kernels B2 and B5 form their DFT products,
+    read at every 2D call: "highest" (FP32, the schedule's FP32 pair),
+    "bf16x3" (bf16 tensor-core products of hi/lo splits, three a product,
+    near FP32) or "bf16" (one bf16 product, an opt-in serving mode outside
+    the FP32 bar), the latter two on the schedule's tensor-core route. Any
+    other name raises ValueError. Independent of the 1D and 3D kernels'
     switches. The port of the JAX package's ``set_fused2d_precision``
     (``fft_conv_tpu/kernels/fused2d.py:60``), whose default is "bf16x3";
-    this one's is "highest". The "v3" schedule (B5) runs only under
-    "highest" for now: a 2D call under "v3" and a bf16 mode raises."""
+    this one's is "highest"."""
     global _PRECISION_2D
     if mode not in PRECISION_MODES:
         raise ValueError(f"unknown fused precision mode: {mode!r}")
@@ -400,23 +410,26 @@ def _mats_2d_v3(t1: int, nb1: int, t2: int, v1: int, dtype=np.float32):
     return tuple(np.ascontiguousarray(m, dtype) for m in out)
 
 
-def _v3_forward(a: torch.Tensor):
+def _v3_forward(a: torch.Tensor, dot=None):
     """B5's tile spectra of real windows (..., T1, T2), H first: columns q
     and q + T2/2 packed as one complex column Z, its T1-point DFT, bins k
     and -k split into the two columns' one-sided spectra (X_q = (Z[k] +
     conj Z[-k]) / 2, X_q+T2/2 = (Z[k] - conj Z[-k]) / 2i), then the W DFT
-    of the NB1 rows. Returns (dr, di) (..., NB1, T2): B2's D."""
+    of the NB1 rows. ``dot``: each DFT product of a tensor-core mode
+    (``fused1d._DOTS``), None for FP32; the split stays FP32. Returns
+    (dr, di) (..., NB1, T2): B2's D."""
     t1, t2 = a.shape[-2:]
     nb1, n2 = t1 // 2 + 1, t2 // 2
-    zr, zi = _dft_last(a[..., :n2].transpose(-1, -2), a[..., n2:].transpose(-1, -2), False)
+    zr, zi = _dft_last(a[..., :n2].transpose(-1, -2), a[..., n2:].transpose(-1, -2), False,
+                       dot)
     neg = -torch.arange(nb1, device=a.device) % t1
     ar, ai, br, bi = zr[..., :nb1], zi[..., :nb1], zr[..., neg], zi[..., neg]
     hr = torch.cat([ar + br, ai + bi], dim=-2) / 2  # (..., T2, NB1): columns q, then q + T2/2
     hi = torch.cat([ai - bi, br - ar], dim=-2) / 2
-    return _dft_last(hr.transpose(-1, -2), hi.transpose(-1, -2), False)
+    return _dft_last(hr.transpose(-1, -2), hi.transpose(-1, -2), False, dot)
 
 
-def _v3_inverse(yr: torch.Tensor, yi: torch.Tensor, v1: int) -> torch.Tensor:
+def _v3_inverse(yr: torch.Tensor, yi: torch.Tensor, v1: int, dot=None) -> torch.Tensor:
     """B5's inverse of the tile spectra (..., NB1, T2): the V1 valid rows
     (..., V1, T2) of the tile, real. H first and folded: the output is
     Re(IDFT_W(z)) for z = C Y (C the one-sided H inverse), which needs only
@@ -425,7 +438,11 @@ def _v3_inverse(yr: torch.Tensor, yi: torch.Tensor, v1: int) -> torch.Tensor:
     Y[k, l], S[-k] = conj Y[k, -l] (0 < k < T1/2) and the mean of the two
     at k = 0 and T1/2. The real columns 0 and T2/2 share one transform as
     S_0 + i S_T2/2. Then the W c2r of the rows of h: rows 2p and 2p + 1 as
-    one complex inverse of their Hermitian extensions."""
+    one complex inverse of their Hermitian extensions. The 1/T1 is left for
+    the output, 1/(T1 T2) in one product, as the kernels leave it: at T1 =
+    384 a division by T1 before the c2r would round its bf16 operands
+    otherwise. ``dot`` as ``_v3_forward``'s, for the products of both
+    DFTs."""
     nb1, t2 = yr.shape[-2:]
     t1, n1, n2 = 2 * (nb1 - 1), nb1 - 1, t2 // 2
     cols = torch.arange(n2 + 1, device=yr.device)
@@ -438,8 +455,8 @@ def _v3_inverse(yr: torch.Tensor, yi: torch.Tensor, v1: int) -> torch.Tensor:
                     -bi[..., 1:n1, :].flip(-2)], dim=-2)
     pr = torch.cat([sr[..., :1] - si[..., n2:], sr[..., 1:n2]], dim=-1)  # (..., T1, T2/2)
     pi = torch.cat([si[..., :1] + sr[..., n2:], si[..., 1:n2]], dim=-1)
-    hr, hi = _dft_last(pr.transpose(-1, -2), pi.transpose(-1, -2), True)  # (..., T2/2, T1)
-    hr, hi = hr[..., :v1] / t1, hi[..., :v1] / t1
+    hr, hi = _dft_last(pr.transpose(-1, -2), pi.transpose(-1, -2), True, dot)  # (..., T2/2, T1)
+    hr, hi = hr[..., :v1], hi[..., :v1]
     zero = torch.zeros_like(hr[..., :1, :])
     hr = torch.cat([hr, hi[..., :1, :]], dim=-2).transpose(-1, -2)  # (..., V1, T2/2 + 1)
     hi = torch.cat([zero, hi[..., 1:, :], zero], dim=-2).transpose(-1, -2)
@@ -448,9 +465,9 @@ def _v3_inverse(yr: torch.Tensor, yi: torch.Tensor, v1: int) -> torch.Tensor:
     er = torch.cat([hr, hr[..., 1:n2].flip(-1)], dim=-1)  # Hermitian extensions (..., ·, T2)
     ei = torch.cat([hi, -hi[..., 1:n2].flip(-1)], dim=-1)
     outr, outi = _dft_last(er[..., 0::2, :] - ei[..., 1::2, :],
-                           ei[..., 0::2, :] + er[..., 1::2, :], True)
+                           ei[..., 0::2, :] + er[..., 1::2, :], True, dot)
     out = torch.stack([outr, outi], dim=-2).flatten(-3, -2)
-    return out[..., :v1, :] / t2
+    return out[..., :v1, :] * (1.0 / (t1 * t2))
 
 
 def kernel_spectra_2d(kernel: torch.Tensor, t1: int, nb1: int, t2: int) -> torch.Tensor:
@@ -563,17 +580,23 @@ def _fused2d_forward_reference(
 
 def _fused2d_forward_reference_v3(
     x_padded: torch.Tensor, kernel: torch.Tensor, groups: int = 1,
-    spectra: Optional[torch.Tensor] = None,
+    spectra: Optional[torch.Tensor] = None, mode: str = "highest",
 ) -> torch.Tensor:
     """B5's plain PyTorch version: the v3 schedule with B5's factors, float64
     for a float64 signal and float32 otherwise. The H-first forward on
     packed column pairs, then W (``_v3_forward``); B2's MAC; the folded
     H-first inverse and the W c2r on row pairs (``_v3_inverse``), every DFT
-    through ``_dft_last`` in split re/im arithmetic. Arguments and result as
+    through ``_dft_last`` in split re/im arithmetic. The order is both B5's
+    FP32 pair's and its tensor-core route's, so under "bf16x3" and "bf16"
+    each DFT product rounds its operands to bfloat16 where the route does
+    (``fused1d._DOTS``). Arguments and result as
     ``_fused2d_forward_reference``."""
+    if mode not in PRECISION_MODES:
+        raise ValueError(f"unknown fused precision mode: {mode!r}")
+    dot = _DOTS[mode]
     plan, dt, a = _reference_tiles(x_padded, kernel)
-    yr, yi = _reference_mac(*_v3_forward(a), kernel, groups, plan, dt, spectra)
-    return _reference_stitch(_v3_inverse(yr, yi, plan[1]), x_padded, kernel, plan)
+    yr, yi = _reference_mac(*_v3_forward(a, dot), kernel, groups, plan, dt, spectra)
+    return _reference_stitch(_v3_inverse(yr, yi, plan[1], dot), x_padded, kernel, plan)
 
 
 def _library() -> ctypes.CDLL:
@@ -592,6 +615,8 @@ def _library() -> ctypes.CDLL:
         lib.fused2d_smem_bytes.restype = ctypes.c_longlong
         lib.fused2d_v3_forward.argtypes = [p] * 5 + [i] * 15 + [p]
         lib.fused2d_v3_forward.restype = i
+        lib.fused2d_v3_forward_tc.argtypes = [p] * 7 + [i] * 18 + [p]
+        lib.fused2d_v3_forward_tc.restype = i
         lib.fused2d_v3_smem_bytes.argtypes = [i, i]
         lib.fused2d_v3_smem_bytes.restype = ctypes.c_longlong
     return lib
@@ -666,18 +691,22 @@ def _tc_geometry(b: int, cin: int, cout: int, groups: int, plan, ntiles: int):
 
 def _launch_fused2d(
     x_padded: torch.Tensor, spectra: torch.Tensor, plan, groups: int, k: Tuple[int, int],
-    mode: str = "highest",
+    mode: str = "highest", v3: bool = False,
 ) -> torch.Tensor:
     """Runs the CUDA kernels of ``mode`` on ``x_padded`` (B, Cin, Hp, Wp)
     float32 with the conjugated spectra (Cout, Cin/g, NB1, T2) complex64 of
     a (K1, K2) kernel, both on one CUDA device, under the tile plan ``plan``:
     B2's FP32 pair under "highest" (counted in ``launches``), its
     tensor-core route under "bf16x3" and "bf16" (three kernels a tile range,
-    counted in ``launches_tc``; geometry ``_tc_geometry``). Returns the
-    valid correlation (B, Cout, OH, OW)."""
-    global launches, launches_tc
+    counted in ``launches_tc``; geometry ``_tc_geometry``), or with ``v3``
+    B5's tensor-core route on the same scratch and geometry (counted in
+    ``launches_v3_tc``; B5's FP32 pair is ``_launch_fused2d_v3``'s). Returns
+    the valid correlation (B, Cout, OH, OW)."""
+    global launches, launches_tc, launches_v3_tc
     if mode not in PRECISION_MODES:
         raise ValueError(f"unknown fused precision mode: {mode!r}")
+    if v3 and mode == "highest":
+        raise ValueError("B5's FP32 pair takes split planes: _launch_fused2d_v3")
     x_padded, spectra, oh, ow, nt2, ntiles = _check_launch(
         x_padded, spectra, plan, groups, k, v3=False)
     b, cin, hp, wp = x_padded.shape
@@ -695,6 +724,7 @@ def _launch_fused2d(
         frag = _tc_fragments(dev)
         y = torch.empty((chunk, b, cout, nb1, t2), device=dev, dtype=torch.complex64)
     d = torch.empty((chunk, b, cin, nb1, t2), device=dev, dtype=torch.complex64)
+    entry = lib.fused2d_v3_forward_tc if v3 else lib.fused2d_forward_tc
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         for tile0 in range(0, ntiles, chunk):
@@ -704,7 +734,7 @@ def _launch_fused2d(
                     x_padded.data_ptr(), spectra.data_ptr(), fac.data_ptr(), d.data_ptr(),
                     out.data_ptr(), b, cin, cout, groups, hp, wp, t1, t2, *tiles, stream)
             else:
-                err = lib.fused2d_forward_tc(
+                err = entry(
                     x_padded.data_ptr(), spectra.data_ptr(), frag.data_ptr(), fac.data_ptr(),
                     d.data_ptr(), y.data_ptr(), out.data_ptr(), b, cin, cout, groups, hp, wp,
                     t1, t2, _TC_MODE[mode], *tiles, upb, ocb, stream)
@@ -713,20 +743,28 @@ def _launch_fused2d(
                 raise RuntimeError(f"fused2d kernel launch failed: {msg} (cudaError {err})")
             if mode == "highest":
                 launches += 1
+            elif v3:
+                launches_v3_tc += 1
             else:
                 launches_tc += 1
     return out
 
 
 def _launch_fused2d_v3(
-    x_padded: torch.Tensor, spectra: torch.Tensor, plan, groups: int, k: Tuple[int, int]
+    x_padded: torch.Tensor, spectra: torch.Tensor, plan, groups: int, k: Tuple[int, int],
+    mode: str = "highest",
 ) -> torch.Tensor:
-    """Runs kernel B5 (phase 1 + phase 2) on ``x_padded`` (B, Cin, Hp, Wp)
-    float32 with the split-plane spectra (Cout, Cin/g, 2, NB1, T2) float32
-    of a (K1, K2) kernel (``kernel_spectra_2d_planes``), both on one CUDA
-    device, under the tile plan ``plan``. Returns the valid correlation
-    (B, Cout, OH, OW)."""
+    """Runs kernel B5 on ``x_padded`` (B, Cin, Hp, Wp) float32 with a (K1,
+    K2) kernel's spectra, both on one CUDA device, under the tile plan
+    ``plan``: under "highest" its FP32 pair (phase 1 + phase 2, counted in
+    ``launches_v3``) on the split-plane spectra (Cout, Cin/g, 2, NB1, T2)
+    float32 (``kernel_spectra_2d_planes``); under "bf16x3" and "bf16" its
+    tensor-core route (``_launch_fused2d(..., v3=True)``) on the complex64
+    spectra (Cout, Cin/g, NB1, T2). Returns the valid correlation (B, Cout,
+    OH, OW)."""
     global launches_v3
+    if mode != "highest":
+        return _launch_fused2d(x_padded, spectra, plan, groups, k, mode, v3=True)
     x_padded, spectra, oh, ow, nt2, ntiles = _check_launch(
         x_padded, spectra, plan, groups, k, v3=True)
     b, cin, hp, wp = x_padded.shape
@@ -762,12 +800,10 @@ def _fused2d_forward(
     """Valid correlation of ``x_padded`` with ``kernel`` under the schedule
     that ``set_fused2d_kernel`` chose and the precision mode that
     ``set_fused2d_precision`` chose, both read at call time: the CUDA
-    kernels (B2's FP32 pair or tensor-core route, or B5) for a CUDA tensor,
-    their plain version for a CPU one. "v3" under a bf16 mode raises ValueError on both
-    devices: B5 has no tensor-core pair yet, and the call neither falls back
-    to FP32 nor ignores the mode.
-    ``spectra``: a plan's baked ``kernel_spectra_2d`` (B5 takes them as
-    planes, ``_planes``), or None to compute them. They are computed here,
+    kernels (B2's or B5's FP32 pair or tensor-core route) for a CUDA tensor,
+    their plain version for a CPU one.
+    ``spectra``: a plan's baked ``kernel_spectra_2d`` (B5's FP32 pair takes
+    them as planes, ``_planes``), or None to compute them. They are computed here,
     ahead of the call's record for a running cost analysis
     (``costs.record``), so that the analysis counts their transforms as the
     aten ops they are, on the CPU as on the card; the record holds the
@@ -776,11 +812,6 @@ def _fused2d_forward(
         raise ValueError(f"fused2d runs on CUDA or CPU tensors, got {x_padded.device}")
     v3 = _KERNEL2D_VERSION == "v3"
     mode = _PRECISION_2D
-    if v3 and mode != "highest":
-        raise ValueError(
-            f"the 'v3' 2D schedule (kernel B5) has no tensor-core pair for precision mode "
-            f"{mode!r} yet; it comes with the slice that gives B5 the bf16 modes. Use "
-            f"set_fused2d_kernel('v2') or set_fused2d_precision('highest')")
     b, cin, hp, wp = x_padded.shape
     cout, cpg, k1, k2 = kernel.shape
     plan = tile_plan_2d(k1, k2, cpg, cout)
@@ -795,12 +826,13 @@ def _fused2d_forward(
     with record:
         if x_padded.is_cuda:
             if v3:
-                return _launch_fused2d_v3(x_padded.float(), _planes(spectra), plan, groups,
-                                          (k1, k2))
+                return _launch_fused2d_v3(x_padded.float(),
+                                          _planes(spectra) if mode == "highest" else spectra,
+                                          plan, groups, (k1, k2), mode)
             return _launch_fused2d(x_padded.float(), spectra, plan, groups, (k1, k2), mode)
         if v3:
             return _fused2d_forward_reference_v3(x_padded.float(), kernel.float(), groups,
-                                                 spectra)
+                                                 spectra, mode)
         return _fused2d_forward_reference(x_padded.float(), kernel.float(), groups, spectra,
                                           mode)
 

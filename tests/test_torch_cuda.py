@@ -349,16 +349,23 @@ def _assert_bf16_2d_kernel_close(y, y_ref, y_exact):
     assert abs(ours / plain - 1) < 1e-2, f"err_mean vs float64 {ours:.4e}, plain {plain:.4e}"
 
 
-def _assert_tc_2d_close(mode, y, x, k, groups=1):
-    """B2's tensor-core route's output ``y`` against its plain version of
-    ``mode`` on the CPU: "bf16x3" under the FP32 bar, "bf16" under
+def _assert_tc_2d_close(mode, y, x, k, groups=1, v3=False):
+    """B2's (``v3``: B5's) tensor-core route's output ``y`` against its plain
+    version of ``mode`` on the CPU: "bf16x3" under the FP32 bar, "bf16" under
     ``_assert_bf16_2d_kernel_close``."""
-    y_ref = fused2d._fused2d_forward_reference(x.cpu(), k.cpu(), groups, mode=mode).numpy()
+    plain = fused2d._fused2d_forward_reference_v3 if v3 else fused2d._fused2d_forward_reference
+    y_ref = plain(x.cpu(), k.cpu(), groups, mode=mode).numpy()
     if mode == "bf16x3":
         _assert_close_scaled(y.cpu().numpy(), y_ref)
     else:
-        exact = fused2d._fused2d_forward_reference(x.cpu().double(), k.cpu().double(), groups)
+        exact = plain(x.cpu().double(), k.cpu().double(), groups)
         _assert_bf16_2d_kernel_close(y.cpu().numpy(), y_ref, exact.numpy())
+
+
+def _counts_2d():
+    """fused2d's launch counters: B2's FP32 pair, B2's tensor-core route,
+    B5's FP32 pair, B5's tensor-core route."""
+    return [fused2d.launches, fused2d.launches_tc, fused2d.launches_v3, fused2d.launches_v3_tc]
 
 
 @pytest.fixture
@@ -370,21 +377,25 @@ def precision2d():
     fused2d.set_fused2d_kernel("v2")
 
 
-@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
-@pytest.mark.parametrize("b,cin,cout,h,w,k1,k2,groups", FUSED2D + [
-    (2, 8, 8, 512, 512, 16, 16, 1),    # the 2D benchmark rows
+# every tile plan (FUSED2D), the 2D benchmark rows and the MAC stage's
+# geometry (fused2d._tc_geometry): 2 output channels a group, one channel a
+# group, B = 3 (75 units: the last MAC block holds 3 of 8), 24 -> 24 channels
+# in 3 groups, 15 channels (4 channel chunks, 2 output-channel passes), 100
+# output channels (2 blocks of them)
+TC_2D = FUSED2D + [
+    (2, 8, 8, 512, 512, 16, 16, 1),
     (2, 8, 8, 512, 512, 34, 34, 1),
-    # the MAC stage's geometry (fused2d._tc_geometry): 2 output channels a
-    # group, one channel a group, B = 3 (75 units: the last MAC block holds
-    # 3 of 8), 24 -> 24 channels in 3 groups, 15 channels (4 channel chunks,
-    # 2 output-channel passes), 100 output channels (2 blocks of them)
     (2, 6, 6, 300, 290, 16, 16, 3),
     (2, 4, 4, 300, 290, 16, 16, 4),
     (3, 8, 8, 512, 512, 16, 16, 1),
     (2, 24, 24, 200, 210, 9, 9, 3),
     (1, 15, 15, 200, 210, 9, 9, 1),
     (1, 1, 100, 300, 290, 16, 16, 1),
-])
+]
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("b,cin,cout,h,w,k1,k2,groups", TC_2D)
 def test_tc_2d_kernel_matches_plain_version(cuda, mode, b, cin, cout, h, w, k1, k2, groups):
     """B2's tensor-core route against its plain version of the same mode at
     every tile shape (128 x 128, 256 x 128, 384 x 128, 128 x 256), the
@@ -424,22 +435,22 @@ def test_tc_2d_plane_bytes_match_kernel(cuda):
 
 
 def test_tc_2d_kernel_refuses_what_it_does_not_run(cuda, precision2d):
-    """An unknown mode and complex128 spectra raise, and so does a call under
-    "v3" and a bf16 mode (B5 has no tensor-core pair yet); nothing is
-    launched."""
+    """An unknown mode and complex128 spectra raise, and so does B5's
+    tensor-core launcher under "highest" (B5's FP32 pair takes planes);
+    nothing is launched."""
     x, w = _tensors(cuda, 3, (1, 2, 150, 140), (2, 2, 9, 9))
     plan = fused2d.tile_plan_2d(9, 9, 2, 2)
     spectra = fused2d.kernel_spectra_2d(w, plan[0], plan[2], plan[3])
-    before = fused2d.launches, fused2d.launches_tc, fused2d.launches_v3
+    before = _counts_2d()
     with pytest.raises(ValueError, match="precision mode"):
         fused2d._launch_fused2d(x, spectra, plan, 1, (9, 9), "fp8")
     with pytest.raises(ValueError, match="complex64"):
         fused2d._launch_fused2d(x, spectra.to(torch.complex128), plan, 1, (9, 9), "bf16")
-    precision2d("bf16x3")
-    fused2d.set_fused2d_kernel("v3")
-    with pytest.raises(ValueError, match="'v3'.*tensor-core"):
-        ft.fft_conv(x, w)
-    assert (fused2d.launches, fused2d.launches_tc, fused2d.launches_v3) == before
+    with pytest.raises(ValueError, match="complex64"):
+        fused2d._launch_fused2d_v3(x, spectra.to(torch.complex128), plan, 1, (9, 9), "bf16")
+    with pytest.raises(ValueError, match="planes"):
+        fused2d._launch_fused2d(x, spectra, plan, 1, (9, 9), "highest", v3=True)
+    assert _counts_2d() == before
 
 
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
@@ -478,6 +489,79 @@ def test_tc_modes_route_every_2d_path_on_cuda(cuda, precision2d, mode):
     before = fused2d.launches, fused2d.launches_tc
     plan(x)
     assert (fused2d.launches, fused2d.launches_tc) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("b,cin,cout,h,w,k1,k2,groups", TC_2D)
+def test_tc_2d_v3_kernel_matches_plain_version(cuda, mode, b, cin, cout, h, w, k1, k2, groups):
+    """B5's tensor-core route against its plain version of the same mode at
+    B2's route's cases (every tile plan, T1 = 384 and T2 = 256 among them,
+    groups, the MAC stage's geometry), the kernels random and so not
+    symmetric: D written in another bin order than the spectra's would show.
+    Neither FP32 pair nor B2's route runs."""
+    x, k = _tensors(cuda, h + k2 + 2, (b, cin, h, w), (cout, cin // groups, k1, k2))
+    k /= (cin // groups * k1 * k2) ** 0.5
+    plan = fused2d.tile_plan_2d(k1, k2, cin // groups, cout)
+    spectra = fused2d.kernel_spectra_2d(k, plan[0], plan[2], plan[3])
+    before = _counts_2d()
+    y = fused2d._launch_fused2d_v3(x, spectra, plan, groups, (k1, k2), mode)
+    torch.cuda.synchronize()
+    assert _counts_2d() == before[:3] + [before[3] + 1]
+    _assert_tc_2d_close(mode, y, x, k, groups, v3=True)
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_tc_2d_v3_kernel_in_tile_ranges(cuda, monkeypatch, mode):
+    """B5's route in tile ranges: a budget of one tile of D and Y runs the
+    12 tiles in 12 launches, and so does a budget under one tile."""
+    x, k = _tensors(cuda, 6, (2, 4, 400, 300), (4, 4, 16, 16))
+    plan = fused2d.tile_plan_2d(16, 16, 4, 4)
+    spectra = fused2d.kernel_spectra_2d(k, plan[0], plan[2], plan[3])
+    for budget in (2 * fused2d._scratch_bytes_per_tile(plan[2], plan[3], 2, 4), 1):
+        monkeypatch.setattr(fused2d, "_SCRATCH_BUDGET", budget)
+        before = fused2d.launches_v3_tc
+        y = fused2d._launch_fused2d_v3(x, spectra, plan, 1, (16, 16), mode)
+        assert fused2d.launches_v3_tc - before == 12
+        _assert_tc_2d_close(mode, y, x, k, v3=True)
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_tc_modes_route_every_2d_path_on_cuda_under_v3(cuda, precision2d, mode):
+    """Under "v3" and a bf16 mode a CUDA tensor's 2D calls (``fft_conv``
+    under "auto", a plan, the transposed route, ``FFTConv2d``) launch B5's
+    tensor-core route once each and neither FP32 pair nor B2's route, each
+    within the mode's bar of the composed path; back under "highest" they
+    launch B5's FP32 pair."""
+    x, w, b = _tensors(cuda, 30, (2, 4, 200, 180), (4, 4, 9, 7), (4,))
+    layer = ft.FFTConv2d(4, 4, 11, padding=2, generator=torch.Generator().manual_seed(1))
+    plan = ft.ops.plan_fft_conv(w, b, signal_spatial=(200, 180))
+    calls = [
+        (lambda: ft.fft_conv(x, w, b), lambda: ft.fft_conv(x, w, b, impl="xla")),
+        (lambda: plan(x), lambda: ft.fft_conv(x, w, b, impl="xla")),
+        (lambda: ft.fft_conv_transpose(x, w, b, padding=2),
+         lambda: ft.fft_conv_transpose(x, w, b, padding=2, impl="xla")),
+        (lambda: layer(x),
+         lambda: ft.fft_conv(x, layer.weight, layer.bias, padding=2, impl="xla")),
+    ]
+    fused2d.set_fused2d_kernel("v3")
+    precision2d(mode)
+    for fn, ref in calls:
+        before = _counts_2d()
+        with torch.no_grad():
+            y = fn()
+        torch.cuda.synchronize()
+        assert _counts_2d() == before[:3] + [before[3] + 1]
+        y_ref = ref().detach().cpu().numpy()
+        if mode == "bf16x3":
+            _assert_close_scaled(y.cpu().numpy(), y_ref)
+        else:  # against the exact result, the JAX package's serving bar
+            sigma = max(1.0, float(y_ref.std()))
+            err = np.abs(y.cpu().numpy() - y_ref)
+            assert err.mean() < 5e-3 * sigma and err.max() < 5e-2 * sigma
+    precision2d("highest")
+    before = _counts_2d()
+    plan(x)
+    assert _counts_2d() == [before[0], before[1], before[2] + 1, before[3]]
 
 
 @pytest.fixture

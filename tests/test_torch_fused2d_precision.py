@@ -1,11 +1,13 @@
-"""B2's precision modes, ``set_fused2d_precision``, against the JAX package's.
+"""B2's and B5's precision modes, ``set_fused2d_precision``, against the JAX
+package's.
 
 The JAX switch picks how the fused 2D kernel forms each DFT matrix product:
 FP32 ("highest"), three bf16 products of hi/lo splits ("bf16x3") or one
-("bf16"). The port's switch picks B2's kernel pair: the FP32 pair, or the
-tensor-core route whose DFT steps are bf16 products. On the CPU the wrapper
-runs that pair's plain version, which runs the pair's order (W first on
-packed rows) and rounds each product's operands where the kernels do; JAX
+("bf16"). The port's switch picks the schedule's kernels: the FP32 pair, or
+the tensor-core route whose DFT steps are bf16 products. On the CPU the
+wrapper runs their plain version, which runs the route's order (B2: W first
+on packed rows; B5, under ``set_fused2d_kernel("v3")``: H first on packed
+columns) and rounds each product's operands where the kernels do; JAX
 runs its Pallas kernel in interpret mode (its "bf16x3" as the exact split
 ``bf16x3_exact``). Each test sets JAX's mode and restores its default
 "bf16x3" afterwards, and restores the port's default "highest" and the "v2"
@@ -31,6 +33,7 @@ from fft_conv_tpu_torch.ops import functional as F
 from helpers import _assert_close_scaled
 from test_torch_fused1d_precision import _lanes, _mma
 from test_torch_fused2d import PARITY
+from test_torch_fused2d_v3 import v3  # noqa: F401  (the fixture: both packages on "v3")
 
 
 def _arrays(seed, *shapes):
@@ -181,22 +184,154 @@ def test_unknown_mode_raises_and_default_is_highest(modes):
 
 
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
-def test_v3_under_a_bf16_mode_raises(modes, mode):
-    """B5 has no tensor-core pair yet: a 2D call under "v3" and a bf16 mode
-    raises on the CPU as on the card, through the fused function,
-    ``fft_conv(impl="fused")`` and a plan, and runs nothing; under "highest"
-    "v3" runs."""
+def test_v3_under_a_bf16_mode_runs_its_plain_version(modes, mode):
+    """A 2D call under "v3" and a bf16 mode runs B5's tensor-core route, on
+    the CPU its plain version of that mode: the fused function,
+    ``fft_conv(impl="fused")`` and a plan give
+    ``_fused2d_forward_reference_v3(..., mode=)``, launch nothing, and differ
+    from "highest" and from B2's route in the same mode."""
     x, w = (torch.from_numpy(a) for a in _arrays(7, (1, 2, 60, 50), (2, 2, 5, 5)))
     plan = fused2d.plan_fft_conv2d(w, signal_hw=(60, 50), device="cpu")
     set_fused2d_kernel("v3")
     modes(mode)
+    want = fused2d._fused2d_forward_reference_v3(x, w, mode=mode)
+    before = fused2d.launches_v3, fused2d.launches_v3_tc
     for call in (lambda: fused2d.fft_conv2d_fused(x, w), lambda: ft.fft_conv(x, w, impl="fused"),
                  lambda: plan(x)):
-        with pytest.raises(ValueError, match="'v3'.*tensor-core"):
-            call()
-    modes("highest")
-    assert torch.equal(fused2d.fft_conv2d_fused(x, w),
-                       fused2d._fused2d_forward_reference_v3(x, w))
+        with torch.no_grad():
+            assert torch.equal(call(), want)
+    assert (fused2d.launches_v3, fused2d.launches_v3_tc) == before
+    assert not torch.equal(want, fused2d._fused2d_forward_reference_v3(x, w))
+    assert not torch.equal(want, fused2d._fused2d_forward_reference(x, w, mode=mode))
+    with pytest.raises(ValueError, match="precision mode"):
+        fused2d._fused2d_forward_reference_v3(x, w, mode="fp8")
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w,k1,k2,groups,stride,dilation,padding,pmode", PARITY)
+def test_v3_bf16x3_matches_jax_v3(modes, v3, b, cin, cout, h, w, k1, k2, groups, stride,
+                                  dilation, padding, pmode):
+    """B5's "bf16x3" (its plain version on the CPU) against JAX's v3 kernel
+    under "bf16x3" under ``_assert_close_scaled``, at the parity cases of
+    ``test_mode_matches_jax_fused``."""
+    x, k, bias = _arrays(h + w + k2, (b, cin, h, w), (cout, cin // groups, k1, k2), (cout,))
+    kw = dict(padding=padding, padding_mode=pmode, stride=stride, dilation=dilation,
+              groups=groups)
+    modes("bf16x3", "bf16x3")
+    y_jax = jax_fused2d.fft_conv2d_fused(jnp.asarray(x), jnp.asarray(k), jnp.asarray(bias), **kw)
+    before = fused2d.launches_v3, fused2d.launches_v3_tc
+    y = fused2d.fft_conv2d_fused(torch.from_numpy(x), torch.from_numpy(k),
+                                 torch.from_numpy(bias), **kw)
+    assert (fused2d.launches_v3, fused2d.launches_v3_tc) == before
+    _assert_close_scaled(y.numpy(), np.asarray(y_jax))
+
+
+# B5's "bf16" error against float64, at most this many times JAX's v3 "bf16"
+# (measured on the CPU at BF16_CASES: err_mean 1.21-1.35x, err_max 1.17-1.47x)
+V3_BF16_FACTOR = 1.6
+
+
+@pytest.mark.parametrize("seed,xs,ws,padding", BF16_CASES)
+def test_v3_bf16_meets_the_serving_bar(modes, v3, seed, xs, ws, padding):
+    """B5's "bf16" against torch's conv2d in float64, under JAX's serving bar
+    (err_mean < 5e-3·σ, err_max < 5e-2·σ), with its err_mean and err_max at
+    most ``V3_BF16_FACTOR`` times those of JAX's v3 kernel under "bf16"."""
+    x, w, bias = _arrays(seed, xs, ws, (ws[0],))
+    y_ref = _float64_conv(x, w, bias, padding)
+    modes("bf16", "bf16")
+    y = fused2d.fft_conv2d_fused(torch.from_numpy(x), torch.from_numpy(w),
+                                 torch.from_numpy(bias), padding=padding)
+    y_jax = jax_fused2d.fft_conv2d_fused(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                                         padding=padding)
+    ours, theirs = _err(y.numpy(), y_ref), _err(np.asarray(y_jax), y_ref)
+    assert ours[0] < 5e-3 and ours[1] < 5e-2, ours
+    assert ours[0] <= V3_BF16_FACTOR * theirs[0] and ours[1] <= V3_BF16_FACTOR * theirs[1], (
+        ours, theirs)
+
+
+@pytest.mark.parametrize("seed,xs,ws,padding", BF16_CASES[1:])
+def test_v3_modes_are_told_apart(modes, v3, seed, xs, ws, padding):
+    """Under "v3" the three modes' errors against float64 are ordered as
+    B2's (``test_modes_are_told_apart``), each err_mean at least 8x, then
+    100x, the one before."""
+    x, w, bias = _arrays(seed, xs, ws, (ws[0],))
+    y_ref = _float64_conv(x, w, bias, padding)
+    errs = []
+    for mode in fused2d.PRECISION_MODES:
+        modes(mode)
+        errs.append(_err(fused2d.fft_conv2d_fused(
+            torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+            padding=padding).numpy(), y_ref)[0])
+    assert 8 * errs[0] < errs[1] and 100 * errs[1] < errs[2], errs
+
+
+@pytest.mark.parametrize("t1,t2", [(128, 128), (256, 128), (384, 128), (128, 256)])
+def test_v3_steps_without_a_mode_product_are_the_fp32_steps(t1, t2):
+    """``_v3_forward`` and ``_v3_inverse`` with ``dot=None`` are the undotted
+    steps, and with a plain product passed as ``dot`` they equal them to
+    float64 rounding: ``dot`` reaches only the DFT products."""
+    nb1, v1 = t1 // 2 + 1, t1 - 15
+    a, yr, yi = (torch.from_numpy(m).double() for m in _arrays(
+        t1 * t2 + 1, (2, t1, t2), (2, nb1, t2), (2, nb1, t2)))
+    fwd, inv = fused2d._v3_forward(a), fused2d._v3_inverse(yr, yi, v1)
+    for got, want in zip(fused2d._v3_forward(a, None), fwd):
+        assert torch.equal(got, want)
+    assert torch.equal(fused2d._v3_inverse(yr, yi, v1, None), inv)
+    for got, want in zip(fused2d._v3_forward(a, torch.matmul), fwd):
+        assert (got - want).abs().max() < 1e-12 * want.abs().max()
+    got = fused2d._v3_inverse(yr, yi, v1, torch.matmul)
+    assert (got - inv).abs().max() < 1e-12 * inv.abs().max()
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_every_2d_route_follows_the_switch_under_v3(modes, mode):
+    """Under "v3" and a bf16 mode the 2D plan, the fused transposed route and
+    ``FFTConv2d`` equal ``fft_conv2d_fused`` in that mode (B5's plain
+    version of it on the CPU), and differ from their results under
+    "highest"."""
+    x, w, bias = (torch.from_numpy(a) for a in _arrays(12, (2, 4, 90, 80), (4, 4, 9, 7), (4,)))
+    layer = ft.FFTConv2d(4, 4, 9, padding=2, impl="fused", device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    plan = fused2d.plan_fft_conv2d(w, bias, padding=2, signal_hw=(90, 80), device="cpu")
+    wt = F._transpose_kernel_layout(w, 1, (1, 1))
+    set_fused2d_kernel("v3")
+
+    def routes():
+        transposed = ft.fft_conv_transpose(x, w, bias, padding=3, impl="fused")
+        with torch.no_grad():
+            return plan(x), transposed, layer(x)
+
+    def fused_calls():
+        stuffed = F._stuff_full(x, wt.shape[2:], (1, 1), (0, 0))
+        transposed = (fused2d.fft_conv2d_fused(stuffed, wt)[..., 3:-3, 3:-3]
+                      + bias.reshape(1, -1, 1, 1))
+        with torch.no_grad():
+            return (fused2d.fft_conv2d_fused(x, w, bias, padding=2), transposed,
+                    fused2d.fft_conv2d_fused(x, layer.weight, layer.bias, padding=2))
+
+    highest = routes()
+    modes(mode)
+    for y, y_fused, y_highest in zip(routes(), fused_calls(), highest):
+        assert torch.equal(y, y_fused)
+        assert not torch.equal(y, y_highest)
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_v3_bf16_gradients_equal_highest(modes, mode):
+    """The backward of B5 is the composed path in every mode, so the
+    gradients under "v3" and a bf16 mode are those under "highest"."""
+    x, w, g = (torch.from_numpy(a) for a in _arrays(13, (2, 4, 70, 60), (4, 2, 9, 8),
+                                                    (2, 4, 62, 53)))
+    set_fused2d_kernel("v3")
+
+    def grads():
+        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (fused2d.fft_conv2d_fused(xx, ww, groups=2) * g).sum().backward()
+        return xx.grad, ww.grad
+
+    highest = grads()
+    modes(mode)
+    for a, b in zip(grads(), highest):
+        assert torch.equal(a, b)
 
 
 def test_switch_leaves_1d_and_3d_alone(modes):
@@ -332,6 +467,21 @@ def test_cost_analysis_records_the_mode(modes, mode):
     ms, by = costs.bound(nbytes, rest, products)
     assert ms == max(nbytes / costs.HBM_BYTES_PER_S,
                      rest / costs.FP32_FLOPS_PER_S + products / costs.BF16_FLOPS_PER_S) * 1e3
+    # under "v3", "B5_<mode>" with B5's route's count: the same bytes, the H
+    # DFTs of the T2/2 packed columns and pairs, the W DFTs of the NB1 rows
+    # and of the ceil(V1/2) row pairs
+    set_fused2d_kernel("v3")
+    out = cost_analysis(lambda s, kk: ft.fft_conv(s, kk, impl="fused"), x, w)
+    v3_bytes, v3_products, v3_rest = costs.fused2d_tc_work(2, 4, 6, 150, 140, 9, plan, mode,
+                                                           v3=True)
+    assert out["kernels"] == {f"B5_{mode}": {"calls": 1, "flops": v3_products + v3_rest,
+                                             "bytes": v3_bytes}}
+    t1, v1, nb1, t2, _ = plan
+    tiles, passes = 2 * 2 * 2, 3 if mode == "bf16x3" else 1
+    dft = lambda a, bb: 8 * (bb * a * a + a * bb * bb)  # noqa: E731
+    h_dft, w_dft = dft(*fused2d._SPLITS[t1]), dft(*fused2d._SPLITS[t2])
+    assert v3_bytes == nbytes and v3_products == tiles * passes * (
+        4 * (t2 // 2 * h_dft + nb1 * w_dft) + 6 * (t2 // 2 * h_dft + -(-v1 // 2) * w_dft))
 
 
 # (B, Cin, Cout, groups, H, W, K1, K2): shapes fused2d_fits admits, at the
