@@ -455,12 +455,14 @@ def fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups=1, v3=False):
     rows).
 
     B5's route, the same bytes: per tile and input channel the H DFT of the
-    T2/2 packed columns and the W DFT of the NB1 rows, per tile and output
-    channel the folded H inverse of T2/2 column pairs onto all T1 rows and
-    the W c2r of the ceil(V1/2) row pairs; FP32: the twiddles, the split of
-    the bins k and -k of a packed column (4 per one-sided value), the MAC,
-    the means at bins 0 and T1/2 (4 per column pair), the Hermitian
-    extension of the row pairs (2 per W input) and the output scale."""
+    T2/2 packed columns and the W DFT of the T1/2 rows (rows 0 and T1/2
+    packed as one), per tile and output channel the folded H inverse of T2/2
+    column pairs onto all T1 rows and the W c2r of the ceil(V1/2) row pairs;
+    FP32: the twiddles, the split of the bins k and -k of a packed column (4
+    per one-sided value of rows 1 to T1/2 - 1), the split of the packed
+    row's bins into D's rows 0 and T1/2 (8 per bin), the MAC, the means at
+    bins 0 and T1/2 (4 per column pair), the Hermitian extension of the row
+    pairs (2 per W input) and the output scale."""
     t1, v1, nb1, t2, v2 = plan
     k1, k2 = _ks(k, 2)
     tiles = -(-(h - k1 + 1) // v1) * -(-(w - k2 + 1) // v2)
@@ -478,9 +480,9 @@ def fused2d_tc_work(b, cin, cout, h, w, k, plan, mode, groups=1, v3=False):
     mac = 8 * (cin // groups) * nb1 * t2
     if v3:
         pairs = -(-v1 // 2)
-        fwd = n2 * products(t1) + nb1 * products(t2)
+        fwd = n2 * products(t1) + n1 * products(t2)
         inv = n2 * products(t1) + pairs * products(t2)
-        fwd32 = n2 * twiddles(t1) + nb1 * twiddles(t2) + 4 * t1 * n2
+        fwd32 = n2 * twiddles(t1) + n1 * twiddles(t2) + 4 * (n1 - 1) * t2 + 8 * t2
         inv32 = (mac + n2 * twiddles(t1) + pairs * twiddles(t2) + 8 * n2 + 2 * pairs * t2
                  + v1 * t2)
     else:

@@ -149,29 +149,45 @@
 //     out (v3_win) in the slots that the column's bins take after its H DFT
 //     (v3_bin), so that each warp's H DFT (hstep_tiles) writes over what only
 //     it reads and the window needs no buffer of its own (at T1 = 384 the
-//     plane and the staging fill the block); the FP32 split of bins k and -k
-//     (v3_split, as fused2d_v3_spectra); the W DFT of the NB1 rows
-//     (row_dft_tc, bin k2 at tc_col(k2)); D out in natural bin order, B2's
-//     D, which the MAC stage reads against natural-order spectra;
+//     plane and the staging fill the block); then the W DFT of T1/2 rows, not
+//     NB1: rows 0 and T1/2 of the one-sided spectrum, both real, packed as
+//     one complex row X[0] + i X[T1/2], so that at T1 = 128 the 8 warps take
+//     the 64 rows in one round of 8 each. Each warp owns its rows from the
+//     split to D (row_group_tc): step 1 splits bins k and -k of the packed
+//     columns in FP32 as it loads them (the arithmetic of v3_split), and
+//     step 2 stores the bins to D in natural order straight from the
+//     product, but row 0's bins Z, which the warp splits in FP32 into D's
+//     rows 0 and T1/2 ((Z[k] + conj Z[-k]) / 2 and (Z[k] - conj Z[-k]) / 2i,
+//     as B2's phase 1 splits its packed column): B2's D, which the MAC stage
+//     reads against natural-order spectra. Two block barriers: the window
+//     in, the H DFT done;
 //   MAC stage, fused2d_mac_tc<T1, T2, 0>: B2's, without the inverse W DFT
 //     (B5's inverse runs H first, on every bin row, which a MAC block does
 //     not hold): Y's rows in natural bin order, the plane image as before;
 //   inverse stage, fused2d_v3_inverse_tc, grid (B * Cout, tiles): Y in by
 //     16-byte cp.async; the folded H inverse of fused2d_v3_mac_inverse
-//     (folded_s: columns 0 and T2/2 share one transform, the imaginary parts
-//     of their bins 0 and T1/2 dropped), each warp owning its column pairs
-//     through both steps, h written over the pairs' own columns
-//     (folded_slot); then the W c2r of the V1 rows, R row pairs a chunk
-//     through the staging (c2r_in: E_2p + i E_2p+1, E_2p+1 zero past an odd
-//     V1), row_dft_tc, and the two output rows stored with 1/(T1 T2), the
-//     1/T1 left for the output so that no bf16 operand is rounded after a
-//     division by T1 = 384.
+//     (folded_s's values, formed without branches by folded_s_tc: columns 0
+//     and T2/2 share one transform, the imaginary parts of their bins 0 and
+//     T1/2 dropped), each warp owning its column pairs
+//     through both steps, h[2p] and h[2p + 1] written into row p of the
+//     plane, at columns l and T2 - l of the pair's own (pair_store); then
+//     the W c2r of the ceil(V1 / 2) row pairs in place, warp w owning pairs
+//     [w P / 8, (w + 1) P / 8) of the P (all 8 warps busy: 7 pairs each at
+//     K = 16, 5 or 6 at K = 34), each its pairs through both steps
+//     (row_group_tc with step 1's tiles closed under c -> T2 - c, whose
+//     loads form E_2p + i E_2p+1 from columns c and T2 - c of row p,
+//     pair_c2r_in, E_2p+1 zero past an odd V1), step 2 storing the two
+//     output rows' samples with 1/(T1 T2) straight from the product, eight
+//     consecutive samples of a row a lane group, the 1/T1 left for the
+//     output so that no bf16 operand is rounded after a division by T1 =
+//     384. Two block barriers: Y in, the H inverse done; no staging, no
+//     chunks and no second pass for the c2r.
 // What bounds it, by count as B2's route: shared memory in phase 1 and the
-// inverse stage, bytes through L2 in the MAC stage. Two costs of B5's order
-// that B2's route does not pay, not traced: phase 1's W DFT takes NB1 rows,
-// a ninth row group at T1 = 128 that one warp runs alone, and the W c2r
-// runs R row pairs a chunk (32 at T1 = T2 = 128) behind block barriers,
-// since the plane holds h and the staging no more rows. Times in PERF.md.
+// inverse stage, bytes through L2 in the MAC stage. Measured by knocking
+// parts out (PERF.md), the scalar work around the products weighs most: the
+// index arithmetic and the branches of the loads that form each step's
+// input, so those loads run without branches and the window's loop steps
+// its addresses. Times in PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1312,6 +1328,68 @@ fused2d_inverse_tc(const float2* __restrict__ y,       // (units of this launch,
 
 // ---- B5's tensor-core route (the modes "bf16x3" and "bf16") ------------------
 
+// The DFT (INV: conjugated, unscaled) of rows [r0, min(r0 + 8, r1)) of the
+// plane, T = A * B, on the tensor cores, by the calling warp through both
+// steps, which meet at __syncwarp, each output handed to st (B5's phase 1
+// and inverse stage, where row_dft_tc's second pass over the plane to the
+// outputs would follow). MIRROR: the W c2r of B5's inverse stage. Step 1,
+// tiles of the 8 rows at two j2, j2a = 2i and j2b = 2i + 1 (MIRROR: j2a = i
+// and its mirror j2b = (B - i) % B, B / 2 for i = 0, so that a tile holds
+// elements c and T - c of each of its rows): vector (row, j2) = element j1
+// of the row's input, ld(row, j1 B + j2) (any FP32 arithmetic the input
+// needs, read only from the tile's own columns of the row), its A-point DFT
+// and the twiddle tw[m1 B + j2] in FP32, in place at column m1 B + j2. Step
+// 2, tiles of two rows four apart (rows whose swizzles differ in bit 2, for
+// any r0) at eight consecutive m1: vector (row, m1) = element j2 at column
+// m1 B + j2, its B-point DFT, output m2 (bin or sample m1 + A m2) to
+// st(row, m1, m2, value). The tile's vectors alternate between its two rows,
+// so that a lane's 4 loads reach 16 distinct bank pairs at B = 8 and four
+// lanes hand st four consecutive outputs of a row (whole 32-byte sectors of
+// float2); under MIRROR vectors 0-7 are the first row's and 8-15 the
+// second's, so that eight lanes hand st eight consecutive samples (whole
+// sectors of float output) at the price of 4-way bank conflicts on the
+// loads. No block barrier.
+template <int T, bool X3, bool INV, bool MIRROR, typename LD, typename ST>
+__device__ __forceinline__ void row_group_tc(float2* s_p, int r0, int r1,
+                                             const uint32_t* __restrict__ frag, const float2* tw,
+                                             LD ld, ST st) {
+  constexpr int A = split_a(T), B = split_b(T);
+  static_assert(kRowGroup == 8 && A % 8 == 0 && B % 2 == 0, "a row group's steps take whole tiles");
+  const uint32_t* fa = frag + bf16_mma::frag_offset(A, INV);
+  const uint32_t* fb = frag + bf16_mma::frag_offset(B, INV);
+#pragma unroll 1
+  for (int i = 0; i < B / 2; ++i) {
+    const int j2a = MIRROR ? i : 2 * i, j2b = MIRROR ? (i == 0 ? B / 2 : B - i) : 2 * i + 1;
+    bf16_mma::dft_tile<A, X3>(
+        0, 16, fa,
+        [&](int v, int j1) {  // a row past the group loads the last one's input
+          return ld(min(r0 + (v & 7), r1 - 1), j1 * B + (v >> 3 ? j2b : j2a));
+        },
+        [&](int v, int m1, float2 val) {
+          const int row = r0 + (v & 7), j2 = v >> 3 ? j2b : j2a;
+          if (row < r1)
+            s_p[sw<T>(row, m1 * B + j2)] = m1 == 0 ? val : cmulw_rn<INV>(val, tw[m1 * B + j2]);
+        });
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int q = 0; q < 4 * (A / 8); ++q) {
+    const int ra = r0 + q % 4, m1a = 8 * (q / 4);
+    if (ra >= r1) continue;  // both rows of the tile past the group
+    bf16_mma::dft_tile<B, X3>(
+        0, 16, fb,
+        [&](int v, int j2) {
+          const int row = ra + 4 * (MIRROR ? v >> 3 : v & 1), m1 = m1a + (MIRROR ? v & 7 : v >> 1);
+          return s_p[sw<T>(min(row, r1 - 1), m1 * B + j2)];
+        },
+        [&](int v, int m2, float2 val) {
+          const int row = ra + 4 * (MIRROR ? v >> 3 : v & 1), m1 = m1a + (MIRROR ? v & 7 : v >> 1);
+          if (row < r1) st(row, m1, m2, val);
+        });
+  }
+  __syncwarp();
+}
+
 // Where sample h of packed column q (columns q and q + T2/2 of the window as
 // one complex column) lies in phase 1's plane: rows h and h + T1/2 at row
 // h % (T1/2) of columns q and q + T2/2, the slots that the column's bins take
@@ -1333,7 +1411,8 @@ fused2d_v3_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
                       int hp, int wp, int v1, int v2, int nt2, int tile0) {
   using P = B2Plan<T1, T2>;
   constexpr bool X3 = MODE == 3;
-  constexpr int A1 = P::kA1, B1 = P::kB1, A2 = P::kA2, B2 = P::kB2, G = P::kG, N2 = T2 / 2;
+  constexpr int A1 = P::kA1, B1 = P::kB1, A2 = P::kA2, B2 = P::kB2, G = P::kG, N1 = T1 / 2,
+                N2 = T2 / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const B2Smem<T1, T2, false> s(smem_raw, fac);
   float2* s_p = s.plane;
@@ -1345,19 +1424,21 @@ fused2d_v3_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
 
   // the window by cp.async, sample (h, c) the real (c < T2/2) or imaginary
   // part of packed column c % (T2/2) at v3_win (zeros past the edge)
-  for (int i = tid; i < T1 * T2; i += kThreads) {
-    const int c = i % T2, h = i / T2, hr = h0 + h, wc = w0 + c;
-    const bool in = hr < hp && wc < wp;
-    cp_async4(reinterpret_cast<float*>(s_p + v3_win<T1, T2>(h, c % N2)) + c / N2,
-              in ? xs + (int64_t)hr * wp + wc : xs, in ? 4 : 0);
+  {
+    const int c = tid % T2, wc = w0 + c;  // a thread's column, every kThreads / T2-th row
+    const float* src = xs + (int64_t)h0 * wp + wc;
+    for (int h = tid / T2; h < T1; h += kThreads / T2) {
+      const bool in = wc < wp && h0 + h < hp;
+      cp_async4(reinterpret_cast<float*>(s_p + v3_win<T1, T2>(h, c % N2)) + c / N2,
+                in ? src + (int64_t)h * wp : xs, in ? 4 : 0);
+    }
   }
   cp_async_wait_all();
   __syncthreads();
 
   // H DFT of the packed columns, G a pass, each warp owning CW of them
   // through both steps (hstep_tiles), its bins written over its own samples
-  // (v3_bin); then the split into one-sided columns and the W DFT of the
-  // NB1 rows, bin k2 at tc_col(k2)
+  // (v3_bin)
   for (int c0 = 0; c0 < N2; c0 += G)
     hstep_tiles<T1, X3, false>(
         s.stage, frag,
@@ -1365,18 +1446,98 @@ fused2d_v3_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
         s.tw1,
         [&](int c, int m1, int m2, float2 v) { s_p[v3_bin<T1, T2>(m1 + A1 * m2, c0 + c)] = v; });
   __syncthreads();
-  v3_split<T1, T2>(s_p);
-  __syncthreads();
-  row_dft_tc<T2, X3, false>(s_p, P::kNB1, frag, s.tw2);
-  __syncthreads();
 
-  // D in natural order: plane column p = m1 B2 + m2 holds bin m1 + A2 m2;
-  // lanes read consecutive columns and write whole 32-byte sectors of D
+  // W DFT of the T1/2 rows, each warp owning kRowGroup rows at a time from
+  // the split to D (row_group_tc): step 1 splits bins k and -k of packed
+  // column c % (T2/2) into column c's one-sided bin k in FP32 as it loads
+  // them (as v3_split, from the tile's own columns c and c -+ T2/2), and row
+  // 0 takes bins 0 and T1/2 of every column, both real, as one complex row
+  // X[0, c] + i X[T1/2, c]; step 2 stores bin k2 of each row to D in natural
+  // order, but row 0's bins Z, which go back to the plane (tc_col) and are
+  // split in FP32 into D's rows 0 and T1/2: (Z[k] + conj Z[-k]) / 2 and
+  // (Z[k] - conj Z[-k]) / 2i
   float2* dout = d + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * P::kPlane;
-  for (int i = tid; i < P::kPlane; i += kThreads) {
-    const int k1 = i / T2, p = i % T2;
-    dout[k1 * T2 + p / B2 + A2 * (p % B2)] = s_p[sw<T2>(k1, p)];
+  for (int r0 = (tid >> 5) * kRowGroup; r0 < N1; r0 += kWarps * kRowGroup) {
+    row_group_tc<T2, X3, false, false>(
+        s_p, r0, N1, frag, s.tw2,
+        [&](int k, int c) {
+          const float2 a = s_p[sw<T2>(k, c % N2)], b = s_p[sw<T2>(k, c % N2 + N2)];
+          const bool low = c < N2;
+          const float2 u = low ? a : make_float2(a.y, -a.x), w = low ? b : make_float2(b.y, -b.x);
+          // X_c[k] = (Z[k] + conj Z[-k]) / 2 below T2/2, (Z[k] - conj Z[-k]) / 2i above (the
+          // same sums with their terms swapped or negated); row 0: X[0, c] + i X[T1/2, c]
+          return k == 0 ? (low ? make_float2(a.x, b.x) : make_float2(a.y, b.y))
+                        : make_float2(0.5f * (u.x + w.x), 0.5f * (u.y - w.y));
+        },
+        [&](int k, int m1, int m2, float2 v) {
+          if (k == 0)
+            s_p[sw<T2>(0, m1 * B2 + m2)] = v;
+          else
+            dout[k * T2 + m1 + A2 * m2] = v;
+        });
+    if (r0 == 0) {
+      for (int k2 = tid & 31; k2 < T2; k2 += 32) {
+        const float2 z = s_p[sw<T2>(0, tc_col<T2>(k2))];
+        const float2 m = s_p[sw<T2>(0, tc_col<T2>((T2 - k2) % T2))];
+        dout[k2] = make_float2(0.5f * (z.x + m.x), 0.5f * (z.y - m.y));
+        dout[N1 * T2 + k2] = make_float2(0.5f * (z.y + m.y), 0.5f * (m.x - z.x));
+      }
+    }
   }
+}
+
+// The slot of h[n, l] (folded_h's values, l in [0, T2/2)) in the inverse
+// stage of B5's tensor-core route: row n / 2 of the plane, the row that row
+// pair n / 2 of the W c2r takes in place, at column l for even n and T2 - l
+// for odd n; for l = 0 the two real values h[n, 0] and h[n, T2/2] go to
+// columns 0 and T2/2, the even row's as the real parts and the odd row's as
+// the imaginary parts. Each slot lies in a column that column pair l's folded
+// H inverse reads (folded_s: l and T2 - l, or 0 and T2/2), so a warp's pass
+// writes over what only it reads, and row p ends up holding both rows of h
+// that element c of its c2r input needs at columns c and T2 - c (pair_c2r_in).
+template <int T2>
+__device__ __forceinline__ void pair_store(float2* s_p, int n, int l, float2 h) {
+  constexpr int N2 = T2 / 2;
+  if (l == 0) {  // h = h[n, 0] + i h[n, T2/2]
+    reinterpret_cast<float*>(s_p + sw<T2>(n >> 1, 0))[n & 1] = h.x;
+    reinterpret_cast<float*>(s_p + sw<T2>(n >> 1, N2))[n & 1] = h.y;
+  } else {
+    s_p[sw<T2>(n >> 1, n & 1 ? T2 - l : l)] = h;
+  }
+}
+
+// folded_s's element k of column pair l, with the same FP32 arithmetic and
+// no branch: one load (two for l = 0 and for bins 0 and T1/2) and selects.
+template <int T1, int T2>
+__device__ __forceinline__ float2 folded_s_tc(const float2* s_p, int k, int l) {
+  constexpr int N1 = T1 / 2, N2 = T2 / 2;
+  const int m = l == 0 ? N2 : T2 - l, kk = k <= N1 ? k : T1 - k;
+  const bool mid = k == 0 || k == N1, up = k > N1, two = mid || l == 0;
+  const float2 a = s_p[sw<T2>(kk, up && !two ? m : l)];
+  float2 e = make_float2(0.f, 0.f);
+  if (two) e = s_p[sw<T2>(kk, m)];
+  const float ay = up ? -a.y : a.y;  // conj of bin T1 - k: a sign flip, no rounding
+  if (l == 0)  // S_0 + i S_T2/2 from columns 0 and T2/2
+    return mid ? make_float2(a.x, e.x) : make_float2(a.x - (up ? -e.y : e.y), ay + e.x);
+  return mid ? make_float2(0.5f * (a.x + e.x), 0.5f * (a.y - e.y)) : make_float2(a.x, ay);
+}
+
+// Element c of row pair p's W c2r input from row p of the plane (pair_store):
+// E_2p[c] + i E_2p+1[c], E the Hermitian extension of a row of h, as c2r_in
+// forms it, E_2p+1 zero where row 2p + 1 is past the valid rows (two false).
+template <int T2>
+__device__ __forceinline__ float2 pair_c2r_in(const float2* s_p, int p, bool two, int c) {
+  constexpr int N2 = T2 / 2;
+  const float2 a = s_p[sw<T2>(p, c)], b = s_p[sw<T2>(p, (T2 - c) % T2)];
+  // c < T2/2: a = h[2p, c], b = h[2p + 1, c]; c > T2/2: a = h[2p + 1, T2 - c], b = h[2p, T2 - c]
+  const bool low = c < N2;
+  const float2 e0 = low ? a : b;
+  float2 e1 = low ? b : a;
+  if (!two) e1 = make_float2(0.f, 0.f);
+  // E0 + i E1 below T2/2, conj(E0) + i conj(E1) above: one sign flip, no rounding
+  const float2 z = make_float2(e0.x - (low ? e1.y : -e1.y), (low ? e0.y : -e0.y) + e1.x);
+  const bool real = c == 0 || c == N2;  // bins 0 and T2/2: the two real values as they are
+  return real ? make_float2(a.x, two ? a.y : 0.f) : z;
 }
 
 // The inverse stage of B5's tensor-core route, grid (B * Cout, tiles of this
@@ -1384,10 +1545,12 @@ fused2d_v3_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
 // into the plane by 16-byte cp.async; the folded H inverse of
 // fused2d_v3_mac_inverse, a pass of G column pairs through the staging, each
 // warp owning CW of them through both steps (hstep_tiles), h written over
-// the pairs' own columns (folded_slot); then the W c2r of the V1 rows, R row
-// pairs a chunk: E_2p + i E_2p+1 (c2r_in) into rows of the staging, their
-// inverse DFT (row_dft_tc, sample z at tc_col(z)), the two output rows
-// stored with 1/(T1 T2).
+// the pairs' own columns into the rows of its row pairs (pair_store); then
+// the W c2r of the ceil(V1 / 2) row pairs in place in the plane, warp w
+// owning pairs [w P / 8, (w + 1) P / 8) of the P, kRowGroup at a time
+// through both steps (row_group_tc, its step-1 tiles closed under c -> T2 -
+// c, whose loads form E_2p + i E_2p+1, pair_c2r_in; step 2 stores the two
+// output rows with 1/(T1 T2)): two block barriers in all.
 template <int T1, int T2, int MODE>
 __global__ void __launch_bounds__(kThreads, B2Plan<T1, T2>::kMinBlocks)
 fused2d_v3_inverse_tc(const float2* __restrict__ y,       // (units of this launch, Cout, NB1, T2)
@@ -1397,10 +1560,7 @@ fused2d_v3_inverse_tc(const float2* __restrict__ y,       // (units of this laun
                       int v1, int v2, int nt2, int tile0, int oh, int ow) {
   using P = B2Plan<T1, T2>;
   constexpr bool X3 = MODE == 3;
-  constexpr int A1 = P::kA1, B1 = P::kB1, A2 = P::kA2, B2 = P::kB2, G = P::kG, N2 = T2 / 2;
-  // row pairs of one W chunk: the whole row groups that the staging holds
-  constexpr int R = P::kStage / T2 / kRowGroup * kRowGroup;
-  static_assert(R >= kRowGroup, "the W chunk does not fit the staging");
+  constexpr int A1 = P::kA1, B1 = P::kB1, A2 = P::kA2, G = P::kG, N2 = T2 / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const B2Smem<T1, T2, false> s(smem_raw, fac);
   float2* s_p = s.plane;
@@ -1416,39 +1576,30 @@ fused2d_v3_inverse_tc(const float2* __restrict__ y,       // (units of this laun
   for (int c0 = 0; c0 < N2; c0 += G)
     hstep_tiles<T1, X3, true>(
         s.stage, frag,
-        [&](int m, int j1) { return folded_s<T1, T2>(s_p, j1 * B1 + m % B1, c0 + m / B1); },
+        [&](int m, int j1) { return folded_s_tc<T1, T2>(s_p, j1 * B1 + m % B1, c0 + m / B1); },
         s.tw1,
         [&](int c, int m1, int m2, float2 v) {
           const int n = m1 + A1 * m2;
-          if (n < v1) s_p[folded_slot<T1, T2>(n, c0 + c)] = v;
+          if (n < v1) pair_store<T2>(s_p, n, c0 + c, v);
         });
   __syncthreads();
 
   const float scale = 1.f / (float)(T1 * T2);
   float* oplane = out + (int64_t)blockIdx.x * oh * ow;
-  const int npair = (v1 + 1) / 2;
-  for (int p0 = 0; p0 < npair; p0 += R) {
-    const int rows = min(R, npair - p0);
-    for (int i = tid; i < rows * T2; i += kThreads) {
-      const int pr = i / T2, c = i % T2, r = 2 * (p0 + pr);
-      s.stage[sw<T2>(pr, c)] = c2r_in<T1, T2>(s_p, r, r + 1 < v1, c);
-    }
-    __syncthreads();
-    row_dft_tc<T2, X3, true>(s.stage, rows, frag, s.tw2);
-    __syncthreads();
-    // column p = m1 B2 + m2 holds sample z = m1 + A2 m2
-    for (int i = tid; i < rows * T2; i += kThreads) {
-      const int pr = i / T2, p = i % T2, z = p / B2 + A2 * (p % B2);
-      const int r = 2 * (p0 + pr), oy = h0 + r, ox = w0 + z;
-      if (z < v2 && ox < ow && oy < oh) {
-        const float2 v = s.stage[sw<T2>(pr, p)];
-        float* row = oplane + (int64_t)oy * ow + ox;
-        row[0] = v.x * scale;
-        if (r + 1 < v1 && oy + 1 < oh) row[ow] = v.y * scale;
-      }
-    }
-    __syncthreads();  // the staging is read before the next chunk overwrites it
-  }
+  const int npair = (v1 + 1) / 2, warp = tid >> 5;
+  const int pe = (warp + 1) * npair / kWarps;
+  for (int p0 = warp * npair / kWarps; p0 < pe; p0 += kRowGroup)
+    row_group_tc<T2, X3, true, true>(
+        s_p, p0, pe, frag, s.tw2,
+        [&](int p, int c) { return pair_c2r_in<T2>(s_p, p, 2 * p + 1 < v1, c); },
+        [&](int p, int m1, int m2, float2 v) {  // sample z of output rows 2p and 2p + 1
+          const int z = m1 + A2 * m2, r = 2 * p, oy = h0 + r, ox = w0 + z;
+          if (z < v2 && ox < ow && oy < oh) {
+            float* row = oplane + (int64_t)oy * ow + ox;
+            row[0] = v.x * scale;
+            if (r + 1 < v1 && oy + 1 < oh) row[ow] = v.y * scale;
+          }
+        });
 }
 
 // B2's tensor-core route, or with V3 B5's: phase 1, the MAC stage (MODE 0

@@ -57,12 +57,13 @@ holds of D and Y, and at least one, so the route runs every shape that
 Under "v3" the bf16 modes run B5's tensor-core route (``fused2d_v3_forward_tc``,
 replacing ``fft_conv_tpu/kernels/fused2d.py:419``): the same three stages in
 B5's order. Phase 1 stages the window by cp.async, runs the H DFT of the
-packed column pairs and the W DFT of the NB1 rows, and writes B2's D; the
-MAC stage is B2's without its inverse W DFT (Y in natural bin order, the same
-scratch and geometry); the inverse stage runs the folded H-first inverse and
-then the W c2r on row pairs. Its plain version is
-``_fused2d_forward_reference_v3(..., mode=)``, ``_v3_forward`` and
-``_v3_inverse`` with the mode's products.
+packed column pairs and the W DFT of T1/2 rows (rows 0 and T1/2, both real,
+packed as one and split at D), and writes B2's D; the MAC stage is B2's
+without its inverse W DFT (Y in natural bin order, the same scratch and
+geometry); the inverse stage runs the folded H-first inverse and then the W
+c2r on row pairs, each warp its own pairs in place. Its plain version is
+``_fused2d_forward_reference_v3(..., mode=)``, ``_v3_forward`` (with the
+packed row under a mode) and ``_v3_inverse`` with the mode's products.
 
 Not ported from the JAX module: the TPU's MAC-mode and prefetch switches.
 """
@@ -416,17 +417,31 @@ def _v3_forward(a: torch.Tensor, dot=None):
     and -k split into the two columns' one-sided spectra (X_q = (Z[k] +
     conj Z[-k]) / 2, X_q+T2/2 = (Z[k] - conj Z[-k]) / 2i), then the W DFT
     of the NB1 rows. ``dot``: each DFT product of a tensor-core mode
-    (``fused1d._DOTS``), None for FP32; the split stays FP32. Returns
-    (dr, di) (..., NB1, T2): B2's D."""
+    (``fused1d._DOTS``), None for FP32 (B5's FP32 pair). Under a mode the
+    W DFT runs in the tensor-core route's order, on T1/2 rows: rows 0 and
+    T1/2, both real, as one complex row X[0] + i X[T1/2] in row 0's place,
+    its bins Z split into D's rows 0 and T1/2 as (Z[k] + conj Z[-k]) / 2 and
+    (Z[k] - conj Z[-k]) / 2i. The splits stay FP32. Returns (dr, di) (...,
+    NB1, T2): B2's D."""
     t1, t2 = a.shape[-2:]
-    nb1, n2 = t1 // 2 + 1, t2 // 2
+    nb1, n1, n2 = t1 // 2 + 1, t1 // 2, t2 // 2
     zr, zi = _dft_last(a[..., :n2].transpose(-1, -2), a[..., n2:].transpose(-1, -2), False,
                        dot)
     neg = -torch.arange(nb1, device=a.device) % t1
     ar, ai, br, bi = zr[..., :nb1], zi[..., :nb1], zr[..., neg], zi[..., neg]
     hr = torch.cat([ar + br, ai + bi], dim=-2) / 2  # (..., T2, NB1): columns q, then q + T2/2
     hi = torch.cat([ai - bi, br - ar], dim=-2) / 2
-    return _dft_last(hr.transpose(-1, -2), hi.transpose(-1, -2), False, dot)
+    hr, hi = hr.transpose(-1, -2), hi.transpose(-1, -2)  # (..., NB1, T2)
+    if dot is None:
+        return _dft_last(hr, hi, False)
+    pr = torch.cat([hr[..., :1, :], hr[..., 1:n1, :]], dim=-2)  # (..., T1/2, T2)
+    pi = torch.cat([hr[..., n1:, :], hi[..., 1:n1, :]], dim=-2)
+    zr, zi = _dft_last(pr, pi, False, dot)
+    neg = -torch.arange(t2, device=a.device) % t2
+    p_r, p_i, q_r, q_i = zr[..., :1, :], zi[..., :1, :], zr[..., :1, neg], zi[..., :1, neg]
+    dr = torch.cat([0.5 * (p_r + q_r), zr[..., 1:, :], 0.5 * (p_i + q_i)], dim=-2)
+    di = torch.cat([0.5 * (p_i - q_i), zi[..., 1:, :], 0.5 * (q_r - p_r)], dim=-2)
+    return dr, di
 
 
 def _v3_inverse(yr: torch.Tensor, yi: torch.Tensor, v1: int, dot=None) -> torch.Tensor:
@@ -442,7 +457,9 @@ def _v3_inverse(yr: torch.Tensor, yi: torch.Tensor, v1: int, dot=None) -> torch.
     the output, 1/(T1 T2) in one product, as the kernels leave it: at T1 =
     384 a division by T1 before the c2r would round its bf16 operands
     otherwise. ``dot`` as ``_v3_forward``'s, for the products of both
-    DFTs."""
+    DFTs. The tensor-core route's inverse stage keeps h in its row pairs'
+    rows and forms each c2r input with these FP32 sums, so its order is
+    this one under every mode."""
     nb1, t2 = yr.shape[-2:]
     t1, n1, n2 = 2 * (nb1 - 1), nb1 - 1, t2 // 2
     cols = torch.arange(n2 + 1, device=yr.device)
@@ -586,11 +603,11 @@ def _fused2d_forward_reference_v3(
     for a float64 signal and float32 otherwise. The H-first forward on
     packed column pairs, then W (``_v3_forward``); B2's MAC; the folded
     H-first inverse and the W c2r on row pairs (``_v3_inverse``), every DFT
-    through ``_dft_last`` in split re/im arithmetic. The order is both B5's
-    FP32 pair's and its tensor-core route's, so under "bf16x3" and "bf16"
-    each DFT product rounds its operands to bfloat16 where the route does
-    (``fused1d._DOTS``). Arguments and result as
-    ``_fused2d_forward_reference``."""
+    through ``_dft_last`` in split re/im arithmetic. Under "bf16x3" and
+    "bf16" in the tensor-core route's order (the W DFT on T1/2 rows, rows 0
+    and T1/2 packed as one), each DFT product rounding its operands to
+    bfloat16 where the route does (``fused1d._DOTS``). Arguments and result
+    as ``_fused2d_forward_reference``."""
     if mode not in PRECISION_MODES:
         raise ValueError(f"unknown fused precision mode: {mode!r}")
     dot = _DOTS[mode]

@@ -525,6 +525,43 @@ def test_tc_2d_v3_kernel_in_tile_ranges(cuda, monkeypatch, mode):
         _assert_tc_2d_close(mode, y, x, k, v3=True)
 
 
+# B5's route at each tile shape with an odd V1 (tile_plan_2d's V1 is a
+# multiple of 8): (B, Cin, Cout, H, W, K1, K2)
+TC_2D_V3_ODD = [
+    (2, 8, 8, 300, 290, 16, 16),   # T1 = 128, V1 = 111
+    (2, 8, 8, 300, 280, 70, 5),    # T1 = 256, V1 = 183
+    (1, 4, 4, 420, 150, 200, 9),   # T1 = 384, V1 = 183
+    (2, 8, 8, 200, 400, 12, 100),  # T2 = 256, V1 = 111
+]
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("b,cin,cout,h,w,k1,k2", TC_2D_V3_ODD)
+def test_tc_2d_v3_kernel_at_an_odd_v1(cuda, monkeypatch, mode, b, cin, cout, h, w, k1, k2):
+    """B5's tensor-core route against its plain version with the tile
+    plan's V1 one less, odd, on both sides (the plain version reads the
+    plan through ``tile_plan_2d``), so that the W c2r's last row pair holds
+    one valid row and its second row is zeros: "bf16x3" under the FP32
+    bar, "bf16" under ``_assert_bf16_2d_kernel_close``."""
+    plan_of = fused2d.tile_plan_2d
+
+    def odd(*args):
+        t1, v1, nb1, t2, v2 = plan_of(*args)
+        return t1, v1 - 1, nb1, t2, v2
+
+    monkeypatch.setattr(fused2d, "tile_plan_2d", odd)
+    x, k = _tensors(cuda, h + k1, (b, cin, h, w), (cout, cin, k1, k2))
+    k /= (cin * k1 * k2) ** 0.5
+    plan = fused2d.tile_plan_2d(k1, k2, cin, cout)
+    assert plan[1] % 2 == 1
+    spectra = fused2d.kernel_spectra_2d(k, plan[0], plan[2], plan[3])
+    before = _counts_2d()
+    y = fused2d._launch_fused2d_v3(x, spectra, plan, 1, (k1, k2), mode)
+    torch.cuda.synchronize()
+    assert _counts_2d() == before[:3] + [before[3] + 1]
+    _assert_tc_2d_close(mode, y, x, k, v3=True)
+
+
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
 def test_tc_modes_route_every_2d_path_on_cuda_under_v3(cuda, precision2d, mode):
     """Under "v3" and a bf16 mode a CUDA tensor's 2D calls (``fft_conv``

@@ -468,20 +468,20 @@ def test_cost_analysis_records_the_mode(modes, mode):
     assert ms == max(nbytes / costs.HBM_BYTES_PER_S,
                      rest / costs.FP32_FLOPS_PER_S + products / costs.BF16_FLOPS_PER_S) * 1e3
     # under "v3", "B5_<mode>" with B5's route's count: the same bytes, the H
-    # DFTs of the T2/2 packed columns and pairs, the W DFTs of the NB1 rows
-    # and of the ceil(V1/2) row pairs
+    # DFTs of the T2/2 packed columns and pairs, the W DFTs of the T1/2 rows
+    # (rows 0 and T1/2 packed as one) and of the ceil(V1/2) row pairs
     set_fused2d_kernel("v3")
     out = cost_analysis(lambda s, kk: ft.fft_conv(s, kk, impl="fused"), x, w)
     v3_bytes, v3_products, v3_rest = costs.fused2d_tc_work(2, 4, 6, 150, 140, 9, plan, mode,
                                                            v3=True)
     assert out["kernels"] == {f"B5_{mode}": {"calls": 1, "flops": v3_products + v3_rest,
                                              "bytes": v3_bytes}}
-    t1, v1, nb1, t2, _ = plan
+    t1, v1, _, t2, _ = plan
     tiles, passes = 2 * 2 * 2, 3 if mode == "bf16x3" else 1
     dft = lambda a, bb: 8 * (bb * a * a + a * bb * bb)  # noqa: E731
     h_dft, w_dft = dft(*fused2d._SPLITS[t1]), dft(*fused2d._SPLITS[t2])
     assert v3_bytes == nbytes and v3_products == tiles * passes * (
-        4 * (t2 // 2 * h_dft + nb1 * w_dft) + 6 * (t2 // 2 * h_dft + -(-v1 // 2) * w_dft))
+        4 * (t2 // 2 * h_dft + t1 // 2 * w_dft) + 6 * (t2 // 2 * h_dft + -(-v1 // 2) * w_dft))
 
 
 # (B, Cin, Cout, groups, H, W, K1, K2): shapes fused2d_fits admits, at the

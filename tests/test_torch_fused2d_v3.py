@@ -102,6 +102,39 @@ def test_packed_column_forward_equals_dense_v3_forward_in_float64(t1, t2):
         assert np.abs(g.numpy() - w).max() <= 1e-12 * scale
 
 
+# every plan at an odd V1, so that the W c2r's last row pair holds one row
+ODD_V1 = [(t1, t2, t1 - c) for (t1, t2), c in zip(PLANS, (15, 33, 31, 17))]
+
+
+@pytest.mark.parametrize("t1,t2,v1", ODD_V1)
+def test_tensor_core_order_equals_dense_v3_in_float64(t1, t2, v1):
+    """The order of B5's tensor-core route, which ``_v3_forward`` and
+    ``_v3_inverse`` run when a mode's product is passed as ``dot`` (here the
+    exact float64 ``torch.matmul``): the W DFT on T1/2 rows, rows 0 and T1/2
+    packed as one complex row and split into D's rows 0 and T1/2, and the W
+    c2r of row pairs (at an odd V1 the last pair has one row), equal the
+    dense v3 forward and inverse of ``_mats_2d_v3``, as the unpacked order
+    does."""
+    nb1 = t1 // 2 + 1
+    rng = np.random.default_rng(t1 + t2 + v1)
+    a = rng.standard_normal((2, t1, t2))
+    yr, yi = rng.standard_normal((2, 2, nb1, t2))
+    f2, wr, wi, ur, ui, cz1, cz2 = fused2d._mats_2d_v3(t1, nb1, t2, v1, np.float64)
+    b2 = f2 @ a
+    hr, hi = b2[:, :nb1], b2[:, nb1:]
+    want = hr @ wr - hi @ wi, hr @ wi + hi @ wr
+    got = fused2d._v3_forward(torch.from_numpy(a), torch.matmul)
+    scale = max(np.abs(m).max() for m in want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        assert np.abs(g.numpy() - w).max() <= 1e-12 * scale
+    y2 = np.concatenate([yr, yi], axis=-2)
+    want = (cz1 @ y2) @ ur - (cz2 @ y2) @ ui
+    got = fused2d._v3_inverse(torch.from_numpy(yr), torch.from_numpy(yi), v1, torch.matmul)
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-12 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("shape,k,groups", [
     ((2, 3, 140, 170), (4, 3, 16, 16), 1),
     ((1, 4, 150, 160), (6, 2, 9, 7), 2),     # groups
