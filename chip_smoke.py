@@ -54,9 +54,9 @@ groups, staged chunks, "pk", item ranges), through the 3D main paths
 (``fft_conv``, plans, the transposed calls, ``FFTConv3d``,
 ``FFTConvTranspose3d``, "pk", inline) counted from zero, the modes' errors
 ordered at the 3D rows, and the three modes timed at the four 3D rows;
-phase 2 fails if one of fused3d.cu's 45 entry points spills or one of its
-12 tensor-core ones holds no HMMA. Then three phases drive the modules
-around the kernels: ``streaming`` (each
+phase 2 fails if one of fused3d.cu's 63 entry points spills or one of its
+30 tensor-core ones holds no HMMA or takes more than 128 registers. Then
+three phases drive the modules around the kernels: ``streaming`` (each
 1D row's signal fed to ``ops.streaming_conv1d_step`` in 8 frames of 4096
 samples, a ragged split, dilation 2 and groups 2; one B1 launch per chunk,
 held to the one-shot call; the step's and the stream's times), ``harness``
@@ -903,9 +903,11 @@ def check_fused3d_tc(torch, inputs3d, inputs3t, mode):
     (odd), the stuffed 78^3 (Hw 78 = 13 x 6, two W blocks) and 82^3 (Hw 84 =
     7 x 12) volumes of the transposed rows, H = 256, groups = 2 and 3 (4, 2
     and 1 output channels a block of d_mac_tc), a group of 24 channels
-    staged in 3 chunks, odd D and OD, "pk" (B6's layout) and the items split
-    over several launches. The extra cases draw from a generator of their
-    own. "bf16x3" under the FP32 bar, "bf16" under ``close_bf16_2d``.
+    staged in 3 chunks, odd D and OD, "pk" (B6's layout), the items split
+    over several launches, and the new blocking's edges: H = 48 (8 x 6) at a
+    small volume, 6 output channels (2 a block), one (item, D-block) pair
+    (fewer than d_mac_tc's warps). The extra cases draw from a generator of
+    their own. "bf16x3" under the FP32 bar, "bf16" under ``close_bf16_2d``.
     Returns the rows' max abs errors, (B3's, B4's)."""
     from fft_conv_tpu_torch.kernels import fused3d
 
@@ -963,6 +965,9 @@ def check_fused3d_tc(torch, inputs3d, inputs3t, mode):
         ((2, 8, 82, 82, 82), (8, 8, 10, 10, 10), 1, "stuffed 82^3, K=10 (Hw 84), 2 W blocks"),
         ((2, 4, 24, 12, 20), (4, 4, 12, 3, 7), 1, "tap H=12 (one dense step)"),
         ((1, 6, 21, 26, 12), (6, 2, 10, 3, 3), 3, "tap H=26 (13 x 2), groups=3"),
+        ((2, 4, 18, 48, 48), (4, 4, 8, 8, 8), 1, "H=48 (8 x 6)"),
+        ((1, 4, 16, 20, 20), (6, 4, 3, 3, 3), 1, "Cout 6: 2 output channels a block"),
+        ((1, 2, 10, 64, 20), (2, 2, 3, 3, 3), 1, "one (item, D-block) pair at H=64"),
     ]:
         vs_plain(randn(*shape), randn(*k) / math.sqrt(math.prod(k[1:])), groups, what)
 
@@ -3528,17 +3533,24 @@ def main() -> int:
     # 32, 64, 128 and the one that takes any split, direct and packed; the D
     # kernels d_mac at 8, 4, 2, 1 and tap_mac at 4, 2, 1 output channels a
     # block; the pack kernel; B7; the tensor-core kernels under "bf16x3" and
-    # "bf16": hw_forward_tc direct and packed, hw_inverse_tc, d_mac_tc at 4,
-    # 2, 1 output channels a block, each holding HMMA instructions), and
-    # every entry point's registers
+    # "bf16": hw_forward_tc direct at the splits (8, 8), (8, 6), (13, 6), (7,
+    # 12) and the one taken as arguments, packed at (8, 8) and at the one
+    # taken as arguments, hw_inverse_tc at the five, d_mac_tc at 4, 2, 1
+    # output channels a block, each holding HMMA instructions), and every
+    # entry point's registers; the tensor-core kernels within the 128
+    # registers that let two blocks share an SM (16 warps: d_mac_tc's 264
+    # blocks at 64^3 in one wave)
     spills = ptxas_spills(_build.build_logs["fused3d"])
     tc_entries = [fn for fn in spills if "_tc" in fn]
-    check(len(spills) == 45 and len(tc_entries) == 12 and not any(sum(v) for v in spills.values()),
-          f"fused3d.cu's 45 entry points spill registers or are missing: {spills}")
+    check(len(spills) == 63 and len(tc_entries) == 30 and not any(sum(v) for v in spills.values()),
+          f"fused3d.cu's 63 entry points spill registers or are missing: {spills}")
     hmma = {fn: c for fn, c in sass_hmma(paths["fused3d"]).items() if "_tc" in fn}
     check(sorted(hmma) == sorted(tc_entries) and all(c > 0 for c in hmma.values()),
           f"fused3d.cu's tensor-core entry points lack HMMA instructions: {hmma}")
     regs = ptxas_registers(_build.build_logs["fused3d"])
+    tc_regs = {fn: r for fn, r in regs.items() if "_tc" in fn}
+    check(len(tc_regs) == 30 and max(tc_regs.values()) <= 128,
+          f"a tensor-core kernel of fused3d.cu takes more than 128 registers: {tc_regs}")
     print(json.dumps({"phase": "ptxas", "kernel": "B3, B4, B6, B7 and B3's, B4's tensor-core "
                       "chains", "spill_bytes": spills, "registers": regs, "sass_hmma": hmma,
                       "build_s": round(build_s, 2)}))

@@ -81,8 +81,9 @@ __device__ __forceinline__ uint2 b_frag(const uint32_t* __restrict__ half, int k
 // then runs the n-tiles of 4 outputs NU at a time, each with its own
 // accumulators so that their product chains overlap. All of the tile's loads
 // are done before any of its stores (__syncwarp), so st may write in place
-// over the tile's own inputs. No barrier.
-template <int R, bool X3, typename LD, typename ST>
+// over the tile's own inputs. No barrier. FULL: every tile is whole (nvec a
+// multiple of 16), so that no vector is checked and no load sits in a branch.
+template <int R, bool X3, bool FULL = false, typename LD, typename ST>
 __device__ __forceinline__ void dft_tile(int m0, int nvec, const uint32_t* __restrict__ frag,
                                          LD ld, ST st) {
   static_assert(R % 8 == 0, "a DFT step takes whole k-steps of 8 complex elements");
@@ -90,7 +91,7 @@ __device__ __forceinline__ void dft_tile(int m0, int nvec, const uint32_t* __res
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const uint32_t* fl = frag + 2 * R * R;
   const int ma = m0 + g, mb = ma + 8;
-  const bool live0 = ma < nvec, live1 = mb < nvec;
+  const bool live0 = FULL || ma < nvec, live1 = FULL || mb < nvec;
   uint32_t ah[KS][4], al[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
@@ -135,15 +136,15 @@ __device__ __forceinline__ void dft_tile(int m0, int nvec, const uint32_t* __res
 }
 
 // One complex R-point DFT step of nvec vectors (dft_tile's ld, st and
-// frag), its tiles of 16 vectors dealt to the block's NW warps in turn. Only
-// the warp that holds a tile touches its vectors, so st may write in place.
-// No barrier.
-template <int R, bool X3, int NW, typename LD, typename ST>
+// frag, FULL), its tiles of 16 vectors dealt to the block's NW warps in turn.
+// Only the warp that holds a tile touches its vectors, so st may write in
+// place. No barrier.
+template <int R, bool X3, int NW, bool FULL = false, typename LD, typename ST>
 __device__ __forceinline__ void dft_step(int nvec, const uint32_t* __restrict__ frag, LD ld,
                                          ST st) {
   const int mtiles = (nvec + 15) / 16;
   for (int tile = threadIdx.x >> 5; tile < mtiles; tile += NW)
-    dft_tile<R, X3>(tile * 16, nvec, frag, ld, st);
+    dft_tile<R, X3, FULL>(tile * 16, nvec, frag, ld, st);
 }
 
 }  // namespace bf16_mma

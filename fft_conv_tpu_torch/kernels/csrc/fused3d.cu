@@ -151,7 +151,10 @@
 // shared memory allows 2 blocks up to Hw = 224 and 1 up to 256. On the H100
 // (PERF.md) the forward takes about 0.022 ms and the inverse 0.016 at 64^3,
 // about half the HBM rate; two pairs a block, 2 to 4 blocks an SM and
-// 128-thread blocks all time within 5% of that.
+// 128-thread blocks all time within 5% of that. The precision modes'
+// tensor-core H/W kernels (below) keep one slab pair a block too, in one
+// plane of complex rows, built for the rows' four splits and once for a
+// split taken as arguments, each bounded for 2 blocks an SM.
 //
 // Schedule of the D kernels. Their stage moves T in, the spectra in and Z
 // out (50.0 MB for B3 at the benchmark, 0.0149 ms at 3.35 TB/s, bytes bound
@@ -174,7 +177,10 @@
 // reads and one L2 read, issued a tap ahead. A group whose
 // tile exceeds kStageBytes is staged in chunks of channels (d_mac) or of
 // (channel, tap) entries (tap_mac), re-staged once per round of pairs.
-// Tensor cores (wgmma) and TMA staging are left for later work.
+// Under the precision modes B3 runs d_mac_tc (below) in place of d_mac:
+// 16 bins a block, at most 4 output channels, T staged by cp.async, one
+// wave at 2 blocks an SM; B4 keeps tap_mac. wgmma and TMA staging are left
+// for later work.
 //
 // B6 replaces fft_conv_tpu/kernels/fused3d.py:1184 (_pack3d_call), the TPU's
 // x-pack kernel of the "pk" x-pack mode: a pure permutation of the signal
@@ -764,6 +770,12 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
+// 16 bytes, of which only `bytes` are read (0: all zeros).
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -1581,35 +1593,64 @@ fused3d_tap_mac(const float2* __restrict__ t,   // (items of this launch, Cin, d
 // them: cmulw_rn), the split of bins k and Hw - k, the Hermitian extension,
 // the MACs (B4's tap_mac unchanged) and the scales stay FP32. The matrices
 // come from the per-call table of fused3d.py:_tc_fragments_3d (tc_table).
-// One slab pair a block, as the factored FP32 kernels:
-//   * hw_forward_tc, grid (items * Cin, ceil(d / 2)): the pair's slabs copied
-//     as by the factored forward (copy_pairs); the Hw-point DFT of each packed
-//     column as the HA-point step over j1 (vectors (j2, column), then the
-//     twiddle) and the HB-point step over j2 (vectors (m1, column)), leaving
-//     bin k = m1 + HA m2 at row m1 HB + m2 (for H < 16 one H-point step,
-//     HB = 1, row k); an FP32 pass splitting bins k and Hw - k into the two
-//     slabs' one-sided rows (k = 0 and Hw / 2 of the second slab in the spare
-//     rows Hw and Hw + 1); the two W steps (8 points, vectors (row, j2), then
-//     (row, m1)), the second storing each vector's bins m1 + 8 m2 to T;
+//
+// The H/W pair holds one slab pair a block in a plane of rows of 64 complex
+// values (TcPlane: one 8-byte access a complex element), and is built for
+// the splits (HA, HB) of the rows it serves, (8, 8) at 64^3, (8, 6) at 48^3,
+// (13, 6) at the stuffed 78^3 and (7, 12) at the stuffed 84, with every
+// index a constant, and once with the split as arguments for every other H
+// from 1 to 256 (HA = HB = 0 in the template; one dense H step, HB = 1, for
+// H < 16). Their columns are permuted per row so that each step's tensor-
+// core loads and stores (4 vectors x 4 elements a half-warp) fall in
+// distinct banks at every built split: a CPU model of the banks counts no
+// conflict in any step (the runtime instance's H steps keep 4-way ones).
+// Every step runs whole tiles (bf16_mma.cuh: FULL), so that no load sits in
+// a branch, and a lane's W twiddles are two values held through the step
+// (WTwiddles). Both are bounded for kHwTcBlocks = 2 blocks an SM (128
+// registers):
+//   * hw_forward_tc, grid (items * Cin, ceil(d / 2)): the two slabs read
+//     into registers, 16 bytes a load, all of a thread's rows at once, and
+//     written as the packed complex column x_2p + i x_2p+1 (load_pair); the
+//     Hw-point DFT of each column as the HA-point step over j1 (vectors (j2,
+//     column), then the twiddle) and the HB-point step over j2 (vectors (m1,
+//     column)), leaving bin k = m1 + HA m2 at row m1 HB + m2 (tc_bin_row;
+//     for H < 16 one H-point step); the first W step (8 points) on the
+//     one-sided rows, a tile of vectors (slab, j2) a bin pair (k, Hw - k),
+//     its loads forming the split of the two bins (split_of) so that no pass
+//     of its own runs, its stores in place (the slabs' rows where Z[k] and
+//     Z[Hw - k] were, rows Hw and Hw + 1 for the second slab's k = 0 and
+//     Hw / 2); the second W step on two rows a tile, storing each vector's
+//     bins m1 + 8 m2 to T. Four barriers;
 //   * hw_inverse_tc, grid (items * Cout, ceil(od / 2)): the pair's rows of Z
-//     into shared memory (sw); the two conjugated W steps, 1/64 applied,
-//     leaving each sample in its own column; an FP32 pass writing the
-//     pair's Hermitian-extended column V = E_2p + i E_2p+1 in place (V[j] at
-//     row j of the first slab for j <= Hw / 2, at row Hw - j of the second
-//     otherwise: vrow); the conjugated Hw-point DFT of V's columns in two
-//     steps (one for H < 16), the last storing Re and Im of the rows below
-//     OH to the two slabs, 1/Hw applied;
-//   * d_mac_tc (B3), grid (positions / 16, Cout / OPB), OPB <= 4: as d_mac,
-//     but a warp's (item, D-block) pair covers 16 bins, one m-tile: per input
-//     channel the DFT-16 of the block's 16 slabs of those bins is one dense
-//     16-point step (two k-steps, four n-tiles), each n-tile's D-bins MACed
-//     into the lane's sums as it comes out (lane (g, t) holds bins g, g + 8
-//     at D-bins t + 4 nt); after the group's channels, per output channel,
-//     the sums are already the A fragments of the conjugated DFT-16, run onto
-//     the two n-tiles of the 8 valid d.
+//     by 16-byte cp.async into the rows of V's indices (E_2p[k] at row k,
+//     E_2p+1[k] at row Hw - k, its k = 0 at row Hw and its Nyquist at the row
+//     tc_nyquist_offset picks); the two conjugated W steps in place, 1/64
+//     applied; the conjugated Hw-point DFT of V = E_2p + i E_2p+1, whose
+//     Hermitian extension the first H step's loads form (hermitian_v, from
+//     the rows of j and Hw - j; its tiles hold the columns of j2 and its
+//     mirror HB - j2, so that its stores land in place), the second storing
+//     Re and Im of the rows below OH to the two slabs, 1/Hw applied. Four
+//     barriers;
+//   * d_mac_tc (B3), grid (positions / 16, Cout / OPB), OPB <= 4, 8 warps,
+//     bounded for 2 blocks an SM: the 264 blocks at 64^3 run as one wave.
+//     A block stages its bins' spectra (16 bins x OPB output channels x 16
+//     D-bins of each of the group's channels; in chunks of cc where the
+//     group does not fit kStageBytes) and walks its (item, D-block) pairs in
+//     rounds of one pair a warp; per round and input channel the slabs its
+//     pairs read (16 bins each, one copy of the slabs two D-blocks share)
+//     are staged by cp.async in one of two tiles, the next channel's copies
+//     (and in the first round its spectra) issued as the products of this
+//     one run, so that each block reads T once and the call twice (two
+//     output-channel blocks). Per channel a warp's pair covers one m-tile of 16 bins: the
+//     DFT-16 of its 16 slabs is one dense 16-point step (two k-steps, four
+//     n-tiles), each n-tile's D-bins MACed into the lane's sums as it comes
+//     out (lane (g, t) holds bins g, g + 8 at D-bins t + 4 nt); after the
+//     group's channels, per output channel, the sums are already the A
+//     fragments of the conjugated DFT-16, run onto the two n-tiles of the 8
+//     valid d. The tiles' rows and the spectra are swizzled (bin ^ 4 (row &
+//     3)) so that the A-fragment and spectrum loads are free of conflicts.
 // Bound: the same bytes as the FP32 chains; the products at the bf16 rate
-// (kernels/costs.py: fused3d_tc_work, fused3d_tap_tc_work). Made right
-// first: bank conflicts and the occupancy of these kernels are untuned.
+// (kernels/costs.py: fused3d_tc_work, fused3d_tap_tc_work).
 
 // a * w, or a * conj(w) for the inverse, each product rounded on its own (no
 // FMA), as torch rounds the plain version's twiddle, so that the operand the
@@ -1645,10 +1686,11 @@ __device__ __forceinline__ const uint32_t* conj_block(const uint32_t* block, int
   return block + bf16_mma::table_words(r) / 2;
 }
 
-// One r-point DFT step (r <= 16) of nvec vectors, at step size r8 =
-// step_size(r) with the r x r matrix in the corner of frag's: ld(m, j) is read
-// for j < r only, st(m, k, v) called for k < r only.
-template <bool X3, typename LD, typename ST>
+// One r-point DFT step (r <= 16) of nvec vectors (a multiple of 16: whole
+// tiles), at step size R8 (8 or 16; 0: r8 = step_size(r), taken at run
+// time) with the r x r matrix in the corner of frag's: ld(m, j) is read for
+// j < r only, st(m, k, v) called for k < r only.
+template <int R8, bool X3, typename LD, typename ST>
 __device__ __forceinline__ void tc_step(int r, int r8, int nvec, const uint32_t* frag, LD ld,
                                         ST st) {
   constexpr int NW = kHwThreads / 32;
@@ -1656,19 +1698,187 @@ __device__ __forceinline__ void tc_step(int r, int r8, int nvec, const uint32_t*
   const auto str = [&](int m, int k, float2 v) {
     if (k < r) st(m, k, v);
   };
-  if (r8 == 8)
-    bf16_mma::dft_step<8, X3, NW>(nvec, frag, ldr, str);
+  if constexpr (R8 != 0)
+    bf16_mma::dft_step<R8, X3, NW, true>(nvec, frag, ldr, str);
+  else if (r8 == 8)
+    bf16_mma::dft_step<8, X3, NW, true>(nvec, frag, ldr, str);
   else
-    bf16_mma::dft_step<16, X3, NW>(nvec, frag, ldr, str);
+    bf16_mma::dft_step<16, X3, NW, true>(nvec, frag, ldr, str);
+}
+
+// The blocks an SM the tensor-core H/W kernels are bounded for (128
+// registers a thread).
+constexpr int kHwTcBlocks = 2;
+
+// The plane of the tensor-core H/W kernels at the split (HA, HB) (HB = 0:
+// the split comes as arguments): rows of 64 complex values, column c of row
+// r at c ^ ((c >> 2) & 4) ^ 4 rot(r), rot(r) = (r / HB + r % HB) mod 4.
+// Bit 4 of the column moves to bit 2, so that a half-warp of the W steps (4
+// vectors x 4 elements at columns 8 a + b, b < 4) spreads over 16 bank pairs;
+// rot spreads the H steps' half-warps (4 columns x 4 rows r = j1 HB + j2, j1
+// or j2 running) alike, as it steps by one with either of r's digits. The
+// split taken at run time keeps rot = 0 (4-way conflicts in its H steps).
+template <int HA, int HB>
+struct TcPlane {
+  float2* p;
+  // row r = a HB + b given with the sum of its digits, a + b (the H steps
+  // know them, so that their rot needs no division)
+  __device__ __forceinline__ float2& at(int r, int digits, int c) const {
+    const int rot = HB > 0 ? digits & 3 : 0;
+    return p[r * kTW + (c ^ ((c >> 2) & 4) ^ (rot << 2))];
+  }
+  __device__ __forceinline__ float2& operator()(int r, int c) const {
+    constexpr unsigned B = HB > 0 ? HB : 1;
+    return at(r, HB > 0 ? (int)((unsigned)r / B + (unsigned)r % B) : 0, c);
+  }
+};
+
+// The row offset past Hw of the second slab's Nyquist bin in the inverse's
+// plane: where rot matches that of the row the first H step's mirrored
+// loads would read beside it, so that they stay free of conflicts (1 for
+// the split taken at run time).
+template <int HA, int HB>
+__host__ __device__ constexpr int tc_nyquist_offset() {
+  if constexpr (HB == 0) {
+    return 1;
+  } else {
+    constexpr int target = HA % 2 == 0 ? HA / 2 % 4 : ((HA - 1) / 2 + HB / 2) % 4;
+    constexpr int i = ((target - HA) % 4 + 4) % 4;
+    static_assert((i == 0 ? 4 : i) < HB, "the Nyquist row must keep the row digit");
+    return i == 0 ? 4 : i;
+  }
+}
+
+// The twiddles tw[m1, j2] of the first W step that this lane applies: its
+// vectors all have j2 = g (lane = 4 g + t) and its outputs are m1 = t and
+// 4 + t (bf16_mma::dft_tile's layout), so two values serve the whole step.
+struct WTwiddles {
+  float2 lo, hi;
+  __device__ __forceinline__ explicit WTwiddles(const float2* __restrict__ tw) {
+    const int lane = threadIdx.x & 31;
+    lo = __ldg(tw + (lane & 3) * kWB + (lane >> 2));
+    hi = __ldg(tw + (4 + (lane & 3)) * kWB + (lane >> 2));
+  }
+  __device__ __forceinline__ float2 of(int m1) const { return m1 < 4 ? lo : hi; }
+};
+
+// Rows of the plane at the working length hw (both kernels): through the
+// Nyquist row, which is past rows hw and hw + 1.
+template <int HA, int HB>
+__host__ __device__ constexpr int tc_rows(int hw) {
+  return hw + tc_nyquist_offset<HA, HB>() + 1;
 }
 
 // The row of bin k after the two H steps (k = m1 + HA m2 at m1 HB + m2).
-__device__ __forceinline__ int bin_row(int k, int ha, int hb) { return (k % ha) * hb + k / ha; }
+__device__ __forceinline__ int tc_bin_row(unsigned k, unsigned ha, unsigned hb) {
+  return (int)((k % ha) * hb + k / ha);
+}
 
-// The tensor-core kernels take up to 255 registers a thread (one block an SM
-// may then be all that fits): made right first, without spills.
-template <bool X3, bool PK>
-__global__ void __launch_bounds__(kHwThreads, 1)
+// Slab s's one-sided row of the pair's packed bins Z[k] = a and Z[Hw - k] =
+// b (k = 0 and Hw / 2 with themselves): X_2p[k] = (a + conj b) / 2 for s =
+// 0, X_2p+1[k] = (a - conj b) / 2i for s = 1, branch-free.
+__device__ __forceinline__ float2 split_of(int s, float2 a, float2 b) {
+  const float u = s ? a.y : a.x, w = s ? b.y : b.x, p = s ? b.x : a.y, q = s ? a.x : b.y;
+  return make_float2(0.5f * (u + w), 0.5f * (p - q));
+}
+
+// V[j] = E_2p[j] + i E_2p+1[j], Hermitian-extended (V[Hw - k] = conj E_2p[k]
+// + i conj E_2p+1[k]; DC and Nyquist real parts only), from u, the plane's
+// row j, and w, the row of its partner (E_2p+1[j] for j <= Hw / 2, E_2p[Hw -
+// j] above), branch-free.
+__device__ __forceinline__ float2 hermitian_v(int j, float2 u, float2 w, int hw) {
+  const bool hi = 2 * j > hw;
+  const float sg = j == 0 || 2 * j == hw ? 0.f : hi ? -1.f : 1.f;
+  const float2 ea = hi ? w : u, eb = hi ? u : w;
+  return make_float2(ea.x - sg * eb.y, sg * ea.y + eb.x);
+}
+
+// 16 bytes of row hh of slab s from src (columns col4 .. col4 + 3 of the
+// block, zeros past w), by one 16-byte load where it is aligned and inside
+// w, else by four.
+__device__ __forceinline__ float4 fetch4(const float* __restrict__ src, int col4, int w) {
+  if (col4 + 3 < w && (reinterpret_cast<uintptr_t>(src) & 15) == 0)
+    return __ldg(reinterpret_cast<const float4*>(src));
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = col4 + e < w ? __ldg(src + e) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The forward's first step: slabs d0 and d0 + 1 (ns of them inside d) of
+// channel c of item `item`, rows h of 64 samples, as the packed complex
+// column x_2p + i x_2p+1 in rows [0, H) of the plane (zeros past w, past d
+// and in rows h to H - 1). A thread takes columns 4q .. 4q + 3 of rows
+// threadIdx / 16 + 16 i, all of them (rounds of 4 for a split taken at run
+// time) loaded before any is stored. No barrier.
+template <bool PK, int H_, class Plane>
+__device__ __forceinline__ void load_pair(const Plane& cell, const float* __restrict__ x, int ns,
+                                          int H, int cin, int d, int h, int w, int ow, int nwb,
+                                          int hop, int item, int c, int d0, int pp) {
+  const float* xs;
+  int64_t hs, ss;
+  int start = 0;
+  if (PK) {  // slab d of channel c in row c * pp + d / 2, lanes 64 (d % 2) + [0, 64)
+    xs = x + ((int64_t)item * h * cin + c) * pp * 2 * kTW + (int64_t)(d0 >> 1) * 2 * kTW;
+    hs = (int64_t)cin * pp * 2 * kTW;
+    ss = kTW;
+  } else {
+    const Item g = item_geom(item, nwb, hop, w, ow);
+    xs = x + (((int64_t)g.b * cin + c) * d + d0) * h * w + g.start;
+    hs = w;
+    ss = (int64_t)h * w;
+    start = g.start;
+  }
+  constexpr int NI = H_ ? (H_ + 15) / 16 : 4;
+  const int q = threadIdx.x % 16, col4 = start + 4 * q, odd = q & 1;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r0 = threadIdx.x / 16; r0 < H; r0 += 16 * NI) {
+    float4 a[NI], b[NI];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int hh = r0 + 16 * i;
+      a[i] = b[i] = zero;
+      if (hh < h) {
+        const float* src = xs + hh * hs + 4 * q;
+        if (PK) {  // B6 wrote the zeros past w and past d
+          a[i] = __ldg(reinterpret_cast<const float4*>(src));
+          b[i] = __ldg(reinterpret_cast<const float4*>(src + ss));
+        } else {
+          a[i] = fetch4(src, col4, w);
+          if (ns > 1) b[i] = fetch4(src + ss, col4, w);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int hh = r0 + 16 * i;
+      if (hh < H) {
+        // columns 4q, 4q + 1 and 4q + 2, 4q + 3, odd lanes the second first
+        // (a quarter-warp's 16-byte stores then fill 8 bank groups)
+        const float4 lo = make_float4(a[i].x, b[i].x, a[i].y, b[i].y);
+        const float4 hi = make_float4(a[i].z, b[i].z, a[i].w, b[i].w);
+        *reinterpret_cast<float4*>(&cell(hh, 4 * q + 2 * odd)) = odd ? hi : lo;
+        *reinterpret_cast<float4*>(&cell(hh, 4 * q + 2 - 2 * odd)) = odd ? lo : hi;
+      }
+    }
+  }
+}
+
+// The one-sided row held by plane row r of the forward after its first W
+// step: slab s (0 or 1) and bin k <= H / 2.
+struct OneSided {
+  int s, k;
+};
+
+__device__ __forceinline__ OneSided one_sided(unsigned r, unsigned ha, unsigned hb) {
+  const int h = ha * hb;
+  if ((int)r >= h) return {1, (int)r == h ? 0 : h / 2};
+  const int kz = r / hb + ha * (r % hb);
+  return 2 * kz > h ? OneSided{1, h - kz} : OneSided{0, kz};
+}
+
+template <int HA_, int HB_, bool X3, bool PK>
+__global__ void __launch_bounds__(kHwThreads, kHwTcBlocks)
 fused3d_hw_forward_tc(const float* __restrict__ x,         // (B, Cin, d, h, w), or packed
                       const uint32_t* __restrict__ frag,   // fused3d.py: _tc_fragments_3d
                       const float2* __restrict__ hfac,     // H factors (HB > 1), see HSplit
@@ -1676,85 +1886,74 @@ fused3d_hw_forward_tc(const float* __restrict__ x,         // (B, Cin, d, h, w),
                       float2* __restrict__ t,              // (items of this launch, Cin, d, H/2+1, 64)
                       int cin, int d, int h, int w, int ow, int nwb, int hop, int item0, int pp,
                       int ha, int hb) {
-  const int H = ha * hb, NBH = H / 2 + 1, PR = H + 2;
+  constexpr int H_ = HA_ * HB_;
+  constexpr int RA = H_ ? bf16_mma::step_size(HA_) : 0, RB = H_ ? bf16_mma::step_size(HB_) : 0;
+  const int HA = H_ ? HA_ : ha, HB = H_ ? HB_ : hb, H = HA * HB, NBH = H / 2 + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* re = reinterpret_cast<float*>(smem_raw);  // two planes of PR rows (px)
-  float* im = re + PR * kTW;
+  const TcPlane<HA_, HB_> cell{reinterpret_cast<float2*>(smem_raw)};
   const int it = blockIdx.x / cin, c = blockIdx.x % cin;
   const int d0 = blockIdx.y * 2, ns = min(2, d - d0);
-  // the plane row of one-sided row q = s NBH + k (slab s, bin k) once the
-  // bins are split: the first slab's where Z[k] is, the second's where
-  // Z[H - k] is, rows H and H + 1 for k = 0 and H / 2
-  short* s_row = reinterpret_cast<short*>(im + PR * kTW);
-  for (int q = threadIdx.x; q < 2 * NBH; q += kHwThreads) {
-    const int s = q / NBH, k = q % NBH;
-    s_row[q] = s == 0 ? bin_row(k, ha, hb) : k == 0 ? H : 2 * k == H ? H + 1 : bin_row(H - k, ha, hb);
-  }
-  copy_pairs<PK>(re, x, 1, ns, H, cin, d, h, w, ow, nwb, hop, item0 + it, c, d0, pp);
-  const TcTable tab = tc_table(frag, ha, hb);
+  load_pair<PK, H_>(cell, x, ns, H, cin, d, h, w, ow, nwb, hop, item0 + it, c, d0, pp);
+  __syncthreads();
+  const TcTable tab = tc_table(frag, HA, HB);
 
   // the H steps: vector m = j2 * 64 + column, elements j1 at rows j1 HB + j2,
   // then the twiddle; vector m = m1 * 64 + column, elements j2 at rows
-  // m1 HB + j2
-  const auto cell = [&](int row, int col) {
-    const int o = px(row, col);
-    return make_float2(re[o], im[o]);
-  };
-  const auto put = [&](int row, int col, float2 v) {
-    const int o = px(row, col);
-    re[o] = v.x;
-    im[o] = v.y;
-  };
-  tc_step<X3>(
-      ha, tab.ra, hb * kTW, tab.a, [&](int m, int j1) { return cell(j1 * hb + m / kTW, m % kTW); },
+  // m1 HB + j2 (a tile: 16 columns of one j2, or of one m1)
+  tc_step<RA, X3>(HA, tab.ra, HB * kTW, tab.a,
+      [&](int m, int j1) { return cell.at(j1 * HB + (m >> 6), j1 + (m >> 6), m & 63); },
       [&](int m, int m1, float2 v) {
-        const int j2 = m / kTW;
-        if (m1 != 0 && hb > 1) v = cmulw_rn<false>(v, __ldg(hfac + ha + hb + m1 * hb + j2));
-        put(m1 * hb + j2, m % kTW, v);
+        const int j2 = m >> 6;
+        if (m1 != 0 && HB > 1) v = cmulw_rn<false>(v, __ldg(hfac + HA + HB + m1 * HB + j2));
+        cell.at(m1 * HB + j2, m1 + j2, m & 63) = v;
       });
   __syncthreads();
-  if (hb > 1) {
-    tc_step<X3>(
-        hb, tab.rb, ha * kTW, tab.b,
-        [&](int m, int j2) { return cell((m / kTW) * hb + j2, m % kTW); },
-        [&](int m, int m2, float2 v) { put((m / kTW) * hb + m2, m % kTW, v); });
+  if (HB > 1) {
+    tc_step<RB, X3>(HB, tab.rb, HA * kTW, tab.b,
+        [&](int m, int j2) { return cell.at((m >> 6) * HB + j2, (m >> 6) + j2, m & 63); },
+        [&](int m, int m2, float2 v) { cell.at((m >> 6) * HB + m2, (m >> 6) + m2, m & 63) = v; });
     __syncthreads();
   }
 
-  // the split of bins k and H - k (k = 0 and H / 2 with themselves) into the
-  // slabs' one-sided rows (s_row)
-  for (int i = threadIdx.x; i < NBH * kTW; i += kHwThreads) {
-    const int k = i / kTW, col = i % kTW;
-    const int r = s_row[k], rb = s_row[NBH + k], rp = k == 0 || 2 * k == H ? r : rb;
-    float2 a = cell(r, col), b = cell(rp, col);
-    split_bins(a, b);
-    put(r, col, a);
-    put(rb, col, b);
-  }
-  __syncthreads();
-
-  // the W steps on the ns * NBH one-sided rows q = s * NBH + k: vector
-  // m = 8 q + j2, elements j1 at columns 8 j1 + j2, then the twiddle;
-  // vector m = 8 q + m1, elements j2 at columns 8 m1 + j2, bins m1 + 8 m2
-  // stored to T
-  const auto orow = [&](int q) -> int { return s_row[q]; };
-  const float2* wtw = wfac + kWA + kWB;
-  bf16_mma::dft_step<8, X3, kHwThreads / 32>(
-      ns * NBH * kWB, tab.w, [&](int m, int j1) { return cell(orow(m / kWB), j1 * kWB + m % kWB); },
+  // W step 1, tile k (k <= H / 2) of vectors v = 8 s + j2: the split of bins
+  // k and H - k at columns 8 j1 + j2 as it loads (split_of), the 8-point DFT
+  // over j1 and the twiddle, in place: slab 0's row where Z[k] was, slab 1's
+  // where Z[H - k] was (rows H and H + 1 for k = 0 and H / 2)
+  const WTwiddles wt(wfac + kWA + kWB);
+  const auto w1_rows = [&](int m, int& ra, int& rb, int& dst) {
+    const int k = m >> 4, s = (m >> 3) & 1;
+    ra = tc_bin_row(k, HA, HB);
+    rb = tc_bin_row(k == 0 ? 0 : H - k, HA, HB);
+    dst = s == 0 ? ra : k == 0 ? H : 2 * k == H ? H + 1 : rb;
+  };
+  bf16_mma::dft_step<8, X3, kHwThreads / 32, true>(NBH * 16, tab.w,
+      [&](int m, int j1) {
+        int ra, rb, dst;
+        w1_rows(m, ra, rb, dst);
+        const int col = j1 * kWB + (m & 7);
+        return split_of((m >> 3) & 1, cell(ra, col), cell(rb, col));
+      },
       [&](int m, int m1, float2 v) {
-        const int j2 = m % kWB;
-        put(orow(m / kWB), m1 * kWB + j2, m1 == 0 ? v : cmulw_rn<false>(v, __ldg(wtw + m1 * kWB + j2)));
+        int ra, rb, dst;
+        w1_rows(m, ra, rb, dst);
+        cell(dst, m1 * kWB + (m & 7)) = m1 == 0 ? v : cmulw_rn<false>(v, wt.of(m1));
       });
   __syncthreads();
+
+  // W step 2, a tile two plane rows: vector m = 8 row + m1, elements j2 at
+  // columns 8 m1 + j2; bins m1 + 8 m2 stored to T's row of the plane row's
+  // one-sided row (the second slab's only when it is inside d)
   float2* tout = t + ((int64_t)blockIdx.x * d + d0) * NBH * kTW;
-  bf16_mma::dft_step<8, X3, kHwThreads / 32>(
-      ns * NBH * kWA, tab.w,
-      [&](int m, int j2) { return cell(orow(m / kWA), (m % kWA) * kWB + j2); },
-      [&](int m, int m2, float2 v) { tout[(int64_t)(m / kWA) * kTW + m % kWA + kWA * m2] = v; });
+  bf16_mma::dft_step<8, X3, kHwThreads / 32, true>(2 * NBH * kWA, tab.w,
+      [&](int m, int j2) { return cell(m >> 3, (m & 7) * kWB + j2); },
+      [&](int m, int m2, float2 v) {
+        const OneSided q = one_sided(m >> 3, HA, HB);
+        if (q.s < ns) tout[((int64_t)q.s * NBH + q.k) * kTW + (m & 7) + kWA * m2] = v;
+      });
 }
 
-template <bool X3>
-__global__ void __launch_bounds__(kHwThreads, 1)
+template <int HA_, int HB_, bool X3>
+__global__ void __launch_bounds__(kHwThreads, kHwTcBlocks)
 fused3d_hw_inverse_tc(const float2* __restrict__ z,       // (items of launch, Cout, od, H/2+1, 64)
                       const uint32_t* __restrict__ frag,  // fused3d.py: _tc_fragments_3d
                       const float2* __restrict__ hfac,    // H factors (HB > 1)
@@ -1762,66 +1961,56 @@ fused3d_hw_inverse_tc(const float2* __restrict__ z,       // (items of launch, C
                       float* __restrict__ out,            // (B, Cout, od, oh, ow)
                       int cout, int w, int od, int oh, int ow, int nwb, int hop, int item0,
                       int ha, int hb) {
-  const int H = ha * hb, NBH = H / 2 + 1, NPOS = NBH * kTW;
+  constexpr int H_ = HA_ * HB_;
+  constexpr int RA = H_ ? bf16_mma::step_size(HA_) : 0, RB = H_ ? bf16_mma::step_size(HB_) : 0;
+  const int HA = H_ ? HA_ : ha, HB = H_ ? HB_ : hb, H = HA * HB, NBH = H / 2 + 1;
+  const int nyq = H + tc_nyquist_offset<HA_, HB_>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float2* s_z = reinterpret_cast<float2*>(smem_raw);  // (2 * NBH, 64) rows (sw)
-  const int tid = threadIdx.x;
+  const TcPlane<HA_, HB_> cell{reinterpret_cast<float2*>(smem_raw)};
   const int d0 = blockIdx.y * 2, ns = min(2, od - d0);
+  // the plane row of V index l < 2 NBH: l itself, but the second slab's
+  // Nyquist (l = H + 1) at nyq; and of the partner of V index j
+  const auto vrow = [&](int l) { return l == H + 1 ? nyq : l; };
+  const auto partner = [&](int j) { return j == 0 ? H : 2 * j == H ? nyq : H - j; };
 
-  // the pair's rows, contiguous in Z; zeros past od
-  const float2* zs = z + ((int64_t)blockIdx.x * od + d0) * NPOS;
-  for (int i = tid; i < 2 * NPOS; i += kHwThreads) {
-    const bool in = i < ns * NPOS;
-    cp_async8(s_z + sw(i / kTW, i % kTW), in ? zs + i : zs, in ? 8 : 0);
+  // the pair's rows of Z, 16-byte copies (zeros for a slab past od): slab
+  // 0's row k at V index k, slab 1's at V index H - k (H for k = 0, H + 1
+  // for k = H / 2)
+  const float2* zs = z + ((int64_t)blockIdx.x * od + d0) * NBH * kTW;
+  for (int i = threadIdx.x; i < 2 * NBH * 32; i += kHwThreads) {
+    const int row = i >> 5, q = i & 31, s = row >= NBH, k = row - s * NBH;
+    const int l = s == 0 ? k : k == 0 ? H : 2 * k == H ? H + 1 : H - k;
+    const bool in = s < ns;
+    cp_async16z(&cell(vrow(l), 2 * q), zs + (in ? (int64_t)row * kTW + 2 * q : 0), in ? 16 : 0);
   }
   cp_async_wait_all();
   __syncthreads();
-  const TcTable tab = tc_table(frag, ha, hb);
+  const TcTable tab = tc_table(frag, HA, HB);
 
-  // the conjugated W steps on the ns * NBH rows: vector m = 8 row + j2, then
-  // the conjugate twiddle; vector m = 8 row + m1, sample m1 + 8 m2 written
-  // to its own column, 1/64 applied (a tile holds two whole rows and loads
-  // them before it stores)
+  // the conjugated W steps on the V rows (slab 1's zeros past od): vector
+  // m = 8 l + j2, then the conjugate twiddle; vector m = 8 l + m1, sample
+  // m1 + 8 m2 written to its own column, 1/64 applied (a tile holds two
+  // whole rows and loads them before it stores)
   const uint32_t* winv = conj_block(tab.w, 8);
-  const float2* wtw = wfac + kWA + kWB;
-  bf16_mma::dft_step<8, X3, kHwThreads / 32>(
-      ns * NBH * kWB, winv,
-      [&](int m, int j1) { return s_z[sw(m / kWB, j1 * kWB + m % kWB)]; },
+  const WTwiddles wt(wfac + kWA + kWB);
+  const int nrows = 2 * NBH;
+  bf16_mma::dft_step<8, X3, kHwThreads / 32, true>(nrows * kWB, winv,
+      [&](int m, int j1) { return cell(vrow(m >> 3), j1 * kWB + (m & 7)); },
       [&](int m, int m1, float2 v) {
-        const int j2 = m % kWB;
-        s_z[sw(m / kWB, m1 * kWB + j2)] =
-            m1 == 0 ? v : cmulw_rn<true>(v, __ldg(wtw + m1 * kWB + j2));
+        cell(vrow(m >> 3), m1 * kWB + (m & 7)) = m1 == 0 ? v : cmulw_rn<true>(v, wt.of(m1));
       });
   __syncthreads();
-  bf16_mma::dft_step<8, X3, kHwThreads / 32>(
-      ns * NBH * kWA, winv,
-      [&](int m, int j2) { return s_z[sw(m / kWA, (m % kWA) * kWB + j2)]; },
+  bf16_mma::dft_step<8, X3, kHwThreads / 32, true>(nrows * kWA, winv,
+      [&](int m, int j2) { return cell(vrow(m >> 3), (m & 7) * kWB + j2); },
       [&](int m, int m2, float2 v) {
-        s_z[sw(m / kWA, m % kWA + kWA * m2)] = make_float2(v.x * (1.f / kTW), v.y * (1.f / kTW));
+        cell(vrow(m >> 3), (m & 7) + kWA * m2) = make_float2(v.x * (1.f / kTW), v.y * (1.f / kTW));
       });
   __syncthreads();
 
-  // V = E_2p + i E_2p+1, Hermitian-extended, in place: V[k] = E_a[k] + i E_b[k]
-  // (real parts only at k = 0 and H / 2) at row k, V[H - k] = conj E_a[k] +
-  // i conj E_b[k] at row NBH + k
-  for (int i = tid; i < NPOS; i += kHwThreads) {
-    const int k = i / kTW, col = i % kTW;
-    const float2 e = s_z[sw(k, col)], f = s_z[sw(NBH + k, col)];
-    if (k == 0 || 2 * k == H) {
-      s_z[sw(k, col)] = make_float2(e.x, f.x);
-    } else {
-      s_z[sw(k, col)] = make_float2(e.x - f.y, e.y + f.x);
-      s_z[sw(NBH + k, col)] = make_float2(e.x + f.y, f.x - e.y);
-    }
-  }
-  __syncthreads();
-
-  // the conjugated H-point DFT of V's columns: vector m = j2 * 64 + column,
-  // elements j1 at V[j1 HB + j2], then the conjugate twiddle; vector
-  // m = m1 * 64 + column, elements j2 at V[m1 HB + j2], onto the rows
-  // h = m1 + HA m2 (for HB = 1 the first step alone, onto h = m1). Row h
-  // below oh: Re to the first slab, Im to the second, 1/H applied, at the
-  // columns in [lo, hi)
+  // the conjugated H-point DFT of V's columns, V formed as the first step
+  // loads it (hermitian_v); then the row h of each output, Re to the first
+  // slab, Im to the second, 1/H applied, below oh and at the columns [lo,
+  // hi)
   const int it = blockIdx.x / cout, o = blockIdx.x % cout;
   const Item g = item_geom(item0 + it, nwb, hop, w, ow);
   float* obase = out + (((int64_t)g.b * cout + o) * od + d0) * oh * ow + g.start;
@@ -1832,27 +2021,46 @@ fused3d_hw_inverse_tc(const float2* __restrict__ z,       // (items of launch, C
       if (ns > 1) obase[((int64_t)oh + hh) * ow + col] = v.y * inv_h;
     }
   };
-  const auto vcell = [&](int j, int col) -> float2& { return s_z[sw(vrow(0, H, j), col)]; };
+  // V[j] from the rows j = j1 HB + j2 and its partner, whose digits are
+  // HA - 1 - j1 and HB - j2 (HA - j1 and 0 for j2 = 0: row H, and the
+  // Nyquist row, which tc_nyquist_offset gives those digits' rot)
+  const auto vload = [&](int j1, int j2, int col) {
+    const int j = j1 * HB + j2, pd = j2 ? HA - 1 - j1 + HB - j2 : HA - j1;
+    return hermitian_v(j, cell.at(j, j1 + j2, col), cell.at(partner(j), pd, col), H);
+  };
   const uint32_t* ainv = conj_block(tab.a, tab.ra);
-  if (hb == 1) {
-    tc_step<X3>(
-        ha, tab.ra, kTW, ainv, [&](int m, int j1) { return vcell(j1, m); },
-        [&](int m, int m1, float2 v) { store(m1, m, v); });
+  if (HB == 1) {  // H < 16: one dense step, vector m = column
+    tc_step<RA, X3>(HA, tab.ra, kTW, ainv, [&](int m, int j1) { return vload(j1, 0, m); },
+                    [&](int m, int m1, float2 v) { store(m1, m, v); });
     return;
   }
-  tc_step<X3>(
-      ha, tab.ra, hb * kTW, ainv,
-      [&](int m, int j1) { return vcell(j1 * hb + m / kTW, m % kTW); },
+  // step 1, a tile 8 columns of j2 and of its mirror HB - j2 (vectors v =
+  // 8 u + column, j2 = q for u = 0, HB - q for u = 1, HB / 2 beside 0):
+  // the rows it loads, j and H - j for j = j2 mod HB, are those it writes,
+  // so it writes in place; the conjugate twiddle
+  const auto h1_vec = [&](int m, int& j2, int& col) {
+    const int q = m >> 7;
+    col = ((m >> 4) & 7) * 8 + (m & 7);
+    j2 = (m & 8) == 0 ? q : q == 0 ? HB / 2 : HB - q;
+  };
+  tc_step<RA, X3>(HA, tab.ra, HB * kTW, ainv,
+      [&](int m, int j1) {
+        int j2, col;
+        h1_vec(m, j2, col);
+        return vload(j1, j2, col);
+      },
       [&](int m, int m1, float2 v) {
-        const int j2 = m / kTW;
-        vcell(m1 * hb + j2, m % kTW) =
-            m1 == 0 ? v : cmulw_rn<true>(v, __ldg(hfac + ha + hb + m1 * hb + j2));
+        int j2, col;
+        h1_vec(m, j2, col);
+        cell.at(m1 * HB + j2, m1 + j2, col) =
+            m1 == 0 ? v : cmulw_rn<true>(v, __ldg(hfac + HA + HB + m1 * HB + j2));
       });
   __syncthreads();
-  tc_step<X3>(
-      hb, tab.rb, ha * kTW, conj_block(tab.b, tab.rb),
-      [&](int m, int j2) { return vcell((m / kTW) * hb + j2, m % kTW); },
-      [&](int m, int m2, float2 v) { store(m / kTW + ha * m2, m % kTW, v); });
+  // step 2: vector m = m1 * 64 + column (m1 < oh), elements j2 at rows
+  // m1 HB + j2, onto the rows h = m1 + HA m2
+  tc_step<RB, X3>(HB, tab.rb, min(HA, oh) * kTW, conj_block(tab.b, tab.rb),
+      [&](int m, int j2) { return cell.at((m >> 6) * HB + j2, (m >> 6) + j2, m & 63); },
+      [&](int m, int m2, float2 v) { store((m >> 6) + HA * m2, m & 63, v); });
 }
 
 // B3's tensor-core D stage: the bins a block (one m-tile of vectors) and its
@@ -1861,100 +2069,135 @@ fused3d_hw_inverse_tc(const float2* __restrict__ z,       // (items of launch, C
 constexpr int kDBinsTc = 16;
 constexpr int kDOpbTc = 4;
 
+// acc (zeros in) += the 16-point DFT step's products for n-tile nt of the A
+// fragments ah (and al under X3) with the matrix frag (hi then lo halves)
+template <bool X3>
+__device__ __forceinline__ void d16_product(float (&acc)[4], const uint32_t (&ah)[2][4],
+                                            const uint32_t (&al)[2][4],
+                                            const uint32_t* __restrict__ frag, int nt, int lane) {
+  float acl[4] = {};
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const uint2 bh = bf16_mma::b_frag<kDB>(frag, s, nt, lane);
+    if (X3) {
+      bf16_mma::mma(acl, al[s], bh);
+      bf16_mma::mma(acl, ah[s], bf16_mma::b_frag<kDB>(frag + 2 * kDB * kDB, s, nt, lane));
+    }
+    bf16_mma::mma(acc, ah[s], bh);
+  }
+  if (X3) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += acl[e];
+  }
+}
+
+// The column of bin b (< 16) in row r of d_mac_tc's tiles: b ^ 4 (r & 3),
+// which puts the 4 rows a quarter of a half-warp reads in distinct banks.
+__device__ __forceinline__ int d_col(int r, int b) { return b ^ ((r & 3) << 2); }
+
 template <int OPB, bool X3>
-__global__ void __launch_bounds__(32 * kDWarps, 1)
+__global__ void __launch_bounds__(32 * kDWarps, 2)
 fused3d_d_mac_tc(const float2* __restrict__ t,        // (items of this launch, Cin, d, nbh, 64)
                  const float2* __restrict__ ks,       // (Cout, Cin/g, 16, nbh, 64), conjugated
                  const uint32_t* __restrict__ dfrag,  // the D 16-point block of the table
                  float2* __restrict__ z,              // (items of this launch, Cout, od, nbh, 64)
                  int cin, int cout, int groups, int d, int nbh, int nbd, int od, int nitem,
-                 int cc) {
+                 int cc, int trows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* s_k = reinterpret_cast<float2*>(smem_raw);  // rows (channel, o, f) of kDBinsTc
-  const int64_t npos = (int64_t)nbh * kTW;
+  float2* s_t = s_k + cc * OPB * kDB * kDBinsTc;      // two tiles of trows rows of kDBinsTc
+  const int npos = nbh * kTW, pos0 = blockIdx.x * kDBinsTc;  // 32-bit: fewer registers
   const int lane = threadIdx.x % 32, g = lane >> 2, tq = lane & 3;
   const int warp = threadIdx.x / 32, nwarp = blockDim.x / 32;
-  const int64_t pos0 = (int64_t)blockIdx.x * kDBinsTc;
   const int cpg = cin / groups, o0 = blockIdx.y * OPB, c0 = o0 / (cout / groups) * cpg;
   const int nchunk = (cpg + cc - 1) / cc, npair = nitem * nbd;
-  const uint32_t* fl = dfrag + 2 * kDB * kDB;             // the forward's lo half
-  const uint32_t* ih = conj_block(dfrag, kDB);            // the conjugated matrix
-  const uint32_t* il = ih + 2 * kDB * kDB;
+  const uint32_t* ih = conj_block(dfrag, kDB);  // the conjugated matrix
+  // this lane's columns of bins g and g + 8 in a row r with r % 4 = tq, which
+  // is every row it reads (d_col)
+  const int ca = g ^ (tq << 2), cb = ca ^ 8;
 
-  auto stage = [&](int k) {
-    const int rows = min(cc, cpg - k * cc) * OPB * kDB;
-    for (int i = threadIdx.x; i < rows * (kDBinsTc / 2); i += blockDim.x) {
-      const int row = i / (kDBinsTc / 2), q = i % (kDBinsTc / 2);
-      const int c = k * cc + row / (OPB * kDB), o = row / kDB % OPB, f = row % kDB;
-      cp_async16(s_k + row * kDBinsTc + 2 * q,
-                 ks + (((int64_t)(o0 + o) * cpg + c) * kDB + f) * npos + pos0 + 2 * q);
+  // the spectra of channel c of the group, rows (c % cc, o, f), 16-byte
+  // copies; those of channels [k cc, k cc + cc) (fewer in the last chunk).
+  // When the group fits one chunk they stay for every round, and the first
+  // round stages them a channel ahead beside T
+  const bool once = nchunk == 1;
+  const auto stage_kc = [&](int c) {
+    for (int i = threadIdx.x; i < OPB * kDB * (kDBinsTc / 2); i += blockDim.x) {
+      const int r = i / (kDBinsTc / 2), q = i % (kDBinsTc / 2), row = c % cc * OPB * kDB + r;
+      const int64_t src = (((int64_t)(o0 + r / kDB) * cpg + c) * kDB + r % kDB) * npos;
+      cp_async16(s_k + row * kDBinsTc + d_col(row, 2 * q), ks + src + (pos0 + 2 * q));
     }
-    cp_async_wait_all();
+  };
+  const auto stage_k = [&](int k) {
+    for (int c = k * cc; c < min(cpg, k * cc + cc); ++c) stage_kc(c);
   };
 
-  if (nchunk == 1) {
-    stage(0);
-    __syncthreads();
-  }
   for (int p0 = 0; p0 < npair; p0 += nwarp) {
     const int p = p0 + warp, it = p / nbd, j = p % nbd;
     const bool live = p < npair;  // uniform in the warp
+    // the round's tile: the slabs 8 j + [0, 16) of each of its pairs, from
+    // row 8 (p - p0) + 8 (items before p's in the round), so that two
+    // D-blocks of an item share their 8 slabs; a warp copies its first 8
+    // rows, and its last 8 too where no pair of the round follows in its
+    // item
+    const int base = 8 * (p - p0) + 8 * (it - p0 / nbd);
+    const int nrow = !live ? 0 : p == min(p0 + nwarp, npair) - 1 || j == nbd - 1 ? 16 : 8;
+    const auto stage_t = [&](int cl, int b) {
+      const float2* src = t + ((int64_t)it * cin + c0 + cl) * d * npos + pos0;
+      float2* dst = s_t + (b * trows + base) * kDBinsTc;
+      for (int i = lane; i < nrow * (kDBinsTc / 2); i += 32) {
+        const int r = i / (kDBinsTc / 2), q = i % (kDBinsTc / 2), sl = j * kDHop + r;
+        cp_async16z(dst + r * kDBinsTc + d_col(r, 2 * q),
+                    src + ((int64_t)min(sl, d - 1) * npos + 2 * q), sl < d ? 16 : 0);
+      }
+    };
+    if (p0 > 0) __syncthreads();  // every read of the last round's tiles is done
+    stage_t(0, 0);
+    if (once && p0 == 0) stage_kc(0);
     // y[o][nt][u]: output channel o, D-bin 4 nt + tq of bin g + 8 u
     float2 y[OPB][4][2];
 #pragma unroll
     for (int o = 0; o < OPB; ++o)
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) y[o][nt][0] = y[o][nt][1] = make_float2(0.f, 0.f);
-    for (int k = 0; k < nchunk; ++k) {
-      if (nchunk > 1) {
+    for (int cl = 0; cl < cpg; ++cl) {
+      if (!once && cl % cc == 0) {
         __syncthreads();  // every read of the last chunk is done
-        stage(k);
-        __syncthreads();
+        stage_k(cl / cc);
+      }
+      cp_async_wait_all();
+      __syncthreads();  // channel cl's tile (and spectra) have landed; tile (cl + 1) % 2 is read
+      if (cl + 1 < cpg) {
+        stage_t(cl + 1, (cl + 1) & 1);
+        if (once && p0 == 0) stage_kc(cl + 1);
       }
       if (!live) continue;
-      const int ncl = min(cc, cpg - k * cc);
-      for (int cl = 0; cl < ncl; ++cl) {
-        // the A fragments: bins g and g + 8, slabs 8 j + e at elements
-        // e = 8 s + tq and e + 4 (zeros past d)
-        const float2* tp = t + ((int64_t)it * cin + c0 + k * cc + cl) * d * npos + pos0;
-        uint32_t ah[2][4], al[2][4];
+      // the A fragments: bins g and g + 8, slabs 8 j + e at elements e = 8 s
+      // + tq and e + 4 (zeros past d)
+      const float2* tb = s_t + ((cl & 1) * trows + base) * kDBinsTc;
+      uint32_t ah[2][4], al[2][4];
 #pragma unroll
-        for (int s = 0; s < 2; ++s) {
+      for (int s = 0; s < 2; ++s) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int sl = j * kDHop + 8 * s + tq + 4 * e;
+        for (int e = 0; e < 2; ++e) {
 #pragma unroll
-            for (int u = 0; u < 2; ++u) {
-              const float2 v = sl < d ? __ldg(tp + sl * npos + g + 8 * u) : make_float2(0.f, 0.f);
-              bf16_mma::split<X3>(v, &ah[s][2 * e + u], &al[s][2 * e + u]);
-            }
+          for (int u = 0; u < 2; ++u) {
+            const float2 v = tb[(8 * s + tq + 4 * e) * kDBinsTc + (u ? cb : ca)];
+            bf16_mma::split<X3>(v, &ah[s][2 * e + u], &al[s][2 * e + u]);
           }
         }
-        // the DFT-16 an n-tile at a time, each tile's D-bins MACed at once
-        const float2* kp = s_k + cl * OPB * kDB * kDBinsTc + g;
+      }
+      // the DFT-16 an n-tile at a time, each tile's D-bins MACed at once
+      const float2* kp = s_k + (cl % cc) * OPB * kDB * kDBinsTc;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          float acc[4] = {}, acl[4] = {};
+      for (int nt = 0; nt < 4; ++nt) {
+        float acc[4] = {};
+        d16_product<X3>(acc, ah, al, dfrag, nt, lane);
 #pragma unroll
-          for (int s = 0; s < 2; ++s) {
-            const uint2 bh = bf16_mma::b_frag<kDB>(dfrag, s, nt, lane);
-            if (X3) {
-              bf16_mma::mma(acl, al[s], bh);
-              bf16_mma::mma(acl, ah[s], bf16_mma::b_frag<kDB>(fl, s, nt, lane));
-            }
-            bf16_mma::mma(acc, ah[s], bh);
-          }
-          if (X3) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[e] += acl[e];
-          }
-          const int f = 4 * nt + tq;
-#pragma unroll
-          for (int o = 0; o < OPB; ++o) {
-            const float2* kr = kp + (o * kDB + f) * kDBinsTc;
-            cmac(y[o][nt][0], make_float2(acc[0], acc[1]), kr[0]);
-            cmac(y[o][nt][1], make_float2(acc[2], acc[3]), kr[8]);
-          }
+        for (int o = 0; o < OPB; ++o) {
+          const float2* kr = kp + (o * kDB + 4 * nt + tq) * kDBinsTc;
+          cmac(y[o][nt][0], make_float2(acc[0], acc[1]), kr[ca]);
+          cmac(y[o][nt][1], make_float2(acc[2], acc[3]), kr[cb]);
         }
       }
     }
@@ -1975,23 +2218,11 @@ fused3d_d_mac_tc(const float2* __restrict__ t,        // (items of this launch, 
             bf16_mma::split<X3>(y[o][2 * s + e][u], &ah[s][2 * e + u], &al[s][2 * e + u]);
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
-        float acc[4] = {}, acl[4] = {};
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          const uint2 bh = bf16_mma::b_frag<kDB>(ih, s, nt, lane);
-          if (X3) {
-            bf16_mma::mma(acl, al[s], bh);
-            bf16_mma::mma(acl, ah[s], bf16_mma::b_frag<kDB>(il, s, nt, lane));
-          }
-          bf16_mma::mma(acc, ah[s], bh);
-        }
-        if (X3) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[e] += acl[e];
-        }
+        float acc[4] = {};
+        d16_product<X3>(acc, ah, al, ih, nt, lane);
         const int dd = j * kDHop + 4 * nt + tq;
         if (dd < od) {
-          float2* zp = z + (((int64_t)it * cout + o0 + o) * od + dd) * npos + pos0 + g;
+          float2* zp = z + (((int64_t)it * cout + o0 + o) * od + dd) * npos + (pos0 + g);
           zp[0] = make_float2(acc[0] * (1.f / kDB), acc[1] * (1.f / kDB));
           zp[8] = make_float2(acc[2] * (1.f / kDB), acc[3] * (1.f / kDB));
         }
@@ -2359,18 +2590,18 @@ cudaError_t launch_tap(const Args& a) {
   return launch_hw_sb(a, sb, false);
 }
 
-// Shared memory of one block of the tensor-core H/W kernels at the working
-// length hw: the forward's two planes of hw + 2 rows of 64 floats, which hold
-// the inverse's two slabs of hw/2+1 rows of 64 complex values too, and the
-// forward's table of 2 (hw/2+1) rows.
+// Shared memory of one block of the tensor-core H/W kernels at the split
+// (HA, HB) ((0, 0): the split taken as arguments) and the working length
+// hw: the plane's rows of 64 complex values.
+template <int HA, int HB>
 size_t tc_smem(int hw) {
-  return (size_t)(hw + 2) * kTW * 2 * sizeof(float) + (size_t)(hw + 2) * sizeof(short);
+  return (size_t)tc_rows<HA, HB>(hw) * kTW * sizeof(float2);
 }
 
-template <bool X3, bool PK>
+template <int HA, int HB, bool X3, bool PK>
 cudaError_t launch_hw_forward_tc(const Args& a) {
-  const auto kernel = fused3d_hw_forward_tc<X3, PK>;
-  const size_t smem = tc_smem(a.hw);
+  const auto kernel = fused3d_hw_forward_tc<HA, HB, X3, PK>;
+  const size_t smem = tc_smem<HA, HB>(a.hw);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.nitem * a.cin, (a.d + 1) / 2), kHwThreads, smem, a.stream>>>(
@@ -2379,10 +2610,10 @@ cudaError_t launch_hw_forward_tc(const Args& a) {
   return cudaGetLastError();
 }
 
-template <bool X3>
+template <int HA, int HB, bool X3>
 cudaError_t launch_hw_inverse_tc(const Args& a) {
-  const auto kernel = fused3d_hw_inverse_tc<X3>;
-  const size_t smem = tc_smem(a.hw);
+  const auto kernel = fused3d_hw_inverse_tc<HA, HB, X3>;
+  const size_t smem = tc_smem<HA, HB>(a.hw);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.nitem * a.cout, (a.od + 1) / 2), kHwThreads, smem, a.stream>>>(
@@ -2391,23 +2622,57 @@ cudaError_t launch_hw_inverse_tc(const Args& a) {
   return cudaGetLastError();
 }
 
-// fused3d_d_mac_tc: as LaunchDMac, on kDBinsTc bins a block
+// One direction of the tensor-core H/W pair built for the split (HA, HB);
+// the forward on B6's layout (pp > 0) is built for (8, 8), the 64^3 row's
+// split, and runs the kernel that takes its split as arguments at any other.
+template <int HA, int HB, bool X3>
+cudaError_t launch_hw_tc_at(const Args& a, bool forward) {
+  if (!forward) return launch_hw_inverse_tc<HA, HB, X3>(a);
+  if (a.pp == 0) return launch_hw_forward_tc<HA, HB, X3, false>(a);
+  if constexpr (HA == 0 || (HA == 8 && HB == 8))
+    return launch_hw_forward_tc<HA, HB, X3, true>(a);
+  else
+    return launch_hw_forward_tc<0, 0, X3, true>(a);
+}
+
+// The tensor-core H/W kernels of one direction: those built for the call's
+// split where it is a row's ((8, 8) at 64^3, (8, 6) at 48^3, (13, 6) at the
+// stuffed 78^3, (7, 12) at the stuffed 84), else those that take it as
+// arguments.
+template <bool X3>
+cudaError_t launch_hw_tc(const Args& a, bool forward) {
+  const auto is = [&](int ha, int hb) { return a.ha == ha && a.hb == hb; };
+  if (is(8, 8)) return launch_hw_tc_at<8, 8, X3>(a, forward);
+  if (is(8, 6)) return launch_hw_tc_at<8, 6, X3>(a, forward);
+  if (is(13, 6)) return launch_hw_tc_at<13, 6, X3>(a, forward);
+  if (is(7, 12)) return launch_hw_tc_at<7, 12, X3>(a, forward);
+  return launch_hw_tc_at<0, 0, X3>(a, forward);
+}
+
+// fused3d_d_mac_tc: as LaunchDMac, on kDBinsTc bins a block, with two tiles
+// of T of the most rows a round of pairs takes
 template <bool X3>
 struct DMacTc {
   template <int OPB>
   struct L {
     static cudaError_t run(const Args& a) {
       const int npos = (a.hw / 2 + 1) * kTW, cpg = a.cin / a.groups;
-      const int warps = std::min(a.nitem * a.nbd, kDWarps);
+      const int npair = a.nitem * a.nbd, warps = std::min(npair, kDWarps);
       const int per_channel = OPB * kDB * kDBinsTc * (int)sizeof(float2);
       const int cc = std::min(cpg, std::max(1, kStageBytes / per_channel));
-      const size_t smem = (size_t)cc * per_channel;
+      int trows = 0;
+      for (int p0 = 0; p0 < npair; p0 += warps) {
+        const int last = std::min(p0 + warps, npair) - 1;
+        trows = std::max(trows, 8 * (last - p0) + 8 * (last / a.nbd - p0 / a.nbd) + kDB);
+      }
+      const size_t smem =
+          (size_t)cc * per_channel + 2 * (size_t)trows * kDBinsTc * sizeof(float2);
       const auto kernel = fused3d_d_mac_tc<OPB, X3>;
       cudaError_t err = allow_smem(kernel, smem);
       if (err != cudaSuccess) return err;
       kernel<<<dim3(npos / kDBinsTc, a.cout / OPB), 32 * warps, smem, a.stream>>>(
-          a.t, a.ks, tc_table(a.frag, a.ha, a.hb).d, a.z, a.cin, a.cout, a.groups, a.d, a.hw / 2 + 1, a.nbd, a.od,
-          a.nitem, cc);
+          a.t, a.ks, tc_table(a.frag, a.ha, a.hb).d, a.z, a.cin, a.cout, a.groups, a.d,
+          a.hw / 2 + 1, a.nbd, a.od, a.nitem, cc, trows);
       return cudaGetLastError();
     }
   };
@@ -2417,13 +2682,12 @@ struct DMacTc {
 // B4 (tap: hw_forward_tc, tap_mac, hw_inverse_tc), X3 for "bf16x3".
 template <bool X3>
 cudaError_t launch_tc_chain(const Args& a, bool tap) {
-  cudaError_t err = a.pp > 0 ? launch_hw_forward_tc<X3, true>(a)
-                             : launch_hw_forward_tc<X3, false>(a);
+  cudaError_t err = launch_hw_tc<X3>(a, true);
   if (err != cudaSuccess) return err;
   err = tap ? launch_opb<LaunchTapMac, kTapOpb>(a)
             : launch_opb<DMacTc<X3>::template L, kDOpbTc>(a);
   if (err != cudaSuccess) return err;
-  return launch_hw_inverse_tc<X3>(a);
+  return launch_hw_tc<X3>(a, false);
 }
 
 // Either chain under MODE 3 ("bf16x3") or 1 ("bf16"), after the checks of
@@ -2433,7 +2697,7 @@ cudaError_t launch_tc(const Args& a, bool tap, int mode) {
                       : a.nbd >= 1 && kDHop * a.nbd >= a.od && kDHop * (a.nbd - 1) < a.od &&
                             a.pp >= 0 && (a.pp == 0 || 2 * a.pp >= a.d);
   if (!ok || !tc_args_ok(a) || (mode != 1 && mode != 3) || (tap && a.pp != 0) ||
-      tc_smem(a.hw) > (size_t)kMaxSmem)
+      tc_smem<0, 0>(a.hw) > (size_t)kMaxSmem)
     return cudaErrorInvalidValue;
   return mode == 3 ? launch_tc_chain<true>(a, tap) : launch_tc_chain<false>(a, tap);
 }

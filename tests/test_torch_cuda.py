@@ -984,9 +984,11 @@ def test_3d_transpose_fused_on_cuda(cuda, k, st, pad, op, dil, groups):
 # working length (37 -> 40), the stuffed 78 (13 x 6) in two W blocks, H =
 # 256, groups 2 and 3 and 3 output channels (4, 2 and 1 a block of
 # d_mac_tc), a group staged in 3 chunks; then B4's at K=10, the stuffed 82
-# (Hw 84), a dense H and groups 3. The twin of the cases of
-# chip_smoke.py:check_fused3d_tc, which runs without the tests: a case added
-# to one belongs in the other.
+# (Hw 84), a dense H and groups 3; then the split (8, 6) of H = 48, 6
+# output channels (2 a block of d_mac_tc, its blocking of 4 not filled), and
+# one (item, D-block) pair at H = 64, fewer than d_mac_tc's warps. The twin
+# of the cases of chip_smoke.py:check_fused3d_tc, which runs without the
+# tests: a case added to one belongs in the other.
 TC_3D = [
     (2, 8, 8, 64, 64, 64, 8, 8, 8, 1),
     (2, 4, 4, 14, 12, 20, 3, 3, 3, 2),
@@ -999,6 +1001,9 @@ TC_3D = [
     (2, 4, 4, 20, 82, 82, 10, 10, 10, 1),
     (2, 4, 4, 24, 12, 20, 12, 3, 7, 1),
     (1, 6, 6, 21, 26, 12, 10, 3, 3, 3),
+    (2, 4, 4, 18, 48, 48, 8, 8, 8, 1),
+    (1, 4, 6, 16, 20, 20, 3, 3, 3, 1),
+    (1, 2, 2, 10, 64, 20, 3, 3, 3, 1),
 ]
 
 
