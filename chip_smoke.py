@@ -26,14 +26,16 @@ at the working lengths 64, 48, 78 and a dense 12; the 3D rows under
 launched once ahead of B3, each held to the composed path; B7's time beside
 the torch spectra it replaces, ``torch.fft.fftn`` and its bound, and each
 call with inline on and off. Phase 5c runs B1 under
-``set_fused_precision("bf16x3")`` and ``("bf16")``, the tensor-core pair of
-``csrc/fused1d.cu``: against its plain version at check_fused1d's cases
-("bf16" under its own bar, ``close_bf16``), through the 1D main paths
+``set_fused_precision("bf16x3")`` and ``("bf16")``, the tensor-core route of
+``csrc/fused1d.cu`` (phase 1, the MAC stage, the inverse stage): against
+its plain version at check_fused1d's cases (among them two with a partial
+block of output channels in the MAC stage; "bf16" under its own bar,
+``close_bf16``), through the 1D main paths
 (``fft_conv``, a plan, the transposed call, ``FFTConv1d``) counted from zero,
 with the three modes' errors against the float64 composed path ordered, and
-timed beside "highest" at the 1D rows; phase 2 fails if any of B1's 36
-entry points spills or a tensor-core one holds no HMMA instruction
-(``cuobjdump -sass``). Phase 5d does the same for B2 under
+timed beside "highest" at the 1D rows, each kernel apart; phase 2 fails if
+any of B1's 30 entry points spills or a tensor-core one holds no HMMA
+instruction (``cuobjdump -sass``). Phase 5d does the same for B2 under
 ``set_fused2d_precision("bf16x3")`` and ``("bf16")``, the tensor-core route
 of ``csrc/fused2d.cu`` (phase 1, the MAC stage, the inverse stage): against
 its plain version at check_fused2d's cases and at the MAC stage's own
@@ -262,7 +264,7 @@ def device_ms(fn):
 
 
 def close_bf16(y, y_ref, what):
-    """The bar of B1's "bf16" tensor-core pair against its plain version
+    """The bar of B1's "bf16" tensor-core route against its plain version
     (tests/test_torch_cuda.py:_assert_bf16_kernel_close): err_mean < 5e-4 *
     sigma and err_max < 2.5e-2 * sigma, sigma = max(1, std(ref)). Both round
     the same operands to bf16, but their FP32 sums can differ in the last
@@ -312,13 +314,15 @@ def check_fused1d(torch, dev, inputs, mode="highest"):
     with groups=2, with the blocks split over several launches, at V1 = 1
     (K = N - 127) for N1 = 16 and 64, on a single block, at Cin = 3 with
     groups=3 and on the stuffed signal of the K=256 transposed row (L =
-    33278). Between them they run each phase at each N1 in both block
-    sizes (512 threads where a phase's grid has no more blocks than the card
-    has SMs: the K=3840 row, the single block, groups=3). The extra cases
+    33278), and at two shapes whose output channels leave the tensor-core
+    route's MAC stage a partial block (Cout = 24 in 2 groups, Cout = 10 from
+    Cin = 6 at B = 3). Between them they run each phase at each N1 in both
+    block sizes (512 threads where a phase's grid has no more blocks than the
+    card has SMs: the K=3840 row, the single block, groups=3). The extra cases
     draw from their own generator. ``mode``: the precision mode, whose
-    kernel pair and plain version are compared ("bf16x3" and "bf16": the
-    tensor-core pair, at the same two block sizes; "bf16" under
-    ``close_bf16``). Returns the rows' max abs errors."""
+    kernels and plain version are compared ("bf16x3" and "bf16": the
+    tensor-core route, whose three kernels take 256 threads a block at every
+    grid; "bf16" under ``close_bf16``). Returns the rows' max abs errors."""
     from fft_conv_tpu_torch.kernels import fused1d
 
     name = "B1" if mode == "highest" else f"B1 {mode}"
@@ -376,6 +380,12 @@ def check_fused1d(torch, dev, inputs, mode="highest"):
     vs_plain(randn(b, cin, ls), randn(cout, cin, k, scale=(cin * k) ** -0.5),
              fused1d.choose_fft_size(k, ls, cin, cout, batch=b), 1,
              f"stuffed transposed length L={ls}, K={k}")
+    # the tensor-core route's MAC blocks of 8 output channels with a
+    # remainder: Cout/g = 12 (8 + 4), and Cout = 10 != Cin over 3 batch rows
+    vs_plain(randn(2, 8, 20000), randn(24, 4, 1000, scale=4000 ** -0.5), 4096, 2,
+             "Cin=8, Cout=24, groups=2, K=1000")
+    vs_plain(randn(3, 6, 9000), randn(10, 6, 300, scale=1800 ** -0.5), 2048, 1,
+             "B=3, Cin=6, Cout=10, K=300")
     torch.cuda.synchronize()
     return errs
 
@@ -435,7 +445,7 @@ def main_path_precision(torch, inputs, mode):
     "bf16"), counted from zero: fft_conv(x, w, bias) (impl="auto") at the
     three 1D rows, a tier-1 plan of each (ops.plan_fft_conv), the
     transposed call fft_conv_transpose(x, w, bias) on each row's signal,
-    and FFTConv1d(8, 8, 1024) forward. Each launches the tensor-core pair
+    and FFTConv1d(8, 8, 1024) forward. Each launches the tensor-core route
     once and the FP32 pair never, and is held to the composed path in
     float64: "bf16x3" under the FP32 bar, "bf16" under the JAX package's
     serving bar (err_mean < 5e-3 * sigma, err_max < 5e-2 * sigma). Returns
@@ -497,14 +507,15 @@ def main_path_precision(torch, inputs, mode):
 
 def phase_precision(torch, dev, inputs, shapes):
     """Phase 5c: B1's precision modes. Under "bf16x3" and "bf16" the
-    tensor-core pair against its plain version at check_fused1d's cases and
+    tensor-core route against its plain version at check_fused1d's cases and
     the main paths of main_path_precision (counted from zero); at the 1D
     rows the errors of fft_conv under the three modes against the composed
     path in float64, ordered "highest" < "bf16x3" < "bf16" with err_mean
     at least 4x and then 50x the one before (the CPU tests measure about
     35x and 650x; a mode running another's arithmetic gives 1x); then the
-    three modes timed side by side at each row: the kernel pair's device time
-    and call latency, its two kernels (profiler), fft_conv and the plan, the
+    three modes timed side by side at each row: the kernels' device time
+    and call latency, each kernel (profiler: the FP32 pair's two, the
+    tensor-core route's three), fft_conv and the plan, the
     plain version, and the bound (``costs.fused1d_work`` for "highest";
     otherwise ``costs.mode_bound``, the lesser of that and
     ``costs.fused1d_tc_work`` with the products at the bf16 rate).
@@ -3479,13 +3490,14 @@ def main() -> int:
             _build.build([name])
     spills = ptxas_spills(_build.build_logs["fused1d"])
     # the FP32 pair: both phases at N1 = 16, 32, 64, each at 256 and 512
-    # threads; the tensor-core pair: the same under "bf16x3" and under
-    # "bf16", each entry point holding HMMA (tensor-core) instructions
+    # threads; the tensor-core route: phase 1, the MAC stage and the inverse
+    # stage at each N1 under "bf16x3" and under "bf16", each entry point
+    # holding HMMA (tensor-core) instructions (each runs DFT steps)
     entries = [fn for fn in spills if "fused1d_" in fn and "_tc" not in fn]
     tc_entries = [fn for fn in spills if "fused1d_" in fn and "_tc" in fn]
-    check(len(entries) == 12 and len(tc_entries) == 24
+    check(len(entries) == 12 and len(tc_entries) == 18
           and not any(sum(v) for v in spills.values()),
-          f"B1's 36 entry points spill registers or are missing: {spills}")
+          f"B1's 30 entry points spill registers or are missing: {spills}")
     hmma = {fn: c for fn, c in sass_hmma(paths["fused1d"]).items() if "fused1d_" in fn}
     check(sorted(fn for fn in hmma if "_tc" in fn) == sorted(tc_entries)
           and all(hmma[fn] > 0 for fn in tc_entries),
@@ -3680,7 +3692,7 @@ def main() -> int:
     time_transposed_1d_2d(torch, inputs, inputs2d)
     time_tier3(torch, inputs2d)
     rows_pack = time_pack3d(torch, timed_pack)
-    # phase 5c: B1's precision modes (the tensor-core pair), counted from zero
+    # phase 5c: B1's precision modes (the tensor-core route), counted from zero
     precision = phase_precision(torch, dev, inputs, shapes)
     # phase 5d: B2's precision modes (its tensor-core route), counted from zero
     precision2d = phase_precision_2d(torch, inputs2d, rows2d)

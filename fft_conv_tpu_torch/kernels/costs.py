@@ -328,18 +328,25 @@ def fused1d_kernel_flops(b, cin, cout, l, k, n, groups=1):
 
 
 def fused1d_tc_work(b, cin, cout, l, k, n, mode, groups=1):
-    """(bytes, product flops, FP32 flops) of B1's tensor-core pair under
+    """(bytes, product flops, FP32 flops) of B1's tensor-core route under
     ``mode`` ("bf16x3" or "bf16") for one call, over whole blocks, as the
-    kernels run it (csrc/fused1d.cu, fused1d_spectra_tc and
-    fused1d_mac_inverse_tc).
+    kernels run it (csrc/fused1d.cu: fused1d_spectra_tc, fused1d_mac_tc,
+    fused1d_inverse_tc).
 
-    Bytes as fused1d_work. Product flops (an FMA as two, a complex R-point
-    step as the real 2R x 2R product), times 3 under "bf16x3": per block and
-    input channel the N1-point DFT of the 64 column pairs (dense at N1 = 16
-    and 32, two 8-point steps at N1 = 64: fused1d._TC_COL_SPLITS) and the
-    row DFTs of the N1/2+1 rows as 16 · 8; per block and output channel the
-    inverse row DFTs and the c2r's N1-point DFT of the 64 pairs onto the V1
-    stored rows (dense: whole n-tiles of 4 rows; factored: all). FP32
+    Bytes: fused1d_work's, plus the two scratch arrays through which the
+    route hands the MAC apart from the transforms: D (blocks, B, Cin,
+    N1/2+1, 128) complex64, written once by phase 1 and read by the MAC
+    stage once for each output-channel block of its group (ceil((Cout/g) /
+    ocb), ocb = min(Cout/g, fused1d._TC_OCB): one read of a D row serves
+    every output channel of a MAC block), and the MAC stage's Y (blocks, B,
+    Cout, N1/2+1, 128), written once and read once by the inverse stage, as
+    fused2d_tc_work counts B2's Y. Product flops (an FMA as two, a complex
+    R-point step as the real 2R x 2R product), times 3 under "bf16x3": per
+    block and input channel the N1-point DFT of the 64 column pairs (dense
+    at N1 = 16 and 32, two 8-point steps at N1 = 64:
+    fused1d._TC_COL_SPLITS) and the row DFTs of the N1/2+1 rows as 16 · 8;
+    per block and output channel the inverse row DFTs and the c2r's
+    N1-point DFT of the 64 pairs onto all N1 rows. FP32
     flops: the split (8 per pair and row), the four-step twiddle (6 per
     bin), the row and column splits' twiddles (6 per product by a root
     other than 1), the MAC, the conjugate twiddle and Hermitian extension
@@ -351,24 +358,29 @@ def fused1d_tc_work(b, cin, cout, l, k, n, mode, groups=1):
     rows = h * (8 * 2 * 32 * 32 + 16 * 2 * 16 * 16)  # 8 vectors of 16, 16 of 8, a row
     row_tw = 6 * h * 8 * 15  # step 1's outputs m1 > 0
     if n1 == 64:  # 8 vectors of 8 points, then 8 more, a pair
-        col = c2r = 64 * 2 * 8 * 2 * 16 * 16
+        col = 64 * 2 * 8 * 2 * 16 * 16
         col_tw = 6 * 64 * 8 * 7
     else:
         col = 64 * 2 * (2 * n1) ** 2
-        c2r = 64 * 2 * (2 * n1) * (8 * -(-v1 // 4))
         col_tw = 0
     fwd = 8 * 64 * h + 6 * h * 128 + row_tw + col_tw
     inv = 8 * (cin // groups) * h * 128 + row_tw + col_tw + 14 * 64 * n1 + v1 * 128
     calls = b * len(blocks)
-    nbytes = fused1d_work(b, cin, cout, l, k, n, groups)[0]
-    return (nbytes, calls * passes * (cin * (col + rows) + cout * (rows + c2r)),
+    from .fused1d import _TC_OCB  # fused1d imports this module
+
+    og = cout // groups
+    reads = -(-og // min(og, _TC_OCB))  # of each D row, one a MAC block
+    plane = 8 * calls * h * 128  # bytes of one channel's planes over the call
+    nbytes = (fused1d_work(b, cin, cout, l, k, n, groups)[0]
+              + plane * (cin * (1 + reads) + 2 * cout))
+    return (nbytes, calls * passes * (cin + cout) * (col + rows),
             calls * (cin * fwd + cout * inv))
 
 
 def fused1d_record(b, cin, cout, l, k, n, groups, mode):
     """The ``record`` of one B1 call under precision ``mode``: "B1" with the
     FP32 pair's count under "highest", "B1_bf16x3" or "B1_bf16" with the
-    tensor-core pair's (product and FP32 flops together) otherwise."""
+    tensor-core route's (product and FP32 flops together) otherwise."""
     if mode == "highest":
         return record("B1", fused1d_kernel_flops(b, cin, cout, l, k, n, groups),
                       fused1d_work(b, cin, cout, l, k, n, groups)[0])

@@ -12,13 +12,12 @@
 // bf16(x - hi); "bf16x3" (X3) accumulates lo.hi + hi.lo in one FP32 fragment
 // and hi.hi in another, added at the end, "bf16" hi.hi alone.
 //
-// Included by fused2d.cu and fused3d.cu. (fused1d.cu keeps its own copies of
-// the mma wrapper and the split, which write split planes rather than read
-// FP32 ones.) fused3d.cu runs an r-point DFT of any r <= 16 as a step of size
-// step_size(r), the r x r matrix in the corner of the larger one: its loads
-// past r read zeros and its stores past r are dropped. Its matrices come in a
-// table per call (fused3d.py: _tc_fragments_3d), each matrix's block
-// table_words(R) words long.
+// Included by fused1d.cu, fused2d.cu and fused3d.cu. fused3d.cu runs an
+// r-point DFT of any r <= 16 as a step of size step_size(r), the r x r
+// matrix in the corner of the larger one: its loads past r read zeros and its
+// stores past r are dropped. Its matrices come in a table per call
+// (fused3d.py: _tc_fragments_3d), each matrix's block table_words(R) words
+// long.
 
 #pragma once
 

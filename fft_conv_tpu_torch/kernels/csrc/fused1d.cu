@@ -67,46 +67,63 @@
 //
 // Tensor-core modes (fused1d.py: set_fused_precision "bf16x3" and "bf16",
 // the JAX package's modes of the same names, fft_conv_tpu/kernels/fused1d.py:
-// 177 and _dot :255). A second kernel pair, fused1d_spectra_tc and
-// fused1d_mac_inverse_tc, runs the same two phases with every DFT step a bf16
-// tensor-core product with an FP32 accumulator (mma.sync m16n8k16), as the TPU
-// kernel forms each DFT matrix product from bf16 operands under those modes:
-//   * stage 1 and the c2r run the N1-point DFT of the 64 column pairs as one
-//     dense product at N1 = 16 and 32 (2 N1 real fills every k-step of 16,
-//     where a radix-4 step would fill half, and needs no inner twiddle), and
-//     as two 8-point steps at N1 = 64 (each fills a k-step, at a quarter of
-//     the dense products and with 1 KB matrices in place of 64 KB);
-//   * the row DFTs run as 16 * 8, two k-steps and then one;
-//   * the twiddle inside a factored DFT is FP32, between its two products.
-// A complex R-point step is the real (2R x 2R) matrix [[Fr, -Fi], [Fi, Fr]]
-// on vectors stored as (re, im) pairs. The vectors are the A operand, 16 a
-// tile, one complex element a 32-bit register of two bf16, and the DFT matrix
-// is the B operand, so each lane's pair of accumulators is one complex output
-// and every operand and result moves as a whole complex value. Each operand is
-// split, hi = bf16(x) and lo = bf16(x - hi): the data where the step before
-// writes it into shared memory, the DFT matrices once on the host
-// (fused1d.py:_tc_fragments), laid out in the order of the B fragments so
-// that a lane reads each fragment as one 8-byte load. "bf16x3" accumulates
-// lo.hi + hi.lo + hi.hi in one FP32 fragment, "bf16" hi.hi alone. The split
-// into one-sided spectra, the four-step twiddles, the MAC, the Hermitian
-// extension and 1/N stay FP32 on CUDA cores, as the TPU kernel keeps them on
-// its vector unit. The matrices are read through L1 and L2, not staged in
-// shared memory: every block reads the same few KB (the dense 32-point pair,
-// hi and lo, is 16 KB), and shared memory holds the planes (83 KB at
-// N1 = 64), so that two blocks still share an SM there. A warp runs up to 4
-// n-tiles at once, each with its own accumulators, so that the chains of
-// dependent products overlap. What bounds these kernels is what bounds the
-// FP32 pair: the blocks' chains of loads and barriers, and phase 2's MAC,
-// which is FP32 in every mode; so they take the FP32 pair's two block sizes
-// by the same rule (see Bound above).
+// 177 and _dot :255, which replace the same TPU kernel, _make_kernel). A
+// route of three kernels <N1, MODE> a block range (entry point
+// fused1d_forward_tc) computes B1's function with every DFT step a bf16
+// mma.sync product with an FP32 accumulator (bf16_mma.cuh: dft_tile), as the
+// TPU kernel forms each DFT product from bf16 operands under those modes:
+// the column DFT and the c2r of the 64 column pairs as one dense N1-point
+// step at N1 = 16 and 32 (2 N1 real fills every k-step of 16 and needs no
+// inner twiddle) and as two 8-point steps at N1 = 64; the row DFTs as 16 * 8.
+// The DFT matrices come from the host (fused1d.py: _tc_fragments) laid out
+// as the B fragments the lanes read. The planes hold FP32 values and a warp
+// splits them into bf16 hi/lo as it loads them; the twiddles (rounded as the
+// plain version rounds them, without FMA), the split into one-sided spectra,
+// the MAC, the Hermitian extension and 1/N stay FP32, and so do D and Y, as
+// the TPU kernel keeps them on its vector unit: the operands of the DFT steps
+// are the only values rounded to bf16. 256 threads a block in each kernel:
+//   phase 1, fused1d_spectra_tc, grid (B * Cin, blocks): the window by 4-byte
+//     cp.async (zeros past L, no branch a load); the column DFT of the
+//     packed pairs A[., c] + i A[., c + 64], its tiles dealt to the warps;
+//     one pass forming C (the split of bins k and -k and the twiddle) in
+//     the row plane; the row DFT of the N1/2+1 rows (rows_tc), whose second
+//     step stores D (blocks, B, Cin, N1/2+1, 128) in natural order from the
+//     products. Three blocks an SM at N1 = 16 (its grid of B * Cin x blocks
+//     in one wave), two elsewhere;
+//   MAC stage, fused1d_mac_tc, grid (unit blocks, N1/2+1, groups x output-
+//     channel blocks): for one bin row k1, upb units (a unit is one block of
+//     one batch row) and ocb output channels (fused1d.py: _tc_geometry),
+//     Y = sum_c D[c] K[o, c] in FP32 in the channels' order (tc_mac.cuh:
+//     mac_rows, the MAC B2's route runs, on B1's spectra strides: one read
+//     of a D row serves every output channel of the block, the spectra of a
+//     block sit in registers, D's rows stream through a cp.async ring); then
+//     the conjugated row DFT of the block's upb * ocb rows, its tiles dealt
+//     to all 8 warps (rows_tc), Y (blocks, B, Cout, N1/2+1, 128) stored in
+//     natural order from the products;
+//   inverse stage, fused1d_inverse_tc, grid (B * Cout, blocks): C, the
+//     c2r's input (the conjugate twiddle and the Hermitian extension), formed
+//     from Y's plane read straight through L1; the c2r of the column pairs
+//     onto the V1 valid rows, stored with 1/N from the products.
+// What bounds them. Where B1's first tensor-core pair re-read D and the
+// spectra through L2 once per output channel in its phase 2 (44.8 / 49.0 /
+// 60.6 MB a call at the benchmark rows, its MAC most of that phase's time
+// when knocked out, PERF.md), the MAC stage reads D once per output-channel
+// block and the spectra once per unit block. The 1D grids are small (B * Cin
+// x blocks = 304 / 176 / 112 at the benchmark rows), so each kernel's time is
+// one block's chain of copies, products and barriers: the MAC stage takes
+// the fewest units a block that fit its grid in one wave of two blocks an SM
+// (upb = 2 there: 171 / 187 / 231 blocks), and the row DFTs deal their tiles
+// to every warp rather than giving each warp rows of its own.
 //
 // Entry points: fused1d_forward and fused1d_forward_tc (plain C interface,
 // loaded with ctypes). Each returns cudaGetLastError() after its launches; 0
-// means both were accepted.
+// means all were accepted.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16_mma.cuh"
+#include "tc_mac.cuh"
 
 namespace {
 
@@ -478,40 +495,38 @@ cudaError_t launch(const float* x, int64_t l_pad, const float2* ks, const float2
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core pair (see the head of this file).
+// The tensor-core route (see the head of this file).
 
-// Shared memory of the tensor-core pair at N1 and MODE (3: "bf16x3", 1:
-// "bf16"). A split plane holds one 32-bit bf16 pair (re, im) a complex
-// element; "bf16x3" keeps a lo plane after each hi plane. Strides are padded so
-// that the fragment loads and the epilogues' stores of a warp fall in distinct
-// banks (two-way at most):
-//   column buffer, N1 rows x 64 column pairs, element (j, c) at j S + c, S = 72
-//     for the dense column DFT (N1 = 16, 32), 65 for the factored one (N1 =
-//     64, whose step 1 reads rows j1 8 + j2 and writes its outputs to a second
-//     buffer of this layout, Q, at rows m1 8 + j2);
-//   Z, the column DFT's output (N1 x 64 float2), bin k of pair c at k Z + c,
-//     Z = 68 (dense) or 65 (factored);
-//   row plane 1 (HP x 128), the row DFT's input, (row, column) at row 128 + column;
-//   row plane 2 (HP x 144), step 2's input, (row, m1, j2) at row 144 + m1 8 +
-//     j2 + 4 (m1 / 4);
-//   E, the inverse row DFT's output (H x 160 float2), bin k2 at k2 + 4 (k2 / 16).
-// HP = H + 1 rows (a zero row last) make the row DFTs whole tiles of 16 vectors.
-// Two regions of the largest plane's size: each step reads one and writes the
-// other (phase 1 dense: column buffer A, Z B, row planes A then B; factored:
-// column buffer A, Q B, Z A, row planes B then A; phase 2: row planes A then
-// B, E A, column buffer B, Q A).
-template <int N1, int MODE>
+constexpr int kTcThreads = 256, kTcWarps = kTcThreads / 32;
+// The MAC stage (tc_mac.cuh: mac_rows): the output channels a thread holds a
+// pass, the input channels a chunk (their spectra in registers), the units
+// in flight in the block's ring of D, and the rows of its plane, which bound
+// upb * ocb (fused1d.py: _TC_PLANE_ROWS). A pass takes kTcThreads / 128 *
+// kMacOJ = 8 output channels, a block's ocb (fused1d.py: _TC_OCB).
+constexpr int kMacOJ = 4;
+constexpr int kMacKC = 4;
+constexpr int kMacStages = 3;
+constexpr int kMacPlaneRows = 64;
+
+// Shared memory of the tensor-core route at N1. Phase 1: the window, N1 rows
+// of WS floats (136 for the dense column DFT, 129 for the factored one, so
+// that a load of either reaches 32 distinct banks), then in its place the
+// row plane (H + 1 rows of 128 complex, swizzled as tc_mac::sw, the last
+// row zero so that row DFT tiles of two rows are whole); beside them the
+// column DFT's output, N1 rows of 68 complex (dense: Z, bin k of pair c at
+// k 68 + c; factored: Q, see qi). The inverse stage: the c2r's input C, N1
+// rows of 68 complex laid out as Q.
+template <int N1>
 struct TcPlan {
-  static constexpr bool kX3 = MODE == 3, kFactored = N1 == 64;
-  static constexpr int kH = N1 / 2 + 1, kHP = kH + 1, kSplit = kX3 ? 2 : 1;
-  static constexpr int kColS = kFactored ? 65 : 72, kZS = kFactored ? 65 : 68;
-  static constexpr int kR1S = kN2, kR2S = 144, kES = 160;
-  static constexpr int kColW = N1 * kColS, kR1W = kHP * kR1S, kR2W = kHP * kR2S;
+  static constexpr bool kFactored = N1 == 64;
+  static constexpr int kH = N1 / 2 + 1;
+  static constexpr int kWS = kFactored ? 129 : 136, kZS = 68;
   static constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
-  static constexpr size_t kRegion = cmax(
-      cmax(cmax(4 * kSplit * kColW, 4 * kSplit * kR1W), cmax(4 * kSplit * kR2W, 8 * kH * kES)),
-      8 * N1 * kZS);
-  static constexpr size_t kSmem = 2 * kRegion;
+  static constexpr size_t kRegion =
+      (cmax(4 * (size_t)N1 * kWS, 8 * (size_t)(kH + 1) * kN2) + 15) / 16 * 16;
+  static constexpr size_t kZ = 8 * (size_t)N1 * kZS;
+  static constexpr size_t kSpectraSmem = kRegion + kZ;
+  static constexpr size_t kInverseSmem = kZ;
   // The fragment buffer (fused1d.py:_tc_fragments), in 32-bit words: the
   // dense N1-point DFT where the column DFT is dense, then the 16- and
   // 8-point DFTs (the rows' split; the 8-point one also the factored column
@@ -521,169 +536,113 @@ struct TcPlan {
   static constexpr int kColF = 0, kColI = 2 * fw(N1), kR16F = kFactored ? 0 : 4 * fw(N1);
   static constexpr int kR16I = kR16F + 2 * fw(16), kR8F = kR16I + 2 * fw(16);
   static constexpr int kR8I = kR8F + 2 * fw(8);
-  static_assert(kRegion % 16 == 0, "unaligned regions");
 };
 
-// Index of (row, m1, j2) in row plane 2: the column m1 8 + j2, padded by 4
-// words every 4 m1.
-__device__ __forceinline__ int r2i(int row, int m1, int j2) {
-  return row * 144 + m1 * kRB + j2 + 4 * (m1 >> 2);
+// The MAC stage's dynamic shared memory for rows = upb * ocb plane rows: the
+// ring, the plane (rows rounded up to even, for the row DFT's tiles of two
+// rows) and each row's offset into Y.
+__host__ __device__ constexpr size_t mac_smem_bytes(int rows) {
+  return sizeof(float2) * (size_t)(kMacStages * kMacKC + (rows + 1) / 2 * 2) * kN2 +
+         sizeof(int64_t) * rows;
 }
 
-// Index of bin k2 in a row of E: padded by 4 every 16 bins.
-__device__ __forceinline__ int ei(int k2) { return k2 + 4 * (k2 >> 4); }
-
-// Writes v split into bf16: hi[i] = bf16 pair (re, im), and under X3
-// lo[i] = the bf16 pair of what hi leaves out.
-template <bool X3>
-__device__ __forceinline__ void put_split(uint32_t* hi, uint32_t* lo, int i, float2 v) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
-  hi[i] = *reinterpret_cast<const uint32_t*>(&h);
-  if (X3) {
-    const float2 hf = __bfloat1622float2(h);
-    const __nv_bfloat162 l = __floats2bfloat162_rn(v.x - hf.x, v.y - hf.y);
-    lo[i] = *reinterpret_cast<const uint32_t*>(&l);
-  }
+// a * w, or a * conj(w) for the inverse, rounded as the plain version rounds
+// it (two products, then their sum, each to FP32; no FMA), so that the bf16
+// operand the next step rounds it to is the plain version's
+template <bool INV>
+__device__ __forceinline__ float2 cmulw_rn(float2 a, float2 w) {
+  if (INV) w.y = -w.y;
+  return make_float2(__fsub_rn(__fmul_rn(a.x, w.x), __fmul_rn(a.y, w.y)),
+                     __fadd_rn(__fmul_rn(a.x, w.y), __fmul_rn(a.y, w.x)));
 }
 
-// acc += A B for one 16 x 16 A fragment a and one 16 x 8 B fragment b, bf16
-// operands, FP32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint32_t (&a)[4], uint2 b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+// Index of (row, column pair c) in a plane of N1 rows of 68 complex, c
+// swizzled by bits 3-4 of the row, so that the factored column DFT's step 1
+// (rows 8 apart), its step 2 and the dense DFT's loads (rows of 4 lanes
+// apart) each reach 16 distinct bank pairs a half-warp.
+__device__ __forceinline__ int qi(int row, int c) {
+  return row * 68 + (c ^ (((row >> 3) & 3) << 2));
 }
 
-// The complex R-point DFT whose split matrix is at frag (hi fragments, then
-// lo) of the vectors in tiles [0, mtiles) of 16, element j of vector m at
-// word ia(m, j) of the split plane (s_hi, s_lo): out(m, k, value) receives
-// the outputs k in n-tiles [0, ntiles) of 4. Each of the block's NW warps
-// takes one m-tile and 1/NG of the n-tiles at a time: it loads the tile's A fragments once, then runs
-// its n-tiles NU at a time, each with its own accumulators so that their
-// product chains overlap: per k-step it reads each n-tile's B fragments (8
-// bytes a lane) and issues hi.hi into one accumulator and, under X3, lo.hi
-// and hi.lo into a second, added at the end (the plain version's grouping).
-// No barrier.
-template <int R, bool X3, int NW, int NG, typename IA, typename OUT>
-__device__ __forceinline__ void dft_mma(const uint32_t* s_hi, const uint32_t* s_lo, int mtiles,
-                                        int ntiles, const uint32_t* __restrict__ frag, IA ia,
-                                        OUT out) {
-  constexpr int KS = R / 8, NT = R / 4, NU = NT < 4 ? NT : 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint2* fh = reinterpret_cast<const uint2*>(frag) + lane;
-  const uint2* fl = reinterpret_cast<const uint2*>(frag + 2 * R * R) + lane;
-  const int per = (ntiles + NG - 1) / NG;
-  for (int item = warp; item < mtiles * NG; item += NW) {
-    const int m0 = (item % mtiles) * 16, nt0 = (item / mtiles) * per;
-    const int nt1 = min(ntiles, nt0 + per);
-    if (nt0 >= nt1) continue;
-    uint32_t ah[KS][4], al[KS][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const int j = ks * 8 + t;
-      const int i0 = ia(m0 + g, j), i1 = ia(m0 + g + 8, j);
-      const int i2 = ia(m0 + g, j + 4), i3 = ia(m0 + g + 8, j + 4);
-      ah[ks][0] = s_hi[i0], ah[ks][1] = s_hi[i1], ah[ks][2] = s_hi[i2], ah[ks][3] = s_hi[i3];
-      if (X3) al[ks][0] = s_lo[i0], al[ks][1] = s_lo[i1], al[ks][2] = s_lo[i2], al[ks][3] = s_lo[i3];
-    }
-    for (int nt = nt0; nt < nt1; nt += NU) {
-      float acc[NU][4] = {}, acl[NU][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-        for (int u = 0; u < NU; ++u) {
-          if (nt + u < nt1) {  // uniform across the warp
-            const int f = (ks * NT + nt + u) * 32;
-            const uint2 bh = __ldg(fh + f);
-            if (X3) {
-              mma_bf16(acl[u], al[ks], bh);
-              mma_bf16(acl[u], ah[ks], __ldg(fl + f));
-            }
-            mma_bf16(acc[u], ah[ks], bh);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < NU; ++u) {
-        if (nt + u < nt1) {
-          if (X3) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[u][e] += acl[u][e];
-          }
-          out(m0 + g, (nt + u) * 4 + t, make_float2(acc[u][0], acc[u][1]));
-          out(m0 + g + 8, (nt + u) * 4 + t, make_float2(acc[u][2], acc[u][3]));
-        }
-      }
-    }
-  }
+// Where bin k of column pair c lies after phase 1's column DFT: dense, Z at
+// k 68 + c; factored, in place in Q at row (k % 8) 8 + k / 8.
+template <int N1>
+__device__ __forceinline__ int zi(int k, int c) {
+  return TcPlan<N1>::kFactored ? qi((k & 7) * 8 + (k >> 3), c) : k * TcPlan<N1>::kZS + c;
 }
 
-// The 128-point DFT (INV: conjugated, unscaled) of the HP rows of row plane 1
-// as 16 * 8: step 1 (vector (row, j2) = row 8 + j2, element j1 at column
-// j1 8 + j2) into row plane 2 with the twiddle rtw[m1 8 + j2] in FP32, a
-// barrier, then step 2 (vector (row, m1) = row 16 + m1, element j2) to
-// out(row, bin m1 + 16 m2, value) for every row, the zero row HP - 1 too.
-template <int N1, int MODE, int NT, bool INV, typename OUT>
-__device__ __forceinline__ void row_dft_tc(const uint32_t* r1_hi, const uint32_t* r1_lo,
-                                           uint32_t* r2_hi, uint32_t* r2_lo,
-                                           const uint32_t* __restrict__ frag,
-                                           const float2* __restrict__ rtw, OUT out) {
-  using T = TcPlan<N1, MODE>;
-  dft_mma<kRA, T::kX3, NT / 32, 1>(
-      r1_hi, r1_lo, T::kHP / 2, kRA / 4, frag + (INV ? T::kR16I : T::kR16F),
-      [](int m, int j) { return (m >> 3) * T::kR1S + j * kRB + (m & 7); },
-      [&](int m, int m1, float2 v) {
-        const int j2 = m & 7;
-        if (m1 != 0) v = cmulw<INV>(v, __ldg(rtw + m1 * kRB + j2));
-        put_split<T::kX3>(r2_hi, r2_lo, r2i(m >> 3, m1, j2), v);
-      });
-  __syncthreads();
-  dft_mma<kRB, T::kX3, NT / 32, 1>(
-      r2_hi, r2_lo, T::kHP, kRB / 4, frag + (INV ? T::kR8I : T::kR8F),
-      [](int m, int j) { return r2i(m >> 4, m & 15, j); },
-      [&](int m, int m2, float2 v) { out(m >> 4, (m & 15) + kRA * m2, v); });
-}
-
-// The N1-point DFT (INV: conjugated, unscaled) of the 64 column pairs in the
-// column buffer (c_hi, c_lo), element (j, c) at j S + c, to out(c, bin, value):
-// one dense product at N1 = 16 and 32; at N1 = 64 two 8-point steps, step 1
-// (vector (j2, c), element j1 at row j1 8 + j2) into Q with the twiddle
-// ctw[m1 8 + j2] in FP32, a barrier, then step 2 (vector (m1, c), element j2
-// at row m1 8 + j2) onto the bins m1 + 8 m2. out needs the bins below
-// nbins: the dense product runs the n-tiles of 4 bins that hold them, step 2
-// all of its bins.
-template <int N1, int MODE, int NT, bool INV, typename OUT>
-__device__ __forceinline__ void col_dft_tc(const uint32_t* c_hi, const uint32_t* c_lo,
-                                           uint32_t* q_hi, uint32_t* q_lo, int nbins,
-                                           const uint32_t* __restrict__ frag,
-                                           const float2* __restrict__ ctw, OUT out) {
-  using T = TcPlan<N1, MODE>;
+// The N1-point DFT (INV: conjugated, unscaled) of the 64 column pairs on the
+// tensor cores, element j of pair c = ld(c, j) (FP32, split into bf16 as it
+// is loaded), bin k to st(c, k, value): one dense step at N1 = 16 and 32,
+// its 4 tiles of 16 pairs dealt to the warps; at N1 = 64 two 8-point steps,
+// step 1 (vector (j2, c), element j1 = ld(c, j1 8 + j2)) into q at qi(m1 8 +
+// j2, c) with the twiddle ctw[m1 8 + j2] in FP32, a barrier, then step 2
+// (vector (m1, c), element j2 at qi(m1 8 + j2, c)) onto the bins m1 + 8 m2.
+// Each tile of either step stores only over the slots it loads, so ld may
+// read q at qi(j, c) and step 2's st may write it in place.
+template <int N1, bool X3, bool INV, typename LD, typename ST>
+__device__ __forceinline__ void col_dft_tc(const uint32_t* __restrict__ frag,
+                                           const float2* __restrict__ ctw, float2* q, LD ld,
+                                           ST st) {
+  using T = TcPlan<N1>;
   if constexpr (!T::kFactored) {
-    dft_mma<N1, T::kX3, NT / 32, NT / 128>(
-        c_hi, c_lo, kPairs / 16, (nbins + 3) / 4, frag + (INV ? T::kColI : T::kColF),
-        [](int m, int j) { return j * T::kColS + m; }, out);
+    bf16_mma::dft_step<N1, X3, kTcWarps, true>(kPairs, frag + (INV ? T::kColI : T::kColF), ld,
+                                               st);
   } else {
     const uint32_t* f8 = frag + (INV ? T::kR8I : T::kR8F);
-    dft_mma<8, T::kX3, NT / 32, 1>(
-        c_hi, c_lo, 8 * kPairs / 16, 2, f8,
-        [](int m, int j) { return (j * 8 + (m >> 6)) * T::kColS + (m & 63); },
+    bf16_mma::dft_step<8, X3, kTcWarps, true>(
+        8 * kPairs, f8, [&](int m, int j1) { return ld(m & 63, j1 * 8 + (m >> 6)); },
         [&](int m, int m1, float2 v) {
           const int j2 = m >> 6;
-          if (m1 != 0) v = cmulw<INV>(v, __ldg(ctw + m1 * 8 + j2));
-          put_split<T::kX3>(q_hi, q_lo, (m1 * 8 + j2) * T::kColS + (m & 63), v);
+          q[qi(m1 * 8 + j2, m & 63)] = m1 == 0 ? v : cmulw_rn<INV>(v, __ldg(ctw + m1 * 8 + j2));
         });
     __syncthreads();
-    dft_mma<8, T::kX3, NT / 32, 1>(
-        q_hi, q_lo, 8 * kPairs / 16, 2, f8,
-        [](int m, int j) { return ((m >> 6) * 8 + j) * T::kColS + (m & 63); },
-        [&](int m, int m2, float2 v) { out(m & 63, (m >> 6) + 8 * m2, v); });
+    bf16_mma::dft_step<8, X3, kTcWarps, true>(
+        8 * kPairs, f8, [&](int m, int j2) { return q[qi((m >> 6) * 8 + j2, m & 63)]; },
+        [&](int m, int m2, float2 v) { st(m & 63, (m >> 6) + 8 * m2, v); });
   }
 }
 
-// Phase 1 under a tensor-core mode: fused1d_spectra's function.
-template <int N1, int MODE, int NT>
-__global__ void __launch_bounds__(NT)
+// The 128-point DFT (INV: conjugated, unscaled) of rows [0, nrows) of a
+// plane swizzled as tc_mac::sw, as 16 * 8 on the tensor cores, the tiles of
+// each step dealt to all of the block's warps and a barrier between the
+// steps, so that a few rows keep every warp busy. Step 1, in place, tile p:
+// the vectors (row, j2) of rows 2p and 2p + 1 (row nrows of an odd nrows
+// read too, and left for no one), element j1 at column j1 8 + j2, its
+// 16-point DFT and the twiddle rtw[m1 8 + j2] in FP32, back at column m1 8 +
+// j2. Step 2, a tile a row: the vectors (row, m1), element j2 at column m1 8
+// + j2, its 8-point DFT to st2(row, bin m1 + 16 m2, value), so that a lane
+// group's stores are 8 consecutive bins of one row.
+template <bool X3, bool INV, typename ST>
+__device__ __forceinline__ void rows_tc(float2* plane, int nrows, const uint32_t* __restrict__ fa,
+                                        const uint32_t* __restrict__ fb,
+                                        const float2* __restrict__ rtw, ST st2) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int p = warp; 2 * p < nrows; p += kTcWarps) {
+    bf16_mma::dft_tile<kRA, X3, true>(
+        0, 16, fa,
+        [&](int v, int j1) { return plane[tc_mac::sw<kN2>(2 * p + (v >> 3), j1 * kRB + (v & 7))]; },
+        [&](int v, int m1, float2 val) {
+          const int j2 = v & 7;
+          plane[tc_mac::sw<kN2>(2 * p + (v >> 3), m1 * kRB + j2)] =
+              m1 == 0 ? val : cmulw_rn<INV>(val, __ldg(rtw + m1 * kRB + j2));
+        });
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int row = warp; row < nrows; row += kTcWarps) {
+    bf16_mma::dft_tile<kRB, X3, true>(
+        0, 16, fb, [&](int m1, int j2) { return plane[tc_mac::sw<kN2>(row, m1 * kRB + j2)]; },
+        [&](int m1, int m2, float2 val) { st2(row, m1 + kRA * m2, val); });
+  }
+}
+
+// Phase 1 of the tensor-core route (MODE 3: "bf16x3", 1: "bf16"):
+// fused1d_spectra's function, every DFT step a bf16 product, grid (B * Cin,
+// blocks of this launch).
+template <int N1, int MODE>
+__global__ void __launch_bounds__(kTcThreads, N1 == 16 ? 3 : 2)
 fused1d_spectra_tc(const float* __restrict__ x, int64_t l_pad, int64_t hop,
                    const uint32_t* __restrict__ frag,  // fused1d.py: _tc_fragments
                    const float2* __restrict__ fac,     // factors, fused1d.py: _device_consts
@@ -691,185 +650,190 @@ fused1d_spectra_tc(const float* __restrict__ x, int64_t l_pad, int64_t hop,
                    float2* __restrict__ d,             // (blocks of this launch, B, Cin, N1/2+1, 128)
                    int blk0, int batch, int cin) {
   using P = Plan<N1>;
-  using T = TcPlan<N1, MODE>;
-  constexpr bool X3 = T::kX3;
-  constexpr int H = T::kH;
+  using T = TcPlan<N1>;
+  constexpr bool X3 = MODE == 3;
+  constexpr int H = T::kH, WS = T::kWS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* a_hi = reinterpret_cast<uint32_t*>(smem_raw);
-  uint32_t* b_hi = reinterpret_cast<uint32_t*>(smem_raw + T::kRegion);
+  float* win = reinterpret_cast<float*>(smem_raw);
+  float2* rp = reinterpret_cast<float2*>(smem_raw);  // the row plane, over the window
+  float2* z = reinterpret_cast<float2*>(smem_raw + T::kRegion);
   const int tid = threadIdx.x;
   const float* xs = x + (int64_t)blockIdx.x * l_pad;
   const int64_t start = (int64_t)(blk0 + blockIdx.y) * hop;
 
-  // the window's column pairs A[j, c] + i A[j, c + 64], split, into the
-  // column buffer (reads past L are zeros)
-  uint32_t* col_lo = a_hi + T::kColW;
-  for (int i = tid; i < N1 * kPairs; i += NT) {
-    const int j = i / kPairs, c = i % kPairs;
-    const int64_t p = start + (int64_t)j * kN2 + c;
-    put_split<X3>(a_hi, col_lo, j * T::kColS + c,
-                  make_float2(p < l_pad ? __ldg(xs + p) : 0.f,
-                              p + kPairs < l_pad ? __ldg(xs + p + kPairs) : 0.f));
+  // the window, samples [start, start + 128 N1) of one channel, into rows of
+  // WS floats by 4-byte cp.async, zeros past L
+  for (int i = tid; i < N1 * kN2; i += kTcThreads) {
+    const int64_t p = start + i;
+    const bool in = p < l_pad;
+    tc_mac::cp_async4(win + (i >> 7) * WS + (i & (kN2 - 1)), xs + (in ? p : 0), in ? 4 : 0);
   }
+  tc_mac::cp_async_wait_all();
   __syncthreads();
 
-  // stage 1: the N1-point DFT of each column pair, to Z
-  float2* z = reinterpret_cast<float2*>(T::kFactored ? a_hi : b_hi);
-  col_dft_tc<N1, MODE, NT, false>(a_hi, col_lo, b_hi, b_hi + T::kColW, N1, frag,
-                              fac + P::kOffCT,
-                              [&](int c, int k, float2 v) { z[k * T::kZS + c] = v; });
+  // stage 1: the N1-point DFT of each column pair A[., c] + i A[., c + 64]
+  col_dft_tc<N1, X3, false>(
+      frag, fac + P::kOffCT, z,
+      [&](int c, int j) { return make_float2(win[j * WS + c], win[j * WS + c + kPairs]); },
+      [&](int c, int k, float2 v) { z[zi<N1>(k, c)] = v; });
   __syncthreads();
 
-  // split Z into the two columns' one-sided spectra (as fused1d_spectra)
-  // and the twiddle, split, into row plane 1; its last row zero
-  uint32_t* r1_hi = T::kFactored ? b_hi : a_hi;
-  uint32_t* r1_lo = r1_hi + T::kR1W;
-  uint32_t* r2_hi = T::kFactored ? a_hi : b_hi;
-  for (int i = tid; i < H * kPairs; i += NT) {
-    const int c = i % kPairs, k1 = i / kPairs;
-    const float2 zk = z[k1 * T::kZS + c], zm = z[((N1 - k1) % N1) * T::kZS + c];
+  // split Z into the two columns' one-sided spectra (as fused1d_spectra) and
+  // the twiddle, C[k1, .] into the row plane; its row H zero
+  for (int i = tid; i < H * kPairs; i += kTcThreads) {
+    const int c = i & (kPairs - 1), k1 = i >> 6;
+    const float2 zk = z[zi<N1>(k1, c)], zm = z[zi<N1>((N1 - k1) & (N1 - 1), c)];
     const float2 xa = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
     const float2 xb = make_float2(0.5f * (zk.y + zm.y), 0.5f * (zm.x - zk.x));
-    put_split<X3>(r1_hi, r1_lo, k1 * T::kR1S + c, cmulw<false>(xa, __ldg(tw + k1 * kN2 + c)));
-    put_split<X3>(r1_hi, r1_lo, k1 * T::kR1S + c + kPairs,
-                  cmulw<false>(xb, __ldg(tw + k1 * kN2 + c + kPairs)));
+    rp[tc_mac::sw<kN2>(k1, c)] = cmulw_rn<false>(xa, __ldg(tw + k1 * kN2 + c));
+    rp[tc_mac::sw<kN2>(k1, c + kPairs)] = cmulw_rn<false>(xb, __ldg(tw + k1 * kN2 + c + kPairs));
   }
-  for (int i = tid; i < kN2; i += NT)
-    put_split<X3>(r1_hi, r1_lo, H * T::kR1S + i, make_float2(0.f, 0.f));
+  for (int i = tid; i < kN2; i += kTcThreads) rp[H * kN2 + i] = make_float2(0.f, 0.f);
   __syncthreads();
 
-  // stage 2: the 128-point DFT of each row, D out in order
+  // stage 2: the 128-point DFT of each row, D out in natural bin order
   float2* dout = d + ((int64_t)blockIdx.y * batch * cin + blockIdx.x) * P::kPlane;
-  row_dft_tc<N1, MODE, NT, false>(r1_hi, r1_lo, r2_hi, r2_hi + T::kR2W, frag, fac + P::kOffRT,
-                              [&](int row, int bin, float2 v) {
-                                if (row < H) dout[row * kN2 + bin] = v;
-                              });
+  rows_tc<X3, false>(rp, H, frag + T::kR16F, frag + T::kR8F, fac + P::kOffRT,
+                     [&](int k1, int bin, float2 v) { dout[k1 * kN2 + bin] = v; });
 }
 
-// Phase 2 under a tensor-core mode: fused1d_mac_inverse's function.
-template <int N1, int MODE, int NT>
-__global__ void __launch_bounds__(NT)
-fused1d_mac_inverse_tc(const float2* __restrict__ d,      // (blocks of this launch, B, Cin, N1/2+1, 128)
-                       const float2* __restrict__ ks,     // (Cout, N1/2+1, Cin/g, 128), conjugated
-                       const uint32_t* __restrict__ frag, // fused1d.py: _tc_fragments
-                       const float2* __restrict__ fac,    // factors, fused1d.py: _device_consts
-                       const float2* __restrict__ tw,     // (N1/2+1, 128)
-                       float* __restrict__ out,           // (B, Cout, v_total)
-                       int blk0, int batch, int cin, int cout, int groups, int v1,
-                       int64_t hop, int64_t v_total) {
+// The MAC stage of the tensor-core route, grid (unit blocks, N1/2+1 bin
+// rows, groups x output-channel blocks): for one bin row k1, units [u0, u0 +
+// nu) of this launch (a unit is one overlap-save block of one batch row,
+// block * B + b) and output channels [oc0, oc0 + oc) of group g, Y[u, o] =
+// sum_c D[u, c] K[o, c] in FP32 (tc_mac.cuh: mac_rows, one read of D's rows
+// for every output channel of the block), then the conjugated 128-point row
+// DFT of those nu * oc rows (rows_tc), Y's rows out in natural order.
+template <int N1, int MODE>
+__global__ void __launch_bounds__(kTcThreads, 2)
+fused1d_mac_tc(const float2* __restrict__ d,       // (units of this launch, Cin, N1/2+1, 128)
+               const float2* __restrict__ ks,      // (Cout, N1/2+1, Cin/g, 128), conjugated
+               const uint32_t* __restrict__ frag,  // fused1d.py: _tc_fragments
+               const float2* __restrict__ fac,     // factors, fused1d.py: _device_consts
+               float2* __restrict__ y,             // (units of this launch, Cout, N1/2+1, 128)
+               int units, int cin, int cout, int groups, int upb, int ocb) {
   using P = Plan<N1>;
-  using T = TcPlan<N1, MODE>;
-  constexpr bool X3 = T::kX3;
-  constexpr int H = T::kH, NH = N1 / 2;
+  using T = TcPlan<N1>;
+  constexpr bool X3 = MODE == 3;
+  constexpr int H = T::kH;
+  constexpr int64_t plane = P::kPlane;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* a_hi = reinterpret_cast<uint32_t*>(smem_raw);
-  uint32_t* b_hi = reinterpret_cast<uint32_t*>(smem_raw + T::kRegion);
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / cout, o = blockIdx.x % cout;
-  const int cpg = cin / groups, g = o / (cout / groups);
+  float2* ring = reinterpret_cast<float2*>(smem_raw);
+  float2* s_p = ring + kMacStages * kMacKC * kN2;
+  int64_t* yrow = reinterpret_cast<int64_t*>(s_p + (size_t)(upb * ocb + 1) / 2 * 2 * kN2);
+  const int cpg = cin / groups, og = cout / groups, noc = (og + ocb - 1) / ocb;
+  const int g = blockIdx.z / noc, oc0 = (blockIdx.z % noc) * ocb, oc = min(ocb, og - oc0);
+  const int u0 = blockIdx.x * upb, nu = min(upb, units - u0), k1 = blockIdx.y;
+  const int rows = nu * oc;
+  for (int r = threadIdx.x; r < rows; r += kTcThreads)  // read after mac_rows' barriers
+    yrow[r] = (((int64_t)(u0 + r / oc) * cout + g * og + oc0 + r % oc) * H + k1) * kN2;
+  tc_mac::mac_rows<kN2, kTcThreads, kMacOJ, kMacKC, kMacStages>(
+      s_p, ring, d + ((int64_t)u0 * cin + (int64_t)g * cpg) * plane + (int64_t)k1 * kN2,
+      cin * plane, plane, ks + ((int64_t)(g * og + oc0) * H + k1) * cpg * kN2,
+      (int64_t)H * cpg * kN2, kN2, cpg, nu, oc);
+  rows_tc<X3, true>(s_p, rows, frag + T::kR16I, frag + T::kR8I, fac + P::kOffRT,
+                    [&](int r, int bin, float2 v) { y[yrow[r] + bin] = v; });
+}
 
-  // per-bin MAC over this out-channel's group (as fused1d_mac_inverse),
-  // split, into row plane 1; its last row zero
-  uint32_t* r1_lo = a_hi + T::kR1W;
-  const float2* dg =
-      d + (((int64_t)blockIdx.y * batch + b) * cin + (int64_t)g * cpg) * P::kPlane;
-  const float2* ko = ks + (int64_t)o * H * cpg * kN2;
-  for (int i = tid; i < P::kPlane; i += NT) {
-    const int k1 = i / kN2, k2 = i % kN2;
-    float2 y = make_float2(0.f, 0.f);
-    for (int ci = 0; ci < cpg; ++ci) {
-      cmac(y, __ldg(dg + (int64_t)ci * P::kPlane + i),
-           __ldg(ko + ((int64_t)k1 * cpg + ci) * kN2 + k2));
-    }
-    put_split<X3>(a_hi, r1_lo, i, y);
+// The inverse stage of the tensor-core route, grid (B * Cout, blocks of this
+// launch), for one (block, b, o): the c2r's input C from Y, as
+// fused1d_mac_inverse forms it (the conjugate twiddle, then the Hermitian
+// extensions G[N1 - k] = conj G[k] of columns c and c + 64 as one complex
+// column G_c + i G_c+64, bins 0 and N1/2 taken real), read straight from Y;
+// then the c2r, the conjugated N1-point DFT of each column pair onto the
+// output rows r < V1: the real part at column c, the imaginary part at c +
+// 64, 1/N folded into the store.
+template <int N1, int MODE>
+__global__ void __launch_bounds__(kTcThreads, 2)
+fused1d_inverse_tc(const float2* __restrict__ y,       // (units of this launch, Cout, N1/2+1, 128)
+                   const uint32_t* __restrict__ frag,  // fused1d.py: _tc_fragments
+                   const float2* __restrict__ fac,     // factors, fused1d.py: _device_consts
+                   const float2* __restrict__ tw,      // (N1/2+1, 128)
+                   float* __restrict__ out,            // (B, Cout, v_total)
+                   int blk0, int v1, int64_t hop, int64_t v_total) {
+  using P = Plan<N1>;
+  constexpr bool X3 = MODE == 3;
+  constexpr int NH = N1 / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float2* cb = reinterpret_cast<float2*>(smem_raw);
+  // unit (block, b), output channel o: Y's plane blockIdx.y * B * Cout + b * Cout + o
+  const float2* yp = y + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * P::kPlane;
+  for (int i = threadIdx.x; i < N1 * kPairs; i += kTcThreads) {
+    const int c = i & (kPairs - 1), k = i >> 6, kk = k <= NH ? k : N1 - k;
+    const float2 ga = cmulw_rn<true>(__ldg(yp + kk * kN2 + c), __ldg(tw + kk * kN2 + c));
+    const float2 gb =
+        cmulw_rn<true>(__ldg(yp + kk * kN2 + c + kPairs), __ldg(tw + kk * kN2 + c + kPairs));
+    const float s = k < NH ? 1.f : -1.f;  // bin N1 - k takes the conjugates
+    cb[qi(k, c)] = k == 0 || k == NH ? make_float2(ga.x, gb.x)
+                                     : make_float2(ga.x - s * gb.y, s * ga.y + gb.x);
   }
-  for (int i = tid; i < kN2; i += NT)
-    put_split<X3>(a_hi, r1_lo, H * T::kR1S + i, make_float2(0.f, 0.f));
   __syncthreads();
 
-  // inverse stage 1: the conjugated 128-point DFT of each row, into E
-  float2* e = reinterpret_cast<float2*>(a_hi);
-  row_dft_tc<N1, MODE, NT, true>(a_hi, r1_lo, b_hi, b_hi + T::kR2W, frag, fac + P::kOffRT,
-                             [&](int row, int bin, float2 v) {
-                               if (row < H) e[row * T::kES + ei(bin)] = v;
-                             });
-  __syncthreads();
-
-  // the conjugate twiddle and the Hermitian extensions of columns c and
-  // c + 64 as one complex column (as fused1d_mac_inverse), split, into the
-  // column buffer at row k
-  uint32_t* col_lo = b_hi + T::kColW;
-  for (int i = tid; i < N1 * kPairs; i += NT) {
-    const int c = i % kPairs, k = i / kPairs, kk = k <= NH ? k : N1 - k;
-    const float2 ga = cmulw<true>(e[kk * T::kES + ei(c)], __ldg(tw + kk * kN2 + c));
-    const float2 gb = cmulw<true>(e[kk * T::kES + ei(c + kPairs)], __ldg(tw + kk * kN2 + c + kPairs));
-    float2 v;
-    if (k == 0 || k == NH)  // real bins: their imaginary parts drop out
-      v = make_float2(ga.x, gb.x);
-    else if (k < NH)  // G_c + i G_c+64
-      v = make_float2(ga.x - gb.y, ga.y + gb.x);
-    else  // conj(G_c) + i conj(G_c+64) of bin N1 - k
-      v = make_float2(ga.x + gb.y, gb.x - ga.y);
-    put_split<X3>(b_hi, col_lo, k * T::kColS + c, v);
-  }
-  __syncthreads();
-
-  // inverse stage 2: the conjugated N1-point DFT of each column pair onto
-  // the output rows r < V1; the real part at column c, the imaginary part at
-  // c + 64, 1/N folded in
   const float scale = 1.f / (float)(N1 * kN2);
   float* orow = out + (int64_t)blockIdx.x * v_total;
   const int64_t base = (int64_t)(blk0 + blockIdx.y) * hop;
-  col_dft_tc<N1, MODE, NT, true>(b_hi, col_lo, a_hi, a_hi + T::kColW, v1, frag, fac + P::kOffCT,
-                             [&](int c, int r, float2 v) {
-                               const int64_t pos = base + (int64_t)r * kN2 + c;
-                               if (r < v1 && pos < v_total) orow[pos] = v.x * scale;
-                               if (r < v1 && pos + kPairs < v_total)
-                                 orow[pos + kPairs] = v.y * scale;
-                             });
+  col_dft_tc<N1, X3, true>(
+      frag, fac + P::kOffCT, cb, [&](int c, int k) { return cb[qi(k, c)]; },
+      [&](int c, int r, float2 v) {
+        const int64_t pos = base + (int64_t)r * kN2 + c;
+        if (r < v1 && pos < v_total) orow[pos] = v.x * scale;
+        if (r < v1 && pos + kPairs < v_total) orow[pos + kPairs] = v.y * scale;
+      });
 }
 
 template <int N1, int MODE>
 cudaError_t launch_tc(const float* x, int64_t l_pad, const float2* ks, const uint32_t* frag,
-                      const float2* fac, const float2* tw, float2* d, float* out, int batch,
-                      int cin, int cout, int groups, int v1, int blk0, int nblk,
-                      int64_t v_total, cudaStream_t stream) {
+                      const float2* fac, const float2* tw, float2* d, float2* y, float* out,
+                      int batch, int cin, int cout, int groups, int v1, int blk0, int nblk,
+                      int64_t v_total, int upb, int ocb, cudaStream_t stream) {
+  using T = TcPlan<N1>;
   if (v1 < 1 || v1 > N1 || nblk < 1 || nblk > 65535 || blk0 < 0 || groups < 1 ||
-      cin % groups || cout % groups)
+      cin % groups || cout % groups || upb < 1 || ocb < 1 || upb * ocb > kMacPlaneRows)
     return cudaErrorInvalidValue;
-  const size_t smem = TcPlan<N1, MODE>::kSmem;
+  const auto spectra = fused1d_spectra_tc<N1, MODE>;
+  const auto mac = fused1d_mac_tc<N1, MODE>;
+  const auto inverse = fused1d_inverse_tc<N1, MODE>;
+  cudaError_t err = cudaFuncSetAttribute(spectra, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)T::kSpectraSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(mac, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)mac_smem_bytes(kMacPlaneRows));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(inverse, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)T::kInverseSmem);
+  if (err != cudaSuccess) return err;
+
   const int64_t hop = (int64_t)v1 * kN2;
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
+  spectra<<<dim3(batch * cin, nblk), kTcThreads, T::kSpectraSmem, stream>>>(
+      x, l_pad, hop, frag, fac, tw, d, blk0, batch, cin);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_phase(fused1d_spectra_tc<N1, MODE, kNarrow>, fused1d_spectra_tc<N1, MODE, kWide>,
-                     batch * cin, nblk, sms, smem, stream, x, l_pad, hop, frag, fac, tw, d,
-                     blk0, batch, cin);
+  const int units = nblk * batch, og = cout / groups;
+  const dim3 mac_grid((units + upb - 1) / upb, T::kH, groups * ((og + ocb - 1) / ocb));
+  mac<<<mac_grid, kTcThreads, mac_smem_bytes(upb * ocb), stream>>>(d, ks, frag, fac, y, units,
+                                                                   cin, cout, groups, upb, ocb);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_phase(fused1d_mac_inverse_tc<N1, MODE, kNarrow>,
-                      fused1d_mac_inverse_tc<N1, MODE, kWide>, batch * cout, nblk, sms, smem,
-                      stream, (const float2*)d, ks, frag, fac, tw, out, blk0, batch, cin, cout,
-                      groups, v1, hop, v_total);
+  inverse<<<dim3(batch * cout, nblk), kTcThreads, T::kInverseSmem, stream>>>(
+      y, frag, fac, tw, out, blk0, v1, hop, v_total);
+  return cudaGetLastError();
 }
 
 template <int MODE>
 cudaError_t launch_tc_n1(int n1, const float* x, int64_t l_pad, const float2* ks,
                          const uint32_t* frag, const float2* fac, const float2* tw, float2* d,
-                         float* out, int batch, int cin, int cout, int groups, int v1, int blk0,
-                         int nblk, int64_t v_total, cudaStream_t stream) {
-  switch (n1) {
-    case 16:
-      return launch_tc<16, MODE>(x, l_pad, ks, frag, fac, tw, d, out, batch, cin, cout, groups,
-                                 v1, blk0, nblk, v_total, stream);
-    case 32:
-      return launch_tc<32, MODE>(x, l_pad, ks, frag, fac, tw, d, out, batch, cin, cout, groups,
-                                 v1, blk0, nblk, v_total, stream);
-    case 64:
-      return launch_tc<64, MODE>(x, l_pad, ks, frag, fac, tw, d, out, batch, cin, cout, groups,
-                                 v1, blk0, nblk, v_total, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+                         float2* y, float* out, int batch, int cin, int cout, int groups, int v1,
+                         int blk0, int nblk, int64_t v_total, int upb, int ocb,
+                         cudaStream_t stream) {
+#define FUSED1D_TC_LAUNCH(N1)                                                                \
+  if (n1 == N1)                                                                              \
+    return launch_tc<N1, MODE>(x, l_pad, ks, frag, fac, tw, d, y, out, batch, cin, cout,     \
+                               groups, v1, blk0, nblk, v_total, upb, ocb, stream);
+  FUSED1D_TC_LAUNCH(16)
+  FUSED1D_TC_LAUNCH(32)
+  FUSED1D_TC_LAUNCH(64)
+#undef FUSED1D_TC_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -907,30 +871,39 @@ extern "C" int fused1d_forward(const void* x, long long l_pad, const void* ks, c
 }
 
 // fused1d_forward under a tensor-core mode: mode 3 is "bf16x3", 1 is
-// "bf16"; frag the fragment buffer of fused1d.py:_tc_fragments(n1), the other
-// arguments as fused1d_forward's. Returns cudaGetLastError() after the two
-// launches (0 when both were accepted).
+// "bf16"; frag the fragment buffer of fused1d.py:_tc_fragments(n1); y
+// scratch (nblk, B, Cout, n1/2+1, 128) complex for the MAC stage's output;
+// upb and ocb the units (block, batch row) and the output channels of a MAC
+// block (fused1d.py: _tc_geometry), upb * ocb at most
+// fused1d_tc_plane_rows(); the other arguments as fused1d_forward's.
+// Returns cudaGetLastError() after the three launches (0 when all were
+// accepted).
 extern "C" int fused1d_forward_tc(const void* x, long long l_pad, const void* ks,
                                   const void* frag, const void* fac, const void* tw, void* d,
-                                  void* out, int batch, int cin, int cout, int groups, int n1,
-                                  int mode, int v1, int blk0, int nblk, long long v_total,
-                                  void* stream) {
+                                  void* y, void* out, int batch, int cin, int cout, int groups,
+                                  int n1, int mode, int v1, int blk0, int nblk, long long v_total,
+                                  int upb, int ocb, void* stream) {
   const auto* xf = static_cast<const float*>(x);
   const auto* ksc = static_cast<const float2*>(ks);
   const auto* fr = static_cast<const uint32_t*>(frag);
   const auto* facc = static_cast<const float2*>(fac);
   const auto* twc = static_cast<const float2*>(tw);
   auto* dc = static_cast<float2*>(d);
+  auto* yc = static_cast<float2*>(y);
   auto* of = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (mode == 3)
-    return launch_tc_n1<3>(n1, xf, l_pad, ksc, fr, facc, twc, dc, of, batch, cin, cout, groups,
-                           v1, blk0, nblk, v_total, s);
+    return launch_tc_n1<3>(n1, xf, l_pad, ksc, fr, facc, twc, dc, yc, of, batch, cin, cout,
+                           groups, v1, blk0, nblk, v_total, upb, ocb, s);
   if (mode == 1)
-    return launch_tc_n1<1>(n1, xf, l_pad, ksc, fr, facc, twc, dc, of, batch, cin, cout, groups,
-                           v1, blk0, nblk, v_total, s);
+    return launch_tc_n1<1>(n1, xf, l_pad, ksc, fr, facc, twc, dc, yc, of, batch, cin, cout,
+                           groups, v1, blk0, nblk, v_total, upb, ocb, s);
   return cudaErrorInvalidValue;
 }
+
+// The rows of the tensor-core route's MAC-stage plane, which bound upb *
+// ocb (fused1d.py: _TC_PLANE_ROWS; a card test holds the two equal).
+extern "C" int fused1d_tc_plane_rows() { return kMacPlaneRows; }
 
 // The CUDA runtime's message for an error code returned above.
 extern "C" const char* fused1d_error_string(int code) {

@@ -193,6 +193,7 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "tc_mac.cuh"
 
 namespace {
 
@@ -941,34 +942,9 @@ __device__ __forceinline__ int stg(int c, int k) {
   return c * T1 + (k ^ (((c + (k >> 4)) & 3) << 2));
 }
 
-// Asynchronous copies into shared memory (cp.async): 16 or 8 bytes, or 4
-// bytes of which only the first `bytes` are read (the rest zero-filled);
-// copies committed as groups, waited for as all or all but the N newest.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using tc_mac::cp_async16;
+using tc_mac::cp_async4;
+using tc_mac::cp_async_wait_all;
 
 // In-place DFT (INV: conjugated, unscaled) of rows [0, nrows) of the plane,
 // T = A * B, on the tensor cores, each warp owning kRowGroup rows at a time
@@ -1151,15 +1127,10 @@ fused2d_spectra_tc(const float* __restrict__ x,        // (B, Cin, hp, wp)
 // output-channel blocks): one bin row k1, output channels [oc0, oc0 + oc) of
 // group g, units [u0, u0 + nu) of this launch (a unit is one tile of one
 // batch row, tile * B + b). Y[u, o] = sum_c D[u, c] K[o, c] in FP32, the
-// group's channels in order, into plane row u * oc + o. Each thread takes
-// one column and, a pass, kMacOJ output channels; a chunk of kMacKC input
-// channels at a time it holds their spectra in registers (read once a
-// block), while the block streams D's rows unit by unit through a ring of
-// kMacStages units in shared memory (16-byte cp.async, kMacStages - 1 units
-// ahead, a barrier a unit), each value serving the kThreads / T2 threads of
-// its column and their kMacOJ output channels each; the sums stay in the
-// plane between chunks. Then the inverse W DFT of every row
-// (row_dft_tc), and Y out as the inverse stage's plane image (row k1,
+// group's channels in order, into plane row u * oc + o (tc_mac.cuh:
+// mac_rows, with kMacOJ output channels a thread and pass, kMacKC input
+// channels a chunk and a ring of kMacStages units, the MAC that B1's route
+// shares). Then the inverse W DFT of every row (row_dft_tc), and Y out as the inverse stage's plane image (row k1,
 // samples in tc_col order, swizzled as sw swizzles row k1). MODE 0 is B5's
 // route, whose inverse runs H first in its own stage: no W DFT here, Y's
 // row k1 out in natural bin order (the same image of it), and no DFT step.
@@ -1173,82 +1144,23 @@ fused2d_mac_tc(const float2* __restrict__ d,        // (units of this launch, Ci
                int units, int cin, int cout, int groups, int upb, int ocb) {
   using P = B2Plan<T1, T2>;
   constexpr bool X3 = MODE == 3;
-  constexpr int L = kThreads / T2, OJ = kMacOJ, KC = kMacKC, NS = kMacStages;
   constexpr int64_t plane = P::kPlane;
-  static_assert(kThreads % T2 == 0, "a block's threads take whole rows");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float2* s_p = reinterpret_cast<float2*>(smem_raw);
   float2* tw = s_p + (size_t)upb * ocb * T2;  // the W twiddle
   const int tid = threadIdx.x;
-  float2* ring = tw + T2;  // stage s, channel c, column: (s * KC + c) * T2 + column
+  float2* ring = tw + T2;  // stage s, channel c, column: (s * kMacKC + c) * T2 + column
   for (int i = tid; i < T2; i += kThreads)
     tw[i] = __ldg(fac + P::kA1 + P::kB1 + T1 + P::kA2 + P::kB2 + i);
 
   const int cpg = cin / groups, og = cout / groups, noc = (og + ocb - 1) / ocb;
   const int g = blockIdx.z / noc, oc0 = (blockIdx.z % noc) * ocb, oc = min(ocb, og - oc0);
   const int u0 = blockIdx.x * upb, nu = min(upb, units - u0);
-  const int k1 = blockIdx.y, col = tid % T2, lane = tid / T2;
-  const float2* dk = d + ((int64_t)u0 * cin + (int64_t)g * cpg) * plane + (int64_t)k1 * T2;
-  const float2* kk = ks + (int64_t)(g * og + oc0) * cpg * plane + (int64_t)k1 * T2 + col;
-  for (int ob = 0; ob < oc; ob += L * OJ) {
-    for (int c0 = 0; c0 < cpg; c0 += KC) {
-      const int nc = min(KC, cpg - c0);
-      // unit u's rows D[u, c0 .. c0 + nc, k1] into ring stage u % NS by the
-      // whole block, 16 bytes a copy; one commit group a unit (empty past
-      // the block's units)
-      auto stage = [&](int u) {
-        if (u < nu) {
-          const float2* src = dk + ((int64_t)u * cin + c0) * plane;
-          float2* dst = ring + (u % NS) * KC * T2;
-          for (int i = tid; i < nc * T2 / 2; i += kThreads) {
-            const int c = i / (T2 / 2), q = 2 * (i % (T2 / 2));
-            cp_async16(dst + c * T2 + q, src + c * plane + q);
-          }
-        }
-        cp_async_commit();
-      };
-#pragma unroll
-      for (int u = 0; u < NS - 1; ++u) stage(u);
-      float2 kr[OJ][KC];
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) {
-#pragma unroll
-        for (int c = 0; c < KC; ++c) {
-          const int o = ob + lane + L * j;
-          kr[j][c] = o < oc && c < nc ? __ldg(kk + ((int64_t)o * cpg + c0 + c) * plane)
-                                      : make_float2(0.f, 0.f);
-        }
-      }
-      for (int u = 0; u < nu; ++u) {
-        cp_async_wait<NS - 2>();  // this thread's copies of unit u have landed
-        __syncthreads();  // every thread's have, and stage (u - 1) % NS is read
-        stage(u + NS - 1);
-        const float2* src = ring + (u % NS) * KC * T2 + col;
-        float2 acc[OJ];
-#pragma unroll
-        for (int j = 0; j < OJ; ++j) {
-          const int o = ob + lane + L * j;
-          acc[j] = c0 > 0 && o < oc ? s_p[sw<T2>(u * oc + o, col)] : make_float2(0.f, 0.f);
-        }
-#pragma unroll
-        for (int c = 0; c < KC; ++c) {
-          if (c < nc) {
-            const float2 dv = src[c * T2];
-#pragma unroll
-            for (int j = 0; j < OJ; ++j) cmac(acc[j], dv, kr[j][c]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < OJ; ++j) {
-          const int o = ob + lane + L * j;
-          if (o < oc) s_p[sw<T2>(u * oc + o, col)] = acc[j];
-        }
-      }
-      __syncthreads();  // the ring is read before the next chunk's prologue refills it
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
+  const int k1 = blockIdx.y;
+  tc_mac::mac_rows<T2, kThreads, kMacOJ, kMacKC, kMacStages>(
+      s_p, ring, d + ((int64_t)u0 * cin + (int64_t)g * cpg) * plane + (int64_t)k1 * T2,
+      cin * plane, plane, ks + (int64_t)(g * og + oc0) * cpg * plane + (int64_t)k1 * T2,
+      cpg * plane, plane, cpg, nu, oc);
 
   // inverse W DFT of the block's rows in place, sample n at tc_col(n)
   const int rows = nu * oc;

@@ -14,11 +14,19 @@ complex column, the 128-point row DFTs as ``_ROW_SPLIT``
 
 ``set_fused_precision`` picks how the DFT products are formed, as the JAX
 package's switch of that name does: "highest" (the default here) runs the
-FP32 kernel pair, "bf16x3" and "bf16" the tensor-core pair of the same
+FP32 kernel pair, "bf16x3" and "bf16" the tensor-core route of the same
 source, whose DFT steps are bf16 products (hi/lo splits, three products or
-one), their column DFTs dense or factored 8 · 8 (``_TC_COL_SPLITS``).
+one), their column DFTs dense or factored 8 · 8 (``_TC_COL_SPLITS``). The
+route is three kernels a block range: phase 1 (D out, as the FP32 pair's),
+a MAC stage (grid unit blocks x N1/2+1 x groups·output-channel blocks,
+``_tc_geometry``: for one bin row, a few units (block, batch row) and 8
+output channels, the FP32 MAC with one read of D for every output channel
+of the block, then the inverse row DFT; Y out, (blocks, B, Cout, N1/2+1,
+128) complex64 beside D) and the inverse stage (grid B·Cout x blocks: Y in,
+the c2r, the valid samples out). A launch takes as many blocks as
+``_SCRATCH_BUDGET`` holds of D and Y, and at least one.
 
-On a CUDA tensor ``_fused_forward`` launches the kernel pair of the mode; on
+On a CUDA tensor ``_fused_forward`` launches the kernels of the mode; on
 a CPU tensor it runs ``_fused_forward_reference``, the same blocked pipeline
 written with torch ops, the mode's roundings included (the counterpart of
 the JAX package's Pallas interpret mode). There is no other route: a CUDA
@@ -74,10 +82,19 @@ _SPECTRA_BUDGET = 16 * 2**20
 _SCRATCH_BUDGET = 256 * 2**20
 # CUDA's limit on gridDim.y, which carries the blocks of one launch.
 _MAX_BLOCKS_PER_LAUNCH = 65535
+# The tensor-core route's MAC stage (csrc/fused1d.cu: fused1d_mac_tc): the
+# output channels of a block (one pass of its 256 threads, 2 rows of 4
+# channels), the rows of its plane, which bound units x output channels
+# (the kernel's kMacPlaneRows), and the blocks an SM holds (its launch
+# bound), by which its grid is counted in waves.
+_TC_OCB = 8
+_TC_PLANE_ROWS = 64
+_TC_BLOCKS_PER_SM = 2
 
 # Launches of the FP32 kernel pair (phase 1 + phase 2) since import or the
-# last reset, and of the tensor-core pair (the modes "bf16x3" and "bf16");
-# the plain version on CPU tensors does not count.
+# last reset, and of the tensor-core route (the modes "bf16x3" and "bf16":
+# phase 1, the MAC stage and the inverse stage), one a block range; the
+# plain version on CPU tensors does not count.
 launches = 0
 launches_tc = 0
 
@@ -327,7 +344,7 @@ def _fused_forward_reference(
     ``x_padded`` (B, Cin, L) already padded, ``kernel`` (Cout, Cin/g, K)
     already dilated; returns the valid correlation (B, Cout, L - K + 1).
     ``spectra``: a plan's baked ``kernel_spectra_one_sided``, or None to
-    compute them. ``mode``: the precision mode whose kernel pair this
+    compute them. ``mode``: the precision mode whose kernels this
     stands for; under "bf16x3" and "bf16" each DFT product rounds its
     operands to bfloat16 where the tensor-core kernels do (``_DOTS``), the
     column DFTs factored as they run them (``_TC_COL_SPLITS``).
@@ -434,23 +451,61 @@ def _library() -> ctypes.CDLL:
         ]
         lib.fused1d_forward.restype = i
         lib.fused1d_forward_tc.argtypes = [
-            p, ll, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ll, p,
+            p, ll, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ll, i, i, p,
         ]
         lib.fused1d_forward_tc.restype = i
+        lib.fused1d_tc_plane_rows.argtypes = []
+        lib.fused1d_tc_plane_rows.restype = i
         lib.fused1d_error_string.argtypes = [i]
         lib.fused1d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tc_geometry(b: int, cin: int, cout: int, groups: int, n: int, nblk: int,
+                 sms: int) -> Tuple[int, int, int]:
+    """The tensor-core route's launch geometry, (blocks a launch, units a MAC
+    block, output channels a MAC block), as ``_launch_fused1d`` passes it to
+    ``fused1d_forward_tc``. A launch takes as many overlap-save blocks as
+    ``_SCRATCH_BUDGET`` holds with both scratch arrays counted, D (blocks,
+    B, Cin, N1/2+1, 128) and the MAC stage's Y (blocks, B, Cout, N1/2+1,
+    128), and at least one. A MAC block takes ``_TC_OCB`` output channels of
+    its group, or the group's Cout/g where fewer, and the fewest units
+    (block, batch row) for which the launch's MAC grid, (units / upb) x
+    (N1/2+1) x groups·ceil((Cout/g) / ocb) blocks, is one wave of
+    ``_TC_BLOCKS_PER_SM`` blocks on each of ``sms`` SMs (or as many as its
+    plane of ``_TC_PLANE_ROWS`` rows holds); the launch's units are then
+    dealt evenly over that many blocks. The 1D grids are small, so a block's
+    own chain sets the stage's time: the fewest units a block that still
+    runs in one wave."""
+    og = cout // groups
+    ocb = min(og, _TC_OCB)
+    per_block = _scratch_bytes_per_block(n, b, cin + cout)
+    chunk = max(1, min(nblk, _SCRATCH_BUDGET // per_block, _MAX_BLOCKS_PER_LAUNCH))
+    units = chunk * b
+    cells = (fused_split(n)[0] // 2 + 1) * groups * -(-og // ocb)
+    top = max(1, _TC_PLANE_ROWS // ocb)
+    upb = next((u for u in range(1, top)
+                if -(-units // u) * cells <= _TC_BLOCKS_PER_SM * sms), top)
+    blocks = -(-units // upb)
+    return chunk, -(-units // blocks), ocb
 
 
 def _launch_fused1d(
     x_padded: torch.Tensor, spectra: torch.Tensor, n: int, groups: int, k: int,
     mode: str = "highest",
 ) -> torch.Tensor:
-    """Runs the CUDA kernel pair of ``mode`` on ``x_padded`` (B, Cin, L)
+    """Runs the CUDA kernels of ``mode`` on ``x_padded`` (B, Cin, L)
     float32 with the one-sided conjugated spectra (Cout, N1/2+1, Cin/g, 128)
     complex64, both contiguous on one CUDA device: the FP32 pair under
-    "highest" (counted in ``launches``), the tensor-core pair under "bf16x3"
-    and "bf16" (``launches_tc``). Returns (B, Cout, L - K + 1)."""
+    "highest" (counted in ``launches``), the tensor-core route under
+    "bf16x3" and "bf16" (three kernels a block range, counted in
+    ``launches_tc``; geometry ``_tc_geometry``). Returns (B, Cout, L - K +
+    1)."""
     global launches, launches_tc
     if mode not in PRECISION_MODES:
         raise ValueError(f"unknown fused precision mode: {mode!r}")
@@ -472,29 +527,36 @@ def _launch_fused1d(
     if per_block > _SCRATCH_BUDGET:
         raise ValueError(f"fused1d kernel: one block of the batch needs {per_block} "
                          f"bytes of scratch, over {_SCRATCH_BUDGET}")
-    chunk = min(nblk, _SCRATCH_BUDGET // per_block, _MAX_BLOCKS_PER_LAUNCH)
-
+    dev = x_padded.device
     lib = _library()
-    fac, tw = _device_consts(n1, x_padded.device)
-    frag = None if mode == "highest" else _tc_fragments(n1, x_padded.device)
-    out = torch.empty((b, cout, v_total), device=x_padded.device, dtype=torch.float32)
-    d = torch.empty((chunk, b, cin, h, _N2), device=x_padded.device, dtype=torch.complex64)
-    stream = torch.cuda.current_stream(x_padded.device).cuda_stream
-    with torch.cuda.device(x_padded.device):
+    fac, tw = _device_consts(n1, dev)
+    if mode == "highest":
+        chunk = min(nblk, _SCRATCH_BUDGET // per_block, _MAX_BLOCKS_PER_LAUNCH)
+    else:
+        chunk, upb, ocb = _tc_geometry(b, cin, cout, groups, n, nblk, _sm_count(dev))
+        frag = _tc_fragments(n1, dev)
+        y = torch.empty((chunk, b, cout, h, _N2), device=dev, dtype=torch.complex64)
+    out = torch.empty((b, cout, v_total), device=dev, dtype=torch.float32)
+    d = torch.empty((chunk, b, cin, h, _N2), device=dev, dtype=torch.complex64)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         for blk0 in range(0, nblk, chunk):
-            pointers = (x_padded.data_ptr(), l_pad, spectra.data_ptr())
-            rest = (fac.data_ptr(), tw.data_ptr(), d.data_ptr(), out.data_ptr(), b, cin, cout,
-                    groups, n1)
-            blocks = (v1, blk0, min(chunk, nblk - blk0), v_total, stream)
-            if frag is None:
-                err = lib.fused1d_forward(*pointers, *rest, *blocks)
+            nb = min(chunk, nblk - blk0)
+            if mode == "highest":
+                err = lib.fused1d_forward(
+                    x_padded.data_ptr(), l_pad, spectra.data_ptr(), fac.data_ptr(),
+                    tw.data_ptr(), d.data_ptr(), out.data_ptr(), b, cin, cout, groups, n1, v1,
+                    blk0, nb, v_total, stream)
             else:
-                err = lib.fused1d_forward_tc(*pointers, frag.data_ptr(), *rest, _TC_MODE[mode],
-                                             *blocks)
+                err = lib.fused1d_forward_tc(
+                    x_padded.data_ptr(), l_pad, spectra.data_ptr(), frag.data_ptr(),
+                    fac.data_ptr(), tw.data_ptr(), d.data_ptr(), y.data_ptr(), out.data_ptr(),
+                    b, cin, cout, groups, n1, _TC_MODE[mode], v1, blk0, nb, v_total, upb, ocb,
+                    stream)
             if err != 0:
                 msg = lib.fused1d_error_string(err).decode()
                 raise RuntimeError(f"fused1d kernel launch failed: {msg} (cudaError {err})")
-            if frag is None:
+            if mode == "highest":
                 launches += 1
             else:
                 launches_tc += 1
@@ -515,7 +577,7 @@ def _fused_forward(
     spectra: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Valid correlation of ``x_padded`` with ``kernel`` at FFT size ``n``:
-    the CUDA kernel pair of the precision mode (read here, at every call)
+    the CUDA kernels of the precision mode (read here, at every call)
     for a CUDA tensor, the plain version of that pair for a CPU one.
     ``spectra``: a plan's baked ``kernel_spectra_one_sided``, or None to
     compute them. They are computed here, ahead of the call's record for a

@@ -26,14 +26,15 @@ def test_library_path_follows_the_headers(csrc, name):
     """Every source's library path changes when a header's bytes change, and
     comes back when they do."""
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["bf16_mma.cuh"]
+    assert [h.name for h in headers] == ["bf16_mma.cuh", "tc_mac.cuh"]
     before = _build.library_path(name)
     assert before.parent == _build.BUILD_DIR and before.name.startswith(f"lib{name}-")
-    text = headers[0].read_bytes()
-    headers[0].write_bytes(text + b"\n// an edit\n")
-    assert _build.library_path(name) != before
-    headers[0].write_bytes(text)
-    assert _build.library_path(name) == before
+    for header in headers:
+        text = header.read_bytes()
+        header.write_bytes(text + b"\n// an edit\n")
+        assert _build.library_path(name) != before
+        header.write_bytes(text)
+        assert _build.library_path(name) == before
 
 
 @pytest.mark.parametrize("name", _build.SOURCES)

@@ -1,6 +1,6 @@
 """The port on a CUDA card: the fused 1D, 2D and 3D kernels (B1, B2, B5, B3,
 B4, the x-pack kernel B6 and the spectra kernel B7) against their plain
-versions, B1's and B2's tensor-core pairs and B3's and B4's tensor-core
+versions, B1's and B2's tensor-core routes and B3's and B4's tensor-core
 chains under each bf16 precision mode too, the serving
 plans, and the routes that only a CUDA tensor takes. B1 is also held at the
 edges of its blocking: V1 = 1, a single block, Cin = 3 with groups = 3 and
@@ -103,9 +103,11 @@ def _assert_bf16_kernel_close(y, y_ref):
     (2, 8, 8, 32768, 256, 2048, 1),    # the 1D benchmark rows
     (2, 8, 8, 32768, 1024, 4096, 1),
     (2, 8, 8, 32768, 3840, 8192, 1),
+    (2, 8, 24, 20000, 1000, 4096, 2),  # Cout/g = 12: output-channel blocks of 8 and 4
+    (3, 6, 10, 9000, 300, 2048, 1),    # Cout = 10 != Cin, blocks of 8 and 2, 3 batch rows
 ])
 def test_tc_kernel_matches_plain_version(cuda, mode, b, cin, cout, l, k, n, groups):
-    """B1's tensor-core pair against its plain version of the same mode:
+    """B1's tensor-core route against its plain version of the same mode:
     "bf16x3" under the FP32 bar, "bf16" under ``_assert_bf16_kernel_close``."""
     x, w = _tensors(cuda, n, (b, cin, l), (cout, cin // groups, k))
     before = fused1d.launches, fused1d.launches_tc
@@ -131,6 +133,32 @@ def test_tc_kernel_in_block_ranges(cuda, monkeypatch, mode):
     check(y.cpu().numpy(), y_ref.numpy())
 
 
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_tc_kernel_block_ranges_count_y(cuda, monkeypatch, mode):
+    """Under a scratch budget of three blocks of D and Y together (D alone
+    would fit six), each launch takes three blocks: 12 blocks in 4 launches,
+    the last MAC grid smaller than the first."""
+    x, w = _tensors(cuda, 4, (2, 4, 18931), (4, 4, 500))
+    n = 2048
+    assert fused1d._blocking(n, 500, 18931)[2] == 12
+    per = fused1d._scratch_bytes_per_block(n, 2, 8)
+    monkeypatch.setattr(fused1d, "_SCRATCH_BUDGET", 3 * per)
+    assert fused1d._tc_geometry(2, 4, 4, 1, n, 12, 132)[0] == 3
+    before = fused1d.launches_tc
+    y = fused1d._launch_fused1d(x, fused1d.kernel_spectra_one_sided(w, n), n, 1, 500, mode)
+    torch.cuda.synchronize()
+    assert fused1d.launches_tc - before == 4
+    y_ref = fused1d._fused_forward_reference(x.cpu(), w.cpu(), n, mode=mode)
+    check = _assert_close_scaled if mode == "bf16x3" else _assert_bf16_kernel_close
+    check(y.cpu().numpy(), y_ref.numpy())
+
+
+def test_tc_plane_rows_match_kernel(cuda):
+    """The host's bound on a MAC block's rows (units x output channels,
+    which ``_tc_geometry`` keeps under) is the kernel's own figure."""
+    assert fused1d._TC_PLANE_ROWS == fused1d._library().fused1d_tc_plane_rows()
+
+
 def test_tc_kernel_refuses_what_it_does_not_run(cuda):
     """An FFT size outside 2048, 4096, 8192 (N1 = 8 here), an unknown mode
     and float64 spectra raise; nothing is launched."""
@@ -151,7 +179,7 @@ def test_tc_kernel_refuses_what_it_does_not_run(cuda):
 def test_tc_modes_route_every_1d_path_on_cuda(cuda, precision, mode):
     """Under a bf16 mode a CUDA tensor's 1D calls (``fft_conv`` under "auto",
     a plan, the transposed route, ``FFTConv1d``, a stream step) launch the
-    tensor-core pair and not the FP32 one, each within the mode's bar of the
+    tensor-core route and not the FP32 pair, each within the mode's bar of the
     composed path; back under "highest" they launch the FP32 pair."""
     x, w, b = _tensors(cuda, 28, (2, 4, 9000), (4, 4, 300), (4,))
     layer = ft.FFTConv1d(4, 4, 256, generator=torch.Generator().manual_seed(0))

@@ -2,9 +2,9 @@
 
 The JAX switch picks how the fused 1D kernel forms each DFT matrix product:
 FP32 ("highest"), three bf16 products of hi/lo splits ("bf16x3") or one
-("bf16"). The port's switch picks the kernel pair: the FP32 pair, or the
-tensor-core pair whose DFT steps are bf16 products. On the CPU the wrapper
-runs that pair's plain version, which rounds each product's operands where
+("bf16"). The port's switch picks the kernels: the FP32 pair, or the
+tensor-core route whose DFT steps are bf16 products. On the CPU the wrapper
+runs their plain version, which rounds each product's operands where
 the kernels do (its column DFTs dense at N1 = 16 and 32 and 8 · 8 at 64,
 its row DFTs 16 · 8); JAX runs its Pallas kernel in interpret mode (its
 "bf16x3" as the exact split ``bf16x3_exact``). Each test sets JAX's mode and
@@ -244,11 +244,12 @@ def _b_matrix(words, r):
 @pytest.mark.parametrize("inverse", [False, True])
 def test_fragments_follow_the_mma_layout(r, inverse):
     """``_b_fragments`` against the PTX fragment layout. 16 complex vectors,
-    their (re, im) pairs in A registers as ``dft_mma`` loads them (elements
-    j = 8 s + t and j + 4 at k-step s), each n-tile's hi fragments through
-    ``_mma``: each lane's accumulators are the complex outputs k = 4 u + t
-    of vectors g and g + 8, equal to the complex DFT with its entries rounded
-    to bf16. And hi + lo holds the float32 matrix to within 2^-17."""
+    their (re, im) pairs in A registers as ``bf16_mma.cuh:dft_tile`` loads
+    them (elements j = 8 s + t and j + 4 at k-step s), each n-tile's hi
+    fragments through ``_mma``: each lane's accumulators are the complex
+    outputs k = 4 u + t of vectors g and g + 8, equal to the complex DFT with
+    its entries rounded to bf16. And hi + lo holds the float32 matrix to
+    within 2^-17."""
     f = fused1d.fft_factor_matrices(r, 1)[0]
     f = np.conj(f) if inverse else f
     hi, lo = fused1d._b_fragments(f)
@@ -293,7 +294,81 @@ def test_cost_analysis_records_the_mode(modes, mode):
                                              "bytes": nbytes}}
     other = costs.fused1d_tc_work(2, 4, 6, 3000, 200, n, "bf16" if mode == "bf16x3" else "bf16x3")
     assert products * (1 if mode == "bf16x3" else 3) == other[1] * (3 if mode == "bf16x3" else 1)
-    assert nbytes == costs.fused1d_work(2, 4, 6, 3000, 200, n)[0] and rest == other[2]
+    nblk = fused1d._blocking(n, 200, 3000)[2]
+    planes = 2 * nblk * (n // 256 + 1) * 128 * 8  # bytes of one channel's D or Y planes
+    # D written once and read once (one output-channel block), Y written and read
+    assert nbytes == costs.fused1d_work(2, 4, 6, 3000, 200, n)[0] + planes * (2 * 4 + 2 * 6)
+    assert rest == other[2]
     ms, by = costs.bound(nbytes, rest, products)
     assert ms == max(nbytes / costs.HBM_BYTES_PER_S,
                      rest / costs.FP32_FLOPS_PER_S + products / costs.BF16_FLOPS_PER_S) * 1e3
+
+
+# (B, Cin, Cout, L, K): the 1D benchmark rows
+BENCH_ROWS = [(2, 8, 8, 32768, 256), (2, 8, 8, 32768, 1024), (2, 8, 8, 32768, 3840)]
+
+
+@pytest.mark.parametrize("b,cin,cout,l,k", BENCH_ROWS)
+def test_tc_geometry_at_the_rows(b, cin, cout, l, k):
+    """At the 1D rows the tensor-core route runs every block in one launch
+    and its MAC stage two units and 8 output channels a block: the fewest
+    units whose grid (171 / 187 / 231 blocks) is one wave of two blocks on
+    each of 132 SMs; one unit a block would take two."""
+    n = fused1d.choose_fft_size(k, l, cin, cout, batch=b)
+    nblk = fused1d._blocking(n, k, l)[2]
+    chunk, upb, ocb = fused1d._tc_geometry(b, cin, cout, 1, n, nblk, 132)
+    assert (chunk, upb, ocb) == (nblk, 2, 8)
+    h = n // 256 + 1
+    assert -(-nblk * b // upb) * h <= 2 * 132 < nblk * b * h
+    assert -(-nblk * b // upb) * h == {256: 171, 1024: 187, 3840: 231}[k]
+
+
+def test_tc_geometry_grouped_with_a_channel_remainder():
+    """Cout/g = 12 is not a multiple of ocb = 8: two output-channel blocks a
+    group (8 and 4), and the units a block rise until the grid is one wave,
+    dealt evenly; Cout/g = 3 takes all three channels in one block."""
+    nblk = fused1d._blocking(4096, 1000, 20000)[2]
+    chunk, upb, ocb = fused1d._tc_geometry(2, 8, 24, 2, 4096, nblk, 132)
+    og, h, units = 12, 17, 2 * nblk
+    assert ocb == 8 and chunk == nblk
+    cells = h * 2 * -(-og // ocb)
+    assert -(-units // upb) * cells <= 2 * 132 and upb * ocb <= fused1d._TC_PLANE_ROWS
+    assert -(-units // (upb - 1)) * cells > 2 * 132
+    chunk, upb, ocb = fused1d._tc_geometry(2, 3, 6, 2, 4096, nblk, 132)
+    assert ocb == 3 and upb * ocb <= fused1d._TC_PLANE_ROWS
+
+
+def test_tc_geometry_counts_d_and_y_under_the_budget(monkeypatch):
+    """A launch takes as many blocks as the scratch budget holds of D (B, Cin
+    planes) and Y (B, Cout planes) together, and at least one when a block of
+    both busts it."""
+    n, b, cin, cout = 2048, 2, 4, 6
+    per = fused1d._scratch_bytes_per_block(n, b, cin + cout)
+    assert per == fused1d._scratch_bytes_per_block(n, b, cin) * (cin + cout) // cin
+    monkeypatch.setattr(fused1d, "_SCRATCH_BUDGET", 3 * per + per // 2)
+    assert fused1d._tc_geometry(b, cin, cout, 1, n, 40, 132)[0] == 3
+    monkeypatch.setattr(fused1d, "_SCRATCH_BUDGET", per - 1)
+    assert fused1d._tc_geometry(b, cin, cout, 1, n, 40, 132)[0] == 1
+    monkeypatch.setattr(fused1d, "_SCRATCH_BUDGET", 10 ** 12)
+    assert fused1d._tc_geometry(b, cin, cout, 1, n, 40, 132)[0] == 40
+
+
+@pytest.mark.parametrize("b,cin,cout,l,k", BENCH_ROWS)
+def test_tc_work_reads_d_once_per_output_channel_block(b, cin, cout, l, k):
+    """``fused1d_tc_work``'s bytes: the function's least bytes, D written once
+    and read once for each output-channel block of its group (one at 8
+    output channels, two at 16: not once for each output channel), and Y
+    written and read once. ``mode_bound`` still takes the FP32 route's
+    least work at the rows."""
+    n = fused1d.choose_fft_size(k, l, cin, cout, batch=b)
+    nblk = fused1d._blocking(n, k, l)[2]
+    plane = b * nblk * (n // 256 + 1) * 128 * 8
+    for co, reads in ((cout, 1), (2 * cout, 2)):
+        nbytes = costs.fused1d_tc_work(b, cin, co, l, k, n, "bf16x3")[0]
+        assert nbytes == costs.fused1d_work(b, cin, co, l, k, n)[0] + plane * (
+            cin * (1 + reads) + 2 * co)
+    for mode in ("bf16x3", "bf16"):
+        fp32 = costs.fused1d_work(b, cin, cout, l, k, n)
+        ms, by, counts = costs.mode_bound(fp32, costs.fused1d_tc_work(b, cin, cout, l, k, n,
+                                                                     mode))
+        assert (ms, by) == costs.bound(*fp32) and counts == (*fp32, 0)

@@ -93,14 +93,14 @@ def knockout_library(name):
     return built_library(src[:start] + body + src[end:], f"knockout_{name}")
 
 
-def built_library(src, tag):
-    """fused2d.cu's text ``src`` built under build/ with the package's nvcc
-    flags and loaded, and nvcc's output."""
+def built_library(src, tag, name="fused2d"):
+    """The text ``src`` of csrc/<name>.cu built under build/ with the
+    package's nvcc flags and loaded, and nvcc's output."""
     from fft_conv_tpu_torch.kernels import _build
 
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    cu = out / f"fused2d_{tag}.cu"
+    cu = out / f"{name}_{tag}.cu"
     cu.write_text(src)
     # the tree's headers (bf16_mma.cuh) beside the copy
     so = cu.with_suffix(".so")
